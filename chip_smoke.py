@@ -15,25 +15,43 @@ non-zero.  Phases:
                  the kernels' build time (one ``nvcc`` per source, all at
                  once) and ptxas's registers / spill bytes per library;
   2. kernels   — K1 flash-decode, K2 flash-attention forward and K3
-                 RMSNorm at the serving path's Llama-3-8B shapes (bf16):
-                 max error against the plain version beside the stated
-                 tolerance, kernel / plain / library / bound times in ms;
+                 RMSNorm at the serving path's Llama-3-8B shapes (bf16),
+                 then K1-paged (decode tick) and K2-paged (suffix prefill)
+                 on pools built so a kernel cannot pass by accident
+                 (physical blocks shuffled, rows sharing their first
+                 blocks, null-filled dead tails), each also at the tiny
+                 model's float32 shapes: max error against the plain
+                 version beside the stated tolerance, kernel / host /
+                 plain / library / bound times in ms;
   3. model     — ``LlamaForCausalLM(llama3_8b_config())``, 32 layers,
                  random weights from a seeded ``torch.Generator``:
                  teacher-forced ``decode_step`` (prefill + 4 decode steps)
                  with the kernels, under ``reference_mode()``, and on a
                  float32 copy of the weights (the truth); the kernel path's
                  logit error against the truth must be within the stated
-                 tolerance of the plain path's; then a tiny float32
-                 engine on the card (kernels) against the same engine on
-                 the CPU (plain versions): greedy tokens must be identical;
+                 tolerance of the plain path's; the same gate for a paged
+                 session (prefix written into scattered blocks, a suffix
+                 prefill at per-row pos > 0, 4 decode steps through the
+                 block table); then a tiny float32 engine on the card
+                 (kernels) against the same engine on the CPU (plain
+                 versions): greedy tokens must be identical, and the
+                 tiny PAGED engine on the card must match both the paged
+                 engine on the CPU and the contiguous engine on the card;
   4. serving   — ``ServingEngine(num_slots=8, max_length=4096,
                  prefill_batch=4)`` on 12 requests of 5..1500 prompt
                  tokens, 32 new tokens each; every launch counter is reset
-                 just before and read just after; tok/s, step ms, TTFT.
+                 just before and read just after; tok/s, step ms, TTFT;
+  4b. serving_paged — the same engine with ``paged=True, block_len=128,
+                 num_blocks=52`` on 16 requests: 8 open with one shared
+                 1536-token system prompt, 8 are unique, interleaved; the
+                 pool is sized so blocks are evicted and admissions wait;
+                 checks prefix hits, launches (K1-paged 32 a decode tick,
+                 K2-paged 32 a wave, contiguous K1/K2 none, no plain
+                 route); tok/s, step ms, TTFT, wave ms.
 
-Then the ``{"kernels": [...]}`` line (launches from phase 4; error and
-times from phase 2) and, last, ``{"ok": true, "device": {...}}``.
+Then the ``{"kernels": [...]}`` line (launches of K1, K2, K3 from phase 4,
+of K1-paged and K2-paged from phase 4b; error and times from phase 2) and,
+last, ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler window over a few decode ticks after
 phase 4 (kernel time by name, device busy share) for PERF.md.
@@ -71,7 +89,23 @@ KERNEL_INFO = {
         "route": "triton",
         "source": "paddle_tpu_torch/ops/triton/rms_norm.py",
         "replaces": "paddle_tpu/ops/pallas/rms_norm.py:32"},
+    "decode_attention_paged": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    "flash_attention_fwd_paged": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
 }
+# the paged kernels have no one-call PyTorch counterpart: their library
+# yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
+PAGED_LIBRARY_NOTE = ("F.scaled_dot_product_attention over a pre-gathered "
+                      "contiguous copy; the gather is not timed")
+LAYERS_8B = 32
+# the kernels of the default (contiguous) engine's path, phase 4
+CONTIGUOUS_PATH = ("decode_attention", "flash_attention_fwd", "rms_norm")
+PAGED_POOL_BLOCKS = 52          # phase 4b: evictions + waiting admissions
 
 
 def emit(obj) -> None:
@@ -148,6 +182,25 @@ def within(a, b, atol: float, rtol: float) -> bool:
 
 # -- phase 1 ------------------------------------------------------------------------
 
+def ptxas_functions(log: str):
+    """Registers and spill-store bytes of each entry function in ptxas's
+    ``-v`` report (mangled names; ``Lb1E`` marks a paged build)."""
+    out, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = {"registers": int(m.group(1)), "spill_stores": spill}
+            fn = None
+    return out
+
+
 def phase_card(torch, pt_build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,7 +216,8 @@ def phase_card(torch, pt_build):
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
         ptxas[name] = {"max_registers": max(regs, default=None),
-                       "spill_store_bytes": sum(spills)}
+                       "spill_store_bytes": sum(spills),
+                       "functions": ptxas_functions(log)}
     emit({"phase": "card", "nvidia_smi": card,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
@@ -174,6 +228,31 @@ def phase_card(torch, pt_build):
 
 
 # -- phase 2 ------------------------------------------------------------------------
+
+def paged_layout(pos_list, s, bl, mb, share, seed):
+    """Block tables for rows reading keys [0, min(pos_b + s, mb * bl)):
+    physical blocks drawn from a shuffled pool (8 spare blocks no row
+    references), each ``(r0, r1, n)`` of ``share`` making row r1 reuse row
+    r0's first n blocks, the dead tail null (block 0).  Returns (int32
+    tables (B, mb), pool size in blocks, distinct live keys)."""
+    import numpy as np
+    need = [min(mb, -(-(p + s) // bl)) for p in pos_list]
+    rng = np.random.RandomState(seed)
+    n_blocks = sum(need) + 9
+    free = list(rng.permutation(np.arange(1, n_blocks)))
+    tables = np.zeros((len(pos_list), mb), np.int32)
+    for r, n in enumerate(need):
+        for j in range(n):
+            tables[r, j] = free.pop()
+    for r0, r1, n in share:
+        tables[r1, :min(n, need[r0], need[r1])] = \
+            tables[r0, :min(n, need[r0], need[r1])]
+    live = set()
+    for r, p in enumerate(pos_list):
+        for j in range(min(p + s, mb * bl)):
+            live.add((int(tables[r, j // bl]), j % bl))
+    return tables, n_blocks, len(live)
+
 
 def phase_kernels(torch):
     from paddle_tpu_torch.ops import (cached_decode_attention,
@@ -198,12 +277,14 @@ def phase_kernels(torch):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
-               main):
+               main, note=None):
         ms, hms = time_ms(torch, kfns), host_ms(torch, kfns)
         row = {"phase": "kernels", "kernel": name, "shape": shape,
                "max_err": err, "tol": tol, "ok": ok, "kernel_ms": ms,
                "host_ms": hms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                "bound_by": by}
+        if note:
+            row["library_note"] = note
         emit(row)
         check(ok, f"{name} {shape}: max error {err} beyond {tol}")
         agg = results.setdefault(name, {"max_abs_err": 0.0})
@@ -323,6 +404,91 @@ def phase_kernels(torch):
                f"{lse_tol}", ok, kfns, plain_ms, lib_ms, bms, by, main)
         del sets, q, k, v, out, lse, ref, ref_lse
 
+    # ---- K1-paged / K2-paged: the paged engine's decode tick (s = 1) and
+    # suffix prefill (s > 1) over a pool of block_len-token blocks, bf16 at
+    # head_dim 128 (block_len 128, max_blocks 32: max_length 4096), then
+    # the tiny model's float32 builds (head_dim 16).  Every pool has its
+    # physical blocks shuffled, two row pairs sharing their first blocks
+    # and null-filled dead tails; rows whose pos + s passes
+    # max_blocks * block_len check the clamp.
+    paged_rows = (
+        # K1-paged: K1's phase-2 depths, so the two rows compare
+        ("decode_attention_paged", bf16, 32, 8, 128, 8, 1, 128, 32,
+         [0, 4095, 17, 1000, 2047, 3000, 511, 128], ((1, 4, 16), (5, 3, 8)),
+         True),
+        ("decode_attention_paged", bf16, 32, 8, 128, 2, 1, 16, 64,
+         [33, 1000], ((0, 1, 2),), False),
+        ("decode_attention_paged", f32, 4, 2, 16, 2, 1, 8, 8, [0, 40],
+         ((0, 1, 1),), False),
+        ("decode_attention_paged", f32, 4, 2, 16, 3, 1, 16, 4, [63, 5, 20],
+         ((0, 2, 1),), False),
+        # K2-paged: a 2048-token suffix bucket of 4 rows at adopted prefix
+        # lengths 0..2048 (within max_length 4096)
+        ("flash_attention_fwd_paged", bf16, 32, 8, 128, 4, 2048, 128, 32,
+         [0, 128, 1024, 2048], ((2, 3, 8), (0, 1, 1)), True),
+        ("flash_attention_fwd_paged", bf16, 32, 8, 128, 2, 8, 128, 32,
+         [5, 700], ((0, 1, 1),), False),
+        ("flash_attention_fwd_paged", bf16, 32, 8, 128, 3, 100, 128, 32,
+         [0, 300, 4000], ((1, 2, 2),), False),
+        ("flash_attention_fwd_paged", f32, 4, 2, 16, 2, 24, 8, 8, [5, 50],
+         ((0, 1, 1),), False),
+        ("flash_attention_fwd_paged", f32, 4, 2, 16, 3, 64, 16, 4,
+         [0, 17, 40], ((1, 2, 1),), False))
+    for (name, dt, hq, hkv, d, b, s, bl, mb, pos_list, share,
+         main) in paged_rows:
+        atol, rtol = tols(dt)
+        esz = 2 if dt == bf16 else 4
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        tables, n_blocks, live_keys = paged_layout(pos_list, s, bl, mb,
+                                                   share, seed=len(pos_list))
+        tables = torch.from_numpy(tables).to(dev)
+        nb = 2 * n_blocks * bl * hkv * d * esz
+        sets = [(randn(b, s, hq, d, dtype=dt),
+                 randn(n_blocks, bl, hkv, d, dtype=dt),
+                 randn(n_blocks, bl, hkv, d, dtype=dt))
+                for _ in range(copies(nb + b * s * hq * d * esz))]
+        q, kp, vp = sets[0]
+        got = cached_decode_attention(q, kp, vp, pos, block_tables=tables)
+        want = cached_decode_attention_reference(q, kp, vp, pos,
+                                                 block_tables=tables)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = within(got, want, atol, rtol) and bool(
+            torch.isfinite(got).all().item())
+        kfns = [lambda t=t: cached_decode_attention(*t, pos,
+                                                    block_tables=tables)
+                for t in sets]
+        with reference_mode():
+            plain_ms = time_ms(torch, [
+                lambda t=t: cached_decode_attention(*t, pos,
+                                                    block_tables=tables)
+                for t in sets], budget_ms=100.0)
+        L = mb * bl
+        idx = tables.long()
+        gathered = [(t[0], t[1][idx].reshape(b, L, hkv, d),
+                     t[2][idx].reshape(b, L, hkv, d)) for t in sets]
+        kj = torch.arange(L, device=dev)
+        qi = pos.long()[:, None] + torch.arange(s, device=dev)[None]
+        mask = (kj[None, None] <= qi[:, :, None])[:, None]      # B,1,s,L
+        lib_ms = time_ms(torch, [
+            lambda t=t: TF.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2),
+                t[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+            for t in gathered])
+        del gathered
+        nbytes = (2 * b * s * hq * d * esz + live_keys * hkv * d * esz * 2
+                  + 4 * b * (mb + 1))
+        ops = sum(4 * d * hq * min(p + si + 1, L)
+                  for p in pos_list for si in range(s))
+        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        record(name,
+               f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
+               f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
+               f"shared={[list(x) for x in share]} {str(dt)[6:]}",
+               err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
+               bms, by, main, note=PAGED_LIBRARY_NOTE)
+        del sets, q, kp, vp, got, want
+
     # ---- K3 RMSNorm: decode rows and a prefill wave's rows (bf16, hidden
     # 4096), then the tiny model's float32 rows (hidden 64) ------------------
     for dt, rows, hidden, main in ((bf16, 8, 4096, False),
@@ -365,6 +531,7 @@ def phase_model(torch):
                                          llama3_8b_config, tiny_llama_config)
     from paddle_tpu_torch.ops._dispatch import reference_mode
     from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.kv_cache import init_paged_kv_cache
     import numpy as np
 
     dev = torch.device("cuda")
@@ -396,9 +563,43 @@ def phase_model(torch):
         torch.cuda.synchronize()
         return outs
 
+    # a paged session: a 256-token prefix prefill written into scattered
+    # pool blocks, a 64-token suffix prefill at per-row pos [128, 256]
+    # (K2-paged), then 4 decode steps (K1-paged), all through the tables
+    bl, nb_pool = 128, 10
+    tables = torch.tensor([[6, 2, 0, 0], [3, 8, 5, 0]], dtype=torch.int32,
+                          device=dev)
+    prefix = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, (b, 256)).astype(np.int32)).to(dev)
+    suffix = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, (b, 64)).astype(np.int32)).to(dev)
+    suffix_pos = torch.tensor([128, 256], dtype=torch.int32, device=dev)
+
+    def paged_forced(m):
+        pool = init_paged_kv_cache(m.config, nb_pool, bl, device=dev)
+        outs = []
+        with torch.no_grad():
+            logits, pool = m.decode_step(prefix, pool, 0,
+                                         block_tables=tables)
+            outs.append(logits.float())
+            logits, pool = m.decode_step(suffix, pool, suffix_pos,
+                                         block_tables=tables)
+            outs.append(logits.float())
+            pos = suffix_pos + 64
+            for t in range(forced.shape[0]):
+                tok = torch.from_numpy(forced[t][:, None]).to(dev)
+                logits, pool = m.decode_step(tok, pool, pos,
+                                             block_tables=tables)
+                outs.append(logits.float())
+                pos = pos + 1
+        torch.cuda.synchronize()
+        return outs
+
     got = teacher_forced(model)
+    got_p = paged_forced(model)
     with reference_mode():
         want = teacher_forced(model)
+        want_p = paged_forced(model)
     # the float32 truth: the same weights in float32 through the plain path
     model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
                                device=dev)
@@ -407,6 +608,7 @@ def phase_model(torch):
             p32.copy_(p)
     with reference_mode():
         truth = teacher_forced(model32)
+        truth_p = paged_forced(model32)
     del model32
     torch.cuda.empty_cache()
 
@@ -436,6 +638,27 @@ def phase_model(torch):
           f"kernel path is {err_kernel} from the float32 model, the plain "
           f"path {err_plain} (tolerance {tol})")
 
+    # the paged session, under the same gate
+    diff_p, err_kernel_p, err_plain_p = (worst(got_p, want_p),
+                                         worst(got_p, truth_p),
+                                         worst(want_p, truth_p))
+    finite_p = all(bool(torch.isfinite(g).all().item()) for g in got_p)
+    tol_p = 1.2 * err_plain_p
+    emit({"phase": "model_paged", "config": "llama3_8b", "block_len": bl,
+          "tables": tables.tolist(), "prefix_tokens": 256,
+          "suffix_tokens": 64, "suffix_pos": suffix_pos.tolist(),
+          "decode_steps": int(forced.shape[0]),
+          "max_logit_diff_kernel_vs_plain": diff_p,
+          "max_logit_err_kernel_vs_f32": err_kernel_p,
+          "max_logit_err_plain_vs_f32": err_plain_p,
+          "max_abs_logit": max(float(w.abs().max().item()) for w in truth_p),
+          "tol_kernel_vs_f32": tol_p, "finite": finite_p})
+    check(finite_p, "paged model logits are not finite")
+    check(err_kernel_p <= tol_p,
+          f"paged kernel path is {err_kernel_p} from the float32 model, the "
+          f"plain path {err_plain_p} (tolerance {tol_p})")
+    del got_p, want_p, truth_p
+
     # tiny float32 engine: kernels on the card vs plain versions on the CPU
     tiny = tiny_llama_config()
     prompts = [rng.randint(0, tiny.vocab_size, n).astype(np.int32)
@@ -444,17 +667,40 @@ def phase_model(torch):
     tiny_cpu = LlamaForCausalLM(tiny, device="cpu", seed=1)
     tiny_card = copy.deepcopy(tiny_cpu).to(dev)   # the same weights
 
-    def serve(m, device):
-        eng = ServingEngine(m, num_slots=2, max_length=64, device=device)
-        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    def serve(m, device, reqs=prompts, **kw):
+        eng = ServingEngine(m, num_slots=2, max_length=64, device=device,
+                            **kw)
+        rids = [eng.submit(p, max_new_tokens=8) for p in reqs]
         out = dict(eng.drain())
-        return [out[r] for r in rids]
+        return [out[r] for r in rids], eng
 
-    on_card, on_cpu = serve(tiny_card, "cuda"), serve(tiny_cpu, "cpu")
+    on_card, on_cpu = serve(tiny_card, "cuda")[0], serve(tiny_cpu, "cpu")[0]
     emit({"phase": "model_tiny_f32", "requests": len(prompts),
           "identical": on_card == on_cpu})
     check(on_card == on_cpu,
           f"tiny f32 engine differs card vs cpu: {on_card} vs {on_cpu}")
+
+    # the tiny PAGED engine (block_len 16): two more prompts open with one
+    # 20-token system prompt, so a suffix prefill runs at pos 16
+    sys_p = rng.randint(0, tiny.vocab_size, 20).astype(np.int32)
+    paged_prompts = prompts + [
+        np.concatenate([sys_p, rng.randint(0, tiny.vocab_size, n).astype(
+            np.int32)]) for n in (4, 13)]
+    paged_kw = dict(paged=True, block_len=16)
+    p_card, eng_card = serve(tiny_card, "cuda", paged_prompts, **paged_kw)
+    p_cpu, _ = serve(tiny_cpu, "cpu", paged_prompts, **paged_kw)
+    contiguous_card, _ = serve(tiny_card, "cuda", paged_prompts)
+    hits = eng_card.kv.stats["prefix_hit_tokens"]
+    emit({"phase": "model_tiny_f32_paged", "requests": len(paged_prompts),
+          "block_len": 16, "prefix_hit_tokens": hits,
+          "identical_card_vs_cpu": p_card == p_cpu,
+          "identical_paged_vs_contiguous_card": p_card == contiguous_card})
+    check(hits > 0, "tiny paged engine adopted no prefix block")
+    check(p_card == p_cpu,
+          f"tiny f32 paged engine differs card vs cpu: {p_card} vs {p_cpu}")
+    check(p_card == contiguous_card,
+          f"tiny f32 paged engine differs from the contiguous engine on the "
+          f"card: {p_card} vs {contiguous_card}")
     return model
 
 
@@ -499,10 +745,94 @@ def phase_serving(torch, model, kernels):
               f"request {r} returned {len(out[r])} tokens")
         check(all(0 <= t < vocab for t in out[r]),
               f"request {r} returned a token outside the vocabulary")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the serving path")
-    for name, row in kernels.items():
-        row["launches"] = launches[name]
+    for name in CONTIGUOUS_PATH:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
+        kernels[name]["launches"] = launches[name]
+    return eng
+
+
+def paged_serving_prompts(vocab: int):
+    """16 requests: 8 open with one shared 1536-token system prompt (12
+    full blocks of 128) and continue with their own suffixes, 8 are unique
+    prompts; the two kinds alternate in arrival order."""
+    import numpy as np
+    rng = np.random.RandomState(2)
+    system = rng.randint(0, vocab, 1536).astype(np.int32)
+    suffixes = (5, 300, 37, 700, 12, 128, 1023, 90)
+    uniques = (8, 1200, 400, 64, 2000, 260, 17, 900)
+    prompts = []
+    for n_suf, n_uni in zip(suffixes, uniques):
+        prompts.append(np.concatenate(
+            [system, rng.randint(0, vocab, n_suf).astype(np.int32)]))
+        prompts.append(rng.randint(0, vocab, n_uni).astype(np.int32))
+    return prompts
+
+
+def phase_serving_paged(torch, model, kernels):
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, num_slots=8, max_length=4096,
+                        prefill_batch=4, paged=True, block_len=128,
+                        num_blocks=PAGED_POOL_BLOCKS, device="cuda")
+    prompts = paged_serving_prompts(model.config.vocab_size)
+    new_tokens = 32
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    out = dict(eng.drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    paths = {f"{op}/{path}": n for (op, path), n in
+             _dispatch.kernel_paths.items()}
+    m = eng.metrics()
+    kv = m["kv_cache"]
+    ntok = sum(len(out[r]) for r in rids)
+    emit({"phase": "serving_paged", "requests": len(rids),
+          "prompt_lengths": [int(p.size) for p in prompts],
+          "block_len": 128, "num_blocks": PAGED_POOL_BLOCKS,
+          "new_tokens": new_tokens, "tokens": ntok,
+          "wall_s": round(wall, 4), "tok_per_s": round(ntok / wall, 2),
+          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
+          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+          "prefill_waves": m["prefill_waves"],
+          "decode_ticks": m["decode_ticks"],
+          "prefill_tokens_computed": m["prefill_tokens_computed"],
+          "prefill_tokens_total": m["prefill_tokens_total"],
+          "kv_cache": kv, "launches": launches, "routes": paths})
+    vocab = model.config.vocab_size
+    for r in rids:
+        check(len(out[r]) == new_tokens,
+              f"request {r} returned {len(out[r])} tokens")
+        check(all(0 <= t < vocab for t in out[r]),
+              f"request {r} returned a token outside the vocabulary")
+    check(kv["prefix_hit_tokens"] > 0, "no prefix hit on the shared prompt")
+    check(m["prefill_tokens_computed"] < m["prefill_tokens_total"],
+          "the prefix cache saved no prefill token")
+    check(kv["evictions"] >= 1, "the pool evicted no block")
+    check(kv["admission_blocked"] >= 1, "no admission waited for blocks")
+    check(kv["blocks_in_use"] == 0, "blocks still in use after the drain")
+    check(launches["decode_attention_paged"]
+          == LAYERS_8B * m["decode_ticks"],
+          f"K1-paged launched {launches['decode_attention_paged']} times "
+          f"for {m['decode_ticks']} decode ticks")
+    check(launches["flash_attention_fwd_paged"]
+          == LAYERS_8B * m["prefill_waves"],
+          f"K2-paged launched {launches['flash_attention_fwd_paged']} times "
+          f"for {m['prefill_waves']} waves")
+    check(launches["decode_attention"] == 0
+          and launches["flash_attention_fwd"] == 0,
+          "a contiguous attention kernel ran on the paged path")
+    check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
+    plain = {k: n for k, n in paths.items() if k.endswith("/plain")}
+    check(not plain, f"plain routes taken on the card: {plain}")
+    for name in ("decode_attention_paged", "flash_attention_fwd_paged"):
+        kernels[name]["launches"] = launches[name]
     return eng
 
 
@@ -554,36 +884,50 @@ def phase_profile(torch, model):
           "device_us_by_split_len": sweep})
     del q, kc, vc
 
-    eng = ServingEngine(model, num_slots=8, max_length=4096,
-                        prefill_batch=4, device="cuda")
-    for p in serving_prompts(model.config.vocab_size)[:8]:
-        eng.submit(p, max_new_tokens=16)
-    for _ in range(4):          # admission waves + warm decode ticks
-        eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
+    # decode ticks of 8 busy slots: the contiguous engine on phase 4's
+    # prompts, then the paged engine on phase 4b's
+    for phase, kw, prompts in (
+            ("profile", {}, serving_prompts(model.config.vocab_size)),
+            ("profile_paged",
+             dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS),
+             paged_serving_prompts(model.config.vocab_size))):
+        eng = ServingEngine(model, num_slots=8, max_length=4096,
+                            prefill_batch=4, device="cuda", **kw)
+        for p in prompts[:8]:
+            eng.submit(p, max_new_tokens=16)
+        for _ in range(4):          # admission waves + warm decode ticks
             eng.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    total = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        if t and ev.key and not ev.key.startswith(("aten::", "cuda")):
-            rows.append((t, ev.key, ev.count))
-            total += t
-    rows.sort(reverse=True)
-    emit({"phase": "profile", "ticks": 5, "wall_ms": round(wall_ms, 3),
-          "device_kernel_ms": round(total / 1e3, 3),
-          "device_busy_share": round(total / 1e3 / wall_ms, 4),
-          "top": [{"kernel": k[:90], "ms": round(t / 1e3, 3), "calls": c}
-                  for t, k, c in rows[:15]]})
-    eng.drain()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows, host = [], []
+        total = 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            if t and ev.key and not ev.key.startswith(("aten::", "cuda")):
+                rows.append((t, ev.key, ev.count))
+                total += t
+            if ev.key and ev.key.startswith("aten::"):
+                host.append((ev.self_cpu_time_total, ev.key, ev.count))
+        rows.sort(reverse=True)
+        host.sort(reverse=True)
+        emit({"phase": phase, "ticks": 5, "active_slots": eng.num_active,
+              "wall_ms": round(wall_ms, 3),
+              "device_kernel_ms": round(total / 1e3, 3),
+              "device_busy_share": round(total / 1e3 / wall_ms, 4),
+              "top": [{"kernel": k[:90], "ms": round(t / 1e3, 3),
+                       "calls": c} for t, k, c in rows[:15]],
+              "host_self_top": [{"op": k, "ms": round(t / 1e3, 3),
+                                 "calls": c} for t, k, c in host[:15]]})
+        eng.drain()
+        del eng
 
 
 def main(argv=None) -> int:
@@ -611,7 +955,10 @@ def main(argv=None) -> int:
     phase_card(torch, _build)
     kernels = phase_kernels(torch)
     model = phase_model(torch)
-    phase_serving(torch, model, kernels)
+    eng = phase_serving(torch, model, kernels)
+    del eng
+    torch.cuda.empty_cache()
+    phase_serving_paged(torch, model, kernels)
     if args.profile:
         phase_profile(torch, model)
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)

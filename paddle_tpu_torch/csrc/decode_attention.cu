@@ -1,13 +1,24 @@
-// Flash-decode over a contiguous KV cache: kernel K1 of paddle_tpu_torch.
+// Flash-decode over a contiguous or paged KV cache: kernel K1 of
+// paddle_tpu_torch.
 //
 // Replaces paddle_tpu/ops/pallas/decode_attention.py::decode_attention_pallas
-// (body _kernel :120), contiguous layout.  For query row (b, si, h):
+// (body _kernel :120), contiguous and paged layouts.  For query row
+// (b, si, h):
 //   out = softmax_j(q . k_j * scale) . v_j   over keys j <= pos[b] + si,
 // GQA grouped (kv head = h / G; K/V never broadcast), float32 accumulation,
 // online softmax; a row whose keys are all masked returns 0.
 //
-// Layout: q (B, S, Hq, D); k, v (B, L, Hkv, D) -- one layer's slice of the
-// (layers, 2, B, L, Hkv, D) cache; out (B, S, Hq, D).
+// Layouts: q (B, S, Hq, D); out (B, S, Hq, D); K/V either
+//   * contiguous (entry decode_attention): k, v (B, L, Hkv, D) -- one
+//     layer's slice of the (layers, 2, B, L, Hkv, D) cache; or
+//   * paged (entry decode_attention_paged): k, v (num_blocks, block_len,
+//     Hkv, D) -- one layer's slice of the pooled cache -- and an int32
+//     block table (B, max_blocks): key j of row b lives at
+//     pool[table[b, j / block_len], j % block_len].  The logical length
+//     is max_blocks * block_len; the table's dead-tail columns hold the
+//     null block 0 and are never read (the live-prefix rule below).
+//     block_len and the split length are multiples of 8, so a warp's
+//     8-key group never straddles a block: one table lookup per group.
 //
 // Bound on the H100: memory.  The live K+V bytes over 3.35 TB/s; at S = 1 a
 // key feeds G query rows, about one operation per byte.  The design:
@@ -88,13 +99,18 @@ __device__ __forceinline__ void load_float(const T* __restrict__ p,
 // D = 128 (EPL 4) and float32 at D = 16 (EPL 1).  Each warp walks blocks
 // of KPI keys of the split, interleaved with the other warps, keeping its
 // own online-softmax state; the warps merge once at the end.
-template <typename T, int EPL, int KPI>
+// PAGED selects the K/V addressing: false = contiguous (table, max_blocks
+// and block_len unused; the same code as the contiguous-only build),
+// true = pool + block table with L = max_blocks * block_len.
+template <typename T, int EPL, int KPI, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos,
                         T* __restrict__ out, float* __restrict__ part_o,
                         float* __restrict__ part_ml, int S, int Hq, int Hkv,
-                        int D, int L, int limit, int split_len, float scale) {
+                        int D, int L, int limit, int split_len, float scale,
+                        const int* __restrict__ table, int max_blocks,
+                        int block_len) {
   constexpr int kLogK = KPI == 8 ? 3 : (KPI == 4 ? 2 : 1);
   static_assert((1 << kLogK) == KPI, "KPI must be 2, 4 or 8");
   const int bh = blockIdx.x;
@@ -162,20 +178,29 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const size_t key_stride = (size_t)Hkv * D;
-  const T* kb = k + (size_t)b * L * key_stride + (size_t)h * D + d0;
-  const T* vb = v + (size_t)b * L * key_stride + (size_t)h * D + d0;
+  // contiguous: row b's cache; paged: the pool (rows come from the table)
+  const size_t row_base = PAGED ? 0 : (size_t)b * L * key_stride;
+  const T* kb = k + row_base + (size_t)h * D + d0;
+  const T* vb = v + row_base + (size_t)h * D + d0;
   // after the transpose-reduce, lane l holds the score of key kidx
   const int kidx = (lane >> (5 - kLogK)) & (KPI - 1);
 
   for (int base = k_begin + warp * KPI; base < k_end;
        base += kWarps * KPI) {
     float kf[KPI][EPL], vf[KPI][EPL];
+    // pool row of the group's first key (base is a multiple of KPI, and
+    // so is block_len: the group lies in one block)
+    size_t grow = 0;
+    if constexpr (PAGED)
+      grow = (size_t)table[(size_t)b * max_blocks + base / block_len] *
+                 block_len + base % block_len;
 #pragma unroll
     for (int kk = 0; kk < KPI; ++kk) {
       const int j = base + kk;
       if (lane_on && j < k_end) {
-        load_float<T, EPL>(kb + (size_t)j * key_stride, kf[kk]);
-        load_float<T, EPL>(vb + (size_t)j * key_stride, vf[kk]);
+        const size_t r = PAGED ? grow + kk : (size_t)j;
+        load_float<T, EPL>(kb + r * key_stride, kf[kk]);
+        load_float<T, EPL>(vb + r * key_stride, vf[kk]);
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kf[kk][e] = vf[kk][e] = 0.f;
@@ -310,17 +335,20 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
       from_float<T>(lsum > 0.f ? o / lsum : 0.f);
 }
 
-template <typename T, int EPL, int KPI>
+template <typename T, int EPL, int KPI, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* pos, void* out, float* part_o, float* part_ml,
                    int B, int S, int Hq, int Hkv, int D, int L, int limit,
-                   int split_len, int nsplit, float scale, cudaStream_t st) {
+                   int split_len, int nsplit, float scale, cudaStream_t st,
+                   const int* table = nullptr, int max_blocks = 0,
+                   int block_len = 0) {
   const int rows_total = S * (Hq / Hkv);
   dim3 grid(B * Hkv, (rows_total + kRows - 1) / kRows, nsplit);
-  decode_attention_kernel<T, EPL, KPI><<<grid, kThreads, 0, st>>>(
+  decode_attention_kernel<T, EPL, KPI, PAGED><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, static_cast<T*>(out), part_o, part_ml,
-      S, Hq, Hkv, D, L, limit, split_len, scale);
+      S, Hq, Hkv, D, L, limit, split_len, scale, table, max_blocks,
+      block_len);
   if (nsplit > 1) {
     decode_attention_combine<T><<<dim3(B * Hkv, rows_total), D, 0, st>>>(
         part_o, part_ml, static_cast<T*>(out), S, Hq, Hkv, D, nsplit);
@@ -350,11 +378,50 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch<__nv_bfloat16, 4, 8>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
-                                    D, L, limit, split_len, nsplit, scale, st);
+    e = launch<__nv_bfloat16, 4, 8, false>(q, k, v, p, out, po, pml, B, S,
+                                           Hq, Hkv, D, L, limit, split_len,
+                                           nsplit, scale, st);
   else if (dtype == 1 && D == 16)
-    e = launch<float, 1, 8>(q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L,
-                            limit, split_len, nsplit, scale, st);
+    e = launch<float, 1, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
+                                   D, L, limit, split_len, nsplit, scale, st);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The paged entry: k, v are one layer's (num_blocks, block_len, Hkv, D)
+// pool, table the int32 (B, max_blocks) block table (every entry a valid
+// block id); the logical cache length is max_blocks * block_len and
+// limit <= that bound.  block_len and split_len must be multiples of 8
+// (cudaErrorInvalidValue otherwise); dtype/D pairs and scratch as above.
+extern "C" int decode_attention_paged(const void* q, const void* k,
+                                      const void* v, const void* pos,
+                                      const void* table, void* out,
+                                      void* part_o, void* part_ml, int B,
+                                      int S, int Hq, int Hkv, int D,
+                                      int max_blocks, int block_len,
+                                      int limit, int split_len, int nsplit,
+                                      float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(table);
+  float* po = static_cast<float*>(part_o);
+  float* pml = static_cast<float*>(part_ml);
+  if (Hkv < 1 || Hq % Hkv != 0 || block_len < 8 || block_len % 8 != 0 ||
+      split_len % 8 != 0 || max_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int L = max_blocks * block_len;
+  cudaError_t e;
+  if (dtype == 0 && D == 128)
+    e = launch<__nv_bfloat16, 4, 8, true>(q, k, v, p, out, po, pml, B, S, Hq,
+                                          Hkv, D, L, limit, split_len, nsplit,
+                                          scale, st, t, max_blocks,
+                                          block_len);
+  else if (dtype == 1 && D == 16)
+    e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
+                                  D, L, limit, split_len, nsplit, scale, st,
+                                  t, max_blocks, block_len);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -22,6 +22,21 @@
 //     and 4 rows x (D/16) output elements, fed by 16-byte shared-memory
 //     reads of transposed Q and K tiles; the K tile's shared memory is
 //     reused for the probabilities (26 KB at D = 16).
+//
+// Paged suffix prefill (entry flash_attention_fwd_paged; replaces the
+// q-tiled mode of paddle_tpu/ops/pallas/decode_attention.py, body _kernel
+// :120, grid :273-281, :319-335).  The same two kernels with PAGED = true,
+// two changes:
+//   * the causal offset is per row: query i of row b sees keys
+//     j <= pos[b] + i, and keys j < min(pos[b] + Sq, max_blocks *
+//     block_len) exist (instead of the shared Skv - Sq and Skv); tile
+//     skipping keys off the row's own offset;
+//   * K and V come from one layer's (num_blocks, block_len, Hkv, D) pool
+//     through an int32 (B, max_blocks) block table: key j of row b lives
+//     at pool[table[b, j / block_len], j % block_len].  The tensor-core
+//     kernel looks the table up once per 64-key tile, so it takes
+//     block_len % 64 == 0; the CUDA-core kernel looks it up per key.
+//   No lse is written on this path.
 // wgmma/TMA and a warp-specialised pipeline are the next steps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,19 +60,28 @@ constexpr size_t smem_floats() {
 }
 
 // float32 on the CUDA cores; at least two CTAs an SM (registers <= 128 a
-// thread)
-template <int D>
+// thread).  PAGED: pos/table addressing (see the top), else pos, table,
+// max_blocks and block_len are unused.
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_fwd_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out,
                            float* __restrict__ lse, int Sq, int Skv, int Hq,
-                           int Hkv, float scale, int causal) {
+                           int Hkv, float scale, int causal,
+                           const int* __restrict__ pos,
+                           const int* __restrict__ table, int max_blocks,
+                           int block_len) {
   constexpr int NQ = (D + 63) / 64;   // 64-wide output slabs per thread
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int offset = Skv - Sq;
+  // keys j < kv_len exist; query i sees j <= i + offset when causal
+  int offset = Skv - Sq, kv_len = Skv;
+  if constexpr (PAGED) {
+    offset = pos[b];
+    kv_len = min(offset + Sq, max_blocks * block_len);
+  }
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
   extern __shared__ __align__(16) float smem[];
@@ -84,15 +108,19 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
   }
 
-  const int kv_hi = causal ? min(Skv, q0 + kBQ + offset) : Skv;
+  const int kv_hi = causal ? min(kv_len, q0 + kBQ + offset) : kv_len;
   for (int kv0 = 0; kv0 < kv_hi; kv0 += kBK) {
     __syncthreads();   // the previous tile's readers are done
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int c = idx / D, d = idx - c * D;
       const int kc = kv0 + c;
       float kx = 0.f, vx = 0.f;
-      if (kc < Skv) {
-        const size_t g = (((size_t)b * Skv + kc) * Hkv + hk) * D + d;
+      if (kc < kv_len) {
+        size_t row = (size_t)b * Skv + kc;
+        if constexpr (PAGED)
+          row = (size_t)table[(size_t)b * max_blocks + kc / block_len] *
+                    block_len + kc % block_len;
+        const size_t g = (row * Hkv + hk) * D + d;
         kx = k[g];
         vx = v[g];
       }
@@ -128,7 +156,7 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int kc = kv0 + tc * 4 + j;
         const bool keep =
-            qr < Sq && kc < Skv && (!causal || kc <= qr + offset);
+            qr < Sq && kc < kv_len && (!causal || kc <= qr + offset);
         s[i][j] = keep ? s[i][j] : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -197,7 +225,7 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
         for (int e = 0; e < 4; ++e) orow[d0 + e] = acc[i][n][e] * inv;
       }
     }
-    if (tc == 0)
+    if (!PAGED && tc == 0)
       lse[((size_t)b * Hq + h) * Sq + qr] = l > 0.f ? m_i[i] + logf(l) : kNegInf;
   }
 }
@@ -258,14 +286,17 @@ constexpr size_t mma_smem_bytes() {
   return (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
                                __nv_bfloat16* __restrict__ out,
                                float* __restrict__ lse, int Sq, int Skv,
-                               int Hq, int Hkv, float scale, int causal) {
+                               int Hq, int Hkv, float scale, int causal,
+                               const int* __restrict__ pos,
+                               const int* __restrict__ table, int max_blocks,
+                               int block_len) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int kStride = D + 8;       // padded row, in elements
   constexpr int kPieces = D / 8;       // 16-byte pieces of one row
@@ -278,7 +309,12 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int q0 = blockIdx.x * kMmaBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int offset = Skv - Sq;
+  // keys j < kv_len exist; query i sees j <= i + offset when causal
+  int offset = Skv - Sq, kv_len = Skv;
+  if constexpr (PAGED) {
+    offset = pos[b];
+    kv_len = min(offset + Sq, max_blocks * block_len);
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, c = lane & 3;
 
@@ -310,17 +346,24 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
   float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
   const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const int kv_hi = causal ? min(Skv, q0 + kMmaBQ + offset) : Skv;
+  const int kv_hi = causal ? min(kv_len, q0 + kMmaBQ + offset) : kv_len;
 
   for (int kv0 = 0; kv0 < kv_hi; kv0 += kMmaBK) {
     __syncthreads();   // every warp is done with the previous tile
+    // paged: the pool row of key kv0 (block_len % 64 == 0, so the whole
+    // tile lies in one block and every address is inside the pool)
+    size_t tile_row = 0;
+    if constexpr (PAGED)
+      tile_row = (size_t)table[(size_t)b * max_blocks + kv0 / block_len] *
+                     block_len + kv0 % block_len;
     for (int idx = tid; idx < kMmaBK * kPieces; idx += kMmaThreads) {
       const int j = idx / kPieces, pc = idx - j * kPieces;
       const int kc = kv0 + j;
-      const size_t gofs =
-          (((size_t)b * Skv + min(kc, Skv - 1)) * Hkv + hk) * D + pc * 8;
-      cp_async16_zfill(Ks + j * kStride + pc * 8, k + gofs, kc < Skv);
-      cp_async16_zfill(Vs + j * kStride + pc * 8, v + gofs, kc < Skv);
+      size_t row = (size_t)b * Skv + min(kc, Skv - 1);
+      if constexpr (PAGED) row = tile_row + j;
+      const size_t gofs = (row * Hkv + hk) * D + pc * 8;
+      cp_async16_zfill(Ks + j * kStride + pc * 8, k + gofs, kc < kv_len);
+      cp_async16_zfill(Vs + j * kStride + pc * 8, v + gofs, kc < kv_len);
     }
     cp_async_commit_wait_all();
     __syncthreads();
@@ -347,8 +390,8 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = kv0 + nb * 8 + 2 * c + e;
-        const bool k0 = row0 < Sq && col < Skv && (!causal || col <= row0 + offset);
-        const bool k1 = row1 < Sq && col < Skv && (!causal || col <= row1 + offset);
+        const bool k0 = row0 < Sq && col < kv_len && (!causal || col <= row0 + offset);
+        const bool k1 = row1 < Sq && col < kv_len && (!causal || col <= row1 + offset);
         s[nb][e] = k0 ? s[nb][e] * scale : kNegInf;
         s[nb][2 + e] = k1 ? s[nb][2 + e] * scale : kNegInf;
         mx0 = fmaxf(mx0, s[nb][e]);
@@ -424,7 +467,7 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           out + (((size_t)b * Sq + row1) * Hq + h) * D + d) =
           __floats2bfloat162_rn(o[db][2] * inv1, o[db][3] * inv1);
   }
-  if (c == 0) {
+  if (!PAGED && c == 0) {
     if (row0 < Sq)
       lse[((size_t)b * Hq + h) * Sq + row0] =
           l_i[0] > 0.f ? m_i[0] + logf(l_i[0]) : kNegInf;
@@ -434,12 +477,14 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool PAGED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int Sq, int Skv, int Hq,
-                       int Hkv, float scale, int causal, cudaStream_t st) {
+                       int Hkv, float scale, int causal, cudaStream_t st,
+                       const int* pos = nullptr, const int* table = nullptr,
+                       int max_blocks = 0, int block_len = 0) {
   constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = flash_attention_fwd_mma_kernel<D>;
+  auto kernel = flash_attention_fwd_mma_kernel<D, PAGED>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -447,16 +492,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   kernel<<<grid, kMmaThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, Sq, Skv, Hq, Hkv, scale, causal);
+      lse, Sq, Skv, Hq, Hkv, scale, causal, pos, table, max_blocks,
+      block_len);
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                   float scale, int causal, cudaStream_t st) {
+                   float scale, int causal, cudaStream_t st,
+                   const int* pos = nullptr, const int* table = nullptr,
+                   int max_blocks = 0, int block_len = 0) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_attention_fwd_kernel<D>;
+  auto kernel = flash_attention_fwd_kernel<D, PAGED>;
   // above 48 KB only after opting in (per device, so on every launch)
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -465,7 +513,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv,
-      Hq, Hkv, scale, causal);
+      Hq, Hkv, scale, causal, pos, table, max_blocks, block_len);
   return cudaSuccess;
 }
 
@@ -485,10 +533,42 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (Hkv < 1 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch_mma<128>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
-                        st);
+    e = launch_mma<128, false>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale,
+                               causal, st);
   else if (dtype == 1 && D == 16)
-    e = launch<16>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+    e = launch<16, false>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
+                          st);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Paged suffix prefill: q (B, S, Hq, D) at per-row offsets pos (B,)
+// int32; k, v one layer's (num_blocks, block_len, Hkv, D) pool; table the
+// int32 (B, max_blocks) block table (every entry a valid block id).  Query
+// i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
+// bfloat16 at D = 128 needs block_len % 64 == 0; float32 at D = 16 takes
+// any block_len >= 1; other cases return cudaErrorInvalidValue.
+extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
+                                         const void* v, const void* pos,
+                                         const void* table, void* out, int B,
+                                         int S, int Hq, int Hkv, int D,
+                                         int max_blocks, int block_len,
+                                         float scale, int dtype,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(table);
+  if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (dtype == 0 && D == 128 && block_len % kMmaBK == 0)
+    e = launch_mma<128, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale,
+                              1, st, p, t, max_blocks, block_len);
+  else if (dtype == 1 && D == 16)
+    e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
+                         st, p, t, max_blocks, block_len);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

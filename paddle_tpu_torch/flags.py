@@ -4,8 +4,8 @@ Only the serving defaults and the flash-decode chunk size are kept.  The
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
-kernel.  The serving flags are the engine's defaults; this slice supports
-those defaults only and raises on any other value (``serving/engine.py``).
+kernel.  The serving flags are the engine's defaults; the engine raises
+on a value that selects a mode not ported yet (``serving/engine.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +21,15 @@ _DEFAULTS: Dict[str, Any] = {
     # (chip_smoke.py --profile; PERF.md); the reference's 512 is a TPU
     # DMA-block choice.
     "decode_attention_block_kv": 256,
-    # serving defaults (paddle_tpu/flags.py:150-210)
+    # paged KV cache (paddle_tpu/flags.py:150-160): tokens per block, pool
+    # size in blocks (0 = num_slots * max_blocks + 1, the contiguous
+    # footprint plus the null block)
+    "kv_cache_block_len": 128,
+    "kv_cache_num_blocks": 0,
+    # serving defaults (paddle_tpu/flags.py:150-210); serving_paged_kv
+    # selects the paged engine, serving_prefix_cache its prefix trie
     "serving_paged_kv": False,
+    "serving_prefix_cache": True,
     "serving_kv_cache_dtype": "bf16",
     "serving_int8_weights": False,
     "serving_chunked_prefill": False,

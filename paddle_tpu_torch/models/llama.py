@@ -8,7 +8,9 @@ this model by name.
 
 Kernels on this path: attention at ``pos == 0`` (wave prefill) and in
 ``forward`` goes to flash-attention (K2), incremental decode to
-flash-decode (K1), every RMSNorm to K3.  The projection, MLP and LM-head
+flash-decode (K1), every RMSNorm to K3.  With a paged cache
+(``block_tables``) a decode step goes to K1-paged and a suffix prefill
+(s > 1) to K2-paged.  The projection, MLP and LM-head
 products are ``torch.matmul``, as the reference leaves them to XLA.
 
 Training features of the reference (recompute, context parallelism,
@@ -119,7 +121,8 @@ class LlamaAttention(nn.Module):
         out = flash_attention(q, k, v, causal=True)
         return out.reshape(b, s, -1) @ self.o_proj
 
-    def decode(self, x, rope_cache, pos, cache, idx: int):
+    def decode(self, x, rope_cache, pos, cache, idx: int,
+               block_tables=None):
         """Incremental decode against the STACKED cache
         (L, 2, B, max_len, Hkv, D): write this chunk's K/V IN PLACE at
         ``(idx, ., ., pos)`` — where the reference donates the cache to
@@ -138,8 +141,17 @@ class LlamaAttention(nn.Module):
         per-row positions (the serving engine's slot batch: row i writes
         at ``pos[i]..pos[i]+s-1`` and attends ``[0, pos[i] + s)``).
 
+        ``block_tables`` (int (B, max_blocks)) switches to the PAGED
+        cache (``serving/kv_cache.py``): ``cache`` is the pooled
+        (L, 2, num_blocks, block_len, Hkv, D) tensor and row i's logical
+        position p lives at ``(block_tables[i, p // block_len],
+        p % block_len)``; see :meth:`_decode_paged`.
+
         x: (B, s, H*D).  Returns (out, cache) — ``cache`` is the same
         tensor, updated."""
+        if block_tables is not None:
+            return self._decode_paged(x, rope_cache, pos, cache, idx,
+                                      block_tables)
         b, s, _ = x.shape
         per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
         steps = torch.arange(s, device=x.device)
@@ -161,6 +173,44 @@ class LlamaAttention(nn.Module):
         else:
             out = cached_decode_attention(q, cache[idx, 0], cache[idx, 1],
                                           pos)
+        return out.reshape(b, s, -1) @ self.o_proj, cache
+
+    def _decode_paged(self, x, rope_cache, pos, cache, idx, block_tables):
+        """The paged branch of :meth:`decode` (the reference's
+        ``LlamaAttention.decode`` with ``block_tables``, bf16 layout).
+
+        Positions are per row (a scalar ``pos`` is broadcast).  The RoPE
+        ids of prompt-pad positions past the table are clamped to the RoPE
+        cache (pad outputs are never consumed).  Writes go to (physical
+        block, offset) pairs; positions past the table's coverage are
+        steered to the null block 0, so a padded wave never clobbers live
+        or shared blocks (duplicate null-block writes are scratch).  The
+        writes of ALL rows land before this layer's attention read, which
+        is what lets a row of a wave adopt a block another row of the same
+        wave writes in this very pass.  The read is
+        :func:`cached_decode_attention` with the table: K1-paged at
+        s = 1, K2-paged for a suffix prefill."""
+        b, s, _ = x.shape
+        dev = x.device
+        if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
+            pos = torch.full((b,), int(pos), dtype=torch.int32, device=dev)
+        position_ids = (pos.to(dev).long()[:, None]
+                        + torch.arange(s, device=dev)[None, :])   # (B, s)
+        rope_ids = position_ids.clamp_max(rope_cache[0].shape[0] - 1)
+        q, k, v = self._qkv(x, rope_cache, rope_ids)
+        bl = cache.shape[3]
+        tables = block_tables.to(dev).long()
+        max_blocks = tables.shape[1]
+        lb = position_ids // bl
+        rows = torch.arange(b, device=dev)[:, None]
+        phys = torch.where(lb < max_blocks,
+                           tables[rows, lb.clamp_max(max_blocks - 1)],
+                           torch.zeros_like(lb))   # past the table -> null
+        off = position_ids % bl
+        cache[idx, 0, phys, off] = k.to(cache.dtype)
+        cache[idx, 1, phys, off] = v.to(cache.dtype)
+        out = cached_decode_attention(q, cache[idx, 0], cache[idx, 1], pos,
+                                      block_tables=block_tables)
         return out.reshape(b, s, -1) @ self.o_proj, cache
 
 
@@ -197,9 +247,10 @@ class LlamaDecoderLayer(nn.Module):
                                position_ids)
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def decode(self, x, rope_cache, pos, cache, idx: int):
+    def decode(self, x, rope_cache, pos, cache, idx: int,
+               block_tables=None):
         a, cache = self.self_attn.decode(self.input_layernorm(x), rope_cache,
-                                         pos, cache, idx)
+                                         pos, cache, idx, block_tables)
         x = x + a
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, cache
@@ -227,16 +278,17 @@ class LlamaModel(nn.Module):
             x = block(x, rope, position_ids)
         return self.norm(x)
 
-    def decode(self, input_ids, cache, pos):
+    def decode(self, input_ids, cache, pos, block_tables=None):
         """Cache-carrying decode pass over the stacked cache of
-        :func:`paddle_tpu_torch.models.generation.init_kv_cache`; ``pos``
-        is the number of tokens already in the cache (int or per-row
-        (B,) tensor).  Returns (hidden, cache), the cache updated in
-        place."""
+        :func:`paddle_tpu_torch.models.generation.init_kv_cache` (or the
+        paged pool of ``serving.kv_cache.init_paged_kv_cache`` with
+        ``block_tables``); ``pos`` is the number of tokens already in the
+        cache (int or per-row (B,) tensor).  Returns (hidden, cache), the
+        cache updated in place."""
         x = self.embed_tokens[input_ids.long()]
         rope = (self.rope_cos, self.rope_sin)
         for i, block in enumerate(self.layers):
-            x, cache = block.decode(x, rope, pos, cache, i)
+            x, cache = block.decode(x, rope, pos, cache, i, block_tables)
         return self.norm(x), cache
 
 
@@ -285,11 +337,9 @@ class LlamaForCausalLM(nn.Module):
         """(logits, cache): one cache-carrying decode step — prefill when
         ``input_ids`` is the whole prompt at ``pos=0``, incremental when it
         is the last token.  The cache is updated in place and returned.
-        The paged layout (``block_tables``) is ROADMAP A6.1."""
-        if block_tables is not None:
-            raise NotImplementedError(
-                "decode_step: the paged cache is ROADMAP A6.1")
-        hidden, cache = self.model.decode(input_ids, cache, pos)
+        ``block_tables`` (int (B, max_blocks)) selects the paged pool."""
+        hidden, cache = self.model.decode(input_ids, cache, pos,
+                                          block_tables)
         return self.logits(hidden), cache
 
 

@@ -8,8 +8,11 @@ fewer KV heads than query heads.  Two entries:
     wave-prefill path at ``pos == 0``); kernel K2
     (``ops/cuda/flash_attention.py``);
   * :func:`cached_decode_attention` — attention of new tokens over a
-    pre-allocated contiguous cache (every decode tick); kernel K1
-    (``ops/cuda/decode_attention.py``).
+    pre-allocated cache: contiguous (every decode tick of the default
+    engine; kernel K1, ``ops/cuda/decode_attention.py``) or the paged pool
+    through a block table (the paged engine: K1's paged build at s = 1,
+    K2's paged build for a suffix prefill at s > 1,
+    ``ops/cuda/flash_attention.py``).
 
 Routing follows ``ops/_dispatch.py``: a CUDA tensor goes to the kernel,
 which launches or raises; a CPU tensor goes to the plain version.  Features
@@ -23,8 +26,10 @@ from typing import Optional
 import torch
 
 from . import _dispatch
-from .cuda.decode_attention import decode_attention_cuda
-from .cuda.flash_attention import flash_attention_fwd_cuda
+from .cuda.decode_attention import (decode_attention_cuda,
+                                   decode_attention_paged_cuda)
+from .cuda.flash_attention import (flash_attention_fwd_cuda,
+                                   flash_attention_fwd_paged_cuda)
 
 NEG_INF = -1e30
 
@@ -141,8 +146,10 @@ def _is_per_row(pos) -> bool:
 
 def cached_decode_attention_reference(q, k_cache, v_cache, pos,
                                       scale: Optional[float] = None,
-                                      live_len: Optional[int] = None):
-    """The plain version of kernel K1: masked softmax over the cache read.
+                                      live_len: Optional[int] = None,
+                                      block_tables=None):
+    """The plain version of kernel K1 (and of the paged builds of K1 and
+    K2): masked softmax over the cache read.
 
     q: (B, s, Hq, D) new-token queries; k_cache/v_cache: (B, L, Hkv, D)
     with the new K/V already written at ``pos..pos+s-1``; key j is visible
@@ -151,8 +158,24 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
     positions.  ``live_len``: optional bound on max(pos)+s — only the
     first ``live_len`` slots are read.  GQA stays grouped (no K/V repeat).
     Math in float32; returns (B, s, Hq, D) in q.dtype.  A row with every
-    key masked returns 0 (the kernels' convention)."""
+    key masked returns 0 (the kernels' convention).
+
+    ``block_tables`` (int (B, max_blocks)): the PAGED layout
+    (``serving/kv_cache.py``) — k_cache/v_cache are the pooled
+    (num_blocks, block_len, Hkv, D) tensors; each row's physical blocks
+    are gathered into a contiguous (B, max_blocks * block_len, Hkv, D)
+    view first (``live_len`` trims whole table columns before the
+    gather), after which the math is the same."""
     b, s, hq, d = q.shape
+    if block_tables is not None:
+        n_pool, bl, hkv_p, _ = k_cache.shape
+        mb = block_tables.shape[1]
+        if live_len is not None and live_len < mb * bl:
+            mb = -(-int(live_len) // bl)
+            block_tables = block_tables[:, :mb]
+        idx = block_tables.to(k_cache.device).long().clamp(0, n_pool - 1)
+        k_cache = k_cache[idx].reshape(b, mb * bl, hkv_p, d)
+        v_cache = v_cache[idx].reshape(b, mb * bl, hkv_p, d)
     if live_len is not None and live_len < k_cache.shape[1]:
         k_cache = k_cache[:, :live_len]
         v_cache = v_cache[:, :live_len]
@@ -183,19 +206,21 @@ def cached_decode_attention(q, k_cache, v_cache, pos,
                             scale: Optional[float] = None,
                             extra_mask=None, live_len: Optional[int] = None,
                             block_tables=None, k_scale=None, v_scale=None):
-    """Incremental decode attention over a pre-allocated contiguous cache
-    — the serving hot path.  Shapes and masking as in
+    """Incremental decode attention over a pre-allocated cache — the
+    serving hot path.  Shapes and masking as in
     :func:`cached_decode_attention_reference`.
 
-    CUDA tensors go to kernel K1, which walks only each row's live prefix
-    ``[0, pos_b + s)``; CPU tensors go to the plain version.  The paged
-    layout (``block_tables``: ROADMAP A6.1 / B1b), the int8 cache
-    (``k_scale``/``v_scale``: A6.4 / B1d) and ``extra_mask`` (the
-    reference's XLA-only option, B1 follow-up) raise."""
-    if block_tables is not None:
-        raise NotImplementedError(
-            "cached_decode_attention: the paged cache is ROADMAP A6.1 / "
-            "B1b")
+    CUDA tensors go to a kernel, CPU tensors to the plain version:
+
+      * contiguous cache: kernel K1, which walks only each row's live
+        prefix ``[0, pos_b + s)``;
+      * paged pool (``block_tables``): K1's paged build at ``s == 1``
+        (every decode tick), K2's paged build at ``s > 1`` (a suffix
+        prefill: causal at per-row offset ``pos_b``).
+
+    The int8 cache (``k_scale``/``v_scale``: A6.4 / B1d) and
+    ``extra_mask`` (the reference's XLA-only option, B1 follow-up)
+    raise."""
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
             "cached_decode_attention: the int8 cache is ROADMAP A6.4 / B1d")
@@ -203,6 +228,22 @@ def cached_decode_attention(q, k_cache, v_cache, pos,
         raise NotImplementedError(
             "cached_decode_attention: extra_mask is not ported (ROADMAP "
             "B1, follow-up of the contiguous slice)")
+    if block_tables is not None:
+        op = "decode_attention_paged" if q.shape[1] == 1 else "paged_prefill"
+        if _dispatch.use_kernel(q):
+            _dispatch.count_kernel_path(op, "kernel")
+            if q.shape[1] == 1:
+                return _launch(decode_attention_paged_cuda,
+                               (q, k_cache, v_cache), pos=pos,
+                               block_tables=block_tables, scale=scale,
+                               live_len=live_len)
+            return _launch(flash_attention_fwd_paged_cuda,
+                           (q, k_cache, v_cache), pos=pos,
+                           block_tables=block_tables, scale=scale)
+        _dispatch.count_kernel_path(op, "plain")
+        return cached_decode_attention_reference(
+            q, k_cache, v_cache, pos, scale=scale, live_len=live_len,
+            block_tables=block_tables)
     if _dispatch.use_kernel(q):
         _dispatch.count_kernel_path("decode_attention", "kernel")
         return _launch(decode_attention_cuda, (q, k_cache, v_cache),

@@ -39,3 +39,60 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
                              f"device (got {t.device})")
         if not t.is_contiguous():
             raise NotImplementedError(f"{what}: tensors must be contiguous")
+
+
+def pos_vector(pos, b: int, device) -> torch.Tensor:
+    """Per-row positions as a contiguous int32 (B,) tensor on ``device``
+    (a scalar ``pos`` is broadcast)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() == 0:
+            pos = pos.reshape(1).expand(b)
+        if pos.shape != (b,):
+            raise ValueError(f"pos must be a scalar or ({b},), got "
+                             f"{tuple(pos.shape)}")
+        return pos.to(device=device, dtype=torch.int32).contiguous()
+    return torch.full((b,), int(pos), dtype=torch.int32, device=device)
+
+
+def block_table(block_tables: torch.Tensor, b: int, device,
+                what: str) -> torch.Tensor:
+    """A (B, max_blocks) block table as a contiguous int32 tensor on
+    ``device``."""
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"{what}: block_tables must be ({b}, max_blocks), "
+                         f"got {tuple(block_tables.shape)}")
+    if block_tables.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what}: block_tables must be an integer tensor")
+    return block_tables.to(device=device, dtype=torch.int32).contiguous()
+
+
+def check_attention_args(what: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, head_dim: dict) -> int:
+    """The checks every attention wrapper makes: one CUDA device,
+    contiguous, 16-byte aligned 4-d tensors of one dtype, ``v`` shaped like
+    ``k``, q heads a multiple of k's (dim 2), head_dim (dim 3) equal and
+    the one built for the dtype (``head_dim[dtype]``).  Returns the dtype
+    code."""
+    require_cuda(what, q, k, v)
+    code = dtype_code(q, what)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"{what}: q, k and v must share one dtype")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{what}: 4-d q, k, v expected (k, v of one "
+                         f"shape), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    hq, d = q.shape[2], q.shape[3]
+    hkv = k.shape[2]
+    if k.shape[3] != d:
+        raise ValueError(f"{what}: head_dim mismatch between "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise NotImplementedError(
+            f"{what}: q heads ({hq}) must be a multiple of kv heads ({hkv})")
+    if head_dim[q.dtype] != d:
+        raise NotImplementedError(
+            f"{what}: {q.dtype} is built for head_dim {head_dim[q.dtype]}, "
+            f"got {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise NotImplementedError(f"{what}: tensors must be 16-byte aligned")
+    return code

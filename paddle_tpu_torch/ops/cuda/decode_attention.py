@@ -1,8 +1,9 @@
-"""Flash-decode over a contiguous KV cache — kernel K1 of the port
+"""Flash-decode over a contiguous or paged KV cache — kernel K1 of the port
 (source: ``paddle_tpu_torch/csrc/decode_attention.cu``).
 
 Replaces ``paddle_tpu/ops/pallas/decode_attention.py::decode_attention_pallas``
-(body ``_kernel`` :120), contiguous layout.  Computes
+(body ``_kernel`` :120), contiguous layout (:func:`decode_attention_cuda`)
+and paged layout (:func:`decode_attention_paged_cuda`, K1-paged).  Computes
 ``out[b, si, h] = softmax_j(q . k_j * scale) . v_j`` over keys
 ``j <= pos_b + si`` only, GQA grouped (kv head = h // G, K/V never
 broadcast), float32 accumulation with an online softmax; a row whose keys
@@ -24,6 +25,18 @@ block barrier, K/V rows going straight from device memory to registers.
 It is built for bfloat16 at head_dim 128 (the serving path) and float32
 at head_dim 16 (the tiny model), the two builds held against the plain
 version on the card (``chip_smoke.py``); any other pair raises.
+
+The paged build (the paged engine's decode tick, replacing the Pallas
+kernel's block-table scalar-prefetch mode, ``decode_attention.py:244-256``)
+reads K/V from the pooled ``(num_blocks, block_len, Hkv, D)`` cache
+through an int32 ``(B, max_blocks)`` block table: key ``j`` of row ``b``
+lives at ``pool[table[b, j // block_len], j % block_len]``.  Each warp
+looks the table up once per 8-key group, so ``block_len`` must be a
+multiple of 8 (the reference default 128 is); splits stay
+``FLAGS_decode_attention_block_kv`` keys and may span blocks.  The logical
+length is ``max_blocks * block_len`` and each row reads only keys below
+``min(pos_b + s, max_blocks * block_len, live_len)``, so the table's
+null-filled dead tail is never read.
 """
 
 from __future__ import annotations
@@ -35,7 +48,8 @@ from typing import Optional
 import torch
 
 from ... import flags
-from . import _build, dtype_code, require_cuda, stream_ptr
+from . import (_build, block_table, check_attention_args, pos_vector,
+               stream_ptr)
 
 NAME = "decode_attention"
 # the head_dim built for each dtype
@@ -53,18 +67,27 @@ def _lib() -> ctypes.CDLL:
                        _I, _I, _I, _I, _I, _I, _I,      # B S Hq Hkv D L lim
                        _I, _I, ctypes.c_float, _I, _P]  # split nsplit scale dt st
         fn.restype = ctypes.c_int
+        fp = lib.decode_attention_paged
+        fp.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v pos tbl out po pml
+                       _I, _I, _I, _I, _I, _I, _I,      # B S Hq Hkv D mb bl
+                       _I, _I, _I, ctypes.c_float,      # lim split nsplit scale
+                       _I, _P]                          # dt st
+        fp.restype = ctypes.c_int
     return lib
 
 
-def _pos_vector(pos, b: int, device) -> torch.Tensor:
-    if isinstance(pos, torch.Tensor):
-        if pos.dim() == 0:
-            pos = pos.reshape(1).expand(b)
-        if pos.shape != (b,):
-            raise ValueError(f"pos must be a scalar or ({b},), got "
-                             f"{tuple(pos.shape)}")
-        return pos.to(device=device, dtype=torch.int32).contiguous()
-    return torch.full((b,), int(pos), dtype=torch.int32, device=device)
+def _scratch(q: torch.Tensor, hkv: int, nsplit: int):
+    """Split partials: one float32 scratch holding (B*Hkv, nsplit, rows,
+    D) partial sums, then (B*Hkv, nsplit, rows, 2) running max /
+    normaliser; (None, None) for one split."""
+    if nsplit <= 1:
+        return None, None
+    b, s, hq, d = q.shape
+    rows = s * (hq // hkv)
+    n_o = b * hkv * nsplit * rows * d
+    part = torch.empty(n_o + b * hkv * nsplit * rows * 2,
+                       dtype=torch.float32, device=q.device)
+    return part.data_ptr(), part.data_ptr() + 4 * n_o
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -76,49 +99,22 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     (B, s, Hq, D) in q.dtype.  Each CTA walks at most
     ``FLAGS_decode_attention_block_kv`` keys.  Raises on what the kernel
     does not take."""
-    require_cuda(NAME, q, k_cache, v_cache)
-    code = dtype_code(q, NAME)
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise NotImplementedError(
-            f"{NAME}: q, k_cache and v_cache must share one dtype")
-    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"{NAME}: q (B, s, Hq, D) and caches (B, L, Hkv, "
-                         f"D) expected, got {tuple(q.shape)}, "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    code = check_attention_args(NAME, q, k_cache, v_cache, HEAD_DIM)
     b, s, hq, d = q.shape
-    bk, L, hkv, dk = k_cache.shape
-    if bk != b or dk != d:
-        raise ValueError(f"{NAME}: batch/head_dim mismatch between q "
+    bk, L, hkv, _ = k_cache.shape
+    if bk != b:
+        raise ValueError(f"{NAME}: batch mismatch between q "
                          f"{tuple(q.shape)} and cache {tuple(k_cache.shape)}")
-    if hkv == 0 or hq % hkv:
-        raise NotImplementedError(
-            f"{NAME}: q heads ({hq}) must be a multiple of kv heads ({hkv})")
-    if HEAD_DIM[q.dtype] != d:
-        raise NotImplementedError(
-            f"{NAME}: {q.dtype} is built for head_dim {HEAD_DIM[q.dtype]}, "
-            f"got {d}")
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise NotImplementedError(f"{NAME}: tensors must be 16-byte aligned")
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
     limit = L if live_len is None else max(1, min(L, int(live_len)))
     split_len = max(1, int(flags.flag("decode_attention_block_kv")))
     nsplit = max(1, math.ceil(limit / split_len))
-    pos_t = _pos_vector(pos, b, q.device)
+    pos_t = pos_vector(pos, b, q.device)
     if scale is None:
         scale = d ** -0.5
-    rows = s * (hq // hkv)
-    if nsplit > 1:
-        # one float32 scratch: (B*Hkv, nsplit, rows, D) partial sums, then
-        # (B*Hkv, nsplit, rows, 2) running max / normaliser
-        n_o = b * hkv * nsplit * rows * d
-        part = torch.empty(n_o + b * hkv * nsplit * rows * 2,
-                           dtype=torch.float32, device=q.device)
-        po = part.data_ptr()
-        pml = po + 4 * n_o
-    else:
-        po = pml = None
+    po, pml = _scratch(q, hkv, nsplit)
     lib = _lib()
     err = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -131,3 +127,52 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention_cuda.launches = 0
+
+
+def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, pos,
+                                block_tables: torch.Tensor,
+                                scale: Optional[float] = None,
+                                live_len: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Launch K1-paged.  q: (B, s, Hq, D); k_pool/v_pool: one layer's
+    (num_blocks, block_len, Hkv, D) pool, the new K/V already written;
+    ``pos``: int or (B,) int tensor; ``block_tables``: int (B,
+    max_blocks), every entry a valid block id.  Returns (B, s, Hq, D) in
+    q.dtype.  Raises on what the kernel does not take, including a
+    ``block_len`` that is not a multiple of 8."""
+    code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM)
+    b, s, hq, d = q.shape
+    _, bl, hkv, _ = k_pool.shape
+    if bl % 8:
+        raise NotImplementedError(
+            f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
+    table = block_table(block_tables, b, q.device, NAME)
+    mb = table.shape[1]
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    L = mb * bl
+    limit = L if live_len is None else max(1, min(L, int(live_len)))
+    split_len = max(1, int(flags.flag("decode_attention_block_kv")))
+    if split_len % 8:
+        raise NotImplementedError(
+            f"{NAME}: the paged build takes a split length "
+            f"(FLAGS_decode_attention_block_kv) % 8 == 0, got {split_len}")
+    nsplit = max(1, math.ceil(limit / split_len))
+    pos_t = pos_vector(pos, b, q.device)
+    if scale is None:
+        scale = d ** -0.5
+    po, pml = _scratch(q, hkv, nsplit)
+    lib = _lib()
+    err = lib.decode_attention_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        pos_t.data_ptr(), table.data_ptr(), out.data_ptr(), po, pml,
+        b, s, hq, hkv, d, mb, bl, limit, split_len, nsplit, float(scale),
+        code, stream_ptr(q.device))
+    _build.check(lib, NAME, err)
+    decode_attention_paged_cuda.launches += 1
+    return out
+
+
+decode_attention_paged_cuda.launches = 0

@@ -25,6 +25,19 @@ recorded in PERF.md.
 
 Segment ids and the backward (``_bwd`` dq/dkv) belong to the training
 slice and are not taken here.
+
+K2-paged (:func:`flash_attention_fwd_paged_cuda`): the paged engine's
+suffix prefill, which the reference runs as the q-tiled mode of its
+flash-decode kernel (``paddle_tpu/ops/pallas/decode_attention.py``
+:273-281, :319-335).  It is flash attention with two changes, made in
+both kernels above: the causal offset is per row (query ``i`` of row
+``b`` sees keys ``j <= pos_b + i``, keys ``j < min(pos_b + Sq,
+max_blocks * block_len)`` exist), and K/V come from the pooled
+``(num_blocks, block_len, Hkv, D)`` cache through an int32 ``(B,
+max_blocks)`` block table.  The bfloat16 kernel looks the table up once
+per 64-key tile, so it takes ``block_len % 64 == 0`` (the reference's
+default 128 qualifies) and raises otherwise; the float32 kernel takes any
+``block_len``.  No ``lse`` is produced on this path.
 """
 
 from __future__ import annotations
@@ -34,7 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, dtype_code, require_cuda, stream_ptr
+from . import (_build, block_table, check_attention_args, pos_vector,
+               stream_ptr)
 
 NAME = "flash_attention_fwd"
 # the head_dim built for each dtype
@@ -52,6 +66,11 @@ def _lib() -> ctypes.CDLL:
                        _I, _I, _I, _I, _I, _I,             # B Sq Skv Hq Hkv D
                        ctypes.c_float, _I, _I, _P]         # scale causal dt st
         fn.restype = ctypes.c_int
+        fp = lib.flash_attention_fwd_paged
+        fp.argtypes = [_P, _P, _P, _P, _P, _P,             # q k v pos tbl out
+                       _I, _I, _I, _I, _I, _I, _I,         # B S Hq Hkv D mb bl
+                       ctypes.c_float, _I, _P]             # scale dt st
+        fp.restype = ctypes.c_int
     return lib
 
 
@@ -62,28 +81,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch K2.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns
     (out (B, Sq, Hq, D) in q.dtype, lse (B, Hq, Sq) float32).  Raises on
     what the kernel does not take."""
-    require_cuda(NAME, q, k, v)
-    code = dtype_code(q, NAME)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"{NAME}: q, k and v must share one dtype")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"{NAME}: q (B, Sq, Hq, D) and k/v (B, Skv, Hkv, "
-                         f"D) expected, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    code = check_attention_args(NAME, q, k, v, HEAD_DIM)
     b, sq, hq, d = q.shape
-    bk, skv, hkv, dk = k.shape
-    if bk != b or dk != d:
-        raise ValueError(f"{NAME}: batch/head_dim mismatch between "
+    bk, skv, hkv, _ = k.shape
+    if bk != b:
+        raise ValueError(f"{NAME}: batch mismatch between "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
-    if hkv == 0 or hq % hkv:
-        raise NotImplementedError(
-            f"{NAME}: q heads ({hq}) must be a multiple of kv heads ({hkv})")
-    if HEAD_DIM[q.dtype] != d:
-        raise NotImplementedError(
-            f"{NAME}: {q.dtype} is built for head_dim {HEAD_DIM[q.dtype]}, "
-            f"got {d}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise NotImplementedError(f"{NAME}: tensors must be 16-byte aligned")
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
@@ -101,3 +104,42 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_fwd_cuda.launches = 0
+
+
+def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor, pos,
+                                   block_tables: torch.Tensor,
+                                   scale: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """Launch K2-paged.  q: (B, S, Hq, D) queries at per-row offsets
+    ``pos`` (int or (B,) int tensor); k_pool/v_pool: one layer's
+    (num_blocks, block_len, Hkv, D) pool with this chunk's K/V already
+    written; ``block_tables``: int (B, max_blocks), every entry a valid
+    block id.  Returns (B, S, Hq, D) in q.dtype.  Raises on what the
+    kernel does not take."""
+    code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM)
+    b, sq, hq, d = q.shape
+    _, bl, hkv, _ = k_pool.shape
+    # the bfloat16 kernel loads 64-key tiles, each inside one block
+    if q.dtype == torch.bfloat16 and bl % 64:
+        raise NotImplementedError(
+            f"{NAME}: the paged bfloat16 build takes block_len % 64 == 0, "
+            f"got {bl}")
+    table = block_table(block_tables, b, q.device, NAME)
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    pos_t = pos_vector(pos, b, q.device)
+    if scale is None:
+        scale = d ** -0.5
+    lib = _lib()
+    err = lib.flash_attention_fwd_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_t.data_ptr(),
+        table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, table.shape[1],
+        bl, float(scale), code, stream_ptr(q.device))
+    _build.check(lib, NAME, err)
+    flash_attention_fwd_paged_cuda.launches += 1
+    return out
+
+
+flash_attention_fwd_paged_cuda.launches = 0

@@ -3,11 +3,18 @@
 
 ``submit()`` enqueues, ``step()`` runs one scheduler tick (admit queued
 requests in batched prefill waves, then ONE decode step over every slot,
-then retire), ``drain()`` runs ticks until every request is done.  This
-slice serves the reference's default configuration: contiguous per-slot
-bf16 (model-dtype) cache, wave prefill, no speculation, no int8, greedy
-unless a request asks to sample.  Any other configuration raises
-``NotImplementedError`` naming its ROADMAP item.
+then retire), ``drain()`` runs ticks until every request is done.  Two
+cache layouts are served, both in the model dtype with wave prefill, no
+speculation, no int8, greedy unless a request asks to sample:
+
+  * contiguous (the default): one ``max_length`` cache row per slot;
+  * paged (``paged=True`` or ``FLAGS_serving_paged_kv``): a pool of
+    ``block_len``-token blocks addressed through per-slot block tables,
+    with the prefix cache (``serving/kv_cache.py``) so a shared prompt
+    prefix is stored once and prefilled once.
+
+Any other configuration raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 Where the reference jits a step program once and donates the cache, the
 port runs eagerly and writes the one cache tensor in place.  Prefill
@@ -30,6 +37,7 @@ import torch
 
 from .. import default_device, flags
 from ..models.generation import init_kv_cache, sample_tokens
+from .kv_cache import BlockManager, init_paged_kv_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,13 +87,9 @@ class _Hist:
         return d
 
 
-# constructor arguments of the reference engine that this slice does not
-# take: name -> (values that mean the default, ROADMAP item)
+# constructor arguments of the reference engine that the port does not
+# take yet: name -> (values that mean the default, ROADMAP item)
 _UNSUPPORTED = {
-    "paged": ((None, False), "A6.1 (paged KV cache + prefix cache)"),
-    "block_len": ((None,), "A6.1 (paged KV cache)"),
-    "num_blocks": ((None,), "A6.1 (paged KV cache)"),
-    "prefix_cache": ((None, True), "A6.1 (prefix cache)"),
     "chunked": ((None, False), "A6.2 (chunked prefill)"),
     "prefill_chunk": ((None,), "A6.2 (chunked prefill)"),
     "chunk_policy": ((None, "prefill"), "A6.2 (chunked prefill)"),
@@ -101,7 +105,6 @@ _UNSUPPORTED = {
 }
 # the serving flags whose non-default values select those modes
 _FLAG_DEFAULTS = {
-    "serving_paged_kv": (False, "A6.1"),
     "serving_chunked_prefill": (False, "A6.2"),
     "serving_spec_decode": (False, "A6.3"),
     "serving_kv_cache_dtype": ("bf16", "A6.4"),
@@ -114,11 +117,21 @@ class ServingEngine:
     cache (``decode_step`` + ``init_kv_cache`` layout).
 
     ``device`` defaults to the card and must be where the model lives.
-    Sampling draws from a ``torch.Generator`` seeded with ``seed``."""
+    Sampling draws from a ``torch.Generator`` seeded with ``seed``.
+
+    ``paged`` (default ``FLAGS_serving_paged_kv``) selects the paged
+    cache: ``block_len`` tokens a block (``FLAGS_kv_cache_block_len``;
+    must divide ``max_length``), ``num_blocks`` in the pool
+    (``FLAGS_kv_cache_num_blocks``, 0 = ``num_slots * max_blocks + 1``),
+    ``prefix_cache`` (``FLAGS_serving_prefix_cache``)."""
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 1024,
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
-                 prefill_batch: int = 4, seed: int = 0, *, device=None,
+                 prefill_batch: int = 4, seed: int = 0, *,
+                 paged: Optional[bool] = None,
+                 block_len: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None, device=None,
                  **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
@@ -151,9 +164,32 @@ class ServingEngine:
         self.eos_token_id = eos_token_id
         self.pad_token_id = int(pad_token_id)
         self.prefill_batch = int(prefill_batch)
-        with torch.no_grad():
-            self._cache = init_kv_cache(self.config, self.num_slots,
-                                        self.max_length, device=self.device)
+        self.paged = bool(flags.flag("serving_paged_kv")
+                          if paged is None else paged)
+        if self.paged:
+            bl = int(block_len or flags.flag("kv_cache_block_len"))
+            if self.max_length % bl:
+                raise ValueError(
+                    f"max_length {self.max_length} is not a multiple of "
+                    f"block_len {bl}")
+            self.block_len = bl
+            self.max_blocks = self.max_length // bl
+            nb = int(num_blocks or flags.flag("kv_cache_num_blocks")
+                     or self.num_slots * self.max_blocks + 1)
+            self.kv = BlockManager(
+                nb, bl, prefix_cache=bool(flags.flag("serving_prefix_cache")
+                                          if prefix_cache is None
+                                          else prefix_cache))
+            with torch.no_grad():
+                self._cache = init_paged_kv_cache(self.config, nb, bl,
+                                                  device=self.device)
+            self._tables = np.zeros((self.num_slots, self.max_blocks),
+                                    np.int32)
+        else:
+            with torch.no_grad():
+                self._cache = init_kv_cache(self.config, self.num_slots,
+                                            self.max_length,
+                                            device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
 
@@ -187,27 +223,61 @@ class ServingEngine:
         self._n_tokens = 0
         self._n_waves = 0
         self._n_decode_ticks = 0
+        self._n_prefill_computed = 0
+        self._n_prefill_total = 0
+        self._n_blocked = 0
         self._occupancy = 0.0
         self._retired: Dict[str, int] = collections.Counter()
+
+    @property
+    def prefill_tokens_computed(self) -> int:
+        """Prompt tokens actually prefilled (pads excluded; paged prefix
+        hits skip these — computed < total proves the cache worked)."""
+        return self._n_prefill_computed
+
+    @property
+    def prefill_tokens_total(self) -> int:
+        return self._n_prefill_total
 
     def metrics(self) -> Dict[str, object]:
         """The reference engine's key names for what this slice counts:
         latency percentiles (ms), occupancy, request/token/wave counters,
         plus ``ticks`` (scheduler ticks that dispatched work: waves and
-        decode steps) and ``decode_ticks``."""
-        return {"ttft_ms": self._m_ttft.summary(),
-                "tpot_ms": self._m_tpot.summary(),
-                "queue_wait_ms": self._m_queue_wait.summary(),
-                "decode_step_ms": self._m_step_ms.summary(),
-                "prefill_wave_ms": self._m_prefill_ms.summary(),
-                "slot_occupancy": round(self._occupancy, 3),
-                "requests_submitted": self._n_submitted,
-                "requests_finished": self._n_finished,
-                "tokens_generated": self._n_tokens,
-                "prefill_waves": self._n_waves,
-                "ticks": self._ticks,
-                "decode_ticks": self._n_decode_ticks,
-                "retired": dict(self._retired)}
+        decode steps) and ``decode_ticks``; the paged engine adds the
+        pool's accounting under ``kv_cache``."""
+        out = {"ttft_ms": self._m_ttft.summary(),
+               "tpot_ms": self._m_tpot.summary(),
+               "queue_wait_ms": self._m_queue_wait.summary(),
+               "decode_step_ms": self._m_step_ms.summary(),
+               "prefill_wave_ms": self._m_prefill_ms.summary(),
+               "slot_occupancy": round(self._occupancy, 3),
+               "requests_submitted": self._n_submitted,
+               "requests_finished": self._n_finished,
+               "tokens_generated": self._n_tokens,
+               "prefill_waves": self._n_waves,
+               "ticks": self._ticks,
+               "decode_ticks": self._n_decode_ticks,
+               "prefill_tokens_computed": self._n_prefill_computed,
+               "prefill_tokens_total": self._n_prefill_total,
+               "retired": dict(self._retired)}
+        if self.paged:
+            st = self.kv.stats
+            total = self._n_prefill_total
+            out["kv_cache"] = {
+                "kv_dtype": self.kv.kv_dtype,
+                "blocks_in_use": self.kv.blocks_in_use(),
+                "peak_blocks_in_use": st["peak_blocks_in_use"],
+                "peak_pool_occupancy": round(
+                    st["peak_blocks_in_use"] / self.kv.usable_blocks, 3),
+                "prefix_lookups": st["prefix_lookups"],
+                "prefix_hit_blocks": st["prefix_hit_blocks"],
+                "prefix_hit_tokens": st["prefix_hit_tokens"],
+                "prefix_hit_rate": round(st["prefix_hit_tokens"] / total,
+                                         3) if total else 0.0,
+                "evictions": st["evictions"],
+                "cow_copies": st["cow_copies"],
+                "admission_blocked": self._n_blocked}
+        return out
 
     # -- public API ------------------------------------------------------------
 
@@ -217,7 +287,8 @@ class ServingEngine:
         ``step()`` as slots free up (FIFO).  Raises ``ValueError`` for an
         empty prompt (``bad_prompt``), ``max_new_tokens < 1``
         (``bad_max_new_tokens``) or a request longer than ``max_length``
-        (``too_long``)."""
+        (``too_long``), and in the paged engine for a request needing more
+        blocks than the whole pool holds (``pool_too_small``)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -229,6 +300,12 @@ class ServingEngine:
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the engine's max_length "
                 f"({self.max_length})")
+        if self.paged:
+            need = self.kv.blocks_needed(prompt.size, max_new_tokens)
+            if need > self.kv.usable_blocks:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool only has "
+                    f"{self.kv.usable_blocks} usable blocks")
         rid = self._next_rid
         self._next_rid += 1
         self._results[rid] = []
@@ -292,12 +369,20 @@ class ServingEngine:
     def _decode(self) -> np.ndarray:
         """One decode step for ALL slots: row i holds its request at
         position ``positions[i]``; inactive rows decode the pad token at
-        position 0 and their token is discarded."""
+        position 0 and their token is discarded (paged: their table row
+        is all null, so their write lands in the null block)."""
         dev = self.device
         tokens = torch.from_numpy(self._tokens).to(dev)
         positions = torch.from_numpy(self._positions).to(dev)
+        tables = None
+        if self.paged:
+            for i, slot in enumerate(self._slots):
+                if slot is not None:
+                    # this tick writes K/V at positions[i]
+                    self._grow_row_for_writes(i, int(self._positions[i]))
+            tables = torch.from_numpy(self._tables).to(dev)
         logits, self._cache = self.model.decode_step(
-            tokens[:, None], self._cache, positions)
+            tokens[:, None], self._cache, positions, block_tables=tables)
         nxt = self._sample(logits[:, -1], self._temps, self._topk,
                            self._topp)
         nxt[~self._active] = self.pad_token_id
@@ -320,6 +405,49 @@ class ServingEngine:
         logits = self.model.logits(last)
         self._cache[:, :, torch.tensor(slot_ids, device=dev), :bucket] = sub
         return self._sample(logits, temps, topk, topp)
+
+    def _prefill_paged(self, ids: np.ndarray, prefix: np.ndarray,
+                       slens: np.ndarray, tables: np.ndarray, temps, topk,
+                       topp) -> np.ndarray:
+        """Paged prefill of one admission wave: each row computes ONLY its
+        prompt suffix — the tokens its prefix-cache match did not cover —
+        as a decode-at-depth over the pool (per-row ``pos`` = adopted
+        prefix length; K2-paged reads the adopted blocks, not recomputed).
+        Writes land straight in the rows' own blocks (bucket padding in
+        the null block), every layer's writes before its read, so a row
+        sees blocks another row of the same wave writes.  The first token
+        samples from each row's last REAL suffix position (logits there
+        only).  Only the wave's real rows run: the reference pads the
+        wave to ``prefill_batch`` rows with all-null dummy tables."""
+        dev = self.device
+        n = ids.shape[0]
+        hidden, self._cache = self.model.model.decode(
+            torch.from_numpy(ids).to(dev), self._cache,
+            torch.from_numpy(prefix).to(dev),
+            block_tables=torch.from_numpy(tables).to(dev))
+        last = hidden[torch.arange(n, device=dev),
+                      torch.from_numpy(slens - 1).to(dev).long()]
+        logits = self.model.logits(last)
+        return self._sample(logits, temps, topk, topp)
+
+    def _grow_row_for_writes(self, i: int, last_pos: int):
+        """Paged pre-dispatch bookkeeping for slot ``i`` about to write
+        K/V at ``positions[i]..last_pos``: grow the chain over every block
+        boundary in the span and copy-on-write each shared block in it
+        (never in this engine's flow: full prompt blocks are immutable and
+        tail blocks private), refreshing the table row when anything
+        changed."""
+        pos = int(self._positions[i])
+        changed = self.kv.ensure_capacity(i, last_pos)
+        for lb in range(pos // self.block_len,
+                        last_pos // self.block_len + 1):
+            cow = self.kv.ensure_writable(i, lb)
+            if cow is not None:
+                src, dst = cow
+                self._cache[:, :, dst] = self._cache[:, :, src]
+                changed = True
+        if changed:
+            self._tables[i] = self.kv.table_row(i, self.max_blocks)
 
     # -- scheduler ------------------------------------------------------------------
 
@@ -369,6 +497,8 @@ class ServingEngine:
         """Move queued requests into free slots, one batched-prefill wave
         per contiguous FIFO run sharing a bucket.  Returns ids that
         finished AT admission (first token was EOS / max_new_tokens=1)."""
+        if self.paged:
+            return self._admit_paged()
         finished: List[int] = []
         while self._queue:
             free = [i for i, s in enumerate(self._slots) if s is None]
@@ -386,25 +516,100 @@ class ServingEngine:
                                                bucket))
         return finished
 
-    def _prefill_wave(self, wave: List[Request], slots: List[int],
-                      bucket: int) -> List[int]:
+    def _admit_paged(self) -> List[int]:
+        """Paged admission: FIFO requests enter free slots once the block
+        pool covers their worst case (kv_cache.py reservations), adopting
+        any cached prompt prefix on the way in.  A wave shares one padded
+        SUFFIX bucket.  The FIFO head blocking on pool space blocks the
+        queue (``admission_blocked`` counts each refusal)."""
+        finished: List[int] = []
+        while self._queue:
+            free = [i for i, s in enumerate(self._slots) if s is None]
+            if not free:
+                break
+            wave: List[Tuple[Request, int, int]] = []
+            while self._queue and len(wave) < min(self.prefill_batch,
+                                                  len(free)):
+                req = self._queue[0]
+                si = free[len(wave)]
+                m = self.kv.admit(si, req.prompt, req.prompt.size,
+                                  req.max_new_tokens)
+                if m is None:          # pool full: wait for retirements
+                    self._n_blocked += 1
+                    break
+                self._queue.popleft()
+                self._tables[si] = self.kv.table_row(si, self.max_blocks)
+                wave.append((req, si, m))
+            if not wave:
+                break
+            finished.extend(self._prefill_wave_paged(wave))
+        return finished
+
+    def _prefill_wave_paged(self, wave: List[Tuple[Request, int, int]]
+                            ) -> List[int]:
+        """One paged admission wave: the bucket is the power of two of the
+        longest SUFFIX; each row starts at its adopted prefix length."""
         t_adm = self._clock()
         n = len(wave)
+        bucket = min(max(self._bucket(req.prompt.size - m)
+                         for req, _, m in wave), self.max_length)
         ids = np.full((n, bucket), self.pad_token_id, np.int32)
-        plens = np.ones((n,), np.int32)
+        prefix = np.zeros((n,), np.int32)
+        slens = np.ones((n,), np.int32)
+        tables = np.zeros((n, self.max_blocks), np.int32)
+        for r, (req, si, m) in enumerate(wave):
+            suffix = req.prompt[m:]
+            ids[r, :suffix.size] = suffix
+            prefix[r] = m
+            slens[r] = suffix.size
+            tables[r] = self._tables[si]
+            self._n_prefill_computed += int(suffix.size)
+            self._n_prefill_total += int(req.prompt.size)
+        reqs = [req for req, _, _ in wave]
+        temps, topk, topp = self._wave_sampling(reqs, t_adm)
+        tok = self._prefill_paged(ids, prefix, slens, tables, temps, topk,
+                                  topp)
+        return self._start_wave(reqs, [si for _, si, _ in wave],
+                                [req.prompt.size for req in reqs], tok,
+                                temps, topk, topp, t_adm)
+
+    def _wave_sampling(self, wave: List[Request], t_adm: float):
+        """Per-row sampling knobs of a wave; observes queue waits and
+        counts the wave."""
+        n = len(wave)
         temps = np.zeros((n,), np.float32)
         topk = np.zeros((n,), np.int32)
         topp = np.ones((n,), np.float32)
         for r, req in enumerate(wave):
-            ids[r, :req.prompt.size] = req.prompt
-            plens[r] = req.prompt.size
             temps[r] = req.sampling.temperature
             topk[r] = req.sampling.top_k
             topp[r] = req.sampling.top_p
             self._m_queue_wait.observe((t_adm - req.t_submit) * 1e3)
         self._n_waves += 1
         self._ticks += 1
+        return temps, topk, topp
+
+    def _prefill_wave(self, wave: List[Request], slots: List[int],
+                      bucket: int) -> List[int]:
+        t_adm = self._clock()
+        n = len(wave)
+        ids = np.full((n, bucket), self.pad_token_id, np.int32)
+        plens = np.ones((n,), np.int32)
+        for r, req in enumerate(wave):
+            ids[r, :req.prompt.size] = req.prompt
+            plens[r] = req.prompt.size
+            self._n_prefill_computed += int(req.prompt.size)
+            self._n_prefill_total += int(req.prompt.size)
+        temps, topk, topp = self._wave_sampling(wave, t_adm)
         tok = self._prefill(ids, plens, slots, temps, topk, topp)
+        return self._start_wave(wave, slots, list(plens), tok, temps, topk,
+                                topp, t_adm)
+
+    def _start_wave(self, wave: List[Request], slots: List[int],
+                    plens: List[int], tok: np.ndarray, temps, topk, topp,
+                    t_adm: float) -> List[int]:
+        """Seat a prefilled wave in its slots with its first tokens;
+        returns ids that finished at admission."""
         t_tok = self._clock()
         self._m_prefill_ms.observe((t_tok - t_adm) * 1e3)
         finished: List[int] = []
@@ -449,11 +654,16 @@ class ServingEngine:
         self._release(i)
 
     def _release(self, i: int):
+        if self.paged:
+            self.kv.release(i)
         self._clear_slot(i)
 
     def _clear_slot(self, i: int):
         """Reset slot ``i``'s host mirrors: the row decodes the pad token
-        at position 0 until a new request takes it."""
+        at position 0 until a new request takes it (paged: through an
+        all-null table row)."""
+        if self.paged:
+            self._tables[i] = 0
         self._slots[i] = None
         self._active[i] = False
         self._tokens[i] = self.pad_token_id

@@ -1,0 +1,451 @@
+"""The port's BlockManager (``paddle_tpu_torch/serving/kv_cache.py``)
+against the JAX package's, on the CPU.
+
+1. Replay: one seeded random sequence of admissions (prompts drawn from a
+   few shared prefixes, so the trie adopts, revives and evicts), chain
+   growth, copy-on-write and releases under a tight pool goes through both
+   managers; every op's result, every live slot's table row and the
+   ``stats`` counters must be equal after every op.
+2. The bf16, host-tier-free part of the interleaving checker of
+   ``tests/test_kv_cache_model.py``: all interleavings of {admit, grow,
+   COW, evict, release} to depth 8 (the reference sweeps a larger
+   alphabet to depth 6) on a 4-block pool against an
+   independent reference model of the documented semantics, with the
+   allocator's invariants asserted at every state (the chunked-admission,
+   rollback, demotion and tiering ops of the reference's alphabet belong
+   to later slices and are left out).
+3. The directed scenarios of that checker (eviction cascade, COW
+   overdraw, null-block table guard) and the unported items' errors.
+"""
+
+import numpy as np
+import pytest
+
+from paddle_tpu.serving.kv_cache import BlockManager as JaxBlockManager
+
+from paddle_tpu_torch.serving.kv_cache import NULL_BLOCK, BlockManager
+
+STATS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens",
+         "evictions", "cow_copies", "peak_blocks_in_use")
+
+
+# ---- 1. replay against the JAX BlockManager ------------------------------------
+
+def _random_ops(seed, n_ops, n_slots, bl):
+    rng = np.random.default_rng(seed)
+    prefixes = [list(rng.integers(0, 50, 3 * bl)) for _ in range(3)]
+    ops = []
+    for _ in range(n_ops):
+        kind = rng.choice(["admit", "admit", "grow", "cow", "release"])
+        slot = int(rng.integers(0, n_slots))
+        if kind == "admit":
+            pre = prefixes[int(rng.integers(0, 3))]
+            pre = pre[:int(rng.integers(0, 3 * bl + 1))]
+            tail = list(rng.integers(0, 50, int(rng.integers(1, 2 * bl))))
+            ops.append(("admit", slot, pre + tail,
+                        int(rng.integers(1, 2 * bl))))
+        elif kind == "grow":
+            ops.append(("grow", slot, int(rng.integers(0, 3 * bl))))
+        elif kind == "cow":
+            ops.append(("cow", slot, int(rng.integers(0, 3))))
+        else:
+            ops.append(("release", slot))
+    return ops
+
+
+def _apply(mgr, op, live):
+    """Apply one op where it is legal for the manager's state (the same
+    decision for both managers, which must be in the same state); returns
+    the op's result."""
+    kind, slot = op[0], op[1]
+    if kind == "admit":
+        if slot in live:
+            return "skip"
+        _, _, prompt, max_new = op
+        return mgr.admit(slot, prompt, len(prompt), max_new)
+    if slot not in live:
+        return "skip"
+    if kind == "grow":
+        chain = mgr.chain(slot)
+        pos = min(len(chain) * mgr.block_len - 1 + op[2],
+                  live[slot] - 1)               # within the reservation
+        return mgr.ensure_capacity(slot, pos)
+    if kind == "cow":
+        if op[2] >= len(mgr.chain(slot)) or not (
+                mgr.free_blocks() or mgr.cached_blocks()):
+            return "skip"
+        return mgr.ensure_writable(slot, op[2])
+    mgr.release(slot)
+    return None
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False],
+                         ids=["prefix", "no_prefix"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_replay_matches_jax_block_manager(seed, prefix_cache):
+    bl, nb, n_slots, max_blocks = 4, 14, 4, 16
+    port = BlockManager(nb, bl, prefix_cache=prefix_cache)
+    ref = JaxBlockManager(nb, bl, prefix_cache=prefix_cache)
+    live = {}                        # slot -> last position it may write
+    for i, op in enumerate(_random_ops(seed, 300, n_slots, bl)):
+        got, want = _apply(port, op, live), _apply(ref, op, live)
+        assert got == want, (i, op, got, want)
+        if op[0] == "admit" and got not in ("skip", None):
+            live[op[1]] = len(op[2]) + op[3]
+        elif op[0] == "release" and got != "skip":
+            del live[op[1]]
+        for s in live:
+            np.testing.assert_array_equal(port.table_row(s, max_blocks),
+                                          ref.table_row(s, max_blocks))
+        assert dict(port.stats) == {k: ref.stats[k] for k in STATS}, i
+        assert (port.free_blocks(), port.cached_blocks(),
+                port.blocks_in_use()) == (ref.free_blocks(),
+                                          ref.cached_blocks(),
+                                          ref.blocks_in_use()), i
+    # the sequence reached every path it claims to exercise
+    if prefix_cache:
+        assert port.stats["prefix_hit_blocks"] > 0
+        assert port.stats["evictions"] > 0
+    assert port.stats["cow_copies"] > 0 or not prefix_cache
+
+
+# ---- 2. the interleaving checker (bf16, no host tier) ---------------------------
+
+BL = 2            # tokens per block
+NUM_BLOCKS = 5    # 4 usable + the null block
+DEPTH = 8
+_ROOT_PATH = ()
+
+# slot -> (prompt, prompt_len, max_new): slot 0 registers block (1, 2) and
+# keeps 1 reserved; slot 1 shares it when registered (adoption + COW
+# material); slot 3's five-token prompt registers two trie levels and is
+# admitted only under pool pressure (the eviction-cascade probe)
+SLOT_CFG = {
+    0: ((1, 2, 3), 3, 2),
+    1: ((1, 2, 9), 3, 1),
+    3: ((11, 12, 13, 14, 15), 5, 1),
+}
+
+
+class _Entry:
+    __slots__ = ("refs", "path")
+
+    def __init__(self):
+        self.refs = 0
+        self.path = None
+
+
+class RefPool:
+    """Reference model of the documented BlockManager semantics over
+    abstract entries (trie identity = token path)."""
+
+    def __init__(self):
+        self.free = NUM_BLOCKS - 1
+        self.reserved = 0
+        self.slots = {}            # slot -> {"chain": [...], "left": int}
+        self.registered = {}       # path -> _Entry
+        self.lru = []              # refcount-0 registered entries, LRU order
+        self.evictions = 0
+        self.cow_copies = 0
+        self.hit_tokens = 0
+
+    def live_entries(self):
+        seen = []
+        for st in self.slots.values():
+            for e in st["chain"]:
+                if e not in seen:
+                    seen.append(e)
+        return seen
+
+    def available(self):
+        return self.free + len(self.lru) - self.reserved
+
+    def pool_nonempty(self):
+        return self.free > 0 or len(self.lru) > 0
+
+    def _pop_block(self):
+        if self.free > 0:
+            self.free -= 1
+            return _Entry()
+        e = self.lru.pop(0)
+        self.evictions += 1
+        self._unregister_cascade(e)
+        return e
+
+    def _unregister_cascade(self, root):
+        prefix = root.path
+        for path in [p for p in self.registered
+                     if p[:len(prefix)] == prefix]:
+            e = self.registered.pop(path)
+            e.path = None
+            if e is not root and e in self.lru:
+                self.lru.remove(e)
+                self.free += 1
+
+    def _append_block(self, slot):
+        st = self.slots[slot]
+        assert st["left"] > 0, "model bug: growth past reservation"
+        e = self._pop_block()
+        e.refs = 1
+        st["chain"].append(e)
+        st["left"] -= 1
+        self.reserved -= 1
+
+    def admit(self, slot):
+        prompt, plen, max_new = SLOT_CFG[slot]
+        matched = []
+        parent = _ROOT_PATH
+        for b in range((plen - 1) // BL):
+            path = parent + (tuple(prompt[b * BL:(b + 1) * BL]),)
+            e = self.registered.get(path)
+            if e is None:
+                break
+            matched.append(e)
+            parent = path
+        need = -(-(plen + max_new) // BL) - len(matched)
+        if self.available() - sum(e.refs == 0 for e in matched) < need:
+            return None
+        for e in matched:
+            if e.refs == 0:
+                self.lru.remove(e)
+            e.refs += 1
+        self.slots[slot] = {"chain": list(matched), "left": need}
+        self.reserved += need
+        for _ in range(plen // BL + 1 - len(matched)):
+            self._append_block(slot)
+        chain = self.slots[slot]["chain"]
+        parent = _ROOT_PATH
+        for b in range(plen // BL):
+            path = parent + (tuple(prompt[b * BL:(b + 1) * BL]),)
+            if path not in self.registered and chain[b].path is None:
+                self.registered[path] = chain[b]
+                chain[b].path = path
+            parent = path
+        self.hit_tokens += len(matched) * BL
+        return len(matched) * BL
+
+    def ensure_capacity(self, slot, pos):
+        st = self.slots[slot]
+        grew = False
+        while len(st["chain"]) * BL <= pos:
+            self._append_block(slot)
+            grew = True
+        return grew
+
+    def cow_write(self, slot, lb):
+        st = self.slots[slot]
+        e = st["chain"][lb]
+        if e.refs <= 1:
+            return False
+        dst = self._pop_block()
+        e.refs -= 1
+        dst.refs = 1
+        st["chain"][lb] = dst
+        self.cow_copies += 1
+        return True
+
+    def release(self, slot):
+        st = self.slots.pop(slot)
+        self.reserved -= st["left"]
+        for e in st["chain"]:
+            e.refs -= 1
+            if e.refs == 0:
+                if e.path is not None:
+                    self.lru.append(e)
+                else:
+                    self.free += 1
+
+
+def _growable(model):
+    for s in sorted(model.slots):
+        if model.slots[s]["left"] > 0:
+            return s
+    return None
+
+
+def _mk_admit(s):
+    def _apply_admit(mgr, model):
+        p, plen, mn = SLOT_CFG[s]
+        return mgr.admit(s, list(p), plen, mn), model.admit(s)
+    return _apply_admit
+
+
+def _op_grow(mgr, model):
+    s = _growable(model)
+    pos = len(model.slots[s]["chain"]) * BL
+    return mgr.ensure_capacity(s, pos), model.ensure_capacity(s, pos)
+
+
+def _op_cow(mgr, model):
+    return mgr.ensure_writable(1, 0) is not None, model.cow_write(1, 0)
+
+
+def _op_release(mgr, model):
+    s = max(model.slots)
+    return mgr.release(s), model.release(s)
+
+
+def _cow_enabled(m):
+    if 1 not in m.slots or not m.slots[1]["chain"]:
+        return False
+    # COW draws outside the reservation: on an empty pool the manager
+    # raises, so keep the sweep total
+    return m.slots[1]["chain"][0].refs <= 1 or m.pool_nonempty()
+
+
+OPS = [
+    ("admit:0", lambda m: 0 not in m.slots, _mk_admit(0)),
+    ("admit:1", lambda m: 1 not in m.slots, _mk_admit(1)),
+    ("ensure_capacity",
+     lambda m: _growable(m) is not None and m.pool_nonempty(), _op_grow),
+    ("cow_write", _cow_enabled, _op_cow),
+    ("evict", lambda m: 3 not in m.slots and len(m.lru) > 0, _mk_admit(3)),
+    ("release", lambda m: len(m.slots) > 0, _op_release),
+]
+_OP_BY_NAME = {name: (name, en, ap) for name, en, ap in OPS}
+
+
+def _check(mgr, model, trace):
+    ctx = f"after {' -> '.join(trace)}"
+    usable = set(range(1, NUM_BLOCKS))
+    free, lru = set(mgr._free), set(mgr._lru)
+    ref = {b for b in usable if mgr._ref[b] > 0}
+    # I1: partition of the usable pool; the null block in none of them
+    assert free | ref | lru == usable, ctx
+    assert not (free & ref) and not (free & lru) and not (ref & lru), ctx
+    assert NULL_BLOCK not in free | ref | lru, ctx
+    # I2: refcounts match the live chains
+    counts = np.zeros(NUM_BLOCKS, np.int64)
+    for st in mgr._slots.values():
+        for bid in st.chain:
+            counts[bid] += 1
+    assert (counts == mgr._ref).all(), ctx
+    # I3: trie bijection, children links, registered blocks never free
+    assert mgr._trie == {k: b for b, k in mgr._block_key.items()}, ctx
+    for b, key in mgr._block_key.items():
+        assert b not in free, ctx
+        if key[0] != -1:
+            assert b in mgr._children.get(key[0], set()), ctx
+    # I4: reservation ledger
+    assert mgr._reserved == sum(st.reserved_left
+                                for st in mgr._slots.values()), ctx
+    # I6: null-block aliasing + table_row round trip
+    for slot, st in mgr._slots.items():
+        assert NULL_BLOCK not in st.chain, ctx
+        row = mgr.table_row(slot, 8)
+        assert list(row[:len(st.chain)]) == st.chain, ctx
+        assert (row[len(st.chain):] == NULL_BLOCK).all(), ctx
+    # agreement with the model on everything the engine observes
+    assert mgr.free_blocks() == model.free, ctx
+    assert mgr.cached_blocks() == len(model.lru), ctx
+    assert mgr.blocks_in_use() == len(model.live_entries()), ctx
+    assert mgr._reserved == model.reserved, ctx
+    assert sorted(mgr._slots) == sorted(model.slots), ctx
+    for slot, st in mgr._slots.items():
+        mst = model.slots[slot]
+        assert len(st.chain) == len(mst["chain"]), ctx
+        assert st.reserved_left == mst["left"], ctx
+        assert ([int(mgr._ref[b]) for b in st.chain]
+                == [e.refs for e in mst["chain"]]), ctx
+    assert len(mgr._trie) == len(model.registered), ctx
+    assert mgr.stats["evictions"] == model.evictions, ctx
+    assert mgr.stats["cow_copies"] == model.cow_copies, ctx
+    assert mgr.stats["prefix_hit_tokens"] == model.hit_tokens, ctx
+
+
+def _replay(ops, check_every=True):
+    mgr, model = BlockManager(NUM_BLOCKS, BL), RefPool()
+    trace = []
+    for i, (name, _, apply) in enumerate(ops):
+        trace.append(name)
+        real, ref = apply(mgr, model)
+        assert real == ref, (f"op result drift after {' -> '.join(trace)}: "
+                             f"real={real!r} model={ref!r}")
+        if check_every or i == len(ops) - 1:
+            _check(mgr, model, trace)
+    return mgr, model
+
+
+def test_exhaustive_interleavings_bf16():
+    """All enabled-op interleavings to depth 8, the invariants at every
+    state (each proper prefix is itself a visited node), against the
+    reference model; every op of the alphabet is reached."""
+    explored, hit = [0], set()
+
+    def dfs(prefix):
+        _, model = _replay(prefix, check_every=False)
+        explored[0] += 1
+        if len(prefix) == DEPTH:
+            return
+        for op in OPS:
+            if op[1](model):
+                hit.add(op[0])
+                dfs(prefix + [op])
+
+    dfs([])
+    assert explored[0] > 3000, explored[0]
+    assert hit == set(_OP_BY_NAME)
+
+
+# ---- 3. directed scenarios + unported items ------------------------------------
+
+def test_eviction_cascade_with_descendants():
+    """Slot 3's prompt registers a parent + child chain; after release
+    both park on the LRU; admitting under pressure evicts the parent and
+    the cascade frees the parked child too (a stale child entry would
+    serve a prefix hit for blocks whose parent id was reused)."""
+    trace = []
+    mgr, model = BlockManager(NUM_BLOCKS, BL), RefPool()
+    for name in ["evict", "release", "admit:0", "admit:1"]:
+        trace.append(name)
+        _, _, apply = _OP_BY_NAME[name]
+        real, ref = apply(mgr, model)
+        assert real == ref, trace
+        _check(mgr, model, trace)
+    assert mgr.stats["evictions"] == 1
+    assert mgr.cached_blocks() == 0
+    assert len(mgr._trie) == 1          # only slot 0/1's shared (1, 2)
+
+
+def test_cow_overdraw_then_reserved_growth_exhausts_pool():
+    """COW is not covered by the admission reservation: a fork on a full
+    pool takes the block a reservation counted on, and the next reserved
+    growth raises instead of corrupting a chain."""
+    mgr = BlockManager(NUM_BLOCKS, BL)
+    assert mgr.admit(0, [1, 2, 3], 3, 2) == 0       # 2 blocks + 1 reserved
+    assert mgr.admit(1, [1, 2, 9], 3, 1) == 2       # adopts the (1,2) block
+    assert mgr.ensure_writable(1, 0) is not None    # COW takes the last block
+    assert mgr.free_blocks() == 0 and mgr.cached_blocks() == 0
+    with pytest.raises(RuntimeError, match="exhausted"):
+        mgr.ensure_capacity(0, 4)
+    assert len(mgr.chain(0)) == 2 and mgr._reserved == 1
+
+
+def test_table_row_rejects_null_block_in_live_chain():
+    mgr = BlockManager(NUM_BLOCKS, BL)
+    assert mgr.admit(0, [1, 2, 3], 3, 1) == 0
+    mgr._slots[0].chain[0] = NULL_BLOCK     # simulate the corruption
+    with pytest.raises(AssertionError, match="null block"):
+        mgr.table_row(0, 8)
+
+
+def test_unported_items_raise():
+    with pytest.raises(NotImplementedError, match="A6.6"):
+        BlockManager(5, 2, host_blocks=3)
+    with pytest.raises(NotImplementedError, match="A6.4"):
+        BlockManager(5, 2, kv_dtype="int8")
+    mgr = BlockManager(5, 2)
+    with pytest.raises(NotImplementedError, match="A6.2"):
+        mgr.admit(0, [1, 2, 3], 3, 1, chunked=True)
+    assert mgr.admit(0, [1, 2, 3], 3, 1) == 0
+    for call, item in ((lambda: mgr.register_prompt_upto(0, [1, 2], 2),
+                        "A6.2"),
+                       (lambda: mgr.truncate_to(0, 1), "A6.3"),
+                       (lambda: mgr.drain_fresh(), "A6.4"),
+                       (lambda: mgr.swap_out(0), "A6.6"),
+                       (lambda: mgr.resume_swapped(0, {}), "A6.6"),
+                       (lambda: mgr.export_blocks(0, None), "A6.6"),
+                       (lambda: mgr.import_blocks(0, {}, None), "A6.6"),
+                       (lambda: mgr.preempt_free(0), "A6.6")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()

@@ -104,7 +104,8 @@ def test_rejections(pair):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"paged": True}, "A6.1"), ({"chunked": True}, "A6.2"),
+    ({"paged": True, "preempt": "swap", "host_blocks": 4}, "A6.6"),
+    ({"chunked": True}, "A6.2"),
     ({"spec_decode": True}, "A6.3"), ({"kv_cache_dtype": "int8"}, "A6.4"),
     ({"int8_weights": True}, "A6.5"), ({"preempt": "swap"}, "A6.6"),
     ({"mesh": "mp2dp2"}, "A9")])
@@ -116,12 +117,12 @@ def test_unported_modes_raise(pair, kw, item):
 
 def test_unported_flag_raises(pair):
     _, tm = pair
-    flags.set_flags({"serving_paged_kv": True})
+    flags.set_flags({"serving_chunked_prefill": True})
     try:
-        with pytest.raises(NotImplementedError, match="A6.1"):
+        with pytest.raises(NotImplementedError, match="A6.2"):
             ServingEngine(tm, max_length=MAXLEN, device="cpu")
     finally:
-        flags.set_flags({"serving_paged_kv": False})
+        flags.set_flags({"serving_chunked_prefill": False})
 
 
 def test_engine_device_rules(pair, monkeypatch):
