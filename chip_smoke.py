@@ -19,10 +19,15 @@ non-zero.  Phases:
                  then K1-paged (decode tick) and K2-paged (suffix prefill)
                  on pools built so a kernel cannot pass by accident
                  (physical blocks shuffled, rows sharing their first
-                 blocks, null-filled dead tails), each also at the tiny
-                 model's float32 shapes: max error against the plain
-                 version beside the stated tolerance, kernel / host /
-                 plain / library / bound times in ms;
+                 blocks, null-filled dead tails), then the int8 builds:
+                 K1-int8 over a contiguous int8 cache with 128-token scale
+                 granules, K1-paged-int8 and K2-paged-int8 over int8 pools
+                 with per-block scales, and K4, the weight-only int8 GEMM,
+                 at every Llama-3-8B projection shape (8 rows) and at 256
+                 rows; each also at the tiny model's float32 shapes: max
+                 error against the plain version beside the stated
+                 tolerance, kernel / host / plain / library / bound times
+                 in ms;
   3. model     — ``LlamaForCausalLM(llama3_8b_config())``, 32 layers,
                  random weights from a seeded ``torch.Generator``:
                  teacher-forced ``decode_step`` (prefill + 4 decode steps)
@@ -32,11 +37,16 @@ non-zero.  Phases:
                  tolerance of the plain path's; the same gate for a paged
                  session (prefix written into scattered blocks, a suffix
                  prefill at per-row pos > 0, 4 decode steps through the
-                 block table); then a tiny float32 engine on the card
+                 block table), and for that paged session served by the
+                 int8 model (``quantize_for_decode``: int8 weights) over an
+                 int8 pool, held against the same float32 truth
+                 (``model_int8``); then a tiny float32 engine on the card
                  (kernels) against the same engine on the CPU (plain
                  versions): greedy tokens must be identical, and the
                  tiny PAGED engine on the card must match both the paged
                  engine on the CPU and the contiguous engine on the card;
+                 the tiny int8 engines (int8 KV and int8 weights,
+                 contiguous and paged) must match themselves on the CPU;
   4. serving   — ``ServingEngine(num_slots=8, max_length=4096,
                  prefill_batch=4)`` on 12 requests of 5..1500 prompt
                  tokens, 32 new tokens each; every launch counter is reset
@@ -47,14 +57,26 @@ non-zero.  Phases:
                  pool is sized so blocks are evicted and admissions wait;
                  checks prefix hits, launches (K1-paged 32 a decode tick,
                  K2-paged 32 a wave, contiguous K1/K2 none, no plain
-                 route); tok/s, step ms, TTFT, wave ms.
+                 route); tok/s, step ms, TTFT, wave ms;
+  4c. serving_int8 — phase 4b's engine, requests and pool with
+                 ``kv_cache_dtype="int8", int8_weights=True``: the same
+                 schedule as 4b (it depends on lengths and prompt tokens
+                 only), K1-paged-int8 32 a decode tick, K2-paged-int8 32 a
+                 wave, K4 at least 7 x 32 + 1 a decode tick, no bf16
+                 attention kernel, no plain route; tok/s, step ms, TTFT,
+                 pool bytes, the model's ``hbm_bytes()``;
+  4d. serving_int8_contiguous — phase 4's engine and requests with the
+                 same two options: K1-int8 32 a decode tick, K2 32 a wave
+                 (the wave prefill attends its fresh K/V), K4 as in 4c.
 
 Then the ``{"kernels": [...]}`` line (launches of K1, K2, K3 from phase 4,
-of K1-paged and K2-paged from phase 4b; error and times from phase 2) and,
-last, ``{"ok": true, "device": {...}}``.
+of K1-paged and K2-paged from phase 4b, of K1-paged-int8, K2-paged-int8
+and K4 from phase 4c, of K1-int8 from phase 4d; error and times from
+phase 2) and, last, ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds a torch.profiler window over a few decode ticks after
-phase 4 (kernel time by name, device busy share) for PERF.md.
+``--profile`` adds a torch.profiler window over a few decode ticks of the
+contiguous, paged and int8 paged engines (kernel time by name, device busy
+share) for PERF.md.
 """
 
 from __future__ import annotations
@@ -97,15 +119,44 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    "decode_attention_int8": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    "decode_attention_paged_int8": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    "flash_attention_fwd_paged_int8": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    "int8_matmul": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "paddle_tpu/ops/pallas/int8_matmul.py:38"},
 }
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
 PAGED_LIBRARY_NOTE = ("F.scaled_dot_product_attention over a pre-gathered "
                       "contiguous copy; the gather is not timed")
+INT8_LIBRARY_NOTE = ("F.scaled_dot_product_attention over a dequantized "
+                     "(and, paged, pre-gathered) bf16/f32 copy; the dequant "
+                     "and gather are not timed")
+MATMUL_LIBRARY_NOTE = ("torch.matmul against the bf16/f32 weight the int8 "
+                       "one replaces")
 LAYERS_8B = 32
 # the kernels of the default (contiguous) engine's path, phase 4
 CONTIGUOUS_PATH = ("decode_attention", "flash_attention_fwd", "rms_norm")
 PAGED_POOL_BLOCKS = 52          # phase 4b: evictions + waiting admissions
+# phase 4b's schedule (lengths and prompt tokens only), which phase 4c repeats
+PAGED_SCHEDULE = {"prefill_waves": 5, "decode_ticks": 93,
+                  "prefill_tokens_computed": 8680,
+                  "prefill_tokens_total": 19432, "evictions": 3,
+                  "admission_blocked": 32}
+# K4 launches of one decode tick: q, k, v, o, gate, up, down a layer + lm_head
+K4_PER_TICK = 7 * LAYERS_8B + 1
+TINY_MIN_ELEMS = 2048           # every tiny projection, not the RoPE tables
 
 
 def emit(obj) -> None:
@@ -158,6 +209,31 @@ def _time(torch, fns, budget_ms):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, t_host
+
+
+def device_ms(torch, fns, n: int = 40) -> float:
+    """Device time of one call by the profiler (CUPTI): the sum of the
+    kernels' device times over ``n`` calls, over ``n``; 0.0 if three
+    profiler windows in a row recorded no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            if t and ev.key and not ev.key.startswith(("aten::", "cuda")):
+                total += t
+        if total > 0:
+            return total / n / 1e3
+    return 0.0
 
 
 def copies(nbytes: int) -> int:
@@ -258,7 +334,9 @@ def phase_kernels(torch):
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       cached_decode_attention_reference,
                                       flash_attention,
-                                      flash_attention_reference, rms_norm,
+                                      flash_attention_reference,
+                                      int8_matmul_cuda,
+                                      int8_matmul_reference, rms_norm,
                                       rms_norm_reference)
     from paddle_tpu_torch.ops._dispatch import reference_mode
     import torch.nn.functional as TF
@@ -279,9 +357,17 @@ def phase_kernels(torch):
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
                main, note=None):
         ms, hms = time_ms(torch, kfns), host_ms(torch, kfns)
+        dms = device_ms(torch, kfns)
+        timed_by = "events"
+        if dms > 0 and ms > 1.1 * dms:
+            # the events timed the host's enqueue (a call that enqueues
+            # slower than the device runs it): take the kernels' own
+            # device time from the profiler
+            ms, timed_by = dms, "profiler"
         row = {"phase": "kernels", "kernel": name, "shape": shape,
                "max_err": err, "tol": tol, "ok": ok, "kernel_ms": ms,
-               "host_ms": hms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+               "timed_by": timed_by, "device_ms": dms, "host_ms": hms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                "bound_by": by}
         if note:
             row["library_note"] = note
@@ -290,7 +376,8 @@ def phase_kernels(torch):
         agg = results.setdefault(name, {"max_abs_err": 0.0})
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
         if main:
-            agg.update(shape=shape, ms=ms, plain_ms=plain_ms,
+            agg.update(shape=shape, ms=ms, timed_by=timed_by,
+                       plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
     # ---- K1 flash-decode: the decode tick's shape (bf16, head_dim 128),
@@ -489,6 +576,182 @@ def phase_kernels(torch):
                bms, by, main, note=PAGED_LIBRARY_NOTE)
         del sets, q, kp, vp, got, want
 
+    # ---- the int8 builds.  Payloads are random int8 in [-127, 127] with
+    # random positive float32 scales; each plain version dequantizes them
+    # in float32.  The library yardstick is SDPA over a dequantized copy
+    # (and, paged, pre-gathered), made beforehand and not timed; the bound
+    # counts the int8 payload and the scale rows a call must read.
+    def int8_payload(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def int8_scales(*shape):
+        return 0.002 + 0.02 * torch.rand(shape, generator=gen, device=dev)
+
+    # K1-int8: the contiguous int8 cache at K1's phase-2 depths (128-token
+    # granules), then the tiny model's one-granule float32 cache
+    for dt, hq, hkv, d, b, s, L, n_gran, pos_list, main in (
+            (bf16, 32, 8, 128, 8, 1, 4096, 32,
+             [0, 4095, 17, 1000, 2047, 3000, 511, 128], True),
+            (bf16, 32, 8, 128, 2, 4, 1024, 8, [0, 700], False),
+            (f32, 4, 2, 16, 2, 1, 64, 1, [0, 40], False),
+            (f32, 4, 2, 16, 2, 3, 64, 1, [5, 60], False)):
+        atol, rtol = tols(dt)
+        esz = 2 if dt == bf16 else 4
+        gr = L // n_gran
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        sets = [(randn(b, s, hq, d, dtype=dt), int8_payload(b, L, hkv, d),
+                 int8_payload(b, L, hkv, d), int8_scales(b, n_gran, hkv),
+                 int8_scales(b, n_gran, hkv))
+                for _ in range(copies(2 * b * L * hkv * d))]
+
+        def run(t):
+            return cached_decode_attention(t[0], t[1], t[2], pos,
+                                           k_scale=t[3], v_scale=t[4])
+        got = run(sets[0])
+        with reference_mode():
+            want = run(sets[0])
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = within(got, want, atol, rtol)
+        kfns = [lambda t=t: run(t) for t in sets]
+        with reference_mode():
+            plain_ms = time_ms(torch, kfns, budget_ms=100.0)
+        deq = [(t[0], (t[1].float().view(b, n_gran, gr, hkv, d)
+                       * t[3][:, :, None, :, None]).view(b, L, hkv, d).to(dt),
+                (t[2].float().view(b, n_gran, gr, hkv, d)
+                 * t[4][:, :, None, :, None]).view(b, L, hkv, d).to(dt))
+               for t in sets]
+        kj = torch.arange(L, device=dev)
+        qi = pos.long()[:, None] + torch.arange(s, device=dev)[None]
+        mask = (kj[None, None] <= qi[:, :, None])[:, None]      # B,1,s,L
+        lib_ms = time_ms(torch, [
+            lambda t=t: TF.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2),
+                t[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+            for t in deq])
+        del deq
+        live = [min(L, p + s) for p in pos_list]
+        nbytes = (2 * b * s * hq * d * esz + sum(live) * hkv * d * 2
+                  + sum(-(-n // gr) for n in live) * hkv * 4 * 2 + 4 * b)
+        ops = sum(4 * d * hq * (p + si + 1)
+                  for p in pos_list for si in range(s))
+        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        record("decode_attention_int8",
+               f"B={b} s={s} L={L} granule={gr} Hq={hq} Hkv={hkv} D={d} "
+               f"pos={pos_list} int8 K/V, {str(dt)[6:]} q",
+               err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
+               bms, by, main, note=INT8_LIBRARY_NOTE)
+        del sets, got, want
+
+    # K1-paged-int8 / K2-paged-int8: the shapes of K1-paged / K2-paged
+    # (same shuffled, shared, null-tailed tables) over int8 pools with
+    # per-(block, kv head) scales
+    for (name, dt, hq, hkv, d, b, s, bl, mb, pos_list, share,
+         main) in paged_rows:
+        name += "_int8"
+        atol, rtol = tols(dt)
+        esz = 2 if dt == bf16 else 4
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        tables, n_blocks, live_keys = paged_layout(pos_list, s, bl, mb,
+                                                   share, seed=len(pos_list))
+        live_blocks = len({int(tables[r, j // bl])
+                           for r, p in enumerate(pos_list)
+                           for j in range(0, min(p + s, mb * bl), bl)})
+        tables = torch.from_numpy(tables).to(dev)
+        sets = [(randn(b, s, hq, d, dtype=dt),
+                 int8_payload(n_blocks, bl, hkv, d),
+                 int8_payload(n_blocks, bl, hkv, d),
+                 int8_scales(n_blocks, hkv), int8_scales(n_blocks, hkv))
+                for _ in range(copies(2 * n_blocks * bl * hkv * d
+                                      + b * s * hq * d * esz))]
+
+        def run(t):
+            return cached_decode_attention(t[0], t[1], t[2], pos,
+                                           block_tables=tables,
+                                           k_scale=t[3], v_scale=t[4])
+        got = run(sets[0])
+        with reference_mode():
+            want = run(sets[0])
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = within(got, want, atol, rtol) and bool(
+            torch.isfinite(got).all().item())
+        kfns = [lambda t=t: run(t) for t in sets]
+        with reference_mode():
+            plain_ms = time_ms(torch, kfns, budget_ms=100.0)
+        L = mb * bl
+        idx = tables.long()
+        deq = [(t[0],
+                (t[1][idx].float() * t[3][idx][:, :, None, :, None]).reshape(
+                    b, L, hkv, d).to(dt),
+                (t[2][idx].float() * t[4][idx][:, :, None, :, None]).reshape(
+                    b, L, hkv, d).to(dt)) for t in sets]
+        kj = torch.arange(L, device=dev)
+        qi = pos.long()[:, None] + torch.arange(s, device=dev)[None]
+        mask = (kj[None, None] <= qi[:, :, None])[:, None]      # B,1,s,L
+        lib_ms = time_ms(torch, [
+            lambda t=t: TF.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2),
+                t[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+            for t in deq])
+        del deq
+        nbytes = (2 * b * s * hq * d * esz + live_keys * hkv * d * 2
+                  + live_blocks * hkv * 4 * 2 + 4 * b * (mb + 1))
+        ops = sum(4 * d * hq * min(p + si + 1, L)
+                  for p in pos_list for si in range(s))
+        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        record(name,
+               f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
+               f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
+               f"shared={[list(x) for x in share]} int8 K/V, "
+               f"{str(dt)[6:]} q",
+               err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
+               bms, by, main, note=INT8_LIBRARY_NOTE)
+        del sets, got, want
+
+    # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
+    # projection shape (K, N), 256 rows (the kernel's row limit) at one,
+    # then the tiny model's float32 widths
+    for dt, rows, k, n, main in (
+            (bf16, 8, 4096, 4096, False),          # q_proj, o_proj
+            (bf16, 8, 4096, 1024, False),          # k_proj, v_proj
+            (bf16, 8, 4096, 14336, True),          # gate_proj, up_proj
+            (bf16, 8, 14336, 4096, False),         # down_proj
+            (bf16, 8, 4096, 128256, False),        # lm_head
+            (bf16, 256, 4096, 4096, False),
+            (f32, 8, 64, 32, False),
+            (f32, 8, 128, 64, False),
+            (f32, 3, 64, 256, False)):
+        atol, rtol = tols(dt)
+        esz = 2 if dt == bf16 else 4
+        sets = []
+        for _ in range(copies(k * n)):
+            w8 = int8_payload(k, n)
+            sc = int8_scales(n) * 0.05
+            sets.append((randn(rows, k, dtype=dt), w8, sc,
+                         (w8.float() * sc).to(dt)))
+        x, w8, sc, _ = sets[0]
+        got = int8_matmul_cuda(x, w8, sc)
+        want = int8_matmul_reference(x, w8, sc)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = within(got, want, atol, rtol)
+        kfns = [lambda t=t: int8_matmul_cuda(t[0], t[1], t[2]) for t in sets]
+        plain_ms = time_ms(torch, [
+            lambda t=t: int8_matmul_reference(t[0], t[1], t[2])
+            for t in sets], budget_ms=100.0)
+        lib_ms = time_ms(torch, [lambda t=t: torch.matmul(t[0], t[3])
+                                 for t in sets])
+        nbytes = k * n + 4 * n + (rows * k + rows * n) * esz
+        bms, by = bound(nbytes, 2 * rows * k * n,
+                        BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        record("int8_matmul", f"rows={rows} K={k} N={n} int8 w, "
+               f"{str(dt)[6:]} x", err, f"atol {atol} + rtol {rtol}", ok,
+               kfns, plain_ms, lib_ms, bms, by, main,
+               note=MATMUL_LIBRARY_NOTE)
+        del sets, x, w8, sc, got, want
+
     # ---- K3 RMSNorm: decode rows and a prefill wave's rows (bf16, hidden
     # 4096), then the tiny model's float32 rows (hidden 64) ------------------
     for dt, rows, hidden, main in ((bf16, 8, 4096, False),
@@ -528,7 +791,9 @@ def phase_kernels(torch):
 
 def phase_model(torch):
     from paddle_tpu_torch.models import (LlamaForCausalLM, init_kv_cache,
-                                         llama3_8b_config, tiny_llama_config)
+                                         llama3_8b_config,
+                                         quantize_for_decode,
+                                         tiny_llama_config)
     from paddle_tpu_torch.ops._dispatch import reference_mode
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.kv_cache import init_paged_kv_cache
@@ -575,8 +840,9 @@ def phase_model(torch):
         rng.randint(0, cfg.vocab_size, (b, 64)).astype(np.int32)).to(dev)
     suffix_pos = torch.tensor([128, 256], dtype=torch.int32, device=dev)
 
-    def paged_forced(m):
-        pool = init_paged_kv_cache(m.config, nb_pool, bl, device=dev)
+    def paged_forced(m, quantized=False):
+        pool = init_paged_kv_cache(m.config, nb_pool, bl, quantized=quantized,
+                                   device=dev)
         outs = []
         with torch.no_grad():
             logits, pool = m.decode_step(prefix, pool, 0,
@@ -657,7 +923,41 @@ def phase_model(torch):
     check(err_kernel_p <= tol_p,
           f"paged kernel path is {err_kernel_p} from the float32 model, the "
           f"plain path {err_plain_p} (tolerance {tol_p})")
-    del got_p, want_p, truth_p
+    del got_p, want_p
+
+    # the paged session on the int8 model (int8 weights: every projection,
+    # the embedding and the LM head) over an int8 pool, against the same
+    # float32 truth of the unquantized weights: the kernel path (K4,
+    # K1-paged-int8, K2-paged-int8) must sit as close to it as the plain
+    # path (dequantize-then-matmul, dequantized attention) does
+    t0 = time.perf_counter()
+    qmodel = quantize_for_decode(model)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    got_q = paged_forced(qmodel, quantized=True)
+    with reference_mode():
+        want_q = paged_forced(qmodel, quantized=True)
+    diff_q, err_kernel_q, err_plain_q = (worst(got_q, want_q),
+                                         worst(got_q, truth_p),
+                                         worst(want_q, truth_p))
+    finite_q = all(bool(torch.isfinite(g).all().item()) for g in got_q)
+    tol_q = 1.2 * err_plain_q
+    hbm_q, hbm_full = qmodel.hbm_bytes()
+    emit({"phase": "model_int8", "config": "llama3_8b", "block_len": bl,
+          "kv_cache_dtype": "int8", "int8_weights": True,
+          "quantized_tensors": len(qmodel.quantized_names),
+          "quantize_s": round(quant_s, 3), "hbm_bytes": hbm_q,
+          "hbm_bytes_unquantized": hbm_full,
+          "decode_steps": int(forced.shape[0]),
+          "max_logit_diff_kernel_vs_plain": diff_q,
+          "max_logit_err_kernel_vs_f32": err_kernel_q,
+          "max_logit_err_plain_vs_f32": err_plain_q,
+          "tol_kernel_vs_f32": tol_q, "finite": finite_q})
+    check(finite_q, "int8 model logits are not finite")
+    check(err_kernel_q <= tol_q,
+          f"int8 kernel path is {err_kernel_q} from the float32 model, the "
+          f"plain path {err_plain_q} (tolerance {tol_q})")
+    del got_q, want_q, truth_p
 
     # tiny float32 engine: kernels on the card vs plain versions on the CPU
     tiny = tiny_llama_config()
@@ -701,7 +1001,25 @@ def phase_model(torch):
     check(p_card == contiguous_card,
           f"tiny f32 paged engine differs from the contiguous engine on the "
           f"card: {p_card} vs {contiguous_card}")
-    return model
+
+    # the tiny int8 engines (int8 KV + int8 weights, quantized once on the
+    # CPU and copied to the card), contiguous and paged: card vs CPU
+    q_cpu = quantize_for_decode(tiny_cpu, min_elems=TINY_MIN_ELEMS)
+    q_card = copy.deepcopy(q_cpu).to(dev)
+    int8_kw = dict(kv_cache_dtype="int8", int8_weights=True)
+    for layout, reqs, kw in (("contiguous", prompts, int8_kw),
+                             ("paged", paged_prompts,
+                              dict(int8_kw, **paged_kw))):
+        i_card, _ = serve(q_card, "cuda", reqs, **kw)
+        i_cpu, _ = serve(q_cpu, "cpu", reqs, **kw)
+        emit({"phase": "model_tiny_f32_int8", "layout": layout,
+              "requests": len(reqs),
+              "quantized_tensors": len(q_cpu.quantized_names),
+              "identical_card_vs_cpu": i_card == i_cpu})
+        check(i_card == i_cpu,
+              f"tiny f32 int8 {layout} engine differs card vs cpu: "
+              f"{i_card} vs {i_cpu}")
+    return model, qmodel
 
 
 # -- phase 4 ------------------------------------------------------------------------
@@ -836,6 +1154,136 @@ def phase_serving_paged(torch, model, kernels):
     return eng
 
 
+def _serve_8b(torch, model, prompts, new_tokens=32, **kw):
+    """One 8B-width serving run with every launch and route counter reset
+    just before and read just after.  Returns (engine, outputs in submit
+    order, wall seconds, launches, routes)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, num_slots=8, max_length=4096,
+                        prefill_batch=4, device="cuda", **kw)
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    out = dict(eng.drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    vocab = model.config.vocab_size
+    outs = [out[r] for r in rids]
+    for r, o in zip(rids, outs):
+        check(len(o) == new_tokens, f"request {r} returned {len(o)} tokens")
+        check(all(0 <= t < vocab for t in o),
+              f"request {r} returned a token outside the vocabulary")
+    return eng, outs, wall, launches, routes
+
+
+def _check_int8_launches(m, launches, routes, attention):
+    """The int8 engine's launch contract: each kernel of ``attention``
+    (name -> 'tick' or 'wave') 32 times a decode tick or a wave, K4 at
+    least 7 x 32 + 1 times a decode tick, every other attention kernel
+    never, RMSNorm on every layer, no plain route."""
+    per = {"tick": m["decode_ticks"], "wave": m["prefill_waves"]}
+    for name, unit in attention.items():
+        check(launches[name] == LAYERS_8B * per[unit],
+              f"{name} launched {launches[name]} times for {per[unit]} "
+              f"{unit}s")
+    others = [n for n in ("decode_attention", "flash_attention_fwd",
+                          "decode_attention_paged",
+                          "flash_attention_fwd_paged",
+                          "decode_attention_int8",
+                          "decode_attention_paged_int8",
+                          "flash_attention_fwd_paged_int8")
+              if n not in attention and launches[n]]
+    check(not others, f"attention kernels off this path ran: {others}")
+    check(launches["int8_matmul"] >= K4_PER_TICK * m["decode_ticks"],
+          f"K4 launched {launches['int8_matmul']} times for "
+          f"{m['decode_ticks']} decode ticks")
+    check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
+    plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
+    check(not plain, f"plain routes taken on the card: {plain}")
+
+
+def phase_serving_int8(torch, qmodel, kernels, paged_metrics):
+    """Phase 4c: phase 4b's engine, requests and pool, int8 KV + int8
+    weights; the schedule must be phase 4b's."""
+    kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS,
+              kv_cache_dtype="int8", int8_weights=True)
+    prompts = paged_serving_prompts(qmodel.config.vocab_size)
+    eng, outs, wall, launches, routes = _serve_8b(torch, qmodel, prompts,
+                                                  **kw)
+    m = eng.metrics()
+    kv = m["kv_cache"]
+    ntok = sum(len(o) for o in outs)
+    hbm_q, hbm_full = qmodel.hbm_bytes()
+    schedule = {"prefill_waves": m["prefill_waves"],
+                "decode_ticks": m["decode_ticks"],
+                "prefill_tokens_computed": m["prefill_tokens_computed"],
+                "prefill_tokens_total": m["prefill_tokens_total"],
+                "evictions": kv["evictions"],
+                "admission_blocked": kv["admission_blocked"]}
+    emit({"phase": "serving_int8", "requests": len(prompts),
+          "block_len": 128, "num_blocks": PAGED_POOL_BLOCKS,
+          "kv_cache_dtype": "int8", "int8_weights": True,
+          "new_tokens": 32, "tokens": ntok, "wall_s": round(wall, 4),
+          "tok_per_s": round(ntok / wall, 2),
+          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
+          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+          "schedule": schedule, "kv_cache": kv,
+          "pool_bytes": eng.cache_hbm_bytes,
+          "model_hbm_bytes": hbm_q, "model_hbm_bytes_unquantized": hbm_full,
+          "launches": launches, "routes": routes})
+    check(schedule == PAGED_SCHEDULE,
+          f"phase 4c schedule {schedule} is not {PAGED_SCHEDULE}")
+    check(all(schedule[k] == (paged_metrics["kv_cache"] if k in (
+        "evictions", "admission_blocked") else paged_metrics)[k]
+        for k in schedule), "phase 4c schedule differs from phase 4b's")
+    check(kv["kv_dtype"] == "int8" and kv["quantized_blocks"] > 0,
+          "the int8 pool holds no int8 block")
+    check(kv["blocks_in_use"] == 0, "blocks still in use after the drain")
+    _check_int8_launches(m, launches, routes,
+                         {"decode_attention_paged_int8": "tick",
+                          "flash_attention_fwd_paged_int8": "wave"})
+    for name in ("decode_attention_paged_int8",
+                 "flash_attention_fwd_paged_int8", "int8_matmul"):
+        kernels[name]["launches"] = launches[name]
+    del eng
+
+
+def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
+    """Phase 4d: phase 4's engine and requests, int8 KV + int8 weights."""
+    prompts = serving_prompts(qmodel.config.vocab_size)
+    eng, outs, wall, launches, routes = _serve_8b(
+        torch, qmodel, prompts, kv_cache_dtype="int8", int8_weights=True)
+    m = eng.metrics()
+    ntok = sum(len(o) for o in outs)
+    emit({"phase": "serving_int8_contiguous", "requests": len(prompts),
+          "kv_cache_dtype": "int8", "int8_weights": True, "new_tokens": 32,
+          "tokens": ntok, "wall_s": round(wall, 4),
+          "tok_per_s": round(ntok / wall, 2),
+          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
+          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+          "prefill_waves": m["prefill_waves"],
+          "decode_ticks": m["decode_ticks"],
+          "cache_bytes": eng.cache_hbm_bytes, "launches": launches,
+          "routes": routes})
+    check((m["prefill_waves"], m["decode_ticks"])
+          == (metrics4["prefill_waves"], metrics4["decode_ticks"]),
+          "phase 4d schedule differs from phase 4's")
+    _check_int8_launches(m, launches, routes,
+                         {"decode_attention_int8": "tick",
+                          "flash_attention_fwd": "wave"})
+    kernels["decode_attention_int8"]["launches"] = \
+        launches["decode_attention_int8"]
+    del eng
+
+
 def device_us(prof, n: int):
     """Device time per call (us) by kernel name from a profiler window of
     ``n`` calls."""
@@ -849,7 +1297,7 @@ def device_us(prof, n: int):
     return out
 
 
-def phase_profile(torch, model):
+def phase_profile(torch, model, qmodel):
     """K1's device time against its split length at the phase-2 decode
     shape, then torch.profiler over a few decode ticks of 8 busy slots."""
     from torch.profiler import ProfilerActivity, profile
@@ -885,13 +1333,17 @@ def phase_profile(torch, model):
     del q, kc, vc
 
     # decode ticks of 8 busy slots: the contiguous engine on phase 4's
-    # prompts, then the paged engine on phase 4b's
-    for phase, kw, prompts in (
-            ("profile", {}, serving_prompts(model.config.vocab_size)),
-            ("profile_paged",
-             dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS),
+    # prompts, then the paged engine on phase 4b's, then phase 4c's int8
+    # engine on them
+    paged_kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS)
+    for phase, m, kw, prompts in (
+            ("profile", model, {}, serving_prompts(model.config.vocab_size)),
+            ("profile_paged", model, paged_kw,
+             paged_serving_prompts(model.config.vocab_size)),
+            ("profile_int8_paged", qmodel,
+             dict(paged_kw, kv_cache_dtype="int8", int8_weights=True),
              paged_serving_prompts(model.config.vocab_size))):
-        eng = ServingEngine(model, num_slots=8, max_length=4096,
+        eng = ServingEngine(m, num_slots=8, max_length=4096,
                             prefill_batch=4, device="cuda", **kw)
         for p in prompts[:8]:
             eng.submit(p, max_new_tokens=16)
@@ -954,13 +1406,21 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_card(torch, _build)
     kernels = phase_kernels(torch)
-    model = phase_model(torch)
+    model, qmodel = phase_model(torch)
     eng = phase_serving(torch, model, kernels)
+    metrics4 = eng.metrics()
     del eng
     torch.cuda.empty_cache()
-    phase_serving_paged(torch, model, kernels)
+    eng = phase_serving_paged(torch, model, kernels)
+    metrics4b = eng.metrics()
+    del eng
+    torch.cuda.empty_cache()
+    phase_serving_int8(torch, qmodel, kernels, metrics4b)
+    torch.cuda.empty_cache()
+    phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4)
+    torch.cuda.empty_cache()
     if args.profile:
-        phase_profile(torch, model)
+        phase_profile(torch, model, qmodel)
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)
                       for n, r in kernels.items()]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,

@@ -37,9 +37,24 @@
 //     straight from device memory in 8-byte vectors (bf16, D = 128); the
 //     8 keys' dot products are summed across lanes by a transpose-reduce
 //     (9 shuffles a row instead of 40); the warps merge once at the end.
+//
+// int8 cache (entries decode_attention_int8 / decode_attention_paged_int8;
+// replaces the Pallas kernel's quantized mode, decode_attention.py
+// :122-128, :160-171, :186-187): K and V hold int8 with one float32 scale
+// per (granule or block, kv head) -- contiguous k_scale / v_scale (B,
+// n_gran, Hkv) over granules of L / n_gran positions, paged (num_blocks,
+// Hkv).  The bytes a key costs halve.  Granules, blocks and splits are
+// multiples of 8, so a warp's 8-key group lies in one granule or block and
+// its two scales are loaded once a group and folded as the Pallas body
+// folds them: K's into the group's scores (q . k_int8 * scale * k_scale),
+// V's into the group's probabilities before they weight V (equal to
+// scaling P.V); the running sum l takes the unscaled probabilities.  The
+// int8 -> float conversion is exact.  The bf16/f32 instantiations are the
+// code above, unchanged (INT8 = false removes every int8 branch).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -53,6 +68,9 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -101,16 +119,22 @@ __device__ __forceinline__ void load_float(const T* __restrict__ p,
 // own online-softmax state; the warps merge once at the end.
 // PAGED selects the K/V addressing: false = contiguous (table, max_blocks
 // and block_len unused; the same code as the contiguous-only build),
-// true = pool + block table with L = max_blocks * block_len.
-template <typename T, int EPL, int KPI, bool PAGED>
+// true = pool + block table with L = max_blocks * block_len.  KV is the
+// cache's element type: T, or int8_t for the int8 cache, whose scales
+// (k_scale, v_scale; n_gran and gran_len for the contiguous layout) are
+// unused otherwise.
+template <typename T, typename KV, int EPL, int KPI, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ pos,
+decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                        const KV* __restrict__ v, const int* __restrict__ pos,
                         T* __restrict__ out, float* __restrict__ part_o,
                         float* __restrict__ part_ml, int S, int Hq, int Hkv,
                         int D, int L, int limit, int split_len, float scale,
                         const int* __restrict__ table, int max_blocks,
-                        int block_len) {
+                        int block_len, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, int n_gran,
+                        int gran_len) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   constexpr int kLogK = KPI == 8 ? 3 : (KPI == 4 ? 2 : 1);
   static_assert((1 << kLogK) == KPI, "KPI must be 2, 4 or 8");
   const int bh = blockIdx.x;
@@ -180,8 +204,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t key_stride = (size_t)Hkv * D;
   // contiguous: row b's cache; paged: the pool (rows come from the table)
   const size_t row_base = PAGED ? 0 : (size_t)b * L * key_stride;
-  const T* kb = k + row_base + (size_t)h * D + d0;
-  const T* vb = v + row_base + (size_t)h * D + d0;
+  const KV* kb = k + row_base + (size_t)h * D + d0;
+  const KV* vb = v + row_base + (size_t)h * D + d0;
   // after the transpose-reduce, lane l holds the score of key kidx
   const int kidx = (lane >> (5 - kLogK)) & (KPI - 1);
 
@@ -191,16 +215,26 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // pool row of the group's first key (base is a multiple of KPI, and
     // so is block_len: the group lies in one block)
     size_t grow = 0;
-    if constexpr (PAGED)
-      grow = (size_t)table[(size_t)b * max_blocks + base / block_len] *
-                 block_len + base % block_len;
+    int blk = 0;
+    if constexpr (PAGED) {
+      blk = table[(size_t)b * max_blocks + base / block_len];
+      grow = (size_t)blk * block_len + base % block_len;
+    }
+    // int8: the group's granule / block scales (one of each a group)
+    float k_sc = 1.f, v_sc = 1.f;
+    if constexpr (INT8) {
+      const size_t srow = PAGED ? (size_t)blk
+                                : (size_t)b * n_gran + base / gran_len;
+      k_sc = k_scale[srow * Hkv + h];
+      v_sc = v_scale[srow * Hkv + h];
+    }
 #pragma unroll
     for (int kk = 0; kk < KPI; ++kk) {
       const int j = base + kk;
       if (lane_on && j < k_end) {
         const size_t r = PAGED ? grow + kk : (size_t)j;
-        load_float<T, EPL>(kb + r * key_stride, kf[kk]);
-        load_float<T, EPL>(vb + r * key_stride, vf[kk]);
+        load_float<KV, EPL>(kb + r * key_stride, kf[kk]);
+        load_float<KV, EPL>(vb + r * key_stride, vf[kk]);
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kf[kk][e] = vf[kk][e] = 0.f;
@@ -234,6 +268,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int o = 16 >> kLogK; o > 0; o >>= 1)
         s += __shfl_xor_sync(kFull, s, o);
+      if constexpr (INT8) s *= k_sc;
       const bool keep = j_mine < k_end && j_mine <= last_key[r];
       s = keep ? s : kNegInf;
       float cmax = s;
@@ -251,9 +286,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[r][e] *= alpha;
+      float pw = p;   // the weight of this lane's key's V row
+      if constexpr (INT8) pw *= v_sc;
 #pragma unroll
       for (int kk = 0; kk < KPI; ++kk) {
-        const float pk = __shfl_sync(kFull, p, kk << (5 - kLogK));
+        const float pk = __shfl_sync(kFull, pw, kk << (5 - kLogK));
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pk, vf[kk][e], acc[r][e]);
       }
@@ -335,20 +372,22 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
       from_float<T>(lsum > 0.f ? o / lsum : 0.f);
 }
 
-template <typename T, int EPL, int KPI, bool PAGED>
+template <typename T, int EPL, int KPI, bool PAGED, typename KV = T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* pos, void* out, float* part_o, float* part_ml,
                    int B, int S, int Hq, int Hkv, int D, int L, int limit,
                    int split_len, int nsplit, float scale, cudaStream_t st,
                    const int* table = nullptr, int max_blocks = 0,
-                   int block_len = 0) {
+                   int block_len = 0, const float* k_scale = nullptr,
+                   const float* v_scale = nullptr, int n_gran = 0,
+                   int gran_len = 0) {
   const int rows_total = S * (Hq / Hkv);
   dim3 grid(B * Hkv, (rows_total + kRows - 1) / kRows, nsplit);
-  decode_attention_kernel<T, EPL, KPI, PAGED><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(out), part_o, part_ml,
+  decode_attention_kernel<T, KV, EPL, KPI, PAGED><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), pos, static_cast<T*>(out), part_o, part_ml,
       S, Hq, Hkv, D, L, limit, split_len, scale, table, max_blocks,
-      block_len);
+      block_len, k_scale, v_scale, n_gran, gran_len);
   if (nsplit > 1) {
     decode_attention_combine<T><<<dim3(B * Hkv, rows_total), D, 0, st>>>(
         part_o, part_ml, static_cast<T*>(out), S, Hq, Hkv, D, nsplit);
@@ -422,6 +461,78 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
     e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                   D, L, limit, split_len, nsplit, scale, st,
                                   t, max_blocks, block_len);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 contiguous entry: k, v int8 (B, L, Hkv, D); k_scale, v_scale
+// float32 (B, n_gran, Hkv) over granules of L / n_gran positions, which
+// must be a multiple of 8, as must split_len (cudaErrorInvalidValue
+// otherwise).  q, out, dtype/D pairs and scratch as in decode_attention.
+extern "C" int decode_attention_int8(const void* q, const void* k,
+                                     const void* v, const void* k_scale,
+                                     const void* v_scale, const void* pos,
+                                     void* out, void* part_o, void* part_ml,
+                                     int B, int S, int Hq, int Hkv, int D,
+                                     int L, int n_gran, int limit,
+                                     int split_len, int nsplit, float scale,
+                                     int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  float* po = static_cast<float*>(part_o);
+  float* pml = static_cast<float*>(part_ml);
+  if (Hkv < 1 || Hq % Hkv != 0 || n_gran < 1 || L % n_gran != 0 ||
+      (L / n_gran) % 8 != 0 || split_len % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int gran_len = L / n_gran;
+  cudaError_t e;
+  if (dtype == 0 && D == 128)
+    e = launch<__nv_bfloat16, 4, 8, false, int8_t>(
+        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
+        nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
+  else if (dtype == 1 && D == 16)
+    e = launch<float, 1, 8, false, int8_t>(
+        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
+        nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 paged entry: k, v one layer's int8 (num_blocks, block_len, Hkv,
+// D) pool, k_scale / v_scale float32 (num_blocks, Hkv); everything else as
+// in decode_attention_paged.
+extern "C" int decode_attention_paged_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* pos, const void* table, void* out,
+    void* part_o, void* part_ml, int B, int S, int Hq, int Hkv, int D,
+    int max_blocks, int block_len, int limit, int split_len, int nsplit,
+    float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(table);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  float* po = static_cast<float*>(part_o);
+  float* pml = static_cast<float*>(part_ml);
+  if (Hkv < 1 || Hq % Hkv != 0 || block_len < 8 || block_len % 8 != 0 ||
+      split_len % 8 != 0 || max_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int L = max_blocks * block_len;
+  cudaError_t e;
+  if (dtype == 0 && D == 128)
+    e = launch<__nv_bfloat16, 4, 8, true, int8_t>(
+        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
+        nsplit, scale, st, t, max_blocks, block_len, ks, vs);
+  else if (dtype == 1 && D == 16)
+    e = launch<float, 1, 8, true, int8_t>(
+        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
+        nsplit, scale, st, t, max_blocks, block_len, ks, vs);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -37,10 +37,23 @@
 //     kernel looks the table up once per 64-key tile, so it takes
 //     block_len % 64 == 0; the CUDA-core kernel looks it up per key.
 //   No lse is written on this path.
+//
+// Paged int8 suffix prefill (entry flash_attention_fwd_paged_int8;
+// replaces the quantized mode of the same Pallas kernel): the pool holds
+// int8 K/V and float32 scales k_scale / v_scale (num_blocks, Hkv), one
+// per (block, kv head).  The tensor-core kernel loads each 64-key int8
+// tile through the table into registers (16 bytes a load), converts it to
+// bf16 (exact for [-127, 127]) into the same shared-memory tiles, folds
+// K's block scale into the score scale and V's into the tile's
+// probabilities before their bf16 packing (equal to scaling the tile's
+// P.V before it joins the accumulator; the row sums take the unscaled
+// probabilities).  The float32 kernel dequantizes per key.  INT8 = false
+// leaves the two kernels above unchanged.
 // wgmma/TMA and a warp-specialised pipeline are the next steps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -61,18 +74,23 @@ constexpr size_t smem_floats() {
 
 // float32 on the CUDA cores; at least two CTAs an SM (registers <= 128 a
 // thread).  PAGED: pos/table addressing (see the top), else pos, table,
-// max_blocks and block_len are unused.
-template <int D, bool PAGED>
+// max_blocks and block_len are unused.  KV: float, or int8_t for the int8
+// pool (PAGED only), dequantized per key with its block's scales.
+template <int D, bool PAGED, typename KV = float>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_fwd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
+                           const KV* __restrict__ k,
+                           const KV* __restrict__ v,
                            float* __restrict__ out,
                            float* __restrict__ lse, int Sq, int Skv, int Hq,
                            int Hkv, float scale, int causal,
                            const int* __restrict__ pos,
                            const int* __restrict__ table, int max_blocks,
-                           int block_len) {
+                           int block_len,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  static_assert(!INT8 || PAGED, "the int8 cache is paged only");
   constexpr int NQ = (D + 63) / 64;   // 64-wide output slabs per thread
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -117,12 +135,18 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
       float kx = 0.f, vx = 0.f;
       if (kc < kv_len) {
         size_t row = (size_t)b * Skv + kc;
-        if constexpr (PAGED)
-          row = (size_t)table[(size_t)b * max_blocks + kc / block_len] *
-                    block_len + kc % block_len;
+        int blk = 0;
+        if constexpr (PAGED) {
+          blk = table[(size_t)b * max_blocks + kc / block_len];
+          row = (size_t)blk * block_len + kc % block_len;
+        }
         const size_t g = (row * Hkv + hk) * D + d;
-        kx = k[g];
-        vx = v[g];
+        kx = static_cast<float>(k[g]);
+        vx = static_cast<float>(v[g]);
+        if constexpr (INT8) {
+          kx *= k_scale[(size_t)blk * Hkv + hk];
+          vx *= v_scale[(size_t)blk * Hkv + hk];
+        }
       }
       KP[d * kPK + c] = kx;
       Vs[c * D + d] = vx;
@@ -286,17 +310,42 @@ constexpr size_t mma_smem_bytes() {
   return (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int D, bool PAGED>
+// 16 int8 values (one 16-byte load) as 16 bfloat16 at dst (32 bytes,
+// 16-byte aligned); exact for [-128, 127]
+__device__ __forceinline__ void int8x16_to_bf16(const uint4 raw,
+                                                __nv_bfloat16* dst) {
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+  uint4 lo, hi;
+  unsigned* l = reinterpret_cast<unsigned*>(&lo);
+  unsigned* h = reinterpret_cast<unsigned*>(&hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] = pack_bf16(static_cast<float>(e[2 * i]),
+                     static_cast<float>(e[2 * i + 1]));
+    h[i] = pack_bf16(static_cast<float>(e[8 + 2 * i]),
+                     static_cast<float>(e[8 + 2 * i + 1]));
+  }
+  reinterpret_cast<uint4*>(dst)[0] = lo;
+  reinterpret_cast<uint4*>(dst)[1] = hi;
+}
+
+// KV: __nv_bfloat16, or int8_t for the int8 pool (PAGED only; see the
+// top) with its scales k_scale / v_scale.
+template <int D, bool PAGED, typename KV = __nv_bfloat16>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
+                               const KV* __restrict__ k,
+                               const KV* __restrict__ v,
                                __nv_bfloat16* __restrict__ out,
                                float* __restrict__ lse, int Sq, int Skv,
                                int Hq, int Hkv, float scale, int causal,
                                const int* __restrict__ pos,
                                const int* __restrict__ table, int max_blocks,
-                               int block_len) {
+                               int block_len,
+                               const float* __restrict__ k_scale,
+                               const float* __restrict__ v_scale) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  static_assert(!INT8 || PAGED, "the int8 cache is paged only");
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int kStride = D + 8;       // padded row, in elements
   constexpr int kPieces = D / 8;       // 16-byte pieces of one row
@@ -353,19 +402,52 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // paged: the pool row of key kv0 (block_len % 64 == 0, so the whole
     // tile lies in one block and every address is inside the pool)
     size_t tile_row = 0;
-    if constexpr (PAGED)
-      tile_row = (size_t)table[(size_t)b * max_blocks + kv0 / block_len] *
-                     block_len + kv0 % block_len;
-    for (int idx = tid; idx < kMmaBK * kPieces; idx += kMmaThreads) {
-      const int j = idx / kPieces, pc = idx - j * kPieces;
-      const int kc = kv0 + j;
-      size_t row = (size_t)b * Skv + min(kc, Skv - 1);
-      if constexpr (PAGED) row = tile_row + j;
-      const size_t gofs = (row * Hkv + hk) * D + pc * 8;
-      cp_async16_zfill(Ks + j * kStride + pc * 8, k + gofs, kc < kv_len);
-      cp_async16_zfill(Vs + j * kStride + pc * 8, v + gofs, kc < kv_len);
+    int blk = 0;
+    if constexpr (PAGED) {
+      blk = table[(size_t)b * max_blocks + kv0 / block_len];
+      tile_row = (size_t)blk * block_len + kv0 % block_len;
     }
-    cp_async_commit_wait_all();
+    float k_mul = scale;   // the score scale (int8: times K's block scale)
+    float v_mul = 1.f;     // int8: V's block scale
+    if constexpr (INT8) {
+      // int8 tile: 16-byte register loads (all in flight before the
+      // conversion), converted to bf16 into the same tiles
+      constexpr int kP8 = D / 16;   // 16-byte pieces of an int8 row
+      constexpr int kPer = kMmaBK * kP8 / kMmaThreads;
+      static_assert(kMmaBK * kP8 % kMmaThreads == 0, "tile split");
+      uint4 kr[kPer], vr[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = tid + i * kMmaThreads;
+        const int j = idx / kP8, pc = idx - j * kP8;
+        const size_t gofs = ((tile_row + j) * Hkv + hk) * D + pc * 16;
+        const bool on = kv0 + j < kv_len;
+        kr[i] = on ? *reinterpret_cast<const uint4*>(k + gofs)
+                   : make_uint4(0u, 0u, 0u, 0u);
+        vr[i] = on ? *reinterpret_cast<const uint4*>(v + gofs)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = tid + i * kMmaThreads;
+        const int j = idx / kP8, pc = idx - j * kP8;
+        int8x16_to_bf16(kr[i], Ks + j * kStride + pc * 16);
+        int8x16_to_bf16(vr[i], Vs + j * kStride + pc * 16);
+      }
+      k_mul = scale * k_scale[(size_t)blk * Hkv + hk];
+      v_mul = v_scale[(size_t)blk * Hkv + hk];
+    } else {
+      for (int idx = tid; idx < kMmaBK * kPieces; idx += kMmaThreads) {
+        const int j = idx / kPieces, pc = idx - j * kPieces;
+        const int kc = kv0 + j;
+        size_t row = (size_t)b * Skv + min(kc, Skv - 1);
+        if constexpr (PAGED) row = tile_row + j;
+        const size_t gofs = (row * Hkv + hk) * D + pc * 8;
+        cp_async16_zfill(Ks + j * kStride + pc * 8, k + gofs, kc < kv_len);
+        cp_async16_zfill(Vs + j * kStride + pc * 8, v + gofs, kc < kv_len);
+      }
+      cp_async_commit_wait_all();
+    }
     __syncthreads();
 
     // S = Q K^T: 8 column blocks of 8 keys
@@ -392,8 +474,8 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int col = kv0 + nb * 8 + 2 * c + e;
         const bool k0 = row0 < Sq && col < kv_len && (!causal || col <= row0 + offset);
         const bool k1 = row1 < Sq && col < kv_len && (!causal || col <= row1 + offset);
-        s[nb][e] = k0 ? s[nb][e] * scale : kNegInf;
-        s[nb][2 + e] = k1 ? s[nb][2 + e] * scale : kNegInf;
+        s[nb][e] = k0 ? s[nb][e] * k_mul : kNegInf;
+        s[nb][2 + e] = k1 ? s[nb][2 + e] * k_mul : kNegInf;
         mx0 = fmaxf(mx0, s[nb][e]);
         mx1 = fmaxf(mx1, s[nb][2 + e]);
       }
@@ -434,6 +516,14 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       o[db][3] *= al1;
     }
 
+    // int8: V's block scale weights the tile's probabilities (after the
+    // row sums took them unscaled)
+    if constexpr (INT8) {
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] *= v_mul;
+    }
     // O += P V: the score fragments of key blocks 2j, 2j+1 are the A
     // fragment of k step j
 #pragma unroll
@@ -477,43 +567,48 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, bool PAGED>
+template <int D, bool PAGED, typename KV = __nv_bfloat16>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int Sq, int Skv, int Hq,
                        int Hkv, float scale, int causal, cudaStream_t st,
                        const int* pos = nullptr, const int* table = nullptr,
-                       int max_blocks = 0, int block_len = 0) {
+                       int max_blocks = 0, int block_len = 0,
+                       const float* k_scale = nullptr,
+                       const float* v_scale = nullptr) {
   constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = flash_attention_fwd_mma_kernel<D, PAGED>;
+  auto kernel = flash_attention_fwd_mma_kernel<D, PAGED, KV>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, Hq, B);
   kernel<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<__nv_bfloat16*>(out),
       lse, Sq, Skv, Hq, Hkv, scale, causal, pos, table, max_blocks,
-      block_len);
+      block_len, k_scale, v_scale);
   return cudaSuccess;
 }
 
-template <int D, bool PAGED>
+template <int D, bool PAGED, typename KV = float>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                    float scale, int causal, cudaStream_t st,
                    const int* pos = nullptr, const int* table = nullptr,
-                   int max_blocks = 0, int block_len = 0) {
+                   int max_blocks = 0, int block_len = 0,
+                   const float* k_scale = nullptr,
+                   const float* v_scale = nullptr) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_attention_fwd_kernel<D, PAGED>;
+  auto kernel = flash_attention_fwd_kernel<D, PAGED, KV>;
   // above 48 KB only after opting in (per device, so on every launch)
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv,
-      Hq, Hkv, scale, causal, pos, table, max_blocks, block_len);
+      static_cast<const float*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<float*>(out), lse, Sq, Skv,
+      Hq, Hkv, scale, causal, pos, table, max_blocks, block_len, k_scale,
+      v_scale);
   return cudaSuccess;
 }
 
@@ -569,6 +664,37 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
   else if (dtype == 1 && D == 16)
     e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
                          st, p, t, max_blocks, block_len);
+  else
+    e = cudaErrorInvalidValue;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Paged int8 suffix prefill: as flash_attention_fwd_paged with k, v one
+// layer's int8 (num_blocks, block_len, Hkv, D) pool and k_scale, v_scale
+// float32 (num_blocks, Hkv).  bfloat16 q at D = 128 needs block_len % 64
+// == 0; float32 q at D = 16 takes any block_len >= 1.
+extern "C" int flash_attention_fwd_paged_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* pos, const void* table, void* out,
+    int B, int S, int Hq, int Hkv, int D, int max_blocks, int block_len,
+    float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(table);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (dtype == 0 && D == 128 && block_len % kMmaBK == 0)
+    e = launch_mma<128, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq,
+                                      Hkv, scale, 1, st, p, t, max_blocks,
+                                      block_len, ks, vs);
+  else if (dtype == 1 && D == 16)
+    e = launch<16, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
+                                 scale, 1, st, p, t, max_blocks, block_len,
+                                 ks, vs);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -5,6 +5,9 @@ as ``model.embed_tokens``, ``model.layers.{i}.self_attn.q_proj``,
 ``model.layers.{i}.input_layernorm.weight``, ``model.rope_cos`` and
 ``lm_head`` to arrays; the port's modules carry the same names and layouts
 (``(in, out)`` projections), so the bridge is a checked copy by name.
+:func:`load_jax_quantized_state_dict` does the same for the reference's
+``QuantizedForDecode.state_dict()`` (``{"fp", "qw", "qs"}``) into the
+port's ``models/quantized.py`` wrapper.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_NATIVE = (np.float16, np.float32, np.float64, np.int32, np.int64, np.bool_)
+_NATIVE = (np.float16, np.float32, np.float64, np.int8, np.int32, np.int64,
+           np.bool_)
 
 
 def load_jax_state_dict(model: torch.nn.Module, arrays: Mapping[str, object]
@@ -45,3 +49,21 @@ def load_jax_state_dict(model: torch.nn.Module, arrays: Mapping[str, object]
             dst.copy_(torch.from_numpy(np.array(a, copy=True)).to(
                 device=dst.device, dtype=dst.dtype))
     return model
+
+
+def load_jax_quantized_state_dict(qmodel: torch.nn.Module,
+                                  packed: Mapping[str, Mapping[str, object]]
+                                  ) -> torch.nn.Module:
+    """Fill a ``models.quantized.QuantizedForDecode`` wrapper in place from
+    the reference wrapper's packed state (``{"fp": {name: array}, "qw":
+    {name: int8 (K, N)}, "qs": {name: float32 (N,)}}``, e.g. each leaf
+    through ``np.asarray``): full-precision entries by name, each
+    quantized weight into ``<name>.w8`` and its scale into
+    ``<name>.scale``.  Both sides must have quantized the same names (the
+    port never quantizes the RoPE buffers; see ``models/quantized.py``),
+    else ``KeyError``."""
+    flat = dict(packed["fp"])
+    for name, w8 in packed["qw"].items():
+        flat[f"{name}.w8"] = w8
+        flat[f"{name}.scale"] = packed["qs"][name]
+    return load_jax_state_dict(qmodel.unwrapped, flat)

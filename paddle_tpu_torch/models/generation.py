@@ -16,16 +16,35 @@ import torch
 from .. import default_device
 
 
+def scale_granules(max_length: int) -> int:
+    """Scale granules of an int8 cache row: one per 128 positions when 128
+    divides ``max_length``, else one for the whole row (the reference's
+    rule, ``paddle_tpu/models/generation.py:55``)."""
+    return max_length // 128 if max_length % 128 == 0 else 1
+
+
 def init_kv_cache(config, batch_size: int, max_length: int, dtype=None,
-                  quantized: bool = False, device=None) -> torch.Tensor:
+                  quantized: bool = False, device=None):
     """Pre-allocated zero cache (L, 2, B, max_len, kv_heads, head_dim) in
-    the model dtype (or ``dtype``).  The int8 cache is ROADMAP A6.4."""
-    if quantized:
-        raise NotImplementedError("the int8 KV cache is ROADMAP A6.4")
-    dt = dtype if dtype is not None else config.torch_dtype
+    the model dtype (or ``dtype``).
+
+    ``quantized=True`` returns the int8 cache instead: ``{"kv": int8
+    payload (same shape), "scale": float32 (L, 2, B, n_gran, kv_heads)}``,
+    one symmetric absmax/127 scale per granule of ``max_len // n_gran``
+    positions per kv head (:func:`scale_granules`); a zero scale is an
+    empty granule.  ``LlamaAttention.decode`` sees the dict and quantizes
+    as it writes."""
+    dev = default_device(device)
     shape = (config.num_hidden_layers, 2, batch_size, max_length,
              config.num_key_value_heads, config.head_dim)
-    return torch.zeros(shape, dtype=dt, device=default_device(device))
+    if quantized:
+        return {"kv": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "scale": torch.zeros(
+                    (shape[0], 2, batch_size, scale_granules(max_length),
+                     config.num_key_value_heads),
+                    dtype=torch.float32, device=dev)}
+    dt = dtype if dtype is not None else config.torch_dtype
+    return torch.zeros(shape, dtype=dt, device=dev)
 
 
 def _nucleus_mask(logits: torch.Tensor, top_p) -> torch.Tensor:

@@ -10,8 +10,14 @@ Kernels on this path: attention at ``pos == 0`` (wave prefill) and in
 ``forward`` goes to flash-attention (K2), incremental decode to
 flash-decode (K1), every RMSNorm to K3.  With a paged cache
 (``block_tables``) a decode step goes to K1-paged and a suffix prefill
-(s > 1) to K2-paged.  The projection, MLP and LM-head
-products are ``torch.matmul``, as the reference leaves them to XLA.
+(s > 1) to K2-paged.  The int8 caches (``init_kv_cache`` /
+``init_paged_kv_cache`` with ``quantized=True``, a ``{"kv", "scale"}``
+dict) quantize K/V as they are written (:func:`quantized_paged_write`,
+:func:`quantized_contiguous_write`) and are read by the int8 builds of
+K1, K1-paged and K2-paged.  The projection, MLP and LM-head products go
+through one seam, ``nn/quant.py::linear``: ``torch.matmul`` for a plain
+weight (as the reference leaves them to XLA), ``weight_only_linear`` for
+the int8 weights of ``models/quantized.py`` (kernel K4 at decode rows).
 
 Training features of the reference (recompute, context parallelism,
 packed-document segment ids) belong to a later slice (ROADMAP A10).
@@ -28,6 +34,7 @@ from torch import nn
 from .. import default_device
 from ..nn import functional as F
 from ..nn.common import RMSNorm
+from ..nn.quant import Int8Weight, embedding, linear
 from ..ops import (build_rope_cache, cached_decode_attention,
                    flash_attention, fused_rope)
 
@@ -92,6 +99,110 @@ def _param(shape, config: LlamaConfig, device) -> nn.Parameter:
                                     device=device))
 
 
+def _touched(first_off: torch.Tensor, s: int, span: int):
+    """(B, n) token indices, one in each ``span``-long block (or granule) a
+    row's s consecutive positions touch, the first at in-block offset
+    ``first_off``; n = ceil((s-1)/span) + 1 is the most a row can touch and
+    short rows repeat their token 0 (a repeat rewrites the same block with
+    the same payload).  None for s = 1: the token is its own
+    representative."""
+    if s == 1:
+        return None
+    n = -(-(s - 1) // span) + 1
+    j = torch.arange(n, device=first_off.device)
+    t1 = span - first_off.long()          # the first token of the 2nd block
+    t = torch.where(j[None] == 0, 0, t1[:, None] + (j[None] - 1) * span)
+    return torch.where(t < s, t, 0)
+
+
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def _quantized_write(kvb: torch.Tensor, scb: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, unit: torch.Tensor, cell: torch.Tensor,
+                     reps) -> None:
+    """The shared body of the two int8 writes, in place, for K and V of
+    one layer at once.  ``kvb``: (2U, span, Hkv, D) int8 units (blocks or
+    row granules), K's U then V's; ``scb``: (2U, Hkv) float32 scales, in
+    the same order; ``k`` / ``v``: (B, s, Hkv, D) new K and V; ``unit`` /
+    ``cell``: (B, s) each token's K unit and offset in it (its V unit is
+    ``unit + U``); ``reps``: (B, n) token indices covering every unit the
+    tokens touch (:func:`_touched`, None for s = 1).  K's and V's units
+    are disjoint, so one pass over both is two passes' result."""
+    u = scb.shape[0] // 2
+    hkv = k.shape[2]
+    xf = torch.cat([k, v]).float()                          # (2B, s, Hkv, D)
+    unit = torch.cat([unit, unit + u])
+    cell = torch.cat([cell, cell])
+    blk = unit if reps is None else unit.gather(1, torch.cat([reps, reps]))
+    # absmax / 127 as the reference's compiled write computes it: XLA turns
+    # the division by a constant into a product by its float32 reciprocal
+    needed = xf.abs().amax(dim=-1) * _INV_127               # (2B, s, Hkv)
+    old = scb[blk]                                          # (2B, n, Hkv)
+    # phase 1: scatter-max the needed scales (order-independent under
+    # duplicate units), then re-express each touched unit's payload under
+    # its new scale; duplicates of a unit share (old, new) and so write
+    # the same payload; a zero scale (a fresh unit) clears it
+    scb.scatter_reduce_(0, unit.reshape(-1, 1).expand(-1, hkv),
+                        needed.reshape(-1, hkv), "amax")
+    new = scb[blk]
+    ratio = torch.where(new > 0, old / new, 0.0)
+    pay = kvb[blk].float() * ratio[:, :, None, :, None]
+    kvb[blk] = torch.round(pay).clamp_(-127, 127).to(torch.int8)
+    # phase 2: each token under its unit's final scale (a guard divisor of
+    # 1 where that is 0), at its own cell
+    tsc = scb[unit]
+    tok = torch.round(xf / torch.where(tsc > 0, tsc, 1.0)[..., None])
+    kvb[unit, cell] = tok.clamp_(-127, 127).to(torch.int8)
+
+
+def quantized_paged_write(kv: torch.Tensor, sc: torch.Tensor, idx: int,
+                          k: torch.Tensor, v: torch.Tensor,
+                          phys: torch.Tensor, off: torch.Tensor) -> None:
+    """Scatter-time int8 quantization of one layer's new K and V into the
+    paged pool, in place — the reference's ``_quantized_paged_write``
+    (``paddle_tpu/models/llama.py`` :116), which the reference calls once
+    for K and once for V.  ``kv``: (L, 2, nb, bl, Hkv, D) int8 pool;
+    ``sc``: (L, 2, nb, Hkv) float32 per-block-per-kv-head scales; ``k`` /
+    ``v``: (B, s, Hkv, D) of layer ``idx``; ``phys`` / ``off``: (B, s)
+    physical block / in-block offset of each token, a row's tokens at
+    consecutive positions.
+
+    Scales are running maxima: a token whose absmax exceeds its block's
+    scale grows it, and the block's existing payload is rewritten under
+    the new scale (``round(payload * old / new)``).  The reference does
+    that per token, gathering a (B, s, bl, Hkv, D) payload copy; here each
+    touched block is rewritten once (at most ceil((s-1)/bl) + 1 a row),
+    which gives the same result because every duplicate carries the same
+    payload.  Pad tokens ride in with ``phys == 0`` (the null block), whose
+    contents no reader trusts; a zero final scale quantizes through a
+    guard divisor of 1."""
+    nb, bl = kv.shape[2], kv.shape[3]
+    _quantized_write(kv[idx].view(2 * nb, *kv.shape[3:]),
+                     sc[idx].view(2 * nb, sc.shape[3]), k, v, phys, off,
+                     _touched(off[:, 0], k.shape[1], bl))
+
+
+def quantized_contiguous_write(kv: torch.Tensor, sc: torch.Tensor,
+                               idx: int, k: torch.Tensor, v: torch.Tensor,
+                               position_ids: torch.Tensor) -> None:
+    """The contiguous-row form of :func:`quantized_paged_write`, in place
+    (the reference's ``_quantized_contiguous_write``, :161): the scale
+    granule (``max_len // n_gran`` positions of one row) plays the block's
+    role.  ``kv``: (L, 2, B, max_len, Hkv, D) int8; ``sc``: (L, 2, B,
+    n_gran, Hkv) float32; ``position_ids``: (B, s) or (1, s), every
+    position below ``max_len``."""
+    b, L = kv.shape[2], kv.shape[3]
+    n_gran = sc.shape[3]
+    gr = L // n_gran
+    s = k.shape[1]
+    pos = position_ids.long().expand(b, s)
+    unit = torch.arange(b, device=k.device)[:, None] * n_gran + pos // gr
+    _quantized_write(kv[idx].view(2 * b * n_gran, gr, *kv.shape[4:]),
+                     sc[idx].view(2 * b * n_gran, sc.shape[4]), k, v, unit,
+                     pos % gr, _touched(pos[:, 0] % gr, s, gr))
+
+
 class LlamaAttention(nn.Module):
     """GQA attention with RoPE."""
 
@@ -108,9 +219,12 @@ class LlamaAttention(nn.Module):
     def _qkv(self, x, rope_cache, position_ids=None):
         c = self.config
         b, s, _ = x.shape
-        q = (x @ self.q_proj).view(b, s, c.num_attention_heads, c.head_dim)
-        k = (x @ self.k_proj).view(b, s, c.num_key_value_heads, c.head_dim)
-        v = (x @ self.v_proj).view(b, s, c.num_key_value_heads, c.head_dim)
+        q = linear(x, self.q_proj).view(b, s, c.num_attention_heads,
+                                        c.head_dim)
+        k = linear(x, self.k_proj).view(b, s, c.num_key_value_heads,
+                                        c.head_dim)
+        v = linear(x, self.v_proj).view(b, s, c.num_key_value_heads,
+                                        c.head_dim)
         cos, sin = rope_cache
         q, k = fused_rope(q, k, cos, sin, position_ids)
         return q, k, v
@@ -119,7 +233,7 @@ class LlamaAttention(nn.Module):
         b, s, _ = x.shape
         q, k, v = self._qkv(x, rope_cache, position_ids)
         out = flash_attention(q, k, v, causal=True)
-        return out.reshape(b, s, -1) @ self.o_proj
+        return linear(out.reshape(b, s, -1), self.o_proj)
 
     def decode(self, x, rope_cache, pos, cache, idx: int,
                block_tables=None):
@@ -147,8 +261,14 @@ class LlamaAttention(nn.Module):
         position p lives at ``(block_tables[i, p // block_len],
         p % block_len)``; see :meth:`_decode_paged`.
 
+        An int8 cache (a ``{"kv", "scale"}`` dict, either layout) is
+        written through :func:`quantized_contiguous_write` /
+        :func:`quantized_paged_write` and read with its scales; the
+        ``pos == 0`` prefill still attends over the fresh K/V, so the
+        quantization loss starts at the first cached read.
+
         x: (B, s, H*D).  Returns (out, cache) — ``cache`` is the same
-        tensor, updated."""
+        tensor (or dict), updated."""
         if block_tables is not None:
             return self._decode_paged(x, rope_cache, pos, cache, idx,
                                       block_tables)
@@ -160,6 +280,17 @@ class LlamaAttention(nn.Module):
         else:
             position_ids = (int(pos) + steps)[None, :]              # (1, s)
         q, k, v = self._qkv(x, rope_cache, position_ids)
+        prefill = not per_row and int(pos) == 0 and s > 1
+        if isinstance(cache, dict):
+            kv, sc = cache["kv"], cache["scale"]
+            quantized_contiguous_write(kv, sc, idx, k, v, position_ids)
+            if prefill:
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                out = cached_decode_attention(
+                    q, kv[idx, 0], kv[idx, 1], pos, k_scale=sc[idx, 0],
+                    v_scale=sc[idx, 1])
+            return linear(out.reshape(b, s, -1), self.o_proj), cache
         if per_row:
             rows = torch.arange(b, device=x.device)[:, None]
             cache[idx, 0, rows, position_ids] = k.to(cache.dtype)
@@ -168,12 +299,12 @@ class LlamaAttention(nn.Module):
             p = int(pos)
             cache[idx, 0, :, p:p + s] = k.to(cache.dtype)
             cache[idx, 1, :, p:p + s] = v.to(cache.dtype)
-        if not per_row and int(pos) == 0 and s > 1:
+        if prefill:
             out = flash_attention(q, k, v, causal=True)
         else:
             out = cached_decode_attention(q, cache[idx, 0], cache[idx, 1],
                                           pos)
-        return out.reshape(b, s, -1) @ self.o_proj, cache
+        return linear(out.reshape(b, s, -1), self.o_proj), cache
 
     def _decode_paged(self, x, rope_cache, pos, cache, idx, block_tables):
         """The paged branch of :meth:`decode` (the reference's
@@ -189,7 +320,8 @@ class LlamaAttention(nn.Module):
         is what lets a row of a wave adopt a block another row of the same
         wave writes in this very pass.  The read is
         :func:`cached_decode_attention` with the table: K1-paged at
-        s = 1, K2-paged for a suffix prefill."""
+        s = 1, K2-paged for a suffix prefill (their int8 builds for an
+        int8 pool, which is written by :func:`quantized_paged_write`)."""
         b, s, _ = x.shape
         dev = x.device
         if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
@@ -198,7 +330,9 @@ class LlamaAttention(nn.Module):
                         + torch.arange(s, device=dev)[None, :])   # (B, s)
         rope_ids = position_ids.clamp_max(rope_cache[0].shape[0] - 1)
         q, k, v = self._qkv(x, rope_cache, rope_ids)
-        bl = cache.shape[3]
+        quantized = isinstance(cache, dict)
+        kvp = cache["kv"] if quantized else cache
+        bl = kvp.shape[3]
         tables = block_tables.to(dev).long()
         max_blocks = tables.shape[1]
         lb = position_ids // bl
@@ -207,11 +341,18 @@ class LlamaAttention(nn.Module):
                            tables[rows, lb.clamp_max(max_blocks - 1)],
                            torch.zeros_like(lb))   # past the table -> null
         off = position_ids % bl
+        if quantized:
+            sc = cache["scale"]
+            quantized_paged_write(kvp, sc, idx, k, v, phys, off)
+            out = cached_decode_attention(
+                q, kvp[idx, 0], kvp[idx, 1], pos, block_tables=block_tables,
+                k_scale=sc[idx, 0], v_scale=sc[idx, 1])
+            return linear(out.reshape(b, s, -1), self.o_proj), cache
         cache[idx, 0, phys, off] = k.to(cache.dtype)
         cache[idx, 1, phys, off] = v.to(cache.dtype)
         out = cached_decode_attention(q, cache[idx, 0], cache[idx, 1], pos,
                                       block_tables=block_tables)
-        return out.reshape(b, s, -1) @ self.o_proj, cache
+        return linear(out.reshape(b, s, -1), self.o_proj), cache
 
 
 class LlamaMLP(nn.Module):
@@ -227,7 +368,8 @@ class LlamaMLP(nn.Module):
                                 device)
 
     def forward(self, x):
-        return F.swiglu(x @ self.gate_proj, x @ self.up_proj) @ self.down_proj
+        return linear(F.swiglu(linear(x, self.gate_proj),
+                               linear(x, self.up_proj)), self.down_proj)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -272,7 +414,8 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", sin)
 
     def forward(self, input_ids, position_ids=None):
-        x = self.embed_tokens[input_ids.long()]
+        x = embedding(self.embed_tokens, input_ids.long(),
+                      self.config.torch_dtype)
         rope = (self.rope_cos, self.rope_sin)
         for block in self.layers:
             x = block(x, rope, position_ids)
@@ -285,7 +428,8 @@ class LlamaModel(nn.Module):
         ``block_tables``); ``pos`` is the number of tokens already in the
         cache (int or per-row (B,) tensor).  Returns (hidden, cache), the
         cache updated in place."""
-        x = self.embed_tokens[input_ids.long()]
+        x = embedding(self.embed_tokens, input_ids.long(),
+                      self.config.torch_dtype)
         rope = (self.rope_cos, self.rope_sin)
         for i, block in enumerate(self.layers):
             x, cache = block.decode(x, rope, pos, cache, i, block_tables)
@@ -326,8 +470,13 @@ class LlamaForCausalLM(nn.Module):
 
     def logits(self, hidden):
         if self.config.tie_word_embeddings:
-            return hidden @ self.model.embed_tokens.t()
-        return hidden @ self.lm_head
+            w = self.model.embed_tokens
+            if isinstance(w, Int8Weight):
+                # per-column scales of the (vocab, hidden) table lie along
+                # the product's K: the reference's dequantize-then-matmul
+                w = w.dequantize(self.config.torch_dtype)
+            return hidden @ w.t()
+        return linear(hidden, self.lm_head)
 
     def forward(self, input_ids, position_ids=None):
         return self.logits(self.model(input_ids, position_ids))

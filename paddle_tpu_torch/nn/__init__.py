@@ -1,6 +1,6 @@
 """Layers of the port (mirrors ``paddle_tpu/nn``)."""
 
-from . import functional
+from . import functional, quant
 from .common import RMSNorm
 
-__all__ = ["RMSNorm", "functional"]
+__all__ = ["RMSNorm", "functional", "quant"]

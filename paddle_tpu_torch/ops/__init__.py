@@ -4,9 +4,13 @@ from .attention import (cache_mask, cached_decode_attention,
                         cached_decode_attention_reference, flash_attention,
                         flash_attention_reference)
 from .cuda.decode_attention import (decode_attention_cuda,
-                                   decode_attention_paged_cuda)
+                                   decode_attention_int8_cuda,
+                                   decode_attention_paged_cuda,
+                                   decode_attention_paged_int8_cuda)
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
-                                   flash_attention_fwd_paged_cuda)
+                                   flash_attention_fwd_paged_cuda,
+                                   flash_attention_fwd_paged_int8_cuda)
+from .cuda.int8_matmul import int8_matmul_cuda, int8_matmul_reference
 from .norms import rms_norm, rms_norm_reference
 from .rope import apply_rope, build_rope_cache, fused_rope
 from .triton.rms_norm import rms_norm_triton
@@ -19,6 +23,10 @@ KERNELS = {
     "rms_norm": rms_norm_triton,
     "decode_attention_paged": decode_attention_paged_cuda,
     "flash_attention_fwd_paged": flash_attention_fwd_paged_cuda,
+    "decode_attention_int8": decode_attention_int8_cuda,
+    "decode_attention_paged_int8": decode_attention_paged_int8_cuda,
+    "flash_attention_fwd_paged_int8": flash_attention_fwd_paged_int8_cuda,
+    "int8_matmul": int8_matmul_cuda,
 }
 
 
@@ -33,8 +41,11 @@ def launch_counts():
 
 __all__ = ["KERNELS", "apply_rope", "build_rope_cache", "cache_mask",
            "cached_decode_attention", "cached_decode_attention_reference",
-           "decode_attention_cuda", "decode_attention_paged_cuda",
+           "decode_attention_cuda", "decode_attention_int8_cuda",
+           "decode_attention_paged_cuda", "decode_attention_paged_int8_cuda",
            "flash_attention", "flash_attention_fwd_cuda",
-           "flash_attention_fwd_paged_cuda", "flash_attention_reference",
-           "fused_rope", "launch_counts", "reset_launch_counts", "rms_norm",
+           "flash_attention_fwd_paged_cuda",
+           "flash_attention_fwd_paged_int8_cuda", "flash_attention_reference",
+           "fused_rope", "int8_matmul_cuda", "int8_matmul_reference",
+           "launch_counts", "reset_launch_counts", "rms_norm",
            "rms_norm_reference", "rms_norm_triton"]

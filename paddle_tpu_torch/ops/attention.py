@@ -12,7 +12,9 @@ fewer KV heads than query heads.  Two entries:
     engine; kernel K1, ``ops/cuda/decode_attention.py``) or the paged pool
     through a block table (the paged engine: K1's paged build at s = 1,
     K2's paged build for a suffix prefill at s > 1,
-    ``ops/cuda/flash_attention.py``).
+    ``ops/cuda/flash_attention.py``); an int8 cache with its float32
+    scales (``k_scale`` / ``v_scale``) goes to the int8 builds of the same
+    three kernels.
 
 Routing follows ``ops/_dispatch.py``: a CUDA tensor goes to the kernel,
 which launches or raises; a CPU tensor goes to the plain version.  Features
@@ -27,9 +29,12 @@ import torch
 
 from . import _dispatch
 from .cuda.decode_attention import (decode_attention_cuda,
-                                   decode_attention_paged_cuda)
+                                   decode_attention_int8_cuda,
+                                   decode_attention_paged_cuda,
+                                   decode_attention_paged_int8_cuda)
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
-                                   flash_attention_fwd_paged_cuda)
+                                   flash_attention_fwd_paged_cuda,
+                                   flash_attention_fwd_paged_int8_cuda)
 
 NEG_INF = -1e30
 
@@ -147,7 +152,8 @@ def _is_per_row(pos) -> bool:
 def cached_decode_attention_reference(q, k_cache, v_cache, pos,
                                       scale: Optional[float] = None,
                                       live_len: Optional[int] = None,
-                                      block_tables=None):
+                                      block_tables=None, k_scale=None,
+                                      v_scale=None):
     """The plain version of kernel K1 (and of the paged builds of K1 and
     K2): masked softmax over the cache read.
 
@@ -165,8 +171,17 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
     (num_blocks, block_len, Hkv, D) tensors; each row's physical blocks
     are gathered into a contiguous (B, max_blocks * block_len, Hkv, D)
     view first (``live_len`` trims whole table columns before the
-    gather), after which the math is the same."""
+    gather), after which the math is the same.
+
+    ``k_scale`` / ``v_scale``: the int8 cache's float32 scales — paged
+    ``(num_blocks, Hkv)``, one per (block, kv head), gathered with the
+    blocks; contiguous ``(B, n_gran, Hkv)``, each row viewed as n_gran
+    granules of ``L // n_gran`` positions.  The payload is widened to
+    float32 and multiplied by its scale before the math (the reference's
+    ``_dequant_decode_attention``)."""
     b, s, hq, d = q.shape
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache needs both k_scale and v_scale")
     if block_tables is not None:
         n_pool, bl, hkv_p, _ = k_cache.shape
         mb = block_tables.shape[1]
@@ -174,8 +189,24 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
             mb = -(-int(live_len) // bl)
             block_tables = block_tables[:, :mb]
         idx = block_tables.to(k_cache.device).long().clamp(0, n_pool - 1)
-        k_cache = k_cache[idx].reshape(b, mb * bl, hkv_p, d)
-        v_cache = v_cache[idx].reshape(b, mb * bl, hkv_p, d)
+        k_cache, v_cache = k_cache[idx], v_cache[idx]   # (B, mb, bl, Hkv, D)
+        if k_scale is not None:
+            k_cache = k_cache.float() * k_scale.float()[idx][:, :, None, :,
+                                                             None]
+            v_cache = v_cache.float() * v_scale.float()[idx][:, :, None, :,
+                                                             None]
+        k_cache = k_cache.reshape(b, mb * bl, hkv_p, d)
+        v_cache = v_cache.reshape(b, mb * bl, hkv_p, d)
+    elif k_scale is not None:
+        _, L0, hkv_c, _ = k_cache.shape
+        n_gran = k_scale.shape[1]
+        gr = L0 // n_gran
+        k_cache = (k_cache.float().reshape(b, n_gran, gr, hkv_c, d)
+                   * k_scale.float()[:, :, None, :, None]).reshape(
+                       b, L0, hkv_c, d)
+        v_cache = (v_cache.float().reshape(b, n_gran, gr, hkv_c, d)
+                   * v_scale.float()[:, :, None, :, None]).reshape(
+                       b, L0, hkv_c, d)
     if live_len is not None and live_len < k_cache.shape[1]:
         k_cache = k_cache[:, :live_len]
         v_cache = v_cache[:, :live_len]
@@ -216,41 +247,51 @@ def cached_decode_attention(q, k_cache, v_cache, pos,
         prefix ``[0, pos_b + s)``;
       * paged pool (``block_tables``): K1's paged build at ``s == 1``
         (every decode tick), K2's paged build at ``s > 1`` (a suffix
-        prefill: causal at per-row offset ``pos_b``).
+        prefill: causal at per-row offset ``pos_b``);
+      * an int8 cache (``k_scale`` / ``v_scale``, shapes as in the plain
+        version): the int8 builds of the same kernels — K1-int8
+        (contiguous, any s), K1-paged-int8 (s = 1), K2-paged-int8
+        (s > 1).
 
-    The int8 cache (``k_scale``/``v_scale``: A6.4 / B1d) and
     ``extra_mask`` (the reference's XLA-only option, B1 follow-up)
-    raise."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "cached_decode_attention: the int8 cache is ROADMAP A6.4 / B1d")
+    raises."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache needs both k_scale and v_scale")
+    int8 = k_scale is not None
     if extra_mask is not None:
         raise NotImplementedError(
             "cached_decode_attention: extra_mask is not ported (ROADMAP "
             "B1, follow-up of the contiguous slice)")
+    sfx = "_int8" if int8 else ""
+    scales = dict(k_scale=k_scale, v_scale=v_scale) if int8 else {}
     if block_tables is not None:
-        op = "decode_attention_paged" if q.shape[1] == 1 else "paged_prefill"
+        op = ("decode_attention_paged" if q.shape[1] == 1
+              else "paged_prefill") + sfx
         if _dispatch.use_kernel(q):
             _dispatch.count_kernel_path(op, "kernel")
             if q.shape[1] == 1:
-                return _launch(decode_attention_paged_cuda,
-                               (q, k_cache, v_cache), pos=pos,
+                fn = (decode_attention_paged_int8_cuda if int8
+                      else decode_attention_paged_cuda)
+                return _launch(fn, (q, k_cache, v_cache), pos=pos,
                                block_tables=block_tables, scale=scale,
-                               live_len=live_len)
-            return _launch(flash_attention_fwd_paged_cuda,
-                           (q, k_cache, v_cache), pos=pos,
-                           block_tables=block_tables, scale=scale)
+                               live_len=live_len, **scales)
+            fn = (flash_attention_fwd_paged_int8_cuda if int8
+                  else flash_attention_fwd_paged_cuda)
+            return _launch(fn, (q, k_cache, v_cache), pos=pos,
+                           block_tables=block_tables, scale=scale, **scales)
         _dispatch.count_kernel_path(op, "plain")
         return cached_decode_attention_reference(
             q, k_cache, v_cache, pos, scale=scale, live_len=live_len,
-            block_tables=block_tables)
+            block_tables=block_tables, **scales)
     if _dispatch.use_kernel(q):
-        _dispatch.count_kernel_path("decode_attention", "kernel")
-        return _launch(decode_attention_cuda, (q, k_cache, v_cache),
-                       pos=pos, scale=scale, live_len=live_len)
-    _dispatch.count_kernel_path("decode_attention", "plain")
+        _dispatch.count_kernel_path("decode_attention" + sfx, "kernel")
+        fn = decode_attention_int8_cuda if int8 else decode_attention_cuda
+        return _launch(fn, (q, k_cache, v_cache), pos=pos, scale=scale,
+                       live_len=live_len, **scales)
+    _dispatch.count_kernel_path("decode_attention" + sfx, "plain")
     return cached_decode_attention_reference(q, k_cache, v_cache, pos,
-                                             scale=scale, live_len=live_len)
+                                             scale=scale, live_len=live_len,
+                                             **scales)
 
 
 def cache_mask(pos, q_len: int, kv_len: int, device=None):

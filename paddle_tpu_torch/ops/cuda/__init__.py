@@ -67,16 +67,21 @@ def block_table(block_tables: torch.Tensor, b: int, device,
 
 
 def check_attention_args(what: str, q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, head_dim: dict) -> int:
+                         v: torch.Tensor, head_dim: dict,
+                         int8: bool = False) -> int:
     """The checks every attention wrapper makes: one CUDA device,
-    contiguous, 16-byte aligned 4-d tensors of one dtype, ``v`` shaped like
-    ``k``, q heads a multiple of k's (dim 2), head_dim (dim 3) equal and
-    the one built for the dtype (``head_dim[dtype]``).  Returns the dtype
+    contiguous, 16-byte aligned 4-d tensors, ``v`` shaped like ``k``, q
+    heads a multiple of k's (dim 2), head_dim (dim 3) equal and the one
+    built for q's dtype (``head_dim[dtype]``).  k and v share q's dtype, or
+    with ``int8`` are both int8 (the quantized cache).  Returns q's dtype
     code."""
     require_cuda(what, q, k, v)
     code = dtype_code(q, what)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"{what}: q, k and v must share one dtype")
+    kv_dtype = torch.int8 if int8 else q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise NotImplementedError(
+            f"{what}: k and v must be {kv_dtype} (q is {q.dtype}), got "
+            f"{k.dtype} / {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{what}: 4-d q, k, v expected (k, v of one "
                          f"shape), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -96,3 +101,14 @@ def check_attention_args(what: str, q: torch.Tensor, k: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise NotImplementedError(f"{what}: tensors must be 16-byte aligned")
     return code
+
+
+def check_scales(what: str, cache: torch.Tensor, k_scale: torch.Tensor,
+                 v_scale: torch.Tensor, shape: tuple) -> None:
+    """The int8 cache's scales: float32, contiguous, on the device of
+    ``cache``, both of ``shape``."""
+    require_cuda(what, cache, k_scale, v_scale)
+    for t in (k_scale, v_scale):
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: scales must be float32 {tuple(shape)}"
+                             f", got {t.dtype} {tuple(t.shape)}")

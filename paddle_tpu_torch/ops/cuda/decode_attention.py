@@ -37,6 +37,19 @@ multiple of 8 (the reference default 128 is); splits stay
 length is ``max_blocks * block_len`` and each row reads only keys below
 ``min(pos_b + s, max_blocks * block_len, live_len)``, so the table's
 null-filled dead tail is never read.
+
+The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
+:func:`decode_attention_paged_int8_cuda`, K1-paged-int8; replacing the
+Pallas kernel's ``quantized`` mode, ``decode_attention.py:122-128,
+160-171, 186-187``) read int8 K/V — half the bytes — with one float32
+scale per (granule or block, kv head): contiguous scales (B, n_gran, Hkv)
+over granules of ``L // n_gran`` positions, paged scales (num_blocks,
+Hkv).  A warp's 8-key group lies inside one granule or block (both
+multiples of 8, as is the split length), so each group's two scales are
+loaded once and folded as the Pallas body folds them: K's into the score
+(``q . k_int8 * scale * k_scale``), V's into the group's probabilities
+before they weight V (the same as scaling the P.V product).  Everything
+else — live-prefix walk, splits, merge — is the bf16 kernel's.
 """
 
 from __future__ import annotations
@@ -48,8 +61,8 @@ from typing import Optional
 import torch
 
 from ... import flags
-from . import (_build, block_table, check_attention_args, pos_vector,
-               stream_ptr)
+from . import (_build, block_table, check_attention_args, check_scales,
+               pos_vector, stream_ptr)
 
 NAME = "decode_attention"
 # the head_dim built for each dtype
@@ -73,6 +86,16 @@ def _lib() -> ctypes.CDLL:
                        _I, _I, _I, ctypes.c_float,      # lim split nsplit scale
                        _I, _P]                          # dt st
         fp.restype = ctypes.c_int
+        # q k v k_scale v_scale pos out po pml; B S Hq Hkv D L n_gran lim
+        # split nsplit; scale; dt st
+        fi = lib.decode_attention_int8
+        fi.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        fi.restype = ctypes.c_int
+        # q k v k_scale v_scale pos tbl out po pml; B S Hq Hkv D mb bl lim
+        # split nsplit; scale; dt st
+        fpi = lib.decode_attention_paged_int8
+        fpi.argtypes = [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        fpi.restype = ctypes.c_int
     return lib
 
 
@@ -88,6 +111,18 @@ def _scratch(q: torch.Tensor, hkv: int, nsplit: int):
     part = torch.empty(n_o + b * hkv * nsplit * rows * 2,
                        dtype=torch.float32, device=q.device)
     return part.data_ptr(), part.data_ptr() + 4 * n_o
+
+
+def _split(limit: int):
+    """(split_len, nsplit) for a walk over ``limit`` keys; the paged and
+    int8 builds need a split length that is a multiple of 8 (a warp's key
+    group must not straddle a block or granule)."""
+    split_len = max(1, int(flags.flag("decode_attention_block_kv")))
+    if split_len % 8:
+        raise NotImplementedError(
+            f"{NAME}: the paged and int8 builds take a split length "
+            f"(FLAGS_decode_attention_block_kv) % 8 == 0, got {split_len}")
+    return split_len, max(1, math.ceil(limit / split_len))
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -154,12 +189,7 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     L = mb * bl
     limit = L if live_len is None else max(1, min(L, int(live_len)))
-    split_len = max(1, int(flags.flag("decode_attention_block_kv")))
-    if split_len % 8:
-        raise NotImplementedError(
-            f"{NAME}: the paged build takes a split length "
-            f"(FLAGS_decode_attention_block_kv) % 8 == 0, got {split_len}")
-    nsplit = max(1, math.ceil(limit / split_len))
+    split_len, nsplit = _split(limit)
     pos_t = pos_vector(pos, b, q.device)
     if scale is None:
         scale = d ** -0.5
@@ -176,3 +206,98 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 decode_attention_paged_cuda.launches = 0
+
+
+def decode_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, pos,
+                               k_scale: torch.Tensor, v_scale: torch.Tensor,
+                               scale: Optional[float] = None,
+                               live_len: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Launch K1-int8 over a contiguous int8 cache.  q: (B, s, Hq, D);
+    k_cache/v_cache: int8 (B, L, Hkv, D), the new K/V already written;
+    k_scale/v_scale: float32 (B, n_gran, Hkv), granules of ``L // n_gran``
+    positions (a multiple of 8).  Returns (B, s, Hq, D) in q.dtype.
+    Raises on what the kernel does not take."""
+    code = check_attention_args(NAME, q, k_cache, v_cache, HEAD_DIM,
+                                int8=True)
+    b, s, hq, d = q.shape
+    bk, L, hkv, _ = k_cache.shape
+    if bk != b:
+        raise ValueError(f"{NAME}: batch mismatch between q "
+                         f"{tuple(q.shape)} and cache {tuple(k_cache.shape)}")
+    n_gran = k_scale.shape[1] if k_scale.dim() == 3 else 0
+    check_scales(NAME, k_cache, k_scale, v_scale, (b, n_gran, hkv))
+    if n_gran < 1 or L % n_gran or (L // n_gran) % 8:
+        raise NotImplementedError(
+            f"{NAME}: int8 scale granules must split L = {L} into pieces "
+            f"that are multiples of 8, got n_gran = {n_gran}")
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    limit = L if live_len is None else max(1, min(L, int(live_len)))
+    split_len, nsplit = _split(limit)
+    pos_t = pos_vector(pos, b, q.device)
+    if scale is None:
+        scale = d ** -0.5
+    po, pml = _scratch(q, hkv, nsplit)
+    lib = _lib()
+    err = lib.decode_attention_int8(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
+        out.data_ptr(), po, pml, b, s, hq, hkv, d, L, n_gran, limit,
+        split_len, nsplit, float(scale), code, stream_ptr(q.device))
+    _build.check(lib, NAME, err)
+    decode_attention_int8_cuda.launches += 1
+    return out
+
+
+decode_attention_int8_cuda.launches = 0
+
+
+def decode_attention_paged_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor, pos,
+                                     block_tables: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     scale: Optional[float] = None,
+                                     live_len: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """Launch K1-paged-int8.  q: (B, s, Hq, D); k_pool/v_pool: one layer's
+    int8 (num_blocks, block_len, Hkv, D) pool, the new K/V already
+    written; k_scale/v_scale: float32 (num_blocks, Hkv);
+    ``block_tables``: int (B, max_blocks), every entry a valid block id.
+    Returns (B, s, Hq, D) in q.dtype.  Raises on what the kernel does not
+    take, including a ``block_len`` that is not a multiple of 8."""
+    code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM,
+                                int8=True)
+    b, s, hq, d = q.shape
+    n_pool, bl, hkv, _ = k_pool.shape
+    check_scales(NAME, k_pool, k_scale, v_scale, (n_pool, hkv))
+    if bl % 8:
+        raise NotImplementedError(
+            f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
+    table = block_table(block_tables, b, q.device, NAME)
+    mb = table.shape[1]
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    L = mb * bl
+    limit = L if live_len is None else max(1, min(L, int(live_len)))
+    split_len, nsplit = _split(limit)
+    pos_t = pos_vector(pos, b, q.device)
+    if scale is None:
+        scale = d ** -0.5
+    po, pml = _scratch(q, hkv, nsplit)
+    lib = _lib()
+    err = lib.decode_attention_paged_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
+        table.data_ptr(), out.data_ptr(), po, pml, b, s, hq, hkv, d, mb, bl,
+        limit, split_len, nsplit, float(scale), code, stream_ptr(q.device))
+    _build.check(lib, NAME, err)
+    decode_attention_paged_int8_cuda.launches += 1
+    return out
+
+
+decode_attention_paged_int8_cuda.launches = 0

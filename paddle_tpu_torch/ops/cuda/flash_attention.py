@@ -38,6 +38,13 @@ max_blocks)`` block table.  The bfloat16 kernel looks the table up once
 per 64-key tile, so it takes ``block_len % 64 == 0`` (the reference's
 default 128 qualifies) and raises otherwise; the float32 kernel takes any
 ``block_len``.  No ``lse`` is produced on this path.
+
+K2-paged-int8 (:func:`flash_attention_fwd_paged_int8_cuda`): the same over
+the int8 pool with float32 (num_blocks, Hkv) scales — the paged int8
+engine's suffix prefill.  The tensor-core kernel converts each 64-key int8
+tile to bf16 (exact) as it loads it, folds K's block scale into the score
+scale and V's into the tile's probabilities; the float32 kernel
+dequantizes per key.
 """
 
 from __future__ import annotations
@@ -47,8 +54,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (_build, block_table, check_attention_args, pos_vector,
-               stream_ptr)
+from . import (_build, block_table, check_attention_args, check_scales,
+               pos_vector, stream_ptr)
 
 NAME = "flash_attention_fwd"
 # the head_dim built for each dtype
@@ -71,6 +78,10 @@ def _lib() -> ctypes.CDLL:
                        _I, _I, _I, _I, _I, _I, _I,         # B S Hq Hkv D mb bl
                        ctypes.c_float, _I, _P]             # scale dt st
         fp.restype = ctypes.c_int
+        # q k v k_scale v_scale pos tbl out; B S Hq Hkv D mb bl; scale; dt st
+        fi = lib.flash_attention_fwd_paged_int8
+        fi.argtypes = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]
+        fi.restype = ctypes.c_int
     return lib
 
 
@@ -143,3 +154,45 @@ def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 flash_attention_fwd_paged_cuda.launches = 0
+
+
+def flash_attention_fwd_paged_int8_cuda(q: torch.Tensor,
+                                        k_pool: torch.Tensor,
+                                        v_pool: torch.Tensor, pos,
+                                        block_tables: torch.Tensor,
+                                        k_scale: torch.Tensor,
+                                        v_scale: torch.Tensor,
+                                        scale: Optional[float] = None
+                                        ) -> torch.Tensor:
+    """Launch K2-paged-int8.  As :func:`flash_attention_fwd_paged_cuda`
+    with k_pool/v_pool one layer's int8 (num_blocks, block_len, Hkv, D)
+    pool and k_scale/v_scale float32 (num_blocks, Hkv).  Raises on what the
+    kernel does not take."""
+    code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM,
+                                int8=True)
+    b, sq, hq, d = q.shape
+    n_pool, bl, hkv, _ = k_pool.shape
+    check_scales(NAME, k_pool, k_scale, v_scale, (n_pool, hkv))
+    if q.dtype == torch.bfloat16 and bl % 64:
+        raise NotImplementedError(
+            f"{NAME}: the paged bfloat16 build takes block_len % 64 == 0, "
+            f"got {bl}")
+    table = block_table(block_tables, b, q.device, NAME)
+    out = torch.empty_like(q)
+    if b == 0 or sq == 0:
+        return out
+    pos_t = pos_vector(pos, b, q.device)
+    if scale is None:
+        scale = d ** -0.5
+    lib = _lib()
+    err = lib.flash_attention_fwd_paged_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
+        table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, table.shape[1],
+        bl, float(scale), code, stream_ptr(q.device))
+    _build.check(lib, NAME, err)
+    flash_attention_fwd_paged_int8_cuda.launches += 1
+    return out
+
+
+flash_attention_fwd_paged_int8_cuda.launches = 0

@@ -4,14 +4,21 @@
 ``submit()`` enqueues, ``step()`` runs one scheduler tick (admit queued
 requests in batched prefill waves, then ONE decode step over every slot,
 then retire), ``drain()`` runs ticks until every request is done.  Two
-cache layouts are served, both in the model dtype with wave prefill, no
-speculation, no int8, greedy unless a request asks to sample:
+cache layouts are served, with wave prefill, no speculation, greedy
+unless a request asks to sample:
 
   * contiguous (the default): one ``max_length`` cache row per slot;
   * paged (``paged=True`` or ``FLAGS_serving_paged_kv``): a pool of
     ``block_len``-token blocks addressed through per-slot block tables,
     with the prefix cache (``serving/kv_cache.py``) so a shared prompt
     prefix is stored once and prefilled once.
+
+Each in the model dtype or, with ``kv_cache_dtype="int8"``
+(``FLAGS_serving_kv_cache_dtype``), as int8 with float32 scales per
+(granule or block, kv head), quantized as K/V are written and read by the
+int8 kernels.  ``int8_weights=True`` (``FLAGS_serving_int8_weights``)
+serves the model's ``quantize_for_decode`` wrapper: int8 weights, decode
+projections on kernel K4.
 
 Any other configuration raises ``NotImplementedError`` naming its ROADMAP
 item.
@@ -97,8 +104,6 @@ _UNSUPPORTED = {
     "spec_k": ((None,), "A6.3 (speculative decode)"),
     "drafter": ((None,), "A6.3 (speculative decode)"),
     "draft_model": ((None,), "A6.3 (speculative decode)"),
-    "kv_cache_dtype": ((None, "bf16"), "A6.4 (int8 KV cache)"),
-    "int8_weights": ((None, False), "A6.5 (int8 weights)"),
     "preempt": ((None, "off"), "A6.6 (preemption + host tier)"),
     "host_blocks": ((None, 0), "A6.6 (preemption + host tier)"),
     "mesh": ((None,), "A9 (multi-GPU serving)"),
@@ -107,8 +112,6 @@ _UNSUPPORTED = {
 _FLAG_DEFAULTS = {
     "serving_chunked_prefill": (False, "A6.2"),
     "serving_spec_decode": (False, "A6.3"),
-    "serving_kv_cache_dtype": ("bf16", "A6.4"),
-    "serving_int8_weights": (False, "A6.5"),
 }
 
 
@@ -123,7 +126,14 @@ class ServingEngine:
     cache: ``block_len`` tokens a block (``FLAGS_kv_cache_block_len``;
     must divide ``max_length``), ``num_blocks`` in the pool
     (``FLAGS_kv_cache_num_blocks``, 0 = ``num_slots * max_blocks + 1``),
-    ``prefix_cache`` (``FLAGS_serving_prefix_cache``)."""
+    ``prefix_cache`` (``FLAGS_serving_prefix_cache``).
+
+    ``kv_cache_dtype`` (default ``FLAGS_serving_kv_cache_dtype``):
+    ``"bf16"`` keeps the cache in the model dtype, ``"int8"`` quantizes it
+    (either layout); ``"mixed"`` is ROADMAP A6.4b.  ``int8_weights``
+    (default ``FLAGS_serving_int8_weights``) wraps the model with
+    ``models.quantized.quantize_for_decode`` unless it is wrapped already
+    (has ``unwrapped``)."""
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 1024,
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
@@ -131,7 +141,9 @@ class ServingEngine:
                  paged: Optional[bool] = None,
                  block_len: Optional[int] = None,
                  num_blocks: Optional[int] = None,
-                 prefix_cache: Optional[bool] = None, device=None,
+                 prefix_cache: Optional[bool] = None,
+                 kv_cache_dtype: Optional[str] = None,
+                 int8_weights: Optional[bool] = None, device=None,
                  **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
@@ -145,6 +157,21 @@ class ServingEngine:
             if flags.flag(name) != default:
                 raise NotImplementedError(
                     f"FLAGS_{name}={flags.flag(name)!r} is ROADMAP {item}")
+        self.kv_dtype = str(kv_cache_dtype
+                            or flags.flag("serving_kv_cache_dtype"))
+        if self.kv_dtype == "mixed":
+            raise NotImplementedError(
+                "ServingEngine(kv_cache_dtype='mixed'), the mixed bf16/int8 "
+                "pool, is ROADMAP A6.4b")
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype must be bf16|int8|mixed, got "
+                             f"{self.kv_dtype!r}")
+        self.quantized = self.kv_dtype == "int8"
+        self.int8_weights = bool(flags.flag("serving_int8_weights")
+                                 if int8_weights is None else int8_weights)
+        if self.int8_weights and not hasattr(model, "unwrapped"):
+            from ..models.quantized import quantize_for_decode
+            model = quantize_for_decode(model)
         self.device = default_device(device)
         mdev = next(model.parameters()).device
         if mdev.type != self.device.type or (
@@ -179,9 +206,19 @@ class ServingEngine:
             self.kv = BlockManager(
                 nb, bl, prefix_cache=bool(flags.flag("serving_prefix_cache")
                                           if prefix_cache is None
-                                          else prefix_cache))
+                                          else prefix_cache),
+                kv_dtype=self.kv_dtype)
+            c = self.config
+            tok = c.num_hidden_layers * 2 * c.num_key_value_heads * c.head_dim
+            native = torch.empty((), dtype=c.torch_dtype).element_size()
+            # a block's bytes: payload (+ the int8 block's scale row)
+            self.kv.set_block_nbytes({
+                "bf16": tok * bl * native,
+                "int8": tok * bl
+                + c.num_hidden_layers * 2 * c.num_key_value_heads * 4})
             with torch.no_grad():
                 self._cache = init_paged_kv_cache(self.config, nb, bl,
+                                                  quantized=self.quantized,
                                                   device=self.device)
             self._tables = np.zeros((self.num_slots, self.max_blocks),
                                     np.int32)
@@ -189,6 +226,7 @@ class ServingEngine:
             with torch.no_grad():
                 self._cache = init_kv_cache(self.config, self.num_slots,
                                             self.max_length,
+                                            quantized=self.quantized,
                                             device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -218,6 +256,7 @@ class ServingEngine:
         self._m_tpot = _Hist()
         self._m_step_ms = _Hist()
         self._m_prefill_ms = _Hist()
+        self._m_dequant_err = _Hist()
         self._n_submitted = 0
         self._n_finished = 0
         self._n_tokens = 0
@@ -260,11 +299,15 @@ class ServingEngine:
                "prefill_tokens_computed": self._n_prefill_computed,
                "prefill_tokens_total": self._n_prefill_total,
                "retired": dict(self._retired)}
+        if self._m_dequant_err.values:
+            out["kv_dequant_error"] = self._m_dequant_err.summary()
         if self.paged:
             st = self.kv.stats
             total = self._n_prefill_total
             out["kv_cache"] = {
                 "kv_dtype": self.kv.kv_dtype,
+                "quantized_blocks": st["quantized_blocks"],
+                "bytes_by_dtype": st["bytes_by_dtype"],
                 "blocks_in_use": self.kv.blocks_in_use(),
                 "peak_blocks_in_use": st["peak_blocks_in_use"],
                 "peak_pool_occupancy": round(
@@ -340,6 +383,21 @@ class ServingEngine:
         return list(self._results[rid])
 
     @property
+    def cache_hbm_bytes(self) -> int:
+        """Bytes of the KV cache (contiguous rows or paged pool, payload
+        and scales) this engine keeps on its device."""
+        parts = (self._cache.values() if isinstance(self._cache, dict)
+                 else (self._cache,))
+        return int(sum(t.numel() * t.element_size() for t in parts))
+
+    def observe_dequant_error(self, max_abs_logit_delta: float) -> None:
+        """Record one int8-KV parity observation — the max absolute logit
+        delta against a full-precision run of the same trace — in
+        ``metrics()["kv_dequant_error"]``.  For oracle runs; the serving
+        path never computes logits twice."""
+        self._m_dequant_err.observe(max_abs_logit_delta)
+
+    @property
     def num_active(self) -> int:
         return self.num_slots - self._slots.count(None)
 
@@ -380,6 +438,7 @@ class ServingEngine:
                 if slot is not None:
                     # this tick writes K/V at positions[i]
                     self._grow_row_for_writes(i, int(self._positions[i]))
+            self._flush_fresh_scales()
             tables = torch.from_numpy(self._tables).to(dev)
         logits, self._cache = self.model.decode_step(
             tokens[:, None], self._cache, positions, block_tables=tables)
@@ -394,16 +453,38 @@ class ServingEngine:
         the ``pos=0`` path (flash attention) on a bucket-long scratch
         cache, write the real rows into their slots, and sample each row's
         first token from the logits at its LAST REAL position (logits are
-        computed at those positions only)."""
+        computed at those positions only).
+
+        The int8 cache quantizes under the engine cache's own granule
+        layout: the scratch covers the whole granules the bucket touches,
+        the slots' scale rows are zeroed, then the scratch's payload and
+        scales replace the rows' first granules.  That is the reference's
+        fresh max_length-long sub-cache, row for row: past the copied
+        granules a slot keeps stale payload under zero scales, which the
+        first write of a granule clears (ratio 0), and which no read
+        reaches before that write."""
         dev = self.device
         n, bucket = ids.shape
-        sub = init_kv_cache(self.config, n, bucket, device=dev)
+        slots = torch.tensor(slot_ids, device=dev)
+        if self.quantized:
+            gr = self.max_length // self._cache["scale"].shape[3]
+            ng = -(-bucket // gr)
+            sub = init_kv_cache(self.config, n, ng * gr, quantized=True,
+                                device=dev)
+        else:
+            sub = init_kv_cache(self.config, n, bucket, device=dev)
         hidden, sub = self.model.model.decode(
             torch.from_numpy(ids).to(dev), sub, 0)
         last = hidden[torch.arange(n, device=dev),
                       torch.from_numpy(plens - 1).to(dev).long()]
         logits = self.model.logits(last)
-        self._cache[:, :, torch.tensor(slot_ids, device=dev), :bucket] = sub
+        if self.quantized:
+            kv, sc = self._cache["kv"], self._cache["scale"]
+            sc[:, :, slots] = 0.0
+            sc[:, :, slots, :ng] = sub["scale"]
+            kv[:, :, slots, :ng * gr] = sub["kv"]
+        else:
+            self._cache[:, :, slots, :bucket] = sub
         return self._sample(logits, temps, topk, topp)
 
     def _prefill_paged(self, ids: np.ndarray, prefix: np.ndarray,
@@ -421,6 +502,7 @@ class ServingEngine:
         wave to ``prefill_batch`` rows with all-null dummy tables."""
         dev = self.device
         n = ids.shape[0]
+        self._flush_fresh_scales()
         hidden, self._cache = self.model.model.decode(
             torch.from_numpy(ids).to(dev), self._cache,
             torch.from_numpy(prefix).to(dev),
@@ -443,11 +525,27 @@ class ServingEngine:
                         last_pos // self.block_len + 1):
             cow = self.kv.ensure_writable(i, lb)
             if cow is not None:
+                # the int8 pool copies the block's scale row with it
                 src, dst = cow
-                self._cache[:, :, dst] = self._cache[:, :, src]
+                for t in (self._cache.values() if self.quantized
+                          else (self._cache,)):
+                    t[:, :, dst] = t[:, :, src]
                 changed = True
         if changed:
             self._tables[i] = self.kv.table_row(i, self.max_blocks)
+
+    def _flush_fresh_scales(self):
+        """int8 pool, before every paged dispatch: zero the device scale
+        rows of blocks newly appended to chains (``drain_fresh``), so a
+        reused block's stale scale never coarsens its new tenant's
+        running-max quantization (the zero scale also makes the first
+        write clear the block's stale payload)."""
+        if not (self.paged and self.quantized):
+            return
+        fresh = self.kv.drain_fresh()
+        if fresh:
+            idx = torch.tensor(fresh, device=self.device)
+            self._cache["scale"][:, :, idx] = 0.0
 
     # -- scheduler ------------------------------------------------------------------
 

@@ -38,11 +38,19 @@ and cascades the unregistration through its trie descendants.
 
 Admission is reservation-based, so growth mid-flight cannot fail.
 
+int8 pool (``kv_dtype="int8"``): every block holds int8 K/V with one
+float32 scale per (block, kv head) (:func:`init_paged_kv_cache`).  A block
+newly appended to a chain is *fresh* (:meth:`BlockManager.drain_fresh`):
+the engine zeroes its device scale row before the next dispatch, so a
+reused block's stale scale never coarsens its new tenant's running-max
+quantization.  COW destinations are not fresh (the device copy carries
+the source's live scale).
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
 item: the host tier, swap-out/resume, block export/import and
 ``preempt_free`` (A6.6); ``truncate_to`` (A6.3); chunked admission and
-``register_prompt_upto`` (A6.2); int8 and mixed pools and ``drain_fresh``
-(A6.4).  ``stats`` is a plain dict (the metrics registry is A5b).
+``register_prompt_upto`` (A6.2); the ``mixed`` pool (A6.4b).  ``stats`` is
+a plain dict (the metrics registry is A5b).
 """
 
 from __future__ import annotations
@@ -65,16 +73,26 @@ _STATS_KEYS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens",
 
 
 def init_paged_kv_cache(config, num_blocks: int, block_len: int, dtype=None,
-                        quantized: bool = False, device=None) -> torch.Tensor:
+                        quantized: bool = False, device=None):
     """Pooled paged cache: zeros (L, 2, num_blocks, block_len, kv_heads,
     head_dim) in the model dtype (or ``dtype``), on ``device`` (the card
-    unless ``device="cpu"``).  The int8 pool is ROADMAP A6.4."""
-    if quantized:
-        raise NotImplementedError("the int8 paged KV cache is ROADMAP A6.4")
-    dt = dtype if dtype is not None else config.torch_dtype
+    unless ``device="cpu"``).
+
+    ``quantized``: the int8 pool ``{"kv": int8 (L, 2, nb, bl, Hkv, D),
+    "scale": float32 (L, 2, nb, Hkv)}`` where ``scale[l, kv, b, h]`` is
+    physical block ``b``'s per-kv-head dequant factor (absmax/127, a
+    running max over the block's writes); a zero scale is an empty
+    block."""
+    dev = default_device(device)
     shape = (config.num_hidden_layers, 2, num_blocks, block_len,
              config.num_key_value_heads, config.head_dim)
-    return torch.zeros(shape, dtype=dt, device=default_device(device))
+    if quantized:
+        return {"kv": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "scale": torch.zeros(
+                    (shape[0], 2, num_blocks, config.num_key_value_heads),
+                    dtype=torch.float32, device=dev)}
+    dt = dtype if dtype is not None else config.torch_dtype
+    return torch.zeros(shape, dtype=dt, device=dev)
 
 
 class _SlotAlloc:
@@ -89,11 +107,16 @@ class BlockManager:
     """Host-side allocator for a pool of ``num_blocks`` KV blocks of
     ``block_len`` tokens (block 0 reserved as the null block).
 
+    ``kv_dtype``: ``"bf16"`` (the model dtype) or ``"int8"``; ``"mixed"``
+    is ROADMAP A6.4b.
+
     ``stats``: ``prefix_lookups`` (admissions that consulted the trie),
     ``prefix_hit_blocks`` / ``prefix_hit_tokens`` (adopted instead of
     recomputed), ``evictions`` (cached blocks reclaimed under pressure),
     ``cow_copies`` (``ensure_writable`` copies), ``peak_blocks_in_use``
-    (high-water mark of referenced blocks)."""
+    (high-water mark of referenced blocks), ``quantized_blocks``,
+    ``bytes_by_dtype`` and ``kv_dtype`` (see :meth:`quantized_blocks`,
+    :meth:`set_block_nbytes`)."""
 
     def __init__(self, num_blocks: int, block_len: int,
                  prefix_cache: bool = True, kv_dtype: str = "bf16",
@@ -104,9 +127,13 @@ class BlockManager:
                 f"got {num_blocks}")
         if block_len < 1:
             raise ValueError(f"block_len must be >= 1, got {block_len}")
-        if kv_dtype != "bf16":
+        if kv_dtype == "mixed":
             raise NotImplementedError(
-                f"BlockManager(kv_dtype={kv_dtype!r}) is ROADMAP A6.4")
+                "BlockManager(kv_dtype='mixed'), the mixed bf16/int8 pool, "
+                "is ROADMAP A6.4b")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"kv_dtype must be bf16|int8|mixed, got {kv_dtype!r}")
         if host_blocks:
             raise NotImplementedError(
                 "BlockManager(host_blocks > 0), the host tier, is ROADMAP "
@@ -115,6 +142,11 @@ class BlockManager:
         self.block_len = int(block_len)
         self.prefix_cache = bool(prefix_cache)
         self.kv_dtype = kv_dtype
+        # bytes per block by element dtype, set by the engine (the manager
+        # has no model dimensions); feeds stats["bytes_by_dtype"]
+        self._block_nbytes: Dict[str, int] = {}
+        # blocks appended to a chain since the last drain_fresh()
+        self._fresh: Set[int] = set()
         self._free: Deque[int] = deque(range(1, num_blocks))
         self._ref = np.zeros(num_blocks, np.int64)
         self._reserved = 0                       # admitted-but-unallocated
@@ -124,7 +156,7 @@ class BlockManager:
         self._block_key: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
         self._children: Dict[int, Set[int]] = {}
         self._lru: "OrderedDict[int, None]" = OrderedDict()  # ref==0 cached
-        self.stats: Dict[str, int] = dict.fromkeys(_STATS_KEYS, 0)
+        self._counts: Dict[str, int] = dict.fromkeys(_STATS_KEYS, 0)
 
     # -- accounting --------------------------------------------------------
 
@@ -144,6 +176,38 @@ class BlockManager:
 
     def free_blocks(self) -> int:
         return len(self._free)
+
+    @property
+    def stats(self) -> Dict[str, object]:
+        """The counters (``_STATS_KEYS``) plus ``quantized_blocks``,
+        ``bytes_by_dtype`` and ``kv_dtype``, read now."""
+        return dict(self._counts, quantized_blocks=self.quantized_blocks(),
+                    bytes_by_dtype=self.bytes_by_dtype(),
+                    kv_dtype=self.kv_dtype)
+
+    def _live_mask(self) -> np.ndarray:
+        live = self._ref > 0
+        if self._lru:
+            live[list(self._lru)] = True
+        return live
+
+    def quantized_blocks(self) -> int:
+        """Live (referenced or LRU-cached) blocks holding int8 content: all
+        live blocks of an int8 pool, none of a bf16 one (the mixed pool,
+        A6.4b, is where blocks of one pool would differ)."""
+        return int(self._live_mask().sum()) if self.kv_dtype == "int8" else 0
+
+    def set_block_nbytes(self, by_dtype: Dict[str, int]) -> None:
+        """Engine-supplied bytes of one block (payload + scale share) by
+        element dtype; arms ``stats["bytes_by_dtype"]``."""
+        self._block_nbytes = {k: int(v) for k, v in by_dtype.items()}
+
+    def bytes_by_dtype(self) -> Dict[str, int]:
+        """Live pool bytes by element dtype (zeros until
+        :meth:`set_block_nbytes`)."""
+        live = int(self._live_mask().sum())
+        return {dt: (live if dt == self.kv_dtype else 0)
+                * self._block_nbytes.get(dt, 0) for dt in ("bf16", "int8")}
 
     def blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
         """Worst-case blocks a request needs over its whole lifetime
@@ -176,7 +240,7 @@ class BlockManager:
         prompt = [int(t) for t in prompt[:prompt_len]]
         matched: List[int] = []
         if self.prefix_cache:
-            self.stats["prefix_lookups"] += 1
+            self._counts["prefix_lookups"] += 1
             parent = _ROOT
             for b in range((prompt_len - 1) // bl):
                 bid = self._trie.get((parent, tuple(prompt[b * bl:
@@ -205,8 +269,8 @@ class BlockManager:
             self._append_block(st)
         if self.prefix_cache:
             self._register_prompt(st.chain, prompt, prompt_len)
-        self.stats["prefix_hit_blocks"] += m
-        self.stats["prefix_hit_tokens"] += m * bl
+        self._counts["prefix_hit_blocks"] += m
+        self._counts["prefix_hit_tokens"] += m * bl
         self._note_peak()
         return m * bl
 
@@ -247,14 +311,19 @@ class BlockManager:
                 "(engine bug: reservation must cover prompt + max_new)")
         bid = self._pop_block()
         self._ref[bid] = 1
+        self._fresh.add(bid)
         st.chain.append(bid)
         st.reserved_left -= 1
         self._reserved -= 1
         return bid
 
     def drain_fresh(self) -> List[int]:
-        raise NotImplementedError(
-            "BlockManager.drain_fresh (int8 scale hygiene) is ROADMAP A6.4")
+        """Physical ids of blocks appended to chains since the last call
+        (cleared on read): the int8 engine zeroes their device scale rows
+        before its next dispatch.  COW destinations are not included."""
+        out = sorted(self._fresh)
+        self._fresh.clear()
+        return out
 
     def ensure_capacity(self, slot: int, pos: int) -> bool:
         """Grow ``slot``'s chain until it covers position ``pos``.
@@ -283,7 +352,7 @@ class BlockManager:
         self._ref[src] -= 1
         self._ref[dst] = 1
         st.chain[logical_block] = dst
-        self.stats["cow_copies"] += 1
+        self._counts["cow_copies"] += 1
         self._note_peak()
         return src, dst
 
@@ -312,7 +381,7 @@ class BlockManager:
                 "KV block pool exhausted: no free or evictable blocks "
                 "(reservation accounting should have prevented this)")
         bid, _ = self._lru.popitem(last=False)
-        self.stats["evictions"] += 1
+        self._counts["evictions"] += 1
         self._unregister_cascade(bid)
         return bid
 
@@ -381,5 +450,5 @@ class BlockManager:
         return list(self._slots[slot].chain)
 
     def _note_peak(self):
-        self.stats["peak_blocks_in_use"] = max(
-            self.stats["peak_blocks_in_use"], self.blocks_in_use())
+        self._counts["peak_blocks_in_use"] = max(
+            self._counts["peak_blocks_in_use"], self.blocks_in_use())

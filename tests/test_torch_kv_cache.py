@@ -97,7 +97,8 @@ def test_replay_matches_jax_block_manager(seed, prefix_cache):
         for s in live:
             np.testing.assert_array_equal(port.table_row(s, max_blocks),
                                           ref.table_row(s, max_blocks))
-        assert dict(port.stats) == {k: ref.stats[k] for k in STATS}, i
+        assert ({k: port.stats[k] for k in STATS + ("quantized_blocks",)}
+                == {k: ref.stats[k] for k in STATS + ("quantized_blocks",)}), i
         assert (port.free_blocks(), port.cached_blocks(),
                 port.blocks_in_use()) == (ref.free_blocks(),
                                           ref.cached_blocks(),
@@ -107,6 +108,31 @@ def test_replay_matches_jax_block_manager(seed, prefix_cache):
         assert port.stats["prefix_hit_blocks"] > 0
         assert port.stats["evictions"] > 0
     assert port.stats["cow_copies"] > 0 or not prefix_cache
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_int8_replay_matches_jax_block_manager(seed):
+    """The int8 pool's bookkeeping against the JAX one over the same
+    random ops: the blocks new to a chain (``drain_fresh``, whose scale
+    rows the engine zeroes; COW destinations excluded) and
+    ``quantized_blocks`` after every op."""
+    bl, nb, n_slots = 4, 14, 4
+    port = BlockManager(nb, bl, kv_dtype="int8")
+    ref = JaxBlockManager(nb, bl, kv_dtype="int8")
+    port.set_block_nbytes({"bf16": 8, "int8": 5})
+    live = {}
+    for i, op in enumerate(_random_ops(seed, 300, n_slots, bl)):
+        got, want = _apply(port, op, live), _apply(ref, op, live)
+        assert got == want, (i, op, got, want)
+        if op[0] == "admit" and got not in ("skip", None):
+            live[op[1]] = len(op[2]) + op[3]
+        elif op[0] == "release" and got != "skip":
+            del live[op[1]]
+        assert port.drain_fresh() == ref.drain_fresh(), i
+        q = port.stats["quantized_blocks"]
+        assert q == ref.stats["quantized_blocks"], i
+        assert port.stats["bytes_by_dtype"] == {"bf16": 0, "int8": 5 * q}
+    assert port.stats["cow_copies"] > 0 and port.stats["evictions"] > 0
 
 
 # ---- 2. the interleaving checker (bf16, no host tier) ---------------------------
@@ -432,8 +458,8 @@ def test_table_row_rejects_null_block_in_live_chain():
 def test_unported_items_raise():
     with pytest.raises(NotImplementedError, match="A6.6"):
         BlockManager(5, 2, host_blocks=3)
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        BlockManager(5, 2, kv_dtype="int8")
+    with pytest.raises(NotImplementedError, match="A6.4b"):
+        BlockManager(5, 2, kv_dtype="mixed")
     mgr = BlockManager(5, 2)
     with pytest.raises(NotImplementedError, match="A6.2"):
         mgr.admit(0, [1, 2, 3], 3, 1, chunked=True)
@@ -441,7 +467,6 @@ def test_unported_items_raise():
     for call, item in ((lambda: mgr.register_prompt_upto(0, [1, 2], 2),
                         "A6.2"),
                        (lambda: mgr.truncate_to(0, 1), "A6.3"),
-                       (lambda: mgr.drain_fresh(), "A6.4"),
                        (lambda: mgr.swap_out(0), "A6.6"),
                        (lambda: mgr.resume_swapped(0, {}), "A6.6"),
                        (lambda: mgr.export_blocks(0, None), "A6.6"),

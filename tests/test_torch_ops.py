@@ -263,12 +263,7 @@ def test_reference_mode_is_explicit_and_scoped():
 def test_unported_features_raise():
     q = torch.zeros(1, 1, 2, 8)
     kv = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        cached_decode_attention(q, kv, kv, 0,
-                                block_tables=torch.zeros(1, 1, dtype=int),
-                                k_scale=torch.ones(4, 2),
-                                v_scale=torch.ones(4, 2))
-    with pytest.raises(NotImplementedError, match="A6.4"):
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
         cached_decode_attention(q, kv, kv, 0, k_scale=torch.ones(1))
     with pytest.raises(NotImplementedError, match="extra_mask"):
         cached_decode_attention(q, kv, kv, 0,

@@ -171,8 +171,11 @@ def test_init_paged_kv_cache_matches_reference():
     jpool = jax_init_pool(jax_tiny(), 5, 8)
     assert tuple(pool.shape) == tuple(jpool.shape)
     assert pool.dtype == torch.float32 and not pool.any()
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        init_paged_kv_cache(cfg, 5, 8, quantized=True, device="cpu")
+    q = init_paged_kv_cache(cfg, 5, 8, quantized=True, device="cpu")
+    jq = jax_init_pool(jax_tiny(), 5, 8, quantized=True)
+    for key, dt in (("kv", torch.int8), ("scale", torch.float32)):
+        assert tuple(q[key].shape) == tuple(jq[key].shape)
+        assert q[key].dtype == dt and not q[key].any()
 
 
 # ---- the model: paged decode_step vs the JAX model's --------------------------

@@ -106,8 +106,10 @@ def test_rejections(pair):
 @pytest.mark.parametrize("kw,item", [
     ({"paged": True, "preempt": "swap", "host_blocks": 4}, "A6.6"),
     ({"chunked": True}, "A6.2"),
-    ({"spec_decode": True}, "A6.3"), ({"kv_cache_dtype": "int8"}, "A6.4"),
-    ({"int8_weights": True}, "A6.5"), ({"preempt": "swap"}, "A6.6"),
+    ({"spec_decode": True}, "A6.3"),
+    ({"paged": True, "kv_cache_dtype": "mixed"}, "A6.4"),
+    ({"int8_weights": True, "chunked": True}, "A6.2"),
+    ({"preempt": "swap"}, "A6.6"),
     ({"mesh": "mp2dp2"}, "A9")])
 def test_unported_modes_raise(pair, kw, item):
     _, tm = pair
