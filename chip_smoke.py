@@ -5,11 +5,11 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds every kernel of the serving path from the sources in the
-checkout, holds each against its plain PyTorch version, runs the model at
-the full Llama-3-8B width and serves requests through the engine.  Every
-phase prints one JSON line; any failed check raises, so the script exits
-non-zero.  Phases:
+It builds every kernel of the serving and training paths from the sources
+in the checkout, holds each against its plain PyTorch version, runs the
+model at the full Llama-3-8B width, serves requests through the engine
+and trains a 4-layer cut of the model.  Every phase prints one JSON line;
+any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
                  the kernels' build time (one ``nvcc`` per source, all at
@@ -24,8 +24,12 @@ non-zero.  Phases:
                  granules, K1-paged-int8 and K2-paged-int8 over int8 pools
                  with per-block scales, and K4, the weight-only int8 GEMM,
                  at every Llama-3-8B projection shape (8 rows) and at 256
-                 rows; each also at the tiny model's float32 shapes: max
-                 error against the plain version beside the stated
+                 rows; K2 with packed-document segment ids and the flash
+                 backward K5 (dq) / K6 (dk, dv) at the training
+                 micro-batch's shape (B=2, S=2048, 3-8 documents a row;
+                 bf16 gradients held by their relative L2 error per
+                 tensor); each also at the tiny model's float32 shapes:
+                 max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
                  in ms;
   3. model     — ``LlamaForCausalLM(llama3_8b_config())``, 32 layers,
@@ -67,15 +71,33 @@ non-zero.  Phases:
                  pool bytes, the model's ``hbm_bytes()``;
   4d. serving_int8_contiguous — phase 4's engine and requests with the
                  same two options: K1-int8 32 a decode tick, K2 32 a wave
-                 (the wave prefill attends its fresh K/V), K4 as in 4c.
+                 (the wave prefill attends its fresh K/V), K4 as in 4c;
+  5. training  — after the serving models are freed: Llama-3-8B width cut
+                 to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
+                 batches (3-8 documents a row, restarting positions),
+                 ``build_train_step(grad_accum_steps=2)`` with AdamW
+                 (lr 3e-4 after a 2-step linear warmup, beta2 0.95, eps
+                 1e-5, weight decay 0.1, global-norm clip 1.0); gates:
+                 (a) step-1 gradients of one micro-batch, kernel path
+                 within 1.2x the plain path's relative L2 error against a
+                 float32 copy, summed over every tensor and tensor by
+                 tensor; (b) 8 steps, every loss finite, the last
+                 below the first; (c) launches a step K2 = 4 x layers,
+                 K5 = K6 = 2 x layers, no plain route; (d) the tiny float32
+                 model trained 4 steps on the card and on the CPU from the
+                 same weights (packed and not): losses and parameters
+                 within the stated tolerance.  Step ms, tokens/s, model
+                 FLOPs over step time against 989 TFLOP/s, peak memory.
 
 Then the ``{"kernels": [...]}`` line (launches of K1, K2, K3 from phase 4,
 of K1-paged and K2-paged from phase 4b, of K1-paged-int8, K2-paged-int8
-and K4 from phase 4c, of K1-int8 from phase 4d; error and times from
-phase 2) and, last, ``{"ok": true, "device": {...}}``.
+and K4 from phase 4c, of K1-int8 from phase 4d, of K5 and K6 from phase
+5; error and times from phase 2) and, last, ``{"ok": true, "device":
+{...}}``.
 
 ``--profile`` adds a torch.profiler window over a few decode ticks of the
-contiguous, paged and int8 paged engines (kernel time by name, device busy
+contiguous, paged and int8 paged engines and over one phase-5 train step
+(kernel time by name and class, the optimizer's device time, device busy
 share) for PERF.md.
 """
 
@@ -84,6 +106,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -135,6 +158,14 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "paddle_tpu/ops/pallas/int8_matmul.py:38"},
+    "flash_attention_bwd_dq": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:252"},
+    "flash_attention_bwd_dkv": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:299"},
 }
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -145,6 +176,30 @@ INT8_LIBRARY_NOTE = ("F.scaled_dot_product_attention over a dequantized "
                      "and gather are not timed")
 MATMUL_LIBRARY_NOTE = ("torch.matmul against the bf16/f32 weight the int8 "
                        "one replaces")
+BWD_LIBRARY_NOTE = ("the backward of F.scaled_dot_product_attention "
+                    "(enable_gqa; is_causal, or on packed rows the dense "
+                    "mask below), timed alone: the forward runs once a "
+                    "input set, untimed, then torch.autograd.grad("
+                    "retain_graph=True) is timed; it computes dq, dk and dv "
+                    "in one call: compare with K5 + K6")
+SEGMENTED_LIBRARY_NOTE = ("F.scaled_dot_product_attention (enable_gqa) with "
+                          "a dense (B, 1, S, S) bool mask, causal and same "
+                          "document, built outside the timed call: it "
+                          "computes every pair the mask hides")
+# bf16 gradients are held by their relative L2 error per tensor: the
+# kernels round P and dS to bf16 (unit roundoff 2^-9 ~ 2e-3) before the
+# products and the outputs to bf16 once (2^-9 again), against the plain
+# version's float32 math; 1e-2 leaves a 2.5x margin over the ~4e-3 those
+# two roundings give, and a wrong mask or a missing tile is O(1)
+BWD_REL_TOL_BF16 = 1e-2
+# phase 5: Llama-3-8B width cut to 4 layers (training state of the full
+# 32-layer model, ~16 bytes a parameter, does not fit one 80 GB card)
+TRAIN_LAYERS = 4
+TRAIN_ROWS, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 2048, 2, 8
+TRAIN_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# gate (a) per tensor: a floor under 1.2x the plain path's relative L2
+# error, for tensors whose plain error is near 0; a wrong kernel is O(1)
+GRAD_TENSOR_FLOOR = 1e-3
 LAYERS_8B = 32
 # the kernels of the default (contiguous) engine's path, phase 4
 CONTIGUOUS_PATH = ("decode_attention", "flash_attention_fwd", "rms_norm")
@@ -211,6 +266,24 @@ def _time(torch, fns, budget_ms):
     return start.elapsed_time(end) / iters, t_host
 
 
+def _device_time(ev) -> float:
+    t = getattr(ev, "device_time_total", None)
+    return getattr(ev, "cuda_time_total", 0.0) if t is None else t
+
+
+def kernel_rows(prof):
+    """[(device us, kernel name, calls)] of the kernels of a profiler
+    window, longest first.  Host-side ranges (ops, autograd nodes, user
+    annotations) are left out: their device time is their kernels' again."""
+    from torch.autograd import DeviceType
+    rows = [(_device_time(ev), ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.key
+            and not getattr(ev, "is_user_annotation", False)
+            and _device_time(ev)]
+    return sorted(rows, reverse=True)
+
+
 def device_ms(torch, fns, n: int = 40) -> float:
     """Device time of one call by the profiler (CUPTI): the sum of the
     kernels' device times over ``n`` calls, over ``n``; 0.0 if three
@@ -224,16 +297,23 @@ def device_ms(torch, fns, n: int = 40) -> float:
             for i in range(n):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        total = 0.0
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = getattr(ev, "cuda_time_total", 0.0)
-            if t and ev.key and not ev.key.startswith(("aten::", "cuda")):
-                total += t
+        total = sum(t for t, _, _ in kernel_rows(prof))
         if total > 0:
             return total / n / 1e3
     return 0.0
+
+
+def top_kernel(torch, fn) -> str:
+    """Name of the longest kernel of one call of ``fn`` (which backend a
+    library call took), by the profiler; "not measured" if it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    return rows[0][1][:90] if rows else "not measured"
 
 
 def copies(nbytes: int) -> int:
@@ -330,6 +410,44 @@ def paged_layout(pos_list, s, bl, mb, share, seed):
     return tables, n_blocks, len(live)
 
 
+def packed_segments(rows: int, seq: int, seed: int, lo: int = 3,
+                    hi: int = 8):
+    """(rows, seq) int32 packed-document ids: lo..hi documents a row, cut
+    at seeded positions."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = np.zeros((rows, seq), np.int32)
+    for r in range(rows):
+        n = min(rng.randint(lo, hi + 1), seq)
+        for c in sorted(rng.choice(np.arange(1, seq), n - 1, replace=False)):
+            out[r, c:] += 1
+    return out
+
+
+def causal_pairs(seg, b: int, s: int) -> int:
+    """Visible (query, key) pairs of causal self-attention over b rows of s
+    tokens, within each packed document when ``seg`` (b, s) is given."""
+    if seg is None:
+        return b * s * (s + 1) // 2
+    lens = torch_counts(seg)
+    return int(sum(n * (n + 1) // 2 for n in lens))
+
+
+def torch_counts(seg):
+    """Lengths of every document of every row of a (b, s) id tensor."""
+    out = []
+    for row in seg.cpu().tolist():
+        run = 1
+        for a, c in zip(row, row[1:]):
+            if a == c:
+                run += 1
+            else:
+                out.append(run)
+                run = 1
+        out.append(run)
+    return out
+
+
 def phase_kernels(torch):
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       cached_decode_attention_reference,
@@ -355,7 +473,7 @@ def phase_kernels(torch):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
-               main, note=None):
+               main, note=None, extra=None):
         ms, hms = time_ms(torch, kfns), host_ms(torch, kfns)
         dms = device_ms(torch, kfns)
         timed_by = "events"
@@ -371,6 +489,7 @@ def phase_kernels(torch):
                "bound_by": by}
         if note:
             row["library_note"] = note
+        row.update(extra or {})
         emit(row)
         check(ok, f"{name} {shape}: max error {err} beyond {tol}")
         agg = results.setdefault(name, {"max_abs_err": 0.0})
@@ -490,6 +609,150 @@ def phase_kernels(torch):
                max(err, lerr), f"out atol {atol} + rtol {rtol}, lse "
                f"{lse_tol}", ok, kfns, plain_ms, lib_ms, bms, by, main)
         del sets, q, k, v, out, lse, ref, ref_lse
+
+    # ---- K2 with segment ids, K5 / K6 (the flash backward): the training
+    # micro-batch's shape (B=2, S=2048, Hq/Hkv 32/8, D=128, bf16, causal,
+    # rows packed with 3-8 documents of seeded lengths), a ragged bf16
+    # shape, then the tiny model's float32 builds; segmented and not.  The
+    # backward rows are fed K2's own out and lse; their plain version is
+    # flash_attention_bwd_reference (dq, dk, dv together) --------------------
+    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
+                                      flash_attention_bwd_dq_cuda,
+                                      flash_attention_bwd_reference,
+                                      flash_attention_fwd_cuda)
+
+    def rel_l2(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    for dt, b, s, hq, hkv, d, segmented, main in (
+            (bf16, 2, TRAIN_SEQ, 32, 8, 128, True, True),
+            (bf16, 2, TRAIN_SEQ, 32, 8, 128, False, False),
+            (bf16, 2, 200, 32, 8, 128, True, False),
+            (f32, 2, 37, 4, 2, 16, True, False),
+            (f32, 2, 70, 4, 2, 16, False, False)):
+        esz = 2 if dt == bf16 else 4
+        seg = (torch.from_numpy(packed_segments(b, s, seed=s)).to(dev)
+               if segmented else None)
+        pairs = causal_pairs(seg, b, s)
+        nb = b * s * (2 * hq + 2 * hkv) * d * esz
+        sets = []
+        for _ in range(copies(nb)):
+            q, k, v, do = (randn(b, s, hq, d, dtype=dt),
+                           randn(b, s, hkv, d, dtype=dt),
+                           randn(b, s, hkv, d, dtype=dt),
+                           randn(b, s, hq, d, dtype=dt))
+            dlse = randn(b, hq, s, dtype=f32)
+            out, lse = flash_attention_fwd_cuda(q, k, v, causal=True,
+                                                segment_ids=seg)
+            delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
+                     - dlse).contiguous()
+            sets.append((q, k, v, do, dlse, out, lse, delta))
+        tag = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal "
+               f"{'packed ' if segmented else ''}{str(dt)[6:]}")
+        seg_extra = {"segmented": segmented, "visible_pairs": pairs}
+        kw = dict(causal=True, segment_ids=seg)
+        # the library yardstick's mask on packed rows: causal and same
+        # document, dense (B, 1, S, S), made here so no timed call builds it
+        ar = torch.arange(s, device=dev)
+        seg_mask = (((ar[None, :] <= ar[:, None])[None]
+                     & (seg[:, :, None] == seg[:, None, :]))[:, None]
+                    if segmented else None)
+        q, k, v, do, dlse, out, lse, delta = sets[0]
+
+        # K2 with segment ids (forward), against the plain path
+        if segmented:
+            with reference_mode():
+                ref, ref_lse = flash_attention(q, k, v, causal=True,
+                                               return_lse=True,
+                                               segment_ids=seg)
+            torch.cuda.synchronize()
+            atol, rtol = tols(dt)
+            lse_tol = 1e-3 if dt == bf16 else 1e-5
+            err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+            ok = within(out, ref, atol, rtol) and lerr <= lse_tol
+            kfns = [lambda t=t: flash_attention_fwd_cuda(t[0], t[1], t[2],
+                                                         **kw) for t in sets]
+            with reference_mode():
+                plain_ms = time_ms(torch, [
+                    lambda t=t: flash_attention(t[0], t[1], t[2], **kw)
+                    for t in sets], budget_ms=100.0)
+            lfns = [lambda t=t: TF.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2),
+                t[2].transpose(1, 2), attn_mask=seg_mask, enable_gqa=True)
+                for t in sets]
+            lib_ms = time_ms(torch, lfns)
+            seg_extra["library_kernel"] = top_kernel(torch, lfns[0])
+            nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * esz \
+                + 4 * b * hq * s + 4 * b * s
+            bms, by = bound(nbytes, 4 * d * hq * pairs,
+                            BF16_FLOPS if dt == bf16 else F32_FLOPS)
+            record("flash_attention_fwd", tag, max(err, lerr),
+                   f"out atol {atol} + rtol {rtol}, lse {lse_tol}", ok, kfns,
+                   plain_ms, lib_ms, bms, by, False,
+                   note=SEGMENTED_LIBRARY_NOTE, extra=seg_extra)
+            del ref, ref_lse
+
+        # K5 / K6 against the plain backward on the same out / lse
+        dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        rq, rk, rv = flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                   dlse, **kw)
+        torch.cuda.synchronize()
+        with reference_mode():
+            plain_ms = time_ms(torch, [
+                lambda t=t: flash_attention_bwd_reference(
+                    t[0], t[1], t[2], t[5], t[6], t[3], t[4], **kw)
+                for t in sets], budget_ms=100.0)
+        # SDPA's backward alone: one untimed forward a set, then the
+        # backward is timed on the retained graph
+        graphs = []
+        for t in sets:
+            leaves = tuple(x.transpose(1, 2).detach().clone()
+                           .requires_grad_(True) for x in t[:3])
+            o = TF.scaled_dot_product_attention(
+                *leaves, attn_mask=seg_mask, is_causal=not segmented,
+                enable_gqa=True)
+            graphs.append((o, leaves, t[3].transpose(1, 2)))
+        lfns = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
+                                                retain_graph=True)
+                for g in graphs]
+        lib_ms = time_ms(torch, lfns)
+        bwd_extra = dict(seg_extra, library_kernel=top_kernel(torch, lfns[0]))
+        del graphs, lfns
+        io = 4 * b * hq * s * 2 + (4 * b * s if segmented else 0)
+        for name, got, want, flops_per_pair, out_elems in (
+                ("flash_attention_bwd_dq", (dq,), (rq,), 6, b * s * hq * d),
+                ("flash_attention_bwd_dkv", (dk, dv), (rk, rv), 8,
+                 2 * b * s * hkv * d)):
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            rels = [rel_l2(g, w) for g, w in zip(got, want)]
+            if dt == bf16:
+                tol = f"relative L2 per tensor <= {BWD_REL_TOL_BF16}"
+                ok = max(rels) <= BWD_REL_TOL_BF16
+            else:
+                atol, rtol = tols(dt)
+                tol = f"atol {atol} + rtol {rtol}"
+                ok = all(within(g, w, atol, rtol) for g, w in zip(got, want))
+            ok = ok and all(bool(torch.isfinite(g).all().item()) for g in got)
+            fn = (flash_attention_bwd_dq_cuda if name.endswith("dq")
+                  else flash_attention_bwd_dkv_cuda)
+            kfns = [lambda t=t, fn=fn: fn(t[0], t[1], t[2], t[3], t[6], t[7],
+                                          **kw) for t in sets]
+            nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d
+                      + out_elems) * esz + io
+            bms, by = bound(nbytes, flops_per_pair * d * hq * pairs,
+                            BF16_FLOPS if dt == bf16 else F32_FLOPS)
+            record(name, tag, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
+                   main, note=BWD_LIBRARY_NOTE + (
+                       "; " + SEGMENTED_LIBRARY_NOTE if segmented else ""),
+                   extra=dict(bwd_extra, rel_l2=rels,
+                              plain_note="flash_attention_bwd_reference: dq, "
+                                         "dk and dv together"))
+            if not segmented and dt == bf16 and s == TRAIN_SEQ:
+                results[name]["library_ms_unsegmented"] = lib_ms
+        del sets, q, k, v, do, dlse, out, lse, delta, dq, dk, dv, rq, rk, rv
+        del seg_mask
 
     # ---- K1-paged / K2-paged: the paged engine's decode tick (s = 1) and
     # suffix prefill (s > 1) over a pool of block_len-token blocks, bf16 at
@@ -1287,14 +1550,7 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
 def device_us(prof, n: int):
     """Device time per call (us) by kernel name from a profiler window of
     ``n`` calls."""
-    out = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        if t and ev.key and not ev.key.startswith(("aten::", "cuda")):
-            out[ev.key[:60]] = round(t / n, 3)
-    return out
+    return {k[:60]: round(t / n, 3) for t, k, _ in kernel_rows(prof)}
 
 
 def phase_profile(torch, model, qmodel):
@@ -1357,19 +1613,11 @@ def phase_profile(torch, model, qmodel):
                 eng.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows, host = [], []
-        total = 0.0
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = getattr(ev, "cuda_time_total", 0.0)
-            if t and ev.key and not ev.key.startswith(("aten::", "cuda")):
-                rows.append((t, ev.key, ev.count))
-                total += t
-            if ev.key and ev.key.startswith("aten::"):
-                host.append((ev.self_cpu_time_total, ev.key, ev.count))
-        rows.sort(reverse=True)
-        host.sort(reverse=True)
+        rows = kernel_rows(prof)
+        total = sum(t for t, _, _ in rows)
+        host = sorted((ev.self_cpu_time_total, ev.key, ev.count)
+                      for ev in prof.key_averages()
+                      if ev.key and ev.key.startswith("aten::"))[::-1]
         emit({"phase": phase, "ticks": 5, "active_slots": eng.num_active,
               "wall_ms": round(wall_ms, 3),
               "device_kernel_ms": round(total / 1e3, 3),
@@ -1382,10 +1630,290 @@ def phase_profile(torch, model, qmodel):
         del eng
 
 
+# -- phase 5 ------------------------------------------------------------------------
+
+def packed_batch(vocab: int, rows: int, seq: int, seed: int, lo: int = 3,
+                 hi: int = 8):
+    """The dryrun's packing recipe at any length: next-token ids, rows
+    packed with lo..hi documents (:func:`packed_segments`), positions
+    restarting at every document (numpy arrays)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (rows, seq + 1)).astype(np.int64)
+    seg = packed_segments(rows, seq, seed + 1, lo, hi)
+    pos = np.zeros_like(seg)
+    for r in range(rows):
+        for c in range(1, seq):
+            pos[r, c] = 0 if seg[r, c] != seg[r, c - 1] else pos[r, c - 1] + 1
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:],
+            "segment_ids": seg, "position_ids": pos}
+
+
+def _train_tiny(torch, model, batches, dev):
+    """Four steps of the tiny model's train step on ``dev``; (losses,
+    {name: float32 parameter on the CPU})."""
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    step = build_train_step(model, AdamW(1e-3, weight_decay=0.01))
+    losses = [float(step({k: torch.from_numpy(v).to(dev)
+                          for k, v in b.items()})) for b in batches]
+    return losses, {k: p.detach().float().cpu()
+                    for k, p in model.named_parameters()}
+
+
+# kernel-name fragments of each class in the training window
+STEP_CLASSES = (("attention (K2, K5, K6)", ("flash_attention", "bwd_dq_",
+                                            "bwd_dkv_")),
+                ("rms_norm (K3)", ("rms_norm",)),
+                ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")))
+
+
+def profile_step(torch, step, opt, batch, phase: str) -> None:
+    """torch.profiler over one train step: device time by kernel class and
+    name, the optimizer's share (``opt.apply`` under a profiler range, the
+    clip included), the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    apply = opt.apply
+
+    def traced_apply(*args, **kwargs):
+        with record_function("optimizer.apply"):
+            return apply(*args, **kwargs)
+
+    opt.apply = traced_apply
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(batch))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del opt.apply                   # the class's method again
+    rows = kernel_rows(prof)
+    total = sum(t for t, _, _ in rows)
+    classes = {name: 0.0 for name, _ in STEP_CLASSES}
+    classes["other (elementwise, reductions, copies)"] = 0.0
+    for t, k, _ in rows:
+        name = next((n for n, frags in STEP_CLASSES
+                     if any(f in k for f in frags)),
+                    "other (elementwise, reductions, copies)")
+        classes[name] += t
+    opt_us = sum(_device_time(ev) for ev in prof.key_averages()
+                 if ev.key == "optimizer.apply"
+                 and ev.device_type != torch.autograd.DeviceType.CUDA)
+    emit({"phase": phase, "wall_ms": round(wall_ms, 3),
+          "device_kernel_ms": round(total / 1e3, 3),
+          "device_busy_share": round(total / 1e3 / wall_ms, 4),
+          "optimizer_apply_device_ms": round(opt_us / 1e3, 3),
+          "by_class_ms": {k: round(v / 1e3, 3) for k, v in classes.items()},
+          "top": [{"kernel": k[:90], "ms": round(t / 1e3, 3), "calls": c}
+                  for t, k, c in rows[:20]]})
+
+
+def phase_training(torch, kernels, profile: bool = False):
+    """Phase 5: the single-GPU train step at the Llama-3-8B width, cut to
+    TRAIN_LAYERS layers, recompute on, packed batches."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama3_8b_config,
+                                         tiny_llama_config)
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS, recompute=True)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in packed_batch(
+        cfg.vocab_size, TRAIN_ROWS, TRAIN_SEQ, seed=5).items()}
+    micro = {k: v[:TRAIN_ROWS // TRAIN_ACCUM] for k, v in batch.items()}
+
+    # (a) step-1 gradients of one micro-batch: kernel path, plain path and
+    # the float32 truth (the same weights in float32 on the plain path);
+    # the truth first, then each path's error summed tensor by tensor
+    def grads(m):
+        params = [p for p in m.parameters()]
+        loss = m.compute_loss(**micro)
+        return float(loss.detach()), torch.autograd.grad(loss, params)
+
+    model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                               device=dev)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    with reference_mode():
+        loss32, truth = grads(model32)
+    del model32
+    torch.cuda.empty_cache()
+    truth_sq = [float(t.pow(2).sum()) for t in truth]
+
+    def errors(gs):
+        return [float((g.float() - t).pow(2).sum())
+                for g, t in zip(gs, truth)]
+
+    loss_k, g = grads(model)
+    err_k = errors(g)
+    del g
+    with reference_mode():
+        loss_p, g = grads(model)
+    err_p = errors(g)
+    del g, truth
+    torch.cuda.empty_cache()
+    names = [n for n, _ in model.named_parameters()]
+    rel_k = math.sqrt(sum(err_k) / sum(truth_sq))
+    rel_p = math.sqrt(sum(err_p) / sum(truth_sq))
+    per_k = [math.sqrt(e / max(t, 1e-30)) for e, t in zip(err_k, truth_sq)]
+    per_p = [math.sqrt(e / max(t, 1e-30)) for e, t in zip(err_p, truth_sq)]
+    worst = max(range(len(names)), key=lambda i: per_k[i] / max(per_p[i],
+                                                                1e-30))
+    tol = 1.2 * rel_p
+    emit({"phase": "training_grads", "config": "llama3_8b",
+          "layers": TRAIN_LAYERS, "params": n_params,
+          "init_s": round(init_s, 3), "micro_batch": list(
+              micro["input_ids"].shape),
+          "documents": len(torch_counts(micro["segment_ids"])),
+          "loss_kernel": loss_k, "loss_plain": loss_p, "loss_f32": loss32,
+          "grad_rel_l2_kernel_vs_f32": rel_k,
+          "grad_rel_l2_plain_vs_f32": rel_p, "tol_kernel_vs_f32": tol,
+          "max_tensor_rel_l2_kernel": max(per_k),
+          "max_tensor_rel_l2_plain": max(per_p),
+          "worst_tensor_ratio": {"name": names[worst],
+                                 "kernel": per_k[worst],
+                                 "plain": per_p[worst]}})
+    check(all(math.isfinite(x) for x in (loss_k, loss_p, rel_k)),
+          "training gradients are not finite")
+    check(rel_k <= tol,
+          f"kernel-path gradients are {rel_k} from the float32 truth, the "
+          f"plain path's {rel_p} (tolerance {tol})")
+    # and tensor by tensor, so a wrong dq or dk/dv of one projection cannot
+    # hide under the embedding's and LM head's share of the sum
+    bad = {names[i]: (per_k[i], per_p[i]) for i in range(len(names))
+           if per_k[i] > 1.2 * per_p[i] + GRAD_TENSOR_FLOOR}
+    check(not bad, f"gradients beyond 1.2x the plain path's error + "
+                   f"{GRAD_TENSOR_FLOOR}: {bad}")
+
+    # (b) + (c): TRAIN_STEPS steps on the packed batch, every launch and
+    # route counter reset just before and read just after
+    opt = AdamW(lr.LinearWarmup(3e-4, 2), beta2=0.95, epsilon=1e-5,
+                weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = build_train_step(model, opt, grad_accum_steps=TRAIN_ACCUM)
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))      # float() synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    state_bytes = sum(t.numel() * t.element_size()
+                      for k, v in opt.state_dict().items() if k != "step"
+                      for t in v.values())
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    pairs = causal_pairs(batch["segment_ids"], TRAIN_ROWS, TRAIN_SEQ)
+    matmul_params = n_params - cfg.vocab_size * cfg.hidden_size \
+        - sum(p.numel() for n, p in model.named_parameters()
+              if n.endswith("norm.weight"))
+    model_flops = (6 * matmul_params * tokens
+                   + 12 * cfg.head_dim * cfg.num_attention_heads * pairs
+                   * TRAIN_LAYERS)
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    emit({"phase": "training", "config": "llama3_8b",
+          "layers": TRAIN_LAYERS, "recompute": True, "params": n_params,
+          "batch": [TRAIN_ROWS, TRAIN_SEQ], "grad_accum_steps": TRAIN_ACCUM,
+          "documents": len(torch_counts(batch["segment_ids"])),
+          "optimizer": "AdamW(LinearWarmup(3e-4, 2), beta2=0.95, eps=1e-5, "
+                       "wd=0.1, ClipGradByGlobalNorm(1.0))",
+          "losses": losses, "step_ms": step_ms, "step_ms_median": steady,
+          "tokens_per_s": tokens / (steady / 1e3),
+          "model_flops_per_step": model_flops,
+          "model_flops_share_of_989T": model_flops / (steady / 1e3)
+          / BF16_FLOPS,
+          "optimizer_state_bytes": state_bytes,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches, "routes": routes})
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0],
+          f"training did not lower the loss: {losses}")
+    per_step = {"flash_attention_fwd": 2 * TRAIN_ACCUM * TRAIN_LAYERS,
+                "flash_attention_bwd_dq": TRAIN_ACCUM * TRAIN_LAYERS,
+                "flash_attention_bwd_dkv": TRAIN_ACCUM * TRAIN_LAYERS}
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+              f"steps, expected {n} a step")
+    check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
+    plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
+    check(not plain, f"plain routes taken on the card: {plain}")
+    for name in TRAIN_KERNELS:
+        kernels[name]["launches"] = launches[name]
+    if profile:
+        profile_step(torch, step, opt, batch, "profile_training")
+    del step, opt, model, batch, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the tiny float32 model: 4 steps on the card (kernels) and on the
+    # CPU (plain versions) from the same weights, unpacked and packed
+    # batches (the dryrun's (8, 17) ids).  Losses: rtol 1e-5 (float32 sum
+    # order).  Parameters: the difference's L2 norm within 1e-3 of the 4
+    # steps' update norm -- Adam normalises each element by its own RMS,
+    # so where two steps' gradients nearly cancel, sum-order noise reaches
+    # single elements at a few percent of lr, while a wrong kernel moves
+    # the whole update
+    tiny = tiny_llama_config(recompute=True)
+    base = LlamaForCausalLM(tiny, device="cpu", seed=3)
+    init = {k: p.detach().clone() for k, p in base.named_parameters()}
+    for packed in (False, True):
+        rng = np.random.RandomState(11)
+        batches = []
+        for i in range(4):
+            if packed:
+                batches.append(packed_batch(tiny.vocab_size, 8, 16, seed=20 + i,
+                                            lo=1, hi=3))
+            else:
+                ids = rng.randint(0, tiny.vocab_size, (8, 17))
+                batches.append({"input_ids": ids[:, :-1],
+                                "labels": ids[:, 1:]})
+        ops.reset_launch_counts()
+        card_l, card_p = _train_tiny(torch, copy.deepcopy(base).to(dev),
+                                     batches, dev)
+        launches = ops.launch_counts()
+        cpu_l, cpu_p = _train_tiny(torch, copy.deepcopy(base), batches,
+                                   torch.device("cpu"))
+        diff = math.sqrt(sum(float((card_p[k] - cpu_p[k]).pow(2).sum())
+                             for k in cpu_p))
+        upd = math.sqrt(sum(float((cpu_p[k] - init[k]).pow(2).sum())
+                            for k in cpu_p))
+        max_abs = max(float((card_p[k] - cpu_p[k]).abs().max())
+                      for k in cpu_p)
+        loss_ok = all(abs(a - b) <= 1e-5 * abs(b)
+                      for a, b in zip(card_l, cpu_l))
+        emit({"phase": "training_tiny_f32", "packed": packed,
+              "losses_card": card_l, "losses_cpu": cpu_l,
+              "param_diff_l2": diff, "update_l2": upd,
+              "param_max_abs_diff": max_abs,
+              "launches": {k: launches[k] for k in (
+                  "flash_attention_fwd", *TRAIN_KERNELS)}})
+        check(loss_ok, f"tiny f32 losses differ card vs cpu: {card_l} vs "
+                       f"{cpu_l}")
+        check(diff <= 1e-3 * upd,
+              f"tiny f32 parameters differ card vs cpu: {diff} against an "
+              f"update of {upd}")
+        check(all(launches[k] > 0 for k in TRAIN_KERNELS),
+              "the tiny train step ran no backward kernel")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler window after phase 4")
+                    help="add torch.profiler windows after phases 4 and 5")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1421,6 +1949,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if args.profile:
         phase_profile(torch, model, qmodel)
+    del model, qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_training(torch, kernels, profile=args.profile)
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)
                       for n, r in kernels.items()]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,

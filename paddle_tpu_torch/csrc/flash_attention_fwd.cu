@@ -6,7 +6,11 @@
 // out (B, Sq, Hq, D); lse (B, Hq, Sq).  Causal masking is bottom-right
 // aligned: query i sees keys j <= i + (Skv - Sq).  GQA: kv head = h / G.  A
 // row with every key masked gives out = 0 and lse = -1e30.  Any Sq and Skv:
-// the ragged edges are masked here.
+// the ragged edges are masked here.  Packed documents: optional int32
+// segment ids seg_q (B, Sq) / seg_kv (B, Skv) (_mask_for :115); query i
+// sees key j only where the two ids are equal.  SEG instantiates that test
+// (the tensor-core kernel stages each key tile's ids in shared memory);
+// the unsegmented builds carry none of it.
 //
 // Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s),
 // the FLOPs at prefill shapes.  Common to both kernels below: one CTA per
@@ -55,7 +59,15 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using ptt::cp_async16_zfill;
+using ptt::cp_async_commit_wait_all;
+using ptt::ldmatrix_x4_trans;
+using ptt::mma_bf16;
+using ptt::pack_bf16;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
@@ -76,7 +88,7 @@ constexpr size_t smem_floats() {
 // thread).  PAGED: pos/table addressing (see the top), else pos, table,
 // max_blocks and block_len are unused.  KV: float, or int8_t for the int8
 // pool (PAGED only), dequantized per key with its block's scales.
-template <int D, bool PAGED, typename KV = float>
+template <int D, bool PAGED, typename KV = float, bool SEG = false>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_fwd_kernel(const float* __restrict__ q,
                            const KV* __restrict__ k,
@@ -88,7 +100,9 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
                            const int* __restrict__ table, int max_blocks,
                            int block_len,
                            const float* __restrict__ k_scale,
-                           const float* __restrict__ v_scale) {
+                           const float* __restrict__ v_scale,
+                           const int* __restrict__ seg_q,
+                           const int* __restrict__ seg_kv) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   static_assert(!INT8 || PAGED, "the int8 cache is paged only");
   constexpr int NQ = (D + 63) / 64;   // 64-wide output slabs per thread
@@ -116,8 +130,11 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
 
   float acc[4][NQ][4];
   float m_i[4], l_i[4];
+  int sq_i[4];   // segment id of each row (SEG)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + tr * 4 + i;
+    sq_i[i] = (SEG && qr < Sq) ? seg_q[(size_t)b * Sq + qr] : 0;
     m_i[i] = kNegInf;
     l_i[i] = 0.f;
 #pragma unroll
@@ -179,8 +196,10 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kc = kv0 + tc * 4 + j;
-        const bool keep =
+        bool keep =
             qr < Sq && kc < kv_len && (!causal || kc <= qr + offset);
+        if constexpr (SEG)
+          keep = keep && sq_i[i] == seg_kv[(size_t)b * Skv + kc];
         s[i][j] = keep ? s[i][j] : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -270,41 +289,6 @@ constexpr int kMmaThreads = 128;
 constexpr int kMmaBQ = 64;
 constexpr int kMmaBK = 64;
 
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8) * sizeof(__nv_bfloat16);
@@ -331,7 +315,7 @@ __device__ __forceinline__ void int8x16_to_bf16(const uint4 raw,
 
 // KV: __nv_bfloat16, or int8_t for the int8 pool (PAGED only; see the
 // top) with its scales k_scale / v_scale.
-template <int D, bool PAGED, typename KV = __nv_bfloat16>
+template <int D, bool PAGED, typename KV = __nv_bfloat16, bool SEG = false>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const KV* __restrict__ k,
@@ -343,9 +327,12 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const int* __restrict__ table, int max_blocks,
                                int block_len,
                                const float* __restrict__ k_scale,
-                               const float* __restrict__ v_scale) {
+                               const float* __restrict__ v_scale,
+                               const int* __restrict__ seg_q,
+                               const int* __restrict__ seg_kv) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   static_assert(!INT8 || PAGED, "the int8 cache is paged only");
+  static_assert(!SEG || !PAGED, "segment ids are for fresh K/V only");
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int kStride = D + 8;       // padded row, in elements
   constexpr int kPieces = D / 8;       // 16-byte pieces of one row
@@ -355,6 +342,7 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + kMmaBQ * kStride;
   __nv_bfloat16* Vs = Ks + kMmaBK * kStride;
+  __shared__ int seg_s[kMmaBK];   // the key tile's segment ids
 
   const int q0 = blockIdx.x * kMmaBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -396,6 +384,8 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
   const int row0 = q0 + wr + g, row1 = row0 + 8;
   const int kv_hi = causal ? min(kv_len, q0 + kMmaBQ + offset) : kv_len;
+  const int sq0 = SEG && row0 < Sq ? seg_q[(size_t)b * Sq + row0] : 0;
+  const int sq1 = SEG && row1 < Sq ? seg_q[(size_t)b * Sq + row1] : 0;
 
   for (int kv0 = 0; kv0 < kv_hi; kv0 += kMmaBK) {
     __syncthreads();   // every warp is done with the previous tile
@@ -446,6 +436,9 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         cp_async16_zfill(Ks + j * kStride + pc * 8, k + gofs, kc < kv_len);
         cp_async16_zfill(Vs + j * kStride + pc * 8, v + gofs, kc < kv_len);
       }
+      if (SEG && tid < kMmaBK)
+        seg_s[tid] = kv0 + tid < kv_len ? seg_kv[(size_t)b * Skv + kv0 + tid]
+                                        : 0;
       cp_async_commit_wait_all();
     }
     __syncthreads();
@@ -472,8 +465,13 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = kv0 + nb * 8 + 2 * c + e;
-        const bool k0 = row0 < Sq && col < kv_len && (!causal || col <= row0 + offset);
-        const bool k1 = row1 < Sq && col < kv_len && (!causal || col <= row1 + offset);
+        bool k0 = row0 < Sq && col < kv_len && (!causal || col <= row0 + offset);
+        bool k1 = row1 < Sq && col < kv_len && (!causal || col <= row1 + offset);
+        if constexpr (SEG) {
+          const int sk = seg_s[nb * 8 + 2 * c + e];
+          k0 = k0 && sk == sq0;
+          k1 = k1 && sk == sq1;
+        }
         s[nb][e] = k0 ? s[nb][e] * k_mul : kNegInf;
         s[nb][2 + e] = k1 ? s[nb][2 + e] * k_mul : kNegInf;
         mx0 = fmaxf(mx0, s[nb][e]);
@@ -567,16 +565,18 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, bool PAGED, typename KV = __nv_bfloat16>
+template <int D, bool PAGED, typename KV = __nv_bfloat16, bool SEG = false>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int Sq, int Skv, int Hq,
                        int Hkv, float scale, int causal, cudaStream_t st,
                        const int* pos = nullptr, const int* table = nullptr,
                        int max_blocks = 0, int block_len = 0,
                        const float* k_scale = nullptr,
-                       const float* v_scale = nullptr) {
+                       const float* v_scale = nullptr,
+                       const int* seg_q = nullptr,
+                       const int* seg_kv = nullptr) {
   constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = flash_attention_fwd_mma_kernel<D, PAGED, KV>;
+  auto kernel = flash_attention_fwd_mma_kernel<D, PAGED, KV, SEG>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -585,20 +585,22 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<__nv_bfloat16*>(out),
       lse, Sq, Skv, Hq, Hkv, scale, causal, pos, table, max_blocks,
-      block_len, k_scale, v_scale);
+      block_len, k_scale, v_scale, seg_q, seg_kv);
   return cudaSuccess;
 }
 
-template <int D, bool PAGED, typename KV = float>
+template <int D, bool PAGED, typename KV = float, bool SEG = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
                    float scale, int causal, cudaStream_t st,
                    const int* pos = nullptr, const int* table = nullptr,
                    int max_blocks = 0, int block_len = 0,
                    const float* k_scale = nullptr,
-                   const float* v_scale = nullptr) {
+                   const float* v_scale = nullptr,
+                   const int* seg_q = nullptr,
+                   const int* seg_kv = nullptr) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_attention_fwd_kernel<D, PAGED, KV>;
+  auto kernel = flash_attention_fwd_kernel<D, PAGED, KV, SEG>;
   // above 48 KB only after opting in (per device, so on every launch)
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -608,7 +610,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<float*>(out), lse, Sq, Skv,
       Hq, Hkv, scale, causal, pos, table, max_blocks, block_len, k_scale,
-      v_scale);
+      v_scale, seg_q, seg_kv);
   return cudaSuccess;
 }
 
@@ -616,20 +618,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = bfloat16, 1 = float32.  bfloat16 at D = 128 runs the
 // tensor-core kernel, float32 at D = 16 the CUDA-core one; any other pair
-// returns cudaErrorInvalidValue.  q, k, v 16-byte aligned.  Returns the
-// launch's error (cudaGetLastError()).
+// returns cudaErrorInvalidValue.  q, k, v 16-byte aligned.  seg_q (B, Sq)
+// and seg_kv (B, Skv): int32 packed-document ids, or both null; query i
+// sees key j only where seg_q[b, i] == seg_kv[b, j] (and causally).
+// Returns the launch's error (cudaGetLastError()).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
+                                   const void* seg_q, const void* seg_kv,
                                    int B, int Sq, int Skv, int Hq, int Hkv,
                                    int D, float scale, int causal, int dtype,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (Hkv < 1 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* skv = static_cast<const int*>(seg_kv);
+  if (Hkv < 1 || Hq % Hkv != 0 || (sq == nullptr) != (skv == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // segment ids select their own instantiation: the unsegmented one
+  // carries no segment test
   cudaError_t e;
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && D == 128 && sq != nullptr)
+    e = launch_mma<128, false, __nv_bfloat16, true>(
+        q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal, st, nullptr,
+        nullptr, 0, 0, nullptr, nullptr, sq, skv);
+  else if (dtype == 0 && D == 128)
     e = launch_mma<128, false>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale,
                                causal, st);
+  else if (dtype == 1 && D == 16 && sq != nullptr)
+    e = launch<16, false, float, true>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv,
+                                       scale, causal, st, nullptr, nullptr, 0,
+                                       0, nullptr, nullptr, sq, skv);
   else if (dtype == 1 && D == 16)
     e = launch<16, false>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
                           st);

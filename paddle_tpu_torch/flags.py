@@ -1,6 +1,7 @@
 """The flags this slice of the port reads (mirrors ``paddle_tpu/flags.py``).
 
-Only the serving defaults and the flash-decode chunk size are kept.  The
+Only the serving defaults, the flash-decode chunk size and the train
+step's ``check_nan_inf`` are kept.  The
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
@@ -34,6 +35,9 @@ _DEFAULTS: Dict[str, Any] = {
     "serving_int8_weights": False,
     "serving_chunked_prefill": False,
     "serving_spec_decode": False,
+    # training (paddle_tpu/flags.py check_nan_inf): the train step raises
+    # FloatingPointError when a gradient is not finite
+    "check_nan_inf": False,
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)

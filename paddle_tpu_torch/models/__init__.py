@@ -1,12 +1,16 @@
 """Models of the port (mirrors ``paddle_tpu/models``)."""
 
-from .convert import load_jax_quantized_state_dict, load_jax_state_dict
+from .convert import (load_jax_optimizer_state, load_jax_quantized_state_dict,
+                      load_jax_state_dict)
 from .generation import init_kv_cache, sample_tokens
-from .llama import (LlamaConfig, LlamaForCausalLM, config_from,
-                    llama3_8b_config, tiny_llama_config)
+from .llama import (LlamaConfig, LlamaForCausalLM, causal_lm_loss,
+                    config_from, llama3_8b_config, mask_boundary_labels,
+                    tiny_llama_config)
 from .quantized import QuantizedForDecode, quantize_for_decode
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "QuantizedForDecode",
-           "config_from", "init_kv_cache", "llama3_8b_config",
+           "causal_lm_loss", "config_from", "init_kv_cache",
+           "llama3_8b_config", "load_jax_optimizer_state",
            "load_jax_quantized_state_dict", "load_jax_state_dict",
-           "quantize_for_decode", "sample_tokens", "tiny_llama_config"]
+           "mask_boundary_labels", "quantize_for_decode", "sample_tokens",
+           "tiny_llama_config"]

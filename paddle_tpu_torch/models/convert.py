@@ -7,7 +7,10 @@ as ``model.embed_tokens``, ``model.layers.{i}.self_attn.q_proj``,
 (``(in, out)`` projections), so the bridge is a checked copy by name.
 :func:`load_jax_quantized_state_dict` does the same for the reference's
 ``QuantizedForDecode.state_dict()`` (``{"fp", "qw", "qs"}``) into the
-port's ``models/quantized.py`` wrapper.
+port's ``models/quantized.py`` wrapper, and
+:func:`load_jax_optimizer_state` carries a reference optimizer state
+(``opt.init`` / the train step's ``opt_state``) into the port's optimizer,
+so a run started in JAX resumes in the port.
 """
 
 from __future__ import annotations
@@ -49,6 +52,50 @@ def load_jax_state_dict(model: torch.nn.Module, arrays: Mapping[str, object]
             dst.copy_(torch.from_numpy(np.array(a, copy=True)).to(
                 device=dst.device, dtype=dst.dtype))
     return model
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.type not in _NATIVE:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def load_jax_optimizer_state(optimizer, opt_state: Mapping[str, object]):
+    """Set ``optimizer``'s state from the reference's ``opt_state``
+    (``{"step": int array, "master": {name: array}, <slot>: {name:
+    array}}``, numpy leaves or anything ``np.asarray`` takes; JAX's
+    single-device layout).  The optimizer must be bound to its module
+    (``Optimizer(parameters=model)``, or ``build_train_step``): every
+    trainable parameter must have its slots, the float32 master weights go
+    to the bf16/f16 parameters, and the tensors land on each parameter's
+    device as float32.  Raises ``KeyError`` on a name or slot that does
+    not match.  Returns the optimizer."""
+    params = optimizer.trainable()
+    slots = tuple(optimizer._slot_names())
+    want = {"step", *slots} | ({"master"} if "master" in opt_state else set())
+    if set(opt_state) != want:
+        raise KeyError(f"optimizer state keys {sorted(opt_state)} != "
+                       f"{sorted(want)}")
+    state = {"step": int(np.asarray(opt_state["step"]))}
+    for key in (*slots, "master") if "master" in opt_state else slots:
+        src = opt_state[key]
+        names = set(params) if key != "master" else {
+            k for k, p in params.items()
+            if p.dtype in (torch.bfloat16, torch.float16)}
+        if set(src) != names:
+            raise KeyError(f"{key}: names do not match: missing "
+                           f"{sorted(names - set(src))}, unexpected "
+                           f"{sorted(set(src) - names)}")
+        state[key] = {}
+        for k, a in src.items():
+            t = _tensor(a, params[k].device).float()
+            if tuple(t.shape) != tuple(params[k].shape):
+                raise ValueError(f"{key}.{k}: shape {tuple(t.shape)} != "
+                                 f"{tuple(params[k].shape)}")
+            state[key][k] = t
+    optimizer.set_state_dict(state)
+    return optimizer
 
 
 def load_jax_quantized_state_dict(qmodel: torch.nn.Module,

@@ -19,17 +19,24 @@ through one seam, ``nn/quant.py::linear``: ``torch.matmul`` for a plain
 weight (as the reference leaves them to XLA), ``weight_only_linear`` for
 the int8 weights of ``models/quantized.py`` (kernel K4 at decode rows).
 
-Training features of the reference (recompute, context parallelism,
-packed-document segment ids) belong to a later slice (ROADMAP A10).
+Training: ``forward`` / ``compute_loss`` take packed-document
+``segment_ids`` (masked inside K2 and its backward K5/K6 on the card);
+``config.recompute`` checkpoints each decoder block under
+``self.training`` (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``).  On one GPU ``context_parallel`` "ring" / "ulysses"
+run plain flash attention, as the reference does without a ``sep`` axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as TF
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from .. import default_device
 from ..nn import functional as F
@@ -39,8 +46,8 @@ from ..ops import (build_rope_cache, cached_decode_attention,
                    flash_attention, fused_rope)
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "llama3_8b_config",
-           "tiny_llama_config"]
+           "LlamaModel", "LlamaForCausalLM", "causal_lm_loss",
+           "llama3_8b_config", "mask_boundary_labels", "tiny_llama_config"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -60,11 +67,26 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
     dtype: str = "float32"
+    recompute: bool = False
+    # remat policy when recompute=True: "full" (save only block
+    # boundaries) or "dots" (save the matmul outputs, recompute the rest)
+    recompute_policy: str = "full"
+    # "ring" | "ulysses" | "gspmd": on one GPU all three run plain flash
+    # attention (context parallelism across cards is ROADMAP A10)
+    context_parallel: str = "ring"
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
                              f"{self.dtype!r}")
+        if self.context_parallel not in ("ring", "ulysses", "gspmd"):
+            raise ValueError(
+                f"context_parallel must be 'ring', 'ulysses' or 'gspmd', "
+                f"got {self.context_parallel!r}")
+        if self.recompute_policy not in ("full", "dots"):
+            raise ValueError(
+                f"recompute_policy must be 'full' or 'dots', "
+                f"got {self.recompute_policy!r}")
 
     @property
     def head_dim(self) -> int:
@@ -229,10 +251,10 @@ class LlamaAttention(nn.Module):
         q, k = fused_rope(q, k, cos, sin, position_ids)
         return q, k, v
 
-    def forward(self, x, rope_cache, position_ids=None):
+    def forward(self, x, rope_cache, position_ids=None, segment_ids=None):
         b, s, _ = x.shape
         q, k, v = self._qkv(x, rope_cache, position_ids)
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids)
         return linear(out.reshape(b, s, -1), self.o_proj)
 
     def decode(self, x, rope_cache, pos, cache, idx: int,
@@ -384,9 +406,9 @@ class LlamaDecoderLayer(nn.Module):
             device=device)
         self.mlp = LlamaMLP(c, device)
 
-    def forward(self, x, rope_cache, position_ids=None):
+    def forward(self, x, rope_cache, position_ids=None, segment_ids=None):
         x = x + self.self_attn(self.input_layernorm(x), rope_cache,
-                               position_ids)
+                               position_ids, segment_ids)
         return x + self.mlp(self.post_attention_layernorm(x))
 
     def decode(self, x, rope_cache, pos, cache, idx: int,
@@ -413,12 +435,25 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_cos", cos)
         self.register_buffer("rope_sin", sin)
 
-    def forward(self, input_ids, position_ids=None):
-        x = embedding(self.embed_tokens, input_ids.long(),
-                      self.config.torch_dtype)
+    def forward(self, input_ids, position_ids=None, segment_ids=None):
+        """``segment_ids``: optional (B, S) packed-document ids (several
+        documents packed per row, no attention across them); pass matching
+        ``position_ids`` that restart per document for the standard
+        packing recipe.  With ``config.recompute`` and in training mode,
+        each block runs under ``torch.utils.checkpoint``: its activations
+        are recomputed in the backward (``recompute_policy`` "dots" keeps
+        the matmul outputs)."""
+        c = self.config
+        x = embedding(self.embed_tokens, input_ids.long(), c.torch_dtype)
         rope = (self.rope_cos, self.rope_sin)
+        remat = c.recompute and self.training and torch.is_grad_enabled()
         for block in self.layers:
-            x = block(x, rope, position_ids)
+            if remat:
+                x = torch_checkpoint.checkpoint(
+                    block, x, rope, position_ids, segment_ids,
+                    use_reentrant=False, **_remat_kwargs(c.recompute_policy))
+            else:
+                x = block(x, rope, position_ids, segment_ids)
         return self.norm(x)
 
     def decode(self, input_ids, cache, pos, block_tables=None):
@@ -434,6 +469,49 @@ class LlamaModel(nn.Module):
         for i, block in enumerate(self.layers):
             x, cache = block.decode(x, rope, pos, cache, i, block_tables)
         return self.norm(x), cache
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of 2-d matrix products (the
+    projections; the reference's ``dots_with_no_batch_dims_saveable``),
+    recompute everything else."""
+    P = torch_checkpoint.CheckpointPolicy
+    return P.MUST_SAVE if op in _MATMULS else P.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(policy: str) -> dict:
+    if policy == "dots":
+        return {"context_fn": functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_matmuls)}
+    return {}
+
+
+def mask_boundary_labels(labels, segment_ids):
+    """Drop labels at packed-document boundaries (the reference's
+    ``mask_boundary_labels``, :532): the position whose next token opens
+    another document is a packing artifact, not a target (-1 = ignored by
+    :func:`causal_lm_loss`)."""
+    boundary = segment_ids[:, :-1] != segment_ids[:, 1:]
+    boundary = TF.pad(boundary, (0, 1))
+    return torch.where(boundary, torch.full_like(labels, -1), labels)
+
+
+def causal_lm_loss(logits, labels):
+    """Mean next-token cross entropy in float32 (the reference's
+    ``causal_lm_loss``, :540): the max is detached, labels < 0 are
+    ignored, the mean is over the valid labels (at least 1)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    labels = labels.to(logits.device).long()
+    gold = shifted.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - gold) * valid).sum() / valid.sum().clamp_min(1.0)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -478,8 +556,18 @@ class LlamaForCausalLM(nn.Module):
             return hidden @ w.t()
         return linear(hidden, self.lm_head)
 
-    def forward(self, input_ids, position_ids=None):
-        return self.logits(self.model(input_ids, position_ids))
+    def forward(self, input_ids, position_ids=None, segment_ids=None):
+        return self.logits(self.model(input_ids, position_ids, segment_ids))
+
+    def compute_loss(self, input_ids, labels, position_ids=None,
+                     segment_ids=None):
+        """The train step's loss (the reference's ``compute_loss``, :577):
+        with ``segment_ids`` the labels at document boundaries are masked
+        first (:func:`mask_boundary_labels`)."""
+        if segment_ids is not None:
+            labels = mask_boundary_labels(labels, segment_ids)
+        return causal_lm_loss(
+            self.forward(input_ids, position_ids, segment_ids), labels)
 
     def decode_step(self, input_ids, cache, pos, block_tables=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:

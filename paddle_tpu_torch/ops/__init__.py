@@ -1,8 +1,9 @@
 """Operators of the port (mirrors ``paddle_tpu/ops``)."""
 
-from .attention import (cache_mask, cached_decode_attention,
+from .attention import (FlashAttention, cache_mask, cached_decode_attention,
                         cached_decode_attention_reference, flash_attention,
-                        flash_attention_reference)
+                        flash_attention_bwd_reference,
+                        flash_attention_reference, segment_mask)
 from .cuda.decode_attention import (decode_attention_cuda,
                                    decode_attention_int8_cuda,
                                    decode_attention_paged_cuda,
@@ -10,6 +11,8 @@ from .cuda.decode_attention import (decode_attention_cuda,
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
                                    flash_attention_fwd_paged_cuda,
                                    flash_attention_fwd_paged_int8_cuda)
+from .cuda.flash_attention_bwd import (flash_attention_bwd_dkv_cuda,
+                                       flash_attention_bwd_dq_cuda)
 from .cuda.int8_matmul import int8_matmul_cuda, int8_matmul_reference
 from .norms import rms_norm, rms_norm_reference
 from .rope import apply_rope, build_rope_cache, fused_rope
@@ -27,6 +30,8 @@ KERNELS = {
     "decode_attention_paged_int8": decode_attention_paged_int8_cuda,
     "flash_attention_fwd_paged_int8": flash_attention_fwd_paged_int8_cuda,
     "int8_matmul": int8_matmul_cuda,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq_cuda,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv_cuda,
 }
 
 
@@ -39,13 +44,15 @@ def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "apply_rope", "build_rope_cache", "cache_mask",
+__all__ = ["FlashAttention", "KERNELS", "apply_rope", "build_rope_cache", "cache_mask",
            "cached_decode_attention", "cached_decode_attention_reference",
            "decode_attention_cuda", "decode_attention_int8_cuda",
            "decode_attention_paged_cuda", "decode_attention_paged_int8_cuda",
-           "flash_attention", "flash_attention_fwd_cuda",
+           "flash_attention", "flash_attention_bwd_dkv_cuda",
+           "flash_attention_bwd_dq_cuda", "flash_attention_bwd_reference",
+           "flash_attention_fwd_cuda",
            "flash_attention_fwd_paged_cuda",
            "flash_attention_fwd_paged_int8_cuda", "flash_attention_reference",
            "fused_rope", "int8_matmul_cuda", "int8_matmul_reference",
            "launch_counts", "reset_launch_counts", "rms_norm",
-           "rms_norm_reference", "rms_norm_triton"]
+           "rms_norm_reference", "rms_norm_triton", "segment_mask"]

@@ -11,19 +11,20 @@ device of the tensor it is given, and never falls back:
 The one way to run a plain version on CUDA tensors is to enter
 :func:`reference_mode` explicitly — ``chip_smoke.py`` does so to hold each
 kernel against its plain version on the card.  Nothing enters it on its
-own.
+own.  The mode is process-wide, not per thread: autograd runs the backward
+of CUDA tensors (and with it the recomputation of checkpointed blocks) on
+its own device threads, which must route as the caller does.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import threading
 from typing import Dict, Tuple
 
 import torch
 
-_STATE = threading.local()
+_reference = False
 
 # (op, path) -> dispatch decisions; the JAX package counts the same into
 # its metrics registry as ``ops.kernel_path{op=..., path=...}``
@@ -34,16 +35,17 @@ kernel_paths: Dict[Tuple[str, str], int] = collections.Counter()
 def reference_mode():
     """Route CUDA tensors to the plain PyTorch versions while open.  For
     A/B checks of a kernel against its plain version on the card only."""
-    prev = getattr(_STATE, "reference", False)
-    _STATE.reference = True
+    global _reference
+    prev = _reference
+    _reference = True
     try:
         yield
     finally:
-        _STATE.reference = prev
+        _reference = prev
 
 
 def in_reference_mode() -> bool:
-    return getattr(_STATE, "reference", False)
+    return _reference
 
 
 def use_kernel(x: torch.Tensor) -> bool:

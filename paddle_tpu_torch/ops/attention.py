@@ -5,8 +5,11 @@ Layout as in the reference: ``(batch, seq, heads, head_dim)``; GQA passes
 fewer KV heads than query heads.  Two entries:
 
   * :func:`flash_attention` — blocked attention over fresh Q/K/V (the
-    wave-prefill path at ``pos == 0``); kernel K2
-    (``ops/cuda/flash_attention.py``);
+    wave-prefill path at ``pos == 0`` and every training forward), with
+    packed-document segment ids; kernel K2 forward
+    (``ops/cuda/flash_attention.py``) and, under autograd, K5/K6 backward
+    (``ops/cuda/flash_attention_bwd.py``) through :class:`FlashAttention`,
+    the counterpart of the reference's ``custom_vjp`` (``_flash``);
   * :func:`cached_decode_attention` — attention of new tokens over a
     pre-allocated cache: contiguous (every decode tick of the default
     engine; kernel K1, ``ops/cuda/decode_attention.py``) or the paged pool
@@ -35,6 +38,8 @@ from .cuda.decode_attention import (decode_attention_cuda,
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
                                    flash_attention_fwd_paged_cuda,
                                    flash_attention_fwd_paged_int8_cuda)
+from .cuda.flash_attention_bwd import (flash_attention_bwd_dkv_cuda,
+                                       flash_attention_bwd_dq_cuda)
 
 NEG_INF = -1e30
 
@@ -49,14 +54,17 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
                               scale: Optional[float] = None,
-                              return_lse: bool = True):
+                              return_lse: bool = True, segment_ids=None,
+                              kv_segment_ids=None):
     """Stable attention in float32 — the plain version of kernel K2.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0.
     ``attn_mask``: bool (True = keep) or additive float mask broadcastable
     to (B, Hq, Sq, Skv).  Causal masking is bottom-right aligned
-    (query i sees keys j <= i + Skv - Sq).  Fully-masked rows give out = 0
-    and lse = -1e30.  Returns (out, lse) with lse (B, Hq, Sq) float32."""
+    (query i sees keys j <= i + Skv - Sq); ``segment_ids`` /
+    ``kv_segment_ids`` mask cross-document pairs (:func:`_keep_mask`).
+    Fully-masked rows give out = 0 and lse = -1e30.  Returns (out, lse)
+    with lse (B, Hq, Sq) float32."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -66,10 +74,9 @@ def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
     qt = q.transpose(1, 2).float() * scale
     kt = k.transpose(1, 2).float()
     scores = torch.einsum("bhqd,bhkd->bhqk", qt, kt)
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-        ki = torch.arange(skv, device=q.device)[None, :]
-        scores = scores.masked_fill(ki > qi, NEG_INF)
+    keep = _keep_mask(sq, skv, causal, segment_ids, kv_segment_ids, q.device)
+    if keep is not None:
+        scores = scores.masked_fill(~keep, NEG_INF)
     if attn_mask is not None:
         if attn_mask.dtype == torch.bool:
             scores = scores.masked_fill(~attn_mask, NEG_INF)
@@ -88,10 +95,120 @@ def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
     return (out, lse) if return_lse else out
 
 
+def segment_mask(q_segment_ids, kv_segment_ids):
+    """Packed-sequence (varlen) mask (the reference's ``segment_mask``,
+    ``paddle_tpu/ops/attention.py`` :616): query i may attend key j iff
+    they belong to the same packed document.  (B, Sq) / (B, Skv) ints ->
+    bool (B, 1, Sq, Skv), combinable with ``causal=True``."""
+    return (q_segment_ids[:, None, :, None]
+            == kv_segment_ids[:, None, None, :])
+
+
+def _keep_mask(sq: int, skv: int, causal: bool, segment_ids,
+               kv_segment_ids, device):
+    """Bool mask broadcastable to (B, H, Sq, Skv) of the visible pairs, or
+    None when every pair is visible: the one rule of which (query, key)
+    pairs the plain forward and backward see (causal bottom-right, same
+    packed document; ``kv_segment_ids`` defaults to ``segment_ids``)."""
+    keep = None
+    if causal:
+        qi = torch.arange(sq, device=device)[:, None] + (skv - sq)
+        keep = torch.arange(skv, device=device)[None, :] <= qi
+    if segment_ids is not None:
+        seg = segment_mask(segment_ids.to(device),
+                           (segment_ids if kv_segment_ids is None
+                            else kv_segment_ids).to(device))
+        keep = seg if keep is None else keep & seg
+    return keep
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, dlse=None,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None,
+                                  segment_ids=None, kv_segment_ids=None):
+    """The plain version of kernels K5 / K6: the Flash-2 backward formulas
+    of the reference's ``_bwd`` (``paddle_tpu/ops/pallas/flash_attention.py``
+    :350) in float32, never the kernels.
+
+    q, out, do: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); lse (and the lse
+    cotangent ``dlse``, None = zeros): (B, Hq, Sq).  ``do`` is cast to
+    q's dtype first (:353); ``delta = rowsum(dO * O) - dlse`` (:360-364);
+    ``P = exp(S * scale - lse)``, zero where masked (causal bottom-right,
+    segment ids), so a row with every key masked gets zero gradient;
+    ``dS = P * (dP - delta) * scale``.  dk / dv are summed over each GQA
+    group in float32 and rounded once (the reference rounds per q head,
+    then sums: equal at float32).  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    do = do.to(q.dtype)
+    qf = q.float().transpose(1, 2)                     # (B, Hq, Sq, D)
+    kf = _repeat_kv(k, g).float().transpose(1, 2)      # (B, Hq, Skv, D)
+    vf = _repeat_kv(v, g).float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    keep = _keep_mask(sq, skv, causal, segment_ids, kv_segment_ids,
+                      q.device)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    delta = (dof * out.float().transpose(1, 2)).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, hkv, g, skv, d).sum(2)
+    dv = dv.reshape(b, hkv, g, skv, d).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a kernel forward and a kernel backward — the
+    counterpart of the reference's ``_flash`` ``custom_vjp``
+    (``paddle_tpu/ops/pallas/flash_attention.py`` :453-464).  Forward is
+    K2, which saves q, k, v, out and lse; backward folds the lse cotangent
+    into ``delta = rowsum(dO * O) - dlse`` (plain elementwise work, as
+    the reference leaves it to XLA) and launches K5 (dq) and K6 (dk, dv).
+    Returns (out, lse), both differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, scale):
+        out, lse = flash_attention_fwd_cuda(
+            q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+            kv_segment_ids=kv_segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids,
+                              kv_segment_ids)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, seg, kv_seg = ctx.saved_tensors
+        do = (torch.zeros_like(out) if dout is None
+              else dout.to(q.dtype).contiguous())
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        delta = delta.contiguous()
+        kw = dict(causal=ctx.causal, scale=ctx.scale, segment_ids=seg,
+                  kv_segment_ids=kv_seg)
+        dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None
+
+
 class _ForwardOnly(torch.autograd.Function):
-    """Runs a kernel under autograd and refuses the backward: the
-    attention kernels' backward (flash ``_bwd``) is the training slice,
-    ROADMAP B3, and a silently detached gradient would be wrong."""
+    """Runs a cached-decode kernel under autograd and refuses the
+    backward: the flash-decode kernels have no VJP in the reference
+    either (they serve inference), and a silently detached gradient
+    would be wrong."""
 
     @staticmethod
     def forward(ctx, fn, kwargs, *tensors):
@@ -100,8 +217,9 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "the backward of the attention kernels is ROADMAP B3 (training "
-            "slice)")
+            "the cached-decode attention kernels have no backward (nor does "
+            "the reference's flash-decode kernel); train through "
+            "flash_attention")
 
 
 def _launch(fn, tensors, **kwargs):
@@ -116,32 +234,49 @@ def flash_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,
                     kv_segment_ids=None):
     """Public entry (parity: ``paddle.nn.functional.flash_attention``).
 
-    CUDA tensors go to kernel K2, CPU tensors to
-    :func:`flash_attention_reference`.  Packed-document ``segment_ids``,
-    dropout and the backward belong to the training slice (ROADMAP A10,
-    B2 segments / B3 backward) and raise; a custom ``attn_mask`` is taken
-    by the plain version only."""
-    if segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "flash_attention: segment_ids belong to the training slice "
-            "(ROADMAP A10 / B2 segments)")
+    CUDA tensors go to kernel K2 — under autograd through
+    :class:`FlashAttention`, whose backward is K5 / K6 — and CPU tensors
+    to :func:`flash_attention_reference` under ordinary autograd.
+
+    ``segment_ids``: (B, Sq) ints marking packed-document membership;
+    cross-document pairs are masked (inside the kernels on the card).
+    ``kv_segment_ids``: (B, Skv) ids for keys that are not the queries'
+    own positions; defaults to ``segment_ids``, which then needs
+    Sq == Skv (the reference's checks, :652-660).  Dropout is not ported
+    (ROADMAP A10) and raises; a custom ``attn_mask`` is taken by the plain
+    version only."""
+    if (segment_ids is not None and kv_segment_ids is None
+            and q.shape[1] != k.shape[1]):
+        raise ValueError(
+            "segment_ids without kv_segment_ids assume self-attention "
+            f"(q and kv share positions); got sq={q.shape[1]}, "
+            f"skv={k.shape[1]} — pass kv_segment_ids for cross-slice "
+            "attention")
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError("kv_segment_ids requires segment_ids")
     if dropout_p != 0.0:
         raise NotImplementedError(
-            "flash_attention: dropout belongs to the training slice "
-            "(ROADMAP A10)")
+            "flash_attention: dropout is not ported (ROADMAP A10)")
     if _dispatch.use_kernel(q):
         if attn_mask is not None:
             raise NotImplementedError(
                 "flash_attention kernel: a custom attn_mask is not part of "
                 "the kernel's contract")
         _dispatch.count_kernel_path("flash_attention", "kernel")
-        out, lse = _launch(flash_attention_fwd_cuda, (q, k, v),
-                           causal=causal, scale=scale)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            out, lse = FlashAttention.apply(q, k, v, segment_ids,
+                                            kv_segment_ids, causal, scale)
+        else:
+            out, lse = flash_attention_fwd_cuda(
+                q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+                kv_segment_ids=kv_segment_ids)
         return (out, lse) if return_lse else out
     _dispatch.count_kernel_path("flash_attention", "plain")
     res = flash_attention_reference(q, k, v, attn_mask=attn_mask,
                                     causal=causal, scale=scale,
-                                    return_lse=True)
+                                    return_lse=True, segment_ids=segment_ids,
+                                    kv_segment_ids=kv_segment_ids)
     return res if return_lse else res[0]
 
 

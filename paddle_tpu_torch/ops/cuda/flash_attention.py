@@ -23,8 +23,11 @@ plain version on the card (``chip_smoke.py``); any other dtype or head_dim
 raises.  ``wgmma``/TMA are the next step; the gap to the bound is
 recorded in PERF.md.
 
-Segment ids and the backward (``_bwd`` dq/dkv) belong to the training
-slice and are not taken here.
+Packed documents: optional int32 ``segment_ids`` (B, Sq) and
+``kv_segment_ids`` (B, Skv) (``_mask_for`` :115); query i sees key j only
+where the two ids are equal, on top of the causal rule.  The tensor-core
+kernel stages each key tile's ids in shared memory.  The backward is
+K5/K6 (``ops/cuda/flash_attention_bwd.py``).
 
 K2-paged (:func:`flash_attention_fwd_paged_cuda`): the paged engine's
 suffix prefill, which the reference runs as the q-tiled mode of its
@@ -69,7 +72,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P,                 # q k v out lse
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P,         # q k v out lse sq skv
                        _I, _I, _I, _I, _I, _I,             # B Sq Skv Hq Hkv D
                        ctypes.c_float, _I, _I, _P]         # scale causal dt st
         fn.restype = ctypes.c_int
@@ -85,19 +88,48 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def segment_args(what: str, segment_ids, kv_segment_ids, b: int, sq: int,
+                 skv: int, device):
+    """(seg_q, seg_kv) as contiguous int32 tensors on ``device``, or (None,
+    None).  ``kv_segment_ids`` defaults to ``segment_ids`` (self-attention,
+    sq == skv) and needs it."""
+    if segment_ids is None:
+        if kv_segment_ids is not None:
+            raise ValueError(f"{what}: kv_segment_ids requires segment_ids")
+        return None, None
+    if kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    out = []
+    for name, t, n in (("segment_ids", segment_ids, sq),
+                       ("kv_segment_ids", kv_segment_ids, skv)):
+        if tuple(t.shape) != (b, n):
+            raise ValueError(f"{what}: {name} must be ({b}, {n}), got "
+                             f"{tuple(t.shape)}")
+        out.append(t.to(device=device, dtype=torch.int32).contiguous())
+    return out[0], out[1]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = False,
-                             scale: Optional[float] = None
+                             scale: Optional[float] = None,
+                             segment_ids=None, kv_segment_ids=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns
-    (out (B, Sq, Hq, D) in q.dtype, lse (B, Hq, Sq) float32).  Raises on
-    what the kernel does not take."""
+    """Launch K2.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); optional
+    int ``segment_ids`` (B, Sq) / ``kv_segment_ids`` (B, Skv), the latter
+    defaulting to the former.  Returns (out (B, Sq, Hq, D) in q.dtype, lse
+    (B, Hq, Sq) float32).  Raises on what the kernel does not take."""
     code = check_attention_args(NAME, q, k, v, HEAD_DIM)
     b, sq, hq, d = q.shape
     bk, skv, hkv, _ = k.shape
     if bk != b:
         raise ValueError(f"{NAME}: batch mismatch between "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
+    seg_q, seg_kv = segment_args(NAME, segment_ids, kv_segment_ids, b, sq,
+                                 skv, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if b == 0 or sq == 0:
@@ -107,8 +139,8 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, skv, hq, hkv, d, float(scale), int(causal),
-        code, stream_ptr(q.device))
+        lse.data_ptr(), _ptr(seg_q), _ptr(seg_kv), b, sq, skv, hq, hkv, d,
+        float(scale), int(causal), code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_fwd_cuda.launches += 1
     return out, lse

@@ -269,14 +269,15 @@ def test_unported_features_raise():
         cached_decode_attention(q, kv, kv, 0,
                                 extra_mask=torch.ones(1, 4, dtype=bool))
     with pytest.raises(NotImplementedError, match="A10"):
-        flash_attention(q, q, q, segment_ids=torch.zeros(1, 1))
+        flash_attention(q, q, q, dropout_p=0.1)
 
 
 # ---- the package: no JAX, the card by default -----------------------------------
 
 def test_import_leaves_jax_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models, paddle_tpu_torch.ops; "
+            "paddle_tpu_torch.models, paddle_tpu_torch.ops, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad); "
