@@ -23,8 +23,10 @@ any failed check raises, so the script exits non-zero.  Phases:
                  K1-int8 over a contiguous int8 cache with 128-token scale
                  granules, K1-paged-int8 and K2-paged-int8 over int8 pools
                  with per-block scales, and K4, the weight-only int8 GEMM,
-                 at every Llama-3-8B projection shape (8 rows) and at 256
-                 rows; K2 with packed-document segment ids and the flash
+                 at every Llama-3-8B projection shape (8 rows), at the row
+                 counts a prefill wave sends it (16, 64, 128 rows of
+                 gate/up) and at 256 rows (its limit); K2 with
+                 packed-document segment ids and the flash
                  backward K5 (dq) / K6 (dk, dv) at the training
                  micro-batch's shape (B=2, S=2048, 3-8 documents a row;
                  bf16 gradients held by their relative L2 error per
@@ -974,14 +976,18 @@ def phase_kernels(torch):
         del sets, got, want
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
-    # projection shape (K, N), 256 rows (the kernel's row limit) at one,
-    # then the tiny model's float32 widths
+    # projection shape (K, N), the row counts of short prefill waves at
+    # gate/up, 256 rows (the kernel's row limit), then the tiny model's
+    # float32 widths
     for dt, rows, k, n, main in (
             (bf16, 8, 4096, 4096, False),          # q_proj, o_proj
             (bf16, 8, 4096, 1024, False),          # k_proj, v_proj
             (bf16, 8, 4096, 14336, True),          # gate_proj, up_proj
             (bf16, 8, 14336, 4096, False),         # down_proj
             (bf16, 8, 4096, 128256, False),        # lm_head
+            (bf16, 16, 4096, 14336, False),        # prefill waves
+            (bf16, 64, 4096, 14336, False),
+            (bf16, 128, 4096, 14336, False),
             (bf16, 256, 4096, 4096, False),
             (f32, 8, 64, 32, False),
             (f32, 8, 128, 64, False),

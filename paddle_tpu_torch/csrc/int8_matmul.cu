@@ -8,52 +8,68 @@
 // applied once in the epilogue (it commutes with the sum over k), as the
 // Pallas kernel does at its last K step.
 //
-// Bound on the H100: memory at decode's row counts.  At 8 rows the kernel
-// does 16 operations per weight byte, far below the ~295 a byte where the
-// tensor cores would bound it, so the time is the int8 weight stream
-// (K * N bytes) over 3.35 TB/s -- half a bf16 GEMV's bytes.  The design:
-//   * each lane owns 4 adjacent output columns and reads their 4 int8
-//     weights of one k with one 32-bit load, so a warp reads 128
-//     contiguous bytes of a weight row; the 4 warps of a CTA walk
-//     interleaved groups of 4 k values of the CTA's k range, 16 weight
-//     loads in flight per lane, and merge through shared memory at the end;
-//   * a CTA covers 128 columns and up to RT rows (8 or 16): for rows <= 16
-//     every weight byte is read from device memory once per launch; more
-//     rows (up to 256) take row tiles that read the weights again;
-//   * where N alone gives too few CTAs (k_proj/v_proj at N = 1024: 8
-//     column tiles), K is split across CTAs, up to one full wave of 4 CTAs
-//     an SM (the wrapper's split rule); split partials (float32) are
-//     summed and scaled by a second small kernel;
-//   * x is staged per 128 k values in shared memory as float32 and read
-//     as broadcast 16-byte loads.
-// The products run on the CUDA cores (f32 FMA): at 8 rows they are close
-// to the FMA rate's limit; tensor cores (mma/wgmma) and TMA are the next
-// step.
+// Bound on the H100: the int8 weight stream (K * N bytes over 3.35 TB/s)
+// at decode's 8 rows; the tensor cores (2 * rows * K * N operations over
+// 989 TFLOP/s) from about 150 rows up.
+//
+// bfloat16 x: tensor cores (wgmma) with the operands swapped, out^T =
+// w8^T . x^T, so the output columns are wgmma's M and the rows its N:
+//   * a CTA owns 128 output columns (two consumer warpgroups of 64) and
+//     every row (1..256, rounded up to N = 8, 16, 32, 64, 128 or 256), so
+//     it reads each weight byte from device memory once a launch at every
+//     row count, and a decode tick's 8 rows are one n = 8 product;
+//   * one producer warp streams 64-deep k slices by TMA into a ring of
+//     shared-memory stages (full / empty mbarriers): the (64 k x 128 n)
+//     int8 weight tile, 128-byte swizzled, through a tensor map encoded
+//     once per weight (the wrapper caches it), and the (N x 64 k) bf16 x
+//     tile, K-major, wgmma's B operand (rows past `rows` and k past K load
+//     as zero);
+//   * consumers read the int8 tile with ldmatrix.trans, treating byte
+//     pairs as 16-bit elements: a lane receives w8[k, n..n+1] and
+//     w8[k+1, n..n+1], which a byte permute and one float subtraction
+//     (the 2^23 trick, exact) turn into two bf16 pairs -- the register A
+//     fragments of output columns n and n+1.  So a warp's accumulator row
+//     g holds column 2g and row g + 8 column 2g + 1, undone in the
+//     epilogue; the tile is converted in registers once and never written
+//     back to shared memory;
+//   * each consumer keeps one stage's products in flight
+//     (wgmma.wait_group 1) while it converts the next;
+//   * where N alone gives too few CTAs (k_proj / v_proj at N = 1024, q_proj
+//     / o_proj at 4096), K is split across CTAs up to one wave on the 132
+//     SMs (the wrapper's split rule); split partials (float32) are summed
+//     and scaled by a second small kernel.
+//   The weight's row stride (N bytes) must be a multiple of 16 for TMA:
+//   the bf16 build takes N % 16 == 0.
+//
+// float32 x (the tiny test model) keeps the CUDA-core kernel below:
+// wgmma has no float32 input that keeps float32 numerics.  Each lane owns 4
+// adjacent output columns and reads their 4 int8 weights of one k with one
+// 32-bit load; the 4 warps of a CTA walk interleaved groups of 4 k values
+// and merge through shared memory; a CTA covers 128 columns and up to RT
+// rows (8 or 16), more rows take more row tiles; x is staged per 128 k
+// values in shared memory as float32.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using namespace ptt;
+
+// ---------------------------------------------------------------------------
+// float32 x: CUDA cores
+// ---------------------------------------------------------------------------
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 4;               // output columns per lane
 constexpr int kBN = 32 * kCols;        // columns per CTA
 constexpr int kKS = 128;               // k values staged per pass
 constexpr int kUnroll = 4;             // 4-k groups a warp keeps in flight
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // the 4 signed bytes of a 32-bit word as floats (exact), without the
 // quarter-rate integer-to-float conversion: flipping a byte's sign bit
@@ -75,10 +91,10 @@ __device__ __forceinline__ void unpack4(unsigned raw, float (&w)[kCols]) {
 // holds a whole number of 4-k groups and a lane's 4 columns are all in or
 // all out.  With one split the CTA writes out (scaled, in x's dtype);
 // otherwise it writes float32 partials part[ks, row, n].
-template <typename T, int RT>
+template <int RT>
 __global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, T* __restrict__ out,
+int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ scale, float* __restrict__ out,
                    float* __restrict__ part, int rows, int K, int N,
                    int k_chunk) {
   __shared__ __align__(16) float xs[RT][kKS];
@@ -105,7 +121,7 @@ int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = tid; i < RT * kKS; i += kThreads) {
       const int r = i / kKS, kk = i - r * kKS;
       xs[r][kk] = (r < nr && kk < kn)
-                      ? to_float(x[(size_t)(r0 + r) * K + kb + kk])
+                      ? x[(size_t)(r0 + r) * K + kb + kk]
                       : 0.f;
     }
     __syncthreads();
@@ -159,10 +175,15 @@ int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     for (int wi = 0; wi < kWarps; ++wi) s += red[wi][r][cc];
     const size_t o = (size_t)(r0 + r) * N + n;
     if (single)
-      out[o] = from_float<T>(s * scale[n]);
+      out[o] = s * scale[n];
     else
       part[(size_t)ks * rows * N + o] = s;
   }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
 }
 
 // out[r, n] = (sum over splits of part[s, r, n]) * scale[n]
@@ -176,65 +197,299 @@ __global__ void int8_matmul_reduce(const float* __restrict__ part,
   if (i >= total) return;
   float s = 0.f;
   for (int k = 0; k < ksplit; ++k) s += part[(size_t)k * total + i];
-  out[i] = from_float<T>(s * scale[i % N]);
+  store(out + i, s * scale[i % N]);
 }
 
-template <typename T, int RT>
-cudaError_t launch(const void* x, const int8_t* w, const float* scale,
-                   void* out, float* part, int rows, int K, int N,
-                   int ksplit, int k_chunk, cudaStream_t st) {
+template <int RT>
+cudaError_t launch_f32(const float* x, const int8_t* w, const float* scale,
+                       float* out, float* part, int rows, int K, int N,
+                       int ksplit, int k_chunk, cudaStream_t st) {
   dim3 grid((N + kBN - 1) / kBN, ksplit, (rows + RT - 1) / RT);
-  int8_matmul_kernel<T, RT><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), w, scale, static_cast<T*>(out), part, rows,
-      K, N, k_chunk);
-  if (ksplit > 1) {
-    const size_t total = (size_t)rows * N;
-    int8_matmul_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        part, scale, static_cast<T*>(out), rows, N, ksplit);
-  }
+  int8_matmul_kernel<RT><<<grid, kThreads, 0, st>>>(x, w, scale, out, part,
+                                                    rows, K, N, k_chunk);
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t dispatch_rows(const void* x, const int8_t* w, const float* s,
-                          void* out, float* part, int rows, int K, int N,
-                          int ksplit, int k_chunk, cudaStream_t st) {
+// ---------------------------------------------------------------------------
+// bfloat16 x: wgmma + TMA (see the top)
+// ---------------------------------------------------------------------------
+constexpr int kWgCols = 128;            // output columns per CTA
+constexpr int kWgK = 64;                // k values per stage
+constexpr int kWgThreads = 384;         // consumer warpgroups 0, 1; producer 2
+constexpr int kWgConsumers = 256;
+
+// NR: the rows rounded up to wgmma's N
+template <int NR>
+struct WgCfg {
+  static constexpr int kStages = NR <= 64 ? 8 : (NR == 128 ? 6 : 5);
+  static constexpr int kWBytes = kWgCols * kWgK;      // int8 tile, 8 KB
+  static constexpr int kXBytes = NR * kWgK * 2;       // bf16 tile, NR x 128 B
+  static constexpr size_t kSmem =
+      1024 + (size_t)kStages * (kWBytes + kXBytes) + 2 * kStages * 8;
+};
+
+// two bf16 pairs (exact) of the 4 signed bytes of `raw`: {byte 0, byte 2}
+// and {byte 1, byte 3}, the low element first.  Flipping a byte's sign bit
+// gives b + 128; placed as the low mantissa byte of 2^23 (0x4B0000xx) that
+// is the float 2^23 + b + 128, and subtracting 2^23 + 128 leaves b, whose
+// float has 16 zero low bits: its high half is its bf16.
+__device__ __forceinline__ void int8x4_to_bf16x2x2(uint32_t raw, uint32_t& lo,
+                                                   uint32_t& hi) {
+  const uint32_t u = raw ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u)) -
+                   8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651u)) -
+                   8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652u)) -
+                   8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653u)) -
+                   8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632u);
+  hi = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632u);
+}
+
+// grid (ceil(N / 128), ksplit), block 384.  CTA (nt, ks) sums k in
+// [ks * k_chunk, min(K, (ks + 1) * k_chunk)) (k_chunk a multiple of 64)
+// for columns [nt * 128, nt * 128 + 128) and every row.  One split: the
+// CTA writes out (scaled, bf16); otherwise float32 partials part[ks, r, n].
+template <int NR>
+__global__ void __launch_bounds__(kWgThreads, 1)
+int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                         const __grid_constant__ CUtensorMap x_map,
+                         const float* __restrict__ scale,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ part, int rows, int K, int N,
+                         int k_chunk) {
+  using C = WgCfg<NR>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ws = smem;                              // [stage][64 k][128 B]
+  unsigned char* xs = ws + C::kStages * C::kWBytes;      // [stage][NR][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + C::kStages * C::kXBytes);
+  uint64_t* empty = full + C::kStages;
+
+  const int n0 = blockIdx.x * kWgCols;
+  const int ks = blockIdx.y;
+  const int k_begin = ks * k_chunk;
+  const int nk = (min(K, k_begin + k_chunk) - k_begin + kWgK - 1) / kWgK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    reg_dealloc<40>();
+    if (tid == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % C::kStages;
+        mbar_wait(&empty[s], ((it / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kWBytes + C::kXBytes);
+        const int k = k_begin + it * kWgK;
+        tma_load_2d(ws + s * C::kWBytes, &w_map, &full[s], n0, k);
+        tma_load_2d(xs + s * C::kXBytes, &x_map, &full[s], k, 0);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, c = lane % 4;
+    // the warp's 16 columns: the 16-byte chunk `chunk` of a 128-byte
+    // weight row; ldmatrix row address of this lane: k row `lane` (of 32)
+    const int chunk = wg * 4 + warp;
+    float acc[NR / 2];
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[i] = 0.f;
+    uint32_t a0[4][4], a1[4][4];
+
+    // one stage: k rows [0, 64) of the ring slot, 4 k16 steps
+    auto step = [&](int it, uint32_t (&a)[4][4]) {
+      const int s = it % C::kStages;
+      mbar_wait(&full[s], (it / C::kStages) & 1);
+      const unsigned char* wt = ws + s * C::kWBytes;
+      // raw[h][i]: k rows 32h + 8i + 2c and + 1, each for columns 2g
+      // (bytes 0, 2) and 2g + 1 (bytes 1, 3)
+      uint32_t raw[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = h * 32 + lane;
+        ldmatrix_x4_trans(raw[h], wt + k * 128 + ((chunk ^ (k & 7)) << 4));
+      }
+      // k16 step t: rows 16t + 2c.. (a[t][0..1]) and 16t + 8 + 2c.. (a[t][2..3])
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        int8x4_to_bf16x2x2(raw[t / 2][2 * (t % 2)], a[t][0], a[t][1]);
+        int8x4_to_bf16x2x2(raw[t / 2][2 * (t % 2) + 1], a[t][2], a[t][3]);
+      }
+      wgmma_fence();
+      const unsigned char* xt = xs + s * C::kXBytes;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        wgmma_rs<0>(acc, a[t], gmma_desc(xt + 32 * t, 16, 1024), 1);
+      wgmma_commit();
+      // the previous stage's products are done: release its slot (and its
+      // A registers, the other set)
+      wgmma_wait<1>();
+      if (it > 0) mbar_arrive(&empty[(it - 1) % C::kStages]);
+    };
+    int it = 0;
+    for (; it + 1 < nk; it += 2) {
+      step(it, a0);
+      step(it + 1, a1);
+    }
+    if (it < nk) step(it, a0);
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // accumulator row g is column n, row g + 8 column n + 1; acc column
+    // 8j + 2c (+1) is row r (+1)
+    const int n = n0 + wg * 64 + warp * 16 + 2 * g;
+    if (n < N) {
+      const bool single = gridDim.y == 1;
+      const float s0 = single ? scale[n] : 1.f;
+      const float s1 = single ? scale[n + 1] : 1.f;
+#pragma unroll
+      for (int j = 0; j < NR / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 8 * j + 2 * c + e;
+          if (r >= rows) continue;
+          const size_t o = (size_t)r * N + n;
+          if (single)
+            *reinterpret_cast<__nv_bfloat162*>(out + o) =
+                __floats2bfloat162_rn(acc[4 * j + e] * s0,
+                                      acc[4 * j + 2 + e] * s1);
+          else
+            *reinterpret_cast<float2*>(part + (size_t)ks * rows * N + o) =
+                make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
+        }
+      }
+    }
+  }
+}
+
+// the weight's tensor map: (K, N) int8, 64 x 128 boxes, 128-byte swizzle
+cudaError_t weight_map(CUtensorMap* m, const void* w8, int K, int N) {
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N};
+  const cuuint32_t box[2] = {kWgCols, kWgK};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w8, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int NR>
+cudaError_t launch_wgmma(const CUtensorMap& w_map, const void* x,
+                         const float* scale, void* out, float* part, int rows,
+                         int K, int N, int ksplit, int k_chunk,
+                         cudaStream_t st) {
+  CUtensorMap x_map;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {kWgK, NR};
+  cudaError_t e = encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+                             dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  auto kernel = int8_matmul_wgmma_kernel<NR>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)WgCfg<NR>::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + kWgCols - 1) / kWgCols, ksplit);
+  kernel<<<grid, kWgThreads, WgCfg<NR>::kSmem, st>>>(
+      w_map, x_map, scale, static_cast<__nv_bfloat16*>(out), part, rows, K,
+      N, k_chunk);
+  return cudaSuccess;
+}
+
+cudaError_t dispatch_wgmma(const CUtensorMap& w_map, const void* x,
+                           const float* s, void* out, float* p, int rows,
+                           int K, int N, int ksplit, int k_chunk,
+                           cudaStream_t st) {
   if (rows <= 8)
-    return launch<T, 8>(x, w, s, out, part, rows, K, N, ksplit, k_chunk, st);
-  return launch<T, 16>(x, w, s, out, part, rows, K, N, ksplit, k_chunk, st);
+    return launch_wgmma<8>(w_map, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
+  if (rows <= 16)
+    return launch_wgmma<16>(w_map, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
+  if (rows <= 32)
+    return launch_wgmma<32>(w_map, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
+  if (rows <= 64)
+    return launch_wgmma<64>(w_map, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
+  if (rows <= 128)
+    return launch_wgmma<128>(w_map, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
+  return launch_wgmma<256>(w_map, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
 }
 
 }  // namespace
 
+// The bf16 build's tensor map of an int8 (K, N) weight (N % 16 == 0, w8
+// 16-byte aligned), written to map_out (128 bytes): encode it once per
+// weight and pass it to every int8_matmul call on that weight.
+extern "C" int int8_matmul_weight_map(const void* w8, int K, int N,
+                                      void* map_out) {
+  if (K < 8 || N < 16 || K % 8 || N % 16 ||
+      reinterpret_cast<uintptr_t>(w8) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m;
+  const cudaError_t e = weight_map(&m, w8, K, N);
+  if (e == cudaSuccess) memcpy(map_out, &m, sizeof(m));
+  return static_cast<int>(e);
+}
+
 // dtype: 0 = bfloat16, 1 = float32 (x and out).  rows in [1, 256]; K, N
 // multiples of 8; x, w8, out contiguous; ksplit >= 1 splits of k_chunk k
-// values each (k_chunk a multiple of 16, ksplit = ceil(K / k_chunk)); part
-// is float32 scratch of (ksplit, rows, N), unused when ksplit == 1.
-// Anything else returns cudaErrorInvalidValue.  Returns cudaGetLastError()
-// after the launches.
-extern "C" int int8_matmul(const void* x, const void* w8, const void* scale,
-                           void* out, void* part, int rows, int K, int N,
-                           int ksplit, int k_chunk, int dtype, void* stream) {
+// values each (ksplit = ceil(K / k_chunk)); part is float32 scratch of
+// (ksplit, rows, N), unused when ksplit == 1.  bfloat16 also needs N % 16
+// == 0, k_chunk % 64 == 0, x 16-byte aligned and w_map, the weight's map
+// from int8_matmul_weight_map; float32 needs k_chunk % 16 == 0 and ignores
+// w_map.  Anything else returns cudaErrorInvalidValue.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int int8_matmul(const void* x, const void* w8, const void* w_map,
+                           const void* scale, void* out, void* part, int rows,
+                           int K, int N, int ksplit, int k_chunk, int dtype,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunk_align = dtype == 0 ? 64 : 16;
   if (rows < 1 || rows > 256 || K < 8 || N < 8 || K % 8 || N % 8 ||
-      k_chunk < 16 || k_chunk % 16 || ksplit < 1 ||
+      k_chunk < chunk_align || k_chunk % chunk_align || ksplit < 1 ||
       (long long)ksplit * k_chunk < K ||
       (long long)(ksplit - 1) * k_chunk >= K ||
-      (ksplit > 1 && part == nullptr))
+      (ksplit > 1 && part == nullptr) || (dtype != 0 && dtype != 1) ||
+      (dtype == 0 && (N % 16 || w_map == nullptr ||
+                      reinterpret_cast<uintptr_t>(x) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* w = static_cast<const int8_t*>(w8);
   const float* s = static_cast<const float*>(scale);
   float* p = static_cast<float*>(part);
   cudaError_t e;
-  if (dtype == 0)
-    e = dispatch_rows<__nv_bfloat16>(x, w, s, out, p, rows, K, N, ksplit,
-                                     k_chunk, st);
-  else if (dtype == 1)
-    e = dispatch_rows<float>(x, w, s, out, p, rows, K, N, ksplit, k_chunk,
-                             st);
-  else
-    e = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    CUtensorMap m;
+    memcpy(&m, w_map, sizeof(m));
+    e = dispatch_wgmma(m, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
+  } else if (rows <= 8) {
+    e = launch_f32<8>(static_cast<const float*>(x), w, s,
+                      static_cast<float*>(out), p, rows, K, N, ksplit,
+                      k_chunk, st);
+  } else {
+    e = launch_f32<16>(static_cast<const float*>(x), w, s,
+                       static_cast<float*>(out), p, rows, K, N, ksplit,
+                       k_chunk, st);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (ksplit > 1) {
+    const size_t total = (size_t)rows * N;
+    const unsigned blocks = (unsigned)((total + 255) / 256);
+    if (dtype == 0)
+      int8_matmul_reduce<<<blocks, 256, 0, st>>>(
+          p, s, static_cast<__nv_bfloat16*>(out), rows, N, ksplit);
+    else
+      int8_matmul_reduce<<<blocks, 256, 0, st>>>(
+          p, s, static_cast<float*>(out), rows, N, ksplit);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

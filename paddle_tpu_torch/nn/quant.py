@@ -6,10 +6,11 @@ int4 as two nibbles per byte (even rows low nibble, odd rows high).
 ``weight_only_linear`` routes an int8 (K, N) weight by
 :func:`int8_matmul_path`:
 
-  * ``"kernel"`` — a CUDA tensor with ``0 < rows <= 256`` and K, N
-    multiples of 8: the hand-written weight-only GEMM K4
-    (``ops/cuda/int8_matmul.py``), which streams the int8 bytes and
-    dequantizes in registers (every decode-tick projection);
+  * ``"kernel"`` — a CUDA tensor with ``0 < rows <= 256``, K a multiple
+    of 8 and N of 16 (bfloat16 x: the TMA row stride) or 8 (float32 x):
+    the hand-written weight-only GEMM K4 (``ops/cuda/int8_matmul.py``),
+    which streams the int8 bytes and dequantizes in registers (every
+    decode-tick projection, every short prefill wave's);
   * ``"dequant"`` — a CUDA tensor of any other shape (a prefill wave's
     thousands of rows): the reference's XLA composition, dequantize
     ``w8.to(dt) * scale.to(dt)`` then one ``torch.matmul``, a plain
@@ -29,7 +30,7 @@ import torch
 from torch import nn
 
 from ..ops import _dispatch
-from ..ops.cuda.int8_matmul import MAX_ROWS, int8_matmul_cuda
+from ..ops.cuda.int8_matmul import MAX_ROWS, N_ALIGN, int8_matmul_cuda
 
 __all__ = ["Int8Weight", "int8_matmul_path", "llm_int8_linear",
            "weight_dequantize", "weight_only_linear", "weight_quantize"]
@@ -39,11 +40,13 @@ def int8_matmul_path(x: torch.Tensor, k: int, n: int) -> str:
     """Which route :func:`weight_only_linear` takes for an int8 (K, N)
     weight applied to ``x`` (..., K): ``"kernel"``, ``"dequant"`` or
     ``"plain"`` (see the module docstring).  The K/N alignment is the
-    kernel's own limit (4-byte weight loads), not the TPU's 128."""
+    kernel's own limit (TMA's 16-byte strides for bfloat16 x, 4-byte
+    weight loads for float32 x), not the TPU's 128."""
     if not _dispatch.use_kernel(x):
         return "plain"
     rows = x.numel() // max(k, 1)
-    if 0 < rows <= MAX_ROWS and k % 8 == 0 and n % 8 == 0:
+    if (0 < rows <= MAX_ROWS and k % 8 == 0
+            and n % N_ALIGN.get(x.dtype, 8) == 0):
         return "kernel"
     return "dequant"
 

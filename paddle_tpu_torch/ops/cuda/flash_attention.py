@@ -12,28 +12,35 @@ not 128-aligned, which the Pallas kernel refuses at :73-88).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about
-it: one CTA per (64-query tile, head, batch) streams 64-key K/V tiles
-through shared memory, so the (Sq, Skv) score matrix never reaches device
-memory, and skips the tiles above the causal diagonal.  bfloat16 at
-head_dim 128 — the serving path — runs Q.K^T and P.V on the tensor cores
-(``mma.sync.m16n8k16``, float32 accumulation, P re-packed in registers, V
-through ``ldmatrix.trans``); float32 at head_dim 16 — the tiny model —
-runs a CUDA-core kernel.  Those two builds are the ones held against the
-plain version on the card (``chip_smoke.py``); any other dtype or head_dim
-raises.  ``wgmma``/TMA are the next step; the gap to the bound is
-recorded in PERF.md.
+it: K/V stream through shared memory in tiles with an online softmax, so
+the (Sq, Skv) score matrix never reaches device memory, and tiles above
+the causal diagonal are skipped.  bfloat16 at head_dim 128 — the serving
+waves and every training forward — runs the Hopper kernel: 128-query
+tiles on two consumer warpgroups, Q.K^T and P.V on ``wgmma`` (P re-packed
+in registers as the register A operand, V MN-major from shared memory),
+K/V by TMA into an mbarrier ring fed by a producer warp, the next tile's
+Q.K^T issued with this tile's P.V so the softmax runs under a product,
+element masks only on the tiles that need one, the heaviest q tiles
+first.  float32 at head_dim 16 — the tiny model — runs a CUDA-core kernel
+(``wgmma`` has no float32 input that keeps float32 numerics).  Those are
+the builds held against the plain version on the card (``chip_smoke.py``);
+any other dtype or head_dim raises.
 
 Packed documents: optional int32 ``segment_ids`` (B, Sq) and
 ``kv_segment_ids`` (B, Skv) (``_mask_for`` :115); query i sees key j only
-where the two ids are equal, on top of the causal rule.  The tensor-core
-kernel stages each key tile's ids in shared memory.  The backward is
+where the two ids are equal, on top of the causal rule.  The bf16 kernel
+skips a (q tile, key tile) pair whose id ranges
+(:func:`segment_tile_ranges`, computed here per call) do not meet, and
+stages each loaded key tile's ids in shared memory.  The backward is
 K5/K6 (``ops/cuda/flash_attention_bwd.py``).
 
 K2-paged (:func:`flash_attention_fwd_paged_cuda`): the paged engine's
 suffix prefill, which the reference runs as the q-tiled mode of its
 flash-decode kernel (``paddle_tpu/ops/pallas/decode_attention.py``
 :273-281, :319-335).  It is flash attention with two changes, made in
-both kernels above: the causal offset is per row (query ``i`` of row
+the float32 kernel and in a bfloat16 ``mma.sync`` kernel (64-query tiles,
+cp.async loads; the Hopper redesign of this TPU kernel's counterpart is a
+later step): the causal offset is per row (query ``i`` of row
 ``b`` sees keys ``j <= pos_b + i``, keys ``j < min(pos_b + Sq,
 max_blocks * block_len)`` exist), and K/V come from the pooled
 ``(num_blocks, block_len, Hkv, D)`` cache through an int32 ``(B,
@@ -63,6 +70,7 @@ from . import (_build, block_table, check_attention_args, check_scales,
 NAME = "flash_attention_fwd"
 # the head_dim built for each dtype
 HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
+SEG_TILE = 128          # the bf16 build's query and key tile (csrc: kHQ, kHK)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,8 +80,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P,         # q k v out lse sq skv
-                       _I, _I, _I, _I, _I, _I,             # B Sq Skv Hq Hkv D
+        # q k v out lse seg_q seg_kv q_rng kv_rng
+        fn.argtypes = [_P] * 9 + [_I, _I, _I, _I, _I, _I,  # B Sq Skv Hq Hkv D
                        ctypes.c_float, _I, _I, _P]         # scale causal dt st
         fn.restype = ctypes.c_int
         fp = lib.flash_attention_fwd_paged
@@ -109,6 +117,20 @@ def segment_args(what: str, segment_ids, kv_segment_ids, b: int, sq: int,
     return out[0], out[1]
 
 
+def segment_tile_ranges(ids: torch.Tensor, tile: int = SEG_TILE
+                        ) -> torch.Tensor:
+    """(B, ceil(S / tile), 2) int32: the [min, max] id of each ``tile``
+    consecutive positions of the (B, S) ids.  K2 skips a (q tile, key
+    tile) pair whose two ranges do not meet: no query of the one can share
+    an id with a key of the other, for any ids."""
+    b, s = ids.shape
+    t = -(-s // tile)
+    if t * tile > s:   # repeat the last id: no range widens
+        ids = torch.cat([ids, ids[:, -1:].expand(b, t * tile - s)], 1)
+    lo, hi = torch.aminmax(ids.reshape(b, t, tile), dim=-1)
+    return torch.stack([lo, hi], -1).to(torch.int32).contiguous()
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -136,11 +158,19 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return out, lse
     if scale is None:
         scale = d ** -0.5
+    q_rng = kv_rng = None
+    if seg_q is not None and q.dtype == torch.bfloat16:
+        if seg_kv.data_ptr() % 16:   # the kernel loads key ids by TMA
+            seg_kv = seg_kv.clone()
+        q_rng = segment_tile_ranges(seg_q)
+        kv_rng = (q_rng if kv_segment_ids is None
+                  else segment_tile_ranges(seg_kv))
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _ptr(seg_q), _ptr(seg_kv), b, sq, skv, hq, hkv, d,
-        float(scale), int(causal), code, stream_ptr(q.device))
+        lse.data_ptr(), _ptr(seg_q), _ptr(seg_kv), _ptr(q_rng),
+        _ptr(kv_rng), b, sq, skv, hq, hkv, d, float(scale), int(causal),
+        code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_fwd_cuda.launches += 1
     return out, lse

@@ -9,8 +9,9 @@ the CPU.
   and the reference's XLA composition at float32 within 1e-5 (the
   libraries sum in other orders).
 * The routing rule: CPU tensors take the plain route; on the card rows <=
-  256 with K, N multiples of 8 take K4, anything else the dequantize-then-
-  matmul composition.
+  256 with K a multiple of 8 and N of 16 (bfloat16 x) or 8 (float32 x)
+  take K4, anything else the dequantize-then-matmul composition; K4's K
+  split per build.
 * ``QuantizedForDecode``: the same quantized names and ``hbm_bytes`` as the
   JAX wrapper, weights bridged from its packed state equal to the port's
   own quantization, and a decode session within 1e-5 of the JAX model
@@ -121,13 +122,32 @@ def test_int8_matmul_path_rule(monkeypatch):
     assert quant.int8_matmul_path(torch.zeros(257, 64), 64, 32) == "dequant"
     assert quant.int8_matmul_path(torch.zeros(8, 60), 60, 32) == "dequant"
     assert quant.int8_matmul_path(torch.zeros(8, 64), 64, 36) == "dequant"
+    # the bf16 build loads weight rows by TMA: N bytes a multiple of 16
+    xb = torch.zeros(8, 64, dtype=torch.bfloat16)
+    assert quant.int8_matmul_path(xb, 64, 48) == "kernel"
+    assert quant.int8_matmul_path(xb, 64, 40) == "dequant"
+    assert quant.int8_matmul_path(torch.zeros(8, 64), 64, 40) == "kernel"
 
 
 def test_split_k_fills_the_card():
+    # bf16 build: one 128-column CTA an SM for every row count, so the
+    # split depends on N only: as many splits as stay within one wave of
+    # 132 CTAs, chunks of at least 256 k and a multiple of 64
+    for rows, k, n, want in ((8, 4096, 1024, 16), (8, 4096, 4096, 4),
+                             (8, 4096, 14336, 1), (8, 14336, 4096, 4),
+                             (8, 4096, 128256, 1), (256, 4096, 4096, 4),
+                             (64, 4096, 14336, 1), (8, 64, 32, 1)):
+        ksplit, chunk = split_k(rows, k, n)
+        assert ksplit == want, (rows, k, n, ksplit)
+        assert chunk % 64 == 0 and (ksplit - 1) * chunk < k <= ksplit * chunk
+        ctas = -(-n // 128) * ksplit
+        assert ctas <= 132 or ksplit == 1
+        assert (ksplit + 1) * -(-n // 128) > 132 or k // (ksplit + 1) < 256
+    # float32 build: 4 CTAs an SM of 128 columns x 8 or 16 rows
     for rows, k, n in ((8, 4096, 1024), (8, 4096, 4096), (8, 4096, 14336),
                        (8, 14336, 4096), (8, 4096, 128256), (256, 4096, 4096),
                        (8, 64, 32)):
-        ksplit, chunk = split_k(rows, k, n)
+        ksplit, chunk = split_k(rows, k, n, bf16=False)
         assert chunk % 16 == 0 and (ksplit - 1) * chunk < k <= ksplit * chunk
         ctas = -(-n // 128) * -(-rows // (8 if rows <= 8 else 16)) * ksplit
         assert ctas >= 132 or ksplit == max(1, k // 128), (rows, k, n)
