@@ -14,6 +14,8 @@ any failed check raises, so the script exits non-zero.  Phases:
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
                  the kernels' build time (one ``nvcc`` per source, all at
                  once) and ptxas's registers / spill bytes per library;
+                 fails if ptxas reports that it serialised the
+                 ``wgmma.mma_async`` instructions of any kernel (named);
   2. kernels   — K1 flash-decode, K2 flash-attention forward and K3
                  RMSNorm at the serving path's Llama-3-8B shapes (bf16),
                  then K1-paged (decode tick) and K2-paged (suffix prefill)
@@ -30,7 +32,14 @@ any failed check raises, so the script exits non-zero.  Phases:
                  backward K5 (dq) / K6 (dk, dv) at the training
                  micro-batch's shape (B=2, S=2048, 3-8 documents a row;
                  bf16 gradients held by their relative L2 error per
-                 tensor); each also at the tiny model's float32 shapes:
+                 tensor); then the flash kernels' contract branches no
+                 training step takes: K2, K5 and K6 at causal=False, in
+                 the ring-hop form (separate kv_segment_ids, Sq 256 vs
+                 Skv 1024, queries whose id matches no key) and packed at
+                 S = 77 (ids at unaligned offsets), every row checking
+                 the dead-row convention (out 0, lse -1e30, zero
+                 gradient) and K5 / K6 giving the same bits twice; each
+                 also at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
                  in ms;
@@ -185,8 +194,8 @@ BWD_LIBRARY_NOTE = ("the backward of F.scaled_dot_product_attention "
                     "retain_graph=True) is timed; it computes dq, dk and dv "
                     "in one call: compare with K5 + K6")
 SEGMENTED_LIBRARY_NOTE = ("F.scaled_dot_product_attention (enable_gqa) with "
-                          "a dense (B, 1, S, S) bool mask, causal and same "
-                          "document, built outside the timed call: it "
+                          "a dense (B, 1, Sq, Skv) bool mask, causal and "
+                          "same document, built outside the timed call: it "
                           "computes every pair the mask hides")
 # bf16 gradients are held by their relative L2 error per tensor: the
 # kernels round P and dS to bf16 (unit roundoff 2^-9 ~ 2e-3) before the
@@ -359,6 +368,24 @@ def ptxas_functions(log: str):
     return out
 
 
+def serialized_wgmma(log: str):
+    """ptxas's reports that it serialised a kernel's ``wgmma.mma_async``
+    instructions (C7509-C7515: a conditional issue, a register touched
+    between issue and wait, a call inside the pipeline, too few registers),
+    as [(function, reason)]; such a kernel runs its products
+    one after another, 30-40 % slower, and builds without an error."""
+    out = []
+    for line in log.splitlines():
+        if "wgmma" not in line or "serializ" not in line:
+            continue
+        m = re.search(r"(?:in|for) the function '([^']+)'", line)
+        reason = re.search(
+            r"serialized (due to .*?)(?: (?:in|for) the function|$)", line)
+        out.append((m.group(1) if m else "unnamed",
+                    reason.group(1).strip() if reason else line.strip()))
+    return out
+
+
 def phase_card(torch, pt_build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -369,19 +396,24 @@ def phase_card(torch, pt_build):
     t0 = time.perf_counter()
     pt_build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, serialized = {}, {}
     for name, log in pt_build.build_log.items():
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
         ptxas[name] = {"max_registers": max(regs, default=None),
                        "spill_store_bytes": sum(spills),
                        "functions": ptxas_functions(log)}
+        if serialized_wgmma(log):
+            serialized[name] = serialized_wgmma(log)
     emit({"phase": "card", "nvidia_smi": card,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
-          "nvcc_build_s": round(build_s, 3), "ptxas": ptxas})
+          "nvcc_build_s": round(build_s, 3),
+          "ptxas_logs": sorted(pt_build.build_log),
+          "wgmma_serialized": serialized, "ptxas": ptxas})
+    check(not serialized, f"ptxas serialised wgmma in {serialized}")
     return card
 
 
@@ -448,6 +480,35 @@ def torch_counts(seg):
                 run = 1
         out.append(run)
     return out
+
+
+def visible_pairs(torch, sq, skv, causal, seg_q=None, seg_kv=None,
+                  device=None):
+    """(B or 1, Sq, Skv) bool: the (query, key) pairs attention sees —
+    causal bottom-right (query i sees keys j <= i + Skv - Sq) and, with
+    segment ids, the same document.  A row with none is a dead row: out 0,
+    lse -1e30, zero gradient."""
+    keep = torch.ones(1, sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        qi = torch.arange(sq, device=device)[:, None] + (skv - sq)
+        keep = keep & (torch.arange(skv, device=device)[None, :] <= qi)
+    if seg_q is not None:
+        keep = keep & (seg_q[:, :, None] == seg_kv[:, None, :])
+    return keep
+
+
+def dead_rows_ok(torch, keep, b, out=None, lse=None, grad=None) -> bool:
+    """The dead-row convention on the rows of ``keep`` with no visible key:
+    out exactly 0, lse exactly -1e30, the gradient exactly 0."""
+    dead = ~keep.any(-1).expand(b, keep.shape[1])          # (B, Sq)
+    ok = True
+    if out is not None:
+        ok = ok and bool((out[dead] == 0).all().item())
+    if lse is not None:
+        ok = ok and bool((lse.transpose(1, 2)[dead] == -1e30).all().item())
+    if grad is not None:
+        ok = ok and bool((grad[dead] == 0).all().item())
+    return ok
 
 
 def phase_kernels(torch):
@@ -553,17 +614,22 @@ def phase_kernels(torch):
         del sets, q, kc, vc, got, want
 
     # ---- K2 flash-attention forward: the prefill wave's shapes (bf16,
-    # head_dim 128), then the tiny model's float32 build (head_dim 16) -------
-    for dt, hq, hkv, d, b, sq, skv, main in (
-            (bf16, 32, 8, 128, 4, 8, 8, False),
-            (bf16, 32, 8, 128, 4, 100, 100, False),
-            (bf16, 32, 8, 128, 4, 512, 512, False),
-            (bf16, 32, 8, 128, 4, 2048, 2048, True),
-            (bf16, 32, 8, 128, 4, 100, 612, False),
-            (bf16, 32, 8, 128, 2, 128, 64, False),
-            (f32, 4, 2, 16, 2, 32, 32, False),
-            (f32, 4, 2, 16, 2, 70, 100, False),
-            (f32, 4, 2, 16, 2, 24, 8, False)):
+    # head_dim 128), then the tiny model's float32 build (head_dim 16);
+    # causal (the serving and training paths), then causal=False, the
+    # reference's default (full-attention models, ring hops) -------------
+    for dt, hq, hkv, d, b, sq, skv, causal, main in (
+            (bf16, 32, 8, 128, 4, 8, 8, True, False),
+            (bf16, 32, 8, 128, 4, 100, 100, True, False),
+            (bf16, 32, 8, 128, 4, 512, 512, True, False),
+            (bf16, 32, 8, 128, 4, 2048, 2048, True, True),
+            (bf16, 32, 8, 128, 4, 100, 612, True, False),
+            (bf16, 32, 8, 128, 2, 128, 64, True, False),
+            (bf16, 32, 8, 128, 2, 512, 512, False, False),
+            (bf16, 32, 8, 128, 2, 100, 612, False, False),
+            (f32, 4, 2, 16, 2, 32, 32, True, False),
+            (f32, 4, 2, 16, 2, 70, 100, True, False),
+            (f32, 4, 2, 16, 2, 24, 8, True, False),
+            (f32, 4, 2, 16, 2, 70, 100, False, False)):
         atol, rtol = tols(dt)
         lse_tol = 1e-3 if dt == bf16 else 1e-5
         esz = 2 if dt == bf16 else 4
@@ -571,53 +637,48 @@ def phase_kernels(torch):
         sets = [(randn(b, sq, hq, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt),
                  randn(b, skv, hkv, d, dtype=dt)) for _ in range(copies(nb))]
         q, k, v = sets[0]
-        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-        ref, ref_lse = flash_attention_reference(q, k, v, causal=True)
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ref, ref_lse = flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         lerr = max_err(lse, ref_lse)
-        ok = within(out, ref, atol, rtol) and lerr <= lse_tol
-        if sq > skv:   # rows before the diagonal see no key
-            dead = sq - skv
-            ok = ok and bool((out[:, :dead] == 0).all().item()) and bool(
-                (lse[:, :, :dead] == -1e30).all().item())
-        kfns = [lambda t=t: flash_attention(*t, causal=True) for t in sets]
+        keep = visible_pairs(torch, sq, skv, causal, device=dev)
+        ok = (within(out, ref, atol, rtol) and lerr <= lse_tol
+              and dead_rows_ok(torch, keep, b, out, lse))
+        kfns = [lambda t=t: flash_attention(*t, causal=causal) for t in sets]
         with reference_mode():
             plain_ms = time_ms(torch, [
-                lambda t=t: flash_attention(*t, causal=True) for t in sets],
+                lambda t=t: flash_attention(*t, causal=causal) for t in sets],
                 budget_ms=100.0)
-        if sq == skv:
-            lib_ms = time_ms(torch, [
-                lambda t=t: TF.scaled_dot_product_attention(
-                    t[0].transpose(1, 2), t[1].transpose(1, 2),
-                    t[2].transpose(1, 2), is_causal=True, enable_gqa=True)
-                for t in sets])
-        else:
-            qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
-            mask = torch.arange(skv, device=dev)[None, :] <= qi
-            lib_ms = time_ms(torch, [
-                lambda t=t: TF.scaled_dot_product_attention(
-                    t[0].transpose(1, 2), t[1].transpose(1, 2),
-                    t[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)
-                for t in sets])
-        pairs = sum(max(0, min(skv, r + skv - sq + 1)) for r in range(sq))
+        mask = None if (sq == skv or not causal) else keep[:, None]
+        lib_ms = time_ms(torch, [
+            lambda t=t: TF.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2),
+                t[2].transpose(1, 2), attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            for t in sets])
+        pairs = int(keep.sum().item())
         nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esz \
             + 4 * b * hq * sq
         ops = 4 * d * hq * b * pairs
         bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
         record("flash_attention_fwd",
-               f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} causal "
-               f"{str(dt)[6:]}",
+               f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
+               f"{'causal' if causal else 'causal=False'} {str(dt)[6:]}",
                max(err, lerr), f"out atol {atol} + rtol {rtol}, lse "
-               f"{lse_tol}", ok, kfns, plain_ms, lib_ms, bms, by, main)
+               f"{lse_tol}, dead rows out 0 and lse -1e30", ok, kfns,
+               plain_ms, lib_ms, bms, by, main)
         del sets, q, k, v, out, lse, ref, ref_lse
 
     # ---- K2 with segment ids, K5 / K6 (the flash backward): the training
     # micro-batch's shape (B=2, S=2048, Hq/Hkv 32/8, D=128, bf16, causal,
-    # rows packed with 3-8 documents of seeded lengths), a ragged bf16
-    # shape, then the tiny model's float32 builds; segmented and not.  The
-    # backward rows are fed K2's own out and lse; their plain version is
-    # flash_attention_bwd_reference (dq, dk, dv together) --------------------
+    # rows packed with 3-8 documents of seeded lengths), ragged bf16
+    # shapes, then the tiny model's float32 builds; segmented and not.
+    # Then the contract branches no training step takes: causal=False, and
+    # the ring-hop form -- separate kv_segment_ids with Sq != Skv, where
+    # some query ids match no key (dead rows).  The backward rows are fed
+    # K2's own out and lse; their plain version is
+    # flash_attention_bwd_reference (dq, dk, dv together) ------------------
     from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
                                       flash_attention_bwd_dq_cuda,
                                       flash_attention_bwd_reference,
@@ -627,52 +688,76 @@ def phase_kernels(torch):
         return float((a.float() - b.float()).norm()
                      / b.float().norm().clamp_min(1e-30))
 
-    for dt, b, s, hq, hkv, d, segmented, main in (
-            (bf16, 2, TRAIN_SEQ, 32, 8, 128, True, True),
-            (bf16, 2, TRAIN_SEQ, 32, 8, 128, False, False),
-            (bf16, 2, 200, 32, 8, 128, True, False),
-            (f32, 2, 37, 4, 2, 16, True, False),
-            (f32, 2, 70, 4, 2, 16, False, False)):
+    # segments: None; "packed" (self-attention, 3-8 documents a row); "ring"
+    # (3-6 query documents whose first two ids are the last two of the
+    # row's 3-8 key documents: the other queries see no key)
+    for dt, b, sq, skv, hq, hkv, d, causal, segments, main in (
+            (bf16, 2, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, True, "packed", True),
+            (bf16, 2, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 128, True, None, False),
+            (bf16, 2, 200, 200, 32, 8, 128, True, "packed", False),
+            (bf16, 2, 77, 77, 32, 8, 128, True, "packed", False),
+            (bf16, 2, 512, 512, 32, 8, 128, False, None, False),
+            (bf16, 1, 256, 1024, 32, 8, 128, False, "ring", False),
+            (bf16, 1, 256, 1024, 32, 8, 128, True, "ring", False),
+            (f32, 2, 37, 37, 4, 2, 16, True, "packed", False),
+            (f32, 2, 70, 70, 4, 2, 16, True, None, False),
+            (f32, 2, 70, 70, 4, 2, 16, False, None, False),
+            (f32, 1, 40, 100, 4, 2, 16, False, "ring", False)):
         esz = 2 if dt == bf16 else 4
-        seg = (torch.from_numpy(packed_segments(b, s, seed=s)).to(dev)
-               if segmented else None)
-        pairs = causal_pairs(seg, b, s)
-        nb = b * s * (2 * hq + 2 * hkv) * d * esz
+        seg = kv_seg = None
+        if segments == "packed":
+            seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
+        elif segments == "ring":
+            ids_kv = packed_segments(b, skv, seed=skv)
+            ids_q = (packed_segments(b, sq, seed=sq, lo=3, hi=6)
+                     + ids_kv.max(1, keepdims=True) - 1)
+            seg = torch.from_numpy(ids_q).to(dev)
+            kv_seg = torch.from_numpy(ids_kv).to(dev)
+        keep = visible_pairs(torch, sq, skv, causal, seg,
+                             seg if kv_seg is None else kv_seg, dev)
+        pairs = int(keep.expand(b, sq, skv).sum().item())
+        n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
+        nb = b * (2 * sq * hq + 2 * skv * hkv) * d * esz
+        kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
         sets = []
         for _ in range(copies(nb)):
-            q, k, v, do = (randn(b, s, hq, d, dtype=dt),
-                           randn(b, s, hkv, d, dtype=dt),
-                           randn(b, s, hkv, d, dtype=dt),
-                           randn(b, s, hq, d, dtype=dt))
-            dlse = randn(b, hq, s, dtype=f32)
-            out, lse = flash_attention_fwd_cuda(q, k, v, causal=True,
-                                                segment_ids=seg)
+            q, k, v, do = (randn(b, sq, hq, d, dtype=dt),
+                           randn(b, skv, hkv, d, dtype=dt),
+                           randn(b, skv, hkv, d, dtype=dt),
+                           randn(b, sq, hq, d, dtype=dt))
+            dlse = randn(b, hq, sq, dtype=f32)
+            out, lse = flash_attention_fwd_cuda(q, k, v, **kw)
             delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
                      - dlse).contiguous()
             sets.append((q, k, v, do, dlse, out, lse, delta))
-        tag = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal "
-               f"{'packed ' if segmented else ''}{str(dt)[6:]}")
-        seg_extra = {"segmented": segmented, "visible_pairs": pairs}
-        kw = dict(causal=True, segment_ids=seg)
-        # the library yardstick's mask on packed rows: causal and same
-        # document, dense (B, 1, S, S), made here so no timed call builds it
-        ar = torch.arange(s, device=dev)
-        seg_mask = (((ar[None, :] <= ar[:, None])[None]
-                     & (seg[:, :, None] == seg[:, None, :]))[:, None]
-                    if segmented else None)
+        shape = (f"S={sq}" if sq == skv and segments != "ring"
+                 else f"Sq={sq} Skv={skv}")
+        tag = (f"B={b} {shape} Hq={hq} Hkv={hkv} D={d} "
+               f"{'causal' if causal else 'causal=False'} "
+               f"{'packed ' if segments == 'packed' else ''}"
+               f"{'ring-hop kv_segment_ids ' if segments == 'ring' else ''}"
+               f"{str(dt)[6:]}")
+        seg_extra = {"segmented": seg is not None, "visible_pairs": pairs,
+                     "dead_rows": n_dead}
+        # the library yardstick's mask where the rule is not plain causal:
+        # dense (B or 1, 1, Sq, Skv), made here so no timed call builds it
+        lib_mask = (None if seg is None and (sq == skv or not causal)
+                    else keep[:, None])
         q, k, v, do, dlse, out, lse, delta = sets[0]
+        if segments == "ring":
+            check(0 < n_dead < b * sq, f"{tag}: {n_dead} of {b * sq} "
+                                       f"queries see no key")
 
         # K2 with segment ids (forward), against the plain path
-        if segmented:
+        if seg is not None:
             with reference_mode():
-                ref, ref_lse = flash_attention(q, k, v, causal=True,
-                                               return_lse=True,
-                                               segment_ids=seg)
+                ref, ref_lse = flash_attention(q, k, v, return_lse=True, **kw)
             torch.cuda.synchronize()
             atol, rtol = tols(dt)
             lse_tol = 1e-3 if dt == bf16 else 1e-5
             err, lerr = max_err(out, ref), max_err(lse, ref_lse)
-            ok = within(out, ref, atol, rtol) and lerr <= lse_tol
+            ok = (within(out, ref, atol, rtol) and lerr <= lse_tol
+                  and dead_rows_ok(torch, keep, b, out, lse))
             kfns = [lambda t=t: flash_attention_fwd_cuda(t[0], t[1], t[2],
                                                          **kw) for t in sets]
             with reference_mode():
@@ -681,23 +766,32 @@ def phase_kernels(torch):
                     for t in sets], budget_ms=100.0)
             lfns = [lambda t=t: TF.scaled_dot_product_attention(
                 t[0].transpose(1, 2), t[1].transpose(1, 2),
-                t[2].transpose(1, 2), attn_mask=seg_mask, enable_gqa=True)
+                t[2].transpose(1, 2), attn_mask=lib_mask, enable_gqa=True)
                 for t in sets]
             lib_ms = time_ms(torch, lfns)
             seg_extra["library_kernel"] = top_kernel(torch, lfns[0])
-            nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * esz \
-                + 4 * b * hq * s + 4 * b * s
+            nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esz \
+                + 4 * b * hq * sq + 4 * b * (sq + (skv if kv_seg is not None
+                                                   else 0))
             bms, by = bound(nbytes, 4 * d * hq * pairs,
                             BF16_FLOPS if dt == bf16 else F32_FLOPS)
             record("flash_attention_fwd", tag, max(err, lerr),
-                   f"out atol {atol} + rtol {rtol}, lse {lse_tol}", ok, kfns,
-                   plain_ms, lib_ms, bms, by, False,
-                   note=SEGMENTED_LIBRARY_NOTE, extra=seg_extra)
+                   f"out atol {atol} + rtol {rtol}, lse {lse_tol}, dead rows "
+                   f"out 0 and lse -1e30", ok, kfns, plain_ms, lib_ms, bms,
+                   by, False, note=SEGMENTED_LIBRARY_NOTE, extra=seg_extra)
             del ref, ref_lse
 
-        # K5 / K6 against the plain backward on the same out / lse
+        # K5 / K6 against the plain backward on the same out / lse, and
+        # against themselves: no atomics, so a second launch gives the same
+        # bits
         dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        same = {"flash_attention_bwd_dq": torch.equal(
+                    dq, flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                    **kw)),
+                "flash_attention_bwd_dkv": all(map(torch.equal, (dk, dv), (
+                    flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 **kw))))}
         rq, rk, rv = flash_attention_bwd_reference(q, k, v, out, lse, do,
                                                    dlse, **kw)
         torch.cuda.synchronize()
@@ -713,8 +807,8 @@ def phase_kernels(torch):
             leaves = tuple(x.transpose(1, 2).detach().clone()
                            .requires_grad_(True) for x in t[:3])
             o = TF.scaled_dot_product_attention(
-                *leaves, attn_mask=seg_mask, is_causal=not segmented,
-                enable_gqa=True)
+                *leaves, attn_mask=lib_mask,
+                is_causal=causal and lib_mask is None, enable_gqa=True)
             graphs.append((o, leaves, t[3].transpose(1, 2)))
         lfns = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
                                                 retain_graph=True)
@@ -722,11 +816,14 @@ def phase_kernels(torch):
         lib_ms = time_ms(torch, lfns)
         bwd_extra = dict(seg_extra, library_kernel=top_kernel(torch, lfns[0]))
         del graphs, lfns
-        io = 4 * b * hq * s * 2 + (4 * b * s if segmented else 0)
+        io = 4 * b * hq * sq * 2 + (0 if seg is None else 4 * b * sq) \
+            + (0 if kv_seg is None else 4 * b * skv)
+        # keys no query sees get zero dk and dv, as dead rows get zero dq
+        dead_keys = (~keep.any(1)).expand(b, skv)
         for name, got, want, flops_per_pair, out_elems in (
-                ("flash_attention_bwd_dq", (dq,), (rq,), 6, b * s * hq * d),
+                ("flash_attention_bwd_dq", (dq,), (rq,), 6, b * sq * hq * d),
                 ("flash_attention_bwd_dkv", (dk, dv), (rk, rv), 8,
-                 2 * b * s * hkv * d)):
+                 2 * b * skv * hkv * d)):
             err = max(max_err(g, w) for g, w in zip(got, want))
             rels = [rel_l2(g, w) for g, w in zip(got, want)]
             if dt == bf16:
@@ -736,25 +833,34 @@ def phase_kernels(torch):
                 atol, rtol = tols(dt)
                 tol = f"atol {atol} + rtol {rtol}"
                 ok = all(within(g, w, atol, rtol) for g, w in zip(got, want))
-            ok = ok and all(bool(torch.isfinite(g).all().item()) for g in got)
+            ok = (ok and same[name]
+                  and all(bool(torch.isfinite(g).all().item()) for g in got))
+            if name.endswith("dq"):
+                ok = ok and dead_rows_ok(torch, keep, b, grad=dq)
+            else:
+                ok = ok and all(bool((g[dead_keys] == 0).all().item())
+                                for g in got)
             fn = (flash_attention_bwd_dq_cuda if name.endswith("dq")
                   else flash_attention_bwd_dkv_cuda)
             kfns = [lambda t=t, fn=fn: fn(t[0], t[1], t[2], t[3], t[6], t[7],
                                           **kw) for t in sets]
-            nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d
+            nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d
                       + out_elems) * esz + io
             bms, by = bound(nbytes, flops_per_pair * d * hq * pairs,
                             BF16_FLOPS if dt == bf16 else F32_FLOPS)
-            record(name, tag, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
-                   main, note=BWD_LIBRARY_NOTE + (
-                       "; " + SEGMENTED_LIBRARY_NOTE if segmented else ""),
+            record(name, tag, err, tol + ", finite, dead rows (keys) 0, "
+                   "the same bits twice", ok,
+                   kfns, plain_ms, lib_ms, bms, by, main,
+                   note=BWD_LIBRARY_NOTE + (
+                       "; " + SEGMENTED_LIBRARY_NOTE if lib_mask is not None
+                       else ""),
                    extra=dict(bwd_extra, rel_l2=rels,
+                              deterministic=same[name],
                               plain_note="flash_attention_bwd_reference: dq, "
                                          "dk and dv together"))
-            if not segmented and dt == bf16 and s == TRAIN_SEQ:
+            if (seg is None and causal and dt == bf16 and sq == TRAIN_SEQ):
                 results[name]["library_ms_unsegmented"] = lib_ms
         del sets, q, k, v, do, dlse, out, lse, delta, dq, dk, dv, rq, rk, rv
-        del seg_mask
 
     # ---- K1-paged / K2-paged: the paged engine's decode tick (s = 1) and
     # suffix prefill (s > 1) over a pool of block_len-token blocks, bf16 at

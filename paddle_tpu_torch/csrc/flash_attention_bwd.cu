@@ -14,45 +14,65 @@
 // h / G, optional int32 segment ids seg_q (B, Sq) / seg_kv (B, Skv) mask
 // pairs of different packed documents, ragged Sq / Skv are masked here,
 // and tiles wholly above the diagonal are skipped.  A row with every key
-// masked gets zero gradient.
+// masked gets zero gradient (P = 0 on every masked pair).  dk and dv are
+// summed over the G q heads of each GQA group in float32 registers and
+// rounded once (the reference writes per-q-head (B, Hq, Skv, D) partials,
+// rounds them and sums the group outside the kernel, :428-440).  Two
+// kernels and no atomics, as the reference's two pallas_calls: every
+// gradient is the same from run to run.
 //
 // Bound on the H100: operations, at training shapes: 14 * D FLOPs a
 // visible (query, key) pair (6 D for dq, 8 D for dk / dv) against the
-// 989 TFLOP/s bf16 tensor cores.  Design, simple first:
-//   * K5: one CTA per (64-query tile, q head, batch row), 4 warps of 16
-//     query rows; a warp's Q and dO fragments stay in registers, 64-key
-//     K / V tiles stream through shared memory, dq accumulates in float32
-//     registers and is rounded once;
-//   * K6: one CTA per (64-key tile, KV head, batch row), 4 warps of 16
-//     keys; it walks the G q heads of its group and the 64-query tiles at
-//     or below the diagonal, so dk and dv of the group are summed in
-//     float32 registers and rounded once (the reference writes per-q-head
-//     (B, Hq, Skv, D) partials, rounds them and sums the group outside the
-//     kernel, :428-440).  It computes S^T = K . Q^T and dP^T = V . dO^T
-//     directly, so P^T and dS^T are accumulator fragments that re-pack in
-//     registers as the A operand of P^T . dO and dS^T . Q; dO and Q enter
-//     those products through ldmatrix.trans.  P and dS are rounded to bf16
-//     for the products (the main source of error against the float32
-//     plain version).
-//   Both at bfloat16, D = 128 on mma.sync.m16n8k16; float32 at D = 16 (the
-//   tiny model) runs two CUDA-core kernels of one thread per query row
-//   (K5) or key row (K6).  Any other pair is refused.
-// wgmma/TMA, a cp.async ring and a persistent schedule are later work.
+// 989 TFLOP/s bf16 tensor cores; with packed documents few pairs are
+// visible and the bytes bind.  Two bodies (any other pair is refused):
+//   * bfloat16 at D = 128 (every training backward): Hopper kernels of
+//     384 threads, two consumer warpgroups of 64 rows and a producer warp
+//     (setmaxnreg 240 / 24), in the shape of K2's:
+//       - K5 (bwd_dq_wgmma_kernel): a CTA owns 128 queries of one q head;
+//         Q and dO come once by TMA; 64-key K / V tiles stream by TMA into
+//         a 3-stage mbarrier ring.  A consumer computes S = Q K^T and
+//         dP = dO V^T on wgmma m64n64k16 (both operands from shared
+//         memory, K-major), P = exp2(S scale log2e - lse log2e) and dS in
+//         registers (lse and delta of its two rows held in registers),
+//         and dq += dS K on m64n128k16 with dS as the register A operand
+//         and K read MN-major (the transpose flag); that product stays in
+//         flight under the next tile's S and dP, and a stage is released
+//         once it is done.  dq is rounded once and leaves through Q's
+//         shared memory by a TMA store.
+//       - K6 (bwd_dkv_wgmma_kernel): a CTA owns 128 keys of one KV head;
+//         K and V come once; the producer walks the G q heads of the group
+//         x the 64-query tiles at or below the diagonal, streaming Q, dO
+//         (4-d maps) and the tile's lse, delta and, with ids, query ids
+//         (1-d maps) into the ring.  A consumer computes S^T = K Q^T and
+//         dP^T = V dO^T (m64n64k16), forms P^T while dP^T is in flight,
+//         issues dV += P^T dO (P^T as the register A operand, dO MN-major),
+//         forms dS^T under it and issues dK += dS^T Q.  dk and dv (64 + 64
+//         float32 registers a thread) leave through K's and V's shared
+//         memory by TMA stores.
+//     Both apply the element mask only on the tiles the producer flags
+//     (across the causal diagonal, the ragged end, or, with ids, a tile
+//     pair whose ids are not all one value), and with ids skip every tile
+//     pair whose [min, max] id ranges miss (q_rng / kv_rng: 64-token
+//     ranges from segment_tile_ranges on the host; the 128-token tile of a
+//     CTA takes the union of its two).  P and dS are rounded to bf16 for
+//     the products (the main source of error against the float32 plain
+//     version).  K5 starts the heaviest (last) q tiles first, K6 the
+//     heaviest (first) key tiles.
+//   * float32 at D = 16 (the tiny model): two CUDA-core kernels of one
+//     thread per query row (K5) or key row (K6); wgmma has no float32
+//     input that keeps float32 numerics.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using ptt::cp_async16_zfill;
-using ptt::cp_async_commit_wait_all;
-using ptt::ldmatrix_x4_trans;
-using ptt::load_a_frag;
-using ptt::load_b_frag;
-using ptt::mma_bf16;
-using ptt::pack_bf16;
+using namespace ptt;
 
 constexpr int kTile = 64;   // queries or keys per tile, both kernels
 
@@ -219,315 +239,518 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bfloat16, D = 128
+// Hopper path: bfloat16, D = 128 (see the note at the top)
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;   // 4 warps of 16 rows
+constexpr int kHThreads = 384;     // consumers: warpgroups 0, 1; producer 2
+constexpr int kHConsumers = 256;
+constexpr int kBig = 128;          // the CTA's own tile (K5 queries, K6 keys)
+constexpr int kSmall = 64;         // the streamed tile (K5 keys, K6 queries)
+constexpr int kRT = 64;            // tokens a segment range covers
+constexpr int kStages = 3;
+constexpr int kBigHalf = kBig * 128;       // a 128-row x 64-wide bf16 box
+constexpr int kSmallHalf = kSmall * 128;   // a 64-row x 64-wide bf16 box
+constexpr int kBigTile = 2 * kBigHalf;     // 128 rows x 128 d, bytes
+constexpr int kSmallTile = 2 * kSmallHalf;
+constexpr int kVec = kSmall + kLead1d;     // a 1-d box: lse, delta or ids
+constexpr int kVecStride = stage_ints(kVec);   // its stride a stage
+constexpr float kLog2e = 1.4426950408889634f;
+// 1024 of alignment slack, the two resident tiles, the ring, per stage the
+// lse, delta and ids of 64 rows (K6; K5 uses the ids only), a slot, a full
+// and an empty barrier, and one barrier for the resident tiles
+constexpr size_t kHSmem = 1024 + 2 * (size_t)kBigTile +
+                          kStages * (2 * (size_t)kSmallTile + 3 * kVecStride * 4 +
+                                     8 + 16) + 8;
 
-template <int D>
-constexpr size_t mma_smem_bytes() {   // four [64][D + 8] bf16 tiles
-  return (size_t)4 * kTile * (D + 8) * sizeof(__nv_bfloat16);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// rows r of a (B, S, H, D) tensor at head h into a [64][D + 8] tile,
-// zero-filled past S (16 bytes a copy)
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int b,
-                                          int r0, int S, int H, int h,
-                                          int tid) {
-  constexpr int kPieces = D / 8, kStride = D + 8;
-  for (int idx = tid; idx < kTile * kPieces; idx += kMmaThreads) {
-    const int r = idx / kPieces, pc = idx - r * kPieces, rr = r0 + r;
-    const __nv_bfloat16* g =
-        src + (((size_t)b * S + min(rr, S - 1)) * H + h) * D + pc * 8;
-    cp_async16_zfill(dst + r * kStride + pc * 8, g, rr < S);
+// the [min, max] segment id of 128-token tile t: the union of the ranges
+// of its two 64-token halves (rng: (B, n, 2), n = ceil(S / 64))
+__device__ __forceinline__ int2 big_range(const int* rng, int b, int n,
+                                          int t) {
+  const int* r = rng + ((size_t)b * n + 2 * t) * 2;
+  int2 out = make_int2(r[0], r[1]);
+  if (2 * t + 1 < n) {
+    out.x = min(out.x, r[2]);
+    out.y = max(out.y, r[3]);
+  }
+  return out;
+}
+
+// the 64 x 128 accumulator `a` of warpgroup-row rl (rows rl, rl + 8) as bf16
+// into a 128-row tile in the 128-byte swizzled layout TMA stores from
+__device__ __forceinline__ void stage_rows(unsigned char* tile,
+                                          const float (&a)[64], int rl,
+                                          int c) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    unsigned char* base = tile + (j / 8) * kBigHalf +
+                          (((j % 8) ^ (rl & 7)) << 4) + 4 * c;
+    *reinterpret_cast<uint32_t*>(base + rl * 128) =
+        pack_bf16(a[4 * j], a[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(base + (rl + 8) * 128) =
+        pack_bf16(a[4 * j + 2], a[4 * j + 3]);
   }
 }
 
-// K5 bf16.  Each warp: query rows row0 = q0 + 16 w + g and row1 = row0 + 8
-// in the accumulator layout; per 16-key chunk of a tile it computes S and
-// dP (2 n-blocks each), forms dS, and adds dS . K (K through ldmatrix.trans).
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const int* __restrict__ seg_q,
-                  const int* __restrict__ seg_kv,
-                  __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int Hq,
-                  int Hkv, float scale, int causal) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int kStride = D + 8, kKSteps = D / 16, kDBlocks = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + kTile * kStride;
-  __nv_bfloat16* Ks = Os + kTile * kStride;
-  __nv_bfloat16* Vs = Ks + kTile * kStride;
-  __shared__ int seg_s[kTile];   // the key tile's segment ids
+// a 64 x 64 accumulator, rounded to bf16, as the register A operand of 4
+// k steps: k step t takes d[8t..8t+7]
+__device__ __forceinline__ void pack_a(const float (&d)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    a[t][0] = pack_bf16(d[8 * t], d[8 * t + 1]);
+    a[t][1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
+    a[t][2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
+    a[t][3] = pack_bf16(d[8 * t + 6], d[8 * t + 7]);
+  }
+}
 
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv), offset = Skv - Sq;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3, wr = warp * 16;
+// X = A . B^T for a 64-row A of 128 d (K-major, rows of a 128-byte
+// swizzled tile whose halves lie `a_half` apart) and a 64-row B (a 64-row
+// tile): m64n64k16 x 8 k steps, one commit group
+__device__ __forceinline__ void issue_abt(float (&x)[32],
+                                          const unsigned char* a, int a_half,
+                                          const unsigned char* bt) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    wgmma_ss<0, 0>(x, gmma_desc(a + (t / 4) * a_half + (t % 4) * 32, 16, 1024),
+                   gmma_desc(bt + (t / 4) * kSmallHalf + (t % 4) * 32, 16,
+                             1024),
+                   t > 0);
+  wgmma_commit();
+}
 
-  load_tile<D>(Qs, q, b, q0, Sq, Hq, h, tid);
-  load_tile<D>(Os, dout, b, q0, Sq, Hq, h, tid);
-  cp_async_commit_wait_all();
+// acc += A . T for A in registers (64 x 64, 4 k steps) and T a 64-row tile
+// of 128 d read MN-major (its rows are the k dimension): m64n128k16 x 4
+__device__ __forceinline__ void issue_at(float (&acc)[64],
+                                         const uint32_t (&a)[4][4],
+                                         const unsigned char* t) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_rs<1>(acc, a[k], gmma_desc(t + k * 2048, kSmallHalf, 1024), 1);
+}
+
+// K5 on Hopper: one CTA per (128-query tile, q head, batch row), the
+// heaviest (last) q tiles of every head first.  Warpgroup w < 2 owns query
+// rows [64w, 64w + 64); one warp of warpgroup 2 loads Q and dO once, then
+// streams 64-key K / V tiles (and, with ids, the tile's key ids) into the
+// ring and writes each stage's slot: (key tile, needs the element mask),
+// or (-1, 0) to end.
+template <bool SEG>
+__global__ void __launch_bounds__(kHThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap dq_map,
+                    const __grid_constant__ CUtensorMap seg_map,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ seg_q,
+                    const int* __restrict__ q_rng,
+                    const int* __restrict__ kv_rng, int B, int Sq, int Skv,
+                    int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* Qs = align1024(wg_smem);
+  unsigned char* Os = Qs + kBigTile;
+  unsigned char* Ks = Os + kBigTile;                    // [stage]
+  unsigned char* Vs = Ks + kStages * kSmallTile;        // [stage]
+  int* seg_s = reinterpret_cast<int*>(Vs + kStages * kSmallTile);  // [stage]
+  int2* slot = reinterpret_cast<int2*>(seg_s + kStages * kVecStride);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(slot + kStages);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int n_qt = (Sq + kBig - 1) / kBig;
+  const int bh = blockIdx.x % (Hq * B);
+  const int qt = n_qt - 1 - blockIdx.x / (Hq * B);
+  const int h = bh % Hq, b = bh / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kBig;
+  const int offset = Skv - Sq;   // query i sees keys j <= i + offset
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kHConsumers);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  unsigned qa[kKSteps][4], oa[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    load_a_frag(qa[kk], Qs + (wr + g) * kStride + kk * 16 + 2 * c, kStride);
-    load_a_frag(oa[kk], Os + (wr + g) * kStride + kk * 16 + 2 * c, kStride);
-  }
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const size_t lrow = ((size_t)b * Hq + h) * Sq;
-  const float l0 = row0 < Sq ? lse[lrow + row0] : 0.f;
-  const float l1 = row1 < Sq ? lse[lrow + row1] : 0.f;
-  const float d0 = row0 < Sq ? delta[lrow + row0] : 0.f;
-  const float d1 = row1 < Sq ? delta[lrow + row1] : 0.f;
-  const bool segmented = seg_q != nullptr;
-  const int sq0 = segmented && row0 < Sq ? seg_q[(size_t)b * Sq + row0] : 0;
-  const int sq1 = segmented && row1 < Sq ? seg_q[(size_t)b * Sq + row1] : 0;
 
-  float acc[kDBlocks][4];
-#pragma unroll
-  for (int db = 0; db < kDBlocks; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[db][e] = 0.f;
-
-  const int kv_hi = causal ? min(Skv, q0 + kTile + offset) : Skv;
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kTile) {
-    __syncthreads();   // every warp is done with the previous tile
-    load_tile<D>(Ks, k, b, kv0, Skv, Hkv, hk, tid);
-    load_tile<D>(Vs, v, b, kv0, Skv, Hkv, hk, tid);
-    if (segmented && tid < kTile)
-      seg_s[tid] = kv0 + tid < Skv ? seg_kv[(size_t)b * Skv + kv0 + tid] : 0;
-    cp_async_commit_wait_all();
-    __syncthreads();
-
-#pragma unroll 1
-    for (int j = 0; j < kTile / 16; ++j) {   // 16-key chunks
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int off = (j * 16 + n * 8 + g) * kStride + kk * 16 + 2 * c;
-          unsigned b0, b1;
-          load_b_frag(b0, b1, Ks + off);
-          mma_bf16(s[n], qa[kk], b0, b1);
-          load_b_frag(b0, b1, Vs + off);
-          mma_bf16(dp[n], oa[kk], b0, b1);
+  if (wg == 2) {
+    // ---- producer ----------------------------------------------------------
+    reg_dealloc<24>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    const int kv_hi = causal ? min(Skv, q0 + kBig + offset) : Skv;
+    const int n_kt = kv_hi > 0 ? (kv_hi + kSmall - 1) / kSmall : 0;
+    if (lane == 0) {   // Q and dO first: the ranges wait on global loads
+      mbar_expect_tx(q_full, 2 * kBigTile);
+      tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
+      tma_load_4d(Qs + kBigHalf, &q_map, q_full, 64, h, q0, b);
+      tma_load_4d(Os, &do_map, q_full, 0, h, q0, b);
+      tma_load_4d(Os + kBigHalf, &do_map, q_full, 64, h, q0, b);
+    }
+    int2 qr = make_int2(0, 0);
+    if constexpr (SEG) qr = big_range(q_rng, b, (Sq + kRT - 1) / kRT, qt);
+    int it = 0;
+    // 32 key tiles at a time, lane l deciding tile base - l
+    for (int base = n_kt - 1; base >= 0; base -= 32) {
+      const int j = base - lane;
+      bool vis = j >= 0;
+      bool masked = vis && ((causal && j * kSmall + kSmall - 1 > q0 + offset) ||
+                            j * kSmall + kSmall > Skv);
+      if constexpr (SEG) {
+        if (vis) {
+          const int* r = kv_rng + ((size_t)b * ((Skv + kRT - 1) / kRT) + j) * 2;
+          vis = r[1] >= qr.x && r[0] <= qr.y;
+          masked = masked || r[0] != r[1] || qr.x != qr.y || r[0] != qr.x;
         }
       }
-      // P = exp(S scale - lse) where visible, dS = P (dP - delta) scale
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cl = j * 16 + n * 8 + 2 * c + e, col = kv0 + cl;
-          bool k0 = row0 < Sq && col < Skv && (!causal || col <= row0 + offset);
-          bool k1 = row1 < Sq && col < Skv && (!causal || col <= row1 + offset);
-          if (segmented) {
-            k0 = k0 && seg_s[cl] == sq0;
-            k1 = k1 && seg_s[cl] == sq1;
-          }
-          const float p0 = k0 ? expf(s[n][e] * scale - l0) : 0.f;
-          const float p1 = k1 ? expf(s[n][2 + e] * scale - l1) : 0.f;
-          s[n][e] = p0 * (dp[n][e] - d0) * scale;
-          s[n][2 + e] = p1 * (dp[n][2 + e] - d1) * scale;
-        }
-      }
-      const unsigned da[4] = {pack_bf16(s[0][0], s[0][1]),
-                              pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]),
-                              pack_bf16(s[1][2], s[1][3])};
-      const int krow = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        unsigned kb[4];
-        ldmatrix_x4_trans(kb, Ks + krow * kStride + dpi * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dpi], da, kb[0], kb[1]);
-        mma_bf16(acc[2 * dpi + 1], da, kb[2], kb[3]);
+      unsigned todo = __ballot_sync(0xffffffffu, vis);
+      const unsigned mask_bits = __ballot_sync(0xffffffffu, masked);
+      if (lane != 0) continue;
+      while (todo) {
+        const int l = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int jt = base - l, k0 = jt * kSmall;
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        slot[s] = make_int2(jt, (mask_bits >> l) & 1);
+        unsigned char* kd = Ks + s * kSmallTile;
+        unsigned char* vd = Vs + s * kSmallTile;
+        mbar_expect_tx(&full[s], 2 * kSmallTile + (SEG ? kVec * 4 : 0));
+        tma_load_4d(kd, &k_map, &full[s], 0, hk, k0, b);
+        tma_load_4d(kd + kSmallHalf, &k_map, &full[s], 64, hk, k0, b);
+        tma_load_4d(vd, &v_map, &full[s], 0, hk, k0, b);
+        tma_load_4d(vd + kSmallHalf, &v_map, &full[s], 64, hk, k0, b);
+        if constexpr (SEG)
+          tma_load_1d(seg_s + s * kVecStride, &seg_map, &full[s],
+                      (b * Skv + k0) & ~3);
+        ++it;
       }
     }
+    if (lane == 0) {
+      const int s = it % kStages;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      slot[s] = make_int2(-1, 0);
+      mbar_arrive(&full[s]);
+    }
+    return;
   }
 
+  // ---- consumers -------------------------------------------------------------
+  reg_alloc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;   // rows rl, rl + 8 of the tile
+  const int r0 = q0 + rl, r1 = r0 + 8;
+  const size_t lrow = ((size_t)b * Hq + h) * Sq;
+  // lse in the log2 domain; rows past Sq load nothing and store nothing
+  const float ln0 = r0 < Sq ? lse[lrow + r0] * kLog2e : 0.f;
+  const float ln1 = r1 < Sq ? lse[lrow + r1] * kLog2e : 0.f;
+  const float dl0 = r0 < Sq ? delta[lrow + r0] : 0.f;
+  const float dl1 = r1 < Sq ? delta[lrow + r1] : 0.f;
+  int sq0 = 0, sq1 = 0;
+  if constexpr (SEG) {
+    sq0 = r0 < Sq ? seg_q[(size_t)b * Sq + r0] : 0;
+    sq1 = r1 < Sq ? seg_q[(size_t)b * Sq + r1] : 0;
+  }
+  const float sl2 = scale * kLog2e;
+  const unsigned char* qa = Qs + wg * 64 * 128;
+  const unsigned char* oa = Os + wg * 64 * 128;
+  float acc[64];
 #pragma unroll
-  for (int db = 0; db < kDBlocks; ++db) {
-    const int d = db * 8 + 2 * c;
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + (((size_t)b * Sq + row0) * Hq + h) * D + d) =
-          __floats2bfloat162_rn(acc[db][0], acc[db][1]);
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + (((size_t)b * Sq + row1) * Hq + h) * D + d) =
-          __floats2bfloat162_rn(acc[db][2], acc[db][3]);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t da[4][4];
+  // a key tile's ids start `lead` into their stage (a 1-d box's lead-in),
+  // the same for every tile of the CTA
+  const int lead = SEG ? (b * Skv) & 3 : 0;
+
+  mbar_wait(q_full, 0);
+  // per key tile: S = Q K^T and dP = dO V^T issued together; P once S is
+  // in (the last tile's dq is then done too, and its stage is released);
+  // dS once dP is in; dq += dS K issued and left in flight under the next
+  // tile's products
+  int cur = 0;
+  for (;; ++cur) {
+    const int st = cur % kStages;
+    mbar_wait(&full[st], (cur / kStages) & 1);
+    const int2 sl = slot[st];
+    if (sl.x < 0) break;
+    wgmma_fence();
+    issue_abt(sc, qa, kBigHalf, Ks + st * kSmallTile);
+    issue_abt(dp, oa, kBigHalf, Vs + st * kSmallTile);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (cur > 0) mbar_arrive(&empty[(cur + kStages - 1) % kStages]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      sc[i] = exp2_approx(fmaf(sc[i], sl2, -((i & 2) ? ln1 : ln0)));
+    if (sl.y) {   // P = 0 on the pairs the mask hides
+      const int k0 = sl.x * kSmall;
+      const int* ids = seg_s + st * kVecStride + lead;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cl = 8 * (i / 4) + 2 * c + (i & 1), col = k0 + cl;
+        bool keep = col < Skv && (!causal || col <= ((i & 2) ? r1 : r0) + offset);
+        if constexpr (SEG) keep = keep && ids[cl] == ((i & 2) ? sq1 : sq0);
+        if (!keep) sc[i] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * scale;
+    pack_a(dp, da);
+    wgmma_fence();
+    issue_at(acc, da, Ks + st * kSmallTile);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // dq through this warpgroup's rows of Q's shared memory (its last Q K^T
+  // is done) and a TMA store that drops rows past Sq
+  stage_rows(Qs, acc, rl, c);
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (tid == 0 && q0 + wg * 64 < Sq) {
+    tma_store_4d(&dq_map, Qs + wg * 64 * 128, 0, h, q0 + wg * 64, b);
+    tma_store_4d(&dq_map, Qs + kBigHalf + wg * 64 * 128, 64, h, q0 + wg * 64,
+                 b);
+    tma_store_commit_wait();
   }
 }
 
-// K6 bf16.  Each warp: keys key0 = kv0 + 16 w + g and key1 = key0 + 8 as
-// the accumulator rows; per 16-query chunk of a Q tile it computes S^T and
-// dP^T (2 n-blocks each, K / V as the A operand from shared memory), forms
-// P^T and dS^T, and adds P^T . dO and dS^T . Q (dO, Q through
-// ldmatrix.trans).
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const int* __restrict__ seg_q,
-                   const int* __restrict__ seg_kv,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int Hq,
-                   int Hkv, float scale, int causal) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int kStride = D + 8, kKSteps = D / 16, kDBlocks = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kTile * kStride;
-  __nv_bfloat16* Qs = Vs + kTile * kStride;
-  __nv_bfloat16* Os = Qs + kTile * kStride;
-  __shared__ float lse_s[kTile], dl_s[kTile];   // the query tile's rows
-  __shared__ int seg_s[kTile];
+// K6 on Hopper: one CTA per (128-key tile, kv head, batch row), the key
+// tiles that see the most queries (the first) first.  Warpgroup w < 2 owns
+// keys [64w, 64w + 64) of the tile; one warp of warpgroup 2 loads K and V
+// once, then walks the G q heads of the group x the 64-query tiles at or
+// below the diagonal, streaming Q, dO, lse, delta (and, with ids, the
+// query ids) of each into the ring; a stage's slot holds (the tile's first
+// query, needs the element mask | q head << 1), or (-1, 0) to end.
+template <bool SEG>
+__global__ void __launch_bounds__(kHThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map,
+                     const __grid_constant__ CUtensorMap lse_map,
+                     const __grid_constant__ CUtensorMap delta_map,
+                     const __grid_constant__ CUtensorMap seg_map,
+                     const int* __restrict__ seg_kv,
+                     const int* __restrict__ q_rng,
+                     const int* __restrict__ kv_rng, int B, int Sq, int Skv,
+                     int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* Ks = align1024(wg_smem);
+  unsigned char* Vs = Ks + kBigTile;
+  unsigned char* Qs = Vs + kBigTile;                    // [stage]
+  unsigned char* Os = Qs + kStages * kSmallTile;        // [stage]
+  float* lse_s = reinterpret_cast<float*>(Os + kStages * kSmallTile);
+  float* dl_s = lse_s + kStages * kVecStride;                 // [stage]
+  int* seg_s = reinterpret_cast<int*>(dl_s + kStages * kVecStride);
+  int2* slot = reinterpret_cast<int2*>(seg_s + kStages * kVecStride);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(slot + kStages);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int kv0 = blockIdx.x * kTile, hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv, offset = Skv - Sq;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3, wr = warp * 16;
+  const int bh = blockIdx.x % (Hkv * B);
+  const int kt = blockIdx.x / (Hkv * B);
+  const int hk = bh % Hkv, b = bh / Hkv;
+  const int G = Hq / Hkv;
+  const int k0 = kt * kBig;
+  const int offset = Skv - Sq;   // query i sees keys j <= i + offset
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  load_tile<D>(Ks, k, b, kv0, Skv, Hkv, hk, tid);
-  load_tile<D>(Vs, v, b, kv0, Skv, Hkv, hk, tid);
-  cp_async_commit_wait_all();
-  const int key0 = kv0 + wr + g, key1 = key0 + 8;
-  const bool segmented = seg_q != nullptr;
-  const int sk0 = segmented && key0 < Skv ? seg_kv[(size_t)b * Skv + key0] : 0;
-  const int sk1 = segmented && key1 < Skv ? seg_kv[(size_t)b * Skv + key1] : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kHConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float dka[kDBlocks][4], dva[kDBlocks][4];
-#pragma unroll
-  for (int db = 0; db < kDBlocks; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[db][e] = dva[db][e] = 0.f;
-
-  // queries i >= key - offset see the key: the first tile that can
-  int q_lo = causal ? max(0, kv0 - offset) : 0;
-  q_lo -= q_lo % kTile;
-#pragma unroll 1
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const size_t lrow = ((size_t)b * Hq + h) * Sq;
-#pragma unroll 1
-    for (int q0 = q_lo; q0 < Sq; q0 += kTile) {
-      __syncthreads();   // every warp is done with the previous tile
-      load_tile<D>(Qs, q, b, q0, Sq, Hq, h, tid);
-      load_tile<D>(Os, dout, b, q0, Sq, Hq, h, tid);
-      if (tid < kTile) {
-        const int qi = q0 + tid;
-        lse_s[tid] = qi < Sq ? lse[lrow + qi] : 0.f;
-        dl_s[tid] = qi < Sq ? delta[lrow + qi] : 0.f;
-        if (segmented) seg_s[tid] = qi < Sq ? seg_q[(size_t)b * Sq + qi] : 0;
-      }
-      cp_async_commit_wait_all();
-      __syncthreads();
-
-#pragma unroll 1
-      for (int j = 0; j < kTile / 16; ++j) {   // 16-query chunks
-        float s[2][4], dp[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk) {
-          unsigned ka[4], va[4];
-          const int aoff = (wr + g) * kStride + kk * 16 + 2 * c;
-          load_a_frag(ka, Ks + aoff, kStride);
-          load_a_frag(va, Vs + aoff, kStride);
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int off = (j * 16 + n * 8 + g) * kStride + kk * 16 + 2 * c;
-            unsigned b0, b1;
-            load_b_frag(b0, b1, Qs + off);
-            mma_bf16(s[n], ka, b0, b1);
-            load_b_frag(b0, b1, Os + off);
-            mma_bf16(dp[n], va, b0, b1);
+  if (wg == 2) {
+    // ---- producer ----------------------------------------------------------
+    reg_dealloc<24>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    const int n_qt = (Sq + kSmall - 1) / kSmall;
+    // queries i >= key - offset see the key: the first tile that can
+    const int qt_lo = causal ? max(0, k0 - offset) / kSmall : 0;
+    if (lane == 0) {   // K and V first: the ranges wait on global loads
+      mbar_expect_tx(kv_full, 2 * kBigTile);
+      tma_load_4d(Ks, &k_map, kv_full, 0, hk, k0, b);
+      tma_load_4d(Ks + kBigHalf, &k_map, kv_full, 64, hk, k0, b);
+      tma_load_4d(Vs, &v_map, kv_full, 0, hk, k0, b);
+      tma_load_4d(Vs + kBigHalf, &v_map, kv_full, 64, hk, k0, b);
+    }
+    int2 kr = make_int2(0, 0);
+    if constexpr (SEG) kr = big_range(kv_rng, b, (Skv + kRT - 1) / kRT, kt);
+    int it = 0;
+    for (int h = hk * G; h < hk * G + G; ++h) {
+      // 32 query tiles at a time, lane l deciding tile base + l
+      for (int base = qt_lo; base < n_qt; base += 32) {
+        const int j = base + lane, q0 = j * kSmall;
+        bool vis = j < n_qt;
+        bool masked = vis && ((causal && k0 + kBig - 1 > q0 + offset) ||
+                              q0 + kSmall > Sq || k0 + kBig > Skv);
+        if constexpr (SEG) {
+          if (vis) {
+            const int* r = q_rng + ((size_t)b * n_qt + j) * 2;
+            vis = kr.y >= r[0] && kr.x <= r[1];
+            masked = masked || kr.x != kr.y || r[0] != r[1] || kr.x != r[0];
           }
         }
-        // rows: keys key0 / key1; columns: queries
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cl = j * 16 + n * 8 + 2 * c + e, qi = q0 + cl;
-            bool k0 = qi < Sq && key0 < Skv && (!causal || key0 <= qi + offset);
-            bool k1 = qi < Sq && key1 < Skv && (!causal || key1 <= qi + offset);
-            if (segmented) {
-              k0 = k0 && seg_s[cl] == sk0;
-              k1 = k1 && seg_s[cl] == sk1;
-            }
-            const float lq = lse_s[cl], dq_ = dl_s[cl];
-            const float p0 = k0 ? expf(s[n][e] * scale - lq) : 0.f;
-            const float p1 = k1 ? expf(s[n][2 + e] * scale - lq) : 0.f;
-            s[n][e] = p0;
-            s[n][2 + e] = p1;
-            dp[n][e] = p0 * (dp[n][e] - dq_) * scale;
-            dp[n][2 + e] = p1 * (dp[n][2 + e] - dq_) * scale;
-          }
-        }
-        const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]),
-                                pack_bf16(s[0][2], s[0][3]),
-                                pack_bf16(s[1][0], s[1][1]),
-                                pack_bf16(s[1][2], s[1][3])};
-        const unsigned da[4] = {pack_bf16(dp[0][0], dp[0][1]),
-                                pack_bf16(dp[0][2], dp[0][3]),
-                                pack_bf16(dp[1][0], dp[1][1]),
-                                pack_bf16(dp[1][2], dp[1][3])};
-        const int qrow = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int dpi = 0; dpi < D / 16; ++dpi) {
-          const int off = qrow * kStride + dpi * 16 + (lane >> 4) * 8;
-          unsigned fb[4];
-          ldmatrix_x4_trans(fb, Os + off);
-          mma_bf16(dva[2 * dpi], pa, fb[0], fb[1]);
-          mma_bf16(dva[2 * dpi + 1], pa, fb[2], fb[3]);
-          ldmatrix_x4_trans(fb, Qs + off);
-          mma_bf16(dka[2 * dpi], da, fb[0], fb[1]);
-          mma_bf16(dka[2 * dpi + 1], da, fb[2], fb[3]);
+        unsigned todo = __ballot_sync(0xffffffffu, vis);
+        const unsigned mask_bits = __ballot_sync(0xffffffffu, masked);
+        if (lane != 0) continue;
+        while (todo) {
+          const int l = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int qs = (base + l) * kSmall;
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          slot[s] = make_int2(qs, ((mask_bits >> l) & 1) | (h << 1));
+          unsigned char* qd = Qs + s * kSmallTile;
+          unsigned char* od = Os + s * kSmallTile;
+          mbar_expect_tx(&full[s], 2 * kSmallTile + (SEG ? 3 : 2) * kVec * 4);
+          tma_load_4d(qd, &q_map, &full[s], 0, h, qs, b);
+          tma_load_4d(qd + kSmallHalf, &q_map, &full[s], 64, h, qs, b);
+          tma_load_4d(od, &do_map, &full[s], 0, h, qs, b);
+          tma_load_4d(od + kSmallHalf, &do_map, &full[s], 64, h, qs, b);
+          const int row = ((b * Hq + h) * Sq + qs) & ~3;
+          tma_load_1d(lse_s + s * kVecStride, &lse_map, &full[s], row);
+          tma_load_1d(dl_s + s * kVecStride, &delta_map, &full[s], row);
+          if constexpr (SEG)
+            tma_load_1d(seg_s + s * kVecStride, &seg_map, &full[s],
+                        (b * Sq + qs) & ~3);
+          ++it;
         }
       }
     }
+    if (lane == 0) {
+      const int s = it % kStages;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      slot[s] = make_int2(-1, 0);
+      mbar_arrive(&full[s]);
+    }
+    return;
   }
 
+  // ---- consumers -------------------------------------------------------------
+  reg_alloc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;   // keys rl, rl + 8 of the tile
+  const int key0 = k0 + rl, key1 = key0 + 8;
+  int sk0 = 0, sk1 = 0;
+  if constexpr (SEG) {
+    sk0 = key0 < Skv ? seg_kv[(size_t)b * Skv + key0] : 0;
+    sk1 = key1 < Skv ? seg_kv[(size_t)b * Skv + key1] : 0;
+  }
+  const float sl2 = scale * kLog2e;
+  const unsigned char* ka = Ks + wg * 64 * 128;
+  const unsigned char* va = Vs + wg * 64 * 128;
+  float dk[64], dv[64];
 #pragma unroll
-  for (int db = 0; db < kDBlocks; ++db) {
-    const int d = db * 8 + 2 * c;
-    if (key0 < Skv) {
-      const size_t o = (((size_t)b * Skv + key0) * Hkv + hk) * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[db][0], dka[db][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[db][0], dva[db][1]);
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+  // a query tile's ids start seg_lead into their stage (a 1-d box's
+  // lead-in), the same for every tile of the CTA
+  const int seg_lead = SEG ? (b * Sq) & 3 : 0;
+
+  mbar_wait(kv_full, 0);
+  // per query tile: S^T = K Q^T and dP^T = V dO^T issued together; P^T
+  // once S^T is in, and dV += P^T dO issued under dP^T; dS^T once dP^T is
+  // in, and dK += dS^T Q; the stage is released once both are done
+  for (int cur = 0;; ++cur) {
+    const int st = cur % kStages;
+    mbar_wait(&full[st], (cur / kStages) & 1);
+    const int2 sl = slot[st];
+    if (sl.x < 0) break;
+    const unsigned char* qt = Qs + st * kSmallTile;
+    const unsigned char* ot = Os + st * kSmallTile;
+    // this tile's lse and delta (of q head sl.y >> 1) start lead in
+    const int lead = ((b * Hq + (sl.y >> 1)) * Sq + sl.x) & 3;
+    wgmma_fence();
+    issue_abt(sc, ka, kBigHalf, qt);
+    issue_abt(dp, va, kBigHalf, ot);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    // columns are queries: sc[4j + e] is query 8j + 2c + (e & 1) of the tile
+    const float* ls = lse_s + st * kVecStride + lead;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float l0 = ls[8 * j + 2 * c] * -kLog2e;
+      const float l1 = ls[8 * j + 2 * c + 1] * -kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], sl2, (e & 1) ? l1 : l0));
     }
-    if (key1 < Skv) {
-      const size_t o = (((size_t)b * Skv + key1) * Hkv + hk) * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[db][2], dka[db][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[db][2], dva[db][3]);
+    if (sl.y & 1) {   // P = 0 on the pairs the mask hides
+      const int* ids = seg_s + st * kVecStride + seg_lead;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cl = 8 * (i / 4) + 2 * c + (i & 1), qi = sl.x + cl;
+        const int key = (i & 2) ? key1 : key0;
+        bool keep = qi < Sq && key < Skv && (!causal || key <= qi + offset);
+        if constexpr (SEG) keep = keep && ids[cl] == ((i & 2) ? sk1 : sk0);
+        if (!keep) sc[i] = 0.f;
+      }
     }
+    pack_a(sc, pa);
+    wgmma_fence();
+    issue_at(dv, pa, ot);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(dp);
+    const float* ds = dl_s + st * kVecStride + lead;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d0 = ds[8 * j + 2 * c], d1 = ds[8 * j + 2 * c + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * scale;
+    }
+    pack_a(dp, da);
+    wgmma_fence();
+    issue_at(dk, da, qt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[st]);
+  }
+
+  // dk and dv through this warpgroup's rows of K's and V's shared memory
+  // (only this warpgroup read them) and TMA stores that drop rows past Skv
+  stage_rows(Ks, dk, rl, c);
+  stage_rows(Vs, dv, rl, c);
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (tid == 0 && k0 + wg * 64 < Skv) {
+    const int r = k0 + wg * 64;
+    tma_store_4d(&dk_map, Ks + wg * 64 * 128, 0, hk, r, b);
+    tma_store_4d(&dk_map, Ks + kBigHalf + wg * 64 * 128, 64, hk, r, b);
+    tma_store_4d(&dv_map, Vs + wg * 64 * 128, 0, hk, r, b);
+    tma_store_4d(&dv_map, Vs + kBigHalf + wg * 64 * 128, 64, hk, r, b);
+    tma_store_commit_wait();
   }
 }
 
@@ -544,16 +767,88 @@ bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, const void* seg_q,
          (seg_q == nullptr) != (seg_kv == nullptr);
 }
 
+template <bool SEG>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const int* seg_q,
+                            const int* seg_kv, const int* q_rng,
+                            const int* kv_rng, void* dq, int B, int Sq,
+                            int Skv, int Hq, int Hkv, float scale, int causal,
+                            cudaStream_t st) {
+  CUtensorMap qm, km, vm, om, dqm, sm;
+  memset(&sm, 0, sizeof(sm));
+  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kBig);
+  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kSmall);
+  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kSmall);
+  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kBig);
+  if (e == cudaSuccess) e = bshd_map(&dqm, dq, B, Sq, Hq, kSmall);
+  if (e == cudaSuccess && SEG)
+    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv, (size_t)B * Skv,
+                 kVec);
+  if (e != cudaSuccess) return e;
+  auto kernel = bwd_dq_wgmma_kernel<SEG>;
+  e = allow_smem(kernel, kHSmem);
+  if (e != cudaSuccess) return e;
+  const long long ctas = (long long)((Sq + kBig - 1) / kBig) * Hq * B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)ctas, kHThreads, kHSmem, st>>>(
+      qm, km, vm, om, dqm, sm, lse, delta, seg_q, q_rng, kv_rng, B, Sq, Skv,
+      Hq, Hkv, scale, causal);
+  return cudaSuccess;
+}
+
+template <bool SEG>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, const int* seg_q,
+                             const int* seg_kv, const int* q_rng,
+                             const int* kv_rng, void* dk, void* dv, int B,
+                             int Sq, int Skv, int Hq, int Hkv, float scale,
+                             int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om, dkm, dvm, lm, dlm, sm;
+  memset(&sm, 0, sizeof(sm));
+  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kSmall);
+  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kBig);
+  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kBig);
+  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kSmall);
+  if (e == cudaSuccess) e = bshd_map(&dkm, dk, B, Skv, Hkv, kSmall);
+  if (e == cudaSuccess) e = bshd_map(&dvm, dv, B, Skv, Hkv, kSmall);
+  const size_t rows = (size_t)B * Hq * Sq;
+  if (e == cudaSuccess)
+    e = flat_map(&lm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, lse, rows, kVec);
+  if (e == cudaSuccess)
+    e = flat_map(&dlm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, delta, rows, kVec);
+  if (e == cudaSuccess && SEG)
+    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_q, (size_t)B * Sq,
+                 kVec);
+  if (e != cudaSuccess) return e;
+  if (rows > 0x7fffffffULL) return cudaErrorInvalidValue;
+  auto kernel = bwd_dkv_wgmma_kernel<SEG>;
+  e = allow_smem(kernel, kHSmem);
+  if (e != cudaSuccess) return e;
+  const long long ctas = (long long)((Skv + kBig - 1) / kBig) * Hkv * B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)ctas, kHThreads, kHSmem, st>>>(
+      qm, km, vm, om, dkm, dvm, lm, dlm, sm, seg_kv, q_rng, kv_rng, B, Sq,
+      Skv, Hq, Hkv, scale, causal);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (D = 128,
-// tensor cores), 1 = float32 (D = 16, CUDA cores); any other pair, or
-// only one of seg_q / seg_kv, returns cudaErrorInvalidValue.  Tensors
-// contiguous, bf16 ones 16-byte aligned.  Returns cudaGetLastError().
+// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (D = 128, the
+// Hopper kernel), 1 = float32 (D = 16, CUDA cores); any other pair, or only
+// one of seg_q / seg_kv, returns cudaErrorInvalidValue.  Tensors
+// contiguous and 16-byte aligned (seg_q / seg_kv too).  With segment ids the
+// bfloat16 build also takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B,
+// ceil(Skv / 64), 2): the int32 [min, max] id of every 64 tokens
+// (segment_tile_ranges); the float32 build ignores them.  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       const void* seg_q, const void* seg_kv,
+                                      const void* q_rng, const void* kv_rng,
                                       void* dq, int B, int Sq, int Skv,
                                       int Hq, int Hkv, int D, float scale,
                                       int causal, int dtype, void* stream) {
@@ -564,25 +859,29 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   const int* sq = static_cast<const int*>(seg_q);
   const int* skv = static_cast<const int*>(seg_kv);
-  const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
-  if (dtype == 0 && D == 128) {
-    constexpr size_t smem = mma_smem_bytes<128>();
-    cudaError_t e = allow_smem(bwd_dq_mma_kernel<128>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    bwd_dq_mma_kernel<128><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), l, dl, sq, skv,
-        static_cast<__nv_bfloat16*>(dq), Sq, Skv, Hq, Hkv, scale, causal);
-  } else if (dtype == 1 && D == 16) {
+  const int* qr = static_cast<const int*>(q_rng);
+  const int* kr = static_cast<const int*>(kv_rng);
+  cudaError_t e;
+  if (dtype == 0 && D == 128 && sq != nullptr)
+    e = (qr == nullptr || kr == nullptr)
+            ? cudaErrorInvalidValue
+            : launch_dq_wgmma<true>(q, k, v, dout, l, dl, sq, skv, qr, kr, dq,
+                                    B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  else if (dtype == 0 && D == 128)
+    e = launch_dq_wgmma<false>(q, k, v, dout, l, dl, nullptr, nullptr,
+                               nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv,
+                               scale, causal, st);
+  else if (dtype == 1 && D == 16) {
+    const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
     bwd_dq_f32_kernel<16><<<grid, kF32Threads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
         sq, skv, static_cast<float*>(dq), Sq, Skv, Hq, Hkv, scale, causal);
+    e = cudaSuccess;
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    e = cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -592,6 +891,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        const void* seg_q, const void* seg_kv,
+                                       const void* q_rng, const void* kv_rng,
                                        void* dk, void* dv, int B, int Sq,
                                        int Skv, int Hq, int Hkv, int D,
                                        float scale, int causal, int dtype,
@@ -603,27 +903,31 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   const int* sq = static_cast<const int*>(seg_q);
   const int* skv = static_cast<const int*>(seg_kv);
-  const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
-  if (dtype == 0 && D == 128) {
-    constexpr size_t smem = mma_smem_bytes<128>();
-    cudaError_t e = allow_smem(bwd_dkv_mma_kernel<128>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    bwd_dkv_mma_kernel<128><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), l, dl, sq, skv,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
-        Skv, Hq, Hkv, scale, causal);
-  } else if (dtype == 1 && D == 16) {
+  const int* qr = static_cast<const int*>(q_rng);
+  const int* kr = static_cast<const int*>(kv_rng);
+  cudaError_t e;
+  if (dtype == 0 && D == 128 && sq != nullptr)
+    e = (qr == nullptr || kr == nullptr)
+            ? cudaErrorInvalidValue
+            : launch_dkv_wgmma<true>(q, k, v, dout, l, dl, sq, skv, qr, kr,
+                                     dk, dv, B, Sq, Skv, Hq, Hkv, scale,
+                                     causal, st);
+  else if (dtype == 0 && D == 128)
+    e = launch_dkv_wgmma<false>(q, k, v, dout, l, dl, nullptr, nullptr,
+                                nullptr, nullptr, dk, dv, B, Sq, Skv, Hq,
+                                Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 16) {
+    const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
     bwd_dkv_f32_kernel<16><<<grid, kF32Threads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
         sq, skv, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv,
         Hq, Hkv, scale, causal);
+    e = cudaSuccess;
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    e = cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -656,16 +656,11 @@ constexpr int kHThreads = 384;        // consumers: warpgroups 0, 1; producer 2
 constexpr int kHConsumers = 256;
 constexpr int kHHalf = 128 * 128;     // a 128-row x 64-wide bf16 box, bytes
 constexpr int kHTile = 2 * kHHalf;    // a 128-row x 128-wide tile
+constexpr int kHSeg = stage_ints(kHK + kLead1d);   // a stage's key ids
 constexpr size_t kHSmem = 1024 + (size_t)(1 + 2 * kHStages) * kHTile +
-                          kHStages * kHK * 4 + kHStages * 8 +
+                          kHStages * kHSeg * 4 + kHStages * 8 +
                           (1 + 4 * kHStages) * 8;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <bool SEG>
 __global__ void __launch_bounds__(kHThreads, 1)
@@ -685,8 +680,9 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
   unsigned char* Ks = Qs + kHTile;                      // [stage]
   unsigned char* Vs = Ks + kHStages * kHTile;           // [stage]
-  int* seg_s = reinterpret_cast<int*>(Vs + kHStages * kHTile);  // [stage][128]
-  int2* slot = reinterpret_cast<int2*>(seg_s + kHStages * kHK);
+  // [stage][kHSeg]: a key tile's ids, read (b * Skv + k0) & 3 in
+  int* seg_s = reinterpret_cast<int*>(Vs + kHStages * kHTile);
+  int2* slot = reinterpret_cast<int2*>(seg_s + kHStages * kHSeg);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(slot + kHStages);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kHStages;
@@ -722,15 +718,15 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int kv_hi = causal ? min(Skv, q0 + kHQ + offset) : Skv;
     const int n_kt = kv_hi > 0 ? (kv_hi + kHK - 1) / kHK : 0;
     const int n_kvt = (Skv + kHK - 1) / kHK;
+    if (lane == 0) {   // Q first: the ranges below wait on global loads
+      mbar_expect_tx(q_full, kHTile);
+      tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
+      tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
+    }
     int qmin = 0, qmax = 0;
     if constexpr (SEG) {
       qmin = q_rng[((size_t)b * n_qt + qt) * 2];
       qmax = q_rng[((size_t)b * n_qt + qt) * 2 + 1];
-    }
-    if (lane == 0) {
-      mbar_expect_tx(q_full, kHTile);
-      tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
-      tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
     }
     int it = 0;
     // 32 key tiles at a time, lane l deciding tile base - l
@@ -760,11 +756,12 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         slot[s] = make_int2(jt, (mask_bits >> l) & 1);
         unsigned char* kd = Ks + s * kHTile;
         unsigned char* vd = Vs + s * kHTile;
-        mbar_expect_tx(&k_full[s], kHTile + (SEG ? kHK * 4 : 0));
+        mbar_expect_tx(&k_full[s], kHTile + (SEG ? (kHK + kLead1d) * 4 : 0));
         tma_load_4d(kd, &k_map, &k_full[s], 0, hk, k0, b);
         tma_load_4d(kd + kHHalf, &k_map, &k_full[s], 64, hk, k0, b);
         if constexpr (SEG)
-          tma_load_1d(seg_s + s * kHK, &seg_map, &k_full[s], b * Skv + k0);
+          tma_load_1d(seg_s + s * kHSeg, &seg_map, &k_full[s],
+                      (b * Skv + k0) & ~3);
         mbar_wait(&v_empty[s], free_parity);
         mbar_expect_tx(&v_full[s], kHTile);
         tma_load_4d(vd, &v_map, &v_full[s], 0, hk, k0, b);
@@ -814,15 +811,10 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     wgmma_commit();
   };
-  // the element mask of a tile the producer flagged (sl.y)
-  auto mask = [&](float (&sc)[64], int2 sl, int s) {
-    if (negate) {
-#pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = -sc[i];
-    }
-    if (!sl.y) return;
-    const int k0 = sl.x * kHK;
-    const int* ids = seg_s + s * kHK;
+  // a key tile's ids start `lead` into their stage, the same for every
+  // tile of the CTA (k0 is a multiple of 4)
+  const int lead = SEG ? (b * Skv) & 3 : 0;
+  auto mask_ids = [&](float (&sc)[64], int k0, const int* ids) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -835,6 +827,20 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         if (!keep) sc[4 * j + e] = -INFINITY;
       }
     }
+  };
+  // the element mask of a tile the producer flagged (sl.y); at lead 0 the
+  // ids' loads pair up
+  auto mask = [&](float (&sc)[64], int2 sl, int s) {
+    if (negate) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = -sc[i];
+    }
+    if (!sl.y) return;
+    const int* ids = seg_s + s * kHSeg;
+    if (lead == 0)
+      mask_ids(sc, sl.x * kHK, ids);
+    else
+      mask_ids(sc, sl.x * kHK, ids + lead);
   };
   // online softmax: row r0 holds sc[4j], sc[4j + 1], row r1 sc[4j + 2],
   // sc[4j + 3]; a row's 128 scores live in the 4 lanes of a quad.  sc
@@ -988,19 +994,6 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// a tensor map over one (B, S, H, 128) bf16 tensor: boxes of `rows`
-// consecutive s and 64 of the 128 d, 128-byte swizzle
-cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
-                     int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kHD, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)kHD * 2;
-  const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,
-                    box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <bool SEG>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, const int* seg_q,
@@ -1013,13 +1006,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kHK);
   if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kHK);
   if (e == cudaSuccess) e = bshd_map(&om, out, B, Sq, Hq, kHQ / 2);
-  if (e == cudaSuccess && SEG) {
-    const cuuint64_t dims[1] = {(cuuint64_t)B * Skv};
-    const cuuint64_t no_strides[1] = {0};
-    const cuuint32_t box[1] = {kHK};
-    e = encode_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, seg_kv, dims,
-                   no_strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
-  }
+  if (e == cudaSuccess && SEG)
+    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv, (size_t)B * Skv,
+                 kHK + kLead1d);
   if (e != cudaSuccess) return e;
   auto kernel = flash_attention_fwd_wgmma_kernel<SEG>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

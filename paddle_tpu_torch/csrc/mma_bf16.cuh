@@ -1,5 +1,6 @@
-// Tensor-core helpers shared by the flash-attention kernels
-// (flash_attention_fwd.cu: K2, flash_attention_bwd.cu: K5 / K6).
+// Tensor-core helpers: mma.sync and its fragment loads (the paged K2
+// builds in flash_attention_fwd.cu), ldmatrix (also K4 in int8_matmul.cu),
+// cp.async, and pack_bf16 (every bf16 kernel, K5 / K6 included).
 //
 // mma.sync.m16n8k16 with bf16 inputs and float32 accumulation, its
 // fragment loads (ldmatrix, plain 32-bit shared-memory loads) and cp.async

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels
-// (int8_matmul.cu: K4, flash_attention_fwd.cu: K2).
+// (int8_matmul.cu: K4, flash_attention_fwd.cu: K2, flash_attention_bwd.cu:
+// K5 and K6).
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     wait on a phase parity;
@@ -13,7 +14,8 @@
 //     1024-byte aligned tile), fence / commit / wait, and the products
 //     m64nNk16 (bf16 in, float32 accumulate) with A from registers or from
 //     shared memory;
-//   * setmaxnreg, named barriers, the async-proxy fence.
+//   * setmaxnreg, named barriers, the async-proxy fence, exp2;
+//   * host: tensor maps of (B, S, H, 128) bf16 tensors and flat 1-d arrays.
 //
 // Register layouts (a warpgroup of 4 warps; warp w owns rows 16w..16w+15
 // of the 64; g = lane / 4, c = lane % 4):
@@ -82,6 +84,14 @@ __device__ __forceinline__ uint64_t map_addr(const CUtensorMap* m) {
   return reinterpret_cast<uint64_t>(m);
 }
 
+// A 1-d box of 4-byte values starts at a 16-byte aligned element: a run
+// from element i is loaded kLead1d elements longer from i & ~3 and read
+// i & 3 elements in (a start at i faults when 4 * i is not a multiple of
+// 16).  Like every tensor copy it lands 128-byte aligned in shared memory:
+// stage_ints(n) is the stride, in 4-byte elements, of n of them a stage.
+constexpr int kLead1d = 4;
+constexpr int stage_ints(int n) { return (n + 31) / 32 * 32; }
+
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* m,
                                             uint64_t* bar, int c0) {
   asm volatile(
@@ -133,6 +143,13 @@ __device__ __forceinline__ void tma_store_commit_wait() {
 // (a TMA store or a wgmma that reads them next)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 2^x on the SFU (log2 e folded into a kernel's scale)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- warpgroups ------------------------------------------------------------------
@@ -332,6 +349,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "n"(TB));
 }
 
+// m64n64k16, A and B from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // m64n128k16, A and B from shared memory
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
@@ -403,6 +439,31 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a map over one (B, S, H, 128) bf16 tensor: boxes of `rows` consecutive s
+// and 64 of the 128 d (two boxes a 128-wide row), 128-byte swizzle; rows
+// past S load as zero and are not stored
+inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
+                            int rows) {
+  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t row = 128 * 2;
+  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a 1-d map over n 4-byte elements (float32 or int32; 16-byte aligned
+// base), boxes of `box` consecutive elements at any start
+inline cudaError_t flat_map(CUtensorMap* m, CUtensorMapDataType type,
+                            const void* p, size_t n, int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t no_strides[1] = {0};
+  const cuuint32_t b[1] = {(cuuint32_t)box};
+  return encode_map(m, type, 1, p, dims, no_strides, b,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace ptt

@@ -11,16 +11,20 @@ above the diagonal skipped, and zero gradient for a row with every key
 masked.
 
 Bound on the H100: operations (14 * D FLOPs a visible query-key pair on
-the bf16 tensor cores).  What the design does about it: K5 keeps a warp's
-Q and dO fragments in registers and streams 64-key K / V tiles through
-shared memory, dq in float32 registers; K6 gives one CTA a 64-key tile of
-one KV head and walks every q head of its GQA group over the query tiles
-at or below the diagonal, so dk and dv are summed over the group in
+the bf16 tensor cores).  What the design does about it: the bfloat16
+head_dim-128 builds are Hopper kernels — ``wgmma`` for all four products,
+TMA into ``mbarrier`` rings fed by a producer warp, two consumer
+warpgroups.  K5 gives a CTA 128 queries of one q head, holds Q and dO,
+and streams 64-key K / V tiles; K6 gives a CTA 128 keys of one KV head,
+holds K and V, and walks every q head of its GQA group over the 64-query
+tiles at or below the diagonal, so dk and dv are summed over the group in
 float32 registers and rounded once — the (B, Hq, Skv, D) per-q-head
-partials the reference writes and sums (:428-440) never exist.  Both
-build for bfloat16 at head_dim 128 (``mma.sync``) and float32 at head_dim
-16 (CUDA cores); any other pair raises.  Each wrapper counts its launches
-in ``.launches``.
+partials the reference writes and sums (:428-440) never exist.  Two
+kernels and no atomics: every gradient is the same from run to run.  With
+segment ids both skip the tile pairs whose id ranges miss
+(:func:`backward_tile_ranges`).  float32 at head_dim 16 runs CUDA-core
+kernels; any other pair raises.  Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, check_attention_args, require_cuda, stream_ptr
-from .flash_attention import HEAD_DIM, _ptr, segment_args
+from .flash_attention import (HEAD_DIM, _ptr, segment_args,
+                              segment_tile_ranges)
 
 NAME = "flash_attention_bwd"
+RANGE_TILE = 64         # tokens a segment range covers (csrc: kRT)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,13 +49,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     fq = lib.flash_attention_bwd_dq
     if fq.argtypes is None:
-        # q k v dout lse delta seg_q seg_kv dq; B Sq Skv Hq Hkv D; scale;
-        # causal dtype; stream
-        fq.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+        # q k v dout lse delta seg_q seg_kv q_rng kv_rng dq; B Sq Skv Hq
+        # Hkv D; scale; causal dtype; stream
+        fq.argtypes = [_P] * 11 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
         fq.restype = ctypes.c_int
         fk = lib.flash_attention_bwd_dkv
-        # q k v dout lse delta seg_q seg_kv dk dv; B Sq Skv Hq Hkv D; ...
-        fk.argtypes = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+        # q k v dout lse delta seg_q seg_kv q_rng kv_rng dk dv; B Sq Skv
+        # Hq Hkv D; ...
+        fk.argtypes = [_P] * 12 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
         fk.restype = ctypes.c_int
     return lib
 
@@ -69,9 +76,39 @@ def _check(q, k, v, do, lse, delta):
             raise ValueError(f"{NAME}: {name} must be float32 "
                              f"{(b, hq, sq)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if do.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in (do, lse, delta)):
         raise NotImplementedError(f"{NAME}: tensors must be 16-byte aligned")
     return code
+
+
+def backward_tile_ranges(segment_ids: torch.Tensor,
+                         kv_segment_ids: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_rng, kv_rng): the int32 [min, max] id of every ``RANGE_TILE``
+    queries and keys (:func:`segment_tile_ranges`), (B, ceil(S / 64), 2)
+    each.  K5 and K6 skip every tile pair whose ranges miss (a 128-token
+    tile takes the union of its two ranges).  ``kv_segment_ids`` defaults
+    to ``segment_ids``."""
+    q_rng = segment_tile_ranges(segment_ids, RANGE_TILE)
+    kv_rng = (q_rng if kv_segment_ids is None
+              else segment_tile_ranges(kv_segment_ids, RANGE_TILE))
+    return q_rng, kv_rng
+
+
+def _segments(q, skv, segment_ids, kv_segment_ids):
+    """(seg_q, seg_kv, q_rng, kv_rng) for the C entry: int32 ids on q's
+    device, 16-byte aligned (the bf16 kernels load them by TMA), and for
+    the bf16 build their tile ranges."""
+    b, sq = q.shape[:2]
+    seg_q, seg_kv = segment_args(NAME, segment_ids, kv_segment_ids, b, sq,
+                                 skv, q.device)
+    if seg_q is None or q.dtype != torch.bfloat16:
+        return seg_q, seg_kv, None, None
+    seg_q, seg_kv = (t.clone() if t.data_ptr() % 16 else t
+                     for t in (seg_q, seg_kv))
+    q_rng, kv_rng = backward_tile_ranges(
+        seg_q, None if kv_segment_ids is None else seg_kv)
+    return seg_q, seg_kv, q_rng, kv_rng
 
 
 def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -86,17 +123,16 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     code = _check(q, k, v, do, lse, delta)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    seg_q, seg_kv = segment_args(NAME, segment_ids, kv_segment_ids, b, sq,
-                                 skv, q.device)
+    seg_q, seg_kv, q_rng, kv_rng = _segments(q, skv, segment_ids,
+                                             kv_segment_ids)
     if b == 0 or sq == 0 or skv == 0:
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
     lib = _lib()
     err = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
-        _ptr(seg_q), _ptr(seg_kv), dq.data_ptr(),
-        b, sq, skv, hq, hkv, d,
+        lse.data_ptr(), delta.data_ptr(), _ptr(seg_q), _ptr(seg_kv),
+        _ptr(q_rng), _ptr(kv_rng), dq.data_ptr(), b, sq, skv, hq, hkv, d,
         float(d ** -0.5 if scale is None else scale), int(causal), code,
         stream_ptr(q.device))
     _build.check(lib, NAME, err)
@@ -120,19 +156,18 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
     code = _check(q, k, v, do, lse, delta)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    seg_q, seg_kv = segment_args(NAME, segment_ids, kv_segment_ids, b, sq,
-                                 skv, q.device)
+    seg_q, seg_kv, q_rng, kv_rng = _segments(q, skv, segment_ids,
+                                             kv_segment_ids)
     if b == 0 or sq == 0 or skv == 0:
         return torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _lib()
     err = lib.flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
-        _ptr(seg_q), _ptr(seg_kv), dk.data_ptr(),
-        dv.data_ptr(), b, sq, skv, hq, hkv, d,
-        float(d ** -0.5 if scale is None else scale), int(causal), code,
-        stream_ptr(q.device))
+        lse.data_ptr(), delta.data_ptr(), _ptr(seg_q), _ptr(seg_kv),
+        _ptr(q_rng), _ptr(kv_rng), dk.data_ptr(), dv.data_ptr(), b, sq, skv,
+        hq, hkv, d, float(d ** -0.5 if scale is None else scale),
+        int(causal), code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
