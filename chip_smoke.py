@@ -18,16 +18,17 @@ any failed check raises, so the script exits non-zero.  Phases:
                  ``wgmma.mma_async`` instructions of any kernel (named);
   2. kernels   — K1 flash-decode, K2 flash-attention forward and K3
                  RMSNorm at the serving path's Llama-3-8B shapes (bf16),
-                 then K1-paged (decode tick) and K2-paged (suffix prefill)
-                 on pools built so a kernel cannot pass by accident
-                 (physical blocks shuffled, rows sharing their first
-                 blocks, null-filled dead tails), then the int8 builds:
-                 K1-int8 over a contiguous int8 cache with 128-token scale
-                 granules, K1-paged-int8 and K2-paged-int8 over int8 pools
-                 with per-block scales, and K4, the weight-only int8 GEMM,
-                 at every Llama-3-8B projection shape (8 rows), at the row
-                 counts a prefill wave sends it (16, 64, 128 rows of
-                 gate/up) and at 256 rows (its limit); K2 with
+                 then K1-paged (decode tick) and K2-paged (suffix prefill,
+                 block_len 128 and 64) on pools built so a kernel cannot
+                 pass by accident (physical blocks shuffled, rows sharing
+                 their first blocks, null-filled dead tails), then the
+                 int8 builds: K1-int8 over a contiguous int8 cache with
+                 128-token scale granules, K1-paged-int8 and
+                 K2-paged-int8 over int8 pools with per-block scales, and
+                 K4, the weight-only int8 GEMM, at every Llama-3-8B
+                 projection shape (8 rows), at the row counts a prefill
+                 wave sends it (16, 64, 128 rows of gate/up) and at 256
+                 rows (its limit); K2 with
                  packed-document segment ids and the flash
                  backward K5 (dq) / K6 (dk, dv) at the training
                  micro-batch's shape (B=2, S=2048, 3-8 documents a row;
@@ -351,7 +352,9 @@ def within(a, b, atol: float, rtol: float) -> bool:
 
 def ptxas_functions(log: str):
     """Registers and spill-store bytes of each entry function in ptxas's
-    ``-v`` report (mangled names; ``Lb1E`` marks a paged build)."""
+    ``-v`` report (mangled names; the Hopper K2 kernel's template
+    arguments are <SEG, PAGED, INT8>, so ``ILb0ELb1ELb1EE`` is
+    K2-paged-int8)."""
     out, fn, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -864,11 +867,11 @@ def phase_kernels(torch):
 
     # ---- K1-paged / K2-paged: the paged engine's decode tick (s = 1) and
     # suffix prefill (s > 1) over a pool of block_len-token blocks, bf16 at
-    # head_dim 128 (block_len 128, max_blocks 32: max_length 4096), then
-    # the tiny model's float32 builds (head_dim 16).  Every pool has its
-    # physical blocks shuffled, two row pairs sharing their first blocks
-    # and null-filled dead tails; rows whose pos + s passes
-    # max_blocks * block_len check the clamp.
+    # head_dim 128 (block_len 128, max_blocks 32: max_length 4096; K2-paged
+    # also at block_len 64), then the tiny model's float32 builds (head_dim
+    # 16).  Every pool has its physical blocks shuffled, two row pairs
+    # sharing their first blocks and null-filled dead tails; rows whose
+    # pos + s passes max_blocks * block_len check the clamp.
     paged_rows = (
         # K1-paged: K1's phase-2 depths, so the two rows compare
         ("decode_attention_paged", bf16, 32, 8, 128, 8, 1, 128, 32,
@@ -888,6 +891,14 @@ def phase_kernels(torch):
          [5, 700], ((0, 1, 1),), False),
         ("flash_attention_fwd_paged", bf16, 32, 8, 128, 3, 100, 128, 32,
          [0, 300, 4000], ((1, 2, 2),), False),
+        # three q tiles, the last ragged, at the main widths (G = 4)
+        ("flash_attention_fwd_paged", bf16, 32, 8, 128, 2, 300, 128, 32,
+         [0, 1536], ((0, 1, 4),), False),
+        # block_len 64: a 128-key tile spans two blocks (two table entries,
+        # int8: two scale pairs); an odd max_blocks leaves a tile's second
+        # half past the table, and row 2's pos + s passes it
+        ("flash_attention_fwd_paged", bf16, 32, 8, 128, 3, 300, 64, 23,
+         [0, 200, 1300], ((0, 1, 3),), False),
         ("flash_attention_fwd_paged", f32, 4, 2, 16, 2, 24, 8, 8, [5, 50],
          ((0, 1, 1),), False),
         ("flash_attention_fwd_paged", f32, 4, 2, 16, 3, 64, 16, 4,

@@ -1,4 +1,5 @@
-// Flash-attention forward: kernel K2 of paddle_tpu_torch.
+// Flash-attention forward: kernel K2 of paddle_tpu_torch, and its paged
+// builds K2-paged and K2-paged-int8.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py _fwd (:192) /
 // _fwd_kernel (:128): blocked online-softmax attention returning out and the
@@ -12,59 +13,46 @@
 // (the Hopper kernel stages each key tile's ids in shared memory); the
 // unsegmented builds carry none of it.
 //
+// Paged suffix prefill (entries flash_attention_fwd_paged and
+// flash_attention_fwd_paged_int8; replace the q-tiled mode of
+// paddle_tpu/ops/pallas/decode_attention.py, body _kernel :120, grid
+// :273-281, :319-335): the same attention with a per-row causal offset --
+// query i of row b sees keys j <= pos[b] + i, and keys j < min(pos[b] +
+// Sq, max_blocks * block_len) exist -- over one layer's (num_blocks,
+// block_len, Hkv, D) pool through an int32 (B, max_blocks) block table:
+// key j of row b lives at pool[table[b, j / block_len], j % block_len].
+// The int8 pool comes with float32 scales k_scale / v_scale (num_blocks,
+// Hkv), one per (block, kv head): K's scale is folded into the scores, V's
+// into the tile's probabilities after the row sums took them unscaled
+// (equal to scaling the tile's P.V before it joins the accumulator).  No
+// lse is written on this path.
+//
 // Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s),
 // the FLOPs at prefill shapes.  Common to every kernel below: K and V
 // stream through shared memory in tiles with an online softmax, so the
 // score matrix never reaches device memory, and causal tiles wholly above
-// the diagonal are never loaded.  Three bodies (any other dtype / head dim
+// the diagonal are never loaded.  Two bodies (any other dtype / head dim
 // is refused):
-//   * bfloat16 at D = 128, contiguous K/V (the serving waves and every
-//     training forward; segmented or not): the Hopper kernel,
+//   * bfloat16 q at D = 128 -- contiguous (the serving waves and every
+//     training forward; segmented or not), paged bf16 and paged int8 (the
+//     paged engine's prefill waves): the Hopper kernel,
 //     flash_attention_fwd_wgmma_kernel -- 128-query tiles on two consumer
-//     warpgroups, wgmma for Q.K^T and P.V, K/V by TMA into an mbarrier
-//     ring fed by a producer warp, exp2 with log2(e) in the scale, element
-//     masks only on the tiles that cross the diagonal or the ragged end,
+//     warpgroups, wgmma for Q.K^T and P.V, 128-key K/V tiles in an
+//     mbarrier ring fed by TMA (paged: two 64-key boxes a tile, each at
+//     its block's row; int8: boxes staged by TMA and converted to bf16 by
+//     the producer warpgroup), exp2 with log2(e) in the scale, element
+//     masks only on the tiles that cross the diagonal or the last key,
 //     the heaviest q tiles first, and with segment ids every key tile
-//     whose id range misses the q tile's skipped (see its notes);
-//   * bfloat16 at D = 128, paged (below): mma.sync.m16n8k16, one CTA per
-//     64-query tile, 64-key tiles by cp.async or converted from int8 --
-//     flash_attention_fwd_mma_kernel, the earlier body less its
-//     segment-id branch; it is the counterpart of another TPU kernel (the
-//     q-tiled mode of decode_attention.py), whose redesign is a later
-//     step;
-//   * float32 at D = 16 (the tiny test model): products on the CUDA cores
-//     -- each thread owns a 4x4 tile of scores (rows tr*4.., keys tc*4..)
-//     and 4 rows x (D/16) output elements, fed by 16-byte shared-memory
-//     reads of transposed Q and K tiles; the K tile's shared memory is
-//     reused for the probabilities (26 KB at D = 16).  wgmma has no
-//     float32 input that keeps float32 numerics, so it stays here.
-//
-// Paged suffix prefill (entry flash_attention_fwd_paged; replaces the
-// q-tiled mode of paddle_tpu/ops/pallas/decode_attention.py, body _kernel
-// :120, grid :273-281, :319-335).  The mma.sync and float32 kernels with
-// PAGED = true, two changes:
-//   * the causal offset is per row: query i of row b sees keys
-//     j <= pos[b] + i, and keys j < min(pos[b] + Sq, max_blocks *
-//     block_len) exist (instead of the shared Skv - Sq and Skv); tile
-//     skipping keys off the row's own offset;
-//   * K and V come from one layer's (num_blocks, block_len, Hkv, D) pool
-//     through an int32 (B, max_blocks) block table: key j of row b lives
-//     at pool[table[b, j / block_len], j % block_len].  The tensor-core
-//     kernel looks the table up once per 64-key tile, so it takes
-//     block_len % 64 == 0; the CUDA-core kernel looks it up per key.
-//   No lse is written on this path.
-//
-// Paged int8 suffix prefill (entry flash_attention_fwd_paged_int8;
-// replaces the quantized mode of the same Pallas kernel): the pool holds
-// int8 K/V and float32 scales k_scale / v_scale (num_blocks, Hkv), one
-// per (block, kv head).  The tensor-core kernel loads each 64-key int8
-// tile through the table into registers (16 bytes a load), converts it to
-// bf16 (exact for [-127, 127]) into the same shared-memory tiles, folds
-// K's block scale into the score scale and V's into the tile's
-// probabilities before their bf16 packing (equal to scaling the tile's
-// P.V before it joins the accumulator; the row sums take the unscaled
-// probabilities).  The float32 kernel dequantizes per key.  INT8 = false
-// leaves the two kernels above unchanged.
+//     whose id range misses the q tile's skipped (see its notes).  Paged,
+//     it takes block_len % 64 == 0;
+//   * float32 at D = 16 (the tiny test model), contiguous or paged (any
+//     block_len, the table looked up per key, int8 dequantized per key):
+//     products on the CUDA cores -- each thread owns a 4x4 tile of scores
+//     (rows tr*4.., keys tc*4..) and 4 rows x (D/16) output elements, fed
+//     by 16-byte shared-memory reads of transposed Q and K tiles; the K
+//     tile's shared memory is reused for the probabilities (26 KB at D =
+//     16).  wgmma has no float32 input that keeps float32 numerics, so it
+//     stays here.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,10 +66,6 @@
 
 namespace {
 
-using ptt::cp_async16_zfill;
-using ptt::cp_async_commit_wait_all;
-using ptt::ldmatrix_x4_trans;
-using ptt::mma_bf16;
 using ptt::pack_bf16;
 using namespace ptt;
 
@@ -289,309 +273,6 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor-core path of the paged builds: bfloat16, D = 128.
-//
-// One CTA per (64-query tile, q head, batch row), 4 warps of 16 query rows.
-// Q.K^T and P.V run on mma.sync.m16n8k16 (bf16 in, float32 accumulate):
-// a warp's Q fragments stay in registers for the whole key walk, the
-// scores' accumulator fragments are re-packed in registers as the A
-// operand of P.V (no shared-memory round trip for P), and V's B operand
-// comes through ldmatrix.trans.  64-key K/V tiles arrive by cp.async
-// (zero-filled past Skv); rows are padded by 8 elements so the fragment
-// loads are free of bank conflicts.
-// ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
-constexpr int kMmaBQ = 64;
-constexpr int kMmaBK = 64;
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8) * sizeof(__nv_bfloat16);
-}
-
-// 16 int8 values (one 16-byte load) as 16 bfloat16 at dst (32 bytes,
-// 16-byte aligned); exact for [-128, 127]
-__device__ __forceinline__ void int8x16_to_bf16(const uint4 raw,
-                                                __nv_bfloat16* dst) {
-  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-  uint4 lo, hi;
-  unsigned* l = reinterpret_cast<unsigned*>(&lo);
-  unsigned* h = reinterpret_cast<unsigned*>(&hi);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = pack_bf16(static_cast<float>(e[2 * i]),
-                     static_cast<float>(e[2 * i + 1]));
-    h[i] = pack_bf16(static_cast<float>(e[8 + 2 * i]),
-                     static_cast<float>(e[8 + 2 * i + 1]));
-  }
-  reinterpret_cast<uint4*>(dst)[0] = lo;
-  reinterpret_cast<uint4*>(dst)[1] = hi;
-}
-
-// KV: __nv_bfloat16, or int8_t for the int8 pool (PAGED only; see the
-// top) with its scales k_scale / v_scale.  Only the paged builds are
-// instantiated (the contiguous ones run the Hopper kernel below).
-template <int D, bool PAGED, typename KV = __nv_bfloat16>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const KV* __restrict__ k,
-                               const KV* __restrict__ v,
-                               __nv_bfloat16* __restrict__ out,
-                               float* __restrict__ lse, int Sq, int Skv,
-                               int Hq, int Hkv, float scale, int causal,
-                               const int* __restrict__ pos,
-                               const int* __restrict__ table, int max_blocks,
-                               int block_len,
-                               const float* __restrict__ k_scale,
-                               const float* __restrict__ v_scale) {
-  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  static_assert(!INT8 || PAGED, "the int8 cache is paged only");
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int kStride = D + 8;       // padded row, in elements
-  constexpr int kPieces = D / 8;       // 16-byte pieces of one row
-  constexpr int kKSteps = D / 16;      // k steps of Q.K^T
-  constexpr int kDBlocks = D / 8;      // 8-wide output column blocks
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kMmaBQ * kStride;
-  __nv_bfloat16* Vs = Ks + kMmaBK * kStride;
-
-  const int q0 = blockIdx.x * kMmaBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  // keys j < kv_len exist; query i sees j <= i + offset when causal
-  int offset = Skv - Sq, kv_len = Skv;
-  if constexpr (PAGED) {
-    offset = pos[b];
-    kv_len = min(offset + Sq, max_blocks * block_len);
-  }
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c = lane & 3;
-
-  for (int idx = tid; idx < kMmaBQ * kPieces; idx += kMmaThreads) {
-    const int r = idx / kPieces, pc = idx - r * kPieces;
-    const int qr = q0 + r;
-    const __nv_bfloat16* src =
-        q + (((size_t)b * Sq + min(qr, Sq - 1)) * Hq + h) * D + pc * 8;
-    cp_async16_zfill(Qs + r * kStride + pc * 8, src, qr < Sq);
-  }
-  cp_async_commit_wait_all();
-  __syncthreads();
-
-  const int wr = warp * 16;
-  unsigned qa[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const __nv_bfloat16* base = Qs + (wr + g) * kStride + kk * 16 + 2 * c;
-    qa[kk][0] = *reinterpret_cast<const unsigned*>(base);
-    qa[kk][1] = *reinterpret_cast<const unsigned*>(base + 8 * kStride);
-    qa[kk][2] = *reinterpret_cast<const unsigned*>(base + 8);
-    qa[kk][3] = *reinterpret_cast<const unsigned*>(base + 8 * kStride + 8);
-  }
-
-  float o[kDBlocks][4];
-#pragma unroll
-  for (int db = 0; db < kDBlocks; ++db)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const int kv_hi = causal ? min(kv_len, q0 + kMmaBQ + offset) : kv_len;
-
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kMmaBK) {
-    __syncthreads();   // every warp is done with the previous tile
-    // paged: the pool row of key kv0 (block_len % 64 == 0, so the whole
-    // tile lies in one block and every address is inside the pool)
-    size_t tile_row = 0;
-    int blk = 0;
-    if constexpr (PAGED) {
-      blk = table[(size_t)b * max_blocks + kv0 / block_len];
-      tile_row = (size_t)blk * block_len + kv0 % block_len;
-    }
-    float k_mul = scale;   // the score scale (int8: times K's block scale)
-    float v_mul = 1.f;     // int8: V's block scale
-    if constexpr (INT8) {
-      // int8 tile: 16-byte register loads (all in flight before the
-      // conversion), converted to bf16 into the same tiles
-      constexpr int kP8 = D / 16;   // 16-byte pieces of an int8 row
-      constexpr int kPer = kMmaBK * kP8 / kMmaThreads;
-      static_assert(kMmaBK * kP8 % kMmaThreads == 0, "tile split");
-      uint4 kr[kPer], vr[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int idx = tid + i * kMmaThreads;
-        const int j = idx / kP8, pc = idx - j * kP8;
-        const size_t gofs = ((tile_row + j) * Hkv + hk) * D + pc * 16;
-        const bool on = kv0 + j < kv_len;
-        kr[i] = on ? *reinterpret_cast<const uint4*>(k + gofs)
-                   : make_uint4(0u, 0u, 0u, 0u);
-        vr[i] = on ? *reinterpret_cast<const uint4*>(v + gofs)
-                   : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int idx = tid + i * kMmaThreads;
-        const int j = idx / kP8, pc = idx - j * kP8;
-        int8x16_to_bf16(kr[i], Ks + j * kStride + pc * 16);
-        int8x16_to_bf16(vr[i], Vs + j * kStride + pc * 16);
-      }
-      k_mul = scale * k_scale[(size_t)blk * Hkv + hk];
-      v_mul = v_scale[(size_t)blk * Hkv + hk];
-    } else {
-      for (int idx = tid; idx < kMmaBK * kPieces; idx += kMmaThreads) {
-        const int j = idx / kPieces, pc = idx - j * kPieces;
-        const int kc = kv0 + j;
-        size_t row = (size_t)b * Skv + min(kc, Skv - 1);
-        if constexpr (PAGED) row = tile_row + j;
-        const size_t gofs = (row * Hkv + hk) * D + pc * 8;
-        cp_async16_zfill(Ks + j * kStride + pc * 8, k + gofs, kc < kv_len);
-        cp_async16_zfill(Vs + j * kStride + pc * 8, v + gofs, kc < kv_len);
-      }
-      cp_async_commit_wait_all();
-    }
-    __syncthreads();
-
-    // S = Q K^T: 8 column blocks of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const __nv_bfloat16* kp = Ks + (nb * 8 + g) * kStride + kk * 16 + 2 * c;
-        mma_bf16(s[nb], qa[kk], *reinterpret_cast<const unsigned*>(kp),
-                 *reinterpret_cast<const unsigned*>(kp + 8));
-      }
-    }
-
-    // scale, mask, online softmax (rows row0 and row1; a row's 64 scores
-    // live in the 4 lanes of one quad)
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = kv0 + nb * 8 + 2 * c + e;
-        const bool k0 =
-            row0 < Sq && col < kv_len && (!causal || col <= row0 + offset);
-        const bool k1 =
-            row1 < Sq && col < kv_len && (!causal || col <= row1 + offset);
-        s[nb][e] = k0 ? s[nb][e] * k_mul : kNegInf;
-        s[nb][2 + e] = k1 ? s[nb][2 + e] * k_mul : kNegInf;
-        mx0 = fmaxf(mx0, s[nb][e]);
-        mx1 = fmaxf(mx1, s[nb][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float mn0 = fmaxf(m_i[0], mx0), mn1 = fmaxf(m_i[1], mx1);
-    const float al0 = expf(m_i[0] - mn0), al1 = expf(m_i[1] - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nb][e] = s[nb][e] > 0.5f * kNegInf ? expf(s[nb][e] - mn0) : 0.f;
-        s[nb][2 + e] =
-            s[nb][2 + e] > 0.5f * kNegInf ? expf(s[nb][2 + e] - mn1) : 0.f;
-        rs0 += s[nb][e];
-        rs1 += s[nb][2 + e];
-      }
-    }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, o_);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, o_);
-    }
-    l_i[0] = l_i[0] * al0 + rs0;
-    l_i[1] = l_i[1] * al1 + rs1;
-    m_i[0] = mn0;
-    m_i[1] = mn1;
-#pragma unroll
-    for (int db = 0; db < kDBlocks; ++db) {
-      o[db][0] *= al0;
-      o[db][1] *= al0;
-      o[db][2] *= al1;
-      o[db][3] *= al1;
-    }
-
-    // int8: V's block scale weights the tile's probabilities (after the
-    // row sums took them unscaled)
-    if constexpr (INT8) {
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] *= v_mul;
-    }
-    // O += P V: the score fragments of key blocks 2j, 2j+1 are the A
-    // fragment of k step j
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int vrow = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        unsigned vb[4];
-        ldmatrix_x4_trans(vb, Vs + vrow * kStride + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-
-  const float inv0 = l_i[0] > 0.f ? 1.f / l_i[0] : 0.f;
-  const float inv1 = l_i[1] > 0.f ? 1.f / l_i[1] : 0.f;
-#pragma unroll
-  for (int db = 0; db < kDBlocks; ++db) {
-    const int d = db * 8 + 2 * c;
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((size_t)b * Sq + row0) * Hq + h) * D + d) =
-          __floats2bfloat162_rn(o[db][0] * inv0, o[db][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((size_t)b * Sq + row1) * Hq + h) * D + d) =
-          __floats2bfloat162_rn(o[db][2] * inv1, o[db][3] * inv1);
-  }
-  if (!PAGED && c == 0) {
-    if (row0 < Sq)
-      lse[((size_t)b * Hq + h) * Sq + row0] =
-          l_i[0] > 0.f ? m_i[0] + logf(l_i[0]) : kNegInf;
-    if (row1 < Sq)
-      lse[((size_t)b * Hq + h) * Sq + row1] =
-          l_i[1] > 0.f ? m_i[1] + logf(l_i[1]) : kNegInf;
-  }
-}
-
-template <int D, bool PAGED, typename KV = __nv_bfloat16>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       void* out, float* lse, int B, int Sq, int Skv, int Hq,
-                       int Hkv, float scale, int causal, cudaStream_t st,
-                       const int* pos = nullptr, const int* table = nullptr,
-                       int max_blocks = 0, int block_len = 0,
-                       const float* k_scale = nullptr,
-                       const float* v_scale = nullptr) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = flash_attention_fwd_mma_kernel<D, PAGED, KV>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, Hq, B);
-  kernel<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<__nv_bfloat16*>(out),
-      lse, Sq, Skv, Hq, Hkv, scale, causal, pos, table, max_blocks,
-      block_len, k_scale, v_scale);
-  return cudaSuccess;
-}
-
 template <int D, bool PAGED, typename KV = float, bool SEG = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
@@ -618,35 +299,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16, D = 128, contiguous K/V (K2, segmented or not).
+// Hopper path: bfloat16 q at D = 128 -- K2 over contiguous K/V (segmented
+// or not), K2-paged over a bf16 pool, K2-paged-int8 over an int8 pool.
 //
 // One CTA per (128-query tile, q head, batch row); a 1-D grid that starts
-// the heaviest causal q tiles (the last) of every head first.  Three
-// warpgroups: consumers 0 and 1 own query rows [64w, 64w + 64) of the
-// tile; one warp of warpgroup 2 is the producer, which loads Q once and
-// then streams 128-key K and V tiles by TMA (4-d tensor maps over the
-// (B, S, H, D) tensors, two 64-wide boxes a 128-wide row, 128-byte
-// swizzle; rows past Sq / Skv load as zero) into a ring of two stages
-// with full and empty mbarriers for K and for V.  The producer walks the
-// key tiles from the diagonal down, and writes into the stage's slot which
-// tile it loaded and whether that tile needs the element mask (it crosses
-// the causal diagonal or the ragged end, or, with segment ids, its ids
-// and the q tile's are not all one value); a slot of -1 ends the walk.
-// With segment ids it skips every key tile whose [min, max] id range
-// misses the q tile's (the ranges come from segment_tile_ranges on the
-// host; exact for any ids), and stages the tile's ids by TMA beside K.
+// the heaviest causal q tiles (the last: the most keys, whatever the
+// offset) of every head first.  Three warpgroups: consumers 0 and 1 own
+// query rows [64w, 64w + 64) of the tile; warpgroup 2 feeds them K and V
+// through a ring of two stages of 128-key tiles (bf16, 128-byte swizzle,
+// two 64-wide halves a 128-wide row) with full and empty mbarriers for K
+// and for V, and writes into the stage's slot which tile it holds and
+// whether that tile needs the element mask (it crosses the causal
+// diagonal or the last key, or, with segment ids, its ids and the q
+// tile's are not all one value); a slot of -1 ends the walk.  The walk
+// goes from the diagonal down.  Who fills the ring:
+//   * contiguous: one producer warp, K/V by TMA (4-d maps over (B, S, H,
+//     D); rows past Skv load as zero).  With segment ids it skips every
+//     key tile whose [min, max] id range misses the q tile's (the ranges
+//     come from segment_tile_ranges on the host; exact for any ids), and
+//     stages the tile's ids by TMA beside K;
+//   * paged bf16: the same warp with the block table: the pool
+//     (num_blocks, block_len, Hkv, D) has the rank and order of (B, S,
+//     Hkv, D) with the block id in the batch's place, so a tile is two
+//     64-key boxes a tensor half at (row in block, block id) (TMA has no
+//     gather); 64 divides block_len, so no box crosses a block, and a
+//     half at or past the row's last key repeats the first half's box, so
+//     no dead table column is read.  Box rows past the last key hold
+//     stale pool data: the tile is flagged and its element mask hides
+//     them;
+//   * paged int8: the producer's lane 0 loads the int8 boxes the same way
+//     by TMA into a staging ring of two stages; the whole warpgroup then
+//     converts each tile to bf16 (exact for [-128, 127]: the bytes into
+//     float32 mantissas, one subtraction, the high halves) in the swizzled
+//     layout TMA would write, and releases it to the consumers after a
+//     proxy fence.  Each 64-key half carries its block's K and V scales in
+//     the slot (two blocks a tile at block_len 64).
 // Consumers: S = Q K^T on wgmma.m64n128k16 (Q and K from shared memory,
 // K-major), the online softmax in registers in the log2 domain (exp2,
-// log2(e) folded into the scale; the row max of the raw scores), P
-// rounded to bf16 in registers as the register A operand of O += P V,
-// with V MN-major from shared memory (the transpose flag).  Each consumer
-// issues the next tile's Q K^T and this tile's P V back to back and runs
-// the next softmax while P V is in flight (K and V have separate empty
-// barriers, so K is released as soon as its scores are masked); two named
-// barriers order the two warpgroups' issues so that one's softmax runs
-// under the other's products.  The out tile goes through Q's shared
-// memory (a warpgroup's own rows, after its last Q K^T) and a TMA store
-// that drops rows past Sq.
+// log2(e) folded into the scale; the row max of the raw scores -- int8:
+// of the scores times each half's K scale), P rounded to bf16 in
+// registers as the register A operand of O += P V (int8: P times each
+// half's V scale, after the row sums took it unscaled), with V MN-major
+// from shared memory (the transpose flag).  Each consumer issues the next
+// tile's Q K^T and this tile's P V back to back and runs the next softmax
+// while P V is in flight (K and V have separate empty barriers, so K is
+// released as soon as its scores are masked); two named barriers order
+// the two warpgroups' issues so that one's softmax runs under the other's
+// products.  The out tile goes through Q's shared memory (a warpgroup's
+// own rows, after its last Q K^T) and a TMA store that drops rows past
+// Sq.  Paged: query i of row b sees keys j <= pos[b] + i, keys j <
+// min(pos[b] + Sq, max_blocks * block_len) exist, and no lse is written.
 // ---------------------------------------------------------------------------
 constexpr int kHD = 128;              // head_dim of the build
 constexpr int kHQ = 128;              // queries per CTA (2 x 64)
@@ -656,142 +358,399 @@ constexpr int kHThreads = 384;        // consumers: warpgroups 0, 1; producer 2
 constexpr int kHConsumers = 256;
 constexpr int kHHalf = 128 * 128;     // a 128-row x 64-wide bf16 box, bytes
 constexpr int kHTile = 2 * kHHalf;    // a 128-row x 128-wide tile
+constexpr int kHBox = 64;             // key rows of a paged box
+constexpr int k8Tile = kHK * kHD;     // a 128-key int8 tile, bytes
 constexpr int kHSeg = stage_ints(kHK + kLead1d);   // a stage's key ids
-constexpr size_t kHSmem = 1024 + (size_t)(1 + 2 * kHStages) * kHTile +
-                          kHStages * kHSeg * 4 + kHStages * 8 +
-                          (1 + 4 * kHStages) * 8;
 constexpr float kLn2 = 0.6931471805599453f;
+// setmaxnreg moves registers only within the CTA: launched at 168 a
+// thread, the three warpgroups share 3 x 168.  bf16: consumers 240, the
+// producer 24; int8: consumers 216, the converting warpgroup 72 (at 56
+// its loop spills).
+constexpr int kConvRegs = 72;
+constexpr int kInt8ConsumerRegs = (3 * 168 - kConvRegs) / 2;
+static_assert(kConvRegs % 8 == 0 && kInt8ConsumerRegs % 8 == 0,
+              "setmaxnreg takes multiples of 8");
 
-template <bool SEG>
+// what warpgroup 2 tells the consumers about the tile of a stage
+struct Slot {
+  int tile;       // key tile index, -1: the walk is over
+  int masked;     // the tile needs the element mask
+  float ks[2];    // int8: K's scale of keys [0, 64) and [64, 128)
+  float vs[2];    // int8: V's
+};
+
+template <bool SEG, bool INT8>
+constexpr size_t hopper_smem() {
+  return 1024 + (size_t)(1 + 2 * kHStages) * kHTile +
+         (INT8 ? (size_t)kHStages * 2 * k8Tile : 0) +
+         (SEG ? (size_t)kHStages * kHSeg * 4 : 0) +
+         kHStages * sizeof(Slot) + (1 + 6 * kHStages) * 8 +
+         (INT8 ? kHStages * 8 * sizeof(float) : 0);
+}
+
+// the kernel's scalar arguments
+struct HopperArgs {
+  float* lse;                  // contiguous: (B, Hq, Sq)
+  const int* seg_q;            // SEG: (B, Sq)
+  const int* q_rng;            // SEG: (B, ceil(Sq / 128), 2)
+  const int* kv_rng;           // SEG: (B, ceil(Skv / 128), 2)
+  const int* pos;              // paged: (B,)
+  const int* table;            // paged: (B, max_blocks)
+  const float* k_scale;        // int8: (num_blocks, Hkv)
+  const float* v_scale;
+  int B, Sq, Skv, Hq, Hkv, max_blocks, block_len;
+  float scale_log2;
+  int causal;
+};
+
+// paged: the pool coordinates (block id, row in block) of the two 64-key
+// halves of the key tile at k0 of a row whose table row is `trow`; a half
+// at or past kv_len repeats the first half's box
+__device__ __forceinline__ void paged_boxes(const int* trow, int block_len,
+                                            int k0, int kv_len, int (&blk)[2],
+                                            int (&row)[2]) {
+  blk[0] = trow[k0 / block_len];
+  row[0] = k0 % block_len;
+  if (k0 + kHBox >= kv_len) {
+    blk[1] = blk[0];
+    row[1] = row[0];
+  } else if (row[0] + kHBox < block_len) {
+    blk[1] = blk[0];
+    row[1] = row[0] + kHBox;
+  } else {
+    blk[1] = trow[(k0 + kHBox) / block_len];
+    row[1] = 0;
+  }
+}
+
+// a * b + c on bf16 pairs, rounded to nearest
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// four int8 (one word) as four bfloat16 (two words), exact: x = (128 +
+// (x & 127)) - (128 + (x & 128)) in two's complement, each term a bf16 of
+// exponent 2^7 whose mantissa is the byte's low bits (0x80 carries into
+// 256), put together by byte permutes; one bf16 pair fma subtracts
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  const uint32_t m = w & 0x7F7F7F7Fu, n = w & 0x80808080u;
+  const uint32_t one = 0x3F803F80u;
+  lo = bf16x2_fma(__byte_perm(m, 0x43u, 0x4140), one,
+                  __byte_perm(n, 0xC3u, 0x4140));
+  hi = bf16x2_fma(__byte_perm(m, 0x43u, 0x4342), one,
+                  __byte_perm(n, 0xC3u, 0x4342));
+}
+
+// a staged 128-key int8 tile (128 bytes a row, unswizzled) as the bf16
+// tile the consumers read (two 64-wide halves, 128-byte swizzle).  Each
+// thread of the warpgroup converts 8 of the tile's 1024 16-byte int8
+// pieces into two 16-byte bf16 chunks.  The 8 lanes of a quarter warp (one
+// shared-memory wavefront of 16-byte accesses) take pieces 0-3 of one row
+// and 4-7 of the next, or the reverse: they read 128 distinct bytes and
+// write 8 distinct swizzled chunk positions, free of bank conflicts.
+__device__ __forceinline__ void convert_tile(const unsigned char* src,
+                                             unsigned char* dst, int t) {
+  const int lane = t & 31, hi = (lane >> 2) & 1;
+  const int c = 4 * (hi ^ ((lane >> 3) & 1)) + (lane & 3);
+  const int r_base = 4 * (t >> 5) + 2 * (lane >> 4) + hi;
+  unsigned char* half = dst + (c >> 2) * kHHalf;
+  const int p = 2 * (c & 3);
+#pragma unroll 2
+  for (int i = 0; i < kHK / 16; ++i) {
+    const int r = 16 * i + r_base;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * 128 + c * 16);
+    uint4 a, b;
+    int8x4_to_bf16(raw.x, a.x, a.y);
+    int8x4_to_bf16(raw.y, a.z, a.w);
+    int8x4_to_bf16(raw.z, b.x, b.y);
+    int8x4_to_bf16(raw.w, b.z, b.w);
+    unsigned char* row = half + r * 128;
+    *reinterpret_cast<uint4*>(row + ((p ^ (r & 7)) << 4)) = a;
+    *reinterpret_cast<uint4*>(row + (((p + 1) ^ (r & 7)) << 4)) = b;
+  }
+}
+
+template <bool SEG, bool PAGED, bool INT8>
 __global__ void __launch_bounds__(kHThreads, 1)
 flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
                                  const __grid_constant__ CUtensorMap o_map,
                                  const __grid_constant__ CUtensorMap seg_map,
-                                 float* __restrict__ lse,
-                                 const int* __restrict__ seg_q,
-                                 const int* __restrict__ q_rng,
-                                 const int* __restrict__ kv_rng, int B,
-                                 int Sq, int Skv, int Hq, int Hkv,
-                                 float scale_log2, int causal) {
+                                 const HopperArgs a) {
+  static_assert(PAGED || !INT8, "the int8 cache is paged only");
+  static_assert(!(PAGED && SEG), "the paged builds take no segment ids");
   extern __shared__ unsigned char wg_smem[];
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
   unsigned char* Ks = Qs + kHTile;                      // [stage]
   unsigned char* Vs = Ks + kHStages * kHTile;           // [stage]
+  // int8: [stage][K, V] staged int8 tiles
+  unsigned char* S8 = Vs + kHStages * kHTile;
   // [stage][kHSeg]: a key tile's ids, read (b * Skv + k0) & 3 in
-  int* seg_s = reinterpret_cast<int*>(Vs + kHStages * kHTile);
-  int2* slot = reinterpret_cast<int2*>(seg_s + kHStages * kHSeg);
+  int* seg_s = reinterpret_cast<int*>(S8 + (INT8 ? kHStages * 2 * k8Tile : 0));
+  Slot* slot = reinterpret_cast<Slot*>(seg_s + (SEG ? kHStages * kHSeg : 0));
   uint64_t* q_full = reinterpret_cast<uint64_t*>(slot + kHStages);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kHStages;
   uint64_t* k_empty = v_full + kHStages;
   uint64_t* v_empty = k_empty + kHStages;
+  uint64_t* s_full = v_empty + kHStages;   // int8: [stage][K, V] staging
+  // int8, thread 0 of the producer warpgroup: [stage][ks 0, 1, vs 0, 1]
+  // and [stage][block 0, 1, row 0, 1] of the tile staged next
+  float* scl = reinterpret_cast<float*>(s_full + 2 * kHStages);
+  int* bx = reinterpret_cast<int*>(scl + 4 * kHStages);
 
+  const int Sq = a.Sq, Hq = a.Hq, causal = a.causal;
   const int n_qt = (Sq + kHQ - 1) / kHQ;
-  const int bh = blockIdx.x % (Hq * B);
-  const int qt = n_qt - 1 - blockIdx.x / (Hq * B);
+  const int bh = blockIdx.x % (Hq * a.B);
+  const int qt = n_qt - 1 - blockIdx.x / (Hq * a.B);
   const int h = bh % Hq, b = bh / Hq;
-  const int hk = h / (Hq / Hkv);
+  const int hk = h / (Hq / a.Hkv);
   const int q0 = qt * kHQ;
-  const int offset = Skv - Sq;   // query i sees keys j <= i + offset
+  // query i sees keys j <= i + offset; keys j < kv_len exist
+  int offset = a.Skv - Sq, kv_len = a.Skv;
+  if constexpr (PAGED) {
+    offset = a.pos[b];
+    kv_len = min(offset + Sq, a.max_blocks * a.block_len);
+  }
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kHStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&k_full[s], INT8 ? 128 : 1);
+      mbar_init(&v_full[s], INT8 ? 128 : 1);
       mbar_init(&k_empty[s], kHConsumers);
       mbar_init(&v_empty[s], kHConsumers);
+      mbar_init(&s_full[2 * s], 1);
+      mbar_init(&s_full[2 * s + 1], 1);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
+  const int kv_hi = causal ? min(kv_len, q0 + kHQ + offset) : kv_len;
+  const int n_kt = kv_hi > 0 ? (kv_hi + kHK - 1) / kHK : 0;
   if (wg == 2) {
-    // ---- producer --------------------------------------------------------
-    reg_dealloc<24>();
-    if (tid >= 32) return;
-    const int lane = tid;
-    const int kv_hi = causal ? min(Skv, q0 + kHQ + offset) : Skv;
-    const int n_kt = kv_hi > 0 ? (kv_hi + kHK - 1) / kHK : 0;
-    const int n_kvt = (Skv + kHK - 1) / kHK;
-    if (lane == 0) {   // Q first: the ranges below wait on global loads
-      mbar_expect_tx(q_full, kHTile);
-      tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
-      tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
-    }
-    int qmin = 0, qmax = 0;
-    if constexpr (SEG) {
-      qmin = q_rng[((size_t)b * n_qt + qt) * 2];
-      qmax = q_rng[((size_t)b * n_qt + qt) * 2 + 1];
-    }
-    int it = 0;
-    // 32 key tiles at a time, lane l deciding tile base - l
-    for (int base = n_kt - 1; base >= 0; base -= 32) {
-      const int j = base - lane;
-      bool vis = j >= 0;
-      bool masked = vis && ((causal && j * kHK + kHK - 1 > q0 + offset) ||
-                            j * kHK + kHK > Skv);
-      if constexpr (SEG) {
-        if (vis) {
-          const int kmin = kv_rng[((size_t)b * n_kvt + j) * 2];
-          const int kmax = kv_rng[((size_t)b * n_kvt + j) * 2 + 1];
-          vis = kmax >= qmin && kmin <= qmax;
-          masked = masked || kmin != kmax || qmin != qmax || kmin != qmin;
+    if constexpr (INT8) {
+      // ---- int8: TMA into the staging ring, the warpgroup converts -------
+      reg_dealloc<kConvRegs>();
+      const int* trow = a.table + (size_t)b * a.max_blocks;
+      // Staging unit 2s + x holds tensor x (0: K, 1: V) of a tile in stage
+      // s; tile t is the walk's t-th (from the diagonal down).  Thread 0
+      // reads the table and the scales; the others only convert.
+      auto load = [&](int t, int x, const int* blk, const int* row) {
+        const int u = 2 * (t % kHStages) + x;
+        fence_proxy_async();
+        mbar_expect_tx(&s_full[u], k8Tile);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          tma_load_4d(S8 + u * k8Tile + e * (k8Tile / 2), x ? &v_map : &k_map,
+                      &s_full[u], 0, hk, row[e], blk[e]);
+      };
+      auto boxes = [&](int t, int (&blk)[2], int (&row)[2]) {
+        paged_boxes(trow, a.block_len, (n_kt - 1 - t) * kHK, kv_len, blk,
+                    row);
+      };
+      auto scales = [&](const int* blk, float (&dst)[4]) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dst[e] = a.k_scale[(size_t)blk[e] * a.Hkv + hk];
+          dst[2 + e] = a.v_scale[(size_t)blk[e] * a.Hkv + hk];
+        }
+      };
+      // thread 0: a tile's scales are loaded when its K is staged and
+      // stored into scl after the next conversion (pend_t: that tile, or
+      // -1); its boxes wait in bx for its V staging
+      float pend[4];
+      int pend_t = -1;
+      auto store_pending = [&] {
+        if (pend_t < 0) return;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) scl[(pend_t % kHStages) * 4 + x] = pend[x];
+        pend_t = -1;
+      };
+      if (tid == 0) {
+        mbar_expect_tx(q_full, kHTile);
+        tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
+        tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
+        for (int t = 0; t < kHStages && t < n_kt; ++t) {
+          int blk[2], row[2];
+          boxes(t, blk, row);
+          load(t, 0, blk, row);
+          load(t, 1, blk, row);
+          scales(blk, pend);
+          pend_t = t;
+          store_pending();
         }
       }
-      unsigned todo = __ballot_sync(0xffffffffu, vis);
-      const unsigned mask_bits = __ballot_sync(0xffffffffu, masked);
-      if (lane != 0) continue;
-      while (todo) {
-        const int l = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int jt = base - l, k0 = jt * kHK;
-        const int s = it % kHStages;
-        const unsigned free_parity = ((it / kHStages) & 1) ^ 1;
-        mbar_wait(&k_empty[s], free_parity);
-        slot[s] = make_int2(jt, (mask_bits >> l) & 1);
-        unsigned char* kd = Ks + s * kHTile;
-        unsigned char* vd = Vs + s * kHTile;
-        mbar_expect_tx(&k_full[s], kHTile + (SEG ? (kHK + kLead1d) * 4 : 0));
-        tma_load_4d(kd, &k_map, &k_full[s], 0, hk, k0, b);
-        tma_load_4d(kd + kHHalf, &k_map, &k_full[s], 64, hk, k0, b);
-        if constexpr (SEG)
-          tma_load_1d(seg_s + s * kHSeg, &seg_map, &k_full[s],
-                      (b * Skv + k0) & ~3);
-        mbar_wait(&v_empty[s], free_parity);
-        mbar_expect_tx(&v_full[s], kHTile);
-        tma_load_4d(vd, &v_map, &v_full[s], 0, hk, k0, b);
-        tma_load_4d(vd + kHHalf, &v_map, &v_full[s], 64, hk, k0, b);
-        ++it;
+      // K of tile t: it may run a tile ahead of V (its slot frees earlier)
+      auto step_k = [&](int t) {
+        const int s = t % kHStages, k0 = (n_kt - 1 - t) * kHK;
+        const unsigned ph = (t / kHStages) & 1;
+        const bool refill = t + kHStages < n_kt;
+        int nblk[2], nrow[2];
+        mbar_wait(&s_full[2 * s], ph);
+        mbar_wait(&k_empty[s], ph ^ 1);
+        if (tid == 0) {
+          Slot sl;
+          sl.tile = n_kt - 1 - t;
+          sl.masked = k0 + kHK - 1 > q0 + offset || k0 + kHK > kv_len;
+          sl.ks[0] = scl[s * 4];
+          sl.ks[1] = scl[s * 4 + 1];
+          sl.vs[0] = scl[s * 4 + 2];
+          sl.vs[1] = scl[s * 4 + 3];
+          slot[s] = sl;
+          // the next tile's table entries, read under the conversion
+          if (refill) boxes(t + kHStages, nblk, nrow);
+        }
+        convert_tile(S8 + 2 * s * k8Tile, Ks + s * kHTile, tid);
+        fence_proxy_async();
+        mbar_arrive(&k_full[s]);
+        if (refill) {
+          named_barrier(5, 128);   // every thread is done with the unit
+          if (tid == 0) {
+            load(t + kHStages, 0, nblk, nrow);
+            for (int e = 0; e < 2; ++e) {
+              bx[s * 4 + e] = nblk[e];
+              bx[s * 4 + 2 + e] = nrow[e];
+            }
+            store_pending();
+            scales(nblk, pend);
+            pend_t = t + kHStages;
+          }
+        }
+      };
+      auto step_v = [&](int t) {
+        const int s = t % kHStages;
+        const unsigned ph = (t / kHStages) & 1;
+        mbar_wait(&s_full[2 * s + 1], ph);
+        mbar_wait(&v_empty[s], ph ^ 1);
+        convert_tile(S8 + (2 * s + 1) * k8Tile, Vs + s * kHTile, tid);
+        fence_proxy_async();
+        mbar_arrive(&v_full[s]);
+        if (t + kHStages < n_kt) {
+          named_barrier(5, 128);
+          if (tid == 0) load(t + kHStages, 1, bx + s * 4, bx + s * 4 + 2);
+        }
+        if (tid == 0) store_pending();
+      };
+      if (n_kt > 0) step_k(0);
+      for (int t = 0; t < n_kt; ++t) {
+        if (t + 1 < n_kt) step_k(t + 1);
+        step_v(t);
       }
-    }
-    if (lane == 0) {
-      const int s = it % kHStages;
-      mbar_wait(&k_empty[s], ((it / kHStages) & 1) ^ 1);
-      slot[s] = make_int2(-1, 0);
+      const int s = n_kt % kHStages;
+      mbar_wait(&k_empty[s], ((n_kt / kHStages) & 1) ^ 1);
+      if (tid == 0) slot[s].tile = -1;
       mbar_arrive(&k_full[s]);
+    } else {
+      // ---- producer warp: K/V by TMA ---------------------------------------
+      reg_dealloc<24>();
+      if (tid >= 32) return;
+      const int lane = tid;
+      const int n_kvt = (a.Skv + kHK - 1) / kHK;
+      if (lane == 0) {   // Q first: the ranges below wait on global loads
+        mbar_expect_tx(q_full, kHTile);
+        tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
+        tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
+      }
+      int qmin = 0, qmax = 0;
+      if constexpr (SEG) {
+        qmin = a.q_rng[((size_t)b * n_qt + qt) * 2];
+        qmax = a.q_rng[((size_t)b * n_qt + qt) * 2 + 1];
+      }
+      int it = 0;
+      // 32 key tiles at a time, lane l deciding tile base - l
+      for (int base = n_kt - 1; base >= 0; base -= 32) {
+        const int j = base - lane;
+        bool vis = j >= 0;
+        bool masked = vis && ((causal && j * kHK + kHK - 1 > q0 + offset) ||
+                              j * kHK + kHK > kv_len);
+        if constexpr (SEG) {
+          if (vis) {
+            const int kmin = a.kv_rng[((size_t)b * n_kvt + j) * 2];
+            const int kmax = a.kv_rng[((size_t)b * n_kvt + j) * 2 + 1];
+            vis = kmax >= qmin && kmin <= qmax;
+            masked = masked || kmin != kmax || qmin != qmax || kmin != qmin;
+          }
+        }
+        unsigned todo = __ballot_sync(0xffffffffu, vis);
+        const unsigned mask_bits = __ballot_sync(0xffffffffu, masked);
+        if (lane != 0) continue;
+        while (todo) {
+          const int l = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int jt = base - l, k0 = jt * kHK;
+          const int s = it % kHStages;
+          const unsigned free_parity = ((it / kHStages) & 1) ^ 1;
+          unsigned char* kd = Ks + s * kHTile;
+          unsigned char* vd = Vs + s * kHTile;
+          int blk[2], row[2];
+          if constexpr (PAGED)
+            paged_boxes(a.table + (size_t)b * a.max_blocks, a.block_len, k0,
+                        kv_len, blk, row);
+          mbar_wait(&k_empty[s], free_parity);
+          slot[s].tile = jt;
+          slot[s].masked = (mask_bits >> l) & 1;
+          mbar_expect_tx(&k_full[s], kHTile + (SEG ? (kHK + kLead1d) * 4 : 0));
+          if constexpr (PAGED) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x)   // d half x & 1, key half x >> 1
+              tma_load_4d(kd + (x & 1) * kHHalf + (x >> 1) * (kHHalf / 2),
+                          &k_map, &k_full[s], (x & 1) * 64, hk, row[x >> 1],
+                          blk[x >> 1]);
+          } else {
+            tma_load_4d(kd, &k_map, &k_full[s], 0, hk, k0, b);
+            tma_load_4d(kd + kHHalf, &k_map, &k_full[s], 64, hk, k0, b);
+          }
+          if constexpr (SEG)
+            tma_load_1d(seg_s + s * kHSeg, &seg_map, &k_full[s],
+                        (b * a.Skv + k0) & ~3);
+          mbar_wait(&v_empty[s], free_parity);
+          mbar_expect_tx(&v_full[s], kHTile);
+          if constexpr (PAGED) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              tma_load_4d(vd + (x & 1) * kHHalf + (x >> 1) * (kHHalf / 2),
+                          &v_map, &v_full[s], (x & 1) * 64, hk, row[x >> 1],
+                          blk[x >> 1]);
+          } else {
+            tma_load_4d(vd, &v_map, &v_full[s], 0, hk, k0, b);
+            tma_load_4d(vd + kHHalf, &v_map, &v_full[s], 64, hk, k0, b);
+          }
+          ++it;
+        }
+      }
+      if (lane == 0) {
+        const int s = it % kHStages;
+        mbar_wait(&k_empty[s], ((it / kHStages) & 1) ^ 1);
+        slot[s].tile = -1;
+        mbar_arrive(&k_full[s]);
+      }
     }
     return;
   }
 
   // ---- consumers -----------------------------------------------------------
-  reg_alloc<240>();
+  reg_alloc<INT8 ? kInt8ConsumerRegs : 240>();
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const int rl = wg * 64 + warp * 16 + g;   // rows rl, rl + 8 of the tile
   const int r0 = q0 + rl, r1 = r0 + 8;
   int sq0 = 0, sq1 = 0;
   if constexpr (SEG) {
-    sq0 = r0 < Sq ? seg_q[(size_t)b * Sq + r0] : 0;
-    sq1 = r1 < Sq ? seg_q[(size_t)b * Sq + r1] : 0;
+    sq0 = r0 < Sq ? a.seg_q[(size_t)b * Sq + r0] : 0;
+    sq1 = r1 < Sq ? a.seg_q[(size_t)b * Sq + r1] : 0;
   }
   // s * scale == (-s) * (-scale): the row max is taken on raw scores
-  const bool negate = scale_log2 < 0.f;
-  const float sl2 = fabsf(scale_log2);
+  const bool negate = a.scale_log2 < 0.f;
+  const float sl2 = fabsf(a.scale_log2);
   float o[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) o[i] = 0.f;
@@ -813,7 +772,7 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   };
   // a key tile's ids start `lead` into their stage, the same for every
   // tile of the CTA (k0 is a multiple of 4)
-  const int lead = SEG ? (b * Skv) & 3 : 0;
+  const int lead = SEG ? (b * a.Skv) & 3 : 0;
   auto mask_ids = [&](float (&sc)[64], int k0, const int* ids) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -821,26 +780,31 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int e = 0; e < 4; ++e) {
         const int cl = 8 * j + 2 * c + (e & 1);
         const int col = k0 + cl;
-        bool keep = col < Skv &&
+        bool keep = col < kv_len &&
                     (!causal || col <= (e < 2 ? r0 : r1) + offset);
         if constexpr (SEG) keep = keep && ids[cl] == (e < 2 ? sq0 : sq1);
         if (!keep) sc[4 * j + e] = -INFINITY;
       }
     }
   };
-  // the element mask of a tile the producer flagged (sl.y); at lead 0 the
-  // ids' loads pair up
-  auto mask = [&](float (&sc)[64], int2 sl, int s) {
-    if (negate) {
+  // the scores' sign (int8: times each half's K scale), then the element
+  // mask of a tile the producer flagged; at lead 0 the ids' loads pair up
+  auto mask = [&](float (&sc)[64], const Slot& sl, int s) {
+    if constexpr (INT8) {
+      const float k0s = negate ? -sl.ks[0] : sl.ks[0];
+      const float k1s = negate ? -sl.ks[1] : sl.ks[1];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] *= i < 32 ? k0s : k1s;
+    } else if (negate) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) sc[i] = -sc[i];
     }
-    if (!sl.y) return;
+    if (!sl.masked) return;
     const int* ids = seg_s + s * kHSeg;
     if (lead == 0)
-      mask_ids(sc, sl.x * kHK, ids);
+      mask_ids(sc, sl.tile * kHK, ids);
     else
-      mask_ids(sc, sl.x * kHK, ids + lead);
+      mask_ids(sc, sl.tile * kHK, ids + lead);
   };
   // online softmax: row r0 holds sc[4j], sc[4j + 1], row r1 sc[4j + 2],
   // sc[4j + 3]; a row's 128 scores live in the 4 lanes of a quad.  sc
@@ -879,8 +843,13 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l0 = l0 * al0 + rs0;
     l1 = l1 * al1 + rs1;
   };
-  // P rounded to bf16: the register A operand of k step t is sc[8t..8t+7]
-  auto pack = [&](const float (&sc)[64], uint32_t (&pa)[8][4]) {
+  // P rounded to bf16 (int8: times each half's V scale): the register A
+  // operand of k step t is sc[8t..8t+7]
+  auto pack = [&](float (&sc)[64], const Slot& sl, uint32_t (&pa)[8][4]) {
+    if constexpr (INT8) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] *= i < 32 ? sl.vs[0] : sl.vs[1];
+    }
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       pa[t][0] = pack_bf16(sc[8 * t], sc[8 * t + 1]);
@@ -896,8 +865,8 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   mbar_wait(q_full, 0);
   if (wg == 1) named_barrier_arrive(3, 256);
   mbar_wait(&k_full[0], 0);
-  const int2 sl0 = slot[0];
-  if (sl0.x >= 0) {
+  const Slot sl0 = slot[0];
+  if (sl0.tile >= 0) {
     float sc[64];
     uint32_t pa[8][4];
     named_barrier(3 + wg, 256);
@@ -908,7 +877,7 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mask(sc, sl0, 0);
     mbar_arrive(&k_empty[0]);
     softmax(sc);
-    pack(sc, pa);
+    pack(sc, sl0, pa);
     // tile `cur` (stage cur % 2) has its P in pa; per iteration: issue S
     // of the next tile, rescale O (idle: the last P V is done) under it,
     // issue P V of this tile, then run the next tile's softmax while P V
@@ -934,8 +903,8 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (;; ++cur) {
       const int nxt = cur + 1, sn = nxt % kHStages, sv = cur % kHStages;
       mbar_wait(&k_full[sn], (nxt / kHStages) & 1);
-      const int2 sl = slot[sn];
-      if (sl.x < 0) break;
+      const Slot sl = slot[sn];
+      if (sl.tile < 0) break;
       named_barrier(3 + wg, 256);
       issue_s(sc, sn);
       rescale_o();
@@ -950,7 +919,7 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_wait<0>();
       fence_regs(o);
       mbar_arrive(&v_empty[sv]);
-      pack(sc, pa);
+      pack(sc, sl, pa);
     }
     // the last tile's P V
     named_barrier(3 + wg, 256);
@@ -987,38 +956,47 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     tma_store_4d(&o_map, Qs + kHHalf + wg * 64 * 128, 64, h, q0 + wg * 64, b);
     tma_store_commit_wait();
   }
-  if (c == 0) {
-    float* lrow = lse + ((size_t)b * Hq + h) * Sq;
+  if (!PAGED && c == 0) {
+    float* lrow = a.lse + ((size_t)b * Hq + h) * Sq;
     if (r0 < Sq) lrow[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : kNegInf;
     if (r1 < Sq) lrow[r1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : kNegInf;
   }
 }
 
-template <bool SEG>
+// Encodes the maps and launches the Hopper kernel.  Contiguous: k, v (B,
+// Skv, Hkv, 128) bf16.  Paged: k, v one layer's (num_blocks, block_len,
+// Hkv, 128) pool, bf16 or (INT8) int8, with a.pos / a.table set and
+// block_len % 64 == 0.
+template <bool SEG, bool PAGED, bool INT8>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, float* lse, const int* seg_q,
-                         const int* seg_kv, const int* q_rng,
-                         const int* kv_rng, int B, int Sq, int Skv, int Hq,
-                         int Hkv, float scale, int causal, cudaStream_t st) {
+                         void* out, const int* seg_kv, HopperArgs a,
+                         int num_blocks, float scale, cudaStream_t st) {
   CUtensorMap qm, km, vm, om, sm;
   memset(&sm, 0, sizeof(sm));
-  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kHQ);
-  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kHK);
-  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kHK);
-  if (e == cudaSuccess) e = bshd_map(&om, out, B, Sq, Hq, kHQ / 2);
+  cudaError_t e = bshd_map(&qm, q, a.B, a.Sq, a.Hq, kHQ);
+  if (e == cudaSuccess) e = bshd_map(&om, out, a.B, a.Sq, a.Hq, kHQ / 2);
+  // K / V: (B, Skv) rows of 128-key boxes, or the pool's (num_blocks,
+  // block_len) rows of 64-key boxes
+  auto kv_map = [&](CUtensorMap* m, const void* p) {
+    if (INT8) return bshd_map_int8(m, p, num_blocks, a.block_len, a.Hkv, kHBox);
+    if (PAGED) return bshd_map(m, p, num_blocks, a.block_len, a.Hkv, kHBox);
+    return bshd_map(m, p, a.B, a.Skv, a.Hkv, kHK);
+  };
+  if (e == cudaSuccess) e = kv_map(&km, k);
+  if (e == cudaSuccess) e = kv_map(&vm, v);
   if (e == cudaSuccess && SEG)
-    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv, (size_t)B * Skv,
-                 kHK + kLead1d);
+    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv,
+                 (size_t)a.B * a.Skv, kHK + kLead1d);
   if (e != cudaSuccess) return e;
-  auto kernel = flash_attention_fwd_wgmma_kernel<SEG>;
+  constexpr size_t smem = hopper_smem<SEG, INT8>();
+  auto kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kHSmem);
+                           (int)smem);
   if (e != cudaSuccess) return e;
-  const long long ctas = (long long)((Sq + kHQ - 1) / kHQ) * Hq * B;
+  const long long ctas = (long long)((a.Sq + kHQ - 1) / kHQ) * a.Hq * a.B;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)ctas, kHThreads, kHSmem, st>>>(
-      qm, km, vm, om, sm, lse, seg_q, q_rng, kv_rng, B, Sq, Skv, Hq, Hkv,
-      scale * 1.4426950408889634f, causal);
+  a.scale_log2 = scale * 1.4426950408889634f;
+  kernel<<<(unsigned)ctas, kHThreads, smem, st>>>(qm, km, vm, om, sm, a);
   return cudaSuccess;
 }
 
@@ -1044,21 +1022,30 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   const int* sq = static_cast<const int*>(seg_q);
   const int* skv = static_cast<const int*>(seg_kv);
-  const int* qr = static_cast<const int*>(q_rng);
-  const int* kr = static_cast<const int*>(kv_rng);
   if (Hkv < 1 || Hq % Hkv != 0 || (sq == nullptr) != (skv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  HopperArgs a = {};
+  a.lse = l;
+  a.seg_q = sq;
+  a.q_rng = static_cast<const int*>(q_rng);
+  a.kv_rng = static_cast<const int*>(kv_rng);
+  a.B = B;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.causal = causal;
   // segment ids select their own instantiation: the unsegmented one
   // carries no segment test
   cudaError_t e;
   if (dtype == 0 && D == kHD && sq != nullptr)
-    e = (qr == nullptr || kr == nullptr)
+    e = (a.q_rng == nullptr || a.kv_rng == nullptr)
             ? cudaErrorInvalidValue
-            : launch_wgmma<true>(q, k, v, out, l, sq, skv, qr, kr, B, Sq,
-                                 Skv, Hq, Hkv, scale, causal, st);
+            : launch_wgmma<true, false, false>(q, k, v, out, skv, a, 0,
+                                               scale, st);
   else if (dtype == 0 && D == kHD)
-    e = launch_wgmma<false>(q, k, v, out, l, nullptr, nullptr, nullptr,
-                            nullptr, B, Sq, Skv, Hq, Hkv, scale, causal, st);
+    e = launch_wgmma<false, false, false>(q, k, v, out, nullptr, a, 0, scale,
+                                          st);
   else if (dtype == 1 && D == 16 && sq != nullptr)
     e = launch<16, false, float, true>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv,
                                        scale, causal, st, nullptr, nullptr, 0,
@@ -1072,28 +1059,49 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the Hopper kernel's arguments of a paged suffix prefill
+static HopperArgs paged_args(const void* pos, const void* table, int B,
+                             int S, int Hq, int Hkv, int max_blocks,
+                             int block_len) {
+  HopperArgs a = {};
+  a.pos = static_cast<const int*>(pos);
+  a.table = static_cast<const int*>(table);
+  a.B = B;
+  a.Sq = S;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.max_blocks = max_blocks;
+  a.block_len = block_len;
+  a.causal = 1;
+  return a;
+}
+
 // Paged suffix prefill: q (B, S, Hq, D) at per-row offsets pos (B,)
 // int32; k, v one layer's (num_blocks, block_len, Hkv, D) pool; table the
 // int32 (B, max_blocks) block table (every entry a valid block id).  Query
 // i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
-// bfloat16 at D = 128 needs block_len % 64 == 0; float32 at D = 16 takes
-// any block_len >= 1; other cases return cudaErrorInvalidValue.
+// bfloat16 at D = 128 (the Hopper kernel) needs block_len % 64 == 0;
+// float32 at D = 16 takes any block_len >= 1; other cases return
+// cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
                                          const void* v, const void* pos,
                                          const void* table, void* out, int B,
                                          int S, int Hq, int Hkv, int D,
-                                         int max_blocks, int block_len,
-                                         float scale, int dtype,
-                                         void* stream) {
+                                         int num_blocks, int max_blocks,
+                                         int block_len, float scale,
+                                         int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* t = static_cast<const int*>(table);
-  if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1)
+  if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1 ||
+      num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && D == 128 && block_len % kMmaBK == 0)
-    e = launch_mma<128, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale,
-                              1, st, p, t, max_blocks, block_len);
+  if (dtype == 0 && D == kHD && block_len % kHBox == 0)
+    e = launch_wgmma<false, true, false>(
+        q, k, v, out, nullptr,
+        paged_args(pos, table, B, S, Hq, Hkv, max_blocks, block_len),
+        num_blocks, scale, st);
   else if (dtype == 1 && D == 16)
     e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
                          st, p, t, max_blocks, block_len);
@@ -1110,26 +1118,31 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
 extern "C" int flash_attention_fwd_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* pos, const void* table, void* out,
-    int B, int S, int Hq, int Hkv, int D, int max_blocks, int block_len,
-    float scale, int dtype, void* stream) {
+    int B, int S, int Hq, int Hkv, int D, int num_blocks, int max_blocks,
+    int block_len, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* t = static_cast<const int*>(table);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1)
+  if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1 ||
+      num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && D == 128 && block_len % kMmaBK == 0)
-    e = launch_mma<128, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq,
-                                      Hkv, scale, 1, st, p, t, max_blocks,
-                                      block_len, ks, vs);
-  else if (dtype == 1 && D == 16)
+  if (dtype == 0 && D == kHD && block_len % kHBox == 0) {
+    HopperArgs a = paged_args(pos, table, B, S, Hq, Hkv, max_blocks,
+                              block_len);
+    a.k_scale = ks;
+    a.v_scale = vs;
+    e = launch_wgmma<false, true, true>(q, k, v, out, nullptr, a, num_blocks,
+                                        scale, st);
+  } else if (dtype == 1 && D == 16) {
     e = launch<16, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
                                  scale, 1, st, p, t, max_blocks, block_len,
                                  ks, vs);
-  else
+  } else {
     e = cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

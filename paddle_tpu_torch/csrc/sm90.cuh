@@ -15,7 +15,8 @@
 //     m64nNk16 (bf16 in, float32 accumulate) with A from registers or from
 //     shared memory;
 //   * setmaxnreg, named barriers, the async-proxy fence, exp2;
-//   * host: tensor maps of (B, S, H, 128) bf16 tensors and flat 1-d arrays.
+//   * host: tensor maps of (B, S, H, 128) bf16 and int8 tensors and flat 1-d
+//     arrays.
 //
 // Register layouts (a warpgroup of 4 warps; warp w owns rows 16w..16w+15
 // of the 64; g = lane / 4, c = lane % 4):
@@ -453,6 +454,20 @@ inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,
                     box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// a map over one (B, S, H, 128) int8 tensor (an int8 KV pool): boxes of
+// `rows` consecutive s and the whole 128-byte row, unswizzled; rows past
+// S load as zero
+inline cudaError_t bshd_map_int8(CUtensorMap* m, const void* p, int B, int S,
+                                 int H, int rows) {
+  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t row = 128;
+  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint32_t box[4] = {128, 1, (cuuint32_t)rows, 1};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, p, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // a 1-d map over n 4-byte elements (float32 or int32; 16-byte aligned

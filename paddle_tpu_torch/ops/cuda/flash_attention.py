@@ -37,24 +37,26 @@ K5/K6 (``ops/cuda/flash_attention_bwd.py``).
 K2-paged (:func:`flash_attention_fwd_paged_cuda`): the paged engine's
 suffix prefill, which the reference runs as the q-tiled mode of its
 flash-decode kernel (``paddle_tpu/ops/pallas/decode_attention.py``
-:273-281, :319-335).  It is flash attention with two changes, made in
-the float32 kernel and in a bfloat16 ``mma.sync`` kernel (64-query tiles,
-cp.async loads; the Hopper redesign of this TPU kernel's counterpart is a
-later step): the causal offset is per row (query ``i`` of row
-``b`` sees keys ``j <= pos_b + i``, keys ``j < min(pos_b + Sq,
-max_blocks * block_len)`` exist), and K/V come from the pooled
-``(num_blocks, block_len, Hkv, D)`` cache through an int32 ``(B,
-max_blocks)`` block table.  The bfloat16 kernel looks the table up once
-per 64-key tile, so it takes ``block_len % 64 == 0`` (the reference's
-default 128 qualifies) and raises otherwise; the float32 kernel takes any
-``block_len``.  No ``lse`` is produced on this path.
+:273-281, :319-335).  It is flash attention with two changes: the causal
+offset is per row (query ``i`` of row ``b`` sees keys ``j <= pos_b + i``,
+keys ``j < min(pos_b + Sq, max_blocks * block_len)`` exist), and K/V come
+from the pooled ``(num_blocks, block_len, Hkv, D)`` cache through an
+int32 ``(B, max_blocks)`` block table.  The bfloat16 build runs the same
+Hopper kernel as K2: its producer reads the table and loads each 128-key
+tile by TMA as two 64-key boxes, each at its block's row (TMA has no
+gather), so it takes ``block_len % 64 == 0`` (the reference's default
+128 qualifies) and raises otherwise; a box half past a row's last key
+repeats the first half, so no dead table column is read.  The float32
+kernel takes any ``block_len``.  Neither wrapper reads ``pos`` or the
+table on the host.  No ``lse`` is produced on this path.
 
 K2-paged-int8 (:func:`flash_attention_fwd_paged_int8_cuda`): the same over
 the int8 pool with float32 (num_blocks, Hkv) scales — the paged int8
-engine's suffix prefill.  The tensor-core kernel converts each 64-key int8
-tile to bf16 (exact) as it loads it, folds K's block scale into the score
-scale and V's into the tile's probabilities; the float32 kernel
-dequantizes per key.
+engine's suffix prefill.  The Hopper kernel loads each tile's int8 boxes
+by TMA into a staging ring, and its producer warpgroup converts them to
+bf16 (exact) in the layout the consumers read; each 64-key half carries
+its block's scales, K's folded into the scores and V's into the tile's
+probabilities.  The float32 kernel dequantizes per key.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ NAME = "flash_attention_fwd"
 # the head_dim built for each dtype
 HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
 SEG_TILE = 128          # the bf16 build's query and key tile (csrc: kHQ, kHK)
+PAGED_BOX = 64          # the bf16 paged builds' key rows a box (csrc: kHBox)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,13 +88,14 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_float, _I, _I, _P]         # scale causal dt st
         fn.restype = ctypes.c_int
         fp = lib.flash_attention_fwd_paged
-        fp.argtypes = [_P, _P, _P, _P, _P, _P,             # q k v pos tbl out
-                       _I, _I, _I, _I, _I, _I, _I,         # B S Hq Hkv D mb bl
-                       ctypes.c_float, _I, _P]             # scale dt st
+        # q k v pos tbl out; B S Hq Hkv D num_blocks max_blocks bl; scale
+        # dt st
+        fp.argtypes = [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P]
         fp.restype = ctypes.c_int
-        # q k v k_scale v_scale pos tbl out; B S Hq Hkv D mb bl; scale; dt st
+        # q k v k_scale v_scale pos tbl out; B S Hq Hkv D num_blocks
+        # max_blocks bl; scale dt st
         fi = lib.flash_attention_fwd_paged_int8
-        fi.argtypes = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P]
+        fi.argtypes = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _I, _P]
         fi.restype = ctypes.c_int
     return lib
 
@@ -192,9 +196,9 @@ def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     kernel does not take."""
     code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM)
     b, sq, hq, d = q.shape
-    _, bl, hkv, _ = k_pool.shape
-    # the bfloat16 kernel loads 64-key tiles, each inside one block
-    if q.dtype == torch.bfloat16 and bl % 64:
+    n_pool, bl, hkv, _ = k_pool.shape
+    # the bfloat16 kernel loads 64-key boxes, each inside one block
+    if q.dtype == torch.bfloat16 and bl % PAGED_BOX:
         raise NotImplementedError(
             f"{NAME}: the paged bfloat16 build takes block_len % 64 == 0, "
             f"got {bl}")
@@ -208,8 +212,8 @@ def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     lib = _lib()
     err = lib.flash_attention_fwd_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_t.data_ptr(),
-        table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, table.shape[1],
-        bl, float(scale), code, stream_ptr(q.device))
+        table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, n_pool,
+        table.shape[1], bl, float(scale), code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_fwd_paged_cuda.launches += 1
     return out
@@ -235,7 +239,7 @@ def flash_attention_fwd_paged_int8_cuda(q: torch.Tensor,
     b, sq, hq, d = q.shape
     n_pool, bl, hkv, _ = k_pool.shape
     check_scales(NAME, k_pool, k_scale, v_scale, (n_pool, hkv))
-    if q.dtype == torch.bfloat16 and bl % 64:
+    if q.dtype == torch.bfloat16 and bl % PAGED_BOX:
         raise NotImplementedError(
             f"{NAME}: the paged bfloat16 build takes block_len % 64 == 0, "
             f"got {bl}")
@@ -250,8 +254,8 @@ def flash_attention_fwd_paged_int8_cuda(q: torch.Tensor,
     err = lib.flash_attention_fwd_paged_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
-        table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, table.shape[1],
-        bl, float(scale), code, stream_ptr(q.device))
+        table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, n_pool,
+        table.shape[1], bl, float(scale), code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_fwd_paged_int8_cuda.launches += 1
     return out
