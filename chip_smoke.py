@@ -15,10 +15,14 @@ any failed check raises, so the script exits non-zero.  Phases:
                  the kernels' build time (one ``nvcc`` per source, all at
                  once) and ptxas's registers / spill bytes per library;
                  fails if ptxas reports that it serialised the
-                 ``wgmma.mma_async`` instructions of any kernel (named);
+                 ``wgmma.mma_async`` instructions of any kernel (named),
+                 or if the Hopper K1-paged kernel spills or fits no CTA on
+                 an SM (``k1_paged``: registers, spills, CTAs an SM);
   2. kernels   — K1 flash-decode, K2 flash-attention forward and K3
                  RMSNorm at the serving path's Llama-3-8B shapes (bf16),
-                 then K1-paged (decode tick) and K2-paged (suffix prefill,
+                 then K1-paged (decode tick; block_len 128, 16 and 8, and
+                 a batch whose every row is at the last position; the
+                 same bits on two calls) and K2-paged (suffix prefill,
                  block_len 128 and 64) on pools built so a kernel cannot
                  pass by accident (physical blocks shuffled, rows sharing
                  their first blocks, null-filled dead tails), then the
@@ -107,10 +111,12 @@ and K4 from phase 4c, of K1-int8 from phase 4d, of K5 and K6 from phase
 5; error and times from phase 2) and, last, ``{"ok": true, "device":
 {...}}``.
 
-``--profile`` adds a torch.profiler window over a few decode ticks of the
-contiguous, paged and int8 paged engines and over one phase-5 train step
-(kernel time by name and class, the optimizer's device time, device busy
-share) for PERF.md.
+``--profile`` adds K1's, K1-paged's and K1-paged-int8's device time by
+split length (the paged builds at the main, block_len 8 and all-at-4095
+rows of phase 2), a torch.profiler window over a few decode
+ticks of the contiguous, paged and int8 paged engines and over one phase-5
+train step (kernel time by name and class, the optimizer's device time,
+device busy share) for PERF.md.
 """
 
 from __future__ import annotations
@@ -408,6 +414,7 @@ def phase_card(torch, pt_build):
                        "functions": ptxas_functions(log)}
         if serialized_wgmma(log):
             serialized[name] = serialized_wgmma(log)
+    k1_paged = paged_decode_build(ptxas)
     emit({"phase": "card", "nvidia_smi": card,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
@@ -415,9 +422,29 @@ def phase_card(torch, pt_build):
           "python": sys.version.split()[0],
           "nvcc_build_s": round(build_s, 3),
           "ptxas_logs": sorted(pt_build.build_log),
-          "wgmma_serialized": serialized, "ptxas": ptxas})
+          "wgmma_serialized": serialized, "k1_paged": k1_paged,
+          "ptxas": ptxas})
     check(not serialized, f"ptxas serialised wgmma in {serialized}")
+    check(all(r.get("spill_stores", 0) == 0 and r["ctas_per_sm"] >= 1
+              for r in k1_paged.values()),
+          f"the Hopper K1-paged kernel spills or does not fit: {k1_paged}")
     return card
+
+
+def paged_decode_build(ptxas):
+    """The Hopper K1-paged kernel's builds (bf16, int8): ptxas's registers
+    and spill bytes (when this process built the library) and the CTAs
+    that fit on one SM."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    lib = da._lib()
+    fns = ptxas.get("decode_attention", {}).get("functions", {})
+    out = {}
+    for int8, build in ((0, "bf16"), (1, "int8")):
+        tag = f"decode_paged_mma_kernelILb{int8}E"
+        row = next((dict(r) for f, r in fns.items() if tag in f), {})
+        row["ctas_per_sm"] = lib.decode_attention_paged_ctas_per_sm(int8)
+        out[build] = row
+    return out
 
 
 # -- phase 2 ------------------------------------------------------------------------
@@ -879,6 +906,14 @@ def phase_kernels(torch):
          True),
         ("decode_attention_paged", bf16, 32, 8, 128, 2, 1, 16, 64,
          [33, 1000], ((0, 1, 2),), False),
+        # block_len 8: a 16-key slice spans two blocks (two table entries,
+        # int8: two scale pairs); depths on and beside the 8-key group, the
+        # 256-key split and the 4096-key end
+        ("decode_attention_paged", bf16, 32, 8, 128, 7, 1, 8, 512,
+         [0, 7, 8, 255, 256, 257, 4095], ((5, 6, 32),), False),
+        # every row at the last position: every split of every row live
+        ("decode_attention_paged", bf16, 32, 8, 128, 8, 1, 128, 32,
+         [4095] * 8, ((0, 1, 16), (2, 3, 8)), False),
         ("decode_attention_paged", f32, 4, 2, 16, 2, 1, 8, 8, [0, 40],
          ((0, 1, 1),), False),
         ("decode_attention_paged", f32, 4, 2, 16, 3, 1, 16, 4, [63, 5, 20],
@@ -920,10 +955,16 @@ def phase_kernels(torch):
         got = cached_decode_attention(q, kp, vp, pos, block_tables=tables)
         want = cached_decode_attention_reference(q, kp, vp, pos,
                                                  block_tables=tables)
+        extra = {}
+        if s == 1:   # K1-paged: the same bits twice (splits merged in order)
+            extra["deterministic"] = bool(torch.equal(
+                got, cached_decode_attention(q, kp, vp, pos,
+                                             block_tables=tables)))
         torch.cuda.synchronize()
         err = max_err(got, want)
         ok = within(got, want, atol, rtol) and bool(
-            torch.isfinite(got).all().item())
+            torch.isfinite(got).all().item()) and extra.get(
+                "deterministic", True)
         kfns = [lambda t=t: cached_decode_attention(*t, pos,
                                                     block_tables=tables)
                 for t in sets]
@@ -955,7 +996,7 @@ def phase_kernels(torch):
                f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
                f"shared={[list(x) for x in share]} {str(dt)[6:]}",
                err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
-               bms, by, main, note=PAGED_LIBRARY_NOTE)
+               bms, by, main, note=PAGED_LIBRARY_NOTE, extra=extra)
         del sets, q, kp, vp, got, want
 
     # ---- the int8 builds.  Payloads are random int8 in [-127, 127] with
@@ -1055,10 +1096,14 @@ def phase_kernels(torch):
         got = run(sets[0])
         with reference_mode():
             want = run(sets[0])
+        extra = {}
+        if s == 1:   # K1-paged-int8: the same bits twice
+            extra["deterministic"] = bool(torch.equal(got, run(sets[0])))
         torch.cuda.synchronize()
         err = max_err(got, want)
         ok = within(got, want, atol, rtol) and bool(
-            torch.isfinite(got).all().item())
+            torch.isfinite(got).all().item()) and extra.get(
+                "deterministic", True)
         kfns = [lambda t=t: run(t) for t in sets]
         with reference_mode():
             plain_ms = time_ms(torch, kfns, budget_ms=100.0)
@@ -1089,7 +1134,7 @@ def phase_kernels(torch):
                f"shared={[list(x) for x in share]} int8 K/V, "
                f"{str(dt)[6:]} q",
                err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
-               bms, by, main, note=INT8_LIBRARY_NOTE)
+               bms, by, main, note=INT8_LIBRARY_NOTE, extra=extra)
         del sets, got, want
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
@@ -1676,9 +1721,79 @@ def device_us(prof, n: int):
     return {k[:60]: round(t / n, 3) for t, k, _ in kernel_rows(prof)}
 
 
+def paged_split_sweep(torch, gen):
+    """K1-paged's and K1-paged-int8's device time (all kernels of a call)
+    against the split length at three of phase 2's rows: the main row, the
+    block_len 8 row and every row at 4095 (every split live); inputs
+    cycled past L2."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    dev = torch.device("cuda")
+    default_split = flags.flag("decode_attention_block_kv")
+    for bl, mb, pos_list, share in (
+            (128, 32, [0, 4095, 17, 1000, 2047, 3000, 511, 128],
+             ((1, 4, 16), (5, 3, 8))),
+            (8, 512, [0, 7, 8, 255, 256, 257, 4095], ((5, 6, 32),)),
+            (128, 32, [4095] * 8, ((0, 1, 16), (2, 3, 8)))):
+        b = len(pos_list)
+        tables, n_blocks, _ = paged_layout(pos_list, 1, bl, mb, share,
+                                           seed=b)
+        tables = torch.from_numpy(tables).to(dev)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        shape = (n_blocks, bl, 8, 128)
+        n_sets = copies(2 * 2 * math.prod(shape))
+        q = torch.randn((b, 1, 32, 128), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+
+        def pool(int8):
+            if int8:
+                return torch.randint(-127, 128, shape, generator=gen,
+                                     device=dev, dtype=torch.int8)
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        for name, int8 in (("decode_attention_paged", False),
+                           ("decode_attention_paged_int8", True)):
+            if int8:
+                scales = [(0.002 + 0.02 * torch.rand(
+                    n_blocks, 8, generator=gen, device=dev))
+                    for _ in range(2)]
+                fns = [lambda kp=pool(True), vp=pool(True):
+                       da.decode_attention_paged_int8_cuda(
+                           q, kp, vp, pos, tables, *scales)
+                       for _ in range(n_sets)]
+            else:
+                fns = [lambda kp=pool(False), vp=pool(False):
+                       da.decode_attention_paged_cuda(q, kp, vp, pos, tables)
+                       for _ in range(n_sets)]
+            sweep = {}
+            try:
+                for split in (128, 256, 512, 1024):
+                    flags.set_flags({"decode_attention_block_kv": split})
+                    for f in fns:
+                        f()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for i in range(40):
+                            fns[i % n_sets]()
+                        torch.cuda.synchronize()
+                    sweep[split] = round(sum(device_us(prof, 40).values()), 3)
+            finally:
+                flags.set_flags({"decode_attention_block_kv": default_split})
+            emit({"phase": "profile_k1_paged_split", "kernel": name,
+                  "shape": f"B={b} s=1 Hq=32 Hkv=8 D=128 block_len={bl} "
+                           f"max_blocks={mb} pos={pos_list} shared="
+                           f"{[list(x) for x in share]}",
+                  "device_us_by_split_len": sweep})
+            del fns
+
+
 def phase_profile(torch, model, qmodel):
     """K1's device time against its split length at the phase-2 decode
-    shape, then torch.profiler over a few decode ticks of 8 busy slots."""
+    shape, K1-paged's and K1-paged-int8's at three phase-2 rows, then
+    torch.profiler over a few decode ticks of 8 busy slots."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.ops import decode_attention_cuda
@@ -1710,6 +1825,7 @@ def phase_profile(torch, model, qmodel):
           "Hkv=8 D=128 pos=[0, 4095, 17, 1000, 2047, 3000, 511, 128]",
           "device_us_by_split_len": sweep})
     del q, kc, vc
+    paged_split_sweep(torch, gen)
 
     # decode ticks of 8 busy slots: the contiguous engine on phase 4's
     # prompts, then the paged engine on phase 4b's, then phase 4c's int8

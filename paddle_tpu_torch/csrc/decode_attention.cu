@@ -2,8 +2,8 @@
 // paddle_tpu_torch.
 //
 // Replaces paddle_tpu/ops/pallas/decode_attention.py::decode_attention_pallas
-// (body _kernel :120), contiguous and paged layouts.  For query row
-// (b, si, h):
+// (body _kernel :120, block-table mode :244-256, call :389), contiguous and
+// paged layouts.  For query row (b, si, h):
 //   out = softmax_j(q . k_j * scale) . v_j   over keys j <= pos[b] + si,
 // GQA grouped (kv head = h / G; K/V never broadcast), float32 accumulation,
 // online softmax; a row whose keys are all masked returns 0.
@@ -17,46 +17,95 @@
 //     pool[table[b, j / block_len], j % block_len].  The logical length
 //     is max_blocks * block_len; the table's dead-tail columns hold the
 //     null block 0 and are never read (the live-prefix rule below).
-//     block_len and the split length are multiples of 8, so a warp's
-//     8-key group never straddles a block: one table lookup per group.
+//     block_len and the split length are multiples of 8, so an 8-key
+//     group never straddles a block: one table lookup per group.
 //
 // Bound on the H100: memory.  The live K+V bytes over 3.35 TB/s; at S = 1 a
-// key feeds G query rows, about one operation per byte.  The design:
-//   * a CTA owns one (row b, kv head h) pair, up to kRows of its G*S query
+// key feeds G query rows, about one operation per byte.  Both bodies:
+//   * a CTA owns one (row b, kv head h) pair, a tile of its G*S query
 //     rows, and one split of the key axis; it reads keys only below
 //     pos[b] + (its last query offset) + 1 -- the dead cache tail is never
 //     read, so a tick costs what the rows' depths need, not L;
 //   * splits (split_len keys each) spread the walk over CTAs so B x Hkv
-//     pairs fill the card; each split writes an unnormalised (acc, m, l)
-//     partial and decode_attention_combine merges them with the LSE
-//     algebra (paddle_tpu/ops/ring_attention.py::merge_attention);
-//   * within a split, each of a CTA's 4 warps walks its own 8-key blocks
-//     (interleaved with the other warps) with its own online softmax and
-//     no barrier: lane l holds head-dim elements [l*D/32, (l+1)*D/32) of
-//     the queries, the accumulator and the keys' K/V rows, which arrive
-//     straight from device memory in 8-byte vectors (bf16, D = 128); the
-//     8 keys' dot products are summed across lanes by a transpose-reduce
-//     (9 shuffles a row instead of 40); the warps merge once at the end.
+//     pairs fill the card; each split's unnormalised (acc, m, l) partial
+//     is merged with the LSE algebra
+//     (paddle_tpu/ops/ring_attention.py::merge_attention), in split order.
+//
+// The CUDA-core body (decode_attention_kernel: the contiguous builds K1 and
+// K1-int8, and the float32 head_dim-16 paged builds): 4 query rows a CTA;
+// each of its 4 warps walks its own 8-key blocks (interleaved with the
+// other warps) with its own online softmax and no barrier: lane l holds
+// head-dim elements [l*D/32, (l+1)*D/32) of the queries, the accumulator
+// and the keys' K/V rows, which arrive straight from device memory in
+// 8-byte vectors (bf16, D = 128); the 8 keys' dot products are summed
+// across lanes by a transpose-reduce (9 shuffles a row instead of 40); the
+// warps merge once at the end; decode_attention_combine merges the splits.
+//
+// The Hopper body (decode_paged_mma_kernel: K1-paged and K1-paged-int8,
+// bf16 q at D = 128 -- the paged engine's decode tick).  The CUDA-core walk
+// is bound by latency, not bytes: a warp loads one 8-key group into
+// registers and then spends ~23 dependent shuffles a row on it with
+// nothing in flight, so its time follows the groups a warp walks and the
+// int8 build, with half the bytes, takes as long.  Here:
+//   * K/V through shared memory: each warp keeps its own two-stage ring of
+//     16-key slices (8 KB a stage, int8 4 KB), filled by cp.async 16-byte
+//     copies addressed per key row through the block table (no
+//     descriptor, any block_len % 8 == 0, nothing on the host); keys past
+//     the split's live bound are zero-filled, not read.  Warp w takes
+//     slices w, w + 4, ... of the split, so no CTA barrier sits in the walk
+//     (__syncwarp around each stage).  3 CTAs an SM (registers) keep up to
+//     ~100-190 KB in flight there, past the ~30 KB that 3.35 TB/s x ~1 us /
+//     132 SMs asks: more stages measured no faster, and at int8 slower;
+//   * products on tensor cores, transposed so the query rows are the
+//     narrow side: S^T = K Q^T and O^T += V^T P^T on mma.sync.m16n8k16,
+//     16 keys (or 16 head-dim rows) by the tile's G*S <= 8 query rows
+//     (padding columns are never written; at G*S = 4 half the product is
+//     padding, where Q as the 16-row side would waste three quarters and
+//     twice the accumulator registers).  K's A fragments come from shared
+//     memory with 16-byte loads (the head-dim order inside a k step is
+//     permuted identically in Q's fragments, which the sum ignores); P^T
+//     is P in bf16 -- the reference's p.astype(v.dtype) -- turned into the
+//     B operand by movmatrix; V^T's A fragments by ldmatrix.trans.  The
+//     softmax runs in the log2 domain, a row's max over the 8 lanes that
+//     hold its keys (3 shuffles), the row sums reduced once at the end,
+//     and the accumulator rescaled only when a running max moved;
+//   * int8: the K and V fragments are converted to bf16 in registers as
+//     they are built (exact; ptt::int8x4_to_bf16), never as tiles in
+//     shared memory; the scales ride in the stage (4 floats a slice) and
+//     fold per 8-key group -- K's into the scores, V's into P before P V
+//     (at block_len 8 a 16-key slice spans two blocks);
+//   * the warps' partials meet in shared memory with rows padded (a
+//     128-float row stride put a lane's 32 stores on one bank);
+//   * the merge: a split past the live bound leaves at once, a lone live
+//     split writes the output, and otherwise the last CTA of the (b, h)
+//     tile to finish (an atomic counter it resets itself) merges the live
+//     splits' partials in split order, so the bits do not depend on the
+//     order the CTAs finish in.  Against a two-launch merge (every split
+//     writes a partial, decode_attention_combine merges them) it measured
+//     2.2-4.5 us faster on each row chip_decode_paged.py times, every row
+//     at 4095 (16 partials a tile) included (NVIDIA H100 80GB HBM3, 700 W).
 //
 // int8 cache (entries decode_attention_int8 / decode_attention_paged_int8;
 // replaces the Pallas kernel's quantized mode, decode_attention.py
-// :122-128, :160-171, :186-187): K and V hold int8 with one float32 scale
-// per (granule or block, kv head) -- contiguous k_scale / v_scale (B,
-// n_gran, Hkv) over granules of L / n_gran positions, paged (num_blocks,
-// Hkv).  The bytes a key costs halve.  Granules, blocks and splits are
-// multiples of 8, so a warp's 8-key group lies in one granule or block and
-// its two scales are loaded once a group and folded as the Pallas body
-// folds them: K's into the group's scores (q . k_int8 * scale * k_scale),
-// V's into the group's probabilities before they weight V (equal to
-// scaling P.V); the running sum l takes the unscaled probabilities.  The
-// int8 -> float conversion is exact.  The bf16/f32 instantiations are the
-// code above, unchanged (INT8 = false removes every int8 branch).
+// :122-128, :160-187): K and V hold int8 with one float32 scale per
+// (granule or block, kv head) -- contiguous k_scale / v_scale (B, n_gran,
+// Hkv) over granules of L / n_gran positions, paged (num_blocks, Hkv).
+// The bytes a key costs halve.  Granules, blocks and splits are multiples
+// of 8, so an 8-key group lies in one granule or block and its two scales
+// fold as the Pallas body folds them: K's into the group's scores (q .
+// k_int8 * scale * k_scale), V's into the group's probabilities before
+// they weight V (equal to scaling P.V); the running sum l takes the
+// unscaled probabilities.  The int8 -> float conversion is exact.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace ptt;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
@@ -119,7 +168,8 @@ __device__ __forceinline__ void load_float(const T* __restrict__ p,
 // own online-softmax state; the warps merge once at the end.
 // PAGED selects the K/V addressing: false = contiguous (table, max_blocks
 // and block_len unused; the same code as the contiguous-only build),
-// true = pool + block table with L = max_blocks * block_len.  KV is the
+// true = pool + block table with L = max_blocks * block_len (built for
+// float32 only: the bf16 paged builds run decode_paged_mma_kernel).  KV is the
 // cache's element type: T, or int8_t for the int8 cache, whose scales
 // (k_scale, v_scale; n_gran and gran_len for the contiguous layout) are
 // unused otherwise.
@@ -372,6 +422,538 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
       from_float<T>(lsum > 0.f ? o / lsum : 0.f);
 }
 
+// ---------------------------------------------------------------------------
+// K1-paged and K1-paged-int8 at bf16 q, head_dim 128: tensor cores, and a
+// cp.async ring in shared memory for each warp (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr int kPD = 128;                  // head_dim
+constexpr int kPRows = 8;                 // query rows a CTA (mma's n8)
+constexpr int kPWarps = 4;
+constexpr int kPThreads = 32 * kPWarps;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMergeChunk = 256;          // splits a pass of the last CTA
+constexpr int kMStride = kPD + 4;
+static_assert(kPD == kPThreads, "a merging thread owns one head-dim element");
+
+template <bool INT8>
+struct Paged {
+  static constexpr int kRow = INT8 ? kPD : 2 * kPD;   // bytes a key's K row
+  static constexpr int kChunks = kRow / 16;           // 16-byte chunks a row
+  static constexpr int kSlice = 16;                   // keys a warp step
+  static constexpr int kTile = kSlice * kRow;         // K (or V) of a slice
+  // a stage: the slice's K rows, V rows and (int8) the K and V scales of
+  // its 8-key groups
+  static constexpr int kStage = 2 * kTile + (INT8 ? 2 * 4 * (kSlice / 8) : 0);
+  static constexpr int kStages = 2;                   // a warp's ring
+  static constexpr int kRing = kPWarps * kStages * kStage;
+  // the warps' merge: acc [warp][row][slot], rows kMStride floats apart
+  // (a lane's stores then fall on distinct banks but for pairs), then m and
+  // l [warp][row]
+  static constexpr int kMerge = kPWarps * kPRows * (kMStride + 2) * 4;
+  static_assert((kPRows + 2 * kMergeChunk * kPRows) * 4 <= kMerge,
+                "the last CTA's merge fits in the warps' merge space");
+  static constexpr int kSmem = kRing > kMerge ? kRing : kMerge;
+
+  // chunk ch of key row r of a staged tile sits at chunk ch ^ swz(r):
+  // every 8-lane phase of the copies, the K reads and the V reads (K:
+  // rows r, r + 1 at chunks c + 4i; V: bf16 ldmatrix over 8 rows, int8 the
+  // rows 2c.. at chunk g) lands on 8 distinct 16-byte bank groups
+  static __device__ __forceinline__ int swz(int r) {
+    r &= 7;
+    return INT8 ? ((r & 6) ^ ((r & 1) << 2)) : (((r & 1) << 2) | (r >> 1));
+  }
+  // the head-dim element of the first of the 4 values lane (g, c) takes
+  // at k step kk (of 8) of S^T = K Q^T: its K reads are whole 16-byte
+  // chunks (bf16: chunks c, c + 4, c + 8, c + 12; int8: c, c + 4), and the
+  // sum over d does not care which k slot holds which d, as long as K's and
+  // Q's fragments agree
+  static __device__ __forceinline__ int kdim(int kk, int c) {
+    return INT8 ? 16 * (c + 4 * (kk >> 2)) + 4 * (kk & 3)
+                : 8 * (4 * (kk >> 1) + c) + 4 * (kk & 1);
+  }
+  // the slot 16 mt + r (row r of O^T's m-tile mt) that holds head-dim
+  // element d (bf16: ldmatrix.trans gives m-tile mt elements 16mt..16mt+15;
+  // int8: lane g reads V's chunk g, m-tile mt takes its elements 2mt (row
+  // g) and 2mt + 1 (row g + 8))
+  static __device__ __forceinline__ int slot(int d) {
+    return INT8 ? 16 * ((d % 16) / 2) + d / 16 + 8 * (d & 1) : d;
+  }
+};
+
+__device__ __forceinline__ uint4 lds128(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint32_t word(const uint4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// grid (nsplit, ceil(S * G / 8), B * Hkv), block kPThreads, dynamic
+// shared memory Paged<INT8>::kSmem: the splits vary fastest, so the CTAs
+// of one (b, h) start together (a deep row's splits are not queued behind
+// the many dead splits of the shallow rows).  CTA (split, y, bh) takes
+// query rows [8y, 8y + 8) of kv head h = bh % Hkv of row b = bh / Hkv
+// (row rr is query offset rr / G of q head h * G + rr % G) and keys
+// [split * split_len, ...) below the tile's live bound.  Warp w walks the
+// split's 16-key slices w, w + 4, ...; a slice's two 8-key groups each lie
+// in one block (split_len and block_len are multiples of 8).  A split
+// past the live bound leaves at once, a lone live split writes out, and
+// otherwise the last CTA of (bh, y) to finish (counters[bh * gridDim.y +
+// y], which it resets to 0) merges the partials in split order.
+template <bool INT8>
+__global__ void __launch_bounds__(kPThreads, 3)
+decode_paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const unsigned char* __restrict__ k,
+                        const unsigned char* __restrict__ v,
+                        const int* __restrict__ pos,
+                        const int* __restrict__ table,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ part_o,
+                        float* __restrict__ part_ml, int* counters, int S,
+                        int Hq, int Hkv, int max_blocks, int block_len,
+                        int limit, int split_len, float scale_log2,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale) {
+  using P = Paged<INT8>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last_cta;
+  const int bh = blockIdx.z, b = bh / Hkv, h = bh % Hkv;
+  const int G = Hq / Hkv, rows_total = S * G;
+  const int r0 = blockIdx.y * kPRows, nr = min(kPRows, rows_total - r0);
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+
+  const int pb = pos[b];
+  // keys [0, live) are seen by some row of the tile (its last row the most)
+  const int live = min(limit, pb + (r0 + nr - 1) / G + 1);
+  const int n_live = live > 0 ? (live + split_len - 1) / split_len : 0;
+  const int k_begin = split * split_len;
+  const int k_end = min(live, k_begin + split_len);
+  // this CTA writes the output itself (no partial, no merge)
+  const bool direct = n_live <= 1;
+  // element offset of query row rr of the tile's (b, h) in q and out
+  auto row_off = [&](int rr) {
+    const int si = rr / G;
+    return ((size_t)(b * S + si) * Hq + h * G + rr - si * G) * kPD;
+  };
+  if (k_end <= k_begin) {
+    if (n_live == 0 && split == 0)   // no live key at all: every row is 0
+      for (int i = tid; i < nr * kPD; i += kPThreads)
+        out[row_off(r0 + i / kPD) + i % kPD] = __float2bfloat16(0.f);
+    return;
+  }
+
+  // ---- the warp's walk: slice t starts at key slice_key(t) -----------------
+  constexpr int kSlice = P::kSlice, kGroups = kSlice / 8;
+  static_assert(kSlice == 16, "a slice is one 16-key k step");
+  const int n_mine =
+      max(0, (k_end - k_begin - kSlice * warp + kSlice * kPWarps - 1) /
+                 (kSlice * kPWarps));
+  auto slice_key = [&](int t) {
+    return k_begin + kSlice * (warp + kPWarps * t);
+  };
+  const int* trow = table + (size_t)b * max_blocks;
+  // the blocks of slice t's 8-key groups (0 for a group past k_end: the
+  // table's dead tail is never read)
+  auto blocks = [&](int t, int (&blk)[kGroups]) {
+    const int j0 = slice_key(t);
+#pragma unroll
+    for (int q8 = 0; q8 < kGroups; ++q8)
+      blk[q8] = t < n_mine && j0 + 8 * q8 < k_end
+                    ? trow[(j0 + 8 * q8) / block_len] : 0;
+  };
+  unsigned char* ring = smem + warp * P::kStages * P::kStage;
+  const size_t head = (size_t)h * P::kRow;
+  const size_t key_stride = (size_t)Hkv * P::kRow;
+  // copy slice t into its stage (keys at or past k_end: zeros) and commit
+  // one group, empty past the warp's last slice
+  auto issue = [&](int t, const int (&blk)[kGroups]) {
+    if (t < n_mine) {
+      const int j0 = slice_key(t);
+      unsigned char* st = ring + (t % P::kStages) * P::kStage;
+      // pool rows of the groups' first keys
+      size_t gbase[kGroups];
+#pragma unroll
+      for (int q8 = 0; q8 < kGroups; ++q8)
+        gbase[q8] = (size_t)blk[q8] * block_len + (j0 + 8 * q8) % block_len;
+      constexpr int kKeysPerCopy = 32 / P::kChunks;   // bf16 2, int8 4
+#pragma unroll
+      for (int i = 0; i < kSlice / kKeysPerCopy; ++i) {
+        // lanes take consecutive chunks of a row: a copy reads whole rows
+        const int kr = kKeysPerCopy * i + lane / P::kChunks;
+        const int ch = lane % P::kChunks;
+        const bool on = j0 + kr < k_end;
+        const size_t prow = gbase[(kKeysPerCopy * i) / 8] + (kr & 7);
+        const size_t off = prow * key_stride + head + ch * 16;
+        const int dst = kr * P::kRow + ((ch ^ P::swz(kr)) << 4);
+        cp_async16(st + dst, on ? k + off : k, on ? 16 : 0);
+        cp_async16(st + P::kTile + dst, on ? v + off : v, on ? 16 : 0);
+      }
+      if constexpr (INT8) {
+        if (lane < 2 * kGroups) {   // the groups' K scales, then V's
+          const int q8 = lane % kGroups;
+          const bool on = j0 + 8 * q8 < k_end;
+          const float* src = (lane < kGroups ? k_scale : v_scale) +
+                             (size_t)blk[q8] * Hkv + h;
+          cp_async4(st + 2 * P::kTile + 4 * lane, on ? src : k_scale,
+                    on ? 4 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // prologue: the table entries of the first kStages + 1 slices, then the
+  // copies of the first kStages
+  int tb[P::kStages + 1][kGroups];
+#pragma unroll
+  for (int t = 0; t <= P::kStages; ++t) blocks(t, tb[t]);
+#pragma unroll
+  for (int t = 0; t < P::kStages; ++t) issue(t, tb[t]);
+  int nb[kGroups];
+#pragma unroll
+  for (int q8 = 0; q8 < kGroups; ++q8) nb[q8] = tb[P::kStages][q8];
+
+  // ---- Q^T as the B fragments of query row g (loaded while the first
+  // stages are in flight), and the last key of rows 2c and 2c + 1
+  uint32_t qb[8][2];
+  {
+    const bool on = g < nr;
+    const __nv_bfloat16* qr = q + (on ? row_off(r0 + g) : 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int d = P::kdim(kk, c);
+      qb[kk][0] = on ? *reinterpret_cast<const uint32_t*>(qr + d) : 0u;
+      qb[kk][1] = on ? *reinterpret_cast<const uint32_t*>(qr + d + 2) : 0u;
+    }
+  }
+  int last[2];   // row 2c + e keeps key j iff j <= last[e]
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int rl = 2 * c + e;
+    last[e] = rl < nr ? min(k_end, pb + (r0 + rl) / G + 1) - 1 : -1;
+  }
+
+  // O^T: m-tile mt holds head-dim rows 16 mt + g (acc[mt][0..1]) and
+  // 16 mt + g + 8 (acc[mt][2..3]) -- int8: elements 16 g + 2 mt and
+  // 16 g + 2 mt + 1 -- of query rows 2c, 2c + 1
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_mine; ++t) {
+    cp_async_wait<P::kStages - 1>();
+    __syncwarp();
+    const unsigned char* Ks = ring + (t % P::kStages) * P::kStage;
+    const unsigned char* Vs = Ks + P::kTile;
+    const int j0 = slice_key(t);
+
+    // S^T = K Q^T over the slice's 16 keys: st[0..1] = key g, st[2..3]
+    // = key g + 8, of query rows 2c, 2c + 1 (two chains over the k steps)
+    const unsigned char* klo = Ks + g * P::kRow;
+    const unsigned char* khi = klo + 8 * P::kRow;
+    float st[4] = {0.f, 0.f, 0.f, 0.f}, st2[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (INT8) {
+      const uint4 l0 = lds128(klo + ((c ^ P::swz(g)) << 4));
+      const uint4 l1 = lds128(klo + (((c + 4) ^ P::swz(g)) << 4));
+      const uint4 h0 = lds128(khi + ((c ^ P::swz(g)) << 4));
+      const uint4 h1 = lds128(khi + (((c + 4) ^ P::swz(g)) << 4));
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t a[4];
+        int8x4_to_bf16(word(kk < 4 ? l0 : l1, kk & 3), a[0], a[2]);
+        int8x4_to_bf16(word(kk < 4 ? h0 : h1, kk & 3), a[1], a[3]);
+        if (kk & 1) mma_m16n8k16(st2, a, qb[kk][0], qb[kk][1]);
+        else mma_m16n8k16(st, a, qb[kk][0], qb[kk][1]);
+      }
+    } else {
+      uint4 lo[4], hi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        lo[i] = lds128(klo + (((4 * i + c) ^ P::swz(g)) << 4));
+        hi[i] = lds128(khi + (((4 * i + c) ^ P::swz(g)) << 4));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int x = kk >> 1, y = 2 * (kk & 1);
+        const uint32_t a[4] = {word(lo[x], y), word(hi[x], y),
+                               word(lo[x], y + 1), word(hi[x], y + 1)};
+        if (kk & 1) mma_m16n8k16(st2, a, qb[kk][0], qb[kk][1]);
+        else mma_m16n8k16(st, a, qb[kk][0], qb[kk][1]);
+      }
+    }
+
+    // scores in the log2 domain (int8: times each 8-key group's K scale),
+    // the mask and the online softmax; a row's max over the 8 lanes that
+    // hold its keys
+    float ksc[2] = {1.f, 1.f}, vsc[2] = {1.f, 1.f};
+    if constexpr (INT8) {
+      const float* sc = reinterpret_cast<const float*>(Ks + 2 * P::kTile);
+      ksc[0] = sc[0];
+      ksc[1] = sc[1];
+      vsc[0] = sc[2];
+      vsc[1] = sc[3];
+    }
+    const int jlo = j0 + g, jhi = jlo + 8;
+    float sc4[4], mx[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc4[e] = jlo <= last[e] ? (st[e] + st2[e]) * scale_log2 * ksc[0]
+                              : kNegInf;
+      sc4[2 + e] = jhi <= last[e]
+                       ? (st[2 + e] + st2[2 + e]) * scale_log2 * ksc[1]
+                       : kNegInf;
+      mx[e] = fmaxf(m_r[e], fmaxf(sc4[e], sc4[2 + e]));
+#pragma unroll
+      for (int o = 4; o <= 16; o <<= 1)
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(kFull, mx[e], o));
+    }
+    float al[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      al[e] = exp2f(m_r[e] - mx[e]);
+      m_r[e] = mx[e];
+      l_r[e] *= al[e];
+    }
+    // a running max that did not move leaves the accumulator as it is
+    if (__any_sync(kFull, al[0] != 1.f || al[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        acc[n][0] *= al[0];
+        acc[n][1] *= al[1];
+        acc[n][2] *= al[0];
+        acc[n][3] *= al[1];
+      }
+    }
+    float pr[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      pr[e] = jlo <= last[e] ? exp2f(sc4[e] - m_r[e]) : 0.f;
+      pr[2 + e] = jhi <= last[e] ? exp2f(sc4[2 + e] - m_r[e]) : 0.f;
+      l_r[e] += pr[e] + pr[2 + e];
+    }
+    // P^T in bf16 as the B operand (int8: times each key's V scale; the
+    // row sums take it unscaled): lane (g, c) holds the 8x8 blocks' (key
+    // g, rows 2c..2c+1); movmatrix's transpose gives (keys 2c..2c+1, row
+    // g)
+    const uint32_t b0 = movmatrix_trans(
+        pack_bf16(pr[0] * vsc[0], pr[1] * vsc[0]));
+    const uint32_t b1 = movmatrix_trans(
+        pack_bf16(pr[2] * vsc[1], pr[3] * vsc[1]));
+
+    // O^T += V^T P^T over the slice's 16 keys
+    if constexpr (INT8) {
+      // lane (g, c) reads V's chunk g (elements 16g..16g+15) of the rows
+      // 2c, 2c + 1, 2c + 8, 2c + 9 its A fragments take; m-tile mt takes
+      // elements 2mt (row g) and 2mt + 1 (row g + 8)
+      const int ra = 2 * c;
+      const uint4 x0 = lds128(Vs + ra * P::kRow + ((g ^ P::swz(ra)) << 4));
+      const uint4 x1 =
+          lds128(Vs + (ra + 1) * P::kRow + ((g ^ P::swz(ra + 1)) << 4));
+      const uint4 x2 =
+          lds128(Vs + (ra + 8) * P::kRow + ((g ^ P::swz(ra)) << 4));
+      const uint4 x3 =
+          lds128(Vs + (ra + 9) * P::kRow + ((g ^ P::swz(ra + 1)) << 4));
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        uint32_t a0[4], a1[4];   // m-tiles 2y, 2y + 1
+        int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x5140),
+                       a0[0], a0[1]);
+        int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x5140),
+                       a0[2], a0[3]);
+        int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x7362),
+                       a1[0], a1[1]);
+        int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x7362),
+                       a1[2], a1[3]);
+        mma_m16n8k16(acc[2 * y], a0, b0, b1);
+        mma_m16n8k16(acc[2 * y + 1], a1, b0, b1);
+      }
+    } else {
+      // ldmatrix.trans: lanes 8i..8i+7 address matrix i = keys
+      // 8(i >> 1).., head-dim chunk 2mt + (i & 1)
+      const int vk = (lane >> 4) * 8 + (lane & 7);
+      const unsigned char* vr = Vs + vk * P::kRow;
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, vr + (((2 * mt + ((lane >> 3) & 1)) ^
+                                    P::swz(vk)) << 4));
+        mma_m16n8k16(acc[mt], a, b0, b1);
+      }
+    }
+
+    __syncwarp();   // every lane is done with the stage
+    issue(t + P::kStages, nb);
+    blocks(t + P::kStages + 1, nb);
+  }
+  cp_async_wait<0>();
+
+  // ---- merge the warps, then write the output or the split's partial ------
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+      l_r[e] += __shfl_xor_sync(kFull, l_r[e], o);
+  __syncthreads();   // every warp is done with its ring
+  float* wacc = reinterpret_cast<float*>(smem);       // [warp][row][slot]
+  float* wm = wacc + kPWarps * kPRows * kMStride;     // [warp][row]
+  float* wl = wm + kPWarps * kPRows;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float* row = wacc + (warp * kPRows + 2 * c + e) * kMStride + 16 * n + g;
+      row[0] = acc[n][e];
+      row[8] = acc[n][2 + e];
+    }
+  if (g == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      wm[warp * kPRows + 2 * c + e] = m_r[e];
+      wl[warp * kPRows + 2 * c + e] = l_r[e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nr * kPD; i += kPThreads) {
+    const int r = i / kPD, d = i % kPD;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kPWarps; ++w)
+      if (wl[w * kPRows + r] > 0.f) M = fmaxf(M, wm[w * kPRows + r]);
+    float lsum = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPWarps; ++w) {
+      const float lw = wl[w * kPRows + r];
+      if (lw > 0.f) {
+        const float cf = exp2f(wm[w * kPRows + r] - M);
+        lsum += lw * cf;
+        o += wacc[(w * kPRows + r) * kMStride + P::slot(d)] * cf;
+      }
+    }
+    const int rr = r0 + r;
+    if (direct) {
+      out[row_off(rr) + d] = __float2bfloat16(lsum > 0.f ? o / lsum : 0.f);
+    } else {
+      const size_t pi = ((size_t)bh * nsplit + split) * rows_total + rr;
+      part_o[pi * kPD + d] = o;
+      if (d == 0) {
+        part_ml[2 * pi] = M * kLn2;   // natural-log units, as the merge's
+        part_ml[2 * pi + 1] = lsum;
+      }
+    }
+  }
+  if (direct) return;
+
+  // ---- the last of the tile's live splits to finish merges them -----------
+  __threadfence();   // this CTA's partial is visible before it counts
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + bh * gridDim.y + blockIdx.y;
+    const int prev = atomicAdd(cnt, 1);
+    last_cta = prev == n_live - 1;
+    if (last_cta) *cnt = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!last_cta) return;
+  __threadfence();
+  // each row's max over the live splits (lanes stride the splits), then
+  // the splits' weights exp(m - M) and l * exp(m - M) a chunk at a time in
+  // shared memory; thread tid sums element d = tid of every row, in split
+  // order
+  const float2* ml = reinterpret_cast<const float2*>(part_ml);
+  const size_t p0 = (size_t)bh * nsplit * rows_total + r0;
+  float* rmax = reinterpret_cast<float*>(smem);   // [row]
+  float* ws = rmax + kPRows;                  // [split in chunk][row]
+  float* wls = ws + kMergeChunk * kPRows;
+  for (int r = warp; r < nr; r += kPWarps) {
+    float M = kNegInf;
+    for (int sp = lane; sp < n_live; sp += 32) {
+      const float2 x = __ldcg(ml + p0 + (size_t)sp * rows_total + r);
+      if (x.y > 0.f) M = fmaxf(M, x.x);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(kFull, M, o));
+    if (lane == 0) rmax[r] = M;
+  }
+  __syncthreads();
+  float o[kPRows], lsum[kPRows];
+#pragma unroll
+  for (int r = 0; r < kPRows; ++r) o[r] = lsum[r] = 0.f;
+  for (int sp0 = 0; sp0 < n_live; sp0 += kMergeChunk) {
+    const int n = min(kMergeChunk, n_live - sp0);
+    for (int i = tid; i < n * nr; i += kPThreads) {
+      const int sp = sp0 + i / nr, r = i % nr;
+      const float2 x = __ldcg(ml + p0 + (size_t)sp * rows_total + r);
+      const float w = x.y > 0.f ? expf(x.x - rmax[r]) : 0.f;
+      ws[i] = w;
+      wls[i] = x.y * w;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < n; ++kk) {
+      const float* po = part_o + (p0 + (size_t)(sp0 + kk) * rows_total) * kPD;
+#pragma unroll
+      for (int r = 0; r < kPRows; ++r)
+        if (r < nr) {
+          o[r] += __ldcg(po + r * kPD + tid) * ws[kk * nr + r];
+          lsum[r] += wls[kk * nr + r];
+        }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kPRows; ++r)
+    if (r < nr)
+      out[row_off(r0 + r) + tid] =
+          __float2bfloat16(lsum[r] > 0.f ? o[r] / lsum[r] : 0.f);
+}
+
+// the kernel's dynamic shared memory limit and a shared-memory-first
+// carveout, set once: 3 CTAs an SM need 3 x 64 KB of the 228
+template <bool INT8>
+cudaError_t paged_attributes() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_paged_mma_kernel<INT8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Paged<INT8>::kSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(decode_paged_mma_kernel<INT8>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  done = e == cudaSuccess;
+  return e;
+}
+
+// K1-paged(-int8) at bf16 q, head_dim 128: the Hopper kernel, one launch
+template <bool INT8>
+cudaError_t launch_paged_mma(const void* q, const void* k, const void* v,
+                             const int* pos, const int* table, void* out,
+                             float* part_o, float* part_ml, int* counters,
+                             int B, int S, int Hq, int Hkv, int max_blocks,
+                             int block_len, int limit, int split_len,
+                             int nsplit, float scale,
+                             const float* k_scale, const float* v_scale,
+                             cudaStream_t st) {
+  using P = Paged<INT8>;
+  const cudaError_t e = paged_attributes<INT8>();
+  if (e != cudaSuccess) return e;
+  const int rows_total = S * (Hq / Hkv);
+  const dim3 grid(nsplit, (rows_total + kPRows - 1) / kPRows, B * Hkv);
+  decode_paged_mma_kernel<INT8><<<grid, kPThreads, P::kSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const unsigned char*>(k),
+      static_cast<const unsigned char*>(v), pos, table,
+      static_cast<__nv_bfloat16*>(out), part_o, part_ml, counters, S, Hq,
+      Hkv, max_blocks, block_len, limit, split_len,
+      scale * 1.4426950408889634f, k_scale, v_scale);
+  return cudaSuccess;
+}
+
 template <typename T, int EPL, int KPI, bool PAGED, typename KV = T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* pos, void* out, float* part_o, float* part_ml,
@@ -434,14 +1016,20 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
 // block id); the logical cache length is max_blocks * block_len and
 // limit <= that bound.  block_len and split_len must be multiples of 8
 // (cudaErrorInvalidValue otherwise); dtype/D pairs and scratch as above.
+// bfloat16 at D = 128 runs decode_paged_mma_kernel: counters is an int32
+// array of B * Hkv * ceil(S * G / 8) zeros, one a (row, kv head, 8-row
+// tile), which each launch leaves zero; launches that may run at the same
+// time (other streams) need arrays of their own.  float32 at D = 16 runs
+// the CUDA-core kernel and ignores it.
 extern "C" int decode_attention_paged(const void* q, const void* k,
                                       const void* v, const void* pos,
                                       const void* table, void* out,
-                                      void* part_o, void* part_ml, int B,
-                                      int S, int Hq, int Hkv, int D,
-                                      int max_blocks, int block_len,
-                                      int limit, int split_len, int nsplit,
-                                      float scale, int dtype, void* stream) {
+                                      void* part_o, void* part_ml,
+                                      void* counters, int B, int S, int Hq,
+                                      int Hkv, int D, int max_blocks,
+                                      int block_len, int limit,
+                                      int split_len, int nsplit, float scale,
+                                      int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* t = static_cast<const int*>(table);
@@ -453,10 +1041,10 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
   const int L = max_blocks * block_len;
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch<__nv_bfloat16, 4, 8, true>(q, k, v, p, out, po, pml, B, S, Hq,
-                                          Hkv, D, L, limit, split_len, nsplit,
-                                          scale, st, t, max_blocks,
-                                          block_len);
+    e = launch_paged_mma<false>(q, k, v, p, t, out, po, pml,
+                                static_cast<int*>(counters), B, S, Hq, Hkv,
+                                max_blocks, block_len, limit, split_len,
+                                nsplit, scale, nullptr, nullptr, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                   D, L, limit, split_len, nsplit, scale, st,
@@ -510,9 +1098,9 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
 extern "C" int decode_attention_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* pos, const void* table, void* out,
-    void* part_o, void* part_ml, int B, int S, int Hq, int Hkv, int D,
-    int max_blocks, int block_len, int limit, int split_len, int nsplit,
-    float scale, int dtype, void* stream) {
+    void* part_o, void* part_ml, void* counters, int B, int S, int Hq,
+    int Hkv, int D, int max_blocks, int block_len, int limit, int split_len,
+    int nsplit, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* t = static_cast<const int*>(table);
@@ -526,9 +1114,10 @@ extern "C" int decode_attention_paged_int8(
   const int L = max_blocks * block_len;
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch<__nv_bfloat16, 4, 8, true, int8_t>(
-        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
-        nsplit, scale, st, t, max_blocks, block_len, ks, vs);
+    e = launch_paged_mma<true>(q, k, v, p, t, out, po, pml,
+                               static_cast<int*>(counters), B, S, Hq, Hkv,
+                               max_blocks, block_len, limit, split_len,
+                               nsplit, scale, ks, vs, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
@@ -537,6 +1126,21 @@ extern "C" int decode_attention_paged_int8(
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the bf16 (int8 = 0) or int8 (int8 = 1) K1-paged kernel that fit
+// on one SM at once, or minus a CUDA error
+extern "C" int decode_attention_paged_ctas_per_sm(int int8) {
+  int n = 0;
+  cudaError_t e = int8 ? paged_attributes<true>() : paged_attributes<false>();
+  if (e == cudaSuccess)
+    e = int8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, decode_paged_mma_kernel<true>, kPThreads,
+                   Paged<true>::kSmem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, decode_paged_mma_kernel<false>, kPThreads,
+                   Paged<false>::kSmem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -423,28 +423,6 @@ __device__ __forceinline__ void paged_boxes(const int* trow, int block_len,
   }
 }
 
-// a * b + c on bf16 pairs, rounded to nearest
-__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b,
-                                               uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
-// four int8 (one word) as four bfloat16 (two words), exact: x = (128 +
-// (x & 127)) - (128 + (x & 128)) in two's complement, each term a bf16 of
-// exponent 2^7 whose mantissa is the byte's low bits (0x80 carries into
-// 256), put together by byte permutes; one bf16 pair fma subtracts
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo,
-                                               uint32_t& hi) {
-  const uint32_t m = w & 0x7F7F7F7Fu, n = w & 0x80808080u;
-  const uint32_t one = 0x3F803F80u;
-  lo = bf16x2_fma(__byte_perm(m, 0x43u, 0x4140), one,
-                  __byte_perm(n, 0xC3u, 0x4140));
-  hi = bf16x2_fma(__byte_perm(m, 0x43u, 0x4342), one,
-                  __byte_perm(n, 0xC3u, 0x4342));
-}
-
 // a staged 128-key int8 tile (128 bytes a row, unswizzled) as the bf16
 // tile the consumers read (two 64-wide halves, 128-byte swizzle).  Each
 // thread of the warpgroup converts 8 of the tile's 1024 16-byte int8

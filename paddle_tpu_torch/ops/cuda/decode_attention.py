@@ -26,27 +26,38 @@ It is built for bfloat16 at head_dim 128 (the serving path) and float32
 at head_dim 16 (the tiny model), the two builds held against the plain
 version on the card (``chip_smoke.py``); any other pair raises.
 
-The paged build (the paged engine's decode tick, replacing the Pallas
-kernel's block-table scalar-prefetch mode, ``decode_attention.py:244-256``)
-reads K/V from the pooled ``(num_blocks, block_len, Hkv, D)`` cache
-through an int32 ``(B, max_blocks)`` block table: key ``j`` of row ``b``
-lives at ``pool[table[b, j // block_len], j % block_len]``.  Each warp
-looks the table up once per 8-key group, so ``block_len`` must be a
-multiple of 8 (the reference default 128 is); splits stay
-``FLAGS_decode_attention_block_kv`` keys and may span blocks.  The logical
-length is ``max_blocks * block_len`` and each row reads only keys below
+The paged builds K1-paged (:func:`decode_attention_paged_cuda`) and
+K1-paged-int8 (:func:`decode_attention_paged_int8_cuda`) — the paged
+engine's decode tick, replacing the Pallas kernel's block-table
+scalar-prefetch mode (``decode_attention.py:244-256``) — read K/V from the
+pooled ``(num_blocks, block_len, Hkv, D)`` cache through an int32
+``(B, max_blocks)`` block table: key ``j`` of row ``b`` lives at
+``pool[table[b, j // block_len], j % block_len]``.  The logical length is
+``max_blocks * block_len`` and each row reads only keys below
 ``min(pos_b + s, max_blocks * block_len, live_len)``, so the table's
-null-filled dead tail is never read.
+null-filled dead tail is never read.  At bfloat16 and head_dim 128 they
+run the Hopper kernel (``decode_paged_mma_kernel``): a CTA takes up to
+``PAGED_ROWS`` query rows of one (row, kv head) pair and one split of
+``FLAGS_decode_attention_block_kv`` keys (the split length is the flag,
+unchanged by this build); its ``PAGED_WARPS`` warps take the split's
+``PAGED_SLICE``-key slices in turn, each through its own cp.async ring in
+shared memory (16-byte copies addressed per key row through the table).
+The products run on tensor cores transposed, Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ
+with the query rows as ``mma.sync.m16n8k16``'s 8 columns, and int8 K/V
+are converted to bf16 in registers.  ``block_len`` and the split length
+must be multiples of 8 (a slice's two 8-key groups each lie in one
+block).  The splits of a tile are merged by the last of its CTAs to
+finish, in split order (the same bits every run); the float32
+head_dim-16 builds keep the CUDA-core body and its merge kernel.
 
 The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
-:func:`decode_attention_paged_int8_cuda`, K1-paged-int8; replacing the
-Pallas kernel's ``quantized`` mode, ``decode_attention.py:122-128,
-160-171, 186-187``) read int8 K/V — half the bytes — with one float32
-scale per (granule or block, kv head): contiguous scales (B, n_gran, Hkv)
-over granules of ``L // n_gran`` positions, paged scales (num_blocks,
-Hkv).  A warp's 8-key group lies inside one granule or block (both
+K1-paged-int8; replacing the Pallas kernel's ``quantized`` mode,
+``decode_attention.py:122-128, 160-187``) read int8 K/V — half the bytes —
+with one float32 scale per (granule or block, kv head): contiguous scales
+(B, n_gran, Hkv) over granules of ``L // n_gran`` positions, paged scales
+(num_blocks, Hkv).  An 8-key group lies inside one granule or block (both
 multiples of 8, as is the split length), so each group's two scales are
-loaded once and folded as the Pallas body folds them: K's into the score
+folded as the Pallas body folds them: K's into the score
 (``q . k_int8 * scale * k_scale``), V's into the group's probabilities
 before they weight V (the same as scaling the P.V product).  Everything
 else — live-prefix walk, splits, merge — is the bf16 kernel's.
@@ -68,6 +79,13 @@ NAME = "decode_attention"
 # the head_dim built for each dtype
 HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
 
+# K1-paged / K1-paged-int8 at bf16, head_dim 128 (decode_paged_mma_kernel):
+# query rows a CTA (mma.sync's n8), keys a warp step, warps a CTA (warp w
+# takes slices w, w + PAGED_WARPS, ... of its split)
+PAGED_ROWS = 8
+PAGED_SLICE = 16
+PAGED_WARPS = 4
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -80,37 +98,64 @@ def _lib() -> ctypes.CDLL:
                        _I, _I, _I, _I, _I, _I, _I,      # B S Hq Hkv D L lim
                        _I, _I, ctypes.c_float, _I, _P]  # split nsplit scale dt st
         fn.restype = ctypes.c_int
+        # q k v pos tbl out po pml cnt; B S Hq Hkv D mb bl lim split nsplit;
+        # scale; dt st
         fp = lib.decode_attention_paged
-        fp.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v pos tbl out po pml
-                       _I, _I, _I, _I, _I, _I, _I,      # B S Hq Hkv D mb bl
-                       _I, _I, _I, ctypes.c_float,      # lim split nsplit scale
-                       _I, _P]                          # dt st
+        fp.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fp.restype = ctypes.c_int
         # q k v k_scale v_scale pos out po pml; B S Hq Hkv D L n_gran lim
         # split nsplit; scale; dt st
         fi = lib.decode_attention_int8
         fi.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fi.restype = ctypes.c_int
-        # q k v k_scale v_scale pos tbl out po pml; B S Hq Hkv D mb bl lim
-        # split nsplit; scale; dt st
+        # q k v k_scale v_scale pos tbl out po pml cnt; B S Hq Hkv D mb bl
+        # lim split nsplit; scale; dt st
         fpi = lib.decode_attention_paged_int8
-        fpi.argtypes = [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        fpi.argtypes = [_P] * 11 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fpi.restype = ctypes.c_int
+        occ = lib.decode_attention_paged_ctas_per_sm
+        occ.argtypes = [_I]
+        occ.restype = ctypes.c_int
     return lib
 
 
 def _scratch(q: torch.Tensor, hkv: int, nsplit: int):
     """Split partials: one float32 scratch holding (B*Hkv, nsplit, rows,
     D) partial sums, then (B*Hkv, nsplit, rows, 2) running max /
-    normaliser; (None, None) for one split."""
+    normaliser.  Returns (scratch, partial-sum pointer, max/normaliser
+    pointer); (None, None, None) for one split.  The caller keeps the
+    scratch tensor until the launch is enqueued, so no allocation made
+    before it can take the same memory."""
     if nsplit <= 1:
-        return None, None
+        return None, None, None
     b, s, hq, d = q.shape
     rows = s * (hq // hkv)
     n_o = b * hkv * nsplit * rows * d
     part = torch.empty(n_o + b * hkv * nsplit * rows * 2,
                        dtype=torch.float32, device=q.device)
-    return part.data_ptr(), part.data_ptr() + 4 * n_o
+    return part, part.data_ptr(), part.data_ptr() + 4 * n_o
+
+
+# (device index, stream handle) -> int32 zeros: the counters of the paged
+# kernel's in-kernel merge
+_counters = {}
+
+
+def _counter_buffer(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters, one a (row, kv head, row
+    tile), for paged launches on ``stream`` of ``device``.  A launch counts
+    its tiles' finished splits there and leaves every counter at 0 again,
+    so launches on one stream, which run one after another, share the
+    buffer; launches on another stream, which may run at the same time,
+    get a buffer of their own.  A launch cut off mid-grid (a device fault)
+    leaves the buffer unknown, as it leaves the CUDA context."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _split(limit: int):
@@ -123,6 +168,29 @@ def _split(limit: int):
             f"{NAME}: the paged and int8 builds take a split length "
             f"(FLAGS_decode_attention_block_kv) % 8 == 0, got {split_len}")
     return split_len, max(1, math.ceil(limit / split_len))
+
+
+def _launch_paged(fn, scales, q, k_pool, v_pool, pos, table, out, code,
+                  scale, live_len) -> int:
+    """One launch of a paged C entry (``scales``: the int8 entry's two
+    scale pointers, or ()).  Returns the entry's error code."""
+    b, s, hq, d = q.shape
+    _, bl, hkv, _ = k_pool.shape
+    mb = table.shape[1]
+    L = mb * bl
+    limit = L if live_len is None else max(1, min(L, int(live_len)))
+    split_len, nsplit = _split(limit)
+    if scale is None:
+        scale = d ** -0.5
+    row_tiles = -(-s * (hq // hkv) // PAGED_ROWS)
+    st = stream_ptr(q.device)
+    counters = _counter_buffer(q.device, st, b * hkv * row_tiles)
+    pos_t = pos_vector(pos, b, q.device)
+    part, po, pml = _scratch(q, hkv, nsplit)
+    return fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+              pos_t.data_ptr(), table.data_ptr(),
+              out.data_ptr(), po, pml, counters.data_ptr(), b, s, hq, hkv, d,
+              mb, bl, limit, split_len, nsplit, float(scale), code, st)
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -149,7 +217,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     pos_t = pos_vector(pos, b, q.device)
     if scale is None:
         scale = d ** -0.5
-    po, pml = _scratch(q, hkv, nsplit)
+    part, po, pml = _scratch(q, hkv, nsplit)
     lib = _lib()
     err = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -183,23 +251,12 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise NotImplementedError(
             f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
     table = block_table(block_tables, b, q.device, NAME)
-    mb = table.shape[1]
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    L = mb * bl
-    limit = L if live_len is None else max(1, min(L, int(live_len)))
-    split_len, nsplit = _split(limit)
-    pos_t = pos_vector(pos, b, q.device)
-    if scale is None:
-        scale = d ** -0.5
-    po, pml = _scratch(q, hkv, nsplit)
     lib = _lib()
-    err = lib.decode_attention_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        pos_t.data_ptr(), table.data_ptr(), out.data_ptr(), po, pml,
-        b, s, hq, hkv, d, mb, bl, limit, split_len, nsplit, float(scale),
-        code, stream_ptr(q.device))
+    err = _launch_paged(lib.decode_attention_paged, (), q, k_pool, v_pool,
+                        pos, table, out, code, scale, live_len)
     _build.check(lib, NAME, err)
     decode_attention_paged_cuda.launches += 1
     return out
@@ -240,7 +297,7 @@ def decode_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     pos_t = pos_vector(pos, b, q.device)
     if scale is None:
         scale = d ** -0.5
-    po, pml = _scratch(q, hkv, nsplit)
+    part, po, pml = _scratch(q, hkv, nsplit)
     lib = _lib()
     err = lib.decode_attention_int8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -278,23 +335,13 @@ def decode_attention_paged_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise NotImplementedError(
             f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
     table = block_table(block_tables, b, q.device, NAME)
-    mb = table.shape[1]
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    L = mb * bl
-    limit = L if live_len is None else max(1, min(L, int(live_len)))
-    split_len, nsplit = _split(limit)
-    pos_t = pos_vector(pos, b, q.device)
-    if scale is None:
-        scale = d ** -0.5
-    po, pml = _scratch(q, hkv, nsplit)
     lib = _lib()
-    err = lib.decode_attention_paged_int8(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
-        table.data_ptr(), out.data_ptr(), po, pml, b, s, hq, hkv, d, mb, bl,
-        limit, split_len, nsplit, float(scale), code, stream_ptr(q.device))
+    err = _launch_paged(lib.decode_attention_paged_int8,
+                        (k_scale.data_ptr(), v_scale.data_ptr()), q, k_pool,
+                        v_pool, pos, table, out, code, scale, live_len)
     _build.check(lib, NAME, err)
     decode_attention_paged_int8_cuda.launches += 1
     return out
