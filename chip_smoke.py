@@ -16,9 +16,12 @@ any failed check raises, so the script exits non-zero.  Phases:
                  once) and ptxas's registers / spill bytes per library;
                  fails if ptxas reports that it serialised the
                  ``wgmma.mma_async`` instructions of any kernel (named),
-                 or if the Hopper K1-paged kernel spills or fits no CTA on
-                 an SM (``k1_paged``: registers, spills, CTAs an SM);
-  2. kernels   — K1 flash-decode, K2 flash-attention forward and K3
+                 or if a build of the Hopper K1 kernel (K1, K1-int8,
+                 K1-paged, K1-paged-int8) spills or fits no CTA on an SM
+                 (``k1_mma``: registers, spills, CTAs an SM);
+  2. kernels   — K1 flash-decode (also with every row at the last
+                 position and a 4-token window; the same bits on two
+                 calls), K2 flash-attention forward and K3
                  RMSNorm at the serving path's Llama-3-8B shapes (bf16),
                  then K1-paged (decode tick; block_len 128, 16 and 8, and
                  a batch whose every row is at the last position; the
@@ -27,7 +30,8 @@ any failed check raises, so the script exits non-zero.  Phases:
                  pass by accident (physical blocks shuffled, rows sharing
                  their first blocks, null-filled dead tails), then the
                  int8 builds: K1-int8 over a contiguous int8 cache with
-                 128-token scale granules, K1-paged-int8 and
+                 128-token scale granules (and 8-token ones, every row at
+                 4095, the same bits on two calls), K1-paged-int8 and
                  K2-paged-int8 over int8 pools with per-block scales, and
                  K4, the weight-only int8 GEMM, at every Llama-3-8B
                  projection shape (8 rows), at the row counts a prefill
@@ -70,7 +74,8 @@ any failed check raises, so the script exits non-zero.  Phases:
   4. serving   — ``ServingEngine(num_slots=8, max_length=4096,
                  prefill_batch=4)`` on 12 requests of 5..1500 prompt
                  tokens, 32 new tokens each; every launch counter is reset
-                 just before and read just after; tok/s, step ms, TTFT;
+                 just before and read just after (K1 32 a decode tick, no
+                 plain route); tok/s, step ms, TTFT;
   4b. serving_paged — the same engine with ``paged=True, block_len=128,
                  num_blocks=52`` on 16 requests: 8 open with one shared
                  1536-token system prompt, 8 are unique, interleaved; the
@@ -111,9 +116,10 @@ and K4 from phase 4c, of K1-int8 from phase 4d, of K5 and K6 from phase
 5; error and times from phase 2) and, last, ``{"ok": true, "device":
 {...}}``.
 
-``--profile`` adds K1's, K1-paged's and K1-paged-int8's device time by
-split length (the paged builds at the main, block_len 8 and all-at-4095
-rows of phase 2), a torch.profiler window over a few decode
+``--profile`` adds the device time of K1, K1-int8, K1-paged and
+K1-paged-int8 by split length (K1 and K1-int8 at phase 2's main and
+all-at-4095 rows, the paged builds at the main, block_len 8 and
+all-at-4095 rows), a torch.profiler window over a few decode
 ticks of the contiguous, paged and int8 paged engines and over one phase-5
 train step (kernel time by name and class, the optimizer's device time,
 device busy share) for PERF.md.
@@ -414,7 +420,7 @@ def phase_card(torch, pt_build):
                        "functions": ptxas_functions(log)}
         if serialized_wgmma(log):
             serialized[name] = serialized_wgmma(log)
-    k1_paged = paged_decode_build(ptxas)
+    k1_mma = mma_decode_builds(ptxas)
     emit({"phase": "card", "nvidia_smi": card,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
@@ -422,28 +428,34 @@ def phase_card(torch, pt_build):
           "python": sys.version.split()[0],
           "nvcc_build_s": round(build_s, 3),
           "ptxas_logs": sorted(pt_build.build_log),
-          "wgmma_serialized": serialized, "k1_paged": k1_paged,
+          "wgmma_serialized": serialized, "k1_mma": k1_mma,
           "ptxas": ptxas})
     check(not serialized, f"ptxas serialised wgmma in {serialized}")
     check(all(r.get("spill_stores", 0) == 0 and r["ctas_per_sm"] >= 1
-              for r in k1_paged.values()),
-          f"the Hopper K1-paged kernel spills or does not fit: {k1_paged}")
+              for r in k1_mma.values()),
+          f"a Hopper K1 build spills or does not fit: {k1_mma}")
     return card
 
 
-def paged_decode_build(ptxas):
-    """The Hopper K1-paged kernel's builds (bf16, int8): ptxas's registers
-    and spill bytes (when this process built the library) and the CTAs
-    that fit on one SM."""
+# the Hopper K1 kernel's builds: (name, int8, paged)
+K1_MMA_BUILDS = (("decode_attention", 0, 0), ("decode_attention_int8", 1, 0),
+                 ("decode_attention_paged", 0, 1),
+                 ("decode_attention_paged_int8", 1, 1))
+
+
+def mma_decode_builds(ptxas):
+    """Each build of the Hopper K1 kernel (``decode_mma_kernel<INT8,
+    PAGED>``): ptxas's registers and spill bytes (when this process built
+    the library) and the CTAs that fit on one SM (minus a CUDA error)."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     lib = da._lib()
     fns = ptxas.get("decode_attention", {}).get("functions", {})
     out = {}
-    for int8, build in ((0, "bf16"), (1, "int8")):
-        tag = f"decode_paged_mma_kernelILb{int8}E"
+    for name, int8, paged in K1_MMA_BUILDS:
+        tag = f"decode_mma_kernelILb{int8}ELb{paged}E"
         row = next((dict(r) for f, r in fns.items() if tag in f), {})
-        row["ctas_per_sm"] = lib.decode_attention_paged_ctas_per_sm(int8)
-        out[build] = row
+        row["ctas_per_sm"] = lib.decode_attention_mma_ctas_per_sm(int8, paged)
+        out[name] = row
     return out
 
 
@@ -593,10 +605,14 @@ def phase_kernels(torch):
                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
     # ---- K1 flash-decode: the decode tick's shape (bf16, head_dim 128),
-    # then the tiny model's float32 build (head_dim 16) ----------------------
+    # every row at the last position (every split live: the merge's
+    # deepest case) and a 4-token window (two 8-row tiles), then the tiny
+    # model's float32 build (head_dim 16).  The bf16 rows check the same
+    # bits on two calls (the splits are merged in split order) -----------
     for dt, hq, hkv, d, b, s, L, pos_list, main in (
             (bf16, 32, 8, 128, 8, 1, 4096,
              [0, 4095, 17, 1000, 2047, 3000, 511, 128], True),
+            (bf16, 32, 8, 128, 8, 1, 4096, [4095] * 8, False),
             (bf16, 32, 8, 128, 2, 4, 1024, [0, 700], False),
             (f32, 4, 2, 16, 2, 1, 64, [0, 40], False),
             (f32, 4, 2, 16, 2, 3, 64, [5, 60], False)):
@@ -612,9 +628,14 @@ def phase_kernels(torch):
         q, kc, vc = sets[0]
         got = cached_decode_attention(q, kc, vc, pos)
         want = cached_decode_attention_reference(q, kc, vc, pos)
+        extra = {}
+        if dt == bf16:
+            extra["deterministic"] = bool(torch.equal(
+                got, cached_decode_attention(q, kc, vc, pos)))
         torch.cuda.synchronize()
         err = max_err(got, want)
-        ok = within(got, want, atol, rtol)
+        ok = within(got, want, atol, rtol) and extra.get("deterministic",
+                                                         True)
         kfns = [lambda t=t: cached_decode_attention(*t, pos) for t in sets]
         with reference_mode():
             plain_ms = time_ms(torch, [
@@ -639,8 +660,9 @@ def phase_kernels(torch):
         record("decode_attention",
                f"B={b} s={s} L={L} Hq={hq} Hkv={hkv} D={d} pos={pos_list} "
                f"{str(dt)[6:]}",
-               err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
-               bms, by, main)
+               err, f"atol {atol} + rtol {rtol}"
+               + (", the same bits twice" if dt == bf16 else ""), ok, kfns,
+               plain_ms, lib_ms, bms, by, main, extra=extra)
         del sets, q, kc, vc, got, want
 
     # ---- K2 flash-attention forward: the prefill wave's shapes (bf16,
@@ -1012,10 +1034,17 @@ def phase_kernels(torch):
         return 0.002 + 0.02 * torch.rand(shape, generator=gen, device=dev)
 
     # K1-int8: the contiguous int8 cache at K1's phase-2 depths (128-token
-    # granules), then the tiny model's one-granule float32 cache
+    # granules), every row at 4095, 8-token granules (a 16-key slice spans
+    # two: two scale pairs; depths on and beside the 8-key group, the
+    # 256-key split and the 4096-key end) and the 4-token window, then the
+    # tiny model's one-granule float32 cache.  The bf16 rows check the
+    # same bits on two calls
     for dt, hq, hkv, d, b, s, L, n_gran, pos_list, main in (
             (bf16, 32, 8, 128, 8, 1, 4096, 32,
              [0, 4095, 17, 1000, 2047, 3000, 511, 128], True),
+            (bf16, 32, 8, 128, 8, 1, 4096, 32, [4095] * 8, False),
+            (bf16, 32, 8, 128, 7, 1, 4096, 512,
+             [0, 7, 8, 255, 256, 257, 4095], False),
             (bf16, 32, 8, 128, 2, 4, 1024, 8, [0, 700], False),
             (f32, 4, 2, 16, 2, 1, 64, 1, [0, 40], False),
             (f32, 4, 2, 16, 2, 3, 64, 1, [5, 60], False)):
@@ -1034,9 +1063,13 @@ def phase_kernels(torch):
         got = run(sets[0])
         with reference_mode():
             want = run(sets[0])
+        extra = {}
+        if dt == bf16:
+            extra["deterministic"] = bool(torch.equal(got, run(sets[0])))
         torch.cuda.synchronize()
         err = max_err(got, want)
-        ok = within(got, want, atol, rtol)
+        ok = within(got, want, atol, rtol) and extra.get("deterministic",
+                                                         True)
         kfns = [lambda t=t: run(t) for t in sets]
         with reference_mode():
             plain_ms = time_ms(torch, kfns, budget_ms=100.0)
@@ -1063,8 +1096,10 @@ def phase_kernels(torch):
         record("decode_attention_int8",
                f"B={b} s={s} L={L} granule={gr} Hq={hq} Hkv={hkv} D={d} "
                f"pos={pos_list} int8 K/V, {str(dt)[6:]} q",
-               err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms,
-               bms, by, main, note=INT8_LIBRARY_NOTE)
+               err, f"atol {atol} + rtol {rtol}"
+               + (", the same bits twice" if dt == bf16 else ""), ok, kfns,
+               plain_ms, lib_ms, bms, by, main, note=INT8_LIBRARY_NOTE,
+               extra=extra)
         del sets, got, want
 
     # K1-paged-int8 / K2-paged-int8: the shapes of K1-paged / K2-paged
@@ -1464,6 +1499,7 @@ def serving_prompts(vocab: int):
 
 def phase_serving(torch, model, kernels):
     from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import _dispatch
     from paddle_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, num_slots=8, max_length=4096,
@@ -1471,6 +1507,7 @@ def phase_serving(torch, model, kernels):
     prompts = serving_prompts(model.config.vocab_size)
     new_tokens = 32
     ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
@@ -1478,6 +1515,8 @@ def phase_serving(torch, model, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
     m = eng.metrics()
     ntok = sum(len(out[r]) for r in rids)
     emit({"phase": "serving", "requests": len(rids),
@@ -1487,7 +1526,8 @@ def phase_serving(torch, model, kernels):
           "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
           "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
           "prefill_waves": m["prefill_waves"],
-          "decode_ticks": m["decode_ticks"], "launches": launches})
+          "decode_ticks": m["decode_ticks"], "launches": launches,
+          "routes": routes})
     vocab = model.config.vocab_size
     for r in rids:
         check(len(out[r]) == new_tokens,
@@ -1498,6 +1538,11 @@ def phase_serving(torch, model, kernels):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
         kernels[name]["launches"] = launches[name]
+    check(launches["decode_attention"] == LAYERS_8B * m["decode_ticks"],
+          f"K1 launched {launches['decode_attention']} times for "
+          f"{m['decode_ticks']} decode ticks")
+    plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
+    check(not plain, f"plain routes taken on the card: {plain}")
     return eng
 
 
@@ -1721,17 +1766,39 @@ def device_us(prof, n: int):
     return {k[:60]: round(t / n, 3) for t, k, _ in kernel_rows(prof)}
 
 
+def split_sweep(torch, fns, splits):
+    """{split length: device us of one call (all its kernels) over 40
+    calls cycling ``fns``}, FLAGS_decode_attention_block_kv restored
+    after."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import flags
+
+    default_split = flags.flag("decode_attention_block_kv")
+    sweep = {}
+    try:
+        for split in splits:
+            flags.set_flags({"decode_attention_block_kv": split})
+            for f in fns:
+                f()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(40):
+                    fns[i % len(fns)]()
+                torch.cuda.synchronize()
+            sweep[split] = round(sum(device_us(prof, 40).values()), 3)
+    finally:
+        flags.set_flags({"decode_attention_block_kv": default_split})
+    return sweep
+
+
 def paged_split_sweep(torch, gen):
     """K1-paged's and K1-paged-int8's device time (all kernels of a call)
     against the split length at three of phase 2's rows: the main row, the
     block_len 8 row and every row at 4095 (every split live); inputs
     cycled past L2."""
-    from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch import flags
     from paddle_tpu_torch.ops.cuda import decode_attention as da
 
     dev = torch.device("cuda")
-    default_split = flags.flag("decode_attention_block_kv")
     for bl, mb, pos_list, share in (
             (128, 32, [0, 4095, 17, 1000, 2047, 3000, 511, 128],
              ((1, 4, 16), (5, 3, 8))),
@@ -1768,20 +1835,7 @@ def paged_split_sweep(torch, gen):
                 fns = [lambda kp=pool(False), vp=pool(False):
                        da.decode_attention_paged_cuda(q, kp, vp, pos, tables)
                        for _ in range(n_sets)]
-            sweep = {}
-            try:
-                for split in (128, 256, 512, 1024):
-                    flags.set_flags({"decode_attention_block_kv": split})
-                    for f in fns:
-                        f()
-                    torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for i in range(40):
-                            fns[i % n_sets]()
-                        torch.cuda.synchronize()
-                    sweep[split] = round(sum(device_us(prof, 40).values()), 3)
-            finally:
-                flags.set_flags({"decode_attention_block_kv": default_split})
+            sweep = split_sweep(torch, fns, (128, 256, 512, 1024))
             emit({"phase": "profile_k1_paged_split", "kernel": name,
                   "shape": f"B={b} s=1 Hq=32 Hkv=8 D=128 block_len={bl} "
                            f"max_blocks={mb} pos={pos_list} shared="
@@ -1790,53 +1844,75 @@ def paged_split_sweep(torch, gen):
             del fns
 
 
+def contiguous_split_sweep(torch, gen):
+    """K1's and K1-int8's device time (all kernels of a call) against the
+    split length at two of phase 2's rows: the main row and every row at
+    4095 (every split live); inputs cycled past L2."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    dev = torch.device("cuda")
+    b, L, n_gran = 8, 4096, 32
+    shape = (b, L, 8, 128)
+    for pos_list in ([0, 4095, 17, 1000, 2047, 3000, 511, 128], [4095] * 8):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        q = torch.randn((b, 1, 32, 128), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        for name, int8 in (("decode_attention", False),
+                           ("decode_attention_int8", True)):
+            n_sets = copies(2 * (1 if int8 else 2) * math.prod(shape))
+            if int8:
+                fns = [lambda kc=torch.randint(
+                           -127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8),
+                       vc=torch.randint(-127, 128, shape, generator=gen,
+                                        device=dev, dtype=torch.int8),
+                       ks=0.002 + 0.02 * torch.rand(
+                           b, n_gran, 8, generator=gen, device=dev),
+                       vs=0.002 + 0.02 * torch.rand(
+                           b, n_gran, 8, generator=gen, device=dev):
+                       da.decode_attention_int8_cuda(q, kc, vc, pos, ks, vs)
+                       for _ in range(n_sets)]
+            else:
+                fns = [lambda kc=torch.randn(shape, generator=gen, device=dev,
+                                             dtype=torch.bfloat16),
+                       vc=torch.randn(shape, generator=gen, device=dev,
+                                      dtype=torch.bfloat16):
+                       da.decode_attention_cuda(q, kc, vc, pos)
+                       for _ in range(n_sets)]
+            sweep = split_sweep(torch, fns, (64, 128, 256, 512, 1024, 4096))
+            emit({"phase": "profile_k1_split", "kernel": name,
+                  "shape": f"B={b} s=1 L={L} Hq=32 Hkv=8 D=128 "
+                           f"pos={pos_list}"
+                           + (f" granule={L // n_gran}" if int8 else ""),
+                  "device_us_by_split_len": sweep})
+            del fns
+
+
 def phase_profile(torch, model, qmodel):
-    """K1's device time against its split length at the phase-2 decode
-    shape, K1-paged's and K1-paged-int8's at three phase-2 rows, then
+    """K1's and K1-int8's device time against the split length at two
+    phase-2 rows, K1-paged's and K1-paged-int8's at three, then
     torch.profiler over a few decode ticks of 8 busy slots."""
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch import flags
-    from paddle_tpu_torch.ops import decode_attention_cuda
     from paddle_tpu_torch.serving import ServingEngine
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    pos = torch.tensor([0, 4095, 17, 1000, 2047, 3000, 511, 128],
-                       dtype=torch.int32, device=dev)
-    q, kc, vc = (torch.randn(shape, generator=gen, device=dev,
-                             dtype=torch.bfloat16)
-                 for shape in ((8, 1, 32, 128), (8, 4096, 8, 128),
-                               (8, 4096, 8, 128)))
-    sweep = {}
-    default_split = flags.flag("decode_attention_block_kv")
-    for split in (64, 128, 256, 512, 1024, 4096):
-        flags.set_flags({"decode_attention_block_kv": split})
-        for _ in range(3):
-            decode_attention_cuda(q, kc, vc, pos)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                decode_attention_cuda(q, kc, vc, pos)
-            torch.cuda.synchronize()
-        sweep[split] = device_us(prof, 20)
-    flags.set_flags({"decode_attention_block_kv": default_split})
-    emit({"phase": "profile_k1_split", "shape": "B=8 s=1 L=4096 Hq=32 "
-          "Hkv=8 D=128 pos=[0, 4095, 17, 1000, 2047, 3000, 511, 128]",
-          "device_us_by_split_len": sweep})
-    del q, kc, vc
+    contiguous_split_sweep(torch, gen)
     paged_split_sweep(torch, gen)
 
     # decode ticks of 8 busy slots: the contiguous engine on phase 4's
-    # prompts, then the paged engine on phase 4b's, then phase 4c's int8
-    # engine on them
+    # prompts, then phase 4d's int8 engine on them, then the paged engine
+    # on phase 4b's, then phase 4c's int8 engine on them
     paged_kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS)
+    int8_kw = dict(kv_cache_dtype="int8", int8_weights=True)
     for phase, m, kw, prompts in (
             ("profile", model, {}, serving_prompts(model.config.vocab_size)),
+            ("profile_int8_contiguous", qmodel, int8_kw,
+             serving_prompts(model.config.vocab_size)),
             ("profile_paged", model, paged_kw,
              paged_serving_prompts(model.config.vocab_size)),
-            ("profile_int8_paged", qmodel,
-             dict(paged_kw, kv_cache_dtype="int8", int8_weights=True),
+            ("profile_int8_paged", qmodel, dict(paged_kw, **int8_kw),
              paged_serving_prompts(model.config.vocab_size))):
         eng = ServingEngine(m, num_slots=8, max_length=4096,
                             prefill_batch=4, device="cuda", **kw)
@@ -1860,6 +1936,9 @@ def phase_profile(torch, model, qmodel):
         emit({"phase": phase, "ticks": 5, "active_slots": eng.num_active,
               "wall_ms": round(wall_ms, 3),
               "device_kernel_ms": round(total / 1e3, 3),
+              # the decode-attention kernels of the window (K1's family)
+              "decode_attention_ms": round(sum(
+                  t for t, k, _ in rows if "decode_" in k) / 1e3, 3),
               "device_busy_share": round(total / 1e3 / wall_ms, 4),
               "top": [{"kernel": k[:90], "ms": round(t / 1e3, 3),
                        "calls": c} for t, k, c in rows[:15]],

@@ -31,26 +31,27 @@
 //     is merged with the LSE algebra
 //     (paddle_tpu/ops/ring_attention.py::merge_attention), in split order.
 //
-// The CUDA-core body (decode_attention_kernel: the contiguous builds K1 and
-// K1-int8, and the float32 head_dim-16 paged builds): 4 query rows a CTA;
-// each of its 4 warps walks its own 8-key blocks (interleaved with the
-// other warps) with its own online softmax and no barrier: lane l holds
-// head-dim elements [l*D/32, (l+1)*D/32) of the queries, the accumulator
-// and the keys' K/V rows, which arrive straight from device memory in
-// 8-byte vectors (bf16, D = 128); the 8 keys' dot products are summed
-// across lanes by a transpose-reduce (9 shuffles a row instead of 40); the
-// warps merge once at the end; decode_attention_combine merges the splits.
+// The CUDA-core body (decode_attention_kernel: the float32 head_dim-16
+// builds of every entry, the tiny test model's): 4 query rows a CTA; each
+// of its 4 warps walks its own 8-key blocks (interleaved with the other
+// warps) with its own online softmax and no barrier: lane l < D holds
+// head-dim element l of the queries, the accumulator and the keys' K/V
+// rows; the 8 keys' dot products are summed across lanes by a
+// transpose-reduce; the warps merge once at the end;
+// decode_attention_combine merges the splits.
 //
-// The Hopper body (decode_paged_mma_kernel: K1-paged and K1-paged-int8,
-// bf16 q at D = 128 -- the paged engine's decode tick).  The CUDA-core walk
-// is bound by latency, not bytes: a warp loads one 8-key group into
-// registers and then spends ~23 dependent shuffles a row on it with
-// nothing in flight, so its time follows the groups a warp walks and the
-// int8 build, with half the bytes, takes as long.  Here:
+// The Hopper body (decode_mma_kernel<INT8, PAGED>: K1, K1-int8, K1-paged
+// and K1-paged-int8, bf16 q at D = 128 -- the decode tick of every bf16
+// engine).  It replaced a CUDA-core walk that was bound by latency, not
+// bytes: a warp loaded one 8-key group into registers and then spent ~23
+// dependent shuffles a row on it with nothing in flight, so its time
+// followed the groups a warp walked and the int8 build, with half the
+// bytes, took as long.  Here:
 //   * K/V through shared memory: each warp keeps its own two-stage ring of
 //     16-key slices (8 KB a stage, int8 4 KB), filled by cp.async 16-byte
-//     copies addressed per key row through the block table (no
-//     descriptor, any block_len % 8 == 0, nothing on the host); keys past
+//     copies addressed per key row -- contiguous: row b's own cache rows
+//     b * L + j, no lookup; paged: through the block table (any block_len
+//     % 8 == 0) -- with no descriptor and nothing on the host; keys past
 //     the split's live bound are zero-filled, not read.  Warp w takes
 //     slices w, w + 4, ... of the split, so no CTA barrier sits in the walk
 //     (__syncwarp around each stage).  3 CTAs an SM (registers) keep up to
@@ -73,7 +74,7 @@
 //     they are built (exact; ptt::int8x4_to_bf16), never as tiles in
 //     shared memory; the scales ride in the stage (4 floats a slice) and
 //     fold per 8-key group -- K's into the scores, V's into P before P V
-//     (at block_len 8 a 16-key slice spans two blocks);
+//     (at block_len or granule 8 a 16-key slice spans two of them);
 //   * the warps' partials meet in shared memory with rows padded (a
 //     128-float row stride put a lane's 32 stores on one bank);
 //   * the merge: a split past the live bound leaves at once, a lone live
@@ -82,8 +83,9 @@
 //     splits' partials in split order, so the bits do not depend on the
 //     order the CTAs finish in.  Against a two-launch merge (every split
 //     writes a partial, decode_attention_combine merges them) it measured
-//     2.2-4.5 us faster on each row chip_decode_paged.py times, every row
-//     at 4095 (16 partials a tile) included (NVIDIA H100 80GB HBM3, 700 W).
+//     2.2-4.5 us faster on each paged row chip_decode_attention.py times,
+//     every row at 4095 (16 partials a tile) included (NVIDIA H100 80GB
+//     HBM3, 700 W).
 //
 // int8 cache (entries decode_attention_int8 / decode_attention_paged_int8;
 // replaces the Pallas kernel's quantized mode, decode_attention.py
@@ -111,68 +113,25 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;                        // query rows per CTA
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 32;                       // one element a lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// N consecutive elements at p (aligned to N * sizeof(T), at most 16 bytes
-// a load) widened to float
-template <typename T, int N>
-__device__ __forceinline__ void load_float(const T* __restrict__ p,
-                                           float (&o)[N]) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  if constexpr (kBytes >= 16) {
-    constexpr int kPer = 16 / (int)sizeof(T);
-#pragma unroll
-    for (int c = 0; c < kBytes / 16; ++c) {
-      const uint4 raw = reinterpret_cast<const uint4*>(p)[c];
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) o[c * kPer + i] = to_float(e[i]);
-    }
-  } else if constexpr (kBytes == 8) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = to_float(e[i]);
-  } else if constexpr (kBytes == 4) {
-    const unsigned raw = *reinterpret_cast<const unsigned*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = to_float(e[i]);
-  } else {
-    o[0] = to_float(p[0]);
-  }
 }
 
 // grid (B * Hkv, ceil(S*G / kRows), nsplit), block kThreads.
 // Lane l of a warp owns head-dim elements [l*EPL, l*EPL + EPL) (D = 32*EPL,
-// or D = 16 with EPL = 1 and lanes 16..31 idle).  Built for bfloat16 at
-// D = 128 (EPL 4) and float32 at D = 16 (EPL 1).  Each warp walks blocks
-// of KPI keys of the split, interleaved with the other warps, keeping its
-// own online-softmax state; the warps merge once at the end.
+// or D = 16 with EPL = 1 and lanes 16..31 idle).  Built for float32 at
+// D = 16 (EPL 1): the bf16 builds run decode_mma_kernel.  Each warp walks
+// blocks of KPI keys of the split, interleaved with the other warps,
+// keeping its own online-softmax state; the warps merge once at the end.
 // PAGED selects the K/V addressing: false = contiguous (table, max_blocks
-// and block_len unused; the same code as the contiguous-only build),
-// true = pool + block table with L = max_blocks * block_len (built for
-// float32 only: the bf16 paged builds run decode_paged_mma_kernel).  KV is the
-// cache's element type: T, or int8_t for the int8 cache, whose scales
-// (k_scale, v_scale; n_gran and gran_len for the contiguous layout) are
-// unused otherwise.
+// and block_len unused), true = pool + block table with L = max_blocks *
+// block_len.  KV is the cache's element type: T, or int8_t for the int8
+// cache, whose scales (k_scale, v_scale; n_gran and gran_len for the
+// contiguous layout) are unused otherwise.
 template <typename T, typename KV, int EPL, int KPI, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
@@ -185,6 +144,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                         const float* __restrict__ v_scale, int n_gran,
                         int gran_len) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  static_assert(32 * EPL <= kMaxD, "the warps' merge: 32 * EPL floats a row");
   constexpr int kLogK = KPI == 8 ? 3 : (KPI == 4 ? 2 : 1);
   static_assert((1 << kLogK) == KPI, "KPI must be 2, 4 or 8");
   const int bh = blockIdx.x;
@@ -216,7 +176,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
         const int r = idx / D, d = idx - r * D;
         const int rr = r0 + r, si = rr / G, gi = rr - si * G;
         out[((size_t)(b * S + si) * Hq + h * G + gi) * D + d] =
-            from_float<T>(0.f);
+            static_cast<T>(0.f);
       }
     }
     return;
@@ -234,10 +194,9 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     if (r < nr && lane_on) {
       const int rr = r0 + r, si = rr / G, gi = rr - si * G;
       last_key[r] = pb + si;
-      load_float<T, EPL>(q + ((size_t)(b * S + si) * Hq + h * G + gi) * D + d0,
-                         qr[r]);
+      const T* qp = q + ((size_t)(b * S + si) * Hq + h * G + gi) * D + d0;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[r][e] *= scale;
+      for (int e = 0; e < EPL; ++e) qr[r][e] = to_float(qp[e]) * scale;
     }
     last_key[r] = __shfl_sync(kFull, last_key[r], 0);
   }
@@ -283,8 +242,11 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       const int j = base + kk;
       if (lane_on && j < k_end) {
         const size_t r = PAGED ? grow + kk : (size_t)j;
-        load_float<KV, EPL>(kb + r * key_stride, kf[kk]);
-        load_float<KV, EPL>(vb + r * key_stride, vf[kk]);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          kf[kk][e] = to_float(kb[r * key_stride + e]);
+          vf[kk][e] = to_float(vb[r * key_stride + e]);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kf[kk][e] = vf[kk][e] = 0.f;
@@ -381,7 +343,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     if (nsplit == 1) {
       const int si = rr / G, gi = rr - si * G;
       out[((size_t)(b * S + si) * Hq + h * G + gi) * D + d] =
-          from_float<T>(lsum > 0.f ? o / lsum : 0.f);
+          static_cast<T>(lsum > 0.f ? o / lsum : 0.f);
     } else {
       part_o[(((size_t)bh * nsplit + split) * rows_total + rr) * D + d] = o;
       if (d == 0) {
@@ -419,12 +381,13 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
     }
   }
   out[((size_t)(b * S + si) * Hq + h * G + gi) * D + d] =
-      from_float<T>(lsum > 0.f ? o / lsum : 0.f);
+      static_cast<T>(lsum > 0.f ? o / lsum : 0.f);
 }
 
 // ---------------------------------------------------------------------------
-// K1-paged and K1-paged-int8 at bf16 q, head_dim 128: tensor cores, and a
-// cp.async ring in shared memory for each warp (see the note at the top)
+// K1, K1-int8, K1-paged and K1-paged-int8 at bf16 q, head_dim 128: tensor
+// cores, and a cp.async ring in shared memory for each warp (see the note
+// at the top)
 // ---------------------------------------------------------------------------
 constexpr int kPD = 128;                  // head_dim
 constexpr int kPRows = 8;                 // query rows a CTA (mma's n8)
@@ -436,7 +399,7 @@ constexpr int kMStride = kPD + 4;
 static_assert(kPD == kPThreads, "a merging thread owns one head-dim element");
 
 template <bool INT8>
-struct Paged {
+struct Mma {
   static constexpr int kRow = INT8 ? kPD : 2 * kPD;   // bytes a key's K row
   static constexpr int kChunks = kRow / 16;           // 16-byte chunks a row
   static constexpr int kSlice = 16;                   // keys a warp step
@@ -488,32 +451,40 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 }
 
 // grid (nsplit, ceil(S * G / 8), B * Hkv), block kPThreads, dynamic
-// shared memory Paged<INT8>::kSmem: the splits vary fastest, so the CTAs
+// shared memory Mma<INT8>::kSmem: the splits vary fastest, so the CTAs
 // of one (b, h) start together (a deep row's splits are not queued behind
 // the many dead splits of the shallow rows).  CTA (split, y, bh) takes
 // query rows [8y, 8y + 8) of kv head h = bh % Hkv of row b = bh / Hkv
 // (row rr is query offset rr / G of q head h * G + rr % G) and keys
 // [split * split_len, ...) below the tile's live bound.  Warp w walks the
 // split's 16-key slices w, w + 4, ...; a slice's two 8-key groups each lie
-// in one block (split_len and block_len are multiples of 8).  A split
-// past the live bound leaves at once, a lone live split writes out, and
-// otherwise the last CTA of (bh, y) to finish (counters[bh * gridDim.y +
-// y], which it resets to 0) merges the partials in split order.
-template <bool INT8>
+// in one block or granule (split_len and block_len are multiples of 8).
+// A split past the live bound leaves at once, a lone live split writes
+// out, and otherwise the last CTA of (bh, y) to finish (counters[bh *
+// gridDim.y + y], which it resets to 0) merges the partials in split
+// order.  The layout of k, v (and of the int8 scales):
+//   PAGED: the pool (num_blocks, block_len, Hkv, D), key j of row b at
+//     pool row table[b * max_blocks + j / block_len] * block_len + j %
+//     block_len; scales (num_blocks, Hkv), a block's row;
+//   contiguous: the cache (B, L, Hkv, D) with L = max_blocks * block_len,
+//     key j of row b at cache row b * L + j (table unused); int8: scales
+//     (B, max_blocks, Hkv) over granules of block_len keys, key j's at
+//     row b * max_blocks + j / block_len (bf16: max_blocks 1, block_len L).
+template <bool INT8, bool PAGED>
 __global__ void __launch_bounds__(kPThreads, 3)
-decode_paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const unsigned char* __restrict__ k,
-                        const unsigned char* __restrict__ v,
-                        const int* __restrict__ pos,
-                        const int* __restrict__ table,
-                        __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ part_o,
-                        float* __restrict__ part_ml, int* counters, int S,
-                        int Hq, int Hkv, int max_blocks, int block_len,
-                        int limit, int split_len, float scale_log2,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale) {
-  using P = Paged<INT8>;
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const unsigned char* __restrict__ k,
+                  const unsigned char* __restrict__ v,
+                  const int* __restrict__ pos,
+                  const int* __restrict__ table,
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ part_o,
+                  float* __restrict__ part_ml, int* counters, int S,
+                  int Hq, int Hkv, int max_blocks, int block_len,
+                  int limit, int split_len, float scale_log2,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale) {
+  using P = Mma<INT8>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last_cta;
   const int bh = blockIdx.z, b = bh / Hkv, h = bh % Hkv;
@@ -552,30 +523,39 @@ decode_paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto slice_key = [&](int t) {
     return k_begin + kSlice * (warp + kPWarps * t);
   };
-  const int* trow = table + (size_t)b * max_blocks;
-  // the blocks of slice t's 8-key groups (0 for a group past k_end: the
-  // table's dead tail is never read)
+  const int* trow = PAGED ? table + (size_t)b * max_blocks : nullptr;
+  // the scale row of slice t's 8-key groups -- paged, the table's block (0
+  // for a group past k_end: the table's dead tail is never read);
+  // contiguous, row b's granule, no load (bf16: unused)
   auto blocks = [&](int t, int (&blk)[kGroups]) {
     const int j0 = slice_key(t);
 #pragma unroll
-    for (int q8 = 0; q8 < kGroups; ++q8)
-      blk[q8] = t < n_mine && j0 + 8 * q8 < k_end
-                    ? trow[(j0 + 8 * q8) / block_len] : 0;
+    for (int q8 = 0; q8 < kGroups; ++q8) {
+      const int j = j0 + 8 * q8;
+      if constexpr (PAGED)
+        blk[q8] = t < n_mine && j < k_end ? trow[j / block_len] : 0;
+      else
+        blk[q8] = INT8 ? b * max_blocks + j / block_len : 0;
+    }
   };
   unsigned char* ring = smem + warp * P::kStages * P::kStage;
   const size_t head = (size_t)h * P::kRow;
   const size_t key_stride = (size_t)Hkv * P::kRow;
+  // contiguous: row b's first cache row
+  const size_t row0 = PAGED ? 0 : (size_t)b * max_blocks * block_len;
   // copy slice t into its stage (keys at or past k_end: zeros) and commit
   // one group, empty past the warp's last slice
   auto issue = [&](int t, const int (&blk)[kGroups]) {
     if (t < n_mine) {
       const int j0 = slice_key(t);
       unsigned char* st = ring + (t % P::kStages) * P::kStage;
-      // pool rows of the groups' first keys
+      // pool (cache) rows of the groups' first keys
       size_t gbase[kGroups];
 #pragma unroll
       for (int q8 = 0; q8 < kGroups; ++q8)
-        gbase[q8] = (size_t)blk[q8] * block_len + (j0 + 8 * q8) % block_len;
+        gbase[q8] = PAGED ? (size_t)blk[q8] * block_len +
+                                (j0 + 8 * q8) % block_len
+                          : row0 + j0 + 8 * q8;
       constexpr int kKeysPerCopy = 32 / P::kChunks;   // bf16 2, int8 4
 #pragma unroll
       for (int i = 0; i < kSlice / kKeysPerCopy; ++i) {
@@ -913,38 +893,46 @@ decode_paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // the kernel's dynamic shared memory limit and a shared-memory-first
-// carveout, set once: 3 CTAs an SM need 3 x 64 KB of the 228
-template <bool INT8>
-cudaError_t paged_attributes() {
+// carveout, set once a build: 3 CTAs an SM need 3 x 64 KB of the 228
+template <bool INT8, bool PAGED>
+cudaError_t mma_attributes() {
   static bool done = false;
   if (done) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      decode_paged_mma_kernel<INT8>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Paged<INT8>::kSmem);
+      decode_mma_kernel<INT8, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Mma<INT8>::kSmem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(decode_paged_mma_kernel<INT8>,
+    e = cudaFuncSetAttribute(decode_mma_kernel<INT8, PAGED>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   done = e == cudaSuccess;
   return e;
 }
 
-// K1-paged(-int8) at bf16 q, head_dim 128: the Hopper kernel, one launch
-template <bool INT8>
-cudaError_t launch_paged_mma(const void* q, const void* k, const void* v,
-                             const int* pos, const int* table, void* out,
-                             float* part_o, float* part_ml, int* counters,
-                             int B, int S, int Hq, int Hkv, int max_blocks,
-                             int block_len, int limit, int split_len,
-                             int nsplit, float scale,
-                             const float* k_scale, const float* v_scale,
-                             cudaStream_t st) {
-  using P = Paged<INT8>;
-  const cudaError_t e = paged_attributes<INT8>();
+// CTAs of one build of decode_mma_kernel that fit on one SM at once
+template <bool INT8, bool PAGED>
+cudaError_t mma_ctas_per_sm(int* n) {
+  const cudaError_t e = mma_attributes<INT8, PAGED>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, decode_mma_kernel<INT8, PAGED>, kPThreads, Mma<INT8>::kSmem);
+}
+
+// K1 / K1-int8 / K1-paged / K1-paged-int8 at bf16 q, head_dim 128: the
+// Hopper kernel, one launch (max_blocks, block_len: see decode_mma_kernel)
+template <bool INT8, bool PAGED>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const int* pos, const int* table, void* out,
+                       float* part_o, float* part_ml, int* counters, int B,
+                       int S, int Hq, int Hkv, int max_blocks, int block_len,
+                       int limit, int split_len, int nsplit, float scale,
+                       const float* k_scale, const float* v_scale,
+                       cudaStream_t st) {
+  const cudaError_t e = mma_attributes<INT8, PAGED>();
   if (e != cudaSuccess) return e;
   const int rows_total = S * (Hq / Hkv);
   const dim3 grid(nsplit, (rows_total + kPRows - 1) / kPRows, B * Hkv);
-  decode_paged_mma_kernel<INT8><<<grid, kPThreads, P::kSmem, st>>>(
+  decode_mma_kernel<INT8, PAGED><<<grid, kPThreads, Mma<INT8>::kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const unsigned char*>(k),
       static_cast<const unsigned char*>(v), pos, table,
@@ -980,28 +968,34 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at D = 128 (the
-// serving path) and float32 at D = 16 (the tiny test model), the two cases
-// chip_smoke.py checks on the card; any other pair returns
-// cudaErrorInvalidValue.  q, k, v 16-byte aligned.  part_o / part_ml are float32 scratch of
-// (B*Hkv, nsplit, S*G, D) and (B*Hkv, nsplit, S*G, 2), unused when
-// nsplit == 1.  Returns cudaGetLastError() after the launches.
+// serving path: decode_mma_kernel) and float32 at D = 16 (the tiny test
+// model: the CUDA-core kernel), the two cases chip_smoke.py checks on the
+// card; any other pair returns cudaErrorInvalidValue, as does a split_len
+// that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
+// part_ml are float32 scratch of (B*Hkv, nsplit, S*G, D) and (B*Hkv,
+// nsplit, S*G, 2), unused when nsplit == 1.  counters (bfloat16 only; the
+// float32 build ignores it) is an int32 array of B * Hkv * ceil(S * G /
+// 8) zeros, one a (row, kv head, 8-row tile), which each launch leaves
+// zero; launches that may run at the same time (other streams) need
+// arrays of their own.  Returns cudaGetLastError() after the launches.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* pos, void* out, void* part_o,
-                                void* part_ml, int B, int S, int Hq, int Hkv,
-                                int D, int L, int limit, int split_len,
-                                int nsplit, float scale, int dtype,
-                                void* stream) {
+                                void* part_ml, void* counters, int B, int S,
+                                int Hq, int Hkv, int D, int L, int limit,
+                                int split_len, int nsplit, float scale,
+                                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
-  if (Hkv < 1 || Hq % Hkv != 0)
+  if (Hkv < 1 || Hq % Hkv != 0 || L < 1 || split_len % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch<__nv_bfloat16, 4, 8, false>(q, k, v, p, out, po, pml, B, S,
-                                           Hq, Hkv, D, L, limit, split_len,
-                                           nsplit, scale, st);
+    e = launch_mma<false, false>(q, k, v, p, nullptr, out, po, pml,
+                                 static_cast<int*>(counters), B, S, Hq, Hkv,
+                                 1, L, limit, split_len, nsplit, scale,
+                                 nullptr, nullptr, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                    D, L, limit, split_len, nsplit, scale, st);
@@ -1015,12 +1009,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
 // pool, table the int32 (B, max_blocks) block table (every entry a valid
 // block id); the logical cache length is max_blocks * block_len and
 // limit <= that bound.  block_len and split_len must be multiples of 8
-// (cudaErrorInvalidValue otherwise); dtype/D pairs and scratch as above.
-// bfloat16 at D = 128 runs decode_paged_mma_kernel: counters is an int32
-// array of B * Hkv * ceil(S * G / 8) zeros, one a (row, kv head, 8-row
-// tile), which each launch leaves zero; launches that may run at the same
-// time (other streams) need arrays of their own.  float32 at D = 16 runs
-// the CUDA-core kernel and ignores it.
+// (cudaErrorInvalidValue otherwise); dtype/D pairs, scratch and counters
+// as in decode_attention.
 extern "C" int decode_attention_paged(const void* q, const void* k,
                                       const void* v, const void* pos,
                                       const void* table, void* out,
@@ -1041,7 +1031,7 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
   const int L = max_blocks * block_len;
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch_paged_mma<false>(q, k, v, p, t, out, po, pml,
+    e = launch_mma<false, true>(q, k, v, p, t, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
                                 max_blocks, block_len, limit, split_len,
                                 nsplit, scale, nullptr, nullptr, st);
@@ -1058,15 +1048,16 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
 // The int8 contiguous entry: k, v int8 (B, L, Hkv, D); k_scale, v_scale
 // float32 (B, n_gran, Hkv) over granules of L / n_gran positions, which
 // must be a multiple of 8, as must split_len (cudaErrorInvalidValue
-// otherwise).  q, out, dtype/D pairs and scratch as in decode_attention.
+// otherwise).  q, out, dtype/D pairs, scratch and counters as in
+// decode_attention.
 extern "C" int decode_attention_int8(const void* q, const void* k,
                                      const void* v, const void* k_scale,
                                      const void* v_scale, const void* pos,
                                      void* out, void* part_o, void* part_ml,
-                                     int B, int S, int Hq, int Hkv, int D,
-                                     int L, int n_gran, int limit,
-                                     int split_len, int nsplit, float scale,
-                                     int dtype, void* stream) {
+                                     void* counters, int B, int S, int Hq,
+                                     int Hkv, int D, int L, int n_gran,
+                                     int limit, int split_len, int nsplit,
+                                     float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const float* ks = static_cast<const float*>(k_scale);
@@ -1079,9 +1070,10 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
   const int gran_len = L / n_gran;
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch<__nv_bfloat16, 4, 8, false, int8_t>(
-        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
-        nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
+    e = launch_mma<true, false>(q, k, v, p, nullptr, out, po, pml,
+                                static_cast<int*>(counters), B, S, Hq, Hkv,
+                                n_gran, gran_len, limit, split_len, nsplit,
+                                scale, ks, vs, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
@@ -1114,7 +1106,7 @@ extern "C" int decode_attention_paged_int8(
   const int L = max_blocks * block_len;
   cudaError_t e;
   if (dtype == 0 && D == 128)
-    e = launch_paged_mma<true>(q, k, v, p, t, out, po, pml,
+    e = launch_mma<true, true>(q, k, v, p, t, out, po, pml,
                                static_cast<int*>(counters), B, S, Hq, Hkv,
                                max_blocks, block_len, limit, split_len,
                                nsplit, scale, ks, vs, st);
@@ -1128,18 +1120,15 @@ extern "C" int decode_attention_paged_int8(
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of the bf16 (int8 = 0) or int8 (int8 = 1) K1-paged kernel that fit
-// on one SM at once, or minus a CUDA error
-extern "C" int decode_attention_paged_ctas_per_sm(int int8) {
+// CTAs of a Hopper build (int8: 0 bf16 K/V, 1 int8; paged: 0 contiguous,
+// 1 paged) that fit on one SM at once, or minus a CUDA error
+extern "C" int decode_attention_mma_ctas_per_sm(int int8, int paged) {
   int n = 0;
-  cudaError_t e = int8 ? paged_attributes<true>() : paged_attributes<false>();
-  if (e == cudaSuccess)
-    e = int8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, decode_paged_mma_kernel<true>, kPThreads,
-                   Paged<true>::kSmem)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, decode_paged_mma_kernel<false>, kPThreads,
-                   Paged<false>::kSmem);
+  const cudaError_t e =
+      int8 ? (paged ? mma_ctas_per_sm<true, true>(&n)
+                    : mma_ctas_per_sm<true, false>(&n))
+           : (paged ? mma_ctas_per_sm<false, true>(&n)
+                    : mma_ctas_per_sm<false, false>(&n));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

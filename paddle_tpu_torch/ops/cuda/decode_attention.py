@@ -16,39 +16,40 @@ does about it: each (row, kv head) walks only its live prefix
 what the rows' depths need, not ``max_length`` (the reason the TPU kernel
 exists, ``decode_attention.py:13-31``).  The TPU kernel walks a row's
 chunks in sequence on one core; on Hopper the walk is split across CTAs
-(``FLAGS_decode_attention_block_kv`` keys each) so a batch of 8 rows x 8
-kv heads still fills 132 SMs, and a second small kernel merges the splits'
-(acc, m, l) partials with the LSE algebra of
-``paddle_tpu/ops/ring_attention.py::merge_attention``.  Inside a split,
-each warp walks its own 8-key blocks with its own online softmax and no
-block barrier, K/V rows going straight from device memory to registers.
-It is built for bfloat16 at head_dim 128 (the serving path) and float32
-at head_dim 16 (the tiny model), the two builds held against the plain
-version on the card (``chip_smoke.py``); any other pair raises.
+(``FLAGS_decode_attention_block_kv`` keys each, a multiple of 8) so a batch
+of 8 rows x 8 kv heads still fills 132 SMs, and the splits' (acc, m, l)
+partials are merged with the LSE algebra of
+``paddle_tpu/ops/ring_attention.py::merge_attention``.
 
-The paged builds K1-paged (:func:`decode_attention_paged_cuda`) and
-K1-paged-int8 (:func:`decode_attention_paged_int8_cuda`) — the paged
-engine's decode tick, replacing the Pallas kernel's block-table
-scalar-prefetch mode (``decode_attention.py:244-256``) — read K/V from the
-pooled ``(num_blocks, block_len, Hkv, D)`` cache through an int32
-``(B, max_blocks)`` block table: key ``j`` of row ``b`` lives at
-``pool[table[b, j // block_len], j % block_len]``.  The logical length is
-``max_blocks * block_len`` and each row reads only keys below
+Every build at bfloat16 and head_dim 128 — K1
+(:func:`decode_attention_cuda`), K1-int8 (:func:`decode_attention_int8_cuda`),
+K1-paged (:func:`decode_attention_paged_cuda`) and K1-paged-int8
+(:func:`decode_attention_paged_int8_cuda`), the decode tick of every bf16
+engine — runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED>``): a
+CTA takes up to ``MMA_ROWS`` query rows of one (row, kv head) pair and one
+split; its ``MMA_WARPS`` warps take the split's ``MMA_SLICE``-key slices
+in turn, each through its own cp.async ring in shared memory (16-byte
+copies a key row).  The products run on tensor cores transposed,
+Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ with the query rows as ``mma.sync.m16n8k16``'s
+8 columns, and int8 K/V are converted to bf16 in registers.  The splits
+of a tile are merged by the last of its CTAs to finish, in split order
+(the same bits every run), with int32 counters the wrapper keeps per
+(device, stream).  The builds differ only in where a key row lives: the contiguous cache
+(B, L, Hkv, D) holds key ``j`` of row ``b`` at its row ``b * L + j``, with no
+lookup; the pooled ``(num_blocks, block_len, Hkv, D)`` cache at
+``pool[table[b, j // block_len], j % block_len]`` through an int32
+``(B, max_blocks)`` block table (the Pallas kernel's block-table
+scalar-prefetch mode, ``decode_attention.py:244-256``).  The paged logical
+length is ``max_blocks * block_len`` and each row reads only keys below
 ``min(pos_b + s, max_blocks * block_len, live_len)``, so the table's
-null-filled dead tail is never read.  At bfloat16 and head_dim 128 they
-run the Hopper kernel (``decode_paged_mma_kernel``): a CTA takes up to
-``PAGED_ROWS`` query rows of one (row, kv head) pair and one split of
-``FLAGS_decode_attention_block_kv`` keys (the split length is the flag,
-unchanged by this build); its ``PAGED_WARPS`` warps take the split's
-``PAGED_SLICE``-key slices in turn, each through its own cp.async ring in
-shared memory (16-byte copies addressed per key row through the table).
-The products run on tensor cores transposed, Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ
-with the query rows as ``mma.sync.m16n8k16``'s 8 columns, and int8 K/V
-are converted to bf16 in registers.  ``block_len`` and the split length
-must be multiples of 8 (a slice's two 8-key groups each lie in one
-block).  The splits of a tile are merged by the last of its CTAs to
-finish, in split order (the same bits every run); the float32
-head_dim-16 builds keep the CUDA-core body and its merge kernel.
+null-filled dead tail is never read; ``block_len`` must be a multiple of 8
+(a slice's two 8-key groups each lie in one block).
+
+The float32 head_dim-16 builds (the tiny model) keep a CUDA-core body:
+each warp walks its own 8-key blocks with its own online softmax, and a
+second small kernel merges the splits.  Those two builds — bfloat16 at
+head_dim 128 and float32 at head_dim 16 — are held against the plain
+version on the card (``chip_smoke.py``); any other pair raises.
 
 The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
 K1-paged-int8; replacing the Pallas kernel's ``quantized`` mode,
@@ -79,12 +80,12 @@ NAME = "decode_attention"
 # the head_dim built for each dtype
 HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
 
-# K1-paged / K1-paged-int8 at bf16, head_dim 128 (decode_paged_mma_kernel):
-# query rows a CTA (mma.sync's n8), keys a warp step, warps a CTA (warp w
-# takes slices w, w + PAGED_WARPS, ... of its split)
-PAGED_ROWS = 8
-PAGED_SLICE = 16
-PAGED_WARPS = 4
+# the bf16 head_dim-128 builds (decode_mma_kernel): query rows a CTA
+# (mma.sync's n8), keys a warp step, warps a CTA (warp w takes slices w,
+# w + MMA_WARPS, ... of its split)
+MMA_ROWS = 8
+MMA_SLICE = 16
+MMA_WARPS = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,27 +95,27 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     fn = lib.decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P,      # q k v pos out po pml
-                       _I, _I, _I, _I, _I, _I, _I,      # B S Hq Hkv D L lim
-                       _I, _I, ctypes.c_float, _I, _P]  # split nsplit scale dt st
+        # q k v pos out po pml cnt; B S Hq Hkv D L lim split nsplit; scale;
+        # dt st
+        fn.argtypes = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _P]
         fn.restype = ctypes.c_int
         # q k v pos tbl out po pml cnt; B S Hq Hkv D mb bl lim split nsplit;
         # scale; dt st
         fp = lib.decode_attention_paged
         fp.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fp.restype = ctypes.c_int
-        # q k v k_scale v_scale pos out po pml; B S Hq Hkv D L n_gran lim
-        # split nsplit; scale; dt st
+        # q k v k_scale v_scale pos out po pml cnt; B S Hq Hkv D L n_gran
+        # lim split nsplit; scale; dt st
         fi = lib.decode_attention_int8
-        fi.argtypes = [_P] * 9 + [_I] * 10 + [ctypes.c_float, _I, _P]
+        fi.argtypes = [_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fi.restype = ctypes.c_int
         # q k v k_scale v_scale pos tbl out po pml cnt; B S Hq Hkv D mb bl
         # lim split nsplit; scale; dt st
         fpi = lib.decode_attention_paged_int8
         fpi.argtypes = [_P] * 11 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fpi.restype = ctypes.c_int
-        occ = lib.decode_attention_paged_ctas_per_sm
-        occ.argtypes = [_I]
+        occ = lib.decode_attention_mma_ctas_per_sm
+        occ.argtypes = [_I, _I]
         occ.restype = ctypes.c_int
     return lib
 
@@ -136,7 +137,7 @@ def _scratch(q: torch.Tensor, hkv: int, nsplit: int):
     return part, part.data_ptr(), part.data_ptr() + 4 * n_o
 
 
-# (device index, stream handle) -> int32 zeros: the counters of the paged
+# (device index, stream handle) -> int32 zeros: the counters of the Hopper
 # kernel's in-kernel merge
 _counters = {}
 
@@ -144,7 +145,7 @@ _counters = {}
 def _counter_buffer(device: torch.device, stream: int,
                     n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters, one a (row, kv head, row
-    tile), for paged launches on ``stream`` of ``device``.  A launch counts
+    tile), for launches on ``stream`` of ``device``.  A launch counts
     its tiles' finished splits there and leaves every counter at 0 again,
     so launches on one stream, which run one after another, share the
     buffer; launches on another stream, which may run at the same time,
@@ -159,38 +160,48 @@ def _counter_buffer(device: torch.device, stream: int,
 
 
 def _split(limit: int):
-    """(split_len, nsplit) for a walk over ``limit`` keys; the paged and
-    int8 builds need a split length that is a multiple of 8 (a warp's key
-    group must not straddle a block or granule)."""
+    """(split_len, nsplit) for a walk over ``limit`` keys; every build
+    needs a split length that is a multiple of 8 (a warp's 8-key group
+    must not straddle a split, block or granule)."""
     split_len = max(1, int(flags.flag("decode_attention_block_kv")))
     if split_len % 8:
         raise NotImplementedError(
-            f"{NAME}: the paged and int8 builds take a split length "
+            f"{NAME}: the kernel takes a split length "
             f"(FLAGS_decode_attention_block_kv) % 8 == 0, got {split_len}")
     return split_len, max(1, math.ceil(limit / split_len))
 
 
-def _launch_paged(fn, scales, q, k_pool, v_pool, pos, table, out, code,
-                  scale, live_len) -> int:
-    """One launch of a paged C entry (``scales``: the int8 entry's two
-    scale pointers, or ()).  Returns the entry's error code."""
+def _prepare(q: torch.Tensor, hkv: int, L: int, pos, scale, live_len):
+    """The arguments every launch shares over a cache of logical length
+    ``L``: (keep, pos pointer, (partial-sum pointer, max/normaliser
+    pointer, counters pointer), (limit, split_len, nsplit, scale),
+    stream).  ``keep`` holds the tensors behind the pointers: the caller
+    keeps it until the launch is enqueued, so no allocation made before
+    then can take their memory."""
     b, s, hq, d = q.shape
-    _, bl, hkv, _ = k_pool.shape
-    mb = table.shape[1]
-    L = mb * bl
     limit = L if live_len is None else max(1, min(L, int(live_len)))
     split_len, nsplit = _split(limit)
-    if scale is None:
-        scale = d ** -0.5
-    row_tiles = -(-s * (hq // hkv) // PAGED_ROWS)
     st = stream_ptr(q.device)
+    row_tiles = -(-s * (hq // hkv) // MMA_ROWS)
     counters = _counter_buffer(q.device, st, b * hkv * row_tiles)
     pos_t = pos_vector(pos, b, q.device)
     part, po, pml = _scratch(q, hkv, nsplit)
-    return fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
-              pos_t.data_ptr(), table.data_ptr(),
-              out.data_ptr(), po, pml, counters.data_ptr(), b, s, hq, hkv, d,
-              mb, bl, limit, split_len, nsplit, float(scale), code, st)
+    if scale is None:
+        scale = d ** -0.5
+    return ((pos_t, part), pos_t.data_ptr(), (po, pml, counters.data_ptr()),
+            (limit, split_len, nsplit, float(scale)), st)
+
+
+def _check_batch(q: torch.Tensor, cache: torch.Tensor) -> None:
+    if cache.shape[0] != q.shape[0]:
+        raise ValueError(f"{NAME}: batch mismatch between q "
+                         f"{tuple(q.shape)} and cache {tuple(cache.shape)}")
+
+
+def _check_block_len(bl: int) -> None:
+    if bl % 8:
+        raise NotImplementedError(
+            f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -200,30 +211,21 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """Launch K1.  q: (B, s, Hq, D); k_cache/v_cache: (B, L, Hkv, D), the
     new K/V already written; ``pos``: int or (B,) int tensor.  Returns
     (B, s, Hq, D) in q.dtype.  Each CTA walks at most
-    ``FLAGS_decode_attention_block_kv`` keys.  Raises on what the kernel
-    does not take."""
+    ``FLAGS_decode_attention_block_kv`` keys (a multiple of 8).  Raises on
+    what the kernel does not take."""
     code = check_attention_args(NAME, q, k_cache, v_cache, HEAD_DIM)
+    _check_batch(q, k_cache)
     b, s, hq, d = q.shape
-    bk, L, hkv, _ = k_cache.shape
-    if bk != b:
-        raise ValueError(f"{NAME}: batch mismatch between q "
-                         f"{tuple(q.shape)} and cache {tuple(k_cache.shape)}")
+    _, L, hkv, _ = k_cache.shape
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    limit = L if live_len is None else max(1, min(L, int(live_len)))
-    split_len = max(1, int(flags.flag("decode_attention_block_kv")))
-    nsplit = max(1, math.ceil(limit / split_len))
-    pos_t = pos_vector(pos, b, q.device)
-    if scale is None:
-        scale = d ** -0.5
-    part, po, pml = _scratch(q, hkv, nsplit)
+    keep, pos_p, scratch, walk, st = _prepare(q, hkv, L, pos, scale,
+                                              live_len)
     lib = _lib()
     err = lib.decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_t.data_ptr(), out.data_ptr(), po, pml,
-        b, s, hq, hkv, d, L, limit, split_len, nsplit, float(scale), code,
-        stream_ptr(q.device))
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_p,
+        out.data_ptr(), *scratch, b, s, hq, hkv, d, L, *walk, code, st)
     _build.check(lib, NAME, err)
     decode_attention_cuda.launches += 1
     return out
@@ -247,16 +249,19 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM)
     b, s, hq, d = q.shape
     _, bl, hkv, _ = k_pool.shape
-    if bl % 8:
-        raise NotImplementedError(
-            f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
+    _check_block_len(bl)
     table = block_table(block_tables, b, q.device, NAME)
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
+    mb = table.shape[1]
+    keep, pos_p, scratch, walk, st = _prepare(q, hkv, mb * bl, pos, scale,
+                                              live_len)
     lib = _lib()
-    err = _launch_paged(lib.decode_attention_paged, (), q, k_pool, v_pool,
-                        pos, table, out, code, scale, live_len)
+    err = lib.decode_attention_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_p,
+        table.data_ptr(), out.data_ptr(), *scratch, b, s, hq, hkv, d, mb, bl,
+        *walk, code, st)
     _build.check(lib, NAME, err)
     decode_attention_paged_cuda.launches += 1
     return out
@@ -278,11 +283,9 @@ def decode_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     Raises on what the kernel does not take."""
     code = check_attention_args(NAME, q, k_cache, v_cache, HEAD_DIM,
                                 int8=True)
+    _check_batch(q, k_cache)
     b, s, hq, d = q.shape
-    bk, L, hkv, _ = k_cache.shape
-    if bk != b:
-        raise ValueError(f"{NAME}: batch mismatch between q "
-                         f"{tuple(q.shape)} and cache {tuple(k_cache.shape)}")
+    _, L, hkv, _ = k_cache.shape
     n_gran = k_scale.shape[1] if k_scale.dim() == 3 else 0
     check_scales(NAME, k_cache, k_scale, v_scale, (b, n_gran, hkv))
     if n_gran < 1 or L % n_gran or (L // n_gran) % 8:
@@ -292,18 +295,13 @@ def decode_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
-    limit = L if live_len is None else max(1, min(L, int(live_len)))
-    split_len, nsplit = _split(limit)
-    pos_t = pos_vector(pos, b, q.device)
-    if scale is None:
-        scale = d ** -0.5
-    part, po, pml = _scratch(q, hkv, nsplit)
+    keep, pos_p, scratch, walk, st = _prepare(q, hkv, L, pos, scale,
+                                              live_len)
     lib = _lib()
     err = lib.decode_attention_int8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
-        out.data_ptr(), po, pml, b, s, hq, hkv, d, L, n_gran, limit,
-        split_len, nsplit, float(scale), code, stream_ptr(q.device))
+        k_scale.data_ptr(), v_scale.data_ptr(), pos_p, out.data_ptr(),
+        *scratch, b, s, hq, hkv, d, L, n_gran, *walk, code, st)
     _build.check(lib, NAME, err)
     decode_attention_int8_cuda.launches += 1
     return out
@@ -331,17 +329,19 @@ def decode_attention_paged_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     b, s, hq, d = q.shape
     n_pool, bl, hkv, _ = k_pool.shape
     check_scales(NAME, k_pool, k_scale, v_scale, (n_pool, hkv))
-    if bl % 8:
-        raise NotImplementedError(
-            f"{NAME}: the paged build takes block_len % 8 == 0, got {bl}")
+    _check_block_len(bl)
     table = block_table(block_tables, b, q.device, NAME)
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
+    mb = table.shape[1]
+    keep, pos_p, scratch, walk, st = _prepare(q, hkv, mb * bl, pos, scale,
+                                              live_len)
     lib = _lib()
-    err = _launch_paged(lib.decode_attention_paged_int8,
-                        (k_scale.data_ptr(), v_scale.data_ptr()), q, k_pool,
-                        v_pool, pos, table, out, code, scale, live_len)
+    err = lib.decode_attention_paged_int8(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), pos_p, table.data_ptr(),
+        out.data_ptr(), *scratch, b, s, hq, hkv, d, mb, bl, *walk, code, st)
     _build.check(lib, NAME, err)
     decode_attention_paged_int8_cuda.launches += 1
     return out

@@ -1,36 +1,48 @@
-"""The paged decode kernels' walk, on the CPU.
+"""The decode kernels' walk, on the CPU.
 
-K1-paged and K1-paged-int8 at bf16 and head_dim 128
-(``decode_paged_mma_kernel`` in ``csrc/decode_attention.cu``) give each CTA
-up to ``PAGED_ROWS`` query rows of one (row, kv head) pair and one split
-of ``split_len`` keys below the tile's live bound live = min(limit, pos_b
-+ (last row's query offset) + 1), limit = min(max_blocks * block_len,
-live_len).  Its ``PAGED_WARPS`` warps take the split's ``PAGED_SLICE``-key
-slices in turn (warp w: slices w, w + 4, ...); each 8-key group of a
-slice reads one table column, and every key row is copied from
-``pool[table[b, j // block_len], j % block_len]``; keys at or past the
-split's end are zero-filled, never read.  A split at or past live leaves at once.
-``_walk`` restates that rule.  Properties, by hypothesis over pos, s,
-G, block_len in {8, 16, 64, 128}, max_blocks, split lengths, shuffled
-tables that share blocks and end in null (block 0) tails, and rows whose
-pos + s passes max_blocks * block_len:
+K1, K1-int8, K1-paged and K1-paged-int8 at bf16 and head_dim 128
+(``decode_mma_kernel<INT8, PAGED>`` in ``csrc/decode_attention.cu``) give
+each CTA up to ``MMA_ROWS`` query rows of one (row, kv head) pair and one
+split of ``split_len`` keys below the tile's live bound live = min(limit,
+pos_b + (last row's query offset) + 1), limit = min(L, live_len).  Its
+``MMA_WARPS`` warps take the split's ``MMA_SLICE``-key slices in turn (warp
+w: slices w, w + 4, ...); each 8-key group of a slice is addressed once,
+keys at or past the split's end are zero-filled, never read, and a split
+at or past live leaves at once.  The two layouts differ only in that
+addressing (``_walk`` restates both):
 
-* every key below live is read exactly once per (row, kv head, row tile);
-* no dead-tail table column is read, and each key comes from its block's
-  row;
+* paged (the pool (num_blocks, block_len, Hkv, D), L = max_blocks *
+  block_len): a group reads one table column, and key j is copied from
+  ``pool[table[b, j // block_len], j % block_len]``, its int8 scales from
+  the block's row;
+* contiguous (the cache (B, L, Hkv, D), int8 scales (B, n_gran, Hkv) over
+  granules of gran_len = L / n_gran keys): no lookup; key j is copied
+  from row b's own cache row ``b * L + j`` and a group's scales from row
+  ``b * n_gran + j // gran_len``.
+
+Properties, by hypothesis over pos, s, G, block_len or gran_len in {8, 16,
+64, 128}, max_blocks or n_gran, split lengths, shuffled tables that share
+blocks and end in null (block 0) tails, and rows whose pos + s passes L:
+
+* every key below live is read exactly once per (row, kv head, row tile),
+  and no key at or past limit;
+* paged: no dead-tail table column is read, and each key comes from its
+  block's row; contiguous: each key comes from row b's own cache row, and
+  each 8-key group takes its granule's scale;
 * no masked key is weighted: the keys a row weights are exactly those it
   sees (j <= pos_b + si, below limit).
 
 The kernel's algorithm in plain torch (``_model``: each warp's online
-softmax over its slices in the log2 domain, int8 payloads with K's block
-scale folded into each key's score and V's into each key's probability,
-the warps merged, then the split partials merged in split order) equals
-the plain version at 1e-5.  At fixed cases ``_model`` also matches the JAX
-package: ``decode_attention_pallas(..., interpret=True)`` at block_len 128
-and ``cached_decode_attention_reference`` at block_len 8, 16 and 64 (the
-Pallas kernel's paged mode takes block_len % 128 == 0), in float32, in
-bf16 values (computed in float32 by both: the kernel's own bf16 rounding
-of P is held on the card) and in int8 with float32 scales.
+softmax over its slices in the log2 domain, int8 payloads with K's scale
+folded into each key's score and V's into each key's probability, the
+warps merged, then the split partials merged in split order) equals the
+plain version at 1e-5.  At fixed cases ``_model`` also matches the JAX
+package: ``decode_attention_pallas(..., interpret=True)`` where the Pallas
+kernel takes the shape (paged: block_len 128; contiguous: L a multiple of
+128, int8 granules of 128) and ``cached_decode_attention_reference``
+elsewhere (block_len or granule 8, 16 and 64), in float32, in bf16 values
+(computed in float32 by both: the kernel's own bf16 rounding of P is held
+on the card) and in int8 with float32 scales.
 """
 
 import math
@@ -47,29 +59,53 @@ from paddle_tpu.ops.attention import (
 from paddle_tpu.ops.pallas.decode_attention import decode_attention_pallas
 
 from paddle_tpu_torch.ops.attention import cached_decode_attention_reference
-from paddle_tpu_torch.ops.cuda.decode_attention import (PAGED_ROWS,
-                                                        PAGED_SLICE,
-                                                        PAGED_WARPS)
+from paddle_tpu_torch.ops.cuda.decode_attention import (MMA_ROWS, MMA_SLICE,
+                                                        MMA_WARPS)
 
-GROUP = 8                  # keys of one table lookup (block_len % 8 == 0)
+GROUP = 8                  # keys of one lookup (block_len, gran_len % 8 == 0)
 NEG = -1e30
 TOL = dict(rtol=1e-5, atol=1e-5)
+LAYOUTS = ["paged", "contiguous"]
 
 
 def _tiles(s, g):
     """[(first row, rows)] of the query row tiles of one (row, kv head)."""
     total = s * g
-    return [(r0, min(PAGED_ROWS, total - r0))
-            for r0 in range(0, total, PAGED_ROWS)]
+    return [(r0, min(MMA_ROWS, total - r0))
+            for r0 in range(0, total, MMA_ROWS)]
 
 
-def _walk(pos, s, g, bl, mb, trow, split_len, slice_len, live_len=None):
+def _paged_group(trow, bl):
+    """Row b's paged addressing (``trow``: its table row): the group of 8
+    keys from key j8 reads table column j8 // bl, once.  Returns (column,
+    the first key's pool row, scale row = its block)."""
+    def group(j8):
+        col = j8 // bl
+        blk = int(trow[col])
+        return col, blk * bl + j8 % bl, blk
+    return group
+
+
+def _contiguous_group(b, L, gran):
+    """Row b's contiguous addressing: no lookup; the group of 8 keys from
+    key j8 starts at cache row b * L + j8 and takes granule j8 // gran's
+    scales, row b * (L // gran) + j8 // gran.  Returns (granule, cache
+    row, scale row)."""
+    def group(j8):
+        col = j8 // gran
+        return col, b * L + j8, b * (L // gran) + col
+    return group
+
+
+def _walk(pos, s, g, L, group, split_len, slice_len, live_len=None):
     """{(r0, split): [(warp, t, j0, columns, reads, zeroed)]}: for each row
     tile and live split, each warp's slices of ``slice_len`` keys in
-    order; ``reads`` are (key, table column, (block, row)) of the keys
-    copied, ``zeroed`` the keys zero-filled.  Splits that leave at once
-    are absent."""
-    L = mb * bl
+    order; ``columns`` are the slice's groups' lookups (table column or
+    granule), ``reads`` are (key, column, row of the (-1, Hkv, D) view of
+    K/V, row of the (-1, Hkv) view of the scales) of the keys copied,
+    ``zeroed`` the keys zero-filled.  ``group`` is the layout's addressing
+    of one row (``_paged_group`` / ``_contiguous_group``).  Splits that
+    leave at once are absent."""
     limit = L if live_len is None else max(1, min(L, live_len))
     out = {}
     for r0, nr in _tiles(s, g):
@@ -80,25 +116,24 @@ def _walk(pos, s, g, bl, mb, trow, split_len, slice_len, live_len=None):
             if k_end <= k_begin:
                 continue
             slices = []
-            for warp in range(PAGED_WARPS):
+            for warp in range(MMA_WARPS):
                 for t in range(10 ** 6):
-                    j0 = k_begin + slice_len * (warp + PAGED_WARPS * t)
+                    j0 = k_begin + slice_len * (warp + MMA_WARPS * t)
                     if j0 >= k_end:
                         break
-                    cols = [(j0 + q8) // bl
-                            for q8 in range(0, slice_len, GROUP)
-                            if j0 + q8 < k_end]
+                    groups = [group(j0 + q8)
+                              for q8 in range(0, slice_len, GROUP)
+                              if j0 + q8 < k_end]
                     reads, zeroed = [], []
                     for kr in range(slice_len):
                         j = j0 + kr
                         if j >= k_end:
                             zeroed.append(j)
                             continue
-                        grp = kr // GROUP
-                        col = cols[grp]
-                        row = (j0 + GROUP * grp) % bl + kr % GROUP
-                        reads.append((j, col, (int(trow[col]), row)))
-                    slices.append((warp, t, j0, cols, reads, zeroed))
+                        col, first, srow = groups[kr // GROUP]
+                        reads.append((j, col, first + kr % GROUP, srow))
+                    slices.append((warp, t, j0, [c for c, _, _ in groups],
+                                   reads, zeroed))
             out[(r0, split)] = slices
     return out
 
@@ -120,21 +155,69 @@ def _tables(rng, pos, s, bl, mb):
     return tables, need, n_pool
 
 
-def _model(q, k_pool, v_pool, pos, tables, split_len, k_scale=None,
-           v_scale=None, live_len=None, kept=None):
+class Case:
+    """Inputs of one call in one layout: ``bl`` and ``mb`` are the block
+    length and table width (paged) or the granule length and granules a
+    row (contiguous); L = mb * bl either way."""
+
+    def __init__(self, seed, layout, b, s, bl, mb, int8=False, hq=4, hkv=2,
+                 d=8, pos=None):
+        rng = np.random.default_rng(seed)
+        if pos is None:
+            pos = [int(rng.integers(0, mb * bl + 1)) for _ in range(b)]
+        self.layout, self.s, self.bl, self.mb = layout, s, bl, mb
+        self.L = mb * bl
+        self.pos = np.asarray(pos, np.int32)
+        if layout == "paged":
+            self.tables, self.need, n_rows = _tables(rng, pos, s, bl, mb)
+            kv_shape, sc_shape = (n_rows, bl, hkv, d), (n_rows, hkv)
+        else:
+            self.tables = None
+            kv_shape, sc_shape = (b, self.L, hkv, d), (b, mb, hkv)
+        self.q = rng.normal(size=(b, s, hq, d)).astype(np.float32)
+        if int8:
+            self.k, self.v = (rng.integers(-127, 128, kv_shape,
+                                           dtype=np.int8) for _ in range(2))
+            self.scales = tuple(
+                0.002 + 0.02 * rng.random(sc_shape, dtype=np.float32)
+                for _ in range(2))
+        else:
+            self.k, self.v = (rng.normal(size=kv_shape).astype(np.float32)
+                              for _ in range(2))
+            self.scales = None
+
+    def group(self, r):
+        if self.layout == "paged":
+            return _paged_group(self.tables[r], self.bl)
+        return _contiguous_group(r, self.L, self.bl)
+
+    def walk(self, r, g, split_len, live_len=None):
+        return _walk(int(self.pos[r]), self.s, g, self.L, self.group(r),
+                     split_len, MMA_SLICE, live_len)
+
+    def layout_kw(self):
+        """The plain version's layout arguments (torch)."""
+        return ({} if self.tables is None
+                else dict(block_tables=_t(self.tables)))
+
+
+def _model(case, q, k, v, split_len, k_scale=None, v_scale=None,
+           live_len=None, kept=None):
     """The kernel's algorithm in float32 torch over ``_walk``'s slices.
     ``kept``, if given, collects {(b, h, row): set of keys weighted}."""
     b, s, hq, d = q.shape
-    _, bl, hkv, _ = k_pool.shape
-    g, mb = hq // hkv, tables.shape[1]
-    L = mb * bl
-    limit = L if live_len is None else max(1, min(L, live_len))
+    hkv = k.shape[2]
+    g = hq // hkv
+    k_rows, v_rows = k.reshape(-1, hkv, d), v.reshape(-1, hkv, d)
+    if k_scale is not None:
+        k_scale, v_scale = k_scale.reshape(-1, hkv), v_scale.reshape(-1, hkv)
+    limit = case.L if live_len is None else max(1, min(case.L, live_len))
     scale_log2 = d ** -0.5 * math.log2(math.e)
-    sl = PAGED_SLICE
+    sl = MMA_SLICE
     out = torch.zeros(b, s, hq, d)
     for r in range(b):
-        p_r = int(pos[r])
-        walk = _walk(p_r, s, g, bl, mb, tables[r], split_len, sl, live_len)
+        p_r = int(case.pos[r])
+        walk = case.walk(r, g, split_len, live_len)
         for h in range(hkv):
             for r0, nr in _tiles(s, g):
                 rows = torch.arange(r0, r0 + nr)
@@ -148,7 +231,7 @@ def _model(q, k_pool, v_pool, pos, tables, split_len, k_scale=None,
                     last = torch.minimum(torch.tensor(k_end),
                                          p_r + si + 1) - 1
                     warps = []
-                    for w in range(PAGED_WARPS):
+                    for w in range(MMA_WARPS):
                         m = torch.full((nr,), NEG)
                         l = torch.zeros(nr)
                         acc = torch.zeros(nr, d)
@@ -159,13 +242,13 @@ def _model(q, k_pool, v_pool, pos, tables, split_len, k_scale=None,
                             vt = torch.zeros(sl, d)
                             fk = torch.zeros(sl)
                             fv = torch.zeros(sl)
-                            for j, _, (blk, row) in reads:
-                                kt[j - j0] = k_pool[blk, row, h].float()
-                                vt[j - j0] = v_pool[blk, row, h].float()
+                            for j, _, row, srow in reads:
+                                kt[j - j0] = k_rows[row, h].float()
+                                vt[j - j0] = v_rows[row, h].float()
                                 fk[j - j0] = (1.0 if k_scale is None
-                                              else float(k_scale[blk, h]))
+                                              else float(k_scale[srow, h]))
                                 fv[j - j0] = (1.0 if v_scale is None
-                                              else float(v_scale[blk, h]))
+                                              else float(v_scale[srow, h]))
                             keys = j0 + torch.arange(sl)
                             keep = keys[None] <= last[:, None]
                             sc = (qt @ kt.T) * (scale_log2 * fk)[None]
@@ -210,38 +293,17 @@ def _model(q, k_pool, v_pool, pos, tables, split_len, k_scale=None,
     return out
 
 
-def _case(seed, b, s, bl, mb, int8=False, hq=4, hkv=2, d=8, pos=None):
-    rng = np.random.default_rng(seed)
-    if pos is None:
-        pos = [int(rng.integers(0, mb * bl + 1)) for _ in range(b)]
-    tables, need, n_pool = _tables(rng, pos, s, bl, mb)
-    q = rng.normal(size=(b, s, hq, d)).astype(np.float32)
-    if int8:
-        kp, vp = (rng.integers(-127, 128, (n_pool, bl, hkv, d),
-                               dtype=np.int8) for _ in range(2))
-        ks, vs = (0.002 + 0.02 * rng.random((n_pool, hkv),
-                                            dtype=np.float32)
-                  for _ in range(2))
-        scales = (ks, vs)
-    else:
-        kp, vp = (rng.normal(size=(n_pool, bl, hkv, d)).astype(np.float32)
-                  for _ in range(2))
-        scales = None
-    return np.asarray(pos, np.int32), tables, need, q, kp, vp, scales
-
-
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _check_walk(pos, tables, need, s, g, bl, mb, split_len, slice_len,
-                live_len=None):
-    L = mb * bl
-    limit = L if live_len is None else max(1, min(L, live_len))
-    for r in range(len(pos)):
-        p, trow = int(pos[r]), tables[r]
-        walk = _walk(p, s, g, bl, mb, trow, split_len, slice_len, live_len)
-        for r0, nr in _tiles(s, g):
+def _check_walk(case, g, split_len, live_len=None):
+    limit = case.L if live_len is None else max(1, min(case.L, live_len))
+    bl = case.bl
+    for r in range(len(case.pos)):
+        p = int(case.pos[r])
+        walk = case.walk(r, g, split_len, live_len)
+        for r0, nr in _tiles(case.s, g):
             live = min(limit, p + (r0 + nr - 1) // g + 1)
             seen = []
             for (t0, split), slices in walk.items():
@@ -250,16 +312,26 @@ def _check_walk(pos, tables, need, s, g, bl, mb, split_len, slice_len,
                 assert split * split_len < live       # no dead split runs
                 for _, _, j0, cols, reads, zeroed in slices:
                     assert j0 % GROUP == 0
-                    assert all(c < need[r] for c in cols)   # no dead column
-                    for j, col, (blk, row) in reads:
-                        assert col == j // bl and blk == int(trow[col])
-                        assert row == j % bl and blk != 0
+                    if case.layout == "paged":        # no dead column
+                        assert all(c < case.need[r] for c in cols)
+                    for j, col, row, srow in reads:
+                        assert j < live <= limit
+                        assert col == j // bl         # the key's own group
+                        if case.layout == "paged":
+                            blk = int(case.tables[r, col])
+                            assert blk != 0 and srow == blk
+                            assert row == blk * bl + j % bl
+                        else:
+                            # row r's own cache row, its granule's scale
+                            assert row == r * case.L + j
+                            assert srow == r * case.mb + j // bl
                         seen.append(j)
                     assert all(j >= min(live, (split + 1) * split_len)
                                for j in zeroed)
             assert sorted(seen) == list(range(max(live, 0)))   # each once
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @settings(max_examples=80, deadline=None)
 @given(seed=st.integers(0, 2 ** 31 - 1), b=st.integers(1, 3),
        s=st.integers(1, 3), g=st.sampled_from([1, 4, 8]),
@@ -267,26 +339,30 @@ def _check_walk(pos, tables, need, s, g, bl, mb, split_len, slice_len,
        split_len=st.sampled_from([8, 16, 24, 40, 64, 256]),
        live_len=st.one_of(st.none(), st.integers(1, 2000)))
 def test_walk_reads_each_live_key_once_and_no_dead_column(
-        seed, b, s, g, bl, mb, split_len, live_len):
-    pos, tables, need, *_ = _case(seed, b, s, bl, mb)
-    _check_walk(pos, tables, need, s, g, bl, mb, split_len, PAGED_SLICE,
-                live_len)
+        layout, seed, b, s, g, bl, mb, split_len, live_len):
+    _check_walk(Case(seed, layout, b, s, bl, mb), g, split_len, live_len)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("split_len", [8, 24, 256])
 @pytest.mark.parametrize("bl", [8, 16, 64])
-def test_walk_at_group_and_block_edges(split_len, bl):
+def test_walk_at_group_and_block_edges(split_len, bl, layout):
     """Depths on and beside the 8-key group, 16-key slice, 64-key warp
-    round and block edges (random depths seldom land there)."""
+    round and block (granule) edges (random depths seldom land there)."""
     pos = [0, 7, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255,
            256, 257]
     mb = -(-(max(pos) + 1) // bl) + 1
-    tables, need, _ = _tables(np.random.default_rng(bl + split_len), pos, 1,
-                              bl, mb)
-    _check_walk(np.asarray(pos), tables, need, 1, 4, bl, mb, split_len,
-                PAGED_SLICE)
+    case = Case(bl + split_len, layout, len(pos), 1, bl, mb, pos=pos)
+    _check_walk(case, 4, split_len)
 
 
+def _scale_kw(case):
+    if case.scales is None:
+        return {}
+    return dict(k_scale=_t(case.scales[0]), v_scale=_t(case.scales[1]))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @settings(max_examples=25, deadline=None)
 @given(seed=st.integers(0, 2 ** 31 - 1), b=st.integers(1, 3),
        s=st.integers(1, 3), bl=st.sampled_from([8, 16, 64, 128]),
@@ -294,25 +370,23 @@ def test_walk_at_group_and_block_edges(split_len, bl):
        int8=st.booleans(), live_len=st.one_of(st.none(),
                                               st.integers(1, 800)))
 def test_model_equals_plain_and_weights_only_visible_keys(
-        seed, b, s, bl, mb, split_len, int8, live_len):
-    pos, tables, _, q, kp, vp, scales = _case(seed, b, s, bl, mb, int8)
-    kw = {}
-    if scales is not None:
-        kw = dict(k_scale=_t(scales[0]), v_scale=_t(scales[1]))
+        layout, seed, b, s, bl, mb, split_len, int8, live_len):
+    case = Case(seed, layout, b, s, bl, mb, int8)
+    kw = _scale_kw(case)
     kept = {}
-    got = _model(_t(q), _t(kp), _t(vp), pos, tables, split_len,
+    got = _model(case, _t(case.q), _t(case.k), _t(case.v), split_len,
                  live_len=live_len, kept=kept, **kw)
     want = cached_decode_attention_reference(
-        _t(q), _t(kp), _t(vp), _t(pos), block_tables=_t(tables),
-        live_len=live_len, **kw)
+        _t(case.q), _t(case.k), _t(case.v), _t(case.pos),
+        live_len=live_len, **case.layout_kw(), **kw)
     torch.testing.assert_close(got, want, **TOL)
-    L = mb * bl
-    limit = L if live_len is None else min(L, live_len)
-    hkv, g = kp.shape[2], q.shape[2] // kp.shape[2]
+    limit = case.L if live_len is None else min(case.L, live_len)
+    hkv, g = case.k.shape[2], case.q.shape[2] // case.k.shape[2]
     for r in range(b):
         for h in range(hkv):
             for rr in range(s * g):
-                visible = set(range(min(limit, int(pos[r]) + rr // g + 1)))
+                visible = set(range(min(limit, int(case.pos[r]) + rr // g
+                                        + 1)))
                 assert kept.get((r, h, rr), set()) == visible
 
 
@@ -320,9 +394,9 @@ def _bf16_values(a):
     return torch.from_numpy(a).bfloat16().float().numpy()
 
 
-# (kind, b, s, block_len, max_blocks, split_len, pos): several splits a
-# row, rows whose pos + s passes max_blocks * block_len, slices spanning
-# two blocks at block_len 8
+# (kind, b, s, block_len or granule, max_blocks or granules a row,
+# split_len, pos): several splits a row, rows whose pos + s passes L,
+# slices spanning two blocks or granules at 8
 FIXED = [
     ("float32", 3, 1, 128, 6, 256, [0, 200, 700]),
     ("bfloat16", 2, 1, 128, 4, 64, [130, 511]),
@@ -336,28 +410,41 @@ FIXED = [
 ]
 
 
+def _pallas_takes(case, int8):
+    """Whether the Pallas kernel takes the case's shape: paged, block_len
+    % 128 == 0; contiguous, int8 granules of 128 (a multiple of) or L % 128
+    == 0 (its chunk divides L)."""
+    if case.layout == "paged" or int8:
+        return case.bl % 128 == 0
+    return case.L % 128 == 0
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("kind,b,s,bl,mb,split_len,pos", FIXED)
-def test_model_matches_jax(kind, b, s, bl, mb, split_len, pos):
-    pos, tables, _, q, kp, vp, scales = _case(
-        7, b, s, bl, mb, int8=kind == "int8", hq=8, hkv=2, d=16, pos=pos)
+def test_model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout):
+    int8 = kind == "int8"
+    case = Case(7, layout, b, s, bl, mb, int8=int8, hq=8, hkv=2, d=16,
+                pos=pos)
     if kind == "bfloat16":
-        q, kp, vp = _bf16_values(q), _bf16_values(kp), _bf16_values(vp)
-    kw_t, kw_j = {}, {}
-    if scales is not None:
-        kw_t = dict(k_scale=_t(scales[0]), v_scale=_t(scales[1]))
-        kw_j = dict(k_scale=jnp.asarray(scales[0]),
-                    v_scale=jnp.asarray(scales[1]))
-    got = _model(_t(q), _t(kp), _t(vp), pos, tables, split_len, **kw_t)
-    jq, jk, jv, jp = (jnp.asarray(a) for a in (q, kp, vp, pos))
-    if bl % 128 == 0:
-        want = decode_attention_pallas(jq, jk, jv, jp,
-                                       block_tables=jnp.asarray(tables),
-                                       interpret=True, **kw_j)
+        case.q, case.k, case.v = (_bf16_values(a)
+                                  for a in (case.q, case.k, case.v))
+    kw_j = {}
+    if case.scales is not None:
+        kw_j = dict(k_scale=jnp.asarray(case.scales[0]),
+                    v_scale=jnp.asarray(case.scales[1]))
+    got = _model(case, _t(case.q), _t(case.k), _t(case.v), split_len,
+                 **_scale_kw(case))
+    jq, jk, jv, jp = (jnp.asarray(a)
+                      for a in (case.q, case.k, case.v, case.pos))
+    if case.tables is not None:
+        kw_j["block_tables"] = jnp.asarray(case.tables)
+    if _pallas_takes(case, int8):
+        want = decode_attention_pallas(jq, jk, jv, jp, interpret=True,
+                                       **kw_j)
     else:
-        want = jax_decode_ref(jq, jk, jv, jp,
-                              block_tables=jnp.asarray(tables), **kw_j)
+        want = jax_decode_ref(jq, jk, jv, jp, **kw_j)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    # and the walk never touched the dead tails the tables end in
-    assert (tables == 0).any()
-    need = [min(mb, -(-(p + s) // bl)) for p in pos]
-    _check_walk(pos, tables, need, s, 4, bl, mb, split_len, PAGED_SLICE)
+    if case.tables is not None:
+        # the walk never touched the dead tails the tables end in
+        assert (case.tables == 0).any()
+    _check_walk(case, 4, split_len)
