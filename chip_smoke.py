@@ -65,17 +65,30 @@ any failed check raises, so the script exits non-zero.  Phases:
                  int8 model (``quantize_for_decode``: int8 weights) over an
                  int8 pool, held against the same float32 truth
                  (``model_int8``); then a tiny float32 engine on the card
-                 (kernels) against the same engine on the CPU (plain
+                 (kernels, its decode step one CUDA graph replayed every
+                 tick) against the same engine on the CPU (plain
                  versions): greedy tokens must be identical, and the
                  tiny PAGED engine on the card must match both the paged
                  engine on the CPU and the contiguous engine on the card;
                  the tiny int8 engines (int8 KV and int8 weights,
                  contiguous and paged) must match themselves on the CPU;
+                 every engine on the card must have built its decode
+                 step once (``step_traces`` 1) and replayed its graph
+                 once a decode tick (``graph_replays``);
   4. serving   — ``ServingEngine(num_slots=8, max_length=4096,
                  prefill_batch=4)`` on 12 requests of 5..1500 prompt
                  tokens, 32 new tokens each; every launch counter is reset
                  just before and read just after (K1 32 a decode tick, no
-                 plain route); tok/s, step ms, TTFT;
+                 plain route); tok/s, step ms, TTFT.  The engine builds
+                 its decode step once at construction (a warm-up and one
+                 CUDA-graph capture) and replays it every tick:
+                 ``step_traces`` must be 1 and ``graph_replays`` the
+                 decode ticks; then its ``eager_twin`` serves the same
+                 requests with the step run eagerly
+                 (``disable_graphs()``): every request's tokens, every
+                 launch count and every route count must be the graphed
+                 engine's; both runs' tok/s and step ms are reported.
+                 Phases 4b-4d do the same;
   4b. serving_paged — the same engine with ``paged=True, block_len=128,
                  num_blocks=52`` on 16 requests: 8 open with one shared
                  1536-token system prompt, 8 are unique, interleaved; the
@@ -119,15 +132,17 @@ and K4 from phase 4c, of K1-int8 from phase 4d, of K5 and K6 from phase
 ``--profile`` adds the device time of K1, K1-int8, K1-paged and
 K1-paged-int8 by split length (K1 and K1-int8 at phase 2's main and
 all-at-4095 rows, the paged builds at the main, block_len 8 and
-all-at-4095 rows), a torch.profiler window over a few decode
-ticks of the contiguous, paged and int8 paged engines and over one phase-5
-train step (kernel time by name and class, the optimizer's device time,
-device busy share) for PERF.md.
+all-at-4095 rows), a torch.profiler window (with CUDA events around it)
+over 5 decode ticks of the contiguous, int8 contiguous, paged and int8
+paged engines, each graphed and then eager (``mode``), and over one
+phase-5 train step (kernel time by name and class, the optimizer's device
+time, device busy share) for PERF.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -1440,11 +1455,13 @@ def phase_model(torch):
         out = dict(eng.drain())
         return [out[r] for r in rids], eng
 
-    on_card, on_cpu = serve(tiny_card, "cuda")[0], serve(tiny_cpu, "cpu")[0]
+    (on_card, eng_card), on_cpu = serve(tiny_card, "cuda"), serve(
+        tiny_cpu, "cpu")[0]
     emit({"phase": "model_tiny_f32", "requests": len(prompts),
-          "identical": on_card == on_cpu})
+          "identical": on_card == on_cpu, **graph_fields(eng_card)})
     check(on_card == on_cpu,
           f"tiny f32 engine differs card vs cpu: {on_card} vs {on_cpu}")
+    check_graphed(eng_card, "tiny f32 engine")
 
     # the tiny PAGED engine (block_len 16): two more prompts open with one
     # 20-token system prompt, so a suffix prefill runs at pos 16
@@ -1460,7 +1477,9 @@ def phase_model(torch):
     emit({"phase": "model_tiny_f32_paged", "requests": len(paged_prompts),
           "block_len": 16, "prefix_hit_tokens": hits,
           "identical_card_vs_cpu": p_card == p_cpu,
-          "identical_paged_vs_contiguous_card": p_card == contiguous_card})
+          "identical_paged_vs_contiguous_card": p_card == contiguous_card,
+          **graph_fields(eng_card)})
+    check_graphed(eng_card, "tiny f32 paged engine")
     check(hits > 0, "tiny paged engine adopted no prefix block")
     check(p_card == p_cpu,
           f"tiny f32 paged engine differs card vs cpu: {p_card} vs {p_cpu}")
@@ -1476,16 +1495,75 @@ def phase_model(torch):
     for layout, reqs, kw in (("contiguous", prompts, int8_kw),
                              ("paged", paged_prompts,
                               dict(int8_kw, **paged_kw))):
-        i_card, _ = serve(q_card, "cuda", reqs, **kw)
+        i_card, i_eng = serve(q_card, "cuda", reqs, **kw)
         i_cpu, _ = serve(q_cpu, "cpu", reqs, **kw)
         emit({"phase": "model_tiny_f32_int8", "layout": layout,
               "requests": len(reqs),
               "quantized_tensors": len(q_cpu.quantized_names),
-              "identical_card_vs_cpu": i_card == i_cpu})
+              "identical_card_vs_cpu": i_card == i_cpu,
+              **graph_fields(i_eng)})
         check(i_card == i_cpu,
               f"tiny f32 int8 {layout} engine differs card vs cpu: "
               f"{i_card} vs {i_cpu}")
+        check_graphed(i_eng, f"tiny f32 int8 {layout} engine")
     return model, qmodel
+
+
+# -- the once-built decode step ----------------------------------------------------
+
+def graph_contract(m, graphed: bool):
+    """What an engine's ``metrics()`` break of the decode step's contract:
+    one build (``step_traces`` 1, the reference's retrace budget) and one
+    graph replay a decode tick for a graphed engine, none for an eager
+    one.  Returns the failures as text, [] when the contract holds."""
+    bad = []
+    if m["step_traces"] != 1:
+        bad.append(f"step_traces {m['step_traces']} (want 1)")
+    want = m["decode_ticks"] if graphed else 0
+    if m["graph_replays"] != want:
+        bad.append(f"graph_replays {m['graph_replays']} for "
+                   f"{m['decode_ticks']} decode ticks (want {want})")
+    return bad
+
+
+def check_graph(run, what, graphed=True):
+    """Fail unless a serving run (``graphed``, ``metrics``) replayed a
+    CUDA graph exactly when ``graphed`` and kept :func:`graph_contract`."""
+    check(run["graphed"] == graphed,
+          f"{what}: the engine's graphed is {run['graphed']}, want {graphed}")
+    bad = graph_contract(run["metrics"], graphed)
+    check(not bad, f"{what}: " + "; ".join(bad))
+
+
+def graph_fields(eng):
+    m = eng.metrics()
+    return {"graphed": eng.graphed, "step_traces": m["step_traces"],
+            "graph_replays": m["graph_replays"]}
+
+
+def check_graphed(eng, what):
+    check_graph({"graphed": eng.graphed, "metrics": eng.metrics()}, what)
+
+
+def twin_comparison(graphed, eager):
+    """The eager twin's token check: ``graphed`` and ``eager`` hold each
+    request's tokens in submit order.  Returns ``tokens_identical``, the
+    indices of the requests that differ and the first difference as
+    [request, position, graphed token, eager token] (None past a shorter
+    output), or None."""
+    if len(graphed) != len(eager):
+        raise ValueError(f"{len(graphed)} graphed outputs against "
+                         f"{len(eager)} eager ones")
+    differing = [i for i, (g, e) in enumerate(zip(graphed, eager)) if g != e]
+    first = None
+    if differing:
+        g, e = graphed[differing[0]], eager[differing[0]]
+        j = next((j for j, (a, b) in enumerate(zip(g, e)) if a != b),
+                 min(len(g), len(e)))
+        first = [differing[0], j, g[j] if j < len(g) else None,
+                 e[j] if j < len(e) else None]
+    return {"tokens_identical": not differing,
+            "requests_differing": differing, "first_difference": first}
 
 
 # -- phase 4 ------------------------------------------------------------------------
@@ -1498,42 +1576,18 @@ def serving_prompts(vocab: int):
 
 
 def phase_serving(torch, model, kernels):
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops import _dispatch
-    from paddle_tpu_torch.serving import ServingEngine
-
-    eng = ServingEngine(model, num_slots=8, max_length=4096,
-                        prefill_batch=4, device="cuda")
     prompts = serving_prompts(model.config.vocab_size)
-    new_tokens = 32
-    ops.reset_launch_counts()
-    _dispatch.reset_kernel_paths()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
-    out = dict(eng.drain())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    routes = {f"{op}/{path}": n for (op, path), n in
-              _dispatch.kernel_paths.items()}
-    m = eng.metrics()
-    ntok = sum(len(out[r]) for r in rids)
-    emit({"phase": "serving", "requests": len(rids),
+    run = _serve_8b(torch, model, prompts)
+    twin = eager_twin(torch, model, prompts, run, "phase 4")
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    emit({"phase": "serving", "requests": len(prompts),
           "prompt_lengths": [int(p.size) for p in prompts],
-          "new_tokens": new_tokens, "tokens": ntok, "wall_s": round(wall, 4),
-          "tok_per_s": round(ntok / wall, 2),
-          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
-          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+          "new_tokens": 32, **serving_fields(run),
           "prefill_waves": m["prefill_waves"],
           "decode_ticks": m["decode_ticks"], "launches": launches,
-          "routes": routes})
-    vocab = model.config.vocab_size
-    for r in rids:
-        check(len(out[r]) == new_tokens,
-              f"request {r} returned {len(out[r])} tokens")
-        check(all(0 <= t < vocab for t in out[r]),
-              f"request {r} returned a token outside the vocabulary")
+          "routes": routes, "eager_twin": twin})
+    check_graph(run, "phase 4")
+    check_twin(twin, "phase 4")
     for name in CONTIGUOUS_PATH:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
@@ -1543,7 +1597,7 @@ def phase_serving(torch, model, kernels):
           f"{m['decode_ticks']} decode ticks")
     plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
     check(not plain, f"plain routes taken on the card: {plain}")
-    return eng
+    return m
 
 
 def paged_serving_prompts(vocab: int):
@@ -1564,47 +1618,24 @@ def paged_serving_prompts(vocab: int):
 
 
 def phase_serving_paged(torch, model, kernels):
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops import _dispatch
-    from paddle_tpu_torch.serving import ServingEngine
-
-    eng = ServingEngine(model, num_slots=8, max_length=4096,
-                        prefill_batch=4, paged=True, block_len=128,
-                        num_blocks=PAGED_POOL_BLOCKS, device="cuda")
+    kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS)
     prompts = paged_serving_prompts(model.config.vocab_size)
-    new_tokens = 32
-    ops.reset_launch_counts()
-    _dispatch.reset_kernel_paths()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
-    out = dict(eng.drain())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    paths = {f"{op}/{path}": n for (op, path), n in
-             _dispatch.kernel_paths.items()}
-    m = eng.metrics()
+    run = _serve_8b(torch, model, prompts, **kw)
+    twin = eager_twin(torch, model, prompts, run, "phase 4b", **kw)
+    m, launches, paths = run["metrics"], run["launches"], run["routes"]
     kv = m["kv_cache"]
-    ntok = sum(len(out[r]) for r in rids)
-    emit({"phase": "serving_paged", "requests": len(rids),
+    emit({"phase": "serving_paged", "requests": len(prompts),
           "prompt_lengths": [int(p.size) for p in prompts],
           "block_len": 128, "num_blocks": PAGED_POOL_BLOCKS,
-          "new_tokens": new_tokens, "tokens": ntok,
-          "wall_s": round(wall, 4), "tok_per_s": round(ntok / wall, 2),
-          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
-          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+          "new_tokens": 32, **serving_fields(run),
           "prefill_waves": m["prefill_waves"],
           "decode_ticks": m["decode_ticks"],
           "prefill_tokens_computed": m["prefill_tokens_computed"],
           "prefill_tokens_total": m["prefill_tokens_total"],
-          "kv_cache": kv, "launches": launches, "routes": paths})
-    vocab = model.config.vocab_size
-    for r in rids:
-        check(len(out[r]) == new_tokens,
-              f"request {r} returned {len(out[r])} tokens")
-        check(all(0 <= t < vocab for t in out[r]),
-              f"request {r} returned a token outside the vocabulary")
+          "kv_cache": kv, "launches": launches, "routes": paths,
+          "eager_twin": twin})
+    check_graph(run, "phase 4b")
+    check_twin(twin, "phase 4b")
     check(kv["prefix_hit_tokens"] > 0, "no prefix hit on the shared prompt")
     check(m["prefill_tokens_computed"] < m["prefill_tokens_total"],
           "the prefix cache saved no prefill token")
@@ -1627,13 +1658,16 @@ def phase_serving_paged(torch, model, kernels):
     check(not plain, f"plain routes taken on the card: {plain}")
     for name in ("decode_attention_paged", "flash_attention_fwd_paged"):
         kernels[name]["launches"] = launches[name]
-    return eng
+    return m
 
 
 def _serve_8b(torch, model, prompts, new_tokens=32, **kw):
-    """One 8B-width serving run with every launch and route counter reset
-    just before and read just after.  Returns (engine, outputs in submit
-    order, wall seconds, launches, routes)."""
+    """One 8B-width serving run: the engine is built (warm-up and graph
+    capture included, unless ``disable_graphs()`` is open), then every
+    launch and route counter is reset just before the requests are
+    submitted and read just after the drain.  Returns the run as a dict:
+    outputs in submit order, wall seconds, launches, routes, the engine's
+    metrics and whether it replayed a graph; the engine is freed."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops import _dispatch
     from paddle_tpu_torch.serving import ServingEngine
@@ -1648,16 +1682,61 @@ def _serve_8b(torch, model, prompts, new_tokens=32, **kw):
     out = dict(eng.drain())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    routes = {f"{op}/{path}": n for (op, path), n in
-              _dispatch.kernel_paths.items()}
+    run = {"outs": [out[r] for r in rids], "wall": wall,
+           "launches": ops.launch_counts(),
+           "routes": {f"{op}/{path}": n for (op, path), n in
+                      _dispatch.kernel_paths.items()},
+           "metrics": eng.metrics(), "graphed": eng.graphed,
+           "cache_bytes": eng.cache_hbm_bytes}
+    del eng
+    torch.cuda.empty_cache()
     vocab = model.config.vocab_size
-    outs = [out[r] for r in rids]
-    for r, o in zip(rids, outs):
+    for r, o in zip(rids, run["outs"]):
         check(len(o) == new_tokens, f"request {r} returned {len(o)} tokens")
         check(all(0 <= t < vocab for t in o),
               f"request {r} returned a token outside the vocabulary")
-    return eng, outs, wall, launches, routes
+    return run
+
+
+def serving_fields(run):
+    """The timing and graph fields of a serving run's JSON line."""
+    m = run["metrics"]
+    ntok = sum(len(o) for o in run["outs"])
+    return {"tokens": ntok, "wall_s": round(run["wall"], 4),
+            "tok_per_s": round(ntok / run["wall"], 2),
+            "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
+            "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+            "graphed": run["graphed"], "step_traces": m["step_traces"],
+            "graph_replays": m["graph_replays"]}
+
+
+def eager_twin(torch, model, prompts, run, what, **kw):
+    """The same engine on the same requests with its decode step run
+    eagerly (``disable_graphs()``, the port's ``jax.disable_jit()``).
+    Returns the twin's line: its timings, its graph fields, the token
+    comparison with the graphed ``run`` and whether its launch and route
+    counts equal the graphed run's (the replay accounting credits what
+    the eager ticks launch, no more and no less)."""
+    from paddle_tpu_torch.serving import disable_graphs
+
+    with disable_graphs():
+        twin = _serve_8b(torch, model, prompts, **kw)
+    check_graph(twin, f"{what} eager twin", graphed=False)
+    return {**serving_fields(twin),
+            **twin_comparison(run["outs"], twin["outs"]),
+            "launches_identical": twin["launches"] == run["launches"],
+            "routes_identical": twin["routes"] == run["routes"]}
+
+
+def check_twin(twin, what):
+    check(twin["tokens_identical"],
+          f"{what}: the graphed engine's tokens differ from its eager "
+          f"twin's: requests {twin['requests_differing']}, first "
+          f"[request, position, graphed, eager] "
+          f"{twin['first_difference']}")
+    check(twin["launches_identical"] and twin["routes_identical"],
+          f"{what}: the eager twin's launches or routes differ from the "
+          f"graphed engine's (replay accounting)")
 
 
 def _check_int8_launches(m, launches, routes, attention):
@@ -1692,11 +1771,10 @@ def phase_serving_int8(torch, qmodel, kernels, paged_metrics):
     kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS,
               kv_cache_dtype="int8", int8_weights=True)
     prompts = paged_serving_prompts(qmodel.config.vocab_size)
-    eng, outs, wall, launches, routes = _serve_8b(torch, qmodel, prompts,
-                                                  **kw)
-    m = eng.metrics()
+    run = _serve_8b(torch, qmodel, prompts, **kw)
+    twin = eager_twin(torch, qmodel, prompts, run, "phase 4c", **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
     kv = m["kv_cache"]
-    ntok = sum(len(o) for o in outs)
     hbm_q, hbm_full = qmodel.hbm_bytes()
     schedule = {"prefill_waves": m["prefill_waves"],
                 "decode_ticks": m["decode_ticks"],
@@ -1707,14 +1785,13 @@ def phase_serving_int8(torch, qmodel, kernels, paged_metrics):
     emit({"phase": "serving_int8", "requests": len(prompts),
           "block_len": 128, "num_blocks": PAGED_POOL_BLOCKS,
           "kv_cache_dtype": "int8", "int8_weights": True,
-          "new_tokens": 32, "tokens": ntok, "wall_s": round(wall, 4),
-          "tok_per_s": round(ntok / wall, 2),
-          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
-          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+          "new_tokens": 32, **serving_fields(run),
           "schedule": schedule, "kv_cache": kv,
-          "pool_bytes": eng.cache_hbm_bytes,
+          "pool_bytes": run["cache_bytes"],
           "model_hbm_bytes": hbm_q, "model_hbm_bytes_unquantized": hbm_full,
-          "launches": launches, "routes": routes})
+          "launches": launches, "routes": routes, "eager_twin": twin})
+    check_graph(run, "phase 4c")
+    check_twin(twin, "phase 4c")
     check(schedule == PAGED_SCHEDULE,
           f"phase 4c schedule {schedule} is not {PAGED_SCHEDULE}")
     check(all(schedule[k] == (paged_metrics["kv_cache"] if k in (
@@ -1729,26 +1806,23 @@ def phase_serving_int8(torch, qmodel, kernels, paged_metrics):
     for name in ("decode_attention_paged_int8",
                  "flash_attention_fwd_paged_int8", "int8_matmul"):
         kernels[name]["launches"] = launches[name]
-    del eng
 
 
 def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
     """Phase 4d: phase 4's engine and requests, int8 KV + int8 weights."""
+    kw = dict(kv_cache_dtype="int8", int8_weights=True)
     prompts = serving_prompts(qmodel.config.vocab_size)
-    eng, outs, wall, launches, routes = _serve_8b(
-        torch, qmodel, prompts, kv_cache_dtype="int8", int8_weights=True)
-    m = eng.metrics()
-    ntok = sum(len(o) for o in outs)
+    run = _serve_8b(torch, qmodel, prompts, **kw)
+    twin = eager_twin(torch, qmodel, prompts, run, "phase 4d", **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
     emit({"phase": "serving_int8_contiguous", "requests": len(prompts),
           "kv_cache_dtype": "int8", "int8_weights": True, "new_tokens": 32,
-          "tokens": ntok, "wall_s": round(wall, 4),
-          "tok_per_s": round(ntok / wall, 2),
-          "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
-          "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
-          "prefill_waves": m["prefill_waves"],
+          **serving_fields(run), "prefill_waves": m["prefill_waves"],
           "decode_ticks": m["decode_ticks"],
-          "cache_bytes": eng.cache_hbm_bytes, "launches": launches,
-          "routes": routes})
+          "cache_bytes": run["cache_bytes"], "launches": launches,
+          "routes": routes, "eager_twin": twin})
+    check_graph(run, "phase 4d")
+    check_twin(twin, "phase 4d")
     check((m["prefill_waves"], m["decode_ticks"])
           == (metrics4["prefill_waves"], metrics4["decode_ticks"]),
           "phase 4d schedule differs from phase 4's")
@@ -1757,7 +1831,6 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
                           "flash_attention_fwd": "wave"})
     kernels["decode_attention_int8"]["launches"] = \
         launches["decode_attention_int8"]
-    del eng
 
 
 def device_us(prof, n: int):
@@ -1891,9 +1964,9 @@ def contiguous_split_sweep(torch, gen):
 def phase_profile(torch, model, qmodel):
     """K1's and K1-int8's device time against the split length at two
     phase-2 rows, K1-paged's and K1-paged-int8's at three, then
-    torch.profiler over a few decode ticks of 8 busy slots."""
-    from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.serving import ServingEngine
+    torch.profiler over a few decode ticks of 8 busy slots of each serving
+    engine, graphed and then its eager twin."""
+    from paddle_tpu_torch.serving import ServingEngine, disable_graphs
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1903,7 +1976,8 @@ def phase_profile(torch, model, qmodel):
 
     # decode ticks of 8 busy slots: the contiguous engine on phase 4's
     # prompts, then phase 4d's int8 engine on them, then the paged engine
-    # on phase 4b's, then phase 4c's int8 engine on them
+    # on phase 4b's, then phase 4c's int8 engine on them; each window on
+    # the graphed engine and then on its eager twin (disable_graphs())
     paged_kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS)
     int8_kw = dict(kv_cache_dtype="int8", int8_weights=True)
     for phase, m, kw, prompts in (
@@ -1914,38 +1988,62 @@ def phase_profile(torch, model, qmodel):
              paged_serving_prompts(model.config.vocab_size)),
             ("profile_int8_paged", qmodel, dict(paged_kw, **int8_kw),
              paged_serving_prompts(model.config.vocab_size))):
-        eng = ServingEngine(m, num_slots=8, max_length=4096,
-                            prefill_batch=4, device="cuda", **kw)
-        for p in prompts[:8]:
-            eng.submit(p, max_new_tokens=16)
-        for _ in range(4):          # admission waves + warm decode ticks
+        for mode in ("graphed", "eager"):
+            with (disable_graphs() if mode == "eager"
+                  else contextlib.nullcontext()):
+                eng = ServingEngine(m, num_slots=8, max_length=4096,
+                                    prefill_batch=4, device="cuda", **kw)
+            emit(profile_window(torch, eng, prompts, phase, mode))
+            eng.drain()
+            del eng
+            torch.cuda.empty_cache()
+
+
+def profile_window(torch, eng, prompts, phase, mode):
+    """torch.profiler over 5 decode ticks of 8 busy slots of ``eng`` (after
+    its admission waves and warm ticks), with CUDA events around the same
+    ticks: wall and device time by kernel, busy share, the K1 family's
+    time.  Where the profiler saw no kernel in the window (a graph replay
+    it did not resolve), the kernel fields say "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=16)
+    for _ in range(4):              # admission waves + warm decode ticks
+        eng.step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(5):
             eng.step()
+        end.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(5):
-                eng.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = kernel_rows(prof)
-        total = sum(t for t, _, _ in rows)
-        host = sorted((ev.self_cpu_time_total, ev.key, ev.count)
-                      for ev in prof.key_averages()
-                      if ev.key and ev.key.startswith("aten::"))[::-1]
-        emit({"phase": phase, "ticks": 5, "active_slots": eng.num_active,
-              "wall_ms": round(wall_ms, 3),
-              "device_kernel_ms": round(total / 1e3, 3),
-              # the decode-attention kernels of the window (K1's family)
-              "decode_attention_ms": round(sum(
-                  t for t, k, _ in rows if "decode_" in k) / 1e3, 3),
-              "device_busy_share": round(total / 1e3 / wall_ms, 4),
-              "top": [{"kernel": k[:90], "ms": round(t / 1e3, 3),
-                       "calls": c} for t, k, c in rows[:15]],
-              "host_self_top": [{"op": k, "ms": round(t / 1e3, 3),
-                                 "calls": c} for t, k, c in host[:15]]})
-        eng.drain()
-        del eng
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof)
+    total = sum(t for t, _, _ in rows) / 1e3
+    host = sorted((ev.self_cpu_time_total, ev.key, ev.count)
+                  for ev in prof.key_averages()
+                  if ev.key and ev.key.startswith("aten::"))[::-1]
+    seen = bool(rows)
+    return {"phase": phase, "mode": mode, "graphed": eng.graphed,
+            "ticks": 5, "active_slots": eng.num_active,
+            "wall_ms": round(wall_ms, 3),
+            "events_ms": round(start.elapsed_time(end), 3),
+            "device_kernel_ms": round(total, 3) if seen else "not measured",
+            # the decode-attention kernels of the window (K1's family)
+            "decode_attention_ms": round(sum(
+                t for t, k, _ in rows if "decode_" in k) / 1e3, 3)
+            if seen else "not measured",
+            "device_busy_share": round(total / wall_ms, 4) if seen
+            else "not measured",
+            "top": [{"kernel": k[:90], "ms": round(t / 1e3, 3),
+                     "calls": c} for t, k, c in rows[:15]],
+            "host_self_top": [{"op": k, "ms": round(t / 1e3, 3),
+                               "calls": c} for t, k, c in host[:15]]}
 
 
 # -- phase 5 ------------------------------------------------------------------------
@@ -2253,18 +2351,10 @@ def main(argv=None) -> int:
     phase_card(torch, _build)
     kernels = phase_kernels(torch)
     model, qmodel = phase_model(torch)
-    eng = phase_serving(torch, model, kernels)
-    metrics4 = eng.metrics()
-    del eng
-    torch.cuda.empty_cache()
-    eng = phase_serving_paged(torch, model, kernels)
-    metrics4b = eng.metrics()
-    del eng
-    torch.cuda.empty_cache()
+    metrics4 = phase_serving(torch, model, kernels)
+    metrics4b = phase_serving_paged(torch, model, kernels)
     phase_serving_int8(torch, qmodel, kernels, metrics4b)
-    torch.cuda.empty_cache()
     phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4)
-    torch.cuda.empty_cache()
     if args.profile:
         phase_profile(torch, model, qmodel)
     del model, qmodel

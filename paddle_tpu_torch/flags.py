@@ -1,7 +1,7 @@
 """The flags this slice of the port reads (mirrors ``paddle_tpu/flags.py``).
 
-Only the serving defaults, the flash-decode chunk size and the train
-step's ``check_nan_inf`` are kept.  The
+Only the serving defaults, the flash-decode chunk size, the train step's
+``check_nan_inf`` and the build watchdog's action are kept.  The
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
@@ -38,6 +38,10 @@ _DEFAULTS: Dict[str, Any] = {
     # training (paddle_tpu/flags.py check_nan_inf): the train step raises
     # FloatingPointError when a gradient is not finite
     "check_nan_inf": False,
+    # what a tracked site does when it builds its step program past its
+    # budget (paddle_tpu/flags.py:315; observability/watchdog.py):
+    # "raise", "warn" or "off"
+    "retrace_watchdog": "warn",
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)

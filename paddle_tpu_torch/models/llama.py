@@ -462,7 +462,12 @@ class LlamaModel(nn.Module):
         paged pool of ``serving.kv_cache.init_paged_kv_cache`` with
         ``block_tables``); ``pos`` is the number of tokens already in the
         cache (int or per-row (B,) tensor).  Returns (hidden, cache), the
-        cache updated in place."""
+        cache updated in place.  With a per-row ``pos`` tensor the pass
+        reads nothing back to the host (no ``int(pos)``, no data-dependent
+        shape; the int8 writes at s = 1 skip ``_touched``), which is what
+        lets the serving engine capture its decode step in a CUDA graph
+        (``serving/step_graph.py``); an int ``pos`` takes the scalar
+        path."""
         x = embedding(self.embed_tokens, input_ids.long(),
                       self.config.torch_dtype)
         rope = (self.rope_cos, self.rope_sin)

@@ -1,5 +1,10 @@
 """Operators of the port (mirrors ``paddle_tpu/ops``)."""
 
+import collections
+import contextlib
+from typing import Dict, Tuple
+
+from . import _dispatch
 from .attention import (FlashAttention, cache_mask, cached_decode_attention,
                         cached_decode_attention_reference, flash_attention,
                         flash_attention_bwd_reference,
@@ -44,7 +49,51 @@ def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["FlashAttention", "KERNELS", "apply_rope", "build_rope_cache", "cache_mask",
+class ReplayCounts:
+    """The launches and routing decisions of one run of a captured region
+    (a CUDA graph), credited once per replay.
+
+    A wrapper counts ``.launches`` and :func:`_dispatch.count_kernel_path`
+    when Python calls it, so a capture counts launches that do not run
+    and a replay, which calls no wrapper, would count none.  Recording
+    around the capture (``with ReplayCounts.record() as rc:``) keeps what
+    the region counted in ``rc`` and takes it back out of the live
+    counters; ``rc.add(n)`` then credits ``n`` replays: ``.launches``
+    counts replays x launches per graph, as an eager run of the same calls
+    would."""
+
+    def __init__(self, launches: Dict[str, int],
+                 paths: Dict[Tuple[str, str], int]):
+        self.launches = launches
+        self.paths = paths
+
+    @classmethod
+    @contextlib.contextmanager
+    def record(cls):
+        before = launch_counts()
+        paths_before = collections.Counter(_dispatch.kernel_paths)
+        rc = cls({}, {})
+        try:
+            yield rc
+        finally:
+            for name, fn in KERNELS.items():
+                if fn.launches != before[name]:
+                    rc.launches[name] = fn.launches - before[name]
+                fn.launches = before[name]
+            rc.paths.update(collections.Counter(_dispatch.kernel_paths)
+                            - paths_before)
+            _dispatch.kernel_paths.clear()
+            _dispatch.kernel_paths.update(paths_before)
+
+    def add(self, n: int = 1) -> None:
+        for name, k in self.launches.items():
+            KERNELS[name].launches += n * k
+        for key, k in self.paths.items():
+            _dispatch.kernel_paths[key] += n * k
+
+
+__all__ = ["FlashAttention", "KERNELS", "ReplayCounts", "apply_rope",
+           "build_rope_cache", "cache_mask",
            "cached_decode_attention", "cached_decode_attention_reference",
            "decode_attention_cuda", "decode_attention_int8_cuda",
            "decode_attention_paged_cuda", "decode_attention_paged_int8_cuda",

@@ -62,10 +62,25 @@ folded as the Pallas body folds them: K's into the score
 (``q . k_int8 * scale * k_scale``), V's into the group's probabilities
 before they weight V (the same as scaling the P.V product).  Everything
 else — live-prefix walk, splits, merge — is the bf16 kernel's.
+
+Under CUDA-graph capture (the serving engine's decode step,
+``serving/step_graph.py``) everything the host computes for a launch is
+fixed at capture and replayed as it was: the split length
+(``FLAGS_decode_attention_block_kv``, read at capture: a later change of
+the flag does not reach a captured graph) and the split count (from the
+static ``L`` or ``max_blocks * block_len``; the decode tick passes no
+``live_len``), the grid, the scratch (allocated in the graph's own memory
+pool) and the merge counters (an engine-owned buffer, see
+:func:`private_counters`).  ``pos`` and the block table are read by the
+kernel from device memory, so a replay sees the values its caller copied
+into the static buffers.  The first launch of a build sets its shared
+memory attributes (``cudaFuncSetAttribute``), which the engine's warm-up
+does before the capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional
@@ -140,6 +155,29 @@ def _scratch(q: torch.Tensor, hkv: int, nsplit: int):
 # (device index, stream handle) -> int32 zeros: the counters of the Hopper
 # kernel's in-kernel merge
 _counters = {}
+
+
+@contextlib.contextmanager
+def private_counters(store: dict):
+    """Launches made while open take their merge counters from ``store``
+    (keyed as the process-wide ``_counters``) instead.  A CUDA graph bakes
+    in the raw pointer of every counter buffer it was captured with, and
+    ``_counter_buffer`` replaces a process-wide buffer (freeing the old
+    one) when a later launch needs more counters; so an engine that
+    captures its decode step owns its buffers: it warms the step up in
+    this context (the buffer is allocated then, outside the graph's
+    memory pool), captures in it (the captured launches find the same
+    buffer) and keeps ``store`` while the graph lives.  No launch outside
+    the context takes a buffer from ``store``, and its shapes never grow,
+    so the buffer is never reallocated.  Not thread-safe: the store is
+    process-wide while open."""
+    global _counters
+    prev = _counters
+    _counters = store
+    try:
+        yield store
+    finally:
+        _counters = prev
 
 
 def _counter_buffer(device: torch.device, stream: int,

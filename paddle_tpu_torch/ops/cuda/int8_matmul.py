@@ -25,6 +25,14 @@ CUDA-core kernel.  A prefill wave's row counts above 256 go to the
 dequantize-then-matmul composition by the shape rule of
 ``nn/quant.py::int8_matmul_path``.
 
+Under CUDA-graph capture (the serving engine's decode step) a launch
+replays as captured: the K split is fixed by shape (:func:`split_k`), the
+weight's map by its address, and x's map, encoded at each launch and
+passed by value as a ``__grid_constant__`` parameter, holds the address
+of x in the graph's memory pool, where every replay writes x again.  The
+kernel's shared-memory attribute (``cudaFuncSetAttribute``, set at every
+launch) is no stream operation and is allowed while capturing.
+
 :func:`int8_matmul_reference` is the plain version.
 """
 

@@ -14,6 +14,9 @@ keeps in VMEM.  Triton's block reduction moves the same bytes a
 hand-written CUDA reduction would.
 
 The backward stays the plain math (``ops/norms.py``), as in the reference.
+Triton compiles and loads the kernel at its first launch; the serving
+engine's warm-up makes that launch before it captures its decode step in
+a CUDA graph, whose replays then launch the loaded kernel.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
-"""Serving of the port (mirrors ``paddle_tpu/serving``).  The observability
-modules (metrics registry, tracing, request log, watchdog) wait for a later
-slice (ROADMAP A5b)."""
+"""Serving of the port (mirrors ``paddle_tpu/serving``).  The engine's
+decode step is built once (``step_graph.py``: one CUDA graph per engine on
+the card; ``disable_graphs()`` is the port's ``jax.disable_jit()``).  The
+metrics registry, tracing and request log wait for a later slice (ROADMAP
+A5b); the build watchdog is ``paddle_tpu_torch.observability``."""
 
 from .engine import Request, SamplingParams, ServingEngine
+from .step_graph import disable_graphs
 
-__all__ = ["Request", "SamplingParams", "ServingEngine"]
+__all__ = ["Request", "SamplingParams", "ServingEngine", "disable_graphs"]

@@ -23,19 +23,30 @@ projections on kernel K4.
 Any other configuration raises ``NotImplementedError`` naming its ROADMAP
 item.
 
-Where the reference jits a step program once and donates the cache, the
-port runs eagerly and writes the one cache tensor in place.  Prefill
-differs in one detail: the reference scatters whole fresh cache rows into
-the slots (dummy rows dropped); the port writes only the real rows' first
-``bucket`` positions.  A slot's stale tail past its prompt is never read:
-flash-decode (K1) walks only ``[0, pos + s)``, and each decode tick writes
-position ``pos`` before it attends over it.
+The decode tick is built once, as the reference jits its step once
+(``step_traces``, budget 1 under ``FLAGS_retrace_watchdog``): on the card a
+warm-up and one CUDA-graph capture at construction, while no slot holds a
+request, then one graph replay a tick (``serving/step_graph.py``; inside
+``disable_graphs()`` the same step runs eagerly, as on the CPU).  Where
+the reference donates the cache, the port writes the one cache tensor in
+place, so the graph's cache is the engine's own.  Sampling of rows with
+``temperature > 0`` stays outside the graph, on its logits, with the
+engine's ``torch.Generator``; the paged bookkeeping (block growth,
+copy-on-write, fresh int8 scales) runs eagerly before each replay.
+
+Prefill waves run eagerly, and differ from the reference in one detail:
+the reference scatters whole fresh cache rows into the slots (dummy rows
+dropped); the port writes only the real rows' first ``bucket`` positions.
+A slot's stale tail past its prompt is never read: flash-decode (K1)
+walks only ``[0, pos + s)``, and each decode tick writes position ``pos``
+before it attends over it.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import time
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
@@ -45,6 +56,7 @@ import torch
 from .. import default_device, flags
 from ..models.generation import init_kv_cache, sample_tokens
 from .kv_cache import BlockManager, init_paged_kv_cache
+from .step_graph import DecodeStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +120,10 @@ _UNSUPPORTED = {
     "host_blocks": ((None, 0), "A6.6 (preemption + host tier)"),
     "mesh": ((None,), "A9 (multi-GPU serving)"),
 }
+# engine instances label their build counters with their own id, so their
+# budgets are independent (the reference's ``_ENGINE_IDS``)
+_ENGINE_IDS = itertools.count()
+
 # the serving flags whose non-default values select those modes
 _FLAG_DEFAULTS = {
     "serving_chunked_prefill": (False, "A6.2"),
@@ -220,8 +236,6 @@ class ServingEngine:
                 self._cache = init_paged_kv_cache(self.config, nb, bl,
                                                   quantized=self.quantized,
                                                   device=self.device)
-            self._tables = np.zeros((self.num_slots, self.max_blocks),
-                                    np.int32)
         else:
             with torch.no_grad():
                 self._cache = init_kv_cache(self.config, self.num_slots,
@@ -231,10 +245,16 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
 
-        # host-side mirrors of the step inputs (uploaded per tick)
+        # the decode step, built once; the host mirrors of its inputs are
+        # views of its staging buffer (uploaded per tick)
         s = self.num_slots
-        self._tokens = np.zeros((s,), np.int32)
-        self._positions = np.zeros((s,), np.int32)
+        self._step = DecodeStep(self.model, self._cache, s,
+                                self.max_blocks if self.paged else None,
+                                self.device, next(_ENGINE_IDS))
+        self._tokens = self._step.tokens_host
+        self._positions = self._step.positions_host
+        if self.paged:
+            self._tables = self._step.tables_host
         self._active = np.zeros((s,), bool)
         self._temps = np.zeros((s,), np.float32)
         self._topk = np.zeros((s,), np.int32)
@@ -247,6 +267,7 @@ class ServingEngine:
         self._ticks = 0
         self._clock = time.perf_counter
         self._init_metrics()
+        self._step.build()
 
     # -- metrics -------------------------------------------------------------
 
@@ -278,12 +299,28 @@ class ServingEngine:
     def prefill_tokens_total(self) -> int:
         return self._n_prefill_total
 
+    @property
+    def step_traces(self) -> int:
+        """Builds of the decode step (the reference's jit traces of its
+        step; the continuous-batching contract is exactly 1): on the card
+        the warm-up and capture of its CUDA graph, on the CPU (or inside
+        ``disable_graphs()``) the build of the eager static-buffer
+        step."""
+        return self._step.traces
+
+    @property
+    def graphed(self) -> bool:
+        """True when each decode tick replays a CUDA graph."""
+        return self._step.graphed
+
     def metrics(self) -> Dict[str, object]:
         """The reference engine's key names for what this slice counts:
         latency percentiles (ms), occupancy, request/token/wave counters,
         plus ``ticks`` (scheduler ticks that dispatched work: waves and
-        decode steps) and ``decode_ticks``; the paged engine adds the
-        pool's accounting under ``kv_cache``."""
+        decode steps), ``decode_ticks``, ``step_traces`` and
+        ``graph_replays`` (decode ticks that replayed the step's CUDA
+        graph); the paged engine adds the pool's accounting under
+        ``kv_cache``."""
         out = {"ttft_ms": self._m_ttft.summary(),
                "tpot_ms": self._m_tpot.summary(),
                "queue_wait_ms": self._m_queue_wait.summary(),
@@ -296,6 +333,8 @@ class ServingEngine:
                "prefill_waves": self._n_waves,
                "ticks": self._ticks,
                "decode_ticks": self._n_decode_ticks,
+               "step_traces": self.step_traces,
+               "graph_replays": self._step.replays,
                "prefill_tokens_computed": self._n_prefill_computed,
                "prefill_tokens_total": self._n_prefill_total,
                "retired": dict(self._retired)}
@@ -408,14 +447,15 @@ class ServingEngine:
     # -- device work -------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor, temps: np.ndarray,
-                topk: np.ndarray, topp: np.ndarray) -> np.ndarray:
+                topk: np.ndarray, topp: np.ndarray,
+                greedy: Optional[torch.Tensor] = None) -> np.ndarray:
         """Next tokens for a batch of rows, fetched to the host (the
         tick's one synchronisation).  All-greedy batches take the argmax
-        alone — exactly what :func:`sample_tokens` returns for rows with
-        ``temperature <= 0`` — so the sampling pass runs only when some
-        row samples."""
+        alone (``greedy`` when the caller computed it) — exactly what
+        :func:`sample_tokens` returns for rows with ``temperature <= 0`` —
+        so the sampling pass runs only when some row samples."""
         if not (temps > 0).any():
-            nxt = logits.argmax(dim=-1)
+            nxt = logits.argmax(dim=-1) if greedy is None else greedy
         else:
             dev = logits.device
             nxt = sample_tokens(logits, torch.from_numpy(temps).to(dev),
@@ -428,22 +468,18 @@ class ServingEngine:
         """One decode step for ALL slots: row i holds its request at
         position ``positions[i]``; inactive rows decode the pad token at
         position 0 and their token is discarded (paged: their table row
-        is all null, so their write lands in the null block)."""
-        dev = self.device
-        tokens = torch.from_numpy(self._tokens).to(dev)
-        positions = torch.from_numpy(self._positions).to(dev)
-        tables = None
+        is all null, so their write lands in the null block).  The step
+        itself is the once-built :class:`DecodeStep` over the host
+        mirrors; the paged bookkeeping runs before it."""
         if self.paged:
             for i, slot in enumerate(self._slots):
                 if slot is not None:
                     # this tick writes K/V at positions[i]
                     self._grow_row_for_writes(i, int(self._positions[i]))
             self._flush_fresh_scales()
-            tables = torch.from_numpy(self._tables).to(dev)
-        logits, self._cache = self.model.decode_step(
-            tokens[:, None], self._cache, positions, block_tables=tables)
-        nxt = self._sample(logits[:, -1], self._temps, self._topk,
-                           self._topp)
+        logits, greedy = self._step.run()
+        nxt = self._sample(logits, self._temps, self._topk, self._topp,
+                           greedy)
         nxt[~self._active] = self.pad_token_id
         return nxt
 

@@ -1,8 +1,11 @@
 """Host-side helpers of ``chip_smoke.py`` (the port's check on the card),
-on the CPU: the ptxas-log guard against serialised ``wgmma`` and the
-visible-pair rule its contract rows hold the kernels to."""
+on the CPU: the ptxas-log guard against serialised ``wgmma``, the
+visible-pair rule its contract rows hold the kernels to, and the serving
+phases' checks of the once-built decode step (the graph contract and the
+eager twin's token comparison)."""
 
 import importlib.util
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -83,3 +86,44 @@ def test_visible_pairs_match_the_plain_rule(sq, skv, causal, cross):
     if dead.any():
         out[dead] = 1.0
         assert not chip_smoke.dead_rows_ok(torch, got, 2, out=out)
+
+
+@pytest.mark.parametrize("graphed,m,bad", [
+    (True, {"step_traces": 1, "graph_replays": 62, "decode_ticks": 62}, 0),
+    (False, {"step_traces": 1, "graph_replays": 0, "decode_ticks": 62}, 0),
+    (True, {"step_traces": 2, "graph_replays": 62, "decode_ticks": 62}, 1),
+    (True, {"step_traces": 1, "graph_replays": 0, "decode_ticks": 62}, 1),
+    (False, {"step_traces": 0, "graph_replays": 3, "decode_ticks": 62}, 2)])
+def test_graph_contract(graphed, m, bad):
+    """One build, and one replay a decode tick exactly when graphed."""
+    found = chip_smoke.graph_contract(m, graphed)
+    assert len(found) == bad
+    with pytest.raises(chip_smoke.CheckFailed) if bad else nullcontext():
+        chip_smoke.check_graph({"graphed": graphed, "metrics": m}, "x",
+                               graphed=graphed)
+    with pytest.raises(chip_smoke.CheckFailed):
+        chip_smoke.check_graph({"graphed": not graphed, "metrics": m}, "x",
+                               graphed=graphed)
+
+
+@pytest.mark.parametrize("eager,identical,differing,first", [
+    ([[1, 2, 3], [4, 5]], True, [], None),
+    ([[1, 2, 3], [4, 6]], False, [1], [1, 1, 5, 6]),
+    ([[1, 9, 3], [4, 6]], False, [0, 1], [0, 1, 2, 9]),
+    ([[1, 2], [4, 5]], False, [0], [0, 2, 3, None])])
+def test_twin_comparison(eager, identical, differing, first):
+    got = chip_smoke.twin_comparison([[1, 2, 3], [4, 5]], eager)
+    assert got == {"tokens_identical": identical,
+                   "requests_differing": differing,
+                   "first_difference": first}
+    twin = dict(got, launches_identical=True, routes_identical=True)
+    if identical:
+        chip_smoke.check_twin(twin, "x")
+    else:
+        with pytest.raises(chip_smoke.CheckFailed, match="eager"):
+            chip_smoke.check_twin(twin, "x")
+
+
+def test_twin_comparison_needs_every_request():
+    with pytest.raises(ValueError):
+        chip_smoke.twin_comparison([[1]], [[1], [2]])
