@@ -47,7 +47,13 @@ any failed check raises, so the script exits non-zero.  Phases:
                  Skv 1024, queries whose id matches no key) and packed at
                  S = 77 (ids at unaligned offsets), every row checking
                  the dead-row convention (out 0, lse -1e30, zero
-                 gradient) and K5 / K6 giving the same bits twice; each
+                 gradient) and K5 / K6 giving the same bits twice; then
+                 K2-paged and K2-paged-int8 over the contiguous cache's
+                 identity view (the chunked engine's 256-token chunk into
+                 one row of an 8-row, 4096-position cache at pos 0, 1024,
+                 3840; int8 with 128-token granules) and the crossover
+                 of K1 and that route at s = 4, 16, 64, 256 (``crossover``
+                 line, beside the port's ``CONTIGUOUS_Q_TILED_MIN``); each
                  also at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
@@ -72,9 +78,13 @@ any failed check raises, so the script exits non-zero.  Phases:
                  engine on the CPU and the contiguous engine on the card;
                  the tiny int8 engines (int8 KV and int8 weights,
                  contiguous and paged) must match themselves on the CPU;
+                 the tiny chunked engines (8-token chunks; contiguous and
+                 paged under both ``chunk_policy`` values, int8
+                 contiguous) must match themselves on the CPU;
                  every engine on the card must have built its decode
-                 step once (``step_traces`` 1) and replayed its graph
-                 once a decode tick (``graph_replays``);
+                 step once (``step_traces`` 1; chunked: its mixed step
+                 and its decode step once each) and replayed a graph
+                 once a tick (``graph_replays``);
   4. serving   — ``ServingEngine(num_slots=8, max_length=4096,
                  prefill_batch=4)`` on 12 requests of 5..1500 prompt
                  tokens, 32 new tokens each; every launch counter is reset
@@ -106,6 +116,20 @@ any failed check raises, so the script exits non-zero.  Phases:
   4d. serving_int8_contiguous — phase 4's engine and requests with the
                  same two options: K1-int8 32 a decode tick, K2 32 a wave
                  (the wave prefill attends its fresh K/V), K4 as in 4c;
+  4e-4g. chunked prefill (``chunked=True, prefill_chunk=256``), each with
+                 its eager twin: 4e ``serving_chunked`` (phase 4's
+                 requests, contiguous bf16), 4f ``serving_chunked_paged``
+                 (phase 4b's requests and pool, ``chunk_policy="decode"``,
+                 prefix hits required), 4g ``serving_chunked_int8``
+                 (phase 4's requests, int8 KV and weights).  Gates:
+                 ``step_traces`` 1 and the decode step built once, one
+                 graph replay a tick, tokens / launches / routes equal to
+                 the twin's, K2-paged(-int8) 32 launches a chunk (the
+                 contiguous chunk through the identity view), the decode
+                 kernel 32 a tick, no other attention kernel, no plain
+                 route (K4 as in 4c with int8 weights); reported: tok/s,
+                 TTFT, TPOT, ``mixed_step_ms`` and ``decode_step_ms``,
+                 and how many requests' tokens equal the wave phase's;
   5. training  — after the serving models are freed: Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -125,9 +149,10 @@ any failed check raises, so the script exits non-zero.  Phases:
 
 Then the ``{"kernels": [...]}`` line (launches of K1, K2, K3 from phase 4,
 of K1-paged and K2-paged from phase 4b, of K1-paged-int8, K2-paged-int8
-and K4 from phase 4c, of K1-int8 from phase 4d, of K5 and K6 from phase
-5; error and times from phase 2) and, last, ``{"ok": true, "device":
-{...}}``.
+and K4 from phase 4c, of K1-int8 from phase 4d, of K2-paged and
+K2-paged-int8 over the identity view from phases 4e and 4g, of K5 and K6
+from phase 5; error and times from phase 2) and, last, ``{"ok": true,
+"device": {...}}``.
 
 ``--profile`` adds the device time of K1, K1-int8, K1-paged and
 K1-paged-int8 by split length (K1 and K1-int8 at phase 2's main and
@@ -205,6 +230,17 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:299"},
+    # K2-paged(-int8) over the contiguous cache's identity view: the
+    # chunked engine's prompt chunk, the q-tiled contiguous mode of the
+    # reference's flash-decode kernel (:273-281, :303-311)
+    "flash_attention_fwd_paged/identity": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    "flash_attention_fwd_paged_int8/identity": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
 }
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -618,6 +654,7 @@ def phase_kernels(torch):
             agg.update(shape=shape, ms=ms, timed_by=timed_by,
                        plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        return row
 
     # ---- K1 flash-decode: the decode tick's shape (bf16, head_dim 128),
     # every row at the last position (every split live: the merge's
@@ -1187,6 +1224,9 @@ def phase_kernels(torch):
                bms, by, main, note=INT8_LIBRARY_NOTE, extra=extra)
         del sets, got, want
 
+    phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
+                        tols)
+
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
     # gate/up, 256 rows (the kernel's row limit), then the tiny model's
@@ -1266,6 +1306,166 @@ def phase_kernels(torch):
     emit({"phase": "kernels_summary",
           "kernels": [dict(name=n, **r) for n, r in results.items()]})
     return results
+
+
+def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
+                        tols):
+    """Phase 2's rows of the contiguous cache through its identity view
+    (``ops.attention.identity_view``, the chunked engine's prompt chunk):
+    K2-paged and K2-paged-int8 over an 8-row, 4096-position bf16 cache
+    (int8: 128-token scale granules), one 256-query chunk into row 5 at
+    pos 0, 1024 and 3840 (``cached_decode_attention(rows=)``, the
+    engine's call); then the crossover with K1 over every row of a batch
+    at the decode tick's depths, s = 4, 16, 64, 256, both kernels beside
+    each other (``crossover`` line): the port's
+    ``CONTIGUOUS_Q_TILED_MIN`` is read from it."""
+    from paddle_tpu_torch.ops import (cached_decode_attention,
+                                      decode_attention_cuda,
+                                      decode_attention_int8_cuda)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    from paddle_tpu_torch.ops.attention import CONTIGUOUS_Q_TILED_MIN
+    import torch.nn.functional as TF
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    nrow, L, hq, hkv, d, gr = 8, 4096, 32, 8, 128, 128
+    atol, rtol = tols(bf16)
+
+    def cache_sets(int8, n):
+        if int8:
+            return [(int8_payload(nrow, L, hkv, d),
+                     int8_payload(nrow, L, hkv, d),
+                     int8_scales(nrow, L // gr, hkv),
+                     int8_scales(nrow, L // gr, hkv)) for _ in range(n)]
+        return [(randn(nrow, L, hkv, d), randn(nrow, L, hkv, d))
+                for _ in range(n)]
+
+    def dense(c, r, n):
+        """Rows ``r`` of a cache set as bf16 (B, n, Hkv, D) K and V (int8:
+        dequantized), for the library call."""
+        if len(c) == 2:
+            return c[0][r, :n], c[1][r, :n]
+        out = []
+        for pay, sc in ((c[0], c[2]), (c[1], c[3])):
+            x = pay[r].float().reshape(len(r), L // gr, gr, hkv, d)
+            out.append((x * sc[r][:, :, None, :, None]).reshape(
+                len(r), L, hkv, d)[:, :n].to(bf16))
+        return out
+
+    def library(q, c, r, pos_list, s):
+        n = max(pos_list) + s
+        k, v = dense(c, r, n)
+        kj = torch.arange(n, device=dev)
+        qi = (torch.tensor(pos_list, device=dev)[:, None]
+              + torch.arange(s, device=dev)[None])
+        mask = (kj[None, None] <= qi[:, :, None])[:, None]
+        return lambda: TF.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    def traffic(int8, s, pos_list, b):
+        live = sum(min(L, p + s) for p in pos_list)
+        nbytes = 2 * b * s * hq * d * 2 + live * hkv * d * (1 if int8
+                                                            else 2) * 2
+        if int8:
+            nbytes += sum(-(-min(L, p + s) // gr) for p in pos_list) \
+                * hkv * 4 * 2
+        ops = sum(4 * d * hq * min(p + si + 1, L)
+                  for p in pos_list for si in range(s))
+        return bound(nbytes, ops, BF16_FLOPS)
+
+    for int8 in (False, True):
+        name = ("flash_attention_fwd_paged_int8" if int8
+                else "flash_attention_fwd_paged") + "/identity"
+        note = INT8_LIBRARY_NOTE if int8 else (
+            "F.scaled_dot_product_attention over the row's keys [0, pos + "
+            "s), copied out beforehand (not timed)")
+        s = 256
+        for p in (0, 1024, 3840):
+            sets = cache_sets(int8, copies((p + s) * hkv * d * 2 * 2))
+            q = randn(1, s, hq, d)
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+            rows = torch.tensor([5], dtype=torch.int32, device=dev)
+
+            def run(c):
+                kw = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+                return cached_decode_attention(q, c[0], c[1], pos,
+                                               rows=rows, **kw)
+            got = run(sets[0])
+            with reference_mode():
+                want = run(sets[0])
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            ok = within(got, want, atol, rtol) and bool(
+                torch.isfinite(got).all().item())
+            kfns = [lambda c=c: run(c) for c in sets]
+            with reference_mode():
+                plain_ms = time_ms(torch, kfns, budget_ms=100.0)
+            lib_ms = time_ms(torch, [library(q, c, [5], [p], s)
+                                     for c in sets[:2]])
+            bms, by = traffic(int8, s, [p], 1)
+            record(name,
+                   f"identity view: cache B={nrow} L={L} Hq={hq} Hkv={hkv} "
+                   f"D={d} block_len={gr if int8 else 64}, row 5, s={s} "
+                   f"pos={p}" + (f" int8 K/V granule {gr}, bfloat16 q"
+                                 if int8 else " bfloat16"),
+                   err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms,
+                   lib_ms, bms, by, p == 1024, note=note)
+            del sets, got, want
+
+    # the crossover: K1 (8-row tiles, each re-reading its row's live
+    # prefix) against K2-paged over the identity view, one batch
+    pos_list = [0, 3000, 17, 1000, 2047, 3000, 511, 128]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    rows = torch.arange(nrow, dtype=torch.int32, device=dev)
+    cross = []
+    for int8 in (False, True):
+        k1 = decode_attention_int8_cuda if int8 else decode_attention_cuda
+        sets = cache_sets(int8, copies(sum(pos_list) * hkv * d * 2 * 2))
+        for s in (4, 16, 64, 256):
+            q = randn(nrow, s, hq, d)
+
+            def kw(c):
+                return dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+            got1 = k1(q, sets[0][0], sets[0][1], pos=pos, **kw(sets[0]))
+            got2 = cached_decode_attention(q, sets[0][0], sets[0][1], pos,
+                                           rows=rows, **kw(sets[0]))
+            with reference_mode():
+                want = cached_decode_attention(q, sets[0][0], sets[0][1],
+                                               pos, **kw(sets[0]))
+            torch.cuda.synchronize()
+            bms, by = traffic(int8, s, pos_list, nrow)
+            lib = [library(q, c, list(range(nrow)), pos_list, s)
+                   for c in sets[:2]]
+            lib_ms = time_ms(torch, lib)
+            with reference_mode():
+                plain_ms = time_ms(torch, [
+                    lambda c=c: cached_decode_attention(q, c[0], c[1], pos,
+                                                        **kw(c))
+                    for c in sets[:2]], budget_ms=100.0)
+            shape = (f"B={nrow} s={s} L={L} Hq={hq} Hkv={hkv} D={d} "
+                     f"pos={pos_list}" + (f" int8 K/V granule {gr}"
+                                          if int8 else " bfloat16"))
+            row = {"s": s, "int8": int8}
+            for kname, got, fns in (
+                    ("decode_attention" + ("_int8" if int8 else ""), got1,
+                     [lambda c=c: k1(q, c[0], c[1], pos=pos, **kw(c))
+                      for c in sets]),
+                    (("flash_attention_fwd_paged_int8" if int8 else
+                      "flash_attention_fwd_paged") + "/identity", got2,
+                     [lambda c=c: cached_decode_attention(
+                         q, c[0], c[1], pos, rows=rows, **kw(c))
+                      for c in sets])):
+                row[kname.split("/")[0]] = record(
+                    kname, "crossover: " + shape, max_err(got, want),
+                    f"atol {atol} + rtol {rtol}",
+                    within(got, want, atol, rtol), fns, plain_ms, lib_ms,
+                    bms, by, False)["kernel_ms"]
+            cross.append(row)
+            del q, got1, got2, want
+        del sets
+    emit({"phase": "crossover", "threshold": CONTIGUOUS_Q_TILED_MIN,
+          "rows": cross})
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -1506,23 +1706,58 @@ def phase_model(torch):
               f"tiny f32 int8 {layout} engine differs card vs cpu: "
               f"{i_card} vs {i_cpu}")
         check_graphed(i_eng, f"tiny f32 int8 {layout} engine")
+
+    # the tiny chunked engines (8-token chunks: most prompts span several,
+    # and a later one streams in while others decode), contiguous and
+    # paged under both policies, and int8 contiguous (the int8 identity
+    # view): card vs CPU, both graphs built once and replayed every tick
+    for layout, reqs, kw, m in (
+            ("contiguous", prompts, {}, tiny_card),
+            ("paged", paged_prompts, paged_kw, tiny_card),
+            ("int8 contiguous", prompts, int8_kw, q_card)):
+        for policy in ("prefill", "decode"):
+            ckw = dict(kw, chunked=True, prefill_chunk=8,
+                       chunk_policy=policy)
+            c_card, c_eng = serve(m, "cuda", reqs, **ckw)
+            c_cpu, _ = serve(q_cpu if m is q_card else tiny_cpu, "cpu",
+                             reqs, **ckw)
+            cm = c_eng.metrics()
+            emit({"phase": "model_tiny_f32_chunked", "layout": layout,
+                  "chunk_policy": policy, "requests": len(reqs),
+                  "prefill_chunks": cm["chunked"]["prefill_chunks"],
+                  "mixed_ticks": cm["mixed_ticks"],
+                  "decode_ticks": cm["decode_ticks"],
+                  "identical_card_vs_cpu": c_card == c_cpu,
+                  **graph_fields(c_eng)})
+            check(c_card == c_cpu,
+                  f"tiny f32 chunked {layout} engine ({policy}) differs card "
+                  f"vs cpu: {c_card} vs {c_cpu}")
+            check_graphed(c_eng, f"tiny f32 chunked {layout} engine "
+                          f"({policy})")
+            check(cm["mixed_ticks"] > 0 and cm["prefill_waves"] == 0,
+                  f"tiny chunked {layout} engine ran no mixed tick")
     return model, qmodel
 
 
 # -- the once-built decode step ----------------------------------------------------
 
 def graph_contract(m, graphed: bool):
-    """What an engine's ``metrics()`` break of the decode step's contract:
-    one build (``step_traces`` 1, the reference's retrace budget) and one
-    graph replay a decode tick for a graphed engine, none for an eager
-    one.  Returns the failures as text, [] when the contract holds."""
+    """What an engine's ``metrics()`` break of the steps' contract: one
+    build (``step_traces`` 1, the reference's retrace budget; the chunked
+    engine's decode step too) and one graph replay a decode tick (and a
+    mixed tick, chunked) for a graphed engine, none for an eager one.
+    Returns the failures as text, [] when the contract holds."""
     bad = []
     if m["step_traces"] != 1:
         bad.append(f"step_traces {m['step_traces']} (want 1)")
-    want = m["decode_ticks"] if graphed else 0
+    if m.get("decode_step_traces", 1) != 1:
+        bad.append(f"decode_step_traces {m['decode_step_traces']} "
+                   f"(want 1)")
+    ticks = m["decode_ticks"] + m.get("mixed_ticks", 0)
+    want = ticks if graphed else 0
     if m["graph_replays"] != want:
         bad.append(f"graph_replays {m['graph_replays']} for "
-                   f"{m['decode_ticks']} decode ticks (want {want})")
+                   f"{ticks} ticks (want {want})")
     return bad
 
 
@@ -1597,7 +1832,7 @@ def phase_serving(torch, model, kernels):
           f"{m['decode_ticks']} decode ticks")
     plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
     check(not plain, f"plain routes taken on the card: {plain}")
-    return m
+    return run
 
 
 def paged_serving_prompts(vocab: int):
@@ -1658,7 +1893,7 @@ def phase_serving_paged(torch, model, kernels):
     check(not plain, f"plain routes taken on the card: {plain}")
     for name in ("decode_attention_paged", "flash_attention_fwd_paged"):
         kernels[name]["launches"] = launches[name]
-    return m
+    return run
 
 
 def _serve_8b(torch, model, prompts, new_tokens=32, **kw):
@@ -1702,12 +1937,19 @@ def serving_fields(run):
     """The timing and graph fields of a serving run's JSON line."""
     m = run["metrics"]
     ntok = sum(len(o) for o in run["outs"])
-    return {"tokens": ntok, "wall_s": round(run["wall"], 4),
-            "tok_per_s": round(ntok / run["wall"], 2),
-            "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
-            "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
-            "graphed": run["graphed"], "step_traces": m["step_traces"],
-            "graph_replays": m["graph_replays"]}
+    out = {"tokens": ntok, "wall_s": round(run["wall"], 4),
+           "tok_per_s": round(ntok / run["wall"], 2),
+           "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
+           "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+           "graphed": run["graphed"], "step_traces": m["step_traces"],
+           "graph_replays": m["graph_replays"]}
+    if "mixed_ticks" in m:
+        out.update(mixed_step_ms=m["mixed_step_ms"],
+                   mixed_ticks=m["mixed_ticks"],
+                   decode_ticks=m["decode_ticks"],
+                   decode_step_traces=m["decode_step_traces"],
+                   chunked=m["chunked"])
+    return out
 
 
 def eager_twin(torch, model, prompts, run, what, **kw):
@@ -1831,6 +2073,87 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
                           "flash_attention_fwd": "wave"})
     kernels["decode_attention_int8"]["launches"] = \
         launches["decode_attention_int8"]
+    return run
+
+
+# the chunked phases: (phase, engine options, attention kernels and the
+# ticks each runs on: "tick" every tick's decode rows, "mixed" every chunk)
+CHUNKED_PHASES = (
+    ("4e", "serving_chunked", dict(chunk_policy="prefill"),
+     {"decode_attention": "tick", "flash_attention_fwd_paged": "mixed"}),
+    ("4f", "serving_chunked_paged",
+     dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS,
+          chunk_policy="decode"),
+     {"decode_attention_paged": "tick", "flash_attention_fwd_paged":
+      "mixed"}),
+    ("4g", "serving_chunked_int8",
+     dict(kv_cache_dtype="int8", int8_weights=True, chunk_policy="prefill"),
+     {"decode_attention_int8": "tick",
+      "flash_attention_fwd_paged_int8": "mixed"}))
+ATTENTION_KERNELS = ("decode_attention", "flash_attention_fwd",
+                     "decode_attention_paged", "flash_attention_fwd_paged",
+                     "decode_attention_int8", "decode_attention_paged_int8",
+                     "flash_attention_fwd_paged_int8")
+
+
+def phase_serving_chunked(torch, model, kernels, phase, label, kw,
+                          attention, prompts, wave_outs):
+    """Phases 4e-4g: chunked prefill at the 8B width (``prefill_chunk``
+    256), graphed, then its eager twin.  Gates: tokens, launches and
+    routes equal to the twin's; ``step_traces`` 1 and the decode step
+    built once; one replay a tick; each attention kernel of ``attention``
+    32 times a tick (``tick``: every tick's decode rows) or a chunk
+    (``mixed``), every other attention kernel never (no wave prefill, no
+    K2); K4 at least 7 x 32 + 1 a step pass with int8 weights; no plain
+    route.  Reports the share of requests whose tokens equal the wave
+    phase's (``wave_outs``): chunking changes bf16 sum order, so that is
+    not gated."""
+    kw = dict(kw, chunked=True, prefill_chunk=256)
+    run = _serve_8b(torch, model, prompts, **kw)
+    twin = eager_twin(torch, model, prompts, run, f"phase {phase}", **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    same = sum(a == b for a, b in zip(run["outs"], wave_outs))
+    line = {"phase": label, "requests": len(prompts),
+            "prompt_lengths": [int(p.size) for p in prompts],
+            "new_tokens": 32, **kw, **serving_fields(run),
+            "ticks": m["ticks"], "launches": launches, "routes": routes,
+            "same_tokens_as_wave_phase": f"{same}/{len(prompts)}",
+            "eager_twin": twin}
+    if "kv_cache" in m:
+        line["kv_cache"] = m["kv_cache"]
+    emit(line)
+    what = f"phase {phase}"
+    check_graph(run, what)
+    check_twin(twin, what)
+    check(m["prefill_waves"] == 0 and m["mixed_ticks"] > 0,
+          f"{what}: prefill waves {m['prefill_waves']}, mixed ticks "
+          f"{m['mixed_ticks']}")
+    per = {"tick": m["ticks"], "mixed": m["mixed_ticks"]}
+    for name, unit in attention.items():
+        check(launches[name] == LAYERS_8B * per[unit],
+              f"{what}: {name} launched {launches[name]} times for "
+              f"{per[unit]} {unit} ticks")
+    others = [n for n in ATTENTION_KERNELS
+              if n not in attention and launches[n]]
+    check(not others, f"{what}: attention kernels off this path ran: "
+          f"{others}")
+    check(launches["rms_norm"] > 0, f"{what}: RMSNorm kernel not launched")
+    if kw.get("int8_weights"):
+        passes = m["ticks"] + m["mixed_ticks"]
+        check(launches["int8_matmul"] >= K4_PER_TICK * passes,
+              f"{what}: K4 launched {launches['int8_matmul']} times for "
+              f"{passes} model passes")
+    if kw.get("paged"):
+        check(m["kv_cache"]["prefix_hit_tokens"] > 0,
+              f"{what}: no prefix hit on the shared prompt")
+        check(m["kv_cache"]["blocks_in_use"] == 0,
+              f"{what}: blocks still in use after the drain")
+    plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
+    check(not plain, f"{what}: plain routes taken on the card: {plain}")
+    if not kw.get("paged"):
+        name = [n for n, u in attention.items() if u == "mixed"][0]
+        kernels[name + "/identity"]["launches"] = launches[name]
+    return run
 
 
 def device_us(prof, n: int):
@@ -1976,8 +2299,10 @@ def phase_profile(torch, model, qmodel):
 
     # decode ticks of 8 busy slots: the contiguous engine on phase 4's
     # prompts, then phase 4d's int8 engine on them, then the paged engine
-    # on phase 4b's, then phase 4c's int8 engine on them; each window on
-    # the graphed engine and then on its eager twin (disable_graphs())
+    # on phase 4b's, then phase 4c's int8 engine on them, then phase 4e's
+    # chunked engine (its ticks carry chunks while prompts stream in);
+    # each window on the graphed engine and then on its eager twin
+    # (disable_graphs())
     paged_kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS)
     int8_kw = dict(kv_cache_dtype="int8", int8_weights=True)
     for phase, m, kw, prompts in (
@@ -1987,7 +2312,10 @@ def phase_profile(torch, model, qmodel):
             ("profile_paged", model, paged_kw,
              paged_serving_prompts(model.config.vocab_size)),
             ("profile_int8_paged", qmodel, dict(paged_kw, **int8_kw),
-             paged_serving_prompts(model.config.vocab_size))):
+             paged_serving_prompts(model.config.vocab_size)),
+            ("profile_chunked", model, dict(chunked=True,
+                                            prefill_chunk=256),
+             serving_prompts(model.config.vocab_size))):
         for mode in ("graphed", "eager"):
             with (disable_graphs() if mode == "eager"
                   else contextlib.nullcontext()):
@@ -2011,6 +2339,7 @@ def profile_window(torch, eng, prompts, phase, mode):
         eng.submit(p, max_new_tokens=16)
     for _ in range(4):              # admission waves + warm decode ticks
         eng.step()
+    mixed = eng.metrics().get("mixed_ticks", 0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2031,6 +2360,7 @@ def profile_window(torch, eng, prompts, phase, mode):
     seen = bool(rows)
     return {"phase": phase, "mode": mode, "graphed": eng.graphed,
             "ticks": 5, "active_slots": eng.num_active,
+            "mixed_ticks": eng.metrics().get("mixed_ticks", 0) - mixed,
             "wall_ms": round(wall_ms, 3),
             "events_ms": round(start.elapsed_time(end), 3),
             "device_kernel_ms": round(total, 3) if seen else "not measured",
@@ -2351,10 +2681,18 @@ def main(argv=None) -> int:
     phase_card(torch, _build)
     kernels = phase_kernels(torch)
     model, qmodel = phase_model(torch)
-    metrics4 = phase_serving(torch, model, kernels)
-    metrics4b = phase_serving_paged(torch, model, kernels)
-    phase_serving_int8(torch, qmodel, kernels, metrics4b)
-    phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4)
+    run4 = phase_serving(torch, model, kernels)
+    run4b = phase_serving_paged(torch, model, kernels)
+    phase_serving_int8(torch, qmodel, kernels, run4b["metrics"])
+    run4d = phase_serving_int8_contiguous(torch, qmodel, kernels,
+                                          run4["metrics"])
+    vocab = model.config.vocab_size
+    for (phase, label, kw, attention), m, prompts, wave in zip(
+            CHUNKED_PHASES, (model, model, qmodel),
+            (serving_prompts(vocab), paged_serving_prompts(vocab),
+             serving_prompts(vocab)), (run4, run4b, run4d)):
+        phase_serving_chunked(torch, m, kernels, phase, label, kw,
+                              attention, prompts, wave["outs"])
     if args.profile:
         phase_profile(torch, model, qmodel)
     del model, qmodel

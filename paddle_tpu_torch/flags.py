@@ -33,7 +33,15 @@ _DEFAULTS: Dict[str, Any] = {
     "serving_prefix_cache": True,
     "serving_kv_cache_dtype": "bf16",
     "serving_int8_weights": False,
+    # chunked prefill (paddle_tpu/flags.py:187-204): serving_chunked_prefill
+    # selects the chunked engine; serving_prefill_chunk is the prompt
+    # tokens a mixed step carries (num_slots decode tokens plus one chunk
+    # of at most this many: static, part of the step's shape);
+    # serving_chunk_policy "prefill" runs a pending chunk every tick,
+    # "decode" only on alternate ticks while any slot decodes
     "serving_chunked_prefill": False,
+    "serving_prefill_chunk": 256,
+    "serving_chunk_policy": "prefill",
     "serving_spec_decode": False,
     # training (paddle_tpu/flags.py check_nan_inf): the train step raises
     # FloatingPointError when a gradient is not finite

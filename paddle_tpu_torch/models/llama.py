@@ -142,7 +142,7 @@ _INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
 
 def _quantized_write(kvb: torch.Tensor, scb: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, unit: torch.Tensor, cell: torch.Tensor,
-                     reps) -> None:
+                     reps, drop=None) -> None:
     """The shared body of the two int8 writes, in place, for K and V of
     one layer at once.  ``kvb``: (2U, span, Hkv, D) int8 units (blocks or
     row granules), K's U then V's; ``scb``: (2U, Hkv) float32 scales, in
@@ -150,7 +150,21 @@ def _quantized_write(kvb: torch.Tensor, scb: torch.Tensor, k: torch.Tensor,
     ``cell``: (B, s) each token's K unit and offset in it (its V unit is
     ``unit + U``); ``reps``: (B, n) token indices covering every unit the
     tokens touch (:func:`_touched`, None for s = 1).  K's and V's units
-    are disjoint, so one pass over both is two passes' result."""
+    are disjoint, so one pass over both is two passes' result.
+
+    ``drop`` (bool (B, s), None = none): tokens whose write is dropped
+    leave every scale and payload byte as it was.  A dropped token must
+    carry a ``(unit, cell)`` that no kept token of the call writes (the
+    caller's choice); it needs no scale, so a unit only dropped tokens
+    touch keeps its scale and its payload (ratio 1), and it writes back
+    at its cell what phase 1 left there.
+
+    The payload ratio is ``old / new`` where the scale grew and 1 where
+    it did not: equal to the reference's ``old / new`` (0 for a zero
+    ``new``) except for a unit whose scale stays 0, whose payload bytes
+    the reference clears and this write keeps — invisible, as a zero
+    scale dequantizes any payload to 0, and the unit's first nonzero
+    scale clears them (ratio 0)."""
     u = scb.shape[0] // 2
     hkv = k.shape[2]
     xf = torch.cat([k, v]).float()                          # (2B, s, Hkv, D)
@@ -160,6 +174,9 @@ def _quantized_write(kvb: torch.Tensor, scb: torch.Tensor, k: torch.Tensor,
     # absmax / 127 as the reference's compiled write computes it: XLA turns
     # the division by a constant into a product by its float32 reciprocal
     needed = xf.abs().amax(dim=-1) * _INV_127               # (2B, s, Hkv)
+    if drop is not None:
+        drop = torch.cat([drop, drop])
+        needed = needed.masked_fill(drop[..., None], 0.0)
     old = scb[blk]                                          # (2B, n, Hkv)
     # phase 1: scatter-max the needed scales (order-independent under
     # duplicate units), then re-express each touched unit's payload under
@@ -168,14 +185,17 @@ def _quantized_write(kvb: torch.Tensor, scb: torch.Tensor, k: torch.Tensor,
     scb.scatter_reduce_(0, unit.reshape(-1, 1).expand(-1, hkv),
                         needed.reshape(-1, hkv), "amax")
     new = scb[blk]
-    ratio = torch.where(new > 0, old / new, 0.0)
+    ratio = torch.where(new > old, old / new, 1.0)
     pay = kvb[blk].float() * ratio[:, :, None, :, None]
     kvb[blk] = torch.round(pay).clamp_(-127, 127).to(torch.int8)
     # phase 2: each token under its unit's final scale (a guard divisor of
     # 1 where that is 0), at its own cell
     tsc = scb[unit]
     tok = torch.round(xf / torch.where(tsc > 0, tsc, 1.0)[..., None])
-    kvb[unit, cell] = tok.clamp_(-127, 127).to(torch.int8)
+    tok = tok.clamp_(-127, 127).to(torch.int8)
+    if drop is not None:
+        tok = torch.where(drop[..., None, None], kvb[unit, cell], tok)
+    kvb[unit, cell] = tok
 
 
 def quantized_paged_write(kv: torch.Tensor, sc: torch.Tensor, idx: int,
@@ -205,6 +225,32 @@ def quantized_paged_write(kv: torch.Tensor, sc: torch.Tensor, idx: int,
                      _touched(off[:, 0], k.shape[1], bl))
 
 
+@dataclasses.dataclass
+class _RowWrites:
+    """Where a per-row write into the contiguous cache goes, computed once
+    a model pass (every layer writes the same cells): ``rows`` (B,) the
+    cache row of each batch row; ``pos`` (B, s) the write positions, with
+    every position at or past the row length dropped, as the reference's
+    scatters drop them — the chunked engine's idle rows at ``max_length``
+    and a chunk's pad tail past it; ``drop`` (B, s) which.  A dropped
+    token is steered to position 0 of its own row, which no kept token of
+    the call writes: a row that drops a token starts at
+    ``pos > L - s > 0`` (callers keep s <= L)."""
+
+    rows: torch.Tensor
+    pos: torch.Tensor
+    drop: torch.Tensor
+
+    @classmethod
+    def make(cls, position_ids: torch.Tensor, L: int, rows=None):
+        b, s = position_ids.shape
+        dev = position_ids.device
+        drop = position_ids >= L
+        return cls(torch.arange(b, device=dev) if rows is None
+                   else rows.to(dev).long(),
+                   position_ids.long().masked_fill(drop, 0), drop)
+
+
 def quantized_contiguous_write(kv: torch.Tensor, sc: torch.Tensor,
                                idx: int, k: torch.Tensor, v: torch.Tensor,
                                position_ids: torch.Tensor) -> None:
@@ -212,17 +258,48 @@ def quantized_contiguous_write(kv: torch.Tensor, sc: torch.Tensor,
     (the reference's ``_quantized_contiguous_write``, :161): the scale
     granule (``max_len // n_gran`` positions of one row) plays the block's
     role.  ``kv``: (L, 2, B, max_len, Hkv, D) int8; ``sc``: (L, 2, B,
-    n_gran, Hkv) float32; ``position_ids``: (B, s) or (1, s), every
-    position below ``max_len``."""
-    b, L = kv.shape[2], kv.shape[3]
+    n_gran, Hkv) float32; ``position_ids``: (B, s) or (1, s).
+    Positions at or past ``max_len`` are dropped (:class:`_RowWrites`):
+    every scale and payload byte they would touch stays as it was, as in
+    the reference."""
+    b, s = k.shape[:2]
+    _quantized_rows_write(kv, sc, idx, k, v, _RowWrites.make(
+        position_ids.expand(b, s), kv.shape[3]))
+
+
+def _quantized_rows_write(kv, sc, idx: int, k, v, w: _RowWrites) -> None:
+    nrow, L = kv.shape[2], kv.shape[3]
     n_gran = sc.shape[3]
     gr = L // n_gran
-    s = k.shape[1]
-    pos = position_ids.long().expand(b, s)
-    unit = torch.arange(b, device=k.device)[:, None] * n_gran + pos // gr
-    _quantized_write(kv[idx].view(2 * b * n_gran, gr, *kv.shape[4:]),
-                     sc[idx].view(2 * b * n_gran, sc.shape[4]), k, v, unit,
-                     pos % gr, _touched(pos[:, 0] % gr, s, gr))
+    unit = w.rows[:, None] * n_gran + w.pos // gr
+    _quantized_write(kv[idx].view(2 * nrow * n_gran, gr, *kv.shape[4:]),
+                     sc[idx].view(2 * nrow * n_gran, sc.shape[4]), k, v,
+                     unit, w.pos % gr, _touched(w.pos[:, 0] % gr,
+                                                k.shape[1], gr), w.drop)
+
+
+def _contiguous_write(cache: torch.Tensor, idx: int, k: torch.Tensor,
+                      v: torch.Tensor, w: _RowWrites) -> None:
+    """Per-row K/V write into the model-dtype contiguous cache (L, 2, B,
+    max_len, Hkv, D), in place (:class:`_RowWrites`).  A dropped token
+    writes back the value its row already holds at position 0, so one
+    index write serves every row, kept or not, with no read back to the
+    host."""
+    layer = cache[idx]                                   # (2, B, L, Hkv, D)
+    new = torch.stack([k, v]).to(cache.dtype)             # (2, b, s, Hkv, D)
+    held = layer[:, w.rows, 0]                            # (2, b, Hkv, D)
+    layer[:, w.rows[:, None], w.pos] = torch.where(
+        w.drop[None, :, :, None, None], held[:, :, None], new)
+
+
+def _row_writes(pos: torch.Tensor, rows, s: int, L: int) -> _RowWrites:
+    """The :class:`_RowWrites` of a per-row pass of ``s`` tokens a row at
+    positions ``pos`` (B,) into rows of ``L`` positions."""
+    if s > L:
+        raise ValueError(f"a per-row write of {s} tokens exceeds the "
+                         f"cache's {L} positions")
+    steps = torch.arange(s, device=pos.device)
+    return _RowWrites.make(pos.long()[:, None] + steps[None, :], L, rows)
 
 
 class LlamaAttention(nn.Module):
@@ -258,7 +335,7 @@ class LlamaAttention(nn.Module):
         return linear(out.reshape(b, s, -1), self.o_proj)
 
     def decode(self, x, rope_cache, pos, cache, idx: int,
-               block_tables=None):
+               block_tables=None, rows=None, writes=None):
         """Incremental decode against the STACKED cache
         (L, 2, B, max_len, Hkv, D): write this chunk's K/V IN PLACE at
         ``(idx, ., ., pos)`` — where the reference donates the cache to
@@ -275,7 +352,21 @@ class LlamaAttention(nn.Module):
 
         ``pos`` is an int for the whole batch or an int (B,) tensor of
         per-row positions (the serving engine's slot batch: row i writes
-        at ``pos[i]..pos[i]+s-1`` and attends ``[0, pos[i] + s)``).
+        at ``pos[i]..pos[i]+s-1`` and attends ``[0, pos[i] + s)``).  As in
+        the reference, writes at or past ``max_len`` are dropped and
+        leave the cache as it was (the chunked engine's idle rows sit at
+        ``max_len``; a prompt chunk's pad tail may pass it); their RoPE
+        ids are clamped to the table.  Through :meth:`LlamaModel.decode`
+        a row at or past ``max_len`` attends from position 0 (its output
+        is discarded; the reference reads its whole row).
+
+        ``rows`` (int (B,) tensor, contiguous only): batch row i is cache
+        row ``rows[i]`` — the chunked engine's prompt chunk, one row of
+        ``prefill_chunk`` tokens streaming into its slot (the reference
+        slices that row out).  Its attention runs on K2-paged over the
+        cache's identity view (``ops.attention.identity_view``).
+        ``writes``: the pass's per-row write cells (:class:`_RowWrites`,
+        computed once by :meth:`LlamaModel.decode`; None computes them).
 
         ``block_tables`` (int (B, max_blocks)) switches to the PAGED
         cache (``serving/kv_cache.py``): ``cache`` is the pooled
@@ -296,36 +387,40 @@ class LlamaAttention(nn.Module):
                                       block_tables)
         b, s, _ = x.shape
         per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+        if rows is not None and not per_row:
+            raise ValueError("rows takes per-row positions (a (B,) pos)")
         steps = torch.arange(s, device=x.device)
         if per_row:
             position_ids = pos.long()[:, None] + steps[None, :]   # (B, s)
         else:
             position_ids = (int(pos) + steps)[None, :]              # (1, s)
-        q, k, v = self._qkv(x, rope_cache, position_ids)
+        rope_ids = position_ids.clamp_max(rope_cache[0].shape[0] - 1)
+        q, k, v = self._qkv(x, rope_cache, rope_ids)
         prefill = not per_row and int(pos) == 0 and s > 1
-        if isinstance(cache, dict):
-            kv, sc = cache["kv"], cache["scale"]
-            quantized_contiguous_write(kv, sc, idx, k, v, position_ids)
-            if prefill:
-                out = flash_attention(q, k, v, causal=True)
+        quantized = isinstance(cache, dict)
+        kvc = cache["kv"] if quantized else cache
+        if per_row and writes is None:
+            writes = _row_writes(pos, rows, s, kvc.shape[3])
+        if quantized:
+            sc = cache["scale"]
+            if per_row:
+                _quantized_rows_write(kvc, sc, idx, k, v, writes)
             else:
-                out = cached_decode_attention(
-                    q, kv[idx, 0], kv[idx, 1], pos, k_scale=sc[idx, 0],
-                    v_scale=sc[idx, 1])
-            return linear(out.reshape(b, s, -1), self.o_proj), cache
-        if per_row:
-            rows = torch.arange(b, device=x.device)[:, None]
-            cache[idx, 0, rows, position_ids] = k.to(cache.dtype)
-            cache[idx, 1, rows, position_ids] = v.to(cache.dtype)
+                quantized_contiguous_write(kvc, sc, idx, k, v, position_ids)
+            scales = dict(k_scale=sc[idx, 0], v_scale=sc[idx, 1])
+        elif per_row:
+            _contiguous_write(cache, idx, k, v, writes)
+            scales = {}
         else:
             p = int(pos)
             cache[idx, 0, :, p:p + s] = k.to(cache.dtype)
             cache[idx, 1, :, p:p + s] = v.to(cache.dtype)
+            scales = {}
         if prefill:
             out = flash_attention(q, k, v, causal=True)
         else:
-            out = cached_decode_attention(q, cache[idx, 0], cache[idx, 1],
-                                          pos)
+            out = cached_decode_attention(q, kvc[idx, 0], kvc[idx, 1], pos,
+                                          rows=rows, **scales)
         return linear(out.reshape(b, s, -1), self.o_proj), cache
 
     def _decode_paged(self, x, rope_cache, pos, cache, idx, block_tables):
@@ -412,9 +507,10 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
     def decode(self, x, rope_cache, pos, cache, idx: int,
-               block_tables=None):
+               block_tables=None, rows=None, writes=None):
         a, cache = self.self_attn.decode(self.input_layernorm(x), rope_cache,
-                                         pos, cache, idx, block_tables)
+                                         pos, cache, idx, block_tables, rows,
+                                         writes)
         x = x + a
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, cache
@@ -456,12 +552,14 @@ class LlamaModel(nn.Module):
                 x = block(x, rope, position_ids, segment_ids)
         return self.norm(x)
 
-    def decode(self, input_ids, cache, pos, block_tables=None):
+    def decode(self, input_ids, cache, pos, block_tables=None, rows=None):
         """Cache-carrying decode pass over the stacked cache of
         :func:`paddle_tpu_torch.models.generation.init_kv_cache` (or the
         paged pool of ``serving.kv_cache.init_paged_kv_cache`` with
         ``block_tables``); ``pos`` is the number of tokens already in the
-        cache (int or per-row (B,) tensor).  Returns (hidden, cache), the
+        cache (int or per-row (B,) tensor); ``rows`` (contiguous) names
+        the cache row of each batch row (:meth:`LlamaAttention.decode`).
+        Returns (hidden, cache), the
         cache updated in place.  With a per-row ``pos`` tensor the pass
         reads nothing back to the host (no ``int(pos)``, no data-dependent
         shape; the int8 writes at s = 1 skip ``_touched``), which is what
@@ -471,8 +569,23 @@ class LlamaModel(nn.Module):
         x = embedding(self.embed_tokens, input_ids.long(),
                       self.config.torch_dtype)
         rope = (self.rope_cos, self.rope_sin)
+        writes = None
+        if block_tables is None and (rows is not None or (
+                isinstance(pos, torch.Tensor) and pos.dim() == 1)):
+            # every layer writes the same cells: find them once
+            if not isinstance(pos, torch.Tensor) or pos.dim() != 1:
+                pos = torch.full((x.shape[0],), int(pos), dtype=torch.int32,
+                                 device=x.device)
+            L = (cache["kv"] if isinstance(cache, dict) else cache).shape[3]
+            pos = pos.to(x.device)
+            writes = _row_writes(pos, rows, x.shape[1], L)
+            # a row at or past L writes nothing and its output is discarded
+            # (the chunked engine's idle rows): it attends from position 0,
+            # so the decode kernel does not walk its whole row
+            pos = pos.masked_fill(pos >= L, 0)
         for i, block in enumerate(self.layers):
-            x, cache = block.decode(x, rope, pos, cache, i, block_tables)
+            x, cache = block.decode(x, rope, pos, cache, i, block_tables,
+                                    rows, writes)
         return self.norm(x), cache
 
 
@@ -574,14 +687,15 @@ class LlamaForCausalLM(nn.Module):
         return causal_lm_loss(
             self.forward(input_ids, position_ids, segment_ids), labels)
 
-    def decode_step(self, input_ids, cache, pos, block_tables=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def decode_step(self, input_ids, cache, pos, block_tables=None,
+                    rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, cache): one cache-carrying decode step — prefill when
         ``input_ids`` is the whole prompt at ``pos=0``, incremental when it
         is the last token.  The cache is updated in place and returned.
-        ``block_tables`` (int (B, max_blocks)) selects the paged pool."""
+        ``block_tables`` (int (B, max_blocks)) selects the paged pool;
+        ``rows`` addresses contiguous cache rows (:meth:`LlamaModel.decode`)."""
         hidden, cache = self.model.decode(input_ids, cache, pos,
-                                          block_tables)
+                                          block_tables, rows)
         return self.logits(hidden), cache
 
 

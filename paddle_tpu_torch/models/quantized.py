@@ -93,9 +93,11 @@ class QuantizedForDecode(nn.Module):
                 fp[k] = v
         return {"fp": fp, "qw": qw, "qs": qs}
 
-    def decode_step(self, input_ids, cache, pos, block_tables=None):
+    def decode_step(self, input_ids, cache, pos, block_tables=None,
+                    rows=None):
         return self.unwrapped.decode_step(input_ids, cache, pos,
-                                          block_tables=block_tables)
+                                          block_tables=block_tables,
+                                          rows=rows)
 
     def logits(self, hidden):
         return self.unwrapped.logits(hidden)

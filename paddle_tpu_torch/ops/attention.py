@@ -17,7 +17,12 @@ fewer KV heads than query heads.  Two entries:
     K2's paged build for a suffix prefill at s > 1,
     ``ops/cuda/flash_attention.py``); an int8 cache with its float32
     scales (``k_scale`` / ``v_scale``) goes to the int8 builds of the same
-    three kernels.
+    three kernels.  A contiguous window of ``CONTIGUOUS_Q_TILED_MIN`` or
+    more queries, and a chunk addressed by cache row (``rows``: the
+    chunked engine's prompt chunk), run the paged builds over the
+    contiguous cache viewed as a pool under its identity table
+    (:func:`identity_view`), the reference's "paged under the identity
+    table" (``paddle_tpu/ops/pallas/decode_attention.py:303-311``).
 
 Routing follows ``ops/_dispatch.py``: a CUDA tensor goes to the kernel,
 which launches or raises; a CPU tensor goes to the plain version.  Features
@@ -284,6 +289,52 @@ def _is_per_row(pos) -> bool:
     return isinstance(pos, torch.Tensor) and pos.dim() == 1
 
 
+# Contiguous windows of at least this many queries run K2-paged (the
+# q-tiled flash kernel) over the identity view instead of K1, whose 8-row
+# tiles each re-read the live prefix: on an H100 at the Llama-3-8B widths,
+# 8 rows at the decode tick's depths, K1 is the faster at s = 4 and K2 at
+# s = 16, 64 and 256 (the ``crossover`` line of chip_smoke.py phase 2,
+# PERF.md).  Shorter windows (the spec-verify window, s = k + 1) stay on
+# K1.
+CONTIGUOUS_Q_TILED_MIN = 16
+# the identity view's block length for a model-dtype cache: K2-paged's
+# bfloat16 build loads 64-key boxes, each inside one block
+IDENTITY_BLOCK = 64
+
+
+def _identity_block(L: int, k_scale=None) -> int:
+    if k_scale is not None:
+        return L // k_scale.shape[1]
+    return IDENTITY_BLOCK if L % IDENTITY_BLOCK == 0 else L
+
+
+def identity_view(k_cache, v_cache, k_scale=None, v_scale=None):
+    """The contiguous cache (B, L, Hkv, D) as a pool (B * L / bl, bl, Hkv,
+    D) — a free reshape — with the block length ``bl``; row b's block j is
+    pool block ``b * L / bl + j``.  A model-dtype cache takes
+    ``IDENTITY_BLOCK`` (or L when it does not divide L); an int8 cache
+    takes its scale granule ``L // n_gran``, so its (B, n_gran, Hkv)
+    scales are the pool's (B * n_gran, Hkv) block scales unchanged (the
+    unit layout of ``models/llama.py::quantized_contiguous_write``).
+    Returns (k_pool, v_pool, k_scale, v_scale, bl); the scales stay None
+    for a model-dtype cache."""
+    b, L, hkv, d = k_cache.shape
+    bl = _identity_block(L, k_scale)
+    if k_scale is not None:
+        k_scale = k_scale.reshape(-1, k_scale.shape[2])
+        v_scale = v_scale.reshape(-1, v_scale.shape[2])
+    return (k_cache.view(b * L // bl, bl, hkv, d),
+            v_cache.view(b * L // bl, bl, hkv, d), k_scale, v_scale, bl)
+
+
+def identity_tables(rows: torch.Tensor, L: int, bl: int) -> torch.Tensor:
+    """(n, L / bl) int32 identity tables of the cache rows ``rows`` (n,):
+    row r's block j is ``rows[r] * L / bl + j``."""
+    nblk = L // bl
+    j = torch.arange(nblk, device=rows.device, dtype=torch.int32)
+    return rows.to(torch.int32)[:, None] * nblk + j[None, :]
+
+
 def cached_decode_attention_reference(q, k_cache, v_cache, pos,
                                       scale: Optional[float] = None,
                                       live_len: Optional[int] = None,
@@ -371,22 +422,29 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
 def cached_decode_attention(q, k_cache, v_cache, pos,
                             scale: Optional[float] = None,
                             extra_mask=None, live_len: Optional[int] = None,
-                            block_tables=None, k_scale=None, v_scale=None):
+                            block_tables=None, k_scale=None, v_scale=None,
+                            rows=None):
     """Incremental decode attention over a pre-allocated cache — the
     serving hot path.  Shapes and masking as in
     :func:`cached_decode_attention_reference`.
 
+    ``rows`` (contiguous only): an int (n,) tensor, query row r reading
+    cache row ``rows[r]`` (q has n rows, the cache any number) — the
+    chunked engine's prompt chunk, which streams into one slot's row
+    (the reference slices that row out, ``_slot_row``).
+
     CUDA tensors go to a kernel, CPU tensors to the plain version:
 
       * contiguous cache: kernel K1, which walks only each row's live
-        prefix ``[0, pos_b + s)``;
+        prefix ``[0, pos_b + s)``; at ``s >= CONTIGUOUS_Q_TILED_MIN``, or
+        with ``rows``, the paged builds below over the cache's
+        :func:`identity_view` (K2-paged at s > 1, K1-paged at s = 1);
       * paged pool (``block_tables``): K1's paged build at ``s == 1``
         (every decode tick), K2's paged build at ``s > 1`` (a suffix
         prefill: causal at per-row offset ``pos_b``);
       * an int8 cache (``k_scale`` / ``v_scale``, shapes as in the plain
         version): the int8 builds of the same kernels — K1-int8
-        (contiguous, any s), K1-paged-int8 (s = 1), K2-paged-int8
-        (s > 1).
+        (contiguous), K1-paged-int8 (s = 1), K2-paged-int8 (s > 1).
 
     ``extra_mask`` (the reference's XLA-only option, B1 follow-up)
     raises."""
@@ -397,7 +455,20 @@ def cached_decode_attention(q, k_cache, v_cache, pos,
         raise NotImplementedError(
             "cached_decode_attention: extra_mask is not ported (ROADMAP "
             "B1, follow-up of the contiguous slice)")
+    if rows is not None and block_tables is not None:
+        raise ValueError("rows addresses a contiguous cache; a paged pool "
+                         "is addressed by its block_tables")
     sfx = "_int8" if int8 else ""
+    if block_tables is None and (rows is not None or (
+            q.shape[1] >= CONTIGUOUS_Q_TILED_MIN and _dispatch.use_kernel(q)
+            and _identity_block(k_cache.shape[1], k_scale)
+            % IDENTITY_BLOCK == 0)):
+        L = k_cache.shape[1]
+        k_cache, v_cache, k_scale, v_scale, bl = identity_view(
+            k_cache, v_cache, k_scale, v_scale)
+        if rows is None:
+            rows = torch.arange(q.shape[0], device=q.device)
+        block_tables = identity_tables(rows.to(q.device), L, bl)
     scales = dict(k_scale=k_scale, v_scale=v_scale) if int8 else {}
     if block_tables is not None:
         op = ("decode_attention_paged" if q.shape[1] == 1

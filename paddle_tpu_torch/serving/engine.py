@@ -4,8 +4,8 @@
 ``submit()`` enqueues, ``step()`` runs one scheduler tick (admit queued
 requests in batched prefill waves, then ONE decode step over every slot,
 then retire), ``drain()`` runs ticks until every request is done.  Two
-cache layouts are served, with wave prefill, no speculation, greedy
-unless a request asks to sample:
+cache layouts are served, with wave or chunked prefill, no speculation,
+greedy unless a request asks to sample:
 
   * contiguous (the default): one ``max_length`` cache row per slot;
   * paged (``paged=True`` or ``FLAGS_serving_paged_kv``): a pool of
@@ -19,6 +19,25 @@ Each in the model dtype or, with ``kv_cache_dtype="int8"``
 int8 kernels.  ``int8_weights=True`` (``FLAGS_serving_int8_weights``)
 serves the model's ``quantize_for_decode`` wrapper: int8 weights, decode
 projections on kernel K4.
+
+**Chunked prefill** (``chunked=True`` or
+``FLAGS_serving_chunked_prefill``; the reference's token-budget scheduler,
+``paddle_tpu/serving/engine.py:70-96``): admission turns the FIFO head
+into a cursor (:class:`_Prefill`) instead of a prefill wave, and each tick
+runs the decode rows plus at most one ``prefill_chunk``-token slice of
+that prompt (``FLAGS_serving_prefill_chunk``), so a long prompt costs the
+decoding requests a bounded bump a tick instead of a whole-prompt stall.
+``chunk_policy`` (``FLAGS_serving_chunk_policy``): ``"prefill"`` runs a
+pending chunk every tick, ``"decode"`` only on alternate ticks while any
+slot decodes.  Paged admission adopts the cached prefix (the cursor
+starts past it), grows the chain per chunk and registers a full prompt
+block in the prefix trie only after the chunk that writes it is
+dispatched.  A contiguous int8 row taken by a new prompt has its granule
+scales zeroed first.  The engine has no prefill program: every prompt
+token goes through the mixed step (``step_graph.MixedStep``, built once),
+and ticks that carry no chunk replay the decode step.  In the contiguous
+chunked engine every row that is not decoding (idle, or being filled by
+chunks) sits at position ``max_length``, whose writes the model drops.
 
 Any other configuration raises ``NotImplementedError`` naming its ROADMAP
 item.
@@ -56,7 +75,7 @@ import torch
 from .. import default_device, flags
 from ..models.generation import init_kv_cache, sample_tokens
 from .kv_cache import BlockManager, init_paged_kv_cache
-from .step_graph import DecodeStep
+from .step_graph import DecodeStep, MixedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +106,16 @@ class _Slot:
     t_first: float = 0.0               # perf_counter at first token (TPOT)
 
 
+@dataclasses.dataclass
+class _Prefill:
+    """A partially-prefilled request (chunked mode): admitted to a slot,
+    its prompt streaming into the cache one chunk per mixed step."""
+
+    req: Request
+    slot: int
+    cursor: int                        # prompt tokens already in the cache
+
+
 class _Hist:
     """A latency series: observations kept, percentiles exact."""
 
@@ -109,9 +138,6 @@ class _Hist:
 # constructor arguments of the reference engine that the port does not
 # take yet: name -> (values that mean the default, ROADMAP item)
 _UNSUPPORTED = {
-    "chunked": ((None, False), "A6.2 (chunked prefill)"),
-    "prefill_chunk": ((None,), "A6.2 (chunked prefill)"),
-    "chunk_policy": ((None, "prefill"), "A6.2 (chunked prefill)"),
     "spec_decode": ((None, False), "A6.3 (speculative decode)"),
     "spec_k": ((None,), "A6.3 (speculative decode)"),
     "drafter": ((None,), "A6.3 (speculative decode)"),
@@ -126,7 +152,6 @@ _ENGINE_IDS = itertools.count()
 
 # the serving flags whose non-default values select those modes
 _FLAG_DEFAULTS = {
-    "serving_chunked_prefill": (False, "A6.2"),
     "serving_spec_decode": (False, "A6.3"),
 }
 
@@ -144,6 +169,12 @@ class ServingEngine:
     (``FLAGS_kv_cache_num_blocks``, 0 = ``num_slots * max_blocks + 1``),
     ``prefix_cache`` (``FLAGS_serving_prefix_cache``).
 
+    ``chunked`` (default ``FLAGS_serving_chunked_prefill``) selects
+    chunked prefill: ``prefill_chunk`` prompt tokens a mixed step
+    (``FLAGS_serving_prefill_chunk``), ``chunk_policy`` ``"prefill"`` or
+    ``"decode"`` (``FLAGS_serving_chunk_policy``); see the module
+    docstring.
+
     ``kv_cache_dtype`` (default ``FLAGS_serving_kv_cache_dtype``):
     ``"bf16"`` keeps the cache in the model dtype, ``"int8"`` quantizes it
     (either layout); ``"mixed"`` is ROADMAP A6.4b.  ``int8_weights``
@@ -159,7 +190,10 @@ class ServingEngine:
                  num_blocks: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  kv_cache_dtype: Optional[str] = None,
-                 int8_weights: Optional[bool] = None, device=None,
+                 int8_weights: Optional[bool] = None,
+                 chunked: Optional[bool] = None,
+                 prefill_chunk: Optional[int] = None,
+                 chunk_policy: Optional[str] = None, device=None,
                  **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
@@ -183,6 +217,19 @@ class ServingEngine:
             raise ValueError(f"kv_cache_dtype must be bf16|int8|mixed, got "
                              f"{self.kv_dtype!r}")
         self.quantized = self.kv_dtype == "int8"
+        self.chunked = bool(flags.flag("serving_chunked_prefill")
+                            if chunked is None else chunked)
+        self.prefill_chunk = int(prefill_chunk
+                                 or flags.flag("serving_prefill_chunk"))
+        self._chunk_policy = str(chunk_policy
+                                 or flags.flag("serving_chunk_policy"))
+        if self._chunk_policy not in ("prefill", "decode"):
+            raise ValueError(
+                f"chunk_policy must be 'prefill' or 'decode', got "
+                f"{self._chunk_policy!r}")
+        if self.chunked and self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
         self.int8_weights = bool(flags.flag("serving_int8_weights")
                                  if int8_weights is None else int8_weights)
         if self.int8_weights and not hasattr(model, "unwrapped"):
@@ -245,22 +292,43 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
 
-        # the decode step, built once; the host mirrors of its inputs are
-        # views of its staging buffer (uploaded per tick)
+        # the steps, built once; the host mirrors of their inputs are
+        # views of their staging buffers (uploaded per tick).  The
+        # chunked engine's mixed step is its serving.step site; its
+        # decode step (chunk-free ticks) is labelled graph="decode"
         s = self.num_slots
-        self._step = DecodeStep(self.model, self._cache, s,
-                                self.max_blocks if self.paged else None,
-                                self.device, next(_ENGINE_IDS))
+        eid = next(_ENGINE_IDS)
+        mb = self.max_blocks if self.paged else None
+        self._step = DecodeStep(self.model, self._cache, s, mb, self.device,
+                                eid, graph="decode" if self.chunked else None)
         self._tokens = self._step.tokens_host
         self._positions = self._step.positions_host
         if self.paged:
             self._tables = self._step.tables_host
+        # the position of a row that is not decoding: the contiguous
+        # chunked engine drops its writes there (a chunk may be filling
+        # the row); elsewhere position 0 (paged: of the null block)
+        self._idle_pos = (self.max_length if self.chunked and not self.paged
+                          else 0)
+        self._positions[:] = self._idle_pos
+        self._mixed: Optional[MixedStep] = None
+        if self.chunked:
+            # a chunk never holds more than max_length tokens (a prompt is
+            # shorter), so the buffer is capped there
+            self._mixed = MixedStep(self._step,
+                                    min(self.prefill_chunk, self.max_length),
+                                    mb, eid)
+            # the build's dummy chunk: every write drops (contiguous:
+            # at max_length; paged: the all-null table row)
+            self._mixed.pos_host[0] = self._idle_pos
+            self._mixed.len_host[0] = 1
         self._active = np.zeros((s,), bool)
         self._temps = np.zeros((s,), np.float32)
         self._topk = np.zeros((s,), np.int32)
         self._topp = np.ones((s,), np.float32)
 
         self._slots: List[Optional[_Slot]] = [None] * s
+        self._cursor: Optional[_Prefill] = None   # chunked-mode cursor
         self._queue: Deque[Request] = collections.deque()
         self._results: Dict[int, List[int]] = {}
         self._next_rid = 0
@@ -268,6 +336,8 @@ class ServingEngine:
         self._clock = time.perf_counter
         self._init_metrics()
         self._step.build()
+        if self._mixed is not None:
+            self._mixed.build()
 
     # -- metrics -------------------------------------------------------------
 
@@ -276,6 +346,8 @@ class ServingEngine:
         self._m_ttft = _Hist()
         self._m_tpot = _Hist()
         self._m_step_ms = _Hist()
+        self._m_mixed_ms = _Hist()
+        self._m_chunk_queue = _Hist()
         self._m_prefill_ms = _Hist()
         self._m_dequant_err = _Hist()
         self._n_submitted = 0
@@ -283,6 +355,9 @@ class ServingEngine:
         self._n_tokens = 0
         self._n_waves = 0
         self._n_decode_ticks = 0
+        self._n_mixed_ticks = 0
+        self._n_chunks = 0
+        self._n_chunk_tokens = 0
         self._n_prefill_computed = 0
         self._n_prefill_total = 0
         self._n_blocked = 0
@@ -301,26 +376,49 @@ class ServingEngine:
 
     @property
     def step_traces(self) -> int:
-        """Builds of the decode step (the reference's jit traces of its
-        step; the continuous-batching contract is exactly 1): on the card
-        the warm-up and capture of its CUDA graph, on the CPU (or inside
-        ``disable_graphs()``) the build of the eager static-buffer
-        step."""
+        """Builds of the ``serving.step`` site — the decode step, or the
+        chunked engine's mixed step (the reference's jit traces of its
+        one step program; the continuous-batching contract is exactly 1):
+        on the card the warm-up and capture of its CUDA graph, on the CPU
+        (or inside ``disable_graphs()``) the build of the eager
+        static-buffer step."""
+        return (self._mixed or self._step).traces
+
+    @property
+    def decode_step_traces(self) -> int:
+        """Builds of the decode step (in the chunked engine its own
+        labelled site, beside :attr:`step_traces`)."""
         return self._step.traces
 
     @property
     def graphed(self) -> bool:
-        """True when each decode tick replays a CUDA graph."""
-        return self._step.graphed
+        """True when each tick replays a CUDA graph."""
+        return self._step.graphed and (self._mixed is None
+                                       or self._mixed.graphed)
+
+    @property
+    def pending_chunks(self) -> int:
+        """Prompt chunks still to ingest (chunked mode): the active
+        prompt's remainder plus every queued prompt's worth."""
+        ch = self.prefill_chunk
+        n = 0
+        if self._cursor is not None:
+            n += -(-(self._cursor.req.prompt.size
+                     - self._cursor.cursor) // ch)
+        for req in self._queue:
+            n += -(-req.prompt.size // ch)
+        return n
 
     def metrics(self) -> Dict[str, object]:
         """The reference engine's key names for what this slice counts:
         latency percentiles (ms), occupancy, request/token/wave counters,
-        plus ``ticks`` (scheduler ticks that dispatched work: waves and
-        decode steps), ``decode_ticks``, ``step_traces`` and
-        ``graph_replays`` (decode ticks that replayed the step's CUDA
-        graph); the paged engine adds the pool's accounting under
-        ``kv_cache``."""
+        plus ``ticks`` (scheduler ticks that dispatched work: waves, decode
+        and mixed steps), ``decode_ticks`` (ticks that ran the decode step
+        alone), ``step_traces`` and ``graph_replays`` (ticks that replayed
+        a CUDA graph); the paged engine adds the pool's accounting under
+        ``kv_cache``, the chunked engine ``mixed_ticks`` (ticks that
+        carried a chunk), ``mixed_step_ms``, ``decode_step_traces`` and
+        the reference's ``chunked`` block."""
         out = {"ttft_ms": self._m_ttft.summary(),
                "tpot_ms": self._m_tpot.summary(),
                "queue_wait_ms": self._m_queue_wait.summary(),
@@ -334,12 +432,23 @@ class ServingEngine:
                "ticks": self._ticks,
                "decode_ticks": self._n_decode_ticks,
                "step_traces": self.step_traces,
-               "graph_replays": self._step.replays,
+               "graph_replays": self._step.replays + (
+                   self._mixed.replays if self._mixed else 0),
                "prefill_tokens_computed": self._n_prefill_computed,
                "prefill_tokens_total": self._n_prefill_total,
                "retired": dict(self._retired)}
         if self._m_dequant_err.values:
             out["kv_dequant_error"] = self._m_dequant_err.summary()
+        if self.chunked:
+            out["mixed_ticks"] = self._n_mixed_ticks
+            out["mixed_step_ms"] = self._m_mixed_ms.summary()
+            out["decode_step_traces"] = self.decode_step_traces
+            out["chunked"] = {
+                "prefill_chunk": self.prefill_chunk,
+                "chunk_policy": self._chunk_policy,
+                "prefill_chunks": self._n_chunks,
+                "prefill_chunk_tokens": self._n_chunk_tokens,
+                "chunk_queue_depth": self._m_chunk_queue.summary()}
         if self.paged:
             st = self.kv.stats
             total = self._n_prefill_total
@@ -402,17 +511,21 @@ class ServingEngine:
         (batched prefill waves), then ONE decode step over the slot batch.
         Returns the request ids finished this tick.  Idle ticks return at
         once."""
-        if not self._queue and not self._active.any():
+        if (not self._queue and not self._active.any()
+                and self._cursor is None):
             self._occupancy = 0.0
             return []
         with torch.no_grad():
+            if self.chunked:
+                return self._step_inner_chunked()
             return self._step_inner()
 
     def drain(self) -> List[Tuple[int, List[int]]]:
         """Run ticks until every submitted request completes; returns
         ``[(request_id, generated_tokens)]`` in arrival order (outputs end
         at EOS inclusive)."""
-        while self._queue or any(s is not None for s in self._slots):
+        while (self._queue or self._cursor is not None
+               or any(s is not None for s in self._slots)):
             self.step()
         return [(rid, list(toks))
                 for rid, toks in sorted(self._results.items())]
@@ -446,14 +559,14 @@ class ServingEngine:
 
     # -- device work -------------------------------------------------------------
 
-    def _sample(self, logits: torch.Tensor, temps: np.ndarray,
-                topk: np.ndarray, topp: np.ndarray,
-                greedy: Optional[torch.Tensor] = None) -> np.ndarray:
-        """Next tokens for a batch of rows, fetched to the host (the
-        tick's one synchronisation).  All-greedy batches take the argmax
-        alone (``greedy`` when the caller computed it) — exactly what
-        :func:`sample_tokens` returns for rows with ``temperature <= 0`` —
-        so the sampling pass runs only when some row samples."""
+    def _pick(self, logits: torch.Tensor, temps: np.ndarray,
+              topk: np.ndarray, topp: np.ndarray,
+              greedy: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Next tokens for a batch of rows, int32 on the device.
+        All-greedy batches take the argmax alone (``greedy`` when the
+        caller computed it) — exactly what :func:`sample_tokens` returns
+        for rows with ``temperature <= 0`` — so the sampling pass runs
+        only when some row samples."""
         if not (temps > 0).any():
             nxt = logits.argmax(dim=-1) if greedy is None else greedy
         else:
@@ -462,7 +575,21 @@ class ServingEngine:
                                 torch.from_numpy(topk).to(dev),
                                 torch.from_numpy(topp).to(dev),
                                 generator=self._gen)
-        return nxt.to(torch.int32).cpu().numpy()
+        return nxt.to(torch.int32)
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray,
+                topk: np.ndarray, topp: np.ndarray,
+                greedy: Optional[torch.Tensor] = None) -> np.ndarray:
+        """:meth:`_pick`, fetched to the host (the tick's one
+        synchronisation)."""
+        return self._pick(logits, temps, topk, topp, greedy).cpu().numpy()
+
+    def _grow_decode_rows(self) -> None:
+        """Paged, before a step: grow every decoding slot's chain over the
+        position this tick writes."""
+        for i, slot in enumerate(self._slots):
+            if slot is not None:
+                self._grow_row_for_writes(i, int(self._positions[i]))
 
     def _decode(self) -> np.ndarray:
         """One decode step for ALL slots: row i holds its request at
@@ -472,10 +599,7 @@ class ServingEngine:
         itself is the once-built :class:`DecodeStep` over the host
         mirrors; the paged bookkeeping runs before it."""
         if self.paged:
-            for i, slot in enumerate(self._slots):
-                if slot is not None:
-                    # this tick writes K/V at positions[i]
-                    self._grow_row_for_writes(i, int(self._positions[i]))
+            self._grow_decode_rows()
             self._flush_fresh_scales()
         logits, greedy = self._step.run()
         nxt = self._sample(logits, self._temps, self._topk, self._topp,
@@ -617,6 +741,145 @@ class ServingEngine:
                 finished.append(slot.rid)
                 self._retire(slot, i, reason, now)
         return finished
+
+    # -- chunked-prefill scheduler (mixed steps) ----------------------------------
+
+    def _step_inner_chunked(self) -> List[int]:
+        """One token-budget tick (the reference's ``_step_inner_chunked``,
+        ``paddle_tpu/serving/engine.py:2355``): admit the FIFO head into a
+        free slot as a cursor, then replay the mixed step — every decode
+        row plus at most one ``prefill_chunk``-token slice of the admitted
+        prompt — or, on a tick without a chunk, the decode step."""
+        finished = self._admit_chunked()
+        occ = int(self._active.sum())
+        self._occupancy = occ / self.num_slots if self.num_slots else 0.0
+        pf = self._cursor
+        self._m_chunk_queue.observe(self.pending_chunks)
+        # decode-priority policy: while decodes are active, pending chunks
+        # run on alternate ticks only (odd _ticks)
+        do_chunk = pf is not None and (
+            self._chunk_policy == "prefill" or occ == 0
+            or self._ticks % 2 == 1)
+        if not occ and not do_chunk:
+            return finished
+        self._ticks += 1
+        t0 = self._clock()
+        if self.paged:
+            self._grow_decode_rows()
+        if do_chunk:
+            mx = self._mixed
+            clen = min(self.prefill_chunk, pf.req.prompt.size - pf.cursor)
+            mx.ids_host[:] = self.pad_token_id
+            mx.ids_host[:clen] = pf.req.prompt[pf.cursor:pf.cursor + clen]
+            mx.pos_host[0] = pf.cursor
+            mx.len_host[0] = clen
+            if self.paged:
+                # grow the chain over this chunk's real tokens; pad-tail
+                # positions past it land in the null block
+                self.kv.ensure_capacity(pf.slot, pf.cursor + clen - 1)
+                mx.table_host[:] = self.kv.table_row(pf.slot,
+                                                     self.max_blocks)
+            else:
+                mx.row_host[0] = pf.slot
+            self._flush_fresh_scales()
+            logits, greedy, clogits, cgreedy = mx.run()
+            nxt = self._pick(logits, self._temps, self._topk, self._topp,
+                             greedy)
+            sp = pf.req.sampling
+            done = pf.cursor + clen == pf.req.prompt.size
+            if done:
+                ctok = self._pick(clogits,
+                                  np.array([sp.temperature], np.float32),
+                                  np.array([sp.top_k], np.int32),
+                                  np.array([sp.top_p], np.float32), cgreedy)
+                nxt = torch.cat([nxt, ctok])
+            nxt = nxt.cpu().numpy()             # the tick's one sync
+            ctok = int(nxt[-1]) if done else None
+            nxt = nxt[:self.num_slots]
+        else:
+            self._flush_fresh_scales()
+            logits, greedy = self._step.run()
+            nxt = self._sample(logits, self._temps, self._topk, self._topp,
+                               greedy)
+        nxt[~self._active] = self.pad_token_id
+        now = self._clock()
+        if do_chunk:
+            self._n_mixed_ticks += 1
+            self._m_mixed_ms.observe((now - t0) * 1e3)
+        else:
+            self._n_decode_ticks += 1
+            self._m_step_ms.observe((now - t0) * 1e3)
+        finished.extend(self._advance_decode(nxt, now))
+        if do_chunk:
+            finished.extend(self._advance_chunk(pf, clen, ctok, now))
+        return finished
+
+    def _admit_chunked(self) -> List[int]:
+        """Move the FIFO head into a free slot as a partially-prefilled
+        request — a cursor, not a prefill dispatch (the reference's
+        ``_admit_chunked``, :2484).  One prompt streams at a time, in FIFO
+        order.  Queue-wait is observed once, here."""
+        if self._cursor is not None or not self._queue:
+            return []
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        if not free:
+            return []
+        req = self._queue[0]
+        si = free[0]
+        m = 0
+        if self.paged:
+            got = self.kv.admit(si, req.prompt, req.prompt.size,
+                                req.max_new_tokens, chunked=True)
+            if got is None:            # pool full: wait for retirements
+                self._n_blocked += 1
+                return []
+            m = got                    # adopted prefix tokens skip compute
+        self._queue.popleft()
+        if self.quantized and not self.paged:
+            # the prompt streams into a reused row: drop the previous
+            # tenant's granule scales first (in place, outside the graph)
+            self._cache["scale"][:, :, si] = 0.0
+        now = self._clock()
+        self._n_prefill_total += int(req.prompt.size)
+        self._m_queue_wait.observe((now - req.t_submit) * 1e3)
+        self._cursor = _Prefill(req, si, int(m))
+        return []
+
+    def _advance_chunk(self, pf: _Prefill, clen: int, ctok: Optional[int],
+                       now: float) -> List[int]:
+        """Account one ingested chunk (the reference's ``_advance_chunk``,
+        :2548); when it completes the prompt, ``ctok`` is the request's
+        first token and the slot turns from prefilling to decoding."""
+        pf.cursor += clen
+        self._n_chunks += 1
+        self._n_chunk_tokens += clen
+        self._n_prefill_computed += clen
+        if self.paged:
+            # the now-written full blocks become shareable — never earlier
+            self.kv.register_prompt_upto(pf.slot, pf.req.prompt, pf.cursor)
+        plen = int(pf.req.prompt.size)
+        if pf.cursor < plen:
+            return []
+        si, req = pf.slot, pf.req
+        self._cursor = None
+        slot = _Slot(req.request_id, req.max_new_tokens - 1, t_first=now)
+        self._slots[si] = slot
+        self._active[si] = True
+        self._tokens[si] = ctok
+        self._positions[si] = plen
+        self._temps[si] = req.sampling.temperature
+        self._topk[si] = req.sampling.top_k
+        self._topp[si] = req.sampling.top_p
+        if self.paged:
+            self._tables[si] = self.kv.table_row(si, self.max_blocks)
+        self._results[req.request_id].append(ctok)
+        self._n_tokens += 1
+        self._m_ttft.observe((now - req.t_submit) * 1e3)
+        reason = self._finish_reason(ctok, slot, si)
+        if reason is not None:
+            self._retire(slot, si, reason, now)
+            return [req.request_id]
+        return []
 
     @staticmethod
     def _bucket(plen: int) -> int:
@@ -794,14 +1057,15 @@ class ServingEngine:
 
     def _clear_slot(self, i: int):
         """Reset slot ``i``'s host mirrors: the row decodes the pad token
-        at position 0 until a new request takes it (paged: through an
-        all-null table row)."""
+        at its idle position (0; the contiguous chunked engine's
+        ``max_length``, where writes drop) until a new request takes it
+        (paged: through an all-null table row)."""
         if self.paged:
             self._tables[i] = 0
         self._slots[i] = None
         self._active[i] = False
         self._tokens[i] = self.pad_token_id
-        self._positions[i] = 0
+        self._positions[i] = self._idle_pos
         self._temps[i] = 0.0
         self._topk[i] = 0
         self._topp[i] = 1.0

@@ -46,11 +46,16 @@ reused block's stale scale never coarsens its new tenant's running-max
 quantization.  COW destinations are not fresh (the device copy carries
 the source's live scale).
 
+Chunked admission (``admit(chunked=True)``) allocates only the adopted
+prefix and registers nothing: the chunked engine grows the chain per
+chunk (``ensure_capacity``) and registers the prompt's full blocks with
+:meth:`BlockManager.register_prompt_upto` only after the chunk that writes
+them is dispatched, so an unwritten block never satisfies a lookup.
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
 item: the host tier, swap-out/resume, block export/import and
-``preempt_free`` (A6.6); ``truncate_to`` (A6.3); chunked admission and
-``register_prompt_upto`` (A6.2); the ``mixed`` pool (A6.4b).  ``stats`` is
-a plain dict (the metrics registry is A5b).
+``preempt_free`` (A6.6); ``truncate_to`` (A6.3); the ``mixed`` pool
+(A6.4b).  ``stats`` is a plain dict (the metrics registry is A5b).
 """
 
 from __future__ import annotations
@@ -230,10 +235,13 @@ class BlockManager:
         Returns the number of prefix TOKENS adopted from the cache, or
         ``None`` when the pool cannot cover the request yet (the caller
         keeps it queued).  The match is capped at
-        ``(prompt_len - 1) // block_len`` blocks."""
-        if chunked:
-            raise NotImplementedError(
-                "BlockManager.admit(chunked=True) is ROADMAP A6.2")
+        ``(prompt_len - 1) // block_len`` blocks.
+
+        ``chunked``: the chunked-prefill contract — the prompt is written
+        chunk by chunk over several ticks, so no block past the adopted
+        prefix is allocated now (the engine grows the chain per chunk;
+        the reservation still covers the worst case) and nothing is
+        registered (:meth:`register_prompt_upto`, after each chunk)."""
         if slot in self._slots:
             raise ValueError(f"slot {slot} already has an allocation")
         bl = self.block_len
@@ -263,12 +271,14 @@ class BlockManager:
         st = _SlotAlloc(list(matched), need)
         self._slots[slot] = st
         self._reserved += need
-        # blocks covering positions [0, prompt_len]: the prefill writes
-        # the suffix and the first decode step writes position prompt_len
-        for _ in range(prompt_len // bl + 1 - m):
-            self._append_block(st)
-        if self.prefix_cache:
-            self._register_prompt(st.chain, prompt, prompt_len)
+        if not chunked:
+            # blocks covering positions [0, prompt_len]: the prefill
+            # writes the suffix and the first decode step writes position
+            # prompt_len
+            for _ in range(prompt_len // bl + 1 - m):
+                self._append_block(st)
+            if self.prefix_cache:
+                self._register_prompt(st.chain, prompt, prompt_len)
         self._counts["prefix_hit_blocks"] += m
         self._counts["prefix_hit_tokens"] += m * bl
         self._note_peak()
@@ -276,9 +286,16 @@ class BlockManager:
 
     def register_prompt_upto(self, slot: int, prompt: Sequence[int],
                              upto: int):
-        raise NotImplementedError(
-            "BlockManager.register_prompt_upto (chunked prefill) is ROADMAP "
-            "A6.2")
+        """Chunked-prefill registration: insert the prompt's full blocks
+        whose every token is among the first ``upto`` WRITTEN tokens.
+        Idempotent; the engine calls it after each chunk's step is
+        dispatched (stream order puts any adopter's reads after the
+        writes), so prefix hits become available chunk by chunk."""
+        if not self.prefix_cache:
+            return
+        st = self._slots[slot]
+        self._register_prompt(st.chain, [int(t) for t in prompt[:upto]],
+                              int(upto))
 
     def _register_prompt(self, chain: List[int], prompt: List[int],
                          prompt_len: int):

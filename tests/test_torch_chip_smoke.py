@@ -93,9 +93,17 @@ def test_visible_pairs_match_the_plain_rule(sq, skv, causal, cross):
     (False, {"step_traces": 1, "graph_replays": 0, "decode_ticks": 62}, 0),
     (True, {"step_traces": 2, "graph_replays": 62, "decode_ticks": 62}, 1),
     (True, {"step_traces": 1, "graph_replays": 0, "decode_ticks": 62}, 1),
-    (False, {"step_traces": 0, "graph_replays": 3, "decode_ticks": 62}, 2)])
+    (False, {"step_traces": 0, "graph_replays": 3, "decode_ticks": 62}, 2),
+    # the chunked engine: two graphs, one replay a decode or mixed tick
+    (True, {"step_traces": 1, "decode_step_traces": 1, "graph_replays": 40,
+            "decode_ticks": 30, "mixed_ticks": 10}, 0),
+    (True, {"step_traces": 1, "decode_step_traces": 1, "graph_replays": 30,
+            "decode_ticks": 30, "mixed_ticks": 10}, 1),
+    (False, {"step_traces": 1, "decode_step_traces": 2, "graph_replays": 0,
+             "decode_ticks": 30, "mixed_ticks": 10}, 1)])
 def test_graph_contract(graphed, m, bad):
-    """One build, and one replay a decode tick exactly when graphed."""
+    """One build of each step, and one replay a tick exactly when
+    graphed."""
     found = chip_smoke.graph_contract(m, graphed)
     assert len(found) == bad
     with pytest.raises(chip_smoke.CheckFailed) if bad else nullcontext():

@@ -11,11 +11,15 @@ against the JAX package's, on the CPU.
    COW, evict, release} to depth 8 (the reference sweeps a larger
    alphabet to depth 6) on a 4-block pool against an
    independent reference model of the documented semantics, with the
-   allocator's invariants asserted at every state (the chunked-admission,
-   rollback, demotion and tiering ops of the reference's alphabet belong
-   to later slices and are left out).
+   allocator's invariants asserted at every state (chunked admission is
+   replayed in section 1; the rollback, demotion and tiering ops of the
+   reference's alphabet belong to later slices and are left out).
 3. The directed scenarios of that checker (eviction cascade, COW
    overdraw, null-block table guard) and the unported items' errors.
+
+Chunked admission (``admit(chunked=True)`` and ``register_prompt_upto``)
+is replayed against the JAX manager in section 1, with the pool's
+invariants checked after every op.
 """
 
 import numpy as np
@@ -133,6 +137,147 @@ def test_int8_replay_matches_jax_block_manager(seed):
         assert q == ref.stats["quantized_blocks"], i
         assert port.stats["bytes_by_dtype"] == {"bf16": 0, "int8": 5 * q}
     assert port.stats["cow_copies"] > 0 and port.stats["evictions"] > 0
+
+
+def _pool_invariants(mgr, cursors, ctx):
+    """The allocator's invariants, the chunked contract's among them:
+    the usable pool is partitioned into free, referenced and LRU blocks;
+    refcounts are the live chains'; the trie is a bijection whose blocks
+    are never free; the reservation ledger adds up; and a prefilling
+    slot has no block past its cursor registered (``cursors``: slot ->
+    prompt tokens written)."""
+    usable = set(range(1, mgr.num_blocks))
+    free, lru = set(mgr._free), set(mgr._lru)
+    ref = {b for b in usable if mgr._ref[b] > 0}
+    assert free | ref | lru == usable and not (free & ref), ctx
+    assert not (free & lru) and not (ref & lru), ctx
+    counts = np.zeros(mgr.num_blocks, np.int64)
+    for st in mgr._slots.values():
+        for bid in st.chain:
+            counts[bid] += 1
+    assert (counts == mgr._ref).all(), ctx
+    assert mgr._trie == {k: b for b, k in mgr._block_key.items()}, ctx
+    assert not (set(mgr._block_key) & free), ctx
+    assert mgr._reserved == sum(st.reserved_left
+                                for st in mgr._slots.values()) >= 0, ctx
+    for slot, cur in cursors.items():
+        chain = mgr.chain(slot)
+        written = cur // mgr.block_len
+        # blocks past the written full ones are private to the slot
+        for bid in chain[written:]:
+            assert bid not in mgr._block_key, ctx
+            assert mgr._ref[bid] == 1, ctx
+
+
+def _random_chunked_ops(seed, n_ops, n_slots, bl):
+    rng = np.random.default_rng(seed)
+    prefixes = [list(rng.integers(0, 50, 3 * bl)) for _ in range(3)]
+    ops = []
+    for _ in range(n_ops):
+        kind = rng.choice(["admit", "chunk", "chunk", "chunk", "grow",
+                           "release"])
+        slot = int(rng.integers(0, n_slots))
+        if kind == "admit":
+            pre = prefixes[int(rng.integers(0, 3))]
+            pre = pre[:int(rng.integers(0, 3 * bl + 1))]
+            tail = list(rng.integers(0, 50, int(rng.integers(1, 2 * bl))))
+            ops.append(("admit", slot, pre + tail,
+                        int(rng.integers(1, 2 * bl))))
+        elif kind == "chunk":
+            ops.append(("chunk", slot, int(rng.integers(1, 2 * bl))))
+        elif kind == "grow":
+            ops.append(("grow", slot, int(rng.integers(0, 2 * bl))))
+        else:
+            ops.append(("release", slot))
+    return ops
+
+
+def _apply_chunked(mgr, op, live):
+    """One op of the chunked engine's flow where it is legal (``live``:
+    slot -> [prompt, cursor, last writable position]): admission with
+    ``chunked=True``, a chunk (grow over its real tokens, then register
+    the written prefix), a decode write past a finished prompt, a
+    release."""
+    kind, slot = op[0], op[1]
+    if kind == "admit":
+        if slot in live:
+            return "skip"
+        _, _, prompt, max_new = op
+        m = mgr.admit(slot, prompt, len(prompt), max_new, chunked=True)
+        if m is not None:
+            live[slot] = [prompt, m, len(prompt) + max_new - 1]
+        return m
+    if slot not in live:
+        return "skip"
+    prompt, cur, last = live[slot]
+    if kind == "chunk":
+        if cur >= len(prompt):
+            return "skip"
+        clen = min(op[2], len(prompt) - cur)
+        grew = mgr.ensure_capacity(slot, cur + clen - 1)
+        live[slot][1] = cur + clen
+        mgr.register_prompt_upto(slot, prompt, cur + clen)
+        return grew
+    if kind == "grow":
+        if cur < len(prompt):
+            return "skip"
+        return mgr.ensure_capacity(slot, min(len(prompt) + op[2], last))
+    mgr.release(slot)
+    del live[slot]
+    return None
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False],
+                         ids=["prefix", "no_prefix"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chunked_replay_matches_jax_block_manager(seed, prefix_cache):
+    """Chunked admission (``admit(chunked=True)``: only the adopted prefix
+    allocated, nothing registered) and per-chunk registration
+    (``register_prompt_upto`` after each chunk) replayed against the JAX
+    BlockManager: every op's result, every live table row, the counters
+    and the invariants (:func:`_pool_invariants`) after every op."""
+    bl, nb, n_slots, max_blocks = 4, 14, 4, 16
+    port = BlockManager(nb, bl, prefix_cache=prefix_cache)
+    ref = JaxBlockManager(nb, bl, prefix_cache=prefix_cache)
+    live_p, live_r = {}, {}
+    for i, op in enumerate(_random_chunked_ops(seed, 400, n_slots, bl)):
+        got = _apply_chunked(port, op, live_p)
+        want = _apply_chunked(ref, op, live_r)
+        assert got == want, (i, op, got, want)
+        for s in live_p:
+            np.testing.assert_array_equal(port.table_row(s, max_blocks),
+                                          ref.table_row(s, max_blocks))
+        assert ({k: port.stats[k] for k in STATS}
+                == {k: ref.stats[k] for k in STATS}), i
+        assert (port.free_blocks(), port.cached_blocks(),
+                port.blocks_in_use()) == (ref.free_blocks(),
+                                          ref.cached_blocks(),
+                                          ref.blocks_in_use()), i
+        _pool_invariants(port, {s: v[1] for s, v in live_p.items()
+                                if v[1] < len(v[0])}, (i, op))
+    if prefix_cache:
+        assert port.stats["prefix_hit_blocks"] > 0
+        assert port.stats["evictions"] > 0
+
+
+def test_chunked_admission_registers_only_written_blocks():
+    """A block never satisfies a lookup before the chunk writing it is
+    registered: a second admission of the same prompt adopts nothing
+    while the first is mid-prompt, then the written full blocks."""
+    mgr = BlockManager(12, 4)
+    prompt = list(range(1, 14))                          # 13 tokens
+    assert mgr.admit(0, prompt, 13, 2, chunked=True) == 0
+    assert mgr.chain(0) == []                            # nothing allocated
+    mgr.ensure_capacity(0, 5)                            # chunk of 6 tokens
+    assert mgr.admit(1, prompt, 13, 2, chunked=True) == 0   # not yet
+    mgr.register_prompt_upto(0, prompt, 6)               # block 0 written
+    mgr.release(1)
+    assert mgr.admit(1, prompt, 13, 2, chunked=True) == 4
+    assert mgr.chain(1) == mgr.chain(0)[:1]
+    mgr.ensure_capacity(0, 12)
+    mgr.register_prompt_upto(0, prompt, 13)              # blocks 1, 2 too
+    mgr.register_prompt_upto(0, prompt, 13)              # idempotent
+    assert len(mgr._trie) == 3
 
 
 # ---- 2. the interleaving checker (bf16, no host tier) ---------------------------
@@ -461,12 +606,8 @@ def test_unported_items_raise():
     with pytest.raises(NotImplementedError, match="A6.4b"):
         BlockManager(5, 2, kv_dtype="mixed")
     mgr = BlockManager(5, 2)
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        mgr.admit(0, [1, 2, 3], 3, 1, chunked=True)
     assert mgr.admit(0, [1, 2, 3], 3, 1) == 0
-    for call, item in ((lambda: mgr.register_prompt_upto(0, [1, 2], 2),
-                        "A6.2"),
-                       (lambda: mgr.truncate_to(0, 1), "A6.3"),
+    for call, item in ((lambda: mgr.truncate_to(0, 1), "A6.3"),
                        (lambda: mgr.swap_out(0), "A6.6"),
                        (lambda: mgr.resume_swapped(0, {}), "A6.6"),
                        (lambda: mgr.export_blocks(0, None), "A6.6"),

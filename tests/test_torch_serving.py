@@ -105,10 +105,10 @@ def test_rejections(pair):
 
 @pytest.mark.parametrize("kw,item", [
     ({"paged": True, "preempt": "swap", "host_blocks": 4}, "A6.6"),
-    ({"chunked": True}, "A6.2"),
+    ({"chunked": True, "spec_decode": True}, "A6.3"),
     ({"spec_decode": True}, "A6.3"),
     ({"paged": True, "kv_cache_dtype": "mixed"}, "A6.4"),
-    ({"int8_weights": True, "chunked": True}, "A6.2"),
+    ({"chunked": True, "kv_cache_dtype": "mixed", "paged": True}, "A6.4"),
     ({"preempt": "swap"}, "A6.6"),
     ({"mesh": "mp2dp2"}, "A9")])
 def test_unported_modes_raise(pair, kw, item):
@@ -119,12 +119,29 @@ def test_unported_modes_raise(pair, kw, item):
 
 def test_unported_flag_raises(pair):
     _, tm = pair
-    flags.set_flags({"serving_chunked_prefill": True})
+    flags.set_flags({"serving_spec_decode": True})
     try:
-        with pytest.raises(NotImplementedError, match="A6.2"):
+        with pytest.raises(NotImplementedError, match="A6.3"):
             ServingEngine(tm, max_length=MAXLEN, device="cpu")
     finally:
+        flags.set_flags({"serving_spec_decode": False})
+
+
+def test_chunked_flag_selects_the_chunked_engine(pair, jax_outputs):
+    """FLAGS_serving_chunked_prefill selects chunked prefill (the engine
+    the constructor's ``chunked=None`` takes); it serves the same tokens
+    as the wave engine."""
+    _, tm = pair
+    flags.set_flags({"serving_chunked_prefill": True})
+    try:
+        eng = ServingEngine(tm, num_slots=2, max_length=MAXLEN, device="cpu")
+    finally:
         flags.set_flags({"serving_chunked_prefill": False})
+    assert eng.chunked and eng.prefill_chunk == 256
+    assert _serve(eng, _prompts(), 8) == jax_outputs
+    m = eng.metrics()
+    assert m["prefill_waves"] == 0
+    assert m["chunked"]["prefill_chunks"] == len(LENGTHS)
 
 
 def test_engine_device_rules(pair, monkeypatch):
