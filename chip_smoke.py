@@ -83,8 +83,11 @@ any failed check raises, so the script exits non-zero.  Phases:
                  contiguous) must match themselves on the CPU;
                  every engine on the card must have built its decode
                  step once (``step_traces`` 1; chunked: its mixed step
-                 and its decode step once each) and replayed a graph
-                 once a tick (``graph_replays``);
+                 and its decode step once each), replayed a graph
+                 once a tick (``graph_replays``) and a prefill graph
+                 once a wave (``prefill_graph_replays``), and built as
+                 many prefill steps as the same engine on the CPU
+                 (``prefill_traces``);
   4. serving   — ``ServingEngine(num_slots=8, max_length=4096,
                  prefill_batch=4)`` on 12 requests of 5..1500 prompt
                  tokens, 32 new tokens each; every launch counter is reset
@@ -93,12 +96,20 @@ any failed check raises, so the script exits non-zero.  Phases:
                  its decode step once at construction (a warm-up and one
                  CUDA-graph capture) and replays it every tick:
                  ``step_traces`` must be 1 and ``graph_replays`` the
-                 decode ticks; then its ``eager_twin`` serves the same
-                 requests with the step run eagerly
+                 decode ticks; each wave key (bucket, rows) is built
+                 once as a graph on its first use and replayed by every
+                 wave: ``prefill_traces`` must be the number of distinct
+                 keys the waves used and ``prefill_graph_replays`` the
+                 waves; then its ``eager_twin`` serves the same
+                 requests with the steps run eagerly
                  (``disable_graphs()``): every request's tokens, every
                  launch count and every route count must be the graphed
                  engine's; both runs' tok/s and step ms are reported.
-                 Phases 4b-4d do the same;
+                 Phases 4b-4d do the same.  Phases 4 and 4d then serve
+                 their requests again on the same engine (``warm``): no
+                 new build, a replay a wave, the cold pass's tokens;
+                 tok/s, TTFT, ``prefill_wave_ms`` and peak allocated
+                 memory of both passes;
   4b. serving_paged — the same engine with ``paged=True, block_len=128,
                  num_blocks=52`` on 16 requests: 8 open with one shared
                  1536-token system prompt, 8 are unique, interleaved; the
@@ -1655,13 +1666,14 @@ def phase_model(torch):
         out = dict(eng.drain())
         return [out[r] for r in rids], eng
 
-    (on_card, eng_card), on_cpu = serve(tiny_card, "cuda"), serve(
-        tiny_cpu, "cpu")[0]
+    (on_card, eng_card), (on_cpu, eng_cpu) = serve(tiny_card, "cuda"), \
+        serve(tiny_cpu, "cpu")
     emit({"phase": "model_tiny_f32", "requests": len(prompts),
-          "identical": on_card == on_cpu, **graph_fields(eng_card)})
+          "identical": on_card == on_cpu,
+          **graph_fields(eng_card, eng_cpu)})
     check(on_card == on_cpu,
           f"tiny f32 engine differs card vs cpu: {on_card} vs {on_cpu}")
-    check_graphed(eng_card, "tiny f32 engine")
+    check_graphed(eng_card, "tiny f32 engine", eng_cpu)
 
     # the tiny PAGED engine (block_len 16): two more prompts open with one
     # 20-token system prompt, so a suffix prefill runs at pos 16
@@ -1671,15 +1683,15 @@ def phase_model(torch):
             np.int32)]) for n in (4, 13)]
     paged_kw = dict(paged=True, block_len=16)
     p_card, eng_card = serve(tiny_card, "cuda", paged_prompts, **paged_kw)
-    p_cpu, _ = serve(tiny_cpu, "cpu", paged_prompts, **paged_kw)
+    p_cpu, eng_cpu = serve(tiny_cpu, "cpu", paged_prompts, **paged_kw)
     contiguous_card, _ = serve(tiny_card, "cuda", paged_prompts)
     hits = eng_card.kv.stats["prefix_hit_tokens"]
     emit({"phase": "model_tiny_f32_paged", "requests": len(paged_prompts),
           "block_len": 16, "prefix_hit_tokens": hits,
           "identical_card_vs_cpu": p_card == p_cpu,
           "identical_paged_vs_contiguous_card": p_card == contiguous_card,
-          **graph_fields(eng_card)})
-    check_graphed(eng_card, "tiny f32 paged engine")
+          **graph_fields(eng_card, eng_cpu)})
+    check_graphed(eng_card, "tiny f32 paged engine", eng_cpu)
     check(hits > 0, "tiny paged engine adopted no prefix block")
     check(p_card == p_cpu,
           f"tiny f32 paged engine differs card vs cpu: {p_card} vs {p_cpu}")
@@ -1696,16 +1708,16 @@ def phase_model(torch):
                              ("paged", paged_prompts,
                               dict(int8_kw, **paged_kw))):
         i_card, i_eng = serve(q_card, "cuda", reqs, **kw)
-        i_cpu, _ = serve(q_cpu, "cpu", reqs, **kw)
+        i_cpu, i_eng_cpu = serve(q_cpu, "cpu", reqs, **kw)
         emit({"phase": "model_tiny_f32_int8", "layout": layout,
               "requests": len(reqs),
               "quantized_tensors": len(q_cpu.quantized_names),
               "identical_card_vs_cpu": i_card == i_cpu,
-              **graph_fields(i_eng)})
+              **graph_fields(i_eng, i_eng_cpu)})
         check(i_card == i_cpu,
               f"tiny f32 int8 {layout} engine differs card vs cpu: "
               f"{i_card} vs {i_cpu}")
-        check_graphed(i_eng, f"tiny f32 int8 {layout} engine")
+        check_graphed(i_eng, f"tiny f32 int8 {layout} engine", i_eng_cpu)
 
     # the tiny chunked engines (8-token chunks: most prompts span several,
     # and a later one streams in while others decode), contiguous and
@@ -1719,8 +1731,8 @@ def phase_model(torch):
             ckw = dict(kw, chunked=True, prefill_chunk=8,
                        chunk_policy=policy)
             c_card, c_eng = serve(m, "cuda", reqs, **ckw)
-            c_cpu, _ = serve(q_cpu if m is q_card else tiny_cpu, "cpu",
-                             reqs, **ckw)
+            c_cpu, c_eng_cpu = serve(q_cpu if m is q_card else tiny_cpu,
+                                     "cpu", reqs, **ckw)
             cm = c_eng.metrics()
             emit({"phase": "model_tiny_f32_chunked", "layout": layout,
                   "chunk_policy": policy, "requests": len(reqs),
@@ -1728,12 +1740,12 @@ def phase_model(torch):
                   "mixed_ticks": cm["mixed_ticks"],
                   "decode_ticks": cm["decode_ticks"],
                   "identical_card_vs_cpu": c_card == c_cpu,
-                  **graph_fields(c_eng)})
+                  **graph_fields(c_eng, c_eng_cpu)})
             check(c_card == c_cpu,
                   f"tiny f32 chunked {layout} engine ({policy}) differs card "
                   f"vs cpu: {c_card} vs {c_cpu}")
             check_graphed(c_eng, f"tiny f32 chunked {layout} engine "
-                          f"({policy})")
+                          f"({policy})", c_eng_cpu)
             check(cm["mixed_ticks"] > 0 and cm["prefill_waves"] == 0,
                   f"tiny chunked {layout} engine ran no mixed tick")
     return model, qmodel
@@ -1744,9 +1756,10 @@ def phase_model(torch):
 def graph_contract(m, graphed: bool):
     """What an engine's ``metrics()`` break of the steps' contract: one
     build (``step_traces`` 1, the reference's retrace budget; the chunked
-    engine's decode step too) and one graph replay a decode tick (and a
-    mixed tick, chunked) for a graphed engine, none for an eager one.
-    Returns the failures as text, [] when the contract holds."""
+    engine's decode step too), one graph replay a decode tick (and a
+    mixed tick, chunked) and one prefill-graph replay a wave for a
+    graphed engine, none for an eager one.  Returns the failures as text,
+    [] when the contract holds."""
     bad = []
     if m["step_traces"] != 1:
         bad.append(f"step_traces {m['step_traces']} (want 1)")
@@ -1758,26 +1771,49 @@ def graph_contract(m, graphed: bool):
     if m["graph_replays"] != want:
         bad.append(f"graph_replays {m['graph_replays']} for "
                    f"{ticks} ticks (want {want})")
+    waves = m.get("prefill_waves", 0)
+    want = waves if graphed else 0
+    if m.get("prefill_graph_replays", 0) != want:
+        bad.append(f"prefill_graph_replays {m['prefill_graph_replays']} "
+                   f"for {waves} waves (want {want})")
     return bad
 
 
 def check_graph(run, what, graphed=True):
     """Fail unless a serving run (``graphed``, ``metrics``) replayed a
-    CUDA graph exactly when ``graphed`` and kept :func:`graph_contract`."""
+    CUDA graph exactly when ``graphed`` and kept :func:`graph_contract`,
+    and, where the run recorded its waves' (bucket, rows) keys
+    (``wave_keys``), built one prefill step a distinct key."""
     check(run["graphed"] == graphed,
           f"{what}: the engine's graphed is {run['graphed']}, want {graphed}")
     bad = graph_contract(run["metrics"], graphed)
     check(not bad, f"{what}: " + "; ".join(bad))
+    if "wave_keys" in run:
+        keys = set(run["wave_keys"])
+        check(run["metrics"]["prefill_traces"] == len(keys),
+              f"{what}: prefill_traces {run['metrics']['prefill_traces']} "
+              f"for {len(keys)} distinct wave keys {sorted(keys)}")
 
 
-def graph_fields(eng):
+def graph_fields(eng, cpu=None):
     m = eng.metrics()
-    return {"graphed": eng.graphed, "step_traces": m["step_traces"],
-            "graph_replays": m["graph_replays"]}
+    out = {"graphed": eng.graphed, "step_traces": m["step_traces"],
+           "graph_replays": m["graph_replays"],
+           "prefill_traces": m["prefill_traces"],
+           "prefill_graph_replays": m["prefill_graph_replays"]}
+    if cpu is not None:
+        out["prefill_traces_cpu"] = cpu.prefill_traces
+    return out
 
 
-def check_graphed(eng, what):
+def check_graphed(eng, what, cpu=None):
+    """:func:`check_graph` of an engine; with ``cpu``, the same engine on
+    the CPU, its ``prefill_traces`` must be the card's."""
     check_graph({"graphed": eng.graphed, "metrics": eng.metrics()}, what)
+    if cpu is not None:
+        check(eng.prefill_traces == cpu.prefill_traces,
+              f"{what}: prefill_traces {eng.prefill_traces} on the card, "
+              f"{cpu.prefill_traces} on the CPU")
 
 
 def twin_comparison(graphed, eager):
@@ -1812,7 +1848,7 @@ def serving_prompts(vocab: int):
 
 def phase_serving(torch, model, kernels):
     prompts = serving_prompts(model.config.vocab_size)
-    run = _serve_8b(torch, model, prompts)
+    run = _serve_8b(torch, model, prompts, warm=True)
     twin = eager_twin(torch, model, prompts, run, "phase 4")
     m, launches, routes = run["metrics"], run["launches"], run["routes"]
     emit({"phase": "serving", "requests": len(prompts),
@@ -1820,9 +1856,10 @@ def phase_serving(torch, model, kernels):
           "new_tokens": 32, **serving_fields(run),
           "prefill_waves": m["prefill_waves"],
           "decode_ticks": m["decode_ticks"], "launches": launches,
-          "routes": routes, "eager_twin": twin})
+          "routes": routes, "warm": warm_fields(run), "eager_twin": twin})
     check_graph(run, "phase 4")
     check_twin(twin, "phase 4")
+    check_warm(run, "phase 4")
     for name in CONTIGUOUS_PATH:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path")
@@ -1896,36 +1933,88 @@ def phase_serving_paged(torch, model, kernels):
     return run
 
 
-def _serve_8b(torch, model, prompts, new_tokens=32, **kw):
-    """One 8B-width serving run: the engine is built (warm-up and graph
-    capture included, unless ``disable_graphs()`` is open), then every
-    launch and route counter is reset just before the requests are
-    submitted and read just after the drain.  Returns the run as a dict:
-    outputs in submit order, wall seconds, launches, routes, the engine's
-    metrics and whether it replayed a graph; the engine is freed."""
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops import _dispatch
+# the engine's latency series (metrics() key -> its _Hist) and counters
+# that a pass of a reused engine reads as its own share
+PASS_HISTS = {"ttft_ms": "_m_ttft", "tpot_ms": "_m_tpot",
+              "queue_wait_ms": "_m_queue_wait",
+              "decode_step_ms": "_m_step_ms",
+              "prefill_wave_ms": "_m_prefill_ms",
+              "mixed_step_ms": "_m_mixed_ms"}
+PASS_COUNTS = ("requests_finished", "tokens_generated", "prefill_waves",
+               "ticks", "decode_ticks", "mixed_ticks", "graph_replays",
+               "prefill_graph_replays", "prefill_tokens_computed",
+               "prefill_tokens_total")
+
+
+def _serve_8b(torch, model, prompts, new_tokens=32, warm=False, **kw):
+    """One 8B-width serving run: the engine is built (its decode step's
+    warm-up and graph capture included, unless ``disable_graphs()`` is
+    open), then every launch and route counter is reset just before the
+    requests are submitted and read just after the drain.  Returns the run
+    as a dict: outputs in submit order, wall seconds, launches, routes,
+    the engine's metrics, whether it replayed a graph, the (bucket, rows)
+    key of every wave (``wave_keys``) and the peak of allocated device
+    memory over the pass; the prefill steps are built inside this (cold)
+    pass, on each key's first use.  ``warm``: then serve the same
+    requests again on the same engine, as ``run["warm"]`` (metrics,
+    launches and routes of that pass alone).  The engine is freed."""
     from paddle_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, num_slots=8, max_length=4096,
                         prefill_batch=4, device="cuda", **kw)
+    keys = []
+    for name in ("_prefill", "_prefill_paged"):
+        def record(ids, *args, _fn=getattr(eng, name), **kwargs):
+            keys.append((int(ids.shape[1]), int(ids.shape[0])))
+            return _fn(ids, *args, **kwargs)
+        setattr(eng, name, record)
+    run = _serve_pass(torch, eng, prompts, new_tokens, keys)
+    if warm:
+        run["warm"] = _serve_pass(torch, eng, prompts, new_tokens, keys)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _serve_pass(torch, eng, prompts, new_tokens, keys):
+    """One pass of ``prompts`` through ``eng`` (see :func:`_serve_8b`):
+    counters, latency series and wave keys of this pass alone."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.serving.engine import _Hist
+
+    before = eng.metrics()
+    marks = {k: len(getattr(eng, h).values) for k, h in PASS_HISTS.items()}
+    k0 = len(keys)
     ops.reset_launch_counts()
     _dispatch.reset_kernel_paths()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
     out = dict(eng.drain())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    m = eng.metrics()
+    for k in PASS_COUNTS:
+        if k in m:
+            m[k] -= before[k]
+    for k, h in PASS_HISTS.items():
+        if k in m:
+            part = _Hist()
+            part.values = getattr(eng, h).values[marks[k]:]
+            m[k] = part.summary()
     run = {"outs": [out[r] for r in rids], "wall": wall,
            "launches": ops.launch_counts(),
            "routes": {f"{op}/{path}": n for (op, path), n in
                       _dispatch.kernel_paths.items()},
-           "metrics": eng.metrics(), "graphed": eng.graphed,
+           "metrics": m, "graphed": eng.graphed,
+           "wave_keys": keys[k0:],
+           "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2**30,
+                                   3),
            "cache_bytes": eng.cache_hbm_bytes}
-    del eng
-    torch.cuda.empty_cache()
-    vocab = model.config.vocab_size
+    vocab = eng.config.vocab_size
     for r, o in zip(rids, run["outs"]):
         check(len(o) == new_tokens, f"request {r} returned {len(o)} tokens")
         check(all(0 <= t < vocab for t in o),
@@ -1941,8 +2030,12 @@ def serving_fields(run):
            "tok_per_s": round(ntok / run["wall"], 2),
            "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
            "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
+           "peak_memory_gb": run["peak_memory_gb"],
            "graphed": run["graphed"], "step_traces": m["step_traces"],
-           "graph_replays": m["graph_replays"]}
+           "graph_replays": m["graph_replays"],
+           "prefill_traces": m["prefill_traces"],
+           "prefill_graph_replays": m["prefill_graph_replays"],
+           "wave_keys": sorted(set(run["wave_keys"]))}
     if "mixed_ticks" in m:
         out.update(mixed_step_ms=m["mixed_step_ms"],
                    mixed_ticks=m["mixed_ticks"],
@@ -1950,6 +2043,37 @@ def serving_fields(run):
                    decode_step_traces=m["decode_step_traces"],
                    chunked=m["chunked"])
     return out
+
+
+def warm_fields(run):
+    """The warm pass's line (``run["warm"]``): its timings, builds and
+    replays, and whether its tokens and launches are the cold pass's."""
+    w = run["warm"]
+    return {**serving_fields(w),
+            "prefill_waves": w["metrics"]["prefill_waves"],
+            "tokens_identical_to_cold": w["outs"] == run["outs"],
+            "launches_identical_to_cold": w["launches"] == run["launches"]}
+
+
+def check_warm(run, what):
+    """The warm pass builds nothing (``prefill_traces`` as after the cold
+    pass), replays every wave and repeats the cold pass's tokens."""
+    w = run["warm"]
+    wm = w["metrics"]
+    check(wm["prefill_traces"] == run["metrics"]["prefill_traces"],
+          f"{what} warm pass: prefill_traces {wm['prefill_traces']} after "
+          f"{run['metrics']['prefill_traces']} (a key was built again)")
+    check(set(w["wave_keys"]) <= set(run["wave_keys"]),
+          f"{what} warm pass: new wave keys "
+          f"{sorted(set(w['wave_keys']) - set(run['wave_keys']))}")
+    check(wm["prefill_waves"] > 0
+          and wm["prefill_graph_replays"] == wm["prefill_waves"],
+          f"{what} warm pass: {wm['prefill_graph_replays']} prefill replays "
+          f"for {wm['prefill_waves']} waves")
+    check_graph(dict(w, wave_keys=run["wave_keys"] + w["wave_keys"]),
+                f"{what} warm pass")
+    check(w["outs"] == run["outs"],
+          f"{what} warm pass: tokens differ from the cold pass's")
 
 
 def eager_twin(torch, model, prompts, run, what, **kw):
@@ -2054,7 +2178,7 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
     """Phase 4d: phase 4's engine and requests, int8 KV + int8 weights."""
     kw = dict(kv_cache_dtype="int8", int8_weights=True)
     prompts = serving_prompts(qmodel.config.vocab_size)
-    run = _serve_8b(torch, qmodel, prompts, **kw)
+    run = _serve_8b(torch, qmodel, prompts, warm=True, **kw)
     twin = eager_twin(torch, qmodel, prompts, run, "phase 4d", **kw)
     m, launches, routes = run["metrics"], run["launches"], run["routes"]
     emit({"phase": "serving_int8_contiguous", "requests": len(prompts),
@@ -2062,9 +2186,10 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
           **serving_fields(run), "prefill_waves": m["prefill_waves"],
           "decode_ticks": m["decode_ticks"],
           "cache_bytes": run["cache_bytes"], "launches": launches,
-          "routes": routes, "eager_twin": twin})
+          "routes": routes, "warm": warm_fields(run), "eager_twin": twin})
     check_graph(run, "phase 4d")
     check_twin(twin, "phase 4d")
+    check_warm(run, "phase 4d")
     check((m["prefill_waves"], m["decode_ticks"])
           == (metrics4["prefill_waves"], metrics4["decode_ticks"]),
           "phase 4d schedule differs from phase 4's")

@@ -53,12 +53,17 @@ place, so the graph's cache is the engine's own.  Sampling of rows with
 engine's ``torch.Generator``; the paged bookkeeping (block growth,
 copy-on-write, fresh int8 scales) runs eagerly before each replay.
 
-Prefill waves run eagerly, and differ from the reference in one detail:
-the reference scatters whole fresh cache rows into the slots (dummy rows
-dropped); the port writes only the real rows' first ``bucket`` positions.
-A slot's stale tail past its prompt is never read: flash-decode (K1)
-walks only ``[0, pos + s)``, and each decode tick writes position ``pos``
-before it attends over it.
+Each prefill wave is built once too, as the reference jits its prefill
+once a padded bucket (``prefill_traces``): one ``step_graph.PrefillStep``
+a (bucket, rows) key, built on the key's first use (counted under
+``serving.prefill``, budget 1 a key) and replayed by every later wave of
+that key; on the card the graphs share one memory pool per engine.  A
+wave runs only its real rows, and differs from the reference in one
+more detail: the reference scatters whole fresh cache rows into the
+slots (dummy rows dropped); the port writes only the real rows' first
+``bucket`` positions.  A slot's stale tail past its prompt is never read:
+flash-decode (K1) walks only ``[0, pos + s)``, and each decode tick writes
+position ``pos`` before it attends over it.
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ import torch
 from .. import default_device, flags
 from ..models.generation import init_kv_cache, sample_tokens
 from .kv_cache import BlockManager, init_paged_kv_cache
-from .step_graph import DecodeStep, MixedStep
+from .step_graph import DecodeStep, MixedStep, PrefillStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,7 +302,7 @@ class ServingEngine:
         # chunked engine's mixed step is its serving.step site; its
         # decode step (chunk-free ticks) is labelled graph="decode"
         s = self.num_slots
-        eid = next(_ENGINE_IDS)
+        eid = self._eid = next(_ENGINE_IDS)
         mb = self.max_blocks if self.paged else None
         self._step = DecodeStep(self.model, self._cache, s, mb, self.device,
                                 eid, graph="decode" if self.chunked else None)
@@ -322,6 +327,9 @@ class ServingEngine:
             # at max_length; paged: the all-null table row)
             self._mixed.pos_host[0] = self._idle_pos
             self._mixed.len_host[0] = 1
+        # the wave steps, one a (bucket, rows) key, built on first use
+        self._prefill_steps: Dict[Tuple[int, int], PrefillStep] = {}
+        self._prefill_pool = None
         self._active = np.zeros((s,), bool)
         self._temps = np.zeros((s,), np.float32)
         self._topk = np.zeros((s,), np.int32)
@@ -385,6 +393,14 @@ class ServingEngine:
         return (self._mixed or self._step).traces
 
     @property
+    def prefill_traces(self) -> int:
+        """Builds of the ``serving.prefill`` site — one a (bucket, rows)
+        key the engine's waves used (the reference's compilations of its
+        prefill, one a padded bucket); 0 in the chunked engine, which runs
+        no wave."""
+        return sum(st.traces for st in self._prefill_steps.values())
+
+    @property
     def decode_step_traces(self) -> int:
         """Builds of the decode step (in the chunked engine its own
         labelled site, beside :attr:`step_traces`)."""
@@ -415,10 +431,11 @@ class ServingEngine:
         plus ``ticks`` (scheduler ticks that dispatched work: waves, decode
         and mixed steps), ``decode_ticks`` (ticks that ran the decode step
         alone), ``step_traces`` and ``graph_replays`` (ticks that replayed
-        a CUDA graph); the paged engine adds the pool's accounting under
-        ``kv_cache``, the chunked engine ``mixed_ticks`` (ticks that
-        carried a chunk), ``mixed_step_ms``, ``decode_step_traces`` and
-        the reference's ``chunked`` block."""
+        a CUDA graph), ``prefill_traces`` and ``prefill_graph_replays``
+        (waves that replayed a CUDA graph); the paged engine adds the
+        pool's accounting under ``kv_cache``, the chunked engine
+        ``mixed_ticks`` (ticks that carried a chunk), ``mixed_step_ms``,
+        ``decode_step_traces`` and the reference's ``chunked`` block."""
         out = {"ttft_ms": self._m_ttft.summary(),
                "tpot_ms": self._m_tpot.summary(),
                "queue_wait_ms": self._m_queue_wait.summary(),
@@ -434,6 +451,9 @@ class ServingEngine:
                "step_traces": self.step_traces,
                "graph_replays": self._step.replays + (
                    self._mixed.replays if self._mixed else 0),
+               "prefill_traces": self.prefill_traces,
+               "prefill_graph_replays": sum(
+                   st.replays for st in self._prefill_steps.values()),
                "prefill_tokens_computed": self._n_prefill_computed,
                "prefill_tokens_total": self._n_prefill_total,
                "retired": dict(self._retired)}
@@ -613,39 +633,13 @@ class ServingEngine:
         the ``pos=0`` path (flash attention) on a bucket-long scratch
         cache, write the real rows into their slots, and sample each row's
         first token from the logits at its LAST REAL position (logits are
-        computed at those positions only).
-
-        The int8 cache quantizes under the engine cache's own granule
-        layout: the scratch covers the whole granules the bucket touches,
-        the slots' scale rows are zeroed, then the scratch's payload and
-        scales replace the rows' first granules.  That is the reference's
-        fresh max_length-long sub-cache, row for row: past the copied
-        granules a slot keeps stale payload under zero scales, which the
-        first write of a granule clears (ratio 0), and which no read
-        reaches before that write."""
-        dev = self.device
-        n, bucket = ids.shape
-        slots = torch.tensor(slot_ids, device=dev)
-        if self.quantized:
-            gr = self.max_length // self._cache["scale"].shape[3]
-            ng = -(-bucket // gr)
-            sub = init_kv_cache(self.config, n, ng * gr, quantized=True,
-                                device=dev)
-        else:
-            sub = init_kv_cache(self.config, n, bucket, device=dev)
-        hidden, sub = self.model.model.decode(
-            torch.from_numpy(ids).to(dev), sub, 0)
-        last = hidden[torch.arange(n, device=dev),
-                      torch.from_numpy(plens - 1).to(dev).long()]
-        logits = self.model.logits(last)
-        if self.quantized:
-            kv, sc = self._cache["kv"], self._cache["scale"]
-            sc[:, :, slots] = 0.0
-            sc[:, :, slots, :ng] = sub["scale"]
-            kv[:, :, slots, :ng * gr] = sub["kv"]
-        else:
-            self._cache[:, :, slots, :bucket] = sub
-        return self._sample(logits, temps, topk, topp)
+        computed at those positions only).  The wave is its key's
+        :class:`PrefillStep`; the int8 cache's granules and scale rows:
+        see there (the reference's fresh max_length-long sub-cache, row
+        for row)."""
+        logits, greedy = self._run_wave(ids, plens - 1,
+                                        slots=np.asarray(slot_ids))
+        return self._sample(logits, temps, topk, topp, greedy)
 
     def _prefill_paged(self, ids: np.ndarray, prefix: np.ndarray,
                        slens: np.ndarray, tables: np.ndarray, temps, topk,
@@ -660,17 +654,32 @@ class ServingEngine:
         samples from each row's last REAL suffix position (logits there
         only).  Only the wave's real rows run: the reference pads the
         wave to ``prefill_batch`` rows with all-null dummy tables."""
-        dev = self.device
-        n = ids.shape[0]
         self._flush_fresh_scales()
-        hidden, self._cache = self.model.model.decode(
-            torch.from_numpy(ids).to(dev), self._cache,
-            torch.from_numpy(prefix).to(dev),
-            block_tables=torch.from_numpy(tables).to(dev))
-        last = hidden[torch.arange(n, device=dev),
-                      torch.from_numpy(slens - 1).to(dev).long()]
-        logits = self.model.logits(last)
-        return self._sample(logits, temps, topk, topp)
+        logits, greedy = self._run_wave(ids, slens - 1, prefix=prefix,
+                                        tables=tables)
+        return self._sample(logits, temps, topk, topp, greedy)
+
+    def _run_wave(self, ids: np.ndarray, last: np.ndarray, **inputs):
+        """Run one wave on its (bucket, rows) key's step — built here on
+        the key's first use, with the wave staged (a contiguous build
+        warms up on the wave's own slots) — and return (logits at each
+        row's ``last`` position, their argmax), on the device."""
+        rows, bucket = ids.shape
+        step = self._prefill_steps.get((bucket, rows))
+        new = step is None
+        if new:
+            if self.device.type == "cuda" and self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            step = PrefillStep(self.model, self._cache, bucket, rows,
+                               self.max_blocks if self.paged else None,
+                               self.device, self._eid,
+                               eager=not self._step.graphed,
+                               pool=self._prefill_pool)
+            self._prefill_steps[(bucket, rows)] = step
+        step.stage(ids, last, **inputs)
+        if new:
+            step.build()
+        return step.run()
 
     def _grow_row_for_writes(self, i: int, last_pos: int):
         """Paged pre-dispatch bookkeeping for slot ``i`` about to write

@@ -1,7 +1,8 @@
 """The serving engine's once-built steps (the reference's ``serving.step``
-site, ``paddle_tpu/serving/engine.py:672-708``): the decode step
-(:class:`DecodeStep`) and, in the chunked engine, the mixed step
-(:class:`MixedStep`).
+and ``serving.prefill`` sites, ``paddle_tpu/serving/engine.py:672-708``):
+the decode step (:class:`DecodeStep`), in the chunked engine the mixed
+step (:class:`MixedStep`), and in the wave engines one prefill-wave step
+a (bucket, rows) key (:class:`PrefillStep`).
 
 The reference jits its step once, under ``track_retraces(...,
 "serving.step", budget=1)``, and the device then runs one compiled program
@@ -41,6 +42,22 @@ decode tick, not a 256-token pass.  The decode rows run the same kernels
 at the same shapes in both graphs, so the tokens are those of one
 program.  The two graphs share the decode rows' input buffers.
 
+The wave engines build one :class:`PrefillStep` a (bucket, rows) key —
+a wave of ``rows`` prompts padded to ``bucket`` tokens, the reference's
+``_prefill_impl`` / ``_prefill_impl_paged`` (:1211, :1248), which it jits
+once a bucket under ``track_retraces(..., "serving.prefill")`` — each on
+its first use while the engine serves, counted under ``serving.prefill``
+with budget 1 a key (labels: engine, bucket, rows).  Only a wave's real
+rows run (the reference pads to ``prefill_batch`` rows), so the key
+carries the row count.  A build may not write what a live request reads:
+the paged warm-up and capture run on all-null tables at prefix 0 (every
+write lands in the null block), the contiguous ones on the wave's own
+slots, which the replay then writes again.  A capture runs nothing, so
+the first use of a key uploads the real inputs and replays once more.
+The prefill graphs of one engine share one memory pool: their static
+outputs stay live, and the engine reads each replay's outputs before the
+next replay of any of them, so one graph's scratch may reuse another's.
+
 What the capture fixes, and so what a replay cannot see change: the
 model's weights and the engine's cache (both written or read in place at
 their addresses), the split length of flash-decode
@@ -48,7 +65,8 @@ their addresses), the split length of flash-decode
 tensor maps (fixed by shape and address), and which kernels run (the
 route of each op at capture).  Launch counters are credited per replay
 (``ops.ReplayCounts``), so ``.launches`` counts replays x launches per
-graph, as an eager run of the same ticks would.
+graph, as an eager run of the same ticks would; the warm-up's launches
+and the capture's are the build's and are taken back out.
 """
 
 from __future__ import annotations
@@ -60,12 +78,20 @@ from typing import Optional, Tuple
 import torch
 
 from .. import ops
+from ..models.generation import init_kv_cache
 from ..observability import track_retraces
 from ..ops.cuda.decode_attention import private_counters
 
 # eager runs before the capture: the first builds and loads every kernel;
 # the second runs the step as the capture will see it
 WARMUP_TICKS = 2
+# a prefill key's eager runs before its capture: none.  On the H100 at the
+# Llama-3-8B width every wave key of chip_smoke.py's phases 4-4d captured
+# without one, its tokens equal to the eager twin's, even the first key
+# of a process, whose capture builds and loads K2 (chip_prefill_waves.py
+# --warmup 0/1/2); each warm-up run costs the key's first wave about an
+# eager wave more.  The engine's decode step has loaded cuBLAS and K3.
+PREFILL_WARMUP = 0
 
 _disabled = False
 
@@ -74,9 +100,10 @@ _disabled = False
 def disable_graphs():
     """The port's ``jax.disable_jit()``: an engine that builds its decode
     step while this is open runs the step eagerly on the card — the same
-    static-buffer step, one build all the same, no graph.  Read at the
-    build, so the engine keeps its mode after the context closes.  For
-    eager twins of a graphed engine (``chip_smoke.py``)."""
+    static-buffer step, one build all the same, no graph — and so do its
+    prefill waves.  Read at the build, so the engine keeps its mode after
+    the context closes.  For eager twins of a graphed engine
+    (``chip_smoke.py``)."""
     global _disabled
     prev = _disabled
     _disabled = True
@@ -87,25 +114,34 @@ def disable_graphs():
 
 
 class _Step:
-    """A step over static buffers, built once (counted, budget 1) and run
-    once a tick; see the module docstring.  Subclasses define
-    :meth:`_body` (the step on the static buffers) and :meth:`_upload`
-    (the host staging to the device buffers)."""
+    """A step over static buffers, built once (counted under ``SITE``,
+    budget 1) and run once a tick or wave; see the module docstring.
+    Subclasses define :meth:`_body` (the step on the static buffers) and
+    :meth:`_upload` (the host staging to the device buffers).  ``eager``:
+    run eagerly whatever :func:`disable_graphs` says at the build (None:
+    as it says); ``pool``: the memory pool the capture shares."""
 
-    def __init__(self, device: torch.device, labels: dict):
+    SITE = "serving.step"
+    WARMUP = WARMUP_TICKS
+
+    def __init__(self, device: torch.device, labels: dict,
+                 eager: Optional[bool] = None, pool=None):
         self.device = device
         self._graph = None
         self._out: Optional[Tuple[torch.Tensor, ...]] = None
         self._counts: Optional[ops.ReplayCounts] = None
         self._counters: dict = {}
         self._stream = None
+        self._eager = eager
+        self._pool = pool
         self.replays = 0
-        self._tracked = track_retraces(self._build, "serving.step", budget=1,
+        self._tracked = track_retraces(self._build, self.SITE, budget=1,
                                        labels=labels)
 
     @property
     def traces(self) -> int:
-        """Builds of this step (the engine's ``step_traces``)."""
+        """Builds of this step (the engine's ``step_traces``, or one key's
+        share of its ``prefill_traces``)."""
         return self._tracked.traces
 
     @property
@@ -114,10 +150,11 @@ class _Step:
 
     def build(self) -> None:
         """Build the step: counted, budget 1 (a second build is a watchdog
-        violation, ``FLAGS_retrace_watchdog``).  Call while no slot holds
-        a request: the warm-up runs real ticks of whatever the host
-        mirrors hold, which must be idle rows (and, mixed, a chunk whose
-        writes all drop)."""
+        violation, ``FLAGS_retrace_watchdog``).  The warm-up runs the step
+        on whatever the device buffers hold after an upload of the
+        staging, which must write nothing a live request reads (decode:
+        idle rows, mixed: a chunk whose writes all drop; prefill: see
+        :class:`PrefillStep`)."""
         self._tracked()
 
     def _upload(self, non_blocking: bool) -> None:
@@ -128,14 +165,17 @@ class _Step:
 
     def _build(self) -> None:
         self._graph = self._out = self._counts = None
-        if self.device.type != "cuda" or _disabled:
+        eager = _disabled if self._eager is None else self._eager
+        if self.device.type != "cuda" or eager:
             return
         self._upload(False)
         stream = torch.cuda.Stream(device=self.device)
         counters: dict = {}
         stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream), private_counters(counters):
-            for _ in range(WARMUP_TICKS):
+        # the warm-up's launches are the build's, not a tick's or a wave's
+        with torch.cuda.stream(stream), private_counters(counters), \
+                ops.ReplayCounts.record():
+            for _ in range(self.WARMUP):
                 self._body()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         held = {k: t.data_ptr() for k, t in counters.items()}
@@ -148,24 +188,26 @@ class _Step:
         try:
             with ops.ReplayCounts.record() as counts, \
                     private_counters(counters):
-                with torch.cuda.graph(graph, stream=stream):
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=stream):
                     out = self._body()
         finally:
             if collecting:
                 gc.enable()
         if {k: t.data_ptr() for k, t in counters.items()} != held:
             raise RuntimeError(
-                "serving.step: the capture allocated K1 merge counters the "
-                "warm-up did not; the graph would write memory it does not "
-                "own")
+                f"{self.SITE}: the capture allocated K1 merge counters the "
+                f"warm-up did not; the graph would write memory it does not "
+                f"own")
         self._graph, self._out, self._counts = graph, out, counts
         # the graph holds raw pointers into these: keep them for its life
         self._counters, self._stream = counters, stream
 
     def run(self) -> Tuple[torch.Tensor, ...]:
-        """One tick: upload the host mirrors, then replay the graph (or
-        run the step eagerly).  Returns the step's outputs on the device —
-        the graph's static outputs, overwritten by the next tick."""
+        """One tick or wave: upload the host mirrors, then replay the graph
+        (or run the step eagerly).  Returns the step's outputs on the
+        device — the graph's static outputs, overwritten by the next
+        replay."""
         self._upload(True)
         if self._graph is None:
             return self._body()
@@ -283,3 +325,118 @@ class MixedStep(_Step):
         last = hidden[0].index_select(0, (self.len - 1).long())
         clogits = model.logits(last)
         return logits, greedy, clogits, clogits.argmax(dim=-1)
+
+
+class PrefillStep(_Step):
+    """One prefill wave of ``rows`` prompts padded to ``bucket`` tokens
+    over static buffers, built once a key; see the module docstring.
+    Inputs, each with its host mirror (``*_host``, views of this step's
+    staging, written by :meth:`stage`): the ids (rows, bucket), each row's
+    last real position (rows,), and the slots — paged: the adopted prefix
+    lengths (rows,) and the block tables (rows, max_blocks); contiguous:
+    the cache rows (rows,).  :meth:`run` returns (logits (rows, vocab) at
+    each row's last real position, their argmax (rows,)).
+
+    The body is the eager wave's math, unchanged.  Contiguous: the ``pos
+    = 0`` pass (flash attention, K2) over a bucket-long scratch cache,
+    then the rows' first ``bucket`` positions of their slots replaced by
+    the scratch — int8: the whole granules the bucket touches, the slots'
+    scale rows zeroed first, so past the copied granules a slot keeps
+    stale payload under zero scales, which the first write of a granule
+    clears.  The scratch is the step's own: allocated by the capture, in
+    the engine's prefill pool, and zeroed by each replay (eagerly, by each
+    run).  Paged: each row's suffix as a decode at depth over the pool
+    (per-row ``pos`` = adopted prefix; K2-paged reads the adopted blocks),
+    writes straight into the rows' own blocks, bucket padding into the
+    null block.
+
+    The build's warm-up and capture run the paged step on all-null tables
+    at prefix 0, so they write only the null block; the contiguous step
+    on the staged wave, so they write only its own slots, which the
+    replay writes again.  ``PREFILL_WARMUP`` eager runs precede the
+    capture (none: see there)."""
+
+    SITE = "serving.prefill"
+    WARMUP = PREFILL_WARMUP
+
+    def __init__(self, model, cache, bucket: int, rows: int,
+                 max_blocks: Optional[int], device: torch.device,
+                 engine_id, eager: bool = False, pool=None):
+        super().__init__(device, {"engine": engine_id, "bucket": bucket,
+                                  "rows": rows}, eager=eager, pool=pool)
+        self._model = model
+        self._cache = cache
+        self.bucket, self.rows = bucket, rows
+        ni, rp = _align4(rows * bucket), _align4(rows)
+        n = ni + 2 * rp + (rows * max_blocks if max_blocks else 0)
+        self._stage, host, self._inputs = _staging(n, device)
+        self.ids_host = host[:rows * bucket].reshape(rows, bucket)
+        self.last_host = host[ni:ni + rows]
+        self.ids = self._inputs[:rows * bucket].view(rows, bucket)
+        self.last = self._inputs[ni:ni + rows]
+        o = ni + rp
+        self.slots_host = self.slots = None
+        self.prefix_host = self.prefix = None
+        self.tables_host = self.tables = None
+        if max_blocks:
+            self.prefix_host = host[o:o + rows]
+            self.prefix = self._inputs[o:o + rows]
+            self.tables_host = host[o + rp:].reshape(rows, max_blocks)
+            self.tables = self._inputs[o + rp:].view(rows, max_blocks)
+        else:
+            self.slots_host = host[o:o + rows]
+            self.slots = self._inputs[o:o + rows]
+
+    def stage(self, ids, last, slots=None, prefix=None, tables=None) -> None:
+        """Write one wave's inputs into the host mirrors."""
+        self.ids_host[:] = ids
+        self.last_host[:] = last
+        if self.tables_host is None:
+            self.slots_host[:] = slots
+        else:
+            self.prefix_host[:] = prefix
+            self.tables_host[:] = tables
+
+    def _build(self) -> None:
+        if self.tables_host is None:
+            return super()._build()
+        real = self._stage.clone()
+        self._stage.zero_()            # all-null tables, prefix 0
+        try:
+            super()._build()
+        finally:
+            self._stage.copy_(real)
+
+    def _upload(self, non_blocking: bool) -> None:
+        self._inputs.copy_(self._stage, non_blocking=non_blocking)
+
+    @torch.no_grad()
+    def _body(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        model, cache, dev = self._model, self._cache, self.device
+        n, bucket = self.rows, self.bucket
+        if self.tables is not None:
+            hidden, _ = model.model.decode(self.ids, cache, self.prefix,
+                                           block_tables=self.tables)
+        else:
+            quantized = isinstance(cache, dict)
+            if quantized:
+                kv, sc = cache["kv"], cache["scale"]
+                gr = kv.shape[3] // sc.shape[3]
+                ng = -(-bucket // gr)
+                sub = init_kv_cache(model.config, n, ng * gr,
+                                    quantized=True, device=dev)
+            else:
+                sub = init_kv_cache(model.config, n, bucket, device=dev)
+            hidden, sub = model.model.decode(self.ids, sub, 0)
+            slots = self.slots.long()
+            if quantized:
+                # a fill by value: an index write of 0.0 would copy a CPU
+                # scalar, which a capture refuses
+                sc.index_fill_(2, slots, 0.0)
+                sc[:, :, slots, :ng] = sub["scale"]
+                kv[:, :, slots, :ng * gr] = sub["kv"]
+            else:
+                cache[:, :, slots, :bucket] = sub
+        last = hidden[torch.arange(n, device=dev), self.last.long()]
+        logits = model.logits(last)
+        return logits, logits.argmax(dim=-1)

@@ -100,10 +100,19 @@ def test_visible_pairs_match_the_plain_rule(sq, skv, causal, cross):
     (True, {"step_traces": 1, "decode_step_traces": 1, "graph_replays": 30,
             "decode_ticks": 30, "mixed_ticks": 10}, 1),
     (False, {"step_traces": 1, "decode_step_traces": 2, "graph_replays": 0,
-             "decode_ticks": 30, "mixed_ticks": 10}, 1)])
+             "decode_ticks": 30, "mixed_ticks": 10}, 1),
+    # the wave engines: one prefill-graph replay a wave when graphed
+    (True, {"step_traces": 1, "graph_replays": 62, "decode_ticks": 62,
+            "prefill_waves": 12, "prefill_graph_replays": 12}, 0),
+    (True, {"step_traces": 1, "graph_replays": 62, "decode_ticks": 62,
+            "prefill_waves": 12, "prefill_graph_replays": 11}, 1),
+    (False, {"step_traces": 1, "graph_replays": 0, "decode_ticks": 62,
+             "prefill_waves": 12, "prefill_graph_replays": 0}, 0),
+    (False, {"step_traces": 1, "graph_replays": 0, "decode_ticks": 62,
+             "prefill_waves": 12, "prefill_graph_replays": 12}, 1)])
 def test_graph_contract(graphed, m, bad):
-    """One build of each step, and one replay a tick exactly when
-    graphed."""
+    """One build of each step, and one replay a tick (and a wave)
+    exactly when graphed."""
     found = chip_smoke.graph_contract(m, graphed)
     assert len(found) == bad
     with pytest.raises(chip_smoke.CheckFailed) if bad else nullcontext():
@@ -112,6 +121,44 @@ def test_graph_contract(graphed, m, bad):
     with pytest.raises(chip_smoke.CheckFailed):
         chip_smoke.check_graph({"graphed": not graphed, "metrics": m}, "x",
                                graphed=graphed)
+
+
+@pytest.mark.parametrize("keys,traces,ok", [
+    ([(8, 1), (2048, 1), (8, 1)], 2, True),
+    ([(8, 1), (8, 2)], 2, True),
+    ([(8, 1), (8, 1)], 2, False),       # a key built twice
+    ([(8, 1), (16, 1)], 1, False)])
+def test_prefill_traces_count_distinct_wave_keys(keys, traces, ok):
+    m = {"step_traces": 1, "graph_replays": 5, "decode_ticks": 5,
+         "prefill_waves": len(keys), "prefill_graph_replays": len(keys),
+         "prefill_traces": traces}
+    run = {"graphed": True, "metrics": m, "wave_keys": keys}
+    with nullcontext() if ok else pytest.raises(chip_smoke.CheckFailed,
+                                                match="distinct wave keys"):
+        chip_smoke.check_graph(run, "x")
+
+
+def _pass(outs, keys, traces, replays=None):
+    waves = len(keys)
+    return {"graphed": True, "outs": outs, "wave_keys": keys,
+            "metrics": {"step_traces": 1, "graph_replays": 4,
+                        "decode_ticks": 4, "prefill_waves": waves,
+                        "prefill_graph_replays": (waves if replays is None
+                                                  else replays),
+                        "prefill_traces": traces}}
+
+
+@pytest.mark.parametrize("warm,match", [
+    (_pass([[1, 2]], [(8, 1), (16, 1)], 2), None),
+    (_pass([[1, 3]], [(8, 1), (16, 1)], 2), "tokens differ"),
+    (_pass([[1, 2]], [(8, 1), (16, 2)], 3), "built again"),
+    (_pass([[1, 2]], [(8, 1), (16, 1)], 2, replays=1), "prefill replays")])
+def test_warm_pass_builds_nothing(warm, match):
+    """The warm pass: no new build, a replay a wave, the cold tokens."""
+    run = dict(_pass([[1, 2]], [(8, 1), (16, 1)], 2), warm=warm)
+    with nullcontext() if match is None else pytest.raises(
+            chip_smoke.CheckFailed, match=match):
+        chip_smoke.check_warm(run, "x")
 
 
 @pytest.mark.parametrize("eager,identical,differing,first", [
