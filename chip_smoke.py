@@ -53,7 +53,11 @@ any failed check raises, so the script exits non-zero.  Phases:
                  one row of an 8-row, 4096-position cache at pos 0, 1024,
                  3840; int8 with 128-token granules) and the crossover
                  of K1 and that route at s = 4, 16, 64, 256 (``crossover``
-                 line, beside the port's ``CONTIGUOUS_Q_TILED_MIN``); each
+                 line, beside the port's ``CONTIGUOUS_Q_TILED_MIN``); then
+                 the speculative verify window (8 rows of s = 5 at the
+                 main depths): K1, K1-int8, K2-paged, K2-paged-int8 (the
+                 engine's routes) and K1-paged, K1-paged-int8 called at
+                 the same window (``verify_window`` line); each
                  also at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
@@ -80,7 +84,10 @@ any failed check raises, so the script exits non-zero.  Phases:
                  contiguous and paged) must match themselves on the CPU;
                  the tiny chunked engines (8-token chunks; contiguous and
                  paged under both ``chunk_policy`` values, int8
-                 contiguous) must match themselves on the CPU;
+                 contiguous) must match themselves on the CPU; so must
+                 the tiny speculative engines (``spec_k`` 4: n-gram
+                 contiguous, paged and chunked, and a 1-layer draft
+                 model), their ``metrics()["spec"]`` counters too;
                  every engine on the card must have built its decode
                  step once (``step_traces`` 1; chunked: its mixed step
                  and its decode step once each), replayed a graph
@@ -141,6 +148,33 @@ any failed check raises, so the script exits non-zero.  Phases:
                  route (K4 as in 4c with int8 weights); reported: tok/s,
                  TTFT, TPOT, ``mixed_step_ms`` and ``decode_step_ms``,
                  and how many requests' tokens equal the wave phase's;
+  4h-4k. speculative decode (``spec_decode=True, spec_k=4``), each with
+                 its eager twin: 4h ``serving_spec`` (phase 4's engine
+                 and requests), 4i ``serving_spec_paged`` (phase 4b's
+                 requests and pool), 4j ``serving_spec_int8`` (4i with
+                 int8 KV and weights): half the requests draft with a
+                 scripted drafter that replays the base phase's output
+                 (every other one corrupted at column 2), half with the
+                 n-gram drafter; 4k ``serving_spec_chunked_model`` (phase
+                 4e's chunked engine with ``drafter="model"``, the
+                 target's first 2 layers by ``draft_model_from``).
+                 Gates: the verify step (and 4k's mixed step, draft step
+                 and ingest step) built once, one replay a tick, tokens /
+                 launches / routes / spec counters equal to the twin's;
+                 4h-4j: ``drafted_tokens``, ``draft_hit_tokens`` and
+                 ``rollbacks`` > 0, K1 (4h) or K2-paged(-int8) (4i, 4j)
+                 32 a verify tick and the wave kernel 32 a wave, no other
+                 attention kernel, no plain route, paged: prefix hits and
+                 no block in use after the drain, int8 weights: K4 as in
+                 4c; 4k: ``drafted_tokens`` > 0, K1 32 a tick plus 8 a
+                 draft step, K2-paged over the identity view 32 a chunk
+                 plus 2 an ingest step.  Reported beside the base phase:
+                 tok/s, TPOT p50, step ms p50, the mean accepted tokens a
+                 step, peak memory, tokens equal to the base phase's.  4h
+                 then serves a ``warm`` pass on the same engine whose
+                 scripted drafters replay 4h's own cold output (no new
+                 build, a replay a tick and a wave, hits > 0), reported
+                 beside phase 4's warm pass;
   5. training  — after the serving models are freed: Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -170,7 +204,9 @@ K1-paged-int8 by split length (K1 and K1-int8 at phase 2's main and
 all-at-4095 rows, the paged builds at the main, block_len 8 and
 all-at-4095 rows), a torch.profiler window (with CUDA events around it)
 over 5 decode ticks of the contiguous, int8 contiguous, paged and int8
-paged engines, each graphed and then eager (``mode``), and over one
+paged engines, of the chunked engine and of the speculative contiguous,
+paged and int8 paged engines (verify ticks), each graphed and then eager
+(``mode``), and over one
 phase-5 train step (kernel time by name and class, the optimizer's device
 time, device busy share) for PERF.md.
 """
@@ -1237,10 +1273,13 @@ def phase_kernels(torch):
 
     phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                         tols)
+    phase_verify_window_rows(torch, record, randn, int8_payload,
+                             int8_scales, tols, paged_rows[0][10])
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
-    # gate/up, 256 rows (the kernel's row limit), then the tiny model's
+    # gate/up, 256 rows (the kernel's row limit), the speculative verify
+    # tick's 40 rows at gate/up and the LM head, then the tiny model's
     # float32 widths
     for dt, rows, k, n, main in (
             (bf16, 8, 4096, 4096, False),          # q_proj, o_proj
@@ -1252,6 +1291,9 @@ def phase_kernels(torch):
             (bf16, 64, 4096, 14336, False),
             (bf16, 128, 4096, 14336, False),
             (bf16, 256, 4096, 4096, False),
+            # the speculative verify tick: 8 rows x (k + 1) = 40
+            (bf16, 40, 4096, 14336, False),
+            (bf16, 40, 4096, 128256, False),
             (f32, 8, 64, 32, False),
             (f32, 8, 128, 64, False),
             (f32, 3, 64, 256, False)):
@@ -1317,6 +1359,149 @@ def phase_kernels(torch):
     emit({"phase": "kernels_summary",
           "kernels": [dict(name=n, **r) for n, r in results.items()]})
     return results
+
+
+def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
+                             tols, share):
+    """Phase 2's rows at the speculative verify window's shape: 8 rows of
+    s = SPEC_K + 1 = 5 queries at phase 2's main depths (a window at 4095
+    runs past the 4096-key cache: its pad columns), bf16, head_dim 128.
+    Contiguous: K1 and K1-int8 (128-token granules), the engine's route.
+    Paged (block_len 128, max_blocks 32, K1-paged's shuffled pool with
+    shared first blocks): K2-paged and K2-paged-int8, the engine's route
+    for s > 1, and beside them K1-paged and K1-paged-int8 at the same
+    window, called directly (the route does not send s > 1 there).  Each
+    against the plain version, with SDPA's time over the (pre-gathered,
+    dequantized) cache and the bound; the ``verify_window`` line puts the
+    paged kernels side by side."""
+    from paddle_tpu_torch.ops import (cached_decode_attention_reference,
+                                      decode_attention_cuda,
+                                      decode_attention_int8_cuda,
+                                      decode_attention_paged_cuda,
+                                      decode_attention_paged_int8_cuda,
+                                      flash_attention_fwd_paged_cuda,
+                                      flash_attention_fwd_paged_int8_cuda)
+    import torch.nn.functional as TF
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    b, s, hq, hkv, d, L, gr, bl, mb = 8, SPEC_K + 1, 32, 8, 128, 4096, 128, \
+        128, 32
+    pos_list = [0, 4095, 17, 1000, 2047, 3000, 511, 128]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    atol, rtol = tols(bf16)
+    kj = torch.arange(L, device=dev)
+    qi = pos.long()[:, None] + torch.arange(s, device=dev)[None]
+    mask = (kj[None, None] <= qi[:, :, None])[:, None]          # B,1,s,L
+    ops = sum(4 * d * hq * min(p + si + 1, L)
+              for p in pos_list for si in range(s))
+    live = sum(min(L, p + s) for p in pos_list)
+    tables, n_blocks, live_keys = paged_layout(pos_list, s, bl, mb, share,
+                                               seed=len(pos_list))
+    live_blocks = len({int(tables[r, j // bl])
+                       for r, p in enumerate(pos_list)
+                       for j in range(0, min(p + s, L), bl)})
+    tables = torch.from_numpy(tables).to(dev)
+    idx = tables.long()
+
+    def deq(pay, sc, paged):
+        if paged:
+            return (pay[idx].float() * sc[idx][:, :, None, :, None]).reshape(
+                b, L, hkv, d).to(bf16)
+        return (pay.float().view(b, L // gr, gr, hkv, d)
+                * sc[:, :, None, :, None]).view(b, L, hkv, d).to(bf16)
+
+    side = {}
+    for name, paged, int8, fn in (
+            ("decode_attention", False, False, decode_attention_cuda),
+            ("decode_attention_int8", False, True,
+             decode_attention_int8_cuda),
+            ("flash_attention_fwd_paged", True, False,
+             flash_attention_fwd_paged_cuda),
+            ("decode_attention_paged", True, False,
+             decode_attention_paged_cuda),
+            ("flash_attention_fwd_paged_int8", True, True,
+             flash_attention_fwd_paged_int8_cuda),
+            ("decode_attention_paged_int8", True, True,
+             decode_attention_paged_int8_cuda)):
+        rows = n_blocks if paged else b
+        width = bl if paged else L
+        esz = 1 if int8 else 2
+        sets = []
+        for _ in range(copies(2 * rows * width * hkv * d * esz)):
+            q = randn(b, s, hq, d)
+            if int8:
+                shp = (rows, hkv) if paged else (b, L // gr, hkv)
+                sets.append((q, int8_payload(rows, width, hkv, d),
+                             int8_payload(rows, width, hkv, d),
+                             int8_scales(*shp), int8_scales(*shp)))
+            else:
+                sets.append((q, randn(rows, width, hkv, d),
+                             randn(rows, width, hkv, d)))
+        kw = dict(block_tables=tables) if paged else {}
+
+        def call(t, f=fn, kw=kw, int8=int8):
+            sc = dict(k_scale=t[3], v_scale=t[4]) if int8 else {}
+            return f(t[0], t[1], t[2], pos=pos, **kw, **sc)
+
+        def plain(t, kw=kw, int8=int8):
+            sc = dict(k_scale=t[3], v_scale=t[4]) if int8 else {}
+            return cached_decode_attention_reference(t[0], t[1], t[2], pos,
+                                                     **kw, **sc)
+        got, want = call(sets[0]), plain(sets[0])
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = within(got, want, atol, rtol) and bool(
+            torch.isfinite(got).all().item())
+        kfns = [lambda t=t: call(t) for t in sets]
+        plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
+                           budget_ms=100.0)
+        dense = []
+        for t in sets[:2]:
+            if int8:
+                dense.append((t[0], deq(t[1], t[3], paged),
+                              deq(t[2], t[4], paged)))
+            elif paged:
+                dense.append((t[0], t[1][idx].reshape(b, L, hkv, d),
+                              t[2][idx].reshape(b, L, hkv, d)))
+            else:
+                dense.append(t[:3])
+        lib_ms = time_ms(torch, [
+            lambda t=t: TF.scaled_dot_product_attention(
+                t[0].transpose(1, 2), t[1].transpose(1, 2),
+                t[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+            for t in dense])
+        del dense
+        nbytes = 2 * b * s * hq * d * 2 + (live_keys if paged else live) \
+            * hkv * d * esz * 2 + 4 * b * ((mb + 1) if paged else 1)
+        if int8:
+            nbytes += (live_blocks if paged else sum(
+                -(-min(L, p + s) // gr) for p in pos_list)) * hkv * 4 * 2
+        bms, by = bound(nbytes, ops, BF16_FLOPS)
+        route = ("the engine's route" if name.startswith("flash") or not paged
+                 else "called directly: the route sends s > 1 to K2-paged")
+        row = record(name,
+                     f"verify window: B={b} s={s} Hq={hq} Hkv={hkv} D={d} "
+                     + (f"block_len={bl} max_blocks={mb} pool={n_blocks} "
+                        if paged else f"L={L} ")
+                     + f"pos={pos_list}"
+                     + (f" int8 K/V{'' if paged else f' granule {gr}'}, "
+                        f"bfloat16 q" if int8 else " bfloat16"),
+                     err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms,
+                     lib_ms, bms, by, False,
+                     note=INT8_LIBRARY_NOTE if int8 else (
+                         PAGED_LIBRARY_NOTE if paged else None),
+                     extra={"verify_window": True, "route": route})
+        side[name] = {k: row[k] for k in ("kernel_ms", "device_ms",
+                                          "library_ms", "bound_ms")}
+        del sets, got, want
+    emit({"phase": "verify_window", "s": s, "rows": side,
+          "k1_paged_over_k2_paged": round(
+              side["decode_attention_paged"]["kernel_ms"]
+              / side["flash_attention_fwd_paged"]["kernel_ms"], 3),
+          "k1_paged_int8_over_k2_paged_int8": round(
+              side["decode_attention_paged_int8"]["kernel_ms"]
+              / side["flash_attention_fwd_paged_int8"]["kernel_ms"], 3)})
 
 
 def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
@@ -1482,8 +1667,8 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
 # -- phase 3 ------------------------------------------------------------------------
 
 def phase_model(torch):
-    from paddle_tpu_torch.models import (LlamaForCausalLM, init_kv_cache,
-                                         llama3_8b_config,
+    from paddle_tpu_torch.models import (LlamaForCausalLM, draft_model_from,
+                                         init_kv_cache, llama3_8b_config,
                                          quantize_for_decode,
                                          tiny_llama_config)
     from paddle_tpu_torch.ops._dispatch import reference_mode
@@ -1659,10 +1844,10 @@ def phase_model(torch):
     tiny_cpu = LlamaForCausalLM(tiny, device="cpu", seed=1)
     tiny_card = copy.deepcopy(tiny_cpu).to(dev)   # the same weights
 
-    def serve(m, device, reqs=prompts, **kw):
+    def serve(m, device, reqs=prompts, new=8, **kw):
         eng = ServingEngine(m, num_slots=2, max_length=64, device=device,
                             **kw)
-        rids = [eng.submit(p, max_new_tokens=8) for p in reqs]
+        rids = [eng.submit(p, max_new_tokens=new) for p in reqs]
         out = dict(eng.drain())
         return [out[r] for r in rids], eng
 
@@ -1748,6 +1933,48 @@ def phase_model(torch):
                           f"({policy})", c_eng_cpu)
             check(cm["mixed_ticks"] > 0 and cm["prefill_waves"] == 0,
                   f"tiny chunked {layout} engine ran no mixed tick")
+
+    # the tiny speculative engines (spec_k 4, the n-gram drafter):
+    # contiguous, paged, chunked (8-token chunks), and the draft model (a
+    # 1-layer draft_model_from of each side's model): card vs CPU, the
+    # tokens and every metrics()["spec"] counter identical, the verify
+    # step (and the draft steps) built once and replayed
+    for layout, reqs, kw, layers in (
+            ("contiguous", prompts, {}, 0),
+            ("paged", paged_prompts, paged_kw, 0),
+            ("chunked", prompts, dict(chunked=True, prefill_chunk=8), 0),
+            ("model drafter", prompts, {}, 1)):
+        kw = dict(kw, spec_decode=True, spec_k=SPEC_K)
+        card_kw, cpu_kw = dict(kw), dict(kw)
+        if layers:
+            card_kw.update(drafter="model", draft_model=draft_model_from(
+                tiny_card, num_layers=layers))
+            cpu_kw.update(drafter="model", draft_model=draft_model_from(
+                tiny_cpu, num_layers=layers))
+        # 16 new tokens: the n-gram drafter needs some history to match
+        s_card, s_eng = serve(tiny_card, "cuda", reqs, new=16, **card_kw)
+        s_cpu, s_eng_cpu = serve(tiny_cpu, "cpu", reqs, new=16, **cpu_kw)
+        sm, sm_cpu = s_eng.metrics(), s_eng_cpu.metrics()
+        emit({"phase": "model_tiny_f32_spec", "layout": layout,
+              "requests": len(reqs), "spec": sm["spec"],
+              "identical_card_vs_cpu": s_card == s_cpu,
+              "spec_identical_card_vs_cpu": sm["spec"] == sm_cpu["spec"],
+              "draft_traces": sm["draft_traces"],
+              **graph_fields(s_eng, s_eng_cpu)})
+        what = f"tiny f32 spec {layout} engine"
+        check(s_card == s_cpu,
+              f"{what} differs card vs cpu: {s_card} vs {s_cpu}")
+        check(sm["spec"] == sm_cpu["spec"],
+              f"{what}: spec counters differ card vs cpu: {sm['spec']} vs "
+              f"{sm_cpu['spec']}")
+        check(sm["spec"]["drafted_tokens"] > 0, f"{what} drafted nothing")
+        check_graphed(s_eng, what, s_eng_cpu)
+        if layers:
+            d = s_eng._drafters["model"]
+            check(d.draft_traces == 1 and d.ingest_traces == 1
+                  and d.graphed, f"{what}: draft steps built "
+                  f"{d.draft_traces} / {d.ingest_traces} times, graphed "
+                  f"{d.graphed}")
     return model, qmodel
 
 
@@ -1946,7 +2173,8 @@ PASS_COUNTS = ("requests_finished", "tokens_generated", "prefill_waves",
                "prefill_tokens_total")
 
 
-def _serve_8b(torch, model, prompts, new_tokens=32, warm=False, **kw):
+def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
+              submit_kw=None, warm_kw=None, **kw):
     """One 8B-width serving run: the engine is built (its decode step's
     warm-up and graph capture included, unless ``disable_graphs()`` is
     open), then every launch and route counter is reset just before the
@@ -1957,7 +2185,10 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False, **kw):
     memory over the pass; the prefill steps are built inside this (cold)
     pass, on each key's first use.  ``warm``: then serve the same
     requests again on the same engine, as ``run["warm"]`` (metrics,
-    launches and routes of that pass alone).  The engine is freed."""
+    launches and routes of that pass alone).  ``submit_kw``: each
+    request's extra ``submit`` arguments (a speculative phase's
+    drafters); ``warm_kw(cold run)``: the warm pass's, when they differ.
+    The engine is freed."""
     from paddle_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, num_slots=8, max_length=4096,
@@ -1968,31 +2199,36 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False, **kw):
             keys.append((int(ids.shape[1]), int(ids.shape[0])))
             return _fn(ids, *args, **kwargs)
         setattr(eng, name, record)
-    run = _serve_pass(torch, eng, prompts, new_tokens, keys)
+    run = _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw)
     if warm:
-        run["warm"] = _serve_pass(torch, eng, prompts, new_tokens, keys)
+        run["warm"] = _serve_pass(torch, eng, prompts, new_tokens, keys,
+                                  warm_kw(run) if warm_kw else submit_kw)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return run
 
 
-def _serve_pass(torch, eng, prompts, new_tokens, keys):
+def _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw=None):
     """One pass of ``prompts`` through ``eng`` (see :func:`_serve_8b`):
-    counters, latency series and wave keys of this pass alone."""
+    counters, latency series and wave keys of this pass alone; a draft
+    model's builds and step runs under ``draft``."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops import _dispatch
     from paddle_tpu_torch.serving.engine import _Hist
 
     before = eng.metrics()
     marks = {k: len(getattr(eng, h).values) for k, h in PASS_HISTS.items()}
+    spec_marks = spec_hist_marks(eng)
     k0 = len(keys)
     ops.reset_launch_counts()
     _dispatch.reset_kernel_paths()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    submit_kw = submit_kw or [{}] * len(prompts)
+    rids = [eng.submit(p, max_new_tokens=new_tokens, **skw)
+            for p, skw in zip(prompts, submit_kw)]
     out = dict(eng.drain())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2005,6 +2241,8 @@ def _serve_pass(torch, eng, prompts, new_tokens, keys):
             part = _Hist()
             part.values = getattr(eng, h).values[marks[k]:]
             m[k] = part.summary()
+    if "spec" in m:
+        m["spec"] = spec_pass(m["spec"], before["spec"], eng, spec_marks)
     run = {"outs": [out[r] for r in rids], "wall": wall,
            "launches": ops.launch_counts(),
            "routes": {f"{op}/{path}": n for (op, path), n in
@@ -2014,12 +2252,59 @@ def _serve_pass(torch, eng, prompts, new_tokens, keys):
            "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2**30,
                                    3),
            "cache_bytes": eng.cache_hbm_bytes}
+    dm = getattr(eng, "_drafters", {}).get("model")
+    if dm is not None:
+        run["draft"] = {"draft_traces": dm.draft_traces,
+                        "ingest_traces": dm.ingest_traces,
+                        "graphed": dm.graphed, "draft_runs": dm.draft_runs,
+                        "ingest_runs": dm.ingest_runs}
     vocab = eng.config.vocab_size
     for r, o in zip(rids, run["outs"]):
         check(len(o) == new_tokens, f"request {r} returned {len(o)} tokens")
         check(all(0 <= t < vocab for t in o),
               f"request {r} returned a token outside the vocabulary")
     return run
+
+
+SPEC_COUNTS = ("drafted_tokens", "draft_hit_tokens", "draft_miss_tokens",
+               "rollbacks")
+
+
+def spec_hist_marks(eng):
+    """Where each accepted-per-step series of a speculative engine stands
+    (engine total and by drafter kind), so a pass reads its own share."""
+    if not getattr(eng, "spec", False):
+        return {}
+    marks = {None: len(eng._spec_total.accept.values)}
+    marks.update({k: len(c.accept.values)
+                  for k, c in eng._spec_kinds.items()})
+    return marks
+
+
+def spec_pass(now, before, eng, marks):
+    """A pass's share of the engine's ``metrics()["spec"]`` block: the
+    counts less ``before``'s, the accepted-per-step series from
+    ``marks`` on (:func:`spec_hist_marks`)."""
+    from paddle_tpu_torch.serving.engine import _Hist
+
+    def share(cur, old, values, mark):
+        out = dict(cur)
+        for k in SPEC_COUNTS:
+            out[k] = cur[k] - (old or {}).get(k, 0)
+        out["draft_hit_rate"] = (round(out["draft_hit_tokens"]
+                                       / out["drafted_tokens"], 3)
+                                 if out["drafted_tokens"] else 0.0)
+        h = _Hist()
+        h.values = values[mark:]
+        out["accepted_per_step"] = h.summary()
+        return out
+    out = share(now, before, eng._spec_total.accept.values, marks[None])
+    if "by_drafter" in now:
+        out["by_drafter"] = {
+            k: share(v, before.get("by_drafter", {}).get(k),
+                     eng._spec_kinds[k].accept.values, marks.get(k, 0))
+            for k, v in now["by_drafter"].items()}
+    return out
 
 
 def serving_fields(run):
@@ -2076,7 +2361,7 @@ def check_warm(run, what):
           f"{what} warm pass: tokens differ from the cold pass's")
 
 
-def eager_twin(torch, model, prompts, run, what, **kw):
+def eager_twin(torch, model, prompts, run, what, submit_kw=None, **kw):
     """The same engine on the same requests with its decode step run
     eagerly (``disable_graphs()``, the port's ``jax.disable_jit()``).
     Returns the twin's line: its timings, its graph fields, the token
@@ -2086,12 +2371,18 @@ def eager_twin(torch, model, prompts, run, what, **kw):
     from paddle_tpu_torch.serving import disable_graphs
 
     with disable_graphs():
-        twin = _serve_8b(torch, model, prompts, **kw)
+        twin = _serve_8b(torch, model, prompts, submit_kw=submit_kw, **kw)
     check_graph(twin, f"{what} eager twin", graphed=False)
-    return {**serving_fields(twin),
-            **twin_comparison(run["outs"], twin["outs"]),
-            "launches_identical": twin["launches"] == run["launches"],
-            "routes_identical": twin["routes"] == run["routes"]}
+    out = {**serving_fields(twin),
+           **twin_comparison(run["outs"], twin["outs"]),
+           "launches_identical": twin["launches"] == run["launches"],
+           "routes_identical": twin["routes"] == run["routes"]}
+    if "draft" in twin:
+        out["draft"] = twin["draft"]
+    if "spec" in twin["metrics"]:
+        out["spec_identical"] = (twin["metrics"]["spec"]
+                                 == run["metrics"]["spec"])
+    return out
 
 
 def check_twin(twin, what):
@@ -2105,30 +2396,14 @@ def check_twin(twin, what):
           f"graphed engine's (replay accounting)")
 
 
-def _check_int8_launches(m, launches, routes, attention):
-    """The int8 engine's launch contract: each kernel of ``attention``
-    (name -> 'tick' or 'wave') 32 times a decode tick or a wave, K4 at
-    least 7 x 32 + 1 times a decode tick, every other attention kernel
-    never, RMSNorm on every layer, no plain route."""
-    per = {"tick": m["decode_ticks"], "wave": m["prefill_waves"]}
-    for name, unit in attention.items():
-        check(launches[name] == LAYERS_8B * per[unit],
-              f"{name} launched {launches[name]} times for {per[unit]} "
-              f"{unit}s")
-    others = [n for n in ("decode_attention", "flash_attention_fwd",
-                          "decode_attention_paged",
-                          "flash_attention_fwd_paged",
-                          "decode_attention_int8",
-                          "decode_attention_paged_int8",
-                          "flash_attention_fwd_paged_int8")
-              if n not in attention and launches[n]]
-    check(not others, f"attention kernels off this path ran: {others}")
+def _check_int8_launches(what, m, launches, routes, attention):
+    """The int8 engine's launch contract: :func:`check_attention_launches`
+    and K4 at least 7 x 32 + 1 times a decode tick."""
+    check_attention_launches(what, launches, routes,
+                             attention_launches(m, attention))
     check(launches["int8_matmul"] >= K4_PER_TICK * m["decode_ticks"],
-          f"K4 launched {launches['int8_matmul']} times for "
+          f"{what}: K4 launched {launches['int8_matmul']} times for "
           f"{m['decode_ticks']} decode ticks")
-    check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
-    plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
-    check(not plain, f"plain routes taken on the card: {plain}")
 
 
 def phase_serving_int8(torch, qmodel, kernels, paged_metrics):
@@ -2166,12 +2441,13 @@ def phase_serving_int8(torch, qmodel, kernels, paged_metrics):
     check(kv["kv_dtype"] == "int8" and kv["quantized_blocks"] > 0,
           "the int8 pool holds no int8 block")
     check(kv["blocks_in_use"] == 0, "blocks still in use after the drain")
-    _check_int8_launches(m, launches, routes,
-                         {"decode_attention_paged_int8": "tick",
-                          "flash_attention_fwd_paged_int8": "wave"})
+    _check_int8_launches("phase 4c", m, launches, routes,
+                         {"decode_attention_paged_int8": ("tick",),
+                          "flash_attention_fwd_paged_int8": ("wave",)})
     for name in ("decode_attention_paged_int8",
                  "flash_attention_fwd_paged_int8", "int8_matmul"):
         kernels[name]["launches"] = launches[name]
+    return run
 
 
 def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
@@ -2193,9 +2469,9 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
     check((m["prefill_waves"], m["decode_ticks"])
           == (metrics4["prefill_waves"], metrics4["decode_ticks"]),
           "phase 4d schedule differs from phase 4's")
-    _check_int8_launches(m, launches, routes,
-                         {"decode_attention_int8": "tick",
-                          "flash_attention_fwd": "wave"})
+    _check_int8_launches("phase 4d", m, launches, routes,
+                         {"decode_attention_int8": ("tick",),
+                          "flash_attention_fwd": ("wave",)})
     kernels["decode_attention_int8"]["launches"] = \
         launches["decode_attention_int8"]
     return run
@@ -2205,16 +2481,17 @@ def phase_serving_int8_contiguous(torch, qmodel, kernels, metrics4):
 # ticks each runs on: "tick" every tick's decode rows, "mixed" every chunk)
 CHUNKED_PHASES = (
     ("4e", "serving_chunked", dict(chunk_policy="prefill"),
-     {"decode_attention": "tick", "flash_attention_fwd_paged": "mixed"}),
+     {"decode_attention": ("ticks",),
+      "flash_attention_fwd_paged": ("mixed",)}),
     ("4f", "serving_chunked_paged",
      dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS,
           chunk_policy="decode"),
-     {"decode_attention_paged": "tick", "flash_attention_fwd_paged":
-      "mixed"}),
+     {"decode_attention_paged": ("ticks",),
+      "flash_attention_fwd_paged": ("mixed",)}),
     ("4g", "serving_chunked_int8",
      dict(kv_cache_dtype="int8", int8_weights=True, chunk_policy="prefill"),
-     {"decode_attention_int8": "tick",
-      "flash_attention_fwd_paged_int8": "mixed"}))
+     {"decode_attention_int8": ("ticks",),
+      "flash_attention_fwd_paged_int8": ("mixed",)}))
 ATTENTION_KERNELS = ("decode_attention", "flash_attention_fwd",
                      "decode_attention_paged", "flash_attention_fwd_paged",
                      "decode_attention_int8", "decode_attention_paged_int8",
@@ -2253,16 +2530,8 @@ def phase_serving_chunked(torch, model, kernels, phase, label, kw,
     check(m["prefill_waves"] == 0 and m["mixed_ticks"] > 0,
           f"{what}: prefill waves {m['prefill_waves']}, mixed ticks "
           f"{m['mixed_ticks']}")
-    per = {"tick": m["ticks"], "mixed": m["mixed_ticks"]}
-    for name, unit in attention.items():
-        check(launches[name] == LAYERS_8B * per[unit],
-              f"{what}: {name} launched {launches[name]} times for "
-              f"{per[unit]} {unit} ticks")
-    others = [n for n in ATTENTION_KERNELS
-              if n not in attention and launches[n]]
-    check(not others, f"{what}: attention kernels off this path ran: "
-          f"{others}")
-    check(launches["rms_norm"] > 0, f"{what}: RMSNorm kernel not launched")
+    check_attention_launches(what, launches, routes,
+                             attention_launches(m, attention))
     if kw.get("int8_weights"):
         passes = m["ticks"] + m["mixed_ticks"]
         check(launches["int8_matmul"] >= K4_PER_TICK * passes,
@@ -2273,11 +2542,250 @@ def phase_serving_chunked(torch, model, kernels, phase, label, kw,
               f"{what}: no prefix hit on the shared prompt")
         check(m["kv_cache"]["blocks_in_use"] == 0,
               f"{what}: blocks still in use after the drain")
+    if not kw.get("paged"):
+        name = [n for n, u in attention.items() if u == ("mixed",)][0]
+        kernels[name + "/identity"]["launches"] = launches[name]
+    return run
+
+
+# -- the speculative phases (4h-4k) ----------------------------------------------
+
+SPEC_K = 4
+# the draft model of phase 4k: the target's first 2 of 32 layers
+DRAFT_LAYERS = 2
+
+
+class ScriptDrafter:
+    """A host drafter that proposes a request's known continuation: the
+    tokens ``stream`` (the same request's output in an earlier phase)
+    after what the request has generated so far, with the draft at column
+    2 changed when ``corrupt`` (a rejection inside every full window).
+    Random weights and prompts give the n-gram drafter few hits, so half
+    of each speculative phase's requests carry one of these."""
+
+    kind = "scripted"
+    uses_device = False
+
+    def __init__(self, prompt, stream, k, vocab, corrupt):
+        self.prompt, self.stream = prompt, list(stream)
+        self.k, self.vocab, self.corrupt = k, vocab, corrupt
+
+    def propose(self, history):
+        import numpy as np
+        g = len(history) - len(self.prompt)
+        prop = self.stream[g:g + self.k]
+        if self.corrupt and len(prop) > 2:
+            prop = prop[:2] + [(prop[2] + 1) % self.vocab] + prop[3:]
+        return np.asarray(prop, np.int32)
+
+    def reset_slot(self, i):
+        pass
+
+
+def spec_submit_kw(prompts, streams, vocab):
+    """Phases 4h-4j's drafters: even requests a :class:`ScriptDrafter` of
+    the non-speculative phase's output (every other one corrupted at
+    column 2), odd requests the n-gram drafter."""
+    return [{"drafter": ScriptDrafter(p, o, SPEC_K, vocab, corrupt=i % 4 == 2)
+             if i % 2 == 0 else "ngram"}
+            for i, (p, o) in enumerate(zip(prompts, streams))]
+
+
+def spec_fields(run, base):
+    """A speculative run's report beside its non-speculative phase's
+    (``base``): tok/s, TPOT p50, step ms p50 (the verify tick), the mean
+    accepted tokens a step, peak memory, and how many requests' tokens
+    equal the base phase's (bf16 sums differ between s = 1 and s = 5, so
+    this is reported, not gated)."""
+    def one(r):
+        m = r["metrics"]
+        ntok = sum(len(o) for o in r["outs"])
+        return {"tok_per_s": round(ntok / r["wall"], 2),
+                "tpot_ms_p50": m["tpot_ms"].get("p50"),
+                "step_ms_p50": m["decode_step_ms"].get("p50"),
+                "mixed_step_ms_p50": m.get("mixed_step_ms", {}).get("p50"),
+                "peak_memory_gb": r["peak_memory_gb"]}
+    same = sum(a == b for a, b in zip(run["outs"], base["outs"]))
+    sp = run["metrics"]["spec"]
+    return {"spec": sp, "accepted_per_step_mean":
+            sp["accepted_per_step"].get("mean"),
+            "this_run": one(run), "non_spec_phase": one(base),
+            "same_tokens_as_non_spec": f"{same}/{len(run['outs'])}"}
+
+
+def attention_launches(m, attention):
+    """The launches each kernel of ``attention`` owes a run with metrics
+    ``m``: 32 a unit (name -> units: "tick" every decode or verify tick,
+    "wave" every prefill wave, "mixed" every chunk, "ticks" every tick of
+    a chunked engine)."""
+    per = {"tick": m["decode_ticks"], "wave": m["prefill_waves"],
+           "mixed": m.get("mixed_ticks", 0), "ticks": m["ticks"]}
+    return {name: LAYERS_8B * sum(per[u] for u in units)
+            for name, units in attention.items()}
+
+
+def check_attention_launches(what, launches, routes, want):
+    """Each kernel of ``want`` launched exactly its count there, every
+    other attention kernel never, RMSNorm on every layer, no plain
+    route."""
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{what}: {name} launched {launches[name]} times, want {n}")
+    others = [n for n in ATTENTION_KERNELS
+              if n not in want and launches[n]]
+    check(not others, f"{what}: attention kernels off this path ran: "
+          f"{others}")
+    check(launches["rms_norm"] > 0, f"{what}: RMSNorm kernel not launched")
     plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
     check(not plain, f"{what}: plain routes taken on the card: {plain}")
-    if not kw.get("paged"):
-        name = [n for n, u in attention.items() if u == "mixed"][0]
-        kernels[name + "/identity"]["launches"] = launches[name]
+
+
+# (phase, line label, engine options, attention kernels and their units)
+SPEC_PHASES = (
+    ("4h", "serving_spec", dict(),
+     {"decode_attention": ("tick",), "flash_attention_fwd": ("wave",)}),
+    ("4i", "serving_spec_paged",
+     dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS),
+     {"flash_attention_fwd_paged": ("tick", "wave")}),
+    ("4j", "serving_spec_int8",
+     dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS,
+          kv_cache_dtype="int8", int8_weights=True),
+     {"flash_attention_fwd_paged_int8": ("tick", "wave")}))
+
+
+def phase_serving_spec(torch, model, phase, label, kw, attention, prompts,
+                       base):
+    """Phases 4h-4j: the speculative engine (``spec_k`` 4) on a
+    non-speculative phase's engine, requests and pool (``base``: that
+    phase's run), graphed, then its eager twin.  Half the requests draft
+    with a :class:`ScriptDrafter` of ``base``'s output, half with the
+    n-gram drafter.  Gates: the verify step built once, one graph replay
+    a tick, tokens / launches / routes / spec counters equal to the
+    twin's; ``drafted_tokens``, ``draft_hit_tokens`` and ``rollbacks``
+    > 0; each attention kernel 32 times its units (the verify window:
+    K1 at s = 5 contiguous, K2-paged(-int8) paged), no other attention
+    kernel, no plain route; paged: prefix hits > 0 and no block in use
+    after the drain (``truncate_to`` gave back every draft block); int8
+    weights: K4 at least 7 x 32 + 1 a tick.
+
+    Where ``base`` has a warm pass (phase 4), the engine serves the
+    requests a second time (``warm``), its scripted drafters replaying the
+    speculative cold pass's own output: no new build, a replay a wave and
+    a tick, hits > 0; reported beside ``base``'s warm pass, with whether
+    its tokens equal the cold pass's."""
+    kw = dict(kw, spec_decode=True, spec_k=SPEC_K)
+    vocab = model.config.vocab_size
+    skw = spec_submit_kw(prompts, base["outs"], vocab)
+    warm = "warm" in base
+    run = _serve_8b(torch, model, prompts, submit_kw=skw, warm=warm,
+                    warm_kw=lambda cold: spec_submit_kw(prompts, cold["outs"],
+                                                        vocab), **kw)
+    what = f"phase {phase}"
+    twin = eager_twin(torch, model, prompts, run, what, submit_kw=skw, **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    line = {"phase": label, "requests": len(prompts),
+            "prompt_lengths": [int(p.size) for p in prompts],
+            "new_tokens": 32, **{k: v for k, v in kw.items()},
+            **serving_fields(run), **spec_fields(run, base),
+            "prefill_waves": m["prefill_waves"],
+            "decode_ticks": m["decode_ticks"], "launches": launches,
+            "routes": routes, "eager_twin": twin}
+    if "kv_cache" in m:
+        line["kv_cache"] = m["kv_cache"]
+    if warm:
+        w = run["warm"]
+        line["warm"] = {**serving_fields(w), **spec_fields(w, base["warm"]),
+                        "tokens_identical_to_cold": w["outs"] == run["outs"]}
+    emit(line)
+    check_graph(run, what)
+    check_twin(twin, what)
+    if warm:
+        wm = w["metrics"]
+        check(wm["prefill_traces"] == m["prefill_traces"]
+              and wm["prefill_graph_replays"] == wm["prefill_waves"],
+              f"{what} warm pass: prefill_traces {wm['prefill_traces']} "
+              f"after {m['prefill_traces']}, {wm['prefill_graph_replays']} "
+              f"replays for {wm['prefill_waves']} waves")
+        check_graph(dict(w, wave_keys=run["wave_keys"] + w["wave_keys"]),
+                    f"{what} warm pass")
+        check(wm["spec"]["draft_hit_tokens"] > 0,
+              f"{what} warm pass: no draft hit")
+    check(twin["spec_identical"],
+          f"{what}: the eager twin's spec counters differ")
+    sp = m["spec"]
+    for key in ("drafted_tokens", "draft_hit_tokens", "rollbacks"):
+        check(sp[key] > 0, f"{what}: spec {key} is {sp[key]}")
+    check_attention_launches(what, launches, routes,
+                             attention_launches(m, attention))
+    if kw.get("int8_weights"):
+        check(launches["int8_matmul"] >= K4_PER_TICK * m["decode_ticks"],
+              f"{what}: K4 launched {launches['int8_matmul']} times for "
+              f"{m['decode_ticks']} verify ticks")
+    if kw.get("paged"):
+        check(m["kv_cache"]["prefix_hit_tokens"] > 0,
+              f"{what}: no prefix hit on the shared prompt")
+        check(m["kv_cache"]["blocks_in_use"] == 0,
+              f"{what}: blocks still in use after the drain")
+    return run
+
+
+def phase_serving_spec_chunked_model(torch, model, prompts, base):
+    """Phase 4k: phase 4e's engine (contiguous, ``chunked=True,
+    prefill_chunk=256``) speculating with a draft model, the target's
+    first ``DRAFT_LAYERS`` layers (``draft_model_from``: the same
+    storage), graphed, then its eager twin.  Gates: the mixed step and
+    the verify step built once each, one replay a tick; the draft step
+    built once (``draft_traces`` 1) and the ingest step once, both
+    graphed (the twin's not); tokens, launches, routes and spec counters
+    equal to the twin's; ``drafted_tokens`` > 0; K1 32 a tick (the verify
+    half of every tick, s = 5) plus the draft model's 2 + 2 x 3 a draft
+    step (its window at s = 5 and three one-token steps), K2-paged over
+    the identity view 32 a chunk plus 2 an ingest step (16 tokens a row),
+    no other attention kernel, no plain route.  ``base``: phase 4e's
+    run."""
+    from paddle_tpu_torch.models import draft_model_from
+
+    dm = draft_model_from(model, num_layers=DRAFT_LAYERS)
+    kw = dict(chunked=True, prefill_chunk=256, chunk_policy="prefill",
+              spec_decode=True, spec_k=SPEC_K, drafter="model",
+              draft_model=dm)
+    run = _serve_8b(torch, model, prompts, **kw)
+    what = "phase 4k"
+    twin = eager_twin(torch, model, prompts, run, what, **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    dr = run["draft"]
+    line = {"phase": "serving_spec_chunked_model", "requests": len(prompts),
+            "prompt_lengths": [int(p.size) for p in prompts],
+            "new_tokens": 32, "chunked": True, "prefill_chunk": 256,
+            "spec_k": SPEC_K, "drafter": "model",
+            "draft_layers": DRAFT_LAYERS, **serving_fields(run),
+            **spec_fields(run, base), "ticks": m["ticks"],
+            "draft": dr, "launches": launches, "routes": routes,
+            "eager_twin": twin}
+    emit(line)
+    check_graph(run, what)
+    check_twin(twin, what)
+    check(twin["spec_identical"],
+          f"{what}: the eager twin's spec counters differ")
+    check(dr["draft_traces"] == 1 and dr["ingest_traces"] == 1
+          and m["draft_traces"] == 1,
+          f"{what}: draft steps built {dr['draft_traces']} / "
+          f"{dr['ingest_traces']} times")
+    check(dr["graphed"] and not twin["draft"]["graphed"],
+          f"{what}: the draft steps' graphs: {dr['graphed']}, twin "
+          f"{twin['draft']['graphed']}")
+    check(m["spec"]["drafted_tokens"] > 0, f"{what}: nothing drafted")
+    check(m["prefill_waves"] == 0 and m["mixed_ticks"] > 0,
+          f"{what}: prefill waves {m['prefill_waves']}, mixed ticks "
+          f"{m['mixed_ticks']}")
+    # beside the target's, the draft model's launches: its window and
+    # k - 1 one-token steps a draft step (K1), one pass an ingest step
+    # (K2-paged over the identity view), DRAFT_LAYERS each
+    want = attention_launches(m, {"decode_attention": ("ticks",),
+                                  "flash_attention_fwd_paged": ("mixed",)})
+    want["decode_attention"] += DRAFT_LAYERS * SPEC_K * dr["draft_runs"]
+    want["flash_attention_fwd_paged"] += DRAFT_LAYERS * dr["ingest_runs"]
+    check_attention_launches(what, launches, routes, want)
     return run
 
 
@@ -2413,7 +2921,8 @@ def phase_profile(torch, model, qmodel):
     """K1's and K1-int8's device time against the split length at two
     phase-2 rows, K1-paged's and K1-paged-int8's at three, then
     torch.profiler over a few decode ticks of 8 busy slots of each serving
-    engine, graphed and then its eager twin."""
+    engine (speculative ones included), graphed and then its eager
+    twin."""
     from paddle_tpu_torch.serving import ServingEngine, disable_graphs
 
     dev = torch.device("cuda")
@@ -2440,7 +2949,18 @@ def phase_profile(torch, model, qmodel):
              paged_serving_prompts(model.config.vocab_size)),
             ("profile_chunked", model, dict(chunked=True,
                                             prefill_chunk=256),
-             serving_prompts(model.config.vocab_size))):
+             serving_prompts(model.config.vocab_size)),
+            # verify ticks (spec_k 4, the n-gram drafter): contiguous,
+            # paged, int8 paged
+            ("profile_spec", model, dict(spec_decode=True, spec_k=SPEC_K),
+             serving_prompts(model.config.vocab_size)),
+            ("profile_spec_paged", model, dict(paged_kw, spec_decode=True,
+                                               spec_k=SPEC_K),
+             paged_serving_prompts(model.config.vocab_size)),
+            ("profile_spec_int8", qmodel, dict(paged_kw, **int8_kw,
+                                               spec_decode=True,
+                                               spec_k=SPEC_K),
+             paged_serving_prompts(model.config.vocab_size))):
         for mode in ("graphed", "eager"):
             with (disable_graphs() if mode == "eager"
                   else contextlib.nullcontext()):
@@ -2492,6 +3012,11 @@ def profile_window(torch, eng, prompts, phase, mode):
             # the decode-attention kernels of the window (K1's family)
             "decode_attention_ms": round(sum(
                 t for t, k, _ in rows if "decode_" in k) / 1e3, 3)
+            if seen else "not measured",
+            # the flash kernels of the window (K2's family: the paged
+            # verify window, the chunk)
+            "flash_attention_ms": round(sum(
+                t for t, k, _ in rows if "flash_attention" in k) / 1e3, 3)
             if seen else "not measured",
             "device_busy_share": round(total / wall_ms, 4) if seen
             else "not measured",
@@ -2808,16 +3333,26 @@ def main(argv=None) -> int:
     model, qmodel = phase_model(torch)
     run4 = phase_serving(torch, model, kernels)
     run4b = phase_serving_paged(torch, model, kernels)
-    phase_serving_int8(torch, qmodel, kernels, run4b["metrics"])
+    run4c = phase_serving_int8(torch, qmodel, kernels, run4b["metrics"])
     run4d = phase_serving_int8_contiguous(torch, qmodel, kernels,
                                           run4["metrics"])
     vocab = model.config.vocab_size
+    chunked = []
     for (phase, label, kw, attention), m, prompts, wave in zip(
             CHUNKED_PHASES, (model, model, qmodel),
             (serving_prompts(vocab), paged_serving_prompts(vocab),
              serving_prompts(vocab)), (run4, run4b, run4d)):
-        phase_serving_chunked(torch, m, kernels, phase, label, kw,
-                              attention, prompts, wave["outs"])
+        chunked.append(phase_serving_chunked(
+            torch, m, kernels, phase, label, kw, attention, prompts,
+            wave["outs"]))
+    for (phase, label, kw, attention), m, prompts, base in zip(
+            SPEC_PHASES, (model, model, qmodel),
+            (serving_prompts(vocab), paged_serving_prompts(vocab),
+             paged_serving_prompts(vocab)), (run4, run4b, run4c)):
+        phase_serving_spec(torch, m, phase, label, kw, attention, prompts,
+                           base)
+    phase_serving_spec_chunked_model(torch, model, serving_prompts(vocab),
+                                     chunked[0])
     if args.profile:
         phase_profile(torch, model, qmodel)
     del model, qmodel

@@ -42,7 +42,16 @@ _DEFAULTS: Dict[str, Any] = {
     "serving_chunked_prefill": False,
     "serving_prefill_chunk": 256,
     "serving_chunk_policy": "prefill",
+    # speculative decode (paddle_tpu/flags.py:205-233): serving_spec_decode
+    # selects the speculative engine; serving_spec_k is the drafts a slot a
+    # tick (the verify step's window is k + 1 tokens: static, part of its
+    # shape); serving_spec_ngram the longest n-gram the prompt-lookup
+    # drafter matches; serving_spec_drafter the default drafter kind,
+    # "ngram" or "model"
     "serving_spec_decode": False,
+    "serving_spec_k": 4,
+    "serving_spec_ngram": 3,
+    "serving_spec_drafter": "ngram",
     # training (paddle_tpu/flags.py check_nan_inf): the train step raises
     # FloatingPointError when a gradient is not finite
     "check_nan_inf": False,

@@ -1,5 +1,6 @@
 """Decoding helpers (mirrors ``paddle_tpu/models/generation.py``):
-the pre-allocated KV cache and next-token selection.
+the pre-allocated KV cache, next-token selection and the speculative
+verify window's acceptance (:func:`accept_draft_tokens`).
 
 The cache is ONE stacked tensor ``(layers, 2, batch, max_len, kv_heads,
 head_dim)`` (k at index 0, v at index 1), allocated once and written in
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import default_device
@@ -95,3 +97,133 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     samp = torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
     return torch.where(temperature <= 0.0, greedy, samp)
+
+
+def _row_knob(value, b: int, dtype, device) -> torch.Tensor:
+    """A per-row sampling knob as a (B,) tensor: a scalar broadcast, or a
+    (B,) array / tensor moved to ``device``."""
+    t = torch.as_tensor(value)
+    return t.to(device=device, dtype=dtype).expand(b)
+
+
+def _target_probs(logits: torch.Tensor, temperature, top_k=None,
+                  top_p=None) -> torch.Tensor:
+    """The distribution :func:`sample_tokens` samples from, as explicit
+    probabilities — the p(x) of the rejection-sampling acceptance (the
+    reference's ``_target_probs``, ``paddle_tpu/models/generation.py:112``):
+    float32, the temperature clamped at 1e-6, per-row top-k, the nucleus
+    mask, then the softmax.
+
+    ``logits``: (B, S, V); knobs: scalars or (B,) per row.  Returns
+    float32 (B, S, V), rows summing to 1."""
+    logits = logits.float()
+    b, vocab = logits.shape[0], logits.shape[-1]
+    dev = logits.device
+    t = _row_knob(temperature, b, torch.float32, dev)
+    scaled = logits / t.clamp_min(1e-6)[:, None, None]
+    if top_k is not None:
+        tk = _row_knob(top_k, b, torch.int64, dev)
+        srt = torch.sort(scaled, dim=-1, descending=True).values
+        k_eff = torch.where(tk > 0, tk.clamp(1, vocab),
+                            torch.full_like(tk, vocab))
+        kth = srt.gather(-1, (k_eff - 1)[:, None, None].expand(
+            b, scaled.shape[1], 1))
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    if top_p is not None:
+        tp = _row_knob(top_p, b, torch.float32, dev)
+        scaled = _nucleus_mask(scaled, tp[:, None, None])
+    return torch.softmax(scaled, dim=-1)
+
+
+def _any_sampled(temperature) -> bool:
+    if isinstance(temperature, torch.Tensor):
+        return bool((temperature > 0).any())
+    return bool((np.asarray(temperature) > 0).any())
+
+
+def accept_draft_tokens(logits: torch.Tensor, drafts: torch.Tensor,
+                        draft_mask: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        temperature=0.0, top_k=None, top_p=None,
+                        pad_token_id: int = 0, draft_probs=None,
+                        greedy: Optional[torch.Tensor] = None):
+    """Keep each row's longest verified draft prefix plus one token — the
+    acceptance of the speculative verify window (the reference's
+    ``accept_draft_tokens``, ``paddle_tpu/models/generation.py:140``).
+
+    ``logits[:, j]`` (B, S, V) is the next-token distribution after the
+    window's first j + 1 tokens ``[t, d_1 .. d_{S-1}]``; ``drafts`` int
+    (B, S-1) and ``draft_mask`` bool (B, S-1), True where a column holds a
+    real proposal.  Knobs as in :func:`sample_tokens` (scalars, or (B,)
+    numpy arrays or tensors).  Every draw comes from ``generator``; JAX's
+    ``fold_in`` streams are not reproduced, so sampled rows agree with the
+    reference in distribution only.
+
+      * greedy rows (``temperature <= 0``): draft ``d_{j+1}`` is verified
+        when it equals the argmax at column j (``greedy``, (B, S), when
+        the caller has it), so the committed stream is token-identical to
+        one-token greedy decode;
+      * sampled rows, ``draft_probs=None``: column 0's sample only;
+      * sampled rows with ``draft_probs`` (float32 (B, S-1, V), the
+        drafter's proposal q; one-hot for a deterministic drafter, all
+        zero on a column without a draft): rejection sampling against
+        the target p of :func:`_target_probs` — accept ``d_j`` when
+        ``u * q(d_j) < p(d_j)``, u ~ U[0, 1); the first rejected column
+        takes a sample of the residual ``max(0, p - q)`` normalised (p
+        itself where the residual has no mass), and a row whose every
+        draft survived takes the bonus sample at the last column.
+
+    Returns ``(tokens, n_accepted)``: int32 (B, S), columns past each
+    row's ``n_accepted`` set to ``pad_token_id``, and int32 (B,) in
+    [1, S]."""
+    b, s, _ = logits.shape
+    dev = logits.device
+    temps = _row_knob(temperature, b, torch.float32, dev)
+    greedy_row = temps <= 0.0
+    if greedy is None:
+        greedy = logits.float().argmax(dim=-1)
+    out = greedy.to(torch.int32)
+    sampled = _any_sampled(temperature)
+    if sampled:
+        flat = logits.reshape(b * s, -1)
+
+        def rep(knob, dtype):
+            return (None if knob is None else
+                    _row_knob(knob, b, dtype, dev).repeat_interleave(s))
+        out = sample_tokens(flat, rep(temperature, torch.float32),
+                            rep(top_k, torch.int64),
+                            rep(top_p, torch.float32),
+                            generator=generator).view(b, s)
+    if s == 1:
+        return out, torch.ones((b,), dtype=torch.int32, device=dev)
+    drafts = drafts.to(dev, torch.int32)
+    draft_mask = draft_mask.to(dev, torch.bool)
+    match = (out[:, :-1] == drafts) & draft_mask
+    pad = torch.full((), int(pad_token_id), dtype=torch.int32, device=dev)
+    col = torch.arange(s, device=dev)[None, :]
+    if draft_probs is None or not sampled:
+        match = match & greedy_row[:, None]
+        n = 1 + torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        return torch.where(col < n[:, None], out, pad), n.to(torch.int32)
+    p = _target_probs(logits[:, :-1], temps, top_k, top_p)
+    q = draft_probs.to(dev, torch.float32)
+    d = drafts.long()[..., None]
+    p_d = p.gather(-1, d)[..., 0]
+    q_d = q.gather(-1, d)[..., 0]
+    u = torch.rand((b, s - 1), generator=generator, device=dev)
+    acc = torch.where(greedy_row[:, None], match,
+                      (u * q_d < p_d) & draft_mask)
+    n = 1 + torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)
+    # the first rejected column's residual; a zero-mass residual (q == p,
+    # or an all-zero pad-column q) falls back to the target itself
+    res = (p - q).clamp_min(0.0)
+    res = torch.where(res.sum(dim=-1, keepdim=True) > 1e-9, res, p)
+    resampled = torch.multinomial(res.reshape(b * (s - 1), -1), 1,
+                                  generator=generator).view(b, s - 1)
+    cand = torch.cat([resampled.to(torch.int32), out[:, -1:]], dim=1)
+    cand = torch.where(greedy_row[:, None], out, cand)
+    drafts_pad = torch.cat([drafts, pad.expand(b, 1)], dim=1)
+    last = (n - 1)[:, None]
+    toks = torch.where(col < last, drafts_pad,
+                       torch.where(col == last, cand, pad))
+    return toks, n.to(torch.int32)

@@ -699,6 +699,42 @@ class LlamaForCausalLM(nn.Module):
         return self.logits(hidden), cache
 
 
+def draft_model_from(model, num_layers: int = 1) -> "LlamaForCausalLM":
+    """A truncated-target draft model for speculative decoding (the
+    reference's ``draft_model_from``, ``paddle_tpu/models/llama.py:604``):
+    a :class:`LlamaForCausalLM` at ``num_layers`` decoder blocks whose
+    embedding, first ``num_layers`` blocks, final norm, RoPE tables and LM
+    head ARE the target's (the same modules, so the same storage: no
+    weight is copied or drawn).  The only new memory is the draft's KV
+    cache, which :class:`~paddle_tpu_torch.serving.drafter.DraftModelDrafter`
+    owns.  A ``quantize_for_decode`` wrapper lends its int8 modules
+    (``unwrapped``).  ``num_layers`` outside ``[1, num_hidden_layers]``
+    raises ``ValueError``."""
+    model = getattr(model, "unwrapped", model)
+    n = int(num_layers)
+    if not 1 <= n <= model.config.num_hidden_layers:
+        raise ValueError(
+            f"num_layers must be in [1, {model.config.num_hidden_layers}]"
+            f", got {n}")
+    cfg = dataclasses.replace(model.config, num_hidden_layers=n)
+    src = model.model
+    inner = LlamaModel.__new__(LlamaModel)
+    nn.Module.__init__(inner)
+    inner.config = cfg
+    inner.embed_tokens = src.embed_tokens
+    inner.layers = nn.ModuleList(list(src.layers)[:n])
+    inner.norm = src.norm
+    inner.register_buffer("rope_cos", src.rope_cos)
+    inner.register_buffer("rope_sin", src.rope_sin)
+    draft = LlamaForCausalLM.__new__(LlamaForCausalLM)
+    nn.Module.__init__(draft)
+    draft.config = cfg
+    draft.model = inner
+    if not cfg.tie_word_embeddings:
+        draft.lm_head = model.lm_head
+    return draft
+
+
 def config_from(obj) -> LlamaConfig:
     """A :class:`LlamaConfig` with the same fields as ``obj`` (any object
     carrying the reference config's attribute names)."""

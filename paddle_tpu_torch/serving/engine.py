@@ -4,8 +4,8 @@
 ``submit()`` enqueues, ``step()`` runs one scheduler tick (admit queued
 requests in batched prefill waves, then ONE decode step over every slot,
 then retire), ``drain()`` runs ticks until every request is done.  Two
-cache layouts are served, with wave or chunked prefill, no speculation,
-greedy unless a request asks to sample:
+cache layouts are served, with wave or chunked prefill, plain or
+speculative decode, greedy unless a request asks to sample:
 
   * contiguous (the default): one ``max_length`` cache row per slot;
   * paged (``paged=True`` or ``FLAGS_serving_paged_kv``): a pool of
@@ -38,6 +38,30 @@ token goes through the mixed step (``step_graph.MixedStep``, built once),
 and ticks that carry no chunk replay the decode step.  In the contiguous
 chunked engine every row that is not decoding (idle, or being filled by
 chunks) sits at position ``max_length``, whose writes the model drops.
+
+**Speculative decode** (``spec_decode=True`` or
+``FLAGS_serving_spec_decode``; the reference's spec engine,
+``paddle_tpu/serving/engine.py:102-136``), in either layout, bf16 or int8,
+wave or chunked: each tick a drafter (``serving/drafter.py``: the n-gram
+prompt-lookup drafter, a draft model, or any :class:`Drafter` given to
+``submit(drafter=...)``) proposes up to ``spec_k`` tokens a slot, capped
+so an accepted window never passes the request's budget or
+``max_length - 1``; one verify step (``step_graph.VerifyStep``, built once
+as the decode step is) scores every row's window ``[current, d_1 ..
+d_k]`` at its own depth — K1 at s = k + 1 on the contiguous cache,
+K2-paged on the pool — and ``models.generation.accept_draft_tokens``
+keeps each row's longest verified prefix plus one token: 1 .. k + 1
+tokens a step, token-identical to plain greedy decode for greedy rows,
+rejection sampling against the drafter's q for sampled ones.  The
+acceptance runs on the step's outputs with the engine's generator; an
+all-greedy tick needs only the graph's argmax.  Rollback is bookkeeping:
+a row's position stays at its accept point (the stale cells above it are
+rewritten before they are read), and the paged engine returns the blocks
+that held only rejected drafts (``BlockManager.truncate_to``).  Rows
+without drafts ride the same step with pad columns, whose writes land
+where the rejected ones do (paged: past the chain, in the null block).
+In the chunked engine the mixed step's decode half is the verify window,
+and a row whose prompt is still streaming drafts nothing.
 
 Any other configuration raises ``NotImplementedError`` naming its ROADMAP
 item.
@@ -78,9 +102,11 @@ import numpy as np
 import torch
 
 from .. import default_device, flags
-from ..models.generation import init_kv_cache, sample_tokens
+from ..models.generation import (accept_draft_tokens, init_kv_cache,
+                                 sample_tokens)
+from .drafter import DraftModelDrafter, NgramDrafter
 from .kv_cache import BlockManager, init_paged_kv_cache
-from .step_graph import DecodeStep, MixedStep, PrefillStep
+from .step_graph import DecodeStep, MixedStep, PrefillStep, VerifyStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +128,9 @@ class Request:
     max_new_tokens: int
     sampling: SamplingParams
     t_submit: float = 0.0              # perf_counter at submit
+    # speculative engine: the request's drafter ('ngram', 'model', a
+    # Drafter, or None for the engine's default)
+    drafter: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -109,6 +138,10 @@ class _Slot:
     rid: int
     remaining: int                     # new tokens still allowed
     t_first: float = 0.0               # perf_counter at first token (TPOT)
+    # speculative engine: the request's prompt (the n-gram drafter's
+    # corpus) and its drafter
+    prompt: Optional[np.ndarray] = None
+    drafter: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -119,6 +152,23 @@ class _Prefill:
     req: Request
     slot: int
     cursor: int                        # prompt tokens already in the cache
+
+
+class _SpecCounts:
+    """One drafter kind's share of the speculative counters."""
+
+    def __init__(self):
+        self.drafted = self.hits = self.miss = self.rollbacks = 0
+        self.accept = _Hist()
+
+    def summary(self) -> Dict[str, object]:
+        return {"drafted_tokens": self.drafted,
+                "draft_hit_tokens": self.hits,
+                "draft_miss_tokens": self.miss,
+                "draft_hit_rate": (round(self.hits / self.drafted, 3)
+                                   if self.drafted else 0.0),
+                "rollbacks": self.rollbacks,
+                "accepted_per_step": self.accept.summary()}
 
 
 class _Hist:
@@ -143,10 +193,6 @@ class _Hist:
 # constructor arguments of the reference engine that the port does not
 # take yet: name -> (values that mean the default, ROADMAP item)
 _UNSUPPORTED = {
-    "spec_decode": ((None, False), "A6.3 (speculative decode)"),
-    "spec_k": ((None,), "A6.3 (speculative decode)"),
-    "drafter": ((None,), "A6.3 (speculative decode)"),
-    "draft_model": ((None,), "A6.3 (speculative decode)"),
     "preempt": ((None, "off"), "A6.6 (preemption + host tier)"),
     "host_blocks": ((None, 0), "A6.6 (preemption + host tier)"),
     "mesh": ((None,), "A9 (multi-GPU serving)"),
@@ -154,11 +200,6 @@ _UNSUPPORTED = {
 # engine instances label their build counters with their own id, so their
 # budgets are independent (the reference's ``_ENGINE_IDS``)
 _ENGINE_IDS = itertools.count()
-
-# the serving flags whose non-default values select those modes
-_FLAG_DEFAULTS = {
-    "serving_spec_decode": (False, "A6.3"),
-}
 
 
 class ServingEngine:
@@ -180,6 +221,15 @@ class ServingEngine:
     ``"decode"`` (``FLAGS_serving_chunk_policy``); see the module
     docstring.
 
+    ``spec_decode`` (default ``FLAGS_serving_spec_decode``) selects
+    speculative decode: up to ``spec_k`` drafts a slot a tick
+    (``FLAGS_serving_spec_k``) from ``drafter`` (default
+    ``FLAGS_serving_spec_drafter``): ``"ngram"`` (longest n-gram
+    ``FLAGS_serving_spec_ngram``), ``"model"`` (``draft_model``, e.g.
+    ``models.draft_model_from(model, num_layers)``; None drafts with the
+    target itself) or a :class:`~paddle_tpu_torch.serving.drafter.Drafter`
+    instance; ``submit(drafter=...)`` overrides it a request.
+
     ``kv_cache_dtype`` (default ``FLAGS_serving_kv_cache_dtype``):
     ``"bf16"`` keeps the cache in the model dtype, ``"int8"`` quantizes it
     (either layout); ``"mixed"`` is ROADMAP A6.4b.  ``int8_weights``
@@ -198,8 +248,10 @@ class ServingEngine:
                  int8_weights: Optional[bool] = None,
                  chunked: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
-                 chunk_policy: Optional[str] = None, device=None,
-                 **unsupported):
+                 chunk_policy: Optional[str] = None,
+                 spec_decode: Optional[bool] = None,
+                 spec_k: Optional[int] = None, drafter=None,
+                 draft_model=None, device=None, **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
                 raise TypeError(f"ServingEngine got an unexpected keyword "
@@ -208,10 +260,6 @@ class ServingEngine:
             if value not in defaults:
                 raise NotImplementedError(
                     f"ServingEngine({name}={value!r}) is ROADMAP {item}")
-        for name, (default, item) in _FLAG_DEFAULTS.items():
-            if flags.flag(name) != default:
-                raise NotImplementedError(
-                    f"FLAGS_{name}={flags.flag(name)!r} is ROADMAP {item}")
         self.kv_dtype = str(kv_cache_dtype
                             or flags.flag("serving_kv_cache_dtype"))
         if self.kv_dtype == "mixed":
@@ -235,6 +283,11 @@ class ServingEngine:
         if self.chunked and self.prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        self.spec = bool(flags.flag("serving_spec_decode")
+                         if spec_decode is None else spec_decode)
+        self.spec_k = int(spec_k or flags.flag("serving_spec_k"))
+        if self.spec and self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
         self.int8_weights = bool(flags.flag("serving_int8_weights")
                                  if int8_weights is None else int8_weights)
         if self.int8_weights and not hasattr(model, "unwrapped"):
@@ -304,9 +357,20 @@ class ServingEngine:
         s = self.num_slots
         eid = self._eid = next(_ENGINE_IDS)
         mb = self.max_blocks if self.paged else None
-        self._step = DecodeStep(self.model, self._cache, s, mb, self.device,
-                                eid, graph="decode" if self.chunked else None)
-        self._tokens = self._step.tokens_host
+        label = "decode" if self.chunked else None
+        if self.spec:
+            # the verify step takes the decode step's place: its window's
+            # column 0 is the rows' current token, columns 1.. the drafts
+            self._step = VerifyStep(self.model, self._cache, s,
+                                    self.spec_k + 1, mb, self.device, eid,
+                                    graph=label)
+            self._window = self._step.tokens_host
+            self._ok = self._step.ok_host
+            self._tokens = self._window[:, 0]
+        else:
+            self._step = DecodeStep(self.model, self._cache, s, mb,
+                                    self.device, eid, graph=label)
+            self._tokens = self._step.tokens_host
         self._positions = self._step.positions_host
         if self.paged:
             self._tables = self._step.tables_host
@@ -346,6 +410,17 @@ class ServingEngine:
         self._step.build()
         if self._mixed is not None:
             self._mixed.build()
+        # drafters, by kind; the default one is built now, the others on a
+        # request's first use (a draft model's steps on its first tick)
+        self._draft_model = draft_model
+        self._drafters: Dict[str, object] = {}
+        self._drafter = None
+        if self.spec:
+            self._drafter = self._make_drafter(
+                drafter if drafter is not None
+                else str(flags.flag("serving_spec_drafter")))
+            self._drafters[getattr(self._drafter, "kind", "custom")] = \
+                self._drafter
 
     # -- metrics -------------------------------------------------------------
 
@@ -371,6 +446,11 @@ class ServingEngine:
         self._n_blocked = 0
         self._occupancy = 0.0
         self._retired: Dict[str, int] = collections.Counter()
+        # speculative decode (the reference's serving.spec_* series):
+        # engine totals, and the same by drafter kind
+        self._spec_total = _SpecCounts()
+        self._spec_kinds: Dict[str, _SpecCounts] = collections.defaultdict(
+            _SpecCounts)
 
     @property
     def prefill_tokens_computed(self) -> int:
@@ -399,6 +479,13 @@ class ServingEngine:
         prefill, one a padded bucket); 0 in the chunked engine, which runs
         no wave."""
         return sum(st.traces for st in self._prefill_steps.values())
+
+    @property
+    def draft_traces(self) -> int:
+        """Builds of the draft models' draft steps (``serving.draft_step``,
+        budget 1 each)."""
+        return sum(getattr(d, "draft_traces", 0)
+                   for d in self._drafters.values())
 
     @property
     def decode_step_traces(self) -> int:
@@ -435,7 +522,11 @@ class ServingEngine:
         (waves that replayed a CUDA graph); the paged engine adds the
         pool's accounting under ``kv_cache``, the chunked engine
         ``mixed_ticks`` (ticks that carried a chunk), ``mixed_step_ms``,
-        ``decode_step_traces`` and the reference's ``chunked`` block."""
+        ``decode_step_traces`` and the reference's ``chunked`` block, the
+        speculative engine the reference's ``spec`` block (an N-token
+        accept is one step, one ``accepted_per_step`` observation and N
+        tokens) and ``draft_traces`` (builds of the draft model's draft
+        step; 0 without one)."""
         out = {"ttft_ms": self._m_ttft.summary(),
                "tpot_ms": self._m_tpot.summary(),
                "queue_wait_ms": self._m_queue_wait.summary(),
@@ -459,6 +550,16 @@ class ServingEngine:
                "retired": dict(self._retired)}
         if self._m_dequant_err.values:
             out["kv_dequant_error"] = self._m_dequant_err.summary()
+        if self.spec:
+            out["spec"] = {"spec_k": self.spec_k,
+                           "default_drafter": getattr(self._drafter, "kind",
+                                                      "custom"),
+                           **self._spec_total.summary()}
+            if self._spec_kinds:
+                out["spec"]["by_drafter"] = {
+                    k: c.summary() for k, c in sorted(
+                        self._spec_kinds.items())}
+            out["draft_traces"] = self.draft_traces
         if self.chunked:
             out["mixed_ticks"] = self._n_mixed_ticks
             out["mixed_step_ms"] = self._m_mixed_ms.summary()
@@ -493,13 +594,17 @@ class ServingEngine:
     # -- public API ------------------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
-               sampling: Optional[SamplingParams] = None) -> int:
+               sampling: Optional[SamplingParams] = None,
+               drafter=None) -> int:
         """Enqueue a request; returns its id.  Admission happens inside
         ``step()`` as slots free up (FIFO).  Raises ``ValueError`` for an
         empty prompt (``bad_prompt``), ``max_new_tokens < 1``
         (``bad_max_new_tokens``) or a request longer than ``max_length``
         (``too_long``), and in the paged engine for a request needing more
-        blocks than the whole pool holds (``pool_too_small``)."""
+        blocks than the whole pool holds (``pool_too_small``).
+        ``drafter`` (speculative engine): this request's drafter,
+        ``"ngram"``, ``"model"`` or a ``Drafter`` (string kinds are built
+        once an engine); None takes the engine's."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -522,7 +627,7 @@ class ServingEngine:
         self._results[rid] = []
         self._queue.append(Request(rid, prompt, int(max_new_tokens),
                                    sampling or SamplingParams(),
-                                   t_submit=self._clock()))
+                                   t_submit=self._clock(), drafter=drafter))
         self._n_submitted += 1
         return rid
 
@@ -538,6 +643,8 @@ class ServingEngine:
         with torch.no_grad():
             if self.chunked:
                 return self._step_inner_chunked()
+            if self.spec:
+                return self._step_inner_spec()
             return self._step_inner()
 
     def drain(self) -> List[Tuple[int, List[int]]]:
@@ -604,12 +711,18 @@ class ServingEngine:
         synchronisation)."""
         return self._pick(logits, temps, topk, topp, greedy).cpu().numpy()
 
-    def _grow_decode_rows(self) -> None:
+    def _grow_decode_rows(self, ok: Optional[np.ndarray] = None) -> None:
         """Paged, before a step: grow every decoding slot's chain over the
-        position this tick writes."""
+        positions this tick writes — its position, and in a verify step
+        its REAL drafts after it (``ok``, the real-draft mask): pad-column
+        writes past the chain land in the null block, so no block is
+        taken for a draft never proposed."""
         for i, slot in enumerate(self._slots):
             if slot is not None:
-                self._grow_row_for_writes(i, int(self._positions[i]))
+                last = int(self._positions[i])
+                if ok is not None:
+                    last += int(ok[i].sum())
+                self._grow_row_for_writes(i, last)
 
     def _decode(self) -> np.ndarray:
         """One decode step for ALL slots: row i holds its request at
@@ -751,6 +864,229 @@ class ServingEngine:
                 self._retire(slot, i, reason, now)
         return finished
 
+    # -- speculative decode (verify steps) -----------------------------------------
+
+    def _make_drafter(self, sel):
+        """A drafter from a selector (the reference's ``_make_drafter``,
+        ``paddle_tpu/serving/engine.py:895``): a ``Drafter`` passes
+        through; ``"ngram"`` / ``"model"`` build the proposer (the model
+        drafter drafts with ``draft_model``, or with the target itself,
+        graphed as the engine's steps are)."""
+        if not isinstance(sel, str):
+            return sel
+        if sel == "ngram":
+            return NgramDrafter(
+                self.spec_k, max_ngram=int(flags.flag("serving_spec_ngram")))
+        if sel == "model":
+            dm = (self._draft_model if self._draft_model is not None
+                  else self.model)
+            return DraftModelDrafter(
+                self.spec_k, dm, self.num_slots, self.max_length,
+                pad_token_id=self.pad_token_id, engine_id=self._eid,
+                device=self.device, eager=not self._step.graphed)
+        raise ValueError(
+            f"drafter must be 'ngram', 'model' or a Drafter instance, "
+            f"got {sel!r}")
+
+    def _drafter_for(self, sel):
+        """A request's drafter (None: the engine's); string kinds are
+        built once and shared."""
+        if sel is None:
+            return self._drafter
+        if isinstance(sel, str):
+            d = self._drafters.get(sel)
+            if d is None:
+                d = self._drafters[sel] = self._make_drafter(sel)
+            return d
+        return sel
+
+    def _drafter_reset(self, i: int) -> None:
+        """Slot ``i`` (re)assigned or released: clear the drafters'
+        per-slot state (the draft model's consumed history)."""
+        if not self.spec:
+            return
+        drafters = {id(d): d for d in (self._drafter,
+                                       *self._drafters.values())}
+        for d in drafters.values():
+            reset = getattr(d, "reset_slot", None)
+            if reset is not None:
+                reset(i)
+
+    def _propose_drafts(self):
+        """The draft phase (the reference's ``_propose_drafts``,
+        ``paddle_tpu/serving/engine.py:2163``): each slot's drafter
+        proposes up to ``spec_k`` tokens, capped at ``remaining - 1`` (an
+        accepted window never passes the request's budget) and at
+        ``max_length - 1 - pos`` (every real draft's write in bounds).
+        Host drafters run a slot at a time; a device drafter runs once
+        for all its slots and its drafts are fetched.  Writes the drafts
+        into the verify window (pad where none) and the real-draft mask
+        into its staging; returns (that mask (S, k), the device drafters'
+        [(q (S, k, V) on the device, {slot: drafts proposed})])."""
+        s, k = self.num_slots, self.spec_k
+        drafts = np.full((s, k), self.pad_token_id, np.int32)
+        ok = np.zeros((s, k), bool)
+        kinds: List[Optional[str]] = [None] * s
+        jobs: Dict[int, tuple] = {}
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            d = self._drafter_for(slot.drafter)
+            if d is None:
+                continue
+            cap = min(k, slot.remaining - 1,
+                      self.max_length - 1 - int(self._positions[i]))
+            if cap < 1:
+                continue
+            kinds[i] = str(getattr(d, "kind", "custom"))
+            hist = np.concatenate(
+                [slot.prompt, np.asarray(self._results[slot.rid], np.int32)])
+            if getattr(d, "uses_device", False):
+                job = jobs.setdefault(id(d), (d, {}, {}))
+                job[1][i], job[2][i] = hist, cap
+                continue
+            prop = np.asarray(d.propose(hist), np.int32)[:cap]
+            if prop.size:
+                drafts[i, :prop.size] = prop
+                ok[i, :prop.size] = True
+                self._count_drafted(kinds[i], int(prop.size))
+        device_q = []
+        for d, hists, caps in jobs.values():
+            dd, dq = d.propose_batch(hists, self._temps, self._gen)
+            dd = dd.cpu().numpy()
+            for i, m in caps.items():
+                drafts[i, :m] = dd[i, :m]
+                ok[i, :m] = True
+                self._count_drafted(kinds[i], m)
+            device_q.append((dq, caps))
+        self._tick_kinds = kinds
+        self._window[:, 1:] = drafts
+        self._ok[:] = ok
+        return ok, device_q
+
+    def _count_drafted(self, kind: str, m: int) -> None:
+        self._spec_total.drafted += m
+        self._spec_kinds[kind].drafted += m
+
+    def _decode_part(self, logits: torch.Tensor, greedy: torch.Tensor,
+                     device_q) -> torch.Tensor:
+        """The decode rows' result of a step, on the device, int32 and
+        flat: the next tokens (B,), or in the speculative engine the
+        committed window (B * (k + 1)) then n_acc (B,)
+        (:meth:`_accept_window`)."""
+        if not self.spec:
+            return self._pick(logits, self._temps, self._topk, self._topp,
+                              greedy)
+        toks, n = self._accept_window(logits, greedy, device_q)
+        return torch.cat([toks.flatten(), n])
+
+    def _accept_window(self, logits: torch.Tensor, greedy: torch.Tensor,
+                       device_q):
+        """The verify step's acceptance (the reference's
+        ``_verify_window``, :1336), after the step: an all-greedy tick
+        needs only the graph's argmax (the prefix-match rule); when a row
+        samples, q is built on the device — one-hot at the host drafters'
+        drafts, the device drafters' softmax on their rows — and the
+        sampled rows run rejection sampling with the engine's
+        generator."""
+        st = self._step
+        drafts = st.tokens[:, 1:]
+        if not (self._temps > 0).any():
+            return accept_draft_tokens(logits, drafts, st.ok,
+                                       pad_token_id=self.pad_token_id,
+                                       greedy=greedy)
+        b, k = drafts.shape
+        q = torch.zeros((b, k, logits.shape[-1]), dtype=torch.float32,
+                        device=logits.device)
+        q.scatter_(2, drafts.long()[..., None],
+                   st.ok.to(torch.float32)[..., None])
+        for dq, caps in device_q:
+            for i, m in caps.items():
+                q[i, :m] = dq[i, :m]
+        return accept_draft_tokens(
+            logits, drafts, st.ok, self._gen, self._temps, self._topk,
+            self._topp, pad_token_id=self.pad_token_id, draft_probs=q,
+            greedy=greedy)
+
+    def _step_inner_spec(self) -> List[int]:
+        """One speculative tick (the reference's ``_step_inner_spec``,
+        :2233): wave admission as ever, then the draft phase, then ONE
+        verify step over every slot's window and the acceptance; the
+        tick's one host sync fetches the committed windows and n_acc (a
+        draft model's drafts are fetched before the step, as the window's
+        staging needs them)."""
+        finished = self._admit()
+        occ = int(self._active.sum())
+        self._occupancy = occ / self.num_slots if self.num_slots else 0.0
+        if not occ:
+            return finished
+        ok, device_q = self._propose_drafts()
+        self._ticks += 1
+        self._n_decode_ticks += 1
+        t0 = self._clock()
+        if self.paged:
+            self._grow_decode_rows(ok)
+            self._flush_fresh_scales()
+        logits, greedy = self._step.run()
+        host = self._decode_part(logits, greedy, device_q).cpu().numpy()
+        now = self._clock()
+        self._m_step_ms.observe((now - t0) * 1e3)
+        finished.extend(self._advance_decode_spec(host, ok, now))
+        return finished
+
+    def _advance_decode_spec(self, host: np.ndarray, draft_ok: np.ndarray,
+                             now: float) -> List[int]:
+        """Per-slot bookkeeping after a verify step (the reference's
+        ``_advance_decode_spec``, :2287): commit each row's accepted
+        prefix, stopping AT an EOS inside it, and roll the rest back — the
+        position stays at the accept point; the paged engine returns the
+        blocks past it (``truncate_to``) and refreshes the table row.  An
+        N-token accept is N tokens in one step: ``tokens_generated`` += N,
+        one ``accepted_per_step`` observation, one retirement.  ``host``:
+        :meth:`_decode_part` fetched."""
+        b, w = self.num_slots, self.spec_k + 1
+        out = host[:b * w].reshape(b, w)
+        n_acc = host[b * w:b * w + b]
+        finished: List[int] = []
+        tot = self._spec_total
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            n = int(n_acc[i])
+            drafted = int(draft_ok[i].sum())
+            kind = self._tick_kinds[i]
+            km = self._spec_kinds[kind] if (drafted and kind) else None
+            take, reason = n, None
+            if self.eos_token_id is not None:
+                hits = np.flatnonzero(out[i, :n] == self.eos_token_id)
+                if hits.size:
+                    take, reason = int(hits[0]) + 1, "eos"
+            toks = [int(t) for t in out[i, :take]]
+            self._results[slot.rid].extend(toks)
+            self._positions[i] += take
+            self._tokens[i] = toks[-1]
+            slot.remaining -= take
+            self._n_tokens += take
+            for c in (tot, km) if km is not None else (tot,):
+                c.accept.observe(take)
+                if drafted:
+                    # hits: committed drafts (the last token is free);
+                    # misses: drafts the verification rejected (an EOS
+                    # cut counts its verified drafts on neither side)
+                    c.hits += take - 1
+                    c.miss += drafted - (n - 1)
+                if take <= drafted:
+                    c.rollbacks += 1
+            if take <= drafted and self.paged:
+                self.kv.truncate_to(i, int(self._positions[i]))
+                self._tables[i] = self.kv.table_row(i, self.max_blocks)
+            if reason is None:
+                reason = self._finish_reason(toks[-1], slot, i)
+            if reason is not None:
+                finished.append(slot.rid)
+                self._retire(slot, i, reason, now)
+        return finished
+
     # -- chunked-prefill scheduler (mixed steps) ----------------------------------
 
     def _step_inner_chunked(self) -> List[int]:
@@ -772,9 +1108,14 @@ class ServingEngine:
         if not occ and not do_chunk:
             return finished
         self._ticks += 1
+        ok = device_q = None
+        if self.spec:
+            # the decode half is the verify window; a row whose prompt is
+            # still streaming is not in a slot yet, so it drafts nothing
+            ok, device_q = self._propose_drafts()
         t0 = self._clock()
         if self.paged:
-            self._grow_decode_rows()
+            self._grow_decode_rows(ok)
         if do_chunk:
             mx = self._mixed
             clen = min(self.prefill_chunk, pf.req.prompt.size - pf.cursor)
@@ -792,25 +1133,22 @@ class ServingEngine:
                 mx.row_host[0] = pf.slot
             self._flush_fresh_scales()
             logits, greedy, clogits, cgreedy = mx.run()
-            nxt = self._pick(logits, self._temps, self._topk, self._topp,
-                             greedy)
+            parts = [self._decode_part(logits, greedy, device_q)]
             sp = pf.req.sampling
             done = pf.cursor + clen == pf.req.prompt.size
             if done:
-                ctok = self._pick(clogits,
-                                  np.array([sp.temperature], np.float32),
-                                  np.array([sp.top_k], np.int32),
-                                  np.array([sp.top_p], np.float32), cgreedy)
-                nxt = torch.cat([nxt, ctok])
-            nxt = nxt.cpu().numpy()             # the tick's one sync
-            ctok = int(nxt[-1]) if done else None
-            nxt = nxt[:self.num_slots]
+                parts.append(self._pick(
+                    clogits, np.array([sp.temperature], np.float32),
+                    np.array([sp.top_k], np.int32),
+                    np.array([sp.top_p], np.float32), cgreedy))
+            host = torch.cat(parts).cpu().numpy()   # the tick's one sync
+            ctok = int(host[-1]) if done else None
+            if done:
+                host = host[:-1]
         else:
             self._flush_fresh_scales()
             logits, greedy = self._step.run()
-            nxt = self._sample(logits, self._temps, self._topk, self._topp,
-                               greedy)
-        nxt[~self._active] = self.pad_token_id
+            host = self._decode_part(logits, greedy, device_q).cpu().numpy()
         now = self._clock()
         if do_chunk:
             self._n_mixed_ticks += 1
@@ -818,7 +1156,11 @@ class ServingEngine:
         else:
             self._n_decode_ticks += 1
             self._m_step_ms.observe((now - t0) * 1e3)
-        finished.extend(self._advance_decode(nxt, now))
+        if self.spec:
+            finished.extend(self._advance_decode_spec(host, ok, now))
+        else:
+            host[~self._active] = self.pad_token_id
+            finished.extend(self._advance_decode(host, now))
         if do_chunk:
             finished.extend(self._advance_chunk(pf, clen, ctok, now))
         return finished
@@ -871,8 +1213,10 @@ class ServingEngine:
             return []
         si, req = pf.slot, pf.req
         self._cursor = None
-        slot = _Slot(req.request_id, req.max_new_tokens - 1, t_first=now)
+        slot = _Slot(req.request_id, req.max_new_tokens - 1, t_first=now,
+                     prompt=req.prompt, drafter=req.drafter)
         self._slots[si] = slot
+        self._drafter_reset(si)
         self._active[si] = True
         self._tokens[si] = ctok
         self._positions[si] = plen
@@ -1021,8 +1365,10 @@ class ServingEngine:
         finished: List[int] = []
         for r, (req, si) in enumerate(zip(wave, slots)):
             slot = _Slot(req.request_id, req.max_new_tokens - 1,
-                         t_first=t_tok)
+                         t_first=t_tok, prompt=req.prompt,
+                         drafter=req.drafter)
             self._slots[si] = slot
+            self._drafter_reset(si)
             self._active[si] = True
             self._tokens[si] = tok[r]
             self._positions[si] = plens[r]
@@ -1071,6 +1417,7 @@ class ServingEngine:
         (paged: through an all-null table row)."""
         if self.paged:
             self._tables[i] = 0
+        self._drafter_reset(i)
         self._slots[i] = None
         self._active[i] = False
         self._tokens[i] = self.pad_token_id

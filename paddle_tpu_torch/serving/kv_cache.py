@@ -52,10 +52,12 @@ chunk (``ensure_capacity``) and registers the prompt's full blocks with
 :meth:`BlockManager.register_prompt_upto` only after the chunk that writes
 them is dispatched, so an unwritten block never satisfies a lookup.
 
-Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: the host tier, swap-out/resume, block export/import and
-``preempt_free`` (A6.6); ``truncate_to`` (A6.3); the ``mixed`` pool
-(A6.4b).  ``stats`` is a plain dict (the metrics registry is A5b).
+Speculative rollback (:meth:`BlockManager.truncate_to`) returns the blocks
+a rejected draft suffix was written into.  Not ported here, each raising
+``NotImplementedError`` naming its ROADMAP item: the host tier,
+swap-out/resume, block export/import and ``preempt_free`` (A6.6); the
+``mixed`` pool (A6.4b).  ``stats`` is a plain dict (the metrics registry
+is A5b).
 """
 
 from __future__ import annotations
@@ -418,11 +420,45 @@ class BlockManager:
                 del self._lru[b]
                 self._free.append(b)
 
-    # -- modes of later slices ---------------------------------------------
-
     def truncate_to(self, slot: int, pos: int):
-        raise NotImplementedError(
-            "BlockManager.truncate_to (speculative rollback) is ROADMAP A6.3")
+        """Roll ``slot``'s chain back to cover exactly positions ``[0,
+        pos)`` — the speculative engine's rollback after the verify step
+        rejected a draft suffix (the reference's ``truncate_to``,
+        ``paddle_tpu/serving/kv_cache.py:1057``).  A no-op when the chain
+        is within ``pos`` already.  In order:
+
+          * every registered block from chain index ``pos // block_len`` on
+            is cascade-unregistered before anything is freed: the block at
+            the cut is rewritten in place from ``pos`` on, removed blocks
+            may be reused for anything, and a later lookup must never be
+            served by either (in the engine only generated positions roll
+            back, so the prompt's registered blocks lie below the cut);
+          * removed blocks are deref'd, not freed outright: a block shared
+            with another chain (copy-on-write, an adopted prefix) stays for
+            its other owners;
+          * each removed block is re-credited to the slot's reservation,
+            so later growth over the same positions cannot fail."""
+        st = self._slots[slot]
+        if pos < 0:
+            raise ValueError(f"pos must be >= 0, got {pos}")
+        keep = -(-pos // self.block_len)         # blocks covering [0, pos)
+        cut = pos // self.block_len              # first rewritable block
+        for bid in st.chain[cut:]:
+            if bid in self._block_key:
+                self._unregister_cascade(bid)
+        removed = st.chain[keep:]
+        if not removed:
+            return
+        del st.chain[keep:]
+        for bid in removed:
+            self._ref[bid] -= 1
+            if self._ref[bid] == 0:
+                # unregistered above, so never parked on the LRU
+                self._free.append(bid)
+        st.reserved_left += len(removed)
+        self._reserved += len(removed)
+
+    # -- modes of later slices ---------------------------------------------
 
     def _a66(self, what: str):
         raise NotImplementedError(

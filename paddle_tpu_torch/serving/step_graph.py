@@ -1,8 +1,11 @@
 """The serving engine's once-built steps (the reference's ``serving.step``
 and ``serving.prefill`` sites, ``paddle_tpu/serving/engine.py:672-708``):
-the decode step (:class:`DecodeStep`), in the chunked engine the mixed
-step (:class:`MixedStep`), and in the wave engines one prefill-wave step
-a (bucket, rows) key (:class:`PrefillStep`).
+the decode step (:class:`DecodeStep`; the speculative engine's
+:class:`VerifyStep`, its window of k + 1 tokens a row), in the chunked
+engine the mixed step (:class:`MixedStep`), in the wave engines one
+prefill-wave step a (bucket, rows) key (:class:`PrefillStep`), and the
+draft model's two steps (:class:`DraftStep`, :class:`IngestStep`; sites
+``serving.draft_step`` and ``serving.draft_prefill``).
 
 The reference jits its step once, under ``track_retraces(...,
 "serving.step", budget=1)``, and the device then runs one compiled program
@@ -117,7 +120,8 @@ class _Step:
     """A step over static buffers, built once (counted under ``SITE``,
     budget 1) and run once a tick or wave; see the module docstring.
     Subclasses define :meth:`_body` (the step on the static buffers) and
-    :meth:`_upload` (the host staging to the device buffers).  ``eager``:
+    hold their inputs in ``_stage`` (pinned host staging) and ``_inputs``
+    (its device buffer), which :meth:`_upload` copies.  ``eager``:
     run eagerly whatever :func:`disable_graphs` says at the build (None:
     as it says); ``pool``: the memory pool the capture shares."""
 
@@ -158,7 +162,7 @@ class _Step:
         self._tracked()
 
     def _upload(self, non_blocking: bool) -> None:
-        raise NotImplementedError
+        self._inputs.copy_(self._stage, non_blocking=non_blocking)
 
     def _body(self) -> Tuple[torch.Tensor, ...]:
         raise NotImplementedError
@@ -203,12 +207,14 @@ class _Step:
         # the graph holds raw pointers into these: keep them for its life
         self._counters, self._stream = counters, stream
 
-    def run(self) -> Tuple[torch.Tensor, ...]:
+    def run(self, non_blocking: bool = True) -> Tuple[torch.Tensor, ...]:
         """One tick or wave: upload the host mirrors, then replay the graph
         (or run the step eagerly).  Returns the step's outputs on the
         device — the graph's static outputs, overwritten by the next
-        replay."""
-        self._upload(True)
+        replay.  ``non_blocking=False`` returns only once the upload is
+        done, for a caller that writes the mirrors again before its next
+        synchronisation."""
+        self._upload(non_blocking)
         if self._graph is None:
             return self._body()
         self._graph.replay()
@@ -260,15 +266,59 @@ class DecodeStep(_Step):
             self.tables_host = host[2 * bp:].reshape(b, max_blocks)
             self.tables = self._inputs[2 * bp:].view(b, max_blocks)
 
-    def _upload(self, non_blocking: bool) -> None:
-        self._inputs.copy_(self._stage, non_blocking=non_blocking)
-
     @torch.no_grad()
     def _body(self) -> Tuple[torch.Tensor, torch.Tensor]:
         logits, _ = self._model.decode_step(self.tokens, self._cache,
                                             self.positions,
                                             block_tables=self.tables)
         logits = logits[:, -1]
+        return logits, logits.argmax(dim=-1)
+
+
+class VerifyStep(DecodeStep):
+    """The speculative engine's verify step: :class:`DecodeStep`'s static
+    staging with a window of ``window`` = k + 1 tokens a row — the current
+    token, then the row's k drafts (pad where it has none) — written at
+    ``positions[i] .. positions[i] + k`` and scored in one pass (the
+    reference's ``_verify_window``, ``paddle_tpu/serving/engine.py:1336``,
+    whose acceptance the engine runs on the outputs, outside the graph).
+    Host mirrors: ``tokens_host`` (B, window), ``positions_host``,
+    ``tables_host`` as in the decode step, and ``ok_host`` (B, k), the
+    engine's real-draft mask, uploaded with them for the acceptance
+    (``ok``; the step itself does not read it).  :meth:`run` returns
+    (logits (B, window, vocab), their argmax (B, window)).  Built once,
+    under the decode step's site and labels."""
+
+    def __init__(self, model, cache, num_slots: int, window: int,
+                 max_blocks: Optional[int], device: torch.device,
+                 engine_id, graph: Optional[str] = None):
+        labels = {"engine": engine_id}
+        if graph is not None:
+            labels["graph"] = graph
+        _Step.__init__(self, device, labels)
+        self._model = model
+        self._cache = cache
+        b, w = num_slots, window
+        nt, bp, nk = _align4(b * w), _align4(b), _align4(b * (w - 1))
+        n = nt + bp + nk + (b * max_blocks if max_blocks else 0)
+        self._stage, host, self._inputs = _staging(n, device)
+        self.tokens_host = host[:b * w].reshape(b, w)
+        self.positions_host = host[nt:nt + b]
+        self.ok_host = host[nt + bp:nt + bp + b * (w - 1)].reshape(b, w - 1)
+        self.tokens = self._inputs[:b * w].view(b, w)
+        self.positions = self._inputs[nt:nt + b]
+        self.ok = self._inputs[nt + bp:nt + bp + b * (w - 1)].view(b, w - 1)
+        self.tables_host = self.tables = None
+        if max_blocks:
+            o = nt + bp + nk
+            self.tables_host = host[o:].reshape(b, max_blocks)
+            self.tables = self._inputs[o:].view(b, max_blocks)
+
+    @torch.no_grad()
+    def _body(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits, _ = self._model.decode_step(self.tokens, self._cache,
+                                            self.positions,
+                                            block_tables=self.tables)
         return logits, logits.argmax(dim=-1)
 
 
@@ -407,9 +457,6 @@ class PrefillStep(_Step):
         finally:
             self._stage.copy_(real)
 
-    def _upload(self, non_blocking: bool) -> None:
-        self._inputs.copy_(self._stage, non_blocking=non_blocking)
-
     @torch.no_grad()
     def _body(self) -> Tuple[torch.Tensor, torch.Tensor]:
         model, cache, dev = self._model, self._cache, self.device
@@ -440,3 +487,85 @@ class PrefillStep(_Step):
         last = hidden[torch.arange(n, device=dev), self.last.long()]
         logits = model.logits(last)
         return logits, logits.argmax(dim=-1)
+
+
+class DraftStep(_Step):
+    """The draft model's draft step (the reference's ``_draft_impl``,
+    ``paddle_tpu/serving/drafter.py:187``), over the drafter's contiguous
+    cache: a window of up to k + 1 caught-up tokens a row at its
+    ``start`` (``window`` (S, k + 1), ``start`` and ``nvalid`` (S,), host
+    mirrors ``*_host``), the next-token logits at each row's last valid
+    column, then k - 1 one-token steps, each on the previous draft.  Each
+    column's proposal distribution q is the softmax of the UNTEMPERED draft
+    logits; its draft is ``argmax(logits + noise[:, j])``: the argmax
+    where ``noise`` is 0 (greedy rows), a draw from q where it holds
+    Gumbel noise (sampled rows; the drafter fills it outside the graph).
+    A row at ``start = max_length`` writes nothing (the port's dropped
+    writes).  :meth:`run` returns (drafts (S, k) int32, q (S, k, V)
+    float32).  Counted under ``serving.draft_step`` (budget 1)."""
+
+    SITE = "serving.draft_step"
+
+    def __init__(self, model, cache, num_slots: int, k: int,
+                 device: torch.device, engine_id, eager=None):
+        super().__init__(device, {"engine": engine_id}, eager=eager)
+        self._model, self._cache, self.k = model, cache, k
+        s, w = num_slots, k + 1
+        nw, sp = _align4(s * w), _align4(s)
+        self._stage, host, self._inputs = _staging(nw + 2 * sp, device)
+        self.window_host = host[:s * w].reshape(s, w)
+        self.start_host = host[nw:nw + s]
+        self.nvalid_host = host[nw + sp:nw + sp + s]
+        self.window = self._inputs[:s * w].view(s, w)
+        self.start = self._inputs[nw:nw + s]
+        self.nvalid = self._inputs[nw + sp:nw + sp + s]
+        self.noise = torch.zeros((s, k, model.config.vocab_size),
+                                 dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def _body(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        model, cache = self._model, self._cache
+        s = self.window.shape[0]
+        hidden, _ = model.model.decode(self.window, cache, self.start)
+        idx = (self.nvalid - 1).clamp_min(0).long()
+        last = hidden[torch.arange(s, device=self.device), idx]
+        lg = model.logits(last).float()
+        drafts, probs = [], []
+        for j in range(self.k):
+            probs.append(torch.softmax(lg, dim=-1))
+            tok = (lg + self.noise[:, j]).argmax(dim=-1)
+            drafts.append(tok)
+            if j < self.k - 1:
+                hidden, _ = model.model.decode(
+                    tok[:, None], cache, self.start + self.nvalid + j)
+                lg = model.logits(hidden[:, 0]).float()
+        return (torch.stack(drafts, dim=1).to(torch.int32),
+                torch.stack(probs, dim=1))
+
+
+class IngestStep(_Step):
+    """The draft model's ingest step (the reference's ``_ingest_impl``,
+    ``paddle_tpu/serving/drafter.py:217``): ``width`` history tokens a row
+    written into the drafter's cache at ``start`` (rows at ``max_length``
+    write nothing), no logits — it drains a long backlog (a new prompt)
+    ahead of the draft step.  Counted under ``serving.draft_prefill``
+    (budget 1)."""
+
+    SITE = "serving.draft_prefill"
+
+    def __init__(self, model, cache, num_slots: int, width: int,
+                 device: torch.device, engine_id, eager=None):
+        super().__init__(device, {"engine": engine_id}, eager=eager)
+        self._model, self._cache = model, cache
+        s = num_slots
+        nw = _align4(s * width)
+        self._stage, host, self._inputs = _staging(nw + s, device)
+        self.window_host = host[:s * width].reshape(s, width)
+        self.start_host = host[nw:nw + s]
+        self.window = self._inputs[:s * width].view(s, width)
+        self.start = self._inputs[nw:nw + s]
+
+    @torch.no_grad()
+    def _body(self) -> Tuple[torch.Tensor]:
+        self._model.model.decode(self.window, self._cache, self.start)
+        return ()

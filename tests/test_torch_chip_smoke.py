@@ -182,3 +182,90 @@ def test_twin_comparison(eager, identical, differing, first):
 def test_twin_comparison_needs_every_request():
     with pytest.raises(ValueError):
         chip_smoke.twin_comparison([[1]], [[1], [2]])
+
+
+# ---- the speculative phases (4h-4k) -------------------------------------------
+
+def test_script_drafter_replays_the_stream():
+    """A scripted drafter proposes the request's known continuation after
+    what it has generated, column 2 changed when corrupted."""
+    p = np.array([7, 8, 9], np.int32)
+    stream = [1, 2, 3, 4, 5, 6]
+    d = chip_smoke.ScriptDrafter(p, stream, 4, vocab=10, corrupt=False)
+    assert d.propose(np.r_[p, 1]).tolist() == [2, 3, 4, 5]
+    assert d.propose(np.r_[p, 1, 2, 3, 4]).tolist() == [5, 6]
+    assert d.propose(np.r_[p, stream]).tolist() == []
+    c = chip_smoke.ScriptDrafter(p, stream, 4, vocab=10, corrupt=True)
+    assert c.propose(np.r_[p, 1]).tolist() == [2, 3, 5, 5]
+    assert c.propose(np.r_[p, 1, 2, 3, 4]).tolist() == [5, 6]
+    assert d.kind == "scripted" and not d.uses_device
+
+
+def test_spec_submit_kw_halves_the_requests():
+    prompts = [np.array([i], np.int32) for i in range(8)]
+    kw = chip_smoke.spec_submit_kw(prompts, [[1, 2]] * 8, vocab=10)
+    kinds = [getattr(k["drafter"], "kind", k["drafter"]) for k in kw]
+    assert kinds == ["scripted", "ngram"] * 4
+    assert [k["drafter"].corrupt for k in kw[::2]] == [False, True] * 2
+
+
+def test_spec_fields_reports_beside_the_base_phase():
+    def run(outs, wall, p50):
+        return {"outs": outs, "wall": wall, "peak_memory_gb": 1.0,
+                "metrics": {"tpot_ms": {"p50": p50},
+                            "decode_step_ms": {"p50": 9.0},
+                            "spec": {"accepted_per_step": {"count": 3,
+                                                           "mean": 2.5}}}}
+    got = chip_smoke.spec_fields(run([[1, 2], [3, 4]], 2.0, 5.0),
+                                 run([[1, 2], [3, 5]], 4.0, 9.0))
+    assert got["same_tokens_as_non_spec"] == "1/2"
+    assert got["accepted_per_step_mean"] == 2.5
+    assert got["this_run"]["tok_per_s"] == 2.0
+    assert got["non_spec_phase"]["tok_per_s"] == 1.0
+    assert got["this_run"]["tpot_ms_p50"] == 5.0
+
+
+_SPEC_LAUNCHES = {n: 0 for n in chip_smoke.ATTENTION_KERNELS}
+
+
+@pytest.mark.parametrize("launches,routes,match", [
+    (dict(_SPEC_LAUNCHES, flash_attention_fwd_paged=32 * 7, rms_norm=5), {},
+     None),
+    # the verify tick on K1-paged instead: a kernel off the path
+    (dict(_SPEC_LAUNCHES, flash_attention_fwd_paged=32 * 2,
+          decode_attention_paged=32 * 5, rms_norm=5), {}, "launched"),
+    (dict(_SPEC_LAUNCHES, flash_attention_fwd_paged=32 * 7, rms_norm=5),
+     {"rms_norm/plain": 1}, "plain routes"),
+    (dict(_SPEC_LAUNCHES, flash_attention_fwd_paged=32 * 7,
+          decode_attention=1, rms_norm=5), {}, "off this path")])
+def test_check_attention_launches(launches, routes, match):
+    """32 launches a unit (verify ticks + waves here), no other attention
+    kernel, no plain route."""
+    m = {"decode_ticks": 5, "prefill_waves": 2, "ticks": 7}
+    want = chip_smoke.attention_launches(
+        m, {"flash_attention_fwd_paged": ("tick", "wave")})
+    assert want == {"flash_attention_fwd_paged": 32 * 7}
+    with nullcontext() if match is None else pytest.raises(
+            chip_smoke.CheckFailed, match=match):
+        chip_smoke.check_attention_launches("x", launches, routes, want)
+
+
+def test_attention_launches_units():
+    """The units: decode or verify ticks, waves, chunks, every tick."""
+    m = {"decode_ticks": 3, "prefill_waves": 2, "mixed_ticks": 4,
+         "ticks": 7}
+    assert chip_smoke.attention_launches(m, {
+        "a": ("tick",), "b": ("wave",), "c": ("mixed",), "d": ("ticks",),
+        "e": ("ticks", "mixed")}) == {"a": 96, "b": 64, "c": 128,
+                                      "d": 224, "e": 352}
+
+
+def test_spec_phases_cover_each_layout():
+    """4h contiguous, 4i paged, 4j int8 paged + int8 weights: each on its
+    layout's verify-window kernel, and every kernel named a known one."""
+    labels = [p[1] for p in chip_smoke.SPEC_PHASES]
+    assert labels == ["serving_spec", "serving_spec_paged",
+                      "serving_spec_int8"]
+    for _, _, kw, attention in chip_smoke.SPEC_PHASES:
+        assert set(attention) <= set(chip_smoke.ATTENTION_KERNELS)
+    assert chip_smoke.SPEC_PHASES[2][2]["int8_weights"]

@@ -12,10 +12,17 @@ against the JAX package's, on the CPU.
    alphabet to depth 6) on a 4-block pool against an
    independent reference model of the documented semantics, with the
    allocator's invariants asserted at every state (chunked admission is
-   replayed in section 1; the rollback, demotion and tiering ops of the
-   reference's alphabet belong to later slices and are left out).
+   replayed in section 1, rollback in section 4; the demotion and tiering
+   ops of the reference's alphabet belong to later slices and are left
+   out).
 3. The directed scenarios of that checker (eviction cascade, COW
    overdraw, null-block table guard) and the unported items' errors.
+4. ``truncate_to``, the speculative rollback: section 1's replay with
+   rollbacks at random positions mixed in, the chains, refcounts, free
+   list, LRU, trie and reservations equal to the JAX manager's after every
+   op (exact), and a directed case (shared blocks past the cut survive for
+   their other owner, the cut's block leaves the trie, the reservation is
+   re-credited).
 
 Chunked admission (``admit(chunked=True)`` and ``register_prompt_upto``)
 is replayed against the JAX manager in section 1, with the pool's
@@ -607,11 +614,95 @@ def test_unported_items_raise():
         BlockManager(5, 2, kv_dtype="mixed")
     mgr = BlockManager(5, 2)
     assert mgr.admit(0, [1, 2, 3], 3, 1) == 0
-    for call, item in ((lambda: mgr.truncate_to(0, 1), "A6.3"),
-                       (lambda: mgr.swap_out(0), "A6.6"),
+    for call, item in ((lambda: mgr.swap_out(0), "A6.6"),
                        (lambda: mgr.resume_swapped(0, {}), "A6.6"),
                        (lambda: mgr.export_blocks(0, None), "A6.6"),
                        (lambda: mgr.import_blocks(0, {}, None), "A6.6"),
                        (lambda: mgr.preempt_free(0), "A6.6")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+
+
+# ---- 4. truncate_to (speculative rollback) against the JAX BlockManager ----
+
+def _state(mgr, n_slots, max_blocks):
+    """Everything truncate_to touches: chains (table rows), refcounts, the
+    free list in order, the trie, the reservations, the counters."""
+    return {"tables": {s: mgr.table_row(s, max_blocks).tolist()
+                       for s in range(n_slots) if s in mgr._slots},
+            "ref": mgr._ref.tolist(), "free": list(mgr._free),
+            "lru": list(mgr._lru), "trie": dict(mgr._trie),
+            "reserved": mgr._reserved,
+            "reserved_left": {s: st.reserved_left
+                              for s, st in mgr._slots.items()},
+            "stats": {k: mgr.stats[k] for k in STATS}}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_truncate_replay_matches_jax_block_manager(seed):
+    """The replay of section 1 with rollbacks mixed in: after every op —
+    admissions that adopt shared prefixes, growth, copy-on-write,
+    ``truncate_to`` at any position of a chain (inside a block, at a
+    boundary, below registered prompt blocks), releases — the chains,
+    refcounts, free list, LRU, trie and reservations equal the JAX
+    manager's, and the pool's invariants hold."""
+    bl, nb, n_slots, max_blocks = 4, 14, 4, 16
+    port = BlockManager(nb, bl)
+    ref = JaxBlockManager(nb, bl)
+    rng = np.random.default_rng(100 + seed)
+    live = {}
+    truncated = 0
+    for i, op in enumerate(_random_ops(seed, 300, n_slots, bl)):
+        if rng.random() < 0.3 and op[1] in live:
+            cover = len(port.chain(op[1])) * bl
+            pos = int(rng.integers(0, cover + 1))
+            got = port.truncate_to(op[1], pos)
+            want = ref.truncate_to(op[1], pos)
+            truncated += 1
+        else:
+            got, want = _apply(port, op, live), _apply(ref, op, live)
+            if op[0] == "admit" and got not in ("skip", None):
+                live[op[1]] = len(op[2]) + op[3]
+            elif op[0] == "release" and got != "skip":
+                del live[op[1]]
+        assert got == want, (i, op, got, want)
+        assert _state(port, n_slots, max_blocks) == _state(
+            ref, n_slots, max_blocks), i
+        _pool_invariants(port, {}, i)
+    assert truncated > 30 and port.stats["prefix_hit_blocks"] > 0
+
+
+def test_truncate_unregisters_from_the_cut_and_spares_shared_blocks():
+    """Directed: a chain adopted by a second slot keeps its shared blocks
+    when the first slot rolls back past them (deref, not free); the block
+    at the cut and every later registered block leave the trie (with
+    their cached descendants); the released blocks are re-credited to the
+    slot's reservation, so it can grow over the same positions again."""
+    bl = 2
+    for mgr in (BlockManager(12, bl), JaxBlockManager(12, bl)):
+        prompt = [1, 2, 3, 4, 5, 6, 7]
+        assert mgr.admit(0, prompt, 7, 4) == 0            # 4 blocks
+        assert mgr.admit(1, prompt, 7, 4) == 6            # adopts 3
+        shared = mgr.chain(0)[:3]
+        assert mgr.chain(1)[:3] == shared
+        left0 = mgr._slots[0].reserved_left
+        mgr.ensure_capacity(0, 9)                          # 5 blocks
+        mgr.truncate_to(0, 3)                              # keep 2 blocks
+        assert mgr.chain(0) == shared[:2]
+        # the shared third block survives for slot 1, unregistered
+        assert mgr._ref[shared[2]] == 1 and shared[2] not in mgr._free
+        # the cut's block (positions 2-3, rewritten from 3 on) and its
+        # descendant leave the trie; the block below the cut stays
+        assert shared[1] not in mgr._block_key
+        assert shared[2] not in mgr._block_key
+        assert shared[0] in mgr._block_key
+        assert mgr._slots[0].reserved_left == left0 + 2
+        mgr.ensure_capacity(0, 10)                         # regrow
+        assert len(mgr.chain(0)) == 6
+        mgr.truncate_to(0, 12)                             # no-op
+        assert len(mgr.chain(0)) == 6
+        with pytest.raises(ValueError, match="pos must be"):
+            mgr.truncate_to(0, -1)
+        mgr.release(0)
+        mgr.release(1)
+        assert mgr.blocks_in_use() == 0

@@ -112,19 +112,29 @@ def test_rejections(pair):
     ({"preempt": "swap"}, "A6.6"),
     ({"mesh": "mp2dp2"}, "A9")])
 def test_unported_modes_raise(pair, kw, item):
+    """Each configuration of a later ROADMAP item raises, naming it.  A6.3
+    (speculative decode) is ported since: its configurations, wave and
+    chunked, build the speculative engine instead."""
     _, tm = pair
+    if item == "A6.3":
+        eng = ServingEngine(tm, num_slots=2, max_length=MAXLEN,
+                            device="cpu", **kw)
+        assert eng.spec and eng.step_traces == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(tm, num_slots=2, max_length=MAXLEN, device="cpu", **kw)
 
 
 def test_unported_flag_raises(pair):
+    """A serving flag whose value selects an unported mode raises, naming
+    its ROADMAP item (the mixed bf16/int8 pool, A6.4b)."""
     _, tm = pair
-    flags.set_flags({"serving_spec_decode": True})
+    flags.set_flags({"serving_kv_cache_dtype": "mixed"})
     try:
-        with pytest.raises(NotImplementedError, match="A6.3"):
-            ServingEngine(tm, max_length=MAXLEN, device="cpu")
+        with pytest.raises(NotImplementedError, match="A6.4b"):
+            ServingEngine(tm, max_length=MAXLEN, device="cpu", paged=True)
     finally:
-        flags.set_flags({"serving_spec_decode": False})
+        flags.set_flags({"serving_kv_cache_dtype": "bf16"})
 
 
 def test_chunked_flag_selects_the_chunked_engine(pair, jax_outputs):
