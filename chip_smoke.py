@@ -5,10 +5,10 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds every kernel of the serving and training paths from the sources
-in the checkout, holds each against its plain PyTorch version, runs the
-model at the full Llama-3-8B width, serves requests through the engine
-and trains a 4-layer cut of the model.  Every phase prints one JSON line;
+It builds every kernel of the serving, sampling and training paths from
+the sources in the checkout, holds each against its plain PyTorch version,
+runs the model at the full Llama-3-8B width, serves requests through the
+engine, samples DiT-XL/2 latents and trains a 4-layer cut of the model.  Every phase prints one JSON line;
 any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -57,8 +57,12 @@ any failed check raises, so the script exits non-zero.  Phases:
                  the speculative verify window (8 rows of s = 5 at the
                  main depths): K1, K1-int8, K2-paged, K2-paged-int8 (the
                  engine's routes) and K1-paged, K1-paged-int8 called at
-                 the same window (``verify_window`` line); each
-                 also at the tiny model's float32 shapes:
+                 the same window (``verify_window`` line); then K2 at
+                 the head dims below 128: bf16 D 72 at the dit phase's
+                 shape (B 16, S 256, 16 heads, full attention), causal
+                 GQA at a ragged Sq 77 over Skv 61 (dead rows), the
+                 ring-hop segmented form, bf16 D 64, float32 D 72 and 64;
+                 each also at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
                  in ms;
@@ -175,7 +179,23 @@ any failed check raises, so the script exits non-zero.  Phases:
                  scripted drafters replay 4h's own cold output (no new
                  build, a replay a tick and a wave, hits > 0), reported
                  beside phase 4's warm pass;
-  5. training  — after the serving models are freed: Llama-3-8B width cut
+  dit.         — after the serving models are freed: DiT-XL/2 (28 blocks,
+                 hidden 1152, 16 heads of 72, 32 x 32 x 4 latents, 1000
+                 classes), bf16, seeded weights with the AdaLN modulations
+                 drawn off zero; gates: (a) one forward at B 16 (8 labels
+                 + 8 null), the kernel path's relative L2 error against
+                 a float32 copy within 1.2x the plain path's; (b)
+                 ``ddim_sample`` of 8 labels, 50 steps, guidance 4, eta
+                 0: the key built once (one denoising step captured as a
+                 CUDA graph, replayed 50 times a sample), K2 28 x 50
+                 launches, no plain route, finite latents equal bit for
+                 bit to the eager twin's; (c) the tiny float32 DiT and a
+                 narrow one at head_dim 72, 8 guided steps on the card
+                 against the CPU (``dit_tiny_f32`` lines).  Sampling ms,
+                 latents/s, ms a step, K2's share, peak memory; with
+                 ``--profile`` the eager twin's kernel time a step by
+                 class (K2, GEMM, other);
+  5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
                  ``build_train_step(grad_accum_steps=2)`` with AdamW
@@ -196,7 +216,8 @@ Then the ``{"kernels": [...]}`` line (launches of K1, K2, K3 from phase 4,
 of K1-paged and K2-paged from phase 4b, of K1-paged-int8, K2-paged-int8
 and K4 from phase 4c, of K1-int8 from phase 4d, of K2-paged and
 K2-paged-int8 over the identity view from phases 4e and 4g, of K5 and K6
-from phase 5; error and times from phase 2) and, last, ``{"ok": true,
+from phase 5, of K2 at head_dim 72 from the dit phase; error and times
+from phase 2) and, last, ``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds the device time of K1, K1-int8, K1-paged and
@@ -288,6 +309,11 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/decode_attention.py:120"},
+    # K2 at head_dim 72: the DiT-XL/2 blocks' attention (the dit phase)
+    "flash_attention_fwd/d72": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:128"},
 }
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -1275,6 +1301,7 @@ def phase_kernels(torch):
                         tols)
     phase_verify_window_rows(torch, record, randn, int8_payload,
                              int8_scales, tols, paged_rows[0][10])
+    phase_head_dim_rows(torch, record, randn, tols)
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
@@ -1359,6 +1386,105 @@ def phase_kernels(torch):
     emit({"phase": "kernels_summary",
           "kernels": [dict(name=n, **r) for n, r in results.items()]})
     return results
+
+
+# DiT-XL/2 (the dit phase): hidden 1152 / 16 heads, 32 x 32 latents in 2 x 2
+# patches; 8 labels and their 8 null rows (classifier-free guidance)
+DIT_DEPTH, DIT_HEADS, DIT_HEAD_DIM, DIT_TOKENS = 28, 16, 72, 256
+DIT_LABELS, DIT_STEPS, DIT_CFG = 8, 50, 4.0
+DIT_BATCH = 2 * DIT_LABELS
+
+
+def phase_head_dim_rows(torch, record, randn, tols):
+    """Phase 2's rows of K2 at the head dims below 128 (the contiguous
+    build takes any D <= 128 with D % 8 == 0 on zero-padded 128-wide
+    tiles; float32 its CUDA-core instances at 64 and 72): bf16 D 72 at
+    the dit phase's shape (B 16, S 256, 16 heads, full attention; the
+    ``flash_attention_fwd/d72`` entry's main row), causal GQA at a ragged
+    Sq 77 over Skv 61 (queries 0..15 see no key: out 0, lse -1e30), the
+    ring-hop segmented form (separate kv ids, queries whose id matches no
+    key), bf16 D 64 (the second TMA box wholly past the tensor), then
+    float32 at 72 (the narrow DiT's shape and a ragged causal one) and
+    64.  Each holds out, lse and the dead rows against the plain
+    version."""
+    from paddle_tpu_torch.ops import (flash_attention,
+                                      flash_attention_fwd_cuda)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    import torch.nn.functional as TF
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for (name, dt, b, sq, skv, hq, hkv, d, causal, ring, main) in (
+            ("flash_attention_fwd/d72", bf16, DIT_BATCH, DIT_TOKENS,
+             DIT_TOKENS, DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, False,
+             True),
+            ("flash_attention_fwd/d72", bf16, 2, 77, 61, 8, 2, 72, True,
+             False, False),
+            ("flash_attention_fwd/d72", bf16, 2, 256, 512, 8, 2, 72, True,
+             True, False),
+            ("flash_attention_fwd", bf16, 4, 512, 512, 8, 8, 64, False,
+             False, False),
+            ("flash_attention_fwd", bf16, 2, 77, 61, 8, 2, 64, True, False,
+             False),
+            ("flash_attention_fwd/d72", f32, 4, 16, 16, 2, 2, 72, False,
+             False, False),
+            ("flash_attention_fwd/d72", f32, 2, 77, 61, 4, 2, 72, True,
+             False, False),
+            ("flash_attention_fwd", f32, 2, 70, 70, 4, 2, 64, False, False,
+             False)):
+        atol, rtol = tols(dt)
+        lse_tol = 1e-3 if dt == bf16 else 1e-5
+        esz = 2 if dt == bf16 else 4
+        seg = kv_seg = None
+        if ring:
+            ids_kv = packed_segments(b, skv, seed=skv)
+            ids_q = (packed_segments(b, sq, seed=sq, lo=3, hi=6)
+                     + ids_kv.max(1, keepdims=True) - 1)
+            seg = torch.from_numpy(ids_q).to(dev)
+            kv_seg = torch.from_numpy(ids_kv).to(dev)
+        kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
+        keep = visible_pairs(torch, sq, skv, causal, seg, kv_seg, dev)
+        pairs = int(keep.expand(b, sq, skv).sum().item())
+        n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
+        nb = b * (2 * sq * hq + 2 * skv * hkv) * d * esz
+        sets = [(randn(b, sq, hq, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt),
+                 randn(b, skv, hkv, d, dtype=dt)) for _ in range(copies(nb))]
+        q, k, v = sets[0]
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        with reference_mode():
+            ref, ref_lse = flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+        ok = (within(out, ref, atol, rtol) and lerr <= lse_tol
+              and dead_rows_ok(torch, keep, b, out, lse)
+              and (n_dead > 0) == (ring or (causal and sq > skv)))
+        kfns = [lambda t=t: flash_attention_fwd_cuda(*t, **kw) for t in sets]
+        with reference_mode():
+            plain_ms = time_ms(torch, [
+                lambda t=t: flash_attention(*t, **kw) for t in sets],
+                budget_ms=100.0)
+        mask = (None if seg is None and (sq == skv or not causal)
+                else keep[:, None])
+        lfns = [lambda t=t: TF.scaled_dot_product_attention(
+            t[0].transpose(1, 2), t[1].transpose(1, 2), t[2].transpose(1, 2),
+            attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True) for t in sets]
+        lib_ms = time_ms(torch, lfns)
+        nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esz \
+            + 4 * b * hq * sq + (0 if seg is None else 4 * b * (sq + skv))
+        bms, by = bound(nbytes, 4 * d * hq * pairs,
+                        BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        tag = (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
+               f"{'causal' if causal else 'causal=False'} "
+               f"{'ring-hop kv_segment_ids ' if ring else ''}{str(dt)[6:]}")
+        record(name, tag, max(err, lerr),
+               f"out atol {atol} + rtol {rtol}, lse {lse_tol}, dead rows "
+               f"out 0 and lse -1e30", ok, kfns, plain_ms, lib_ms, bms, by,
+               main, note=SEGMENTED_LIBRARY_NOTE if mask is not None else None,
+               extra={"head_dim": d, "visible_pairs": pairs,
+                      "dead_rows": n_dead,
+                      "library_kernel": top_kernel(torch, lfns[0])})
+        del sets, q, k, v, out, lse, ref, ref_lse
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -3306,6 +3432,213 @@ def phase_training(torch, kernels, profile: bool = False):
               "the tiny train step ran no backward kernel")
 
 
+def _dit_perturbed(torch, cfg, device, seed=0):
+    """A DiT at ``cfg`` with seeded random weights (the reference's init),
+    its AdaLN modulations and final layer then drawn N(0, 0.02) too: at
+    AdaLN-Zero every gate is 0 and attention would never reach the
+    output."""
+    from paddle_tpu_torch.models import DiT
+    m = DiT(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    with torch.no_grad():
+        for n, prm in m.named_parameters():
+            if n.rsplit(".", 1)[-1] in ("ada", "ada_b") or n.startswith(
+                    "final."):
+                prm.normal_(0.0, 0.02, generator=gen)
+    return m
+
+
+def phase_dit(torch, kernels, card, profile: bool = False):
+    """DiT-XL/2 class-conditional DDIM sampling at the published width (28
+    blocks, hidden 1152, 16 heads of 72, 32 x 32 x 4 latents in 2 x 2
+    patches, 1000 classes, learn_sigma), bf16, seeded weights off
+    AdaLN-Zero (:func:`_dit_perturbed`).  Gates: (a) one forward at B 16
+    (8 labels + 8 null), the kernel path's relative L2 error against a
+    float32 copy (plain path) within 1.2x the plain path's; (b)
+    ``ddim_sample`` of 8 labels, 50 steps, guidance 4, eta 0, seeded
+    ``x_init``: its key built once (the step captured as one CUDA graph)
+    and replayed 50 times a sample, K2 28 x 50 launches a sample, no
+    plain route, every latent finite, and the latents equal to its eager
+    twin's (``disable_graphs()``) bit for bit; (c) the tiny float32 DiT
+    (head_dim 16) and a narrow float32 one at head_dim 72 (hidden 144, 2
+    heads, depth 2), 8-step guided samples on the card (kernels) against
+    the CPU (plain) from the same weights and ``x_init``.  Reported:
+    sampling ms, latents/s, ms a step, K2's share of a step (phase 2's
+    main-row time x 28), peak memory, the card."""
+    from paddle_tpu_torch.models import (dit_xl_2_config, ddim_sample,
+                                         tiny_dit_config)
+    from paddle_tpu_torch.ops import (_dispatch, launch_counts,
+                                      reset_launch_counts)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    from paddle_tpu_torch.serving import disable_graphs
+
+    dev = torch.device("cuda")
+    # what earlier phases still hold counts in the peak: report it beside
+    allocated_before = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dit_xl_2_config(dtype="bfloat16")
+    m = _dit_perturbed(torch, cfg, dev)
+    m.eval()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(cfg.depth == DIT_DEPTH and cfg.num_heads == DIT_HEADS
+          and cfg.head_dim == DIT_HEAD_DIM
+          and cfg.num_patches == DIT_TOKENS, f"DiT-XL/2 config: {cfg}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    shape = (DIT_LABELS, cfg.in_channels, cfg.input_size, cfg.input_size)
+
+    # (a) one forward: kernels, plain, float32 truth
+    labels = torch.randint(0, cfg.num_classes, (DIT_LABELS,), generator=gen,
+                           device=dev)
+    y = torch.cat([labels, torch.full_like(labels, cfg.num_classes)])
+    x = torch.randn((DIT_BATCH, *shape[1:]), generator=gen, device=dev)
+    t = torch.randint(0, 1000, (DIT_BATCH,), generator=gen, device=dev)
+    with torch.no_grad():
+        got = m(x, t, y).float()
+        with reference_mode():
+            plain = m(x, t, y).float()
+            m32 = copy.deepcopy(m).float()
+            truth = m32(x, t, y).float()
+    del m32
+    torch.cuda.empty_cache()
+
+    def rel(a):
+        return float((a - truth).norm() / truth.norm())
+
+    fwd = {"kernel_rel_l2": rel(got), "plain_rel_l2": rel(plain),
+           "kernel_vs_plain_max_abs": max_err(got, plain),
+           "finite": bool(torch.isfinite(got).all().item())}
+    check(fwd["finite"] and fwd["kernel_rel_l2"] <= 1.2 * fwd["plain_rel_l2"],
+          f"dit forward: kernel path error {fwd['kernel_rel_l2']} beyond "
+          f"1.2x the plain path's {fwd['plain_rel_l2']}")
+    del got, plain, truth
+
+    # (b) graphed sampling: a cold call (the build), a warm call, the twin
+    x_init = torch.randn(shape, generator=gen, device=dev)
+    kw = dict(steps=DIT_STEPS, cfg_scale=DIT_CFG, eta=0.0, x_init=x_init)
+    key = (DIT_LABELS, DIT_STEPS, DIT_CFG, 0.0, 1000, False)
+
+    def sample():
+        reset_launch_counts()
+        _dispatch.reset_kernel_paths()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ddim_sample(m, labels, **kw)
+        torch.cuda.synchronize()
+        return {"ms": (time.perf_counter() - t1) * 1e3,
+                "launches": {k: n for k, n in launch_counts().items() if n},
+                "routes": {f"{op}/{path}": n for (op, path), n in
+                           _dispatch.kernel_paths.items()}, "out": out}
+
+    cold = sample()
+    sampler = m._ddim_jit_cache[key]
+    warm = sample()
+    graphs = {"traces": sampler.traces, "graphed": sampler.graphed,
+              "replays": sampler.replays}
+    own_cache = m._ddim_jit_cache
+    m._ddim_jit_cache = {}
+    prof_rows = None
+    with disable_graphs():
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+                twin = sample()
+            prof_rows = kernel_rows(prof)
+        else:
+            twin = sample()
+    twin_traces = m._ddim_jit_cache[key].traces
+    m._ddim_jit_cache = own_cache
+    k2_want = DIT_DEPTH * DIT_STEPS
+    run = {k: warm[k] for k in ("ms", "launches", "routes")}
+    run.update(cold_ms=cold["ms"], eager_ms=twin["ms"],
+               ms_per_step=warm["ms"] / DIT_STEPS,
+               latents_per_s=DIT_LABELS / (warm["ms"] / 1e3),
+               eager_ms_per_step=twin["ms"] / DIT_STEPS,
+               twin_identical=bool(torch.equal(warm["out"], twin["out"])),
+               twin_max_abs=max_err(warm["out"], twin["out"]),
+               cold_identical=bool(torch.equal(warm["out"], cold["out"])),
+               twin_launches_identical=twin["launches"] == warm["launches"],
+               twin_traces=twin_traces,
+               finite=bool(torch.isfinite(warm["out"]).all().item()),
+               latent_abs_max=float(warm["out"].abs().max()), **graphs)
+    k2_row = kernels.get("flash_attention_fwd/d72", {})
+    if k2_row.get("ms"):
+        run["k2_ms_per_step"] = k2_row["ms"] * DIT_DEPTH
+        run["k2_share_of_step"] = (k2_row["ms"] * DIT_DEPTH
+                                   / run["ms_per_step"])
+    if prof_rows is not None:
+        total = sum(us for us, _, _ in prof_rows)
+        k2 = sum(us for us, n, _ in prof_rows if "flash_attention_fwd" in n)
+        gemm = sum(us for us, n, _ in prof_rows
+                   if re.search(r"gemm|xmma|nvjet|cutlass", n))
+        run["profile_eager"] = {
+            "kernel_ms_per_step": total / 1e3 / DIT_STEPS,
+            "k2_ms_per_step": k2 / 1e3 / DIT_STEPS,
+            "gemm_ms_per_step": gemm / 1e3 / DIT_STEPS,
+            "other_ms_per_step": (total - k2 - gemm) / 1e3 / DIT_STEPS,
+            "top": [[n[:80], round(us / 1e3 / DIT_STEPS, 5), c]
+                    for us, n, c in prof_rows[:8]]}
+    run["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["allocated_before_phase_gb"] = allocated_before
+    emit({"phase": "dit", "card": card, "init_s": init_s,
+          "config": dataclasses.asdict(cfg), "labels": labels.tolist(),
+          "forward": fwd, "sampling": run})
+    check(graphs == {"traces": 1, "graphed": True,
+                     "replays": 2 * DIT_STEPS} and twin_traces == 1,
+          f"dit sampling: one build and {DIT_STEPS} replays a sample "
+          f"expected, got {graphs}, twin builds {twin_traces}")
+    for tag, r in (("cold", cold), ("warm", warm), ("eager twin", twin)):
+        check(r["launches"].get("flash_attention_fwd") == k2_want,
+              f"dit sampling ({tag}): K2 launches "
+              f"{r['launches'].get('flash_attention_fwd')} != {k2_want}")
+        check(not any(k.endswith("/plain") for k in r["routes"]),
+              f"dit sampling ({tag}): a plain route {r['routes']}")
+    check(run["finite"], "dit sampling: a latent is not finite")
+    check(run["twin_identical"] and run["cold_identical"],
+          f"dit sampling: graphed latents differ from the eager twin's "
+          f"(max {run['twin_max_abs']}) or from the cold call's")
+    kernels["flash_attention_fwd/d72"]["launches"] = \
+        warm["launches"]["flash_attention_fwd"]
+    del m, cold, warm, twin, sampler, own_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) tiny float32 DiTs: card (kernels) against the CPU (plain)
+    for name, kw_cfg in (("tiny", {}),
+                         ("d72", dict(hidden_size=144, num_heads=2))):
+        cpu = _dit_perturbed(torch, tiny_dit_config(**kw_cfg), "cpu")
+        card_m = copy.deepcopy(cpu).to(dev)
+        g = torch.Generator().manual_seed(3)
+        xi = torch.randn((4, 4, 8, 8), generator=g)
+        ys = [0, 3, 7, 9]
+        reset_launch_counts()
+        _dispatch.reset_kernel_paths()
+        on_card = ddim_sample(card_m, ys, steps=8, cfg_scale=DIT_CFG,
+                              x_init=xi.to(dev)).cpu()
+        launches = launch_counts()["flash_attention_fwd"]
+        card_paths = dict(_dispatch.kernel_paths)
+        on_cpu = ddim_sample(cpu, ys, steps=8, cfg_scale=DIT_CFG, x_init=xi)
+        diff = max_err(on_card, on_cpu)
+        scale = float(on_cpu.abs().max())
+        sampler = card_m._ddim_jit_cache[(4, 8, DIT_CFG, 0.0, 1000, False)]
+        emit({"phase": "dit_tiny_f32", "model": name,
+              "head_dim": card_m.config.head_dim, "max_abs_diff": diff,
+              "latent_abs_max": scale, "tol": "1e-5 x the largest |latent|",
+              "k2_launches": launches, "graphed": sampler.graphed,
+              "traces": sampler.traces})
+        check(diff <= 1e-5 * scale,
+              f"dit_tiny_f32 {name}: card and CPU latents differ by {diff} "
+              f"(largest {scale})")
+        check(launches == card_m.config.depth * 8 and sampler.graphed
+              and card_paths.get(("flash_attention", "plain"), 0) == 0,
+              f"dit_tiny_f32 {name}: K2 {launches} launches, graphed "
+              f"{sampler.graphed}, routes {card_paths}")
+        del cpu, card_m
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3328,7 +3661,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.ops.cuda import _build
 
     t_start = time.perf_counter()
-    phase_card(torch, _build)
+    card = phase_card(torch, _build)
     kernels = phase_kernels(torch)
     model, qmodel = phase_model(torch)
     run4 = phase_serving(torch, model, kernels)
@@ -3358,6 +3691,7 @@ def main(argv=None) -> int:
     del model, qmodel
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dit(torch, kernels, card, profile=args.profile)
     phase_training(torch, kernels, profile=args.profile)
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)
                       for n, r in kernels.items()]})

@@ -33,9 +33,10 @@
 // score matrix never reaches device memory, and causal tiles wholly above
 // the diagonal are never loaded.  Two bodies (any other dtype / head dim
 // is refused):
-//   * bfloat16 q at D = 128 -- contiguous (the serving waves and every
-//     training forward; segmented or not), paged bf16 and paged int8 (the
-//     paged engine's prefill waves): the Hopper kernel,
+//   * bfloat16 q -- contiguous at any D <= 128 with D % 8 == 0 (the
+//     serving waves and every training forward at D = 128, the DiT blocks
+//     at D = 72; segmented or not), paged bf16 and paged int8 at D = 128
+//     (the paged engine's prefill waves): the Hopper kernel,
 //     flash_attention_fwd_wgmma_kernel -- 128-query tiles on two consumer
 //     warpgroups, wgmma for Q.K^T and P.V, 128-key K/V tiles in an
 //     mbarrier ring fed by TMA (paged: two 64-key boxes a tile, each at
@@ -45,14 +46,15 @@
 //     the heaviest q tiles first, and with segment ids every key tile
 //     whose id range misses the q tile's skipped (see its notes).  Paged,
 //     it takes block_len % 64 == 0;
-//   * float32 at D = 16 (the tiny test model), contiguous or paged (any
-//     block_len, the table looked up per key, int8 dequantized per key):
+//   * float32 at D = 16 (the tiny test models), contiguous or paged (any
+//     block_len, the table looked up per key, int8 dequantized per key),
+//     and contiguous at D = 64 and 72 (float32 DiTs):
 //     products on the CUDA cores -- each thread owns a 4x4 tile of scores
 //     (rows tr*4.., keys tc*4..) and 4 rows x (D/16) output elements, fed
 //     by 16-byte shared-memory reads of transposed Q and K tiles; the K
 //     tile's shared memory is reused for the probabilities (26 KB at D =
-//     16).  wgmma has no float32 input that keeps float32 numerics, so it
-//     stays here.
+//     16, 58 KB at 72).  wgmma has no float32 input that keeps float32
+//     numerics, so it stays here.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -299,8 +301,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16 q at D = 128 -- K2 over contiguous K/V (segmented
-// or not), K2-paged over a bf16 pool, K2-paged-int8 over an int8 pool.
+// Hopper path: bfloat16 q -- K2 over contiguous K/V (segmented or not) at
+// any D <= 128 with D % 8 == 0, K2-paged over a bf16 pool and
+// K2-paged-int8 over an int8 pool at D = 128.
+//
+// The body is built for 128-wide tiles.  At D < 128 the tensor maps have
+// D columns (bshd_map), so TMA fills columns D..127 of every Q, K and V
+// tile with zeros (a box at d 64 wholly past D at D <= 64 too) and each
+// box still completes its full byte count on the mbarrier: Q K^T sums
+// zero products over the pad, P V writes zeros into the output's pad
+// columns, and the out map's store drops them.  The products then do
+// 128 / D times the useful work (1.78x at D = 72).
 //
 // One CTA per (128-query tile, q head, batch row); a 1-D grid that starts
 // the heaviest causal q tiles (the last: the most keys, whatever the
@@ -350,7 +361,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // Sq.  Paged: query i of row b sees keys j <= pos[b] + i, keys j <
 // min(pos[b] + Sq, max_blocks * block_len) exist, and no lse is written.
 // ---------------------------------------------------------------------------
-constexpr int kHD = 128;              // head_dim of the build
+constexpr int kHD = 128;              // tile width in d: the largest head_dim
 constexpr int kHQ = 128;              // queries per CTA (2 x 64)
 constexpr int kHK = 128;              // keys per tile
 constexpr int kHStages = 2;
@@ -941,24 +952,27 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// Encodes the maps and launches the Hopper kernel.  Contiguous: k, v (B,
-// Skv, Hkv, 128) bf16.  Paged: k, v one layer's (num_blocks, block_len,
-// Hkv, 128) pool, bf16 or (INT8) int8, with a.pos / a.table set and
-// block_len % 64 == 0.
+// Encodes the maps and launches the Hopper kernel.  Contiguous: q, out (B,
+// Sq, Hq, D), k, v (B, Skv, Hkv, D) bf16, D <= 128 and D % 8 == 0.  Paged
+// (D = 128): k, v one layer's (num_blocks, block_len, Hkv, 128) pool,
+// bf16 or (INT8) int8, with a.pos / a.table set and block_len % 64 == 0.
 template <bool SEG, bool PAGED, bool INT8>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, const int* seg_kv, HopperArgs a,
-                         int num_blocks, float scale, cudaStream_t st) {
+                         int num_blocks, float scale, cudaStream_t st,
+                         int D = kHD) {
+  if (D < 8 || D > kHD || D % 8 != 0 || ((PAGED || INT8) && D != kHD))
+    return cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, om, sm;
   memset(&sm, 0, sizeof(sm));
-  cudaError_t e = bshd_map(&qm, q, a.B, a.Sq, a.Hq, kHQ);
-  if (e == cudaSuccess) e = bshd_map(&om, out, a.B, a.Sq, a.Hq, kHQ / 2);
+  cudaError_t e = bshd_map(&qm, q, a.B, a.Sq, a.Hq, kHQ, D);
+  if (e == cudaSuccess) e = bshd_map(&om, out, a.B, a.Sq, a.Hq, kHQ / 2, D);
   // K / V: (B, Skv) rows of 128-key boxes, or the pool's (num_blocks,
   // block_len) rows of 64-key boxes
   auto kv_map = [&](CUtensorMap* m, const void* p) {
     if (INT8) return bshd_map_int8(m, p, num_blocks, a.block_len, a.Hkv, kHBox);
     if (PAGED) return bshd_map(m, p, num_blocks, a.block_len, a.Hkv, kHBox);
-    return bshd_map(m, p, a.B, a.Skv, a.Hkv, kHK);
+    return bshd_map(m, p, a.B, a.Skv, a.Hkv, kHK, D);
   };
   if (e == cudaSuccess) e = kv_map(&km, k);
   if (e == cudaSuccess) e = kv_map(&vm, v);
@@ -980,15 +994,32 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  bfloat16 at D = 128 runs the
-// Hopper kernel (q, k, v, out 16-byte aligned), float32 at D = 16 the
-// CUDA-core one; any other pair returns cudaErrorInvalidValue.  seg_q (B,
-// Sq) and seg_kv (B, Skv): int32 packed-document ids, or both null; query
-// i sees key j only where seg_q[b, i] == seg_kv[b, j] (and causally).
-// With ids the bfloat16 build also takes q_rng (B, ceil(Sq / 128), 2) and
-// kv_rng (B, ceil(Skv / 128), 2): the int32 [min, max] id of each
-// 128-token tile (segment_tile_ranges); the float32 build ignores them.
-// Returns the launch's error (cudaGetLastError()).
+// the float32 CUDA-core kernel over contiguous K/V at head dim D, with or
+// without segment ids
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                       float scale, int causal, const int* seg_q,
+                       const int* seg_kv, cudaStream_t st) {
+  if (seg_q != nullptr)
+    return launch<D, false, float, true>(q, k, v, out, lse, B, Sq, Skv, Hq,
+                                         Hkv, scale, causal, st, nullptr,
+                                         nullptr, 0, 0, nullptr, nullptr,
+                                         seg_q, seg_kv);
+  return launch<D, false>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, scale,
+                          causal, st);
+}
+
+// dtype: 0 = bfloat16, 1 = float32.  bfloat16 at any D <= 128 with D % 8
+// == 0 runs the Hopper kernel (q, k, v, out 16-byte aligned), float32 at D
+// = 16, 64 or 72 the CUDA-core one; any other pair returns
+// cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
+// packed-document ids, or both null; query i sees key j only where
+// seg_q[b, i] == seg_kv[b, j] (and causally).  With ids the bfloat16 build
+// also takes q_rng (B, ceil(Sq / 128), 2) and kv_rng (B, ceil(Skv / 128),
+// 2): the int32 [min, max] id of each 128-token tile
+// (segment_tile_ranges); the float32 build ignores them.  Returns the
+// launch's error (cudaGetLastError()).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    const void* seg_q, const void* seg_kv,
@@ -1016,21 +1047,23 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   // segment ids select their own instantiation: the unsegmented one
   // carries no segment test
   cudaError_t e;
-  if (dtype == 0 && D == kHD && sq != nullptr)
+  if (dtype == 0 && sq != nullptr)
     e = (a.q_rng == nullptr || a.kv_rng == nullptr)
             ? cudaErrorInvalidValue
             : launch_wgmma<true, false, false>(q, k, v, out, skv, a, 0,
-                                               scale, st);
-  else if (dtype == 0 && D == kHD)
+                                               scale, st, D);
+  else if (dtype == 0)
     e = launch_wgmma<false, false, false>(q, k, v, out, nullptr, a, 0, scale,
-                                          st);
-  else if (dtype == 1 && D == 16 && sq != nullptr)
-    e = launch<16, false, float, true>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv,
-                                       scale, causal, st, nullptr, nullptr, 0,
-                                       0, nullptr, nullptr, sq, skv);
+                                          st, D);
   else if (dtype == 1 && D == 16)
-    e = launch<16, false>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
-                          st);
+    e = launch_f32<16>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
+                       sq, skv, st);
+  else if (dtype == 1 && D == 64)
+    e = launch_f32<64>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
+                       sq, skv, st);
+  else if (dtype == 1 && D == 72)
+    e = launch_f32<72>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
+                       sq, skv, st);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -442,14 +442,18 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// a map over one (B, S, H, 128) bf16 tensor: boxes of `rows` consecutive s
-// and 64 of the 128 d (two boxes a 128-wide row), 128-byte swizzle; rows
-// past S load as zero and are not stored
+// a map over one (B, S, H, D) bf16 tensor, D <= 128 and D % 8 == 0 (the
+// row stride D * 2 bytes a multiple of 16): boxes of `rows` consecutive s
+// and 64 d (two boxes a 128-wide tile row, at d 0 and 64), 128-byte
+// swizzle.  Rows past S and columns past D load as zero and are not
+// stored, so at D < 128 the tile's columns D..127 hold zeros.  D is a
+// dimension of its own: a map over (H * D) columns would read the next
+// head's data into them.
 inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
-                            int rows) {
-  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S,
+                            int rows, int D = 128) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t row = 128 * 2;
+  const cuuint64_t row = (cuuint64_t)D * 2;
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,

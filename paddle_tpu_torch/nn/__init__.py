@@ -1,6 +1,6 @@
 """Layers of the port (mirrors ``paddle_tpu/nn``)."""
 
 from . import functional, quant
-from .common import RMSNorm
+from .common import LayerNorm, RMSNorm
 
-__all__ = ["RMSNorm", "functional", "quant"]
+__all__ = ["LayerNorm", "RMSNorm", "functional", "quant"]

@@ -22,3 +22,26 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.rms_norm(x, self.weight, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm layer, as ``paddle_tpu.nn.common.LayerNorm`` (:124):
+    ``weight`` (ones) and ``bias`` (zeros) over ``normalized_shape``;
+    ``weight_attr=False`` / ``bias_attr=False`` mean no such parameter
+    (DiT's AdaLN norms have neither)."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, dtype=None, device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = (None if weight_attr is False else nn.Parameter(
+            torch.ones(self.normalized_shape, dtype=dtype, device=device)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(self.normalized_shape, dtype=dtype, device=device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            self.epsilon)

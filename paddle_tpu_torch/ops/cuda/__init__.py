@@ -71,10 +71,10 @@ def check_attention_args(what: str, q: torch.Tensor, k: torch.Tensor,
                          int8: bool = False) -> int:
     """The checks every attention wrapper makes: one CUDA device,
     contiguous, 16-byte aligned 4-d tensors, ``v`` shaped like ``k``, q
-    heads a multiple of k's (dim 2), head_dim (dim 3) equal and the one
-    built for q's dtype (``head_dim[dtype]``).  k and v share q's dtype, or
-    with ``int8`` are both int8 (the quantized cache).  Returns q's dtype
-    code."""
+    heads a multiple of k's (dim 2), head_dim (dim 3) equal and one built
+    for q's dtype (``head_dim[dtype]``: the one head_dim, or a frozenset
+    of them).  k and v share q's dtype, or with ``int8`` are both int8
+    (the quantized cache).  Returns q's dtype code."""
     require_cuda(what, q, k, v)
     code = dtype_code(q, what)
     kv_dtype = torch.int8 if int8 else q.dtype
@@ -94,10 +94,13 @@ def check_attention_args(what: str, q: torch.Tensor, k: torch.Tensor,
     if hkv == 0 or hq % hkv:
         raise NotImplementedError(
             f"{what}: q heads ({hq}) must be a multiple of kv heads ({hkv})")
-    if head_dim[q.dtype] != d:
+    built = head_dim[q.dtype]
+    if d not in (built if isinstance(built, frozenset) else (built,)):
+        dims = (", ".join(map(str, sorted(built)))
+                if isinstance(built, frozenset) else built)
         raise NotImplementedError(
-            f"{what}: {q.dtype} is built for head_dim {head_dim[q.dtype]}, "
-            f"got {d}")
+            f"{what}: {q.dtype} is built for head_dim {dims}, got {d} "
+            f"(other head dims: ROADMAP B2)")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise NotImplementedError(f"{what}: tensors must be 16-byte aligned")
     return code

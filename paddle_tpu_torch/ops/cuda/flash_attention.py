@@ -8,20 +8,28 @@ Replaces ``paddle_tpu/ops/pallas/flash_attention.py`` ``_fwd`` (:192) /
 Returns ``out`` and the float32 log-sum-exp ``lse`` (B, Hq, Sq); a row with
 every key masked gives out = 0 and lse = -1e30.  Any Sq / Skv works: the
 ragged edge is masked in the kernel (the wave-prefill bucket is 8, 16, ...,
-not 128-aligned, which the Pallas kernel refuses at :73-88).
+not 128-aligned, which the Pallas kernel refuses at :73-88).  Head dims
+(``FWD_HEAD_DIMS``): bf16 any D <= 128 with D % 8 == 0 — the reference's
+kernel takes any D up to 256 and widens its blocks by D / 128 (:56-71);
+the port keeps its 128-wide tiles with the columns past D zero-filled, so
+DiT-XL/2's D = 72 runs it — float32 16, 64 and 72.  The paged builds below
+and the backward K5 / K6 take D = 128 (bf16) / 16 (float32) only
+(``HEAD_DIM``; the rest is ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about
 it: K/V stream through shared memory in tiles with an online softmax, so
 the (Sq, Skv) score matrix never reaches device memory, and tiles above
-the causal diagonal are skipped.  bfloat16 at head_dim 128 — the serving
-waves and every training forward — runs the Hopper kernel: 128-query
+the causal diagonal are skipped.  bfloat16 — the serving waves and every
+training forward at head_dim 128, the DiT blocks at 72 — runs the Hopper
+kernel: 128-query
 tiles on two consumer warpgroups, Q.K^T and P.V on ``wgmma`` (P re-packed
 in registers as the register A operand, V MN-major from shared memory),
 K/V by TMA into an mbarrier ring fed by a producer warp, the next tile's
 Q.K^T issued with this tile's P.V so the softmax runs under a product,
 element masks only on the tiles that need one, the heaviest q tiles
-first.  float32 at head_dim 16 — the tiny model — runs a CUDA-core kernel
+first; below head_dim 128 the same kernel runs on zero-padded tiles.
+float32 — the tiny models, float32 DiTs — runs a CUDA-core kernel
 (``wgmma`` has no float32 input that keeps float32 numerics).  Those are
 the builds held against the plain version on the card (``chip_smoke.py``);
 any other dtype or head_dim raises.
@@ -70,8 +78,15 @@ from . import (_build, block_table, check_attention_args, check_scales,
                pos_vector, stream_ptr)
 
 NAME = "flash_attention_fwd"
-# the head_dim built for each dtype
+# the head_dim built for each dtype: the paged builds', and K5 / K6's
+# (``flash_attention_bwd.py``); other head dims are ROADMAP B2
 HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
+# the contiguous K2's head dims: bf16 any D <= 128 with D % 8 == 0 (the
+# Hopper kernel's 128-wide tiles, columns past D zero-filled by TMA, whose
+# row stride D x 2 bytes must be a multiple of 16), float32 the CUDA-core
+# kernel's instances (the tiny models at 16, float32 DiTs at 64 and 72)
+FWD_HEAD_DIMS = {torch.bfloat16: frozenset(range(8, 129, 8)),
+                 torch.float32: frozenset({16, 64, 72})}
 SEG_TILE = 128          # the bf16 build's query and key tile (csrc: kHQ, kHK)
 PAGED_BOX = 64          # the bf16 paged builds' key rows a box (csrc: kHBox)
 
@@ -147,8 +162,9 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch K2.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); optional
     int ``segment_ids`` (B, Sq) / ``kv_segment_ids`` (B, Skv), the latter
     defaulting to the former.  Returns (out (B, Sq, Hq, D) in q.dtype, lse
-    (B, Hq, Sq) float32).  Raises on what the kernel does not take."""
-    code = check_attention_args(NAME, q, k, v, HEAD_DIM)
+    (B, Hq, Sq) float32).  Head dims: ``FWD_HEAD_DIMS``.  Raises on what
+    the kernel does not take."""
+    code = check_attention_args(NAME, q, k, v, FWD_HEAD_DIMS)
     b, sq, hq, d = q.shape
     bk, skv, hkv, _ = k.shape
     if bk != b:

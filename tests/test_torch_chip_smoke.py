@@ -269,3 +269,57 @@ def test_spec_phases_cover_each_layout():
     for _, _, kw, attention in chip_smoke.SPEC_PHASES:
         assert set(attention) <= set(chip_smoke.ATTENTION_KERNELS)
     assert chip_smoke.SPEC_PHASES[2][2]["int8_weights"]
+
+
+# ---- the dit phase and K2's head-dim rows ------------------------------------
+
+def test_dit_constants_are_dit_xl_2():
+    """The dit phase runs DiT-XL/2 at its published width, not cut."""
+    from paddle_tpu_torch.models import dit_xl_2_config
+    cfg = dit_xl_2_config(dtype="bfloat16")
+    assert (cfg.depth, cfg.num_heads, cfg.head_dim, cfg.num_patches,
+            cfg.hidden_size, cfg.num_classes, cfg.learn_sigma) == (
+                chip_smoke.DIT_DEPTH, chip_smoke.DIT_HEADS,
+                chip_smoke.DIT_HEAD_DIM, chip_smoke.DIT_TOKENS, 1152, 1000,
+                True)
+    assert chip_smoke.DIT_BATCH == 2 * chip_smoke.DIT_LABELS == 16
+    assert (chip_smoke.DIT_STEPS, chip_smoke.DIT_CFG) == (50, 4.0)
+
+
+def test_dit_perturbed_weights_reach_the_output():
+    """Off AdaLN-Zero every gate and the final projection are nonzero, so
+    the gates hold attention's error; at the reference's init they are 0
+    and the output would not depend on attention at all."""
+    from paddle_tpu_torch.models import tiny_dit_config
+    m = chip_smoke._dit_perturbed(torch, tiny_dit_config(), "cpu")
+    sd = m.state_dict()
+    for name in ("blocks.0.ada", "blocks.1.ada_b", "final.ada",
+                 "final.ada_b", "final.linear"):
+        assert sd[name].std() > 0.01, name
+    x = torch.randn(2, 4, 8, 8, generator=torch.Generator().manual_seed(0))
+    t, y = torch.tensor([5, 500]), torch.tensor([1, 10])
+    with torch.no_grad():
+        out = m(x, t, y)
+        m.blocks[0].qkv.mul_(2.0)
+        assert not torch.equal(out, m(x, t, y))
+
+
+def test_d72_entry_and_phase_order():
+    """The kernels line carries K2's head-dim-72 launches under an entry
+    of their own, pointing at the repo's source and the reference kernel;
+    phase 2 runs the head-dim rows; the dit phase runs after the serving
+    models are freed and before training."""
+    info = chip_smoke.KERNEL_INFO["flash_attention_fwd/d72"]
+    root = Path(chip_smoke.__file__).resolve().parent
+    assert info["route"] == "cuda" and (root / info["source"]).is_file()
+    path, line = info["replaces"].split(":")
+    src = (root / path).read_text().splitlines()
+    assert src[int(line) - 1].startswith("def _fwd_kernel")
+    import inspect
+    kernels_src = inspect.getsource(chip_smoke.phase_kernels)
+    assert "phase_head_dim_rows(" in kernels_src
+    main_src = inspect.getsource(chip_smoke.main)
+    freed = main_src.index("del model, qmodel")
+    assert freed < main_src.index("phase_dit(") < main_src.index(
+        "phase_training(")
+    assert main_src.index("phase_serving_spec_chunked_model(") < freed
