@@ -8,7 +8,8 @@ Run from the repository root with no arguments::
 It builds every kernel of the serving, sampling and training paths from
 the sources in the checkout, holds each against its plain PyTorch version,
 runs the model at the full Llama-3-8B width, serves requests through the
-engine, samples DiT-XL/2 latents and trains a 4-layer cut of the model.  Every phase prints one JSON line;
+engine, samples and trains DiT-XL/2 and trains a 4-layer cut of the Llama
+model.  Every phase prints one JSON line;
 any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -61,8 +62,13 @@ any failed check raises, so the script exits non-zero.  Phases:
                  the head dims below 128: bf16 D 72 at the dit phase's
                  shape (B 16, S 256, 16 heads, full attention), causal
                  GQA at a ragged Sq 77 over Skv 61 (dead rows), the
-                 ring-hop segmented form, bf16 D 64, float32 D 72 and 64;
-                 each also at the tiny model's float32 shapes:
+                 ring-hop segmented form, bf16 D 64, float32 D 72 and 64,
+                 then K5 / K6 at those head dims: bf16 D 72 at the
+                 dit_train step's shape (B 32, S 256, 16 heads, full
+                 attention) and, at D 72 and 64, causal GQA at Sq 77 over
+                 Skv 61, the ring-hop form and packed documents at S 300
+                 (dead rows exact, the same bits twice), float32 at 72
+                 and 64; each also at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
                  in ms;
@@ -195,6 +201,24 @@ any failed check raises, so the script exits non-zero.  Phases:
                  latents/s, ms a step, K2's share, peak memory; with
                  ``--profile`` the eager twin's kernel time a step by
                  class (K2, GEMM, other);
+  dit_train.   — DiT-XL/2 as in ``dit``, not cut, trained by
+                 ``build_train_step`` with the DiT paper's AdamW (lr 1e-4,
+                 betas (0.9, 0.999), weight decay 0) on 32 seeded latents a
+                 step (t uniform, x_t from the DDPM schedule, target the
+                 noise, 10 % null labels); gates: (a) step-1 gradients of
+                 8 latents, the kernel path within 1.2x the plain path's
+                 error against a float32 copy (``dit_train_grads``); (b)
+                 8 steps: every loss finite, K2 = K5 = K6 = 28 launches a
+                 step and no other kernel, no plain route, K5 / K6 calls
+                 of a step the same bits when launched again, and with
+                 ``recompute=True`` K2 2 x 28 for a micro-batch's
+                 gradients; (c) the tiny float32 DiT and the narrow one
+                 at head_dim 72, 4 train steps on the card against the CPU
+                 (``dit_train_tiny_f32`` lines).  Step ms p50 (steps 3-8),
+                 latents/s, tokens/s, model-FLOPs share of 989 TFLOP/s,
+                 peak memory, K5 + K6's share of a step; with
+                 ``--profile`` one step's kernel time by class, the
+                 optimizer's device time and the device's busy share;
   5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -216,8 +240,9 @@ Then the ``{"kernels": [...]}`` line (launches of K1, K2, K3 from phase 4,
 of K1-paged and K2-paged from phase 4b, of K1-paged-int8, K2-paged-int8
 and K4 from phase 4c, of K1-int8 from phase 4d, of K2-paged and
 K2-paged-int8 over the identity view from phases 4e and 4g, of K5 and K6
-from phase 5, of K2 at head_dim 72 from the dit phase; error and times
-from phase 2) and, last, ``{"ok": true,
+from phase 5, of K2 at head_dim 72 from the dit phase, of K5 and K6 at
+head_dim 72 from dit_train; error and times from phase 2) and, last,
+``{"ok": true,
 "device": {...}}``.
 
 ``--profile`` adds the device time of K1, K1-int8, K1-paged and
@@ -228,8 +253,8 @@ over 5 decode ticks of the contiguous, int8 contiguous, paged and int8
 paged engines, of the chunked engine and of the speculative contiguous,
 paged and int8 paged engines (verify ticks), each graphed and then eager
 (``mode``), and over one
-phase-5 train step (kernel time by name and class, the optimizer's device
-time, device busy share) for PERF.md.
+dit_train and one phase-5 train step (kernel time by name and class, the
+optimizer's device time, device busy share) for PERF.md.
 """
 
 from __future__ import annotations
@@ -314,6 +339,15 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:128"},
+    # K5 / K6 at head_dim 72: the DiT-XL/2 blocks' backward (dit_train)
+    "flash_attention_bwd_dq/d72": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:252"},
+    "flash_attention_bwd_dkv/d72": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:299"},
 }
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -677,6 +711,130 @@ def dead_rows_ok(torch, keep, b, out=None, lse=None, grad=None) -> bool:
     return ok
 
 
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw):
+    """Input copies of a K5 / K6 row, cycled past L2 (:func:`copies`):
+    (q, k, v, dO, dlse, out, lse, delta), out and lse from K2 and delta =
+    rowsum(dO * out) - dlse."""
+    from paddle_tpu_torch.ops import flash_attention_fwd_cuda
+    esz = 2 if dt == torch.bfloat16 else 4
+    sets = []
+    for _ in range(copies(b * (2 * sq * hq + 2 * skv * hkv) * d * esz)):
+        q, k, v, do = (randn(b, sq, hq, d, dtype=dt),
+                       randn(b, skv, hkv, d, dtype=dt),
+                       randn(b, skv, hkv, d, dtype=dt),
+                       randn(b, sq, hq, d, dtype=dt))
+        dlse = randn(b, hq, sq, dtype=torch.float32)
+        out, lse = flash_attention_fwd_cuda(q, k, v, **kw)
+        delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
+                 - dlse).contiguous()
+        sets.append((q, k, v, do, dlse, out, lse, delta))
+    return sets
+
+
+def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
+                  main, names=TRAIN_KERNELS):
+    """K5 (``names[0]``) and K6 (``names[1]``) on :func:`backward_sets`
+    against ``flash_attention_bwd_reference`` on the same out / lse, and
+    against themselves (no atomics: a second launch gives the same bits),
+    the dead-row convention on ``keep`` (zero dq for a query that sees no
+    key, zero dk / dv for a key no query sees); one phase-2 row each with
+    the plain, library (SDPA's backward alone) and bound times.  Returns
+    the library ms."""
+    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
+                                      flash_attention_bwd_dq_cuda,
+                                      flash_attention_bwd_reference)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    import torch.nn.functional as TF
+
+    q, k, v, do, dlse, out, lse, delta = sets[0]
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dt = q.dtype
+    esz = 2 if dt == torch.bfloat16 else 4
+    seg, kv_seg = kw["segment_ids"], kw["kv_segment_ids"]
+    pairs = int(keep.expand(b, sq, skv).sum().item())
+    dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    same = {names[0]: torch.equal(
+                dq, flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                **kw)),
+            names[1]: all(map(torch.equal, (dk, dv), (
+                flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                             **kw))))}
+    rq, rk, rv = flash_attention_bwd_reference(q, k, v, out, lse, do, dlse,
+                                               **kw)
+    torch.cuda.synchronize()
+    with reference_mode():
+        plain_ms = time_ms(torch, [
+            lambda t=t: flash_attention_bwd_reference(
+                t[0], t[1], t[2], t[5], t[6], t[3], t[4], **kw)
+            for t in sets], budget_ms=100.0)
+    # SDPA's backward alone: one untimed forward a set, then the backward
+    # is timed on the retained graph
+    graphs = []
+    for t in sets:
+        leaves = tuple(x.transpose(1, 2).detach().clone()
+                       .requires_grad_(True) for x in t[:3])
+        o = TF.scaled_dot_product_attention(
+            *leaves, attn_mask=lib_mask,
+            is_causal=kw["causal"] and lib_mask is None, enable_gqa=True)
+        graphs.append((o, leaves, t[3].transpose(1, 2)))
+    lfns = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
+                                            retain_graph=True)
+            for g in graphs]
+    lib_ms = time_ms(torch, lfns)
+    bwd_extra = dict(extra, visible_pairs=pairs,
+                     library_kernel=top_kernel(torch, lfns[0]))
+    del graphs, lfns
+    io = 4 * b * hq * sq * 2 + (0 if seg is None else 4 * b * sq) \
+        + (0 if kv_seg is None else 4 * b * skv)
+    # keys no query sees get zero dk and dv, as dead rows get zero dq
+    dead_keys = (~keep.any(1)).expand(b, skv)
+    for name, got, want, flops_per_pair, out_elems in (
+            (names[0], (dq,), (rq,), 6, b * sq * hq * d),
+            (names[1], (dk, dv), (rk, rv), 8, 2 * b * skv * hkv * d)):
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        rels = [rel_l2(g, w) for g, w in zip(got, want)]
+        if dt == torch.bfloat16:
+            tol = f"relative L2 per tensor <= {BWD_REL_TOL_BF16}"
+            ok = max(rels) <= BWD_REL_TOL_BF16
+        else:
+            atol, rtol = tols(dt)
+            tol = f"atol {atol} + rtol {rtol}"
+            ok = all(within(g, w, atol, rtol) for g, w in zip(got, want))
+        ok = (ok and same[name]
+              and all(bool(torch.isfinite(g).all().item()) for g in got))
+        if name == names[0]:
+            ok = ok and dead_rows_ok(torch, keep, b, grad=dq)
+        else:
+            ok = ok and all(bool((g[dead_keys] == 0).all().item())
+                            for g in got)
+        fn = (flash_attention_bwd_dq_cuda if name == names[0]
+              else flash_attention_bwd_dkv_cuda)
+        kfns = [lambda t=t, fn=fn: fn(t[0], t[1], t[2], t[3], t[6], t[7],
+                                      **kw) for t in sets]
+        nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d
+                  + out_elems) * esz + io
+        bms, by = bound(nbytes, flops_per_pair * d * hq * pairs,
+                        BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        record(name, tag, err, tol + ", finite, dead rows (keys) 0, "
+               "the same bits twice", ok,
+               kfns, plain_ms, lib_ms, bms, by, main,
+               note=BWD_LIBRARY_NOTE + (
+                   "; " + SEGMENTED_LIBRARY_NOTE if lib_mask is not None
+                   else ""),
+               extra=dict(bwd_extra, rel_l2=rels, head_dim=d,
+                          deterministic=same[name],
+                          plain_note="flash_attention_bwd_reference: dq, "
+                                     "dk and dv together"))
+    return lib_ms
+
+
 def phase_kernels(torch):
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       cached_decode_attention_reference,
@@ -856,14 +1014,7 @@ def phase_kernels(torch):
     # some query ids match no key (dead rows).  The backward rows are fed
     # K2's own out and lse; their plain version is
     # flash_attention_bwd_reference (dq, dk, dv together) ------------------
-    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
-                                      flash_attention_bwd_dq_cuda,
-                                      flash_attention_bwd_reference,
-                                      flash_attention_fwd_cuda)
-
-    def rel_l2(a, b):
-        return float((a.float() - b.float()).norm()
-                     / b.float().norm().clamp_min(1e-30))
+    from paddle_tpu_torch.ops import flash_attention_fwd_cuda
 
     # segments: None; "packed" (self-attention, 3-8 documents a row); "ring"
     # (3-6 query documents whose first two ids are the last two of the
@@ -894,19 +1045,8 @@ def phase_kernels(torch):
                              seg if kv_seg is None else kv_seg, dev)
         pairs = int(keep.expand(b, sq, skv).sum().item())
         n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
-        nb = b * (2 * sq * hq + 2 * skv * hkv) * d * esz
         kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
-        sets = []
-        for _ in range(copies(nb)):
-            q, k, v, do = (randn(b, sq, hq, d, dtype=dt),
-                           randn(b, skv, hkv, d, dtype=dt),
-                           randn(b, skv, hkv, d, dtype=dt),
-                           randn(b, sq, hq, d, dtype=dt))
-            dlse = randn(b, hq, sq, dtype=f32)
-            out, lse = flash_attention_fwd_cuda(q, k, v, **kw)
-            delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
-                     - dlse).contiguous()
-            sets.append((q, k, v, do, dlse, out, lse, delta))
+        sets = backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw)
         shape = (f"S={sq}" if sq == skv and segments != "ring"
                  else f"Sq={sq} Skv={skv}")
         tag = (f"B={b} {shape} Hq={hq} Hkv={hkv} D={d} "
@@ -958,86 +1098,12 @@ def phase_kernels(torch):
                    by, False, note=SEGMENTED_LIBRARY_NOTE, extra=seg_extra)
             del ref, ref_lse
 
-        # K5 / K6 against the plain backward on the same out / lse, and
-        # against themselves: no atomics, so a second launch gives the same
-        # bits
-        dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
-        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
-        same = {"flash_attention_bwd_dq": torch.equal(
-                    dq, flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                    **kw)),
-                "flash_attention_bwd_dkv": all(map(torch.equal, (dk, dv), (
-                    flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                 **kw))))}
-        rq, rk, rv = flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                                   dlse, **kw)
-        torch.cuda.synchronize()
-        with reference_mode():
-            plain_ms = time_ms(torch, [
-                lambda t=t: flash_attention_bwd_reference(
-                    t[0], t[1], t[2], t[5], t[6], t[3], t[4], **kw)
-                for t in sets], budget_ms=100.0)
-        # SDPA's backward alone: one untimed forward a set, then the
-        # backward is timed on the retained graph
-        graphs = []
-        for t in sets:
-            leaves = tuple(x.transpose(1, 2).detach().clone()
-                           .requires_grad_(True) for x in t[:3])
-            o = TF.scaled_dot_product_attention(
-                *leaves, attn_mask=lib_mask,
-                is_causal=causal and lib_mask is None, enable_gqa=True)
-            graphs.append((o, leaves, t[3].transpose(1, 2)))
-        lfns = [lambda g=g: torch.autograd.grad(g[0], g[1], g[2],
-                                                retain_graph=True)
-                for g in graphs]
-        lib_ms = time_ms(torch, lfns)
-        bwd_extra = dict(seg_extra, library_kernel=top_kernel(torch, lfns[0]))
-        del graphs, lfns
-        io = 4 * b * hq * sq * 2 + (0 if seg is None else 4 * b * sq) \
-            + (0 if kv_seg is None else 4 * b * skv)
-        # keys no query sees get zero dk and dv, as dead rows get zero dq
-        dead_keys = (~keep.any(1)).expand(b, skv)
-        for name, got, want, flops_per_pair, out_elems in (
-                ("flash_attention_bwd_dq", (dq,), (rq,), 6, b * sq * hq * d),
-                ("flash_attention_bwd_dkv", (dk, dv), (rk, rv), 8,
-                 2 * b * skv * hkv * d)):
-            err = max(max_err(g, w) for g, w in zip(got, want))
-            rels = [rel_l2(g, w) for g, w in zip(got, want)]
-            if dt == bf16:
-                tol = f"relative L2 per tensor <= {BWD_REL_TOL_BF16}"
-                ok = max(rels) <= BWD_REL_TOL_BF16
-            else:
-                atol, rtol = tols(dt)
-                tol = f"atol {atol} + rtol {rtol}"
-                ok = all(within(g, w, atol, rtol) for g, w in zip(got, want))
-            ok = (ok and same[name]
-                  and all(bool(torch.isfinite(g).all().item()) for g in got))
-            if name.endswith("dq"):
-                ok = ok and dead_rows_ok(torch, keep, b, grad=dq)
-            else:
-                ok = ok and all(bool((g[dead_keys] == 0).all().item())
-                                for g in got)
-            fn = (flash_attention_bwd_dq_cuda if name.endswith("dq")
-                  else flash_attention_bwd_dkv_cuda)
-            kfns = [lambda t=t, fn=fn: fn(t[0], t[1], t[2], t[3], t[6], t[7],
-                                          **kw) for t in sets]
-            nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d
-                      + out_elems) * esz + io
-            bms, by = bound(nbytes, flops_per_pair * d * hq * pairs,
-                            BF16_FLOPS if dt == bf16 else F32_FLOPS)
-            record(name, tag, err, tol + ", finite, dead rows (keys) 0, "
-                   "the same bits twice", ok,
-                   kfns, plain_ms, lib_ms, bms, by, main,
-                   note=BWD_LIBRARY_NOTE + (
-                       "; " + SEGMENTED_LIBRARY_NOTE if lib_mask is not None
-                       else ""),
-                   extra=dict(bwd_extra, rel_l2=rels,
-                              deterministic=same[name],
-                              plain_note="flash_attention_bwd_reference: dq, "
-                                         "dk and dv together"))
-            if (seg is None and causal and dt == bf16 and sq == TRAIN_SEQ):
+        lib_ms = backward_rows(torch, record, tols, sets, kw, keep, tag,
+                               seg_extra, lib_mask, main)
+        if seg is None and causal and dt == bf16 and sq == TRAIN_SEQ:
+            for name in TRAIN_KERNELS:
                 results[name]["library_ms_unsegmented"] = lib_ms
-        del sets, q, k, v, do, dlse, out, lse, delta, dq, dk, dv, rq, rk, rv
+        del sets, q, k, v, do, dlse, out, lse, delta
 
     # ---- K1-paged / K2-paged: the paged engine's decode tick (s = 1) and
     # suffix prefill (s > 1) over a pool of block_len-token blocks, bf16 at
@@ -1393,6 +1459,13 @@ def phase_kernels(torch):
 DIT_DEPTH, DIT_HEADS, DIT_HEAD_DIM, DIT_TOKENS = 28, 16, 72, 256
 DIT_LABELS, DIT_STEPS, DIT_CFG = 8, 50, 4.0
 DIT_BATCH = 2 * DIT_LABELS
+# dit_train: the DiT paper's AdamW (lr 1e-4, betas (0.9, 0.999), no weight
+# decay) on 32 latents a step (its global batch of 256 over 8 cards), 10 %
+# of the labels the null class (its label dropout, applied as data); 8
+# steps, the first 2 untimed; gate (a) on a micro-batch of 8
+DIT_TRAIN_BATCH, DIT_TRAIN_STEPS, DIT_TRAIN_UNTIMED = 32, 8, 2
+DIT_GRAD_BATCH, DIT_TRAIN_LR, DIT_LABEL_DROP = 8, 1e-4, 0.1
+DIT_BWD = ("flash_attention_bwd_dq/d72", "flash_attention_bwd_dkv/d72")
 
 
 def phase_head_dim_rows(torch, record, randn, tols):
@@ -1406,7 +1479,14 @@ def phase_head_dim_rows(torch, record, randn, tols):
     key), bf16 D 64 (the second TMA box wholly past the tensor), then
     float32 at 72 (the narrow DiT's shape and a ragged causal one) and
     64.  Each holds out, lse and the dead rows against the plain
-    version."""
+    version.  Then K5 / K6 at the same head dims
+    (:func:`backward_rows`): bf16 D 72 at the dit_train step's shape (B 32,
+    S 256, 16 heads, full attention; the ``flash_attention_bwd_*/d72``
+    entries' main rows), and at D 72 and 64 the contract rows -- causal
+    GQA at Sq 77 over Skv 61 (dead rows), the ring-hop segmented form (Sq
+    256, Skv 512, queries whose id matches no key) and packed documents
+    at an unaligned S 300 -- then float32 at 72 (the narrow DiT's shape,
+    Sq 77 / Skv 61) and 64."""
     from paddle_tpu_torch.ops import (flash_attention,
                                       flash_attention_fwd_cuda)
     from paddle_tpu_torch.ops._dispatch import reference_mode
@@ -1485,6 +1565,52 @@ def phase_head_dim_rows(torch, record, randn, tols):
                       "dead_rows": n_dead,
                       "library_kernel": top_kernel(torch, lfns[0])})
         del sets, q, k, v, out, lse, ref, ref_lse
+
+    for (names, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in (
+            (DIT_BWD, bf16, DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS,
+             DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, None, True),
+            (DIT_BWD, bf16, 2, 77, 61, 8, 2, 72, True, None, False),
+            (DIT_BWD, bf16, 2, 256, 512, 8, 2, 72, True, "ring", False),
+            (DIT_BWD, bf16, 2, 300, 300, 8, 2, 72, True, "packed", False),
+            (TRAIN_KERNELS, bf16, 2, 77, 61, 8, 2, 64, True, None, False),
+            (TRAIN_KERNELS, bf16, 2, 256, 512, 8, 2, 64, True, "ring",
+             False),
+            (TRAIN_KERNELS, bf16, 2, 300, 300, 8, 2, 64, True, "packed",
+             False),
+            (DIT_BWD, f32, 4, 16, 16, 2, 2, 72, False, None, False),
+            (DIT_BWD, f32, 2, 77, 61, 4, 2, 72, True, None, False),
+            (TRAIN_KERNELS, f32, 2, 70, 70, 4, 2, 64, False, None, False),
+            (TRAIN_KERNELS, f32, 2, 77, 77, 4, 2, 64, True, "packed",
+             False)):
+        seg = kv_seg = None
+        if segments == "packed":
+            seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
+        elif segments == "ring":
+            ids_kv = packed_segments(b, skv, seed=skv)
+            ids_q = (packed_segments(b, sq, seed=sq, lo=3, hi=6)
+                     + ids_kv.max(1, keepdims=True) - 1)
+            seg = torch.from_numpy(ids_q).to(dev)
+            kv_seg = torch.from_numpy(ids_kv).to(dev)
+        kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
+        keep = visible_pairs(torch, sq, skv, causal, seg,
+                             seg if kv_seg is None else kv_seg, dev)
+        n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
+        check((n_dead > 0) == (segments == "ring" or (causal and sq > skv)),
+              f"K5 / K6 D {d} Sq {sq} Skv {skv}: {n_dead} dead rows")
+        sets = backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw)
+        shape = (f"S={sq}" if sq == skv and segments != "ring"
+                 else f"Sq={sq} Skv={skv}")
+        tag = (f"B={b} {shape} Hq={hq} Hkv={hkv} D={d} "
+               f"{'causal' if causal else 'causal=False'} "
+               f"{'packed ' if segments == 'packed' else ''}"
+               f"{'ring-hop kv_segment_ids ' if segments == 'ring' else ''}"
+               f"{str(dt)[6:]}")
+        lib_mask = (None if seg is None and (sq == skv or not causal)
+                    else keep[:, None])
+        backward_rows(torch, record, tols, sets, kw, keep, tag,
+                      {"segmented": seg is not None, "dead_rows": n_dead},
+                      lib_mask, main, names)
+        del sets
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -3230,43 +3356,24 @@ def profile_step(torch, step, opt, batch, phase: str) -> None:
                   for t, k, c in rows[:20]]})
 
 
-def phase_training(torch, kernels, profile: bool = False):
-    """Phase 5: the single-GPU train step at the Llama-3-8B width, cut to
-    TRAIN_LAYERS layers, recompute on, packed batches."""
-    import numpy as np
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.distributed import build_train_step
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama3_8b_config,
-                                         tiny_llama_config)
-    from paddle_tpu_torch.ops import _dispatch
+def grad_gate(torch, model, make_f32, loss_of, phase: str, fields):
+    """Gate (a) of the training phases: step-1 gradients of
+    ``loss_of(model)`` on the kernel path and on the plain path
+    (``reference_mode()``), each against the float32 truth (``make_f32()``:
+    the same weights in float32, on the plain path; built first and freed
+    before the bf16 paths run).  The kernel path's relative L2 error,
+    summed over every tensor, must be within 1.2x the plain path's, and
+    tensor by tensor within 1.2x + GRAD_TENSOR_FLOOR, so a wrong dq or dk
+    / dv of one projection cannot hide under the embeddings' share of the
+    sum.  Emits a ``phase`` line (``fields`` first)."""
     from paddle_tpu_torch.ops._dispatch import reference_mode
-    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
 
-    dev = torch.device("cuda")
-    torch.cuda.reset_peak_memory_stats()
-    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS, recompute=True)
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in packed_batch(
-        cfg.vocab_size, TRAIN_ROWS, TRAIN_SEQ, seed=5).items()}
-    micro = {k: v[:TRAIN_ROWS // TRAIN_ACCUM] for k, v in batch.items()}
-
-    # (a) step-1 gradients of one micro-batch: kernel path, plain path and
-    # the float32 truth (the same weights in float32 on the plain path);
-    # the truth first, then each path's error summed tensor by tensor
     def grads(m):
-        params = [p for p in m.parameters()]
-        loss = m.compute_loss(**micro)
-        return float(loss.detach()), torch.autograd.grad(loss, params)
+        loss = loss_of(m)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(m.parameters()))
 
-    model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
-                               device=dev)
-    with torch.no_grad():
-        for p32, p in zip(model32.parameters(), model.parameters()):
-            p32.copy_(p)
+    model32 = make_f32()
     with reference_mode():
         loss32, truth = grads(model32)
     del model32
@@ -3293,11 +3400,7 @@ def phase_training(torch, kernels, profile: bool = False):
     worst = max(range(len(names)), key=lambda i: per_k[i] / max(per_p[i],
                                                                 1e-30))
     tol = 1.2 * rel_p
-    emit({"phase": "training_grads", "config": "llama3_8b",
-          "layers": TRAIN_LAYERS, "params": n_params,
-          "init_s": round(init_s, 3), "micro_batch": list(
-              micro["input_ids"].shape),
-          "documents": len(torch_counts(micro["segment_ids"])),
+    emit({"phase": phase, **fields,
           "loss_kernel": loss_k, "loss_plain": loss_p, "loss_f32": loss32,
           "grad_rel_l2_kernel_vs_f32": rel_k,
           "grad_rel_l2_plain_vs_f32": rel_p, "tol_kernel_vs_f32": tol,
@@ -3307,16 +3410,97 @@ def phase_training(torch, kernels, profile: bool = False):
                                  "kernel": per_k[worst],
                                  "plain": per_p[worst]}})
     check(all(math.isfinite(x) for x in (loss_k, loss_p, rel_k)),
-          "training gradients are not finite")
+          f"{phase}: gradients are not finite")
     check(rel_k <= tol,
-          f"kernel-path gradients are {rel_k} from the float32 truth, the "
-          f"plain path's {rel_p} (tolerance {tol})")
-    # and tensor by tensor, so a wrong dq or dk/dv of one projection cannot
-    # hide under the embedding's and LM head's share of the sum
+          f"{phase}: kernel-path gradients are {rel_k} from the float32 "
+          f"truth, the plain path's {rel_p} (tolerance {tol})")
     bad = {names[i]: (per_k[i], per_p[i]) for i in range(len(names))
            if per_k[i] > 1.2 * per_p[i] + GRAD_TENSOR_FLOOR}
-    check(not bad, f"gradients beyond 1.2x the plain path's error + "
-                   f"{GRAD_TENSOR_FLOOR}: {bad}")
+    check(not bad, f"{phase}: gradients beyond 1.2x the plain path's error "
+                   f"+ {GRAD_TENSOR_FLOOR}: {bad}")
+
+
+def tiny_card_vs_cpu(torch, base, batches, dev):
+    """Four steps of a float32 model's train step (:func:`_train_tiny`) on
+    the card (kernels) and on the CPU (plain versions) from ``base``'s
+    weights and the same numpy ``batches``.  Losses must agree to rtol 1e-5
+    (float32 sum order); the parameters' difference (L2) within 1e-3 of
+    the 4 steps' update -- Adam normalises each element by its own RMS, so
+    where two steps' gradients nearly cancel, sum-order noise reaches
+    single elements at a few percent of lr, while a wrong kernel moves the
+    whole update (:func:`check_tiny`).  Returns the fields of the line,
+    with the card run's launches and routes."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import _dispatch
+    init = {k: p.detach().clone() for k, p in base.named_parameters()}
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    card_l, card_p = _train_tiny(torch, copy.deepcopy(base).to(dev), batches,
+                                 dev)
+    launches = ops.launch_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    cpu_l, cpu_p = _train_tiny(torch, copy.deepcopy(base), batches,
+                               torch.device("cpu"))
+    diff = math.sqrt(sum(float((card_p[k] - cpu_p[k]).pow(2).sum())
+                         for k in cpu_p))
+    upd = math.sqrt(sum(float((cpu_p[k] - init[k]).pow(2).sum())
+                        for k in cpu_p))
+    max_abs = max(float((card_p[k] - cpu_p[k]).abs().max()) for k in cpu_p)
+    return {"losses_card": card_l, "losses_cpu": cpu_l,
+            "param_diff_l2": diff, "update_l2": upd,
+            "param_max_abs_diff": max_abs, "launches": launches,
+            "routes": routes}
+
+
+def check_tiny(res, what: str) -> None:
+    """:func:`tiny_card_vs_cpu`'s tolerances."""
+    card_l, cpu_l = res["losses_card"], res["losses_cpu"]
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(card_l, cpu_l)),
+          f"{what}: losses differ card vs cpu: {card_l} vs {cpu_l}")
+    check(res["param_diff_l2"] <= 1e-3 * res["update_l2"],
+          f"{what}: parameters differ card vs cpu: {res['param_diff_l2']} "
+          f"against an update of {res['update_l2']}")
+
+
+def phase_training(torch, kernels, profile: bool = False):
+    """Phase 5: the single-GPU train step at the Llama-3-8B width, cut to
+    TRAIN_LAYERS layers, recompute on, packed batches."""
+    import numpy as np
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama3_8b_config,
+                                         tiny_llama_config)
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS, recompute=True)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in packed_batch(
+        cfg.vocab_size, TRAIN_ROWS, TRAIN_SEQ, seed=5).items()}
+    micro = {k: v[:TRAIN_ROWS // TRAIN_ACCUM] for k, v in batch.items()}
+
+    # (a) step-1 gradients of one micro-batch against the float32 truth
+    def llama32():
+        m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                               device=dev)
+        with torch.no_grad():
+            for p32, p in zip(m32.parameters(), model.parameters()):
+                p32.copy_(p)
+        return m32
+
+    grad_gate(torch, model, llama32, lambda m: m.compute_loss(**micro),
+              "training_grads",
+              {"config": "llama3_8b", "layers": TRAIN_LAYERS,
+               "params": n_params, "init_s": round(init_s, 3),
+               "micro_batch": list(micro["input_ids"].shape),
+               "documents": len(torch_counts(micro["segment_ids"]))})
 
     # (b) + (c): TRAIN_STEPS steps on the packed batch, every launch and
     # route counter reset just before and read just after
@@ -3382,16 +3566,10 @@ def phase_training(torch, kernels, profile: bool = False):
     torch.cuda.empty_cache()
 
     # (d) the tiny float32 model: 4 steps on the card (kernels) and on the
-    # CPU (plain versions) from the same weights, unpacked and packed
-    # batches (the dryrun's (8, 17) ids).  Losses: rtol 1e-5 (float32 sum
-    # order).  Parameters: the difference's L2 norm within 1e-3 of the 4
-    # steps' update norm -- Adam normalises each element by its own RMS,
-    # so where two steps' gradients nearly cancel, sum-order noise reaches
-    # single elements at a few percent of lr, while a wrong kernel moves
-    # the whole update
+    # CPU (plain versions) from the same weights (:func:`tiny_card_vs_cpu`),
+    # unpacked and packed batches (the dryrun's (8, 17) ids)
     tiny = tiny_llama_config(recompute=True)
     base = LlamaForCausalLM(tiny, device="cpu", seed=3)
-    init = {k: p.detach().clone() for k, p in base.named_parameters()}
     for packed in (False, True):
         rng = np.random.RandomState(11)
         batches = []
@@ -3403,31 +3581,13 @@ def phase_training(torch, kernels, profile: bool = False):
                 ids = rng.randint(0, tiny.vocab_size, (8, 17))
                 batches.append({"input_ids": ids[:, :-1],
                                 "labels": ids[:, 1:]})
-        ops.reset_launch_counts()
-        card_l, card_p = _train_tiny(torch, copy.deepcopy(base).to(dev),
-                                     batches, dev)
-        launches = ops.launch_counts()
-        cpu_l, cpu_p = _train_tiny(torch, copy.deepcopy(base), batches,
-                                   torch.device("cpu"))
-        diff = math.sqrt(sum(float((card_p[k] - cpu_p[k]).pow(2).sum())
-                             for k in cpu_p))
-        upd = math.sqrt(sum(float((cpu_p[k] - init[k]).pow(2).sum())
-                            for k in cpu_p))
-        max_abs = max(float((card_p[k] - cpu_p[k]).abs().max())
-                      for k in cpu_p)
-        loss_ok = all(abs(a - b) <= 1e-5 * abs(b)
-                      for a, b in zip(card_l, cpu_l))
-        emit({"phase": "training_tiny_f32", "packed": packed,
-              "losses_card": card_l, "losses_cpu": cpu_l,
-              "param_diff_l2": diff, "update_l2": upd,
-              "param_max_abs_diff": max_abs,
+        res = tiny_card_vs_cpu(torch, base, batches, dev)
+        launches = res.pop("launches")
+        del res["routes"]
+        emit({"phase": "training_tiny_f32", "packed": packed, **res,
               "launches": {k: launches[k] for k in (
                   "flash_attention_fwd", *TRAIN_KERNELS)}})
-        check(loss_ok, f"tiny f32 losses differ card vs cpu: {card_l} vs "
-                       f"{cpu_l}")
-        check(diff <= 1e-3 * upd,
-              f"tiny f32 parameters differ card vs cpu: {diff} against an "
-              f"update of {upd}")
+        check_tiny(res, f"training_tiny_f32 packed={packed}")
         check(all(launches[k] > 0 for k in TRAIN_KERNELS),
               "the tiny train step ran no backward kernel")
 
@@ -3639,6 +3799,241 @@ def phase_dit(torch, kernels, card, profile: bool = False):
         del cpu, card_m
 
 
+def dit_batch(cfg, n: int, seed: int):
+    """A seeded DiT training batch (numpy), built as the reference's test
+    builds it (``tests/test_breadth_models.py:320-328``): x0 and the noise
+    N(0, 1) latents, t uniform in [0, T), ``x = sqrt(abar_t) x0 + sqrt(1 -
+    abar_t) noise`` with abar from the port's ``diffusion_schedule``, the
+    target the noise; labels uniform over the classes, ``round(
+    DIT_LABEL_DROP * n)`` of them (at least one) the null class -- the
+    paper's label dropout for guidance, applied as data."""
+    import numpy as np
+    from paddle_tpu_torch.models import diffusion_schedule
+    rng = np.random.RandomState(seed)
+    shape = (n, cfg.in_channels, cfg.input_size, cfg.input_size)
+    x0 = rng.standard_normal(shape).astype(np.float32)
+    noise = rng.standard_normal(shape).astype(np.float32)
+    abar = diffusion_schedule().numpy()
+    t = rng.randint(0, len(abar), n).astype(np.int64)
+    y = rng.randint(0, cfg.num_classes, n).astype(np.int64)
+    y[rng.permutation(n)[:max(1, round(DIT_LABEL_DROP * n))]] = \
+        cfg.num_classes
+    a = abar[t][:, None, None, None]
+    return {"x": (np.sqrt(a) * x0 + np.sqrt(1 - a) * noise).astype(
+                np.float32),
+            "t": t, "y": y, "target": noise}
+
+
+def dit_train_flops(cfg, batch: int) -> int:
+    """Model FLOPs of one DiT train step, counted from the shapes at 2
+    FLOPs a multiply-add, the backward twice the forward (6 a multiply-add
+    in all): a token's products in every block (qkv, proj and the MLP:
+    (4 + 2 mlp_ratio) h^2), its patch embedding and final projection; a
+    latent's AdaLN products (6 h^2 a block, 2 h^2 final) and timestep MLP;
+    a latent's attention, Q K^T and P V over its N patch tokens (2 N^2 h a
+    block).  LayerNorm, GELU, modulation and the loss are not counted."""
+    h, n = cfg.hidden_size, cfg.num_patches
+    p2 = cfg.patch_size ** 2
+    per_token = (cfg.depth * (4 * h * h + 2 * h * int(h * cfg.mlp_ratio))
+                 + p2 * cfg.in_channels * h + h * p2 * cfg.out_channels)
+    per_latent = (cfg.depth * 6 * h * h + 2 * h * h + 256 * h + h * h
+                  + cfg.depth * 2 * n * n * h)
+    return 6 * (batch * n * per_token + batch * per_latent)
+
+
+@contextlib.contextmanager
+def recording_backward(calls):
+    """K5 / K6 as ``FlashAttention.backward`` calls them: the first and the
+    latest call of each wrapper kept as (wrapper, args, kwargs, outputs) in
+    ``calls[name]``, so :func:`same_bits` can launch them again."""
+    from paddle_tpu_torch.ops import attention
+    names = ("flash_attention_bwd_dq_cuda", "flash_attention_bwd_dkv_cuda")
+    saved = {n: getattr(attention, n) for n in names}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            entry = (fn, args, kwargs, out)
+            calls.setdefault(name, [entry, entry])[1] = entry
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(attention, n, recorder(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(attention, n, fn)
+
+
+def same_bits(torch, calls):
+    """{wrapper: whether every recorded call, launched again on its own
+    inputs, gives its outputs bit for bit} (these launches are not the
+    run's: read the counts first)."""
+    out = {}
+    for name, entries in calls.items():
+        ok = True
+        for fn, args, kwargs, got in entries:
+            again = fn(*args, **kwargs)
+            pairs = zip(got, again) if isinstance(got, tuple) else \
+                [(got, again)]
+            ok = ok and all(torch.equal(a, b) for a, b in pairs)
+        out[name] = ok
+    return out
+
+
+def phase_dit_train(torch, kernels, card, profile: bool = False):
+    """DiT-XL/2 training at the published width, not cut (28 blocks,
+    hidden 1152, 16 heads of 72, 32 x 32 x 4 latents in 2 x 2 patches,
+    1000 classes + null, learn_sigma), bf16, seeded weights off AdaLN-Zero
+    (:func:`_dit_perturbed`), ``build_train_step`` with the DiT paper's
+    AdamW (lr 1e-4, betas (0.9, 0.999), weight decay 0), 32 latents a
+    step (:func:`dit_batch`).  Gates: (a) step-1 gradients of a
+    micro-batch of 8, the kernel path within 1.2x the plain path's error
+    against a float32 copy (:func:`grad_gate`); (b) 8 steps
+    (``recompute=False``): every loss finite, K2 = K5 = K6 = 28 launches
+    a step and no other kernel, no plain route, the first and the last K5
+    / K6 call of a step the same bits when launched again, and with
+    ``recompute=True`` a micro-batch's gradients take K2 2 x 28, K5 = K6 =
+    28; (c) the tiny float32 DiT (head_dim 16) and the narrow one at 72
+    (hidden 144, 2 heads, depth 2): 4 train steps on the card against the
+    CPU (:func:`tiny_card_vs_cpu`).  Reported: step ms p50 over steps 3-8,
+    latents/s, tokens/s, the model-FLOPs share of 989 TFLOP/s
+    (:func:`dit_train_flops`), peak memory, K5 + K6's share of a step
+    (phase 2's main-row times x 28); with ``--profile`` one step's kernel
+    time by class and the optimizer's device time."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import dit_xl_2_config, tiny_dit_config
+    from paddle_tpu_torch.ops import (_dispatch, launch_counts,
+                                      reset_launch_counts)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dev = torch.device("cuda")
+    allocated_before = torch.cuda.memory_allocated() / 1e9
+    cfg = dit_xl_2_config(dtype="bfloat16")
+    t0 = time.perf_counter()
+    m = _dit_perturbed(torch, cfg, dev)
+    m.train()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in m.parameters())
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    # (a) step-1 gradients of a micro-batch against the float32 truth
+    micro = on_card(dit_batch(cfg, DIT_GRAD_BATCH, seed=100))
+    grad_gate(torch, m, lambda: copy.deepcopy(m).float(),
+              lambda mod: mod.compute_loss(**micro), "dit_train_grads",
+              {"config": "dit_xl_2", "params": n_params,
+               "init_s": round(init_s, 3),
+               "micro_batch": list(micro["x"].shape),
+               "null_labels": int((micro["y"] == cfg.num_classes).sum())})
+
+    # (b) DIT_TRAIN_STEPS steps, a fresh batch each; every launch and
+    # route counter reset just before and read just after; K5 / K6's
+    # first and last call of step 1 recorded, launched again afterwards
+    opt = AdamW(DIT_TRAIN_LR, beta1=0.9, beta2=0.999, weight_decay=0.0)
+    step = build_train_step(m, opt)
+    batches = [on_card(dit_batch(cfg, DIT_TRAIN_BATCH, seed=200 + i))
+               for i in range(DIT_TRAIN_STEPS)]
+    calls, losses, step_ms = {}, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    for i, batch in enumerate(batches):
+        with (recording_backward(calls) if i == 0
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))      # float() synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same = same_bits(torch, calls)
+    del calls
+
+    # recompute=True: a micro-batch's gradients rerun each block's forward
+    cfg.recompute = True
+    reset_launch_counts()
+    torch.autograd.grad(m.compute_loss(**micro), list(m.parameters()))
+    recompute_launches = {k: n for k, n in launch_counts().items() if n}
+    cfg.recompute = False
+
+    timed = step_ms[DIT_TRAIN_UNTIMED:]
+    p50 = float(np.median(timed))
+    tokens = DIT_TRAIN_BATCH * cfg.num_patches
+    flops = dit_train_flops(cfg, DIT_TRAIN_BATCH)
+    run = {"losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+           "timed_steps": len(timed),
+           "latents_per_s": DIT_TRAIN_BATCH / (p50 / 1e3),
+           "tokens_per_s": tokens / (p50 / 1e3),
+           "model_flops_per_step": flops,
+           "model_flops_share_of_989T": flops / (p50 / 1e3) / BF16_FLOPS,
+           "peak_allocated_gb": peak_gb,
+           "allocated_before_phase_gb": allocated_before,
+           "launches": launches, "routes": routes,
+           "k5_k6_same_bits": same,
+           "recompute_micro_batch_launches": recompute_launches,
+           "null_labels": [int((b["y"] == cfg.num_classes).sum())
+                           for b in batches]}
+    bwd_rows = [kernels.get(n, {}).get("ms") for n in DIT_BWD]
+    if all(bwd_rows):
+        run["k5_k6_ms_per_step"] = sum(bwd_rows) * cfg.depth
+        run["k5_k6_share_of_step"] = run["k5_k6_ms_per_step"] / p50
+    emit({"phase": "dit_train", "card": card, "init_s": init_s,
+          "config": dataclasses.asdict(cfg), "params": n_params,
+          "optimizer": "AdamW(1e-4, beta1=0.9, beta2=0.999, "
+                       "weight_decay=0.0)",
+          "batch": [DIT_TRAIN_BATCH, cfg.in_channels, cfg.input_size,
+                    cfg.input_size],
+          "flops_note": "6 x multiply-adds of the products a step "
+                        "(dit_train_flops)", **run})
+    check(all(math.isfinite(x) for x in losses), f"dit_train losses {losses}")
+    per_step = {"flash_attention_fwd": cfg.depth,
+                "flash_attention_bwd_dq": cfg.depth,
+                "flash_attention_bwd_dkv": cfg.depth}
+    check(launches == {k: n * DIT_TRAIN_STEPS for k, n in per_step.items()},
+          f"dit_train: launches {launches} in {DIT_TRAIN_STEPS} steps, "
+          f"expected {per_step} a step and no other kernel")
+    check(not any(k.endswith("/plain") for k in routes),
+          f"dit_train: a plain route on the card {routes}")
+    check(set(same) == {"flash_attention_bwd_dq_cuda",
+                        "flash_attention_bwd_dkv_cuda"} and all(same.values()),
+          f"dit_train: K5 / K6 not the same bits twice: {same}")
+    check(recompute_launches == dict(per_step, flash_attention_fwd=2
+                                     * cfg.depth),
+          f"dit_train recompute: launches {recompute_launches}")
+    for name, base in zip(DIT_BWD, TRAIN_KERNELS):
+        kernels.setdefault(name, {})["launches"] = launches.get(base, 0)
+    if profile:
+        profile_step(torch, step, opt, batches[-1], "profile_dit_train")
+    del step, opt, m, batches, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) tiny float32 DiTs: 4 train steps on the card against the CPU
+    for name, kw_cfg in (("tiny", {}),
+                         ("d72", dict(hidden_size=144, num_heads=2))):
+        tcfg = tiny_dit_config(**kw_cfg)
+        base = _dit_perturbed(torch, tcfg, "cpu")
+        res = tiny_card_vs_cpu(torch, base, [dit_batch(tcfg, 8, seed=300 + i)
+                                             for i in range(4)], dev)
+        launches = {k: n for k, n in res.pop("launches").items() if n}
+        want = {k: tcfg.depth * 4 for k in per_step}
+        emit({"phase": "dit_train_tiny_f32", "model": name,
+              "head_dim": tcfg.head_dim, **res, "launches": launches})
+        check_tiny(res, f"dit_train_tiny_f32 {name}")
+        check(launches == want and not any(
+                  k.endswith("/plain") for k in res["routes"]),
+              f"dit_train_tiny_f32 {name}: launches {launches} (expected "
+              f"{want}), routes {res['routes']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3692,6 +4087,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_dit(torch, kernels, card, profile=args.profile)
+    phase_dit_train(torch, kernels, card, profile=args.profile)
     phase_training(torch, kernels, profile=args.profile)
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)
                       for n, r in kernels.items()]})

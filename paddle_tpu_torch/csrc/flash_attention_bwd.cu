@@ -24,10 +24,12 @@
 // Bound on the H100: operations, at training shapes: 14 * D FLOPs a
 // visible (query, key) pair (6 D for dq, 8 D for dk / dv) against the
 // 989 TFLOP/s bf16 tensor cores; with packed documents few pairs are
-// visible and the bytes bind.  Two bodies (any other pair is refused):
-//   * bfloat16 at D = 128 (every training backward): Hopper kernels of
-//     384 threads, two consumer warpgroups of 64 rows and a producer warp
-//     (setmaxnreg 240 / 24), in the shape of K2's:
+// visible and the bytes bind.  Two bodies, at K2's head dims (any other
+// pair is refused):
+//   * bfloat16 at any D <= 128 with D % 8 == 0 (every training backward
+//     at 128, the DiT blocks at 72): Hopper kernels of 384 threads, two
+//     consumer warpgroups of 64 rows and a producer warp (setmaxnreg 240 /
+//     24), in the shape of K2's:
 //       - K5 (bwd_dq_wgmma_kernel): a CTA owns 128 queries of one q head;
 //         Q and dO come once by TMA; 64-key K / V tiles stream by TMA into
 //         a 3-stage mbarrier ring.  A consumer computes S = Q K^T and
@@ -58,9 +60,19 @@
 //     the products (the main source of error against the float32 plain
 //     version).  K5 starts the heaviest (last) q tiles first, K6 the
 //     heaviest (first) key tiles.
-//   * float32 at D = 16 (the tiny model): two CUDA-core kernels of one
-//     thread per query row (K5) or key row (K6); wgmma has no float32
-//     input that keeps float32 numerics.
+//     Below D = 128 the same bodies run on 128-wide tiles: the tensor maps
+//     have D columns (bshd_map), so TMA fills columns D..127 of every Q,
+//     K, V and dO tile with zeros (the box at d 64 wholly so at D <= 64)
+//     and still counts each box's full bytes on its mbarrier.  S and dP
+//     sum zero products over the pad; dq = dS K, dk = dS^T Q and dv = P^T
+//     dO are zero in the pad columns, since K, Q and dO are; the stores'
+//     maps of D columns drop them.  The products do 128 / D times the
+//     useful work (1.78x at D = 72).
+//   * float32 at D = 16 (the tiny model), 64 and 72 (float32 DiTs): two
+//     CUDA-core kernels of one thread per query row (K5) or key row (K6);
+//     wgmma has no float32 input that keeps float32 numerics.  A thread's
+//     rows are D-float register arrays (3 D in K5, 4 D in K6), so the
+//     wider instances keep part of them in local memory.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,7 +89,7 @@ using namespace ptt;
 constexpr int kTile = 64;   // queries or keys per tile, both kernels
 
 // ---------------------------------------------------------------------------
-// float32 on the CUDA cores (the tiny model's D = 16)
+// float32 on the CUDA cores (the tiny model's D = 16, float32 DiTs' 64 / 72)
 // ---------------------------------------------------------------------------
 constexpr int kF32Threads = kTile;   // one thread per row of the CTA's tile
 
@@ -239,7 +251,7 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16, D = 128 (see the note at the top)
+// Hopper path: bfloat16, D <= 128 on 128-wide tiles (see the note at the top)
 // ---------------------------------------------------------------------------
 constexpr int kHThreads = 384;     // consumers: warpgroups 0, 1; producer 2
 constexpr int kHConsumers = 256;
@@ -773,15 +785,15 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const float* delta, const int* seg_q,
                             const int* seg_kv, const int* q_rng,
                             const int* kv_rng, void* dq, int B, int Sq,
-                            int Skv, int Hq, int Hkv, float scale, int causal,
-                            cudaStream_t st) {
+                            int Skv, int Hq, int Hkv, int D, float scale,
+                            int causal, cudaStream_t st) {
   CUtensorMap qm, km, vm, om, dqm, sm;
   memset(&sm, 0, sizeof(sm));
-  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kBig);
-  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kSmall);
-  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kSmall);
-  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kBig);
-  if (e == cudaSuccess) e = bshd_map(&dqm, dq, B, Sq, Hq, kSmall);
+  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kBig, D);
+  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kBig, D);
+  if (e == cudaSuccess) e = bshd_map(&dqm, dq, B, Sq, Hq, kSmall, D);
   if (e == cudaSuccess && SEG)
     e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv, (size_t)B * Skv,
                  kVec);
@@ -803,16 +815,16 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              const float* delta, const int* seg_q,
                              const int* seg_kv, const int* q_rng,
                              const int* kv_rng, void* dk, void* dv, int B,
-                             int Sq, int Skv, int Hq, int Hkv, float scale,
-                             int causal, cudaStream_t st) {
+                             int Sq, int Skv, int Hq, int Hkv, int D,
+                             float scale, int causal, cudaStream_t st) {
   CUtensorMap qm, km, vm, om, dkm, dvm, lm, dlm, sm;
   memset(&sm, 0, sizeof(sm));
-  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kSmall);
-  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kBig);
-  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kBig);
-  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kSmall);
-  if (e == cudaSuccess) e = bshd_map(&dkm, dk, B, Skv, Hkv, kSmall);
-  if (e == cudaSuccess) e = bshd_map(&dvm, dv, B, Skv, Hkv, kSmall);
+  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kBig, D);
+  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kBig, D);
+  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&dkm, dk, B, Skv, Hkv, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&dvm, dv, B, Skv, Hkv, kSmall, D);
   const size_t rows = (size_t)B * Hq * Sq;
   if (e == cudaSuccess)
     e = flat_map(&lm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, lse, rows, kVec);
@@ -834,11 +846,44 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
+// the bf16 head dims of the Hopper kernels: the tiles stay 128 wide, the
+// maps have D columns (a row stride of D * 2 bytes, a multiple of 16)
+bool wgmma_head_dim(int D) { return D >= 8 && D <= kBig && D % 8 == 0; }
+
+template <int D>
+cudaError_t launch_dq_f32(const float* q, const float* k, const float* v,
+                          const float* dout, const float* lse,
+                          const float* delta, const int* seg_q,
+                          const int* seg_kv, float* dq, int B, int Sq,
+                          int Skv, int Hq, int Hkv, float scale, int causal,
+                          cudaStream_t st) {
+  const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
+  bwd_dq_f32_kernel<D><<<grid, kF32Threads, 0, st>>>(
+      q, k, v, dout, lse, delta, seg_q, seg_kv, dq, Sq, Skv, Hq, Hkv, scale,
+      causal);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
+                           const float* dout, const float* lse,
+                           const float* delta, const int* seg_q,
+                           const int* seg_kv, float* dk, float* dv, int B,
+                           int Sq, int Skv, int Hq, int Hkv, float scale,
+                           int causal, cudaStream_t st) {
+  const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
+  bwd_dkv_f32_kernel<D><<<grid, kF32Threads, 0, st>>>(
+      q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, Sq, Skv, Hq, Hkv,
+      scale, causal);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (D = 128, the
-// Hopper kernel), 1 = float32 (D = 16, CUDA cores); any other pair, or only
-// one of seg_q / seg_kv, returns cudaErrorInvalidValue.  Tensors
+// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (any D <= 128
+// with D % 8 == 0, the Hopper kernel), 1 = float32 (D = 16, 64 or 72, CUDA
+// cores): K2's head dims.  Any other pair, or only one of seg_q / seg_kv,
+// returns cudaErrorInvalidValue.  Tensors
 // contiguous and 16-byte aligned (seg_q / seg_kv too).  With segment ids the
 // bfloat16 build also takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B,
 // ceil(Skv / 64), 2): the int32 [min, max] id of every 64 tokens
@@ -861,26 +906,34 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const int* skv = static_cast<const int*>(seg_kv);
   const int* qr = static_cast<const int*>(q_rng);
   const int* kr = static_cast<const int*>(kv_rng);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fo = static_cast<const float*>(dout);
+  float* fdq = static_cast<float*>(dq);
   cudaError_t e;
-  if (dtype == 0 && D == 128 && sq != nullptr)
+  if (dtype == 0 && !wgmma_head_dim(D))
+    e = cudaErrorInvalidValue;
+  else if (dtype == 0 && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
             ? cudaErrorInvalidValue
             : launch_dq_wgmma<true>(q, k, v, dout, l, dl, sq, skv, qr, kr, dq,
-                                    B, Sq, Skv, Hq, Hkv, scale, causal, st);
-  else if (dtype == 0 && D == 128)
+                                    B, Sq, Skv, Hq, Hkv, D, scale, causal, st);
+  else if (dtype == 0)
     e = launch_dq_wgmma<false>(q, k, v, dout, l, dl, nullptr, nullptr,
-                               nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv,
+                               nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv, D,
                                scale, causal, st);
-  else if (dtype == 1 && D == 16) {
-    const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
-    bwd_dq_f32_kernel<16><<<grid, kF32Threads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        sq, skv, static_cast<float*>(dq), Sq, Skv, Hq, Hkv, scale, causal);
-    e = cudaSuccess;
-  } else {
+  else if (dtype == 1 && D == 16)
+    e = launch_dq_f32<16>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
+                          Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 64)
+    e = launch_dq_f32<64>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
+                          Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 72)
+    e = launch_dq_f32<72>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
+                          Hkv, scale, causal, st);
+  else
     e = cudaErrorInvalidValue;
-  }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -905,28 +958,36 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   const int* skv = static_cast<const int*>(seg_kv);
   const int* qr = static_cast<const int*>(q_rng);
   const int* kr = static_cast<const int*>(kv_rng);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fo = static_cast<const float*>(dout);
+  float* fdk = static_cast<float*>(dk);
+  float* fdv = static_cast<float*>(dv);
   cudaError_t e;
-  if (dtype == 0 && D == 128 && sq != nullptr)
+  if (dtype == 0 && !wgmma_head_dim(D))
+    e = cudaErrorInvalidValue;
+  else if (dtype == 0 && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
             ? cudaErrorInvalidValue
             : launch_dkv_wgmma<true>(q, k, v, dout, l, dl, sq, skv, qr, kr,
-                                     dk, dv, B, Sq, Skv, Hq, Hkv, scale,
+                                     dk, dv, B, Sq, Skv, Hq, Hkv, D, scale,
                                      causal, st);
-  else if (dtype == 0 && D == 128)
+  else if (dtype == 0)
     e = launch_dkv_wgmma<false>(q, k, v, dout, l, dl, nullptr, nullptr,
                                 nullptr, nullptr, dk, dv, B, Sq, Skv, Hq,
-                                Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 16) {
-    const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
-    bwd_dkv_f32_kernel<16><<<grid, kF32Threads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-        sq, skv, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv,
-        Hq, Hkv, scale, causal);
-    e = cudaSuccess;
-  } else {
+                                Hkv, D, scale, causal, st);
+  else if (dtype == 1 && D == 16)
+    e = launch_dkv_f32<16>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
+                           Skv, Hq, Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 64)
+    e = launch_dkv_f32<64>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
+                           Skv, Hq, Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 72)
+    e = launch_dkv_f32<72>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
+                           Skv, Hq, Hkv, scale, causal, st);
+  else
     e = cudaErrorInvalidValue;
-  }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

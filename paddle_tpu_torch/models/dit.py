@@ -12,9 +12,14 @@ Kernels on this path: the blocks' attention is ``flash_attention(q, k, v,
 causal=False)`` over the patch tokens — on the card kernel K2 at head_dim
 ``hidden / heads`` (DiT-XL/2: 1152 / 16 = 72), on CPU tensors its plain
 version.  LayerNorm, GELU and AdaLN modulation are plain PyTorch, as the
-reference leaves them to XLA.  The backward of K2 (K5 / K6) is built for
-head_dim 128 only (ROADMAP B2), so on the card a DiT at head_dim 72 runs
-forward only: ``flash_attention`` under autograd refuses it up front.
+reference leaves them to XLA.  Under autograd the attention's backward is
+K5 (dq) and K6 (dk, dv) at the same head dim, so the DiT trains on the
+card: ``distributed.build_train_step(DiT(...), AdamW(...))`` on
+``compute_loss`` batches (``x``, ``t``, ``y``, ``target``), as the
+reference trains it with its ordinary train step.  With
+``config.recompute`` each block runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``, :236-238): its forward, K2 included, runs
+again in the backward.
 
 Dtypes: activations stay in the config's dtype.  The reference's
 ``bfloat16`` DiT promotes its activations to float32 at its first product
@@ -281,8 +286,7 @@ class DiT(nn.Module):
 
     def compute_loss(self, x, t, y, target):
         """Denoising objective: MSE over the noise channels in float32
-        (sigma channels excluded, the paper's simple loss).  On the card
-        at head_dim 72 it runs without gradients only (K5 / K6 take 128;
-        ROADMAP B2)."""
+        (sigma channels excluded, the paper's simple loss).  ``x`` is the
+        noised latent x_t, ``target`` the noise that made it."""
         pred = self.forward(x, t, y)[:, :self.config.in_channels]
         return ((pred.float() - target.float()) ** 2).mean()

@@ -43,8 +43,7 @@ from .cuda.decode_attention import (decode_attention_cuda,
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
                                    flash_attention_fwd_paged_cuda,
                                    flash_attention_fwd_paged_int8_cuda)
-from .cuda.flash_attention_bwd import (HEAD_DIM as BWD_HEAD_DIM,
-                                       flash_attention_bwd_dkv_cuda,
+from .cuda.flash_attention_bwd import (flash_attention_bwd_dkv_cuda,
                                        flash_attention_bwd_dq_cuda)
 
 NEG_INF = -1e30
@@ -182,18 +181,13 @@ class FlashAttention(torch.autograd.Function):
     K2, which saves q, k, v, out and lse; backward folds the lse cotangent
     into ``delta = rowsum(dO * O) - dlse`` (plain elementwise work, as
     the reference leaves it to XLA) and launches K5 (dq) and K6 (dk, dv).
-    Returns (out, lse), both differentiable.  K2 takes head dims that K5 /
-    K6 are not built for (DiT's 72); the forward refuses those up front,
-    so no step fails in its backward."""
+    Returns (out, lse), both differentiable.  K2, K5 and K6 take one set
+    of head dims (``ops/cuda/flash_attention.py`` ``FWD_HEAD_DIMS``: DiT's
+    72 among them), so whatever runs forward has its backward; K2 refuses
+    any other head dim before a launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, scale):
-        d = q.shape[-1]
-        if BWD_HEAD_DIM.get(q.dtype, d) != d:
-            raise NotImplementedError(
-                f"flash_attention backward: K5 / K6 are built for head_dim "
-                f"{BWD_HEAD_DIM[q.dtype]} at {q.dtype}, got {d} (ROADMAP "
-                f"B2); run the forward without gradients (torch.no_grad)")
         out, lse = flash_attention_fwd_cuda(
             q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
             kv_segment_ids=kv_segment_ids)

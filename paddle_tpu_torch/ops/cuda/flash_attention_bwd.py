@@ -22,9 +22,12 @@ float32 registers and rounded once — the (B, Hq, Skv, D) per-q-head
 partials the reference writes and sums (:428-440) never exist.  Two
 kernels and no atomics: every gradient is the same from run to run.  With
 segment ids both skip the tile pairs whose id ranges miss
-(:func:`backward_tile_ranges`).  float32 at head_dim 16 runs CUDA-core
-kernels; any other pair raises.  Each wrapper counts its launches in
-``.launches``.
+(:func:`backward_tile_ranges`).  Head dims: K2's (``FWD_HEAD_DIMS``), so
+whatever K2 runs forward trains — bf16 at any D <= 128 with D % 8 == 0
+(the Hopper kernels on 128-wide tiles whose columns past D TMA fills with
+zeros: DiT-XL/2's 72 pays 1.78x the useful products), float32 at 16, 64
+and 72 on CUDA-core kernels; any other pair raises naming ROADMAP B2
+before a launch.  Each wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, check_attention_args, require_cuda, stream_ptr
-from .flash_attention import (HEAD_DIM, _ptr, segment_args,
+from .flash_attention import (FWD_HEAD_DIMS, _ptr, segment_args,
                               segment_tile_ranges)
 
 NAME = "flash_attention_bwd"
@@ -62,7 +65,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(q, k, v, do, lse, delta):
-    code = check_attention_args(NAME, q, k, v, HEAD_DIM)
+    """The checks of :func:`check_attention_args` at K2's head dims (the
+    forward and backward take one set), and dO, lse, delta's shapes."""
+    code = check_attention_args(NAME, q, k, v, FWD_HEAD_DIMS)
     require_cuda(NAME, do, lse, delta)
     b, sq, hq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:

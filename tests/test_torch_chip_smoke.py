@@ -1,10 +1,13 @@
 """Host-side helpers of ``chip_smoke.py`` (the port's check on the card),
 on the CPU: the ptxas-log guard against serialised ``wgmma``, the
-visible-pair rule its contract rows hold the kernels to, and the serving
+visible-pair rule its contract rows hold the kernels to, the serving
 phases' checks of the once-built decode step (the graph contract and the
-eager twin's token comparison)."""
+eager twin's token comparison), and the training phases' batch, FLOP
+count, gradient gate, card-vs-CPU comparison and K5 / K6 same-bits
+recorder."""
 
 import importlib.util
+import json
 from contextlib import nullcontext
 from pathlib import Path
 
@@ -321,5 +324,148 @@ def test_d72_entry_and_phase_order():
     main_src = inspect.getsource(chip_smoke.main)
     freed = main_src.index("del model, qmodel")
     assert freed < main_src.index("phase_dit(") < main_src.index(
-        "phase_training(")
+        "phase_dit_train(") < main_src.index("phase_training(")
     assert main_src.index("phase_serving_spec_chunked_model(") < freed
+
+
+# ---- the dit_train phase ----------------------------------------------------
+
+@pytest.mark.parametrize("name,replaces", [
+    ("flash_attention_bwd_dq/d72", "def _bwd_dq_kernel"),
+    ("flash_attention_bwd_dkv/d72", "def _bwd_dkv_kernel")])
+def test_d72_backward_entries(name, replaces):
+    """The kernels line carries K5 / K6's head-dim-72 launches (dit_train)
+    under entries of their own, each pointing at the repo's source and at
+    the reference kernel it replaces; phase 2 has their main rows."""
+    info = chip_smoke.KERNEL_INFO[name]
+    root = Path(chip_smoke.__file__).resolve().parent
+    assert info["route"] == "cuda" and (root / info["source"]).is_file()
+    path, line = info["replaces"].split(":")
+    assert (root / path).read_text().splitlines()[int(line) - 1].startswith(
+        replaces)
+    assert name in chip_smoke.DIT_BWD
+    import inspect
+    rows_src = inspect.getsource(chip_smoke.phase_head_dim_rows)
+    assert "DIT_BWD" in rows_src and "backward_rows(" in rows_src
+
+
+def test_dit_train_settings_are_the_papers():
+    """32 latents a step (the paper's 256 over 8 cards), AdamW at 1e-4,
+    8 steps with 2 untimed, gate (a) on 8 latents, 10 % null labels."""
+    assert (chip_smoke.DIT_TRAIN_BATCH, chip_smoke.DIT_TRAIN_STEPS,
+            chip_smoke.DIT_TRAIN_UNTIMED, chip_smoke.DIT_GRAD_BATCH) == (
+                32, 8, 2, 8)
+    assert (chip_smoke.DIT_TRAIN_LR, chip_smoke.DIT_LABEL_DROP) == (1e-4,
+                                                                    0.1)
+
+
+@pytest.mark.parametrize("n,nulls", [(8, 1), (32, 3), (4, 1)])
+def test_dit_batch(n, nulls):
+    """x = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise with the target the
+    noise, t in [0, 1000), round(10 %) (at least one) null labels, the
+    same arrays from the same seed."""
+    from paddle_tpu_torch.models import diffusion_schedule, tiny_dit_config
+    cfg = tiny_dit_config()
+    b = chip_smoke.dit_batch(cfg, n, seed=3)
+    assert b["x"].shape == b["target"].shape == (n, 4, 8, 8)
+    assert b["x"].dtype == b["target"].dtype == np.float32
+    assert ((b["t"] >= 0) & (b["t"] < 1000)).all()
+    assert int((b["y"] == cfg.num_classes).sum()) == nulls
+    assert ((b["y"] >= 0) & (b["y"] <= cfg.num_classes)).all()
+    abar = diffusion_schedule().numpy()[b["t"]][:, None, None, None]
+    x0 = (b["x"] - np.sqrt(1 - abar) * b["target"]) / np.sqrt(abar)
+    assert abs(float(x0.std()) - 1.0) < 0.2
+    again = chip_smoke.dit_batch(cfg, n, seed=3)
+    assert all(np.array_equal(b[k], again[k]) for k in b)
+    assert not np.array_equal(b["x"], chip_smoke.dit_batch(cfg, n, 4)["x"])
+
+
+def test_dit_train_flops_count_the_products():
+    """6 FLOPs a multiply-add of every product: counted by hand for the
+    tiny DiT, and DiT-XL/2's 32-latent step."""
+    from paddle_tpu_torch.models import dit_xl_2_config, tiny_dit_config
+    c = tiny_dit_config()                   # h 64, 16 tokens, depth 2
+    h, n, b = 64, 16, 3
+    tokens = b * n * (2 * (3 * h * h + h * h + 2 * 4 * h * h)
+                      + 16 * h + h * 32)
+    latents = b * (2 * 6 * h * h + 2 * h * h + 256 * h + h * h
+                   + 2 * 2 * n * n * h)
+    assert chip_smoke.dit_train_flops(c, b) == 6 * (tokens + latents)
+    assert chip_smoke.dit_train_flops(dit_xl_2_config(), 32) == \
+        22_775_312_941_056
+
+
+def _tiny_dit():
+    from paddle_tpu_torch.models import tiny_dit_config
+    return chip_smoke._dit_perturbed(torch, tiny_dit_config(), "cpu")
+
+
+def test_grad_gate_passes_equal_paths_and_fails_a_wrong_one(capsys):
+    """On the CPU both paths are the plain version, so the gate passes; a
+    kernel path whose loss is off by half fails it."""
+    from paddle_tpu_torch.ops._dispatch import in_reference_mode
+    m = _tiny_dit()
+    b = {k: torch.from_numpy(v) for k, v in chip_smoke.dit_batch(
+        m.config, 4, seed=1).items()}
+
+    def make32():
+        return m
+
+    chip_smoke.grad_gate(torch, m, make32, lambda mod: mod.compute_loss(**b),
+                         "g", {"config": "tiny"})
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "g" and line["config"] == "tiny"
+    assert line["grad_rel_l2_kernel_vs_f32"] == 0.0
+    with pytest.raises(chip_smoke.CheckFailed, match="kernel-path"):
+        chip_smoke.grad_gate(
+            torch, m, make32, lambda mod: mod.compute_loss(**b) * (
+                1.0 if in_reference_mode() else 1.5), "g", {})
+
+
+def test_tiny_card_vs_cpu_on_one_device():
+    """The comparison's plumbing with the CPU on both sides: equal losses
+    and parameters, a nonzero update, the CPU route counted."""
+    base = _tiny_dit()
+    batches = [chip_smoke.dit_batch(base.config, 4, seed=i)
+               for i in range(4)]
+    res = chip_smoke.tiny_card_vs_cpu(torch, base, batches,
+                                      torch.device("cpu"))
+    assert res["losses_card"] == res["losses_cpu"]
+    assert res["param_diff_l2"] == 0.0 and res["update_l2"] > 0
+    assert res["routes"] == {"flash_attention/plain": 2 * 4}
+    chip_smoke.check_tiny(res, "x")
+    bad = dict(res, param_diff_l2=res["update_l2"] * 2e-3)
+    with pytest.raises(chip_smoke.CheckFailed, match="parameters"):
+        chip_smoke.check_tiny(bad, "x")
+
+
+def test_recording_backward_keeps_first_and_last(monkeypatch):
+    """The recorder sees K5 / K6 where ``FlashAttention.backward`` looks
+    them up, keeps each wrapper's first and latest call, restores the
+    wrappers on exit; ``same_bits`` launches the kept calls again."""
+    from paddle_tpu_torch.ops import attention
+    drift = {"n": 0}
+
+    def dq(q, *args, **kwargs):
+        return q * 2
+
+    def dkv(q, *args, **kwargs):
+        drift["n"] += 1
+        return q + drift["n"], q
+
+    monkeypatch.setattr(attention, "flash_attention_bwd_dq_cuda", dq)
+    monkeypatch.setattr(attention, "flash_attention_bwd_dkv_cuda", dkv)
+    calls = {}
+    with chip_smoke.recording_backward(calls):
+        for i in range(3):
+            x = torch.full((2,), float(i))
+            attention.flash_attention_bwd_dq_cuda(x, causal=False)
+            attention.flash_attention_bwd_dkv_cuda(x)
+    assert attention.flash_attention_bwd_dq_cuda is dq
+    assert attention.flash_attention_bwd_dkv_cuda is dkv
+    first, last = calls["flash_attention_bwd_dq_cuda"]
+    assert float(first[1][0][0]) == 0.0 and float(last[1][0][0]) == 2.0
+    assert first[2] == {"causal": False}
+    assert chip_smoke.same_bits(torch, calls) == {
+        "flash_attention_bwd_dq_cuda": True,
+        "flash_attention_bwd_dkv_cuda": False}

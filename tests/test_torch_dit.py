@@ -10,8 +10,9 @@ carried across by ``load_jax_state_dict``; the DDIM schedule tables and
 streams cannot be shared between the libraries, so samples drawn from
 noise (``x_init=None``, ``eta=1``) are held to their known moments.  Also
 here: the sampler's build-once contract (watchdog site ``diffusion.ddim``),
-the CPU route, and the contiguous K2 wrapper's head dims against the
-builds that stay at 128 (K2-paged, K1, K5 / K6: ROADMAP B2).
+the CPU route, and the head dims of the contiguous K2 and of K5 / K6
+(one set) against the builds that stay at 128 (K2-paged, K1: ROADMAP
+B2).
 """
 
 import os
@@ -342,7 +343,7 @@ def test_sampler_is_built_once_per_key():
     assert builds and max(builds) == 1
 
 
-# ---- K2's head dims and the builds that stay at 128 (ROADMAP B2) ---------------
+# ---- K2 / K5 / K6's head dims and the builds at 128 (ROADMAP B2) -------------
 
 class _FakeLib:
     """Stands in for the built library: records each entry's arguments."""
@@ -363,6 +364,7 @@ def no_card(monkeypatch):
     launch reaches a fake library."""
     lib = _FakeLib()
     monkeypatch.setattr(pt_cuda, "require_cuda", lambda what, *t: None)
+    monkeypatch.setattr(k56, "require_cuda", lambda what, *t: None)
     for mod in (k1, k2, k56):
         monkeypatch.setattr(mod, "_lib", lambda: lib)
         monkeypatch.setattr(mod, "stream_ptr", lambda device: 0)
@@ -406,8 +408,9 @@ def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
                                      (torch.bfloat16, 64),
                                      (torch.float32, 72)])
 def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
-    """K2-paged(-int8), the K1 family and K5 / K6 are built at 128 (bf16)
-    / 16 (float32) only: each refuses DiT's head dims naming B2."""
+    """K2-paged(-int8) and the K1 family are built at 128 (bf16) / 16
+    (float32) only: each refuses DiT's head dims naming B2.  (K5 / K6
+    take them: ``test_k5_k6_take_k2s_head_dims``.)"""
     q, k, v = _qkv(d, dtype, s=1)
     pool = torch.zeros(4, 64, 2, d, dtype=dtype)
     pool8 = torch.zeros(4, 64, 2, d, dtype=torch.int8)
@@ -415,7 +418,6 @@ def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
     tbl = torch.zeros(1, 2, dtype=torch.int32)
     cache = torch.zeros(1, 128, 2, d, dtype=dtype)
     cache8 = torch.zeros(1, 128, 2, d, dtype=torch.int8)
-    lse = torch.zeros(1, 4, 1)
     calls = [
         lambda: k2.flash_attention_fwd_paged_cuda(q, pool, pool, 0, tbl),
         lambda: k2.flash_attention_fwd_paged_int8_cuda(q, pool8, pool8, 0,
@@ -427,10 +429,6 @@ def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
         lambda: k1.decode_attention_paged_cuda(q, pool, pool, 0, tbl),
         lambda: k1.decode_attention_paged_int8_cuda(q, pool8, pool8, 0, tbl,
                                                     k_scale=sc, v_scale=sc),
-        lambda: k56.flash_attention_bwd_dq_cuda(q, k[:, :1], v[:, :1], q,
-                                                lse, lse),
-        lambda: k56.flash_attention_bwd_dkv_cuda(q, k[:, :1], v[:, :1], q,
-                                                 lse, lse),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError, match="B2"):
@@ -438,14 +436,63 @@ def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
     assert no_card.calls == []
 
 
+# K5 / K6 take K2's head dims (``FWD_HEAD_DIMS``), and nothing else
+BWD_TAKES = [(torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 64),
+             (torch.bfloat16, 72), (torch.bfloat16, 120),
+             (torch.bfloat16, 128), (torch.float32, 16), (torch.float32, 64),
+             (torch.float32, 72)]
+BWD_REFUSES = {torch.bfloat16: (76, 136), torch.float32: (32, 128)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_autograd_refuses_dit_head_dim_in_the_forward(no_card, dtype):
-    """K2 takes head_dim 72, K5 / K6 do not: under autograd the forward
-    refuses it before any launch, so no train step fails in its
-    backward."""
-    q, k, v = (t.requires_grad_(True) for t in _qkv(72, dtype))
-    with pytest.raises(NotImplementedError, match="B2"):
-        FlashAttention.apply(q, k, v, None, None, False, None)
+    """Under autograd ``FlashAttention`` takes DiT's head dims 72 and 64
+    forward and backward (K2, then K5 and K6 at the same head_dim); a head
+    dim outside K2's set is refused in the forward, naming B2, before any
+    launch."""
+    for d in (72, 64):
+        no_card.calls.clear()
+        q, k, v = (t.requires_grad_(True) for t in _qkv(d, dtype))
+        out, lse = FlashAttention.apply(q, k, v, None, None, False, None)
+        torch.autograd.grad((out * 0).sum() + (lse * 0).sum(), (q, k, v))
+        assert [n for n, _ in no_card.calls] == [
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv"]
+        # B Sq Skv Hq Hkv D of each launch (after 9, 11, 12 pointers)
+        (_, fwd), (_, dq), (_, dkv) = no_card.calls
+        assert fwd[9:15] == dq[11:17] == dkv[12:18] == (1, 8, 8, 4, 2, d)
+    no_card.calls.clear()
+    for d in BWD_REFUSES[dtype]:
+        q, k, v = (t.requires_grad_(True) for t in _qkv(d, dtype))
+        with pytest.raises(NotImplementedError, match="B2"):
+            FlashAttention.apply(q, k, v, None, None, False, None)
+    assert no_card.calls == []
+
+
+@pytest.mark.parametrize("dtype,d", BWD_TAKES)
+def test_k5_k6_take_k2s_head_dims(no_card, dtype, d):
+    """K5 and K6 launch at every head dim K2 takes, D passed through."""
+    q, k, v = _qkv(d, dtype)
+    lse = torch.zeros(1, 4, 8)
+    dq = k56.flash_attention_bwd_dq_cuda(q, k, v, q, lse, lse)
+    dk, dv = k56.flash_attention_bwd_dkv_cuda(q, k, v, q, lse, lse)
+    (n1, a1), (n2, a2) = no_card.calls
+    assert (n1, n2) == ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    # dq: 11 pointers, then B Sq Skv Hq Hkv D; dkv: 12 pointers
+    assert a1[11:17] == a2[12:18] == (1, 8, 8, 4, 2, d)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert d in k2.FWD_HEAD_DIMS[dtype]
+
+
+@pytest.mark.parametrize("dtype,d", [(t, d) for t, ds in BWD_REFUSES.items()
+                                     for d in ds] + [(torch.bfloat16, 256)])
+def test_k5_k6_refuse_other_head_dims(no_card, dtype, d):
+    q, k, v = _qkv(d, dtype)
+    lse = torch.zeros(1, 4, 8)
+    for fn in (k56.flash_attention_bwd_dq_cuda,
+               k56.flash_attention_bwd_dkv_cuda):
+        with pytest.raises(NotImplementedError, match="B2"):
+            fn(q, k, v, q, lse, lse)
     assert no_card.calls == []
 
 

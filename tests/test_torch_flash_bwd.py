@@ -5,10 +5,13 @@ the port's attention gradients against the JAX package, on the CPU.
   in interpret mode (``jax.vjp`` of ``flash_attention_pallas(...,
   interpret=True)`` with given dO and dlse), fed JAX's own out and lse, at
   float32: 1e-5 (the two sum in other orders).  The Pallas kernel needs
-  Sq % 8 == 0 and Skv % 128 == 0, so its cases are aligned.
+  Sq % 8 == 0 and Skv % 128 == 0, so its cases are aligned.  Head dims
+  32, and DiT-XL/2's 72 and 64 (K5 / K6 take K2's head dims), with GQA,
+  dead rows and segment ids.
 * The port's ``flash_attention`` under ordinary autograd (the CPU route)
   against ``jax.grad`` of JAX's ``flash_attention`` (its XLA path on the
-  CPU), ragged lengths included, out and lse both in the loss: 1e-5.
+  CPU), ragged lengths included, out and lse both in the loss, at head
+  dims 16 and 72: 1e-5.
 * ``segment_mask`` equal to JAX's; the RMSNorm gradient against
   ``jax.grad`` of ``rms_norm_reference``: 1e-5.
 """
@@ -57,6 +60,11 @@ PALLAS_CASES = [
     ("sq_gt_skv_dead_rows", 1, 256, 128, 2, 1, 32, True, None, True),
     ("self_segments", 2, 128, 128, 4, 2, 32, True, "self", True),
     ("cross_segments", 1, 64, 128, 2, 2, 32, False, "cross", True),
+    ("d72_full", 2, 128, 128, 4, 4, 72, False, None, True),
+    ("d72_causal_gqa_dead_rows", 1, 256, 128, 4, 2, 72, True, None, True),
+    ("d72_self_segments", 2, 128, 128, 4, 2, 72, True, "self", True),
+    ("d64_causal_gqa", 2, 128, 128, 4, 2, 64, True, None, False),
+    ("d64_cross_segments", 1, 64, 128, 2, 2, 64, False, "cross", True),
 ]
 
 
@@ -95,26 +103,27 @@ def test_bwd_reference_matches_pallas_interpret(case):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
                                    err_msg=name)
-    if case[0] == "sq_gt_skv_dead_rows":   # rows before the diagonal
+    if causal and sq > skv:                # rows before the diagonal
         assert not got[0][:, :sq - skv].any()
 
 
-# (id, b, sq, skv, hq, hkv, causal, segments)
+# (id, b, sq, skv, hq, hkv, causal, segments, head_dim)
 AUTOGRAD_CASES = [
-    ("ragged_self", 2, 13, 13, 4, 2, True, None),
-    ("ragged_sq_lt_skv", 2, 13, 37, 4, 2, True, None),
-    ("ragged_dead_rows", 1, 37, 13, 2, 1, True, None),
-    ("ragged_noncausal", 1, 37, 37, 2, 2, False, None),
-    ("ragged_segments", 2, 37, 37, 4, 2, True, "self"),
-    ("ragged_cross_segments", 2, 13, 37, 2, 1, False, "cross"),
+    ("ragged_self", 2, 13, 13, 4, 2, True, None, 16),
+    ("ragged_sq_lt_skv", 2, 13, 37, 4, 2, True, None, 16),
+    ("ragged_dead_rows", 1, 37, 13, 2, 1, True, None, 16),
+    ("ragged_noncausal", 1, 37, 37, 2, 2, False, None, 16),
+    ("ragged_segments", 2, 37, 37, 4, 2, True, "self", 16),
+    ("ragged_cross_segments", 2, 13, 37, 2, 1, False, "cross", 16),
+    ("ragged_d72_gqa_dead_rows", 2, 37, 13, 4, 2, True, None, 72),
+    ("ragged_d72_segments", 1, 37, 37, 2, 2, False, "self", 72),
 ]
 
 
 @pytest.mark.parametrize("case", AUTOGRAD_CASES,
                          ids=[c[0] for c in AUTOGRAD_CASES])
 def test_flash_attention_grad_matches_jax(case):
-    _, b, sq, skv, hq, hkv, causal, segs = case
-    d = 16
+    _, b, sq, skv, hq, hkv, causal, segs, d = case
     q, k, v = (_rand((b, sq, hq, d), 11), _rand((b, skv, hkv, d), 12),
                _rand((b, skv, hkv, d), 13))
     w, wl = _rand((b, sq, hq, d), 14), _rand((b, hq, sq), 15)

@@ -282,8 +282,19 @@ def test_kept_tiles_backward_matches_jax(kind):
     60, 200 and 152 tokens; the plain backward over the tiles K5 or K6
     keeps equals the VJP of the JAX package's flash kernel (Pallas in
     interpret mode) within float32 sum order."""
+    _kept_tiles_backward(kind, 16)
+
+
+@pytest.mark.parametrize("kind", ["k5", "k6"])
+def test_kept_tiles_backward_matches_jax_at_head_dim_72(kind):
+    """The same at DiT-XL/2's head_dim: the walk is by tokens, so the tiles
+    K5 / K6 keep at D 72 are those at 16."""
+    _kept_tiles_backward(kind, 72)
+
+
+def _kept_tiles_backward(kind, d):
     rng = np.random.default_rng(6)
-    b, s, hq, hkv, d = 1, 512, 4, 2, 16
+    b, s, hq, hkv = 1, 512, 4, 2
     ids = np.repeat(np.arange(4, dtype=np.int32), [100, 60, 200, 152])[None]
     q, k, v, do = (rng.normal(size=(b, s, h, d)).astype(np.float32)
                    for h in (hq, hkv, hkv, hq))
