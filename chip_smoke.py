@@ -8,8 +8,9 @@ Run from the repository root with no arguments::
 It builds every kernel of the serving, sampling and training paths from
 the sources in the checkout, holds each against its plain PyTorch version,
 runs the model at the full Llama-3-8B width, serves requests through the
-engine, samples and trains DiT-XL/2 and trains a 4-layer cut of the Llama
-model.  Every phase prints one JSON line;
+engine, generates with ``generate`` (greedy, sampled, beam, int8), samples
+and trains DiT-XL/2, generates with and trains Qwen2-VL at its default
+widths and trains a 4-layer cut of the Llama model.  Every phase prints one JSON line;
 any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -68,7 +69,13 @@ any failed check raises, so the script exits non-zero.  Phases:
                  attention) and, at D 72 and 64, causal GQA at Sq 77 over
                  Skv 61, the ring-hop form and packed documents at S 300
                  (dead rows exact, the same bits twice), float32 at 72
-                 and 64; each also at the tiny model's float32 shapes:
+                 and 64; then Qwen2-VL's shapes: K2 not causal at bf16
+                 D 64 over the tower's B 4 x 256 patches x 4 heads, K2
+                 cross-attention at D 128 over 256 patches at Sq 1 (a
+                 decode step) and Sq 64 (the prefill), K5 / K6 at D 64
+                 at the tower's training shape and at the cross shape
+                 (Sq 64, Skv 256, D 128); each also at the tiny model's
+                 float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
                  in ms;
@@ -185,6 +192,18 @@ any failed check raises, so the script exits non-zero.  Phases:
                  scripted drafters replay 4h's own cold output (no new
                  build, a replay a tick and a wave, hits > 0), reported
                  beside phase 4's warm pass;
+  generate.    — phase 3's Llama-3-8B model (bf16, 32 layers) through
+                 ``generate``: greedy (B 4, prompt 128, 64 new tokens),
+                 sampled (temperature 0.8, top_k 50, top_p 0.9), beam
+                 search (B 2, K 4, 32 new tokens, an EOS id) and greedy
+                 on the int8 model (K4); each key built once (its decode
+                 step one CUDA graph, replayed for every token after the
+                 first), cold and warm, beside its eager twin: the same
+                 tokens bit for bit, launches K1 32 a decode step, K2 32
+                 a prefill, K3 65 a pass, K4 225 a decode step (int8), no
+                 plain route; the greedy run's first-step logits within
+                 1.2x the plain path's error against a float32 copy;
+                 tokens/s and ms a token on a line that names the card;
   dit.         — after the serving models are freed: DiT-XL/2 (28 blocks,
                  hidden 1152, 16 heads of 72, 32 x 32 x 4 latents, 1000
                  classes), bf16, seeded weights with the AdaLN modulations
@@ -200,7 +219,10 @@ any failed check raises, so the script exits non-zero.  Phases:
                  against the CPU (``dit_tiny_f32`` lines).  Sampling ms,
                  latents/s, ms a step, K2's share, peak memory; with
                  ``--profile`` the eager twin's kernel time a step by
-                 class (K2, GEMM, other);
+                 class (K2, GEMM, other); ``dit_c2`` (ROADMAP C2): the
+                 weights converted to float32 and back (new storage),
+                 a copy made after, the sampler's latents equal to the
+                 copy's and to the first sample's;
   dit_train.   — DiT-XL/2 as in ``dit``, not cut, trained by
                  ``build_train_step`` with the DiT paper's AdamW (lr 1e-4,
                  betas (0.9, 0.999), weight decay 0) on 32 seeded latents a
@@ -219,6 +241,27 @@ any failed check raises, so the script exits non-zero.  Phases:
                  peak memory, K5 + K6's share of a step; with
                  ``--profile`` one step's kernel time by class, the
                  optimizer's device time and the device's busy share;
+  qwen2_vl.    — ``Qwen2VLConfig()`` (224 x 224 images in 256 patches,
+                 a 2-block tower of 4 heads of 64, a 4-layer decoder of 8
+                 heads of 128 with a cross layer after every 2nd), bf16,
+                 cross gates at 0.5; gates: forward logits of 4 images and
+                 64-token prompts within 1.2x the plain path's error
+                 against a float32 copy; greedy and beam-4 ``generate``
+                 of 32 new tokens graphed beside the eager twin, bit for
+                 bit, with K2 70 launches (by shape in the twin: D 64 2,
+                 causal D 128 4, cross D 128 at Sq 64 2 and at Sq 1 62),
+                 K1 124, K3 352; C2 for the generation graph (a dtype
+                 round trip, tokens equal to a fresh copy's); the tiny
+                 float32 model, greedy and beam, card tokens equal to the
+                 CPU's (``qwen2_vl_tiny_f32``);
+  qwen2_vl_train. — the same model, ``build_train_step`` with AdamW (lr
+                 1e-4, weight decay 0.01), 4 steps of 4 images: step-1
+                 gradients within 1.2x the plain path's error against a
+                 float32 copy (``qwen2_vl_train_grads``); K2 = K5 = K6 = 8
+                 a step (by shape: D 64 2, causal D 128 4, cross D 128 2),
+                 K3 11, no plain route, K5 / K6 the same bits again; the
+                 tiny float32 model 4 steps card against CPU
+                 (``qwen2_vl_train_tiny_f32``);
   5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -241,7 +284,9 @@ of K1-paged and K2-paged from phase 4b, of K1-paged-int8, K2-paged-int8
 and K4 from phase 4c, of K1-int8 from phase 4d, of K2-paged and
 K2-paged-int8 over the identity view from phases 4e and 4g, of K5 and K6
 from phase 5, of K2 at head_dim 72 from the dit phase, of K5 and K6 at
-head_dim 72 from dit_train; error and times from phase 2) and, last,
+head_dim 72 from dit_train, of K2 at head_dim 64 and of the cross K2 from
+qwen2_vl's greedy run, of K5 and K6 at head_dim 64 from qwen2_vl_train;
+error and times from phase 2) and, last,
 ``{"ok": true,
 "device": {...}}``.
 
@@ -348,6 +393,26 @@ KERNEL_INFO = {
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:299"},
+    # K2 at head_dim 64, not causal: Qwen2-VL's vision tower (qwen2_vl)
+    "flash_attention_fwd/d64": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:128"},
+    # K2 not causal at head_dim 128 with Sq != Skv: Qwen2-VL's
+    # cross-attention, text queries over the patches (Sq 1 a decode step)
+    "flash_attention_fwd/cross": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:128"},
+    # K5 / K6 at head_dim 64: the vision tower's backward (qwen2_vl_train)
+    "flash_attention_bwd_dq/d64": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:252"},
+    "flash_attention_bwd_dkv/d64": {
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:299"},
 }
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -382,6 +447,16 @@ TRAIN_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # gate (a) per tensor: a floor under 1.2x the plain path's relative L2
 # error, for tensors whose plain error is near 0; a wrong kernel is O(1)
 GRAD_TENSOR_FLOOR = 1e-3
+# gate (a) for a one-element parameter (Qwen2-VL's cross gates): its
+# gradient is ONE sum over every activation of the layer (4 x 64 x 1024
+# products in qwen2_vl_train), whose terms cancel with random weights
+# (their sum ~ sqrt(terms) x a term), so the sum's relative error is its
+# terms' rounding magnified ~500x and the paths' rounding (K2's bf16 P
+# beside the plain path's float32 P) shows unmasked: on an H100 80GB
+# HBM3 (700 W) the two gates' kernel-path errors were 0.073 / 0.0062
+# (plain 0.023 / 0.00085) while the summed gate held at 1.04x.  Such a
+# tensor is held at 0.25 relative: a wrong kernel moves it by O(1)
+GRAD_SCALAR_TOL = 0.25
 LAYERS_8B = 32
 # the kernels of the default (contiguous) engine's path, phase 4
 CONTIGUOUS_PATH = ("decode_attention", "flash_attention_fwd", "rms_norm")
@@ -1466,6 +1541,12 @@ DIT_BATCH = 2 * DIT_LABELS
 DIT_TRAIN_BATCH, DIT_TRAIN_STEPS, DIT_TRAIN_UNTIMED = 32, 8, 2
 DIT_GRAD_BATCH, DIT_TRAIN_LR, DIT_LABEL_DROP = 8, 1e-4, 0.1
 DIT_BWD = ("flash_attention_bwd_dq/d72", "flash_attention_bwd_dkv/d72")
+# Qwen2-VL at its default widths (qwen2_vl, qwen2_vl_train): 4 images of
+# 224 x 224 in 14 x 14 patches (256), the tower 2 blocks of 4 heads of 64,
+# the decoder 4 layers of 8 heads of 128, a cross layer after every 2nd
+QWEN_BATCH, QWEN_PATCHES, QWEN_VISION_HEADS = 4, 256, 4
+QWEN_HEADS, QWEN_PROMPT, QWEN_NEW = 8, 64, 32
+QWEN_BWD = ("flash_attention_bwd_dq/d64", "flash_attention_bwd_dkv/d64")
 
 
 def phase_head_dim_rows(torch, record, randn, tols):
@@ -1511,6 +1592,14 @@ def phase_head_dim_rows(torch, record, randn, tols):
             ("flash_attention_fwd/d72", f32, 2, 77, 61, 4, 2, 72, True,
              False, False),
             ("flash_attention_fwd", f32, 2, 70, 70, 4, 2, 64, False, False,
+             False),
+            ("flash_attention_fwd/d64", bf16, QWEN_BATCH, QWEN_PATCHES,
+             QWEN_PATCHES, QWEN_VISION_HEADS, QWEN_VISION_HEADS, 64, False,
+             False, True),
+            ("flash_attention_fwd/cross", bf16, QWEN_BATCH, 1, QWEN_PATCHES,
+             QWEN_HEADS, QWEN_HEADS, 128, False, False, True),
+            ("flash_attention_fwd/cross", bf16, QWEN_BATCH, QWEN_PROMPT,
+             QWEN_PATCHES, QWEN_HEADS, QWEN_HEADS, 128, False, False,
              False)):
         atol, rtol = tols(dt)
         lse_tol = 1e-3 if dt == bf16 else 1e-5
@@ -1581,7 +1670,11 @@ def phase_head_dim_rows(torch, record, randn, tols):
             (DIT_BWD, f32, 2, 77, 61, 4, 2, 72, True, None, False),
             (TRAIN_KERNELS, f32, 2, 70, 70, 4, 2, 64, False, None, False),
             (TRAIN_KERNELS, f32, 2, 77, 77, 4, 2, 64, True, "packed",
-             False)):
+             False),
+            (QWEN_BWD, bf16, QWEN_BATCH, QWEN_PATCHES, QWEN_PATCHES,
+             QWEN_VISION_HEADS, QWEN_VISION_HEADS, 64, False, None, True),
+            (TRAIN_KERNELS, bf16, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES,
+             QWEN_HEADS, QWEN_HEADS, 128, False, None, False)):
         seg = kv_seg = None
         if segments == "packed":
             seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
@@ -3365,7 +3458,9 @@ def grad_gate(torch, model, make_f32, loss_of, phase: str, fields):
     summed over every tensor, must be within 1.2x the plain path's, and
     tensor by tensor within 1.2x + GRAD_TENSOR_FLOOR, so a wrong dq or dk
     / dv of one projection cannot hide under the embeddings' share of the
-    sum.  Emits a ``phase`` line (``fields`` first)."""
+    sum.  A one-element tensor (one sum over the batch) is held at
+    GRAD_SCALAR_TOL instead.  Emits a ``phase`` line (``fields``
+    first)."""
     from paddle_tpu_torch.ops._dispatch import reference_mode
 
     def grads(m):
@@ -3393,12 +3488,15 @@ def grad_gate(torch, model, make_f32, loss_of, phase: str, fields):
     del g, truth
     torch.cuda.empty_cache()
     names = [n for n, _ in model.named_parameters()]
+    scalar = [p.numel() == 1 for p in model.parameters()]
     rel_k = math.sqrt(sum(err_k) / sum(truth_sq))
     rel_p = math.sqrt(sum(err_p) / sum(truth_sq))
     per_k = [math.sqrt(e / max(t, 1e-30)) for e, t in zip(err_k, truth_sq)]
     per_p = [math.sqrt(e / max(t, 1e-30)) for e, t in zip(err_p, truth_sq)]
-    worst = max(range(len(names)), key=lambda i: per_k[i] / max(per_p[i],
-                                                                1e-30))
+    tensors = [i for i in range(len(names)) if not scalar[i]]
+    worst = max(tensors, key=lambda i: per_k[i] / max(per_p[i], 1e-30))
+    scalars = {names[i]: {"kernel": per_k[i], "plain": per_p[i]}
+               for i in range(len(names)) if scalar[i]}
     tol = 1.2 * rel_p
     emit({"phase": phase, **fields,
           "loss_kernel": loss_k, "loss_plain": loss_p, "loss_f32": loss32,
@@ -3408,16 +3506,22 @@ def grad_gate(torch, model, make_f32, loss_of, phase: str, fields):
           "max_tensor_rel_l2_plain": max(per_p),
           "worst_tensor_ratio": {"name": names[worst],
                                  "kernel": per_k[worst],
-                                 "plain": per_p[worst]}})
+                                 "plain": per_p[worst]},
+          **({"one_element_tensors": scalars,
+              "tol_one_element": GRAD_SCALAR_TOL} if scalars else {})})
     check(all(math.isfinite(x) for x in (loss_k, loss_p, rel_k)),
           f"{phase}: gradients are not finite")
     check(rel_k <= tol,
           f"{phase}: kernel-path gradients are {rel_k} from the float32 "
           f"truth, the plain path's {rel_p} (tolerance {tol})")
-    bad = {names[i]: (per_k[i], per_p[i]) for i in range(len(names))
+    bad = {names[i]: (per_k[i], per_p[i]) for i in tensors
            if per_k[i] > 1.2 * per_p[i] + GRAD_TENSOR_FLOOR}
     check(not bad, f"{phase}: gradients beyond 1.2x the plain path's error "
                    f"+ {GRAD_TENSOR_FLOOR}: {bad}")
+    bad = {n: e for n, e in scalars.items()
+           if not e["kernel"] <= GRAD_SCALAR_TOL}
+    check(not bad, f"{phase}: one-element gradients beyond "
+                   f"{GRAD_SCALAR_TOL}: {bad}")
 
 
 def tiny_card_vs_cpu(torch, base, batches, dev):
@@ -3762,7 +3866,34 @@ def phase_dit(torch, kernels, card, profile: bool = False):
           f"(max {run['twin_max_abs']}) or from the cold call's")
     kernels["flash_attention_fwd/d72"]["launches"] = \
         warm["launches"]["flash_attention_fwd"]
-    del m, cold, warm, twin, sampler, own_cache
+
+    # ROADMAP C2: the sampler's graph after a dtype round trip of the
+    # weights, which gives every parameter new storage; the copy is made
+    # after it, so it takes the freed blocks
+    ptrs = [p.data_ptr() for p in m.parameters()]
+    m.float()
+    m.to(torch.bfloat16)
+    moved = ptrs != [p.data_ptr() for p in m.parameters()]
+    fresh = copy.deepcopy(m)
+    with torch.no_grad():
+        after = ddim_sample(m, labels, **kw)
+        want_c2 = ddim_sample(fresh, labels, **kw)
+        # the hazard itself: the sampler built before the round trip,
+        # replayed with the freed blocks refilled (NaN), reads them
+        junk = [torch.full_like(p, float("nan")) for p in m.parameters()]
+        stale = sampler.run(labels, 0, x_init)
+        del junk
+    c2 = {"storage_moved": moved,
+          "equal_to_fresh_copy": bool(torch.equal(after, want_c2)),
+          "equal_to_before": bool(torch.equal(after, warm["out"])),
+          "samplers": len(m._ddim_jit_cache),
+          "stale_sampler_equal_to_fresh_copy": bool(torch.equal(stale,
+                                                                want_c2)),
+          "stale_sampler_finite": bool(torch.isfinite(stale).all().item())}
+    emit({"phase": "dit_c2", **c2})
+    check(moved and c2["equal_to_fresh_copy"] and c2["equal_to_before"],
+          f"dit C2: after a dtype round trip the latents differ ({c2})")
+    del m, cold, warm, twin, sampler, own_cache, fresh, after, want_c2, stale
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4034,6 +4165,508 @@ def phase_dit_train(torch, kernels, card, profile: bool = False):
               f"{want}), routes {res['routes']}")
 
 
+# -- generation and Qwen2-VL ---------------------------------------------------------
+
+# generate: phase 3's Llama-3-8B model; greedy and sampled at B 4, prompt
+# 128, 64 new tokens; beam search at B 2, K 4, 32 new tokens
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
+GEN_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.9, "seed": 5}
+BEAM_BATCH, BEAM_K, BEAM_NEW = 2, 4, 32
+# K3 launches of one Llama-3-8B pass: 2 a layer and the final norm
+K3_PER_PASS_8B = 2 * LAYERS_8B + 1
+
+
+def generation_run(torch, fn):
+    """One ``generate`` call with every launch and route counter reset just
+    before and read just after: wall ms (to the last token on the host),
+    launches, routes, the output."""
+    from paddle_tpu_torch.ops import (_dispatch, launch_counts,
+                                      reset_launch_counts)
+    reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return {"ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {k: n for k, n in launch_counts().items() if n},
+            "routes": {f"{op}/{path}": n for (op, path), n in
+                       _dispatch.kernel_paths.items()}, "out": out}
+
+
+@contextlib.contextmanager
+def recording_shapes(counts):
+    """Count each K2 / K5 / K6 call by (wrapper, head_dim, Sq, Skv,
+    causal) in ``counts`` as ``ops.attention`` makes it (eager calls only:
+    a graph replay calls no wrapper)."""
+    from paddle_tpu_torch.ops import attention
+    names = ("flash_attention_fwd_cuda", "flash_attention_bwd_dq_cuda",
+             "flash_attention_bwd_dkv_cuda")
+    saved = {n: getattr(attention, n) for n in names}
+
+    def recorder(name, fn):
+        def call(q, k, *args, **kwargs):
+            key = (name.replace("_cuda", ""), q.shape[3], q.shape[1],
+                   k.shape[1], bool(kwargs.get("causal")))
+            counts[key] = counts.get(key, 0) + 1
+            return fn(q, k, *args, **kwargs)
+        return call
+
+    for n, fn in saved.items():
+        setattr(attention, n, recorder(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(attention, n, fn)
+
+
+def graphed_and_twin(torch, m, fn, what, want, new_tokens):
+    """``fn()`` (a ``generate`` call of ``m``) cold (its key's build),
+    warm (replays only) and as its eager twin (the same key built inside
+    ``disable_graphs()`` into a cache of its own, K2 / K5 / K6 calls
+    counted by shape).  Gates: one build, graphed, ``new_tokens - 1``
+    replays a call; the three outputs equal bit for bit; each run's
+    launches equal ``want``; no plain route.  Returns the fields of the
+    line (tokens/s and ms a token: rows x new tokens over the warm call's
+    wall time, prefill included), the twin's shape counts, the output and
+    the program."""
+    from paddle_tpu_torch.serving import disable_graphs
+    before = set(getattr(m, "_generate_jit_cache", None) or ())
+    cold = generation_run(torch, fn)
+    (key,) = set(m._generate_jit_cache) - before
+    prog = m._generate_jit_cache[key]
+    warm = generation_run(torch, fn)
+    own = m._generate_jit_cache
+    m._generate_jit_cache = {}
+    shapes = {}
+    try:
+        with disable_graphs(), recording_shapes(shapes):
+            twin = generation_run(torch, fn)
+        twin_prog = m._generate_jit_cache[key]
+    finally:
+        m._generate_jit_cache = own
+    b = warm["out"].shape[0]
+    fields = {"ms": warm["ms"], "cold_ms": cold["ms"],
+              "eager_ms": twin["ms"],
+              "tokens_per_s": b * new_tokens / (warm["ms"] / 1e3),
+              "ms_per_token": warm["ms"] / new_tokens,
+              "eager_tokens_per_s": b * new_tokens / (twin["ms"] / 1e3),
+              "launches": warm["launches"], "routes": warm["routes"],
+              "traces": prog.traces, "graphed": prog.graphed,
+              "replays": prog.replays, "twin_traces": twin_prog.traces,
+              "twin_graphed": twin_prog.graphed,
+              "twin_identical": bool(torch.equal(warm["out"], twin["out"])),
+              "cold_identical": bool(torch.equal(warm["out"], cold["out"])),
+              "twin_launches_identical": twin["launches"] == warm["launches"],
+              "cold_launches_identical": cold["launches"] == warm["launches"]}
+    check(prog.traces == 1 and prog.graphed
+          and prog.replays == 2 * (new_tokens - 1)
+          and twin_prog.traces == 1 and not twin_prog.graphed,
+          f"{what}: one graphed build and {new_tokens - 1} replays a call "
+          f"expected, got traces {prog.traces}, graphed {prog.graphed}, "
+          f"replays {prog.replays}; twin {twin_prog.traces} / "
+          f"{twin_prog.graphed}")
+    check(fields["twin_identical"] and fields["cold_identical"],
+          f"{what}: graphed tokens differ from the eager twin's or the cold "
+          f"call's")
+    for tag, r in (("cold", cold), ("warm", warm), ("eager twin", twin)):
+        check(r["launches"] == want,
+              f"{what} ({tag}): launches {r['launches']}, expected {want}")
+        check(not any(k.endswith("/plain") for k in r["routes"]),
+              f"{what} ({tag}): a plain route {r['routes']}")
+    return fields, shapes, warm["out"], prog
+
+
+def phase_generate(torch, model, qmodel, card):
+    """Whole-sequence generation (``models.generation``) on phase 3's
+    Llama-3-8B model, bf16, 32 layers: greedy (B 4, prompt 128, 64 new
+    tokens), sampled (temperature 0.8, top_k 50, top_p 0.9), beam search
+    (B 2, K 4, 32 new tokens, an EOS id) and greedy through the int8
+    ``QuantizedForDecode`` (K4).  Each key is built once (the decode step
+    captured as a CUDA graph, replayed for every token after the first)
+    and run beside its eager twin: the same tokens bit for bit, the same
+    launches -- K1 32 a decode step, K2 32 a prefill, K3 65 a pass, K4 7 x
+    32 + 1 a decode step (int8; the 512-row prefill takes the dequant
+    route) -- and no plain route.  Gate: the greedy run's first-step
+    logits (the prefill's last position, kept by the program) within 1.2x
+    the plain path's error against a float32 copy of the weights, as phase
+    3 gates its logits.  Reported: tokens/s and ms a token, graphed and
+    eager."""
+    import numpy as np
+    from paddle_tpu_torch.models import (LlamaForCausalLM, init_kv_cache)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model.config
+    rng = np.random.RandomState(16)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        GEN_BATCH, GEN_PROMPT)).astype(np.int32)).to(dev)
+    steps = GEN_NEW - 1
+
+    def want(new, int8=False):
+        w = {"decode_attention": LAYERS_8B * (new - 1),
+             "flash_attention_fwd": LAYERS_8B,
+             "rms_norm": K3_PER_PASS_8B * new}
+        if int8:
+            w["int8_matmul"] = K4_PER_TICK * (new - 1)
+        return w
+
+    runs = {}
+    greedy, _, out, prog = graphed_and_twin(
+        torch, model, lambda: model.generate(ids, max_new_tokens=GEN_NEW),
+        "generate greedy", want(GEN_NEW), GEN_NEW)
+    runs["greedy"] = greedy
+    first = prog.prefill_logits.float()
+
+    # first-step logits: the kernel path (the graphed run's prefill)
+    # against a float32 copy of the weights, beside the plain path
+    def prefill(m):
+        cache = init_kv_cache(m.config, GEN_BATCH, GEN_PROMPT, device=dev)
+        with torch.no_grad():
+            return m.decode_step(ids, cache, 0)[0][:, -1].float()
+
+    with reference_mode():
+        plain = prefill(model)
+    model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                               device=dev)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    with reference_mode():
+        truth = prefill(model32)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    err_k, err_p = max_err(first, truth), max_err(plain, truth)
+    gate = {"max_logit_err_kernel_vs_f32": err_k,
+            "max_logit_err_plain_vs_f32": err_p,
+            "max_abs_logit": float(truth.abs().max()),
+            "tol_kernel_vs_f32": 1.2 * err_p,
+            "finite": bool(torch.isfinite(first).all().item())}
+
+    sampled, _, s_out, _ = graphed_and_twin(
+        torch, model, lambda: model.generate(ids, max_new_tokens=GEN_NEW,
+                                             **GEN_SAMPLING),
+        "generate sampled", want(GEN_NEW), GEN_NEW)
+    sampled["differs_from_greedy"] = not bool(torch.equal(s_out, out))
+    runs["sampled"] = sampled
+
+    # an EOS id the search meets: greedy's second token of row 0
+    eos = int(out[0, GEN_PROMPT + 1])
+    bids = ids[:BEAM_BATCH]
+    beam, _, b_out, _ = graphed_and_twin(
+        torch, model, lambda: model.generate(
+            bids, max_new_tokens=BEAM_NEW, num_beams=BEAM_K,
+            eos_token_id=eos, pad_token_id=0),
+        "generate beam", want(BEAM_NEW), BEAM_NEW)
+    beam["eos_token_id"] = eos
+    beam["rows_with_eos"] = int((b_out[:, GEN_PROMPT:] == eos).any(1)
+                                .sum().item())
+    runs["beam"] = beam
+
+    int8, _, _, _ = graphed_and_twin(
+        torch, qmodel, lambda: qmodel.generate(ids, max_new_tokens=GEN_NEW),
+        "generate int8", want(GEN_NEW, int8=True), GEN_NEW)
+    runs["int8"] = int8
+    for r in runs.values():
+        r.pop("routes")
+    emit({"phase": "generate", "card": card, "config": "llama3_8b",
+          "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+          "sampling": GEN_SAMPLING,
+          "beam_config": {"batch": BEAM_BATCH, "num_beams": BEAM_K,
+                          "new_tokens": BEAM_NEW},
+          "decode_steps": steps, "first_step_logits": gate, **runs})
+    check(gate["finite"], "generate: first-step logits are not finite")
+    check(err_k <= gate["tol_kernel_vs_f32"],
+          f"generate: first-step logits are {err_k} from the float32 model, "
+          f"the plain path's {err_p} (tolerance {gate['tol_kernel_vs_f32']})")
+
+
+def _qwen_model(torch, cfg, device, seed=0):
+    """A seeded Qwen2-VL with its cross gates at 0.5 (at init tanh(0) = 0
+    keeps the image from the logits; a trained model's gates are open)."""
+    from paddle_tpu_torch.models import Qwen2VLForConditionalGeneration
+    m = Qwen2VLForConditionalGeneration(cfg, device=device, seed=seed)
+    with torch.no_grad():
+        for c in m.cross:
+            c.gate.fill_(0.5)
+    return m
+
+
+def qwen_inputs(torch, cfg, b, s, seed):
+    """Seeded (ids (B, s) int64, pixels (B, C, H, W) float32), numpy."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int64),
+            rng.standard_normal((b, cfg.in_channels, cfg.image_size,
+                                 cfg.image_size)).astype(np.float32))
+
+
+def phase_qwen2_vl(torch, kernels, card):
+    """Qwen2-VL at its default widths (``Qwen2VLConfig()``: 224 x 224
+    images in 256 patches, a 2-block tower of 4 heads of 64, a 4-layer
+    decoder of 8 heads of 128 with a cross layer after every 2nd, vocab
+    32000), bf16, seeded weights with the cross gates at 0.5.  Gates: (a)
+    the forward logits of 4 images and 64-token prompts, the kernel path
+    within 1.2x the plain path's error against a float32 copy; (b) greedy
+    and beam-4 ``generate`` of 32 new tokens, each built once, graphed and
+    equal bit for bit to its eager twin, with exact launches: K2 at D 64
+    2 (the tower), causal at D 128 4 (the prefill), not causal at D 128
+    over the 256 patches 2 x 32 (the cross layers: Sq 64 at the prefill,
+    Sq 1 at each of the 31 decode steps; by shape in the twin), K1 4 x 31,
+    K3 11 x 32; (c) ROADMAP C2 for the generation graph: generate, convert
+    the model to float32 and back, generate again, equal to a fresh copy's
+    tokens; (d) the tiny float32 model, greedy and beam, card against the
+    CPU, tokens identical."""
+    import numpy as np
+    from paddle_tpu_torch.models import Qwen2VLConfig, tiny_qwen2_vl_config
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+
+    dev = torch.device("cuda")
+    cfg = Qwen2VLConfig(dtype="bfloat16")
+    t0 = time.perf_counter()
+    m = _qwen_model(torch, cfg, dev)
+    m.eval()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ids_np, pix_np = qwen_inputs(torch, cfg, QWEN_BATCH, QWEN_PROMPT, 16)
+    ids, pix = torch.from_numpy(ids_np).to(dev), torch.from_numpy(pix_np).to(
+        dev)
+
+    # (a) logits against a float32 copy
+    with torch.no_grad():
+        got = m(ids, pix).float()
+        with reference_mode():
+            plain = m(ids, pix).float()
+            m32 = copy.deepcopy(m).float()
+            truth = m32(ids, pix)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    err_k, err_p = max_err(got, truth), max_err(plain, truth)
+    fwd = {"max_logit_err_kernel_vs_f32": err_k,
+           "max_logit_err_plain_vs_f32": err_p,
+           "max_abs_logit": float(truth.abs().max()),
+           "tol_kernel_vs_f32": 1.2 * err_p,
+           "finite": bool(torch.isfinite(got).all().item())}
+    del got, plain, truth
+
+    # (b) greedy and beam search, graphed beside the eager twin
+    layers, n_cross = cfg.num_hidden_layers, len(m.cross)
+    k3 = 2 * layers + n_cross + 1
+    want = {"flash_attention_fwd": cfg.vision_layers + layers
+            + n_cross * QWEN_NEW,
+            "decode_attention": layers * (QWEN_NEW - 1),
+            "rms_norm": k3 * QWEN_NEW}
+    want_shapes = {
+        ("flash_attention_fwd", 64, QWEN_PATCHES, QWEN_PATCHES, False):
+            cfg.vision_layers,
+        ("flash_attention_fwd", 128, QWEN_PROMPT, QWEN_PROMPT, True): layers,
+        ("flash_attention_fwd", 128, QWEN_PROMPT, QWEN_PATCHES, False):
+            n_cross,
+        ("flash_attention_fwd", 128, 1, QWEN_PATCHES, False):
+            n_cross * (QWEN_NEW - 1)}
+    runs = {}
+    for name, kw in (("greedy", {}), ("beam", {"num_beams": 4})):
+        r, shapes, _, _ = graphed_and_twin(
+            torch, m, lambda kw=kw: m.generate(ids, pix,
+                                               max_new_tokens=QWEN_NEW, **kw),
+            f"qwen2_vl {name}", want, QWEN_NEW)
+        r["twin_k2_by_shape"] = {"/".join(map(str, k[1:])): n
+                                 for k, n in shapes.items()}
+        r.pop("routes")
+        runs[name] = r
+        check(shapes == want_shapes,
+              f"qwen2_vl {name}: K2 calls by (D, Sq, Skv, causal) {shapes}, "
+              f"expected {want_shapes}")
+
+    # (c) ROADMAP C2: the generation graph after a dtype round trip
+    before = m.generate(ids, pix, max_new_tokens=QWEN_NEW)
+    ptrs = [p.data_ptr() for p in m.parameters()]
+    m.float()
+    m.to(torch.bfloat16)
+    moved = ptrs != [p.data_ptr() for p in m.parameters()]
+    # the copy is allocated after the round trip: it takes the freed blocks
+    fresh = copy.deepcopy(m)
+    after = m.generate(ids, pix, max_new_tokens=QWEN_NEW)
+    want_c2 = fresh.generate(ids, pix, max_new_tokens=QWEN_NEW)
+    c2 = {"storage_moved": moved,
+          "equal_to_fresh_copy": bool(torch.equal(after, want_c2)),
+          "equal_to_before": bool(torch.equal(after, before)),
+          "before_differs_because": "``.to(torch.bfloat16)`` also casts "
+                                    "the float32 RoPE buffers",
+          "programs": len(m._generate_jit_cache)}
+    del fresh, before, after, want_c2
+    kernels["flash_attention_fwd/d64"]["launches"] = \
+        want_shapes[("flash_attention_fwd", 64, QWEN_PATCHES, QWEN_PATCHES,
+                     False)]
+    kernels["flash_attention_fwd/cross"]["launches"] = n_cross * QWEN_NEW
+    emit({"phase": "qwen2_vl", "card": card, "init_s": init_s,
+          "config": dataclasses.asdict(cfg), "batch": QWEN_BATCH,
+          "prompt": QWEN_PROMPT, "new_tokens": QWEN_NEW,
+          "params": sum(p.numel() for p in m.parameters()),
+          "forward": fwd, "c2": c2, **runs})
+    check(fwd["finite"], "qwen2_vl logits are not finite")
+    check(err_k <= fwd["tol_kernel_vs_f32"],
+          f"qwen2_vl: kernel path is {err_k} from the float32 model, the "
+          f"plain path {err_p} (tolerance {fwd['tol_kernel_vs_f32']})")
+    check(moved and c2["equal_to_fresh_copy"],
+          f"qwen2_vl C2: after a dtype round trip the tokens differ from a "
+          f"fresh copy's ({c2})")
+    del m, ids, pix
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the tiny float32 model: card (kernels) against the CPU (plain)
+    tcfg = tiny_qwen2_vl_config()
+    cpu = _qwen_model(torch, tcfg, "cpu", seed=1)
+    card_m = copy.deepcopy(cpu).to(dev)
+    t_ids, t_pix = qwen_inputs(torch, tcfg, 3, 7, 17)
+    for kw in ({}, {"num_beams": 3, "eos_token_id": 5}):
+        on_card = card_m.generate(t_ids, t_pix, max_new_tokens=8, **kw).cpu()
+        on_cpu = cpu.generate(t_ids, t_pix, max_new_tokens=8, **kw)
+        prog = list(card_m._generate_jit_cache.values())[-1]
+        emit({"phase": "qwen2_vl_tiny_f32", "kw": kw,
+              "identical": bool(torch.equal(on_card, on_cpu)),
+              "graphed": prog.graphed, "traces": prog.traces})
+        check(bool(torch.equal(on_card, on_cpu)) and prog.graphed,
+              f"qwen2_vl_tiny_f32 {kw}: card tokens {on_card.tolist()} vs "
+              f"cpu {on_cpu.tolist()}, graphed {prog.graphed}")
+
+
+QWEN_TRAIN_STEPS, QWEN_TRAIN_LR = 4, 1e-4
+
+
+def qwen_batch(torch, cfg, b, s, seed, dev=None):
+    """A seeded next-token batch of ``s`` tokens a row with images (the
+    reference's ``tests/test_breadth_models.py:214-223`` recipe):
+    ids[:, :-1] in, ids[:, 1:] as labels; numpy, or tensors on ``dev``."""
+    ids, pix = qwen_inputs(torch, cfg, b, s + 1, seed)
+    batch = {"input_ids": ids[:, :-1], "pixel_values": pix,
+             "labels": ids[:, 1:]}
+    if dev is None:
+        return batch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def phase_qwen2_vl_train(torch, kernels, card):
+    """Qwen2-VL at its default widths trained by ``build_train_step`` with
+    AdamW (lr 1e-4, weight decay 0.01), bf16, 4 images and 64-token
+    prompts a step.  Gates: (a) step-1 gradients within 1.2x the plain
+    path's error against a float32 copy (:func:`grad_gate`); (b) 4 steps:
+    every loss finite, K2 = K5 = K6 = 8 launches a step (the tower's 2 at
+    D 64, the decoder's 4 causal and the cross layers' 2 at D 128, by
+    shape) and no other attention kernel, K3 11 a step, no plain route,
+    the first and last K5 / K6 calls of step 1 the same bits when launched
+    again; (c) the tiny float32 model trained 4 steps on the card against
+    the CPU (:func:`tiny_card_vs_cpu`)."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import Qwen2VLConfig, tiny_qwen2_vl_config
+    from paddle_tpu_torch.ops import (_dispatch, launch_counts,
+                                      reset_launch_counts)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dev = torch.device("cuda")
+    cfg = Qwen2VLConfig(dtype="bfloat16")
+    m = _qwen_model(torch, cfg, dev)
+    m.train()
+    n_params = sum(p.numel() for p in m.parameters())
+    micro = qwen_batch(torch, cfg, QWEN_BATCH, QWEN_PROMPT, 100, dev)
+    grad_gate(torch, m, lambda: copy.deepcopy(m).float(),
+              lambda mod: mod.compute_loss(**micro), "qwen2_vl_train_grads",
+              {"config": "qwen2_vl", "params": n_params,
+               "batch": QWEN_BATCH, "prompt": QWEN_PROMPT})
+
+    opt = AdamW(QWEN_TRAIN_LR, weight_decay=0.01)
+    step = build_train_step(m, opt)
+    batches = [qwen_batch(torch, cfg, QWEN_BATCH, QWEN_PROMPT, 200 + i, dev)
+               for i in range(QWEN_TRAIN_STEPS)]
+    calls, shapes, losses, step_ms = {}, {}, [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    with recording_shapes(shapes):
+        for i, batch in enumerate(batches):
+            with (recording_backward(calls) if i == 0
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                losses.append(float(step(batch)))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: n for k, n in launch_counts().items() if n}
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    # read before same_bits, whose launches go through the recorder too
+    shapes = dict(shapes)
+    same = same_bits(torch, calls)
+    del calls
+    layers, n_cross = cfg.num_hidden_layers, len(m.cross)
+    per_step = cfg.vision_layers + layers + n_cross
+    want = {"flash_attention_fwd": per_step,
+            "flash_attention_bwd_dq": per_step,
+            "flash_attention_bwd_dkv": per_step,
+            "rms_norm": 2 * layers + n_cross + 1}
+    want = {k: n * QWEN_TRAIN_STEPS for k, n in want.items()}
+    want_shapes = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        for key, n in (((64, QWEN_PATCHES, QWEN_PATCHES, False),
+                        cfg.vision_layers),
+                       ((128, QWEN_PROMPT, QWEN_PROMPT, True), layers),
+                       ((128, QWEN_PROMPT, QWEN_PATCHES, False), n_cross)):
+            want_shapes[(name, *key)] = n * QWEN_TRAIN_STEPS
+    p50 = float(np.median(step_ms[1:]))
+    emit({"phase": "qwen2_vl_train", "card": card, "params": n_params,
+          "optimizer": f"AdamW({QWEN_TRAIN_LR}, weight_decay=0.01)",
+          "batch": QWEN_BATCH, "prompt": QWEN_PROMPT, "losses": losses,
+          "step_ms": step_ms, "step_ms_p50_after_first": p50,
+          "tokens_per_s": QWEN_BATCH * QWEN_PROMPT / (p50 / 1e3),
+          "launches": launches, "routes": routes,
+          "k2_k5_k6_by_shape": {"/".join(map(str, k)): n
+                                for k, n in shapes.items()},
+          "k5_k6_same_bits": same,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(all(math.isfinite(x) for x in losses),
+          f"qwen2_vl_train losses {losses}")
+    check(launches == want,
+          f"qwen2_vl_train: launches {launches}, expected {want}")
+    check(shapes == want_shapes,
+          f"qwen2_vl_train: calls by shape {shapes}, expected {want_shapes}")
+    check(not any(k.endswith("/plain") for k in routes),
+          f"qwen2_vl_train: a plain route on the card {routes}")
+    check(set(same) == {"flash_attention_bwd_dq_cuda",
+                        "flash_attention_bwd_dkv_cuda"} and all(same.values()),
+          f"qwen2_vl_train: K5 / K6 not the same bits twice: {same}")
+    for name, base in zip(QWEN_BWD, TRAIN_KERNELS):
+        kernels[name]["launches"] = shapes.get(
+            (base, 64, QWEN_PATCHES, QWEN_PATCHES, False), 0)
+    del step, opt, m, batches, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the tiny float32 model: 4 train steps on the card against the CPU
+    tcfg = tiny_qwen2_vl_config()
+    base = _qwen_model(torch, tcfg, "cpu", seed=2)
+    res = tiny_card_vs_cpu(torch, base, [qwen_batch(torch, tcfg, 4, 16,
+                                                    300 + i)
+                                         for i in range(4)], dev)
+    launches = {k: n for k, n in res.pop("launches").items() if n}
+    attn = 4 * (tcfg.vision_layers + tcfg.num_hidden_layers
+                + tcfg.num_hidden_layers // tcfg.cross_attn_interval)
+    want = {k: attn for k in ("flash_attention_fwd",
+                              "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv")}
+    emit({"phase": "qwen2_vl_train_tiny_f32", **res, "launches": launches})
+    check_tiny(res, "qwen2_vl_train_tiny_f32")
+    check({k: launches.get(k) for k in want} == want
+          and not any(k.endswith("/plain") for k in res["routes"]),
+          f"qwen2_vl_train_tiny_f32: launches {launches} (attention "
+          f"expected {want}), routes {res['routes']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4083,11 +4716,14 @@ def main(argv=None) -> int:
                                      chunked[0])
     if args.profile:
         phase_profile(torch, model, qmodel)
+    phase_generate(torch, model, qmodel, card)
     del model, qmodel
     gc.collect()
     torch.cuda.empty_cache()
     phase_dit(torch, kernels, card, profile=args.profile)
     phase_dit_train(torch, kernels, card, profile=args.profile)
+    phase_qwen2_vl(torch, kernels, card)
+    phase_qwen2_vl_train(torch, kernels, card)
     phase_training(torch, kernels, profile=args.profile)
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)
                       for n, r in kernels.items()]})

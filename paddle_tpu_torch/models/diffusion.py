@@ -14,11 +14,16 @@ Built once: the reference jits the whole reverse process once per
 (batch, steps, cfg_scale, eta, T, from_noise) key and caches it on the
 model (``_ddim_jit_cache``, :71-76).  The port builds one
 :class:`DDIMSampler` per key, cached on the model under the same name and
-counted by the watchdog (site ``diffusion.ddim``, budget 1 a key).  On
-the card its build captures ONE denoising step as a CUDA graph — the
-step index lives in a device buffer the step reads (timestep, alpha-bars,
-noise) and increments, the schedule tables live on the device — and a
-sample replays that graph ``steps`` times.  Before the replays the
+counted by the watchdog (site ``diffusion.ddim``, budget 1 a key).  Each
+sampler records where the weights lived when it was built, and a call
+drops the samplers of other weights first
+(``models.generation.cached_program``): the graph reads the weights at
+their addresses, so a model converted to another dtype and back builds
+anew instead of replaying into freed memory.  On the card its build
+captures ONE denoising step as a CUDA graph — the step index lives in a
+device buffer the step reads (timestep, alpha-bars, noise) and
+increments, the schedule tables live on the device — and a sample replays
+that graph ``steps`` times.  Before the replays the
 sampler writes the labels, the initial latent (``x_init``, or noise) and,
 for ``eta > 0``, every step's noise into static buffers outside the
 graph.  On the CPU, and inside ``serving.step_graph.disable_graphs()``
@@ -33,25 +38,48 @@ same ``x_init`` at ``eta = 0`` they match it value for value.
 
 from __future__ import annotations
 
-import gc
 from typing import Optional
 
 import torch
 
 from .. import ops
 from ..observability import track_retraces
+from .generation import cached_program, weights_key
 
 __all__ = ["DDIMSampler", "ddim_sample", "diffusion_schedule",
            "ddim_timesteps"]
 
 
+# XLA's CPU loop fusion of linspace: from this many points on, LLVM keeps
+# the vectorized loop (8 lanes x 4 unrolled = 32 points an iteration)
+# instead of unrolling it and folding its constants
+_LINSPACE_LOOP_MIN = 353
+_LINSPACE_LOOP_STEP = 32
+
+
 def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
     """``jnp.linspace(start, stop, num)`` at float32 as XLA compiles it on
-    the CPU: ``r = 1 / (num - 1)`` rounded to float32, ``s = i * r``, point
-    ``i`` = ``fma(i, stop * r, start * (1 - s))`` (one rounding: the
-    product ``i * (stop * r)`` is exact in float64), the last point exactly
-    ``stop``.  A tie of :func:`ddim_timesteps`' rounding is decided by
-    these last bits."""
+    the CPU, bit for bit.  JAX computes ``start * (1 - i / div) + stop *
+    (i / div)`` with ``div = num - 1``; XLA turns the division into a
+    product by ``r = 1 / div`` rounded to float32, and the host's code
+    generator contracts products and sums into FMAs.  Point ``i < div`` is
+    ``fma(i, stop * r, start * t_i)`` (one rounding: ``i * (stop * r)`` and
+    the sum are exact in float64), the last point exactly ``stop``.  The
+    factor ``t_i`` takes one of two forms:
+
+      * folded: ``1 - round(i * r)``, which LLVM computes when it folds
+        the constant ``1 - i * r`` — every point below
+        ``_LINSPACE_LOOP_MIN`` points, where the loop is fully unrolled,
+        and the remainder past the last whole 32-point iteration above it;
+      * fused: ``round(1 - i * r)`` (``vfnmadd``), in the vectorized
+        loop's iterations from ``_LINSPACE_LOOP_MIN`` points on.
+
+    The two forms differ in the last bit at some points, and a tie of
+    :func:`ddim_timesteps`' rounding is decided by those bits.  The loop
+    shape (8 float32 lanes, 4 unrolled) and the threshold were read from
+    XLA's LLVM IR and object code of the ``linspace`` fusion on an x86-64
+    host with FMA and AVX-512 (jaxlib 0.9.0); another vector width moves
+    them."""
     f32 = torch.float32
     if num == 1:
         return torch.tensor([start], dtype=f32)
@@ -60,7 +88,12 @@ def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
     b = torch.tensor(stop, dtype=f32)
     r = torch.tensor(1.0, dtype=f32) / div
     i = torch.arange(div, dtype=f32)
-    head = a * (1 - i * r)
+    folded = 1 - i * r
+    fused = (1.0 - i.double() * r.double()).to(f32)
+    loop_end = (div // _LINSPACE_LOOP_STEP * _LINSPACE_LOOP_STEP
+                if num >= _LINSPACE_LOOP_MIN else 0)
+    t = torch.where(torch.arange(div) < loop_end, fused, folded)
+    head = a * t
     out = (i.double() * (b * r).double() + head.double()).to(f32)
     return torch.cat([out, b[None]])
 
@@ -117,14 +150,16 @@ class DDIMSampler:
         self.eager = dev.type != "cuda" or step_graph._disabled
         self._graph = None
         self._counts: Optional[ops.ReplayCounts] = None
+        self._counters: dict = {}
         self._stream = None
         self.replays = 0
+        self.weights = weights_key(model)
         self._tracked = track_retraces(
             self._build, self.SITE, budget=1,
             labels={"model": id(model), "b": b, "steps": steps,
                     "cfg_scale": cfg_scale, "eta": eta,
                     "T": num_train_timesteps, "from_noise": from_noise,
-                    "eager": self.eager})
+                    "eager": self.eager, "weights": self.weights})
 
     @property
     def traces(self) -> int:
@@ -169,27 +204,11 @@ class DDIMSampler:
     def _build(self) -> None:
         if self.eager:
             return
-        stream = torch.cuda.Stream(device=self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
+        from ..serving.step_graph import capture
         # a warm-up step builds and loads every kernel before the capture;
-        # its launches are the build's.  run() rewrites x and i.
-        with torch.cuda.stream(stream), ops.ReplayCounts.record(), \
-                torch.no_grad():
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection inside the capture (see step_graph._Step)
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with ops.ReplayCounts.record() as counts, torch.no_grad():
-                with torch.cuda.graph(graph, stream=stream):
-                    self._step()
-        finally:
-            if collecting:
-                gc.enable()
-        self._graph, self._counts, self._stream = graph, counts, stream
+        # run() rewrites x and i
+        ((self._graph, _, self._counts),), self._counters, self._stream = \
+            capture([self._step], self.device, 1, what=self.SITE)
 
     def run(self, y: torch.Tensor, seed: int = 0,
             x_init: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,20 +249,17 @@ def ddim_sample(model, y, *, steps: int = 50, cfg_scale: float = 1.0,
     model's null class (the ``num_classes`` row of ``y_embed``).  Runs on
     the model's device; returns (B, in_channels, H, W) float32 latents.
     The first call of a key builds its :class:`DDIMSampler`
-    (``model._ddim_jit_cache[key]``); later calls reuse it."""
+    (``model._ddim_jit_cache[key]``); later calls over the same weight
+    storage reuse it."""
     dev = model.patch_proj.device
     y = torch.as_tensor(y).to(device=dev, dtype=torch.long)
     b = y.shape[0]
     from_noise = x_init is None
     key_ = (b, steps, cfg_scale, eta, num_train_timesteps, from_noise)
-    cache = getattr(model, "_ddim_jit_cache", None)
-    if cache is None:
-        cache = model._ddim_jit_cache = {}
-    sampler = cache.get(key_)
-    if sampler is None:
-        sampler = cache[key_] = DDIMSampler(model, b, steps, cfg_scale, eta,
-                                            num_train_timesteps, from_noise)
-        sampler.build()
+    sampler = cached_program(model, "_ddim_jit_cache", key_,
+                             lambda: DDIMSampler(
+                                 model, b, steps, cfg_scale, eta,
+                                 num_train_timesteps, from_noise))
     if x_init is not None:
         x_init = torch.as_tensor(x_init).to(device=dev, dtype=torch.float32)
     return sampler.run(y, seed, x_init)

@@ -302,6 +302,26 @@ def _row_writes(pos: torch.Tensor, rows, s: int, L: int) -> _RowWrites:
     return _RowWrites.make(pos.long()[:, None] + steps[None, :], L, rows)
 
 
+def pass_writes(x: torch.Tensor, cache, pos, block_tables=None, rows=None):
+    """(pos, writes) of one decode pass over the contiguous cache: with
+    per-row positions (or ``rows``) every layer writes the same cells, so
+    they are found once (:class:`_RowWrites`), and a row at or past the
+    row length — which writes nothing and whose output is discarded (the
+    chunked engine's idle rows) — attends from position 0, so the decode
+    kernel does not walk its whole row.  An int ``pos`` (or a paged
+    pass) comes back unchanged with no writes."""
+    if block_tables is not None or (rows is None and not (
+            isinstance(pos, torch.Tensor) and pos.dim() == 1)):
+        return pos, None
+    if not isinstance(pos, torch.Tensor) or pos.dim() != 1:
+        pos = torch.full((x.shape[0],), int(pos), dtype=torch.int32,
+                         device=x.device)
+    L = (cache["kv"] if isinstance(cache, dict) else cache).shape[3]
+    pos = pos.to(x.device)
+    writes = _row_writes(pos, rows, x.shape[1], L)
+    return pos.masked_fill(pos >= L, 0), writes
+
+
 class LlamaAttention(nn.Module):
     """GQA attention with RoPE."""
 
@@ -569,20 +589,7 @@ class LlamaModel(nn.Module):
         x = embedding(self.embed_tokens, input_ids.long(),
                       self.config.torch_dtype)
         rope = (self.rope_cos, self.rope_sin)
-        writes = None
-        if block_tables is None and (rows is not None or (
-                isinstance(pos, torch.Tensor) and pos.dim() == 1)):
-            # every layer writes the same cells: find them once
-            if not isinstance(pos, torch.Tensor) or pos.dim() != 1:
-                pos = torch.full((x.shape[0],), int(pos), dtype=torch.int32,
-                                 device=x.device)
-            L = (cache["kv"] if isinstance(cache, dict) else cache).shape[3]
-            pos = pos.to(x.device)
-            writes = _row_writes(pos, rows, x.shape[1], L)
-            # a row at or past L writes nothing and its output is discarded
-            # (the chunked engine's idle rows): it attends from position 0,
-            # so the decode kernel does not walk its whole row
-            pos = pos.masked_fill(pos >= L, 0)
+        pos, writes = pass_writes(x, cache, pos, block_tables, rows)
         for i, block in enumerate(self.layers):
             x, cache = block.decode(x, rope, pos, cache, i, block_tables,
                                     rows, writes)
@@ -697,6 +704,13 @@ class LlamaForCausalLM(nn.Module):
         hidden, cache = self.model.decode(input_ids, cache, pos,
                                           block_tables, rows)
         return self.logits(hidden), cache
+
+    def generate(self, input_ids, max_new_tokens: int = 32, **kw):
+        """Greedy, sampled or beam generation with the pre-allocated KV
+        cache (the reference's ``generate``, :596; see
+        :func:`paddle_tpu_torch.models.generation.greedy_generate`)."""
+        from .generation import greedy_generate
+        return greedy_generate(self, input_ids, max_new_tokens, **kw)
 
 
 def draft_model_from(model, num_layers: int = 1) -> "LlamaForCausalLM":

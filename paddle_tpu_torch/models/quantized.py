@@ -93,11 +93,16 @@ class QuantizedForDecode(nn.Module):
                 fp[k] = v
         return {"fp": fp, "qw": qw, "qs": qs}
 
-    def decode_step(self, input_ids, cache, pos, block_tables=None,
-                    rows=None):
-        return self.unwrapped.decode_step(input_ids, cache, pos,
-                                          block_tables=block_tables,
-                                          rows=rows)
+    def decode_step(self, input_ids, cache, pos, **kw):
+        return self.unwrapped.decode_step(input_ids, cache, pos, **kw)
+
+    def generate(self, input_ids, max_new_tokens: int = 32, **kw):
+        """``greedy_generate`` over the int8 weights (the reference's
+        ``QuantizedForDecode.generate``, :103): decode rows take K4.  Its
+        programs are cached on this wrapper, apart from the wrapped
+        model's."""
+        from .generation import greedy_generate
+        return greedy_generate(self, input_ids, max_new_tokens, **kw)
 
     def logits(self, hidden):
         return self.unwrapped.logits(hidden)

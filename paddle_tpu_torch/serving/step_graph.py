@@ -173,39 +173,9 @@ class _Step:
         if self.device.type != "cuda" or eager:
             return
         self._upload(False)
-        stream = torch.cuda.Stream(device=self.device)
-        counters: dict = {}
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        # the warm-up's launches are the build's, not a tick's or a wave's
-        with torch.cuda.stream(stream), private_counters(counters), \
-                ops.ReplayCounts.record():
-            for _ in range(self.WARMUP):
-                self._body()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        held = {k: t.data_ptr() for k, t in counters.items()}
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection inside the capture: freeing an unreachable
-        # engine's graph there (a reset) invalidates the capture
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with ops.ReplayCounts.record() as counts, \
-                    private_counters(counters):
-                with torch.cuda.graph(graph, pool=self._pool,
-                                      stream=stream):
-                    out = self._body()
-        finally:
-            if collecting:
-                gc.enable()
-        if {k: t.data_ptr() for k, t in counters.items()} != held:
-            raise RuntimeError(
-                f"{self.SITE}: the capture allocated K1 merge counters the "
-                f"warm-up did not; the graph would write memory it does not "
-                f"own")
-        self._graph, self._out, self._counts = graph, out, counts
-        # the graph holds raw pointers into these: keep them for its life
-        self._counters, self._stream = counters, stream
+        (cap,), self._counters, self._stream = capture(
+            [self._body], self.device, self.WARMUP, self._pool, self.SITE)
+        self._graph, self._out, self._counts = cap
 
     def run(self, non_blocking: bool = True) -> Tuple[torch.Tensor, ...]:
         """One tick or wave: upload the host mirrors, then replay the graph
@@ -221,6 +191,54 @@ class _Step:
         self._counts.add()
         self.replays += 1
         return self._out
+
+
+def capture(bodies, device: torch.device, warmup: int, pool=None,
+            what: str = "step"):
+    """Capture each of ``bodies`` (functions of no argument over static
+    buffers, run under ``torch.no_grad()``) as one CUDA graph: first
+    ``warmup`` eager runs of each on a stream of its own (kernel builds,
+    Triton compiles, the kernels' first-launch attributes, K1's merge
+    counters: all before the capture; their launches are the build's and
+    are taken back out of the counters), then one capture each, the
+    graphs sharing ``pool`` (or the first graph's pool).  The garbage
+    collector does not run inside a capture: freeing an unreachable
+    engine's graph there (a reset) invalidates the capture.  A capture
+    that allocates K1 merge counters the warm-up did not raises
+    (``what`` names the step).  Returns ([(graph, outputs, ReplayCounts)
+    a body], the counter store, the stream): the graphs hold raw
+    pointers into the store, so keep it for their life."""
+    stream = torch.cuda.Stream(device=device)
+    counters: dict = {}
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream), private_counters(counters), \
+            ops.ReplayCounts.record(), torch.no_grad():
+        for body in bodies:
+            for _ in range(warmup):
+                body()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    held = {k: t.data_ptr() for k, t in counters.items()}
+    graphs = []
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for body in bodies:
+            graph = torch.cuda.CUDAGraph()
+            with ops.ReplayCounts.record() as counts, \
+                    private_counters(counters), torch.no_grad():
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    out = body()
+            pool = graph.pool() if pool is None else pool
+            graphs.append((graph, out, counts))
+    finally:
+        if collecting:
+            gc.enable()
+    if {k: t.data_ptr() for k, t in counters.items()} != held:
+        raise RuntimeError(
+            f"{what}: the capture allocated K1 merge counters the warm-up "
+            f"did not; the graph would write memory it does not own")
+    return graphs, counters, stream
 
 
 def _staging(n: int, device: torch.device):

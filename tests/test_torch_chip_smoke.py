@@ -469,3 +469,120 @@ def test_recording_backward_keeps_first_and_last(monkeypatch):
     assert chip_smoke.same_bits(torch, calls) == {
         "flash_attention_bwd_dq_cuda": True,
         "flash_attention_bwd_dkv_cuda": False}
+
+
+# ---- the generate, qwen2_vl and qwen2_vl_train phases ---------------------------
+
+@pytest.mark.parametrize("name,replaces", [
+    ("flash_attention_fwd/d64", "def _fwd_kernel"),
+    ("flash_attention_fwd/cross", "def _fwd_kernel"),
+    ("flash_attention_bwd_dq/d64", "def _bwd_dq_kernel"),
+    ("flash_attention_bwd_dkv/d64", "def _bwd_dkv_kernel")])
+def test_qwen2_vl_entries(name, replaces):
+    """The kernels line carries K2 at the vision tower's head dim 64 and at
+    the cross-attention's shape, and K5 / K6 at 64, under entries of their
+    own, each pointing at the repo's source and the reference kernel;
+    phase 2 has their main rows."""
+    info = chip_smoke.KERNEL_INFO[name]
+    root = Path(chip_smoke.__file__).resolve().parent
+    assert info["route"] == "cuda" and (root / info["source"]).is_file()
+    path, line = info["replaces"].split(":")
+    assert (root / path).read_text().splitlines()[int(line) - 1].startswith(
+        replaces)
+    import inspect
+    rows_src = inspect.getsource(chip_smoke.phase_head_dim_rows)
+    assert (f'"{name}"' in rows_src if name.startswith("flash_attention_fwd")
+            else name in chip_smoke.QWEN_BWD and "QWEN_BWD" in rows_src)
+
+
+def test_generation_phases_order():
+    """``generate`` runs on phase 3's models before they are freed (no
+    second copy of the 8B weights), after the serving phases; the Qwen2-VL
+    phases run after dit_train and before phase 5."""
+    import inspect
+    main_src = inspect.getsource(chip_smoke.main)
+    freed = main_src.index("del model, qmodel")
+    assert main_src.index("phase_serving_spec_chunked_model(") \
+        < main_src.index("phase_generate(torch, model, qmodel") < freed
+    assert main_src.index("phase_dit_train(") \
+        < main_src.index("phase_qwen2_vl(") \
+        < main_src.index("phase_qwen2_vl_train(") \
+        < main_src.index("phase_training(")
+
+
+def test_recording_shapes_counts_by_shape(monkeypatch):
+    """The recorder counts each K2 / K5 / K6 call where ``ops.attention``
+    looks the wrappers up, by (wrapper, head_dim, Sq, Skv, causal), passes
+    the call through and restores the wrappers on exit."""
+    from paddle_tpu_torch.ops import attention
+
+    def fwd(q, k, v, **kwargs):
+        return "out"
+
+    monkeypatch.setattr(attention, "flash_attention_fwd_cuda", fwd)
+    counts = {}
+    q, k = torch.zeros(2, 1, 4, 128), torch.zeros(2, 256, 4, 128)
+    with chip_smoke.recording_shapes(counts):
+        for causal in (False, False, True):
+            assert attention.flash_attention_fwd_cuda(
+                q, k, k, causal=causal) == "out"
+    assert attention.flash_attention_fwd_cuda is fwd
+    assert counts == {("flash_attention_fwd", 128, 1, 256, False): 2,
+                      ("flash_attention_fwd", 128, 1, 256, True): 1}
+
+
+def test_qwen_batch_is_the_reference_recipe():
+    """ids[:, :-1] in and ids[:, 1:] as labels, seeded, with images of the
+    config's size."""
+    from paddle_tpu_torch.models import tiny_qwen2_vl_config
+    cfg = tiny_qwen2_vl_config()
+    a = chip_smoke.qwen_batch(torch, cfg, 3, 16, seed=4)
+    b = chip_smoke.qwen_batch(torch, cfg, 3, 16, seed=4)
+    assert a["input_ids"].shape == a["labels"].shape == (3, 16)
+    assert a["pixel_values"].shape == (3, 3, 16, 16)
+    np.testing.assert_array_equal(a["input_ids"][:, 1:], a["labels"][:, :-1])
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_qwen_model_opens_the_cross_gates():
+    """The phases' Qwen2-VL has its cross gates at 0.5, so the image
+    reaches the logits (at init tanh(0) = 0)."""
+    from paddle_tpu_torch.models import tiny_qwen2_vl_config
+    cfg = tiny_qwen2_vl_config()
+    m = chip_smoke._qwen_model(torch, cfg, "cpu")
+    assert all(float(c.gate) == 0.5 for c in m.cross)
+    ids, pix = chip_smoke.qwen_inputs(torch, cfg, 2, 5, seed=1)
+    with torch.no_grad():
+        a = m(torch.from_numpy(ids), torch.from_numpy(pix))
+        b = m(torch.from_numpy(ids), torch.from_numpy(2 * pix))
+    assert float((a - b).abs().max()) > 1e-4
+
+
+def test_grad_gate_reports_one_element_tensors_apart(capsys):
+    """A one-element parameter (Qwen2-VL's cross gate) is reported apart
+    with GRAD_SCALAR_TOL; a kernel path that moves only its gradient, by
+    half, fails the gate."""
+    from paddle_tpu_torch.models import tiny_qwen2_vl_config
+    from paddle_tpu_torch.ops._dispatch import in_reference_mode
+    m = chip_smoke._qwen_model(torch, tiny_qwen2_vl_config(), "cpu")
+    b = {k: torch.from_numpy(v) for k, v in chip_smoke.qwen_batch(
+        torch, m.config, 2, 8, seed=3).items()}
+    gate = m.cross[0].gate
+    g_true = torch.autograd.grad(m.compute_loss(**b), gate)[0]
+
+    def loss(mod):
+        out = mod.compute_loss(**b)
+        if in_reference_mode():
+            return out
+        return out + 0.5 * (g_true * mod.cross[0].gate).sum()
+
+    chip_smoke.grad_gate(torch, m, lambda: m,
+                         lambda mod: mod.compute_loss(**b), "g", {})
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert set(line["one_element_tensors"]) == {"cross.0.gate",
+                                                "cross.1.gate"}
+    assert line["tol_one_element"] == chip_smoke.GRAD_SCALAR_TOL
+    assert line["worst_tensor_ratio"]["name"] not in \
+        line["one_element_tensors"]
+    with pytest.raises(chip_smoke.CheckFailed):
+        chip_smoke.grad_gate(torch, m, lambda: m, loss, "g", {})

@@ -496,6 +496,25 @@ def test_k5_k6_refuse_other_head_dims(no_card, dtype, d):
     assert no_card.calls == []
 
 
+def test_sampler_rebuilds_over_moved_weights():
+    """A sampler's graph reads the weights where they lived at its build:
+    once the parameters have new storage (``.to(dtype)`` and back, here a
+    clone), the next call drops it and builds anew (ROADMAP C2); the
+    latents are unchanged."""
+    tm = DiT(tiny_dit_config(), device="cpu")
+    x_init = _t(_rand((2, 4, 8, 8), 12))
+    a = ddim_sample(tm, [1, 2], steps=3, x_init=x_init)
+    (old,) = tm._ddim_jit_cache.values()
+    held = [p.data for p in tm.parameters()]      # no pointer is reused
+    for p in tm.parameters():
+        p.data = p.data.clone()
+    b = ddim_sample(tm, [1, 2], steps=3, x_init=x_init)
+    (new,) = tm._ddim_jit_cache.values()
+    assert new is not old and new.traces == 1 and old.traces == 1
+    assert torch.equal(a, b)
+    del held
+
+
 def test_new_modules_import_no_jax():
     code = ("import sys, paddle_tpu_torch.models.dit, "
             "paddle_tpu_torch.models.diffusion, paddle_tpu_torch.nn; "
