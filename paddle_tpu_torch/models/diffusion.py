@@ -17,7 +17,7 @@ model (``_ddim_jit_cache``, :71-76).  The port builds one
 counted by the watchdog (site ``diffusion.ddim``, budget 1 a key).  Each
 sampler records where the weights lived when it was built, and a call
 drops the samplers of other weights first
-(``models.generation.cached_program``): the graph reads the weights at
+(``serving.step_graph.cached_program``): the graph reads the weights at
 their addresses, so a model converted to another dtype and back builds
 anew instead of replaying into freed memory.  On the card its build
 captures ONE denoising step as a CUDA graph — the step index lives in a
@@ -44,7 +44,6 @@ import torch
 
 from .. import ops
 from ..observability import track_retraces
-from .generation import cached_program, weights_key
 
 __all__ = ["DDIMSampler", "ddim_sample", "diffusion_schedule",
            "ddim_timesteps"]
@@ -153,7 +152,7 @@ class DDIMSampler:
         self._counters: dict = {}
         self._stream = None
         self.replays = 0
-        self.weights = weights_key(model)
+        self.weights = step_graph.weights_key(model)
         self._tracked = track_retraces(
             self._build, self.SITE, budget=1,
             labels={"model": id(model), "b": b, "steps": steps,
@@ -256,6 +255,7 @@ def ddim_sample(model, y, *, steps: int = 50, cfg_scale: float = 1.0,
     b = y.shape[0]
     from_noise = x_init is None
     key_ = (b, steps, cfg_scale, eta, num_train_timesteps, from_noise)
+    from ..serving.step_graph import cached_program
     sampler = cached_program(model, "_ddim_jit_cache", key_,
                              lambda: DDIMSampler(
                                  model, b, steps, cfg_scale, eta,

@@ -29,9 +29,9 @@ build), the same step runs eagerly on the same buffers.
 
 A captured graph reads the weights at the addresses it saw.  Each program
 therefore records the data pointers of the model's parameters and buffers
-(:func:`weights_key`), and a call first drops the programs built over
-other ones (:func:`cached_program`): a model whose tensors moved
-(``.to(dtype)``, ``.float()``) builds anew.
+(``serving.step_graph.weights_key``), and a call first drops the
+programs built over other ones (``serving.step_graph.cached_program``): a
+model whose tensors moved (``.to(dtype)``, ``.float()``) builds anew.
 
 Sampling draws from a ``torch.Generator`` on the model's device seeded
 with ``seed``; JAX's PRNG streams are not reproduced, so sampled tokens
@@ -284,48 +284,6 @@ def accept_draft_tokens(logits: torch.Tensor, drafts: torch.Tensor,
 
 # -- whole-sequence generation ---------------------------------------------------
 
-def weights_key(model) -> int:
-    """A key of where the model's weights live: the hash of the data
-    pointers (and dtypes) of every parameter and buffer of the bound model
-    (a decode wrapper's ``unwrapped`` model).  A captured graph reads the
-    weights at these addresses, so a program is only reused while it is
-    unchanged."""
-    m = getattr(model, "unwrapped", model)
-    return hash(tuple((t.data_ptr(), t.dtype) for t in
-                      (*m.parameters(), *m.buffers())))
-
-
-class ProgramCache(dict):
-    """A model's once-built programs by key (``_generate_jit_cache``, and
-    ``_ddim_jit_cache`` of ``models/diffusion.py``).  A copy of the model
-    starts with an empty cache: a program holds its own buffers and, on
-    the card, CUDA graphs over the original's weights."""
-
-    def __deepcopy__(self, memo):
-        return type(self)()
-
-
-def cached_program(model, attr: str, key: tuple, make):
-    """The program of ``key`` in ``model.<attr>``, made by ``make()`` and
-    built on first use.  Each program records the :func:`weights_key` it
-    was built over (``.weights``); the programs of other weights are
-    dropped first, so a model whose tensors moved (``.to(dtype)``,
-    ``.float()``) builds anew instead of replaying graphs that read freed
-    memory."""
-    cache = getattr(model, attr, None)
-    if cache is None:
-        cache = ProgramCache()
-        setattr(model, attr, cache)
-    w = weights_key(model)
-    for k in [k for k, p in cache.items() if p.weights != w]:
-        del cache[k]
-    prog = cache.get(key)
-    if prog is None:
-        prog = cache[key] = make()
-        prog.build()
-    return prog
-
-
 def _model_device(model) -> torch.device:
     m = getattr(model, "unwrapped", model)
     for t in (*m.parameters(), *m.buffers()):
@@ -418,7 +376,7 @@ class _DecodeProgram:
         self._stream = None
         self.replays = 0
         self.prefill_logits: Optional[torch.Tensor] = None
-        self.weights = weights_key(model)
+        self.weights = step_graph.weights_key(model)
         self._tracked = track_retraces(self._build, self.SITE, budget=1,
                                        labels=dict(labels, model=id(model),
                                                    eager=self.eager,
@@ -676,6 +634,7 @@ def greedy_generate(model, input_ids, max_new_tokens: int,
                   eos=eos_token_id, pad=pad_token_id,
                   temperature=temperature, top_k=top_k, top_p=top_p,
                   extra=key[-1])
+    from ..serving.step_graph import cached_program
     prog = cached_program(model, "_generate_jit_cache", key,
                           lambda: GreedyProgram(
         model, b, s, total, max_new_tokens, eos_token_id, pad_token_id,
@@ -716,6 +675,7 @@ def beam_search_generate(model, input_ids, max_new_tokens: int,
     labels = dict(b=b, s=s, total=total, new=max_new_tokens, beams=k,
                   eos=eos_token_id, pad=pad_token_id,
                   length_penalty=length_penalty, extra=key[-1])
+    from ..serving.step_graph import cached_program
     prog = cached_program(model, "_generate_jit_cache", key,
                           lambda: BeamProgram(
         model, b, s, total, max_new_tokens, k, eos_token_id, pad_token_id,

@@ -24,7 +24,8 @@ from .rope import apply_rope, build_rope_cache, fused_rope
 from .triton.rms_norm import rms_norm_triton
 
 # every hand-written kernel of the port: name -> wrapper (each wrapper
-# counts its launches in ``.launches``)
+# counts its launches in ``.launches``; K2, K5 and K6 also in
+# ``.by_shape``, a Counter keyed by (head_dim, Sq, Skv, causal))
 KERNELS = {
     "decode_attention": decode_attention_cuda,
     "flash_attention_fwd": flash_attention_fwd_cuda,
@@ -43,10 +44,19 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "by_shape"):
+            fn.by_shape.clear()
 
 
 def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def shape_counts() -> Dict[tuple, int]:
+    """{(name, head_dim, Sq, Skv, causal): launches} of the wrappers that
+    count by shape."""
+    return {(name, *key): n for name, fn in KERNELS.items()
+            for key, n in getattr(fn, "by_shape", {}).items() if n}
 
 
 class ReplayCounts:
@@ -60,19 +70,24 @@ class ReplayCounts:
     the region counted in ``rc`` and takes it back out of the live
     counters; ``rc.add(n)`` then credits ``n`` replays: ``.launches``
     counts replays x launches per graph, as an eager run of the same calls
-    would."""
+    would; so does each by-shape count (``.by_shape``)."""
 
     def __init__(self, launches: Dict[str, int],
-                 paths: Dict[Tuple[str, str], int]):
+                 paths: Dict[Tuple[str, str], int],
+                 shapes: Dict[str, collections.Counter]):
         self.launches = launches
         self.paths = paths
+        self.shapes = shapes
 
     @classmethod
     @contextlib.contextmanager
     def record(cls):
         before = launch_counts()
+        shapes_before = {name: collections.Counter(fn.by_shape)
+                         for name, fn in KERNELS.items()
+                         if hasattr(fn, "by_shape")}
         paths_before = collections.Counter(_dispatch.kernel_paths)
-        rc = cls({}, {})
+        rc = cls({}, {}, {})
         try:
             yield rc
         finally:
@@ -80,6 +95,12 @@ class ReplayCounts:
                 if fn.launches != before[name]:
                     rc.launches[name] = fn.launches - before[name]
                 fn.launches = before[name]
+            for name, was in shapes_before.items():
+                fn = KERNELS[name]
+                if fn.by_shape != was:
+                    rc.shapes[name] = fn.by_shape - was
+                fn.by_shape.clear()
+                fn.by_shape.update(was)
             rc.paths.update(collections.Counter(_dispatch.kernel_paths)
                             - paths_before)
             _dispatch.kernel_paths.clear()
@@ -88,6 +109,9 @@ class ReplayCounts:
     def add(self, n: int = 1) -> None:
         for name, k in self.launches.items():
             KERNELS[name].launches += n * k
+        for name, by_shape in self.shapes.items():
+            for key, k in by_shape.items():
+                KERNELS[name].by_shape[key] += n * k
         for key, k in self.paths.items():
             _dispatch.kernel_paths[key] += n * k
 
@@ -104,4 +128,5 @@ __all__ = ["FlashAttention", "KERNELS", "ReplayCounts", "apply_rope",
            "flash_attention_fwd_paged_int8_cuda", "flash_attention_reference",
            "fused_rope", "int8_matmul_cuda", "int8_matmul_reference",
            "launch_counts", "reset_launch_counts", "rms_norm",
-           "rms_norm_reference", "rms_norm_triton", "segment_mask"]
+           "rms_norm_reference", "rms_norm_triton", "segment_mask",
+           "shape_counts"]

@@ -69,6 +69,7 @@ probabilities.  The float32 kernel dequantizes per key.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -194,10 +195,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
         code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_fwd_cuda.launches += 1
+    flash_attention_fwd_cuda.by_shape[(d, sq, skv, bool(causal))] += 1
     return out, lse
 
 
 flash_attention_fwd_cuda.launches = 0
+flash_attention_fwd_cuda.by_shape = collections.Counter()
 
 
 def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,

@@ -27,11 +27,13 @@ whatever K2 runs forward trains — bf16 at any D <= 128 with D % 8 == 0
 (the Hopper kernels on 128-wide tiles whose columns past D TMA fills with
 zeros: DiT-XL/2's 72 pays 1.78x the useful products), float32 at 16, 64
 and 72 on CUDA-core kernels; any other pair raises naming ROADMAP B2
-before a launch.  Each wrapper counts its launches in ``.launches``.
+before a launch.  Each wrapper counts its launches in ``.launches``, and
+in ``.by_shape`` by (head_dim, Sq, Skv, causal).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -142,10 +144,12 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
         stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_bwd_dq_cuda.launches += 1
+    flash_attention_bwd_dq_cuda.by_shape[(d, sq, skv, bool(causal))] += 1
     return dq
 
 
 flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dq_cuda.by_shape = collections.Counter()
 
 
 def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -175,7 +179,9 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
         int(causal), code, stream_ptr(q.device))
     _build.check(lib, NAME, err)
     flash_attention_bwd_dkv_cuda.launches += 1
+    flash_attention_bwd_dkv_cuda.by_shape[(d, sq, skv, bool(causal))] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.by_shape = collections.Counter()

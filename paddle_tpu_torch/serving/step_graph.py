@@ -241,6 +241,49 @@ def capture(bodies, device: torch.device, warmup: int, pool=None,
     return graphs, counters, stream
 
 
+def weights_key(model) -> int:
+    """A key of where the model's weights live: the hash of the data
+    pointers (and dtypes) of every parameter and buffer of the bound model
+    (a decode wrapper's ``unwrapped`` model).  A captured graph reads the
+    weights at these addresses, so a program is only reused while it is
+    unchanged."""
+    m = getattr(model, "unwrapped", model)
+    return hash(tuple((t.data_ptr(), t.dtype) for t in
+                      (*m.parameters(), *m.buffers())))
+
+
+class ProgramCache(dict):
+    """A model's once-built programs by key (``_generate_jit_cache`` of
+    ``models/generation.py``, ``_ddim_jit_cache`` of
+    ``models/diffusion.py``).  A copy of the model
+    starts with an empty cache: a program holds its own buffers and, on
+    the card, CUDA graphs over the original's weights."""
+
+    def __deepcopy__(self, memo):
+        return type(self)()
+
+
+def cached_program(model, attr: str, key: tuple, make):
+    """The program of ``key`` in ``model.<attr>``, made by ``make()`` and
+    built on first use.  Each program records the :func:`weights_key` it
+    was built over (``.weights``); the programs of other weights are
+    dropped first, so a model whose tensors moved (``.to(dtype)``,
+    ``.float()``) builds anew instead of replaying graphs that read freed
+    memory."""
+    cache = getattr(model, attr, None)
+    if cache is None:
+        cache = ProgramCache()
+        setattr(model, attr, cache)
+    w = weights_key(model)
+    for k in [k for k, p in cache.items() if p.weights != w]:
+        del cache[k]
+    prog = cache.get(key)
+    if prog is None:
+        prog = cache[key] = make()
+        prog.build()
+    return prog
+
+
 def _staging(n: int, device: torch.device):
     """(pinned host staging, its numpy view, the device buffer) of ``n``
     int32s."""

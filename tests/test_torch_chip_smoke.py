@@ -510,25 +510,31 @@ def test_generation_phases_order():
         < main_src.index("phase_training(")
 
 
-def test_recording_shapes_counts_by_shape(monkeypatch):
-    """The recorder counts each K2 / K5 / K6 call where ``ops.attention``
-    looks the wrappers up, by (wrapper, head_dim, Sq, Skv, causal), passes
-    the call through and restores the wrappers on exit."""
-    from paddle_tpu_torch.ops import attention
-
-    def fwd(q, k, v, **kwargs):
-        return "out"
-
-    monkeypatch.setattr(attention, "flash_attention_fwd_cuda", fwd)
-    counts = {}
-    q, k = torch.zeros(2, 1, 4, 128), torch.zeros(2, 256, 4, 128)
-    with chip_smoke.recording_shapes(counts):
-        for causal in (False, False, True):
-            assert attention.flash_attention_fwd_cuda(
-                q, k, k, causal=causal) == "out"
-    assert attention.flash_attention_fwd_cuda is fwd
-    assert counts == {("flash_attention_fwd", 128, 1, 256, False): 2,
-                      ("flash_attention_fwd", 128, 1, 256, True): 1}
+def test_shape_counts_credit_each_replay():
+    """K2, K5 and K6 count their launches by (head_dim, Sq, Skv, causal)
+    beside ``.launches``.  A region recorded around a capture takes its
+    by-shape counts out of the live counters and each replay credits them
+    again, as an eager run of the region would; a reset clears them."""
+    from paddle_tpu_torch import ops
+    fwd = ops.KERNELS["flash_attention_fwd"]
+    dq = ops.KERNELS["flash_attention_bwd_dq"]
+    assert {n for n, fn in ops.KERNELS.items() if hasattr(fn, "by_shape")} \
+        == {"flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv"}
+    ops.reset_launch_counts()
+    fwd.by_shape[(64, 256, 256, False)] += 1
+    with ops.ReplayCounts.record() as rc:
+        fwd.by_shape[(128, 1, 256, False)] += 2
+        dq.by_shape[(128, 64, 64, True)] += 1
+    assert ops.shape_counts() == {
+        ("flash_attention_fwd", 64, 256, 256, False): 1}
+    rc.add(3)
+    assert ops.shape_counts() == {
+        ("flash_attention_fwd", 64, 256, 256, False): 1,
+        ("flash_attention_fwd", 128, 1, 256, False): 6,
+        ("flash_attention_bwd_dq", 128, 64, 64, True): 3}
+    ops.reset_launch_counts()
+    assert ops.shape_counts() == {}
 
 
 def test_qwen_batch_is_the_reference_recipe():

@@ -34,6 +34,7 @@ from paddle_tpu_torch.models import (GreedyProgram, LlamaForCausalLM,
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.observability import watchdog
 from paddle_tpu_torch.ops import _dispatch
+from paddle_tpu_torch.serving import step_graph
 
 # chi-square critical value, df 7, alpha 0.01 (tests/test_spec_rejection.py)
 CHI2_DF7 = 18.48
@@ -452,7 +453,7 @@ def test_a_copy_of_the_model_starts_with_no_program(pair):
     tm.generate(_prompt(1, 4), max_new_tokens=2)
     assert len(tm._generate_jit_cache) == 1
     dup = copy.deepcopy(tm)
-    assert isinstance(dup._generate_jit_cache, tgen.ProgramCache)
+    assert isinstance(dup._generate_jit_cache, step_graph.ProgramCache)
     assert len(dup._generate_jit_cache) == 0
     assert len(quantize_for_decode(tm, min_elems=2048).unwrapped
                ._generate_jit_cache) == 0
