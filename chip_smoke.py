@@ -10,7 +10,9 @@ the sources in the checkout, holds each against its plain PyTorch version,
 runs the model at the full Llama-3-8B width, serves requests through the
 engine, generates with ``generate`` (greedy, sampled, beam, int8), samples
 and trains DiT-XL/2, generates with and trains Qwen2-VL at its default
-widths and trains a 4-layer cut of the Llama model.  Every phase prints one JSON line;
+widths (in bf16, then as the reference defines it, float32), serves
+``LlamaConfig()`` in float32 and trains a 4-layer cut of the Llama
+model.  Every phase prints one JSON line;
 any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -76,7 +78,15 @@ any failed check raises, so the script exits non-zero.  Phases:
                  cross-attention at D 128 over 256 patches at Sq 1 (a
                  decode step) and Sq 64 (the prefill), K5 / K6 at D 64
                  at the tower's training shape and at the cross shape
-                 (Sq 64, Skv 256, D 128); each also at the tiny model's
+                 (Sq 64, Skv 256, D 128); then every float32 head_dim-128
+                 build (the reference's float32 defaults, ``/f32_d128``
+                 entries, :func:`phase_f32_d128_rows`): K1, K1-int8,
+                 K1-paged, K1-paged-int8 at Llama's decode tick and s = 5,
+                 K2 at the prefill wave, ragged GQA, packed and Qwen2-VL's
+                 cross shapes, K2-paged(-int8) at a suffix prefill and over
+                 the identity view, K5 / K6 at Qwen2-VL's shapes, ragged
+                 and packed, each with ptxas's registers and spills (a
+                 spill fails); each also at the tiny model's
                  float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
@@ -266,6 +276,27 @@ any failed check raises, so the script exits non-zero.  Phases:
                  K3 11, no plain route, K5 / K6 the same bits again; the
                  tiny float32 model 4 steps card against CPU
                  (``qwen2_vl_train_tiny_f32``);
+  qwen2_vl_f32. — ``Qwen2VLConfig()`` unchanged (float32, head_dim 128
+                 in the decoder): greedy and beam-4 ``generate`` graphed
+                 beside the eager twin, bit for bit, with exact launches
+                 by shape and no plain route; forward and first decode
+                 step logits within 1e-4 of the largest logit of the
+                 plain path on the card; one train step's loss (rtol
+                 1e-5) and gradients (1e-4 of each tensor's largest
+                 element) against the plain path, K2 / K5 / K6 by shape;
+                 4 AdamW steps: tokens/s, step ms, peak memory;
+  serving_f32. — ``LlamaConfig()`` unchanged (float32, 32 layers of 32
+                 heads of 128, 26.9 GB of weights): contiguous, paged
+                 (prefix cache), int8-KV paged and int8-KV contiguous
+                 engines, one after another, on 8 requests of 5..1500
+                 prompt tokens, 16 new tokens each; each graphed beside
+                 its eager twin (tokens, launches, routes equal),
+                 ``step_traces`` 1, the decode kernel 32 a tick and the
+                 wave kernel 32 a wave, no plain route; teacher-forced
+                 logits of its layout within 1e-4 of the largest plain-
+                 path logit (int8 caches: within 1.2x the plain path's
+                 distance from a float32 cache); greedy tokens against
+                 the plain path reported; tok/s, TTFT, TPOT;
   5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -289,12 +320,16 @@ and K4 from phase 4c, of K1-int8 from phase 4d, of K2-paged and
 K2-paged-int8 over the identity view from phases 4e and 4g, of K5 and K6
 from phase 5, of K2 at head_dim 72 from the dit phase, of K5 and K6 at
 head_dim 72 from dit_train, of K2 at head_dim 64 and of the cross K2 from
-qwen2_vl's greedy run, of K5 and K6 at head_dim 64 from qwen2_vl_train;
+qwen2_vl's greedy run, of K5 and K6 at head_dim 64 from qwen2_vl_train,
+of every float32 head_dim-128 build from serving_f32's engines (K2 from
+the contiguous engine's waves) and qwen2_vl_f32's train steps (K5, K6);
 error and times from phase 2) and, last,
 ``{"ok": true,
 "device": {...}}``.
 
-``--profile`` adds the device time of K1, K1-int8, K1-paged and
+``--profile`` adds a window over 5 graphed ticks of ``serving_f32``'s
+contiguous engine (``profile_serving_f32``), the device time of K1,
+K1-int8, K1-paged and
 K1-paged-int8 by split length (K1 and K1-int8 at phase 2's main and
 all-at-4095 rows, the paged builds at the main, block_len 8 and
 all-at-4095 rows), a torch.profiler window (with CUDA events around it)
@@ -418,6 +453,18 @@ KERNEL_INFO = {
         "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:299"},
 }
+# every float32 head_dim-128 build (the reference's float32 default
+# configurations: LlamaConfig(), Qwen2VLConfig()'s decoder) has an entry of
+# its own, the kernel of its namesake at (float32, 128): phase 2's
+# "/f32_d128" rows, launches from serving_f32 and qwen2_vl_f32
+F32_D128 = "/f32_d128"
+for _name in ("decode_attention", "decode_attention_int8",
+              "decode_attention_paged", "decode_attention_paged_int8",
+              "flash_attention_fwd", "flash_attention_fwd_paged",
+              "flash_attention_fwd_paged_int8", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+    KERNEL_INFO[_name + F32_D128] = dict(KERNEL_INFO[_name])
+del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
 PAGED_LIBRARY_NOTE = ("F.scaled_dot_product_attention over a pre-gathered "
@@ -925,6 +972,7 @@ def phase_kernels(torch):
                                       int8_matmul_reference, rms_norm,
                                       rms_norm_reference)
     from paddle_tpu_torch.ops._dispatch import reference_mode
+    from paddle_tpu_torch.ops.cuda import _build
     import torch.nn.functional as TF
 
     dev = torch.device("cuda")
@@ -939,6 +987,14 @@ def phase_kernels(torch):
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    # ptxas's registers and spills of every float32 head_dim-128 build,
+    # beside each of its rows (a spill fails)
+    f32_regs = f32_d128_ptxas(_build.build_log)
+    emit({"phase": "f32_d128_ptxas", "functions": f32_regs})
+    check(all(r is None or r["spill_stores"] == 0
+              for fns in f32_regs.values() for r in fns.values()),
+          f"a float32 head_dim-128 build spills: {f32_regs}")
 
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
                main, note=None, extra=None):
@@ -957,6 +1013,8 @@ def phase_kernels(torch):
                "bound_by": by}
         if note:
             row["library_note"] = note
+        if name.endswith(F32_D128):
+            row["ptxas"] = f32_regs[name[:-len(F32_D128)]]
         row.update(extra or {})
         emit(row)
         check(ok, f"{name} {shape}: max error {err} beyond {tol}")
@@ -1456,6 +1514,8 @@ def phase_kernels(torch):
     phase_verify_window_rows(torch, record, randn, int8_payload,
                              int8_scales, tols, paged_rows[0][10])
     phase_head_dim_rows(torch, record, randn, tols)
+    phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
+                        tols)
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
@@ -1580,7 +1640,12 @@ def phase_head_dim_rows(torch, record, randn, tols):
     GQA at Sq 77 over Skv 61 (dead rows), the ring-hop segmented form (Sq
     256, Skv 512, queries whose id matches no key) and packed documents
     at an unaligned S 300 -- then float32 at 72 (the narrow DiT's shape,
-    Sq 77 / Skv 61) and 64."""
+    Sq 77 / Skv 61) and 64.  The float32 head_dim-128 builds (the
+    reference's defaults, ``/f32_d128`` entries) take both loops' last
+    rows: K2 at LlamaConfig()'s prefill wave (B 4, S 2048, 32 heads,
+    causal), ragged causal GQA (dead rows), packed documents at S 300 and
+    Qwen2-VL's cross shapes; K5 / K6 at Qwen2-VL's decoder and cross
+    shapes, ragged causal GQA and packed documents."""
     from paddle_tpu_torch.ops import (flash_attention,
                                       flash_attention_fwd_cuda)
     from paddle_tpu_torch.ops._dispatch import reference_mode
@@ -1588,44 +1653,60 @@ def phase_head_dim_rows(torch, record, randn, tols):
 
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
-    for (name, dt, b, sq, skv, hq, hkv, d, causal, ring, main) in (
+    f32_k2 = "flash_attention_fwd" + F32_D128
+    for (name, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in (
             ("flash_attention_fwd/d72", bf16, DIT_BATCH, DIT_TOKENS,
-             DIT_TOKENS, DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, False,
+             DIT_TOKENS, DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, None,
              True),
             ("flash_attention_fwd/d72", bf16, 2, 77, 61, 8, 2, 72, True,
-             False, False),
+             None, False),
             ("flash_attention_fwd/d72", bf16, 2, 256, 512, 8, 2, 72, True,
-             True, False),
+             "ring", False),
             ("flash_attention_fwd", bf16, 4, 512, 512, 8, 8, 64, False,
-             False, False),
-            ("flash_attention_fwd", bf16, 2, 77, 61, 8, 2, 64, True, False,
+             None, False),
+            ("flash_attention_fwd", bf16, 2, 77, 61, 8, 2, 64, True, None,
              False),
             ("flash_attention_fwd/d72", f32, 4, 16, 16, 2, 2, 72, False,
-             False, False),
+             None, False),
             ("flash_attention_fwd/d72", f32, 2, 77, 61, 4, 2, 72, True,
-             False, False),
-            ("flash_attention_fwd", f32, 2, 70, 70, 4, 2, 64, False, False,
+             None, False),
+            ("flash_attention_fwd", f32, 2, 70, 70, 4, 2, 64, False, None,
              False),
             ("flash_attention_fwd/d64", bf16, QWEN_BATCH, QWEN_PATCHES,
              QWEN_PATCHES, QWEN_VISION_HEADS, QWEN_VISION_HEADS, 64, False,
-             False, True),
+             None, True),
             ("flash_attention_fwd/cross", bf16, QWEN_BATCH, 1, QWEN_PATCHES,
-             QWEN_HEADS, QWEN_HEADS, 128, False, False, True),
+             QWEN_HEADS, QWEN_HEADS, 128, False, None, True),
             ("flash_attention_fwd/cross", bf16, QWEN_BATCH, QWEN_PROMPT,
-             QWEN_PATCHES, QWEN_HEADS, QWEN_HEADS, 128, False, False,
-             False)):
+             QWEN_PATCHES, QWEN_HEADS, QWEN_HEADS, 128, False, None,
+             False),
+            # float32 at head_dim 128 (the reference's defaults): the
+            # prefill wave of LlamaConfig(), ragged causal GQA, packed
+            # documents at an unaligned S, Qwen2-VL's cross shapes
+            (f32_k2, f32, 4, F32_L, F32_L, F32_HEADS, F32_HEADS, 128, True,
+             None, True),
+            (f32_k2, f32, 2, 77, 61, 8, 2, 128, True, None, False),
+            (f32_k2, f32, 2, 300, 300, 8, 2, 128, True, "packed", False),
+            (f32_k2, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES, QWEN_HEADS,
+             QWEN_HEADS, 128, False, None, False),
+            (f32_k2, f32, QWEN_BATCH, 1, QWEN_PATCHES, QWEN_HEADS,
+             QWEN_HEADS, 128, False, None, False)):
         atol, rtol = tols(dt)
         lse_tol = 1e-3 if dt == bf16 else 1e-5
         esz = 2 if dt == bf16 else 4
         seg = kv_seg = None
+        ring = segments == "ring"
         if ring:
             ids_kv = packed_segments(b, skv, seed=skv)
             ids_q = (packed_segments(b, sq, seed=sq, lo=3, hi=6)
                      + ids_kv.max(1, keepdims=True) - 1)
             seg = torch.from_numpy(ids_q).to(dev)
             kv_seg = torch.from_numpy(ids_kv).to(dev)
+        elif segments == "packed":
+            seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
         kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
-        keep = visible_pairs(torch, sq, skv, causal, seg, kv_seg, dev)
+        keep = visible_pairs(torch, sq, skv, causal, seg,
+                             seg if kv_seg is None else kv_seg, dev)
         pairs = int(keep.expand(b, sq, skv).sum().item())
         n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
         nb = b * (2 * sq * hq + 2 * skv * hkv) * d * esz
@@ -1658,7 +1739,8 @@ def phase_head_dim_rows(torch, record, randn, tols):
                         BF16_FLOPS if dt == bf16 else F32_FLOPS)
         tag = (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
                f"{'causal' if causal else 'causal=False'} "
-               f"{'ring-hop kv_segment_ids ' if ring else ''}{str(dt)[6:]}")
+               f"{'ring-hop kv_segment_ids ' if ring else ''}"
+               f"{'packed ' if segments == 'packed' else ''}{str(dt)[6:]}")
         record(name, tag, max(err, lerr),
                f"out atol {atol} + rtol {rtol}, lse {lse_tol}, dead rows "
                f"out 0 and lse -1e30", ok, kfns, plain_ms, lib_ms, bms, by,
@@ -1668,6 +1750,7 @@ def phase_head_dim_rows(torch, record, randn, tols):
                       "library_kernel": top_kernel(torch, lfns[0])})
         del sets, q, k, v, out, lse, ref, ref_lse
 
+    f32_bwd = tuple(n + F32_D128 for n in TRAIN_KERNELS)
     for (names, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in (
             (DIT_BWD, bf16, DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS,
              DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, None, True),
@@ -1687,7 +1770,15 @@ def phase_head_dim_rows(torch, record, randn, tols):
             (QWEN_BWD, bf16, QWEN_BATCH, QWEN_PATCHES, QWEN_PATCHES,
              QWEN_VISION_HEADS, QWEN_VISION_HEADS, 64, False, None, True),
             (TRAIN_KERNELS, bf16, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES,
-             QWEN_HEADS, QWEN_HEADS, 128, False, None, False)):
+             QWEN_HEADS, QWEN_HEADS, 128, False, None, False),
+            # float32 at head_dim 128: Qwen2VLConfig()'s decoder and cross
+            # shapes, ragged causal GQA, packed documents
+            (f32_bwd, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PROMPT, QWEN_HEADS,
+             QWEN_HEADS, 128, True, None, True),
+            (f32_bwd, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES,
+             QWEN_HEADS, QWEN_HEADS, 128, False, None, False),
+            (f32_bwd, f32, 2, 77, 61, 8, 2, 128, True, None, False),
+            (f32_bwd, f32, 2, 300, 300, 8, 2, 128, True, "packed", False)):
         seg = kv_seg = None
         if segments == "packed":
             seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
@@ -1717,6 +1808,310 @@ def phase_head_dim_rows(torch, record, randn, tols):
                       {"segmented": seg is not None, "dead_rows": n_dead},
                       lib_mask, main, names)
         del sets
+
+
+# the reference's float32 defaults at head_dim 128: LlamaConfig() (32 / 32
+# heads, hidden 4096) and Qwen2VLConfig()'s decoder (8 / 8 heads)
+F32_HEADS = 32
+F32_L = 2048                    # serving_f32's max_length
+F32_TICK_POS = [0, 2047, 17, 1000, 1500, 300, 511, 128]
+# the C functions of each float32 head_dim-128 build (ptxas's mangled
+# names contain these): K1 decode_attention_kernel<float, KV, 4, 8, PAGED>,
+# K2 flash_attention_fwd_kernel<128, PAGED, KV, SEG>, K5 / K6 the split
+# bodies
+F32_D128_FUNCTIONS = {
+    "decode_attention": ("decode_attention_kernelIffLi4ELi8ELb0EE",),
+    "decode_attention_int8": ("decode_attention_kernelIfaLi4ELi8ELb0EE",),
+    "decode_attention_paged": ("decode_attention_kernelIffLi4ELi8ELb1EE",),
+    "decode_attention_paged_int8": (
+        "decode_attention_kernelIfaLi4ELi8ELb1EE",),
+    "flash_attention_fwd": ("flash_attention_fwd_kernelILi128ELb0EfLb0EE",
+                            "flash_attention_fwd_kernelILi128ELb0EfLb1EE"),
+    "flash_attention_fwd_paged": (
+        "flash_attention_fwd_kernelILi128ELb1EfLb0EE",),
+    "flash_attention_fwd_paged_int8": (
+        "flash_attention_fwd_kernelILi128ELb1EaLb0EE",),
+    "flash_attention_bwd_dq": ("bwd_dq_f32_split_kernelILi128EE",),
+    "flash_attention_bwd_dkv": ("bwd_dkv_f32_split_kernelILi128EE",),
+}
+
+
+def f32_d128_ptxas(build_log):
+    """{build: {function tag: registers / spill bytes}} of the float32
+    head_dim-128 builds, from this process's ptxas reports ({} for a
+    library an earlier process built)."""
+    fns = {}
+    for log in build_log.values():
+        fns.update(ptxas_functions(log))
+    out = {}
+    for build, tags in F32_D128_FUNCTIONS.items():
+        out[build] = {tag: next((r for f, r in fns.items() if tag in f),
+                                None) for tag in tags}
+    return out
+
+
+def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
+                        tols):
+    """Phase 2's rows of the float32 head_dim-128 builds of K1 and
+    K2-paged (the reference's default configurations; K2's and K5 / K6's
+    are :func:`phase_head_dim_rows`'), each held against its plain
+    version at ``tols(float32)`` under the ``/f32_d128`` entries: K1 and
+    K1-int8 at Llama's decode tick (8 rows, Hq = Hkv = 32, L 2048,
+    positions spread) and at s = 5; K1-paged and K1-paged-int8 over
+    shuffled, shared, null-tailed pools at s = 1 and 5 (called directly:
+    the paged route sends s > 1 to K2-paged); K2-paged and K2-paged-int8
+    at a suffix prefill and over the contiguous cache's identity view at
+    pos 0 / 1024.  The library yardstick is SDPA at float32 (the row
+    names the kernel it ran); the bound is max(bytes / 3.35 TB/s, FLOPs /
+    67 TFLOP/s)."""
+    from paddle_tpu_torch.ops import (cached_decode_attention,
+                                      cached_decode_attention_reference,
+                                      decode_attention_paged_cuda,
+                                      decode_attention_paged_int8_cuda)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    import torch.nn.functional as TF
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    d = 128
+    atol, rtol = tols(f32)
+
+    def sdpa(q, k, v, mask):
+        return lambda: TF.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    def cache_mask(pos, s, L):
+        kj = torch.arange(L, device=dev)
+        qi = pos.long()[:, None] + torch.arange(s, device=dev)[None]
+        return (kj[None, None] <= qi[:, :, None])[:, None]     # B,1,s,L
+
+    def plain(fn, *args):
+        with reference_mode():
+            return fn(*args)
+
+    def row(base, shape, got, want, kfns, pfns, lfns, nbytes, ops, main,
+            note=None, extra=None):
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ok = (within(got, want, atol, rtol)
+              and bool(torch.isfinite(got).all().item())
+              and (extra or {}).get("deterministic", True))
+        with reference_mode():
+            plain_ms = time_ms(torch, pfns, budget_ms=100.0)
+        lib_ms = time_ms(torch, lfns)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        record(base + F32_D128, shape, err, f"atol {atol} + rtol {rtol}",
+               ok, kfns, plain_ms, lib_ms, bms, by, main, note=note,
+               extra=dict(extra or {}, head_dim=d,
+                          library_kernel=top_kernel(torch, lfns[0])))
+
+    # ---- the K1 family: Llama's decode tick and a 5-token window ---------
+    L, hq, hkv, b = F32_L, F32_HEADS, F32_HEADS, 8
+    for s in (1, 5):
+        pos_list = [min(p, L - s) for p in F32_TICK_POS]
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        mask = cache_mask(pos, s, L)
+        live = [p + s for p in pos_list]
+        ops = sum(4 * d * hq * (p + si + 1)
+                  for p in pos_list for si in range(s))
+        shape = (f"B={b} s={s} L={L} Hq={hq} Hkv={hkv} D={d} "
+                 f"pos={pos_list} float32")
+        n = copies(2 * b * L * hkv * d * 4)
+        sets = [(randn(b, s, hq, d, dtype=f32), randn(b, L, hkv, d, dtype=f32),
+                 randn(b, L, hkv, d, dtype=f32)) for _ in range(n)]
+        q, kc, vc = sets[0]
+        got = cached_decode_attention(q, kc, vc, pos)
+        fns = [lambda t=t: cached_decode_attention(*t, pos) for t in sets]
+        row("decode_attention", shape, got,
+            plain(cached_decode_attention, q, kc, vc, pos),
+            fns, fns, [sdpa(*t, mask) for t in sets],
+            2 * b * s * hq * d * 4 + sum(live) * hkv * d * 4 * 2 + 4 * b,
+            ops, s == 1, extra={"deterministic": bool(torch.equal(
+                got, cached_decode_attention(q, kc, vc, pos)))})
+        del sets, q, kc, vc, got
+
+        # K1-int8: 128-token granules
+        gr = 128
+        sets = [(randn(b, s, hq, d, dtype=f32), int8_payload(b, L, hkv, d),
+                 int8_payload(b, L, hkv, d), int8_scales(b, L // gr, hkv),
+                 int8_scales(b, L // gr, hkv)) for _ in range(copies(
+                     2 * b * L * hkv * d))]
+
+        def run8(t):
+            return cached_decode_attention(t[0], t[1], t[2], pos,
+                                           k_scale=t[3], v_scale=t[4])
+        deq = [(t[0], *((p.float().view(b, L // gr, gr, hkv, d)
+                         * sc[:, :, None, :, None]).view(b, L, hkv, d)
+                        for p, sc in ((t[1], t[3]), (t[2], t[4]))))
+               for t in sets[:2]]
+        got = run8(sets[0])
+        fns = [lambda t=t: run8(t) for t in sets]
+        row("decode_attention_int8", shape + f", int8 K/V granule {gr}",
+            got, plain(run8, sets[0]), fns, fns,
+            [sdpa(*t, mask) for t in deq],
+            2 * b * s * hq * d * 4 + sum(live) * hkv * d * 2
+            + sum(-(-x // gr) for x in live) * hkv * 4 * 2 + 4 * b, ops,
+            s == 1, note=INT8_LIBRARY_NOTE,
+            extra={"deterministic": bool(torch.equal(got, run8(sets[0])))})
+        del sets, deq, got
+
+        # K1-paged / K1-paged-int8: 128-token blocks, shuffled, two row
+        # pairs sharing their first blocks, null dead tails
+        bl, mb = 128, L // 128
+        tables, n_blocks, live_keys = paged_layout(
+            pos_list, s, bl, mb, ((1, 4, 8), (5, 3, 2)), seed=s)
+        live_blocks = len({int(tables[r, j // bl])
+                           for r, p in enumerate(pos_list)
+                           for j in range(0, min(p + s, L), bl)})
+        tables = torch.from_numpy(tables).to(dev)
+        idx = tables.long()
+        pshape = (f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
+                  f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
+                  f"shared float32")
+        for int8 in (False, True):
+            if int8:
+                sets = [(randn(b, s, hq, d, dtype=f32),
+                         int8_payload(n_blocks, bl, hkv, d),
+                         int8_payload(n_blocks, bl, hkv, d),
+                         int8_scales(n_blocks, hkv),
+                         int8_scales(n_blocks, hkv))
+                        for _ in range(copies(2 * n_blocks * bl * hkv * d))]
+            else:
+                sets = [(randn(b, s, hq, d, dtype=f32),
+                         randn(n_blocks, bl, hkv, d, dtype=f32),
+                         randn(n_blocks, bl, hkv, d, dtype=f32))
+                        for _ in range(copies(8 * n_blocks * bl * hkv * d))]
+
+            # the K1-paged builds themselves: the paged route sends s > 1
+            # to K2-paged (the verify window's rows of phase 2 do the same)
+            def runp(t):
+                if int8:
+                    return decode_attention_paged_int8_cuda(
+                        t[0], t[1], t[2], pos, tables, t[3], t[4])
+                return decode_attention_paged_cuda(t[0], t[1], t[2], pos,
+                                                   tables)
+
+            def plainp(t):
+                kw = dict(k_scale=t[3], v_scale=t[4]) if int8 else {}
+                return cached_decode_attention_reference(
+                    t[0], t[1], t[2], pos, block_tables=tables, **kw)
+
+            def gathered(t):
+                if not int8:
+                    return (t[0], t[1][idx].reshape(b, L, hkv, d),
+                            t[2][idx].reshape(b, L, hkv, d))
+                return (t[0], *((p[idx].float() * sc[idx][:, :, None, :,
+                                                          None]).reshape(
+                    b, L, hkv, d) for p, sc in ((t[1], t[3]), (t[2], t[4]))))
+            got = runp(sets[0])
+            esz = 1 if int8 else 4
+            row("decode_attention_paged" + ("_int8" if int8 else ""),
+                pshape + (", int8 K/V" if int8 else ""), got,
+                plainp(sets[0]), [lambda t=t: runp(t) for t in sets],
+                [lambda t=t: plainp(t) for t in sets],
+                [sdpa(*gathered(t), mask) for t in sets[:2]],
+                2 * b * s * hq * d * 4 + live_keys * hkv * d * esz * 2
+                + (live_blocks * hkv * 4 * 2 if int8 else 0)
+                + 4 * b * (mb + 1), ops, s == 1,
+                note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE,
+                extra={"deterministic": bool(torch.equal(got,
+                                                         runp(sets[0])))})
+            del sets, got
+
+    # ---- K2-paged / K2-paged-int8: a suffix prefill of 4 rows x 512
+    # queries at adopted prefix lengths (shuffled, shared, null-tailed
+    # 128-token blocks), then the contiguous cache's identity view (one
+    # 256-query chunk at pos 0 and 1024: 64-key blocks, int8 its
+    # 128-token granules) ---------------------------------------------------
+    b, s, hq, hkv, bl, mb = 4, 512, F32_HEADS, F32_HEADS, 128, F32_L // 128
+    pos_list = [0, 128, 1024, 1536]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    tables, n_blocks, live_keys = paged_layout(pos_list, s, bl, mb,
+                                               ((2, 3, 8), (0, 1, 1)), seed=4)
+    live_blocks = len({int(tables[r, j // bl]) for r, p in enumerate(pos_list)
+                       for j in range(0, min(p + s, F32_L), bl)})
+    tables = torch.from_numpy(tables).to(dev)
+    idx = tables.long()
+    mask = cache_mask(pos, s, F32_L)
+    ops = sum(4 * d * hq * (p + si + 1) for p in pos_list for si in range(s))
+    for int8 in (False, True):
+        if int8:
+            sets = [(randn(b, s, hq, d, dtype=f32),
+                     int8_payload(n_blocks, bl, hkv, d),
+                     int8_payload(n_blocks, bl, hkv, d),
+                     int8_scales(n_blocks, hkv), int8_scales(n_blocks, hkv))
+                    for _ in range(2)]
+        else:
+            sets = [(randn(b, s, hq, d, dtype=f32),
+                     randn(n_blocks, bl, hkv, d, dtype=f32),
+                     randn(n_blocks, bl, hkv, d, dtype=f32))
+                    for _ in range(2)]
+
+        def runp(t):
+            kw = dict(k_scale=t[3], v_scale=t[4]) if int8 else {}
+            return cached_decode_attention(t[0], t[1], t[2], pos,
+                                           block_tables=tables, **kw)
+
+        def gathered(t):
+            if not int8:
+                return (t[0], t[1][idx].reshape(b, F32_L, hkv, d),
+                        t[2][idx].reshape(b, F32_L, hkv, d))
+            return (t[0], *((p[idx].float() * sc[idx][:, :, None, :, None])
+                            .reshape(b, F32_L, hkv, d)
+                            for p, sc in ((t[1], t[3]), (t[2], t[4]))))
+        fns = [lambda t=t: runp(t) for t in sets]
+        esz = 1 if int8 else 4
+        base = "flash_attention_fwd_paged" + ("_int8" if int8 else "")
+        row(base, f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
+            f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
+            f"float32" + (", int8 K/V" if int8 else ""), runp(sets[0]),
+            plain(runp, sets[0]), fns, fns,
+            [sdpa(*gathered(t), mask) for t in sets],
+            2 * b * s * hq * d * 4 + live_keys * hkv * d * esz * 2
+            + (live_blocks * hkv * 4 * 2 if int8 else 0) + 4 * b * (mb + 1),
+            ops, True, note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
+        del sets
+
+        # the identity view: a 2-row cache, row 1's 256-query chunk
+        nrow, gr, s_c = 2, 128, 256
+        for p in (0, 1024):
+            if int8:
+                cache = (int8_payload(nrow, F32_L, hkv, d),
+                         int8_payload(nrow, F32_L, hkv, d),
+                         int8_scales(nrow, F32_L // gr, hkv),
+                         int8_scales(nrow, F32_L // gr, hkv))
+            else:
+                cache = (randn(nrow, F32_L, hkv, d, dtype=f32),
+                         randn(nrow, F32_L, hkv, d, dtype=f32))
+            q = randn(1, s_c, hq, d, dtype=f32)
+            cpos = torch.tensor([p], dtype=torch.int32, device=dev)
+            rows = torch.tensor([1], dtype=torch.int32, device=dev)
+
+            def runi(c=cache):
+                kw = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+                return cached_decode_attention(q, c[0], c[1], cpos,
+                                               rows=rows, **kw)
+            if int8:
+                dense = [(x[1:2].float().view(1, F32_L // gr, gr, hkv, d)
+                          * sc[1:2, :, None, :, None]).view(1, F32_L, hkv, d)
+                         for x, sc in ((cache[0], cache[2]),
+                                       (cache[1], cache[3]))]
+            else:
+                dense = [cache[0][1:2], cache[1][1:2]]
+            n = p + s_c
+            row(base, f"identity view: cache B={nrow} L={F32_L} Hq={hq} "
+                f"Hkv={hkv} D={d} block_len={gr if int8 else 64}, row 1, "
+                f"s={s_c} pos={p} float32" + (", int8 K/V" if int8 else ""),
+                runi(), plain(runi), [runi], [runi],
+                [sdpa(q, dense[0][:, :n], dense[1][:, :n],
+                      cache_mask(cpos, s_c, n))],
+                2 * s_c * hq * d * 4 + n * hkv * d * esz * 2
+                + (-(-n // gr) * hkv * 8 if int8 else 0),
+                sum(4 * d * hq * (p + si + 1) for si in range(s_c)), False,
+                note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
+            del cache, dense
+
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -2533,7 +2928,8 @@ PASS_COUNTS = ("requests_finished", "tokens_generated", "prefill_waves",
 
 def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
               submit_kw=None, warm_kw=None, **kw):
-    """One 8B-width serving run: the engine is built (its decode step's
+    """One 8B-width serving run (8 slots, max_length 4096, prefill_batch 4
+    unless ``kw`` says otherwise): the engine is built (its decode step's
     warm-up and graph capture included, unless ``disable_graphs()`` is
     open), then every launch and route counter is reset just before the
     requests are submitted and read just after the drain.  Returns the run
@@ -2549,8 +2945,8 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
     The engine is freed."""
     from paddle_tpu_torch.serving import ServingEngine
 
-    eng = ServingEngine(model, num_slots=8, max_length=4096,
-                        prefill_batch=4, device="cuda", **kw)
+    eng = ServingEngine(model, device="cuda", **{
+        "num_slots": 8, "max_length": 4096, "prefill_batch": 4, **kw})
     keys = []
     for name in ("_prefill", "_prefill_paged"):
         def record(ids, *args, _fn=getattr(eng, name), **kwargs):
@@ -2719,7 +3115,8 @@ def check_warm(run, what):
           f"{what} warm pass: tokens differ from the cold pass's")
 
 
-def eager_twin(torch, model, prompts, run, what, submit_kw=None, **kw):
+def eager_twin(torch, model, prompts, run, what, submit_kw=None,
+               new_tokens=32, **kw):
     """The same engine on the same requests with its decode step run
     eagerly (``disable_graphs()``, the port's ``jax.disable_jit()``).
     Returns the twin's line: its timings, its graph fields, the token
@@ -2729,7 +3126,8 @@ def eager_twin(torch, model, prompts, run, what, submit_kw=None, **kw):
     from paddle_tpu_torch.serving import disable_graphs
 
     with disable_graphs():
-        twin = _serve_8b(torch, model, prompts, submit_kw=submit_kw, **kw)
+        twin = _serve_8b(torch, model, prompts, new_tokens=new_tokens,
+                         submit_kw=submit_kw, **kw)
     check_graph(twin, f"{what} eager twin", graphed=False)
     out = {**serving_fields(twin),
            **twin_comparison(run["outs"], twin["outs"]),
@@ -4407,8 +4805,7 @@ def phase_qwen2_vl(torch, kernels, card):
     the model to float32 and back, generate again, equal to a fresh copy's
     tokens; (d) the tiny float32 model, greedy and beam, card against the
     CPU, tokens identical."""
-    from paddle_tpu_torch.models import (Qwen2VLConfig, init_kv_cache,
-                                         tiny_qwen2_vl_config)
+    from paddle_tpu_torch.models import Qwen2VLConfig, tiny_qwen2_vl_config
     from paddle_tpu_torch.ops._dispatch import reference_mode
 
     dev = torch.device("cuda")
@@ -4427,13 +4824,7 @@ def phase_qwen2_vl(torch, kernels, card):
     # token at per-row positions: K1 at one query head a KV head on the
     # card), each path over its own vision features and cache
     def first_decode(mod):
-        vision = mod.visual(pix)
-        cache = init_kv_cache(mod.config, QWEN_BATCH, QWEN_PROMPT + QWEN_NEW,
-                              dtype=mod.dtype, device=dev)
-        cache = mod.decode_step(ids, cache, 0, vision)[1]
-        pos = torch.full((QWEN_BATCH,), QWEN_PROMPT, dtype=torch.int32,
-                         device=dev)
-        return mod.decode_step(tok, cache, pos, vision)[0][:, -1].float()
+        return qwen_first_decode(torch, mod, ids, pix, tok)
 
     with torch.no_grad():
         got = m(ids, pix).float()
@@ -4460,20 +4851,7 @@ def phase_qwen2_vl(torch, kernels, card):
     del got, plain, truth, got_d, plain_d, truth_d
 
     # (b) greedy and beam search, graphed beside the eager twin
-    layers, n_cross = cfg.num_hidden_layers, len(m.cross)
-    k3 = 2 * layers + n_cross + 1
-    want = {"flash_attention_fwd": cfg.vision_layers + layers
-            + n_cross * QWEN_NEW,
-            "decode_attention": layers * (QWEN_NEW - 1),
-            "rms_norm": k3 * QWEN_NEW}
-    want_shapes = {
-        ("flash_attention_fwd", 64, QWEN_PATCHES, QWEN_PATCHES, False):
-            cfg.vision_layers,
-        ("flash_attention_fwd", 128, QWEN_PROMPT, QWEN_PROMPT, True): layers,
-        ("flash_attention_fwd", 128, QWEN_PROMPT, QWEN_PATCHES, False):
-            n_cross,
-        ("flash_attention_fwd", 128, 1, QWEN_PATCHES, False):
-            n_cross * (QWEN_NEW - 1)}
+    want, want_shapes = qwen_generation_want(cfg, len(m.cross))
     runs, graphed_shapes = {}, {}
     for name, kw in (("greedy", {}), ("beam", {"num_beams": 4})):
         r, shapes, _, _ = graphed_and_twin(
@@ -4677,6 +5055,447 @@ def phase_qwen2_vl_train(torch, kernels, card):
           f"expected {want}), routes {res['routes']}")
 
 
+# qwen2_vl_f32 / serving_f32: the kernel path against the plain path on the
+# card, both float32, differing only in sum order (the kernels sum K / V
+# tiles and splits in their own order): logits within 1e-4 of the largest
+# logit, the step-1 loss at rtol 1e-5 and each gradient tensor within 1e-4
+# of its largest element; a wrong tile, mask or merge is O(1)
+F32_LOGIT_TOL = 1e-4
+F32_GRAD_TOL = 1e-4
+
+
+def qwen_generation_want(cfg, n_cross):
+    """Launches of one ``generate`` call of QWEN_NEW tokens over
+    QWEN_BATCH images and QWEN_PROMPT-token prompts, and K2's by (name,
+    head_dim, Sq, Skv, causal): the tower's blocks, the causal prefill, the
+    cross layers at the prefill and at every decode step, K1 a decoder
+    layer a decode step, K3 two a layer, one a cross layer and the final
+    norm a pass."""
+    layers = cfg.num_hidden_layers
+    want = {"flash_attention_fwd": cfg.vision_layers + layers
+            + n_cross * QWEN_NEW,
+            "decode_attention": layers * (QWEN_NEW - 1),
+            "rms_norm": (2 * layers + n_cross + 1) * QWEN_NEW}
+    shapes = {
+        ("flash_attention_fwd", 64, QWEN_PATCHES, QWEN_PATCHES, False):
+            cfg.vision_layers,
+        ("flash_attention_fwd", 128, QWEN_PROMPT, QWEN_PROMPT, True): layers,
+        ("flash_attention_fwd", 128, QWEN_PROMPT, QWEN_PATCHES, False):
+            n_cross,
+        ("flash_attention_fwd", 128, 1, QWEN_PATCHES, False):
+            n_cross * (QWEN_NEW - 1)}
+    return want, shapes
+
+
+def logit_gate(got, want):
+    """Kernel-path logits (a list) against the plain path's: the largest
+    difference, the largest plain logit, the tolerance F32_LOGIT_TOL x
+    that, finiteness."""
+    diff = max(max_err(g, w) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    return {"max_logit_diff_kernel_vs_plain": diff, "max_abs_logit": scale,
+            "tol": F32_LOGIT_TOL * scale,
+            "finite": all(bool(g.isfinite().all()) for g in got)}
+
+
+def int8_gate(got, want, truth):
+    """An int8 cache's session: the kernel path's and the plain path's
+    largest logit error against the float32-cache session (``truth``),
+    the tolerance 1.2x the plain path's."""
+    err_k = max(max_err(g, t) for g, t in zip(got, truth))
+    err_p = max(max_err(w, t) for w, t in zip(want, truth))
+    return {"max_logit_err_kernel_vs_f32_cache": err_k,
+            "max_logit_err_plain_vs_f32_cache": err_p,
+            "tol_kernel_vs_f32_cache": 1.2 * err_p}
+
+
+def check_logit_gate(g, what):
+    """:func:`logit_gate`'s gate, or for an int8 cache :func:`int8_gate`'s
+    (the kernel-vs-plain difference is then reported, not gated)."""
+    check(g["finite"], f"{what}: logits are not finite")
+    if "tol_kernel_vs_f32_cache" in g:
+        check(g["max_logit_err_kernel_vs_f32_cache"]
+              <= g["tol_kernel_vs_f32_cache"],
+              f"{what}: int8 kernel path "
+              f"{g['max_logit_err_kernel_vs_f32_cache']} from the float32 "
+              f"cache's logits, the plain path "
+              f"{g['max_logit_err_plain_vs_f32_cache']}")
+        return
+    check(g["max_logit_diff_kernel_vs_plain"] <= g["tol"],
+          f"{what}: kernel path {g['max_logit_diff_kernel_vs_plain']} from "
+          f"the plain path (tolerance {g['tol']})")
+
+
+def qwen_first_decode(torch, mod, ids, pix, tok):
+    """Logits of greedy generation's first decode step: the prompt at
+    pos 0 over a fresh cache, then ``tok`` at per-row position
+    QWEN_PROMPT (K1 on the card)."""
+    from paddle_tpu_torch.models import init_kv_cache
+    b = ids.shape[0]
+    vision = mod.visual(pix)
+    cache = init_kv_cache(mod.config, b, QWEN_PROMPT + QWEN_NEW,
+                          dtype=mod.dtype, device=ids.device)
+    cache = mod.decode_step(ids, cache, 0, vision)[1]
+    pos = torch.full((b,), QWEN_PROMPT, dtype=torch.int32, device=ids.device)
+    return mod.decode_step(tok, cache, pos, vision)[0][:, -1].float()
+
+
+def phase_qwen2_vl_f32(torch, kernels, card):
+    """Qwen2-VL exactly as the reference defines it (``Qwen2VLConfig()``:
+    float32; the decoder 4 layers of 8 heads of 128, the tower 2 blocks of
+    4 heads of 64, 256 patches; 127.4 M parameters), seeded weights with
+    the cross gates at 0.5.  Gates: (a) greedy and beam-4 ``generate`` of
+    QWEN_NEW tokens, each key built once, graphed and equal bit for bit to
+    its eager twin, launches exact by shape (K2 at f32 D 128 causal and
+    cross, at D 64 the tower; K1 at f32 D 128), no plain route; (b) the
+    forward logits and the first decode step's, kernel path against the
+    plain path on the card, within F32_LOGIT_TOL of the largest logit;
+    (c) one train step's loss (rtol 1e-5) and gradients (each tensor
+    within F32_GRAD_TOL of its largest element) against the plain path,
+    K2 / K5 / K6 by shape; then ``build_train_step`` with AdamW (lr 1e-4,
+    weight decay 0.01), QWEN_TRAIN_STEPS steps: losses finite, launches
+    by shape a step, step ms and peak memory."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import Qwen2VLConfig
+    from paddle_tpu_torch.ops import (_dispatch, launch_counts,
+                                      reset_launch_counts, shape_counts)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dev = torch.device("cuda")
+    cfg = Qwen2VLConfig()
+    check(cfg.dtype == "float32" and cfg.head_dim == 128,
+          f"Qwen2VLConfig() is {cfg.dtype} at head_dim {cfg.head_dim}")
+    m = _qwen_model(torch, cfg, dev)
+    m.eval()
+    n_params = sum(p.numel() for p in m.parameters())
+    ids_np, pix_np = qwen_inputs(torch, cfg, QWEN_BATCH, QWEN_PROMPT, 16)
+    ids, pix = (torch.from_numpy(a).to(dev) for a in (ids_np, pix_np))
+
+    # (a) greedy and beam search, graphed beside the eager twin
+    n_cross = len(m.cross)
+    want, want_shapes = qwen_generation_want(cfg, n_cross)
+    runs = {}
+    for name, kw in (("greedy", {}), ("beam", {"num_beams": 4})):
+        r, shapes, _, _ = graphed_and_twin(
+            torch, m, lambda kw=kw: m.generate(ids, pix,
+                                               max_new_tokens=QWEN_NEW, **kw),
+            f"qwen2_vl_f32 {name}", want, QWEN_NEW, want_shapes)
+        r["k2_by_shape"] = {"/".join(map(str, k[1:])): n
+                            for k, n in shapes.items()}
+        r.pop("routes")
+        runs[name] = r
+    torch.cuda.reset_peak_memory_stats()
+    generate_peak = None
+    with torch.no_grad():
+        m.generate(ids, pix, max_new_tokens=QWEN_NEW)
+        generate_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # (b) logits, kernel path against the plain path
+    with torch.no_grad():
+        got = m(ids, pix).float()
+        tok = got[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        got_d = qwen_first_decode(torch, m, ids, pix, tok)
+        with reference_mode():
+            plain = m(ids, pix).float()
+            plain_d = qwen_first_decode(torch, m, ids, pix, tok)
+    gates = {"forward": logit_gate([got], [plain]),
+             "first_decode_step": logit_gate([got_d], [plain_d])}
+    del got, plain, got_d, plain_d
+
+    # (c) one step's loss and gradients, kernel path against plain path
+    m.train()
+    micro = qwen_batch(torch, cfg, QWEN_BATCH, QWEN_PROMPT, 100, dev)
+    names = [n for n, _ in m.named_parameters()]
+
+    def grads():
+        loss = m.compute_loss(**micro)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(m.parameters()))
+    reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    loss_k, g_k = grads()
+    torch.cuda.synchronize()
+    grad_shapes = shape_counts()
+    grad_routes = {f"{op}/{path}": n for (op, path), n in
+                   _dispatch.kernel_paths.items()}
+    with reference_mode():
+        loss_p, g_p = grads()
+    rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for a, b in zip(g_k, g_p)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    grad_gate_line = {
+        "loss_kernel": loss_k, "loss_plain": loss_p,
+        "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+        "max_grad_diff_over_tensor_max": rel[worst],
+        "worst_tensor": names[worst], "tol": F32_GRAD_TOL,
+        "one_element_tensors": {n: r for n, r, p in zip(
+            names, rel, m.parameters()) if p.numel() == 1},
+        "finite": all(bool(g.isfinite().all()) for g in g_k)}
+    del g_k, g_p
+    layers = cfg.num_hidden_layers
+    per_step = {(64, QWEN_PATCHES, QWEN_PATCHES, False): cfg.vision_layers,
+                (128, QWEN_PROMPT, QWEN_PROMPT, True): layers,
+                (128, QWEN_PROMPT, QWEN_PATCHES, False): n_cross}
+    want_train = {(name, *key): n for name in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv") for key, n in per_step.items()}
+
+    # build_train_step with the reference's AdamW
+    opt = AdamW(QWEN_TRAIN_LR, weight_decay=0.01)
+    step = build_train_step(m, opt)
+    batches = [qwen_batch(torch, cfg, QWEN_BATCH, QWEN_PROMPT, 200 + i, dev)
+               for i in range(QWEN_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_shapes = shape_counts()
+    train_launches = {k: n for k, n in launch_counts().items() if n}
+    train_routes = {f"{op}/{path}": n for (op, path), n in
+                    _dispatch.kernel_paths.items()}
+    p50 = float(np.median(step_ms[1:]))
+    greedy = runs["greedy"]
+    emit({"phase": "qwen2_vl_f32", "card": card,
+          "config": dataclasses.asdict(cfg), "params": n_params,
+          "batch": QWEN_BATCH, "prompt": QWEN_PROMPT, "new_tokens": QWEN_NEW,
+          **runs, "generate_peak_allocated_gb": generate_peak,
+          "logits": gates, "train_grads": grad_gate_line,
+          "grad_launches_by_shape": {"/".join(map(str, k)): n
+                                     for k, n in grad_shapes.items()},
+          "optimizer": f"AdamW({QWEN_TRAIN_LR}, weight_decay=0.01)",
+          "losses": losses, "step_ms": step_ms,
+          "step_ms_p50_after_first": p50,
+          "train_tokens_per_s": QWEN_BATCH * QWEN_PROMPT / (p50 / 1e3),
+          "train_launches": train_launches, "train_routes": train_routes,
+          "train_peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "tokens_per_s": greedy["tokens_per_s"]})
+    for tag, g in gates.items():
+        check_logit_gate(g, f"qwen2_vl_f32 {tag}")
+    gl = grad_gate_line
+    check(gl["finite"] and gl["loss_rel_diff"] <= 1e-5,
+          f"qwen2_vl_f32: step-1 loss {loss_k} against the plain path's "
+          f"{loss_p}")
+    check(gl["max_grad_diff_over_tensor_max"] <= F32_GRAD_TOL,
+          f"qwen2_vl_f32: gradient of {gl['worst_tensor']} differs from the "
+          f"plain path's by {gl['max_grad_diff_over_tensor_max']} of its "
+          f"largest element")
+    check(grad_shapes == want_train,
+          f"qwen2_vl_f32: a step's launches by shape {grad_shapes}, "
+          f"expected {want_train}")
+    check(not any(k.endswith("/plain") for k in grad_routes),
+          f"qwen2_vl_f32: a plain route in the train step {grad_routes}")
+    check(all(math.isfinite(x) for x in losses),
+          f"qwen2_vl_f32 losses {losses}")
+    check(train_shapes == {k: n * QWEN_TRAIN_STEPS
+                           for k, n in want_train.items()},
+          f"qwen2_vl_f32 train: launches by shape {train_shapes}")
+    check(not any(k.endswith("/plain") for k in train_routes),
+          f"qwen2_vl_f32 train: a plain route {train_routes}")
+    for name in TRAIN_KERNELS:
+        kernels[name + F32_D128]["launches"] = sum(
+            n for k, n in train_shapes.items()
+            if k[0] == name and k[1] == 128)
+    del step, opt, m, batches, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# serving_f32: LlamaConfig() as it stands (float32, 32 layers of 32 heads of
+# 128, vocab 32000), 8 slots of F32_L positions; the engines, one after
+# another: (line label, engine options, attention kernels and their units)
+F32_ENGINES = (
+    ("contiguous", dict(),
+     {"decode_attention": ("tick",), "flash_attention_fwd": ("wave",)}),
+    ("paged", dict(paged=True, block_len=128),
+     {"decode_attention_paged": ("tick",),
+      "flash_attention_fwd_paged": ("wave",)}),
+    ("int8_paged", dict(paged=True, block_len=128, kv_cache_dtype="int8"),
+     {"decode_attention_paged_int8": ("tick",),
+      "flash_attention_fwd_paged_int8": ("wave",)}),
+    ("int8_contiguous", dict(kv_cache_dtype="int8"),
+     {"decode_attention_int8": ("tick",), "flash_attention_fwd": ("wave",)}))
+F32_NEW_TOKENS = 16
+
+
+def f32_serving_prompts(vocab: int):
+    """8 requests of 5..1500 prompt tokens: 4 open with one shared
+    512-token system prompt (4 blocks of 128), 4 are unique; the kinds
+    alternate in arrival order."""
+    import numpy as np
+    rng = np.random.RandomState(17)
+    system = rng.randint(0, vocab, 512).astype(np.int32)
+    prompts = []
+    for n_suf, n_uni in zip((5, 300, 37, 900), (5, 100, 700, 1500)):
+        prompts.append(np.concatenate(
+            [system, rng.randint(0, vocab, n_suf).astype(np.int32)]))
+        prompts.append(rng.randint(0, vocab, n_uni).astype(np.int32))
+    return prompts
+
+
+def f32_forced_logits(torch, m, layout, seed=0, int8=None):
+    """Teacher-forced logits of a 2-row session in ``layout`` (an
+    F32_ENGINES label): contiguous (a 64-token prompt at pos 0 into a
+    256-position cache, int8: 128-token granules, then 4 forced decode
+    steps at per-row positions) or paged (a 256-token prefix into
+    scattered 128-token blocks, a 64-token suffix prefill at per-row pos
+    [128, 256] and 4 forced decode steps, all through the block tables).
+    ``int8`` (default: the layout's) picks the int8 cache.  Returns (the
+    logits of each step, the cache)."""
+    import numpy as np
+    from paddle_tpu_torch.models import init_kv_cache
+    from paddle_tpu_torch.serving.kv_cache import init_paged_kv_cache
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    vocab, b = m.config.vocab_size, 2
+
+    def ids(n):
+        return torch.from_numpy(rng.randint(0, vocab, (b, n)).astype(
+            np.int32)).to(dev)
+    if int8 is None:
+        int8 = layout.startswith("int8")
+    if layout.endswith("paged"):
+        tables = torch.tensor([[6, 2, 0, 0], [3, 8, 5, 0]], dtype=torch.int32,
+                              device=dev)
+        cache = init_paged_kv_cache(m.config, 10, 128, quantized=int8,
+                                    device=dev)
+        pos = torch.tensor([128, 256], dtype=torch.int32, device=dev)
+        steps = [(ids(256), 0), (ids(64), pos)]
+        pos = pos + 64
+        kw = {"block_tables": tables}
+    else:
+        cache = init_kv_cache(m.config, b, 256, quantized=int8, device=dev)
+        steps = [(ids(64), 0)]
+        pos = torch.full((b,), 64, dtype=torch.int32, device=dev)
+        kw = {}
+    steps += [(ids(1), pos + t) for t in range(4)]
+    outs = []
+    with torch.no_grad():
+        for x, p in steps:
+            logits, cache = m.decode_step(x, cache, p, **kw)
+            outs.append(logits.float())
+    torch.cuda.synchronize()
+    return outs, cache
+
+
+def int8_flips(torch, a, b):
+    """Int8 payload elements of two caches that differ, by layer."""
+    return [int((x != y).sum()) for x, y in zip(a["kv"], b["kv"])]
+
+
+def phase_serving_f32(torch, kernels, card, profile=False):
+    """``LlamaConfig()`` as it stands (float32, hidden 4096, 32 layers of
+    32 / 32 heads of 128, vocab 32000; 26.9 GB of seeded weights), served
+    by four engines built and freed one after another -- contiguous,
+    paged with the prefix cache, int8-KV paged and int8-KV contiguous
+    (8 slots of F32_L positions, prefill_batch 4) -- on 8 requests of
+    5..1500 prompt tokens (4 sharing a 512-token system prompt),
+    F32_NEW_TOKENS new tokens each.  Gates per engine: graphed,
+    ``step_traces`` 1, one replay a tick and a wave; tokens, launches and
+    routes equal to its eager twin's; the decode kernel 32 a tick and the
+    wave kernel 32 a wave, no other attention kernel, no plain route;
+    paged: prefix hits; teacher-forced logits of its layout within
+    F32_LOGIT_TOL of the largest logit of the plain path on the card.
+    Reported, not gated: greedy tokens equal to the plain path's (an eager
+    engine under ``reference_mode()``; random weights leave near-ties that
+    float32 sum order may flip), tok/s, TTFT, TPOT, peak memory.
+    ``profile``: a ``profile_serving_f32`` line, :func:`profile_window`
+    over 5 graphed ticks of the contiguous engine."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    from paddle_tpu_torch.serving import disable_graphs
+
+    dev = torch.device("cuda")
+    cfg = LlamaConfig()
+    check(cfg.dtype == "float32" and cfg.head_dim == 128,
+          f"LlamaConfig() is {cfg.dtype} at head_dim {cfg.head_dim}")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = f32_serving_prompts(cfg.vocab_size)
+    engine_kw = dict(num_slots=8, max_length=F32_L, prefill_batch=4)
+    for label, kw, attention in F32_ENGINES:
+        kw = dict(engine_kw, **kw)
+        run = _serve_8b(torch, model, prompts, new_tokens=F32_NEW_TOKENS,
+                        **kw)
+        twin = eager_twin(torch, model, prompts, run,
+                          f"serving_f32 {label}",
+                          new_tokens=F32_NEW_TOKENS, **kw)
+        with disable_graphs(), reference_mode():
+            plain = _serve_8b(torch, model, prompts,
+                              new_tokens=F32_NEW_TOKENS, **kw)
+        got, got_cache = f32_forced_logits(torch, model, label)
+        with reference_mode():
+            want, want_cache = f32_forced_logits(torch, model, label)
+        gate = logit_gate(got, want)
+        if label.startswith("int8"):
+            # an int8 cache rounds each K / V element to its block's grid:
+            # the two paths' float32 sum orders (RMSNorm's from layer 0 on,
+            # attention's from layer 1) put some elements on the other side
+            # of a rounding edge, a whole quantum apart (paged: a block whose
+            # running-max scale moves is requantized whole), so the int8
+            # paths are held, as phase 3's model_int8 holds its, to 1.2x
+            # the plain path's distance from the float32 cache
+            with reference_mode():
+                truth, _ = f32_forced_logits(torch, model, label,
+                                             int8=False)
+            gate = dict(gate, int8_payload_differences_by_layer=int8_flips(
+                torch, got_cache, want_cache), **int8_gate(got, want, truth))
+            del truth
+        del got, want, got_cache, want_cache
+        m, launches, routes = run["metrics"], run["launches"], run["routes"]
+        cmp = twin_comparison(run["outs"], plain["outs"])
+        emit({"phase": "serving_f32", "engine": label, "card": card,
+              "config": "LlamaConfig()", "init_s": round(init_s, 3),
+              "requests": len(prompts),
+              "prompt_lengths": [int(p.size) for p in prompts],
+              "new_tokens": F32_NEW_TOKENS, **serving_fields(run),
+              "prefill_waves": m["prefill_waves"],
+              "decode_ticks": m["decode_ticks"],
+              "cache_bytes": run["cache_bytes"],
+              "kv_cache": m.get("kv_cache"), "launches": launches,
+              "routes": routes, "eager_twin": twin,
+              "teacher_forced_logits": gate,
+              "plain_path_tokens": {
+                  "tokens_identical": cmp["tokens_identical"],
+                  "requests_differing": cmp["requests_differing"],
+                  "first_difference": cmp["first_difference"],
+                  "tok_per_s": serving_fields(plain)["tok_per_s"]}})
+        what = f"serving_f32 {label}"
+        check_graph(run, what)
+        check_twin(twin, what)
+        check_attention_launches(what, launches, routes,
+                                 attention_launches(m, attention))
+        check_logit_gate(gate, what + " teacher-forced")
+        if kw.get("paged"):
+            check(m["kv_cache"]["prefix_hit_tokens"] > 0,
+                  f"{what}: no prefix hit on the shared prompt")
+        for name in attention:
+            # K2's entry takes the contiguous engine's waves
+            kernels[name + F32_D128].setdefault("launches", launches[name])
+        del run, twin, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    if profile:
+        from paddle_tpu_torch.serving import ServingEngine
+        eng = ServingEngine(model, device="cuda", **engine_kw)
+        emit({**profile_window(torch, eng, prompts, "profile_serving_f32",
+                               "graphed"), "card": card})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4727,14 +5546,27 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(torch, model, qmodel)
     phase_generate(torch, model, qmodel, card)
-    del model, qmodel
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_dit(torch, kernels, card, profile=args.profile)
-    phase_dit_train(torch, kernels, card, profile=args.profile)
-    phase_qwen2_vl(torch, kernels, card)
-    phase_qwen2_vl_train(torch, kernels, card)
-    phase_training(torch, kernels, profile=args.profile)
+    # the loops' ``m`` is the int8 model too: drop every name of both
+    del model, qmodel, m
+    for phase in (lambda: phase_serving_f32(torch, kernels, card,
+                                            profile=args.profile),
+                  lambda: phase_dit(torch, kernels, card,
+                                    profile=args.profile),
+                  lambda: phase_dit_train(torch, kernels, card,
+                                          profile=args.profile),
+                  lambda: phase_qwen2_vl(torch, kernels, card),
+                  lambda: phase_qwen2_vl_train(torch, kernels, card),
+                  lambda: phase_qwen2_vl_f32(torch, kernels, card),
+                  lambda: phase_training(torch, kernels,
+                                         profile=args.profile)):
+        # what the phases before left on the card (a phase that keeps
+        # memory shows here, not as a later phase's out-of-memory)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "memory", "allocated_gb":
+              torch.cuda.memory_allocated() / 2**30,
+              "reserved_gb": torch.cuda.memory_reserved() / 2**30})
+        phase()
     emit({"kernels": [dict(name=n, **KERNEL_INFO[n], **r)
                       for n, r in kernels.items()]})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,

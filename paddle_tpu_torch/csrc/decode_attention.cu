@@ -31,14 +31,19 @@
 //     is merged with the LSE algebra
 //     (paddle_tpu/ops/ring_attention.py::merge_attention), in split order.
 //
-// The CUDA-core body (decode_attention_kernel: the float32 head_dim-16
-// builds of every entry, the tiny test model's): 4 query rows a CTA; each
-// of its 4 warps walks its own 8-key blocks (interleaved with the other
-// warps) with its own online softmax and no barrier: lane l < D holds
-// head-dim element l of the queries, the accumulator and the keys' K/V
-// rows; the 8 keys' dot products are summed across lanes by a
-// transpose-reduce; the warps merge once at the end;
-// decode_attention_combine merges the splits.
+// The CUDA-core body (decode_attention_kernel: the float32 builds of every
+// entry, at head_dim 16 -- the tiny test models -- and 128 -- the
+// reference's float32 default configurations, LlamaConfig() and the
+// Qwen2-VL decoder): 4 query rows a CTA; each of its 4 warps walks its own
+// 8-key blocks (interleaved with the other warps) with its own online
+// softmax and no barrier: lane l holds head-dim elements [l*EPL, l*EPL +
+// EPL) of the queries, the accumulator and the keys' K/V rows (D 16: EPL
+// 1, lanes 16..31 idle; D 128: EPL 4, one 16-byte float4 -- or 4 int8 --
+// load a lane a key row); the 8 keys' dot products are summed across lanes
+// by a transpose-reduce; the warps merge once at the end, through 4 x 4 x
+// D floats of shared memory (8 KB at D 128); decode_attention_combine (D
+// threads) merges the splits.  Float32 math throughout: no tensor core
+// keeps float32 numerics.
 //
 // The Hopper body (decode_mma_kernel<INT8, PAGED>: K1, K1-int8, K1-paged
 // and K1-paged-int8, bf16 q at D = 128 -- the decode tick of every bf16
@@ -113,7 +118,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;                        // query rows per CTA
-constexpr int kMaxD = 32;                       // one element a lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -121,10 +125,29 @@ __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
 
+// EPL consecutive elements of a K / V / q row as floats: one 16-byte (or,
+// int8, 4-byte) load at EPL 4 (lane offsets are multiples of 4 elements and
+// the rows 16-byte aligned), element by element otherwise
+template <int EPL, typename X>
+__device__ __forceinline__ void load_row(const X* __restrict__ p,
+                                         float (&dst)[EPL]) {
+  if constexpr (EPL == 4 && std::is_same<X, float>::value) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else if constexpr (EPL == 4 && std::is_same<X, int8_t>::value) {
+    const char4 t = *reinterpret_cast<const char4*>(p);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) dst[e] = to_float(p[e]);
+  }
+}
+
 // grid (B * Hkv, ceil(S*G / kRows), nsplit), block kThreads.
 // Lane l of a warp owns head-dim elements [l*EPL, l*EPL + EPL) (D = 32*EPL,
 // or D = 16 with EPL = 1 and lanes 16..31 idle).  Built for float32 at
-// D = 16 (EPL 1): the bf16 builds run decode_mma_kernel.  Each warp walks
+// D = 16 (EPL 1) and D = 128 (EPL 4): the bf16 builds run
+// decode_mma_kernel.  Each warp walks
 // blocks of KPI keys of the split, interleaved with the other warps,
 // keeping its own online-softmax state; the warps merge once at the end.
 // PAGED selects the K/V addressing: false = contiguous (table, max_blocks
@@ -144,7 +167,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                         const float* __restrict__ v_scale, int n_gran,
                         int gran_len) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  static_assert(32 * EPL <= kMaxD, "the warps' merge: 32 * EPL floats a row");
+  constexpr int kRowD = 32 * EPL;   // the warps' merge: floats a row
   constexpr int kLogK = KPI == 8 ? 3 : (KPI == 4 ? 2 : 1);
   static_assert((1 << kLogK) == KPI, "KPI must be 2, 4 or 8");
   const int bh = blockIdx.x;
@@ -194,9 +217,10 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     if (r < nr && lane_on) {
       const int rr = r0 + r, si = rr / G, gi = rr - si * G;
       last_key[r] = pb + si;
-      const T* qp = q + ((size_t)(b * S + si) * Hq + h * G + gi) * D + d0;
+      load_row<EPL>(q + ((size_t)(b * S + si) * Hq + h * G + gi) * D + d0,
+                    qr[r]);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[r][e] = to_float(qp[e]) * scale;
+      for (int e = 0; e < EPL; ++e) qr[r][e] *= scale;
     }
     last_key[r] = __shfl_sync(kFull, last_key[r], 0);
   }
@@ -242,11 +266,8 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       const int j = base + kk;
       if (lane_on && j < k_end) {
         const size_t r = PAGED ? grow + kk : (size_t)j;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          kf[kk][e] = to_float(kb[r * key_stride + e]);
-          vf[kk][e] = to_float(vb[r * key_stride + e]);
-        }
+        load_row<EPL>(kb + r * key_stride, kf[kk]);
+        load_row<EPL>(vb + r * key_stride, vf[kk]);
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kf[kk][e] = vf[kk][e] = 0.f;
@@ -311,7 +332,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
   // ---- merge the warps, then write the output or the split's partial ------
   __shared__ float wm[kWarps][kRows], wl[kWarps][kRows];
-  __shared__ float wacc[kWarps][kRows][kMaxD];
+  __shared__ float wacc[kWarps][kRows][kRowD];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (lane == 0) {
@@ -969,8 +990,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at D = 128 (the
 // serving path: decode_mma_kernel) and float32 at D = 16 (the tiny test
-// model: the CUDA-core kernel), the two cases chip_smoke.py checks on the
-// card; any other pair returns cudaErrorInvalidValue, as does a split_len
+// models) and 128 (the reference's float32 default configurations: the
+// CUDA-core kernel), the cases chip_smoke.py checks on the card; any other
+// pair returns cudaErrorInvalidValue, as does a split_len
 // that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
 // part_ml are float32 scratch of (B*Hkv, nsplit, S*G, D) and (B*Hkv,
 // nsplit, S*G, 2), unused when nsplit == 1.  counters (bfloat16 only; the
@@ -998,6 +1020,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                  nullptr, nullptr, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
+                                   D, L, limit, split_len, nsplit, scale, st);
+  else if (dtype == 1 && D == 128)
+    e = launch<float, 4, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                    D, L, limit, split_len, nsplit, scale, st);
   else
     e = cudaErrorInvalidValue;
@@ -1039,6 +1064,10 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
     e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                   D, L, limit, split_len, nsplit, scale, st,
                                   t, max_blocks, block_len);
+  else if (dtype == 1 && D == 128)
+    e = launch<float, 4, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
+                                  D, L, limit, split_len, nsplit, scale, st,
+                                  t, max_blocks, block_len);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1078,6 +1107,10 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
     e = launch<float, 1, 8, false, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
         nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
+  else if (dtype == 1 && D == 128)
+    e = launch<float, 4, 8, false, int8_t>(
+        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
+        nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1112,6 +1145,10 @@ extern "C" int decode_attention_paged_int8(
                                nsplit, scale, ks, vs, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true, int8_t>(
+        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
+        nsplit, scale, st, t, max_blocks, block_len, ks, vs);
+  else if (dtype == 1 && D == 128)
+    e = launch<float, 4, 8, true, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
         nsplit, scale, st, t, max_blocks, block_len, ks, vs);
   else

@@ -73,6 +73,12 @@
 //     wgmma has no float32 input that keeps float32 numerics.  A thread's
 //     rows are D-float register arrays (3 D in K5, 4 D in K6), so the
 //     wider instances keep part of them in local memory.
+//   * float32 at D = 128 (the reference's float32 default configurations:
+//     LlamaConfig(), Qwen2-VL's decoder and cross layers): the same two
+//     walks with each row split over a quad of threads (D / 4 columns a
+//     thread, dot products summed by two shuffles) and the tiles in
+//     dynamic shared memory (bwd_dq_f32_split_kernel /
+//     bwd_dkv_f32_split_kernel, below), so nothing spills.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -246,6 +252,254 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < D; ++d) {
       dk[row + d] = dka[d];
       dv[row + d] = dva[d];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32 at D = 128 (the reference's float32 default configurations): a
+// row split across a quad of threads
+// ---------------------------------------------------------------------------
+// One thread a row would hold 3 D (K5) or 4 D (K6) floats of it in
+// registers, 384 / 512 at D = 128, and stage two 64 x D tiles in static
+// shared memory, 64 KB, past the 48 KB limit.  Here the 4 threads of a
+// quad (lanes 4r..4r+3 of a warp) share row r: thread g of the quad owns
+// the float4 chunks c = g + 4 e (e < D / 16) of every D-float row it
+// touches -- columns [4c, 4c + 4) -- so each chunk has exactly one owner
+// and the quad's chunks at step e are 16 contiguous floats (one broadcast
+// 64-byte shared-memory read for the 8 quads of a warp, all on one key or
+// query row).  A thread's partial dot products over its D / 4 columns are
+// summed over the quad by two xor shuffles (1, then 2), whose sums are the
+// same bits on all four threads, so p and dS -- and the row's masks --
+// agree within the quad.  The tiles live in dynamic shared memory (2 x 64
+// x D floats, 64 KB at D = 128, opted in past 48 KB).  Registers: 3 x D /
+// 4 (K5) or 4 x D / 4 (K6) floats a thread, 96 / 128 at D = 128.
+constexpr int kQuad = 4;                        // threads a row
+constexpr int kSplitThreads = kTile * kQuad;    // 256
+
+// float4 chunks of a row a thread owns
+template <int D>
+struct SplitChunks {
+  static_assert(D % (4 * kQuad) == 0, "D / 4 chunks split over a quad");
+  static constexpr int value = D / (4 * kQuad);
+};
+
+// the quad's sum of a thread's partial: the same bits on its 4 threads
+__device__ __forceinline__ float quad_sum(unsigned mask, float x) {
+  x += __shfl_xor_sync(mask, x, 1);
+  return x + __shfl_xor_sync(mask, x, 2);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float s, float4 x, float4& acc) {
+  acc.x = fmaf(s, x.x, acc.x);
+  acc.y = fmaf(s, x.y, acc.y);
+  acc.z = fmaf(s, x.z, acc.z);
+  acc.w = fmaf(s, x.w, acc.w);
+}
+
+// a 64-row tile of (rows, H, D) float32 rows [r0, r0 + 64) of head h into
+// shared memory [64][D], rows at or past n zero
+template <int D>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           float* dst, int b, int r0, int n,
+                                           int H, int h, int tid) {
+  for (int idx = tid; idx < kTile * D / 4; idx += kSplitThreads) {
+    const int r = idx / (D / 4), c = idx - r * (D / 4), gr = r0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr < n)
+      x = __ldg(reinterpret_cast<const float4*>(
+          src + (((size_t)b * n + gr) * H + h) * D) + c);
+    reinterpret_cast<float4*>(dst)[idx] = x;
+  }
+}
+
+// K5 f32 split: quad = query row; K / V tiles of 64 keys in shared memory.
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+bwd_dq_f32_split_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_kv,
+                        float* __restrict__ dq, int Sq, int Skv, int Hq,
+                        int Hkv, float scale, int causal) {
+  constexpr int kC = SplitChunks<D>::value;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                                     // [kTile][D]
+  float* Vs = Ks + kTile * D;                          // [kTile][D]
+  int* Ss = reinterpret_cast<int*>(Vs + kTile * D);    // [kTile]
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, g = tid & (kQuad - 1);
+  const unsigned quad = 0xfu << (tid & 28);
+  const int q0 = blockIdx.x * kTile, i = q0 + tid / kQuad;
+  const int offset = Skv - Sq;
+  const bool live = i < Sq;
+  float4 qr[kC], dor[kC], acc[kC];
+  float l = 0.f, dl = 0.f;
+  int sq = 0;
+#pragma unroll
+  for (int e = 0; e < kC; ++e)
+    qr[e] = dor[e] = acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const size_t row = (((size_t)b * Sq + i) * Hq + h) * D;
+    const float4* qp = reinterpret_cast<const float4*>(q + row);
+    const float4* op = reinterpret_cast<const float4*>(dout + row);
+#pragma unroll
+    for (int e = 0; e < kC; ++e) {
+      qr[e] = __ldg(qp + g + kQuad * e);
+      dor[e] = __ldg(op + g + kQuad * e);
+    }
+    l = lse[((size_t)b * Hq + h) * Sq + i];
+    dl = delta[((size_t)b * Hq + h) * Sq + i];
+    if (seg_q != nullptr) sq = seg_q[(size_t)b * Sq + i];
+  }
+  const int q_last = min(Sq, q0 + kTile) - 1;
+  const int kv_hi = causal ? min(Skv, q_last + offset + 1) : Skv;
+  for (int kv0 = 0; kv0 < kv_hi; kv0 += kTile) {
+    __syncthreads();   // the previous tile's readers are done
+    stage_rows<D>(k, Ks, b, kv0, Skv, Hkv, hk, tid);
+    stage_rows<D>(v, Vs, b, kv0, Skv, Hkv, hk, tid);
+    if (seg_q != nullptr && tid < kTile)
+      Ss[tid] = kv0 + tid < Skv ? seg_kv[(size_t)b * Skv + kv0 + tid] : 0;
+    __syncthreads();
+    if (!live) continue;   // the quad's row: uniform across the quad
+    const int jn = min(kTile, kv_hi - kv0);
+    for (int j = 0; j < jn; ++j) {
+      const int kc = kv0 + j;
+      bool keep = !causal || kc <= i + offset;
+      if (seg_q != nullptr) keep = keep && Ss[j] == sq;
+      if (!keep) continue;
+      const float4* kj = reinterpret_cast<const float4*>(Ks + j * D);
+      const float4* vj = reinterpret_cast<const float4*>(Vs + j * D);
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int e = 0; e < kC; ++e) {
+        s = dot4(qr[e], kj[g + kQuad * e], s);
+        dp = dot4(dor[e], vj[g + kQuad * e], dp);
+      }
+      s = quad_sum(quad, s);
+      dp = quad_sum(quad, dp);
+      const float p = expf(s * scale - l);
+      const float ds = p * (dp - dl) * scale;
+#pragma unroll
+      for (int e = 0; e < kC; ++e) axpy4(ds, kj[g + kQuad * e], acc[e]);
+    }
+  }
+  if (live) {
+    float4* o = reinterpret_cast<float4*>(dq + (((size_t)b * Sq + i) * Hq +
+                                                h) * D);
+#pragma unroll
+    for (int e = 0; e < kC; ++e) o[g + kQuad * e] = acc[e];
+  }
+}
+
+// K6 f32 split: quad = key row; it walks the G q heads of its KV head and
+// the 64-query tiles that see any of the CTA's keys, dk / dv summed over
+// the group in float32 registers.
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+bwd_dkv_f32_split_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_kv,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int Sq, int Skv, int Hq, int Hkv, float scale,
+                         int causal) {
+  constexpr int kC = SplitChunks<D>::value;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                                     // [kTile][D]
+  float* Os = Qs + kTile * D;                          // [kTile][D]
+  float* Ls = Os + kTile * D;                          // [kTile]
+  float* Ds = Ls + kTile;                              // [kTile]
+  int* Ss = reinterpret_cast<int*>(Ds + kTile);        // [kTile]
+  const int hk = blockIdx.y, b = blockIdx.z, G = Hq / Hkv;
+  const int tid = threadIdx.x, g = tid & (kQuad - 1);
+  const unsigned quad = 0xfu << (tid & 28);
+  const int kv0 = blockIdx.x * kTile, j = kv0 + tid / kQuad;
+  const int offset = Skv - Sq;
+  const bool live = j < Skv;
+  float4 kr[kC], vr[kC], dka[kC], dva[kC];
+  int sk = 0;
+#pragma unroll
+  for (int e = 0; e < kC; ++e)
+    kr[e] = vr[e] = dka[e] = dva[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
+    const float4* kp = reinterpret_cast<const float4*>(k + row);
+    const float4* vp = reinterpret_cast<const float4*>(v + row);
+#pragma unroll
+    for (int e = 0; e < kC; ++e) {
+      kr[e] = __ldg(kp + g + kQuad * e);
+      vr[e] = __ldg(vp + g + kQuad * e);
+    }
+    if (seg_q != nullptr) sk = seg_kv[(size_t)b * Skv + j];
+  }
+  // queries i >= key - offset see the key: the first tile that can
+  int q_lo = causal ? max(0, kv0 - offset) : 0;
+  q_lo -= q_lo % kTile;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = hk * G + gi;
+    for (int q0 = q_lo; q0 < Sq; q0 += kTile) {
+      __syncthreads();   // the previous tile's readers are done
+      stage_rows<D>(q, Qs, b, q0, Sq, Hq, h, tid);
+      stage_rows<D>(dout, Os, b, q0, Sq, Hq, h, tid);
+      if (tid < kTile) {
+        const int qi = q0 + tid;
+        const size_t lr = ((size_t)b * Hq + h) * Sq + qi;
+        Ls[tid] = qi < Sq ? lse[lr] : 0.f;
+        Ds[tid] = qi < Sq ? delta[lr] : 0.f;
+        if (seg_q != nullptr)
+          Ss[tid] = qi < Sq ? seg_q[(size_t)b * Sq + qi] : 0;
+      }
+      __syncthreads();
+      if (!live) continue;   // the quad's row: uniform across the quad
+      const int in = min(kTile, Sq - q0);
+      for (int r = 0; r < in; ++r) {
+        bool keep = !causal || j <= q0 + r + offset;
+        if (seg_q != nullptr) keep = keep && Ss[r] == sk;
+        if (!keep) continue;
+        const float4* qr = reinterpret_cast<const float4*>(Qs + r * D);
+        const float4* orr = reinterpret_cast<const float4*>(Os + r * D);
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int e = 0; e < kC; ++e) {
+          s = dot4(qr[g + kQuad * e], kr[e], s);
+          dp = dot4(orr[g + kQuad * e], vr[e], dp);
+        }
+        s = quad_sum(quad, s);
+        dp = quad_sum(quad, dp);
+        const float p = expf(s * scale - Ls[r]);
+        const float ds = p * (dp - Ds[r]) * scale;
+#pragma unroll
+        for (int e = 0; e < kC; ++e) {
+          axpy4(p, orr[g + kQuad * e], dva[e]);
+          axpy4(ds, qr[g + kQuad * e], dka[e]);
+        }
+      }
+    }
+  }
+  if (live) {
+    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
+    float4* kp = reinterpret_cast<float4*>(dk + row);
+    float4* vp = reinterpret_cast<float4*>(dv + row);
+#pragma unroll
+    for (int e = 0; e < kC; ++e) {
+      kp[g + kQuad * e] = dka[e];
+      vp[g + kQuad * e] = dva[e];
     }
   }
 }
@@ -864,6 +1118,56 @@ cudaError_t launch_dq_f32(const float* q, const float* k, const float* v,
   return cudaSuccess;
 }
 
+// the split kernels' dynamic shared memory: two 64 x D float tiles and
+// three 64-entry rows (K5 uses one)
+template <int D>
+constexpr int split_smem() {
+  return (2 * kTile * D + 3 * kTile) * 4;
+}
+
+template <typename Kernel>
+cudaError_t split_attributes(Kernel kernel, int smem) {
+  // above 48 KB only after opting in (per device, so on every launch)
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int D>
+cudaError_t launch_dq_f32_split(const float* q, const float* k,
+                                const float* v, const float* dout,
+                                const float* lse, const float* delta,
+                                const int* seg_q, const int* seg_kv,
+                                float* dq, int B, int Sq, int Skv, int Hq,
+                                int Hkv, float scale, int causal,
+                                cudaStream_t st) {
+  constexpr int smem = split_smem<D>();
+  const cudaError_t e = split_attributes(bwd_dq_f32_split_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
+  bwd_dq_f32_split_kernel<D><<<grid, kSplitThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, seg_q, seg_kv, dq, Sq, Skv, Hq, Hkv, scale,
+      causal);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkv_f32_split(const float* q, const float* k,
+                                 const float* v, const float* dout,
+                                 const float* lse, const float* delta,
+                                 const int* seg_q, const int* seg_kv,
+                                 float* dk, float* dv, int B, int Sq,
+                                 int Skv, int Hq, int Hkv, float scale,
+                                 int causal, cudaStream_t st) {
+  constexpr int smem = split_smem<D>();
+  const cudaError_t e = split_attributes(bwd_dkv_f32_split_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
+  bwd_dkv_f32_split_kernel<D><<<grid, kSplitThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, Sq, Skv, Hq, Hkv,
+      scale, causal);
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
                            const float* dout, const float* lse,
@@ -881,8 +1185,8 @@ cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
 }  // namespace
 
 // K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (any D <= 128
-// with D % 8 == 0, the Hopper kernel), 1 = float32 (D = 16, 64 or 72, CUDA
-// cores): K2's head dims.  Any other pair, or only one of seg_q / seg_kv,
+// with D % 8 == 0, the Hopper kernel), 1 = float32 (D = 16, 64 or 72: one
+// thread a row; D = 128: a quad a row; CUDA cores): K2's head dims.  Any other pair, or only one of seg_q / seg_kv,
 // returns cudaErrorInvalidValue.  Tensors
 // contiguous and 16-byte aligned (seg_q / seg_kv too).  With segment ids the
 // bfloat16 build also takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B,
@@ -932,6 +1236,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   else if (dtype == 1 && D == 72)
     e = launch_dq_f32<72>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
                           Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 128)
+    e = launch_dq_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq,
+                                 Skv, Hq, Hkv, scale, causal, st);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -986,6 +1293,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   else if (dtype == 1 && D == 72)
     e = launch_dkv_f32<72>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
                            Skv, Hq, Hkv, scale, causal, st);
+  else if (dtype == 1 && D == 128)
+    e = launch_dkv_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv,
+                                  B, Sq, Skv, Hq, Hkv, scale, causal, st);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -46,15 +46,17 @@
 //     the heaviest q tiles first, and with segment ids every key tile
 //     whose id range misses the q tile's skipped (see its notes).  Paged,
 //     it takes block_len % 64 == 0;
-//   * float32 at D = 16 (the tiny test models), contiguous or paged (any
-//     block_len, the table looked up per key, int8 dequantized per key),
-//     and contiguous at D = 64 and 72 (float32 DiTs):
-//     products on the CUDA cores -- each thread owns a 4x4 tile of scores
-//     (rows tr*4.., keys tc*4..) and 4 rows x (D/16) output elements, fed
-//     by 16-byte shared-memory reads of transposed Q and K tiles; the K
-//     tile's shared memory is reused for the probabilities (26 KB at D =
-//     16, 58 KB at 72).  wgmma has no float32 input that keeps float32
-//     numerics, so it stays here.
+//   * float32 at D = 16 (the tiny test models) and 128 (the reference's
+//     float32 default configurations: LlamaConfig(), the Qwen2-VL
+//     decoder), contiguous or paged (any block_len, the table looked up
+//     per key, int8 dequantized per key), and contiguous at D = 64 and 72
+//     (float32 DiTs, the Qwen2-VL tower): products on the CUDA cores --
+//     each thread owns a 4x4 tile of scores (rows tr*4.., keys tc*4..) and
+//     4 rows x (D/16) output elements, fed by 16-byte shared-memory reads
+//     of transposed Q and K tiles; the K tile's shared memory is reused
+//     for the probabilities (26 KB at D = 16, 58 KB at 72, 100 KB at 128:
+//     two CTAs an SM still fit).  wgmma has no float32 input that keeps
+//     float32 numerics, so it stays here.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1012,7 +1014,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = bfloat16, 1 = float32.  bfloat16 at any D <= 128 with D % 8
 // == 0 runs the Hopper kernel (q, k, v, out 16-byte aligned), float32 at D
-// = 16, 64 or 72 the CUDA-core one; any other pair returns
+// = 16, 64, 72 or 128 the CUDA-core one; any other pair returns
 // cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
 // packed-document ids, or both null; query i sees key j only where
 // seg_q[b, i] == seg_kv[b, j] (and causally).  With ids the bfloat16 build
@@ -1064,6 +1066,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   else if (dtype == 1 && D == 72)
     e = launch_f32<72>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
                        sq, skv, st);
+  else if (dtype == 1 && D == 128)
+    e = launch_f32<128>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
+                        sq, skv, st);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1092,7 +1097,7 @@ static HopperArgs paged_args(const void* pos, const void* table, int B,
 // int32 (B, max_blocks) block table (every entry a valid block id).  Query
 // i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
 // bfloat16 at D = 128 (the Hopper kernel) needs block_len % 64 == 0;
-// float32 at D = 16 takes any block_len >= 1; other cases return
+// float32 at D = 16 or 128 takes any block_len >= 1; other cases return
 // cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
                                          const void* v, const void* pos,
@@ -1116,6 +1121,9 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
   else if (dtype == 1 && D == 16)
     e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
                          st, p, t, max_blocks, block_len);
+  else if (dtype == 1 && D == 128)
+    e = launch<128, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
+                          st, p, t, max_blocks, block_len);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1125,7 +1133,7 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
 // Paged int8 suffix prefill: as flash_attention_fwd_paged with k, v one
 // layer's int8 (num_blocks, block_len, Hkv, D) pool and k_scale, v_scale
 // float32 (num_blocks, Hkv).  bfloat16 q at D = 128 needs block_len % 64
-// == 0; float32 q at D = 16 takes any block_len >= 1.
+// == 0; float32 q at D = 16 or 128 takes any block_len >= 1.
 extern "C" int flash_attention_fwd_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* pos, const void* table, void* out,
@@ -1151,6 +1159,10 @@ extern "C" int flash_attention_fwd_paged_int8(
     e = launch<16, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
                                  scale, 1, st, p, t, max_blocks, block_len,
                                  ks, vs);
+  } else if (dtype == 1 && D == 128) {
+    e = launch<128, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
+                                  scale, 1, st, p, t, max_blocks, block_len,
+                                  ks, vs);
   } else {
     e = cudaErrorInvalidValue;
   }

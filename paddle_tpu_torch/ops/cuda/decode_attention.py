@@ -45,11 +45,14 @@ length is ``max_blocks * block_len`` and each row reads only keys below
 null-filled dead tail is never read; ``block_len`` must be a multiple of 8
 (a slice's two 8-key groups each lie in one block).
 
-The float32 head_dim-16 builds (the tiny model) keep a CUDA-core body:
-each warp walks its own 8-key blocks with its own online softmax, and a
-second small kernel merges the splits.  Those two builds — bfloat16 at
-head_dim 128 and float32 at head_dim 16 — are held against the plain
-version on the card (``chip_smoke.py``); any other pair raises.
+The float32 builds — head_dim 16 (the tiny models) and 128 (the
+reference's float32 default configurations, ``LlamaConfig()`` and
+``Qwen2VLConfig()``'s decoder) — keep a CUDA-core body in float32
+throughout: each warp walks its own 8-key blocks with its own online
+softmax (a lane holds D / 32 elements of a row, one 16-byte load at
+head_dim 128), and a second small kernel merges the splits.  Those builds
+— bfloat16 at head_dim 128, float32 at 16 and 128 — are held against the
+plain version on the card (``chip_smoke.py``); any other pair raises.
 
 The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
 K1-paged-int8; replacing the Pallas kernel's ``quantized`` mode,
@@ -92,8 +95,10 @@ from . import (_build, block_table, check_attention_args, check_scales,
                pos_vector, stream_ptr)
 
 NAME = "decode_attention"
-# the head_dim built for each dtype
-HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
+# the head dims built for each dtype: bf16 the Hopper body at 128, float32
+# the CUDA-core body at 16 (the tiny models) and 128 (the reference's
+# float32 default configurations); other pairs are ROADMAP B2
+HEAD_DIM = {torch.bfloat16: 128, torch.float32: frozenset({16, 128})}
 
 # the bf16 head_dim-128 builds (decode_mma_kernel): query rows a CTA
 # (mma.sync's n8), keys a warp step, warps a CTA (warp w takes slices w,

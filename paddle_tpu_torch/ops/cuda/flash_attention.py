@@ -12,9 +12,9 @@ not 128-aligned, which the Pallas kernel refuses at :73-88).  Head dims
 (``FWD_HEAD_DIMS``): bf16 any D <= 128 with D % 8 == 0 — the reference's
 kernel takes any D up to 256 and widens its blocks by D / 128 (:56-71);
 the port keeps its 128-wide tiles with the columns past D zero-filled, so
-DiT-XL/2's D = 72 runs it — float32 16, 64 and 72.  The backward K5 / K6
-takes the same set; the paged builds below take D = 128 (bf16) / 16
-(float32) only (``HEAD_DIM``; the rest is ROADMAP B2).
+DiT-XL/2's D = 72 runs it — float32 16, 64, 72 and 128.  The backward K5
+/ K6 takes the same set; the paged builds below take D = 128 (bf16) / 16
+and 128 (float32) only (``HEAD_DIM``; the rest is ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about
@@ -81,14 +81,15 @@ from . import (_build, block_table, check_attention_args, check_scales,
 NAME = "flash_attention_fwd"
 # the head_dim the paged builds below take for each dtype; other head
 # dims are ROADMAP B2
-HEAD_DIM = {torch.bfloat16: 128, torch.float32: 16}
+HEAD_DIM = {torch.bfloat16: 128, torch.float32: frozenset({16, 128})}
 # the contiguous K2's head dims, and K5 / K6's (``flash_attention_bwd.py``):
 # bf16 any D <= 128 with D % 8 == 0 (the Hopper kernels' 128-wide tiles,
 # columns past D zero-filled by TMA, whose row stride D x 2 bytes must be a
 # multiple of 16), float32 the CUDA-core kernels' instances (the tiny
-# models at 16, float32 DiTs at 64 and 72)
+# models at 16, float32 DiTs at 64 and 72, the reference's float32 default
+# configurations -- LlamaConfig(), Qwen2VLConfig()'s decoder -- at 128)
 FWD_HEAD_DIMS = {torch.bfloat16: frozenset(range(8, 129, 8)),
-                 torch.float32: frozenset({16, 64, 72})}
+                 torch.float32: frozenset({16, 64, 72, 128})}
 SEG_TILE = 128          # the bf16 build's query and key tile (csrc: kHQ, kHK)
 PAGED_BOX = 64          # the bf16 paged builds' key rows a box (csrc: kHBox)
 

@@ -26,8 +26,10 @@ segment ids both skip the tile pairs whose id ranges miss
 whatever K2 runs forward trains — bf16 at any D <= 128 with D % 8 == 0
 (the Hopper kernels on 128-wide tiles whose columns past D TMA fills with
 zeros: DiT-XL/2's 72 pays 1.78x the useful products), float32 at 16, 64
-and 72 on CUDA-core kernels; any other pair raises naming ROADMAP B2
-before a launch.  Each wrapper counts its launches in ``.launches``, and
+and 72 on CUDA-core kernels of one thread a row and at 128 on CUDA-core
+kernels that split each row over a quad of threads (D / 4 columns a
+thread, the dot products summed by two shuffles; nothing spills); any
+other pair raises naming ROADMAP B2 before a launch.  Each wrapper counts its launches in ``.launches``, and
 in ``.by_shape`` by (head_dim, Sq, Skv, causal).
 """
 

@@ -592,3 +592,140 @@ def test_grad_gate_reports_one_element_tensors_apart(capsys):
         line["one_element_tensors"]
     with pytest.raises(chip_smoke.CheckFailed):
         chip_smoke.grad_gate(torch, m, lambda: m, loss, "g", {})
+
+
+# ---- the float32 head_dim-128 builds: phase 2's rows, qwen2_vl_f32 and
+# serving_f32 -----------------------------------------------------------------
+
+F32_BUILDS = ("decode_attention", "decode_attention_int8",
+              "decode_attention_paged", "decode_attention_paged_int8",
+              "flash_attention_fwd", "flash_attention_fwd_paged",
+              "flash_attention_fwd_paged_int8", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+@pytest.mark.parametrize("build", F32_BUILDS)
+def test_f32_d128_entries(build):
+    """Every float32 head_dim-128 build has an entry of its own in the
+    kernels line, its namesake's source and reference kernel; phase 2
+    records its rows under it, and a main-path phase sets its launches
+    (serving_f32's engines or qwen2_vl_f32's train step)."""
+    import inspect
+    name = build + chip_smoke.F32_D128
+    assert chip_smoke.KERNEL_INFO[name] == chip_smoke.KERNEL_INFO[build]
+    assert build in chip_smoke.F32_D128_FUNCTIONS
+    rows_src = inspect.getsource(chip_smoke.phase_f32_d128_rows)
+    base = build.replace("_int8", "")       # rows name "..._int8" builds
+    head_dim_src = inspect.getsource(chip_smoke.phase_head_dim_rows)
+    assert (f'"{base}' in rows_src
+            or f'"{build}" + F32_D128' in head_dim_src
+            or build in chip_smoke.TRAIN_KERNELS
+            and "TRAIN_KERNELS)" in head_dim_src.split("f32_bwd = ")[1])
+    engines = {n for _, _, att in chip_smoke.F32_ENGINES for n in att}
+    assert build in engines or build in chip_smoke.TRAIN_KERNELS
+
+
+def test_f32_d128_ptxas_finds_each_build_and_its_spills():
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{t}"
+        f"PKfS1_' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {8 if 'dkv' in t else 0} bytes spill "
+        f"stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {100 + i} registers, used 1 barriers"
+        for i, tags in enumerate(chip_smoke.F32_D128_FUNCTIONS.values())
+        for t in tags)
+    got = chip_smoke.f32_d128_ptxas({"lib": log})
+    assert set(got) == set(chip_smoke.F32_D128_FUNCTIONS)
+    assert all(r is not None for fns in got.values() for r in fns.values())
+    spills = {b for b, fns in got.items() for r in fns.values()
+              if r["spill_stores"]}
+    assert spills == {"flash_attention_bwd_dkv"}
+    # a library built by an earlier process leaves no report: None
+    assert all(r is None for fns in chip_smoke.f32_d128_ptxas({}).values()
+               for r in fns.values())
+
+
+def test_qwen_generation_want_counts_by_shape():
+    """qwen2_vl and qwen2_vl_f32 expect the same launches of Qwen2VLConfig()
+    a generate call: K2 the tower's 2 (D 64), the prefill's 4 (causal D
+    128), the cross layers' 2 at the prefill and 2 a decode step."""
+    from paddle_tpu_torch.models import Qwen2VLConfig
+    cfg = Qwen2VLConfig()
+    want, shapes = chip_smoke.qwen_generation_want(cfg, 2)
+    new, prompt, patches = (chip_smoke.QWEN_NEW, chip_smoke.QWEN_PROMPT,
+                            chip_smoke.QWEN_PATCHES)
+    assert want == {"flash_attention_fwd": 2 + 4 + 2 * new,
+                    "decode_attention": 4 * (new - 1),
+                    "rms_norm": 11 * new}
+    assert sum(shapes.values()) == want["flash_attention_fwd"]
+    assert shapes[("flash_attention_fwd", 128, 1, patches, False)] \
+        == 2 * (new - 1)
+    assert shapes[("flash_attention_fwd", 128, prompt, prompt, True)] == 4
+
+
+@pytest.mark.parametrize("label", ["contiguous", "paged", "int8_paged",
+                                   "int8_contiguous"])
+def test_serving_f32_launch_contract(label):
+    """Each serving_f32 engine owes its decode kernel 32 launches a tick and
+    its wave kernel 32 a wave; an attention kernel off its path, a short
+    count or a plain route fails the phase."""
+    (_, _, attention), = [e for e in chip_smoke.F32_ENGINES if e[0] == label]
+    m = {"decode_ticks": 15, "prefill_waves": 3, "ticks": 18}
+    want = chip_smoke.attention_launches(m, attention)
+    assert sorted(want.values()) == [96, 480]
+    launches = {n: 0 for n in chip_smoke.ATTENTION_KERNELS}
+    launches.update(want, rms_norm=1)
+    chip_smoke.check_attention_launches(label, launches, {}, want)
+    for bad_launches, routes in (
+            (dict(launches, **{n: want[n] - 1 for n in list(want)[:1]}), {}),
+            (dict(launches, decode_attention_paged_int8=7
+                  if label != "int8_paged" else 0,
+                  decode_attention=7 if label == "int8_paged" else 0), {}),
+            (launches, {"decode_attention/plain": 1})):
+        with pytest.raises(chip_smoke.CheckFailed):
+            chip_smoke.check_attention_launches(label, bad_launches, routes,
+                                                want)
+
+
+def test_serving_f32_prompts():
+    prompts = chip_smoke.f32_serving_prompts(32000)
+    lens = [p.size for p in prompts]
+    assert len(prompts) == 8 and min(lens) >= 5 and max(lens) <= 1500
+    assert max(lens) + chip_smoke.F32_NEW_TOKENS <= chip_smoke.F32_L
+    shared = [p for p in prompts[::2]]
+    assert all(np.array_equal(p[:512], shared[0][:512]) for p in shared)
+    assert not any(np.array_equal(p[:512], shared[0][:512])
+                   for p in prompts[1::2] if p.size >= 512)
+
+
+def test_logit_gate():
+    want = [torch.tensor([[1.0, -4.0]]), torch.tensor([[2.0, 0.5]])]
+    ok = chip_smoke.logit_gate([w + 3e-4 for w in want], want)
+    assert ok["tol"] == pytest.approx(4.0 * chip_smoke.F32_LOGIT_TOL)
+    chip_smoke.check_logit_gate(ok, "ok")
+    for got in ([w + 5e-4 for w in want],
+                [want[0], want[1] * float("nan")]):
+        with pytest.raises(chip_smoke.CheckFailed):
+            chip_smoke.check_logit_gate(chip_smoke.logit_gate(got, want),
+                                        "bad")
+
+
+def test_f32_phases_order():
+    """serving_f32 runs first once the bf16 models are freed (26.9 GB of
+    float32 Llama weights, a 17 GB cache and an eager wave's 8.6 GB
+    sub-cache leave little room), qwen2_vl_f32 after qwen2_vl_train and
+    before phase 5; the eager twin serves as many tokens as its graphed
+    run."""
+    import inspect
+    main_src = inspect.getsource(chip_smoke.main)
+    assert main_src.index("del model, qmodel") \
+        < main_src.index("phase_serving_f32(") \
+        < main_src.index("phase_dit(") \
+        < main_src.index("phase_qwen2_vl_train(") \
+        < main_src.index("phase_qwen2_vl_f32(") \
+        < main_src.index("phase_training(")
+    # the chunked and spec loops leave ``m`` on the int8 model: it is
+    # dropped with the other names, or its 8.8 GB stay on the card
+    assert "del model, qmodel, m\n" in main_src
+    assert "new_tokens=F32_NEW_TOKENS" in inspect.getsource(
+        chip_smoke.phase_serving_f32).split("eager_twin(")[1][:200]

@@ -422,8 +422,27 @@ def _pallas_takes(case, int8):
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("kind,b,s,bl,mb,split_len,pos", FIXED)
 def test_model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout):
+    _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, 16)
+
+
+# float32 (and int8 K/V under float32 q) at the reference's default head
+# dim, 128: the decode tick and a 5-token window over several splits
+FIXED_128 = [
+    ("float32", 3, 1, 128, 4, 256, [0, 200, 500]),
+    ("int8", 2, 5, 128, 3, 64, [1, 300]),
+]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind,b,s,bl,mb,split_len,pos", FIXED_128)
+def test_model_matches_jax_at_head_dim_128(kind, b, s, bl, mb, split_len,
+                                           pos, layout):
+    _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, 128)
+
+
+def _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, d):
     int8 = kind == "int8"
-    case = Case(7, layout, b, s, bl, mb, int8=int8, hq=8, hkv=2, d=16,
+    case = Case(7, layout, b, s, bl, mb, int8=int8, hq=8, hkv=2, d=d,
                 pos=pos)
     if kind == "bfloat16":
         case.q, case.k, case.v = (_bf16_values(a)

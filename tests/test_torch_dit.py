@@ -382,7 +382,8 @@ def _qkv(d, dtype, hq=4, hkv=2, s=8):
                                      (torch.bfloat16, 128),
                                      (torch.float32, 16),
                                      (torch.float32, 64),
-                                     (torch.float32, 72)])
+                                     (torch.float32, 72),
+                                     (torch.float32, 128)])
 def test_contiguous_k2_takes_the_head_dims(no_card, dtype, d):
     out, lse = k2.flash_attention_fwd_cuda(*_qkv(d, dtype))
     (name, args), = no_card.calls
@@ -397,7 +398,7 @@ def test_contiguous_k2_takes_the_head_dims(no_card, dtype, d):
                                      (torch.bfloat16, 136),
                                      (torch.bfloat16, 256),
                                      (torch.float32, 32),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 96)])
 def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
     with pytest.raises(NotImplementedError, match="B2"):
         k2.flash_attention_fwd_cuda(*_qkv(d, dtype))
@@ -408,8 +409,8 @@ def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
                                      (torch.bfloat16, 64),
                                      (torch.float32, 72)])
 def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
-    """K2-paged(-int8) and the K1 family are built at 128 (bf16) / 16
-    (float32) only: each refuses DiT's head dims naming B2.  (K5 / K6
+    """K2-paged(-int8) and the K1 family are built at 128 (bf16) / 16 and
+    128 (float32) only: each refuses DiT's head dims naming B2.  (K5 / K6
     take them: ``test_k5_k6_take_k2s_head_dims``.)"""
     q, k, v = _qkv(d, dtype, s=1)
     pool = torch.zeros(4, 64, 2, d, dtype=dtype)
@@ -436,12 +437,60 @@ def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
     assert no_card.calls == []
 
 
+def _f32_calls(d, s=1):
+    """Every float32 K1 / K2-paged launch at head_dim ``d``: (entry name,
+    index of D in its arguments, call)."""
+    q = torch.zeros(2, s, 4, d)
+    pool, pool8 = torch.zeros(4, 64, 2, d), torch.zeros(4, 64, 2, d,
+                                                         dtype=torch.int8)
+    sc = torch.ones(4, 2)
+    tbl = torch.zeros(2, 2, dtype=torch.int32)
+    cache, cache8 = torch.zeros(2, 128, 2, d), torch.zeros(
+        2, 128, 2, d, dtype=torch.int8)
+    csc = torch.ones(2, 1, 2)
+    return [
+        ("decode_attention", 12,
+         lambda: k1.decode_attention_cuda(q, cache, cache, 0)),
+        ("decode_attention_int8", 14,
+         lambda: k1.decode_attention_int8_cuda(q, cache8, cache8, 0,
+                                               k_scale=csc, v_scale=csc)),
+        ("decode_attention_paged", 13,
+         lambda: k1.decode_attention_paged_cuda(q, pool, pool, 0, tbl)),
+        ("decode_attention_paged_int8", 15,
+         lambda: k1.decode_attention_paged_int8_cuda(
+             q, pool8, pool8, 0, tbl, k_scale=sc, v_scale=sc)),
+        ("flash_attention_fwd_paged", 10,
+         lambda: k2.flash_attention_fwd_paged_cuda(q, pool, pool, 0, tbl)),
+        ("flash_attention_fwd_paged_int8", 12,
+         lambda: k2.flash_attention_fwd_paged_int8_cuda(q, pool8, pool8, 0,
+                                                        tbl, sc, sc)),
+    ]
+
+
+@pytest.mark.parametrize("s", [1, 5])
+def test_k1_and_paged_k2_launch_at_float32_head_dim_128(no_card, s):
+    for name, i_d, call in _f32_calls(128, s):
+        no_card.calls.clear()
+        out = call()
+        (got, args), = no_card.calls
+        assert got == name and args[i_d] == 128 and args[i_d - 3] == s
+        assert args[-2] == 1                          # dtype code: float32
+        assert out.shape == (2, s, 4, 128) and out.dtype == torch.float32
+
+
+def test_k1_and_paged_k2_refuse_float32_head_dim_96(no_card):
+    for _, _, call in _f32_calls(96):
+        with pytest.raises(NotImplementedError, match="B2"):
+            call()
+    assert no_card.calls == []
+
+
 # K5 / K6 take K2's head dims (``FWD_HEAD_DIMS``), and nothing else
 BWD_TAKES = [(torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 64),
              (torch.bfloat16, 72), (torch.bfloat16, 120),
              (torch.bfloat16, 128), (torch.float32, 16), (torch.float32, 64),
-             (torch.float32, 72)]
-BWD_REFUSES = {torch.bfloat16: (76, 136), torch.float32: (32, 128)}
+             (torch.float32, 72), (torch.float32, 128)]
+BWD_REFUSES = {torch.bfloat16: (76, 136), torch.float32: (32, 96)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

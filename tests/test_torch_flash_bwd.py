@@ -65,6 +65,10 @@ PALLAS_CASES = [
     ("d72_self_segments", 2, 128, 128, 4, 2, 72, True, "self", True),
     ("d64_causal_gqa", 2, 128, 128, 4, 2, 64, True, None, False),
     ("d64_cross_segments", 1, 64, 128, 2, 2, 64, False, "cross", True),
+    # float32 at head_dim 128 (LlamaConfig(), Qwen2VLConfig()'s decoder)
+    ("d128_causal_gqa_dead_rows", 1, 256, 128, 4, 2, 128, True, None, True),
+    ("d128_self_segments", 1, 128, 128, 4, 2, 128, True, "self", True),
+    ("d128_cross", 1, 64, 128, 2, 2, 128, False, None, False),
 ]
 
 

@@ -292,6 +292,13 @@ def test_kept_tiles_backward_matches_jax_at_head_dim_72(kind):
     _kept_tiles_backward(kind, 72)
 
 
+@pytest.mark.parametrize("kind", ["k5", "k6"])
+def test_kept_tiles_backward_matches_jax_at_head_dim_128(kind):
+    """The same at the reference's float32 default head_dim (128): the
+    float32 build's walk is K5 / K6's walk by tokens."""
+    _kept_tiles_backward(kind, 128)
+
+
 def _kept_tiles_backward(kind, d):
     rng = np.random.default_rng(6)
     b, s, hq, hkv = 1, 512, 4, 2

@@ -151,6 +151,9 @@ def test_init_kv_cache_quantized_matches_reference():
 PAGED_CASES = [
     (3, 1, 8, 2, 32, [0, 300, 129], 3),
     (3, 20, 8, 2, 32, [5, 200, 130], 2),
+    # float32 q at head_dim 128 (LlamaConfig()): the tick and s = 5
+    (3, 1, 8, 2, 128, [0, 300, 129], 3),
+    (2, 5, 4, 4, 128, [5, 200], 2),
 ]
 
 
@@ -187,7 +190,17 @@ def test_paged_int8_plain_matches_pallas_and_xla(b, s, hq, hkv, d, pos, mb):
 
 @pytest.mark.parametrize("s,pos", [(1, [0, 255, 130]), (3, [7, 140, 200])])
 def test_contiguous_int8_plain_matches_pallas_and_xla(s, pos):
-    b, hq, hkv, d, L, n_gran = 3, 8, 2, 32, 256, 2     # 128-token granules
+    _contiguous_int8_case(s, pos, 32)
+
+
+@pytest.mark.parametrize("s,pos", [(1, [0, 255, 130]), (5, [7, 140, 200])])
+def test_contiguous_int8_plain_matches_pallas_at_head_dim_128(s, pos):
+    """float32 q over the int8 cache at LlamaConfig()'s head_dim."""
+    _contiguous_int8_case(s, pos, 128)
+
+
+def _contiguous_int8_case(s, pos, d):
+    b, hq, hkv, L, n_gran = 3, 8, 2, 256, 2            # 128-token granules
     q = _rand((b, s, hq, d), 7)
     kc, vc = _int8((b, L, hkv, d), 8), _int8((b, L, hkv, d), 9)
     ks = np.abs(_rand((b, n_gran, hkv), 10, 0.02)).astype(np.float32)

@@ -180,6 +180,67 @@ def test_flash_ragged_lengths_plain():
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
 
 
+# ---- float32 at head_dim 128 (the reference's default configurations) ----
+# K1 and K2's plain versions at the head dim of LlamaConfig() and of
+# Qwen2VLConfig()'s decoder, at 1e-5 (float32 sum order)
+
+TOL_128 = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,pos", [(2, 1, 4, 4, 77),
+                                            (3, 5, 8, 2, "zero")])
+def test_decode_plain_matches_pallas_at_head_dim_128(b, s, hq, hkv, pos):
+    L, d = 256, 128
+    q = _rand((b, s, hq, d), 31)
+    k, v = _rand((b, L, hkv, d), 32), _rand((b, L, hkv, d), 33)
+    pos = (np.asarray([0, 77, 200][:b], np.int32) if pos == "zero"
+           else pos)
+    jpos = jnp.asarray(pos) if isinstance(pos, np.ndarray) else pos
+    tpos = _t(pos) if isinstance(pos, np.ndarray) else pos
+    want = decode_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jpos, block_kv=128,
+                                   interpret=True)
+    got = cached_decode_attention(_t(q), _t(k), _t(v), tpos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_128)
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,causal,segments", [
+    (256, 128, 4, 2, True, False),      # causal GQA, rows 0..127 dead
+    (128, 256, 2, 2, False, False),     # not causal, Sq != Skv (cross)
+    (256, 256, 4, 2, True, True)])      # packed documents
+def test_flash_plain_matches_pallas_at_head_dim_128(sq, skv, hq, hkv, causal,
+                                                    segments):
+    d = 128
+    q, k, v = (_rand((1, sq, hq, d), 34), _rand((1, skv, hkv, d), 35),
+               _rand((1, skv, hkv, d), 36))
+    seg = (np.repeat(np.arange(3, dtype=np.int32), [100, 60, 96])[None]
+           if segments else None)
+    jout, jlse = flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        interpret=True, segment_ids=None if seg is None else jnp.asarray(seg))
+    out, lse = flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                               return_lse=True,
+                               segment_ids=None if seg is None else _t(seg))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL_128)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL_128)
+    if causal and sq > skv:
+        assert not out[:, :sq - skv].any()
+        assert bool((lse[:, :, :sq - skv] == -1e30).all())
+
+
+def test_flash_ragged_causal_gqa_at_head_dim_128():
+    """Sq 77 over Skv 61 (queries 0..15 see no key): the Pallas kernel
+    takes 128-aligned lengths only, so the XLA reference stands here."""
+    q, k, v = (_rand((2, 77, 8, 128), 37), _rand((2, 61, 2, 128), 38),
+               _rand((2, 61, 2, 128), 39))
+    out, lse = flash_attention_reference(_t(q), _t(k), _t(v), causal=True)
+    jout, jlse = jax_flash_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL_128)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL_128)
+    assert not out[:, :16].any()
+
+
 # ---- K3 RMSNorm: plain version vs the Pallas kernel -------------------------
 
 @pytest.mark.parametrize("with_weight", [True, False])

@@ -71,6 +71,10 @@ PAGED_CASES = [
     (2, 1, 4, 4, 16, [255, 40], 2),
     (3, 20, 8, 2, 32, [5, 200, 130], 2),
     (2, 9, 4, 2, 16, [0, 120], 2),
+    # float32 at head_dim 128 (LlamaConfig(), Qwen2VLConfig()'s decoder):
+    # the decode tick and a 5-token window
+    (3, 1, 8, 2, 128, [0, 300, 129], 3),
+    (2, 5, 4, 4, 128, [0, 120], 2),
 ]
 
 
