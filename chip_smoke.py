@@ -11,8 +11,8 @@ runs the model at the full Llama-3-8B width, serves requests through the
 engine, generates with ``generate`` (greedy, sampled, beam, int8), samples
 and trains DiT-XL/2, generates with and trains Qwen2-VL at its default
 widths (in bf16, then as the reference defines it, float32), serves
-``LlamaConfig()`` in float32 and trains a 4-layer cut of the Llama
-model.  Every phase prints one JSON line;
+``LlamaConfig()`` in float32 and TinyLlama-1.1B (head_dim 64) in bf16 and
+trains a 4-layer cut of the Llama model.  Every phase prints one JSON line;
 any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -21,7 +21,8 @@ any failed check raises, so the script exits non-zero.  Phases:
                  fails if ptxas reports that it serialised the
                  ``wgmma.mma_async`` instructions of any kernel (named),
                  or if a build of the Hopper K1 kernel (K1, K1-int8,
-                 K1-paged, K1-paged-int8) spills or fits no CTA on an SM
+                 K1-paged, K1-paged-int8; at head_dim 128 and its
+                 instance below) spills or fits no CTA on an SM
                  (``k1_mma``: registers, spills, CTAs an SM);
   2. kernels   — K1 flash-decode (also with every row at the last
                  position and a 4-token window; the same bits on two
@@ -86,7 +87,16 @@ any failed check raises, so the script exits non-zero.  Phases:
                  cross shapes, K2-paged(-int8) at a suffix prefill and over
                  the identity view, K5 / K6 at Qwen2-VL's shapes, ragged
                  and packed, each with ptxas's registers and spills (a
-                 spill fails); each also at the tiny model's
+                 spill fails); then every bf16 build of K1 and K2-paged
+                 below head_dim 128 (``/bf16_d64`` entries,
+                 :func:`phase_bf16_head_dim_rows`) at D 16, 64, 72 and
+                 96: K1, K1-int8, K1-paged, K1-paged-int8 at TinyLlama's
+                 decode tick (B 8, L 2048, 32 / 4 heads; at D 64 also
+                 s = 5), K2-paged(-int8) at a 512-query suffix prefill
+                 over 64-token blocks, and contract rows (queries that
+                 see no key give 0, 8-token scale granules, 16-token
+                 blocks, null-tailed tables; at D 72 the int8 builds'
+                 8-byte copies); each also at the tiny model's
                  float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
@@ -297,6 +307,19 @@ any failed check raises, so the script exits non-zero.  Phases:
                  path logit (int8 caches: within 1.2x the plain path's
                  distance from a float32 cache); greedy tokens against
                  the plain path reported; tok/s, TTFT, TPOT;
+  serving_tinyllama. — TinyLlama-1.1B's published widths (22 layers of
+                 32 / 4 heads of 64, hidden 2048, vocab 32000), bf16,
+                 seeded weights: serving_f32's four engines (paged at
+                 block_len 64) and requests, then the contiguous chunked
+                 engine (its chunks on K2-paged over the identity view)
+                 and greedy ``generate`` at B 4; each graphed beside its
+                 eager twin (tokens, launches, routes equal),
+                 ``step_traces`` 1, the decode kernel 22 a tick and the
+                 wave (or chunk) kernel 22 a wave (chunk), no plain
+                 route, paged: prefix hits; teacher-forced logits of each
+                 layout within 1.2x the plain path's distance from a
+                 float32 copy on a float32 cache; tok/s, TTFT, TPOT,
+                 peak memory;
   5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -322,8 +345,9 @@ from phase 5, of K2 at head_dim 72 from the dit phase, of K5 and K6 at
 head_dim 72 from dit_train, of K2 at head_dim 64 and of the cross K2 from
 qwen2_vl's greedy run, of K5 and K6 at head_dim 64 from qwen2_vl_train,
 of every float32 head_dim-128 build from serving_f32's engines (K2 from
-the contiguous engine's waves) and qwen2_vl_f32's train steps (K5, K6);
-error and times from phase 2) and, last,
+the contiguous engine's waves) and qwen2_vl_f32's train steps (K5, K6),
+of every bf16 build of K1 and K2-paged at head_dim 64 from
+serving_tinyllama's engines; error and times from phase 2) and, last,
 ``{"ok": true,
 "device": {...}}``.
 
@@ -464,6 +488,18 @@ for _name in ("decode_attention", "decode_attention_int8",
               "flash_attention_fwd_paged_int8", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv"):
     KERNEL_INFO[_name + F32_D128] = dict(KERNEL_INFO[_name])
+# every bf16 build of K1 and K2-paged below head_dim 128 (any Llama whose
+# head_dim is not 128: TinyLlama-1.1B at 64) has an entry of its own, the
+# kernel of its namesake at bf16: phase 2's "/bf16_d64" rows -- times at
+# TinyLlama's head_dim 64, the largest error over D 16, 64, 72 and 96 --
+# and launches from serving_tinyllama's engines
+BF16_D64 = "/bf16_d64"
+BF16_D64_BUILDS = ("decode_attention", "decode_attention_int8",
+                   "decode_attention_paged", "decode_attention_paged_int8",
+                   "flash_attention_fwd_paged",
+                   "flash_attention_fwd_paged_int8")
+for _name in BF16_D64_BUILDS:
+    KERNEL_INFO[_name + BF16_D64] = dict(KERNEL_INFO[_name])
 del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -730,18 +766,21 @@ K1_MMA_BUILDS = (("decode_attention", 0, 0), ("decode_attention_int8", 1, 0),
 
 
 def mma_decode_builds(ptxas):
-    """Each build of the Hopper K1 kernel (``decode_mma_kernel<INT8,
-    PAGED>``): ptxas's registers and spill bytes (when this process built
-    the library) and the CTAs that fit on one SM (minus a CUDA error)."""
+    """Each build of the Hopper K1 kernel (``decode_mma_kernel<INT8, PAGED,
+    PAD>``), at head_dim 128 and (``/padded``, PAD) below: ptxas's
+    registers and spill bytes (when this process built the library) and
+    the CTAs that fit on one SM (minus a CUDA error)."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     lib = da._lib()
     fns = ptxas.get("decode_attention", {}).get("functions", {})
     out = {}
     for name, int8, paged in K1_MMA_BUILDS:
-        tag = f"decode_mma_kernelILb{int8}ELb{paged}E"
-        row = next((dict(r) for f, r in fns.items() if tag in f), {})
-        row["ctas_per_sm"] = lib.decode_attention_mma_ctas_per_sm(int8, paged)
-        out[name] = row
+        for pad in (0, 1):
+            tag = f"decode_mma_kernelILb{int8}ELb{paged}ELb{pad}E"
+            row = next((dict(r) for f, r in fns.items() if tag in f), {})
+            row["ctas_per_sm"] = lib.decode_attention_mma_ctas_per_sm(
+                int8, paged, pad)
+            out[name + ("/padded" if pad else "")] = row
     return out
 
 
@@ -1516,6 +1555,8 @@ def phase_kernels(torch):
     phase_head_dim_rows(torch, record, randn, tols)
     phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
                         tols)
+    phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
+                             int8_scales, tols)
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
@@ -2112,6 +2153,253 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
                 note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
             del cache, dense
 
+
+# TinyLlama-1.1B's attention (serving_tinyllama): 32 query heads, 4 KV heads
+TL_HEADS, TL_KV_HEADS = 32, 4
+# phase 2's bf16 head dims below 128: the tiny config's 16, TinyLlama's 64,
+# DiT's 72 (D % 16 == 8: the int8 builds' 8-byte copies), and 96
+BF16_SMALL_DIMS = (16, 64, 72, 96)
+
+
+def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
+                             tols):
+    """Phase 2's rows of every bf16 build of K1 and K2-paged below head_dim
+    128, each held against its plain version at ``tols(bfloat16)`` under
+    the ``/bf16_d64`` entries (``head_dim`` on each row), at D 16, 64, 72
+    and 96, each build called directly: K1, K1-int8 (128-token granules),
+    K1-paged and K1-paged-int8 (shuffled, shared, null-tailed pools of
+    64-token blocks) at TinyLlama's decode tick (8 rows, Hq 32, Hkv 4, L
+    2048, positions spread; at D 64 also the verify window s = 5), the K1
+    rows checking the same bits on a second call; K2-paged and
+    K2-paged-int8 at a suffix prefill of 4 rows x 512 queries over a
+    2048-key pool of 64-token blocks.  Contract rows at every D: K1 at s =
+    5 with row 0 at pos -3 (its first 3 queries see no key: exactly 0),
+    K1-int8 over 8-token scale granules and K1-paged(-int8) over 16-token
+    blocks (a 16-key slice spans two), K2-paged(-int8) at 130 queries
+    (two q tiles) with row 0 at pos -1 (query 0 sees no key).  At D 72 the
+    int8 rows take the 8-byte copies (an int8 row of 72 bytes starts only
+    8-byte aligned).  The library yardstick of the main rows is SDPA
+    (enable_gqa) over the whole (or pre-gathered, dequantized) cache; the
+    bound is max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s)."""
+    from paddle_tpu_torch.ops import (cached_decode_attention_reference,
+                                      decode_attention_cuda,
+                                      decode_attention_int8_cuda,
+                                      decode_attention_paged_cuda,
+                                      decode_attention_paged_int8_cuda,
+                                      flash_attention_fwd_paged_cuda,
+                                      flash_attention_fwd_paged_int8_cuda)
+    import torch.nn.functional as TF
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    atol, rtol = tols(bf16)
+    hq, hkv = TL_HEADS, TL_KV_HEADS
+
+    def sdpa(q, k, v, mask):
+        return lambda: TF.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    def cache_mask(pos, s, n):
+        kj = torch.arange(n, device=dev)
+        qi = pos.long()[:, None] + torch.arange(s, device=dev)[None]
+        return (kj[None, None] <= qi[:, :, None])[:, None]     # B,1,s,n
+
+    def row(name, d, shape, fn, plain, sets, lib, nbytes, ops, main,
+            dead=None, same_bits=False, note=None):
+        """Hold ``fn`` against ``plain`` on ``sets[0]`` and record the
+        row; ``dead`` (row, queries): those first queries of that row see
+        no key and must be exactly 0; ``lib``: the library's calls (None:
+        not timed)."""
+        got, want = fn(sets[0]), plain(sets[0])
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        extra = {"head_dim": d}
+        ok = within(got, want, atol, rtol) and bool(
+            torch.isfinite(got).all().item())
+        tol = f"atol {atol} + rtol {rtol}"
+        if dead is not None:
+            extra["dead_queries_zero"] = bool(
+                (got[dead[0], :dead[1]] == 0).all().item())
+            ok = ok and extra["dead_queries_zero"]
+            tol += ", queries that see no key exactly 0"
+        if same_bits:
+            extra["deterministic"] = bool(torch.equal(got, fn(sets[0])))
+            ok = ok and extra["deterministic"]
+            tol += ", the same bits twice"
+        plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
+                           budget_ms=100.0)
+        lib_ms = time_ms(torch, lib) if lib else None
+        bms, by = bound(nbytes, ops, BF16_FLOPS)
+        record(name + BF16_D64, shape, err, tol, ok,
+               [lambda t=t: fn(t) for t in sets], plain_ms, lib_ms, bms,
+               by, main, note=note, extra=extra)
+
+    def dequant(payload, sc, gran):
+        """An int8 (B, L, H, D) cache times its (B, L / gran, H) scales."""
+        b, n, h, d = payload.shape
+        return (payload.float().view(b, n // gran, gran, h, d)
+                * sc[:, :, None, :, None]).view(b, n, h, d).to(bf16)
+
+    def gathered(t, idx, int8):
+        """A paged set's pool gathered through the table (int8:
+        dequantized) into a contiguous bf16 (B, L, H, D) copy."""
+        b, mb = idx.shape
+        if not int8:
+            return (t[0], *(p[idx].reshape(b, -1, *p.shape[2:])
+                            for p in (t[1], t[2])))
+        return (t[0], *((p[idx].float() * sc[idx][:, :, None, :, None])
+                        .reshape(b, -1, *p.shape[2:]).to(bf16)
+                        for p, sc in ((t[1], t[3]), (t[2], t[4]))))
+
+    def k1_family(d, b, s, L, pos_list, gran, bl, share, main, contract):
+        """K1, K1-int8 (``gran``-token granules), K1-paged and
+        K1-paged-int8 (``bl``-token blocks) at one shape."""
+        mb = L // bl
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        live = [max(0, min(p + s, L)) for p in pos_list]
+        ops = sum(4 * d * hq * max(0, min(p + si + 1, L))
+                  for p in pos_list for si in range(s))
+        io = 2 * b * s * hq * d * 2 + 4 * b
+        dead = ((0, -pos_list[0]) if pos_list[0] < 0 else None)
+        mask = cache_mask(pos, s, L)
+        shape = (f"B={b} s={s} L={L} Hq={hq} Hkv={hkv} D={d} "
+                 f"pos={pos_list} bf16")
+        sets = [(randn(b, s, hq, d), randn(b, L, hkv, d), randn(b, L, hkv, d))
+                for _ in range(copies(4 * b * L * hkv * d))]
+        row("decode_attention", d, shape,
+            lambda t: decode_attention_cuda(t[0], t[1], t[2], pos),
+            lambda t: cached_decode_attention_reference(t[0], t[1], t[2],
+                                                        pos),
+            sets, None if contract else [sdpa(*t, mask) for t in sets],
+            io + sum(live) * hkv * d * 2 * 2, ops, main, dead=dead,
+            same_bits=True)
+        del sets
+        n_gran = L // gran
+        sets = [(randn(b, s, hq, d), int8_payload(b, L, hkv, d),
+                 int8_payload(b, L, hkv, d), int8_scales(b, n_gran, hkv),
+                 int8_scales(b, n_gran, hkv))
+                for _ in range(copies(2 * b * L * hkv * d))]
+        lib = None if contract else [
+            sdpa(t[0], dequant(t[1], t[3], gran), dequant(t[2], t[4], gran),
+                 mask) for t in sets[:2]]
+        row("decode_attention_int8", d, shape + f", int8 K/V granule {gran}",
+            lambda t: decode_attention_int8_cuda(t[0], t[1], t[2], pos,
+                                                 t[3], t[4]),
+            lambda t: cached_decode_attention_reference(
+                t[0], t[1], t[2], pos, k_scale=t[3], v_scale=t[4]),
+            sets, lib, io + sum(live) * hkv * d * 2
+            + sum(-(-x // gran) for x in live) * hkv * 4 * 2, ops, main,
+            dead=dead, same_bits=True, note=INT8_LIBRARY_NOTE)
+        del sets, lib
+        tables, n_blocks, live_keys = paged_layout(pos_list, s, bl, mb,
+                                                   share, seed=d + s)
+        live_blocks = len({int(tables[r, j // bl])
+                           for r, p in enumerate(pos_list)
+                           for j in range(0, max(0, min(p + s, L)), bl)})
+        tables = torch.from_numpy(tables).to(dev)
+        idx = tables.long()
+        pshape = (f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
+                  f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
+                  f"bf16")
+        for int8 in (False, True):
+            if int8:
+                sets = [(randn(b, s, hq, d),
+                         int8_payload(n_blocks, bl, hkv, d),
+                         int8_payload(n_blocks, bl, hkv, d),
+                         int8_scales(n_blocks, hkv),
+                         int8_scales(n_blocks, hkv))
+                        for _ in range(copies(2 * n_blocks * bl * hkv * d))]
+            else:
+                sets = [(randn(b, s, hq, d),
+                         randn(n_blocks, bl, hkv, d),
+                         randn(n_blocks, bl, hkv, d))
+                        for _ in range(copies(4 * n_blocks * bl * hkv * d))]
+
+            def runp(t, int8=int8):
+                if int8:
+                    return decode_attention_paged_int8_cuda(
+                        t[0], t[1], t[2], pos, tables, t[3], t[4])
+                return decode_attention_paged_cuda(t[0], t[1], t[2], pos,
+                                                   tables)
+
+            def plainp(t, int8=int8):
+                kw = dict(k_scale=t[3], v_scale=t[4]) if int8 else {}
+                return cached_decode_attention_reference(
+                    t[0], t[1], t[2], pos, block_tables=tables, **kw)
+            lib = None if contract else [sdpa(*gathered(t, idx, int8), mask)
+                                         for t in sets[:2]]
+            row("decode_attention_paged" + ("_int8" if int8 else ""), d,
+                pshape + (", int8 K/V" if int8 else ""), runp, plainp, sets,
+                lib, io + live_keys * hkv * d * (1 if int8 else 2) * 2
+                + (live_blocks * hkv * 4 * 2 if int8 else 0)
+                + 4 * b * mb, ops, main, dead=dead, same_bits=True,
+                note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
+            del sets, lib
+
+    def k2_paged(d, b, s, bl, mb, pos_list, share, main, contract):
+        """K2-paged and K2-paged-int8: a suffix prefill of ``s`` queries
+        at per-row ``pos_list`` over ``bl``-token blocks."""
+        L = mb * bl
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        tables, n_blocks, live_keys = paged_layout(pos_list, s, bl, mb,
+                                                   share, seed=d)
+        live_blocks = len({int(tables[r, j // bl])
+                           for r, p in enumerate(pos_list)
+                           for j in range(0, max(0, min(p + s, L)), bl)})
+        tables = torch.from_numpy(tables).to(dev)
+        idx = tables.long()
+        mask = cache_mask(pos, s, L)
+        ops = sum(4 * d * hq * max(0, min(p + si + 1, L))
+                  for p in pos_list for si in range(s))
+        dead = (0, -pos_list[0]) if pos_list[0] < 0 else None
+        for int8 in (False, True):
+            if int8:
+                sets = [(randn(b, s, hq, d),
+                         int8_payload(n_blocks, bl, hkv, d),
+                         int8_payload(n_blocks, bl, hkv, d),
+                         int8_scales(n_blocks, hkv),
+                         int8_scales(n_blocks, hkv)) for _ in range(2)]
+            else:
+                sets = [(randn(b, s, hq, d), randn(n_blocks, bl, hkv, d),
+                         randn(n_blocks, bl, hkv, d)) for _ in range(2)]
+
+            def runp(t, int8=int8):
+                if int8:
+                    return flash_attention_fwd_paged_int8_cuda(
+                        t[0], t[1], t[2], pos, tables, t[3], t[4])
+                return flash_attention_fwd_paged_cuda(t[0], t[1], t[2], pos,
+                                                      tables)
+
+            def plainp(t, int8=int8):
+                kw = dict(k_scale=t[3], v_scale=t[4]) if int8 else {}
+                return cached_decode_attention_reference(
+                    t[0], t[1], t[2], pos, block_tables=tables, **kw)
+            lib = None if contract else [sdpa(*gathered(t, idx, int8), mask)
+                                         for t in sets]
+            row("flash_attention_fwd_paged" + ("_int8" if int8 else ""), d,
+                f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
+                f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
+                f"bf16" + (", int8 K/V" if int8 else ""), runp, plainp, sets,
+                lib, 2 * b * s * hq * d * 2
+                + live_keys * hkv * d * (1 if int8 else 2) * 2
+                + (live_blocks * hkv * 4 * 2 if int8 else 0)
+                + 4 * b * (mb + 1), ops, main, dead=dead,
+                note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
+            del sets, lib
+
+    for d in BF16_SMALL_DIMS:
+        # TinyLlama's decode tick (at D 64 its verify window too), then
+        # the contract rows
+        for s in ((1, 5) if d == 64 else (1,)):
+            k1_family(d, 8, s, F32_L, [min(p, F32_L - s)
+                                       for p in F32_TICK_POS], 128, 64,
+                      ((1, 4, 8), (5, 3, 2)), d == 64 and s == 1, False)
+        k1_family(d, 4, 5, 1024, [-3, 7, 300, 1019], 8, 16, ((1, 2, 4),),
+                  False, True)
+        k2_paged(d, 4, 512, 64, F32_L // 64, [0, 128, 1024, 1536],
+                 ((2, 3, 8), (0, 1, 1)), d == 64, False)
+        k2_paged(d, 3, 130, 64, 16, [-1, 0, 700], ((1, 2, 3),), False, True)
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -3369,14 +3657,14 @@ def spec_fields(run, base):
             "same_tokens_as_non_spec": f"{same}/{len(run['outs'])}"}
 
 
-def attention_launches(m, attention):
+def attention_launches(m, attention, layers=LAYERS_8B):
     """The launches each kernel of ``attention`` owes a run with metrics
-    ``m``: 32 a unit (name -> units: "tick" every decode or verify tick,
-    "wave" every prefill wave, "mixed" every chunk, "ticks" every tick of
-    a chunked engine)."""
+    ``m``: ``layers`` a unit (name -> units: "tick" every decode or verify
+    tick, "wave" every prefill wave, "mixed" every chunk, "ticks" every
+    tick of a chunked engine)."""
     per = {"tick": m["decode_ticks"], "wave": m["prefill_waves"],
            "mixed": m.get("mixed_ticks", 0), "ticks": m["ticks"]}
-    return {name: LAYERS_8B * sum(per[u] for u in units)
+    return {name: layers * sum(per[u] for u in units)
             for name, units in attention.items()}
 
 
@@ -5099,9 +5387,10 @@ def logit_gate(got, want):
 
 
 def int8_gate(got, want, truth):
-    """An int8 cache's session: the kernel path's and the plain path's
-    largest logit error against the float32-cache session (``truth``),
-    the tolerance 1.2x the plain path's."""
+    """A session against its float32-cache truth (an int8 cache's, or a
+    bf16 model's against a float32 copy): the kernel path's and the plain
+    path's largest logit error against ``truth``, the tolerance 1.2x the
+    plain path's."""
     err_k = max(max_err(g, t) for g, t in zip(got, truth))
     err_p = max(max_err(w, t) for w, t in zip(want, truth))
     return {"max_logit_err_kernel_vs_f32_cache": err_k,
@@ -5496,6 +5785,159 @@ def phase_serving_f32(torch, kernels, card, profile=False):
     torch.cuda.empty_cache()
 
 
+# serving_tinyllama: TinyLlama-1.1B as published
+# (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T config.json), not
+# cut, in bf16 with seeded random weights: head_dim 64, 8 query heads a KV
+# head
+TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                 num_hidden_layers=22, num_attention_heads=32,
+                 num_key_value_heads=4, max_position_embeddings=2048,
+                 rms_norm_eps=1e-5, rope_theta=10000.0,
+                 tie_word_embeddings=False, dtype="bfloat16")
+TL_BLOCK_LEN = 64       # the paged engines' blocks: the shared prompt is 8
+
+
+def phase_serving_tinyllama(torch, kernels, card):
+    """TinyLlama-1.1B's published widths (``TINYLLAMA``: 22 layers of 32 /
+    4 heads of 64, hidden 2048, vocab 32000; bf16, 2.2 GB of seeded
+    weights), served by serving_f32's four engines built and freed one
+    after another -- contiguous, paged with the prefix cache (block_len
+    64), int8-KV paged and int8-KV contiguous (8 slots of F32_L
+    positions, prefill_batch 4) -- on serving_f32's 8 requests,
+    F32_NEW_TOKENS new tokens each; then the contiguous chunked engine
+    (256-token chunks on K2-paged over the identity view) on the same
+    requests, and greedy ``generate`` at B 4.  Gates per engine: graphed,
+    ``step_traces`` 1; tokens, launches and routes equal to its eager
+    twin's; the decode kernel 22 a tick and the wave kernel 22 a wave
+    (chunked: K2-paged 22 a chunk), no other attention kernel, no plain
+    route; paged: prefix hits; teacher-forced logits of its layout within
+    1.2x the plain path's distance from a float32 copy of the weights on a
+    float32 cache (:func:`int8_gate`).  ``generate``: one graphed build,
+    bit-equal to its eager twin, K1 22 a decode step, K2 22 a prefill.
+    Reported: tok/s, TTFT, TPOT, peak memory."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+
+    dev = torch.device("cuda")
+    cfg = LlamaConfig(**TINYLLAMA)
+    layers = cfg.num_hidden_layers
+    check(cfg.head_dim == 64 and cfg.num_attention_heads
+          // cfg.num_key_value_heads == 8,
+          f"TinyLlama is at head_dim {cfg.head_dim}")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # the float32 truth of the teacher-forced sessions: a float32 copy of
+    # the weights through the plain path on a float32 cache
+    model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                               device=dev)
+    with torch.no_grad():
+        for p32, p in zip(model32.parameters(), model.parameters()):
+            p32.copy_(p)
+    with reference_mode():
+        truths = {lay: f32_forced_logits(torch, model32, lay, int8=False)[0]
+                  for lay in ("contiguous", "paged")}
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = f32_serving_prompts(cfg.vocab_size)
+    engine_kw = dict(num_slots=8, max_length=F32_L, prefill_batch=4)
+    base = {"phase": "serving_tinyllama", "card": card,
+            "config": "TinyLlama-1.1B", "params": n_params,
+            "init_s": round(init_s, 3), "requests": len(prompts),
+            "prompt_lengths": [int(p.size) for p in prompts],
+            "new_tokens": F32_NEW_TOKENS}
+    for label, kw, attention in F32_ENGINES:
+        kw = dict(engine_kw, **kw)
+        if kw.get("paged"):
+            kw["block_len"] = TL_BLOCK_LEN
+        what = f"serving_tinyllama {label}"
+        run = _serve_8b(torch, model, prompts, new_tokens=F32_NEW_TOKENS,
+                        **kw)
+        twin = eager_twin(torch, model, prompts, run, what,
+                          new_tokens=F32_NEW_TOKENS, **kw)
+        got, _ = f32_forced_logits(torch, model, label)
+        with reference_mode():
+            want, _ = f32_forced_logits(torch, model, label)
+        gate = dict(logit_gate(got, want), **int8_gate(got, want, truths[
+            "paged" if label.endswith("paged") else "contiguous"]))
+        del got, want
+        m, launches, routes = run["metrics"], run["launches"], run["routes"]
+        emit({**base, "engine": label, **serving_fields(run),
+              "prefill_waves": m["prefill_waves"],
+              "decode_ticks": m["decode_ticks"],
+              "cache_bytes": run["cache_bytes"],
+              "kv_cache": m.get("kv_cache"), "launches": launches,
+              "routes": routes, "eager_twin": twin,
+              "teacher_forced_logits": gate})
+        check_graph(run, what)
+        check_twin(twin, what)
+        check_attention_launches(what, launches, routes,
+                                 attention_launches(m, attention, layers))
+        check_logit_gate(gate, what + " teacher-forced")
+        if kw.get("paged"):
+            check(m["kv_cache"]["prefix_hit_tokens"] > 0,
+                  f"{what}: no prefix hit on the shared prompt")
+        for name in attention:
+            if name in BF16_D64_BUILDS:
+                kernels[name + BF16_D64].setdefault("launches",
+                                                    launches[name])
+        del run, twin
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the contiguous chunked engine: every chunk on K2-paged over the
+    # identity view at D 64, every tick's decode rows on K1
+    kw = dict(engine_kw, chunked=True, prefill_chunk=256,
+              chunk_policy="prefill")
+    attention = {"decode_attention": ("ticks",),
+                 "flash_attention_fwd_paged": ("mixed",)}
+    what = "serving_tinyllama chunked"
+    run = _serve_8b(torch, model, prompts, new_tokens=F32_NEW_TOKENS, **kw)
+    twin = eager_twin(torch, model, prompts, run, what,
+                      new_tokens=F32_NEW_TOKENS, **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    emit({**base, "engine": "chunked", **serving_fields(run),
+          "ticks": m["ticks"], "launches": launches, "routes": routes,
+          "eager_twin": twin})
+    check_graph(run, what)
+    check_twin(twin, what)
+    check(m["prefill_waves"] == 0 and m["mixed_ticks"] > 0,
+          f"{what}: prefill waves {m['prefill_waves']}, mixed ticks "
+          f"{m['mixed_ticks']}")
+    check_attention_launches(what, launches, routes,
+                             attention_launches(m, attention, layers))
+    del run, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # greedy generate at B 4: K1 contiguous at D 64, one graphed build
+    rng = np.random.RandomState(18)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        GEN_BATCH, GEN_PROMPT)).astype(np.int32)).to(dev)
+    want = {"decode_attention": layers * (GEN_NEW - 1),
+            "flash_attention_fwd": layers,
+            "rms_norm": (2 * layers + 1) * GEN_NEW}
+    shapes = {("flash_attention_fwd", 64, GEN_PROMPT, GEN_PROMPT, True):
+              layers}
+    torch.cuda.reset_peak_memory_stats()
+    greedy, _, _, _ = graphed_and_twin(
+        torch, model, lambda: model.generate(ids, max_new_tokens=GEN_NEW),
+        "serving_tinyllama generate", want, GEN_NEW, want_shapes=shapes)
+    greedy.pop("routes")
+    emit({**base, "engine": "generate", "batch": GEN_BATCH,
+          "prompt": GEN_PROMPT, "generate_new_tokens": GEN_NEW,
+          "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2**30,
+                                  3), **greedy})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5550,6 +5992,7 @@ def main(argv=None) -> int:
     del model, qmodel, m
     for phase in (lambda: phase_serving_f32(torch, kernels, card,
                                             profile=args.profile),
+                  lambda: phase_serving_tinyllama(torch, kernels, card),
                   lambda: phase_dit(torch, kernels, card,
                                     profile=args.profile),
                   lambda: phase_dit_train(torch, kernels, card,

@@ -45,17 +45,19 @@
 // threads) merges the splits.  Float32 math throughout: no tensor core
 // keeps float32 numerics.
 //
-// The Hopper body (decode_mma_kernel<INT8, PAGED>: K1, K1-int8, K1-paged
-// and K1-paged-int8, bf16 q at D = 128 -- the decode tick of every bf16
-// engine).  It replaced a CUDA-core walk that was bound by latency, not
-// bytes: a warp loaded one 8-key group into registers and then spent ~23
-// dependent shuffles a row on it with nothing in flight, so its time
-// followed the groups a warp walked and the int8 build, with half the
-// bytes, took as long.  Here:
+// The Hopper body (decode_mma_kernel<INT8, PAGED, PAD>: K1, K1-int8,
+// K1-paged and K1-paged-int8, bf16 q at any D <= 128 with D % 8 == 0 -- the
+// decode tick of every bf16 engine).  It replaced a CUDA-core walk that was
+// bound by latency, not bytes: a warp loaded one 8-key group into
+// registers and then spent ~23 dependent shuffles a row on it with nothing
+// in flight, so its time followed the groups a warp walked and the int8
+// build, with half the bytes, took as long.  Here:
 //   * K/V through shared memory: each warp keeps its own two-stage ring of
 //     16-key slices (8 KB a stage, int8 4 KB), filled by cp.async 16-byte
-//     copies addressed per key row -- contiguous: row b's own cache rows
-//     b * L + j, no lookup; paged: through the block table (any block_len
+//     copies addressed per key row (int8 at D % 16 == 8, whose rows start
+//     only 8-byte aligned: two 8-byte copies a chunk) -- contiguous: row
+//     b's own cache rows b * L + j, no lookup; paged: through the block
+//     table (any block_len
 //     % 8 == 0) -- with no descriptor and nothing on the host; keys past
 //     the split's live bound are zero-filled, not read.  Warp w takes
 //     slices w, w + 4, ... of the split, so no CTA barrier sits in the walk
@@ -80,6 +82,14 @@
 //     shared memory; the scales ride in the stage (4 floats a slice) and
 //     fold per 8-key group -- K's into the scores, V's into P before P V
 //     (at block_len or granule 8 a 16-key slice spans two of them);
+//   * below D = 128 the same body runs at a runtime D on rows of 128
+//     elements (its PAD instance; the D = 128 one has D as a constant and
+//     no test of it: a runtime D there cost 8-11 % of every row
+//     chip_decode_attention.py times, NVIDIA H100 80GB HBM3, 700 W): the
+//     chunks of a ring row at or past D's bytes are zero-filled by the
+//     same copies and q's registers are zero past D, so S^T = K Q^T adds
+//     zero products over the pad and O^T's rows past D hold zeros, which
+//     are never stored; the HBM bytes stay D a key;
 //   * the warps' partials meet in shared memory with rows padded (a
 //     128-float row stride put a lane's 32 stores on one bank);
 //   * the merge: a split past the live bound leaves at once, a lone live
@@ -406,22 +416,23 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
 }
 
 // ---------------------------------------------------------------------------
-// K1, K1-int8, K1-paged and K1-paged-int8 at bf16 q, head_dim 128: tensor
-// cores, and a cp.async ring in shared memory for each warp (see the note
-// at the top)
+// K1, K1-int8, K1-paged and K1-paged-int8 at bf16 q, head_dim D <= 128 (D %
+// 8 == 0): tensor cores, and a cp.async ring in shared memory for each warp
+// (see the note at the top)
 // ---------------------------------------------------------------------------
-constexpr int kPD = 128;                  // head_dim
+constexpr int kPD = 128;                  // a ring row's head-dim elements
 constexpr int kPRows = 8;                 // query rows a CTA (mma's n8)
 constexpr int kPWarps = 4;
 constexpr int kPThreads = 32 * kPWarps;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMergeChunk = 256;          // splits a pass of the last CTA
 constexpr int kMStride = kPD + 4;
-static_assert(kPD == kPThreads, "a merging thread owns one head-dim element");
+static_assert(kPD == kPThreads,
+              "a merging thread owns one head-dim element (threads >= D idle)");
 
 template <bool INT8>
 struct Mma {
-  static constexpr int kRow = INT8 ? kPD : 2 * kPD;   // bytes a key's K row
+  static constexpr int kRow = INT8 ? kPD : 2 * kPD;   // bytes a ring row
   static constexpr int kChunks = kRow / 16;           // 16-byte chunks a row
   static constexpr int kSlice = 16;                   // keys a warp step
   static constexpr int kTile = kSlice * kRow;         // K (or V) of a slice
@@ -483,7 +494,9 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 // A split past the live bound leaves at once, a lone live split writes
 // out, and otherwise the last CTA of (bh, y) to finish (counters[bh *
 // gridDim.y + y], which it resets to 0) merges the partials in split
-// order.  The layout of k, v (and of the int8 scales):
+// order.  Rows are D elements wide in q, out and the cache (PAD: head_dim
+// < kPD, D % 8 == 0; else kPD) and kPD wide in the ring.  The layout of k,
+// v (and of the int8 scales):
 //   PAGED: the pool (num_blocks, block_len, Hkv, D), key j of row b at
 //     pool row table[b * max_blocks + j / block_len] * block_len + j %
 //     block_len; scales (num_blocks, Hkv), a block's row;
@@ -491,7 +504,7 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 //     key j of row b at cache row b * L + j (table unused); int8: scales
 //     (B, max_blocks, Hkv) over granules of block_len keys, key j's at
 //     row b * max_blocks + j / block_len (bf16: max_blocks 1, block_len L).
-template <bool INT8, bool PAGED>
+template <bool INT8, bool PAGED, bool PAD>
 __global__ void __launch_bounds__(kPThreads, 3)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const unsigned char* __restrict__ k,
@@ -501,11 +514,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ out,
                   float* __restrict__ part_o,
                   float* __restrict__ part_ml, int* counters, int S,
-                  int Hq, int Hkv, int max_blocks, int block_len,
-                  int limit, int split_len, float scale_log2,
+                  int Hq, int Hkv, int head_dim, int max_blocks,
+                  int block_len, int limit, int split_len, float scale_log2,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale) {
   using P = Mma<INT8>;
+  const int D = PAD ? head_dim : kPD;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last_cta;
   const int bh = blockIdx.z, b = bh / Hkv, h = bh % Hkv;
@@ -526,12 +540,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // element offset of query row rr of the tile's (b, h) in q and out
   auto row_off = [&](int rr) {
     const int si = rr / G;
-    return ((size_t)(b * S + si) * Hq + h * G + rr - si * G) * kPD;
+    return ((size_t)(b * S + si) * Hq + h * G + rr - si * G) * D;
   };
   if (k_end <= k_begin) {
-    if (n_live == 0 && split == 0)   // no live key at all: every row is 0
-      for (int i = tid; i < nr * kPD; i += kPThreads)
-        out[row_off(r0 + i / kPD) + i % kPD] = __float2bfloat16(0.f);
+    if (n_live == 0 && split == 0 && (!PAD || tid < D))   // no live key
+      for (int r = 0; r < nr; ++r)
+        out[row_off(r0 + r) + tid] = __float2bfloat16(0.f);
     return;
   }
 
@@ -560,8 +574,14 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
   unsigned char* ring = smem + warp * P::kStages * P::kStage;
-  const size_t head = (size_t)h * P::kRow;
-  const size_t key_stride = (size_t)Hkv * P::kRow;
+  // bytes of a key's row in the cache (the ring's rows are kRow): chunks at
+  // or past them are zero-filled.  An int8 row of D % 16 == 8 bytes starts
+  // only 8-byte aligned, where a 16-byte cp.async needs 16: those rows go
+  // in 8-byte copies
+  const int row_bytes = INT8 ? D : 2 * D;
+  const bool half_copies = INT8 && PAD && (D & 15) != 0;
+  const size_t head = (size_t)h * row_bytes;
+  const size_t key_stride = (size_t)Hkv * row_bytes;
   // contiguous: row b's first cache row
   const size_t row0 = PAGED ? 0 : (size_t)b * max_blocks * block_len;
   // copy slice t into its stage (keys at or past k_end: zeros) and commit
@@ -587,8 +607,19 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const size_t prow = gbase[(kKeysPerCopy * i) / 8] + (kr & 7);
         const size_t off = prow * key_stride + head + ch * 16;
         const int dst = kr * P::kRow + ((ch ^ P::swz(kr)) << 4);
-        cp_async16(st + dst, on ? k + off : k, on ? 16 : 0);
-        cp_async16(st + P::kTile + dst, on ? v + off : v, on ? 16 : 0);
+        if (half_copies) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool in = on && ch * 16 + 8 * e < row_bytes;
+            cp_async8(st + dst + 8 * e, in ? k + off + 8 * e : k, in ? 8 : 0);
+            cp_async8(st + P::kTile + dst + 8 * e, in ? v + off + 8 * e : v,
+                      in ? 8 : 0);
+          }
+        } else {
+          const bool in = on && (!PAD || ch * 16 < row_bytes);
+          cp_async16(st + dst, in ? k + off : k, in ? 16 : 0);
+          cp_async16(st + P::kTile + dst, in ? v + off : v, in ? 16 : 0);
+        }
       }
       if constexpr (INT8) {
         if (lane < 2 * kGroups) {   // the groups' K scales, then V's
@@ -616,7 +647,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int q8 = 0; q8 < kGroups; ++q8) nb[q8] = tb[P::kStages][q8];
 
   // ---- Q^T as the B fragments of query row g (loaded while the first
-  // stages are in flight), and the last key of rows 2c and 2c + 1
+  // stages are in flight; zero past D: d is a multiple of 4 and D of 8), and
+  // the last key of rows 2c and 2c + 1
   uint32_t qb[8][2];
   {
     const bool on = g < nr;
@@ -624,8 +656,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const int d = P::kdim(kk, c);
-      qb[kk][0] = on ? *reinterpret_cast<const uint32_t*>(qr + d) : 0u;
-      qb[kk][1] = on ? *reinterpret_cast<const uint32_t*>(qr + d + 2) : 0u;
+      const bool in = on && (!PAD || d < D);
+      qb[kk][0] = in ? *reinterpret_cast<const uint32_t*>(qr + d) : 0u;
+      qb[kk][1] = in ? *reinterpret_cast<const uint32_t*>(qr + d + 2) : 0u;
     }
   }
   int last[2];   // row 2c + e keeps key j iff j <= last[e]
@@ -818,8 +851,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  for (int i = tid; i < nr * kPD; i += kPThreads) {
-    const int r = i / kPD, d = i % kPD;
+  // thread tid merges head-dim element d = tid of every row (tid >= D idle)
+  const int d = tid;
+  for (int r = 0; r < (!PAD || d < D ? nr : 0); ++r) {
     float M = kNegInf;
 #pragma unroll
     for (int w = 0; w < kPWarps; ++w)
@@ -839,7 +873,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       out[row_off(rr) + d] = __float2bfloat16(lsum > 0.f ? o / lsum : 0.f);
     } else {
       const size_t pi = ((size_t)bh * nsplit + split) * rows_total + rr;
-      part_o[pi * kPD + d] = o;
+      part_o[pi * D + d] = o;
       if (d == 0) {
         part_ml[2 * pi] = M * kLn2;   // natural-log units, as the merge's
         part_ml[2 * pi + 1] = lsum;
@@ -862,8 +896,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __threadfence();
   // each row's max over the live splits (lanes stride the splits), then
   // the splits' weights exp(m - M) and l * exp(m - M) a chunk at a time in
-  // shared memory; thread tid sums element d = tid of every row, in split
-  // order
+  // shared memory; thread tid < D sums element d = tid of every row, in
+  // split order
   const float2* ml = reinterpret_cast<const float2*>(part_ml);
   const size_t p0 = (size_t)bh * nsplit * rows_total + r0;
   float* rmax = reinterpret_cast<float*>(smem);   // [row]
@@ -894,36 +928,39 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       wls[i] = x.y * w;
     }
     __syncthreads();
+    if (!PAD || d < D) {
 #pragma unroll 8
-    for (int kk = 0; kk < n; ++kk) {
-      const float* po = part_o + (p0 + (size_t)(sp0 + kk) * rows_total) * kPD;
+      for (int kk = 0; kk < n; ++kk) {
+        const float* po = part_o + (p0 + (size_t)(sp0 + kk) * rows_total) * D;
 #pragma unroll
-      for (int r = 0; r < kPRows; ++r)
-        if (r < nr) {
-          o[r] += __ldcg(po + r * kPD + tid) * ws[kk * nr + r];
-          lsum[r] += wls[kk * nr + r];
-        }
+        for (int r = 0; r < kPRows; ++r)
+          if (r < nr) {
+            o[r] += __ldcg(po + r * D + d) * ws[kk * nr + r];
+            lsum[r] += wls[kk * nr + r];
+          }
+      }
     }
     __syncthreads();
   }
+  if (PAD && d >= D) return;
 #pragma unroll
   for (int r = 0; r < kPRows; ++r)
     if (r < nr)
-      out[row_off(r0 + r) + tid] =
+      out[row_off(r0 + r) + d] =
           __float2bfloat16(lsum[r] > 0.f ? o[r] / lsum[r] : 0.f);
 }
 
 // the kernel's dynamic shared memory limit and a shared-memory-first
 // carveout, set once a build: 3 CTAs an SM need 3 x 64 KB of the 228
-template <bool INT8, bool PAGED>
+template <bool INT8, bool PAGED, bool PAD>
 cudaError_t mma_attributes() {
   static bool done = false;
   if (done) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      decode_mma_kernel<INT8, PAGED>,
+      decode_mma_kernel<INT8, PAGED, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Mma<INT8>::kSmem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(decode_mma_kernel<INT8, PAGED>,
+    e = cudaFuncSetAttribute(decode_mma_kernel<INT8, PAGED, PAD>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   done = e == cudaSuccess;
@@ -931,34 +968,42 @@ cudaError_t mma_attributes() {
 }
 
 // CTAs of one build of decode_mma_kernel that fit on one SM at once
-template <bool INT8, bool PAGED>
+template <bool INT8, bool PAGED, bool PAD>
 cudaError_t mma_ctas_per_sm(int* n) {
-  const cudaError_t e = mma_attributes<INT8, PAGED>();
+  const cudaError_t e = mma_attributes<INT8, PAGED, PAD>();
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, decode_mma_kernel<INT8, PAGED>, kPThreads, Mma<INT8>::kSmem);
+      n, decode_mma_kernel<INT8, PAGED, PAD>, kPThreads, Mma<INT8>::kSmem);
 }
 
-// K1 / K1-int8 / K1-paged / K1-paged-int8 at bf16 q, head_dim 128: the
-// Hopper kernel, one launch (max_blocks, block_len: see decode_mma_kernel)
+// the head dims the Hopper body takes: D <= kPD, D % 8 == 0
+bool mma_head_dim(int D) { return D >= 8 && D <= kPD && D % 8 == 0; }
+
+// K1 / K1-int8 / K1-paged / K1-paged-int8 at bf16 q, head_dim D: the Hopper
+// kernel, one launch (max_blocks, block_len: see decode_mma_kernel); below
+// kPD its PAD instance
 template <bool INT8, bool PAGED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int* pos, const int* table, void* out,
                        float* part_o, float* part_ml, int* counters, int B,
-                       int S, int Hq, int Hkv, int max_blocks, int block_len,
-                       int limit, int split_len, int nsplit, float scale,
-                       const float* k_scale, const float* v_scale,
-                       cudaStream_t st) {
-  const cudaError_t e = mma_attributes<INT8, PAGED>();
+                       int S, int Hq, int Hkv, int D, int max_blocks,
+                       int block_len, int limit, int split_len, int nsplit,
+                       float scale, const float* k_scale,
+                       const float* v_scale, cudaStream_t st) {
+  const bool pad = D != kPD;
+  const cudaError_t e = pad ? mma_attributes<INT8, PAGED, true>()
+                            : mma_attributes<INT8, PAGED, false>();
   if (e != cudaSuccess) return e;
+  const auto kernel = pad ? decode_mma_kernel<INT8, PAGED, true>
+                          : decode_mma_kernel<INT8, PAGED, false>;
   const int rows_total = S * (Hq / Hkv);
   const dim3 grid(nsplit, (rows_total + kPRows - 1) / kPRows, B * Hkv);
-  decode_mma_kernel<INT8, PAGED><<<grid, kPThreads, Mma<INT8>::kSmem, st>>>(
+  kernel<<<grid, kPThreads, Mma<INT8>::kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const unsigned char*>(k),
       static_cast<const unsigned char*>(v), pos, table,
       static_cast<__nv_bfloat16*>(out), part_o, part_ml, counters, S, Hq,
-      Hkv, max_blocks, block_len, limit, split_len,
+      Hkv, D, max_blocks, block_len, limit, split_len,
       scale * 1.4426950408889634f, k_scale, v_scale);
   return cudaSuccess;
 }
@@ -988,11 +1033,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at D = 128 (the
-// serving path: decode_mma_kernel) and float32 at D = 16 (the tiny test
-// models) and 128 (the reference's float32 default configurations: the
-// CUDA-core kernel), the cases chip_smoke.py checks on the card; any other
-// pair returns cudaErrorInvalidValue, as does a split_len
+// dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at any D <= 128
+// with D % 8 == 0 (the serving path: decode_mma_kernel) and float32 at D =
+// 16 (the tiny test models) and 128 (the reference's float32 default
+// configurations: the CUDA-core kernel), the cases chip_smoke.py checks on
+// the card; any other pair returns cudaErrorInvalidValue, as does a
+// split_len
 // that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
 // part_ml are float32 scratch of (B*Hkv, nsplit, S*G, D) and (B*Hkv,
 // nsplit, S*G, 2), unused when nsplit == 1.  counters (bfloat16 only; the
@@ -1013,10 +1059,10 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (Hkv < 1 || Hq % Hkv != 0 || L < 1 || split_len % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && mma_head_dim(D))
     e = launch_mma<false, false>(q, k, v, p, nullptr, out, po, pml,
                                  static_cast<int*>(counters), B, S, Hq, Hkv,
-                                 1, L, limit, split_len, nsplit, scale,
+                                 D, 1, L, limit, split_len, nsplit, scale,
                                  nullptr, nullptr, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
@@ -1055,10 +1101,10 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = max_blocks * block_len;
   cudaError_t e;
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && mma_head_dim(D))
     e = launch_mma<false, true>(q, k, v, p, t, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
-                                max_blocks, block_len, limit, split_len,
+                                D, max_blocks, block_len, limit, split_len,
                                 nsplit, scale, nullptr, nullptr, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
@@ -1098,10 +1144,10 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int gran_len = L / n_gran;
   cudaError_t e;
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && mma_head_dim(D))
     e = launch_mma<true, false>(q, k, v, p, nullptr, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
-                                n_gran, gran_len, limit, split_len, nsplit,
+                                D, n_gran, gran_len, limit, split_len, nsplit,
                                 scale, ks, vs, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false, int8_t>(
@@ -1138,10 +1184,10 @@ extern "C" int decode_attention_paged_int8(
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = max_blocks * block_len;
   cudaError_t e;
-  if (dtype == 0 && D == 128)
+  if (dtype == 0 && mma_head_dim(D))
     e = launch_mma<true, true>(q, k, v, p, t, out, po, pml,
                                static_cast<int*>(counters), B, S, Hq, Hkv,
-                               max_blocks, block_len, limit, split_len,
+                               D, max_blocks, block_len, limit, split_len,
                                nsplit, scale, ks, vs, st);
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true, int8_t>(
@@ -1158,15 +1204,22 @@ extern "C" int decode_attention_paged_int8(
 }
 
 // CTAs of a Hopper build (int8: 0 bf16 K/V, 1 int8; paged: 0 contiguous,
-// 1 paged) that fit on one SM at once, or minus a CUDA error
-extern "C" int decode_attention_mma_ctas_per_sm(int int8, int paged) {
+// 1 paged; pad: 0 the head_dim-128 instance, 1 the one below 128) that fit
+// on one SM at once, or minus a CUDA error
+template <bool PAD>
+int ctas_per_sm(int int8, int paged) {
   int n = 0;
   const cudaError_t e =
-      int8 ? (paged ? mma_ctas_per_sm<true, true>(&n)
-                    : mma_ctas_per_sm<true, false>(&n))
-           : (paged ? mma_ctas_per_sm<false, true>(&n)
-                    : mma_ctas_per_sm<false, false>(&n));
+      int8 ? (paged ? mma_ctas_per_sm<true, true, PAD>(&n)
+                    : mma_ctas_per_sm<true, false, PAD>(&n))
+           : (paged ? mma_ctas_per_sm<false, true, PAD>(&n)
+                    : mma_ctas_per_sm<false, false, PAD>(&n));
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+extern "C" int decode_attention_mma_ctas_per_sm(int int8, int paged,
+                                                int pad) {
+  return pad ? ctas_per_sm<true>(int8, paged) : ctas_per_sm<false>(int8, paged);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

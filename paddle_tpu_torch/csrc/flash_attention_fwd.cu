@@ -33,10 +33,10 @@
 // score matrix never reaches device memory, and causal tiles wholly above
 // the diagonal are never loaded.  Two bodies (any other dtype / head dim
 // is refused):
-//   * bfloat16 q -- contiguous at any D <= 128 with D % 8 == 0 (the
+//   * bfloat16 q at any D <= 128 with D % 8 == 0 -- contiguous (the
 //     serving waves and every training forward at D = 128, the DiT blocks
-//     at D = 72; segmented or not), paged bf16 and paged int8 at D = 128
-//     (the paged engine's prefill waves): the Hopper kernel,
+//     at D = 72; segmented or not), paged bf16 and paged int8 (the paged
+//     engine's prefill waves, TinyLlama's at D = 64): the Hopper kernel,
 //     flash_attention_fwd_wgmma_kernel -- 128-query tiles on two consumer
 //     warpgroups, wgmma for Q.K^T and P.V, 128-key K/V tiles in an
 //     mbarrier ring fed by TMA (paged: two 64-key boxes a tile, each at
@@ -303,14 +303,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16 q -- K2 over contiguous K/V (segmented or not) at
-// any D <= 128 with D % 8 == 0, K2-paged over a bf16 pool and
-// K2-paged-int8 over an int8 pool at D = 128.
+// Hopper path: bfloat16 q at any D <= 128 with D % 8 == 0 -- K2 over
+// contiguous K/V (segmented or not), K2-paged over a bf16 pool and
+// K2-paged-int8 over an int8 pool.
 //
 // The body is built for 128-wide tiles.  At D < 128 the tensor maps have
-// D columns (bshd_map), so TMA fills columns D..127 of every Q, K and V
-// tile with zeros (a box at d 64 wholly past D at D <= 64 too) and each
-// box still completes its full byte count on the mbarrier: Q K^T sums
+// D columns (bshd_map; the int8 pool's bshd_map_int8, or at D % 16 == 8 the
+// cp.async staging, zero-fills the staged row past D), so columns D..127 of
+// every Q, K and V tile hold zeros (a box at d 64 wholly past D at D <= 64
+// too) and each box still completes its full byte count on the mbarrier
+// (the staging's copies count as arrivals): Q K^T sums
 // zero products over the pad, P V writes zeros into the output's pad
 // columns, and the out map's store drops them.  The products then do
 // 128 / D times the useful work (1.78x at D = 72).
@@ -341,7 +343,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 //     stale pool data: the tile is flagged and its element mask hides
 //     them;
 //   * paged int8: the producer's lane 0 loads the int8 boxes the same way
-//     by TMA into a staging ring of two stages; the whole warpgroup then
+//     by TMA into a staging ring of two stages (at D % 16 == 8 the pool's
+//     D-byte head stride is no multiple of 16, which a TMA map needs: the
+//     whole warpgroup stages the boxes by 8-byte cp.async copies, zeros
+//     past D, and each thread's copies arrive on the unit's barrier when
+//     they land); the whole warpgroup then
 //     converts each tile to bf16 (exact for [-128, 127]: the bytes into
 //     float32 mantissas, one subtraction, the high halves) in the swizzled
 //     layout TMA would write, and releases it to the consumers after a
@@ -411,7 +417,9 @@ struct HopperArgs {
   const int* table;            // paged: (B, max_blocks)
   const float* k_scale;        // int8: (num_blocks, Hkv)
   const float* v_scale;
-  int B, Sq, Skv, Hq, Hkv, max_blocks, block_len;
+  const unsigned char* k8;     // int8 at D % 16 == 8: the pools, staged by
+  const unsigned char* v8;     //   cp.async (no TMA map)
+  int B, Sq, Skv, Hq, Hkv, max_blocks, block_len, D;
   float scale_log2;
   int causal;
 };
@@ -465,7 +473,8 @@ __device__ __forceinline__ void convert_tile(const unsigned char* src,
   }
 }
 
-template <bool SEG, bool PAGED, bool INT8>
+// CP8 (INT8 only): the int8 pool at D % 16 == 8, staged by cp.async
+template <bool SEG, bool PAGED, bool INT8, bool CP8>
 __global__ void __launch_bounds__(kHThreads, 1)
 flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
@@ -475,6 +484,7 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const HopperArgs a) {
   static_assert(PAGED || !INT8, "the int8 cache is paged only");
   static_assert(!(PAGED && SEG), "the paged builds take no segment ids");
+  static_assert(INT8 || !CP8, "only the int8 pool is staged by cp.async");
   extern __shared__ unsigned char wg_smem[];
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
@@ -518,8 +528,8 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_init(&v_full[s], INT8 ? 128 : 1);
       mbar_init(&k_empty[s], kHConsumers);
       mbar_init(&v_empty[s], kHConsumers);
-      mbar_init(&s_full[2 * s], 1);
-      mbar_init(&s_full[2 * s + 1], 1);
+      mbar_init(&s_full[2 * s], CP8 ? 128 : 1);
+      mbar_init(&s_full[2 * s + 1], CP8 ? 128 : 1);
     }
     mbar_init_fence();
   }
@@ -534,9 +544,26 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int* trow = a.table + (size_t)b * a.max_blocks;
       // Staging unit 2s + x holds tensor x (0: K, 1: V) of a tile in stage
       // s; tile t is the walk's t-th (from the diagonal down).  Thread 0
-      // reads the table and the scales; the others only convert.
+      // reads the table and the scales; the others only convert (CP8: every
+      // thread also reads the table and stages its share of the boxes).
       auto load = [&](int t, int x, const int* blk, const int* row) {
         const int u = 2 * (t % kHStages) + x;
+        if (CP8) {
+          // 128 rows x 16 pieces of 8 bytes; pieces at or past D zero
+          const unsigned char* src = x ? a.v8 : a.k8;
+          unsigned char* dst = S8 + u * k8Tile;
+          for (int i = tid; i < kHK * 16; i += 128) {
+            const int r = i >> 4, pc = i & 15, e = r / kHBox;
+            const bool in = 8 * pc < a.D;
+            const size_t off =
+                (((size_t)blk[e] * a.block_len + row[e] + r % kHBox) * a.Hkv +
+                 hk) * a.D + 8 * pc;
+            cp_async8(dst + r * 128 + 8 * pc, in ? src + off : src,
+                      in ? 8 : 0);
+          }
+          mbar_arrive_cp_async(&s_full[u]);
+          return;
+        }
         fence_proxy_async();
         mbar_expect_tx(&s_full[u], k8Tile);
 #pragma unroll
@@ -570,14 +597,18 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(q_full, kHTile);
         tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
         tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
+      }
+      if (tid == 0 || CP8) {
         for (int t = 0; t < kHStages && t < n_kt; ++t) {
           int blk[2], row[2];
           boxes(t, blk, row);
           load(t, 0, blk, row);
           load(t, 1, blk, row);
-          scales(blk, pend);
-          pend_t = t;
-          store_pending();
+          if (tid == 0) {
+            scales(blk, pend);
+            pend_t = t;
+            store_pending();
+          }
         }
       }
       // K of tile t: it may run a tile ahead of V (its slot frees earlier)
@@ -597,16 +628,17 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           sl.vs[0] = scl[s * 4 + 2];
           sl.vs[1] = scl[s * 4 + 3];
           slot[s] = sl;
-          // the next tile's table entries, read under the conversion
-          if (refill) boxes(t + kHStages, nblk, nrow);
         }
+        // the next tile's table entries, read under the conversion
+        if (refill && (tid == 0 || CP8)) boxes(t + kHStages, nblk, nrow);
         convert_tile(S8 + 2 * s * k8Tile, Ks + s * kHTile, tid);
         fence_proxy_async();
         mbar_arrive(&k_full[s]);
         if (refill) {
           named_barrier(5, 128);   // every thread is done with the unit
+          if (CP8) load(t + kHStages, 0, nblk, nrow);
           if (tid == 0) {
-            load(t + kHStages, 0, nblk, nrow);
+            if (!CP8) load(t + kHStages, 0, nblk, nrow);
             for (int e = 0; e < 2; ++e) {
               bx[s * 4 + e] = nblk[e];
               bx[s * 4 + 2 + e] = nrow[e];
@@ -620,14 +652,20 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       auto step_v = [&](int t) {
         const int s = t % kHStages;
         const unsigned ph = (t / kHStages) & 1;
+        const bool refill = t + kHStages < n_kt;
+        int vblk[2], vrow[2];   // CP8: the boxes of V's next tile
+        if (CP8 && refill) boxes(t + kHStages, vblk, vrow);
         mbar_wait(&s_full[2 * s + 1], ph);
         mbar_wait(&v_empty[s], ph ^ 1);
         convert_tile(S8 + (2 * s + 1) * k8Tile, Vs + s * kHTile, tid);
         fence_proxy_async();
         mbar_arrive(&v_full[s]);
-        if (t + kHStages < n_kt) {
+        if (refill) {
           named_barrier(5, 128);
-          if (tid == 0) load(t + kHStages, 1, bx + s * 4, bx + s * 4 + 2);
+          if (CP8)
+            load(t + kHStages, 1, vblk, vrow);
+          else if (tid == 0)
+            load(t + kHStages, 1, bx + s * 4, bx + s * 4 + 2);
         }
         if (tid == 0) store_pending();
       };
@@ -954,17 +992,20 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// Encodes the maps and launches the Hopper kernel.  Contiguous: q, out (B,
-// Sq, Hq, D), k, v (B, Skv, Hkv, D) bf16, D <= 128 and D % 8 == 0.  Paged
-// (D = 128): k, v one layer's (num_blocks, block_len, Hkv, 128) pool,
-// bf16 or (INT8) int8, with a.pos / a.table set and block_len % 64 == 0.
+// Encodes the maps and launches the Hopper kernel.  q, out (B, Sq, Hq, D)
+// bf16, D <= 128 and D % 8 == 0.  Contiguous: k, v (B, Skv, Hkv, D) bf16.
+// Paged: k, v one layer's (num_blocks, block_len, Hkv, D) pool, bf16 or
+// (INT8) int8, with a.pos / a.table set and block_len % 64 == 0; an int8
+// pool at D % 16 == 8 has no map (the kernel stages it by cp.async).
 template <bool SEG, bool PAGED, bool INT8>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, const int* seg_kv, HopperArgs a,
                          int num_blocks, float scale, cudaStream_t st,
-                         int D = kHD) {
-  if (D < 8 || D > kHD || D % 8 != 0 || ((PAGED || INT8) && D != kHD))
-    return cudaErrorInvalidValue;
+                         int D) {
+  if (D < 8 || D > kHD || D % 8 != 0) return cudaErrorInvalidValue;
+  a.D = D;
+  a.k8 = static_cast<const unsigned char*>(k);
+  a.v8 = static_cast<const unsigned char*>(v);
   CUtensorMap qm, km, vm, om, sm;
   memset(&sm, 0, sizeof(sm));
   cudaError_t e = bshd_map(&qm, q, a.B, a.Sq, a.Hq, kHQ, D);
@@ -972,8 +1013,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   // K / V: (B, Skv) rows of 128-key boxes, or the pool's (num_blocks,
   // block_len) rows of 64-key boxes
   auto kv_map = [&](CUtensorMap* m, const void* p) {
-    if (INT8) return bshd_map_int8(m, p, num_blocks, a.block_len, a.Hkv, kHBox);
-    if (PAGED) return bshd_map(m, p, num_blocks, a.block_len, a.Hkv, kHBox);
+    if (INT8 && D % 16 != 0) {
+      memset(m, 0, sizeof(*m));
+      return cudaSuccess;
+    }
+    if (INT8)
+      return bshd_map_int8(m, p, num_blocks, a.block_len, a.Hkv, kHBox, D);
+    if (PAGED)
+      return bshd_map(m, p, num_blocks, a.block_len, a.Hkv, kHBox, D);
     return bshd_map(m, p, a.B, a.Skv, a.Hkv, kHK, D);
   };
   if (e == cudaSuccess) e = kv_map(&km, k);
@@ -983,7 +1030,11 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                  (size_t)a.B * a.Skv, kHK + kLead1d);
   if (e != cudaSuccess) return e;
   constexpr size_t smem = hopper_smem<SEG, INT8>();
-  auto kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8>;
+  auto kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, false>;
+  if constexpr (INT8) {
+    if (D % 16 != 0)
+      kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, true>;
+  }
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
@@ -1096,9 +1147,9 @@ static HopperArgs paged_args(const void* pos, const void* table, int B,
 // int32; k, v one layer's (num_blocks, block_len, Hkv, D) pool; table the
 // int32 (B, max_blocks) block table (every entry a valid block id).  Query
 // i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
-// bfloat16 at D = 128 (the Hopper kernel) needs block_len % 64 == 0;
-// float32 at D = 16 or 128 takes any block_len >= 1; other cases return
-// cudaErrorInvalidValue.
+// bfloat16 at any D <= 128 with D % 8 == 0 (the Hopper kernel) needs
+// block_len % 64 == 0; float32 at D = 16 or 128 takes any block_len >= 1;
+// other cases return cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
                                          const void* v, const void* pos,
                                          const void* table, void* out, int B,
@@ -1113,11 +1164,11 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
       num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && D == kHD && block_len % kHBox == 0)
+  if (dtype == 0 && block_len % kHBox == 0)
     e = launch_wgmma<false, true, false>(
         q, k, v, out, nullptr,
         paged_args(pos, table, B, S, Hq, Hkv, max_blocks, block_len),
-        num_blocks, scale, st);
+        num_blocks, scale, st, D);
   else if (dtype == 1 && D == 16)
     e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
                          st, p, t, max_blocks, block_len);
@@ -1132,8 +1183,9 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
 
 // Paged int8 suffix prefill: as flash_attention_fwd_paged with k, v one
 // layer's int8 (num_blocks, block_len, Hkv, D) pool and k_scale, v_scale
-// float32 (num_blocks, Hkv).  bfloat16 q at D = 128 needs block_len % 64
-// == 0; float32 q at D = 16 or 128 takes any block_len >= 1.
+// float32 (num_blocks, Hkv).  bfloat16 q at any D <= 128 with D % 8 == 0
+// needs block_len % 64 == 0; float32 q at D = 16 or 128 takes any
+// block_len >= 1.
 extern "C" int flash_attention_fwd_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* pos, const void* table, void* out,
@@ -1148,13 +1200,13 @@ extern "C" int flash_attention_fwd_paged_int8(
       num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && D == kHD && block_len % kHBox == 0) {
+  if (dtype == 0 && block_len % kHBox == 0) {
     HopperArgs a = paged_args(pos, table, B, S, Hq, Hkv, max_blocks,
                               block_len);
     a.k_scale = ks;
     a.v_scale = vs;
     e = launch_wgmma<false, true, true>(q, k, v, out, nullptr, a, num_blocks,
-                                        scale, st);
+                                        scale, st, D);
   } else if (dtype == 1 && D == 16) {
     e = launch<16, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
                                  scale, 1, st, p, t, max_blocks, block_len,

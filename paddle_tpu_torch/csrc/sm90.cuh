@@ -56,6 +56,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// an arrival that lands once every cp.async this thread issued before it
+// has written shared memory (noinc: it counts toward the barrier's
+// expected arrivals)
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // arrive, and expect `bytes` more of TMA transactions in this phase
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile(
@@ -450,7 +459,7 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
 // dimension of its own: a map over (H * D) columns would read the next
 // head's data into them.
 inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
-                            int rows, int D = 128) {
+                            int rows, int D) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)D * 2;
@@ -460,14 +469,15 @@ inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
                     box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// a map over one (B, S, H, 128) int8 tensor (an int8 KV pool): boxes of
-// `rows` consecutive s and the whole 128-byte row, unswizzled; rows past
-// S load as zero
+// a map over one (B, S, H, D) int8 tensor (an int8 KV pool), D <= 128 and
+// D % 16 == 0 (the row stride D bytes a multiple of 16): boxes of `rows`
+// consecutive s and a 128-byte row, unswizzled; rows past S and columns
+// past D load as zero
 inline cudaError_t bshd_map_int8(CUtensorMap* m, const void* p, int B, int S,
-                                 int H, int rows) {
-  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S,
+                                 int H, int rows, int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t row = 128;
+  const cuuint64_t row = (cuuint64_t)D;
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
   const cuuint32_t box[4] = {128, 1, (cuuint32_t)rows, 1};
   return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, p, dims, strides,

@@ -12,6 +12,10 @@ import torch
 
 # element type codes of the C entries
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# the head dims every bf16 attention build takes -- the K1 family, K2 in
+# every layout, K5 / K6: any D <= 128 with D % 8 == 0 (128-wide tiles or
+# ring rows whose columns past D hold zeros)
+BF16_HEAD_DIMS = frozenset(range(8, 129, 8))
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -21,17 +21,24 @@ of 8 rows x 8 kv heads still fills 132 SMs, and the splits' (acc, m, l)
 partials are merged with the LSE algebra of
 ``paddle_tpu/ops/ring_attention.py::merge_attention``.
 
-Every build at bfloat16 and head_dim 128 — K1
-(:func:`decode_attention_cuda`), K1-int8 (:func:`decode_attention_int8_cuda`),
-K1-paged (:func:`decode_attention_paged_cuda`) and K1-paged-int8
+Every build at bfloat16 — K1 (:func:`decode_attention_cuda`), K1-int8
+(:func:`decode_attention_int8_cuda`), K1-paged
+(:func:`decode_attention_paged_cuda`) and K1-paged-int8
 (:func:`decode_attention_paged_int8_cuda`), the decode tick of every bf16
-engine — runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED>``): a
+engine, at any head_dim D <= 128 with D % 8 == 0 (``BF16_HEAD_DIMS``) —
+runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED, PAD>``): a
 CTA takes up to ``MMA_ROWS`` query rows of one (row, kv head) pair and one
 split; its ``MMA_WARPS`` warps take the split's ``MMA_SLICE``-key slices
 in turn, each through its own cp.async ring in shared memory (16-byte
 copies a key row).  The products run on tensor cores transposed,
 Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ with the query rows as ``mma.sync.m16n8k16``'s
-8 columns, and int8 K/V are converted to bf16 in registers.  The splits
+8 columns, and int8 K/V are converted to bf16 in registers.  Its ring
+rows are 128 elements wide at every D; below 128 an instance of its own
+(``PAD``: at 128 the head dim is a constant the body never tests)
+zero-fills a row's chunks past D in the same copies (an int8 row of D %
+16 == 8 bytes, only 8-byte aligned, goes in 8-byte copies) and zeroes
+q's fragments there, so the pad adds nothing and only D columns are
+stored; the bytes read stay D a key.  The splits
 of a tile are merged by the last of its CTAs to finish, in split order
 (the same bits every run), with int32 counters the wrapper keeps per
 (device, stream).  The builds differ only in where a key row lives: the contiguous cache
@@ -51,8 +58,9 @@ reference's float32 default configurations, ``LlamaConfig()`` and
 throughout: each warp walks its own 8-key blocks with its own online
 softmax (a lane holds D / 32 elements of a row, one 16-byte load at
 head_dim 128), and a second small kernel merges the splits.  Those builds
-— bfloat16 at head_dim 128, float32 at 16 and 128 — are held against the
-plain version on the card (``chip_smoke.py``); any other pair raises.
+— bfloat16 at every D <= 128 with D % 8 == 0, float32 at 16 and 128 — are
+held against the plain version on the card (``chip_smoke.py``); any other
+pair raises.
 
 The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
 K1-paged-int8; replacing the Pallas kernel's ``quantized`` mode,
@@ -91,16 +99,18 @@ from typing import Optional
 import torch
 
 from ... import flags
-from . import (_build, block_table, check_attention_args, check_scales,
-               pos_vector, stream_ptr)
+from . import (BF16_HEAD_DIMS, _build, block_table, check_attention_args,
+               check_scales, pos_vector, stream_ptr)
 
 NAME = "decode_attention"
-# the head dims built for each dtype: bf16 the Hopper body at 128, float32
-# the CUDA-core body at 16 (the tiny models) and 128 (the reference's
-# float32 default configurations); other pairs are ROADMAP B2
-HEAD_DIM = {torch.bfloat16: 128, torch.float32: frozenset({16, 128})}
+# the head dims built for each dtype: bf16 the Hopper body at every D <=
+# 128 with D % 8 == 0, float32 the CUDA-core body at 16 (the tiny models)
+# and 128 (the reference's float32 default configurations); other pairs
+# are ROADMAP B2
+HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
+            torch.float32: frozenset({16, 128})}
 
-# the bf16 head_dim-128 builds (decode_mma_kernel): query rows a CTA
+# the bf16 builds (decode_mma_kernel): query rows a CTA
 # (mma.sync's n8), keys a warp step, warps a CTA (warp w takes slices w,
 # w + MMA_WARPS, ... of its split)
 MMA_ROWS = 8
@@ -135,7 +145,7 @@ def _lib() -> ctypes.CDLL:
         fpi.argtypes = [_P] * 11 + [_I] * 10 + [ctypes.c_float, _I, _P]
         fpi.restype = ctypes.c_int
         occ = lib.decode_attention_mma_ctas_per_sm
-        occ.argtypes = [_I, _I]
+        occ.argtypes = [_I, _I, _I]
         occ.restype = ctypes.c_int
     return lib
 

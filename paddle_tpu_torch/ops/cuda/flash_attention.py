@@ -13,8 +13,8 @@ not 128-aligned, which the Pallas kernel refuses at :73-88).  Head dims
 kernel takes any D up to 256 and widens its blocks by D / 128 (:56-71);
 the port keeps its 128-wide tiles with the columns past D zero-filled, so
 DiT-XL/2's D = 72 runs it — float32 16, 64, 72 and 128.  The backward K5
-/ K6 takes the same set; the paged builds below take D = 128 (bf16) / 16
-and 128 (float32) only (``HEAD_DIM``; the rest is ROADMAP B2).
+/ K6 takes the same set; the paged builds below take the same bf16 set and
+float32 at 16 and 128 only (``HEAD_DIM``; the rest is ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about
@@ -54,15 +54,19 @@ Hopper kernel as K2: its producer reads the table and loads each 128-key
 tile by TMA as two 64-key boxes, each at its block's row (TMA has no
 gather), so it takes ``block_len % 64 == 0`` (the reference's default
 128 qualifies) and raises otherwise; a box half past a row's last key
-repeats the first half, so no dead table column is read.  The float32
+repeats the first half, so no dead table column is read.  The pool's maps
+have D columns, so below 128 TMA zero-fills the tile's columns past D, as
+in the contiguous build.  The float32
 kernel takes any ``block_len``.  Neither wrapper reads ``pos`` or the
 table on the host.  No ``lse`` is produced on this path.
 
 K2-paged-int8 (:func:`flash_attention_fwd_paged_int8_cuda`): the same over
 the int8 pool with float32 (num_blocks, Hkv) scales — the paged int8
 engine's suffix prefill.  The Hopper kernel loads each tile's int8 boxes
-by TMA into a staging ring, and its producer warpgroup converts them to
-bf16 (exact) in the layout the consumers read; each 64-key half carries
+by TMA into a staging ring (at D % 16 == 8, where the pool's D-byte head
+stride rules out a TMA map, the warpgroup stages them by 8-byte
+``cp.async`` copies, zeros past D), and its producer warpgroup converts
+them to bf16 (exact) in the layout the consumers read; each 64-key half carries
 its block's scales, K's folded into the scores and V's into the tile's
 probabilities.  The float32 kernel dequantizes per key.
 """
@@ -75,20 +79,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (_build, block_table, check_attention_args, check_scales,
-               pos_vector, stream_ptr)
+from . import (BF16_HEAD_DIMS, _build, block_table, check_attention_args,
+               check_scales, pos_vector, stream_ptr)
 
 NAME = "flash_attention_fwd"
-# the head_dim the paged builds below take for each dtype; other head
-# dims are ROADMAP B2
-HEAD_DIM = {torch.bfloat16: 128, torch.float32: frozenset({16, 128})}
+# the head dims the paged builds below take for each dtype: bf16 the
+# Hopper kernel's set, float32 the CUDA-core instances at 16 and 128; other
+# head dims are ROADMAP B2
+HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
+            torch.float32: frozenset({16, 128})}
 # the contiguous K2's head dims, and K5 / K6's (``flash_attention_bwd.py``):
 # bf16 any D <= 128 with D % 8 == 0 (the Hopper kernels' 128-wide tiles,
 # columns past D zero-filled by TMA, whose row stride D x 2 bytes must be a
 # multiple of 16), float32 the CUDA-core kernels' instances (the tiny
 # models at 16, float32 DiTs at 64 and 72, the reference's float32 default
 # configurations -- LlamaConfig(), Qwen2VLConfig()'s decoder -- at 128)
-FWD_HEAD_DIMS = {torch.bfloat16: frozenset(range(8, 129, 8)),
+FWD_HEAD_DIMS = {torch.bfloat16: BF16_HEAD_DIMS,
                  torch.float32: frozenset({16, 64, 72, 128})}
 SEG_TILE = 128          # the bf16 build's query and key tile (csrc: kHQ, kHK)
 PAGED_BOX = 64          # the bf16 paged builds' key rows a box (csrc: kHBox)

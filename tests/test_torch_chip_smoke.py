@@ -729,3 +729,171 @@ def test_f32_phases_order():
     assert "del model, qmodel, m\n" in main_src
     assert "new_tokens=F32_NEW_TOKENS" in inspect.getsource(
         chip_smoke.phase_serving_f32).split("eager_twin(")[1][:200]
+
+
+# ---- bf16 below head_dim 128: phase 2's rows and serving_tinyllama ---------
+
+@pytest.mark.parametrize("build", chip_smoke.BF16_D64_BUILDS)
+def test_bf16_d64_entries(build):
+    """Every bf16 build of K1 and K2-paged has a ``/bf16_d64`` entry in the
+    kernels line, its namesake's source and reference kernel; phase 2
+    records its rows under it, and serving_tinyllama's engines set its
+    launches."""
+    import inspect
+    name = build + chip_smoke.BF16_D64
+    assert chip_smoke.KERNEL_INFO[name] == chip_smoke.KERNEL_INFO[build]
+    rows_src = inspect.getsource(chip_smoke.phase_bf16_head_dim_rows)
+    assert f'row("{build.replace("_int8", "")}' in rows_src
+    engines = {n for _, _, att in chip_smoke.F32_ENGINES for n in att}
+    assert build in engines
+    assert "kernels[name + BF16_D64]" in inspect.getsource(
+        chip_smoke.phase_serving_tinyllama)
+
+
+def test_bf16_rows_cover_the_head_dims():
+    """The rows run at the tiny config's 16, TinyLlama's 64, 72 (an int8
+    row of D % 16 == 8 bytes: the 8-byte copies) and 96, every one a
+    head dim the bf16 builds take."""
+    from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS
+    dims = chip_smoke.BF16_SMALL_DIMS
+    assert set(dims) == {16, 64, 72, 96} and set(dims) <= BF16_HEAD_DIMS
+    assert any(d % 16 == 8 for d in dims)
+
+
+def test_tinyllama_is_the_published_config():
+    """serving_tinyllama serves TinyLlama-1.1B's published widths
+    (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T config.json), not
+    cut: head_dim 64, 8 query heads a KV head, 22 layers."""
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig(**chip_smoke.TINYLLAMA)
+    assert (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size,
+            cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.num_key_value_heads, cfg.max_position_embeddings) == (
+                32000, 2048, 5632, 22, 32, 4, 2048)
+    assert (cfg.rms_norm_eps, cfg.rope_theta, cfg.tie_word_embeddings,
+            cfg.dtype) == (1e-5, 10000.0, False, "bfloat16")
+    assert cfg.head_dim == 64
+    assert (chip_smoke.TL_HEADS, chip_smoke.TL_KV_HEADS) == (
+        cfg.num_attention_heads, cfg.num_key_value_heads)
+    # the shared system prompt fills whole paged blocks
+    assert 512 % chip_smoke.TL_BLOCK_LEN == 0
+
+
+def test_tinyllama_phase_order():
+    """serving_tinyllama runs right after serving_f32, behind the main
+    loop's ``memory`` line; phase 2 adds its rows after the float32 ones."""
+    import inspect
+    main_src = inspect.getsource(chip_smoke.main)
+    loop = main_src.split("for phase in (")[1].split("):")[0]
+    assert loop.index("phase_serving_f32(") \
+        < loop.index("phase_serving_tinyllama(") < loop.index("phase_dit(")
+    assert '"phase": "memory"' in main_src.split("for phase in (")[1]
+    k_src = inspect.getsource(chip_smoke.phase_kernels)
+    assert k_src.index("phase_f32_d128_rows(") \
+        < k_src.index("phase_bf16_head_dim_rows(")
+
+
+def test_tinyllama_launch_contract():
+    """The engines owe their kernels 22 launches a unit (TinyLlama's
+    layers), not 32."""
+    m = {"decode_ticks": 15, "prefill_waves": 3, "ticks": 18,
+         "mixed_ticks": 4}
+    att = {"decode_attention": ("ticks",),
+           "flash_attention_fwd_paged": ("mixed",)}
+    assert chip_smoke.attention_launches(m, att, 22) == {
+        "decode_attention": 22 * 18, "flash_attention_fwd_paged": 22 * 4}
+
+
+def test_truth_gate():
+    """serving_tinyllama holds a bf16 session as an int8 cache's: the
+    kernel path within 1.2x the plain path's distance from the float32
+    truth, finite."""
+    truth = [torch.tensor([[1.0, -4.0]]), torch.tensor([[2.0, 0.5]])]
+    plain = [t + 1e-2 for t in truth]
+
+    def gate(got):
+        return dict(chip_smoke.logit_gate(got, plain),
+                    **chip_smoke.int8_gate(got, plain, truth))
+    ok = gate([t - 1.1e-2 for t in truth])
+    assert ok["tol_kernel_vs_f32_cache"] == pytest.approx(1.2e-2)
+    chip_smoke.check_logit_gate(ok, "ok")
+    for got in ([t + 1.3e-2 for t in truth],
+                [truth[0], truth[1] * float("nan")]):
+        with pytest.raises(chip_smoke.CheckFailed):
+            chip_smoke.check_logit_gate(gate(got), "bad")
+
+
+class _Cuda:
+    """torch.cuda's calls the serving phases make, on a CPU-only host."""
+
+    @staticmethod
+    def synchronize():
+        pass
+
+    empty_cache = reset_peak_memory_stats = synchronize
+
+    @staticmethod
+    def max_memory_allocated():
+        return 0
+
+
+class _TorchOnCpu:
+    """``torch`` with ``device("cuda")`` the CPU and the stubs above."""
+
+    cuda = _Cuda
+
+    @staticmethod
+    def device(*args):
+        return torch.device("cpu")
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+# what a CPU run of a card phase must fail: the kernel, graph and route
+# checks (the CPU runs the plain versions, eagerly)
+_CARD_ONLY = ("graph", "launch", "replays", "plain route", "RMSNorm kernel",
+              "attention kernels off")
+
+
+def test_serving_tinyllama_rehearsed_on_the_cpu(monkeypatch):
+    """serving_tinyllama end to end on the CPU at a narrow width (2 layers,
+    8 heads of 64 over one KV head, vocab 512): every engine, its eager
+    twin, the teacher-forced truth gate, the chunked engine and
+    ``generate`` run, and only the checks that need the card fail."""
+    import paddle_tpu_torch.serving as serving
+    failed = []
+
+    def record(cond, what):
+        if not cond:
+            failed.append(what)
+
+    class CpuEngine(serving.ServingEngine):
+        def __init__(self, model, **kw):
+            super().__init__(model, **dict(kw, device="cpu"))
+
+    monkeypatch.setattr(chip_smoke, "check", record)
+    monkeypatch.setattr(serving, "ServingEngine", CpuEngine)
+    monkeypatch.setattr(chip_smoke, "TINYLLAMA", dict(
+        chip_smoke.TINYLLAMA, vocab_size=512, hidden_size=512,
+        intermediate_size=256, num_hidden_layers=2, num_attention_heads=8,
+        num_key_value_heads=1))
+    kernels = {n + chip_smoke.BF16_D64: {}
+               for n in chip_smoke.BF16_D64_BUILDS}
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    chip_smoke.phase_serving_tinyllama(_TorchOnCpu(), kernels, "cpu")
+    assert [ln["engine"] for ln in lines] == [
+        "contiguous", "paged", "int8_paged", "int8_contiguous", "chunked",
+        "generate"]
+    bad = [w for w in failed if not any(k in w for k in _CARD_ONLY)]
+    assert not bad, bad
+    assert failed, "the card-only checks cannot pass on the CPU"
+    for ln in lines[:4]:
+        g = ln["teacher_forced_logits"]
+        assert g["finite"] and 0 < g["max_logit_err_kernel_vs_f32_cache"] \
+            <= g["tol_kernel_vs_f32_cache"]
+        assert ln["eager_twin"]["tokens_identical"]
+    assert lines[1]["kv_cache"]["prefix_hit_tokens"] > 0
+    assert lines[5]["twin_identical"] and lines[5]["cold_identical"]
+    assert all("launches" in r for r in kernels.values())

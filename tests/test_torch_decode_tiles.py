@@ -43,6 +43,13 @@ kernel takes the shape (paged: block_len 128; contiguous: L a multiple of
 elsewhere (block_len or granule 8, 16 and 64), in float32, in bf16 values
 (computed in float32 by both: the kernel's own bf16 rounding of P is held
 on the card) and in int8 with float32 scales.
+
+Below head_dim 128 the bf16 body keeps 128-wide ring rows: each key row's
+copies read its D elements' bytes once and zero-fill the rest, every read
+aligned to its size (8-byte copies for int8 rows of D % 16 == 8 bytes, as
+K2-paged-int8's staging at those D), and ``_model`` on rows zero-padded to
+128 equals it on the unpadded rows (D 16, 64, 72) and the Pallas kernel at
+bf16 and int8, D 64, 8 query heads a KV head.
 """
 
 import math
@@ -59,6 +66,7 @@ from paddle_tpu.ops.attention import (
 from paddle_tpu.ops.pallas.decode_attention import decode_attention_pallas
 
 from paddle_tpu_torch.ops.attention import cached_decode_attention_reference
+from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS
 from paddle_tpu_torch.ops.cuda.decode_attention import (MMA_ROWS, MMA_SLICE,
                                                         MMA_WARPS)
 
@@ -202,9 +210,17 @@ class Case:
 
 
 def _model(case, q, k, v, split_len, k_scale=None, v_scale=None,
-           live_len=None, kept=None):
+           live_len=None, kept=None, width=None):
     """The kernel's algorithm in float32 torch over ``_walk``'s slices.
-    ``kept``, if given, collects {(b, h, row): set of keys weighted}."""
+    ``kept``, if given, collects {(b, h, row): set of keys weighted}.
+    ``width``: the rows zero-padded to ``width`` head-dim columns first, as
+    the Hopper body holds a head_dim below 128 (its ring rows and q
+    registers are 128 wide, zeros past D), with the unpadded rows' scale;
+    the columns past D are dropped."""
+    d0 = q.shape[3]
+    if width is not None:
+        q, k, v = (torch.nn.functional.pad(x, (0, width - d0))
+                   for x in (q, k, v))
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -212,7 +228,7 @@ def _model(case, q, k, v, split_len, k_scale=None, v_scale=None,
     if k_scale is not None:
         k_scale, v_scale = k_scale.reshape(-1, hkv), v_scale.reshape(-1, hkv)
     limit = case.L if live_len is None else max(1, min(case.L, live_len))
-    scale_log2 = d ** -0.5 * math.log2(math.e)
+    scale_log2 = d0 ** -0.5 * math.log2(math.e)
     sl = MMA_SLICE
     out = torch.zeros(b, s, hq, d)
     for r in range(b):
@@ -290,7 +306,9 @@ def _model(case, q, k, v, split_len, k_scale=None, v_scale=None,
                                   o / lsum.clamp_min(1e-37)[:, None],
                                   torch.tensor(0.0))
                 out[r, si, h * g + gi] = res
-    return out
+    if width is not None:
+        assert not out[..., d0:].any()     # the pad's rows of O^T stay 0
+    return out[..., :d0]
 
 
 def _t(a):
@@ -440,9 +458,10 @@ def test_model_matches_jax_at_head_dim_128(kind, b, s, bl, mb, split_len,
     _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, 128)
 
 
-def _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, d):
+def _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, d,
+                       width=None, hq=8, hkv=2):
     int8 = kind == "int8"
-    case = Case(7, layout, b, s, bl, mb, int8=int8, hq=8, hkv=2, d=d,
+    case = Case(7, layout, b, s, bl, mb, int8=int8, hq=hq, hkv=hkv, d=d,
                 pos=pos)
     if kind == "bfloat16":
         case.q, case.k, case.v = (_bf16_values(a)
@@ -452,7 +471,7 @@ def _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, d):
         kw_j = dict(k_scale=jnp.asarray(case.scales[0]),
                     v_scale=jnp.asarray(case.scales[1]))
     got = _model(case, _t(case.q), _t(case.k), _t(case.v), split_len,
-                 **_scale_kw(case))
+                 width=width, **_scale_kw(case))
     jq, jk, jv, jp = (jnp.asarray(a)
                       for a in (case.q, case.k, case.v, case.pos))
     if case.tables is not None:
@@ -467,3 +486,100 @@ def _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, d):
         # the walk never touched the dead tails the tables end in
         assert (case.tables == 0).any()
     _check_walk(case, 4, split_len)
+
+
+# ---- bf16 at head dims below 128 (D <= 128, D % 8 == 0) ----------------------
+#
+# The Hopper body keeps its 128-wide ring rows at every D: the copies fill a
+# row's first D elements' bytes and zero-fill the rest, q's fragments are
+# zero past D, so S^T = K Q^T adds zero products over the pad, O^T's rows
+# past D stay 0 and only D columns are stored.  The cache's rows stay D
+# elements wide in device memory, so an int8 row of D % 16 == 8 bytes
+# starts only 8-byte aligned; those rows go in 8-byte copies.
+
+RING_ROW = 128             # csrc: kPD, a ring row's head-dim elements
+
+
+def _row_copies(d, int8):
+    """One key row's copies into its ring row (``issue`` in
+    ``decode_mma_kernel``): [(byte offset in the row, bytes, read)], a copy
+    that does not read zero-filling its bytes."""
+    ring_bytes = RING_ROW * (1 if int8 else 2)
+    row_bytes = d * (1 if int8 else 2)
+    out = []
+    for ch in range(ring_bytes // 16):
+        if int8 and d % 16:
+            out += [(16 * ch + 8 * e, 8, 16 * ch + 8 * e < row_bytes)
+                    for e in range(2)]
+        else:
+            out.append((16 * ch, 16, 16 * ch < row_bytes))
+    return out
+
+
+def _staged_row_copies(d):
+    """K2-paged-int8's cp.async staging at D % 16 == 8 (the pool's D-byte
+    head stride rules out a TMA map): one key row's 8-byte pieces of its
+    128-byte staged row."""
+    return [(8 * pc, 8, 8 * pc < d) for pc in range(16)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", sorted(BF16_HEAD_DIMS))
+def test_row_copies_cover_d_and_zero_the_pad(d, int8):
+    """Every key row's copies read its D elements' bytes exactly once, into
+    the same bytes of the ring row, and zero-fill the ring row's rest; each
+    read is aligned to its size at every row start ((row * Hkv + h) * D
+    elements), so 16-byte copies are taken only where rows are 16-byte
+    multiples."""
+    row_bytes = d * (1 if int8 else 2)
+    tables = [_row_copies(d, int8)]
+    if int8 and d % 16:
+        tables.append(_staged_row_copies(d))
+    for copies in tables:
+        read, zero = [], []
+        for off, n, real in copies:
+            (read if real else zero).extend(range(off, off + n))
+        assert sorted(read) == list(range(row_bytes))
+        assert sorted(zero) == list(range(row_bytes, copies[-1][0]
+                                          + copies[-1][1]))
+        for hkv in (1, 3, 4):
+            for start in range(0, 6 * hkv * row_bytes, row_bytes):
+                assert all((start + off) % n == 0
+                           for off, n, real in copies if real)
+    assert (max(n for _, n, _ in tables[0]) == 16) == (row_bytes % 16 == 0)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 72])
+def test_padded_model_equals_unpadded(d, int8, layout):
+    """The 128-wide padded rows give the unpadded rows' output: the pad's
+    products are zero (G 8, s 1 and a 5-token window over several
+    splits)."""
+    for s, pos in ((1, [0, 300, 639]), (5, [3, 200, 635])):
+        case = Case(d + s, layout, 3, s, 128, 5, int8=int8, hq=8, hkv=1,
+                    d=d, pos=pos)
+        args = (case, _t(case.q), _t(case.k), _t(case.v), 128)
+        want = _model(*args, **_scale_kw(case))
+        got = _model(*args, width=RING_ROW, **_scale_kw(case))
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# (kind, b, s, block_len or granule, max_blocks or granules a row,
+# split_len, pos) at TinyLlama's head_dim 64 and 8 query heads a KV head
+FIXED_64 = [
+    ("bfloat16", 3, 1, 128, 5, 256, [0, 300, 639]),
+    ("bfloat16", 2, 5, 128, 3, 64, [1, 300]),
+    ("int8", 3, 1, 128, 5, 64, [1, 300, 639]),
+    ("int8", 2, 5, 128, 3, 256, [7, 250]),
+]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind,b,s,bl,mb,split_len,pos", FIXED_64)
+def test_padded_model_matches_jax_at_head_dim_64(kind, b, s, bl, mb,
+                                                 split_len, pos, layout):
+    """The padded model against ``decode_attention_pallas(...,
+    interpret=True)`` at bf16 values (and int8 K/V) and D 64."""
+    _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, 64,
+                       width=RING_ROW, hq=8, hkv=1)

@@ -11,8 +11,8 @@ streams cannot be shared between the libraries, so samples drawn from
 noise (``x_init=None``, ``eta=1``) are held to their known moments.  Also
 here: the sampler's build-once contract (watchdog site ``diffusion.ddim``),
 the CPU route, and the head dims of the contiguous K2 and of K5 / K6
-(one set) against the builds that stay at 128 (K2-paged, K1: ROADMAP
-B2).
+(one set), which K2-paged and the K1 family share at bf16 (their float32
+builds stay at 16 and 128: ROADMAP B2).
 """
 
 import os
@@ -409,9 +409,10 @@ def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
                                      (torch.bfloat16, 64),
                                      (torch.float32, 72)])
 def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
-    """K2-paged(-int8) and the K1 family are built at 128 (bf16) / 16 and
-    128 (float32) only: each refuses DiT's head dims naming B2.  (K5 / K6
-    take them: ``test_k5_k6_take_k2s_head_dims``.)"""
+    """K2-paged(-int8) and the K1 family take bf16 at every head_dim <= 128
+    with D % 8 == 0 (DiT's 72 and 64 among them: each launches with that
+    head dim) and float32 at 16 and 128 only (each refuses DiT's 72
+    naming B2).  (K5 / K6 take them: ``test_k5_k6_take_k2s_head_dims``.)"""
     q, k, v = _qkv(d, dtype, s=1)
     pool = torch.zeros(4, 64, 2, d, dtype=dtype)
     pool8 = torch.zeros(4, 64, 2, d, dtype=torch.int8)
@@ -431,6 +432,14 @@ def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
         lambda: k1.decode_attention_paged_int8_cuda(q, pool8, pool8, 0, tbl,
                                                     k_scale=sc, v_scale=sc),
     ]
+    if dtype == torch.bfloat16:
+        # the index of D in each entry's arguments
+        for call, i_d in zip(calls, (10, 12, 12, 14, 13, 15)):
+            no_card.calls.clear()
+            assert call().shape == q.shape
+            (_, args), = no_card.calls
+            assert args[i_d] == d and args[-2] == 0   # dtype code: bfloat16
+        return
     for call in calls:
         with pytest.raises(NotImplementedError, match="B2"):
             call()

@@ -60,9 +60,12 @@ def test_tables_take_float32_head_dim_128_only_among_new_dims():
     f32 = torch.float32
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
         assert 128 in table[f32] and 96 not in table[f32]
-    # the rest of B2 stays refused: bf16 builds of one head dim
-    assert k1.HEAD_DIM[torch.bfloat16] == k2.HEAD_DIM[torch.bfloat16] == 128
-    assert torch.float16 not in k2.FWD_HEAD_DIMS
+    # every bf16 build takes one set of head dims (D <= 128, D % 8 == 0);
+    # the rest of B2 (float16, D past 128) stays refused
+    assert (k1.HEAD_DIM[torch.bfloat16] == k2.HEAD_DIM[torch.bfloat16]
+            == k2.FWD_HEAD_DIMS[torch.bfloat16])
+    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
+        assert torch.float16 not in table
 
 
 # ---- a model of K5 / K6's float32 head_dim-128 body ---------------------------

@@ -154,6 +154,12 @@ PAGED_CASES = [
     # float32 q at head_dim 128 (LlamaConfig()): the tick and s = 5
     (3, 1, 8, 2, 128, [0, 300, 129], 3),
     (2, 5, 4, 4, 128, [5, 200], 2),
+    # TinyLlama's head_dim 64 and 72 (an int8 row of D % 16 == 8 bytes), 8
+    # query heads a KV head; s = 9 x G 8 = 72 rows walks two q tiles
+    (3, 1, 8, 1, 64, [0, 300, 129], 3),
+    (2, 9, 16, 2, 64, [5, 200], 2),
+    (3, 1, 8, 1, 72, [7, 250, 128], 3),
+    (2, 5, 16, 2, 72, [0, 130], 2),
 ]
 
 

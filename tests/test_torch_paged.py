@@ -10,7 +10,8 @@ tolerance 1e-5 (the two libraries sum in other orders).  The pools are
 built so a kernel cannot pass by accident: physical blocks shuffled across
 the pool, two rows sharing their first blocks, null-filled dead tails; the
 q-tiled case has ``s * G > 64`` so the Pallas kernel walks ``nq > 1`` q
-tiles.  Then the tiny model's paged ``decode_step`` against the JAX
+tiles; head dims 16, 32, 64, 72 and 128, the ones below 128 at 8 query
+heads a KV head too.  Then the tiny model's paged ``decode_step`` against the JAX
 model's: a prefix prefill at 0, a suffix prefill at per-row ``pos > 0``
 and incremental steps, logits and pool within 1e-5.
 """
@@ -75,6 +76,12 @@ PAGED_CASES = [
     # the decode tick and a 5-token window
     (3, 1, 8, 2, 128, [0, 300, 129], 3),
     (2, 5, 4, 4, 128, [0, 120], 2),
+    # head dims below 128 at TinyLlama's 8 query heads a KV head: 64, and
+    # 72 (D % 16 == 8); s = 9 x G 8 = 72 rows walks two q tiles
+    (3, 1, 8, 1, 64, [0, 300, 129], 3),
+    (2, 9, 16, 2, 64, [0, 120], 2),
+    (3, 1, 8, 1, 72, [7, 250, 128], 3),
+    (2, 5, 16, 2, 72, [0, 130], 2),
 ]
 
 
