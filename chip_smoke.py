@@ -11,8 +11,9 @@ runs the model at the full Llama-3-8B width, serves requests through the
 engine, generates with ``generate`` (greedy, sampled, beam, int8), samples
 and trains DiT-XL/2, generates with and trains Qwen2-VL at its default
 widths (in bf16, then as the reference defines it, float32), serves
-``LlamaConfig()`` in float32 and TinyLlama-1.1B (head_dim 64) in bf16 and
-trains a 4-layer cut of the Llama model.  Every phase prints one JSON line;
+``LlamaConfig()`` in float32, TinyLlama-1.1B (head_dim 64) and a Llama at
+Gemma-2B's widths (head_dim 256) in bf16, and trains a 4-layer cut of the
+Llama model.  Every phase prints one JSON line;
 any failed check raises, so the script exits non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -21,9 +22,10 @@ any failed check raises, so the script exits non-zero.  Phases:
                  fails if ptxas reports that it serialised the
                  ``wgmma.mma_async`` instructions of any kernel (named),
                  or if a build of the Hopper K1 kernel (K1, K1-int8,
-                 K1-paged, K1-paged-int8; at head_dim 128 and its
-                 instance below) spills or fits no CTA on an SM
-                 (``k1_mma``: registers, spills, CTAs an SM);
+                 K1-paged, K1-paged-int8; at head_dim 128, its instance
+                 below, at 256 and its instance between) spills or fits
+                 no CTA on an SM (``k1_mma``: registers, spills, CTAs an
+                 SM);
   2. kernels   — K1 flash-decode (also with every row at the last
                  position and a 4-token window; the same bits on two
                  calls), K2 flash-attention forward and K3
@@ -96,8 +98,19 @@ any failed check raises, so the script exits non-zero.  Phases:
                  over 64-token blocks, and contract rows (queries that
                  see no key give 0, 8-token scale granules, 16-token
                  blocks, null-tailed tables; at D 72 the int8 builds'
-                 8-byte copies); each also at the tiny model's
-                 float32 shapes:
+                 8-byte copies); then every bf16 forward build above
+                 head_dim 128 (``/bf16_d256`` entries, after a
+                 ``bf16_d256_ptxas`` line: a spill fails) at D 136, 192,
+                 200 and 256 (136 and 200: the 8-byte int8 copies and
+                 K2-paged-int8's CP8 staging): the same K1 and K2-paged
+                 rows at a Gemma-2B-wide Llama's 8 / 1 heads (s = 5 at
+                 D 256), K2 at the serving wave (B 4 x 2048, causal GQA)
+                 and at Sq 77 over Skv 61 (dead rows) at every D, at D
+                 256 not causal, packed and Sq 64 over Skv 256, the
+                 identity view and its crossover with K1
+                 (``crossover_d256``), and K5 / K6 at D 256 refusing
+                 naming ROADMAP B2.3b (``bf16_d256_backward``); each also
+                 at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
                  in ms;
@@ -320,6 +333,14 @@ any failed check raises, so the script exits non-zero.  Phases:
                  layout within 1.2x the plain path's distance from a
                  float32 copy on a float32 cache; tok/s, TTFT, TPOT,
                  peak memory;
+  serving_d256. — a Llama at Gemma-2B's published widths (18 layers of
+                 8 / 1 heads of 256, hidden 2048, intermediate 16384,
+                 vocab 256000, tied embeddings; the Llama architecture),
+                 bf16, seeded weights, not cut: serving_tinyllama's
+                 engines, requests and gates, the decode kernel 18 a
+                 tick and the wave (or chunk) kernel 18 a wave (chunk);
+                 the decode step beside the weights' byte bound of a
+                 tick;
   5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -347,7 +368,8 @@ qwen2_vl's greedy run, of K5 and K6 at head_dim 64 from qwen2_vl_train,
 of every float32 head_dim-128 build from serving_f32's engines (K2 from
 the contiguous engine's waves) and qwen2_vl_f32's train steps (K5, K6),
 of every bf16 build of K1 and K2-paged at head_dim 64 from
-serving_tinyllama's engines; error and times from phase 2) and, last,
+serving_tinyllama's engines, of every bf16 forward build at head_dim 256
+from serving_d256's engines; error and times from phase 2) and, last,
 ``{"ok": true,
 "device": {...}}``.
 
@@ -500,6 +522,15 @@ BF16_D64_BUILDS = ("decode_attention", "decode_attention_int8",
                    "flash_attention_fwd_paged_int8")
 for _name in BF16_D64_BUILDS:
     KERNEL_INFO[_name + BF16_D64] = dict(KERNEL_INFO[_name])
+# every bf16 forward build above head_dim 128 (a Llama at Gemma-2B's
+# widths: head_dim 256) has an entry of its own, the kernel of its
+# namesake at bf16: phase 2's "/bf16_d256" rows -- times at D 256, the
+# largest error over D 136, 192, 200 and 256 -- and launches from
+# serving_d256's engines
+BF16_D256 = "/bf16_d256"
+BF16_D256_BUILDS = BF16_D64_BUILDS + ("flash_attention_fwd",)
+for _name in BF16_D256_BUILDS:
+    KERNEL_INFO[_name + BF16_D256] = dict(KERNEL_INFO[_name])
 del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -687,8 +718,8 @@ def within(a, b, atol: float, rtol: float) -> bool:
 def ptxas_functions(log: str):
     """Registers and spill-store bytes of each entry function in ptxas's
     ``-v`` report (mangled names; the Hopper K2 kernel's template
-    arguments are <SEG, PAGED, INT8>, so ``ILb0ELb1ELb1EE`` is
-    K2-paged-int8)."""
+    arguments are <SEG, PAGED, INT8, CP8, HD>, so ``ILb0ELb1ELb1ELb0ELi256EE``
+    is K2-paged-int8 on 256-wide tiles)."""
     out, fn, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -763,11 +794,15 @@ def phase_card(torch, pt_build):
 K1_MMA_BUILDS = (("decode_attention", 0, 0), ("decode_attention_int8", 1, 0),
                  ("decode_attention_paged", 0, 1),
                  ("decode_attention_paged_int8", 1, 1))
+# its instances of each build: (suffix, PAD, ring row PD, a head_dim it runs)
+K1_MMA_INSTANCES = (("", 0, 128, 128), ("/padded", 1, 128, 64),
+                    ("/wide", 0, 256, 256), ("/wide_padded", 1, 256, 200))
 
 
 def mma_decode_builds(ptxas):
     """Each build of the Hopper K1 kernel (``decode_mma_kernel<INT8, PAGED,
-    PAD>``), at head_dim 128 and (``/padded``, PAD) below: ptxas's
+    PAD, PD>``), at head_dim 128, (``/padded``, PAD) below, at 256
+    (``/wide``: 256-wide ring rows) and (``/wide_padded``) between: ptxas's
     registers and spill bytes (when this process built the library) and
     the CTAs that fit on one SM (minus a CUDA error)."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
@@ -775,12 +810,12 @@ def mma_decode_builds(ptxas):
     fns = ptxas.get("decode_attention", {}).get("functions", {})
     out = {}
     for name, int8, paged in K1_MMA_BUILDS:
-        for pad in (0, 1):
-            tag = f"decode_mma_kernelILb{int8}ELb{paged}ELb{pad}E"
+        for suffix, pad, pd, d in K1_MMA_INSTANCES:
+            tag = f"decode_mma_kernelILb{int8}ELb{paged}ELb{pad}ELi{pd}E"
             row = next((dict(r) for f, r in fns.items() if tag in f), {})
             row["ctas_per_sm"] = lib.decode_attention_mma_ctas_per_sm(
-                int8, paged, pad)
-            out[name + ("/padded" if pad else "")] = row
+                int8, paged, d)
+            out[name + suffix] = row
     return out
 
 
@@ -1034,6 +1069,12 @@ def phase_kernels(torch):
     check(all(r is None or r["spill_stores"] == 0
               for fns in f32_regs.values() for r in fns.values()),
           f"a float32 head_dim-128 build spills: {f32_regs}")
+    # and of every bf16 instance above head_dim 128
+    wide_regs = ptxas_of(_build.build_log, BF16_D256_FUNCTIONS)
+    emit({"phase": "bf16_d256_ptxas", "functions": wide_regs})
+    check(all(r is None or r["spill_stores"] == 0
+              for fns in wide_regs.values() for r in fns.values()),
+          f"a bf16 build above head_dim 128 spills: {wide_regs}")
 
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
                main, note=None, extra=None):
@@ -1054,6 +1095,8 @@ def phase_kernels(torch):
             row["library_note"] = note
         if name.endswith(F32_D128):
             row["ptxas"] = f32_regs[name[:-len(F32_D128)]]
+        if name.endswith(BF16_D256):
+            row["ptxas"] = wide_regs[name[:-len(BF16_D256)]]
         row.update(extra or {})
         emit(row)
         check(ok, f"{name} {shape}: max error {err} beyond {tol}")
@@ -1557,6 +1600,8 @@ def phase_kernels(torch):
                         tols)
     phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
                              int8_scales, tols)
+    phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
+                             int8_scales, tols, wide=True)
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
@@ -1663,75 +1708,21 @@ QWEN_HEADS, QWEN_PROMPT, QWEN_NEW = 8, 64, 32
 QWEN_BWD = ("flash_attention_bwd_dq/d64", "flash_attention_bwd_dkv/d64")
 
 
-def phase_head_dim_rows(torch, record, randn, tols):
-    """Phase 2's rows of K2 at the head dims below 128 (the contiguous
-    build takes any D <= 128 with D % 8 == 0 on zero-padded 128-wide
-    tiles; float32 its CUDA-core instances at 64 and 72): bf16 D 72 at
-    the dit phase's shape (B 16, S 256, 16 heads, full attention; the
-    ``flash_attention_fwd/d72`` entry's main row), causal GQA at a ragged
-    Sq 77 over Skv 61 (queries 0..15 see no key: out 0, lse -1e30), the
-    ring-hop segmented form (separate kv ids, queries whose id matches no
-    key), bf16 D 64 (the second TMA box wholly past the tensor), then
-    float32 at 72 (the narrow DiT's shape and a ragged causal one) and
-    64.  Each holds out, lse and the dead rows against the plain
-    version.  Then K5 / K6 at the same head dims
-    (:func:`backward_rows`): bf16 D 72 at the dit_train step's shape (B 32,
-    S 256, 16 heads, full attention; the ``flash_attention_bwd_*/d72``
-    entries' main rows), and at D 72 and 64 the contract rows -- causal
-    GQA at Sq 77 over Skv 61 (dead rows), the ring-hop segmented form (Sq
-    256, Skv 512, queries whose id matches no key) and packed documents
-    at an unaligned S 300 -- then float32 at 72 (the narrow DiT's shape,
-    Sq 77 / Skv 61) and 64.  The float32 head_dim-128 builds (the
-    reference's defaults, ``/f32_d128`` entries) take both loops' last
-    rows: K2 at LlamaConfig()'s prefill wave (B 4, S 2048, 32 heads,
-    causal), ragged causal GQA (dead rows), packed documents at S 300 and
-    Qwen2-VL's cross shapes; K5 / K6 at Qwen2-VL's decoder and cross
-    shapes, ragged causal GQA and packed documents."""
+def k2_rows(torch, record, randn, tols, rows):
+    """Phase 2's rows of K2 over contiguous K/V, one a spec (name, dtype,
+    B, Sq, Skv, Hq, Hkv, D, causal, segments, main) -- segments None,
+    "packed" (packed documents) or "ring" (separate kv ids, queries whose
+    id matches no key): out, lse and the dead rows (no visible key: out 0,
+    lse -1e30) held against the plain version, beside SDPA (enable_gqa;
+    with a dense mask where one is needed)."""
     from paddle_tpu_torch.ops import (flash_attention,
                                       flash_attention_fwd_cuda)
     from paddle_tpu_torch.ops._dispatch import reference_mode
     import torch.nn.functional as TF
 
     dev = torch.device("cuda")
-    bf16, f32 = torch.bfloat16, torch.float32
-    f32_k2 = "flash_attention_fwd" + F32_D128
-    for (name, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in (
-            ("flash_attention_fwd/d72", bf16, DIT_BATCH, DIT_TOKENS,
-             DIT_TOKENS, DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, None,
-             True),
-            ("flash_attention_fwd/d72", bf16, 2, 77, 61, 8, 2, 72, True,
-             None, False),
-            ("flash_attention_fwd/d72", bf16, 2, 256, 512, 8, 2, 72, True,
-             "ring", False),
-            ("flash_attention_fwd", bf16, 4, 512, 512, 8, 8, 64, False,
-             None, False),
-            ("flash_attention_fwd", bf16, 2, 77, 61, 8, 2, 64, True, None,
-             False),
-            ("flash_attention_fwd/d72", f32, 4, 16, 16, 2, 2, 72, False,
-             None, False),
-            ("flash_attention_fwd/d72", f32, 2, 77, 61, 4, 2, 72, True,
-             None, False),
-            ("flash_attention_fwd", f32, 2, 70, 70, 4, 2, 64, False, None,
-             False),
-            ("flash_attention_fwd/d64", bf16, QWEN_BATCH, QWEN_PATCHES,
-             QWEN_PATCHES, QWEN_VISION_HEADS, QWEN_VISION_HEADS, 64, False,
-             None, True),
-            ("flash_attention_fwd/cross", bf16, QWEN_BATCH, 1, QWEN_PATCHES,
-             QWEN_HEADS, QWEN_HEADS, 128, False, None, True),
-            ("flash_attention_fwd/cross", bf16, QWEN_BATCH, QWEN_PROMPT,
-             QWEN_PATCHES, QWEN_HEADS, QWEN_HEADS, 128, False, None,
-             False),
-            # float32 at head_dim 128 (the reference's defaults): the
-            # prefill wave of LlamaConfig(), ragged causal GQA, packed
-            # documents at an unaligned S, Qwen2-VL's cross shapes
-            (f32_k2, f32, 4, F32_L, F32_L, F32_HEADS, F32_HEADS, 128, True,
-             None, True),
-            (f32_k2, f32, 2, 77, 61, 8, 2, 128, True, None, False),
-            (f32_k2, f32, 2, 300, 300, 8, 2, 128, True, "packed", False),
-            (f32_k2, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES, QWEN_HEADS,
-             QWEN_HEADS, 128, False, None, False),
-            (f32_k2, f32, QWEN_BATCH, 1, QWEN_PATCHES, QWEN_HEADS,
-             QWEN_HEADS, 128, False, None, False)):
+    bf16 = torch.bfloat16
+    for (name, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in rows:
         atol, rtol = tols(dt)
         lse_tol = 1e-3 if dt == bf16 else 1e-5
         esz = 2 if dt == bf16 else 4
@@ -1790,6 +1781,72 @@ def phase_head_dim_rows(torch, record, randn, tols):
                       "dead_rows": n_dead,
                       "library_kernel": top_kernel(torch, lfns[0])})
         del sets, q, k, v, out, lse, ref, ref_lse
+
+
+def phase_head_dim_rows(torch, record, randn, tols):
+    """Phase 2's rows of K2 at the head dims below 128 (the contiguous
+    build takes any D <= 128 with D % 8 == 0 on zero-padded 128-wide
+    tiles; float32 its CUDA-core instances at 64 and 72): bf16 D 72 at
+    the dit phase's shape (B 16, S 256, 16 heads, full attention; the
+    ``flash_attention_fwd/d72`` entry's main row), causal GQA at a ragged
+    Sq 77 over Skv 61 (queries 0..15 see no key: out 0, lse -1e30), the
+    ring-hop segmented form (separate kv ids, queries whose id matches no
+    key), bf16 D 64 (the second TMA box wholly past the tensor), then
+    float32 at 72 (the narrow DiT's shape and a ragged causal one) and
+    64.  Each holds out, lse and the dead rows against the plain
+    version.  Then K5 / K6 at the same head dims
+    (:func:`backward_rows`): bf16 D 72 at the dit_train step's shape (B 32,
+    S 256, 16 heads, full attention; the ``flash_attention_bwd_*/d72``
+    entries' main rows), and at D 72 and 64 the contract rows -- causal
+    GQA at Sq 77 over Skv 61 (dead rows), the ring-hop segmented form (Sq
+    256, Skv 512, queries whose id matches no key) and packed documents
+    at an unaligned S 300 -- then float32 at 72 (the narrow DiT's shape,
+    Sq 77 / Skv 61) and 64.  The float32 head_dim-128 builds (the
+    reference's defaults, ``/f32_d128`` entries) take both loops' last
+    rows: K2 at LlamaConfig()'s prefill wave (B 4, S 2048, 32 heads,
+    causal), ragged causal GQA (dead rows), packed documents at S 300 and
+    Qwen2-VL's cross shapes; K5 / K6 at Qwen2-VL's decoder and cross
+    shapes, ragged causal GQA and packed documents."""
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    f32_k2 = "flash_attention_fwd" + F32_D128
+    k2_rows(torch, record, randn, tols, (
+        ("flash_attention_fwd/d72", bf16, DIT_BATCH, DIT_TOKENS,
+         DIT_TOKENS, DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, None,
+         True),
+        ("flash_attention_fwd/d72", bf16, 2, 77, 61, 8, 2, 72, True,
+         None, False),
+        ("flash_attention_fwd/d72", bf16, 2, 256, 512, 8, 2, 72, True,
+         "ring", False),
+        ("flash_attention_fwd", bf16, 4, 512, 512, 8, 8, 64, False,
+         None, False),
+        ("flash_attention_fwd", bf16, 2, 77, 61, 8, 2, 64, True, None,
+         False),
+        ("flash_attention_fwd/d72", f32, 4, 16, 16, 2, 2, 72, False,
+         None, False),
+        ("flash_attention_fwd/d72", f32, 2, 77, 61, 4, 2, 72, True,
+         None, False),
+        ("flash_attention_fwd", f32, 2, 70, 70, 4, 2, 64, False, None,
+         False),
+        ("flash_attention_fwd/d64", bf16, QWEN_BATCH, QWEN_PATCHES,
+         QWEN_PATCHES, QWEN_VISION_HEADS, QWEN_VISION_HEADS, 64, False,
+         None, True),
+        ("flash_attention_fwd/cross", bf16, QWEN_BATCH, 1, QWEN_PATCHES,
+         QWEN_HEADS, QWEN_HEADS, 128, False, None, True),
+        ("flash_attention_fwd/cross", bf16, QWEN_BATCH, QWEN_PROMPT,
+         QWEN_PATCHES, QWEN_HEADS, QWEN_HEADS, 128, False, None,
+         False),
+        # float32 at head_dim 128 (the reference's defaults): the
+        # prefill wave of LlamaConfig(), ragged causal GQA, packed
+        # documents at an unaligned S, Qwen2-VL's cross shapes
+        (f32_k2, f32, 4, F32_L, F32_L, F32_HEADS, F32_HEADS, 128, True,
+         None, True),
+        (f32_k2, f32, 2, 77, 61, 8, 2, 128, True, None, False),
+        (f32_k2, f32, 2, 300, 300, 8, 2, 128, True, "packed", False),
+        (f32_k2, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES, QWEN_HEADS,
+         QWEN_HEADS, 128, False, None, False),
+        (f32_k2, f32, QWEN_BATCH, 1, QWEN_PATCHES, QWEN_HEADS,
+         QWEN_HEADS, 128, False, None, False)))
 
     f32_bwd = tuple(n + F32_D128 for n in TRAIN_KERNELS)
     for (names, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in (
@@ -1877,18 +1934,39 @@ F32_D128_FUNCTIONS = {
 }
 
 
-def f32_d128_ptxas(build_log):
-    """{build: {function tag: registers / spill bytes}} of the float32
-    head_dim-128 builds, from this process's ptxas reports ({} for a
-    library an earlier process built)."""
+# the C functions of each bf16 build above head_dim 128: the K1 family's
+# decode_mma_kernel<INT8, PAGED, PAD, 256> (D 256, and PAD: 136-248), K2's
+# flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, CP8, 256>
+BF16_D256_FUNCTIONS = {
+    name: tuple(f"decode_mma_kernelILb{int8}ELb{paged}ELb{pad}ELi256EE"
+                for pad in (0, 1))
+    for name, int8, paged in K1_MMA_BUILDS}
+BF16_D256_FUNCTIONS.update({
+    "flash_attention_fwd": tuple(
+        f"flash_attention_fwd_wgmma_kernelILb{seg}ELb0ELb0ELb0ELi256EE"
+        for seg in (0, 1)),
+    "flash_attention_fwd_paged": (
+        "flash_attention_fwd_wgmma_kernelILb0ELb1ELb0ELb0ELi256EE",),
+    "flash_attention_fwd_paged_int8": tuple(
+        f"flash_attention_fwd_wgmma_kernelILb0ELb1ELb1ELb{cp8}ELi256EE"
+        for cp8 in (0, 1))})
+
+
+def ptxas_of(build_log, functions):
+    """{build: {function tag: registers / spill bytes}} of ``functions``
+    ({build: tags}), from this process's ptxas reports (None for a library
+    an earlier process built)."""
     fns = {}
     for log in build_log.values():
         fns.update(ptxas_functions(log))
-    out = {}
-    for build, tags in F32_D128_FUNCTIONS.items():
-        out[build] = {tag: next((r for f, r in fns.items() if tag in f),
-                                None) for tag in tags}
-    return out
+    return {build: {tag: next((r for f, r in fns.items() if tag in f),
+                              None) for tag in tags}
+            for build, tags in functions.items()}
+
+
+def f32_d128_ptxas(build_log):
+    """:func:`ptxas_of` the float32 head_dim-128 builds."""
+    return ptxas_of(build_log, F32_D128_FUNCTIONS)
 
 
 def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
@@ -2159,10 +2237,15 @@ TL_HEADS, TL_KV_HEADS = 32, 4
 # phase 2's bf16 head dims below 128: the tiny config's 16, TinyLlama's 64,
 # DiT's 72 (D % 16 == 8: the int8 builds' 8-byte copies), and 96
 BF16_SMALL_DIMS = (16, 64, 72, 96)
+# the head dims of the /bf16_d256 rows: 136 and 200 (int8 rows of D % 16
+# == 8 bytes: K1's 8-byte copies, K2-paged-int8's CP8 staging), 192, 256
+BF16_WIDE_DIMS = (136, 192, 200, 256)
+# a Llama at Gemma-2B's widths: 8 query heads over one KV head
+G2B_HEADS, G2B_KV_HEADS = 8, 1
 
 
 def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
-                             tols):
+                             tols, wide=False):
     """Phase 2's rows of every bf16 build of K1 and K2-paged below head_dim
     128, each held against its plain version at ``tols(bfloat16)`` under
     the ``/bf16_d64`` entries (``head_dim`` on each row), at D 16, 64, 72
@@ -2180,7 +2263,17 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     int8 rows take the 8-byte copies (an int8 row of 72 bytes starts only
     8-byte aligned).  The library yardstick of the main rows is SDPA
     (enable_gqa) over the whole (or pre-gathered, dequantized) cache; the
-    bound is max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s)."""
+    bound is max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s).
+
+    ``wide``: the same rows under the ``/bf16_d256`` entries at D 136, 192,
+    200 and 256 (136 and 200: the 8-byte int8 copies and K2-paged-int8's
+    CP8 staging) at a Gemma-2B-wide Llama's heads (8 over 1; the verify
+    window s = 5 at D 256), then K2 over contiguous K/V (:func:`k2_rows`):
+    the serving wave (B 4 x 2048, causal GQA) and dead rows (Sq 77 over
+    Skv 61) at every D, at D 256 not causal, packed documents and Sq 64
+    over Skv 256; the identity view and its crossover with K1
+    (:func:`phase_identity_rows`); and K5 / K6 at D 256, which must refuse
+    naming ROADMAP B2.3b (``bf16_d256_backward`` line)."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2193,7 +2286,10 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     atol, rtol = tols(bf16)
-    hq, hkv = TL_HEADS, TL_KV_HEADS
+    suffix = BF16_D256 if wide else BF16_D64
+    dims = BF16_WIDE_DIMS if wide else BF16_SMALL_DIMS
+    main_d = 256 if wide else 64
+    hq, hkv = (G2B_HEADS, G2B_KV_HEADS) if wide else (TL_HEADS, TL_KV_HEADS)
 
     def sdpa(q, k, v, mask):
         return lambda: TF.scaled_dot_product_attention(
@@ -2231,7 +2327,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                            budget_ms=100.0)
         lib_ms = time_ms(torch, lib) if lib else None
         bms, by = bound(nbytes, ops, BF16_FLOPS)
-        record(name + BF16_D64, shape, err, tol, ok,
+        record(name + suffix, shape, err, tol, ok,
                [lambda t=t: fn(t) for t in sets], plain_ms, lib_ms, bms,
                by, main, note=note, extra=extra)
 
@@ -2388,18 +2484,50 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                 note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
             del sets, lib
 
-    for d in BF16_SMALL_DIMS:
-        # TinyLlama's decode tick (at D 64 its verify window too), then
-        # the contract rows
-        for s in ((1, 5) if d == 64 else (1,)):
+    for d in dims:
+        # the decode tick (at the main D its verify window too), then the
+        # contract rows
+        for s in ((1, 5) if d == main_d else (1,)):
             k1_family(d, 8, s, F32_L, [min(p, F32_L - s)
                                        for p in F32_TICK_POS], 128, 64,
-                      ((1, 4, 8), (5, 3, 2)), d == 64 and s == 1, False)
+                      ((1, 4, 8), (5, 3, 2)), d == main_d and s == 1, False)
         k1_family(d, 4, 5, 1024, [-3, 7, 300, 1019], 8, 16, ((1, 2, 4),),
                   False, True)
         k2_paged(d, 4, 512, 64, F32_L // 64, [0, 128, 1024, 1536],
-                 ((2, 3, 8), (0, 1, 1)), d == 64, False)
+                 ((2, 3, 8), (0, 1, 1)), d == main_d, False)
         k2_paged(d, 3, 130, 64, 16, [-1, 0, 700], ((1, 2, 3),), False, True)
+    if not wide:
+        return
+
+    k2 = "flash_attention_fwd" + BF16_D256
+    k2_rows(torch, record, randn, tols,
+            [(k2, bf16, 4, F32_L, F32_L, hq, hkv, d, True, None, d == main_d)
+             for d in dims]
+            + [(k2, bf16, 2, 77, 61, hq, hkv, d, True, None, False)
+               for d in dims]
+            + [(k2, bf16, 4, 512, 512, hq, hkv, main_d, False, None, False),
+               (k2, bf16, 2, F32_L, F32_L, hq, hkv, main_d, True, "packed",
+                False),
+               (k2, bf16, 4, 64, 256, hq, hkv, main_d, False, None, False)])
+    phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
+                        tols, wide=True)
+    # the backward past head_dim 128 is ROADMAP B2.3b: K5 / K6 refuse it
+    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
+                                      flash_attention_bwd_dq_cuda)
+    q = randn(1, 128, hq, main_d)
+    kv = randn(1, 128, hkv, main_d)
+    lse = torch.zeros(1, hq, 128, device=dev)
+    refused = {}
+    for fn in (flash_attention_bwd_dq_cuda, flash_attention_bwd_dkv_cuda):
+        try:
+            fn(q, kv, kv, q, lse, lse, causal=True)
+            refused[fn.__name__] = None
+        except NotImplementedError as e:
+            refused[fn.__name__] = str(e)
+    emit({"phase": "bf16_d256_backward", "head_dim": main_d,
+          "refused": refused})
+    check(all(m and "ROADMAP B2.3b" in m for m in refused.values()),
+          f"K5 / K6 at bf16 head_dim {main_d}: {refused}")
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -2546,7 +2674,7 @@ def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
 
 
 def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
-                        tols):
+                        tols, wide=False):
     """Phase 2's rows of the contiguous cache through its identity view
     (``ops.attention.identity_view``, the chunked engine's prompt chunk):
     K2-paged and K2-paged-int8 over an 8-row, 4096-position bf16 cache
@@ -2555,7 +2683,11 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
     engine's call); then the crossover with K1 over every row of a batch
     at the decode tick's depths, s = 4, 16, 64, 256, both kernels beside
     each other (``crossover`` line): the port's
-    ``CONTIGUOUS_Q_TILED_MIN`` is read from it."""
+    ``CONTIGUOUS_Q_TILED_MIN`` is read from it.  ``wide``: the same at a
+    Gemma-2B-wide Llama's attention (head_dim 256, 8 query heads over 1
+    KV head) over a 2048-position cache (chunks at pos 0, 1024 and 1792),
+    every row under the ``/bf16_d256`` entries (``crossover_d256``
+    line)."""
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda)
@@ -2566,6 +2698,14 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     nrow, L, hq, hkv, d, gr = 8, 4096, 32, 8, 128, 128
+    chunk_pos = (0, 1024, 3840)
+    pos_list = [0, 3000, 17, 1000, 2047, 3000, 511, 128]
+    tag = "/identity"
+    if wide:
+        L, hq, hkv, d = F32_L, G2B_HEADS, G2B_KV_HEADS, 256
+        chunk_pos = (0, 1024, 1792)
+        pos_list = [min(p, L - 256) for p in pos_list]
+        tag = BF16_D256
     atol, rtol = tols(bf16)
 
     def cache_sets(int8, n):
@@ -2613,12 +2753,12 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
 
     for int8 in (False, True):
         name = ("flash_attention_fwd_paged_int8" if int8
-                else "flash_attention_fwd_paged") + "/identity"
+                else "flash_attention_fwd_paged") + tag
         note = INT8_LIBRARY_NOTE if int8 else (
             "F.scaled_dot_product_attention over the row's keys [0, pos + "
             "s), copied out beforehand (not timed)")
         s = 256
-        for p in (0, 1024, 3840):
+        for p in chunk_pos:
             sets = cache_sets(int8, copies((p + s) * hkv * d * 2 * 2))
             q = randn(1, s, hq, d)
             pos = torch.tensor([p], dtype=torch.int32, device=dev)
@@ -2647,12 +2787,12 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                    f"pos={p}" + (f" int8 K/V granule {gr}, bfloat16 q"
                                  if int8 else " bfloat16"),
                    err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms,
-                   lib_ms, bms, by, p == 1024, note=note)
+                   lib_ms, bms, by, p == 1024 and not wide, note=note,
+                   extra={"head_dim": d})
             del sets, got, want
 
     # the crossover: K1 (8-row tiles, each re-reading its row's live
     # prefix) against K2-paged over the identity view, one batch
-    pos_list = [0, 3000, 17, 1000, 2047, 3000, 511, 128]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     rows = torch.arange(nrow, dtype=torch.int32, device=dev)
     cross = []
@@ -2685,11 +2825,12 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                                           if int8 else " bfloat16"))
             row = {"s": s, "int8": int8}
             for kname, got, fns in (
-                    ("decode_attention" + ("_int8" if int8 else ""), got1,
+                    ("decode_attention" + ("_int8" if int8 else "")
+                     + (BF16_D256 if wide else ""), got1,
                      [lambda c=c: k1(q, c[0], c[1], pos=pos, **kw(c))
                       for c in sets]),
                     (("flash_attention_fwd_paged_int8" if int8 else
-                      "flash_attention_fwd_paged") + "/identity", got2,
+                      "flash_attention_fwd_paged") + tag, got2,
                      [lambda c=c: cached_decode_attention(
                          q, c[0], c[1], pos, rows=rows, **kw(c))
                       for c in sets])):
@@ -2701,8 +2842,8 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
             cross.append(row)
             del q, got1, got2, want
         del sets
-    emit({"phase": "crossover", "threshold": CONTIGUOUS_Q_TILED_MIN,
-          "rows": cross})
+    emit({"phase": "crossover_d256" if wide else "crossover",
+          "threshold": CONTIGUOUS_Q_TILED_MIN, "head_dim": d, "rows": cross})
 
 
 # -- phase 3 ------------------------------------------------------------------------
@@ -5797,39 +5938,45 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
 TL_BLOCK_LEN = 64       # the paged engines' blocks: the shared prompt is 8
 
 
-def phase_serving_tinyllama(torch, kernels, card):
-    """TinyLlama-1.1B's published widths (``TINYLLAMA``: 22 layers of 32 /
-    4 heads of 64, hidden 2048, vocab 32000; bf16, 2.2 GB of seeded
-    weights), served by serving_f32's four engines built and freed one
-    after another -- contiguous, paged with the prefix cache (block_len
-    64), int8-KV paged and int8-KV contiguous (8 slots of F32_L
-    positions, prefill_batch 4) -- on serving_f32's 8 requests,
-    F32_NEW_TOKENS new tokens each; then the contiguous chunked engine
-    (256-token chunks on K2-paged over the identity view) on the same
-    requests, and greedy ``generate`` at B 4.  Gates per engine: graphed,
-    ``step_traces`` 1; tokens, launches and routes equal to its eager
-    twin's; the decode kernel 22 a tick and the wave kernel 22 a wave
-    (chunked: K2-paged 22 a chunk), no other attention kernel, no plain
-    route; paged: prefix hits; teacher-forced logits of its layout within
-    1.2x the plain path's distance from a float32 copy of the weights on a
-    float32 cache (:func:`int8_gate`).  ``generate``: one graphed build,
-    bit-equal to its eager twin, K1 22 a decode step, K2 22 a prefill.
-    Reported: tok/s, TTFT, TPOT, peak memory."""
+def serve_bf16_llama(torch, kernels, card, phase, config, widths, head_dim,
+                     suffix, builds):
+    """A bf16 Llama at ``widths`` (LlamaConfig fields; ``head_dim`` and 8
+    query heads a KV head checked), seeded, served by serving_f32's four
+    engines built and freed one after another -- contiguous, paged with
+    the prefix cache (block_len TL_BLOCK_LEN), int8-KV paged and int8-KV
+    contiguous (8 slots of F32_L positions, prefill_batch 4) -- on
+    serving_f32's 8 requests, F32_NEW_TOKENS new tokens each; then the
+    contiguous chunked engine (256-token chunks on K2-paged over the
+    identity view) on the same requests, and greedy ``generate`` at B 4.
+    Gates per engine: graphed, ``step_traces`` 1; tokens, launches and
+    routes equal to its eager twin's; the decode kernel once a layer a
+    tick and the wave kernel once a layer a wave (chunked: K2-paged once
+    a layer a chunk), no other attention kernel, no plain route; paged:
+    prefix hits; teacher-forced logits of its layout within 1.2x the plain
+    path's distance from a float32 copy of the weights on a float32 cache
+    (:func:`int8_gate`).  ``generate``: one graphed build, bit-equal to
+    its eager twin, K1 once a layer a decode step, K2 once a layer a
+    prefill.  Reported: tok/s, TTFT, TPOT, decode-step p50 beside the
+    weights' byte bound of a tick, peak memory.  ``builds`` take their
+    ``suffix`` entries' launches in ``kernels``; every line is a
+    ``phase`` line naming ``config``."""
     import numpy as np
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops._dispatch import reference_mode
 
     dev = torch.device("cuda")
-    cfg = LlamaConfig(**TINYLLAMA)
+    cfg = LlamaConfig(**widths)
     layers = cfg.num_hidden_layers
-    check(cfg.head_dim == 64 and cfg.num_attention_heads
+    check(cfg.head_dim == head_dim and cfg.num_attention_heads
           // cfg.num_key_value_heads == 8,
-          f"TinyLlama is at head_dim {cfg.head_dim}")
+          f"{config} is at head_dim {cfg.head_dim}")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    # a tick reads every weight once: its least time on the card
+    weight_bound_ms = 2 * n_params / HBM_BYTES_PER_S * 1e3
     # the float32 truth of the teacher-forced sessions: a float32 copy of
     # the weights through the plain path on a float32 cache
     model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
@@ -5846,8 +5993,8 @@ def phase_serving_tinyllama(torch, kernels, card):
 
     prompts = f32_serving_prompts(cfg.vocab_size)
     engine_kw = dict(num_slots=8, max_length=F32_L, prefill_batch=4)
-    base = {"phase": "serving_tinyllama", "card": card,
-            "config": "TinyLlama-1.1B", "params": n_params,
+    base = {"phase": phase, "card": card, "config": config,
+            "params": n_params, "weight_bytes_bound_ms": weight_bound_ms,
             "init_s": round(init_s, 3), "requests": len(prompts),
             "prompt_lengths": [int(p.size) for p in prompts],
             "new_tokens": F32_NEW_TOKENS}
@@ -5855,7 +6002,7 @@ def phase_serving_tinyllama(torch, kernels, card):
         kw = dict(engine_kw, **kw)
         if kw.get("paged"):
             kw["block_len"] = TL_BLOCK_LEN
-        what = f"serving_tinyllama {label}"
+        what = f"{phase} {label}"
         run = _serve_8b(torch, model, prompts, new_tokens=F32_NEW_TOKENS,
                         **kw)
         twin = eager_twin(torch, model, prompts, run, what,
@@ -5883,20 +6030,19 @@ def phase_serving_tinyllama(torch, kernels, card):
             check(m["kv_cache"]["prefix_hit_tokens"] > 0,
                   f"{what}: no prefix hit on the shared prompt")
         for name in attention:
-            if name in BF16_D64_BUILDS:
-                kernels[name + BF16_D64].setdefault("launches",
-                                                    launches[name])
+            if name in builds:
+                kernels[name + suffix].setdefault("launches", launches[name])
         del run, twin
         gc.collect()
         torch.cuda.empty_cache()
 
     # the contiguous chunked engine: every chunk on K2-paged over the
-    # identity view at D 64, every tick's decode rows on K1
+    # identity view, every tick's decode rows on K1
     kw = dict(engine_kw, chunked=True, prefill_chunk=256,
               chunk_policy="prefill")
     attention = {"decode_attention": ("ticks",),
                  "flash_attention_fwd_paged": ("mixed",)}
-    what = "serving_tinyllama chunked"
+    what = f"{phase} chunked"
     run = _serve_8b(torch, model, prompts, new_tokens=F32_NEW_TOKENS, **kw)
     twin = eager_twin(torch, model, prompts, run, what,
                       new_tokens=F32_NEW_TOKENS, **kw)
@@ -5915,19 +6061,19 @@ def phase_serving_tinyllama(torch, kernels, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # greedy generate at B 4: K1 contiguous at D 64, one graphed build
+    # greedy generate at B 4: K1 contiguous, one graphed build
     rng = np.random.RandomState(18)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
         GEN_BATCH, GEN_PROMPT)).astype(np.int32)).to(dev)
     want = {"decode_attention": layers * (GEN_NEW - 1),
             "flash_attention_fwd": layers,
             "rms_norm": (2 * layers + 1) * GEN_NEW}
-    shapes = {("flash_attention_fwd", 64, GEN_PROMPT, GEN_PROMPT, True):
-              layers}
+    shapes = {("flash_attention_fwd", head_dim, GEN_PROMPT, GEN_PROMPT,
+               True): layers}
     torch.cuda.reset_peak_memory_stats()
     greedy, _, _, _ = graphed_and_twin(
         torch, model, lambda: model.generate(ids, max_new_tokens=GEN_NEW),
-        "serving_tinyllama generate", want, GEN_NEW, want_shapes=shapes)
+        f"{phase} generate", want, GEN_NEW, want_shapes=shapes)
     greedy.pop("routes")
     emit({**base, "engine": "generate", "batch": GEN_BATCH,
           "prompt": GEN_PROMPT, "generate_new_tokens": GEN_NEW,
@@ -5936,6 +6082,42 @@ def phase_serving_tinyllama(torch, kernels, card):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_serving_tinyllama(torch, kernels, card):
+    """TinyLlama-1.1B's published widths (``TINYLLAMA``: 22 layers of 32 /
+    4 heads of 64, hidden 2048, vocab 32000; bf16, 2.2 GB of seeded
+    weights) through :func:`serve_bf16_llama`: the decode kernel 22 a
+    tick, the wave kernel 22 a wave or chunk; launches of the
+    ``/bf16_d64`` entries."""
+    serve_bf16_llama(torch, kernels, card, "serving_tinyllama",
+                     "TinyLlama-1.1B", TINYLLAMA, 64, BF16_D64,
+                     BF16_D64_BUILDS)
+
+
+# serving_d256: a Llama at Gemma-2B's published widths (google/gemma-2b
+# config.json: hidden 2048, 18 layers, 8 query heads over 1 KV head of
+# 256, intermediate 16384, vocab 256000, rope_theta 10000, rms_norm_eps
+# 1e-6, tied embeddings), not cut, in bf16 with seeded random weights.
+# The Llama architecture throughout: Gemma's GeGLU, (1 + w) RMSNorm and
+# sqrt(hidden) embedding scale are not in the reference package.
+GEMMA2B_WIDTHS = dict(vocab_size=256000, hidden_size=2048,
+                      intermediate_size=16384, num_hidden_layers=18,
+                      num_attention_heads=8, num_key_value_heads=1,
+                      max_position_embeddings=8192, rms_norm_eps=1e-6,
+                      rope_theta=10000.0, tie_word_embeddings=True,
+                      dtype="bfloat16")
+
+
+def phase_serving_d256(torch, kernels, card):
+    """A Llama at Gemma-2B's widths (``GEMMA2B_WIDTHS``: 18 layers of 8 / 1
+    heads of 256, hidden 2048, vocab 256000, tied embeddings; bf16, 5.0 GB
+    of seeded weights) through :func:`serve_bf16_llama`: the decode kernel
+    18 a tick, the wave kernel 18 a wave or chunk, every one a build above
+    head_dim 128; launches of the ``/bf16_d256`` entries."""
+    serve_bf16_llama(torch, kernels, card, "serving_d256",
+                     "Llama at Gemma-2B's widths", GEMMA2B_WIDTHS, 256,
+                     BF16_D256, BF16_D256_BUILDS)
 
 
 def main(argv=None) -> int:
@@ -5993,6 +6175,7 @@ def main(argv=None) -> int:
     for phase in (lambda: phase_serving_f32(torch, kernels, card,
                                             profile=args.profile),
                   lambda: phase_serving_tinyllama(torch, kernels, card),
+                  lambda: phase_serving_d256(torch, kernels, card),
                   lambda: phase_dit(torch, kernels, card,
                                     profile=args.profile),
                   lambda: phase_dit_train(torch, kernels, card,

@@ -45,8 +45,8 @@
 // threads) merges the splits.  Float32 math throughout: no tensor core
 // keeps float32 numerics.
 //
-// The Hopper body (decode_mma_kernel<INT8, PAGED, PAD>: K1, K1-int8,
-// K1-paged and K1-paged-int8, bf16 q at any D <= 128 with D % 8 == 0 -- the
+// The Hopper body (decode_mma_kernel<INT8, PAGED, PAD, PD>: K1, K1-int8,
+// K1-paged and K1-paged-int8, bf16 q at any D <= 256 with D % 8 == 0 -- the
 // decode tick of every bf16 engine).  It replaced a CUDA-core walk that was
 // bound by latency, not bytes: a warp loaded one 8-key group into
 // registers and then spent ~23 dependent shuffles a row on it with nothing
@@ -90,6 +90,14 @@
 //     same copies and q's registers are zero past D, so S^T = K Q^T adds
 //     zero products over the pad and O^T's rows past D hold zeros, which
 //     are never stored; the HBM bytes stay D a key;
+//   * above D = 128 (up to 256, the reference's MAX_HEAD_DIM) the ring rows
+//     are 256 elements wide (PD = kPDWide): twice the k steps and m-tiles
+//     of the same products, the K reads and V reads per 128-element half,
+//     and two head-dim elements a merging thread; D = 256 has an instance
+//     of constant D, 136-248 the PAD one.  A warp's stage doubles (bf16
+//     16 KB, int8 8 KB; the ring 128 / 64 KB a CTA), so an SM holds one
+//     bf16 CTA (two int8) -- still ~128 KB in flight an SM -- and the
+//     instance's registers are not capped for three;
 //   * the warps' partials meet in shared memory with rows padded (a
 //     128-float row stride put a lane's 32 stores on one bank);
 //   * the merge: a split past the live bound leaves at once, a lone live
@@ -416,24 +424,27 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
 }
 
 // ---------------------------------------------------------------------------
-// K1, K1-int8, K1-paged and K1-paged-int8 at bf16 q, head_dim D <= 128 (D %
+// K1, K1-int8, K1-paged and K1-paged-int8 at bf16 q, head_dim D <= 256 (D %
 // 8 == 0): tensor cores, and a cp.async ring in shared memory for each warp
 // (see the note at the top)
 // ---------------------------------------------------------------------------
-constexpr int kPD = 128;                  // a ring row's head-dim elements
+constexpr int kPD = 128;                  // ring row of the narrow instances
+constexpr int kPDWide = 256;              // and of the wide ones (D > 128)
 constexpr int kPRows = 8;                 // query rows a CTA (mma's n8)
 constexpr int kPWarps = 4;
 constexpr int kPThreads = 32 * kPWarps;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMergeChunk = 256;          // splits a pass of the last CTA
-constexpr int kMStride = kPD + 4;
-static_assert(kPD == kPThreads,
-              "a merging thread owns one head-dim element (threads >= D idle)");
 
-template <bool INT8>
+// PD: a ring row's head-dim elements (kPD or kPDWide)
+template <bool INT8, int PD>
 struct Mma {
-  static constexpr int kRow = INT8 ? kPD : 2 * kPD;   // bytes a ring row
+  static_assert(PD == kPD || PD == kPDWide, "a ring row is 128 or 256 wide");
+  static constexpr int kRow = INT8 ? PD : 2 * PD;     // bytes a ring row
   static constexpr int kChunks = kRow / 16;           // 16-byte chunks a row
+  static constexpr int kSteps = PD / 16;   // k steps of K Q^T, m-tiles of O^T
+  // head-dim elements a thread merges (element tid + kPThreads * e)
+  static constexpr int kEPT = PD / kPThreads;
   static constexpr int kSlice = 16;                   // keys a warp step
   static constexpr int kTile = kSlice * kRow;         // K (or V) of a slice
   // a stage: the slice's K rows, V rows and (int8) the K and V scales of
@@ -444,22 +455,28 @@ struct Mma {
   // the warps' merge: acc [warp][row][slot], rows kMStride floats apart
   // (a lane's stores then fall on distinct banks but for pairs), then m and
   // l [warp][row]
+  static constexpr int kMStride = PD + 4;
   static constexpr int kMerge = kPWarps * kPRows * (kMStride + 2) * 4;
   static_assert((kPRows + 2 * kMergeChunk * kPRows) * 4 <= kMerge,
                 "the last CTA's merge fits in the warps' merge space");
   static constexpr int kSmem = kRing > kMerge ? kRing : kMerge;
+  // CTAs an SM the instance is built for: the narrow ones 3 (registers);
+  // the wide ones' rings (bf16 128 KB, int8 64 KB) and doubled
+  // accumulators leave one or two, so their registers are not capped
+  static constexpr int kMinCtas = PD == kPD ? 3 : 1;
 
-  // chunk ch of key row r of a staged tile sits at chunk ch ^ swz(r):
-  // every 8-lane phase of the copies, the K reads and the V reads (K:
-  // rows r, r + 1 at chunks c + 4i; V: bf16 ldmatrix over 8 rows, int8 the
-  // rows 2c.. at chunk g) lands on 8 distinct 16-byte bank groups
+  // chunk ch of key row r of a staged tile sits at chunk ch ^ swz(r) (the
+  // swizzle stays inside an aligned group of 8 chunks, 128 bytes): every
+  // 8-lane phase of the copies, the K reads and the V reads (K: rows r,
+  // r + 1 at chunks c + 4i; V: bf16 ldmatrix over 8 rows, int8 the rows
+  // 2c.. at chunk g + 8i) lands on 8 distinct 16-byte bank groups
   static __device__ __forceinline__ int swz(int r) {
     r &= 7;
     return INT8 ? ((r & 6) ^ ((r & 1) << 2)) : (((r & 1) << 2) | (r >> 1));
   }
   // the head-dim element of the first of the 4 values lane (g, c) takes
-  // at k step kk (of 8) of S^T = K Q^T: its K reads are whole 16-byte
-  // chunks (bf16: chunks c, c + 4, c + 8, c + 12; int8: c, c + 4), and the
+  // at k step kk (of kSteps) of S^T = K Q^T: its K reads are whole 16-byte
+  // chunks (bf16: chunks c, c + 4, c + 8, ...; int8: c, c + 4, ...), and the
   // sum over d does not care which k slot holds which d, as long as K's and
   // Q's fragments agree
   static __device__ __forceinline__ int kdim(int kk, int c) {
@@ -468,10 +485,12 @@ struct Mma {
   }
   // the slot 16 mt + r (row r of O^T's m-tile mt) that holds head-dim
   // element d (bf16: ldmatrix.trans gives m-tile mt elements 16mt..16mt+15;
-  // int8: lane g reads V's chunk g, m-tile mt takes its elements 2mt (row
-  // g) and 2mt + 1 (row g + 8))
+  // int8: lane g reads V's chunks g + 8i, m-tile 8i + mt' takes their
+  // elements 2mt' (row g) and 2mt' + 1 (row g + 8))
   static __device__ __forceinline__ int slot(int d) {
-    return INT8 ? 16 * ((d % 16) / 2) + d / 16 + 8 * (d & 1) : d;
+    return INT8 ? 16 * (8 * (d / 128) + (d % 16) / 2) + (d / 16) % 8 +
+                      8 * (d & 1)
+                : d;
   }
 };
 
@@ -483,7 +502,7 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 }
 
 // grid (nsplit, ceil(S * G / 8), B * Hkv), block kPThreads, dynamic
-// shared memory Mma<INT8>::kSmem: the splits vary fastest, so the CTAs
+// shared memory Mma<INT8, PD>::kSmem: the splits vary fastest, so the CTAs
 // of one (b, h) start together (a deep row's splits are not queued behind
 // the many dead splits of the shallow rows).  CTA (split, y, bh) takes
 // query rows [8y, 8y + 8) of kv head h = bh % Hkv of row b = bh / Hkv
@@ -495,7 +514,8 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 // out, and otherwise the last CTA of (bh, y) to finish (counters[bh *
 // gridDim.y + y], which it resets to 0) merges the partials in split
 // order.  Rows are D elements wide in q, out and the cache (PAD: head_dim
-// < kPD, D % 8 == 0; else kPD) and kPD wide in the ring.  The layout of k,
+// < PD, D % 8 == 0; else PD) and PD wide in the ring (PD: kPD for D <= 128,
+// kPDWide above).  The layout of k,
 // v (and of the int8 scales):
 //   PAGED: the pool (num_blocks, block_len, Hkv, D), key j of row b at
 //     pool row table[b * max_blocks + j / block_len] * block_len + j %
@@ -504,8 +524,8 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 //     key j of row b at cache row b * L + j (table unused); int8: scales
 //     (B, max_blocks, Hkv) over granules of block_len keys, key j's at
 //     row b * max_blocks + j / block_len (bf16: max_blocks 1, block_len L).
-template <bool INT8, bool PAGED, bool PAD>
-__global__ void __launch_bounds__(kPThreads, 3)
+template <bool INT8, bool PAGED, bool PAD, int PD>
+__global__ void __launch_bounds__(kPThreads, Mma<INT8, PD>::kMinCtas)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const unsigned char* __restrict__ k,
                   const unsigned char* __restrict__ v,
@@ -518,8 +538,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   int block_len, int limit, int split_len, float scale_log2,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale) {
-  using P = Mma<INT8>;
-  const int D = PAD ? head_dim : kPD;
+  using P = Mma<INT8, PD>;
+  const int D = PAD ? head_dim : PD;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last_cta;
   const int bh = blockIdx.z, b = bh / Hkv, h = bh % Hkv;
@@ -543,9 +563,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     return ((size_t)(b * S + si) * Hq + h * G + rr - si * G) * D;
   };
   if (k_end <= k_begin) {
-    if (n_live == 0 && split == 0 && (!PAD || tid < D))   // no live key
+    if (n_live == 0 && split == 0)   // no live key
       for (int r = 0; r < nr; ++r)
-        out[row_off(r0 + r) + tid] = __float2bfloat16(0.f);
+        for (int d = tid; d < D; d += kPThreads)
+          out[row_off(r0 + r) + d] = __float2bfloat16(0.f);
     return;
   }
 
@@ -649,12 +670,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // ---- Q^T as the B fragments of query row g (loaded while the first
   // stages are in flight; zero past D: d is a multiple of 4 and D of 8), and
   // the last key of rows 2c and 2c + 1
-  uint32_t qb[8][2];
+  uint32_t qb[P::kSteps][2];
   {
     const bool on = g < nr;
     const __nv_bfloat16* qr = q + (on ? row_off(r0 + g) : 0);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < P::kSteps; ++kk) {
       const int d = P::kdim(kk, c);
       const bool in = on && (!PAD || d < D);
       qb[kk][0] = in ? *reinterpret_cast<const uint32_t*>(qr + d) : 0u;
@@ -671,9 +692,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // O^T: m-tile mt holds head-dim rows 16 mt + g (acc[mt][0..1]) and
   // 16 mt + g + 8 (acc[mt][2..3]) -- int8: elements 16 g + 2 mt and
   // 16 g + 2 mt + 1 -- of query rows 2c, 2c + 1
-  float acc[8][4];
+  float acc[P::kSteps][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < P::kSteps; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
@@ -690,33 +711,45 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const unsigned char* klo = Ks + g * P::kRow;
     const unsigned char* khi = klo + 8 * P::kRow;
     float st[4] = {0.f, 0.f, 0.f, 0.f}, st2[4] = {0.f, 0.f, 0.f, 0.f};
+    // (a 256-wide row: the same over each 128-element half hf, whose k
+    // steps are 8 hf .. 8 hf + 7)
     if constexpr (INT8) {
-      const uint4 l0 = lds128(klo + ((c ^ P::swz(g)) << 4));
-      const uint4 l1 = lds128(klo + (((c + 4) ^ P::swz(g)) << 4));
-      const uint4 h0 = lds128(khi + ((c ^ P::swz(g)) << 4));
-      const uint4 h1 = lds128(khi + (((c + 4) ^ P::swz(g)) << 4));
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        uint32_t a[4];
-        int8x4_to_bf16(word(kk < 4 ? l0 : l1, kk & 3), a[0], a[2]);
-        int8x4_to_bf16(word(kk < 4 ? h0 : h1, kk & 3), a[1], a[3]);
-        if (kk & 1) mma_m16n8k16(st2, a, qb[kk][0], qb[kk][1]);
-        else mma_m16n8k16(st, a, qb[kk][0], qb[kk][1]);
+      for (int hf = 0; hf < PD / kPD; ++hf) {
+        const int c0 = c + 8 * hf;
+        const uint4 l0 = lds128(klo + ((c0 ^ P::swz(g)) << 4));
+        const uint4 l1 = lds128(klo + (((c0 + 4) ^ P::swz(g)) << 4));
+        const uint4 h0 = lds128(khi + ((c0 ^ P::swz(g)) << 4));
+        const uint4 h1 = lds128(khi + (((c0 + 4) ^ P::swz(g)) << 4));
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t a[4];
+          const uint32_t* qf = qb[8 * hf + kk];
+          int8x4_to_bf16(word(kk < 4 ? l0 : l1, kk & 3), a[0], a[2]);
+          int8x4_to_bf16(word(kk < 4 ? h0 : h1, kk & 3), a[1], a[3]);
+          if (kk & 1) mma_m16n8k16(st2, a, qf[0], qf[1]);
+          else mma_m16n8k16(st, a, qf[0], qf[1]);
+        }
       }
     } else {
-      uint4 lo[4], hi[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        lo[i] = lds128(klo + (((4 * i + c) ^ P::swz(g)) << 4));
-        hi[i] = lds128(khi + (((4 * i + c) ^ P::swz(g)) << 4));
-      }
+      for (int hf = 0; hf < PD / kPD; ++hf) {
+        uint4 lo[4], hi[4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const int x = kk >> 1, y = 2 * (kk & 1);
-        const uint32_t a[4] = {word(lo[x], y), word(hi[x], y),
-                               word(lo[x], y + 1), word(hi[x], y + 1)};
-        if (kk & 1) mma_m16n8k16(st2, a, qb[kk][0], qb[kk][1]);
-        else mma_m16n8k16(st, a, qb[kk][0], qb[kk][1]);
+        for (int i = 0; i < 4; ++i) {
+          const int ch = 16 * hf + 4 * i + c;
+          lo[i] = lds128(klo + ((ch ^ P::swz(g)) << 4));
+          hi[i] = lds128(khi + ((ch ^ P::swz(g)) << 4));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int x = kk >> 1, y = 2 * (kk & 1);
+          const uint32_t a[4] = {word(lo[x], y), word(hi[x], y),
+                                 word(lo[x], y + 1), word(hi[x], y + 1)};
+          const uint32_t* qf = qb[8 * hf + kk];
+          if (kk & 1) mma_m16n8k16(st2, a, qf[0], qf[1]);
+          else mma_m16n8k16(st, a, qf[0], qf[1]);
+        }
       }
     }
 
@@ -755,7 +788,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // a running max that did not move leaves the accumulator as it is
     if (__any_sync(kFull, al[0] != 1.f || al[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < P::kSteps; ++n) {
         acc[n][0] *= al[0];
         acc[n][1] *= al[1];
         acc[n][2] *= al[0];
@@ -780,30 +813,36 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O^T += V^T P^T over the slice's 16 keys
     if constexpr (INT8) {
-      // lane (g, c) reads V's chunk g (elements 16g..16g+15) of the rows
-      // 2c, 2c + 1, 2c + 8, 2c + 9 its A fragments take; m-tile mt takes
-      // elements 2mt (row g) and 2mt + 1 (row g + 8)
+      // lane (g, c) reads V's chunks g + 8 hf (elements 16 (g + 8 hf)..,
+      // hf a 128-element half) of the rows 2c, 2c + 1, 2c + 8, 2c + 9 its
+      // A fragments take; m-tile 8 hf + mt takes elements 2mt (row g) and
+      // 2mt + 1 (row g + 8) of the chunk
       const int ra = 2 * c;
-      const uint4 x0 = lds128(Vs + ra * P::kRow + ((g ^ P::swz(ra)) << 4));
-      const uint4 x1 =
-          lds128(Vs + (ra + 1) * P::kRow + ((g ^ P::swz(ra + 1)) << 4));
-      const uint4 x2 =
-          lds128(Vs + (ra + 8) * P::kRow + ((g ^ P::swz(ra)) << 4));
-      const uint4 x3 =
-          lds128(Vs + (ra + 9) * P::kRow + ((g ^ P::swz(ra + 1)) << 4));
 #pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        uint32_t a0[4], a1[4];   // m-tiles 2y, 2y + 1
-        int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x5140),
-                       a0[0], a0[1]);
-        int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x5140),
-                       a0[2], a0[3]);
-        int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x7362),
-                       a1[0], a1[1]);
-        int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x7362),
-                       a1[2], a1[3]);
-        mma_m16n8k16(acc[2 * y], a0, b0, b1);
-        mma_m16n8k16(acc[2 * y + 1], a1, b0, b1);
+      for (int hf = 0; hf < PD / kPD; ++hf) {
+        const int cg = g + 8 * hf;
+        const uint4 x0 =
+            lds128(Vs + ra * P::kRow + ((cg ^ P::swz(ra)) << 4));
+        const uint4 x1 =
+            lds128(Vs + (ra + 1) * P::kRow + ((cg ^ P::swz(ra + 1)) << 4));
+        const uint4 x2 =
+            lds128(Vs + (ra + 8) * P::kRow + ((cg ^ P::swz(ra)) << 4));
+        const uint4 x3 =
+            lds128(Vs + (ra + 9) * P::kRow + ((cg ^ P::swz(ra + 1)) << 4));
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          uint32_t a0[4], a1[4];   // m-tiles 8 hf + 2y, 8 hf + 2y + 1
+          int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x5140),
+                         a0[0], a0[1]);
+          int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x5140),
+                         a0[2], a0[3]);
+          int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x7362),
+                         a1[0], a1[1]);
+          int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x7362),
+                         a1[2], a1[3]);
+          mma_m16n8k16(acc[8 * hf + 2 * y], a0, b0, b1);
+          mma_m16n8k16(acc[8 * hf + 2 * y + 1], a1, b0, b1);
+        }
       }
     } else {
       // ldmatrix.trans: lanes 8i..8i+7 address matrix i = keys
@@ -811,7 +850,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int vk = (lane >> 4) * 8 + (lane & 7);
       const unsigned char* vr = Vs + vk * P::kRow;
 #pragma unroll
-      for (int mt = 0; mt < 8; ++mt) {
+      for (int mt = 0; mt < P::kSteps; ++mt) {
         uint32_t a[4];
         ldmatrix_x4_trans(a, vr + (((2 * mt + ((lane >> 3) & 1)) ^
                                     P::swz(vk)) << 4));
@@ -833,13 +872,14 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l_r[e] += __shfl_xor_sync(kFull, l_r[e], o);
   __syncthreads();   // every warp is done with its ring
   float* wacc = reinterpret_cast<float*>(smem);       // [warp][row][slot]
-  float* wm = wacc + kPWarps * kPRows * kMStride;     // [warp][row]
+  float* wm = wacc + kPWarps * kPRows * P::kMStride;  // [warp][row]
   float* wl = wm + kPWarps * kPRows;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < P::kSteps; ++n)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      float* row = wacc + (warp * kPRows + 2 * c + e) * kMStride + 16 * n + g;
+      float* row =
+          wacc + (warp * kPRows + 2 * c + e) * P::kMStride + 16 * n + g;
       row[0] = acc[n][e];
       row[8] = acc[n][2 + e];
     }
@@ -851,33 +891,44 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  // thread tid merges head-dim element d = tid of every row (tid >= D idle)
-  const int d = tid;
-  for (int r = 0; r < (!PAD || d < D ? nr : 0); ++r) {
+  // thread tid merges head-dim elements d = tid + kPThreads * e of every
+  // row (elements at or past D: no thread)
+  auto mine = [&](int e) { return tid + kPThreads * e; };
+  auto in_d = [&](int e) { return !PAD || mine(e) < D; };
+  for (int r = 0; r < (in_d(0) ? nr : 0); ++r) {
     float M = kNegInf;
 #pragma unroll
     for (int w = 0; w < kPWarps; ++w)
       if (wl[w * kPRows + r] > 0.f) M = fmaxf(M, wm[w * kPRows + r]);
-    float lsum = 0.f, o = 0.f;
+    float lsum = 0.f, o[P::kEPT];
+#pragma unroll
+    for (int e = 0; e < P::kEPT; ++e) o[e] = 0.f;
 #pragma unroll
     for (int w = 0; w < kPWarps; ++w) {
       const float lw = wl[w * kPRows + r];
       if (lw > 0.f) {
         const float cf = exp2f(wm[w * kPRows + r] - M);
         lsum += lw * cf;
-        o += wacc[(w * kPRows + r) * kMStride + P::slot(d)] * cf;
+#pragma unroll
+        for (int e = 0; e < P::kEPT; ++e)
+          o[e] += wacc[(w * kPRows + r) * P::kMStride + P::slot(mine(e))] *
+                  cf;
       }
     }
     const int rr = r0 + r;
-    if (direct) {
-      out[row_off(rr) + d] = __float2bfloat16(lsum > 0.f ? o / lsum : 0.f);
-    } else {
-      const size_t pi = ((size_t)bh * nsplit + split) * rows_total + rr;
-      part_o[pi * D + d] = o;
-      if (d == 0) {
-        part_ml[2 * pi] = M * kLn2;   // natural-log units, as the merge's
-        part_ml[2 * pi + 1] = lsum;
-      }
+    const size_t pi = ((size_t)bh * nsplit + split) * rows_total + rr;
+#pragma unroll
+    for (int e = 0; e < P::kEPT; ++e) {
+      if (!in_d(e)) continue;
+      if (direct)
+        out[row_off(rr) + mine(e)] =
+            __float2bfloat16(lsum > 0.f ? o[e] / lsum : 0.f);
+      else
+        part_o[pi * D + mine(e)] = o[e];
+    }
+    if (!direct && tid == 0) {
+      part_ml[2 * pi] = M * kLn2;   // natural-log units, as the merge's
+      part_ml[2 * pi + 1] = lsum;
     }
   }
   if (direct) return;
@@ -896,8 +947,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __threadfence();
   // each row's max over the live splits (lanes stride the splits), then
   // the splits' weights exp(m - M) and l * exp(m - M) a chunk at a time in
-  // shared memory; thread tid < D sums element d = tid of every row, in
-  // split order
+  // shared memory; thread tid sums elements tid + kPThreads * e (< D) of
+  // every row, in split order
   const float2* ml = reinterpret_cast<const float2*>(part_ml);
   const size_t p0 = (size_t)bh * nsplit * rows_total + r0;
   float* rmax = reinterpret_cast<float*>(smem);   // [row]
@@ -915,9 +966,13 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (lane == 0) rmax[r] = M;
   }
   __syncthreads();
-  float o[kPRows], lsum[kPRows];
+  float o[P::kEPT][kPRows], lsum[kPRows];
 #pragma unroll
-  for (int r = 0; r < kPRows; ++r) o[r] = lsum[r] = 0.f;
+  for (int r = 0; r < kPRows; ++r) {
+    lsum[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < P::kEPT; ++e) o[e][r] = 0.f;
+  }
   for (int sp0 = 0; sp0 < n_live; sp0 += kMergeChunk) {
     const int n = min(kMergeChunk, n_live - sp0);
     for (int i = tid; i < n * nr; i += kPThreads) {
@@ -928,39 +983,46 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       wls[i] = x.y * w;
     }
     __syncthreads();
-    if (!PAD || d < D) {
+    if (in_d(0)) {
 #pragma unroll 8
       for (int kk = 0; kk < n; ++kk) {
         const float* po = part_o + (p0 + (size_t)(sp0 + kk) * rows_total) * D;
 #pragma unroll
         for (int r = 0; r < kPRows; ++r)
           if (r < nr) {
-            o[r] += __ldcg(po + r * D + d) * ws[kk * nr + r];
+            const float w = ws[kk * nr + r];
+#pragma unroll
+            for (int e = 0; e < P::kEPT; ++e)
+              if (in_d(e)) o[e][r] += __ldcg(po + r * D + mine(e)) * w;
             lsum[r] += wls[kk * nr + r];
           }
       }
     }
     __syncthreads();
   }
-  if (PAD && d >= D) return;
 #pragma unroll
-  for (int r = 0; r < kPRows; ++r)
-    if (r < nr)
-      out[row_off(r0 + r) + d] =
-          __float2bfloat16(lsum[r] > 0.f ? o[r] / lsum[r] : 0.f);
+  for (int e = 0; e < P::kEPT; ++e) {
+    if (!in_d(e)) continue;
+#pragma unroll
+    for (int r = 0; r < kPRows; ++r)
+      if (r < nr)
+        out[row_off(r0 + r) + mine(e)] =
+            __float2bfloat16(lsum[r] > 0.f ? o[e][r] / lsum[r] : 0.f);
+  }
 }
 
 // the kernel's dynamic shared memory limit and a shared-memory-first
-// carveout, set once a build: 3 CTAs an SM need 3 x 64 KB of the 228
-template <bool INT8, bool PAGED, bool PAD>
+// carveout, set once a build: 3 narrow CTAs an SM need 3 x 64 KB of the 228
+template <bool INT8, bool PAGED, bool PAD, int PD>
 cudaError_t mma_attributes() {
   static bool done = false;
   if (done) return cudaSuccess;
+  const auto kernel = decode_mma_kernel<INT8, PAGED, PAD, PD>;
   cudaError_t e = cudaFuncSetAttribute(
-      decode_mma_kernel<INT8, PAGED, PAD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Mma<INT8>::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Mma<INT8, PD>::kSmem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(decode_mma_kernel<INT8, PAGED, PAD>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   done = e == cudaSuccess;
@@ -968,20 +1030,47 @@ cudaError_t mma_attributes() {
 }
 
 // CTAs of one build of decode_mma_kernel that fit on one SM at once
-template <bool INT8, bool PAGED, bool PAD>
+template <bool INT8, bool PAGED, bool PAD, int PD>
 cudaError_t mma_ctas_per_sm(int* n) {
-  const cudaError_t e = mma_attributes<INT8, PAGED, PAD>();
+  const cudaError_t e = mma_attributes<INT8, PAGED, PAD, PD>();
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, decode_mma_kernel<INT8, PAGED, PAD>, kPThreads, Mma<INT8>::kSmem);
+      n, decode_mma_kernel<INT8, PAGED, PAD, PD>, kPThreads,
+      Mma<INT8, PD>::kSmem);
 }
 
-// the head dims the Hopper body takes: D <= kPD, D % 8 == 0
-bool mma_head_dim(int D) { return D >= 8 && D <= kPD && D % 8 == 0; }
+// the head dims the Hopper body takes: D <= kPDWide, D % 8 == 0
+bool mma_head_dim(int D) { return D >= 8 && D <= kPDWide && D % 8 == 0; }
+
+// one instance of the Hopper kernel, one launch
+template <bool INT8, bool PAGED, bool PAD, int PD>
+cudaError_t launch_mma_at(const void* q, const void* k, const void* v,
+                          const int* pos, const int* table, void* out,
+                          float* part_o, float* part_ml, int* counters,
+                          int B, int S, int Hq, int Hkv, int D,
+                          int max_blocks, int block_len, int limit,
+                          int split_len, int nsplit, float scale,
+                          const float* k_scale, const float* v_scale,
+                          cudaStream_t st) {
+  const cudaError_t e = mma_attributes<INT8, PAGED, PAD, PD>();
+  if (e != cudaSuccess) return e;
+  const int rows_total = S * (Hq / Hkv);
+  const dim3 grid(nsplit, (rows_total + kPRows - 1) / kPRows, B * Hkv);
+  decode_mma_kernel<INT8, PAGED, PAD, PD>
+      <<<grid, kPThreads, Mma<INT8, PD>::kSmem, st>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const unsigned char*>(k),
+          static_cast<const unsigned char*>(v), pos, table,
+          static_cast<__nv_bfloat16*>(out), part_o, part_ml, counters, S,
+          Hq, Hkv, D, max_blocks, block_len, limit, split_len,
+          scale * 1.4426950408889634f, k_scale, v_scale);
+  return cudaSuccess;
+}
 
 // K1 / K1-int8 / K1-paged / K1-paged-int8 at bf16 q, head_dim D: the Hopper
-// kernel, one launch (max_blocks, block_len: see decode_mma_kernel); below
-// kPD its PAD instance
+// kernel (max_blocks, block_len: see decode_mma_kernel).  D 128 and 256 run
+// instances of constant D; below 128 the PAD instance on 128-wide ring
+// rows, between them the PAD instance on 256-wide ones
 template <bool INT8, bool PAGED>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int* pos, const int* table, void* out,
@@ -990,22 +1079,13 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        int block_len, int limit, int split_len, int nsplit,
                        float scale, const float* k_scale,
                        const float* v_scale, cudaStream_t st) {
-  const bool pad = D != kPD;
-  const cudaError_t e = pad ? mma_attributes<INT8, PAGED, true>()
-                            : mma_attributes<INT8, PAGED, false>();
-  if (e != cudaSuccess) return e;
-  const auto kernel = pad ? decode_mma_kernel<INT8, PAGED, true>
-                          : decode_mma_kernel<INT8, PAGED, false>;
-  const int rows_total = S * (Hq / Hkv);
-  const dim3 grid(nsplit, (rows_total + kPRows - 1) / kPRows, B * Hkv);
-  kernel<<<grid, kPThreads, Mma<INT8>::kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const unsigned char*>(k),
-      static_cast<const unsigned char*>(v), pos, table,
-      static_cast<__nv_bfloat16*>(out), part_o, part_ml, counters, S, Hq,
-      Hkv, D, max_blocks, block_len, limit, split_len,
-      scale * 1.4426950408889634f, k_scale, v_scale);
-  return cudaSuccess;
+  const auto fn = D == kPD       ? launch_mma_at<INT8, PAGED, false, kPD>
+                  : D < kPD      ? launch_mma_at<INT8, PAGED, true, kPD>
+                  : D == kPDWide ? launch_mma_at<INT8, PAGED, false, kPDWide>
+                                 : launch_mma_at<INT8, PAGED, true, kPDWide>;
+  return fn(q, k, v, pos, table, out, part_o, part_ml, counters, B, S, Hq,
+            Hkv, D, max_blocks, block_len, limit, split_len, nsplit, scale,
+            k_scale, v_scale, st);
 }
 
 template <typename T, int EPL, int KPI, bool PAGED, typename KV = T>
@@ -1033,7 +1113,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at any D <= 128
+// dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at any D <= 256
 // with D % 8 == 0 (the serving path: decode_mma_kernel) and float32 at D =
 // 16 (the tiny test models) and 128 (the reference's float32 default
 // configurations: the CUDA-core kernel), the cases chip_smoke.py checks on
@@ -1203,23 +1283,28 @@ extern "C" int decode_attention_paged_int8(
   return static_cast<int>(cudaGetLastError());
 }
 
-// CTAs of a Hopper build (int8: 0 bf16 K/V, 1 int8; paged: 0 contiguous,
-// 1 paged; pad: 0 the head_dim-128 instance, 1 the one below 128) that fit
-// on one SM at once, or minus a CUDA error
-template <bool PAD>
-int ctas_per_sm(int int8, int paged) {
-  int n = 0;
-  const cudaError_t e =
-      int8 ? (paged ? mma_ctas_per_sm<true, true, PAD>(&n)
-                    : mma_ctas_per_sm<true, false, PAD>(&n))
-           : (paged ? mma_ctas_per_sm<false, true, PAD>(&n)
-                    : mma_ctas_per_sm<false, false, PAD>(&n));
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+// CTAs of the Hopper build (int8: 0 bf16 K/V, 1 int8; paged: 0
+// contiguous, 1 paged) that runs head_dim D (its instance: see launch_mma)
+// that fit on one SM at once, or minus a CUDA error (cudaErrorInvalidValue
+// for a head_dim it does not take)
+template <bool INT8, bool PAGED>
+cudaError_t ctas_per_sm(int D, int* n) {
+  if (!mma_head_dim(D)) return cudaErrorInvalidValue;
+  return D == kPD        ? mma_ctas_per_sm<INT8, PAGED, false, kPD>(n)
+         : D < kPD       ? mma_ctas_per_sm<INT8, PAGED, true, kPD>(n)
+         : D == kPDWide  ? mma_ctas_per_sm<INT8, PAGED, false, kPDWide>(n)
+                         : mma_ctas_per_sm<INT8, PAGED, true, kPDWide>(n);
 }
 
 extern "C" int decode_attention_mma_ctas_per_sm(int int8, int paged,
-                                                int pad) {
-  return pad ? ctas_per_sm<true>(int8, paged) : ctas_per_sm<false>(int8, paged);
+                                                int head_dim) {
+  int n = 0;
+  const cudaError_t e =
+      int8 ? (paged ? ctas_per_sm<true, true>(head_dim, &n)
+                    : ctas_per_sm<true, false>(head_dim, &n))
+           : (paged ? ctas_per_sm<false, true>(head_dim, &n)
+                    : ctas_per_sm<false, false>(head_dim, &n));
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -33,7 +33,7 @@
 // score matrix never reaches device memory, and causal tiles wholly above
 // the diagonal are never loaded.  Two bodies (any other dtype / head dim
 // is refused):
-//   * bfloat16 q at any D <= 128 with D % 8 == 0 -- contiguous (the
+//   * bfloat16 q at any D <= 256 with D % 8 == 0 -- contiguous (the
 //     serving waves and every training forward at D = 128, the DiT blocks
 //     at D = 72; segmented or not), paged bf16 and paged int8 (the paged
 //     engine's prefill waves, TinyLlama's at D = 64): the Hopper kernel,
@@ -303,26 +303,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16 q at any D <= 128 with D % 8 == 0 -- K2 over
+// Hopper path: bfloat16 q at any D <= 256 with D % 8 == 0 -- K2 over
 // contiguous K/V (segmented or not), K2-paged over a bf16 pool and
 // K2-paged-int8 over an int8 pool.
 //
-// The body is built for 128-wide tiles.  At D < 128 the tensor maps have
-// D columns (bshd_map; the int8 pool's bshd_map_int8, or at D % 16 == 8 the
-// cp.async staging, zero-fills the staged row past D), so columns D..127 of
-// every Q, K and V tile hold zeros (a box at d 64 wholly past D at D <= 64
-// too) and each box still completes its full byte count on the mbarrier
-// (the staging's copies count as arrivals): Q K^T sums
-// zero products over the pad, P V writes zeros into the output's pad
-// columns, and the out map's store drops them.  The products then do
-// 128 / D times the useful work (1.78x at D = 72).
+// The body is built for tiles HD = 128 wide (D <= 128) or HD = 256 wide
+// (128 < D <= 256; Wg<HD> below).  At D < HD the tensor maps have D
+// columns (bshd_map; the int8 pool's bshd_map_int8, or at D % 16 == 8 the
+// cp.async staging, zero-fills the staged row past D), so columns D..HD-1
+// of every Q, K and V tile hold zeros (a 64-wide box wholly past D too)
+// and each box still completes its full byte count on the mbarrier (the
+// staging's copies count as arrivals): Q K^T sums zero products over the
+// pad, P V writes zeros into the output's pad columns, and the out map's
+// store drops them.  The products then do HD / D times the useful work
+// (1.78x at D = 72, 1.88x at D = 136).  The wide tiles narrow the key
+// tile to 64, as the reference narrows its blocks by D / 128
+// (flash_attention.py:56-71): a 128 x 256 Q tile (64 KB) and two stages of
+// 64-key K and V tiles (2 x 64 KB) fit where two stages of 128 x 256 ones
+// would not (320 KB), and the int8 build keeps one staging stage of 2 x
+// 16 KB (230.6 KB in all, of the 227 KB a block may take).  A consumer's
+// out tile is then m64n256 (128 float32 registers a thread), its score
+// tile m64n64.
 //
 // One CTA per (128-query tile, q head, batch row); a 1-D grid that starts
 // the heaviest causal q tiles (the last: the most keys, whatever the
 // offset) of every head first.  Three warpgroups: consumers 0 and 1 own
 // query rows [64w, 64w + 64) of the tile; warpgroup 2 feeds them K and V
-// through a ring of two stages of 128-key tiles (bf16, 128-byte swizzle,
-// two 64-wide halves a 128-wide row) with full and empty mbarriers for K
+// through a ring of two stages of 128-key tiles (64-key at HD 256; bf16,
+// 128-byte swizzle, a 64-wide box a 64 columns of a row) with full and
+// empty mbarriers for K
 // and for V, and writes into the stage's slot which tile it holds and
 // whether that tile needs the element mask (it crosses the causal
 // diagonal or the last key, or, with segment ids, its ids and the q
@@ -336,14 +345,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 //   * paged bf16: the same warp with the block table: the pool
 //     (num_blocks, block_len, Hkv, D) has the rank and order of (B, S,
 //     Hkv, D) with the block id in the batch's place, so a tile is two
-//     64-key boxes a tensor half at (row in block, block id) (TMA has no
-//     gather); 64 divides block_len, so no box crosses a block, and a
-//     half at or past the row's last key repeats the first half's box, so
-//     no dead table column is read.  Box rows past the last key hold
-//     stale pool data: the tile is flagged and its element mask hides
-//     them;
+//     64-key boxes a tensor half (one at HD 256) at (row in block, block
+//     id) (TMA has no gather); 64 divides block_len, so no box crosses a
+//     block, and a half at or past the row's last key repeats the first
+//     half's box, so no dead table column is read.  Box rows past the
+//     last key hold stale pool data: the tile is flagged and its element
+//     mask hides them;
 //   * paged int8: the producer's lane 0 loads the int8 boxes the same way
-//     by TMA into a staging ring of two stages (at D % 16 == 8 the pool's
+//     by TMA into a staging ring of two stages, one at HD 256 (at D % 16
+//     == 8 the pool's
 //     D-byte head stride is no multiple of 16, which a TMA map needs: the
 //     whole warpgroup stages the boxes by 8-byte cp.async copies, zeros
 //     past D, and each thread's copies arrive on the unit's barrier when
@@ -353,7 +363,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 //     layout TMA would write, and releases it to the consumers after a
 //     proxy fence.  Each 64-key half carries its block's K and V scales in
 //     the slot (two blocks a tile at block_len 64).
-// Consumers: S = Q K^T on wgmma.m64n128k16 (Q and K from shared memory,
+// Consumers: S = Q K^T on wgmma.m64n128k16 (m64n64k16 at HD 256; Q and K
+// from shared memory,
 // K-major), the online softmax in registers in the log2 domain (exp2,
 // log2(e) folded into the scale; the row max of the raw scores -- int8:
 // of the scores times each half's K scale), P rounded to bf16 in
@@ -369,17 +380,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // Sq.  Paged: query i of row b sees keys j <= pos[b] + i, keys j <
 // min(pos[b] + Sq, max_blocks * block_len) exist, and no lse is written.
 // ---------------------------------------------------------------------------
-constexpr int kHD = 128;              // tile width in d: the largest head_dim
 constexpr int kHQ = 128;              // queries per CTA (2 x 64)
-constexpr int kHK = 128;              // keys per tile
 constexpr int kHStages = 2;
 constexpr int kHThreads = 384;        // consumers: warpgroups 0, 1; producer 2
 constexpr int kHConsumers = 256;
-constexpr int kHHalf = 128 * 128;     // a 128-row x 64-wide bf16 box, bytes
-constexpr int kHTile = 2 * kHHalf;    // a 128-row x 128-wide tile
 constexpr int kHBox = 64;             // key rows of a paged box
-constexpr int k8Tile = kHK * kHD;     // a 128-key int8 tile, bytes
-constexpr int kHSeg = stage_ints(kHK + kLead1d);   // a stage's key ids
+constexpr int kRange = 128;           // tokens of a segment range (kv_rng)
 constexpr float kLn2 = 0.6931471805599453f;
 // setmaxnreg moves registers only within the CTA: launched at 168 a
 // thread, the three warpgroups share 3 x 168.  bf16: consumers 240, the
@@ -390,22 +396,51 @@ constexpr int kInt8ConsumerRegs = (3 * 168 - kConvRegs) / 2;
 static_assert(kConvRegs % 8 == 0 && kInt8ConsumerRegs % 8 == 0,
               "setmaxnreg takes multiples of 8");
 
+// The tile shapes at tile width HD (128: D <= 128; 256: D <= 256).  A
+// tile row is HD / 64 boxes of 64 bf16 columns (128 bytes, 128-byte
+// swizzle), each box a stack of rows.
+template <int HD>
+struct Wg {
+  static_assert(HD == 128 || HD == 256, "tiles are 128 or 256 wide");
+  static constexpr int kBoxes = HD / 64;          // boxes a tile row
+  static constexpr int kK = HD == 128 ? 128 : 64; // keys a tile
+  static constexpr int kKBoxes = kK / kHBox;      // paged boxes a key tile
+  static constexpr int kQBox = kHQ * 128;         // bytes of a Q box
+  static constexpr int kKBox = kK * 128;          // of a K or V box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKTile = kBoxes * kKBox;
+  static constexpr int k8Tile = kK * HD;          // a staged int8 tile
+  static constexpr int kStages8 = HD == 128 ? 2 : 1;   // int8 staging
+  static constexpr int kSeg = stage_ints(kK + kLead1d);   // a tile's ids
+  static constexpr int kQSteps = HD / 16;         // k steps of Q K^T
+  static constexpr int kPSteps = kK / 16;         // k steps of P V
+  static constexpr int kS = kK / 2;   // score floats a consumer thread
+  static constexpr int kO = HD / 2;   // out floats a consumer thread
+};
+
 // what warpgroup 2 tells the consumers about the tile of a stage
 struct Slot {
   int tile;       // key tile index, -1: the walk is over
   int masked;     // the tile needs the element mask
   float ks[2];    // int8: K's scale of keys [0, 64) and [64, 128)
+                  //   (one 64-key box at HD 256: ks[0])
   float vs[2];    // int8: V's
 };
 
-template <bool SEG, bool INT8>
+template <bool SEG, bool INT8, int HD>
 constexpr size_t hopper_smem() {
-  return 1024 + (size_t)(1 + 2 * kHStages) * kHTile +
-         (INT8 ? (size_t)kHStages * 2 * k8Tile : 0) +
-         (SEG ? (size_t)kHStages * kHSeg * 4 : 0) +
-         kHStages * sizeof(Slot) + (1 + 6 * kHStages) * 8 +
+  using W = Wg<HD>;
+  return 1024 + (size_t)W::kQTile + 2 * kHStages * (size_t)W::kKTile +
+         (INT8 ? (size_t)W::kStages8 * 2 * W::k8Tile : 0) +
+         (SEG ? (size_t)kHStages * W::kSeg * 4 : 0) +
+         kHStages * sizeof(Slot) + (1 + 4 * kHStages + 2 * W::kStages8) * 8 +
          (INT8 ? kHStages * 8 * sizeof(float) : 0);
 }
+static_assert(hopper_smem<false, true, 128>() <= 232448 &&
+                  hopper_smem<true, false, 128>() <= 232448 &&
+                  hopper_smem<false, true, 256>() <= 232448 &&
+                  hopper_smem<true, false, 256>() <= 232448,
+              "every build fits the 227 KB a block may take");
 
 // the kernel's scalar arguments
 struct HopperArgs {
@@ -424,57 +459,67 @@ struct HopperArgs {
   int causal;
 };
 
-// paged: the pool coordinates (block id, row in block) of the two 64-key
-// halves of the key tile at k0 of a row whose table row is `trow`; a half
-// at or past kv_len repeats the first half's box
+// paged: the pool coordinates (block id, row in block) of the N (1 or 2)
+// 64-key boxes of the key tile at k0 of a row whose table row is `trow`; a
+// second box at or past kv_len repeats the first's
+template <int N>
 __device__ __forceinline__ void paged_boxes(const int* trow, int block_len,
-                                            int k0, int kv_len, int (&blk)[2],
-                                            int (&row)[2]) {
+                                            int k0, int kv_len, int (&blk)[N],
+                                            int (&row)[N]) {
   blk[0] = trow[k0 / block_len];
   row[0] = k0 % block_len;
-  if (k0 + kHBox >= kv_len) {
-    blk[1] = blk[0];
-    row[1] = row[0];
-  } else if (row[0] + kHBox < block_len) {
-    blk[1] = blk[0];
-    row[1] = row[0] + kHBox;
-  } else {
-    blk[1] = trow[(k0 + kHBox) / block_len];
-    row[1] = 0;
+  if constexpr (N == 2) {
+    if (k0 + kHBox >= kv_len) {
+      blk[1] = blk[0];
+      row[1] = row[0];
+    } else if (row[0] + kHBox < block_len) {
+      blk[1] = blk[0];
+      row[1] = row[0] + kHBox;
+    } else {
+      blk[1] = trow[(k0 + kHBox) / block_len];
+      row[1] = 0;
+    }
   }
 }
 
-// a staged 128-key int8 tile (128 bytes a row, unswizzled) as the bf16
-// tile the consumers read (two 64-wide halves, 128-byte swizzle).  Each
-// thread of the warpgroup converts 8 of the tile's 1024 16-byte int8
+// a staged int8 tile (kK rows of HD bytes, unswizzled) as the bf16 tile
+// the consumers read (HD / 64 boxes of 64 columns, 128-byte swizzle).
+// Each thread of the warpgroup converts 8 of the tile's 1024 16-byte int8
 // pieces into two 16-byte bf16 chunks.  The 8 lanes of a quarter warp (one
-// shared-memory wavefront of 16-byte accesses) take pieces 0-3 of one row
-// and 4-7 of the next, or the reverse: they read 128 distinct bytes and
-// write 8 distinct swizzled chunk positions, free of bank conflicts.
+// shared-memory wavefront of 16-byte accesses) take 4 pieces of one row
+// and 4 of the next, of boxes of opposite parity (HD 128: pieces 0-3 and
+// 4-7; HD 256: boxes q and q ^ 1): they read 128 bytes on distinct banks
+// and write 8 distinct swizzled chunk positions, free of bank conflicts.
+template <int HD>
 __device__ __forceinline__ void convert_tile(const unsigned char* src,
                                              unsigned char* dst, int t) {
+  using W = Wg<HD>;
+  constexpr int kRowsPass = 128 * 16 / HD;   // rows the 128 threads take
   const int lane = t & 31, hi = (lane >> 2) & 1;
-  const int c = 4 * (hi ^ ((lane >> 3) & 1)) + (lane & 3);
-  const int r_base = 4 * (t >> 5) + 2 * (lane >> 4) + hi;
-  unsigned char* half = dst + (c >> 2) * kHHalf;
+  const int c = HD == 128 ? 4 * (hi ^ ((lane >> 3) & 1)) + (lane & 3)
+                          : 4 * (((lane >> 3) & 3) ^ hi) + (lane & 3);
+  const int r_base = HD == 128 ? 4 * (t >> 5) + 2 * (lane >> 4) + hi
+                               : 2 * (t >> 5) + hi;
+  unsigned char* box = dst + (c >> 2) * W::kKBox;
   const int p = 2 * (c & 3);
 #pragma unroll 2
-  for (int i = 0; i < kHK / 16; ++i) {
-    const int r = 16 * i + r_base;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * 128 + c * 16);
+  for (int i = 0; i < W::kK / kRowsPass; ++i) {
+    const int r = kRowsPass * i + r_base;
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * HD + c * 16);
     uint4 a, b;
     int8x4_to_bf16(raw.x, a.x, a.y);
     int8x4_to_bf16(raw.y, a.z, a.w);
     int8x4_to_bf16(raw.z, b.x, b.y);
     int8x4_to_bf16(raw.w, b.z, b.w);
-    unsigned char* row = half + r * 128;
+    unsigned char* row = box + r * 128;
     *reinterpret_cast<uint4*>(row + ((p ^ (r & 7)) << 4)) = a;
     *reinterpret_cast<uint4*>(row + (((p + 1) ^ (r & 7)) << 4)) = b;
   }
 }
 
-// CP8 (INT8 only): the int8 pool at D % 16 == 8, staged by cp.async
-template <bool SEG, bool PAGED, bool INT8, bool CP8>
+// CP8 (INT8 only): the int8 pool at D % 16 == 8, staged by cp.async; HD:
+// the tile width (Wg)
+template <bool SEG, bool PAGED, bool INT8, bool CP8, int HD>
 __global__ void __launch_bounds__(kHThreads, 1)
 flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
@@ -485,25 +530,28 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   static_assert(PAGED || !INT8, "the int8 cache is paged only");
   static_assert(!(PAGED && SEG), "the paged builds take no segment ids");
   static_assert(INT8 || !CP8, "only the int8 pool is staged by cp.async");
+  using W = Wg<HD>;
+  constexpr int kK = W::kK, kS8 = W::kStages8;
   extern __shared__ unsigned char wg_smem[];
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~uintptr_t(1023));
-  unsigned char* Ks = Qs + kHTile;                      // [stage]
-  unsigned char* Vs = Ks + kHStages * kHTile;           // [stage]
-  // int8: [stage][K, V] staged int8 tiles
-  unsigned char* S8 = Vs + kHStages * kHTile;
-  // [stage][kHSeg]: a key tile's ids, read (b * Skv + k0) & 3 in
-  int* seg_s = reinterpret_cast<int*>(S8 + (INT8 ? kHStages * 2 * k8Tile : 0));
-  Slot* slot = reinterpret_cast<Slot*>(seg_s + (SEG ? kHStages * kHSeg : 0));
+  unsigned char* Ks = Qs + W::kQTile;                   // [stage]
+  unsigned char* Vs = Ks + kHStages * W::kKTile;        // [stage]
+  // int8: [staging stage][K, V] staged int8 tiles
+  unsigned char* S8 = Vs + kHStages * W::kKTile;
+  // [stage][W::kSeg]: a key tile's ids, read (b * Skv + k0) & 3 in
+  int* seg_s =
+      reinterpret_cast<int*>(S8 + (INT8 ? kS8 * 2 * W::k8Tile : 0));
+  Slot* slot = reinterpret_cast<Slot*>(seg_s + (SEG ? kHStages * W::kSeg : 0));
   uint64_t* q_full = reinterpret_cast<uint64_t*>(slot + kHStages);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kHStages;
   uint64_t* k_empty = v_full + kHStages;
   uint64_t* v_empty = k_empty + kHStages;
-  uint64_t* s_full = v_empty + kHStages;   // int8: [stage][K, V] staging
+  uint64_t* s_full = v_empty + kHStages;   // int8: [staging][K, V]
   // int8, thread 0 of the producer warpgroup: [stage][ks 0, 1, vs 0, 1]
   // and [stage][block 0, 1, row 0, 1] of the tile staged next
-  float* scl = reinterpret_cast<float*>(s_full + 2 * kHStages);
+  float* scl = reinterpret_cast<float*>(s_full + 2 * kS8);
   int* bx = reinterpret_cast<int*>(scl + 4 * kHStages);
 
   const int Sq = a.Sq, Hq = a.Hq, causal = a.causal;
@@ -528,63 +576,68 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_init(&v_full[s], INT8 ? 128 : 1);
       mbar_init(&k_empty[s], kHConsumers);
       mbar_init(&v_empty[s], kHConsumers);
-      mbar_init(&s_full[2 * s], CP8 ? 128 : 1);
-      mbar_init(&s_full[2 * s + 1], CP8 ? 128 : 1);
     }
+    for (int u = 0; u < 2 * kS8; ++u) mbar_init(&s_full[u], CP8 ? 128 : 1);
     mbar_init_fence();
   }
   __syncthreads();
 
   const int kv_hi = causal ? min(kv_len, q0 + kHQ + offset) : kv_len;
-  const int n_kt = kv_hi > 0 ? (kv_hi + kHK - 1) / kHK : 0;
+  const int n_kt = kv_hi > 0 ? (kv_hi + kK - 1) / kK : 0;
   if (wg == 2) {
     if constexpr (INT8) {
       // ---- int8: TMA into the staging ring, the warpgroup converts -------
       reg_dealloc<kConvRegs>();
       const int* trow = a.table + (size_t)b * a.max_blocks;
-      // Staging unit 2s + x holds tensor x (0: K, 1: V) of a tile in stage
-      // s; tile t is the walk's t-th (from the diagonal down).  Thread 0
-      // reads the table and the scales; the others only convert (CP8: every
-      // thread also reads the table and stages its share of the boxes).
+      // Staging unit 2u + x holds tensor x (0: K, 1: V) of a tile in
+      // staging stage u (of kS8); tile t is the walk's t-th (from the
+      // diagonal down).  Thread 0 reads the table and the scales; the
+      // others only convert (CP8: every thread also reads the table and
+      // stages its share of the boxes).
+      constexpr int kKB = W::kKBoxes;
       auto load = [&](int t, int x, const int* blk, const int* row) {
-        const int u = 2 * (t % kHStages) + x;
+        const int u = 2 * (t % kS8) + x;
         if (CP8) {
-          // 128 rows x 16 pieces of 8 bytes; pieces at or past D zero
+          // kK rows x HD / 8 pieces of 8 bytes; pieces at or past D zero
+          constexpr int kPieces = HD / 8;
           const unsigned char* src = x ? a.v8 : a.k8;
-          unsigned char* dst = S8 + u * k8Tile;
-          for (int i = tid; i < kHK * 16; i += 128) {
-            const int r = i >> 4, pc = i & 15, e = r / kHBox;
+          unsigned char* dst = S8 + u * W::k8Tile;
+          for (int i = tid; i < kK * kPieces; i += 128) {
+            const int r = i / kPieces, pc = i % kPieces, e = r / kHBox;
             const bool in = 8 * pc < a.D;
             const size_t off =
                 (((size_t)blk[e] * a.block_len + row[e] + r % kHBox) * a.Hkv +
                  hk) * a.D + 8 * pc;
-            cp_async8(dst + r * 128 + 8 * pc, in ? src + off : src,
+            cp_async8(dst + r * HD + 8 * pc, in ? src + off : src,
                       in ? 8 : 0);
           }
           mbar_arrive_cp_async(&s_full[u]);
           return;
         }
         fence_proxy_async();
-        mbar_expect_tx(&s_full[u], k8Tile);
+        mbar_expect_tx(&s_full[u], W::k8Tile);
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          tma_load_4d(S8 + u * k8Tile + e * (k8Tile / 2), x ? &v_map : &k_map,
-                      &s_full[u], 0, hk, row[e], blk[e]);
+        for (int e = 0; e < kKB; ++e)
+          tma_load_4d(S8 + u * W::k8Tile + e * kHBox * HD,
+                      x ? &v_map : &k_map, &s_full[u], 0, hk, row[e], blk[e]);
       };
-      auto boxes = [&](int t, int (&blk)[2], int (&row)[2]) {
-        paged_boxes(trow, a.block_len, (n_kt - 1 - t) * kHK, kv_len, blk,
-                    row);
+      auto boxes = [&](int t, int (&blk)[kKB], int (&row)[kKB]) {
+        paged_boxes<kKB>(trow, a.block_len, (n_kt - 1 - t) * kK, kv_len, blk,
+                         row);
       };
+      // the K and V scales of each 64-key box (one box: both slots its)
       auto scales = [&](const int* blk, float (&dst)[4]) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          dst[e] = a.k_scale[(size_t)blk[e] * a.Hkv + hk];
-          dst[2 + e] = a.v_scale[(size_t)blk[e] * a.Hkv + hk];
+          const size_t i = (size_t)blk[e % kKB] * a.Hkv + hk;
+          dst[e] = a.k_scale[i];
+          dst[2 + e] = a.v_scale[i];
         }
       };
       // thread 0: a tile's scales are loaded when its K is staged and
-      // stored into scl after the next conversion (pend_t: that tile, or
-      // -1); its boxes wait in bx for its V staging
+      // stored into scl after the next conversion, or when step_k reaches
+      // the tile (pend_t: that tile, or -1); its boxes wait in bx for its
+      // V staging
       float pend[4];
       int pend_t = -1;
       auto store_pending = [&] {
@@ -594,13 +647,14 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         pend_t = -1;
       };
       if (tid == 0) {
-        mbar_expect_tx(q_full, kHTile);
-        tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
-        tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
+        mbar_expect_tx(q_full, W::kQTile);
+#pragma unroll
+        for (int x = 0; x < W::kBoxes; ++x)
+          tma_load_4d(Qs + x * W::kQBox, &q_map, q_full, 64 * x, h, q0, b);
       }
       if (tid == 0 || CP8) {
-        for (int t = 0; t < kHStages && t < n_kt; ++t) {
-          int blk[2], row[2];
+        for (int t = 0; t < kS8 && t < n_kt; ++t) {
+          int blk[kKB], row[kKB];
           boxes(t, blk, row);
           load(t, 0, blk, row);
           load(t, 1, blk, row);
@@ -611,18 +665,23 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           }
         }
       }
-      // K of tile t: it may run a tile ahead of V (its slot frees earlier)
+      // K of tile t: it may run a tile ahead of V (its slot frees earlier).
+      // Its scales were loaded when its K was staged; thread 0 stores them
+      // (store_pending) before it reads them (one staging stage: tile t's
+      // K was staged by step_k(t - 1))
       auto step_k = [&](int t) {
-        const int s = t % kHStages, k0 = (n_kt - 1 - t) * kHK;
+        const int s = t % kHStages, k0 = (n_kt - 1 - t) * kK;
+        const int u = t % kS8;
         const unsigned ph = (t / kHStages) & 1;
-        const bool refill = t + kHStages < n_kt;
-        int nblk[2], nrow[2];
-        mbar_wait(&s_full[2 * s], ph);
+        const bool refill = t + kS8 < n_kt;
+        int nblk[kKB], nrow[kKB];
+        mbar_wait(&s_full[2 * u], (t / kS8) & 1);
         mbar_wait(&k_empty[s], ph ^ 1);
         if (tid == 0) {
+          store_pending();
           Slot sl;
           sl.tile = n_kt - 1 - t;
-          sl.masked = k0 + kHK - 1 > q0 + offset || k0 + kHK > kv_len;
+          sl.masked = k0 + kK - 1 > q0 + offset || k0 + kK > kv_len;
           sl.ks[0] = scl[s * 4];
           sl.ks[1] = scl[s * 4 + 1];
           sl.vs[0] = scl[s * 4 + 2];
@@ -630,42 +689,43 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           slot[s] = sl;
         }
         // the next tile's table entries, read under the conversion
-        if (refill && (tid == 0 || CP8)) boxes(t + kHStages, nblk, nrow);
-        convert_tile(S8 + 2 * s * k8Tile, Ks + s * kHTile, tid);
+        if (refill && (tid == 0 || CP8)) boxes(t + kS8, nblk, nrow);
+        convert_tile<HD>(S8 + 2 * u * W::k8Tile, Ks + s * W::kKTile, tid);
         fence_proxy_async();
         mbar_arrive(&k_full[s]);
         if (refill) {
           named_barrier(5, 128);   // every thread is done with the unit
-          if (CP8) load(t + kHStages, 0, nblk, nrow);
+          if (CP8) load(t + kS8, 0, nblk, nrow);
           if (tid == 0) {
-            if (!CP8) load(t + kHStages, 0, nblk, nrow);
-            for (int e = 0; e < 2; ++e) {
+            if (!CP8) load(t + kS8, 0, nblk, nrow);
+            for (int e = 0; e < kKB; ++e) {
               bx[s * 4 + e] = nblk[e];
               bx[s * 4 + 2 + e] = nrow[e];
             }
             store_pending();
             scales(nblk, pend);
-            pend_t = t + kHStages;
+            pend_t = t + kS8;
           }
         }
       };
       auto step_v = [&](int t) {
-        const int s = t % kHStages;
+        const int s = t % kHStages, u = t % kS8;
         const unsigned ph = (t / kHStages) & 1;
-        const bool refill = t + kHStages < n_kt;
-        int vblk[2], vrow[2];   // CP8: the boxes of V's next tile
-        if (CP8 && refill) boxes(t + kHStages, vblk, vrow);
-        mbar_wait(&s_full[2 * s + 1], ph);
+        const bool refill = t + kS8 < n_kt;
+        int vblk[kKB], vrow[kKB];   // CP8: the boxes of V's next tile
+        if (CP8 && refill) boxes(t + kS8, vblk, vrow);
+        mbar_wait(&s_full[2 * u + 1], (t / kS8) & 1);
         mbar_wait(&v_empty[s], ph ^ 1);
-        convert_tile(S8 + (2 * s + 1) * k8Tile, Vs + s * kHTile, tid);
+        convert_tile<HD>(S8 + (2 * u + 1) * W::k8Tile, Vs + s * W::kKTile,
+                         tid);
         fence_proxy_async();
         mbar_arrive(&v_full[s]);
         if (refill) {
           named_barrier(5, 128);
           if (CP8)
-            load(t + kHStages, 1, vblk, vrow);
+            load(t + kS8, 1, vblk, vrow);
           else if (tid == 0)
-            load(t + kHStages, 1, bx + s * 4, bx + s * 4 + 2);
+            load(t + kS8, 1, bx + s * 4, bx + s * 4 + 2);
         }
         if (tid == 0) store_pending();
       };
@@ -683,11 +743,12 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       reg_dealloc<24>();
       if (tid >= 32) return;
       const int lane = tid;
-      const int n_kvt = (a.Skv + kHK - 1) / kHK;
+      const int n_kvt = (a.Skv + kRange - 1) / kRange;
       if (lane == 0) {   // Q first: the ranges below wait on global loads
-        mbar_expect_tx(q_full, kHTile);
-        tma_load_4d(Qs, &q_map, q_full, 0, h, q0, b);
-        tma_load_4d(Qs + kHHalf, &q_map, q_full, 64, h, q0, b);
+        mbar_expect_tx(q_full, W::kQTile);
+#pragma unroll
+        for (int x = 0; x < W::kBoxes; ++x)
+          tma_load_4d(Qs + x * W::kQBox, &q_map, q_full, 64 * x, h, q0, b);
       }
       int qmin = 0, qmax = 0;
       if constexpr (SEG) {
@@ -699,12 +760,15 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int base = n_kt - 1; base >= 0; base -= 32) {
         const int j = base - lane;
         bool vis = j >= 0;
-        bool masked = vis && ((causal && j * kHK + kHK - 1 > q0 + offset) ||
-                              j * kHK + kHK > kv_len);
+        bool masked = vis && ((causal && j * kK + kK - 1 > q0 + offset) ||
+                              j * kK + kK > kv_len);
         if constexpr (SEG) {
           if (vis) {
-            const int kmin = a.kv_rng[((size_t)b * n_kvt + j) * 2];
-            const int kmax = a.kv_rng[((size_t)b * n_kvt + j) * 2 + 1];
+            // the range of the kRange-token tile holding key tile j (at
+            // kK 64 a superset of its own: exact all the same)
+            const int jr = j * kK / kRange;
+            const int kmin = a.kv_rng[((size_t)b * n_kvt + jr) * 2];
+            const int kmax = a.kv_rng[((size_t)b * n_kvt + jr) * 2 + 1];
             vis = kmax >= qmin && kmin <= qmax;
             masked = masked || kmin != kmax || qmin != qmax || kmin != qmin;
           }
@@ -715,44 +779,43 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         while (todo) {
           const int l = __ffs(todo) - 1;
           todo &= todo - 1;
-          const int jt = base - l, k0 = jt * kHK;
+          const int jt = base - l, k0 = jt * kK;
           const int s = it % kHStages;
           const unsigned free_parity = ((it / kHStages) & 1) ^ 1;
-          unsigned char* kd = Ks + s * kHTile;
-          unsigned char* vd = Vs + s * kHTile;
-          int blk[2], row[2];
+          unsigned char* kd = Ks + s * W::kKTile;
+          unsigned char* vd = Vs + s * W::kKTile;
+          int blk[W::kKBoxes], row[W::kKBoxes];
           if constexpr (PAGED)
-            paged_boxes(a.table + (size_t)b * a.max_blocks, a.block_len, k0,
-                        kv_len, blk, row);
+            paged_boxes<W::kKBoxes>(a.table + (size_t)b * a.max_blocks,
+                                    a.block_len, k0, kv_len, blk, row);
+          // the tile's boxes: d box x of every row; paged, key box e (64
+          // rows) of each at its block's row
+          auto load_tile = [&](unsigned char* dst, const CUtensorMap* m,
+                               uint64_t* bar) {
+#pragma unroll
+            for (int x = 0; x < W::kBoxes; ++x) {
+              if constexpr (PAGED) {
+#pragma unroll
+                for (int e = 0; e < W::kKBoxes; ++e)
+                  tma_load_4d(dst + x * W::kKBox + e * kHBox * 128, m, bar,
+                              64 * x, hk, row[e], blk[e]);
+              } else {
+                tma_load_4d(dst + x * W::kKBox, m, bar, 64 * x, hk, k0, b);
+              }
+            }
+          };
           mbar_wait(&k_empty[s], free_parity);
           slot[s].tile = jt;
           slot[s].masked = (mask_bits >> l) & 1;
-          mbar_expect_tx(&k_full[s], kHTile + (SEG ? (kHK + kLead1d) * 4 : 0));
-          if constexpr (PAGED) {
-#pragma unroll
-            for (int x = 0; x < 4; ++x)   // d half x & 1, key half x >> 1
-              tma_load_4d(kd + (x & 1) * kHHalf + (x >> 1) * (kHHalf / 2),
-                          &k_map, &k_full[s], (x & 1) * 64, hk, row[x >> 1],
-                          blk[x >> 1]);
-          } else {
-            tma_load_4d(kd, &k_map, &k_full[s], 0, hk, k0, b);
-            tma_load_4d(kd + kHHalf, &k_map, &k_full[s], 64, hk, k0, b);
-          }
+          mbar_expect_tx(&k_full[s],
+                         W::kKTile + (SEG ? (kK + kLead1d) * 4 : 0));
+          load_tile(kd, &k_map, &k_full[s]);
           if constexpr (SEG)
-            tma_load_1d(seg_s + s * kHSeg, &seg_map, &k_full[s],
+            tma_load_1d(seg_s + s * W::kSeg, &seg_map, &k_full[s],
                         (b * a.Skv + k0) & ~3);
           mbar_wait(&v_empty[s], free_parity);
-          mbar_expect_tx(&v_full[s], kHTile);
-          if constexpr (PAGED) {
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              tma_load_4d(vd + (x & 1) * kHHalf + (x >> 1) * (kHHalf / 2),
-                          &v_map, &v_full[s], (x & 1) * 64, hk, row[x >> 1],
-                          blk[x >> 1]);
-          } else {
-            tma_load_4d(vd, &v_map, &v_full[s], 0, hk, k0, b);
-            tma_load_4d(vd + kHHalf, &v_map, &v_full[s], 64, hk, k0, b);
-          }
+          mbar_expect_tx(&v_full[s], W::kKTile);
+          load_tile(vd, &v_map, &v_full[s]);
           ++it;
         }
       }
@@ -780,31 +843,34 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // s * scale == (-s) * (-scale): the row max is taken on raw scores
   const bool negate = a.scale_log2 < 0.f;
   const float sl2 = fabsf(a.scale_log2);
-  float o[64];
+  constexpr int kSN = W::kS, kON = W::kO;
+  float o[kON];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < kON; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float al0 = 0.f, al1 = 0.f;   // the last softmax's rescale of the sums
   const unsigned char* qa = Qs + wg * 64 * 128;
 
-  // S = Q K^T of the key tile in stage s
-  auto issue_s = [&](float (&sc)[64], int s) {
-    const unsigned char* kt = Ks + s * kHTile;
+  // S = Q K^T of the key tile in stage s: k step t reads 32 bytes into
+  // d box t / 4 of Q and of K
+  auto issue_s = [&](float (&sc)[kSN], int s) {
+    const unsigned char* kt = Ks + s * W::kKTile;
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int off = (t / 4) * kHHalf + (t % 4) * 32;
-      wgmma_ss<0, 0>(sc, gmma_desc(qa + off, 16, 1024),
-                     gmma_desc(kt + off, 16, 1024), t > 0);
+    for (int t = 0; t < W::kQSteps; ++t) {
+      const int col = (t % 4) * 32;
+      wgmma_ss<0, 0>(sc, gmma_desc(qa + (t / 4) * W::kQBox + col, 16, 1024),
+                     gmma_desc(kt + (t / 4) * W::kKBox + col, 16, 1024),
+                     t > 0);
     }
     wgmma_commit();
   };
   // a key tile's ids start `lead` into their stage, the same for every
   // tile of the CTA (k0 is a multiple of 4)
   const int lead = SEG ? (b * a.Skv) & 3 : 0;
-  auto mask_ids = [&](float (&sc)[64], int k0, const int* ids) {
+  auto mask_ids = [&](float (&sc)[kSN], int k0, const int* ids) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int cl = 8 * j + 2 * c + (e & 1);
@@ -818,30 +884,31 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   };
   // the scores' sign (int8: times each half's K scale), then the element
   // mask of a tile the producer flagged; at lead 0 the ids' loads pair up
-  auto mask = [&](float (&sc)[64], const Slot& sl, int s) {
+  // (sc[i] holds keys 8 (i / 4) + ..: those of 64-key box i / 32)
+  auto mask = [&](float (&sc)[kSN], const Slot& sl, int s) {
     if constexpr (INT8) {
       const float k0s = negate ? -sl.ks[0] : sl.ks[0];
       const float k1s = negate ? -sl.ks[1] : sl.ks[1];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] *= i < 32 ? k0s : k1s;
+      for (int i = 0; i < kSN; ++i) sc[i] *= i < 32 ? k0s : k1s;
     } else if (negate) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = -sc[i];
+      for (int i = 0; i < kSN; ++i) sc[i] = -sc[i];
     }
     if (!sl.masked) return;
-    const int* ids = seg_s + s * kHSeg;
+    const int* ids = seg_s + s * W::kSeg;
     if (lead == 0)
-      mask_ids(sc, sl.tile * kHK, ids);
+      mask_ids(sc, sl.tile * kK, ids);
     else
-      mask_ids(sc, sl.tile * kHK, ids + lead);
+      mask_ids(sc, sl.tile * kK, ids + lead);
   };
   // online softmax: row r0 holds sc[4j], sc[4j + 1], row r1 sc[4j + 2],
-  // sc[4j + 3]; a row's 128 scores live in the 4 lanes of a quad.  sc
+  // sc[4j + 3]; a row's kK scores live in the 4 lanes of a quad.  sc
   // becomes the probabilities; al0 / al1 the rescale of the sums so far.
-  auto softmax = [&](float (&sc)[64]) {
+  auto softmax = [&](float (&sc)[kSN]) {
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kK / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -860,7 +927,7 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     m1 = mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kK / 8; ++j) {
       sc[4 * j] = exp2_approx(fmaf(sc[4 * j], sl2, -mu0));
       sc[4 * j + 1] = exp2_approx(fmaf(sc[4 * j + 1], sl2, -mu0));
       sc[4 * j + 2] = exp2_approx(fmaf(sc[4 * j + 2], sl2, -mu1));
@@ -874,13 +941,14 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   };
   // P rounded to bf16 (int8: times each half's V scale): the register A
   // operand of k step t is sc[8t..8t+7]
-  auto pack = [&](float (&sc)[64], const Slot& sl, uint32_t (&pa)[8][4]) {
+  auto pack = [&](float (&sc)[kSN], const Slot& sl,
+                  uint32_t (&pa)[W::kPSteps][4]) {
     if constexpr (INT8) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] *= i < 32 ? sl.vs[0] : sl.vs[1];
+      for (int i = 0; i < kSN; ++i) sc[i] *= i < 32 ? sl.vs[0] : sl.vs[1];
     }
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
+    for (int t = 0; t < W::kPSteps; ++t) {
       pa[t][0] = pack_bf16(sc[8 * t], sc[8 * t + 1]);
       pa[t][1] = pack_bf16(sc[8 * t + 2], sc[8 * t + 3]);
       pa[t][2] = pack_bf16(sc[8 * t + 4], sc[8 * t + 5]);
@@ -896,8 +964,8 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   mbar_wait(&k_full[0], 0);
   const Slot sl0 = slot[0];
   if (sl0.tile >= 0) {
-    float sc[64];
-    uint32_t pa[8][4];
+    float sc[kSN];
+    uint32_t pa[W::kPSteps][4];
     named_barrier(3 + wg, 256);
     issue_s(sc, 0);
     named_barrier_arrive(4 - wg, 256);
@@ -913,21 +981,29 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // is in flight
     auto rescale_o = [&] {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kON / 4; ++j) {
         o[4 * j] *= al0;
         o[4 * j + 1] *= al0;
         o[4 * j + 2] *= al1;
         o[4 * j + 3] *= al1;
       }
     };
+    // V MN-major: k step t starts 16 key rows (2048 bytes) in, the d
+    // boxes kKBox apart
     auto issue_pv = [&](int sv) {
-      const unsigned char* vt = Vs + sv * kHTile;
+      const unsigned char* vt = Vs + sv * W::kKTile;
       wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        wgmma_rs<1>(o, pa[t], gmma_desc(vt + t * 2048, kHHalf, 1024), 1);
+      for (int t = 0; t < W::kPSteps; ++t)
+        wgmma_rs<1>(o, pa[t], gmma_desc(vt + t * 2048, W::kKBox, 1024), 1);
       wgmma_commit();
     };
+    // At HD 256 the int8 consumers (216 registers: o 128, S 32, P 16 and
+    // the rest) and the segmented ones (the ids' registers besides) run
+    // this tile's P V to its end before the next tile's Q K^T, so P and S
+    // are never held at once (both spilled otherwise); the two warpgroups
+    // still take turns
+    constexpr bool kSerial = HD == 256 && (INT8 || SEG);
     int cur = 0;
     for (;; ++cur) {
       const int nxt = cur + 1, sn = nxt % kHStages, sv = cur % kHStages;
@@ -935,19 +1011,33 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const Slot sl = slot[sn];
       if (sl.tile < 0) break;
       named_barrier(3 + wg, 256);
-      issue_s(sc, sn);
-      rescale_o();
-      mbar_wait(&v_full[sv], (cur / kHStages) & 1);
-      issue_pv(sv);
-      named_barrier_arrive(4 - wg, 256);
-      wgmma_wait<1>();
+      if constexpr (kSerial) {
+        rescale_o();
+        mbar_wait(&v_full[sv], (cur / kHStages) & 1);
+        issue_pv(sv);
+        named_barrier_arrive(4 - wg, 256);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(&v_empty[sv]);
+        issue_s(sc, sn);
+        wgmma_wait<0>();
+      } else {
+        issue_s(sc, sn);
+        rescale_o();
+        mbar_wait(&v_full[sv], (cur / kHStages) & 1);
+        issue_pv(sv);
+        named_barrier_arrive(4 - wg, 256);
+        wgmma_wait<1>();
+      }
       fence_regs(sc);
       mask(sc, sl, sn);
       mbar_arrive(&k_empty[sn]);
       softmax(sc);
-      wgmma_wait<0>();
-      fence_regs(o);
-      mbar_arrive(&v_empty[sv]);
+      if constexpr (!kSerial) {
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(&v_empty[sv]);
+      }
       pack(sc, sl, pa);
     }
     // the last tile's P V
@@ -970,9 +1060,9 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // the out tile into this warpgroup's rows of Q's shared memory, in the
   // swizzled layout the out map stores from
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    unsigned char* base = Qs + (j / 8) * kHHalf + (((j % 8) ^ (rl & 7)) << 4) +
-                          4 * c;
+  for (int j = 0; j < kON / 4; ++j) {
+    unsigned char* base = Qs + (j / 8) * W::kQBox +
+                          (((j % 8) ^ (rl & 7)) << 4) + 4 * c;
     *reinterpret_cast<uint32_t*>(base + rl * 128) =
         pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     *reinterpret_cast<uint32_t*>(base + (rl + 8) * 128) =
@@ -981,8 +1071,10 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   fence_proxy_async();
   named_barrier(1 + wg, 128);
   if (tid == 0 && q0 + wg * 64 < Sq) {
-    tma_store_4d(&o_map, Qs + wg * 64 * 128, 0, h, q0 + wg * 64, b);
-    tma_store_4d(&o_map, Qs + kHHalf + wg * 64 * 128, 64, h, q0 + wg * 64, b);
+#pragma unroll
+    for (int x = 0; x < W::kBoxes; ++x)
+      tma_store_4d(&o_map, Qs + x * W::kQBox + wg * 64 * 128, 64 * x, h,
+                   q0 + wg * 64, b);
     tma_store_commit_wait();
   }
   if (!PAGED && c == 0) {
@@ -992,17 +1084,18 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// Encodes the maps and launches the Hopper kernel.  q, out (B, Sq, Hq, D)
-// bf16, D <= 128 and D % 8 == 0.  Contiguous: k, v (B, Skv, Hkv, D) bf16.
-// Paged: k, v one layer's (num_blocks, block_len, Hkv, D) pool, bf16 or
-// (INT8) int8, with a.pos / a.table set and block_len % 64 == 0; an int8
-// pool at D % 16 == 8 has no map (the kernel stages it by cp.async).
-template <bool SEG, bool PAGED, bool INT8>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, const int* seg_kv, HopperArgs a,
-                         int num_blocks, float scale, cudaStream_t st,
-                         int D) {
-  if (D < 8 || D > kHD || D % 8 != 0) return cudaErrorInvalidValue;
+// Encodes the maps and launches the Hopper kernel at tile width HD.  q,
+// out (B, Sq, Hq, D) bf16, D <= HD and D % 8 == 0.  Contiguous: k, v (B,
+// Skv, Hkv, D) bf16.  Paged: k, v one layer's (num_blocks, block_len, Hkv,
+// D) pool, bf16 or (INT8) int8, with a.pos / a.table set and block_len %
+// 64 == 0; an int8 pool at D % 16 == 8 has no map (the kernel stages it by
+// cp.async).
+template <bool SEG, bool PAGED, bool INT8, int HD>
+cudaError_t launch_wgmma_at(const void* q, const void* k, const void* v,
+                            void* out, const int* seg_kv, HopperArgs a,
+                            int num_blocks, float scale, cudaStream_t st,
+                            int D) {
+  using W = Wg<HD>;
   a.D = D;
   a.k8 = static_cast<const unsigned char*>(k);
   a.v8 = static_cast<const unsigned char*>(v);
@@ -1010,7 +1103,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   memset(&sm, 0, sizeof(sm));
   cudaError_t e = bshd_map(&qm, q, a.B, a.Sq, a.Hq, kHQ, D);
   if (e == cudaSuccess) e = bshd_map(&om, out, a.B, a.Sq, a.Hq, kHQ / 2, D);
-  // K / V: (B, Skv) rows of 128-key boxes, or the pool's (num_blocks,
+  // K / V: (B, Skv) rows of kK-key boxes, or the pool's (num_blocks,
   // block_len) rows of 64-key boxes
   auto kv_map = [&](CUtensorMap* m, const void* p) {
     if (INT8 && D % 16 != 0) {
@@ -1018,22 +1111,23 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       return cudaSuccess;
     }
     if (INT8)
-      return bshd_map_int8(m, p, num_blocks, a.block_len, a.Hkv, kHBox, D);
+      return bshd_map_int8(m, p, num_blocks, a.block_len, a.Hkv, kHBox, D,
+                           HD);
     if (PAGED)
       return bshd_map(m, p, num_blocks, a.block_len, a.Hkv, kHBox, D);
-    return bshd_map(m, p, a.B, a.Skv, a.Hkv, kHK, D);
+    return bshd_map(m, p, a.B, a.Skv, a.Hkv, W::kK, D);
   };
   if (e == cudaSuccess) e = kv_map(&km, k);
   if (e == cudaSuccess) e = kv_map(&vm, v);
   if (e == cudaSuccess && SEG)
     e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv,
-                 (size_t)a.B * a.Skv, kHK + kLead1d);
+                 (size_t)a.B * a.Skv, W::kK + kLead1d);
   if (e != cudaSuccess) return e;
-  constexpr size_t smem = hopper_smem<SEG, INT8>();
-  auto kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, false>;
+  constexpr size_t smem = hopper_smem<SEG, INT8, HD>();
+  auto kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, false, HD>;
   if constexpr (INT8) {
     if (D % 16 != 0)
-      kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, true>;
+      kernel = flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, true, HD>;
   }
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -1043,6 +1137,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   a.scale_log2 = scale * 1.4426950408889634f;
   kernel<<<(unsigned)ctas, kHThreads, smem, st>>>(qm, km, vm, om, sm, a);
   return cudaSuccess;
+}
+
+// the Hopper kernel at any D <= 256 with D % 8 == 0: 128-wide tiles up to
+// D 128, 256-wide ones above
+template <bool SEG, bool PAGED, bool INT8>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, const int* seg_kv, HopperArgs a,
+                         int num_blocks, float scale, cudaStream_t st,
+                         int D) {
+  if (D < 8 || D > 256 || D % 8 != 0) return cudaErrorInvalidValue;
+  return D <= 128 ? launch_wgmma_at<SEG, PAGED, INT8, 128>(
+                        q, k, v, out, seg_kv, a, num_blocks, scale, st, D)
+                  : launch_wgmma_at<SEG, PAGED, INT8, 256>(
+                        q, k, v, out, seg_kv, a, num_blocks, scale, st, D);
 }
 
 }  // namespace
@@ -1063,7 +1171,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                           causal, st);
 }
 
-// dtype: 0 = bfloat16, 1 = float32.  bfloat16 at any D <= 128 with D % 8
+// dtype: 0 = bfloat16, 1 = float32.  bfloat16 at any D <= 256 with D % 8
 // == 0 runs the Hopper kernel (q, k, v, out 16-byte aligned), float32 at D
 // = 16, 64, 72 or 128 the CUDA-core one; any other pair returns
 // cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
@@ -1147,7 +1255,7 @@ static HopperArgs paged_args(const void* pos, const void* table, int B,
 // int32; k, v one layer's (num_blocks, block_len, Hkv, D) pool; table the
 // int32 (B, max_blocks) block table (every entry a valid block id).  Query
 // i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
-// bfloat16 at any D <= 128 with D % 8 == 0 (the Hopper kernel) needs
+// bfloat16 at any D <= 256 with D % 8 == 0 (the Hopper kernel) needs
 // block_len % 64 == 0; float32 at D = 16 or 128 takes any block_len >= 1;
 // other cases return cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
@@ -1183,7 +1291,7 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
 
 // Paged int8 suffix prefill: as flash_attention_fwd_paged with k, v one
 // layer's int8 (num_blocks, block_len, Hkv, D) pool and k_scale, v_scale
-// float32 (num_blocks, Hkv).  bfloat16 q at any D <= 128 with D % 8 == 0
+// float32 (num_blocks, Hkv).  bfloat16 q at any D <= 256 with D % 8 == 0
 // needs block_len % 64 == 0; float32 q at D = 16 or 128 takes any
 // block_len >= 1.
 extern "C" int flash_attention_fwd_paged_int8(

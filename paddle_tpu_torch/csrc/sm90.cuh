@@ -15,7 +15,7 @@
 //     m64nNk16 (bf16 in, float32 accumulate) with A from registers or from
 //     shared memory;
 //   * setmaxnreg, named barriers, the async-proxy fence, exp2;
-//   * host: tensor maps of (B, S, H, 128) bf16 and int8 tensors and flat 1-d
+//   * host: tensor maps of (B, S, H, D) bf16 and int8 tensors and flat 1-d
 //     arrays.
 //
 // Register layouts (a warpgroup of 4 warps; warp w owns rows 16w..16w+15
@@ -451,11 +451,11 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// a map over one (B, S, H, D) bf16 tensor, D <= 128 and D % 8 == 0 (the
+// a map over one (B, S, H, D) bf16 tensor, D <= 256 and D % 8 == 0 (the
 // row stride D * 2 bytes a multiple of 16): boxes of `rows` consecutive s
-// and 64 d (two boxes a 128-wide tile row, at d 0 and 64), 128-byte
-// swizzle.  Rows past S and columns past D load as zero and are not
-// stored, so at D < 128 the tile's columns D..127 hold zeros.  D is a
+// and 64 d (a tile row of width W takes W / 64 boxes, at d 0, 64, ...),
+// 128-byte swizzle.  Rows past S and columns past D load as zero and are
+// not stored, so at D < W the tile's columns D..W-1 hold zeros.  D is a
 // dimension of its own: a map over (H * D) columns would read the next
 // head's data into them.
 inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
@@ -469,17 +469,17 @@ inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
                     box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// a map over one (B, S, H, D) int8 tensor (an int8 KV pool), D <= 128 and
-// D % 16 == 0 (the row stride D bytes a multiple of 16): boxes of `rows`
-// consecutive s and a 128-byte row, unswizzled; rows past S and columns
-// past D load as zero
+// a map over one (B, S, H, D) int8 tensor (an int8 KV pool), D <= cols
+// and D % 16 == 0 (the row stride D bytes a multiple of 16): boxes of
+// `rows` consecutive s and a `cols`-byte row (128 or 256), unswizzled;
+// rows past S and columns past D load as zero
 inline cudaError_t bshd_map_int8(CUtensorMap* m, const void* p, int B, int S,
-                                 int H, int rows, int D) {
+                                 int H, int rows, int D, int cols) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)D;
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {128, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, p, dims, strides,
                     box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }

@@ -43,7 +43,8 @@ from .cuda.decode_attention import (decode_attention_cuda,
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
                                    flash_attention_fwd_paged_cuda,
                                    flash_attention_fwd_paged_int8_cuda)
-from .cuda.flash_attention_bwd import (flash_attention_bwd_dkv_cuda,
+from .cuda.flash_attention_bwd import (check_backward_head_dim,
+                                       flash_attention_bwd_dkv_cuda,
                                        flash_attention_bwd_dq_cuda)
 
 NEG_INF = -1e30
@@ -181,13 +182,16 @@ class FlashAttention(torch.autograd.Function):
     K2, which saves q, k, v, out and lse; backward folds the lse cotangent
     into ``delta = rowsum(dO * O) - dlse`` (plain elementwise work, as
     the reference leaves it to XLA) and launches K5 (dq) and K6 (dk, dv).
-    Returns (out, lse), both differentiable.  K2, K5 and K6 take one set
-    of head dims (``ops/cuda/flash_attention.py`` ``FWD_HEAD_DIMS``: DiT's
-    72 among them), so whatever runs forward has its backward; K2 refuses
-    any other head dim before a launch."""
+    Returns (out, lse), both differentiable.  K5 and K6 take K2's head
+    dims (``ops/cuda/flash_attention.py`` ``FWD_HEAD_DIMS``: DiT's 72
+    among them) but bf16 136-256 (``flash_attention_bwd.py``
+    ``BWD_HEAD_DIMS``; ROADMAP B2.3b): the forward refuses those before K2
+    launches (``check_backward_head_dim``), so whatever runs forward here
+    has its backward; K2 refuses any other head dim before a launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, scale):
+        check_backward_head_dim("flash_attention", q)
         out, lse = flash_attention_fwd_cuda(
             q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
             kv_segment_ids=kv_segment_ids)
@@ -297,8 +301,11 @@ def _is_per_row(pos) -> bool:
 # tiles each re-read the live prefix: on an H100 at the Llama-3-8B widths,
 # 8 rows at the decode tick's depths, K1 is the faster at s = 4 and K2 at
 # s = 16, 64 and 256 (the ``crossover`` line of chip_smoke.py phase 2,
-# PERF.md).  Shorter windows (the spec-verify window, s = k + 1) stay on
-# K1.
+# PERF.md).  At head_dim 256 (8 query heads over one KV head; the
+# ``crossover_d256`` line, NVIDIA H100 80GB HBM3, 700 W) the two are even
+# at s = 16 in bf16 (48.6 / 50.8 us) and K1-int8 is still the faster there
+# (42.9 / 95.1 us); K2 wins from s = 64 in both.  Shorter windows (the
+# spec-verify window, s = k + 1) stay on K1.
 CONTIGUOUS_Q_TILED_MIN = 16
 # the identity view's block length for a model-dtype cache: K2-paged's
 # bfloat16 build loads 64-key boxes, each inside one block

@@ -25,20 +25,21 @@ Every build at bfloat16 — K1 (:func:`decode_attention_cuda`), K1-int8
 (:func:`decode_attention_int8_cuda`), K1-paged
 (:func:`decode_attention_paged_cuda`) and K1-paged-int8
 (:func:`decode_attention_paged_int8_cuda`), the decode tick of every bf16
-engine, at any head_dim D <= 128 with D % 8 == 0 (``BF16_HEAD_DIMS``) —
-runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED, PAD>``): a
+engine, at any head_dim D <= 256 with D % 8 == 0 (``BF16_HEAD_DIMS``) —
+runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED, PAD, PD>``): a
 CTA takes up to ``MMA_ROWS`` query rows of one (row, kv head) pair and one
 split; its ``MMA_WARPS`` warps take the split's ``MMA_SLICE``-key slices
 in turn, each through its own cp.async ring in shared memory (16-byte
 copies a key row).  The products run on tensor cores transposed,
 Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ with the query rows as ``mma.sync.m16n8k16``'s
 8 columns, and int8 K/V are converted to bf16 in registers.  Its ring
-rows are 128 elements wide at every D; below 128 an instance of its own
-(``PAD``: at 128 the head dim is a constant the body never tests)
-zero-fills a row's chunks past D in the same copies (an int8 row of D %
-16 == 8 bytes, only 8-byte aligned, goes in 8-byte copies) and zeroes
-q's fragments there, so the pad adds nothing and only D columns are
-stored; the bytes read stay D a key.  The splits
+rows are ``PD`` = 128 elements wide up to D 128 and 256 wide above (twice
+the k steps, and two head-dim elements a merging thread); below PD an
+instance of its own (``PAD``: at 128 and 256 the head dim is a constant
+the body never tests) zero-fills a row's chunks past D in the same copies
+(an int8 row of D % 16 == 8 bytes, only 8-byte aligned, goes in 8-byte
+copies) and zeroes q's fragments there, so the pad adds nothing and only
+D columns are stored; the bytes read stay D a key.  The splits
 of a tile are merged by the last of its CTAs to finish, in split order
 (the same bits every run), with int32 counters the wrapper keeps per
 (device, stream).  The builds differ only in where a key row lives: the contiguous cache
@@ -58,7 +59,7 @@ reference's float32 default configurations, ``LlamaConfig()`` and
 throughout: each warp walks its own 8-key blocks with its own online
 softmax (a lane holds D / 32 elements of a row, one 16-byte load at
 head_dim 128), and a second small kernel merges the splits.  Those builds
-— bfloat16 at every D <= 128 with D % 8 == 0, float32 at 16 and 128 — are
+— bfloat16 at every D <= 256 with D % 8 == 0, float32 at 16 and 128 — are
 held against the plain version on the card (``chip_smoke.py``); any other
 pair raises.
 
@@ -104,7 +105,7 @@ from . import (BF16_HEAD_DIMS, _build, block_table, check_attention_args,
 
 NAME = "decode_attention"
 # the head dims built for each dtype: bf16 the Hopper body at every D <=
-# 128 with D % 8 == 0, float32 the CUDA-core body at 16 (the tiny models)
+# 256 with D % 8 == 0, float32 the CUDA-core body at 16 (the tiny models)
 # and 128 (the reference's float32 default configurations); other pairs
 # are ROADMAP B2
 HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,

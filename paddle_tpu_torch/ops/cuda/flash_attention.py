@@ -9,12 +9,15 @@ Returns ``out`` and the float32 log-sum-exp ``lse`` (B, Hq, Sq); a row with
 every key masked gives out = 0 and lse = -1e30.  Any Sq / Skv works: the
 ragged edge is masked in the kernel (the wave-prefill bucket is 8, 16, ...,
 not 128-aligned, which the Pallas kernel refuses at :73-88).  Head dims
-(``FWD_HEAD_DIMS``): bf16 any D <= 128 with D % 8 == 0 — the reference's
-kernel takes any D up to 256 and widens its blocks by D / 128 (:56-71);
-the port keeps its 128-wide tiles with the columns past D zero-filled, so
-DiT-XL/2's D = 72 runs it — float32 16, 64, 72 and 128.  The backward K5
-/ K6 takes the same set; the paged builds below take the same bf16 set and
-float32 at 16 and 128 only (``HEAD_DIM``; the rest is ROADMAP B2).
+(``FWD_HEAD_DIMS``): bf16 any D <= 256 with D % 8 == 0 — the reference's
+kernel takes any D and narrows its blocks by D / 128 (:56-71); the port
+runs 128-wide tiles up to D 128 and 256-wide ones above (with 64-key
+tiles), the columns past D zero-filled, so DiT-XL/2's D = 72 and a
+Gemma-2B-wide Llama's 256 run it — float32 16, 64, 72 and 128.  The
+backward K5 / K6 takes bf16 D <= 128 only (``flash_attention_bwd.py``
+``BWD_HEAD_DIMS``; above: ROADMAP B2.3b); the paged builds below take the
+same bf16 set and float32 at 16 and 128 only (``HEAD_DIM``; the rest is
+ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about
@@ -28,7 +31,8 @@ in registers as the register A operand, V MN-major from shared memory),
 K/V by TMA into an mbarrier ring fed by a producer warp, the next tile's
 Q.K^T issued with this tile's P.V so the softmax runs under a product,
 element masks only on the tiles that need one, the heaviest q tiles
-first; below head_dim 128 the same kernel runs on zero-padded tiles.
+first; below its tile width (128, or 256 above head_dim 128) the same
+kernel runs on zero-padded tiles.
 float32 — the tiny models, float32 DiTs — runs a CUDA-core kernel
 (``wgmma`` has no float32 input that keeps float32 numerics).  Those are
 the builds held against the plain version on the card (``chip_smoke.py``);
@@ -51,12 +55,12 @@ keys ``j < min(pos_b + Sq, max_blocks * block_len)`` exist), and K/V come
 from the pooled ``(num_blocks, block_len, Hkv, D)`` cache through an
 int32 ``(B, max_blocks)`` block table.  The bfloat16 build runs the same
 Hopper kernel as K2: its producer reads the table and loads each 128-key
-tile by TMA as two 64-key boxes, each at its block's row (TMA has no
-gather), so it takes ``block_len % 64 == 0`` (the reference's default
-128 qualifies) and raises otherwise; a box half past a row's last key
-repeats the first half, so no dead table column is read.  The pool's maps
-have D columns, so below 128 TMA zero-fills the tile's columns past D, as
-in the contiguous build.  The float32
+tile by TMA as two 64-key boxes (a 64-key tile above head_dim 128: one),
+each at its block's row (TMA has no gather), so it takes ``block_len % 64
+== 0`` (the reference's default 128 qualifies) and raises otherwise; a
+box half past a row's last key repeats the first half, so no dead table
+column is read.  The pool's maps have D columns, so below the tile width
+TMA zero-fills the tile's columns past D, as in the contiguous build.  The float32
 kernel takes any ``block_len``.  Neither wrapper reads ``pos`` or the
 table on the host.  No ``lse`` is produced on this path.
 
@@ -88,15 +92,17 @@ NAME = "flash_attention_fwd"
 # head dims are ROADMAP B2
 HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
             torch.float32: frozenset({16, 128})}
-# the contiguous K2's head dims, and K5 / K6's (``flash_attention_bwd.py``):
-# bf16 any D <= 128 with D % 8 == 0 (the Hopper kernels' 128-wide tiles,
-# columns past D zero-filled by TMA, whose row stride D x 2 bytes must be a
-# multiple of 16), float32 the CUDA-core kernels' instances (the tiny
-# models at 16, float32 DiTs at 64 and 72, the reference's float32 default
-# configurations -- LlamaConfig(), Qwen2VLConfig()'s decoder -- at 128)
+# the contiguous K2's head dims: bf16 any D <= 256 with D % 8 == 0 (the
+# Hopper kernel's 128- or 256-wide tiles, columns past D zero-filled by
+# TMA, whose row stride D x 2 bytes must be a multiple of 16), float32 the
+# CUDA-core kernel's instances (the tiny models at 16, float32 DiTs at 64
+# and 72, the reference's float32 default configurations -- LlamaConfig(),
+# Qwen2VLConfig()'s decoder -- at 128)
 FWD_HEAD_DIMS = {torch.bfloat16: BF16_HEAD_DIMS,
                  torch.float32: frozenset({16, 64, 72, 128})}
-SEG_TILE = 128          # the bf16 build's query and key tile (csrc: kHQ, kHK)
+# the bf16 build's query tile and the tokens of a segment range (csrc: kHQ,
+# kRange; its key tile is 128, or 64 above head_dim 128)
+SEG_TILE = 128
 PAGED_BOX = 64          # the bf16 paged builds' key rows a box (csrc: kHBox)
 
 _P = ctypes.c_void_p

@@ -746,18 +746,26 @@ def test_bf16_d64_entries(build):
     assert f'row("{build.replace("_int8", "")}' in rows_src
     engines = {n for _, _, att in chip_smoke.F32_ENGINES for n in att}
     assert build in engines
-    assert "kernels[name + BF16_D64]" in inspect.getsource(
-        chip_smoke.phase_serving_tinyllama)
+    # the shared serving phase sets the launches of its suffix's entries
+    assert "kernels[name + suffix]" in inspect.getsource(
+        chip_smoke.serve_bf16_llama)
+    assert "BF16_D64,BF16_D64_BUILDS" in "".join(inspect.getsource(
+        chip_smoke.phase_serving_tinyllama).split())
 
 
 def test_bf16_rows_cover_the_head_dims():
     """The rows run at the tiny config's 16, TinyLlama's 64, 72 (an int8
-    row of D % 16 == 8 bytes: the 8-byte copies) and 96, every one a
-    head dim the bf16 builds take."""
+    row of D % 16 == 8 bytes: the 8-byte copies) and 96, and above 128 at
+    136 and 200 (the 8-byte copies, K2-paged-int8's CP8 staging), 192 and
+    the Gemma-2B-wide Llama's 256, every one a head dim the bf16 forward
+    builds take."""
     from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS
     dims = chip_smoke.BF16_SMALL_DIMS
     assert set(dims) == {16, 64, 72, 96} and set(dims) <= BF16_HEAD_DIMS
     assert any(d % 16 == 8 for d in dims)
+    wide = chip_smoke.BF16_WIDE_DIMS
+    assert set(wide) == {136, 192, 200, 256} and set(wide) <= BF16_HEAD_DIMS
+    assert {d for d in wide if d % 16 == 8} == {136, 200}
 
 
 def test_tinyllama_is_the_published_config():
@@ -897,3 +905,87 @@ def test_serving_tinyllama_rehearsed_on_the_cpu(monkeypatch):
     assert lines[1]["kv_cache"]["prefix_hit_tokens"] > 0
     assert lines[5]["twin_identical"] and lines[5]["cold_identical"]
     assert all("launches" in r for r in kernels.values())
+
+
+# ---- bf16 above head_dim 128: phase 2's /bf16_d256 rows and serving_d256 ----
+
+@pytest.mark.parametrize("build", chip_smoke.BF16_D256_BUILDS)
+def test_bf16_d256_entries(build):
+    """Every bf16 forward build has a ``/bf16_d256`` entry in the kernels
+    line, its namesake's source and reference kernel, ptxas tags of its
+    256-wide instances; phase 2 records its rows under it, and
+    serving_d256's engines set its launches."""
+    import inspect
+    name = build + chip_smoke.BF16_D256
+    assert chip_smoke.KERNEL_INFO[name] == chip_smoke.KERNEL_INFO[build]
+    assert all("Li256EE" in t
+               for t in chip_smoke.BF16_D256_FUNCTIONS[build])
+    rows_src = inspect.getsource(chip_smoke.phase_bf16_head_dim_rows)
+    assert (f'row("{build.replace("_int8", "")}' in rows_src
+            or build == "flash_attention_fwd" and "k2_rows(" in rows_src)
+    engines = {n for _, _, att in chip_smoke.F32_ENGINES for n in att}
+    assert build in engines
+    assert "BF16_D256,BF16_D256_BUILDS" in "".join(inspect.getsource(
+        chip_smoke.phase_serving_d256).split())
+
+
+def test_bf16_d256_ptxas_finds_each_instance_and_its_spills():
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{t}"
+        f"vPKf' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {8 if 'ELb1ELb1ELb1ELi' in t else 0} "
+        f"bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {200 + i} registers, used 1 barriers"
+        for i, tags in enumerate(chip_smoke.BF16_D256_FUNCTIONS.values())
+        for t in tags)
+    got = chip_smoke.ptxas_of({"lib": log}, chip_smoke.BF16_D256_FUNCTIONS)
+    assert all(r is not None for fns in got.values() for r in fns.values())
+    spills = {b for b, fns in got.items() for r in fns.values()
+              if r["spill_stores"]}
+    assert spills == {"flash_attention_fwd_paged_int8"}
+
+
+def test_k1_instances_cover_each_ring_width():
+    """The card line's ``k1_mma`` names every instance of the Hopper K1
+    kernel: 128- and 256-wide ring rows, each at a constant D and padded,
+    reached through a head dim each one runs."""
+    inst = chip_smoke.K1_MMA_INSTANCES
+    assert {(pad, pd) for _, pad, pd, _ in inst} == {
+        (0, 128), (1, 128), (0, 256), (1, 256)}
+    for _, pad, pd, d in inst:
+        assert (d == pd) == (not pad) and d <= pd and (pd == 128) == (
+            d <= 128)
+
+
+def test_gemma2b_widths_are_the_published_config():
+    """serving_d256 serves google/gemma-2b's published widths (config.json)
+    as a Llama, not cut: head_dim 256, 8 query heads over one KV head, 18
+    layers, tied embeddings; 2.51 B parameters."""
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig(**chip_smoke.GEMMA2B_WIDTHS)
+    assert (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size,
+            cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.num_key_value_heads) == (256000, 2048, 16384, 18, 8, 1)
+    assert (cfg.rms_norm_eps, cfg.rope_theta, cfg.tie_word_embeddings,
+            cfg.dtype) == (1e-6, 10000.0, True, "bfloat16")
+    assert cfg.head_dim == 256
+    h, kv = cfg.hidden_size, cfg.num_key_value_heads * cfg.head_dim
+    layer = 2 * h * h + 2 * h * kv + 3 * h * cfg.intermediate_size + 2 * h
+    params = cfg.vocab_size * h + cfg.num_hidden_layers * layer + h
+    assert round(params / 1e9, 2) == 2.51
+
+
+def test_d256_phase_order():
+    """serving_d256 runs right after serving_tinyllama, behind the main
+    loop's ``memory`` line; phase 2 adds its rows after the /bf16_d64
+    ones."""
+    import inspect
+    loop = inspect.getsource(chip_smoke.main).split("for phase in (")[1]
+    loop = loop.split("):")[0]
+    assert loop.index("phase_serving_tinyllama(") \
+        < loop.index("phase_serving_d256(") < loop.index("phase_dit(")
+    calls = inspect.getsource(chip_smoke.phase_kernels).split(
+        "phase_bf16_head_dim_rows(")[1:]
+    assert len(calls) == 2
+    assert "wide=True" not in calls[0].split(")")[0]
+    assert "wide=True" in calls[1].split(")")[0]

@@ -498,13 +498,18 @@ def _model_matches_jax(kind, b, s, bl, mb, split_len, pos, layout, d,
 # starts only 8-byte aligned; those rows go in 8-byte copies.
 
 RING_ROW = 128             # csrc: kPD, a ring row's head-dim elements
+WIDE_RING_ROW = 256        # csrc: kPDWide, the ring row above D 128
+
+
+def _ring_row(d):
+    return RING_ROW if d <= RING_ROW else WIDE_RING_ROW
 
 
 def _row_copies(d, int8):
     """One key row's copies into its ring row (``issue`` in
     ``decode_mma_kernel``): [(byte offset in the row, bytes, read)], a copy
     that does not read zero-filling its bytes."""
-    ring_bytes = RING_ROW * (1 if int8 else 2)
+    ring_bytes = _ring_row(d) * (1 if int8 else 2)
     row_bytes = d * (1 if int8 else 2)
     out = []
     for ch in range(ring_bytes // 16):
@@ -519,8 +524,8 @@ def _row_copies(d, int8):
 def _staged_row_copies(d):
     """K2-paged-int8's cp.async staging at D % 16 == 8 (the pool's D-byte
     head stride rules out a TMA map): one key row's 8-byte pieces of its
-    128-byte staged row."""
-    return [(8 * pc, 8, 8 * pc < d) for pc in range(16)]
+    staged row, as wide as the tile (128 bytes up to D 128, 256 above)."""
+    return [(8 * pc, 8, 8 * pc < d) for pc in range(_ring_row(d) // 8)]
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -563,6 +568,23 @@ def test_padded_model_equals_unpadded(d, int8, layout):
         want = _model(*args, **_scale_kw(case))
         got = _model(*args, width=RING_ROW, **_scale_kw(case))
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [136, 200])
+def test_wide_padded_model_equals_unpadded(d, int8, layout):
+    """The 256-wide padded rows (the wide instances, 128 < D < 256) give
+    the unpadded rows' output at 1e-5: the pad's products are zero, and
+    float32 matrix products of 256 columns sum in another order than of
+    D (~1e-6 of the int8 cache's larger values)."""
+    for s, pos in ((1, [0, 300, 639]), (5, [3, 200, 635])):
+        case = Case(d + s, layout, 3, s, 128, 5, int8=int8, hq=8, hkv=1,
+                    d=d, pos=pos)
+        args = (case, _t(case.q), _t(case.k), _t(case.v), 128)
+        want = _model(*args, **_scale_kw(case))
+        got = _model(*args, width=WIDE_RING_ROW, **_scale_kw(case))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 # (kind, b, s, block_len or granule, max_blocks or granules a row,

@@ -394,9 +394,10 @@ def test_contiguous_k2_takes_the_head_dims(no_card, dtype, d):
     assert out.shape == (1, 8, 4, d) and lse.shape == (1, 4, 8)
 
 
+# bf16 takes every D <= 256 with D % 8 == 0: its refused cases lie past 256
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 76),
-                                     (torch.bfloat16, 136),
-                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 264),
+                                     (torch.bfloat16, 512),
                                      (torch.float32, 32),
                                      (torch.float32, 96)])
 def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
@@ -494,7 +495,8 @@ def test_k1_and_paged_k2_refuse_float32_head_dim_96(no_card):
     assert no_card.calls == []
 
 
-# K5 / K6 take K2's head dims (``FWD_HEAD_DIMS``), and nothing else
+# K5 / K6 take K2's head dims (``FWD_HEAD_DIMS``) up to 128 (bf16 136-256:
+# ROADMAP B2.3b, refused naming it), and nothing else
 BWD_TAKES = [(torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 64),
              (torch.bfloat16, 72), (torch.bfloat16, 120),
              (torch.bfloat16, 128), (torch.float32, 16), (torch.float32, 64),
