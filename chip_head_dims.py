@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time every bf16 forward attention build at the head dims the serving
-phases run, on one NVIDIA GPU, for one or more checkouts of the repository
-in turns.
+phases run, and the backward K5 / K6 at the head dims the training phases
+run, on one NVIDIA GPU, for one or more checkouts of the repository in
+turns.
 
 Run from the repository root::
 
@@ -29,6 +30,14 @@ error a checkout raises for a head dim it does not take.  The shapes are
   D 256   a Llama at Gemma-2B's widths (Hq 8, Hkv 1): as D 64, and K2
           causal B 4 x 2048.
 
+and K5 (dq) / K6 (dk, dv) on inputs whose out and lse come from K2 (the
+error: against ``flash_attention_bwd_reference``, dk and dv together):
+
+  D 128   Llama-3-8B's training micro-batch (Hq 32, Hkv 8), causal B 2 x
+          2048;
+  D 72    DiT-XL/2's train step (16 heads), not causal, B 32 x 256;
+  D 256   the Gemma-2B-wide Llama (Hq 8, Hkv 1), causal B 4 x 2048.
+
 Tables and inputs come from fixed seeds.  The first line is the card's name
 and power limit.  Exits non-zero without a card.
 """
@@ -47,6 +56,10 @@ POS = [0, 4095, 17, 1000, 2047, 3000, 511, 128]
 SHAPES = {128: (32, 8, 4096, 128, 2048, 2048),
           64: (32, 4, 2048, 64, 512, None),
           256: (8, 1, 2048, 64, 512, 2048)}
+# head_dim -> (B, S, Hq, Hkv, causal) of the K5 / K6 rows
+BWD_SHAPES = {128: (2, 2048, 32, 8, True),
+              72: (32, 256, 16, 16, False),
+              256: (4, 2048, 8, 1, True)}
 
 
 def measure(checkout: str) -> dict:
@@ -60,6 +73,9 @@ def measure(checkout: str) -> dict:
                                       decode_attention_int8_cuda,
                                       decode_attention_paged_cuda,
                                       decode_attention_paged_int8_cuda,
+                                      flash_attention_bwd_dkv_cuda,
+                                      flash_attention_bwd_dq_cuda,
+                                      flash_attention_bwd_reference,
                                       flash_attention_fwd_cuda,
                                       flash_attention_fwd_paged_cuda,
                                       flash_attention_fwd_paged_int8_cuda,
@@ -98,10 +114,12 @@ def measure(checkout: str) -> dict:
                     else t
         return round(total / n, 3)
 
-    def row(make, fn, plain, nbytes):
+    def row(make, fn, plain, nbytes, view=lambda x: x):
+        """``view`` turns fn's result into the tensor held against
+        ``plain``'s (outside the timed calls)."""
         try:
             sets = [make() for _ in range(n_copies(nbytes))]
-            got = fn(sets[0])
+            got = view(fn(sets[0]))
             torch.cuda.synchronize()
         except (NotImplementedError, RuntimeError) as e:
             return {"refused": str(e).splitlines()[0][:160]}
@@ -183,6 +201,28 @@ def measure(checkout: str) -> dict:
                                                     causal=True)[0],
                 3 * 4 * s_k2 * hq * d * 2)
         out[f"D {d}"] = res
+        torch.cuda.empty_cache()
+    for d, (b, s, hq, hkv, causal) in BWD_SHAPES.items():
+
+        def make():
+            q, k, v, do = (randn(b, s, hq, d), randn(b, s, hkv, d),
+                           randn(b, s, hkv, d), randn(b, s, hq, d))
+            o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            return q, k, v, do, lse, delta.contiguous(), o
+
+        def plain(t, i):
+            got = flash_attention_bwd_reference(t[0], t[1], t[2], t[6], t[4],
+                                                t[3], causal=causal)
+            return got[0] if i == 0 else torch.cat(got[1:])
+
+        nbytes = 2 * b * s * (2 * hq + 2 * hkv) * d
+        out[f"D {d} backward"] = {
+            "K5": row(make, lambda t: flash_attention_bwd_dq_cuda(
+                *t[:6], causal=causal), lambda t: plain(t, 0), nbytes),
+            "K6": row(make, lambda t: flash_attention_bwd_dkv_cuda(
+                *t[:6], causal=causal), lambda t: plain(t, 1), nbytes,
+                view=torch.cat)}
         torch.cuda.empty_cache()
     return out
 

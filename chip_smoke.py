@@ -12,9 +12,10 @@ engine, generates with ``generate`` (greedy, sampled, beam, int8), samples
 and trains DiT-XL/2, generates with and trains Qwen2-VL at its default
 widths (in bf16, then as the reference defines it, float32), serves
 ``LlamaConfig()`` in float32, TinyLlama-1.1B (head_dim 64) and a Llama at
-Gemma-2B's widths (head_dim 256) in bf16, and trains a 4-layer cut of the
-Llama model.  Every phase prints one JSON line;
-any failed check raises, so the script exits non-zero.  Phases:
+Gemma-2B's widths (head_dim 256) in bf16, trains that Llama at all its
+18 layers, and trains a 4-layer cut of the Llama-3-8B model.  Every phase
+prints one JSON line; any failed check raises, so the script exits
+non-zero.  Phases:
 
   1. card      — ``nvidia-smi`` name and power limit, torch/CUDA versions,
                  the kernels' build time (one ``nvcc`` per source, all at
@@ -108,8 +109,11 @@ any failed check raises, so the script exits non-zero.  Phases:
                  and at Sq 77 over Skv 61 (dead rows) at every D, at D
                  256 not causal, packed and Sq 64 over Skv 256, the
                  identity view and its crossover with K1
-                 (``crossover_d256``), and K5 / K6 at D 256 refusing
-                 naming ROADMAP B2.3b (``bf16_d256_backward``); each also
+                 (``crossover_d256``), and K5 / K6 on 256-wide tiles at
+                 every D (the training micro-batch's B 4 x 2048 causal,
+                 Sq 77 over Skv 61, packed at S 2048, the ring hop, not
+                 causal, Sq 64 over Skv 256; dead rows exact, the same
+                 bits twice); each also
                  at the tiny model's float32 shapes:
                  max error against the plain version beside the stated
                  tolerance, kernel / host / plain / library / bound times
@@ -341,6 +345,15 @@ any failed check raises, so the script exits non-zero.  Phases:
                  tick and the wave (or chunk) kernel 18 a wave (chunk);
                  the decode step beside the weights' byte bound of a
                  tick;
+  training_d256. — the same Llama, all 18 layers, trained as phase 5
+                 trains (bf16, ``recompute=True``, packed 4 x 2048
+                 batches in 2 micro-batches, the same AdamW, 8 steps):
+                 step-1 gradients within 1.2x the plain path's error
+                 against a float32 copy (summed and per tensor); losses
+                 finite and falling; K2 72, K5 = K6 = 36 launches a step,
+                 all at head_dim 256; no plain route; step ms, tokens/s,
+                 model-FLOPs share (the tied head counted), optimizer
+                 state bytes, peak memory;
   5. training  — Llama-3-8B width cut
                  to 4 layers (bf16, ``recompute=True``), packed 4 x 2048
                  batches (3-8 documents a row, restarting positions),
@@ -369,7 +382,8 @@ of every float32 head_dim-128 build from serving_f32's engines (K2 from
 the contiguous engine's waves) and qwen2_vl_f32's train steps (K5, K6),
 of every bf16 build of K1 and K2-paged at head_dim 64 from
 serving_tinyllama's engines, of every bf16 forward build at head_dim 256
-from serving_d256's engines; error and times from phase 2) and, last,
+from serving_d256's engines, of K5 and K6 at head_dim 256 from
+training_d256; error and times from phase 2) and, last,
 ``{"ok": true,
 "device": {...}}``.
 
@@ -531,6 +545,13 @@ BF16_D256 = "/bf16_d256"
 BF16_D256_BUILDS = BF16_D64_BUILDS + ("flash_attention_fwd",)
 for _name in BF16_D256_BUILDS:
     KERNEL_INFO[_name + BF16_D256] = dict(KERNEL_INFO[_name])
+# and so does the bf16 backward above head_dim 128 (K5 / K6 on 256-wide
+# tiles): phase 2's rows at D 136, 192, 200 and 256 (times at 256),
+# launches from training_d256
+BF16_D256_BWD = ("flash_attention_bwd_dq" + BF16_D256,
+                 "flash_attention_bwd_dkv" + BF16_D256)
+for _name in BF16_D256_BWD:
+    KERNEL_INFO[_name] = dict(KERNEL_INFO[_name[:-len(BF16_D256)]])
 del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -1783,6 +1804,45 @@ def k2_rows(torch, record, randn, tols, rows):
         del sets, q, k, v, out, lse, ref, ref_lse
 
 
+def k5_k6_rows(torch, record, randn, tols, rows):
+    """Phase 2's rows of K5 / K6 (:func:`backward_rows`), one a spec
+    (names, dtype, B, Sq, Skv, Hq, Hkv, D, causal, segments, main) --
+    segments None, "packed" (packed documents) or "ring" (separate kv ids,
+    queries whose id matches no key); a row must have dead rows exactly
+    when it is the ring-hop form or causal with Sq > Skv."""
+    dev = torch.device("cuda")
+    for (names, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in rows:
+        seg = kv_seg = None
+        if segments == "packed":
+            seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
+        elif segments == "ring":
+            ids_kv = packed_segments(b, skv, seed=skv)
+            ids_q = (packed_segments(b, sq, seed=sq, lo=3, hi=6)
+                     + ids_kv.max(1, keepdims=True) - 1)
+            seg = torch.from_numpy(ids_q).to(dev)
+            kv_seg = torch.from_numpy(ids_kv).to(dev)
+        kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
+        keep = visible_pairs(torch, sq, skv, causal, seg,
+                             seg if kv_seg is None else kv_seg, dev)
+        n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
+        check((n_dead > 0) == (segments == "ring" or (causal and sq > skv)),
+              f"K5 / K6 D {d} Sq {sq} Skv {skv}: {n_dead} dead rows")
+        sets = backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw)
+        shape = (f"S={sq}" if sq == skv and segments != "ring"
+                 else f"Sq={sq} Skv={skv}")
+        tag = (f"B={b} {shape} Hq={hq} Hkv={hkv} D={d} "
+               f"{'causal' if causal else 'causal=False'} "
+               f"{'packed ' if segments == 'packed' else ''}"
+               f"{'ring-hop kv_segment_ids ' if segments == 'ring' else ''}"
+               f"{str(dt)[6:]}")
+        lib_mask = (None if seg is None and (sq == skv or not causal)
+                    else keep[:, None])
+        backward_rows(torch, record, tols, sets, kw, keep, tag,
+                      {"segmented": seg is not None, "dead_rows": n_dead},
+                      lib_mask, main, names)
+        del sets
+
+
 def phase_head_dim_rows(torch, record, randn, tols):
     """Phase 2's rows of K2 at the head dims below 128 (the contiguous
     build takes any D <= 128 with D % 8 == 0 on zero-padded 128-wide
@@ -1807,7 +1867,6 @@ def phase_head_dim_rows(torch, record, randn, tols):
     causal), ragged causal GQA (dead rows), packed documents at S 300 and
     Qwen2-VL's cross shapes; K5 / K6 at Qwen2-VL's decoder and cross
     shapes, ragged causal GQA and packed documents."""
-    dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     f32_k2 = "flash_attention_fwd" + F32_D128
     k2_rows(torch, record, randn, tols, (
@@ -1849,7 +1908,7 @@ def phase_head_dim_rows(torch, record, randn, tols):
          QWEN_HEADS, 128, False, None, False)))
 
     f32_bwd = tuple(n + F32_D128 for n in TRAIN_KERNELS)
-    for (names, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in (
+    k5_k6_rows(torch, record, randn, tols, (
             (DIT_BWD, bf16, DIT_TRAIN_BATCH, DIT_TOKENS, DIT_TOKENS,
              DIT_HEADS, DIT_HEADS, DIT_HEAD_DIM, False, None, True),
             (DIT_BWD, bf16, 2, 77, 61, 8, 2, 72, True, None, False),
@@ -1876,36 +1935,7 @@ def phase_head_dim_rows(torch, record, randn, tols):
             (f32_bwd, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES,
              QWEN_HEADS, QWEN_HEADS, 128, False, None, False),
             (f32_bwd, f32, 2, 77, 61, 8, 2, 128, True, None, False),
-            (f32_bwd, f32, 2, 300, 300, 8, 2, 128, True, "packed", False)):
-        seg = kv_seg = None
-        if segments == "packed":
-            seg = torch.from_numpy(packed_segments(b, sq, seed=sq)).to(dev)
-        elif segments == "ring":
-            ids_kv = packed_segments(b, skv, seed=skv)
-            ids_q = (packed_segments(b, sq, seed=sq, lo=3, hi=6)
-                     + ids_kv.max(1, keepdims=True) - 1)
-            seg = torch.from_numpy(ids_q).to(dev)
-            kv_seg = torch.from_numpy(ids_kv).to(dev)
-        kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
-        keep = visible_pairs(torch, sq, skv, causal, seg,
-                             seg if kv_seg is None else kv_seg, dev)
-        n_dead = int((~keep.any(-1)).expand(b, sq).sum().item())
-        check((n_dead > 0) == (segments == "ring" or (causal and sq > skv)),
-              f"K5 / K6 D {d} Sq {sq} Skv {skv}: {n_dead} dead rows")
-        sets = backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw)
-        shape = (f"S={sq}" if sq == skv and segments != "ring"
-                 else f"Sq={sq} Skv={skv}")
-        tag = (f"B={b} {shape} Hq={hq} Hkv={hkv} D={d} "
-               f"{'causal' if causal else 'causal=False'} "
-               f"{'packed ' if segments == 'packed' else ''}"
-               f"{'ring-hop kv_segment_ids ' if segments == 'ring' else ''}"
-               f"{str(dt)[6:]}")
-        lib_mask = (None if seg is None and (sq == skv or not causal)
-                    else keep[:, None])
-        backward_rows(torch, record, tols, sets, kw, keep, tag,
-                      {"segmented": seg is not None, "dead_rows": n_dead},
-                      lib_mask, main, names)
-        del sets
+            (f32_bwd, f32, 2, 300, 300, 8, 2, 128, True, "packed", False)))
 
 
 # the reference's float32 defaults at head_dim 128: LlamaConfig() (32 / 32
@@ -1936,7 +1966,8 @@ F32_D128_FUNCTIONS = {
 
 # the C functions of each bf16 build above head_dim 128: the K1 family's
 # decode_mma_kernel<INT8, PAGED, PAD, 256> (D 256, and PAD: 136-248), K2's
-# flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, CP8, 256>
+# flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, CP8, 256>, K5 / K6's
+# 256-wide kernels
 BF16_D256_FUNCTIONS = {
     name: tuple(f"decode_mma_kernelILb{int8}ELb{paged}ELb{pad}ELi256EE"
                 for pad in (0, 1))
@@ -1949,7 +1980,12 @@ BF16_D256_FUNCTIONS.update({
         "flash_attention_fwd_wgmma_kernelILb0ELb1ELb0ELb0ELi256EE",),
     "flash_attention_fwd_paged_int8": tuple(
         f"flash_attention_fwd_wgmma_kernelILb0ELb1ELb1ELb{cp8}ELi256EE"
-        for cp8 in (0, 1))})
+        for cp8 in (0, 1)),
+    # K5 / K6's bwd_dq_wgmma_wide_kernel<SEG>, bwd_dkv_wgmma_wide_kernel<SEG>
+    "flash_attention_bwd_dq": tuple(f"bwd_dq_wgmma_wide_kernelILb{seg}EE"
+                                    for seg in (0, 1)),
+    "flash_attention_bwd_dkv": tuple(f"bwd_dkv_wgmma_wide_kernelILb{seg}EE"
+                                     for seg in (0, 1))})
 
 
 def ptxas_of(build_log, functions):
@@ -2272,8 +2308,12 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     the serving wave (B 4 x 2048, causal GQA) and dead rows (Sq 77 over
     Skv 61) at every D, at D 256 not causal, packed documents and Sq 64
     over Skv 256; the identity view and its crossover with K1
-    (:func:`phase_identity_rows`); and K5 / K6 at D 256, which must refuse
-    naming ROADMAP B2.3b (``bf16_d256_backward`` line)."""
+    (:func:`phase_identity_rows`); and K5 / K6 on their 256-wide tiles
+    (:func:`k5_k6_rows`, ``flash_attention_bwd_*/bf16_d256`` entries) at
+    every D: the training micro-batch's shape B 4 x 2048 causal (the main
+    row at D 256), Sq 77 over Skv 61 (dead rows), packed documents at S
+    2048, the ring hop (Sq 256, Skv 512), not causal at B 4 x 512 and Sq
+    64 over Skv 256."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2511,23 +2551,20 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                (k2, bf16, 4, 64, 256, hq, hkv, main_d, False, None, False)])
     phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                         tols, wide=True)
-    # the backward past head_dim 128 is ROADMAP B2.3b: K5 / K6 refuse it
-    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
-                                      flash_attention_bwd_dq_cuda)
-    q = randn(1, 128, hq, main_d)
-    kv = randn(1, 128, hkv, main_d)
-    lse = torch.zeros(1, hq, 128, device=dev)
-    refused = {}
-    for fn in (flash_attention_bwd_dq_cuda, flash_attention_bwd_dkv_cuda):
-        try:
-            fn(q, kv, kv, q, lse, lse, causal=True)
-            refused[fn.__name__] = None
-        except NotImplementedError as e:
-            refused[fn.__name__] = str(e)
-    emit({"phase": "bf16_d256_backward", "head_dim": main_d,
-          "refused": refused})
-    check(all(m and "ROADMAP B2.3b" in m for m in refused.values()),
-          f"K5 / K6 at bf16 head_dim {main_d}: {refused}")
+    # K5 / K6 on 256-wide tiles: the training micro-batch's shape (B 4 x
+    # 2048 causal, the main row at D 256), dead rows, packed documents, the
+    # ring hop, not causal, Sq 64 over Skv 256, at every D
+    k5_k6_rows(torch, record, randn, tols, [
+        (BF16_D256_BWD, bf16, b, sq, skv, hq, hkv, d, causal, segments,
+         main and d == main_d)
+        for b, sq, skv, causal, segments, main in (
+            (4, F32_L, F32_L, True, None, True),
+            (2, 77, 61, True, None, False),
+            (2, F32_L, F32_L, True, "packed", False),
+            (2, 256, 512, True, "ring", False),
+            (4, 512, 512, False, None, False),
+            (4, 64, 256, False, None, False))
+        for d in dims])
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -4407,25 +4444,41 @@ def check_tiny(res, what: str) -> None:
           f"against an update of {res['update_l2']}")
 
 
-def phase_training(torch, kernels, profile: bool = False):
-    """Phase 5: the single-GPU train step at the Llama-3-8B width, cut to
-    TRAIN_LAYERS layers, recompute on, packed batches."""
-    import numpy as np
+def train_llama(torch, kernels, cfg, phase: str, fields, entries,
+                profile: bool = False):
+    """Gates (a)-(c) of a Llama training phase on the card at ``cfg``
+    (``recompute=True``), seeded weights, packed TRAIN_ROWS x TRAIN_SEQ
+    batches in TRAIN_ACCUM micro-batches, AdamW (lr 3e-4 after a 2-step
+    warmup, beta2 0.95, eps 1e-5, weight decay 0.1, clip 1.0), TRAIN_STEPS
+    steps: (a) step-1 gradients of one micro-batch, the kernel path within
+    1.2x the plain path's error against a float32 copy, summed and tensor
+    by tensor (:func:`grad_gate`, the ``<phase>_grads`` line); (b) every
+    loss finite, the last below the first; (c) launches a step K2 = 2 x
+    TRAIN_ACCUM x layers (recompute runs each forward twice), K5 = K6 =
+    TRAIN_ACCUM x layers, every one at ``cfg.head_dim`` (by shape),
+    RMSNorm launched, no plain route.  The ``phase`` line (``fields``
+    first) reports step ms (median of steps 2..), tokens/s, the
+    model-FLOPs share of 989 TFLOP/s (6 x every product's weight a token
+    -- a tied embedding table is the head's weight, an untied one only a
+    lookup -- plus the visible pairs' attention), optimizer state bytes,
+    peak memory; ``entries`` (K5's, K6's) take the launches in
+    ``kernels``; ``profile`` adds :func:`profile_step`."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.distributed import build_train_step
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama3_8b_config,
-                                         tiny_llama_config)
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops import _dispatch
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
 
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS, recompute=True)
+    layers = cfg.num_hidden_layers
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    fields = dict(fields, layers=layers, head_dim=cfg.head_dim,
+                  params=n_params)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in packed_batch(
         cfg.vocab_size, TRAIN_ROWS, TRAIN_SEQ, seed=5).items()}
     micro = {k: v[:TRAIN_ROWS // TRAIN_ACCUM] for k, v in batch.items()}
@@ -4440,11 +4493,10 @@ def phase_training(torch, kernels, profile: bool = False):
         return m32
 
     grad_gate(torch, model, llama32, lambda m: m.compute_loss(**micro),
-              "training_grads",
-              {"config": "llama3_8b", "layers": TRAIN_LAYERS,
-               "params": n_params, "init_s": round(init_s, 3),
-               "micro_batch": list(micro["input_ids"].shape),
-               "documents": len(torch_counts(micro["segment_ids"]))})
+              phase + "_grads",
+              dict(fields, init_s=round(init_s, 3),
+                   micro_batch=list(micro["input_ids"].shape),
+                   documents=len(torch_counts(micro["segment_ids"]))))
 
     # (b) + (c): TRAIN_STEPS steps on the packed batch, every launch and
     # route counter reset just before and read just after
@@ -4460,6 +4512,7 @@ def phase_training(torch, kernels, profile: bool = False):
         losses.append(float(step(batch)))      # float() synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = ops.launch_counts()
+    shapes = ops.shape_counts()
     routes = {f"{op}/{path}": n for (op, path), n in
               _dispatch.kernel_paths.items()}
     state_bytes = sum(t.numel() * t.element_size()
@@ -4467,15 +4520,21 @@ def phase_training(torch, kernels, profile: bool = False):
                       for t in v.values())
     tokens = TRAIN_ROWS * TRAIN_SEQ
     pairs = causal_pairs(batch["segment_ids"], TRAIN_ROWS, TRAIN_SEQ)
-    matmul_params = n_params - cfg.vocab_size * cfg.hidden_size \
-        - sum(p.numel() for n, p in model.named_parameters()
-              if n.endswith("norm.weight"))
+    matmul_params = n_params - sum(p.numel() for n, p in
+                                   model.named_parameters()
+                                   if n.endswith("norm.weight"))
+    if not cfg.tie_word_embeddings:
+        matmul_params -= cfg.vocab_size * cfg.hidden_size
     model_flops = (6 * matmul_params * tokens
                    + 12 * cfg.head_dim * cfg.num_attention_heads * pairs
-                   * TRAIN_LAYERS)
+                   * layers)
     steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-    emit({"phase": "training", "config": "llama3_8b",
-          "layers": TRAIN_LAYERS, "recompute": True, "params": n_params,
+    per_step = {"flash_attention_fwd": 2 * TRAIN_ACCUM * layers,
+                "flash_attention_bwd_dq": TRAIN_ACCUM * layers,
+                "flash_attention_bwd_dkv": TRAIN_ACCUM * layers}
+    by_dim = {name: {str(key[1]): n for key, n in shapes.items()
+                     if key[0] == name} for name in per_step}
+    emit({"phase": phase, **fields, "recompute": True,
           "batch": [TRAIN_ROWS, TRAIN_SEQ], "grad_accum_steps": TRAIN_ACCUM,
           "documents": len(torch_counts(batch["segment_ids"])),
           "optimizer": "AdamW(LinearWarmup(3e-4, 2), beta2=0.95, eps=1e-5, "
@@ -4487,27 +4546,41 @@ def phase_training(torch, kernels, profile: bool = False):
           / BF16_FLOPS,
           "optimizer_state_bytes": state_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches, "routes": routes})
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+          "launches": launches, "launches_by_head_dim": by_dim,
+          "routes": routes})
+    check(all(math.isfinite(x) for x in losses), f"{phase}: losses {losses}")
     check(losses[-1] < losses[0],
-          f"training did not lower the loss: {losses}")
-    per_step = {"flash_attention_fwd": 2 * TRAIN_ACCUM * TRAIN_LAYERS,
-                "flash_attention_bwd_dq": TRAIN_ACCUM * TRAIN_LAYERS,
-                "flash_attention_bwd_dkv": TRAIN_ACCUM * TRAIN_LAYERS}
+          f"{phase} did not lower the loss: {losses}")
     for name, n in per_step.items():
-        check(launches[name] == n * TRAIN_STEPS,
-              f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
-              f"steps, expected {n} a step")
+        check(launches[name] == n * TRAIN_STEPS
+              and by_dim[name] == {str(cfg.head_dim): n * TRAIN_STEPS},
+              f"{phase}: {name} launched {launches[name]} times in "
+              f"{TRAIN_STEPS} steps ({by_dim[name]} by head_dim), expected "
+              f"{n} a step, every one at head_dim {cfg.head_dim}")
     check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
     plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
-    check(not plain, f"plain routes taken on the card: {plain}")
-    for name in TRAIN_KERNELS:
-        kernels[name]["launches"] = launches[name]
+    check(not plain, f"{phase}: plain routes taken on the card: {plain}")
+    for entry, name in zip(entries, TRAIN_KERNELS):
+        kernels[entry]["launches"] = launches[name]
     if profile:
-        profile_step(torch, step, opt, batch, "profile_training")
+        profile_step(torch, step, opt, batch, "profile_" + phase)
     del step, opt, model, batch, micro
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_training(torch, kernels, profile: bool = False):
+    """Phase 5: the single-GPU train step at the Llama-3-8B width, cut to
+    TRAIN_LAYERS layers (:func:`train_llama`), then (d) the tiny float32
+    model on the card against the CPU."""
+    import numpy as np
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama3_8b_config,
+                                         tiny_llama_config)
+
+    dev = torch.device("cuda")
+    cfg = llama3_8b_config(num_hidden_layers=TRAIN_LAYERS, recompute=True)
+    train_llama(torch, kernels, cfg, "training", {"config": "llama3_8b"},
+                TRAIN_KERNELS, profile)
 
     # (d) the tiny float32 model: 4 steps on the card (kernels) and on the
     # CPU (plain versions) from the same weights (:func:`tiny_card_vs_cpu`),
@@ -6120,6 +6193,21 @@ def phase_serving_d256(torch, kernels, card):
                      BF16_D256, BF16_D256_BUILDS)
 
 
+def phase_training_d256(torch, kernels, card):
+    """The Llama at Gemma-2B's widths (``GEMMA2B_WIDTHS``: all 18 layers of
+    8 / 1 heads of 256, hidden 2048, vocab 256000, tied embeddings; bf16,
+    seeded weights) trained as phase 5 trains (:func:`train_llama`):
+    K2 = 72, K5 = K6 = 36 launches a step, every one at head_dim 256; the
+    ``/bf16_d256`` K5 / K6 entries take its launches."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(**GEMMA2B_WIDTHS, recompute=True)
+    check(cfg.head_dim == 256 and cfg.tie_word_embeddings,
+          f"training_d256 is at head_dim {cfg.head_dim}")
+    train_llama(torch, kernels, cfg, "training_d256",
+                {"card": card, "config": "Llama at Gemma-2B's widths"},
+                BF16_D256_BWD)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6176,6 +6264,7 @@ def main(argv=None) -> int:
                                             profile=args.profile),
                   lambda: phase_serving_tinyllama(torch, kernels, card),
                   lambda: phase_serving_d256(torch, kernels, card),
+                  lambda: phase_training_d256(torch, kernels, card),
                   lambda: phase_dit(torch, kernels, card,
                                     profile=args.profile),
                   lambda: phase_dit_train(torch, kernels, card,

@@ -24,8 +24,8 @@
 // Bound on the H100: operations, at training shapes: 14 * D FLOPs a
 // visible (query, key) pair (6 D for dq, 8 D for dk / dv) against the
 // 989 TFLOP/s bf16 tensor cores; with packed documents few pairs are
-// visible and the bytes bind.  Two bodies, at K2's head dims (any other
-// pair is refused):
+// visible and the bytes bind.  Bodies at K2's head dims (any other pair is
+// refused):
 //   * bfloat16 at any D <= 128 with D % 8 == 0 (every training backward
 //     at 128, the DiT blocks at 72): Hopper kernels of 384 threads, two
 //     consumer warpgroups of 64 rows and a producer warp (setmaxnreg 240 /
@@ -68,6 +68,29 @@
 //     dO are zero in the pad columns, since K, Q and dO are; the stores'
 //     maps of D columns drop them.  The products do 128 / D times the
 //     useful work (1.78x at D = 72).
+//   * bfloat16 at 128 < D <= 256 with D % 8 == 0 (a Gemma-2B-wide Llama's
+//     256): the same walks on 256-wide tiles (4 boxes of 64 columns, zeros
+//     past D as above: 1.88x the useful work at D = 136), narrowed to fit
+//     the 227 KB of shared memory and 240 registers a consumer thread, as
+//     the reference narrows its blocks by D / 128 (:56-70):
+//       - K5 (bwd_dq_wgmma_wide_kernel): a CTA still owns 128 queries (Q
+//         and dO resident, 128 KB); K / V stream in 32-key tiles through a
+//         3-stage ring (3 x 32 KB; 231,248 bytes in all).  S and dP are
+//         m64n32k16 x 16 k steps, dq += dS K m64n256k16 x 2 with dq a 64 x
+//         256 float32 accumulator (128 registers a thread), left in flight
+//         under the next tile's S and dP as at D <= 128.
+//       - K6 (bwd_dkv_wgmma_wide_kernel): a CTA owns 64 keys (K and V
+//         resident, 64 KB); Q / dO stream in 64-query tiles through a
+//         2-stage ring (199,992 bytes in all).  A 64 x 256 float32 dk and dv
+//         would be 256 registers a thread, so the consumer warpgroups split
+//         them: warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO;
+//         warpgroup 1 S^T, dP^T = V dO^T, dS^T and dK += dS^T Q (S^T is
+//         computed twice: 5 products a tile pair for 4).  Each retires its
+//         dV / dK product before the next tile; with ids the dK warpgroup
+//         issues dP^T only once P^T is formed (the ids' mask beside S^T,
+//         dP^T in flight and dK spilled 104 bytes).  The grid is B x Hkv
+//         x Skv / 64: 64 CTAs for one KV head at B 2 x 2048, the first
+//         walking every query tile of the causal triangle, the last one.
 //   * float32 at D = 16 (the tiny model), 64 and 72 (float32 DiTs): two
 //     CUDA-core kernels of one thread per query row (K5) or key row (K6);
 //     wgmma has no float32 input that keeps float32 numerics.  A thread's
@@ -505,7 +528,8 @@ bwd_dkv_f32_split_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16, D <= 128 on 128-wide tiles (see the note at the top)
+// Hopper path: bfloat16, D <= 128 on 128-wide tiles (see the note at the top;
+// 128 < D <= 256: the 256-wide kernels further down)
 // ---------------------------------------------------------------------------
 constexpr int kHThreads = 384;     // consumers: warpgroups 0, 1; producer 2
 constexpr int kHConsumers = 256;
@@ -545,14 +569,16 @@ __device__ __forceinline__ int2 big_range(const int* rng, int b, int n,
   return out;
 }
 
-// the 64 x 128 accumulator `a` of warpgroup-row rl (rows rl, rl + 8) as bf16
-// into a 128-row tile in the 128-byte swizzled layout TMA stores from
-__device__ __forceinline__ void stage_rows(unsigned char* tile,
-                                          const float (&a)[64], int rl,
-                                          int c) {
+// the 64 x N / 2 accumulator `a` of warpgroup-row rl (rows rl, rl + 8) as
+// bf16 into a tile of 64-wide boxes `box` bytes apart, in the 128-byte
+// swizzled layout TMA stores from
+template <int N>
+__device__ __forceinline__ void stage_acc(unsigned char* tile,
+                                          const float (&a)[N], int rl, int c,
+                                          int box) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    unsigned char* base = tile + (j / 8) * kBigHalf +
+  for (int j = 0; j < N / 4; ++j) {
+    unsigned char* base = tile + (j / 8) * box +
                           (((j % 8) ^ (rl & 7)) << 4) + 4 * c;
     *reinterpret_cast<uint32_t*>(base + rl * 128) =
         pack_bf16(a[4 * j], a[4 * j + 1]);
@@ -561,12 +587,13 @@ __device__ __forceinline__ void stage_rows(unsigned char* tile,
   }
 }
 
-// a 64 x 64 accumulator, rounded to bf16, as the register A operand of 4
-// k steps: k step t takes d[8t..8t+7]
-__device__ __forceinline__ void pack_a(const float (&d)[32],
-                                       uint32_t (&a)[4][4]) {
+// a 64 x 16 KS accumulator, rounded to bf16, as the register A operand of
+// KS k steps: k step t takes d[8t..8t+7]
+template <int KS>
+__device__ __forceinline__ void pack_a(const float (&d)[8 * KS],
+                                       uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
+  for (int t = 0; t < KS; ++t) {
     a[t][0] = pack_bf16(d[8 * t], d[8 * t + 1]);
     a[t][1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
     a[t][2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
@@ -574,29 +601,33 @@ __device__ __forceinline__ void pack_a(const float (&d)[32],
   }
 }
 
-// X = A . B^T for a 64-row A of 128 d (K-major, rows of a 128-byte
-// swizzled tile whose halves lie `a_half` apart) and a 64-row B (a 64-row
-// tile): m64n64k16 x 8 k steps, one commit group
-__device__ __forceinline__ void issue_abt(float (&x)[32],
-                                          const unsigned char* a, int a_half,
-                                          const unsigned char* bt) {
+// X = A . B^T over 64 BOXES d for a 64-row A and an N / 2-row B, both
+// K-major tiles of BOXES 64-wide boxes (`a_box`, `b_box` bytes apart; a
+// 128-byte swizzled row of a box): m64n(N/2)k16 x 4 BOXES k steps, one
+// commit group
+template <int BOXES, int N>
+__device__ __forceinline__ void issue_abt(float (&x)[N],
+                                          const unsigned char* a, int a_box,
+                                          const unsigned char* bt,
+                                          int b_box) {
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
-    wgmma_ss<0, 0>(x, gmma_desc(a + (t / 4) * a_half + (t % 4) * 32, 16, 1024),
-                   gmma_desc(bt + (t / 4) * kSmallHalf + (t % 4) * 32, 16,
-                             1024),
+  for (int t = 0; t < 4 * BOXES; ++t)
+    wgmma_ss<0, 0>(x, gmma_desc(a + (t / 4) * a_box + (t % 4) * 32, 16, 1024),
+                   gmma_desc(bt + (t / 4) * b_box + (t % 4) * 32, 16, 1024),
                    t > 0);
   wgmma_commit();
 }
 
-// acc += A . T for A in registers (64 x 64, 4 k steps) and T a 64-row tile
-// of 128 d read MN-major (its rows are the k dimension): m64n128k16 x 4
-__device__ __forceinline__ void issue_at(float (&acc)[64],
-                                         const uint32_t (&a)[4][4],
-                                         const unsigned char* t) {
+// acc += A . T for A in registers (64 x 16 KS, KS k steps) and T a 16
+// KS-row tile read MN-major (its rows are the k dimension; its 64-wide
+// boxes `t_box` bytes apart): m64n(N/2)k16 x KS
+template <int KS, int N>
+__device__ __forceinline__ void issue_at(float (&acc)[N],
+                                         const uint32_t (&a)[KS][4],
+                                         const unsigned char* t, int t_box) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    wgmma_rs<1>(acc, a[k], gmma_desc(t + k * 2048, kSmallHalf, 1024), 1);
+  for (int k = 0; k < KS; ++k)
+    wgmma_rs<1>(acc, a[k], gmma_desc(t + k * 2048, t_box, 1024), 1);
 }
 
 // K5 on Hopper: one CTA per (128-query tile, q head, batch row), the
@@ -752,8 +783,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int2 sl = slot[st];
     if (sl.x < 0) break;
     wgmma_fence();
-    issue_abt(sc, qa, kBigHalf, Ks + st * kSmallTile);
-    issue_abt(dp, oa, kBigHalf, Vs + st * kSmallTile);
+    issue_abt<2>(sc, qa, kBigHalf, Ks + st * kSmallTile, kSmallHalf);
+    issue_abt<2>(dp, oa, kBigHalf, Vs + st * kSmallTile, kSmallHalf);
     wgmma_wait<1>();
     fence_regs(sc);
     if (cur > 0) mbar_arrive(&empty[(cur + kStages - 1) % kStages]);
@@ -776,9 +807,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < 32; ++i)
       dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * scale;
-    pack_a(dp, da);
+    pack_a<4>(dp, da);
     wgmma_fence();
-    issue_at(acc, da, Ks + st * kSmallTile);
+    issue_at(acc, da, Ks + st * kSmallTile, kSmallHalf);
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -786,7 +817,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   // dq through this warpgroup's rows of Q's shared memory (its last Q K^T
   // is done) and a TMA store that drops rows past Sq
-  stage_rows(Qs, acc, rl, c);
+  stage_acc(Qs, acc, rl, c, kBigHalf);
   fence_proxy_async();
   named_barrier(1 + wg, 128);
   if (tid == 0 && q0 + wg * 64 < Sq) {
@@ -955,8 +986,8 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // this tile's lse and delta (of q head sl.y >> 1) start lead in
     const int lead = ((b * Hq + (sl.y >> 1)) * Sq + sl.x) & 3;
     wgmma_fence();
-    issue_abt(sc, ka, kBigHalf, qt);
-    issue_abt(dp, va, kBigHalf, ot);
+    issue_abt<2>(sc, ka, kBigHalf, qt, kSmallHalf);
+    issue_abt<2>(dp, va, kBigHalf, ot, kSmallHalf);
     wgmma_wait<1>();
     fence_regs(sc);
     // columns are queries: sc[4j + e] is query 8j + 2c + (e & 1) of the tile
@@ -980,9 +1011,9 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         if (!keep) sc[i] = 0.f;
       }
     }
-    pack_a(sc, pa);
+    pack_a<4>(sc, pa);
     wgmma_fence();
-    issue_at(dv, pa, ot);
+    issue_at(dv, pa, ot, kSmallHalf);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(dp);
@@ -994,9 +1025,9 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int e = 0; e < 4; ++e)
         dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * scale;
     }
-    pack_a(dp, da);
+    pack_a<4>(dp, da);
     wgmma_fence();
-    issue_at(dk, da, qt);
+    issue_at(dk, da, qt, kSmallHalf);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -1006,8 +1037,8 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   // dk and dv through this warpgroup's rows of K's and V's shared memory
   // (only this warpgroup read them) and TMA stores that drop rows past Skv
-  stage_rows(Ks, dk, rl, c);
-  stage_rows(Vs, dv, rl, c);
+  stage_acc(Ks, dk, rl, c, kBigHalf);
+  stage_acc(Vs, dv, rl, c, kBigHalf);
   fence_proxy_async();
   named_barrier(1 + wg, 128);
   if (tid == 0 && k0 + wg * 64 < Skv) {
@@ -1016,6 +1047,502 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     tma_store_4d(&dk_map, Ks + kBigHalf + wg * 64 * 128, 64, hk, r, b);
     tma_store_4d(&dv_map, Vs + wg * 64 * 128, 0, hk, r, b);
     tma_store_4d(&dv_map, Vs + kBigHalf + wg * 64 * 128, 64, hk, r, b);
+    tma_store_commit_wait();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Hopper path: bfloat16, 128 < D <= 256 on 256-wide tiles (see the note at
+// the top)
+// ---------------------------------------------------------------------------
+constexpr int kWide = 256;                 // tile width
+constexpr int kWBoxes = kWide / 64;        // 64-wide boxes a tile row
+// K5: the CTA's 128 queries (Q and dO resident, 64 KB each), 32-key K / V
+// tiles in a 3-stage ring
+constexpr int kW5Keys = 32;
+constexpr int kW5Stages = 3;
+constexpr int kW5QBox = kBig * 128;        // a 128-row box, bytes
+constexpr int kW5KBox = kW5Keys * 128;     // a 32-row box
+constexpr int kW5QTile = kWBoxes * kW5QBox;
+constexpr int kW5KTile = kWBoxes * kW5KBox;
+constexpr int kW5Vec = kW5Keys + kLead1d;  // a key tile's ids (1-d box)
+constexpr int kW5VecStride = stage_ints(kW5Vec);
+constexpr size_t kW5Smem = 1024 + 2 * (size_t)kW5QTile +
+                           kW5Stages * (2 * (size_t)kW5KTile +
+                                        kW5VecStride * 4 + 8 + 16) + 8;
+// K6: the CTA's 64 keys (K and V resident, 32 KB each), 64-query Q / dO
+// tiles in a 2-stage ring
+constexpr int kW6Keys = 64;
+constexpr int kW6Stages = 2;
+constexpr int kW6Box = 64 * 128;           // a 64-row box (K, V, Q, dO)
+constexpr int kW6Tile = kWBoxes * kW6Box;
+constexpr size_t kW6Smem = 1024 + 2 * (size_t)kW6Tile +
+                           kW6Stages * (2 * (size_t)kW6Tile +
+                                        3 * kVecStride * 4 + 8 + 16) + 8;
+static_assert(kW5Smem <= 232448 && kW6Smem <= 232448,
+              "the 256-wide builds fit the 227 KB a block may take");
+
+// K5 at 128 < D <= 256: one CTA per (128-query tile, q head, batch row),
+// the heaviest (last) q tiles first.  Warpgroup w < 2 owns query rows
+// [64w, 64w + 64) and a 64 x 256 float32 dq; one warp of warpgroup 2
+// loads Q and dO once (4 boxes each), then streams 32-key K / V tiles
+// (and, with ids, the tile's key ids) into a 3-stage ring and writes each
+// stage's slot: (key tile, needs the element mask), or (-1, 0) to end.
+template <bool SEG>
+__global__ void __launch_bounds__(kHThreads, 1)
+bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap dq_map,
+                         const __grid_constant__ CUtensorMap seg_map,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ q_rng,
+                         const int* __restrict__ kv_rng, int B, int Sq,
+                         int Skv, int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* Qs = align1024(wg_smem);
+  unsigned char* Os = Qs + kW5QTile;
+  unsigned char* Ks = Os + kW5QTile;                     // [stage]
+  unsigned char* Vs = Ks + kW5Stages * kW5KTile;         // [stage]
+  int* seg_s = reinterpret_cast<int*>(Vs + kW5Stages * kW5KTile);
+  int2* slot = reinterpret_cast<int2*>(seg_s + kW5Stages * kW5VecStride);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(slot + kW5Stages);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kW5Stages;
+
+  const int n_qt = (Sq + kBig - 1) / kBig;
+  const int bh = blockIdx.x % (Hq * B);
+  const int qt = n_qt - 1 - blockIdx.x / (Hq * B);
+  const int h = bh % Hq, b = bh / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = qt * kBig;
+  const int offset = Skv - Sq;   // query i sees keys j <= i + offset
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kW5Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kHConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----------------------------------------------------------
+    reg_dealloc<24>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    const int kv_hi = causal ? min(Skv, q0 + kBig + offset) : Skv;
+    const int n_kt = kv_hi > 0 ? (kv_hi + kW5Keys - 1) / kW5Keys : 0;
+    if (lane == 0) {   // Q and dO first: the ranges wait on global loads
+      mbar_expect_tx(q_full, 2 * kW5QTile);
+#pragma unroll
+      for (int x = 0; x < kWBoxes; ++x) {
+        tma_load_4d(Qs + x * kW5QBox, &q_map, q_full, 64 * x, h, q0, b);
+        tma_load_4d(Os + x * kW5QBox, &do_map, q_full, 64 * x, h, q0, b);
+      }
+    }
+    int2 qr = make_int2(0, 0);
+    if constexpr (SEG) qr = big_range(q_rng, b, (Sq + kRT - 1) / kRT, qt);
+    int it = 0;
+    // 32 key tiles at a time, lane l deciding tile base - l
+    for (int base = n_kt - 1; base >= 0; base -= 32) {
+      const int j = base - lane;
+      bool vis = j >= 0;
+      bool masked = vis && ((causal && j * kW5Keys + kW5Keys - 1 > q0 + offset) ||
+                            j * kW5Keys + kW5Keys > Skv);
+      if constexpr (SEG) {
+        if (vis) {
+          // the range of the 64 tokens holding the tile: a superset of
+          // its own, exact all the same
+          const int* r = kv_rng + ((size_t)b * ((Skv + kRT - 1) / kRT) +
+                                   j * kW5Keys / kRT) * 2;
+          vis = r[1] >= qr.x && r[0] <= qr.y;
+          masked = masked || r[0] != r[1] || qr.x != qr.y || r[0] != qr.x;
+        }
+      }
+      unsigned todo = __ballot_sync(0xffffffffu, vis);
+      const unsigned mask_bits = __ballot_sync(0xffffffffu, masked);
+      if (lane != 0) continue;
+      while (todo) {
+        const int l = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int jt = base - l, k0 = jt * kW5Keys;
+        const int s = it % kW5Stages;
+        mbar_wait(&empty[s], ((it / kW5Stages) & 1) ^ 1);
+        slot[s] = make_int2(jt, (mask_bits >> l) & 1);
+        unsigned char* kd = Ks + s * kW5KTile;
+        unsigned char* vd = Vs + s * kW5KTile;
+        mbar_expect_tx(&full[s], 2 * kW5KTile + (SEG ? kW5Vec * 4 : 0));
+#pragma unroll
+        for (int x = 0; x < kWBoxes; ++x) {
+          tma_load_4d(kd + x * kW5KBox, &k_map, &full[s], 64 * x, hk, k0, b);
+          tma_load_4d(vd + x * kW5KBox, &v_map, &full[s], 64 * x, hk, k0, b);
+        }
+        if constexpr (SEG)
+          tma_load_1d(seg_s + s * kW5VecStride, &seg_map, &full[s],
+                      (b * Skv + k0) & ~3);
+        ++it;
+      }
+    }
+    if (lane == 0) {
+      const int s = it % kW5Stages;
+      mbar_wait(&empty[s], ((it / kW5Stages) & 1) ^ 1);
+      slot[s] = make_int2(-1, 0);
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---- consumers -------------------------------------------------------------
+  reg_alloc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rl = wg * 64 + warp * 16 + g;   // rows rl, rl + 8 of the tile
+  const int r0 = q0 + rl, r1 = r0 + 8;
+  const size_t lrow = ((size_t)b * Hq + h) * Sq;
+  // lse in the log2 domain; rows past Sq load nothing and store nothing
+  const float ln0 = r0 < Sq ? lse[lrow + r0] * kLog2e : 0.f;
+  const float ln1 = r1 < Sq ? lse[lrow + r1] * kLog2e : 0.f;
+  const float dl0 = r0 < Sq ? delta[lrow + r0] : 0.f;
+  const float dl1 = r1 < Sq ? delta[lrow + r1] : 0.f;
+  int sq0 = 0, sq1 = 0;
+  if constexpr (SEG) {
+    sq0 = r0 < Sq ? seg_q[(size_t)b * Sq + r0] : 0;
+    sq1 = r1 < Sq ? seg_q[(size_t)b * Sq + r1] : 0;
+  }
+  const float sl2 = scale * kLog2e;
+  const unsigned char* qa = Qs + wg * 64 * 128;
+  const unsigned char* oa = Os + wg * 64 * 128;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float sc[16], dp[16];
+  uint32_t da[2][4];
+  // a key tile's ids start `lead` into their stage (a 1-d box's lead-in),
+  // the same for every tile of the CTA
+  const int lead = SEG ? (b * Skv) & 3 : 0;
+
+  mbar_wait(q_full, 0);
+  // per key tile: S = Q K^T and dP = dO V^T issued together; P once S is
+  // in (the last tile's dq is then done too, and its stage is released);
+  // dS once dP is in; dq += dS K issued and left in flight under the next
+  // tile's products
+  int cur = 0;
+  for (;; ++cur) {
+    const int st = cur % kW5Stages;
+    mbar_wait(&full[st], (cur / kW5Stages) & 1);
+    const int2 sl = slot[st];
+    if (sl.x < 0) break;
+    const unsigned char* kt = Ks + st * kW5KTile;
+    wgmma_fence();
+    issue_abt<kWBoxes>(sc, qa, kW5QBox, kt, kW5KBox);
+    issue_abt<kWBoxes>(dp, oa, kW5QBox, Vs + st * kW5KTile, kW5KBox);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (cur > 0) mbar_arrive(&empty[(cur + kW5Stages - 1) % kW5Stages]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      sc[i] = exp2_approx(fmaf(sc[i], sl2, -((i & 2) ? ln1 : ln0)));
+    if (sl.y) {   // P = 0 on the pairs the mask hides
+      const int k0 = sl.x * kW5Keys;
+      const int* ids = seg_s + st * kW5VecStride + lead;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int cl = 8 * (i / 4) + 2 * c + (i & 1), col = k0 + cl;
+        bool keep = col < Skv && (!causal || col <= ((i & 2) ? r1 : r0) + offset);
+        if constexpr (SEG) keep = keep && ids[cl] == ((i & 2) ? sq1 : sq0);
+        if (!keep) sc[i] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * scale;
+    pack_a<2>(dp, da);
+    wgmma_fence();
+    issue_at(acc, da, kt, kW5KBox);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // dq through this warpgroup's rows of Q's shared memory (its last Q K^T
+  // is done) and TMA stores that drop rows past Sq and columns past D
+  stage_acc(Qs, acc, rl, c, kW5QBox);
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (tid == 0 && q0 + wg * 64 < Sq) {
+#pragma unroll
+    for (int x = 0; x < kWBoxes; ++x)
+      tma_store_4d(&dq_map, Qs + x * kW5QBox + wg * 64 * 128, 64 * x, h,
+                   q0 + wg * 64, b);
+    tma_store_commit_wait();
+  }
+}
+
+// K6 at 128 < D <= 256: one CTA per (64-key tile, kv head, batch row), the
+// key tiles that see the most queries (the first) first.  A 64 x 256
+// float32 dk and dv take 256 registers a thread together, more than a
+// thread has, so the two consumer warpgroups split them: warpgroup 0 owns
+// dV of the CTA's 64 keys, warpgroup 1 dK, both computing S^T = K Q^T (the
+// products of S^T are done twice).  One warp of warpgroup 2 loads K and V
+// once, then walks the G q heads of the group x the 64-query tiles at or
+// below the diagonal, streaming Q, dO, lse, delta (and, with ids, the
+// query ids) of each into a 2-stage ring; a stage's slot holds (the tile's
+// first query, needs the element mask | q head << 1), or (-1, 0) to end.
+template <bool SEG>
+__global__ void __launch_bounds__(kHThreads, 1)
+bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap dk_map,
+                          const __grid_constant__ CUtensorMap dv_map,
+                          const __grid_constant__ CUtensorMap lse_map,
+                          const __grid_constant__ CUtensorMap delta_map,
+                          const __grid_constant__ CUtensorMap seg_map,
+                          const int* __restrict__ seg_kv,
+                          const int* __restrict__ q_rng,
+                          const int* __restrict__ kv_rng, int B, int Sq,
+                          int Skv, int Hq, int Hkv, float scale, int causal) {
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* Ks = align1024(wg_smem);
+  unsigned char* Vs = Ks + kW6Tile;
+  unsigned char* Qs = Vs + kW6Tile;                     // [stage]
+  unsigned char* Os = Qs + kW6Stages * kW6Tile;         // [stage]
+  float* lse_s = reinterpret_cast<float*>(Os + kW6Stages * kW6Tile);
+  float* dl_s = lse_s + kW6Stages * kVecStride;               // [stage]
+  int* seg_s = reinterpret_cast<int*>(dl_s + kW6Stages * kVecStride);
+  int2* slot = reinterpret_cast<int2*>(seg_s + kW6Stages * kVecStride);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(slot + kW6Stages);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kW6Stages;
+
+  const int bh = blockIdx.x % (Hkv * B);
+  const int kt = blockIdx.x / (Hkv * B);
+  const int hk = bh % Hkv, b = bh / Hkv;
+  const int G = Hq / Hkv;
+  const int k0 = kt * kW6Keys;
+  const int offset = Skv - Sq;   // query i sees keys j <= i + offset
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kW6Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kHConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----------------------------------------------------------
+    reg_dealloc<24>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    const int n_qt = (Sq + kSmall - 1) / kSmall;
+    // queries i >= key - offset see the key: the first tile that can
+    const int qt_lo = causal ? max(0, k0 - offset) / kSmall : 0;
+    if (lane == 0) {   // K and V first: the ranges wait on global loads
+      mbar_expect_tx(kv_full, 2 * kW6Tile);
+#pragma unroll
+      for (int x = 0; x < kWBoxes; ++x) {
+        tma_load_4d(Ks + x * kW6Box, &k_map, kv_full, 64 * x, hk, k0, b);
+        tma_load_4d(Vs + x * kW6Box, &v_map, kv_full, 64 * x, hk, k0, b);
+      }
+    }
+    int2 kr = make_int2(0, 0);
+    if constexpr (SEG) {
+      // the CTA's 64 keys are one range
+      const int* r = kv_rng + ((size_t)b * ((Skv + kRT - 1) / kRT) + kt) * 2;
+      kr = make_int2(r[0], r[1]);
+    }
+    int it = 0;
+    for (int h = hk * G; h < hk * G + G; ++h) {
+      // 32 query tiles at a time, lane l deciding tile base + l
+      for (int base = qt_lo; base < n_qt; base += 32) {
+        const int j = base + lane, q0 = j * kSmall;
+        bool vis = j < n_qt;
+        bool masked = vis && ((causal && k0 + kW6Keys - 1 > q0 + offset) ||
+                              q0 + kSmall > Sq || k0 + kW6Keys > Skv);
+        if constexpr (SEG) {
+          if (vis) {
+            const int* r = q_rng + ((size_t)b * n_qt + j) * 2;
+            vis = kr.y >= r[0] && kr.x <= r[1];
+            masked = masked || kr.x != kr.y || r[0] != r[1] || kr.x != r[0];
+          }
+        }
+        unsigned todo = __ballot_sync(0xffffffffu, vis);
+        const unsigned mask_bits = __ballot_sync(0xffffffffu, masked);
+        if (lane != 0) continue;
+        while (todo) {
+          const int l = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int qs = (base + l) * kSmall;
+          const int s = it % kW6Stages;
+          mbar_wait(&empty[s], ((it / kW6Stages) & 1) ^ 1);
+          slot[s] = make_int2(qs, ((mask_bits >> l) & 1) | (h << 1));
+          unsigned char* qd = Qs + s * kW6Tile;
+          unsigned char* od = Os + s * kW6Tile;
+          mbar_expect_tx(&full[s], 2 * kW6Tile + (SEG ? 3 : 2) * kVec * 4);
+#pragma unroll
+          for (int x = 0; x < kWBoxes; ++x) {
+            tma_load_4d(qd + x * kW6Box, &q_map, &full[s], 64 * x, h, qs, b);
+            tma_load_4d(od + x * kW6Box, &do_map, &full[s], 64 * x, h, qs, b);
+          }
+          const int row = ((b * Hq + h) * Sq + qs) & ~3;
+          tma_load_1d(lse_s + s * kVecStride, &lse_map, &full[s], row);
+          tma_load_1d(dl_s + s * kVecStride, &delta_map, &full[s], row);
+          if constexpr (SEG)
+            tma_load_1d(seg_s + s * kVecStride, &seg_map, &full[s],
+                        (b * Sq + qs) & ~3);
+          ++it;
+        }
+      }
+    }
+    if (lane == 0) {
+      const int s = it % kW6Stages;
+      mbar_wait(&empty[s], ((it / kW6Stages) & 1) ^ 1);
+      slot[s] = make_int2(-1, 0);
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---- consumers -------------------------------------------------------------
+  reg_alloc<240>();
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int rl = warp * 16 + g;   // keys rl, rl + 8 of the CTA's 64
+  const int key0 = k0 + rl, key1 = key0 + 8;
+  int sk0 = 0, sk1 = 0;
+  if constexpr (SEG) {
+    sk0 = key0 < Skv ? seg_kv[(size_t)b * Skv + key0] : 0;
+    sk1 = key1 < Skv ? seg_kv[(size_t)b * Skv + key1] : 0;
+  }
+  const float sl2 = scale * kLog2e;
+  float acc[128];   // warpgroup 0: dV, warpgroup 1: dK
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float sc[32];
+  uint32_t pa[4][4];
+  // a query tile's ids start seg_lead into their stage (a 1-d box's
+  // lead-in), the same for every tile of the CTA
+  const int seg_lead = SEG ? (b * Sq) & 3 : 0;
+  // P^T of the tile in stage st (slot sl) from S^T in p: columns are
+  // queries, p[4j + e] is query 8j + 2c + (e & 1) of the tile
+  auto probs = [&](float (&p)[32], int st, int2 sl) {
+    // this tile's lse (of q head sl.y >> 1) starts lead in
+    const int lead = ((b * Hq + (sl.y >> 1)) * Sq + sl.x) & 3;
+    const float* ls = lse_s + st * kVecStride + lead;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float l0 = ls[8 * j + 2 * c] * -kLog2e;
+      const float l1 = ls[8 * j + 2 * c + 1] * -kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[4 * j + e] = exp2_approx(fmaf(p[4 * j + e], sl2, (e & 1) ? l1 : l0));
+    }
+    if (sl.y & 1) {   // P = 0 on the pairs the mask hides
+      const int* ids = seg_s + st * kVecStride + seg_lead;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cl = 8 * (i / 4) + 2 * c + (i & 1), qi = sl.x + cl;
+        const int key = (i & 2) ? key1 : key0;
+        bool keep = qi < Sq && key < Skv && (!causal || key <= qi + offset);
+        if constexpr (SEG) keep = keep && ids[cl] == ((i & 2) ? sk1 : sk0);
+        if (!keep) p[i] = 0.f;
+      }
+    }
+  };
+
+  mbar_wait(kv_full, 0);
+  if (wg == 0) {
+    // per query tile: S^T = K Q^T; P^T once it is in; dV += P^T dO; the
+    // stage is released once that is done
+    for (int cur = 0;; ++cur) {
+      const int st = cur % kW6Stages;
+      mbar_wait(&full[st], (cur / kW6Stages) & 1);
+      const int2 sl = slot[st];
+      if (sl.x < 0) break;
+      wgmma_fence();
+      issue_abt<kWBoxes>(sc, Ks, kW6Box, Qs + st * kW6Tile, kW6Box);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      probs(sc, st, sl);
+      pack_a<4>(sc, pa);
+      wgmma_fence();
+      issue_at(acc, pa, Os + st * kW6Tile, kW6Box);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+  } else {
+    // per query tile: S^T = K Q^T and dP^T = V dO^T issued together; P^T
+    // once S^T is in, dS^T once dP^T is in; dK += dS^T Q; the stage is
+    // released once that is done.  With ids dP^T is issued after P^T is
+    // formed: the ids' mask beside S^T, dP^T (in flight) and dK spilled
+    float dp[32];
+    for (int cur = 0;; ++cur) {
+      const int st = cur % kW6Stages;
+      mbar_wait(&full[st], (cur / kW6Stages) & 1);
+      const int2 sl = slot[st];
+      if (sl.x < 0) break;
+      const unsigned char* qt = Qs + st * kW6Tile;
+      const unsigned char* ot = Os + st * kW6Tile;
+      wgmma_fence();
+      issue_abt<kWBoxes>(sc, Ks, kW6Box, qt, kW6Box);
+      if constexpr (!SEG) issue_abt<kWBoxes>(dp, Vs, kW6Box, ot, kW6Box);
+      wgmma_wait<SEG ? 0 : 1>();
+      fence_regs(sc);
+      probs(sc, st, sl);
+      if constexpr (SEG) {
+        wgmma_fence();
+        issue_abt<kWBoxes>(dp, Vs, kW6Box, ot, kW6Box);
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      const int lead = ((b * Hq + (sl.y >> 1)) * Sq + sl.x) & 3;
+      const float* ds = dl_s + st * kVecStride + lead;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d0 = ds[8 * j + 2 * c], d1 = ds[8 * j + 2 * c + 1];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * scale;
+      }
+      pack_a<4>(dp, pa);
+      wgmma_fence();
+      issue_at(acc, pa, qt, kW6Box);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[st]);
+    }
+  }
+
+  // both warpgroups are done with K and V: dv leaves through V's shared
+  // memory, dk through K's, by TMA stores that drop rows past Skv and
+  // columns past D
+  named_barrier(1, kHConsumers);
+  unsigned char* out = wg == 0 ? Vs : Ks;
+  stage_acc(out, acc, rl, c, kW6Box);
+  fence_proxy_async();
+  named_barrier(2 + wg, 128);
+  if (tid == 0 && k0 < Skv) {
+    const CUtensorMap* m = wg == 0 ? &dv_map : &dk_map;
+#pragma unroll
+    for (int x = 0; x < kWBoxes; ++x)
+      tma_store_4d(m, out + x * kW6Box, 64 * x, hk, k0, b);
     tma_store_commit_wait();
   }
 }
@@ -1100,9 +1627,78 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
-// the bf16 head dims of the Hopper kernels: the tiles stay 128 wide, the
-// maps have D columns (a row stride of D * 2 bytes, a multiple of 16)
+template <bool SEG>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const int* seg_q,
+                           const int* seg_kv, const int* q_rng,
+                           const int* kv_rng, void* dq, int B, int Sq,
+                           int Skv, int Hq, int Hkv, int D, float scale,
+                           int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om, dqm, sm;
+  memset(&sm, 0, sizeof(sm));
+  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kBig, D);
+  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kW5Keys, D);
+  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kW5Keys, D);
+  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kBig, D);
+  if (e == cudaSuccess) e = bshd_map(&dqm, dq, B, Sq, Hq, kSmall, D);
+  if (e == cudaSuccess && SEG)
+    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_kv, (size_t)B * Skv,
+                 kW5Vec);
+  if (e != cudaSuccess) return e;
+  auto kernel = bwd_dq_wgmma_wide_kernel<SEG>;
+  e = allow_smem(kernel, kW5Smem);
+  if (e != cudaSuccess) return e;
+  const long long ctas = (long long)((Sq + kBig - 1) / kBig) * Hq * B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)ctas, kHThreads, kW5Smem, st>>>(
+      qm, km, vm, om, dqm, sm, lse, delta, seg_q, q_rng, kv_rng, B, Sq, Skv,
+      Hq, Hkv, scale, causal);
+  return cudaSuccess;
+}
+
+template <bool SEG>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const int* seg_q,
+                            const int* seg_kv, const int* q_rng,
+                            const int* kv_rng, void* dk, void* dv, int B,
+                            int Sq, int Skv, int Hq, int Hkv, int D,
+                            float scale, int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om, dkm, dvm, lm, dlm, sm;
+  memset(&sm, 0, sizeof(sm));
+  cudaError_t e = bshd_map(&qm, q, B, Sq, Hq, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&km, k, B, Skv, Hkv, kW6Keys, D);
+  if (e == cudaSuccess) e = bshd_map(&vm, v, B, Skv, Hkv, kW6Keys, D);
+  if (e == cudaSuccess) e = bshd_map(&om, dout, B, Sq, Hq, kSmall, D);
+  if (e == cudaSuccess) e = bshd_map(&dkm, dk, B, Skv, Hkv, kW6Keys, D);
+  if (e == cudaSuccess) e = bshd_map(&dvm, dv, B, Skv, Hkv, kW6Keys, D);
+  const size_t rows = (size_t)B * Hq * Sq;
+  if (e == cudaSuccess)
+    e = flat_map(&lm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, lse, rows, kVec);
+  if (e == cudaSuccess)
+    e = flat_map(&dlm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, delta, rows, kVec);
+  if (e == cudaSuccess && SEG)
+    e = flat_map(&sm, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_q, (size_t)B * Sq,
+                 kVec);
+  if (e != cudaSuccess) return e;
+  if (rows > 0x7fffffffULL) return cudaErrorInvalidValue;
+  auto kernel = bwd_dkv_wgmma_wide_kernel<SEG>;
+  e = allow_smem(kernel, kW6Smem);
+  if (e != cudaSuccess) return e;
+  const long long ctas = (long long)((Skv + kW6Keys - 1) / kW6Keys) * Hkv * B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)ctas, kHThreads, kW6Smem, st>>>(
+      qm, km, vm, om, dkm, dvm, lm, dlm, sm, seg_kv, q_rng, kv_rng, B, Sq,
+      Skv, Hq, Hkv, scale, causal);
+  return cudaSuccess;
+}
+
+// the bf16 head dims of the Hopper kernels: the tiles stay 128 wide up to
+// D 128 and are 256 wide above (wide_head_dim), the maps have D columns (a
+// row stride of D * 2 bytes, a multiple of 16)
 bool wgmma_head_dim(int D) { return D >= 8 && D <= kBig && D % 8 == 0; }
+bool wide_head_dim(int D) { return D > kBig && D <= kWide && D % 8 == 0; }
 
 template <int D>
 cudaError_t launch_dq_f32(const float* q, const float* k, const float* v,
@@ -1184,10 +1780,11 @@ cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (any D <= 128
-// with D % 8 == 0, the Hopper kernel), 1 = float32 (D = 16, 64 or 72: one
-// thread a row; D = 128: a quad a row; CUDA cores): K2's head dims.  Any other pair, or only one of seg_q / seg_kv,
-// returns cudaErrorInvalidValue.  Tensors
+// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (any D <= 256
+// with D % 8 == 0: the Hopper kernels, 128-wide tiles up to 128, 256-wide
+// above), 1 = float32 (D = 16, 64 or 72: one thread a row; D = 128: a quad
+// a row; CUDA cores): K2's head dims.  Any other pair, or only one of
+// seg_q / seg_kv, returns cudaErrorInvalidValue.  Tensors
 // contiguous and 16-byte aligned (seg_q / seg_kv too).  With segment ids the
 // bfloat16 build also takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B,
 // ceil(Skv / 64), 2): the int32 [min, max] id of every 64 tokens
@@ -1216,7 +1813,16 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const float* fo = static_cast<const float*>(dout);
   float* fdq = static_cast<float*>(dq);
   cudaError_t e;
-  if (dtype == 0 && !wgmma_head_dim(D))
+  if (dtype == 0 && wide_head_dim(D) && sq != nullptr)
+    e = (qr == nullptr || kr == nullptr)
+            ? cudaErrorInvalidValue
+            : launch_dq_wide<true>(q, k, v, dout, l, dl, sq, skv, qr, kr, dq,
+                                   B, Sq, Skv, Hq, Hkv, D, scale, causal, st);
+  else if (dtype == 0 && wide_head_dim(D))
+    e = launch_dq_wide<false>(q, k, v, dout, l, dl, nullptr, nullptr,
+                              nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv, D,
+                              scale, causal, st);
+  else if (dtype == 0 && !wgmma_head_dim(D))
     e = cudaErrorInvalidValue;
   else if (dtype == 0 && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
@@ -1272,7 +1878,17 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   float* fdk = static_cast<float*>(dk);
   float* fdv = static_cast<float*>(dv);
   cudaError_t e;
-  if (dtype == 0 && !wgmma_head_dim(D))
+  if (dtype == 0 && wide_head_dim(D) && sq != nullptr)
+    e = (qr == nullptr || kr == nullptr)
+            ? cudaErrorInvalidValue
+            : launch_dkv_wide<true>(q, k, v, dout, l, dl, sq, skv, qr, kr,
+                                    dk, dv, B, Sq, Skv, Hq, Hkv, D, scale,
+                                    causal, st);
+  else if (dtype == 0 && wide_head_dim(D))
+    e = launch_dkv_wide<false>(q, k, v, dout, l, dl, nullptr, nullptr,
+                               nullptr, nullptr, dk, dv, B, Sq, Skv, Hq, Hkv,
+                               D, scale, causal, st);
+  else if (dtype == 0 && !wgmma_head_dim(D))
     e = cudaErrorInvalidValue;
   else if (dtype == 0 && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)

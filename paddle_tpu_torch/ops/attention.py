@@ -43,8 +43,7 @@ from .cuda.decode_attention import (decode_attention_cuda,
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
                                    flash_attention_fwd_paged_cuda,
                                    flash_attention_fwd_paged_int8_cuda)
-from .cuda.flash_attention_bwd import (check_backward_head_dim,
-                                       flash_attention_bwd_dkv_cuda,
+from .cuda.flash_attention_bwd import (flash_attention_bwd_dkv_cuda,
                                        flash_attention_bwd_dq_cuda)
 
 NEG_INF = -1e30
@@ -183,15 +182,13 @@ class FlashAttention(torch.autograd.Function):
     into ``delta = rowsum(dO * O) - dlse`` (plain elementwise work, as
     the reference leaves it to XLA) and launches K5 (dq) and K6 (dk, dv).
     Returns (out, lse), both differentiable.  K5 and K6 take K2's head
-    dims (``ops/cuda/flash_attention.py`` ``FWD_HEAD_DIMS``: DiT's 72
-    among them) but bf16 136-256 (``flash_attention_bwd.py``
-    ``BWD_HEAD_DIMS``; ROADMAP B2.3b): the forward refuses those before K2
-    launches (``check_backward_head_dim``), so whatever runs forward here
+    dims (``flash_attention_bwd.py`` ``BWD_HEAD_DIMS`` is
+    ``ops/cuda/flash_attention.py`` ``FWD_HEAD_DIMS``: DiT's 72 and a
+    Gemma-2B-wide Llama's 256 among them), so whatever runs forward here
     has its backward; K2 refuses any other head dim before a launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, scale):
-        check_backward_head_dim("flash_attention", q)
         out, lse = flash_attention_fwd_cuda(
             q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
             kv_segment_ids=kv_segment_ids)

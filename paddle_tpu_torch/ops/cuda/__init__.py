@@ -12,14 +12,11 @@ import torch
 
 # element type codes of the C entries
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-# the head dims every bf16 forward attention build takes -- the K1 family,
-# K2 in every layout: any D <= 256 (the reference's MAX_HEAD_DIM) with D %
-# 8 == 0 (tiles or ring rows 128 wide up to D 128 and 256 wide above,
-# whose columns past D hold zeros)
+# the head dims every bf16 attention build takes -- the K1 family, K2 in
+# every layout, the backward K5 / K6: any D <= 256 (the reference's
+# MAX_HEAD_DIM) with D % 8 == 0 (tiles or ring rows 128 wide up to D 128
+# and 256 wide above, whose columns past D hold zeros)
 BF16_HEAD_DIMS = frozenset(range(8, 257, 8))
-# the backward K5 / K6's: D <= 128 with D % 8 == 0 (128-wide tiles); above
-# 128 the backward is ROADMAP B2.3b
-BF16_BWD_HEAD_DIMS = frozenset(range(8, 129, 8))
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

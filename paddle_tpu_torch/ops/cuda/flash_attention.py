@@ -14,10 +14,9 @@ kernel takes any D and narrows its blocks by D / 128 (:56-71); the port
 runs 128-wide tiles up to D 128 and 256-wide ones above (with 64-key
 tiles), the columns past D zero-filled, so DiT-XL/2's D = 72 and a
 Gemma-2B-wide Llama's 256 run it — float32 16, 64, 72 and 128.  The
-backward K5 / K6 takes bf16 D <= 128 only (``flash_attention_bwd.py``
-``BWD_HEAD_DIMS``; above: ROADMAP B2.3b); the paged builds below take the
-same bf16 set and float32 at 16 and 128 only (``HEAD_DIM``; the rest is
-ROADMAP B2).
+backward K5 / K6 takes the same set (``flash_attention_bwd.py``
+``BWD_HEAD_DIMS``); the paged builds below take the same bf16 set and
+float32 at 16 and 128 only (``HEAD_DIM``; the rest is ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about

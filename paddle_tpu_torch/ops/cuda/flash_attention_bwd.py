@@ -12,29 +12,31 @@ masked.
 
 Bound on the H100: operations (14 * D FLOPs a visible query-key pair on
 the bf16 tensor cores).  What the design does about it: the bfloat16
-head_dim-128 builds are Hopper kernels — ``wgmma`` for all four products,
-TMA into ``mbarrier`` rings fed by a producer warp, two consumer
-warpgroups.  K5 gives a CTA 128 queries of one q head, holds Q and dO,
-and streams 64-key K / V tiles; K6 gives a CTA 128 keys of one KV head,
-holds K and V, and walks every q head of its GQA group over the 64-query
-tiles at or below the diagonal, so dk and dv are summed over the group in
-float32 registers and rounded once — the (B, Hq, Skv, D) per-q-head
-partials the reference writes and sums (:428-440) never exist.  Two
+builds are Hopper kernels — ``wgmma`` for all four products, TMA into
+``mbarrier`` rings fed by a producer warp, two consumer warpgroups.  Up to
+D 128 (128-wide tiles whose columns past D TMA fills with zeros: DiT-XL/2's
+72 pays 1.78x the useful products) K5 gives a CTA 128 queries of one q
+head, holds Q and dO, and streams 64-key K / V tiles; K6 gives a CTA 128
+keys of one KV head, holds K and V, and walks every q head of its GQA
+group over the 64-query tiles at or below the diagonal, so dk and dv are
+summed over the group in float32 registers and rounded once — the (B, Hq,
+Skv, D) per-q-head partials the reference writes and sums (:428-440) never
+exist.  Above D 128 the tiles are 256 wide (4 boxes of 64 columns, zeros
+past D; 1.88x the useful products at D 136): K5 keeps its 128 queries
+(Q and dO 128 KB) and streams 32-key K / V tiles through a 3-stage ring
+(231,248 bytes of shared memory); K6 takes 64 keys a CTA and, since a 64 x
+256 float32 dk and dv are 256 registers a thread together, splits them
+between its consumer warpgroups — one owns dV, the other dK, both
+computing S^T (S^T done twice: 5 products a tile pair for 4).  Two
 kernels and no atomics: every gradient is the same from run to run.  With
 segment ids both skip the tile pairs whose id ranges miss
-(:func:`backward_tile_ranges`).  Head dims (``BWD_HEAD_DIMS``): bf16 at
-any D <= 128 with D % 8 == 0 (the Hopper kernels on 128-wide tiles whose
-columns past D TMA fills with zeros: DiT-XL/2's 72 pays 1.78x the useful
-products), float32 at 16, 64 and 72 on CUDA-core kernels of one thread a
-row and at 128 on CUDA-core kernels that split each row over a quad of
-threads (D / 4 columns a thread, the dot products summed by two shuffles;
-nothing spills) — K2's set but for bf16 D 136-256, which K2 runs forward
-and whose backward is ROADMAP B2.3b: those raise naming it
-(:func:`check_backward_head_dim`, which ``ops.attention.flash_attention``
-also calls before K2 launches when a gradient is needed); any other pair
-raises naming ROADMAP B2, before a launch.  Each wrapper counts its
-launches in ``.launches``, and in ``.by_shape`` by (head_dim, Sq, Skv,
-causal).
+(:func:`backward_tile_ranges`).  Head dims (``BWD_HEAD_DIMS``): K2's set —
+bf16 at any D <= 256 with D % 8 == 0, float32 at 16, 64 and 72 on
+CUDA-core kernels of one thread a row and at 128 on CUDA-core kernels that
+split each row over a quad of threads (D / 4 columns a thread, the dot
+products summed by two shuffles; nothing spills); any other pair raises
+naming ROADMAP B2, before a launch.  Each wrapper counts its launches in
+``.launches``, and in ``.by_shape`` by (head_dim, Sq, Skv, causal).
 """
 
 from __future__ import annotations
@@ -45,15 +47,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (BF16_BWD_HEAD_DIMS, BF16_HEAD_DIMS, _build,
-               check_attention_args, require_cuda, stream_ptr)
+from . import _build, check_attention_args, require_cuda, stream_ptr
 from .flash_attention import (FWD_HEAD_DIMS, _ptr, segment_args,
                               segment_tile_ranges)
 
 NAME = "flash_attention_bwd"
-# K5 / K6's head dims: K2's float32 instances, bf16 up to 128
-BWD_HEAD_DIMS = {torch.bfloat16: BF16_BWD_HEAD_DIMS,
-                 torch.float32: FWD_HEAD_DIMS[torch.float32]}
+# K5 / K6's head dims: K2's
+BWD_HEAD_DIMS = FWD_HEAD_DIMS
 RANGE_TILE = 64         # tokens a segment range covers (csrc: kRT)
 
 _P = ctypes.c_void_p
@@ -76,22 +76,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_backward_head_dim(what: str, q: torch.Tensor) -> None:
-    """Raise naming ROADMAP B2.3b for a bf16 head dim K2 runs forward and
-    K5 / K6 do not (136-256)."""
-    d = q.shape[-1]
-    if (q.dtype == torch.bfloat16 and d in BF16_HEAD_DIMS
-            and d not in BF16_BWD_HEAD_DIMS):
-        raise NotImplementedError(
-            f"{what}: the bf16 backward (K5 / K6) is built for head_dim <= "
-            f"128, got {d} (head_dim 136-256: ROADMAP B2.3b)")
-
-
 def _check(q, k, v, do, lse, delta):
-    """The checks of :func:`check_attention_args` at ``BWD_HEAD_DIMS``
-    (:func:`check_backward_head_dim` first), and dO, lse, delta's
-    shapes."""
-    check_backward_head_dim(NAME, q)
+    """The checks of :func:`check_attention_args` at ``BWD_HEAD_DIMS``,
+    and dO, lse, delta's shapes."""
     code = check_attention_args(NAME, q, k, v, BWD_HEAD_DIMS)
     require_cuda(NAME, do, lse, delta)
     b, sq, hq, _ = q.shape

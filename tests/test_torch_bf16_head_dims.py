@@ -3,10 +3,9 @@ K2-paged(-int8), and a Llama at TinyLlama's head_dim 64 with 8 query heads
 a KV head, on the CPU.
 
   * the tables: every bf16 forward build of K1 (contiguous, paged, int8,
-    paged int8) and K2 (contiguous, paged, paged int8) takes one set,
-    ``BF16_HEAD_DIMS`` (D <= 256), and K5 / K6 the backward set
-    ``BF16_BWD_HEAD_DIMS`` (D <= 128); a bf16 D outside
-    the forward set and float16 are refused by the wrappers' checks,
+    paged int8), K2 (contiguous, paged, paged int8) and the backward K5 /
+    K6 take one set, ``BF16_HEAD_DIMS`` (D <= 256); a bf16 D outside
+    the set and float16 are refused by the wrappers' checks,
     naming ROADMAP B2 (head_dim 256 itself: ``test_torch_head_dim_256.py``);
   * a narrow float32 Llama at D 64, G 8 (2 layers, hidden 512, 8 query
     heads over 1 KV head): the port's contiguous, paged, int8-KV paged and
@@ -37,8 +36,7 @@ from paddle_tpu.serving import ServingEngine as JaxEngine
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      init_kv_cache, load_jax_state_dict)
 from paddle_tpu_torch.ops import _dispatch
-from paddle_tpu_torch.ops.cuda import (BF16_BWD_HEAD_DIMS, BF16_HEAD_DIMS,
-                                       check_attention_args)
+from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS, check_attention_args
 from paddle_tpu_torch.ops.cuda import decode_attention as k1
 from paddle_tpu_torch.ops.cuda import flash_attention as k2
 from paddle_tpu_torch.ops.cuda import flash_attention_bwd as k56
@@ -52,15 +50,14 @@ NARROW = dict(hidden_size=512, num_attention_heads=8, num_key_value_heads=1,
 # ---- the tables ---------------------------------------------------------------
 
 def test_every_bf16_build_takes_one_set_of_head_dims():
-    """The forward builds share one set, D <= 256; K5 / K6 share the
-    backward set, D <= 128."""
+    """The forward builds and the backward K5 / K6 share one set, D <=
+    256."""
     assert BF16_HEAD_DIMS == frozenset(range(8, 257, 8))
-    assert BF16_BWD_HEAD_DIMS == frozenset(range(8, 129, 8))
     bf16 = torch.bfloat16
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
         assert table[bf16] is BF16_HEAD_DIMS
         assert torch.float16 not in table
-    assert k56.BWD_HEAD_DIMS[bf16] is BF16_BWD_HEAD_DIMS
+    assert k56.BWD_HEAD_DIMS[bf16] is BF16_HEAD_DIMS
     assert torch.float16 not in k56.BWD_HEAD_DIMS
 
 

@@ -346,7 +346,8 @@ def test_d72_backward_entries(name, replaces):
     assert name in chip_smoke.DIT_BWD
     import inspect
     rows_src = inspect.getsource(chip_smoke.phase_head_dim_rows)
-    assert "DIT_BWD" in rows_src and "backward_rows(" in rows_src
+    assert "DIT_BWD" in rows_src and "k5_k6_rows(" in rows_src
+    assert "backward_rows(" in inspect.getsource(chip_smoke.k5_k6_rows)
 
 
 def test_dit_train_settings_are_the_papers():
@@ -976,16 +977,110 @@ def test_gemma2b_widths_are_the_published_config():
 
 
 def test_d256_phase_order():
-    """serving_d256 runs right after serving_tinyllama, behind the main
-    loop's ``memory`` line; phase 2 adds its rows after the /bf16_d64
-    ones."""
+    """serving_d256 runs right after serving_tinyllama and training_d256
+    right after it, each behind the main loop's ``memory`` line; phase 2
+    adds its rows after the /bf16_d64 ones."""
     import inspect
     loop = inspect.getsource(chip_smoke.main).split("for phase in (")[1]
     loop = loop.split("):")[0]
     assert loop.index("phase_serving_tinyllama(") \
-        < loop.index("phase_serving_d256(") < loop.index("phase_dit(")
+        < loop.index("phase_serving_d256(") \
+        < loop.index("phase_training_d256(") < loop.index("phase_dit(")
     calls = inspect.getsource(chip_smoke.phase_kernels).split(
         "phase_bf16_head_dim_rows(")[1:]
     assert len(calls) == 2
     assert "wide=True" not in calls[0].split(")")[0]
     assert "wide=True" in calls[1].split(")")[0]
+
+
+def test_bf16_d256_backward_entries():
+    """K5 / K6 above head_dim 128 have ``/bf16_d256`` entries in the kernels
+    line with their namesakes' source and reference kernel and ptxas tags
+    of both 256-wide instances (without and with ids); phase 2 records
+    their rows at every wide D, training_d256 sets their launches."""
+    import inspect
+    assert chip_smoke.BF16_D256_BWD == tuple(
+        n + chip_smoke.BF16_D256 for n in chip_smoke.TRAIN_KERNELS)
+    for name, base in zip(chip_smoke.BF16_D256_BWD, chip_smoke.TRAIN_KERNELS):
+        assert chip_smoke.KERNEL_INFO[name] == chip_smoke.KERNEL_INFO[base]
+        assert chip_smoke.KERNEL_INFO[name]["source"].endswith(
+            "csrc/flash_attention_bwd.cu")
+        tags = chip_smoke.BF16_D256_FUNCTIONS[base]
+        assert len(tags) == 2 and all("wgmma_wide_kernel" in t
+                                      for t in tags)
+    rows_src = inspect.getsource(chip_smoke.phase_bf16_head_dim_rows)
+    assert "k5_k6_rows(" in rows_src and "BF16_D256_BWD" in rows_src
+    assert "bf16_d256_backward" not in inspect.getsource(chip_smoke)
+    train_src = inspect.getsource(chip_smoke.phase_training_d256)
+    assert "train_llama(" in train_src and "BF16_D256_BWD" in train_src
+    assert 'kernels[entry]["launches"]' in inspect.getsource(
+        chip_smoke.train_llama)
+
+
+def test_training_d256_rehearsed_on_the_cpu(monkeypatch):
+    """training_d256 end to end on the CPU at a narrow width (2 layers, 8
+    heads of 256 over one KV head, vocab 512, 4 x 64 tokens): the gradient
+    gate and the 8 steps run, the losses fall, and only the checks that
+    need the card fail."""
+    failed = []
+
+    def record(cond, what):
+        if not cond:
+            failed.append(what)
+
+    monkeypatch.setattr(chip_smoke, "check", record)
+    monkeypatch.setattr(chip_smoke, "GEMMA2B_WIDTHS", dict(
+        chip_smoke.GEMMA2B_WIDTHS, vocab_size=512, intermediate_size=256,
+        num_hidden_layers=2))
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 64)
+    kernels = {n: {} for n in chip_smoke.BF16_D256_BWD}
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    chip_smoke.phase_training_d256(_TorchOnCpu(), kernels, "cpu")
+    assert [ln["phase"] for ln in lines] == ["training_d256_grads",
+                                             "training_d256"]
+    grads, run = lines
+    assert grads["head_dim"] == 256 and grads["layers"] == 2
+    assert grads["grad_rel_l2_kernel_vs_f32"] <= grads["tol_kernel_vs_f32"]
+    assert len(run["losses"]) == chip_smoke.TRAIN_STEPS
+    assert run["losses"][-1] < run["losses"][0]
+    assert run["optimizer_state_bytes"] > 0
+    bad = [w for w in failed if not any(k in w for k in _CARD_ONLY)]
+    assert not bad, bad
+    assert failed, "the card-only checks cannot pass on the CPU"
+    assert all("launches" in r for r in kernels.values())
+
+
+def test_training_rehearsed_on_the_cpu(monkeypatch):
+    """Phase 5 end to end on the CPU with the Llama-3-8B config swapped for
+    a narrow bf16 one (4 x 64 tokens): the gradient gate, the 8 steps and
+    the tiny float32 model's card-vs-CPU steps run, and only the checks
+    that need the card fail."""
+    import paddle_tpu_torch.models as models
+    failed = []
+
+    def record(cond, what):
+        if not cond:
+            failed.append(what)
+
+    monkeypatch.setattr(chip_smoke, "check", record)
+    monkeypatch.setattr(models, "llama3_8b_config", lambda **kw: (
+        models.tiny_llama_config(dtype="bfloat16", **kw)))
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 64)
+    kernels = {n: {} for n in chip_smoke.TRAIN_KERNELS}
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    chip_smoke.phase_training(_TorchOnCpu(), kernels)
+    assert [ln["phase"] for ln in lines] == [
+        "training_grads", "training", "training_tiny_f32",
+        "training_tiny_f32"]
+    run = lines[1]
+    assert run["layers"] == chip_smoke.TRAIN_LAYERS
+    assert run["losses"][-1] < run["losses"][0]
+    # the tiny model's steps count no K5 / K6 launch on the CPU either
+    card_only = _CARD_ONLY + ("ran no backward kernel",)
+    bad = [w for w in failed if not any(k in w for k in card_only)]
+    assert not bad, bad
+    assert failed, "the card-only checks cannot pass on the CPU"
+    assert all("launches" in r for r in kernels.values())
+

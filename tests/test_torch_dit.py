@@ -495,13 +495,14 @@ def test_k1_and_paged_k2_refuse_float32_head_dim_96(no_card):
     assert no_card.calls == []
 
 
-# K5 / K6 take K2's head dims (``FWD_HEAD_DIMS``) up to 128 (bf16 136-256:
-# ROADMAP B2.3b, refused naming it), and nothing else
+# K5 / K6 take K2's head dims (``FWD_HEAD_DIMS``: bf16 up to 256), and
+# nothing else
 BWD_TAKES = [(torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 64),
              (torch.bfloat16, 72), (torch.bfloat16, 120),
              (torch.bfloat16, 128), (torch.float32, 16), (torch.float32, 64),
-             (torch.float32, 72), (torch.float32, 128)]
-BWD_REFUSES = {torch.bfloat16: (76, 136), torch.float32: (32, 96)}
+             (torch.float32, 72), (torch.float32, 128), (torch.bfloat16, 136),
+             (torch.bfloat16, 256)]
+BWD_REFUSES = {torch.bfloat16: (76, 264), torch.float32: (32, 96)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -545,7 +546,7 @@ def test_k5_k6_take_k2s_head_dims(no_card, dtype, d):
 
 
 @pytest.mark.parametrize("dtype,d", [(t, d) for t, ds in BWD_REFUSES.items()
-                                     for d in ds] + [(torch.bfloat16, 256)])
+                                     for d in ds] + [(torch.bfloat16, 512)])
 def test_k5_k6_refuse_other_head_dims(no_card, dtype, d):
     q, k, v = _qkv(d, dtype)
     lse = torch.zeros(1, 4, 8)

@@ -6,12 +6,13 @@ the port's attention gradients against the JAX package, on the CPU.
   interpret=True)`` with given dO and dlse), fed JAX's own out and lse, at
   float32: 1e-5 (the two sum in other orders).  The Pallas kernel needs
   Sq % 8 == 0 and Skv % 128 == 0, so its cases are aligned.  Head dims
-  32, and DiT-XL/2's 72 and 64 (K5 / K6 take K2's head dims), with GQA,
-  dead rows and segment ids.
+  32, DiT-XL/2's 72 and 64, 128, and above 128 a Gemma-2B-wide Llama's
+  256 and 200 (K5 / K6 take K2's head dims), with GQA, dead rows and
+  segment ids.
 * The port's ``flash_attention`` under ordinary autograd (the CPU route)
   against ``jax.grad`` of JAX's ``flash_attention`` (its XLA path on the
   CPU), ragged lengths included, out and lse both in the loss, at head
-  dims 16 and 72: 1e-5.
+  dims 16, 72 and 256: 1e-5.
 * ``segment_mask`` equal to JAX's; the RMSNorm gradient against
   ``jax.grad`` of ``rms_norm_reference``: 1e-5.
 """
@@ -69,6 +70,14 @@ PALLAS_CASES = [
     ("d128_causal_gqa_dead_rows", 1, 256, 128, 4, 2, 128, True, None, True),
     ("d128_self_segments", 1, 128, 128, 4, 2, 128, True, "self", True),
     ("d128_cross", 1, 64, 128, 2, 2, 128, False, None, False),
+    # bf16's 256-wide tiles above head_dim 128 (a Gemma-2B-wide Llama's 256,
+    # 8 query heads over one KV head), here in float32
+    ("d256_causal_gqa_dead_rows", 1, 256, 128, 8, 1, 256, True, None, True),
+    ("d256_self_segments", 1, 128, 128, 8, 1, 256, True, "self", True),
+    ("d256_cross_segments", 1, 64, 128, 8, 1, 256, False, "cross", True),
+    ("d200_causal_gqa_dead_rows", 1, 256, 128, 8, 1, 200, True, None, True),
+    ("d200_self_segments", 1, 128, 128, 8, 1, 200, True, "self", True),
+    ("d200_cross_segments", 1, 64, 128, 8, 1, 200, False, "cross", True),
 ]
 
 
@@ -121,6 +130,8 @@ AUTOGRAD_CASES = [
     ("ragged_cross_segments", 2, 13, 37, 2, 1, False, "cross", 16),
     ("ragged_d72_gqa_dead_rows", 2, 37, 13, 4, 2, True, None, 72),
     ("ragged_d72_segments", 1, 37, 37, 2, 2, False, "self", 72),
+    ("ragged_d256_gqa_dead_rows", 2, 37, 13, 8, 1, True, None, 256),
+    ("ragged_d256_cross_segments", 1, 13, 37, 8, 1, False, "cross", 256),
 ]
 
 

@@ -17,38 +17,48 @@ Gemma-2B's widths (head_dim 256, 8 query heads over 1 KV head), on the CPU.
     JAX's, logits within 2^-5 of the largest (the two libraries round
     different intermediates to bf16);
   * the tables, through the wrappers' checks on tensors that pass the
-    device test: the K1 and K2 builds take bf16 D 136-256 (and launch at
-    it), D 264 is refused naming ROADMAP B2, K5 / K6 refuse D 136-256
-    naming ROADMAP B2.3b, and a ``flash_attention`` call that needs a
-    gradient at D 256 raises before any launch.
+    device test: the K1, K2 and K5 / K6 builds take bf16 D 136-256 (and
+    launch at it), D 264 is refused naming ROADMAP B2, and a
+    ``flash_attention`` call that needs a gradient at D 256 launches K2,
+    then K5 and K6 on ``backward()``;
+  * the same narrow Llama's train step (``build_train_step``, 4 steps of 4
+    rows x 16 tokens, plain and packed, with ``chip_smoke.py``'s training
+    AdamW) against the JAX package's: losses rtol 1e-5, parameters rtol
+    1e-5 + atol 5e-5 (as ``test_torch_train.py``).
 
 The kernels themselves run only on the card (``chip_smoke.py`` phase 2's
-``/bf16_d256`` rows and ``serving_d256``).
+``/bf16_d256`` rows, ``serving_d256`` and ``training_d256``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as pt
+import paddle_tpu.distributed as jdist
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.models.generation import init_kv_cache as jax_init_cache
 from paddle_tpu.ops.pallas.decode_attention import decode_attention_pallas
 from paddle_tpu.ops.pallas.flash_attention import flash_attention_pallas
+from paddle_tpu.optimizer import AdamW as JaxAdamW
+from paddle_tpu.optimizer import ClipGradByGlobalNorm as JaxClip
+from paddle_tpu.optimizer import lr as jax_lr
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from paddle_tpu_torch.distributed import build_train_step
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      init_kv_cache, load_jax_state_dict)
 from paddle_tpu_torch.ops import (_dispatch, cached_decode_attention,
                                   flash_attention)
-from paddle_tpu_torch.ops import attention as attn
 from paddle_tpu_torch.ops import cuda as pt_cuda
 from paddle_tpu_torch.ops.cuda import check_attention_args
 from paddle_tpu_torch.ops.cuda import decode_attention as k1
 from paddle_tpu_torch.ops.cuda import flash_attention as k2
 from paddle_tpu_torch.ops.cuda import flash_attention_bwd as k56
+from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
 from paddle_tpu_torch.serving import ServingEngine
 
 # float32 on both sides: the libraries sum in other orders
@@ -224,14 +234,19 @@ def test_k1_and_k2_launch_at_wide_head_dims(no_card, d):
 
 
 @pytest.mark.parametrize("d", WIDE)
-def test_k5_k6_refuse_wide_head_dims_naming_b2_3b(no_card, d):
+def test_k5_k6_launch_at_wide_head_dims(no_card, d):
+    """K5 and K6 take bf16 D 136-256 and launch with D passed through,
+    bf16's dtype code beside it."""
     q, k, v = _qkv(d)
     lse = torch.zeros(1, 8, 8)
-    for fn in (k56.flash_attention_bwd_dq_cuda,
-               k56.flash_attention_bwd_dkv_cuda):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP B2\.3b"):
-            fn(q, k, v, q, lse, lse)
-    assert no_card.calls == []
+    k56.flash_attention_bwd_dq_cuda(q, k, v, q, lse, lse, causal=True)
+    k56.flash_attention_bwd_dkv_cuda(q, k, v, q, lse, lse, causal=True)
+    (n5, a5), (n6, a6) = no_card.calls
+    assert (n5, n6) == ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    # D after 11 pointers and B Sq Skv Hq Hkv (K5), 12 pointers (K6); the
+    # dtype code after scale and causal
+    assert (a5[16], a6[17]) == (d, d)
+    assert (a5[19], a6[20]) == (0, 0)
 
 
 def test_k5_k6_past_256_name_b2(no_card):
@@ -243,18 +258,21 @@ def test_k5_k6_past_256_name_b2(no_card):
     assert no_card.calls == []
 
 
-def test_gradient_at_256_raises_before_any_launch(no_card):
-    """``flash_attention`` on tensors that need a gradient at D 256 raises
-    naming ROADMAP B2.3b before K2 launches; the same call without a
-    gradient runs K2 forward."""
+def test_gradient_at_256_launches_k2_then_k5_k6(no_card):
+    """``flash_attention`` on tensors that need a gradient at D 256
+    launches K2 forward, and K5 then K6 on ``backward()``, each at D
+    256."""
     q, k, v = _qkv(256, grad=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP B2\.3b"):
-        flash_attention(q, k, v, causal=True)
-    assert no_card.calls == []
-    with torch.no_grad():
-        flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True)
     assert [n for n, _ in no_card.calls] == ["flash_attention_fwd"]
-    assert attn.check_backward_head_dim is k56.check_backward_head_dim
+    out.float().sum().backward()
+    names = [n for n, _ in no_card.calls]
+    assert names == ["flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"]
+    args = [a for _, a in no_card.calls]
+    assert (args[0][14], args[1][16], args[2][17]) == (256, 256, 256)
+    assert all(t.grad is not None and t.grad.shape == t.shape
+               for t in (q, k, v))
 
 
 # ---- a narrow Llama at head_dim 256, 8 query heads a KV head -------------------
@@ -356,3 +374,87 @@ def test_bf16_decode_step_matches_jax():
         assert np.isfinite(got).all()
         err = np.abs(got - want).max()
         assert err <= BF16_LOGIT_TOL * np.abs(want).max(), (i, err)
+
+
+# ---- the train step at head_dim 256, G 8 ---------------------------------------
+
+TRAIN_STEPS, TRAIN_ROWS, TRAIN_SEQ = 4, 4, 16
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+PARAM_TOL = dict(rtol=1e-5, atol=5e-5)     # test_torch_train.py's reasons
+# the card's training AdamW (chip_smoke.py phase 5, training_d256): lr 3e-4
+# after a 2-step warmup, beta2 0.95, epsilon 1e-5, weight decay 0.1, clip
+# 1.0.  Its epsilon bounds how far a gradient's float32 sum-order noise
+# (~1e-8 at hidden 2048) moves an update: by <= lr * noise / epsilon, far
+# under atol; at epsilon 1e-8 an element whose gradient is itself ~1e-8
+# takes a step of either sign (Adam's first step is lr * g / (|g| + eps))
+
+
+def _train_opts():
+    return (JaxAdamW(jax_lr.LinearWarmup(3e-4, 2), beta2=0.95, epsilon=1e-5,
+                     weight_decay=0.1, grad_clip=JaxClip(1.0)),
+            AdamW(lr.LinearWarmup(3e-4, 2), beta2=0.95, epsilon=1e-5,
+                  weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0)))
+
+
+def _train_batches(packed):
+    """4 batches of next-token ids; packed: 1-3 documents a row at seeded
+    cuts, positions restarting at each."""
+    rng = np.random.RandomState(43)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        ids = rng.randint(0, VOCAB, (TRAIN_ROWS, TRAIN_SEQ + 1)).astype(
+            np.int32)
+        b = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+        if packed:
+            seg = np.zeros((TRAIN_ROWS, TRAIN_SEQ), np.int32)
+            pos = np.zeros((TRAIN_ROWS, TRAIN_SEQ), np.int32)
+            for r in range(TRAIN_ROWS):
+                cuts = sorted(rng.choice(np.arange(2, TRAIN_SEQ - 1),
+                                         rng.randint(0, 3), replace=False))
+                for c in cuts:
+                    seg[r, c:] += 1
+                start = 0
+                for c in list(cuts) + [TRAIN_SEQ]:
+                    pos[r, start:c] = np.arange(c - start)
+                    start = c
+            b.update(segment_ids=seg, position_ids=pos)
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+def test_head_dim_256_train_step_matches_jax(packed):
+    """Four steps of the port's ``build_train_step`` on the narrow Llama at
+    D 256, G 8 (float32) against JAX's from the same weights, batches and
+    optimizer: losses and final parameters."""
+    batches = _train_batches(packed)
+    jopt, topt = _train_opts()
+    hcg = jdist.HybridCommunicateGroup(devices=jax.devices()[:1])
+    jdist.set_hybrid_group(hcg)
+    try:
+        pt.seed(73)
+        jm = JaxLlama(jax_tiny(**NARROW))
+        init = _state(jm)
+        step, params, opt_state = jdist.build_train_step(jm, jopt, hcg=hcg)
+        want = []
+        key = jax.random.key(0)
+        for i, b in enumerate(batches):
+            batch = jdist.shard_batch(
+                {k: jnp.asarray(a) for k, a in b.items()}, hcg)
+            loss, params, opt_state = step(params, opt_state, batch,
+                                           jax.random.fold_in(key, i))
+            want.append(float(loss))
+        jp = jax.tree.map(np.asarray, params)
+    finally:
+        jdist.set_hybrid_group(None)
+    tm = LlamaForCausalLM(config_from(jm.config), device="cpu")
+    load_jax_state_dict(tm, init)
+    assert tm.config.head_dim == D and tm.config.num_key_value_heads == 1
+    tstep = build_train_step(tm, topt)
+    got = [float(tstep({k: torch.from_numpy(a) for k, a in b.items()}))
+           for b in batches]
+    np.testing.assert_allclose(got, want, **LOSS_TOL)
+    tp = {k: p.detach().numpy() for k, p in tm.named_parameters()}
+    assert set(tp) == set(jp)
+    for k in jp:
+        np.testing.assert_allclose(tp[k], jp[k], **PARAM_TOL, err_msg=k)
