@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time every bf16 forward attention build at the head dims the serving
-phases run, and the backward K5 / K6 at the head dims the training phases
-run, on one NVIDIA GPU, for one or more checkouts of the repository in
-turns.
+phases run, the float32 and float16 builds at head_dim 128, and the
+backward K5 / K6 at the head dims the training phases run, on one NVIDIA
+GPU, for one or more checkouts of the repository in turns.
 
 Run from the repository root::
 
@@ -28,7 +28,11 @@ error a checkout raises for a head dim it does not take.  The shapes are
           (paged in 64-token blocks); K2-paged(-int8) B 4 x 512 over 2048
           keys in 64-token blocks;
   D 256   a Llama at Gemma-2B's widths (Hq 8, Hkv 1): as D 64, and K2
-          causal B 4 x 2048.
+          causal B 4 x 2048;
+  D 128 float32 / float16 / bf16 G 1   ``LlamaConfig()`` and Llama-2-7B
+          (Hq = Hkv = 32): as D 64, and K2 causal B 4 x 2048 (a checkout
+          without a build reports the refusal; bf16 at the same shape is
+          the float16 rows' twin).
 
 and K5 (dq) / K6 (dk, dv) on inputs whose out and lse come from K2 (the
 error: against ``flash_attention_bwd_reference``, dk and dv together):
@@ -52,10 +56,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 POS = [0, 4095, 17, 1000, 2047, 3000, 511, 128]
-# head_dim -> (Hq, Hkv, L, block_len, K2-paged s, K2 contiguous S)
-SHAPES = {128: (32, 8, 4096, 128, 2048, 2048),
-          64: (32, 4, 2048, 64, 512, None),
-          256: (8, 1, 2048, 64, 512, 2048)}
+# label -> (dtype, head_dim, Hq, Hkv, L, block_len, K2-paged s, K2
+# contiguous S)
+SHAPES = {"D 128": ("bfloat16", 128, 32, 8, 4096, 128, 2048, 2048),
+          "D 64": ("bfloat16", 64, 32, 4, 2048, 64, 512, None),
+          "D 256": ("bfloat16", 256, 8, 1, 2048, 64, 512, 2048),
+          "D 128 float32": ("float32", 128, 32, 32, 2048, 64, 512, 2048),
+          "D 128 float16": ("float16", 128, 32, 32, 2048, 64, 512, 2048),
+          "D 128 bf16 G 1": ("bfloat16", 128, 32, 32, 2048, 64, 512, 2048)}
 # head_dim -> (B, S, Hq, Hkv, causal) of the K5 / K6 rows
 BWD_SHAPES = {128: (2, 2048, 32, 8, True),
               72: (32, 256, 16, 16, False),
@@ -85,8 +93,8 @@ def measure(checkout: str) -> dict:
     gen.manual_seed(0)
     bf16 = torch.bfloat16
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     def int8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
@@ -128,7 +136,12 @@ def measure(checkout: str) -> dict:
                 "max_err": round(err, 6)}
 
     out = {"checkout": checkout}
-    for d, (hq, hkv, L, bl, s_paged, s_k2) in SHAPES.items():
+    for label, (dt, d, hq, hkv, L, bl, s_paged, s_k2) in SHAPES.items():
+        dt = getattr(torch, dt)
+        esz = 4 if dt == torch.float32 else 2
+
+        def randq(*shape, dt=dt):
+            return randn(*shape, dtype=dt)
         res = {}
         b = len(POS)
         pos = torch.tensor([min(p, L - 1) for p in POS], dtype=torch.int32,
@@ -138,15 +151,15 @@ def measure(checkout: str) -> dict:
         perm = torch.randperm(n_pool - 1,
                               generator=torch.Generator().manual_seed(d)) + 1
         tables = perm.view(b, mb).to(torch.int32).to(dev)
-        cache_bytes = 2 * b * L * hkv * d * 2
+        cache_bytes = 2 * b * L * hkv * d * esz
         res["K1"] = row(
-            lambda: (randn(b, 1, hq, d), randn(b, L, hkv, d),
-                     randn(b, L, hkv, d)),
+            lambda: (randq(b, 1, hq, d), randq(b, L, hkv, d),
+                     randq(b, L, hkv, d)),
             lambda t: decode_attention_cuda(t[0], t[1], t[2], pos),
             lambda t: cached_decode_attention_reference(t[0], t[1], t[2],
                                                         pos), cache_bytes)
         res["K1-int8"] = row(
-            lambda: (randn(b, 1, hq, d), int8(b, L, hkv, d),
+            lambda: (randq(b, 1, hq, d), int8(b, L, hkv, d),
                      int8(b, L, hkv, d), scales(b, L // 128, hkv),
                      scales(b, L // 128, hkv)),
             lambda t: decode_attention_int8_cuda(t[0], t[1], t[2], pos, t[3],
@@ -155,14 +168,14 @@ def measure(checkout: str) -> dict:
                 t[0], t[1], t[2], pos, k_scale=t[3], v_scale=t[4]),
             cache_bytes // 2)
         res["K1-paged"] = row(
-            lambda: (randn(b, 1, hq, d), randn(n_pool, bl, hkv, d),
-                     randn(n_pool, bl, hkv, d)),
+            lambda: (randq(b, 1, hq, d), randq(n_pool, bl, hkv, d),
+                     randq(n_pool, bl, hkv, d)),
             lambda t: decode_attention_paged_cuda(t[0], t[1], t[2], pos,
                                                   tables),
             lambda t: cached_decode_attention_reference(
                 t[0], t[1], t[2], pos, block_tables=tables), cache_bytes)
         res["K1-paged-int8"] = row(
-            lambda: (randn(b, 1, hq, d), int8(n_pool, bl, hkv, d),
+            lambda: (randq(b, 1, hq, d), int8(n_pool, bl, hkv, d),
                      int8(n_pool, bl, hkv, d), scales(n_pool, hkv),
                      scales(n_pool, hkv)),
             lambda t: decode_attention_paged_int8_cuda(
@@ -175,15 +188,15 @@ def measure(checkout: str) -> dict:
         ppos = torch.tensor([0, L // 16, L // 2, L - s_paged],
                             dtype=torch.int32, device=dev)
         res["K2-paged"] = row(
-            lambda: (randn(pb, s_paged, hq, d), randn(n_pool, bl, hkv, d),
-                     randn(n_pool, bl, hkv, d)),
+            lambda: (randq(pb, s_paged, hq, d), randq(n_pool, bl, hkv, d),
+                     randq(n_pool, bl, hkv, d)),
             lambda t: flash_attention_fwd_paged_cuda(t[0], t[1], t[2], ppos,
                                                      tables[:pb]),
             lambda t: cached_decode_attention_reference(
                 t[0], t[1], t[2], ppos, block_tables=tables[:pb]),
             cache_bytes)
         res["K2-paged-int8"] = row(
-            lambda: (randn(pb, s_paged, hq, d), int8(n_pool, bl, hkv, d),
+            lambda: (randq(pb, s_paged, hq, d), int8(n_pool, bl, hkv, d),
                      int8(n_pool, bl, hkv, d), scales(n_pool, hkv),
                      scales(n_pool, hkv)),
             lambda t: flash_attention_fwd_paged_int8_cuda(
@@ -193,14 +206,14 @@ def measure(checkout: str) -> dict:
                 k_scale=t[3], v_scale=t[4]), cache_bytes // 2)
         if s_k2:
             res["K2"] = row(
-                lambda: (randn(4, s_k2, hq, d), randn(4, s_k2, hkv, d),
-                         randn(4, s_k2, hkv, d)),
+                lambda: (randq(4, s_k2, hq, d), randq(4, s_k2, hkv, d),
+                         randq(4, s_k2, hkv, d)),
                 lambda t: flash_attention_fwd_cuda(t[0], t[1], t[2],
                                                    causal=True)[0],
                 lambda t: flash_attention_reference(t[0], t[1], t[2],
                                                     causal=True)[0],
-                3 * 4 * s_k2 * hq * d * 2)
-        out[f"D {d}"] = res
+                3 * 4 * s_k2 * hq * d * esz)
+        out[label] = res
         torch.cuda.empty_cache()
     for d, (b, s, hq, hkv, causal) in BWD_SHAPES.items():
 

@@ -14,7 +14,8 @@ directory, and this checkout).  Each builds its libraries of
 build is compared instruction by instruction (names taken without the
 anonymous namespace's per-build hash).  Prints one JSON object: for each
 library, how many kernels are identical, which differ, and which only one
-checkout builds.  A change that must leave a kernel as it was shows it
+checkout builds; a library only one checkout builds (a float16 variant,
+``_build.VARIANTS``) is listed with its kernel count.  A change that must leave a kernel as it was shows it
 here without timing noise.  Exits non-zero without a toolkit.
 """
 
@@ -26,19 +27,19 @@ import subprocess
 import sys
 from pathlib import Path
 
-SOURCES = ("flash_attention_bwd", "flash_attention_fwd", "decode_attention",
-           "int8_matmul")
 # the anonymous namespace's mangled name carries a hash of the build
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
 
 
 def libraries(checkout: str) -> dict:
-    """{source: built library path} of ``checkout``, built in a process
-    of its own (both checkouts' packages are named alike)."""
+    """{library: built library path} of ``checkout`` (every library its
+    ``_build`` lists), built in a process of its own (both checkouts'
+    packages are named alike)."""
     code = ("import json, sys; sys.path.insert(0, %r); "
             "from paddle_tpu_torch.ops.cuda import _build; _build.build(); "
-            "print(json.dumps({n: str(_build._library(n)) for n in %r}))"
-            % (str(Path(checkout).resolve()), SOURCES))
+            "names = getattr(_build, 'LIBRARIES', _build.SOURCES); "
+            "print(json.dumps({n: str(_build._library(n)) for n in names}))"
+            % str(Path(checkout).resolve()))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -74,7 +75,13 @@ def main(argv=None) -> int:
         return 2
     first, second = (libraries(c) for c in args)
     report = {}
-    for name in SOURCES:
+    for name in sorted(set(first) | set(second)):
+        if name not in first or name not in second:
+            side = "second" if name in second else "first"
+            path = (second if name in second else first)[name]
+            report[name] = {f"library_only_in_{side}":
+                            len(kernels(cuobjdump, path))}
+            continue
         a, b = kernels(cuobjdump, first[name]), kernels(cuobjdump,
                                                         second[name])
         both = sorted(set(a) & set(b))

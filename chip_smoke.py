@@ -419,7 +419,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 (and float16) tensor cores
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 
 KERNEL_INFO = {
@@ -552,6 +552,15 @@ BF16_D256_BWD = ("flash_attention_bwd_dq" + BF16_D256,
                  "flash_attention_bwd_dkv" + BF16_D256)
 for _name in BF16_D256_BWD:
     KERNEL_INFO[_name] = dict(KERNEL_INFO[_name[:-len(BF16_D256)]])
+# every float16 forward build (the K1 family, K2 in every layout, K4: the
+# bf16 bodies compiled over float16, libraries of their own) has an entry of
+# its own, the kernel of its namesake at float16: phase 2's "/f16" rows --
+# times at Llama-2-7B's shapes (head_dim 128), the largest error over D 64,
+# 72, 128, 136 and 256 -- and launches from serving_f16's engines
+F16 = "/f16"
+F16_BUILDS = BF16_D256_BUILDS + ("int8_matmul",)
+for _name in F16_BUILDS:
+    KERNEL_INFO[_name + F16] = dict(KERNEL_INFO[_name])
 del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -1073,12 +1082,13 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     results = {}
 
     def tols(dt):
-        # bf16 output: 2^-8 relative, f32 inside; float32: sum order only
-        return (1e-2, 1e-2) if dt == bf16 else (1e-5, 1e-5)
+        # bf16 output: 2^-8 relative, f32 inside; float16: 2^-11, bf16's
+        # scaled by 8x finer rounding with margin; float32: sum order only
+        return {bf16: (1e-2, 1e-2), f16: (2e-3, 2e-3)}.get(dt, (1e-5, 1e-5))
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
@@ -1096,6 +1106,13 @@ def phase_kernels(torch):
     check(all(r is None or r["spill_stores"] == 0
               for fns in wide_regs.values() for r in fns.values()),
           f"a bf16 build above head_dim 128 spills: {wide_regs}")
+    # and of every float16 instance, beside its bf16 twin's registers
+    f16_regs = f16_ptxas(_build.build_log)
+    emit({"phase": "f16_ptxas", "functions": f16_regs})
+    check(all(fns is None or (fns and all(
+        r["spill_stores"] == 0 for r in fns.values()))
+        for fns in f16_regs.values()),
+        f"a float16 build spills or has no instance: {f16_regs}")
 
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
                main, note=None, extra=None):
@@ -1118,6 +1135,8 @@ def phase_kernels(torch):
             row["ptxas"] = f32_regs[name[:-len(F32_D128)]]
         if name.endswith(BF16_D256):
             row["ptxas"] = wide_regs[name[:-len(BF16_D256)]]
+        if name.endswith(F16):
+            row["ptxas"] = f16_regs[name[:-len(F16)]]
         row.update(extra or {})
         emit(row)
         check(ok, f"{name} {shape}: max error {err} beyond {tol}")
@@ -1623,6 +1642,7 @@ def phase_kernels(torch):
                              int8_scales, tols)
     phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
                              int8_scales, tols, wide=True)
+    phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols)
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
@@ -1642,11 +1662,19 @@ def phase_kernels(torch):
             # the speculative verify tick: 8 rows x (k + 1) = 40
             (bf16, 40, 4096, 14336, False),
             (bf16, 40, 4096, 128256, False),
+            # float16 x (the /f16 entry): Llama-2-7B's decode tick at every
+            # projection shape, a short wave and the 256-row limit
+            (f16, 8, 4096, 11008, True),           # gate_proj, up_proj
+            (f16, 8, 4096, 4096, False),           # q, k, v, o_proj
+            (f16, 8, 11008, 4096, False),          # down_proj
+            (f16, 8, 4096, 32000, False),          # lm_head
+            (f16, 64, 4096, 11008, False),
+            (f16, 256, 4096, 4096, False),
             (f32, 8, 64, 32, False),
             (f32, 8, 128, 64, False),
             (f32, 3, 64, 256, False)):
         atol, rtol = tols(dt)
-        esz = 2 if dt == bf16 else 4
+        esz = 4 if dt == f32 else 2
         sets = []
         for _ in range(copies(k * n)):
             w8 = int8_payload(k, n)
@@ -1667,8 +1695,9 @@ def phase_kernels(torch):
                                  for t in sets])
         nbytes = k * n + 4 * n + (rows * k + rows * n) * esz
         bms, by = bound(nbytes, 2 * rows * k * n,
-                        BF16_FLOPS if dt == bf16 else F32_FLOPS)
-        record("int8_matmul", f"rows={rows} K={k} N={n} int8 w, "
+                        F32_FLOPS if dt == f32 else BF16_FLOPS)
+        record("int8_matmul" + (F16 if dt == f16 else ""),
+               f"rows={rows} K={k} N={n} int8 w, "
                f"{str(dt)[6:]} x", err, f"atol {atol} + rtol {rtol}", ok,
                kfns, plain_ms, lib_ms, bms, by, main,
                note=MATMUL_LIBRARY_NOTE)
@@ -1746,7 +1775,8 @@ def k2_rows(torch, record, randn, tols, rows):
     for (name, dt, b, sq, skv, hq, hkv, d, causal, segments, main) in rows:
         atol, rtol = tols(dt)
         lse_tol = 1e-3 if dt == bf16 else 1e-5
-        esz = 2 if dt == bf16 else 4
+        half = dt in (bf16, torch.float16)
+        esz = 2 if half else 4
         seg = kv_seg = None
         ring = segments == "ring"
         if ring:
@@ -1789,7 +1819,7 @@ def k2_rows(torch, record, randn, tols, rows):
         nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esz \
             + 4 * b * hq * sq + (0 if seg is None else 4 * b * (sq + skv))
         bms, by = bound(nbytes, 4 * d * hq * pairs,
-                        BF16_FLOPS if dt == bf16 else F32_FLOPS)
+                        BF16_FLOPS if half else F32_FLOPS)
         tag = (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
                f"{'causal' if causal else 'causal=False'} "
                f"{'ring-hop kv_segment_ids ' if ring else ''}"
@@ -1990,14 +2020,68 @@ BF16_D256_FUNCTIONS.update({
 
 def ptxas_of(build_log, functions):
     """{build: {function tag: registers / spill bytes}} of ``functions``
-    ({build: tags}), from this process's ptxas reports (None for a library
-    an earlier process built)."""
+    ({build: tags}), from this process's ptxas reports of the default
+    libraries (None for a library an earlier process built; the float16
+    libraries, whose functions can carry the same names, are
+    :func:`f16_ptxas`'s)."""
+    from paddle_tpu_torch.ops.cuda import _build
     fns = {}
-    for log in build_log.values():
-        fns.update(ptxas_functions(log))
+    for lib, log in build_log.items():
+        if lib not in _build.VARIANTS:
+            fns.update(ptxas_functions(log))
     return {build: {tag: next((r for f, r in fns.items() if tag in f),
                               None) for tag in tags}
             for build, tags in functions.items()}
+
+
+# the C functions of each float16 build (every instance whose mangled name
+# holds a tag): the K1 family's decode_mma_kernel<INT8, PAGED, ...>, K2's
+# flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, ...>, K4's wgmma
+# kernel and its split-K reduction
+F16_FUNCTIONS = {
+    name: (f"decode_mma_kernelILb{int8}ELb{paged}E",)
+    for name, int8, paged in K1_MMA_BUILDS}
+F16_FUNCTIONS.update({
+    "flash_attention_fwd": tuple(
+        f"flash_attention_fwd_wgmma_kernelILb{seg}ELb0ELb0E"
+        for seg in (0, 1)),
+    "flash_attention_fwd_paged": (
+        "flash_attention_fwd_wgmma_kernelILb0ELb1ELb0E",),
+    "flash_attention_fwd_paged_int8": (
+        "flash_attention_fwd_wgmma_kernelILb0ELb1ELb1E",),
+    "int8_matmul": ("int8_matmul_wgmma_kernel", "int8_matmul_reduce")})
+# the element types as mangled names spell them
+F16_TYPE, BF16_TYPE = "6__half", "13__nv_bfloat16"
+# a mangled name's anonymous-namespace prefix (it carries a build hash)
+ANON_PREFIX = re.compile(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+")
+
+
+def f16_ptxas(build_log):
+    """{build: {function: registers and spill bytes, beside the bf16
+    twin's registers}} of every float16 build (``F16_FUNCTIONS``), from
+    this process's ptxas reports of the float16 libraries
+    (``_build.VARIANTS``) and of the default library of their source (the
+    same function at bf16); None for a library an earlier process
+    built."""
+    from paddle_tpu_torch.ops.cuda import _build
+    out = {}
+    for build, tags in F16_FUNCTIONS.items():
+        src = ("int8_matmul" if build == "int8_matmul" else
+               "decode_attention" if build.startswith("decode")
+               else "flash_attention_fwd")
+        log = build_log.get(src + "_f16")
+        if log is None:
+            out[build] = None
+            continue
+        twins = ptxas_functions(build_log.get(src, ""))
+        # a twin's mangled name spells the element type bf16 where the
+        # float16 instance's spells __half
+        out[build] = {
+            ANON_PREFIX.sub("", f): dict(r, bf16_registers=twins.get(
+                f.replace(F16_TYPE, BF16_TYPE), {}).get("registers"))
+            for f, r in ptxas_functions(log).items()
+            if any(t in f for t in tags)}
+    return out
 
 
 def f32_d128_ptxas(build_log):
@@ -2268,6 +2352,12 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
             del cache, dense
 
 
+# Llama-2-7B's attention (serving_f16): 32 query heads, 32 KV heads
+L27_HEADS = 32
+# phase 2's float16 head dims: Llama-2-7B's 128, the narrow and wide tiles
+# and ring rows (64, 256), and D % 16 == 8 on both (72, 136: the int8
+# builds' 8-byte copies and K2-paged-int8's CP8 staging)
+F16_DIMS = (64, 72, 128, 136, 256)
 # TinyLlama-1.1B's attention (serving_tinyllama): 32 query heads, 4 KV heads
 TL_HEADS, TL_KV_HEADS = 32, 4
 # phase 2's bf16 head dims below 128: the tiny config's 16, TinyLlama's 64,
@@ -2281,7 +2371,7 @@ G2B_HEADS, G2B_KV_HEADS = 8, 1
 
 
 def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
-                             tols, wide=False):
+                             tols, wide=False, f16=False):
     """Phase 2's rows of every bf16 build of K1 and K2-paged below head_dim
     128, each held against its plain version at ``tols(bfloat16)`` under
     the ``/bf16_d64`` entries (``head_dim`` on each row), at D 16, 64, 72
@@ -2313,7 +2403,15 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     every D: the training micro-batch's shape B 4 x 2048 causal (the main
     row at D 256), Sq 77 over Skv 61 (dead rows), packed documents at S
     2048, the ring hop (Sq 256, Skv 512), not causal at B 4 x 512 and Sq
-    64 over Skv 256."""
+    64 over Skv 256.
+
+    ``f16``: the forward rows at float16 under the ``/f16`` entries at D
+    64, 72, 128, 136 and 256 (72 and 136: the 8-byte int8 copies, the CP8
+    staging and the PAD instances) at Llama-2-7B's heads (32 over 32; the
+    main rows and the verify window at D 128), then K2 at the serving wave
+    (B 4 x 2048) and dead rows (Sq 77 over Skv 61) at every D, packed
+    documents, the ring hop and not causal at D 128, and the identity view
+    at pos 0 and 1024; no backward (ROADMAP B2.4b)."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2324,12 +2422,21 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     import torch.nn.functional as TF
 
     dev = torch.device("cuda")
-    bf16 = torch.bfloat16
+    bf16 = torch.float16 if f16 else torch.bfloat16   # the rows' dtype
+    tname = "float16" if f16 else "bf16"
     atol, rtol = tols(bf16)
-    suffix = BF16_D256 if wide else BF16_D64
-    dims = BF16_WIDE_DIMS if wide else BF16_SMALL_DIMS
-    main_d = 256 if wide else 64
-    hq, hkv = (G2B_HEADS, G2B_KV_HEADS) if wide else (TL_HEADS, TL_KV_HEADS)
+    if f16:
+        suffix, dims, main_d = F16, F16_DIMS, 128
+        hq = hkv = L27_HEADS
+    else:
+        suffix = BF16_D256 if wide else BF16_D64
+        dims = BF16_WIDE_DIMS if wide else BF16_SMALL_DIMS
+        main_d = 256 if wide else 64
+        hq, hkv = ((G2B_HEADS, G2B_KV_HEADS) if wide
+                   else (TL_HEADS, TL_KV_HEADS))
+
+    def randn(*shape, dtype=bf16, _randn=randn):
+        return _randn(*shape, dtype=dtype)
 
     def sdpa(q, k, v, mask):
         return lambda: TF.scaled_dot_product_attention(
@@ -2366,7 +2473,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
                            budget_ms=100.0)
         lib_ms = time_ms(torch, lib) if lib else None
-        bms, by = bound(nbytes, ops, BF16_FLOPS)
+        bms, by = bound(nbytes, ops, BF16_FLOPS)   # float16's peak is bf16's
         record(name + suffix, shape, err, tol, ok,
                [lambda t=t: fn(t) for t in sets], plain_ms, lib_ms, bms,
                by, main, note=note, extra=extra)
@@ -2400,7 +2507,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         dead = ((0, -pos_list[0]) if pos_list[0] < 0 else None)
         mask = cache_mask(pos, s, L)
         shape = (f"B={b} s={s} L={L} Hq={hq} Hkv={hkv} D={d} "
-                 f"pos={pos_list} bf16")
+                 f"pos={pos_list} {tname}")
         sets = [(randn(b, s, hq, d), randn(b, L, hkv, d), randn(b, L, hkv, d))
                 for _ in range(copies(4 * b * L * hkv * d))]
         row("decode_attention", d, shape,
@@ -2437,7 +2544,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         idx = tables.long()
         pshape = (f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
                   f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
-                  f"bf16")
+                  f"{tname}")
         for int8 in (False, True):
             if int8:
                 sets = [(randn(b, s, hq, d),
@@ -2516,7 +2623,8 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
             row("flash_attention_fwd_paged" + ("_int8" if int8 else ""), d,
                 f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
                 f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
-                f"bf16" + (", int8 K/V" if int8 else ""), runp, plainp, sets,
+                f"{tname}" + (", int8 K/V" if int8 else ""), runp, plainp,
+                sets,
                 lib, 2 * b * s * hq * d * 2
                 + live_keys * hkv * d * (1 if int8 else 2) * 2
                 + (live_blocks * hkv * 4 * 2 if int8 else 0)
@@ -2536,6 +2644,22 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         k2_paged(d, 4, 512, 64, F32_L // 64, [0, 128, 1024, 1536],
                  ((2, 3, 8), (0, 1, 1)), d == main_d, False)
         k2_paged(d, 3, 130, 64, 16, [-1, 0, 700], ((1, 2, 3),), False, True)
+    if f16:
+        k2 = "flash_attention_fwd" + F16
+        k2_rows(torch, record, randn, tols,
+                [(k2, bf16, 4, F32_L, F32_L, hq, hkv, d, True, None,
+                  d == main_d) for d in dims]
+                + [(k2, bf16, 2, 77, 61, hq, hkv, d, True, None, False)
+                   for d in dims]
+                + [(k2, bf16, 2, F32_L, F32_L, hq, hkv, main_d, True,
+                    "packed", False),
+                   (k2, bf16, 2, 256, 512, hq, hkv, main_d, True, "ring",
+                    False),
+                   (k2, bf16, 4, 512, 512, hq, hkv, main_d, False, None,
+                    False)])
+        phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
+                            tols, f16=True)
+        return
     if not wide:
         return
 
@@ -2565,6 +2689,128 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
             (4, 512, 512, False, None, False),
             (4, 64, 256, False, None, False))
         for d in dims])
+
+
+def phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols):
+    """Phase 2's float16 rows (the ``/f16`` entries): the int8 -> float16
+    converters of K1 / K2 and of K4 against a table of all 256 bytes
+    (``int8_tables`` line, beside the bf16 ones); every forward build at D
+    64, 72, 128, 136 and 256 (:func:`phase_bf16_head_dim_rows` with
+    ``f16``); then the range rows, where float16's 5 exponent bits (largest
+    65504, smallest normal 6.1e-5) differ from bf16's 8: K1 and K2 with
+    scores near +-30 and V entries near 1e3, and K1-int8, K1-paged-int8
+    and K2-paged-int8 with V scales near 1e-4 (P times such a scale is
+    float16-subnormal: the kernels apply it relative to the tile's
+    largest, in float32, as the reference scales the float32 P.V product),
+    each held at 2e-3 of its largest output (outputs near 1e-2 would pass
+    any atol of 2e-3)."""
+    import ctypes
+    from paddle_tpu_torch.ops import (cached_decode_attention_reference,
+                                      decode_attention_cuda,
+                                      decode_attention_int8_cuda,
+                                      decode_attention_paged_int8_cuda,
+                                      flash_attention_fwd_cuda,
+                                      flash_attention_fwd_paged_int8_cuda,
+                                      flash_attention_reference)
+    from paddle_tpu_torch.ops.cuda import _build, stream_ptr
+
+    dev = torch.device("cuda")
+    f16 = torch.float16
+    byte = torch.arange(256, device=dev).to(torch.uint8).view(torch.int8)
+    # K4's converter returns the pairs {4i, 4i + 2}, {4i + 1, 4i + 3}
+    pairs = torch.tensor([j for i in range(64)
+                          for j in (4 * i, 4 * i + 2, 4 * i + 1, 4 * i + 3)],
+                         device=dev)
+    tables = {}
+    for lib, fn, order in (
+            ("decode_attention", "decode_attention_int8_table", None),
+            ("int8_matmul", "int8_matmul_int8_table", pairs)):
+        for dt, name in ((torch.bfloat16, lib), (f16, lib + "_f16")):
+            entry = getattr(_build.load(name), fn)
+            entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+            out = torch.zeros(256, dtype=dt, device=dev)
+            _build.check(_build.load(name), lib,
+                         entry(out.data_ptr(), stream_ptr(dev)))
+            want = (byte if order is None else byte[order]).to(dt)
+            torch.cuda.synchronize()
+            tables[name] = bool(torch.equal(out, want))
+    emit({"phase": "int8_tables", "bytes": 256, "exact": tables})
+    check(all(tables.values()), f"an int8 converter is not exact: {tables}")
+
+    phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
+                             int8_scales, tols, f16=True)
+
+    def range_row(name, shape, fn, plain, nbytes, ops):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, top = max_err(got, want), float(want.float().abs().max())
+        ok = err <= 2e-3 * top and bool(torch.isfinite(got).all().item())
+        bms, by = bound(nbytes, ops, BF16_FLOPS)
+        record(name + F16, "range: " + shape, err,
+               f"2e-3 of the largest output ({top})", ok, [fn],
+               time_ms(torch, [plain], budget_ms=50.0), None, bms, by,
+               False, extra={"head_dim": 128, "max_abs_out": top})
+
+    d, h, b, L = 128, 8, 4, 2048
+    pos = torch.tensor([2047, 1000, 17, 1536], dtype=torch.int32, device=dev)
+    ops = sum(4 * d * h * (p + 1) for p in (2047, 1000, 17, 1536))
+    # scores near +-30 (q and k of std 3: q.k / sqrt(128) of std 9) and V
+    # entries near 1e3
+    q = 3 * randn(b, 1, h, d, dtype=f16)
+    k = 3 * randn(b, L, h, d, dtype=f16)
+    v = 1e3 * randn(b, L, h, d, dtype=f16)
+    range_row("decode_attention", f"B={b} s=1 L={L} Hq=Hkv={h} D={d} "
+              "float16, q and k of std 3, v of std 1e3",
+              lambda: decode_attention_cuda(q, k, v, pos),
+              lambda: cached_decode_attention_reference(q, k, v, pos),
+              2 * b * L * h * d * 2, ops)
+    qw = 3 * randn(2, 512, h, d, dtype=f16)
+    kw_, vw = k[:2, :512].contiguous(), v[:2, :512].contiguous()
+    range_row("flash_attention_fwd", f"B=2 Sq=Skv=512 Hq=Hkv={h} D={d} "
+              "causal float16, q and k of std 3, v of std 1e3",
+              lambda: flash_attention_fwd_cuda(qw, kw_, vw, causal=True)[0],
+              lambda: flash_attention_reference(qw, kw_, vw,
+                                                causal=True)[0],
+              4 * 2 * 512 * h * d * 2, 2 * d * h * 2 * 512 * 513)
+    del q, k, v, qw, kw_, vw
+    # V scales near 1e-4 (K's as phase 2's)
+    q = randn(b, 1, h, d, dtype=f16)
+    k8, v8 = int8_payload(b, L, h, d), int8_payload(b, L, h, d)
+    ks, vs = int8_scales(b, L // 128, h), 1e-4 * (
+        0.5 + torch.rand(b, L // 128, h, device=dev))
+    range_row("decode_attention_int8", f"B={b} s=1 L={L} Hq=Hkv={h} D={d} "
+              "float16 q, int8 K/V granule 128, V scales near 1e-4",
+              lambda: decode_attention_int8_cuda(q, k8, v8, pos, ks, vs),
+              lambda: cached_decode_attention_reference(
+                  q, k8, v8, pos, k_scale=ks, v_scale=vs),
+              2 * b * L * h * d, ops)
+    bl = 64
+    nblk = b * L // bl
+    table = torch.randperm(nblk, device=dev).int().view(b, L // bl)
+    kp, vp = k8.view(nblk, bl, h, d), v8.view(nblk, bl, h, d)
+    pks, pvs = int8_scales(nblk, h), 1e-4 * (
+        0.5 + torch.rand(nblk, h, device=dev))
+    range_row("decode_attention_paged_int8",
+              f"B={b} s=1 block_len={bl} Hq=Hkv={h} D={d} float16 q, int8 "
+              "K/V, V scales near 1e-4",
+              lambda: decode_attention_paged_int8_cuda(q, kp, vp, pos, table,
+                                                       pks, pvs),
+              lambda: cached_decode_attention_reference(
+                  q, kp, vp, pos, block_tables=table, k_scale=pks,
+                  v_scale=pvs), 2 * b * L * h * d, ops)
+    qp = randn(b, 256, h, d, dtype=f16)
+    pos2 = torch.tensor([0, 512, 1024, 1792], dtype=torch.int32, device=dev)
+    range_row("flash_attention_fwd_paged_int8",
+              f"B={b} s=256 block_len={bl} Hq=Hkv={h} D={d} float16 q, int8 "
+              "K/V, V scales near 1e-4",
+              lambda: flash_attention_fwd_paged_int8_cuda(
+                  qp, kp, vp, pos2, table, pks, pvs),
+              lambda: cached_decode_attention_reference(
+                  qp, kp, vp, pos2, block_tables=table, k_scale=pks,
+                  v_scale=pvs), 2 * b * L * h * d,
+              sum(4 * d * h * (p + i + 1) for p in (0, 512, 1024, 1792)
+                  for i in range(256)))
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -2711,7 +2957,7 @@ def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
 
 
 def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
-                        tols, wide=False):
+                        tols, wide=False, f16=False):
     """Phase 2's rows of the contiguous cache through its identity view
     (``ops.attention.identity_view``, the chunked engine's prompt chunk):
     K2-paged and K2-paged-int8 over an 8-row, 4096-position bf16 cache
@@ -2724,7 +2970,9 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
     Gemma-2B-wide Llama's attention (head_dim 256, 8 query heads over 1
     KV head) over a 2048-position cache (chunks at pos 0, 1024 and 1792),
     every row under the ``/bf16_d256`` entries (``crossover_d256``
-    line)."""
+    line).  ``f16``: the chunk rows at float16 at Llama-2-7B's attention
+    (head_dim 128, 32 over 32 heads) over a 2048-position cache, chunks at
+    pos 0 and 1024, under the ``/f16`` entries; no crossover."""
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda)
@@ -2733,7 +2981,7 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
     import torch.nn.functional as TF
 
     dev = torch.device("cuda")
-    bf16 = torch.bfloat16
+    bf16 = torch.float16 if f16 else torch.bfloat16   # the rows' dtype
     nrow, L, hq, hkv, d, gr = 8, 4096, 32, 8, 128, 128
     chunk_pos = (0, 1024, 3840)
     pos_list = [0, 3000, 17, 1000, 2047, 3000, 511, 128]
@@ -2743,6 +2991,10 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
         chunk_pos = (0, 1024, 1792)
         pos_list = [min(p, L - 256) for p in pos_list]
         tag = BF16_D256
+    if f16:
+        L, hq, hkv = F32_L, L27_HEADS, L27_HEADS
+        chunk_pos = (0, 1024)
+        tag = F16
     atol, rtol = tols(bf16)
 
     def cache_sets(int8, n):
@@ -2751,8 +3003,8 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                      int8_payload(nrow, L, hkv, d),
                      int8_scales(nrow, L // gr, hkv),
                      int8_scales(nrow, L // gr, hkv)) for _ in range(n)]
-        return [(randn(nrow, L, hkv, d), randn(nrow, L, hkv, d))
-                for _ in range(n)]
+        return [(randn(nrow, L, hkv, d, dtype=bf16),
+                 randn(nrow, L, hkv, d, dtype=bf16)) for _ in range(n)]
 
     def dense(c, r, n):
         """Rows ``r`` of a cache set as bf16 (B, n, Hkv, D) K and V (int8:
@@ -2797,7 +3049,7 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
         s = 256
         for p in chunk_pos:
             sets = cache_sets(int8, copies((p + s) * hkv * d * 2 * 2))
-            q = randn(1, s, hq, d)
+            q = randn(1, s, hq, d, dtype=bf16)
             pos = torch.tensor([p], dtype=torch.int32, device=dev)
             rows = torch.tensor([5], dtype=torch.int32, device=dev)
 
@@ -2821,12 +3073,15 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
             record(name,
                    f"identity view: cache B={nrow} L={L} Hq={hq} Hkv={hkv} "
                    f"D={d} block_len={gr if int8 else 64}, row 5, s={s} "
-                   f"pos={p}" + (f" int8 K/V granule {gr}, bfloat16 q"
-                                 if int8 else " bfloat16"),
+                   f"pos={p}" + (f" int8 K/V granule {gr}, {str(bf16)[6:]} q"
+                                 if int8 else f" {str(bf16)[6:]}"),
                    err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms,
-                   lib_ms, bms, by, p == 1024 and not wide, note=note,
+                   lib_ms, bms, by, p == 1024 and not (wide or f16),
+                   note=note,
                    extra={"head_dim": d})
             del sets, got, want
+    if f16:
+        return
 
     # the crossover: K1 (8-row tiles, each re-reading its row's live
     # prefix) against K2-paged over the identity view, one batch
@@ -6011,10 +6266,11 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
 TL_BLOCK_LEN = 64       # the paged engines' blocks: the shared prompt is 8
 
 
-def serve_bf16_llama(torch, kernels, card, phase, config, widths, head_dim,
-                     suffix, builds):
-    """A bf16 Llama at ``widths`` (LlamaConfig fields; ``head_dim`` and 8
-    query heads a KV head checked), seeded, served by serving_f32's four
+def serve_llama(torch, kernels, card, phase, config, widths, head_dim, group,
+                suffix, builds, int8_weights=False):
+    """A 16-bit Llama at ``widths`` (LlamaConfig fields, their dtype
+    bfloat16 or float16; ``head_dim`` and ``group`` query heads a KV head
+    checked), seeded, served by serving_f32's four
     engines built and freed one after another -- contiguous, paged with
     the prefix cache (block_len TL_BLOCK_LEN), int8-KV paged and int8-KV
     contiguous (8 slots of F32_L positions, prefill_batch 4) -- on
@@ -6029,20 +6285,27 @@ def serve_bf16_llama(torch, kernels, card, phase, config, widths, head_dim,
     path's distance from a float32 copy of the weights on a float32 cache
     (:func:`int8_gate`).  ``generate``: one graphed build, bit-equal to
     its eager twin, K1 once a layer a decode step, K2 once a layer a
-    prefill.  Reported: tok/s, TTFT, TPOT, decode-step p50 beside the
-    weights' byte bound of a tick, peak memory.  ``builds`` take their
-    ``suffix`` entries' launches in ``kernels``; every line is a
-    ``phase`` line naming ``config``."""
+    prefill.  ``int8_weights``: then one more engine on the model's
+    ``QuantizedForDecode`` (int8 weights, int8 KV, paged with the prefix
+    cache: phase 4c's configuration) with the same gates (its truth the
+    paged one) and K4 7 a layer + the LM head a tick, and greedy
+    ``generate`` on it (K4 the same a decode step).  Reported: tok/s,
+    TTFT, TPOT, decode-step p50 beside the weights' byte bound of a tick,
+    peak memory.  ``builds`` take their ``suffix`` entries' launches in
+    ``kernels``; every line is a ``phase`` line naming ``config``."""
     import numpy as np
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         quantize_for_decode)
     from paddle_tpu_torch.ops._dispatch import reference_mode
 
     dev = torch.device("cuda")
     cfg = LlamaConfig(**widths)
     layers = cfg.num_hidden_layers
     check(cfg.head_dim == head_dim and cfg.num_attention_heads
-          // cfg.num_key_value_heads == 8,
-          f"{config} is at head_dim {cfg.head_dim}")
+          // cfg.num_key_value_heads == group,
+          f"{config} is at head_dim {cfg.head_dim}, "
+          f"{cfg.num_attention_heads // cfg.num_key_value_heads} query "
+          f"heads a KV head")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -6067,7 +6330,8 @@ def serve_bf16_llama(torch, kernels, card, phase, config, widths, head_dim,
     prompts = f32_serving_prompts(cfg.vocab_size)
     engine_kw = dict(num_slots=8, max_length=F32_L, prefill_batch=4)
     base = {"phase": phase, "card": card, "config": config,
-            "params": n_params, "weight_bytes_bound_ms": weight_bound_ms,
+            "dtype": cfg.dtype, "params": n_params,
+            "weight_bytes_bound_ms": weight_bound_ms,
             "init_s": round(init_s, 3), "requests": len(prompts),
             "prompt_lengths": [int(p.size) for p in prompts],
             "new_tokens": F32_NEW_TOKENS}
@@ -6152,7 +6416,76 @@ def serve_bf16_llama(torch, kernels, card, phase, config, widths, head_dim,
           "prompt": GEN_PROMPT, "generate_new_tokens": GEN_NEW,
           "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2**30,
                                   3), **greedy})
+    if not int8_weights:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return
+
+    # int8 weights (the model's QuantizedForDecode) and int8 KV, paged with
+    # the prefix cache: K4 on every projection of a tick and of a wave of
+    # up to 256 rows
+    qmodel = quantize_for_decode(model)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4_tick = 7 * layers + (0 if cfg.tie_word_embeddings else 1)
+    hbm_q, _ = qmodel.hbm_bytes()
+    kw = dict(engine_kw, paged=True, block_len=TL_BLOCK_LEN,
+              kv_cache_dtype="int8", int8_weights=True)
+    attention = {"decode_attention_paged_int8": ("tick",),
+                 "flash_attention_fwd_paged_int8": ("wave",)}
+    what = f"{phase} int8_weights"
+    run = _serve_8b(torch, qmodel, prompts, new_tokens=F32_NEW_TOKENS, **kw)
+    twin = eager_twin(torch, qmodel, prompts, run, what,
+                      new_tokens=F32_NEW_TOKENS, **kw)
+    got, _ = f32_forced_logits(torch, qmodel, "int8_paged")
+    with reference_mode():
+        want, _ = f32_forced_logits(torch, qmodel, "int8_paged")
+    gate = dict(logit_gate(got, want),
+                **int8_gate(got, want, truths["paged"]))
+    del got, want
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    emit({**base, "engine": "int8_weights", **serving_fields(run),
+          "model_hbm_bytes": hbm_q,
+          "int8_weight_bytes_bound_ms": hbm_q / HBM_BYTES_PER_S * 1e3,
+          "prefill_waves": m["prefill_waves"],
+          "decode_ticks": m["decode_ticks"],
+          "wave_keys": run["wave_keys"], "cache_bytes": run["cache_bytes"],
+          "kv_cache": m.get("kv_cache"), "launches": launches,
+          "routes": routes, "eager_twin": twin,
+          "teacher_forced_logits": gate})
+    check_graph(run, what)
+    check_twin(twin, what)
+    check_attention_launches(what, launches, routes,
+                             attention_launches(m, attention, layers))
+    check(launches["int8_matmul"] >= k4_tick * m["decode_ticks"],
+          f"{what}: K4 launched {launches['int8_matmul']} times for "
+          f"{m['decode_ticks']} decode ticks")
+    check_logit_gate(gate, what + " teacher-forced")
+    check(m["kv_cache"]["prefix_hit_tokens"] > 0,
+          f"{what}: no prefix hit on the shared prompt")
+    if "int8_matmul" in builds:
+        kernels["int8_matmul" + suffix].setdefault(
+            "launches", launches["int8_matmul"])
+    del run, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want = {"decode_attention": layers * (GEN_NEW - 1),
+            "flash_attention_fwd": layers,
+            "rms_norm": (2 * layers + 1) * GEN_NEW,
+            "int8_matmul": k4_tick * (GEN_NEW - 1)}
+    torch.cuda.reset_peak_memory_stats()
+    greedy, _, _, _ = graphed_and_twin(
+        torch, qmodel, lambda: qmodel.generate(ids, max_new_tokens=GEN_NEW),
+        f"{phase} generate int8_weights", want, GEN_NEW, want_shapes=shapes)
+    greedy.pop("routes")
+    emit({**base, "engine": "generate_int8_weights", "batch": GEN_BATCH,
+          "prompt": GEN_PROMPT, "generate_new_tokens": GEN_NEW,
+          "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2**30,
+                                  3), **greedy})
+    del qmodel
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6160,12 +6493,11 @@ def serve_bf16_llama(torch, kernels, card, phase, config, widths, head_dim,
 def phase_serving_tinyllama(torch, kernels, card):
     """TinyLlama-1.1B's published widths (``TINYLLAMA``: 22 layers of 32 /
     4 heads of 64, hidden 2048, vocab 32000; bf16, 2.2 GB of seeded
-    weights) through :func:`serve_bf16_llama`: the decode kernel 22 a
+    weights) through :func:`serve_llama`: the decode kernel 22 a
     tick, the wave kernel 22 a wave or chunk; launches of the
     ``/bf16_d64`` entries."""
-    serve_bf16_llama(torch, kernels, card, "serving_tinyllama",
-                     "TinyLlama-1.1B", TINYLLAMA, 64, BF16_D64,
-                     BF16_D64_BUILDS)
+    serve_llama(torch, kernels, card, "serving_tinyllama", "TinyLlama-1.1B",
+                TINYLLAMA, 64, 8, BF16_D64, BF16_D64_BUILDS)
 
 
 # serving_d256: a Llama at Gemma-2B's published widths (google/gemma-2b
@@ -6185,12 +6517,46 @@ GEMMA2B_WIDTHS = dict(vocab_size=256000, hidden_size=2048,
 def phase_serving_d256(torch, kernels, card):
     """A Llama at Gemma-2B's widths (``GEMMA2B_WIDTHS``: 18 layers of 8 / 1
     heads of 256, hidden 2048, vocab 256000, tied embeddings; bf16, 5.0 GB
-    of seeded weights) through :func:`serve_bf16_llama`: the decode kernel
+    of seeded weights) through :func:`serve_llama`: the decode kernel
     18 a tick, the wave kernel 18 a wave or chunk, every one a build above
     head_dim 128; launches of the ``/bf16_d256`` entries."""
-    serve_bf16_llama(torch, kernels, card, "serving_d256",
-                     "Llama at Gemma-2B's widths", GEMMA2B_WIDTHS, 256,
-                     BF16_D256, BF16_D256_BUILDS)
+    serve_llama(torch, kernels, card, "serving_d256",
+                "Llama at Gemma-2B's widths", GEMMA2B_WIDTHS, 256, 8,
+                BF16_D256, BF16_D256_BUILDS)
+
+
+# serving_f16: Llama-2-7B as published (meta-llama/Llama-2-7b-hf
+# config.json: hidden 4096, intermediate 11008, 32 layers of 32 / 32 heads
+# of 128, vocab 32000, 4096 positions, rms_norm_eps 1e-5, rope_theta 10000,
+# untied, "torch_dtype": "float16") -- LlamaConfig(dtype="float16"), not
+# cut, with seeded random weights
+LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, max_position_embeddings=4096,
+                 rms_norm_eps=1e-5, rope_theta=10000.0,
+                 tie_word_embeddings=False, dtype="float16")
+# what serving_f16 passes LlamaConfig: the dtype alone, the rest its
+# defaults
+F16_WIDTHS = dict(dtype="float16")
+
+
+def phase_serving_f16(torch, kernels, card):
+    """``LlamaConfig(dtype="float16")``, checked equal to Llama-2-7B's
+    published configuration (``LLAMA2_7B``: 32 layers of 32 / 32 heads of
+    128, hidden 4096, vocab 32000; 6.74 B parameters, 13.5 GB of seeded
+    float16 weights) through :func:`serve_llama`: serving_f32's four
+    engines, the chunked engine and ``generate``, then the int8-weight
+    engine and its ``generate`` (K4 at float16, 225 a tick); the decode
+    kernel 32 a tick, the wave kernel 32 a wave or chunk; launches of the
+    ``/f16`` entries."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(**F16_WIDTHS)
+    published = {k: getattr(cfg, k) for k in LLAMA2_7B}
+    check(published == LLAMA2_7B,
+          f"LlamaConfig(**{F16_WIDTHS}) is not Llama-2-7B: {published}")
+    serve_llama(torch, kernels, card, "serving_f16", "Llama-2-7B",
+                F16_WIDTHS, 128, 1, F16, F16_BUILDS, int8_weights=True)
 
 
 def phase_training_d256(torch, kernels, card):
@@ -6264,6 +6630,7 @@ def main(argv=None) -> int:
                                             profile=args.profile),
                   lambda: phase_serving_tinyllama(torch, kernels, card),
                   lambda: phase_serving_d256(torch, kernels, card),
+                  lambda: phase_serving_f16(torch, kernels, card),
                   lambda: phase_training_d256(torch, kernels, card),
                   lambda: phase_dit(torch, kernels, card,
                                     profile=args.profile),

@@ -46,8 +46,10 @@
 // keeps float32 numerics.
 //
 // The Hopper body (decode_mma_kernel<INT8, PAGED, PAD, PD>: K1, K1-int8,
-// K1-paged and K1-paged-int8, bf16 q at any D <= 256 with D % 8 == 0 -- the
-// decode tick of every bf16 engine).  It replaced a CUDA-core walk that was
+// K1-paged and K1-paged-int8, 16-bit q at any D <= 256 with D % 8 == 0 --
+// the decode tick of every bf16 and float16 engine; the library's 16-bit
+// type e16 is bfloat16, or float16 in the library compiled with -DPTT_F16,
+// mma_bf16.cuh).  It replaced a CUDA-core walk that was
 // bound by latency, not bytes: a warp loaded one 8-key group into
 // registers and then spent ~23 dependent shuffles a row on it with nothing
 // in flight, so its time followed the groups a warp walked and the int8
@@ -72,16 +74,18 @@
 //     twice the accumulator registers).  K's A fragments come from shared
 //     memory with 16-byte loads (the head-dim order inside a k step is
 //     permuted identically in Q's fragments, which the sum ignores); P^T
-//     is P in bf16 -- the reference's p.astype(v.dtype) -- turned into the
+//     is P in 16 bits -- the reference's p.astype(v.dtype) -- turned into the
 //     B operand by movmatrix; V^T's A fragments by ldmatrix.trans.  The
 //     softmax runs in the log2 domain, a row's max over the 8 lanes that
 //     hold its keys (3 shuffles), the row sums reduced once at the end,
 //     and the accumulator rescaled only when a running max moved;
-//   * int8: the K and V fragments are converted to bf16 in registers as
-//     they are built (exact; ptt::int8x4_to_bf16), never as tiles in
+//   * int8: the K and V fragments are converted to 16 bits in registers
+//     as they are built (exact; ptt::int8x4_to_e16), never as tiles in
 //     shared memory; the scales ride in the stage (4 floats a slice) and
 //     fold per 8-key group -- K's into the scores, V's into P before P V
-//     (at block_len or granule 8 a 16-key slice spans two of them);
+//     (at block_len or granule 8 a 16-key slice spans two of them; at
+//     float16, relative to the slice's larger V scale, the accumulator
+//     kept in units of it: P times a 1e-4 scale would be subnormal);
 //   * below D = 128 the same body runs at a runtime D on rows of 128
 //     elements (its PAD instance; the D = 128 one has D as a constant and
 //     no test of it: a runtime D there cost 8-11 % of every row
@@ -424,7 +428,7 @@ __global__ void decode_attention_combine(const float* __restrict__ part_o,
 }
 
 // ---------------------------------------------------------------------------
-// K1, K1-int8, K1-paged and K1-paged-int8 at bf16 q, head_dim D <= 256 (D %
+// K1, K1-int8, K1-paged and K1-paged-int8 at 16-bit q, head_dim D <= 256 (D %
 // 8 == 0): tensor cores, and a cp.async ring in shared memory for each warp
 // (see the note at the top)
 // ---------------------------------------------------------------------------
@@ -526,12 +530,12 @@ __device__ __forceinline__ uint32_t word(const uint4& x, int i) {
 //     row b * max_blocks + j / block_len (bf16: max_blocks 1, block_len L).
 template <bool INT8, bool PAGED, bool PAD, int PD>
 __global__ void __launch_bounds__(kPThreads, Mma<INT8, PD>::kMinCtas)
-decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+decode_mma_kernel(const e16* __restrict__ q,
                   const unsigned char* __restrict__ k,
                   const unsigned char* __restrict__ v,
                   const int* __restrict__ pos,
                   const int* __restrict__ table,
-                  __nv_bfloat16* __restrict__ out,
+                  e16* __restrict__ out,
                   float* __restrict__ part_o,
                   float* __restrict__ part_ml, int* counters, int S,
                   int Hq, int Hkv, int head_dim, int max_blocks,
@@ -566,7 +570,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (n_live == 0 && split == 0)   // no live key
       for (int r = 0; r < nr; ++r)
         for (int d = tid; d < D; d += kPThreads)
-          out[row_off(r0 + r) + d] = __float2bfloat16(0.f);
+          out[row_off(r0 + r) + d] = to_e16(0.f);
     return;
   }
 
@@ -673,7 +677,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t qb[P::kSteps][2];
   {
     const bool on = g < nr;
-    const __nv_bfloat16* qr = q + (on ? row_off(r0 + g) : 0);
+    const e16* qr = q + (on ? row_off(r0 + g) : 0);
 #pragma unroll
     for (int kk = 0; kk < P::kSteps; ++kk) {
       const int d = P::kdim(kk, c);
@@ -698,6 +702,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  // float16 int8: the V scale the accumulator is in units of (see below)
+  float vref = 0.f;
 
   for (int t = 0; t < n_mine; ++t) {
     cp_async_wait<P::kStages - 1>();
@@ -725,8 +731,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int kk = 0; kk < 8; ++kk) {
           uint32_t a[4];
           const uint32_t* qf = qb[8 * hf + kk];
-          int8x4_to_bf16(word(kk < 4 ? l0 : l1, kk & 3), a[0], a[2]);
-          int8x4_to_bf16(word(kk < 4 ? h0 : h1, kk & 3), a[1], a[3]);
+          int8x4_to_e16(word(kk < 4 ? l0 : l1, kk & 3), a[0], a[2]);
+          int8x4_to_e16(word(kk < 4 ? h0 : h1, kk & 3), a[1], a[3]);
           if (kk & 1) mma_m16n8k16(st2, a, qf[0], qf[1]);
           else mma_m16n8k16(st, a, qf[0], qf[1]);
         }
@@ -785,6 +791,22 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       m_r[e] = mx[e];
       l_r[e] *= al[e];
     }
+    if constexpr (INT8 && kHalf) {
+      // float16 has 5 exponent bits: P times a small V scale (1e-4) would
+      // round into its subnormals.  The slice's two V scales go into P
+      // relative to the larger, vm, and the accumulator is kept in units
+      // of the latest slice's vm (rescaled with the softmax's alpha), so P
+      // keeps its float16 precision and the scale itself is applied in
+      // float32, as the reference scales the float32 P.V product
+      const float vm = fmaxf(vsc[0], vsc[1]);
+      const float inv = vm > 0.f ? 1.f / vm : 0.f;
+      const float ra = vm > 0.f ? vref * inv : 1.f;
+      al[0] *= ra;
+      al[1] *= ra;
+      vsc[0] *= inv;
+      vsc[1] *= inv;
+      vref = vm > 0.f ? vm : vref;
+    }
     // a running max that did not move leaves the accumulator as it is
     if (__any_sync(kFull, al[0] != 1.f || al[1] != 1.f)) {
 #pragma unroll
@@ -802,14 +824,14 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       pr[2 + e] = jhi <= last[e] ? exp2f(sc4[2 + e] - m_r[e]) : 0.f;
       l_r[e] += pr[e] + pr[2 + e];
     }
-    // P^T in bf16 as the B operand (int8: times each key's V scale; the
+    // P^T in 16 bits as the B operand (int8: times each key's V scale; the
     // row sums take it unscaled): lane (g, c) holds the 8x8 blocks' (key
     // g, rows 2c..2c+1); movmatrix's transpose gives (keys 2c..2c+1, row
     // g)
     const uint32_t b0 = movmatrix_trans(
-        pack_bf16(pr[0] * vsc[0], pr[1] * vsc[0]));
+        pack16(pr[0] * vsc[0], pr[1] * vsc[0]));
     const uint32_t b1 = movmatrix_trans(
-        pack_bf16(pr[2] * vsc[1], pr[3] * vsc[1]));
+        pack16(pr[2] * vsc[1], pr[3] * vsc[1]));
 
     // O^T += V^T P^T over the slice's 16 keys
     if constexpr (INT8) {
@@ -832,13 +854,13 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int y = 0; y < 4; ++y) {
           uint32_t a0[4], a1[4];   // m-tiles 8 hf + 2y, 8 hf + 2y + 1
-          int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x5140),
+          int8x4_to_e16(__byte_perm(word(x0, y), word(x1, y), 0x5140),
                          a0[0], a0[1]);
-          int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x5140),
+          int8x4_to_e16(__byte_perm(word(x2, y), word(x3, y), 0x5140),
                          a0[2], a0[3]);
-          int8x4_to_bf16(__byte_perm(word(x0, y), word(x1, y), 0x7362),
+          int8x4_to_e16(__byte_perm(word(x0, y), word(x1, y), 0x7362),
                          a1[0], a1[1]);
-          int8x4_to_bf16(__byte_perm(word(x2, y), word(x3, y), 0x7362),
+          int8x4_to_e16(__byte_perm(word(x2, y), word(x3, y), 0x7362),
                          a1[2], a1[3]);
           mma_m16n8k16(acc[8 * hf + 2 * y], a0, b0, b1);
           mma_m16n8k16(acc[8 * hf + 2 * y + 1], a1, b0, b1);
@@ -880,8 +902,13 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 2; ++e) {
       float* row =
           wacc + (warp * kPRows + 2 * c + e) * P::kMStride + 16 * n + g;
-      row[0] = acc[n][e];
-      row[8] = acc[n][2 + e];
+      if constexpr (INT8 && kHalf) {
+        row[0] = acc[n][e] * vref;
+        row[8] = acc[n][2 + e] * vref;
+      } else {
+        row[0] = acc[n][e];
+        row[8] = acc[n][2 + e];
+      }
     }
   if (g == 0) {
 #pragma unroll
@@ -922,7 +949,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (!in_d(e)) continue;
       if (direct)
         out[row_off(rr) + mine(e)] =
-            __float2bfloat16(lsum > 0.f ? o[e] / lsum : 0.f);
+            to_e16(lsum > 0.f ? o[e] / lsum : 0.f);
       else
         part_o[pi * D + mine(e)] = o[e];
     }
@@ -1007,7 +1034,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int r = 0; r < kPRows; ++r)
       if (r < nr)
         out[row_off(r0 + r) + mine(e)] =
-            __float2bfloat16(lsum[r] > 0.f ? o[e][r] / lsum[r] : 0.f);
+            to_e16(lsum[r] > 0.f ? o[e][r] / lsum[r] : 0.f);
   }
 }
 
@@ -1058,16 +1085,16 @@ cudaError_t launch_mma_at(const void* q, const void* k, const void* v,
   const dim3 grid(nsplit, (rows_total + kPRows - 1) / kPRows, B * Hkv);
   decode_mma_kernel<INT8, PAGED, PAD, PD>
       <<<grid, kPThreads, Mma<INT8, PD>::kSmem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const e16*>(q),
           static_cast<const unsigned char*>(k),
           static_cast<const unsigned char*>(v), pos, table,
-          static_cast<__nv_bfloat16*>(out), part_o, part_ml, counters, S,
+          static_cast<e16*>(out), part_o, part_ml, counters, S,
           Hq, Hkv, D, max_blocks, block_len, limit, split_len,
           scale * 1.4426950408889634f, k_scale, v_scale);
   return cudaSuccess;
 }
 
-// K1 / K1-int8 / K1-paged / K1-paged-int8 at bf16 q, head_dim D: the Hopper
+// K1 / K1-int8 / K1-paged / K1-paged-int8 at 16-bit q, head_dim D: the Hopper
 // kernel (max_blocks, block_len: see decode_mma_kernel).  D 128 and 256 run
 // instances of constant D; below 128 the PAD instance on 128-wide ring
 // rows, between them the PAD instance on 256-wide ones
@@ -1113,15 +1140,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  Built for bfloat16 at any D <= 256
-// with D % 8 == 0 (the serving path: decode_mma_kernel) and float32 at D =
-// 16 (the tiny test models) and 128 (the reference's float32 default
-// configurations: the CUDA-core kernel), the cases chip_smoke.py checks on
-// the card; any other pair returns cudaErrorInvalidValue, as does a
-// split_len
-// that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16.  The default library is
+// built for bfloat16 at any D <= 256 with D % 8 == 0 (the serving path:
+// decode_mma_kernel) and float32 at D = 16 (the tiny test models) and 128
+// (the reference's float32 default configurations: the CUDA-core kernel);
+// the library compiled with -DPTT_F16 for float16 alone, at the bfloat16
+// head dims (the same body over float16).  Those are the cases
+// chip_smoke.py checks on the card; any other pair returns
+// cudaErrorInvalidValue, as does a split_len that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
 // part_ml are float32 scratch of (B*Hkv, nsplit, S*G, D) and (B*Hkv,
-// nsplit, S*G, 2), unused when nsplit == 1.  counters (bfloat16 only; the
+// nsplit, S*G, 2), unused when nsplit == 1.  counters (16-bit q only; the
 // float32 build ignores it) is an int32 array of B * Hkv * ceil(S * G /
 // 8) zeros, one a (row, kv head, 8-row tile), which each launch leaves
 // zero; launches that may run at the same time (other streams) need
@@ -1139,17 +1167,19 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (Hkv < 1 || Hq % Hkv != 0 || L < 1 || split_len % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && mma_head_dim(D))
+  if (dtype == kE16Code && mma_head_dim(D))
     e = launch_mma<false, false>(q, k, v, p, nullptr, out, po, pml,
                                  static_cast<int*>(counters), B, S, Hq, Hkv,
                                  D, 1, L, limit, split_len, nsplit, scale,
                                  nullptr, nullptr, st);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                    D, L, limit, split_len, nsplit, scale, st);
   else if (dtype == 1 && D == 128)
     e = launch<float, 4, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                    D, L, limit, split_len, nsplit, scale, st);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1181,11 +1211,12 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = max_blocks * block_len;
   cudaError_t e;
-  if (dtype == 0 && mma_head_dim(D))
+  if (dtype == kE16Code && mma_head_dim(D))
     e = launch_mma<false, true>(q, k, v, p, t, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
                                 D, max_blocks, block_len, limit, split_len,
                                 nsplit, scale, nullptr, nullptr, st);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                   D, L, limit, split_len, nsplit, scale, st,
@@ -1194,6 +1225,7 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
     e = launch<float, 4, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
                                   D, L, limit, split_len, nsplit, scale, st,
                                   t, max_blocks, block_len);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1224,11 +1256,12 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int gran_len = L / n_gran;
   cudaError_t e;
-  if (dtype == 0 && mma_head_dim(D))
+  if (dtype == kE16Code && mma_head_dim(D))
     e = launch_mma<true, false>(q, k, v, p, nullptr, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
                                 D, n_gran, gran_len, limit, split_len, nsplit,
                                 scale, ks, vs, st);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, false, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
@@ -1237,6 +1270,7 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
     e = launch<float, 4, 8, false, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
         nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1264,11 +1298,12 @@ extern "C" int decode_attention_paged_int8(
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = max_blocks * block_len;
   cudaError_t e;
-  if (dtype == 0 && mma_head_dim(D))
+  if (dtype == kE16Code && mma_head_dim(D))
     e = launch_mma<true, true>(q, k, v, p, t, out, po, pml,
                                static_cast<int*>(counters), B, S, Hq, Hkv,
                                D, max_blocks, block_len, limit, split_len,
                                nsplit, scale, ks, vs, st);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch<float, 1, 8, true, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
@@ -1277,6 +1312,7 @@ extern "C" int decode_attention_paged_int8(
     e = launch<float, 4, 8, true, int8_t>(
         q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
         nsplit, scale, st, t, max_blocks, block_len, ks, vs);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1305,6 +1341,24 @@ extern "C" int decode_attention_mma_ctas_per_sm(int int8, int paged,
            : (paged ? ctas_per_sm<false, true>(head_dim, &n)
                     : ctas_per_sm<false, false>(head_dim, &n));
   return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+namespace {
+// the library's int8 -> 16-bit conversion (int8x4_to_e16) of every byte:
+// word i holds bytes 4i..4i+3, out[j] the 16-bit value of byte j
+__global__ void int8_table_kernel(uint32_t* out) {
+  const int i = threadIdx.x;
+  const uint32_t w = 0x03020100u + 0x04040404u * i;
+  int8x4_to_e16(w, out[2 * i], out[2 * i + 1]);
+}
+}  // namespace
+
+// Writes the 16-bit values (the library's type) of the 256 bytes 0..255 as
+// int8 into out (256 x 2 bytes), through the kernels' own converter.
+extern "C" int decode_attention_int8_table(void* out, void* stream) {
+  int8_table_kernel<<<1, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -581,9 +581,9 @@ __device__ __forceinline__ void stage_acc(unsigned char* tile,
     unsigned char* base = tile + (j / 8) * box +
                           (((j % 8) ^ (rl & 7)) << 4) + 4 * c;
     *reinterpret_cast<uint32_t*>(base + rl * 128) =
-        pack_bf16(a[4 * j], a[4 * j + 1]);
+        pack16(a[4 * j], a[4 * j + 1]);
     *reinterpret_cast<uint32_t*>(base + (rl + 8) * 128) =
-        pack_bf16(a[4 * j + 2], a[4 * j + 3]);
+        pack16(a[4 * j + 2], a[4 * j + 3]);
   }
 }
 
@@ -594,10 +594,10 @@ __device__ __forceinline__ void pack_a(const float (&d)[8 * KS],
                                        uint32_t (&a)[KS][4]) {
 #pragma unroll
   for (int t = 0; t < KS; ++t) {
-    a[t][0] = pack_bf16(d[8 * t], d[8 * t + 1]);
-    a[t][1] = pack_bf16(d[8 * t + 2], d[8 * t + 3]);
-    a[t][2] = pack_bf16(d[8 * t + 4], d[8 * t + 5]);
-    a[t][3] = pack_bf16(d[8 * t + 6], d[8 * t + 7]);
+    a[t][0] = pack16(d[8 * t], d[8 * t + 1]);
+    a[t][1] = pack16(d[8 * t + 2], d[8 * t + 3]);
+    a[t][2] = pack16(d[8 * t + 4], d[8 * t + 5]);
+    a[t][3] = pack16(d[8 * t + 6], d[8 * t + 7]);
   }
 }
 

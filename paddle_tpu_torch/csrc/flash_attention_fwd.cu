@@ -33,7 +33,8 @@
 // score matrix never reaches device memory, and causal tiles wholly above
 // the diagonal are never loaded.  Two bodies (any other dtype / head dim
 // is refused):
-//   * bfloat16 q at any D <= 256 with D % 8 == 0 -- contiguous (the
+//   * 16-bit q (bfloat16; float16 in the library compiled with
+//     -DPTT_F16) at any D <= 256 with D % 8 == 0 -- contiguous (the
 //     serving waves and every training forward at D = 128, the DiT blocks
 //     at D = 72; segmented or not), paged bf16 and paged int8 (the paged
 //     engine's prefill waves, TinyLlama's at D = 64): the Hopper kernel,
@@ -70,7 +71,7 @@
 
 namespace {
 
-using ptt::pack_bf16;
+using ptt::pack16;
 using namespace ptt;
 
 constexpr float kNegInf = -1e30f;
@@ -303,9 +304,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper path: bfloat16 q at any D <= 256 with D % 8 == 0 -- K2 over
-// contiguous K/V (segmented or not), K2-paged over a bf16 pool and
-// K2-paged-int8 over an int8 pool.
+// Hopper path: 16-bit q (the library's e16: bfloat16, or float16 where
+// compiled with -DPTT_F16; mma_bf16.cuh) at any D <= 256 with D % 8 == 0
+// -- K2 over contiguous K/V (segmented or not), K2-paged over a 16-bit
+// pool and K2-paged-int8 over an int8 pool.
 //
 // The body is built for tiles HD = 128 wide (D <= 128) or HD = 256 wide
 // (128 < D <= 256; Wg<HD> below).  At D < HD the tensor maps have D
@@ -358,8 +360,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 //     whole warpgroup stages the boxes by 8-byte cp.async copies, zeros
 //     past D, and each thread's copies arrive on the unit's barrier when
 //     they land); the whole warpgroup then
-//     converts each tile to bf16 (exact for [-128, 127]: the bytes into
-//     float32 mantissas, one subtraction, the high halves) in the swizzled
+//     converts each tile to 16 bits (exact for [-128, 127]: the bytes
+//     into 16-bit mantissas, one pair subtraction; int8x4_to_e16) in the swizzled
 //     layout TMA would write, and releases it to the consumers after a
 //     proxy fence.  Each 64-key half carries its block's K and V scales in
 //     the slot (two blocks a tile at block_len 64).
@@ -369,7 +371,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // log2(e) folded into the scale; the row max of the raw scores -- int8:
 // of the scores times each half's K scale), P rounded to bf16 in
 // registers as the register A operand of O += P V (int8: P times each
-// half's V scale, after the row sums took it unscaled), with V MN-major
+// half's V scale, after the row sums took it unscaled; at float16 relative
+// to the tile's larger V scale, O kept in units of it), with V MN-major
 // from shared memory (the transpose flag).  Each consumer issues the next
 // tile's Q K^T and this tile's P V back to back and runs the next softmax
 // while P V is in flight (K and V have separate empty barriers, so K is
@@ -424,7 +427,11 @@ struct Slot {
   int masked;     // the tile needs the element mask
   float ks[2];    // int8: K's scale of keys [0, 64) and [64, 128)
                   //   (one 64-key box at HD 256: ks[0])
-  float vs[2];    // int8: V's
+  float vs[2];    // int8: V's (float16: over the tile's larger, vm; the
+                  //   slot that ends the walk: the last tile's vm)
+#ifdef PTT_F16
+  float ra;       // int8: the previous tile's vm over this one's
+#endif
 };
 
 template <bool SEG, bool INT8, int HD>
@@ -507,10 +514,10 @@ __device__ __forceinline__ void convert_tile(const unsigned char* src,
     const int r = kRowsPass * i + r_base;
     const uint4 raw = *reinterpret_cast<const uint4*>(src + r * HD + c * 16);
     uint4 a, b;
-    int8x4_to_bf16(raw.x, a.x, a.y);
-    int8x4_to_bf16(raw.y, a.z, a.w);
-    int8x4_to_bf16(raw.z, b.x, b.y);
-    int8x4_to_bf16(raw.w, b.z, b.w);
+    int8x4_to_e16(raw.x, a.x, a.y);
+    int8x4_to_e16(raw.y, a.z, a.w);
+    int8x4_to_e16(raw.z, b.x, b.y);
+    int8x4_to_e16(raw.w, b.z, b.w);
     unsigned char* row = box + r * 128;
     *reinterpret_cast<uint4*>(row + ((p ^ (r & 7)) << 4)) = a;
     *reinterpret_cast<uint4*>(row + (((p + 1) ^ (r & 7)) << 4)) = b;
@@ -640,6 +647,10 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       // V staging
       float pend[4];
       int pend_t = -1;
+#ifdef PTT_F16
+      // thread 0: the V scale of the last tile given (a Slot's ra)
+      float vref = 0.f;
+#endif
       auto store_pending = [&] {
         if (pend_t < 0) return;
 #pragma unroll
@@ -686,6 +697,16 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           sl.ks[1] = scl[s * 4 + 1];
           sl.vs[0] = scl[s * 4 + 2];
           sl.vs[1] = scl[s * 4 + 3];
+#ifdef PTT_F16
+          // the V scales over the tile's larger, and the change of unit
+          // from the previous tile's (the consumers' pack)
+          const float vm = fmaxf(sl.vs[0], sl.vs[1]);
+          const float inv = vm > 0.f ? 1.f / vm : 0.f;
+          sl.ra = vm > 0.f ? vref * inv : 1.f;
+          sl.vs[0] *= inv;
+          sl.vs[1] *= inv;
+          vref = vm > 0.f ? vm : vref;
+#endif
           slot[s] = sl;
         }
         // the next tile's table entries, read under the conversion
@@ -736,7 +757,12 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       const int s = n_kt % kHStages;
       mbar_wait(&k_empty[s], ((n_kt / kHStages) & 1) ^ 1);
-      if (tid == 0) slot[s].tile = -1;
+      if (tid == 0) {
+        slot[s].tile = -1;
+#ifdef PTT_F16
+        slot[s].vs[0] = vref;   // the unit o ends in
+#endif
+      }
       mbar_arrive(&k_full[s]);
     } else {
       // ---- producer warp: K/V by TMA ---------------------------------------
@@ -849,6 +875,9 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < kON; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float al0 = 0.f, al1 = 0.f;   // the last softmax's rescale of the sums
+  // float16 int8: the V scale o is in units of (see pack), from the slot
+  // that ends the walk
+  float vref = 0.f;
   const unsigned char* qa = Qs + wg * 64 * 128;
 
   // S = Q K^T of the key tile in stage s: k step t reads 32 bytes into
@@ -939,20 +968,32 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l0 = l0 * al0 + rs0;
     l1 = l1 * al1 + rs1;
   };
-  // P rounded to bf16 (int8: times each half's V scale): the register A
-  // operand of k step t is sc[8t..8t+7]
+  // P rounded to 16 bits (int8: times each half's V scale): the register
+  // A operand of k step t is sc[8t..8t+7]
   auto pack = [&](float (&sc)[kSN], const Slot& sl,
                   uint32_t (&pa)[W::kPSteps][4]) {
     if constexpr (INT8) {
 #pragma unroll
       for (int i = 0; i < kSN; ++i) sc[i] *= i < 32 ? sl.vs[0] : sl.vs[1];
+#ifdef PTT_F16
+      // float16 has 5 exponent bits: P times a small V scale (1e-4) would
+      // round into its subnormals.  The producer gives the halves' V
+      // scales relative to the tile's larger, vm, and o is kept in units
+      // of the latest tile's vm (the change of unit, sl.ra, rides on the
+      // softmax's rescale before this tile's P V), so P keeps its float16
+      // precision and the scale itself is applied in float32, as the
+      // reference scales the float32 P.V product (decode_attention.py
+      // :185-187)
+      al0 *= sl.ra;
+      al1 *= sl.ra;
+#endif
     }
 #pragma unroll
     for (int t = 0; t < W::kPSteps; ++t) {
-      pa[t][0] = pack_bf16(sc[8 * t], sc[8 * t + 1]);
-      pa[t][1] = pack_bf16(sc[8 * t + 2], sc[8 * t + 3]);
-      pa[t][2] = pack_bf16(sc[8 * t + 4], sc[8 * t + 5]);
-      pa[t][3] = pack_bf16(sc[8 * t + 6], sc[8 * t + 7]);
+      pa[t][0] = pack16(sc[8 * t], sc[8 * t + 1]);
+      pa[t][1] = pack16(sc[8 * t + 2], sc[8 * t + 3]);
+      pa[t][2] = pack16(sc[8 * t + 4], sc[8 * t + 5]);
+      pa[t][3] = pack16(sc[8 * t + 6], sc[8 * t + 7]);
     }
   };
 
@@ -1009,7 +1050,10 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int nxt = cur + 1, sn = nxt % kHStages, sv = cur % kHStages;
       mbar_wait(&k_full[sn], (nxt / kHStages) & 1);
       const Slot sl = slot[sn];
-      if (sl.tile < 0) break;
+      if (sl.tile < 0) {
+        if constexpr (INT8 && kHalf) vref = sl.vs[0];
+        break;
+      }
       named_barrier(3 + wg, 256);
       if constexpr (kSerial) {
         rescale_o();
@@ -1055,8 +1099,12 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l0 += __shfl_xor_sync(0xffffffffu, l0, x);
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if constexpr (INT8 && kHalf) {
+    inv0 *= vref;
+    inv1 *= vref;
+  }
   // the out tile into this warpgroup's rows of Q's shared memory, in the
   // swizzled layout the out map stores from
 #pragma unroll
@@ -1064,9 +1112,9 @@ flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     unsigned char* base = Qs + (j / 8) * W::kQBox +
                           (((j % 8) ^ (rl & 7)) << 4) + 4 * c;
     *reinterpret_cast<uint32_t*>(base + rl * 128) =
-        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        pack16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     *reinterpret_cast<uint32_t*>(base + (rl + 8) * 128) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        pack16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   fence_proxy_async();
   named_barrier(1 + wg, 128);
@@ -1171,12 +1219,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                           causal, st);
 }
 
-// dtype: 0 = bfloat16, 1 = float32.  bfloat16 at any D <= 256 with D % 8
-// == 0 runs the Hopper kernel (q, k, v, out 16-byte aligned), float32 at D
-// = 16, 64, 72 or 128 the CUDA-core one; any other pair returns
-// cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16.  The library's 16-bit
+// type (bfloat16; float16 alone in the library compiled with -DPTT_F16) at
+// any D <= 256 with D % 8 == 0 runs the Hopper kernel (q, k, v, out
+// 16-byte aligned), float32 at D = 16, 64, 72 or 128 (the default library)
+// the CUDA-core one; any other pair returns cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
 // packed-document ids, or both null; query i sees key j only where
-// seg_q[b, i] == seg_kv[b, j] (and causally).  With ids the bfloat16 build
+// seg_q[b, i] == seg_kv[b, j] (and causally).  With ids the 16-bit build
 // also takes q_rng (B, ceil(Sq / 128), 2) and kv_rng (B, ceil(Skv / 128),
 // 2): the int32 [min, max] id of each 128-token tile
 // (segment_tile_ranges); the float32 build ignores them.  Returns the
@@ -1208,14 +1257,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   // segment ids select their own instantiation: the unsegmented one
   // carries no segment test
   cudaError_t e;
-  if (dtype == 0 && sq != nullptr)
+  if (dtype == kE16Code && sq != nullptr)
     e = (a.q_rng == nullptr || a.kv_rng == nullptr)
             ? cudaErrorInvalidValue
             : launch_wgmma<true, false, false>(q, k, v, out, skv, a, 0,
                                                scale, st, D);
-  else if (dtype == 0)
+  else if (dtype == kE16Code)
     e = launch_wgmma<false, false, false>(q, k, v, out, nullptr, a, 0, scale,
                                           st, D);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch_f32<16>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
                        sq, skv, st);
@@ -1228,6 +1278,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   else if (dtype == 1 && D == 128)
     e = launch_f32<128>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
                         sq, skv, st);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1255,8 +1306,8 @@ static HopperArgs paged_args(const void* pos, const void* table, int B,
 // int32; k, v one layer's (num_blocks, block_len, Hkv, D) pool; table the
 // int32 (B, max_blocks) block table (every entry a valid block id).  Query
 // i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
-// bfloat16 at any D <= 256 with D % 8 == 0 (the Hopper kernel) needs
-// block_len % 64 == 0; float32 at D = 16 or 128 takes any block_len >= 1;
+// The library's 16-bit type at any D <= 256 with D % 8 == 0 (the Hopper
+// kernel) needs block_len % 64 == 0; float32 at D = 16 or 128 takes any block_len >= 1;
 // other cases return cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
                                          const void* v, const void* pos,
@@ -1272,17 +1323,19 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
       num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && block_len % kHBox == 0)
+  if (dtype == kE16Code && block_len % kHBox == 0)
     e = launch_wgmma<false, true, false>(
         q, k, v, out, nullptr,
         paged_args(pos, table, B, S, Hq, Hkv, max_blocks, block_len),
         num_blocks, scale, st, D);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
                          st, p, t, max_blocks, block_len);
   else if (dtype == 1 && D == 128)
     e = launch<128, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
                           st, p, t, max_blocks, block_len);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1291,7 +1344,7 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
 
 // Paged int8 suffix prefill: as flash_attention_fwd_paged with k, v one
 // layer's int8 (num_blocks, block_len, Hkv, D) pool and k_scale, v_scale
-// float32 (num_blocks, Hkv).  bfloat16 q at any D <= 256 with D % 8 == 0
+// float32 (num_blocks, Hkv).  16-bit q at any D <= 256 with D % 8 == 0
 // needs block_len % 64 == 0; float32 q at D = 16 or 128 takes any
 // block_len >= 1.
 extern "C" int flash_attention_fwd_paged_int8(
@@ -1308,13 +1361,14 @@ extern "C" int flash_attention_fwd_paged_int8(
       num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == 0 && block_len % kHBox == 0) {
+  if (dtype == kE16Code && block_len % kHBox == 0) {
     HopperArgs a = paged_args(pos, table, B, S, Hq, Hkv, max_blocks,
                               block_len);
     a.k_scale = ks;
     a.v_scale = vs;
     e = launch_wgmma<false, true, true>(q, k, v, out, nullptr, a, num_blocks,
                                         scale, st, D);
+#ifndef PTT_F16
   } else if (dtype == 1 && D == 16) {
     e = launch<16, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
                                  scale, 1, st, p, t, max_blocks, block_len,
@@ -1323,6 +1377,7 @@ extern "C" int flash_attention_fwd_paged_int8(
     e = launch<128, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
                                   scale, 1, st, p, t, max_blocks, block_len,
                                   ks, vs);
+#endif
   } else {
     e = cudaErrorInvalidValue;
   }

@@ -2,7 +2,7 @@
 //
 // Replaces paddle_tpu/ops/pallas/int8_matmul.py::int8_matmul_pallas (body
 // _kernel :38-54): out[r, n] = (sum_k x[r, k] * w8[k, n]) * scale[n], x
-// (rows, K) bfloat16 or float32, w8 (K, N) int8 row-major, scale (N,)
+// (rows, K) bfloat16, float16 or float32, w8 (K, N) int8 row-major, scale (N,)
 // float32 per output column, out (rows, N) in x's dtype.  The int8 -> float
 // conversion happens in registers, the sums are float32, and the scale is
 // applied once in the epilogue (it commutes with the sum over k), as the
@@ -12,7 +12,9 @@
 // at decode's 8 rows; the tensor cores (2 * rows * K * N operations over
 // 989 TFLOP/s) from about 150 rows up.
 //
-// bfloat16 x: tensor cores (wgmma) with the operands swapped, out^T =
+// 16-bit x (the library's e16: bfloat16, or float16 in the library
+// compiled with -DPTT_F16; mma_bf16.cuh): tensor cores (wgmma) with the
+// operands swapped, out^T =
 // w8^T . x^T, so the output columns are wgmma's M and the rows its N:
 //   * a CTA owns 128 output columns (two consumer warpgroups of 64) and
 //     every row (1..256, rounded up to N = 8, 16, 32, 64, 128 or 256), so
@@ -21,13 +23,13 @@
 //   * one producer warp streams 64-deep k slices by TMA into a ring of
 //     shared-memory stages (full / empty mbarriers): the (64 k x 128 n)
 //     int8 weight tile, 128-byte swizzled, through a tensor map encoded
-//     once per weight (the wrapper caches it), and the (N x 64 k) bf16 x
+//     once per weight (the wrapper caches it), and the (N x 64 k) 16-bit x
 //     tile, K-major, wgmma's B operand (rows past `rows` and k past K load
 //     as zero);
 //   * consumers read the int8 tile with ldmatrix.trans, treating byte
 //     pairs as 16-bit elements: a lane receives w8[k, n..n+1] and
-//     w8[k+1, n..n+1], which a byte permute and one float subtraction
-//     (the 2^23 trick, exact) turn into two bf16 pairs -- the register A
+//     w8[k+1, n..n+1], which byte permutes and subtractions (exact;
+//     int8x4_to_e16x2x2) turn into two 16-bit pairs -- the register A
 //     fragments of output columns n and n+1.  So a warp's accumulator row
 //     g holds column 2g and row g + 8 column 2g + 1, undone in the
 //     epilogue; the tile is converted in registers once and never written
@@ -39,7 +41,7 @@
 //     SMs (the wrapper's split rule); split partials (float32) are summed
 //     and scaled by a second small kernel.
 //   The weight's row stride (N bytes) must be a multiple of 16 for TMA:
-//   the bf16 build takes N % 16 == 0.
+//   the 16-bit builds take N % 16 == 0.
 //
 // float32 x (the tiny test model) keeps the CUDA-core kernel below:
 // wgmma has no float32 input that keeps float32 numerics.  Each lane owns 4
@@ -182,9 +184,7 @@ int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+__device__ __forceinline__ void store(e16* p, float v) { *p = to_e16(v); }
 
 // out[r, n] = (sum over splits of part[s, r, n]) * scale[n]
 template <typename T>
@@ -211,7 +211,7 @@ cudaError_t launch_f32(const float* x, const int8_t* w, const float* scale,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 x: wgmma + TMA (see the top)
+// 16-bit x: wgmma + TMA (see the top)
 // ---------------------------------------------------------------------------
 constexpr int kWgCols = 128;            // output columns per CTA
 constexpr int kWgK = 64;                // k values per stage
@@ -228,13 +228,26 @@ struct WgCfg {
       1024 + (size_t)kStages * (kWBytes + kXBytes) + 2 * kStages * 8;
 };
 
+#ifdef PTT_F16
+// two float16 pairs (exact) of the 4 signed bytes of `raw`: {byte 0, byte
+// 2} and {byte 1, byte 3}, the low element first.  Flipping a byte's sign
+// bit gives b + 128; placed as the low mantissa byte of the float16 1024
+// (0x6400) that is 1024 + b + 128, and one pair subtraction of 1152 leaves
+// b (integers below 2^11 are exact in float16).
+__device__ __forceinline__ void int8x4_to_e16x2x2(uint32_t raw, uint32_t& lo,
+                                                  uint32_t& hi) {
+  const uint32_t u = raw ^ 0x80808080u;
+  lo = f16x2_sub(__byte_perm(u, 0x64u, 0x4240), 0x64806480u);
+  hi = f16x2_sub(__byte_perm(u, 0x64u, 0x4341), 0x64806480u);
+}
+#else
 // two bf16 pairs (exact) of the 4 signed bytes of `raw`: {byte 0, byte 2}
 // and {byte 1, byte 3}, the low element first.  Flipping a byte's sign bit
 // gives b + 128; placed as the low mantissa byte of 2^23 (0x4B0000xx) that
 // is the float 2^23 + b + 128, and subtracting 2^23 + 128 leaves b, whose
 // float has 16 zero low bits: its high half is its bf16.
-__device__ __forceinline__ void int8x4_to_bf16x2x2(uint32_t raw, uint32_t& lo,
-                                                   uint32_t& hi) {
+__device__ __forceinline__ void int8x4_to_e16x2x2(uint32_t raw, uint32_t& lo,
+                                                  uint32_t& hi) {
   const uint32_t u = raw ^ 0x80808080u;
   const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u)) -
                    8388736.f;
@@ -247,6 +260,7 @@ __device__ __forceinline__ void int8x4_to_bf16x2x2(uint32_t raw, uint32_t& lo,
   lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632u);
   hi = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632u);
 }
+#endif
 
 // grid (ceil(N / 128), ksplit), block 384.  CTA (nt, ks) sums k in
 // [ks * k_chunk, min(K, (ks + 1) * k_chunk)) (k_chunk a multiple of 64)
@@ -257,7 +271,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
                          const __grid_constant__ CUtensorMap x_map,
                          const float* __restrict__ scale,
-                         __nv_bfloat16* __restrict__ out,
+                         e16* __restrict__ out,
                          float* __restrict__ part, int rows, int K, int N,
                          int k_chunk) {
   using C = WgCfg<NR>;
@@ -325,8 +339,8 @@ int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
       // k16 step t: rows 16t + 2c.. (a[t][0..1]) and 16t + 8 + 2c.. (a[t][2..3])
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        int8x4_to_bf16x2x2(raw[t / 2][2 * (t % 2)], a[t][0], a[t][1]);
-        int8x4_to_bf16x2x2(raw[t / 2][2 * (t % 2) + 1], a[t][2], a[t][3]);
+        int8x4_to_e16x2x2(raw[t / 2][2 * (t % 2)], a[t][0], a[t][1]);
+        int8x4_to_e16x2x2(raw[t / 2][2 * (t % 2) + 1], a[t][2], a[t][3]);
       }
       wgmma_fence();
       const unsigned char* xt = xs + s * C::kXBytes;
@@ -363,9 +377,8 @@ int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
           if (r >= rows) continue;
           const size_t o = (size_t)r * N + n;
           if (single)
-            *reinterpret_cast<__nv_bfloat162*>(out + o) =
-                __floats2bfloat162_rn(acc[4 * j + e] * s0,
-                                      acc[4 * j + 2 + e] * s1);
+            *reinterpret_cast<e16x2*>(out + o) =
+                to_e16x2(acc[4 * j + e] * s0, acc[4 * j + 2 + e] * s1);
           else
             *reinterpret_cast<float2*>(part + (size_t)ks * rows * N + o) =
                 make_float2(acc[4 * j + e], acc[4 * j + 2 + e]);
@@ -393,8 +406,8 @@ cudaError_t launch_wgmma(const CUtensorMap& w_map, const void* x,
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
   const cuuint32_t box[2] = {kWgK, NR};
-  cudaError_t e = encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
-                             dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t e = encode_map(&x_map, kTmaE16, 2, x, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != cudaSuccess) return e;
   auto kernel = int8_matmul_wgmma_kernel<NR>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -402,8 +415,8 @@ cudaError_t launch_wgmma(const CUtensorMap& w_map, const void* x,
   if (e != cudaSuccess) return e;
   dim3 grid((N + kWgCols - 1) / kWgCols, ksplit);
   kernel<<<grid, kWgThreads, WgCfg<NR>::kSmem, st>>>(
-      w_map, x_map, scale, static_cast<__nv_bfloat16*>(out), part, rows, K,
-      N, k_chunk);
+      w_map, x_map, scale, static_cast<e16*>(out), part, rows, K, N,
+      k_chunk);
   return cudaSuccess;
 }
 
@@ -440,56 +453,86 @@ extern "C" int int8_matmul_weight_map(const void* w8, int K, int N,
   return static_cast<int>(e);
 }
 
-// dtype: 0 = bfloat16, 1 = float32 (x and out).  rows in [1, 256]; K, N
-// multiples of 8; x, w8, out contiguous; ksplit >= 1 splits of k_chunk k
-// values each (ksplit = ceil(K / k_chunk)); part is float32 scratch of
-// (ksplit, rows, N), unused when ksplit == 1.  bfloat16 also needs N % 16
-// == 0, k_chunk % 64 == 0, x 16-byte aligned and w_map, the weight's map
-// from int8_matmul_weight_map; float32 needs k_chunk % 16 == 0 and ignores
-// w_map.  Anything else returns cudaErrorInvalidValue.  Returns
-// cudaGetLastError() after the launches.
+// dtype: 0 = bfloat16, 1 = float32, 2 = float16 (x and out); the default
+// library takes 0 and 1, the one compiled with -DPTT_F16 only 2.  rows in
+// [1, 256]; K, N multiples of 8; x, w8, out contiguous; ksplit >= 1 splits
+// of k_chunk k values each (ksplit = ceil(K / k_chunk)); part is float32
+// scratch of (ksplit, rows, N), unused when ksplit == 1.  The 16-bit types
+// also need N % 16 == 0, k_chunk % 64 == 0, x 16-byte aligned and w_map,
+// the weight's map from int8_matmul_weight_map; float32 needs k_chunk % 16
+// == 0 and ignores w_map.  Anything else returns cudaErrorInvalidValue.
+// Returns cudaGetLastError() after the launches.
 extern "C" int int8_matmul(const void* x, const void* w8, const void* w_map,
                            const void* scale, void* out, void* part, int rows,
                            int K, int N, int ksplit, int k_chunk, int dtype,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunk_align = dtype == 0 ? 64 : 16;
+#ifdef PTT_F16
+  const bool f32 = false;
+#else
+  const bool f32 = dtype == 1;
+#endif
+  const bool wg = dtype == kE16Code;
+  const int chunk_align = wg ? 64 : 16;
   if (rows < 1 || rows > 256 || K < 8 || N < 8 || K % 8 || N % 8 ||
       k_chunk < chunk_align || k_chunk % chunk_align || ksplit < 1 ||
       (long long)ksplit * k_chunk < K ||
       (long long)(ksplit - 1) * k_chunk >= K ||
-      (ksplit > 1 && part == nullptr) || (dtype != 0 && dtype != 1) ||
-      (dtype == 0 && (N % 16 || w_map == nullptr ||
-                      reinterpret_cast<uintptr_t>(x) % 16)))
+      (ksplit > 1 && part == nullptr) || (!wg && !f32) ||
+      (wg && (N % 16 || w_map == nullptr ||
+              reinterpret_cast<uintptr_t>(x) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* w = static_cast<const int8_t*>(w8);
   const float* s = static_cast<const float*>(scale);
   float* p = static_cast<float*>(part);
   cudaError_t e;
-  if (dtype == 0) {
+  if (wg) {
     CUtensorMap m;
     memcpy(&m, w_map, sizeof(m));
     e = dispatch_wgmma(m, x, s, out, p, rows, K, N, ksplit, k_chunk, st);
-  } else if (rows <= 8) {
-    e = launch_f32<8>(static_cast<const float*>(x), w, s,
-                      static_cast<float*>(out), p, rows, K, N, ksplit,
-                      k_chunk, st);
   } else {
-    e = launch_f32<16>(static_cast<const float*>(x), w, s,
-                       static_cast<float*>(out), p, rows, K, N, ksplit,
-                       k_chunk, st);
+#ifdef PTT_F16
+    e = cudaErrorInvalidValue;
+#else
+    e = rows <= 8 ? launch_f32<8>(static_cast<const float*>(x), w, s,
+                                  static_cast<float*>(out), p, rows, K, N,
+                                  ksplit, k_chunk, st)
+                  : launch_f32<16>(static_cast<const float*>(x), w, s,
+                                   static_cast<float*>(out), p, rows, K, N,
+                                   ksplit, k_chunk, st);
+#endif
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   if (ksplit > 1) {
     const size_t total = (size_t)rows * N;
     const unsigned blocks = (unsigned)((total + 255) / 256);
-    if (dtype == 0)
+    if (wg)
       int8_matmul_reduce<<<blocks, 256, 0, st>>>(
-          p, s, static_cast<__nv_bfloat16*>(out), rows, N, ksplit);
+          p, s, static_cast<e16*>(out), rows, N, ksplit);
+#ifndef PTT_F16
     else
       int8_matmul_reduce<<<blocks, 256, 0, st>>>(
           p, s, static_cast<float*>(out), rows, N, ksplit);
+#endif
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+// the library's int8 -> 16-bit pair conversion (int8x4_to_e16x2x2) of
+// every byte: word i holds bytes 4i..4i+3
+__global__ void int8_table_kernel(uint32_t* out) {
+  const int i = threadIdx.x;
+  const uint32_t w = 0x03020100u + 0x04040404u * i;
+  int8x4_to_e16x2x2(w, out[2 * i], out[2 * i + 1]);
+}
+}  // namespace
+
+// Writes, for each word of bytes 4i..4i+3 (as int8), the converter's two
+// 16-bit pairs {4i, 4i + 2}, {4i + 1, 4i + 3} into out (256 x 2 bytes).
+extern "C" int int8_matmul_int8_table(void* out, void* stream) {
+  int8_table_kernel<<<1, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

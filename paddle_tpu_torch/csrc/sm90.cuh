@@ -12,10 +12,10 @@
 //   * wgmma: shared-memory matrix descriptors for the 128-byte swizzle
 //     (the layout a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes into a
 //     1024-byte aligned tile), fence / commit / wait, and the products
-//     m64nNk16 (bf16 in, float32 accumulate) with A from registers or from
-//     shared memory;
+//     m64nNk16 (16-bit e16 in, float32 accumulate) with A from registers or
+//     from shared memory;
 //   * setmaxnreg, named barriers, the async-proxy fence, exp2;
-//   * host: tensor maps of (B, S, H, D) bf16 and int8 tensors and flat 1-d
+//   * host: tensor maps of (B, S, H, D) e16 and int8 tensors and flat 1-d
 //     arrays.
 //
 // Register layouts (a warpgroup of 4 warps; warp w owns rows 16w..16w+15
@@ -24,15 +24,25 @@
 //                           a[2] = (g, 2c+8..),         a[3] = (g+8, 2c+8..);
 //   D (64 x N, float32):    d[4j..4j+1] = (row g, col 8j+2c..8j+2c+1),
 //                           d[4j+2..4j+3] = (row g+8, the same cols).
-// So the accumulator of a product, packed to bf16 pairs, is the register A
-// operand of the next one: k step t takes d[8t..8t+7].
+// So the accumulator of a product, packed to 16-bit pairs, is the register A
+// operand of the next one: k step t takes d[8t..8t+7].  The 16-bit type is
+// the library's (mma_bf16.cuh: bfloat16, or float16 with -DPTT_F16).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace ptt {
+
+// the TMA element type of the library's 16-bit tensors
+#ifdef PTT_F16
+constexpr CUtensorMapDataType kTmaE16 = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+#else
+constexpr CUtensorMapDataType kTmaE16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -219,14 +229,14 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo,
   return d;
 }
 
-// m64n8k16, A from registers (4 x bf16x2), B from shared memory
+// m64n8k16, A from registers (4 x 16-bit pairs), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[4],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3"
       "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -234,14 +244,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4],
         "n"(TB));
 }
 
-// m64n16k16, A from registers (4 x bf16x2), B from shared memory
+// m64n16k16, A from registers (4 x 16-bit pairs), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[8],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
@@ -250,14 +260,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8],
         "n"(TB));
 }
 
-// m64n32k16, A from registers (4 x bf16x2), B from shared memory
+// m64n32k16, A from registers (4 x 16-bit pairs), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
@@ -267,14 +277,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
         "n"(TB));
 }
 
-// m64n64k16, A from registers (4 x bf16x2), B from shared memory
+// m64n64k16, A from registers (4 x 16-bit pairs), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
@@ -288,14 +298,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "n"(TB));
 }
 
-// m64n128k16, A from registers (4 x bf16x2), B from shared memory
+// m64n128k16, A from registers (4 x 16-bit pairs), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
@@ -316,14 +326,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "n"(TB));
 }
 
-// m64n256k16, A from registers (4 x bf16x2), B from shared memory
+// m64n256k16, A from registers (4 x 16-bit pairs), B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
                                          const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
@@ -365,7 +375,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
@@ -380,7 +390,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
@@ -399,7 +409,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTT_E16 "." PTT_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
@@ -466,7 +476,7 @@ inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// a map over one (B, S, H, D) bf16 tensor, D <= 256 and D % 8 == 0 (the
+// a map over one (B, S, H, D) e16 tensor, D <= 256 and D % 8 == 0 (the
 // row stride D * 2 bytes a multiple of 16): boxes of `rows` consecutive s
 // and 64 d (a tile row of width W takes W / 64 boxes, at d 0, 64, ...),
 // 128-byte swizzle.  Rows past S and columns past D load as zero and are
@@ -480,8 +490,8 @@ inline cudaError_t bshd_map(CUtensorMap* m, const void* p, int B, int S, int H,
   const cuuint64_t row = (cuuint64_t)D * 2;
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,
-                    box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode_map(m, kTmaE16, 4, p, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // a map over one (B, S, H, D) int8 tensor (an int8 KV pool), D <= cols

@@ -195,7 +195,19 @@ def _quantized_write(kvb: torch.Tensor, scb: torch.Tensor, k: torch.Tensor,
     tok = tok.clamp_(-127, 127).to(torch.int8)
     if drop is not None:
         tok = torch.where(drop[..., None, None], kvb[unit, cell], tok)
-    kvb[unit, cell] = tok
+    # tokens that share a (unit, cell) -- a paged wave's bucket padding,
+    # steered to the null block -- all write the last one's bytes, as a
+    # sequential scatter does: the card's index write picks among
+    # duplicates in no fixed order, and a padded row reads that block back
+    # in the next layer, whose writes move the scale of its own last block
+    span = kvb.shape[1]
+    key = (unit * span + cell).reshape(-1)
+    order = torch.arange(key.numel(), device=key.device)
+    last = torch.zeros(kvb.shape[0] * span, dtype=order.dtype,
+                       device=key.device)
+    last.scatter_reduce_(0, key, order, "amax")
+    tok = tok.reshape(key.numel(), *tok.shape[2:])[last[key]]
+    kvb[unit, cell] = tok.reshape(*unit.shape, *tok.shape[1:])
 
 
 def quantized_paged_write(kv: torch.Tensor, sc: torch.Tensor, idx: int,

@@ -7,7 +7,8 @@ int4 as two nibbles per byte (even rows low nibble, odd rows high).
 :func:`int8_matmul_path`:
 
   * ``"kernel"`` — a CUDA tensor with ``0 < rows <= 256``, K a multiple
-    of 8 and N of 16 (bfloat16 x: the TMA row stride) or 8 (float32 x):
+    of 8 and N of 16 (bfloat16 or float16 x: the TMA row stride) or 8
+    (float32 x):
     the hand-written weight-only GEMM K4 (``ops/cuda/int8_matmul.py``),
     which streams the int8 bytes and dequantizes in registers (every
     decode-tick projection, every short prefill wave's);
@@ -40,8 +41,8 @@ def int8_matmul_path(x: torch.Tensor, k: int, n: int) -> str:
     """Which route :func:`weight_only_linear` takes for an int8 (K, N)
     weight applied to ``x`` (..., K): ``"kernel"``, ``"dequant"`` or
     ``"plain"`` (see the module docstring).  The K/N alignment is the
-    kernel's own limit (TMA's 16-byte strides for bfloat16 x, 4-byte
-    weight loads for float32 x), not the TPU's 128."""
+    kernel's own limit (TMA's 16-byte strides for bfloat16 and float16
+    x, 4-byte weight loads for float32 x), not the TPU's 128."""
     if not _dispatch.use_kernel(x):
         return "plain"
     rows = x.numel() // max(k, 1)

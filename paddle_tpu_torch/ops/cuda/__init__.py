@@ -11,12 +11,16 @@ import ctypes
 import torch
 
 # element type codes of the C entries
-DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # the head dims every bf16 attention build takes -- the K1 family, K2 in
 # every layout, the backward K5 / K6: any D <= 256 (the reference's
 # MAX_HEAD_DIM) with D % 8 == 0 (tiles or ring rows 128 wide up to D 128
-# and 256 wide above, whose columns past D hold zeros)
+# and 256 wide above, whose columns past D hold zeros).  The float16
+# forward builds take the same set (the same bodies over float16); the
+# float16 backward is ROADMAP B2.4b
 BF16_HEAD_DIMS = frozenset(range(8, 257, 8))
+# the 16-bit types, whose kernels share one body (bfloat16 and float16)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:
@@ -24,8 +28,15 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
         return DTYPE_CODES[t.dtype]
     except KeyError:
         raise NotImplementedError(
-            f"{what}: dtype {t.dtype} (the kernel takes bfloat16 or "
-            f"float32)") from None
+            f"{what}: dtype {t.dtype} (the kernel takes bfloat16, float16 "
+            f"or float32)") from None
+
+
+def library(name: str, dtype: torch.dtype) -> str:
+    """The library of source ``name`` that holds ``dtype``'s build: the
+    float16 kernels are the 16-bit bodies compiled on their own
+    (``_build.VARIANTS``)."""
+    return name + "_f16" if dtype == torch.float16 else name
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -99,7 +110,10 @@ def check_attention_args(what: str, q: torch.Tensor, k: torch.Tensor,
     if hkv == 0 or hq % hkv:
         raise NotImplementedError(
             f"{what}: q heads ({hq}) must be a multiple of kv heads ({hkv})")
-    built = head_dim[q.dtype]
+    built = head_dim.get(q.dtype)
+    if built is None:
+        raise NotImplementedError(
+            f"{what}: no {q.dtype} build (ROADMAP B2)")
     if d not in (built if isinstance(built, frozenset) else (built,)):
         dims = (", ".join(map(str, sorted(built)))
                 if isinstance(built, frozenset) else built)

@@ -21,18 +21,19 @@ of 8 rows x 8 kv heads still fills 132 SMs, and the splits' (acc, m, l)
 partials are merged with the LSE algebra of
 ``paddle_tpu/ops/ring_attention.py::merge_attention``.
 
-Every build at bfloat16 — K1 (:func:`decode_attention_cuda`), K1-int8
-(:func:`decode_attention_int8_cuda`), K1-paged
+Every build at bfloat16 and float16 — K1 (:func:`decode_attention_cuda`),
+K1-int8 (:func:`decode_attention_int8_cuda`), K1-paged
 (:func:`decode_attention_paged_cuda`) and K1-paged-int8
-(:func:`decode_attention_paged_int8_cuda`), the decode tick of every bf16
-engine, at any head_dim D <= 256 with D % 8 == 0 (``BF16_HEAD_DIMS``) —
-runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED, PAD, PD>``): a
+(:func:`decode_attention_paged_int8_cuda`), the decode tick of every
+16-bit engine, at any head_dim D <= 256 with D % 8 == 0
+(``BF16_HEAD_DIMS``; float16 is the same body compiled over float16, a
+library of its own, ``_build.VARIANTS``) — runs the Hopper kernel (``decode_mma_kernel<INT8, PAGED, PAD, PD>``): a
 CTA takes up to ``MMA_ROWS`` query rows of one (row, kv head) pair and one
 split; its ``MMA_WARPS`` warps take the split's ``MMA_SLICE``-key slices
 in turn, each through its own cp.async ring in shared memory (16-byte
 copies a key row).  The products run on tensor cores transposed,
 Sᵀ = K·Qᵀ and Oᵀ += Vᵀ·Pᵀ with the query rows as ``mma.sync.m16n8k16``'s
-8 columns, and int8 K/V are converted to bf16 in registers.  Its ring
+8 columns, and int8 K/V are converted to 16 bits in registers.  Its ring
 rows are ``PD`` = 128 elements wide up to D 128 and 256 wide above (twice
 the k steps, and two head-dim elements a merging thread); below PD an
 instance of its own (``PAD``: at 128 and 256 the head dim is a constant
@@ -59,9 +60,9 @@ reference's float32 default configurations, ``LlamaConfig()`` and
 throughout: each warp walks its own 8-key blocks with its own online
 softmax (a lane holds D / 32 elements of a row, one 16-byte load at
 head_dim 128), and a second small kernel merges the splits.  Those builds
-— bfloat16 at every D <= 256 with D % 8 == 0, float32 at 16 and 128 — are
-held against the plain version on the card (``chip_smoke.py``); any other
-pair raises.
+— bfloat16 and float16 at every D <= 256 with D % 8 == 0, float32 at 16
+and 128 — are held against the plain version on the card
+(``chip_smoke.py``); any other pair raises.
 
 The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
 K1-paged-int8; replacing the Pallas kernel's ``quantized`` mode,
@@ -73,7 +74,11 @@ multiples of 8, as is the split length), so each group's two scales are
 folded as the Pallas body folds them: K's into the score
 (``q . k_int8 * scale * k_scale``), V's into the group's probabilities
 before they weight V (the same as scaling the P.V product).  Everything
-else — live-prefix walk, splits, merge — is the bf16 kernel's.
+else — live-prefix walk, splits, merge — is the bf16 kernel's.  At
+float16 (5 exponent bits) P times a V scale near 1e-4 would be
+subnormal, so the float16 build folds each slice's V scales into P
+relative to the larger of them and keeps the accumulator in units of
+it: the scale itself is applied in float32.
 
 Under CUDA-graph capture (the serving engine's decode step,
 ``serving/step_graph.py``) everything the host computes for a launch is
@@ -101,14 +106,15 @@ import torch
 
 from ... import flags
 from . import (BF16_HEAD_DIMS, _build, block_table, check_attention_args,
-               check_scales, pos_vector, stream_ptr)
+               check_scales, library, pos_vector, stream_ptr)
 
 NAME = "decode_attention"
-# the head dims built for each dtype: bf16 the Hopper body at every D <=
-# 256 with D % 8 == 0, float32 the CUDA-core body at 16 (the tiny models)
-# and 128 (the reference's float32 default configurations); other pairs
-# are ROADMAP B2
+# the head dims built for each dtype: bf16 and float16 the Hopper body at
+# every D <= 256 with D % 8 == 0, float32 the CUDA-core body at 16 (the
+# tiny models) and 128 (the reference's float32 default configurations);
+# other pairs are ROADMAP B2
 HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
+            torch.float16: BF16_HEAD_DIMS,
             torch.float32: frozenset({16, 128})}
 
 # the bf16 builds (decode_mma_kernel): query rows a CTA
@@ -122,8 +128,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(NAME)
+def _lib(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    """The library of ``dtype``'s build (float16: its own)."""
+    lib = _build.load(library(NAME, dtype))
     fn = lib.decode_attention
     if fn.argtypes is None:
         # q k v pos out po pml cnt; B S Hq Hkv D L lim split nsplit; scale;
@@ -276,7 +283,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     keep, pos_p, scratch, walk, st = _prepare(q, hkv, L, pos, scale,
                                               live_len)
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_p,
         out.data_ptr(), *scratch, b, s, hq, hkv, d, L, *walk, code, st)
@@ -311,7 +318,7 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     mb = table.shape[1]
     keep, pos_p, scratch, walk, st = _prepare(q, hkv, mb * bl, pos, scale,
                                               live_len)
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.decode_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_p,
         table.data_ptr(), out.data_ptr(), *scratch, b, s, hq, hkv, d, mb, bl,
@@ -351,7 +358,7 @@ def decode_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     keep, pos_p, scratch, walk, st = _prepare(q, hkv, L, pos, scale,
                                               live_len)
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.decode_attention_int8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos_p, out.data_ptr(),
@@ -391,7 +398,7 @@ def decode_attention_paged_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     mb = table.shape[1]
     keep, pos_p, scratch, walk, st = _prepare(q, hkv, mb * bl, pos, scale,
                                               live_len)
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.decode_attention_paged_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos_p, table.data_ptr(),

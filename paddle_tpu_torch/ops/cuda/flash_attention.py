@@ -9,13 +9,15 @@ Returns ``out`` and the float32 log-sum-exp ``lse`` (B, Hq, Sq); a row with
 every key masked gives out = 0 and lse = -1e30.  Any Sq / Skv works: the
 ragged edge is masked in the kernel (the wave-prefill bucket is 8, 16, ...,
 not 128-aligned, which the Pallas kernel refuses at :73-88).  Head dims
-(``FWD_HEAD_DIMS``): bf16 any D <= 256 with D % 8 == 0 — the reference's
-kernel takes any D and narrows its blocks by D / 128 (:56-71); the port
-runs 128-wide tiles up to D 128 and 256-wide ones above (with 64-key
-tiles), the columns past D zero-filled, so DiT-XL/2's D = 72 and a
-Gemma-2B-wide Llama's 256 run it — float32 16, 64, 72 and 128.  The
-backward K5 / K6 takes the same set (``flash_attention_bwd.py``
-``BWD_HEAD_DIMS``); the paged builds below take the same bf16 set and
+(``FWD_HEAD_DIMS``): bf16 and float16 any D <= 256 with D % 8 == 0 — the
+reference's kernel takes any D and narrows its blocks by D / 128
+(:56-71); the port runs 128-wide tiles up to D 128 and 256-wide ones
+above (with 64-key tiles), the columns past D zero-filled, so DiT-XL/2's
+D = 72 and a Gemma-2B-wide Llama's 256 run it — float32 16, 64, 72 and
+128.  float16 runs the bf16 body compiled over float16 (a library of its
+own, ``_build.VARIANTS``).  The backward K5 / K6 takes the bf16 and
+float32 sets (``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``; float16 is
+ROADMAP B2.4b); the paged builds below take the same 16-bit set and
 float32 at 16 and 128 only (``HEAD_DIM``; the rest is ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
@@ -69,9 +71,11 @@ engine's suffix prefill.  The Hopper kernel loads each tile's int8 boxes
 by TMA into a staging ring (at D % 16 == 8, where the pool's D-byte head
 stride rules out a TMA map, the warpgroup stages them by 8-byte
 ``cp.async`` copies, zeros past D), and its producer warpgroup converts
-them to bf16 (exact) in the layout the consumers read; each 64-key half carries
-its block's scales, K's folded into the scores and V's into the tile's
-probabilities.  The float32 kernel dequantizes per key.
+them to 16 bits (exact) in the layout the consumers read; each 64-key half
+carries its block's scales, K's folded into the scores and V's into the
+tile's probabilities (at float16 relative to the tile's larger V scale,
+the output kept in units of it, so P times a small scale never goes
+subnormal).  The float32 kernel dequantizes per key.
 """
 
 from __future__ import annotations
@@ -82,22 +86,26 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (BF16_HEAD_DIMS, _build, block_table, check_attention_args,
-               check_scales, pos_vector, stream_ptr)
+from . import (BF16_HEAD_DIMS, HALF_DTYPES, _build, block_table,
+               check_attention_args, check_scales, library, pos_vector,
+               stream_ptr)
 
 NAME = "flash_attention_fwd"
-# the head dims the paged builds below take for each dtype: bf16 the
-# Hopper kernel's set, float32 the CUDA-core instances at 16 and 128; other
+# the head dims the paged builds below take for each dtype: bf16 and
+# float16 the Hopper kernel's set, float32 the CUDA-core instances at 16 and 128; other
 # head dims are ROADMAP B2
 HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
+            torch.float16: BF16_HEAD_DIMS,
             torch.float32: frozenset({16, 128})}
-# the contiguous K2's head dims: bf16 any D <= 256 with D % 8 == 0 (the
+# the contiguous K2's head dims: bf16 and float16 any D <= 256 with D % 8
+# == 0 (the
 # Hopper kernel's 128- or 256-wide tiles, columns past D zero-filled by
 # TMA, whose row stride D x 2 bytes must be a multiple of 16), float32 the
 # CUDA-core kernel's instances (the tiny models at 16, float32 DiTs at 64
 # and 72, the reference's float32 default configurations -- LlamaConfig(),
 # Qwen2VLConfig()'s decoder -- at 128)
 FWD_HEAD_DIMS = {torch.bfloat16: BF16_HEAD_DIMS,
+                 torch.float16: BF16_HEAD_DIMS,
                  torch.float32: frozenset({16, 64, 72, 128})}
 # the bf16 build's query tile and the tokens of a segment range (csrc: kHQ,
 # kRange; its key tile is 128, or 64 above head_dim 128)
@@ -108,8 +116,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(NAME)
+def _lib(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    """The library of ``dtype``'s build (float16: its own)."""
+    lib = _build.load(library(NAME, dtype))
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         # q k v out lse seg_q seg_kv q_rng kv_rng
@@ -193,13 +202,13 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     q_rng = kv_rng = None
-    if seg_q is not None and q.dtype == torch.bfloat16:
+    if seg_q is not None and q.dtype in HALF_DTYPES:
         if seg_kv.data_ptr() % 16:   # the kernel loads key ids by TMA
             seg_kv = seg_kv.clone()
         q_rng = segment_tile_ranges(seg_q)
         kv_rng = (q_rng if kv_segment_ids is None
                   else segment_tile_ranges(seg_kv))
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(seg_q), _ptr(seg_kv), _ptr(q_rng),
@@ -229,10 +238,10 @@ def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     code = check_attention_args(NAME, q, k_pool, v_pool, HEAD_DIM)
     b, sq, hq, d = q.shape
     n_pool, bl, hkv, _ = k_pool.shape
-    # the bfloat16 kernel loads 64-key boxes, each inside one block
-    if q.dtype == torch.bfloat16 and bl % PAGED_BOX:
+    # the 16-bit kernel loads 64-key boxes, each inside one block
+    if q.dtype in HALF_DTYPES and bl % PAGED_BOX:
         raise NotImplementedError(
-            f"{NAME}: the paged bfloat16 build takes block_len % 64 == 0, "
+            f"{NAME}: the paged {q.dtype} build takes block_len % 64 == 0, "
             f"got {bl}")
     table = block_table(block_tables, b, q.device, NAME)
     out = torch.empty_like(q)
@@ -241,7 +250,7 @@ def flash_attention_fwd_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     pos_t = pos_vector(pos, b, q.device)
     if scale is None:
         scale = d ** -0.5
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.flash_attention_fwd_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_t.data_ptr(),
         table.data_ptr(), out.data_ptr(), b, sq, hq, hkv, d, n_pool,
@@ -271,9 +280,9 @@ def flash_attention_fwd_paged_int8_cuda(q: torch.Tensor,
     b, sq, hq, d = q.shape
     n_pool, bl, hkv, _ = k_pool.shape
     check_scales(NAME, k_pool, k_scale, v_scale, (n_pool, hkv))
-    if q.dtype == torch.bfloat16 and bl % PAGED_BOX:
+    if q.dtype in HALF_DTYPES and bl % PAGED_BOX:
         raise NotImplementedError(
-            f"{NAME}: the paged bfloat16 build takes block_len % 64 == 0, "
+            f"{NAME}: the paged {q.dtype} build takes block_len % 64 == 0, "
             f"got {bl}")
     table = block_table(block_tables, b, q.device, NAME)
     out = torch.empty_like(q)
@@ -282,7 +291,7 @@ def flash_attention_fwd_paged_int8_cuda(q: torch.Tensor,
     pos_t = pos_vector(pos, b, q.device)
     if scale is None:
         scale = d ** -0.5
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.flash_attention_fwd_paged_int8(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),

@@ -30,7 +30,8 @@ between its consumer warpgroups — one owns dV, the other dK, both
 computing S^T (S^T done twice: 5 products a tile pair for 4).  Two
 kernels and no atomics: every gradient is the same from run to run.  With
 segment ids both skip the tile pairs whose id ranges miss
-(:func:`backward_tile_ranges`).  Head dims (``BWD_HEAD_DIMS``): K2's set —
+(:func:`backward_tile_ranges`).  Head dims (``BWD_HEAD_DIMS``): K2's set
+but float16 (ROADMAP B2.4b, refused before a launch) —
 bf16 at any D <= 256 with D % 8 == 0, float32 at 16, 64 and 72 on
 CUDA-core kernels of one thread a row and at 128 on CUDA-core kernels that
 split each row over a quad of threads (D / 4 columns a thread, the dot
@@ -52,8 +53,10 @@ from .flash_attention import (FWD_HEAD_DIMS, _ptr, segment_args,
                               segment_tile_ranges)
 
 NAME = "flash_attention_bwd"
-# K5 / K6's head dims: K2's
-BWD_HEAD_DIMS = FWD_HEAD_DIMS
+# K5 / K6's head dims: K2's but float16, whose backward is ROADMAP B2.4b
+# (a table of its own: the forward's takes float16)
+BWD_HEAD_DIMS = {dt: dims for dt, dims in FWD_HEAD_DIMS.items()
+                 if dt != torch.float16}
 RANGE_TILE = 64         # tokens a segment range covers (csrc: kRT)
 
 _P = ctypes.c_void_p
@@ -76,9 +79,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def check_backward_dtype(what: str, q: torch.Tensor) -> None:
+    """Raise naming ROADMAP B2.4b for a dtype K2 runs forward and K5 / K6
+    do not (float16)."""
+    if q.dtype in FWD_HEAD_DIMS and q.dtype not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{what}: the {q.dtype} backward (K5 / K6) is not built yet "
+            f"(ROADMAP B2.4b); the forward runs without autograd")
+
+
 def _check(q, k, v, do, lse, delta):
-    """The checks of :func:`check_attention_args` at ``BWD_HEAD_DIMS``,
-    and dO, lse, delta's shapes."""
+    """The checks of :func:`check_attention_args` at ``BWD_HEAD_DIMS``
+    (:func:`check_backward_dtype` first), and dO, lse, delta's shapes."""
+    check_backward_dtype(NAME, q)
     code = check_attention_args(NAME, q, k, v, BWD_HEAD_DIMS)
     require_cuda(NAME, do, lse, delta)
     b, sq, hq, _ = q.shape

@@ -3,7 +3,7 @@
 
 Replaces ``paddle_tpu/ops/pallas/int8_matmul.py::int8_matmul_pallas``
 (body ``_kernel`` :38-54): ``out = (x @ w8) * scale`` for x (..., K)
-bfloat16 or float32, w8 (K, N) int8 and a float32 (N,) per-column scale;
+bfloat16, float16 or float32, w8 (K, N) int8 and a float32 (N,) per-column scale;
 out (..., N) in x's dtype.  The int8 weights are converted in registers,
 sums are float32 and the scale is applied once in the epilogue.
 
@@ -14,14 +14,16 @@ product runs on ``wgmma`` with the operands swapped (the output columns
 are M, the rows N), so a CTA of 128 columns reads each weight byte from
 device memory once a launch at every row count up to 256; a producer warp
 streams weight and x tiles by TMA into an mbarrier ring; consumers convert
-the int8 tile to bf16 in registers (``ldmatrix.trans`` of byte pairs and
-a byte permute) as wgmma's register A operand; K is split across CTAs
+the int8 tile to x's 16-bit type in registers (``ldmatrix.trans`` of byte
+pairs, a byte permute and one exact subtraction) as wgmma's register A
+operand; K is split across CTAs
 where N alone gives too few of them (N = 1024 and 4096: k_proj, v_proj,
 q_proj, o_proj, down_proj), up to one wave on the 132 SMs.  The weight's
 tensor map is encoded once per weight and cached here by (data_ptr, K,
-N).  The bf16 build needs N % 16
-== 0 (TMA's 16-byte row stride); float32 x (the tiny model) keeps the
-CUDA-core kernel.  A prefill wave's row counts above 256 go to the
+N).  float16 x runs the same kernel compiled over float16 (a library of
+its own, ``_build.VARIANTS``).  The 16-bit builds need N % 16 == 0 (TMA's
+16-byte row stride); float32 x (the tiny model) keeps the CUDA-core
+kernel.  A prefill wave's row counts above 256 go to the
 dequantize-then-matmul composition by the shape rule of
 ``nn/quant.py::int8_matmul_path``.
 
@@ -44,11 +46,13 @@ import math
 
 import torch
 
-from . import _build, dtype_code, require_cuda, stream_ptr
+from . import (HALF_DTYPES, _build, dtype_code, library, require_cuda,
+               stream_ptr)
 
 NAME = "int8_matmul"
 MAX_ROWS = 256          # the kernel's row limit (the reference's too)
-N_ALIGN = {torch.bfloat16: 16, torch.float32: 8}   # the builds' N multiple
+# the builds' N multiple
+N_ALIGN = {torch.bfloat16: 16, torch.float16: 16, torch.float32: 8}
 _SM_COUNT = 132         # H100 SXM
 _BN = 128               # output columns per CTA, both builds (csrc: kBN,
                         # kWgCols)
@@ -58,8 +62,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(NAME)
+def _lib(dtype: torch.dtype = torch.bfloat16) -> ctypes.CDLL:
+    """The library of ``dtype``'s build (float16: its own)."""
+    lib = _build.load(library(NAME, dtype))
     fn = lib.int8_matmul
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P, _P,         # x w8 map scale out part
@@ -73,7 +78,7 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=4096)
 def _weight_map(ptr: int, k: int, n: int) -> ctypes.Array:
-    """The bf16 build's TMA tensor map of the int8 (K, N) weight at
+    """The 16-bit builds' TMA tensor map of the int8 (K, N) weight at
     ``ptr``, encoded once: a map holds only the address, shape and
     strides, so a key of (address, K, N) is never stale."""
     lib = _lib()
@@ -94,7 +99,7 @@ def split_k(rows: int, k: int, n: int, bf16: bool = True):
     """(ksplit, k_chunk): the K split of one launch.  As many splits as
     keep the grid within one wave of CTAs (a few CTAs past a full wave
     would double the time) with chunks no shorter than 256 k values
-    (128 for float32).  bfloat16: one 384-thread CTA an SM covers 128
+    (128 for float32).  16-bit x (``bf16``): one 384-thread CTA an SM covers 128
     columns and every row, chunks a multiple of 64 (the TMA k slice);
     float32: 4 CTAs an SM, each 128 columns x 8 or 16 rows, chunks a
     multiple of 16.  Split partials are summed by a second kernel."""
@@ -110,11 +115,11 @@ def split_k(rows: int, k: int, n: int, bf16: bool = True):
 
 def int8_matmul_cuda(x: torch.Tensor, w8: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
-    """Launch K4.  x: (..., K) bfloat16/float32, contiguous; w8: (K, N)
+    """Launch K4.  x: (..., K) bfloat16/float16/float32, contiguous; w8: (K, N)
     int8; scale: (N,) float32.  Returns (..., N) in x.dtype.  Raises on what
     the kernel does not take (a CPU tensor, a row count outside [1, 256], K
     not a multiple of 8, N not a multiple of ``N_ALIGN[x.dtype]``, a
-    bfloat16 x or w8 not 16-byte aligned)."""
+    16-bit x or w8 not 16-byte aligned)."""
     require_cuda(NAME, x, w8, scale)
     code = dtype_code(x, NAME)
     if w8.dtype != torch.int8 or w8.dim() != 2:
@@ -134,17 +139,17 @@ def int8_matmul_cuda(x: torch.Tensor, w8: torch.Tensor,
     if not 0 < rows <= MAX_ROWS:
         raise NotImplementedError(
             f"{NAME}: the kernel takes 1..{MAX_ROWS} rows, got {rows}")
-    bf16 = x.dtype == torch.bfloat16
-    if bf16 and (x.data_ptr() % 16 or w8.data_ptr() % 16):
+    half = x.dtype in HALF_DTYPES
+    if half and (x.data_ptr() % 16 or w8.data_ptr() % 16):
         raise NotImplementedError(f"{NAME}: x and w8 must be 16-byte aligned")
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-    ksplit, chunk = split_k(rows, k, n, bf16)
+    ksplit, chunk = split_k(rows, k, n, half)
     part = (torch.empty((ksplit, rows, n), dtype=torch.float32,
                         device=x.device) if ksplit > 1 else None)
-    lib = _lib()
+    lib = _lib(x.dtype)
     err = lib.int8_matmul(
         x.data_ptr(), w8.data_ptr(),
-        _weight_map(w8.data_ptr(), k, n) if bf16 else None,
+        _weight_map(w8.data_ptr(), k, n) if half else None,
         scale.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None, rows, k, n, ksplit,
         chunk, code, stream_ptr(x.device))

@@ -410,6 +410,15 @@ class ServingEngine:
         self._step.build()
         if self._mixed is not None:
             self._mixed.build()
+        if self.paged:
+            # the builds' warm-up ran the steps on idle rows, whose writes
+            # land in the null block; a padded wave's rows read that block
+            # back, and an int8 pool's padding writes then reach a live
+            # block's running-max scale: give back the fresh pool's null
+            # block, so a graphed engine serves as its eager twin does
+            for t in (self._cache.values() if self.quantized
+                      else (self._cache,)):
+                t[:, :, 0] = 0
         # drafters, by kind; the default one is built now, the others on a
         # request's first use (a draft model's steps on its first tick)
         self._draft_model = draft_model

@@ -200,7 +200,8 @@ def capture(bodies, device: torch.device, warmup: int, pool=None,
     ``warmup`` eager runs of each on a stream of its own (kernel builds,
     Triton compiles, the kernels' first-launch attributes, K1's merge
     counters: all before the capture; their launches are the build's and
-    are taken back out of the counters), then one capture each, the
+    are taken back out of the counters; cuBLAS's handle and workspace
+    for the stream), then one capture each, the
     graphs sharing ``pool`` (or the first graph's pool).  The garbage
     collector does not run inside a capture: freeing an unreachable
     engine's graph there (a reset) invalidates the capture.  A capture
@@ -213,6 +214,12 @@ def capture(bodies, device: torch.device, warmup: int, pool=None,
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream), private_counters(counters), \
             ops.ReplayCounts.record(), torch.no_grad():
+        # cuBLAS creates its handle and this stream's workspace at its
+        # first product, which a capture refuses: one small product here
+        # (a body whose products are the process's first -- an int8-weight
+        # engine's dequantized wave -- would otherwise fail to capture)
+        eye = torch.eye(8, device=device)
+        eye @ eye
         for body in bodies:
             for _ in range(warmup):
                 body()

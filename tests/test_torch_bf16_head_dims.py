@@ -51,12 +51,13 @@ NARROW = dict(hidden_size=512, num_attention_heads=8, num_key_value_heads=1,
 
 def test_every_bf16_build_takes_one_set_of_head_dims():
     """The forward builds and the backward K5 / K6 share one set, D <=
-    256."""
+    256; the forward builds take it at float16 too, the backward does not
+    (ROADMAP B2.4b)."""
     assert BF16_HEAD_DIMS == frozenset(range(8, 257, 8))
     bf16 = torch.bfloat16
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
         assert table[bf16] is BF16_HEAD_DIMS
-        assert torch.float16 not in table
+        assert table[torch.float16] is BF16_HEAD_DIMS
     assert k56.BWD_HEAD_DIMS[bf16] is BF16_HEAD_DIMS
     assert torch.float16 not in k56.BWD_HEAD_DIMS
 
@@ -79,9 +80,9 @@ def _fake(shape, dtype):
                                   (136, True), (256, True), (264, False)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_check_takes_the_set_and_names_roadmap_b2(d, ok, int8):
-    """A bf16 q at a head dim of the set passes the wrappers' checks (K1
-    and K2-paged share them); another head dim, or float16, is refused
-    with ROADMAP B2 in the message."""
+    """A bf16 or float16 q at a head dim of the set passes the wrappers'
+    checks (K1 and K2-paged share them); another head dim is refused with
+    ROADMAP B2 in the message."""
     q = _fake((2, 1, 8, d), torch.bfloat16)
     kv = _fake((2, 16, 1, d), torch.int8 if int8 else torch.bfloat16)
     for table in (k1.HEAD_DIM, k2.HEAD_DIM):
@@ -92,8 +93,13 @@ def test_check_takes_the_set_and_names_roadmap_b2(d, ok, int8):
                 check_attention_args("k", q, kv, kv, table, int8)
     q16 = _fake((2, 1, 8, d), torch.float16)
     kv16 = kv if int8 else _fake((2, 16, 1, d), torch.float16)
-    with pytest.raises(NotImplementedError, match="dtype"):
-        check_attention_args("k", q16, kv16, kv16, k1.HEAD_DIM, int8)
+    for table in (k1.HEAD_DIM, k2.HEAD_DIM):
+        if ok:
+            assert check_attention_args("k", q16, kv16, kv16, table,
+                                        int8) == 2
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+                check_attention_args("k", q16, kv16, kv16, table, int8)
 
 
 # ---- a narrow Llama at head_dim 64, 8 query heads a KV head -------------------

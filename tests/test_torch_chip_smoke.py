@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.attention import _keep_mask
+from torch_chip_rehearsal import CARD_ONLY as _CARD_ONLY
+from torch_chip_rehearsal import TorchOnCpu as _TorchOnCpu
 
 _SPEC = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -749,7 +751,7 @@ def test_bf16_d64_entries(build):
     assert build in engines
     # the shared serving phase sets the launches of its suffix's entries
     assert "kernels[name + suffix]" in inspect.getsource(
-        chip_smoke.serve_bf16_llama)
+        chip_smoke.serve_llama)
     assert "BF16_D64,BF16_D64_BUILDS" in "".join(inspect.getsource(
         chip_smoke.phase_serving_tinyllama).split())
 
@@ -832,80 +834,136 @@ def test_truth_gate():
             chip_smoke.check_logit_gate(gate(got), "bad")
 
 
-class _Cuda:
-    """torch.cuda's calls the serving phases make, on a CPU-only host."""
+# ---- float16: phase 2's /f16 rows and serving_f16 ---------------------------
 
-    @staticmethod
-    def synchronize():
-        pass
-
-    empty_cache = reset_peak_memory_stats = synchronize
-
-    @staticmethod
-    def max_memory_allocated():
-        return 0
-
-
-class _TorchOnCpu:
-    """``torch`` with ``device("cuda")`` the CPU and the stubs above."""
-
-    cuda = _Cuda
-
-    @staticmethod
-    def device(*args):
-        return torch.device("cpu")
-
-    def __getattr__(self, name):
-        return getattr(torch, name)
+@pytest.mark.parametrize("build", chip_smoke.F16_BUILDS)
+def test_f16_entries(build):
+    """Every float16 forward build (the K1 family, K2 in every layout, K4)
+    has an ``/f16`` entry in the kernels line, its namesake's source and
+    reference kernel, ptxas tags; phase 2 records its rows under it and
+    serving_f16's engines set its launches."""
+    import inspect
+    name = build + chip_smoke.F16
+    assert chip_smoke.KERNEL_INFO[name] == chip_smoke.KERNEL_INFO[build]
+    assert chip_smoke.F16_FUNCTIONS[build]
+    if build == "int8_matmul":
+        assert 'record("int8_matmul" + (F16' in inspect.getsource(
+            chip_smoke.phase_kernels)
+    else:
+        engines = {n for _, _, att in chip_smoke.F32_ENGINES for n in att}
+        assert build in engines
+    assert "F16,F16_BUILDS" in "".join(inspect.getsource(
+        chip_smoke.phase_serving_f16).split())
+    assert "phase_bf16_head_dim_rows(" in inspect.getsource(
+        chip_smoke.phase_f16_rows)
 
 
-# what a CPU run of a card phase must fail: the kernel, graph and route
-# checks (the CPU runs the plain versions, eagerly)
-_CARD_ONLY = ("graph", "launch", "replays", "plain route", "RMSNorm kernel",
-              "attention kernels off")
+def test_f16_rows_cover_the_head_dims():
+    """The float16 rows run at Llama-2-7B's 128, the narrow and wide
+    instances' 64 and 256, and 72 and 136 (D % 16 == 8 on both tile
+    widths: the 8-byte int8 copies and the CP8 staging), every one a head
+    dim the float16 builds take; the tolerance is bf16's scaled by
+    float16's 8x finer rounding."""
+    from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS
+    dims = chip_smoke.F16_DIMS
+    assert set(dims) == {64, 72, 128, 136, 256} and set(dims) <= \
+        BF16_HEAD_DIMS
+    assert {d for d in dims if d % 16 == 8} == {72, 136}
+    assert chip_smoke.L27_HEADS == 32
+    import inspect
+    assert "f16: (2e-3, 2e-3)" in inspect.getsource(
+        chip_smoke.phase_kernels)
 
 
-def test_serving_tinyllama_rehearsed_on_the_cpu(monkeypatch):
-    """serving_tinyllama end to end on the CPU at a narrow width (2 layers,
-    8 heads of 64 over one KV head, vocab 512): every engine, its eager
-    twin, the teacher-forced truth gate, the chunked engine and
-    ``generate`` run, and only the checks that need the card fail."""
-    import paddle_tpu_torch.serving as serving
-    failed = []
+def test_llama2_7b_is_the_published_config():
+    """serving_f16 serves ``LlamaConfig(dtype="float16")``, which is
+    meta-llama/Llama-2-7b-hf's config.json as published ("torch_dtype":
+    "float16"), not cut: 32 layers of 32 / 32 heads of 128; 6.74 B
+    parameters, 13.5 GB."""
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig(**chip_smoke.F16_WIDTHS)
+    assert chip_smoke.F16_WIDTHS == {"dtype": "float16"}
+    assert {k: getattr(cfg, k) for k in chip_smoke.LLAMA2_7B} == \
+        chip_smoke.LLAMA2_7B
+    assert (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size,
+            cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.num_key_value_heads, cfg.max_position_embeddings) == (
+                32000, 4096, 11008, 32, 32, 32, 4096)
+    assert (cfg.rms_norm_eps, cfg.rope_theta, cfg.tie_word_embeddings,
+            cfg.head_dim) == (1e-5, 10000.0, False, 128)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    layer = 4 * h * h + 3 * h * i + 2 * h
+    params = 2 * cfg.vocab_size * h + cfg.num_hidden_layers * layer + h
+    assert round(params / 1e9, 2) == 6.74
+    assert round(2 * params / 1e9, 1) == 13.5
 
-    def record(cond, what):
-        if not cond:
-            failed.append(what)
 
-    class CpuEngine(serving.ServingEngine):
-        def __init__(self, model, **kw):
-            super().__init__(model, **dict(kw, device="cpu"))
+def test_f16_phase_order():
+    """serving_f16 runs right after serving_d256, behind the main loop's
+    ``memory`` line; phase 2 adds its float16 rows after the bf16 ones."""
+    import inspect
+    loop = inspect.getsource(chip_smoke.main).split("for phase in (")[1]
+    loop = loop.split("):")[0]
+    assert loop.index("phase_serving_d256(") \
+        < loop.index("phase_serving_f16(") \
+        < loop.index("phase_training_d256(")
+    k_src = inspect.getsource(chip_smoke.phase_kernels)
+    assert k_src.rindex("phase_bf16_head_dim_rows(") \
+        < k_src.index("phase_f16_rows(")
 
-    monkeypatch.setattr(chip_smoke, "check", record)
-    monkeypatch.setattr(serving, "ServingEngine", CpuEngine)
-    monkeypatch.setattr(chip_smoke, "TINYLLAMA", dict(
-        chip_smoke.TINYLLAMA, vocab_size=512, hidden_size=512,
-        intermediate_size=256, num_hidden_layers=2, num_attention_heads=8,
-        num_key_value_heads=1))
-    kernels = {n + chip_smoke.BF16_D64: {}
-               for n in chip_smoke.BF16_D64_BUILDS}
-    lines = []
-    monkeypatch.setattr(chip_smoke, "emit", lines.append)
-    chip_smoke.phase_serving_tinyllama(_TorchOnCpu(), kernels, "cpu")
-    assert [ln["engine"] for ln in lines] == [
-        "contiguous", "paged", "int8_paged", "int8_contiguous", "chunked",
-        "generate"]
-    bad = [w for w in failed if not any(k in w for k in _CARD_ONLY)]
-    assert not bad, bad
-    assert failed, "the card-only checks cannot pass on the CPU"
-    for ln in lines[:4]:
-        g = ln["teacher_forced_logits"]
-        assert g["finite"] and 0 < g["max_logit_err_kernel_vs_f32_cache"] \
-            <= g["tol_kernel_vs_f32_cache"]
-        assert ln["eager_twin"]["tokens_identical"]
-    assert lines[1]["kv_cache"]["prefix_hit_tokens"] > 0
-    assert lines[5]["twin_identical"] and lines[5]["cold_identical"]
-    assert all("launches" in r for r in kernels.values())
+
+def test_f16_launch_contract():
+    """Llama-2-7B owes the attention kernels 32 launches a unit and K4 7 x
+    32 + 1 = 225 a tick (the untied head quantized too)."""
+    m = {"decode_ticks": 15, "prefill_waves": 2, "ticks": 17,
+         "mixed_ticks": 6}
+    att = {"decode_attention_paged_int8": ("tick",),
+           "flash_attention_fwd_paged_int8": ("wave",)}
+    assert chip_smoke.attention_launches(m, att, 32) == {
+        "decode_attention_paged_int8": 32 * 15,
+        "flash_attention_fwd_paged_int8": 32 * 2}
+    cfg = chip_smoke.LLAMA2_7B
+    k4 = 7 * cfg["num_hidden_layers"] + (
+        0 if cfg["tie_word_embeddings"] else 1)
+    assert k4 == 225 == chip_smoke.K4_PER_TICK
+    import inspect
+    assert "7 * layers + (0 if cfg.tie_word_embeddings else 1)" in \
+        inspect.getsource(chip_smoke.serve_llama)
+
+
+def test_f16_ptxas_pairs_each_instance_with_its_bf16_twin():
+    """The f16_ptxas line reads the float16 libraries alone (their
+    functions carry the bf16 ones' names), each instance beside its bf16
+    twin's registers; the default libraries' reports are not overwritten
+    by the float16 ones."""
+    def log(src, regs, spill, elem="6__half"):
+        return "\n".join(
+            f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1"
+            f"{t}vPK{elem}' for 'sm_90a'\n    0 bytes stack frame, {spill} bytes "
+            f"spill stores, 0 bytes spill loads\nptxas info    : Used {regs} "
+            f"registers, used 1 barriers"
+            for build, tags in chip_smoke.F16_FUNCTIONS.items()
+            if build.startswith(src) for t in tags)
+    bf = "13__nv_bfloat16"
+    build_log = {"decode_attention": log("decode", 150, 0, bf),
+                 "decode_attention_f16": log("decode", 152, 0),
+                 "flash_attention_fwd": log("flash", 168, 0, bf),
+                 "flash_attention_fwd_f16": log("flash", 168, 8),
+                 "int8_matmul": log("int8", 160, 0, bf),
+                 "int8_matmul_f16": log("int8", 160, 0)}
+    got = chip_smoke.f16_ptxas(build_log)
+    assert set(got) == set(chip_smoke.F16_FUNCTIONS)
+    k1 = got["decode_attention"]
+    assert k1 and all(r["registers"] == 152 and r["bf16_registers"] == 150
+                      for r in k1.values())
+    assert all(r["spill_stores"] == 8
+               for r in got["flash_attention_fwd_paged"].values())
+    fns = chip_smoke.ptxas_of(build_log, {"decode_attention": (
+        chip_smoke.F16_FUNCTIONS["decode_attention"][0],)})
+    assert fns["decode_attention"][
+        chip_smoke.F16_FUNCTIONS["decode_attention"][0]]["registers"] == 150
+    assert chip_smoke.f16_ptxas({}) == dict.fromkeys(
+        chip_smoke.F16_FUNCTIONS)
 
 
 # ---- bf16 above head_dim 128: phase 2's /bf16_d256 rows and serving_d256 ----
@@ -1015,40 +1073,6 @@ def test_bf16_d256_backward_entries():
     assert "train_llama(" in train_src and "BF16_D256_BWD" in train_src
     assert 'kernels[entry]["launches"]' in inspect.getsource(
         chip_smoke.train_llama)
-
-
-def test_training_d256_rehearsed_on_the_cpu(monkeypatch):
-    """training_d256 end to end on the CPU at a narrow width (2 layers, 8
-    heads of 256 over one KV head, vocab 512, 4 x 64 tokens): the gradient
-    gate and the 8 steps run, the losses fall, and only the checks that
-    need the card fail."""
-    failed = []
-
-    def record(cond, what):
-        if not cond:
-            failed.append(what)
-
-    monkeypatch.setattr(chip_smoke, "check", record)
-    monkeypatch.setattr(chip_smoke, "GEMMA2B_WIDTHS", dict(
-        chip_smoke.GEMMA2B_WIDTHS, vocab_size=512, intermediate_size=256,
-        num_hidden_layers=2))
-    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 64)
-    kernels = {n: {} for n in chip_smoke.BF16_D256_BWD}
-    lines = []
-    monkeypatch.setattr(chip_smoke, "emit", lines.append)
-    chip_smoke.phase_training_d256(_TorchOnCpu(), kernels, "cpu")
-    assert [ln["phase"] for ln in lines] == ["training_d256_grads",
-                                             "training_d256"]
-    grads, run = lines
-    assert grads["head_dim"] == 256 and grads["layers"] == 2
-    assert grads["grad_rel_l2_kernel_vs_f32"] <= grads["tol_kernel_vs_f32"]
-    assert len(run["losses"]) == chip_smoke.TRAIN_STEPS
-    assert run["losses"][-1] < run["losses"][0]
-    assert run["optimizer_state_bytes"] > 0
-    bad = [w for w in failed if not any(k in w for k in _CARD_ONLY)]
-    assert not bad, bad
-    assert failed, "the card-only checks cannot pass on the CPU"
-    assert all("launches" in r for r in kernels.values())
 
 
 def test_training_rehearsed_on_the_cpu(monkeypatch):

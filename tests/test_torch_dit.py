@@ -366,7 +366,7 @@ def no_card(monkeypatch):
     monkeypatch.setattr(pt_cuda, "require_cuda", lambda what, *t: None)
     monkeypatch.setattr(k56, "require_cuda", lambda what, *t: None)
     for mod in (k1, k2, k56):
-        monkeypatch.setattr(mod, "_lib", lambda: lib)
+        monkeypatch.setattr(mod, "_lib", lambda *dtype: lib)
         monkeypatch.setattr(mod, "stream_ptr", lambda device: 0)
     return lib
 

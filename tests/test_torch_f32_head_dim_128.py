@@ -46,6 +46,7 @@ from paddle_tpu_torch.ops import flash_attention_bwd_reference
 from paddle_tpu_torch.ops.attention import flash_attention_reference
 from paddle_tpu_torch.ops.cuda import decode_attention as k1
 from paddle_tpu_torch.ops.cuda import flash_attention as k2
+from paddle_tpu_torch.ops.cuda import flash_attention_bwd as k56
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
@@ -60,12 +61,14 @@ def test_tables_take_float32_head_dim_128_only_among_new_dims():
     f32 = torch.float32
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
         assert 128 in table[f32] and 96 not in table[f32]
-    # every bf16 build takes one set of head dims (D <= 128, D % 8 == 0);
-    # the rest of B2 (float16, D past 128) stays refused
+    # every bf16 build takes one set of head dims (D <= 256, D % 8 == 0),
+    # and every float16 forward build the same set; the float16 backward
+    # (ROADMAP B2.4b) stays refused
     assert (k1.HEAD_DIM[torch.bfloat16] == k2.HEAD_DIM[torch.bfloat16]
             == k2.FWD_HEAD_DIMS[torch.bfloat16])
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
-        assert torch.float16 not in table
+        assert table[torch.float16] == table[torch.bfloat16]
+    assert torch.float16 not in k56.BWD_HEAD_DIMS
 
 
 # ---- a model of K5 / K6's float32 head_dim-128 body ---------------------------

@@ -203,7 +203,7 @@ def no_card(monkeypatch):
     monkeypatch.setattr(k56, "require_cuda", lambda what, *t: None)
     monkeypatch.setattr(_dispatch, "use_kernel", lambda x: True)
     for mod in (k1, k2, k56):
-        monkeypatch.setattr(mod, "_lib", lambda: lib)
+        monkeypatch.setattr(mod, "_lib", lambda *dtype: lib)
         monkeypatch.setattr(mod, "stream_ptr", lambda device: 0)
     return lib
 

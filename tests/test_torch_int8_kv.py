@@ -107,6 +107,40 @@ def test_quantized_paged_write_equals_jax(pos, s):
     np.testing.assert_array_equal(tkv.numpy(), np.asarray(jkv))
 
 
+def test_quantized_paged_write_duplicates_write_the_last_token():
+    """Tokens of two rows past their 1-column tables all land in the null
+    block, at the same cells (a padded wave's tail): every cell holds the
+    bytes of the LAST token written there, as JAX's scatter leaves it --
+    the same bytes every run, where an index write on the card would pick
+    among the duplicates in no fixed order."""
+    nb, bl = 9, 8
+    kv, sc = _pool_state(nb, bl, 3)
+    tables = np.asarray([[3], [5]], np.int32)
+    s = 20                                 # positions 4..23: 4..7 in-table
+    position_ids = np.asarray([4, 4])[:, None] + np.arange(s)[None]
+    lb = position_ids // bl
+    phys = np.where(lb < 1, tables[np.arange(2)[:, None], 0], 0)
+    phys = phys.astype(np.int32)
+    off = (position_ids % bl).astype(np.int32)
+    jkv, jsc = jnp.asarray(kv), jnp.asarray(sc)
+    tkv, tsc = _t(kv), _t(sc)
+    xs = [_rand((2, s, HKV, D), 40 + kvsl, 2.0) for kvsl in (0, 1)]
+    for kvsl in (0, 1):
+        jkv, jsc = jllama._quantized_paged_write(
+            jkv, jsc, 0, kvsl, jnp.asarray(xs[kvsl]), jnp.asarray(phys),
+            jnp.asarray(off))
+    quantized_paged_write(tkv, tsc, 0, _t(xs[0]), _t(xs[1]), _t(phys),
+                          _t(off))
+    np.testing.assert_array_equal(tsc.numpy(), np.asarray(jsc))
+    np.testing.assert_array_equal(tkv.numpy(), np.asarray(jkv))
+    # the null block's cell of position 23 (row 1's last token) holds that
+    # token quantized under the block's final scale
+    null_k = tkv[0, 0, 0].float()
+    want = torch.round(_t(xs[0])[1, s - 1]
+                       / tsc[0, 0, 0][:, None]).clamp(-127, 127)
+    np.testing.assert_array_equal(null_k[23 % bl].numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("per_row", [True, False])
 def test_quantized_contiguous_write_equals_jax(per_row):
     """Granules of 8 positions (n_gran 4 over 32): rows write 11 tokens
