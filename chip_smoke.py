@@ -404,6 +404,7 @@ optimizer's device time, device busy share) for PERF.md.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -561,6 +562,13 @@ F16 = "/f16"
 F16_BUILDS = BF16_D256_BUILDS + ("int8_matmul",)
 for _name in F16_BUILDS:
     KERNEL_INFO[_name + F16] = dict(KERNEL_INFO[_name])
+# and so does the float16 backward (K5 / K6's bf16 bodies over float16,
+# each dS row in a power-of-two unit of its own): phase 2's rows at D 64,
+# 72, 128, 136 and 256 (times at Llama-2-7B's 128), its range rows, and
+# launches from training_f16
+F16_BWD = ("flash_attention_bwd_dq" + F16, "flash_attention_bwd_dkv" + F16)
+for _name in F16_BWD:
+    KERNEL_INFO[_name] = dict(KERNEL_INFO[_name[:-len(F16)]])
 del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -587,6 +595,9 @@ SEGMENTED_LIBRARY_NOTE = ("F.scaled_dot_product_attention (enable_gqa) with "
 # version's float32 math; 1e-2 leaves a 2.5x margin over the ~4e-3 those
 # two roundings give, and a wrong mask or a missing tile is O(1)
 BWD_REL_TOL_BF16 = 1e-2
+# float16 rounds 8x finer (2^-11): bf16's bound scaled by 8, with margin
+# (2e-3, as the float16 forward rows' 2e-3)
+BWD_REL_TOL_F16 = 2e-3
 # phase 5: Llama-3-8B width cut to 4 layers (training state of the full
 # 32-layer model, ~16 bytes a parameter, does not fit one 80 GB card)
 TRAIN_LAYERS = 4
@@ -621,7 +632,13 @@ K4_PER_TICK = 7 * LAYERS_8B + 1
 TINY_MIN_ELEMS = 2048           # every tiny projection, not the RoPE tables
 
 
+# the script's start: each phase line carries its seconds since (t_s)
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -953,7 +970,7 @@ def backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw):
     (q, k, v, dO, dlse, out, lse, delta), out and lse from K2 and delta =
     rowsum(dO * out) - dlse."""
     from paddle_tpu_torch.ops import flash_attention_fwd_cuda
-    esz = 2 if dt == torch.bfloat16 else 4
+    esz = 4 if dt == torch.float32 else 2
     sets = []
     for _ in range(copies(b * (2 * sq * hq + 2 * skv * hkv) * d * esz)):
         q, k, v, do = (randn(b, sq, hq, d, dtype=dt),
@@ -987,7 +1004,7 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dt = q.dtype
-    esz = 2 if dt == torch.bfloat16 else 4
+    esz = 4 if dt == torch.float32 else 2
     seg, kv_seg = kw["segment_ids"], kw["kv_segment_ids"]
     pairs = int(keep.expand(b, sq, skv).sum().item())
     dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
@@ -1032,9 +1049,11 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
             (names[1], (dk, dv), (rk, rv), 8, 2 * b * skv * hkv * d)):
         err = max(max_err(g, w) for g, w in zip(got, want))
         rels = [rel_l2(g, w) for g, w in zip(got, want)]
-        if dt == torch.bfloat16:
-            tol = f"relative L2 per tensor <= {BWD_REL_TOL_BF16}"
-            ok = max(rels) <= BWD_REL_TOL_BF16
+        if dt != torch.float32:
+            rel_tol = (BWD_REL_TOL_BF16 if dt == torch.bfloat16
+                       else BWD_REL_TOL_F16)
+            tol = f"relative L2 per tensor <= {rel_tol}"
+            ok = max(rels) <= rel_tol
         else:
             atol, rtol = tols(dt)
             tol = f"atol {atol} + rtol {rtol}"
@@ -1053,7 +1072,7 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
         nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d
                   + out_elems) * esz + io
         bms, by = bound(nbytes, flops_per_pair * d * hq * pairs,
-                        BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+                        F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
         record(name, tag, err, tol + ", finite, dead rows (keys) 0, "
                "the same bits twice", ok,
                kfns, plain_ms, lib_ms, bms, by, main,
@@ -2037,7 +2056,7 @@ def ptxas_of(build_log, functions):
 # the C functions of each float16 build (every instance whose mangled name
 # holds a tag): the K1 family's decode_mma_kernel<INT8, PAGED, ...>, K2's
 # flash_attention_fwd_wgmma_kernel<SEG, PAGED, INT8, ...>, K4's wgmma
-# kernel and its split-K reduction
+# kernel and its split-K reduction, K5 / K6's Hopper kernels
 F16_FUNCTIONS = {
     name: (f"decode_mma_kernelILb{int8}ELb{paged}E",)
     for name, int8, paged in K1_MMA_BUILDS}
@@ -2049,7 +2068,14 @@ F16_FUNCTIONS.update({
         "flash_attention_fwd_wgmma_kernelILb0ELb1ELb0E",),
     "flash_attention_fwd_paged_int8": (
         "flash_attention_fwd_wgmma_kernelILb0ELb1ELb1E",),
-    "int8_matmul": ("int8_matmul_wgmma_kernel", "int8_matmul_reduce")})
+    "int8_matmul": ("int8_matmul_wgmma_kernel", "int8_matmul_reduce"),
+    # K5 / K6: bwd_dq_wgmma(_wide)_kernel<SEG>, bwd_dkv_wgmma(_wide)_kernel
+    "flash_attention_bwd_dq": tuple(
+        f"bwd_dq_wgmma{w}_kernelILb{seg}EE" for w in ("", "_wide")
+        for seg in (0, 1)),
+    "flash_attention_bwd_dkv": tuple(
+        f"bwd_dkv_wgmma{w}_kernelILb{seg}EE" for w in ("", "_wide")
+        for seg in (0, 1))})
 # the element types as mangled names spell them
 F16_TYPE, BF16_TYPE = "6__half", "13__nv_bfloat16"
 # a mangled name's anonymous-namespace prefix (it carries a build hash)
@@ -2068,6 +2094,7 @@ def f16_ptxas(build_log):
     for build, tags in F16_FUNCTIONS.items():
         src = ("int8_matmul" if build == "int8_matmul" else
                "decode_attention" if build.startswith("decode")
+               else "flash_attention_bwd" if "_bwd_" in build
                else "flash_attention_fwd")
         log = build_log.get(src + "_f16")
         if log is None:
@@ -2410,8 +2437,12 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     staging and the PAD instances) at Llama-2-7B's heads (32 over 32; the
     main rows and the verify window at D 128), then K2 at the serving wave
     (B 4 x 2048) and dead rows (Sq 77 over Skv 61) at every D, packed
-    documents, the ring hop and not causal at D 128, and the identity view
-    at pos 0 and 1024; no backward (ROADMAP B2.4b)."""
+    documents, the ring hop and not causal at D 128, the identity view at
+    pos 0 and 1024, and K5 / K6 (:func:`k5_k6_rows`, the ``/f16`` entries
+    ``flash_attention_bwd_*/f16``) at every D: B 4 x 2048 causal (the
+    main row at D 128), Sq 77 over Skv 61 (dead rows), packed documents
+    at S 2048, the ring hop (Sq 256, Skv 512) and not causal at B 4 x
+    512."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2659,6 +2690,16 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                     False)])
         phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                             tols, f16=True)
+        k5_k6_rows(torch, record, randn, tols, [
+            (F16_BWD, bf16, b, sq, skv, hq, hkv, d, causal, segments,
+             main and d == main_d)
+            for d in dims
+            for b, sq, skv, causal, segments, main in (
+                (4, F32_L, F32_L, True, None, True),
+                (2, 77, 61, True, None, False),
+                (2, F32_L, F32_L, True, "packed", False),
+                (2, 256, 512, True, "ring", False),
+                (4, 512, 512, False, None, False))])
         return
     if not wide:
         return
@@ -2703,7 +2744,8 @@ def phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols):
     float16-subnormal: the kernels apply it relative to the tile's
     largest, in float32, as the reference scales the float32 P.V product),
     each held at 2e-3 of its largest output (outputs near 1e-2 would pass
-    any atol of 2e-3)."""
+    any atol of 2e-3); and K5 / K6's range rows at D 128 and 256
+    (:func:`bwd_range_row`: a loss-scaled dO whose dS passes 65504)."""
     import ctypes
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
@@ -2811,6 +2853,74 @@ def phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols):
                   v_scale=pvs), 2 * b * L * h * d,
               sum(4 * d * h * (p + i + 1) for p in (0, 512, 1024, 1792)
                   for i in range(256)))
+    del q, k8, v8, kp, vp, qp
+    for d in (128, 256):
+        bwd_range_row(torch, randn, record, d)
+
+
+def bwd_range_row(torch, randn, record, d, b=2, s=512, h=8):
+    """K5 / K6's range rows at float16 (the ``/f16`` entries), causal B x S
+    with h heads at head_dim ``d``: dO near 3e2 (a loss-scaled gradient),
+    V near 1e3, Q and K near 1e-2, so that scores are near 0, P near 1 /
+    (visible keys), and |dS| = |P (dP - delta) scale| passes float16's
+    65504 on the first queries of the causal triangle while the plain
+    version's dq, dk and dv stay finite.  Each kernel's outputs must be
+    finite wherever the plain version's are, and within 2e-3 of their
+    largest; the row prints the largest |dS| it reached."""
+    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
+                                      flash_attention_bwd_dq_cuda,
+                                      flash_attention_bwd_reference,
+                                      flash_attention_fwd_cuda)
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+
+    f16 = torch.float16
+    q, k = (1e-2 * randn(b, s, h, d, dtype=f16) for _ in range(2))
+    v = 1e3 * randn(b, s, h, d, dtype=f16)
+    do = 3e2 * randn(b, s, h, d, dtype=f16)
+    out, lse = flash_attention_fwd_cuda(q, k, v, causal=True)
+    delta = ((do.float() * out.float()).sum(-1).transpose(1, 2)
+             .contiguous())
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)
+    # the plain version's dS, for its largest magnitude
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * d ** -0.5
+                  - lse[..., None]).masked_fill(~keep, 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+              - delta[..., None]) * d ** -0.5
+    max_ds = float(ds.abs().max())
+    del qf, kf, vf, dof, p, ds
+    with reference_mode():
+        plain_ms = time_ms(torch, [lambda: flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal=True)], budget_ms=50.0)
+    pairs = b * s * (s + 1) // 2
+    shape = (f"range: B={b} S={s} Hq=Hkv={h} D={d} causal float16, dO of "
+             f"std 3e2, V of std 1e3, Q and K of std 1e-2")
+    for name, fn, idx, flops in (
+            (F16_BWD[0], lambda: (flash_attention_bwd_dq_cuda(
+                q, k, v, do, lse, delta, causal=True),), (0,), 6),
+            (F16_BWD[1], lambda: flash_attention_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, causal=True), (1, 2), 8)):
+        got = fn()
+        torch.cuda.synchronize()
+        ok, err, tops = True, 0.0, []
+        for g, i in zip(got, idx):
+            w = want[i].float()
+            fin = torch.isfinite(w)
+            ok = ok and bool(torch.isfinite(g[fin]).all().item())
+            top = float(w[fin].abs().max())
+            e = float((g.float() - w)[fin].abs().max())
+            ok = ok and e <= 2e-3 * top
+            err, tops = max(err, e), tops + [top]
+        # q, k, v, dO read and the outputs written once, lse and delta
+        bms, by = bound((4 + len(idx)) * b * s * h * d * 2 + 8 * b * h * s,
+                        flops * d * h * pairs, BF16_FLOPS)
+        record(name, shape, err, f"finite where the plain version is, 2e-3 "
+               f"of the largest output ({tops})", ok, [fn], plain_ms, None,
+               bms, by, False, extra={"head_dim": d, "max_abs_dS": max_ds,
+                                      "max_abs_out": tops})
+    check(max_ds > 65504,
+          f"the D {d} range row's |dS| reached only {max_ds}")
 
 
 def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
@@ -4581,7 +4691,8 @@ def profile_step(torch, step, opt, batch, phase: str) -> None:
                   for t, k, c in rows[:20]]})
 
 
-def grad_gate(torch, model, make_f32, loss_of, phase: str, fields):
+def grad_gate(torch, model, make_f32, loss_of, phase: str, fields,
+              post=None):
     """Gate (a) of the training phases: step-1 gradients of
     ``loss_of(model)`` on the kernel path and on the plain path
     (``reference_mode()``), each against the float32 truth (``make_f32()``:
@@ -4591,14 +4702,15 @@ def grad_gate(torch, model, make_f32, loss_of, phase: str, fields):
     tensor by tensor within 1.2x + GRAD_TENSOR_FLOOR, so a wrong dq or dk
     / dv of one projection cannot hide under the embeddings' share of the
     sum.  A one-element tensor (one sum over the batch) is held at
-    GRAD_SCALAR_TOL instead.  Emits a ``phase`` line (``fields``
-    first)."""
+    GRAD_SCALAR_TOL instead.  ``post`` (the list of gradients -> a list)
+    is applied to every path's gradients first (a loss scaler's unscale).
+    Emits a ``phase`` line (``fields`` first)."""
     from paddle_tpu_torch.ops._dispatch import reference_mode
 
     def grads(m):
         loss = loss_of(m)
-        return float(loss.detach()), torch.autograd.grad(
-            loss, list(m.parameters()))
+        gs = torch.autograd.grad(loss, list(m.parameters()))
+        return float(loss.detach()), (post(gs) if post else gs)
 
     model32 = make_f32()
     with reference_mode():
@@ -6574,6 +6686,275 @@ def phase_training_d256(torch, kernels, card):
                 {"card": card, "config": "Llama at Gemma-2B's widths"},
                 BF16_D256_BWD)
 
+# training_f16: Llama-2-7B's float16 widths (LLAMA2_7B) cut in depth only,
+# to 8 of 32 layers: 1.88 B parameters take ~26 GB as float16 weights,
+# float32 masters and two float32 moments, plus ~11 GB of float16 and
+# float32 gradients; the 32 layers (~108 GB) do not fit one 80 GB card
+TRAIN_F16_LAYERS = 8
+# gate (d): a loss scale at which the float16 backward overflows (the
+# reference's own skip test overflows the same way from 2^40)
+OVERFLOW_SCALE = 2.0 ** 40
+
+
+def scaler_replay(seen, scaler):
+    """The loss scaler's states after each step, replayed from the
+    found_inf values ``seen`` by the reference's update rule
+    (``paddle_tpu/amp/__init__.py`` :183-195), in Python numbers."""
+    scale, good, bad, out = scaler._init_scale, 0, 0, []
+    for found in seen:
+        bad, good = (bad + 1, 0) if found else (0, good + 1)
+        if bad >= scaler.decr_every_n_nan_or_inf:
+            scale, bad = scale * scaler.decr_ratio, 0
+        if good >= scaler.incr_every_n_steps:
+            scale, good = scale * scaler.incr_ratio, 0
+        out.append((scale, good, bad))
+    return out
+
+
+def phase_training_f16(torch, kernels, card):
+    """``LlamaConfig(dtype="float16")`` at Llama-2-7B's published widths
+    (``LLAMA2_7B``), cut to TRAIN_F16_LAYERS of 32 layers, ``recompute``,
+    trained the reference's float16 way: ``amp.decorate(model, opt,
+    level="O2", dtype="float16")`` and an ``amp.GradScaler`` at its
+    defaults (2^15) in ``build_train_step``, on phase 5's batches and
+    AdamW.  Gates: (a) step-1 gradients of the scaled loss, unscaled as
+    the scaler unscales, the kernel path within 1.2x the plain path's
+    error against a float32 copy (:func:`grad_gate`); (b) TRAIN_STEPS
+    steps: every loss finite, the last below the first, each step's
+    found_inf and scale reported, the scaler's states those of its update
+    rule replayed from the found_inf values (:func:`scaler_replay`), every
+    step taken advancing the optimizer's step counter and its moments (and
+    the parameters once the warmup's lr is above 0), every step skipped
+    leaving them; (c) K2 = 2 x TRAIN_ACCUM x layers and K5 = K6 =
+    TRAIN_ACCUM x layers launches a step, every one at head_dim 128 and
+    from the float16 libraries, no plain route; (d) one more step at
+    OVERFLOW_SCALE: the float16 backward overflows, the step is skipped
+    (parameters, float32 masters, moments and the step counter bit-equal
+    to before), the scale halves, the unscaled loss is finite.  The
+    ``/f16`` K5 / K6 entries take (c)'s launches."""
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.distributed import build_train_step
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.ops.cuda import flash_attention as k2mod
+    from paddle_tpu_torch.ops.cuda import flash_attention_bwd as k56mod
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+
+    phase = "training_f16"
+    cfg = LlamaConfig(**F16_WIDTHS, num_hidden_layers=TRAIN_F16_LAYERS,
+                      recompute=True)
+    widths = {k: getattr(cfg, k) for k in LLAMA2_7B}
+    check(widths == dict(LLAMA2_7B, num_hidden_layers=TRAIN_F16_LAYERS),
+          f"{phase} is not Llama-2-7B cut to {TRAIN_F16_LAYERS} layers: "
+          f"{widths}")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    opt = AdamW(lr.LinearWarmup(3e-4, 2), beta2=0.95, epsilon=1e-5,
+                weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+
+    class RecordingScaler(amp.GradScaler):
+        """The scaler at its defaults, keeping the found_inf of each
+        update."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def update_state(self, state, found_inf):
+            self.seen.append(bool(found_inf))
+            return super().update_state(state, found_inf)
+
+    scaler = RecordingScaler()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    fields = {"card": card, "config": "Llama-2-7B", "layers": layers,
+              "of_layers": LLAMA2_7B["num_hidden_layers"],
+              "head_dim": cfg.head_dim, "params": n_params,
+              "dtype": "float16", "amp": "O2",
+              "init_loss_scaling": scaler._init_scale}
+    check(all(p.dtype == torch.float16 for p in model.parameters())
+          and opt._multi_precision, f"{phase}: not an O2 float16 model")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in packed_batch(
+        cfg.vocab_size, TRAIN_ROWS, TRAIN_SEQ, seed=5).items()}
+    micro = {k: v[:TRAIN_ROWS // TRAIN_ACCUM] for k, v in batch.items()}
+
+    # (a) step-1 gradients of the scaled loss, unscaled as the scaler does
+    def llama32():
+        m32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                               device=dev)
+        with torch.no_grad():
+            for p32, p in zip(m32.parameters(), model.parameters()):
+                p32.copy_(p)
+        return m32
+
+    inv = 1.0 / scaler._init_scale
+    grad_gate(torch, model, llama32,
+              lambda m: scaler.scale(m.compute_loss(**micro)),
+              phase + "_grads",
+              dict(fields, init_s=round(init_s, 3),
+                   micro_batch=list(micro["input_ids"].shape)),
+              post=lambda gs: [(g.float() * inv).to(g.dtype) for g in gs])
+
+    # (b) + (c): TRAIN_STEPS steps, the launch and route counters and the
+    # libraries' dtypes reset just before and read just after
+    step = build_train_step(model, opt, grad_accum_steps=TRAIN_ACCUM,
+                            scaler=scaler)
+    libs = collections.Counter()
+
+    def counting(mod, name):
+        load = mod._lib
+
+        def lib(dtype):
+            libs[(name, str(dtype)[6:])] += 1
+            return load(dtype)
+        return load, lib
+    loads = {}
+    for mod, name in ((k2mod, "flash_attention_fwd"),
+                      (k56mod, "flash_attention_bwd")):
+        loads[mod], mod._lib = counting(mod, name)
+    probes = {"model.norm.weight": model.model.norm.weight,
+              "lm_head": model.lm_head}
+
+    def snapshot():
+        st = opt.state_dict() or {}
+        return ({k: p.detach()[:8].clone() for k, p in probes.items()},
+                {k: st["moment1"][k][:8].clone() for k in probes}
+                if st else None, st.get("step", 0))
+
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    scaler.seen.clear()
+    losses, step_ms, steps = [], [], []
+    torch.cuda.synchronize()
+    try:
+        for i in range(TRAIN_STEPS):
+            before = snapshot()
+            lr_i = opt.get_lr()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))      # float() synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = snapshot()
+            st = scaler._state
+            steps.append({
+                "loss": losses[-1], "found_inf": scaler.seen[-1],
+                "scale": float(st["scale"]),
+                "good_steps": int(st["good_steps"]),
+                "bad_steps": int(st["bad_steps"]), "lr": lr_i,
+                "opt_step": after[2],
+                "params_moved": any(not torch.equal(before[0][k],
+                                                    after[0][k])
+                                    for k in probes),
+                "moments_moved": after[1] is not None and (
+                    before[1] is None or any(
+                        not torch.equal(before[1][k], after[1][k])
+                        for k in probes)),
+                "step_counter_moved": after[2] == before[2] + 1})
+    finally:
+        for mod, load in loads.items():
+            mod._lib = load
+    launches = ops.launch_counts()
+    shapes = ops.shape_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    pairs = causal_pairs(batch["segment_ids"], TRAIN_ROWS, TRAIN_SEQ)
+    matmul_params = n_params - sum(p.numel() for n, p in
+                                   model.named_parameters()
+                                   if n.endswith("norm.weight"))
+    matmul_params -= cfg.vocab_size * cfg.hidden_size   # the lookup table
+    model_flops = (6 * matmul_params * tokens
+                   + 12 * cfg.head_dim * cfg.num_attention_heads * pairs
+                   * layers)
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    per_step = {"flash_attention_fwd": 2 * TRAIN_ACCUM * layers,
+                "flash_attention_bwd_dq": TRAIN_ACCUM * layers,
+                "flash_attention_bwd_dkv": TRAIN_ACCUM * layers}
+    by_dim = {name: {str(key[1]): n for key, n in shapes.items()
+                     if key[0] == name} for name in per_step}
+    state_bytes = sum(t.numel() * t.element_size()
+                      for k, v in opt.state_dict().items() if k != "step"
+                      for t in v.values())
+    emit({"phase": phase, **fields, "recompute": True,
+          "batch": [TRAIN_ROWS, TRAIN_SEQ], "grad_accum_steps": TRAIN_ACCUM,
+          "documents": len(torch_counts(batch["segment_ids"])),
+          "optimizer": "AdamW(LinearWarmup(3e-4, 2), beta2=0.95, eps=1e-5, "
+                       "wd=0.1, ClipGradByGlobalNorm(1.0)), O2 masters",
+          "steps": steps, "losses": losses, "step_ms": step_ms,
+          "step_ms_median": steady, "tokens_per_s": tokens / (steady / 1e3),
+          "model_flops_per_step": model_flops,
+          "model_flops_share_of_989T": model_flops / (steady / 1e3)
+          / BF16_FLOPS,
+          "optimizer_state_bytes": state_bytes,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches, "launches_by_head_dim": by_dim,
+          "library_dtypes": {f"{n}/{dt}": c for (n, dt), c in libs.items()},
+          "routes": routes})
+    check(all(math.isfinite(x) for x in losses), f"{phase}: losses {losses}")
+    check(losses[-1] < losses[0], f"{phase} did not lower the loss: {losses}")
+    want = scaler_replay(scaler.seen, scaler)
+    got = [(r["scale"], r["good_steps"], r["bad_steps"]) for r in steps]
+    check(got == want, f"{phase}: the scaler's states {got} are not the "
+                       f"update rule's {want} from found_inf {scaler.seen}")
+    for i, r in enumerate(steps):
+        taken = not r["found_inf"]
+        ok = (r["step_counter_moved"] == taken
+              and r["moments_moved"] == taken
+              and r["params_moved"] == (taken and r["lr"] > 0))
+        check(ok, f"{phase} step {i + 1}: found_inf {r['found_inf']} but "
+                  f"{r}")
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS
+              and by_dim[name] == {"128": n * TRAIN_STEPS},
+              f"{phase}: {name} launched {launches[name]} times in "
+              f"{TRAIN_STEPS} steps ({by_dim[name]} by head_dim), expected "
+              f"{n} a step, every one at head_dim 128")
+    k2_f16 = libs[("flash_attention_fwd", "float16")]
+    k56_f16 = libs[("flash_attention_bwd", "float16")]
+    check(k2_f16 == launches["flash_attention_fwd"]
+          and k56_f16 == 2 * launches["flash_attention_bwd_dq"]
+          and sum(libs.values()) == k2_f16 + k56_f16,
+          f"{phase}: launches not all from the float16 libraries: "
+          f"{dict(libs)}")
+    check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
+    plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
+    check(not plain, f"{phase}: plain routes taken on the card: {plain}")
+    for entry, name in zip(F16_BWD, TRAIN_KERNELS):
+        kernels[entry]["launches"] = launches[name]
+
+    # (d) one step at a scale the float16 backward overflows at
+    scaler._state = dict(scaler._state,
+                         scale=torch.tensor(OVERFLOW_SCALE))
+    params = opt.trainable()
+    state = opt.state_dict()
+    before = ({k: p.detach().clone() for k, p in params.items()},
+              {s_: {k: t.clone() for k, t in state[s_].items()}
+               for s_ in ("master", "moment1", "moment2")}, state["step"])
+    loss = float(step(batch))
+    same = (all(torch.equal(before[0][k], p) for k, p in params.items())
+            and all(torch.equal(before[1][s_][k], t)
+                    for s_ in before[1] for k, t in state[s_].items())
+            and state["step"] == before[2])
+    del before
+    emit({"phase": phase + "_overflow", "card": card,
+          "scale_before": OVERFLOW_SCALE, "found_inf": scaler.seen[-1],
+          "scale_after": float(scaler.loss_scaling), "loss": loss,
+          "state_bit_equal": same})
+    check(scaler.seen[-1] and same
+          and float(scaler.loss_scaling) == OVERFLOW_SCALE / 2
+          and math.isfinite(loss),
+          f"{phase}: the overflowing step was not skipped cleanly: "
+          f"found_inf {scaler.seen[-1]}, state bit-equal {same}, scale "
+          f"{float(scaler.loss_scaling)}, loss {loss}")
+    del step, opt, model, batch, micro, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6632,6 +7013,7 @@ def main(argv=None) -> int:
                   lambda: phase_serving_d256(torch, kernels, card),
                   lambda: phase_serving_f16(torch, kernels, card),
                   lambda: phase_training_d256(torch, kernels, card),
+                  lambda: phase_training_f16(torch, kernels, card),
                   lambda: phase_dit(torch, kernels, card,
                                     profile=args.profile),
                   lambda: phase_dit_train(torch, kernels, card,

@@ -91,6 +91,37 @@
 //         dP^T in flight and dK spilled 104 bytes).  The grid is B x Hkv
 //         x Skv / 64: 64 CTAs for one KV head at B 2 x 2048, the first
 //         walking every query tile of the causal triangle, the last one.
+//   * float16 at the same head dims: the bfloat16 bodies above compiled
+//     again with -DPTT_F16 into a library of its own (mma_bf16.cuh: the
+//     element type, the wgmma operand type, TMA's element type), which
+//     takes dtype code 2 only.  P <= 1 is rounded to float16 as to bf16.
+//     dS is not bounded: dS = P o (dP - delta) * scale is linear in dO,
+//     which a loss scale multiplies (2^15 by default), and float16 ends at
+//     65504 where bf16 has float32's range; rounded as it is, a dS entry
+//     past 65504 would be inf where the reference, which keeps dS in
+//     float32, gives finite dq / dk (and a GradScaler would skip a step
+//     the reference takes).  So each row of dS (a query's in K5, a key's
+//     in K6) is formed and rounded in a unit of its own, 2^-k: the row's
+//     first tile with a nonzero dS sets k so that its largest |dS| lies
+//     in [2^14, 2^15), and a later tile whose largest reaches 2^15 lowers
+//     it, the row's float32 dq (K5) or dk (K6) accumulator multiplied by
+//     the change of unit first (ds_fit; the warp votes, so the common
+//     tile pays a row maximum and no more: the unit is folded into the
+//     scale the tile's dS is formed with).  dq = dS K and dk = dS^T Q are
+//     linear in the row, so the accumulator holds the row's sum in units
+//     of 2^-k and is multiplied by 2^k once, after the last product
+//     (ds_units_out), before its rounding to float16.  Every factor is a
+//     power of two: exact in float32, and the float16 rounding of 2^k dS
+//     has the relative error of a float16 rounding of dS in its normal
+//     range, which the row fills from the top (entries 2^-28 of the row's
+//     largest still round as normals: the reference's float32 dS is met
+//     at float16's 2^-11 rather than flushed), whatever the loss scale.
+//     k stays in [-64, 64].  K5 retires each tile's dq += dS K before the
+//     next tile's products (ptxas serialises every wgmma of the kernel
+//     when ds_fit reads an accumulator whose product is in flight across
+//     the loop's back edge); K6 retires its products every tile already.
+//     K6 on 256-wide tiles keeps its dK warpgroup's units in shared
+//     memory (in registers they spilled 4 bytes with ids).
 //   * float32 at D = 16 (the tiny model), 64 and 72 (float32 DiTs): two
 //     CUDA-core kernels of one thread per query row (K5) or key row (K6);
 //     wgmma has no float32 input that keeps float32 numerics.  A thread's
@@ -569,6 +600,91 @@ __device__ __forceinline__ int2 big_range(const int* rng, int b, int n,
   return out;
 }
 
+#ifdef PTT_F16
+// float16 dS in units of its row (see the note at the top).  A row's dS is
+// formed as P o (dP - delta) * su with su = scale * 2^k, so that it comes
+// out in units of 2^-k.  su < 0 marks a row with no nonzero dS yet: its
+// unit is 1 and its dS comes out negated until it takes a unit.  kDsTop -
+// (the biased exponent of a value in units of 2^-k) is the change of k
+// that puts the value in [2^14, 2^15); k stays in [-kDsMax, kDsMax]
+constexpr int kDsTop = 127 + 14;
+constexpr int kDsMax = 64;
+
+__device__ __forceinline__ float pow2f(int k) {   // 2^k, -126 <= k <= 127
+  return __int_as_float((k + 127) << 23);
+}
+
+__device__ __forceinline__ int exponent_bits(float x) {
+  return (__float_as_int(x) >> 23) & 0xff;
+}
+
+// the largest of x over the quad of lanes that hold one fragment row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// does a row whose largest |dS| this tile is `top` (in its unit) take a
+// new unit: an unset row with a nonzero dS, a set one at 2^15 or more
+__device__ __forceinline__ bool ds_moves(float top, float su) {
+  return su < 0.f ? top > 0.f : top >= 32768.f;
+}
+
+// after a tile's dS is formed in its rows' units (rows rl, rl + 8 of a
+// wgmma fragment, ds[i] of the second where i & 2): a row that moves
+// (ds_moves) takes the unit that puts its largest |dS| in [2^14, 2^15),
+// and its dS and its values in the float32 accumulator acc (rows as dS,
+// no product in flight on it; zero while the row is unset) go into the
+// new unit.  Rare after a row's first tile, so the warp votes and skips
+template <int N, int M>
+__device__ __forceinline__ void ds_fit(float (&ds)[N], float (&acc)[M],
+                                       float (&su)[2], float scale) {
+  float top[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    top[(i >> 1) & 1] = fmaxf(top[(i >> 1) & 1], fabsf(ds[i]));
+  top[0] = quad_max(top[0]);
+  top[1] = quad_max(top[1]);
+  if (!__any_sync(0xffffffffu,
+                  ds_moves(top[0], su[0]) || ds_moves(top[1], su[1])))
+    return;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float r = 1.f;
+    if (ds_moves(top[j], su[j])) {
+      // a set row only lowers k, by at most kDsTop - 254 = -113, so
+      // k1 - k0 lies in [-113, 0] for it, in [-64, 64] for an unset one
+      const int k0 = exponent_bits(fabsf(su[j])) - exponent_bits(scale);
+      const int k1 = min(max(k0 + kDsTop - exponent_bits(top[j]), -kDsMax),
+                         kDsMax);
+      r = su[j] < 0.f ? -pow2f(k1 - k0) : pow2f(k1 - k0);
+      su[j] = scale * pow2f(k1);
+    }
+#pragma unroll
+    for (int i = 2 * j; i < M; i += 4) {
+      acc[i] *= r;
+      acc[i + 1] *= r;
+    }
+#pragma unroll
+    for (int i = 2 * j; i < N; i += 4) {
+      ds[i] *= r;
+      ds[i + 1] *= r;
+    }
+  }
+}
+
+// the accumulator out of its rows' units (times 2^-k = scale / |su|,
+// exact), after its last product
+template <int M>
+__device__ __forceinline__ void ds_units_out(float (&acc)[M],
+                                             const float (&su)[2],
+                                             float scale) {
+  const float f0 = scale / fabsf(su[0]), f1 = scale / fabsf(su[1]);
+#pragma unroll
+  for (int i = 0; i < M; ++i) acc[i] *= (i & 2) ? f1 : f0;
+}
+#endif
+
 // the 64 x N / 2 accumulator `a` of warpgroup-row rl (rows rl, rl + 8) as
 // bf16 into a tile of 64-wide boxes `box` bytes apart, in the 128-byte
 // swizzled layout TMA stores from
@@ -767,6 +883,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   float sc[32], dp[32];
   uint32_t da[4][4];
+#ifdef PTT_F16
+  float su[2] = {-scale, -scale};   // the dS units of rows r0, r1
+#endif
   // a key tile's ids start `lead` into their stage (a 1-d box's lead-in),
   // the same for every tile of the CTA
   const int lead = SEG ? (b * Skv) & 3 : 0;
@@ -804,16 +923,35 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     wgmma_wait<0>();
     fence_regs(dp);
+#ifdef PTT_F16
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * su[(i >> 1) & 1];
+    fence_regs(acc);   // the last tile's dq += dS K is done
+    ds_fit(dp, acc, su, scale);
+    fence_regs(acc);
+#else
 #pragma unroll
     for (int i = 0; i < 32; ++i)
       dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * scale;
+#endif
     pack_a<4>(dp, da);
     wgmma_fence();
     issue_at(acc, da, Ks + st * kSmallTile, kSmallHalf);
     wgmma_commit();
+#ifdef PTT_F16
+    // retired before the next tile: ptxas serialises every wgmma of the
+    // kernel (C7514) when ds_fit reads an accumulator whose product is in
+    // flight across the loop's back edge
+    wgmma_wait<0>();
+    fence_regs(acc);
+#endif
   }
   wgmma_wait<0>();
   fence_regs(acc);
+#ifdef PTT_F16
+  ds_units_out(acc, su, scale);
+#endif
 
   // dq through this warpgroup's rows of Q's shared memory (its last Q K^T
   // is done) and a TMA store that drops rows past Sq
@@ -968,6 +1106,9 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
   float sc[32], dp[32];
   uint32_t pa[4][4], da[4][4];
+#ifdef PTT_F16
+  float su[2] = {-scale, -scale};   // the dS^T units of keys key0, key1
+#endif
   // a query tile's ids start seg_lead into their stage (a 1-d box's
   // lead-in), the same for every tile of the CTA
   const int seg_lead = SEG ? (b * Sq) & 3 : 0;
@@ -1023,8 +1164,15 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float d0 = ds[8 * j + 2 * c], d1 = ds[8 * j + 2 * c + 1];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
+#ifdef PTT_F16
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * su[e >> 1];
+#else
         dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * scale;
+#endif
     }
+#ifdef PTT_F16
+    ds_fit(dp, dk, su, scale);   // dk's last product is done
+#endif
     pack_a<4>(dp, da);
     wgmma_fence();
     issue_at(dk, da, qt, kSmallHalf);
@@ -1037,6 +1185,9 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   // dk and dv through this warpgroup's rows of K's and V's shared memory
   // (only this warpgroup read them) and TMA stores that drop rows past Skv
+#ifdef PTT_F16
+  ds_units_out(dk, su, scale);
+#endif
   stage_acc(Ks, dk, rl, c, kBigHalf);
   stage_acc(Vs, dv, rl, c, kBigHalf);
   fence_proxy_async();
@@ -1078,7 +1229,11 @@ constexpr int kW6Box = 64 * 128;           // a 64-row box (K, V, Q, dO)
 constexpr int kW6Tile = kWBoxes * kW6Box;
 constexpr size_t kW6Smem = 1024 + 2 * (size_t)kW6Tile +
                            kW6Stages * (2 * (size_t)kW6Tile +
-                                        3 * kVecStride * 4 + 8 + 16) + 8;
+                                        3 * kVecStride * 4 + 8 + 16) + 8
+#ifdef PTT_F16
+                           + kW6Keys * 4   // the float16 build's dS^T units
+#endif
+    ;
 static_assert(kW5Smem <= 232448 && kW6Smem <= 232448,
               "the 256-wide builds fit the 227 KB a block may take");
 
@@ -1224,6 +1379,9 @@ bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
   float sc[16], dp[16];
   uint32_t da[2][4];
+#ifdef PTT_F16
+  float su[2] = {-scale, -scale};   // the dS units of rows r0, r1
+#endif
   // a key tile's ids start `lead` into their stage (a 1-d box's lead-in),
   // the same for every tile of the CTA
   const int lead = SEG ? (b * Skv) & 3 : 0;
@@ -1262,16 +1420,35 @@ bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     wgmma_wait<0>();
     fence_regs(dp);
+#ifdef PTT_F16
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * su[(i >> 1) & 1];
+    fence_regs(acc);   // the last tile's dq += dS K is done
+    ds_fit(dp, acc, su, scale);
+    fence_regs(acc);
+#else
 #pragma unroll
     for (int i = 0; i < 16; ++i)
       dp[i] = sc[i] * (dp[i] - ((i & 2) ? dl1 : dl0)) * scale;
+#endif
     pack_a<2>(dp, da);
     wgmma_fence();
     issue_at(acc, da, kt, kW5KBox);
     wgmma_commit();
+#ifdef PTT_F16
+    // retired before the next tile: ptxas serialises every wgmma of the
+    // kernel (C7514) when ds_fit reads an accumulator whose product is in
+    // flight across the loop's back edge
+    wgmma_wait<0>();
+    fence_regs(acc);
+#endif
   }
   wgmma_wait<0>();
   fence_regs(acc);
+#ifdef PTT_F16
+  ds_units_out(acc, su, scale);
+#endif
 
   // dq through this warpgroup's rows of Q's shared memory (its last Q K^T
   // is done) and TMA stores that drop rows past Sq and columns past D
@@ -1324,6 +1501,11 @@ bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(slot + kW6Stages);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kW6Stages;
+#ifdef PTT_F16
+  // the dS^T units of the CTA's 64 keys (kept here, not in registers: the
+  // dK warpgroup has none to spare with ids)
+  float* su_s = reinterpret_cast<float*>(empty + kW6Stages);
+#endif
 
   const int bh = blockIdx.x % (Hkv * B);
   const int kt = blockIdx.x / (Hkv * B);
@@ -1492,6 +1674,9 @@ bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
     // released once that is done.  With ids dP^T is issued after P^T is
     // formed: the ids' mask beside S^T, dP^T (in flight) and dK spilled
     float dp[32];
+#ifdef PTT_F16
+    su_s[rl] = su_s[rl + 8] = -scale;   // keys key0, key1: unset
+#endif
     for (int cur = 0;; ++cur) {
       const int st = cur % kW6Stages;
       mbar_wait(&full[st], (cur / kW6Stages) & 1);
@@ -1513,13 +1698,25 @@ bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_regs(dp);
       const int lead = ((b * Hq + (sl.y >> 1)) * Sq + sl.x) & 3;
       const float* ds = dl_s + st * kVecStride + lead;
+#ifdef PTT_F16
+      float su[2] = {su_s[rl], su_s[rl + 8]};
+#endif
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float d0 = ds[8 * j + 2 * c], d1 = ds[8 * j + 2 * c + 1];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
+#ifdef PTT_F16
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * su[e >> 1];
+#else
           dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0)) * scale;
+#endif
       }
+#ifdef PTT_F16
+      ds_fit(dp, acc, su, scale);
+      su_s[rl] = su[0];   // the quad's four lanes store one value
+      su_s[rl + 8] = su[1];
+#endif
       pack_a<4>(dp, pa);
       wgmma_fence();
       issue_at(acc, pa, qt, kW6Box);
@@ -1528,6 +1725,10 @@ bwd_dkv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_regs(acc);
       mbar_arrive(&empty[st]);
     }
+#ifdef PTT_F16
+    const float su[2] = {su_s[rl], su_s[rl + 8]};
+    ds_units_out(acc, su, scale);
+#endif
   }
 
   // both warpgroups are done with K and V: dv leaves through V's shared
@@ -1780,16 +1981,17 @@ cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: 0 = bfloat16 (any D <= 256
-// with D % 8 == 0: the Hopper kernels, 128-wide tiles up to 128, 256-wide
-// above), 1 = float32 (D = 16, 64 or 72: one thread a row; D = 128: a quad
-// a row; CUDA cores): K2's head dims.  Any other pair, or only one of
-// seg_q / seg_kv, returns cudaErrorInvalidValue.  Tensors
-// contiguous and 16-byte aligned (seg_q / seg_kv too).  With segment ids the
-// bfloat16 build also takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B,
-// ceil(Skv / 64), 2): the int32 [min, max] id of every 64 tokens
-// (segment_tile_ranges); the float32 build ignores them.  Returns
-// cudaGetLastError().
+// K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: the library's 16-bit code
+// (kE16Code: 0 = bfloat16, or 2 = float16 in the library compiled with
+// -DPTT_F16; any D <= 256 with D % 8 == 0: the Hopper kernels, 128-wide
+// tiles up to 128, 256-wide above), 1 = float32 (D = 16, 64 or 72: one
+// thread a row; D = 128: a quad a row; CUDA cores; not in the float16
+// library): K2's head dims.  Any other pair, or only one of seg_q /
+// seg_kv, returns cudaErrorInvalidValue.  Tensors contiguous and 16-byte
+// aligned (seg_q / seg_kv too).  With segment ids the 16-bit build also
+// takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B, ceil(Skv / 64), 2):
+// the int32 [min, max] id of every 64 tokens (segment_tile_ranges); the
+// float32 build ignores them.  Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -1813,26 +2015,27 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const float* fo = static_cast<const float*>(dout);
   float* fdq = static_cast<float*>(dq);
   cudaError_t e;
-  if (dtype == 0 && wide_head_dim(D) && sq != nullptr)
+  if (dtype == kE16Code && wide_head_dim(D) && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
             ? cudaErrorInvalidValue
             : launch_dq_wide<true>(q, k, v, dout, l, dl, sq, skv, qr, kr, dq,
                                    B, Sq, Skv, Hq, Hkv, D, scale, causal, st);
-  else if (dtype == 0 && wide_head_dim(D))
+  else if (dtype == kE16Code && wide_head_dim(D))
     e = launch_dq_wide<false>(q, k, v, dout, l, dl, nullptr, nullptr,
                               nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv, D,
                               scale, causal, st);
-  else if (dtype == 0 && !wgmma_head_dim(D))
+  else if (dtype == kE16Code && !wgmma_head_dim(D))
     e = cudaErrorInvalidValue;
-  else if (dtype == 0 && sq != nullptr)
+  else if (dtype == kE16Code && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
             ? cudaErrorInvalidValue
             : launch_dq_wgmma<true>(q, k, v, dout, l, dl, sq, skv, qr, kr, dq,
                                     B, Sq, Skv, Hq, Hkv, D, scale, causal, st);
-  else if (dtype == 0)
+  else if (dtype == kE16Code)
     e = launch_dq_wgmma<false>(q, k, v, dout, l, dl, nullptr, nullptr,
                                nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv, D,
                                scale, causal, st);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch_dq_f32<16>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
                           Hkv, scale, causal, st);
@@ -1845,6 +2048,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   else if (dtype == 1 && D == 128)
     e = launch_dq_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq,
                                  Skv, Hq, Hkv, scale, causal, st);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1878,28 +2082,29 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   float* fdk = static_cast<float*>(dk);
   float* fdv = static_cast<float*>(dv);
   cudaError_t e;
-  if (dtype == 0 && wide_head_dim(D) && sq != nullptr)
+  if (dtype == kE16Code && wide_head_dim(D) && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
             ? cudaErrorInvalidValue
             : launch_dkv_wide<true>(q, k, v, dout, l, dl, sq, skv, qr, kr,
                                     dk, dv, B, Sq, Skv, Hq, Hkv, D, scale,
                                     causal, st);
-  else if (dtype == 0 && wide_head_dim(D))
+  else if (dtype == kE16Code && wide_head_dim(D))
     e = launch_dkv_wide<false>(q, k, v, dout, l, dl, nullptr, nullptr,
                                nullptr, nullptr, dk, dv, B, Sq, Skv, Hq, Hkv,
                                D, scale, causal, st);
-  else if (dtype == 0 && !wgmma_head_dim(D))
+  else if (dtype == kE16Code && !wgmma_head_dim(D))
     e = cudaErrorInvalidValue;
-  else if (dtype == 0 && sq != nullptr)
+  else if (dtype == kE16Code && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
             ? cudaErrorInvalidValue
             : launch_dkv_wgmma<true>(q, k, v, dout, l, dl, sq, skv, qr, kr,
                                      dk, dv, B, Sq, Skv, Hq, Hkv, D, scale,
                                      causal, st);
-  else if (dtype == 0)
+  else if (dtype == kE16Code)
     e = launch_dkv_wgmma<false>(q, k, v, dout, l, dl, nullptr, nullptr,
                                 nullptr, nullptr, dk, dv, B, Sq, Skv, Hq,
                                 Hkv, D, scale, causal, st);
+#ifndef PTT_F16
   else if (dtype == 1 && D == 16)
     e = launch_dkv_f32<16>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
                            Skv, Hq, Hkv, scale, causal, st);
@@ -1912,6 +2117,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   else if (dtype == 1 && D == 128)
     e = launch_dkv_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv,
                                   B, Sq, Skv, Hq, Hkv, scale, causal, st);
+#endif
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -6,7 +6,8 @@ donates the old parameters and optimizer state.  The port runs it eagerly
 on one GPU and updates the module's parameters and the optimizer's state
 in place (:meth:`paddle_tpu_torch.optimizer.Optimizer.apply`).  Meshes of
 more than one device (ZeRO, tensor, pipeline and context parallelism) are
-ROADMAP A9/A10 and raise, as does an enabled loss scaler (``amp/``).
+ROADMAP A9/A10 and raise.  An enabled ``amp.GradScaler`` scales the loss
+as the reference's step does (:func:`build_train_step`).
 """
 
 from __future__ import annotations
@@ -65,12 +66,23 @@ def build_train_step(model: nn.Module, optimizer,
     by ``grad_accum_steps`` (the reference's scan, :186-201); the returned
     loss is the mean of the micro-batch losses.  With the
     ``check_nan_inf`` flag set, a non-finite gradient raises
-    ``FloatingPointError`` before the update."""
+    ``FloatingPointError`` before the update.
+
+    ``scaler``, an enabled :class:`paddle_tpu_torch.amp.GradScaler`, runs
+    the reference's float16 step (:171-216): the gradients are those of
+    the float32 loss times the scale (accumulated in float32 over
+    micro-batches as above), then unscaled (``unscale_with``), then
+    checked by ``check_nan_inf`` if set; where any is not finite the
+    whole update is skipped -- parameters, float32 masters, moments and
+    the optimizer's step counter (so the lr schedule) stay as they were
+    -- and ``update_state`` shrinks the scale, else it counts a good
+    step.  The scaler's state lives on the scaler (``loss_scaling``,
+    ``_state``), where the reference keeps it in ``opt_state``.  The
+    returned loss is the unscaled one.  The step reads ``found_inf``
+    back to the host once, to choose between the two: this eager step
+    synchronises there, once a step."""
     _one_device(hcg)
-    if scaler is not None and scaler.is_enable():
-        raise NotImplementedError(
-            "build_train_step: loss scaling (amp.GradScaler) is not ported "
-            "(ROADMAP A10, amp/)")
+    use_scaler = scaler is not None and scaler.is_enable()
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
@@ -78,12 +90,17 @@ def build_train_step(model: nn.Module, optimizer,
     optimizer.bind(model)
     n = int(grad_accum_steps)
 
+    def scaled(loss, state):
+        return scaler.scale_with(state, loss) if use_scaler else loss
+
     def step(batch: Dict[str, Any]) -> torch.Tensor:
         params = optimizer.trainable()
         names, tensors = list(params), list(params.values())
+        state = scaler._state if use_scaler else None
         if n == 1:
             loss = loss_fn(model, batch)
-            grads = dict(zip(names, torch.autograd.grad(loss, tensors)))
+            grads = dict(zip(names, torch.autograd.grad(scaled(loss, state),
+                                                        tensors)))
             loss = loss.detach()
         else:
             rows = next(iter(batch.values())).shape[0]
@@ -98,12 +115,20 @@ def build_train_step(model: nn.Module, optimizer,
             for i in range(n):
                 mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                 loss = loss_fn(model, mb)
-                for k, g in zip(names, torch.autograd.grad(loss, tensors)):
+                for k, g in zip(names, torch.autograd.grad(
+                        scaled(loss, state), tensors)):
                     grads[k].add_(g.float() / n)
                 losses.append(loss.detach())
             loss = torch.stack(losses).mean()
+        if use_scaler:
+            grads, found_inf = scaler.unscale_with(state, grads)
         if flag("check_nan_inf"):
             _raise_on_nonfinite(grads)
+        if use_scaler:
+            skip = bool(found_inf)      # the step's one host read
+            scaler._state = scaler.update_state(state, skip)
+            if skip:
+                return loss
         optimizer.apply(grads, params)
         return loss
 

@@ -690,7 +690,7 @@ class LlamaForCausalLM(nn.Module):
                 # per-column scales of the (vocab, hidden) table lie along
                 # the product's K: the reference's dequantize-then-matmul
                 w = w.dequantize(self.config.torch_dtype)
-            return hidden @ w.t()
+            return linear(hidden, w.t())
         return linear(hidden, self.lm_head)
 
     def forward(self, input_ids, position_ids=None, segment_ids=None):

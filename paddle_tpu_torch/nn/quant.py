@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import amp
 from ..ops import _dispatch
 from ..ops.cuda.int8_matmul import MAX_ROWS, N_ALIGN, int8_matmul_cuda
 
@@ -158,9 +159,17 @@ class Int8Weight(nn.Module):
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for a plain weight; :func:`weight_only_linear` for an
     :class:`Int8Weight` — the one seam through which the model's
-    projections reach the int8 path."""
+    projections reach the int8 path.  It is also the model's AMP seam
+    (the reference's AMP-aware ``matmul``): under an ``amp.auto_cast``
+    policy both operands go to the policy's dtype first, and an int8
+    weight is dequantized in x's dtype before that, as the reference's
+    int8 model dequantizes its weights to the model's dtype and then
+    multiplies through ``matmul``."""
     if isinstance(w, Int8Weight):
-        return weight_only_linear(x, w.w8, weight_scale=w.scale)
+        if amp.compute_dtype("matmul", x) is None:
+            return weight_only_linear(x, w.w8, weight_scale=w.scale)
+        w = w.dequantize(x.dtype)
+    x, w = amp.cast_inputs("matmul", x, w)
     return x @ w
 
 

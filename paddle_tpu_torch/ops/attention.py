@@ -43,8 +43,7 @@ from .cuda.decode_attention import (decode_attention_cuda,
 from .cuda.flash_attention import (flash_attention_fwd_cuda,
                                    flash_attention_fwd_paged_cuda,
                                    flash_attention_fwd_paged_int8_cuda)
-from .cuda.flash_attention_bwd import (check_backward_dtype,
-                                       flash_attention_bwd_dkv_cuda,
+from .cuda.flash_attention_bwd import (flash_attention_bwd_dkv_cuda,
                                        flash_attention_bwd_dq_cuda)
 
 NEG_INF = -1e30
@@ -183,11 +182,10 @@ class FlashAttention(torch.autograd.Function):
     into ``delta = rowsum(dO * O) - dlse`` (plain elementwise work, as
     the reference leaves it to XLA) and launches K5 (dq) and K6 (dk, dv).
     Returns (out, lse), both differentiable.  K5 and K6 take K2's head
-    dims (``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``: DiT's 72 and a
-    Gemma-2B-wide Llama's 256 among them) but not float16 (ROADMAP B2.4b),
-    which :func:`flash_attention` refuses under autograd before K2
-    launches (``check_backward_dtype``), so whatever runs forward here has
-    its backward; K2 refuses any other head dim before a launch."""
+    dims and dtypes (``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``: DiT's
+    72 and a Gemma-2B-wide Llama's 256 among them, float16 too), so
+    whatever runs forward here has its backward; K2 refuses any other head
+    dim before a launch."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, scale):
@@ -275,8 +273,6 @@ def flash_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,
                 "the kernel's contract")
         grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v))
-        if grad:    # a dtype without its backward, before K2 launches
-            check_backward_dtype("flash_attention", q)
         _dispatch.count_kernel_path("flash_attention", "kernel")
         if grad:
             out, lse = FlashAttention.apply(q, k, v, segment_ids,

@@ -16,8 +16,8 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # every layout, the backward K5 / K6: any D <= 256 (the reference's
 # MAX_HEAD_DIM) with D % 8 == 0 (tiles or ring rows 128 wide up to D 128
 # and 256 wide above, whose columns past D hold zeros).  The float16
-# forward builds take the same set (the same bodies over float16); the
-# float16 backward is ROADMAP B2.4b
+# builds, forward and backward, take the same set (the same bodies over
+# float16)
 BF16_HEAD_DIMS = frozenset(range(8, 257, 8))
 # the 16-bit types, whose kernels share one body (bfloat16 and float16)
 HALF_DTYPES = (torch.bfloat16, torch.float16)

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``paddle_tpu_torch/_build/<name>-<hash>.so``, loaded with ``ctypes``.
 A variant (``VARIANTS``) is a source compiled again with extra flags into
-a library of its own: the float16 forward kernels are the bfloat16 bodies
+a library of its own: the float16 kernels are the bfloat16 bodies
 compiled with ``-DPTT_F16`` (``csrc/mma_bf16.cuh``), so the bf16 libraries
 stay exactly as they were and each build takes the time of one.
 No PyTorch header is included, so a build takes seconds.  The hash covers
@@ -35,6 +35,7 @@ SOURCES = ("decode_attention", "flash_attention_fwd", "flash_attention_bwd",
 F16 = ("-DPTT_F16",)
 VARIANTS = {"decode_attention_f16": ("decode_attention", F16),
             "flash_attention_fwd_f16": ("flash_attention_fwd", F16),
+            "flash_attention_bwd_f16": ("flash_attention_bwd", F16),
             "int8_matmul_f16": ("int8_matmul", F16)}
 LIBRARIES = SOURCES + tuple(VARIANTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -15,10 +15,10 @@ reference's kernel takes any D and narrows its blocks by D / 128
 above (with 64-key tiles), the columns past D zero-filled, so DiT-XL/2's
 D = 72 and a Gemma-2B-wide Llama's 256 run it — float32 16, 64, 72 and
 128.  float16 runs the bf16 body compiled over float16 (a library of its
-own, ``_build.VARIANTS``).  The backward K5 / K6 takes the bf16 and
-float32 sets (``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``; float16 is
-ROADMAP B2.4b); the paged builds below take the same 16-bit set and
-float32 at 16 and 128 only (``HEAD_DIM``; the rest is ROADMAP B2).
+own, ``_build.VARIANTS``).  The backward K5 / K6 takes the same sets
+(``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``); the paged builds below
+take the same 16-bit set and float32 at 16 and 128 only (``HEAD_DIM``;
+the rest is ROADMAP B2).
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about

@@ -30,9 +30,12 @@ between its consumer warpgroups — one owns dV, the other dK, both
 computing S^T (S^T done twice: 5 products a tile pair for 4).  Two
 kernels and no atomics: every gradient is the same from run to run.  With
 segment ids both skip the tile pairs whose id ranges miss
-(:func:`backward_tile_ranges`).  Head dims (``BWD_HEAD_DIMS``): K2's set
-but float16 (ROADMAP B2.4b, refused before a launch) —
-bf16 at any D <= 256 with D % 8 == 0, float32 at 16, 64 and 72 on
+(:func:`backward_tile_ranges`).  float16 runs the bf16 bodies compiled
+over float16 (a library of its own, ``_build.VARIANTS``), each row of dS
+rounded in a power-of-two unit of its own so that a loss-scaled dS
+cannot pass float16's 65504 (``csrc/flash_attention_bwd.cu``).  Head dims
+(``BWD_HEAD_DIMS``): K2's set — bf16 and float16 at any D <= 256 with
+D % 8 == 0, float32 at 16, 64 and 72 on
 CUDA-core kernels of one thread a row and at 128 on CUDA-core kernels that
 split each row over a quad of threads (D / 4 columns a thread, the dot
 products summed by two shuffles; nothing spills); any other pair raises
@@ -48,23 +51,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, check_attention_args, require_cuda, stream_ptr
+from . import (HALF_DTYPES, _build, check_attention_args, library,
+               require_cuda, stream_ptr)
 from .flash_attention import (FWD_HEAD_DIMS, _ptr, segment_args,
                               segment_tile_ranges)
 
 NAME = "flash_attention_bwd"
-# K5 / K6's head dims: K2's but float16, whose backward is ROADMAP B2.4b
-# (a table of its own: the forward's takes float16)
-BWD_HEAD_DIMS = {dt: dims for dt, dims in FWD_HEAD_DIMS.items()
-                 if dt != torch.float16}
+# K5 / K6 take K2's head dims, every dtype
+BWD_HEAD_DIMS = FWD_HEAD_DIMS
 RANGE_TILE = 64         # tokens a segment range covers (csrc: kRT)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(NAME)
+def _lib(dtype: torch.dtype) -> ctypes.CDLL:
+    """The library of ``dtype``'s build (float16: its own), its entries'
+    argument types set once."""
+    lib = _build.load(library(NAME, dtype))
     fq = lib.flash_attention_bwd_dq
     if fq.argtypes is None:
         # q k v dout lse delta seg_q seg_kv q_rng kv_rng dq; B Sq Skv Hq
@@ -79,19 +83,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_backward_dtype(what: str, q: torch.Tensor) -> None:
-    """Raise naming ROADMAP B2.4b for a dtype K2 runs forward and K5 / K6
-    do not (float16)."""
-    if q.dtype in FWD_HEAD_DIMS and q.dtype not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what}: the {q.dtype} backward (K5 / K6) is not built yet "
-            f"(ROADMAP B2.4b); the forward runs without autograd")
-
-
 def _check(q, k, v, do, lse, delta):
-    """The checks of :func:`check_attention_args` at ``BWD_HEAD_DIMS``
-    (:func:`check_backward_dtype` first), and dO, lse, delta's shapes."""
-    check_backward_dtype(NAME, q)
+    """The checks of :func:`check_attention_args` at ``BWD_HEAD_DIMS``,
+    and dO, lse, delta's shapes."""
     code = check_attention_args(NAME, q, k, v, BWD_HEAD_DIMS)
     require_cuda(NAME, do, lse, delta)
     b, sq, hq, _ = q.shape
@@ -127,12 +121,12 @@ def backward_tile_ranges(segment_ids: torch.Tensor,
 
 def _segments(q, skv, segment_ids, kv_segment_ids):
     """(seg_q, seg_kv, q_rng, kv_rng) for the C entry: int32 ids on q's
-    device, 16-byte aligned (the bf16 kernels load them by TMA), and for
-    the bf16 build their tile ranges."""
+    device, 16-byte aligned (the 16-bit kernels load them by TMA), and for
+    the 16-bit builds their tile ranges."""
     b, sq = q.shape[:2]
     seg_q, seg_kv = segment_args(NAME, segment_ids, kv_segment_ids, b, sq,
                                  skv, q.device)
-    if seg_q is None or q.dtype != torch.bfloat16:
+    if seg_q is None or q.dtype not in HALF_DTYPES:
         return seg_q, seg_kv, None, None
     seg_q, seg_kv = (t.clone() if t.data_ptr() % 16 else t
                      for t in (seg_q, seg_kv))
@@ -158,7 +152,7 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     if b == 0 or sq == 0 or skv == 0:
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg_q), _ptr(seg_kv),
@@ -193,7 +187,7 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
     if b == 0 or sq == 0 or skv == 0:
         return torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _lib()
+    lib = _lib(q.dtype)
     err = lib.flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(seg_q), _ptr(seg_kv),

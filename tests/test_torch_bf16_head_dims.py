@@ -51,15 +51,13 @@ NARROW = dict(hidden_size=512, num_attention_heads=8, num_key_value_heads=1,
 
 def test_every_bf16_build_takes_one_set_of_head_dims():
     """The forward builds and the backward K5 / K6 share one set, D <=
-    256; the forward builds take it at float16 too, the backward does not
-    (ROADMAP B2.4b)."""
+    256, at bf16 and at float16."""
     assert BF16_HEAD_DIMS == frozenset(range(8, 257, 8))
     bf16 = torch.bfloat16
-    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
+    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS,
+                  k56.BWD_HEAD_DIMS):
         assert table[bf16] is BF16_HEAD_DIMS
         assert table[torch.float16] is BF16_HEAD_DIMS
-    assert k56.BWD_HEAD_DIMS[bf16] is BF16_HEAD_DIMS
-    assert torch.float16 not in k56.BWD_HEAD_DIMS
 
 
 class _FakeCuda(torch.Tensor):

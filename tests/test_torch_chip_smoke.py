@@ -1108,3 +1108,58 @@ def test_training_rehearsed_on_the_cpu(monkeypatch):
     assert failed, "the card-only checks cannot pass on the CPU"
     assert all("launches" in r for r in kernels.values())
 
+
+
+# ---- float16 training: the /f16 backward rows and training_f16 -------------
+
+@pytest.mark.parametrize("name,replaces", [
+    ("flash_attention_bwd_dq/f16", "flash_attention.py:252"),
+    ("flash_attention_bwd_dkv/f16", "flash_attention.py:299")])
+def test_f16_backward_entries(name, replaces):
+    """The float16 K5 / K6 have entries of their own (the bf16 backward's
+    source and reference kernel), ptxas tags for every Hopper instance
+    (both tile widths, with and without ids), phase 2's rows under them
+    and training_f16's launches."""
+    import inspect
+    assert name in chip_smoke.F16_BWD
+    info = chip_smoke.KERNEL_INFO[name]
+    assert info["source"] == "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+    assert info["replaces"].endswith(replaces)
+    tags = chip_smoke.F16_FUNCTIONS[name[:-len(chip_smoke.F16)]]
+    assert len(tags) == 4 and any("_wide_" in t for t in tags)
+    assert "F16_BWD" in inspect.getsource(
+        chip_smoke.phase_bf16_head_dim_rows)
+    assert "bwd_range_row(" in inspect.getsource(chip_smoke.phase_f16_rows)
+    assert "zip(F16_BWD, TRAIN_KERNELS)" in inspect.getsource(
+        chip_smoke.phase_training_f16)
+
+
+def test_training_f16_phase_order_and_config():
+    """training_f16 runs right after training_d256, at Llama-2-7B's widths
+    cut to 8 of 32 layers, with a scale that overflows float16 for gate
+    (d)."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert (src.index("phase_training_d256(")
+            < src.index("phase_training_f16(")
+            < src.index("phase_dit(torch"))
+    assert chip_smoke.TRAIN_F16_LAYERS == 8
+    assert chip_smoke.OVERFLOW_SCALE > 65504 * 2 ** 16
+
+
+@pytest.mark.parametrize("seen", [
+    [False] * 8, [True, True, False, False], [True] * 5,
+    [False, True, False, True, True, False]])
+def test_scaler_replay_is_the_update_rule(seen):
+    """training_f16's replay of the scaler's states, in Python numbers,
+    equals the port's ``GradScaler.update_state`` (itself held against
+    JAX's in ``tests/test_torch_amp.py``)."""
+    from paddle_tpu_torch import amp
+    for kw in ({}, dict(incr_every_n_steps=2, decr_every_n_nan_or_inf=2)):
+        s = amp.GradScaler(**kw)
+        st, want = s.init_state(), []
+        for f in seen:
+            st = s.update_state(st, f)
+            want.append((float(st["scale"]), int(st["good_steps"]),
+                         int(st["bad_steps"])))
+        assert chip_smoke.scaler_replay(seen, s) == want

@@ -5,9 +5,9 @@
     ``BF16_HEAD_DIMS`` itself, K4 takes float16 x at the 16-bit builds'
     alignment, and each float16 build lives in a library of its own (the
     bf16 source compiled with ``-DPTT_F16``); a float16 q at a head dim
-    outside the set is refused naming ROADMAP B2, and the float16 backward
-    (K5 / K6, and ``flash_attention`` under autograd, before K2 launches)
-    naming ROADMAP B2.4b;
+    outside the set is refused naming ROADMAP B2; the backward K5 / K6
+    takes float16 at the same set, from a library of its own, and
+    ``flash_attention`` under autograd launches K2, K5 and K6 there;
   * the float16 builds' exact int8 converters, restated in numpy (the byte
     into the mantissa of the float16 1024, one pair subtraction) over all
     256 bytes;
@@ -99,21 +99,21 @@ def _close(got, want):
 # ---- (a) the tables --------------------------------------------------------------
 
 def test_forward_tables_take_float16_at_the_bf16_set():
-    """Every forward table maps float16 to ``BF16_HEAD_DIMS`` itself; the
-    backward's table has no float16; K4 takes float16 x at N % 16; float16
-    is dtype code 2, in libraries of its own."""
-    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
+    """Every forward table maps float16 to ``BF16_HEAD_DIMS`` itself, and
+    so does the backward's; K4 takes float16 x at N % 16; float16 is dtype
+    code 2, in libraries of its own (every source has one)."""
+    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS,
+                  k56.BWD_HEAD_DIMS):
         assert table[F16] is BF16_HEAD_DIMS
-    assert F16 not in k56.BWD_HEAD_DIMS
     assert k56.BWD_HEAD_DIMS[torch.bfloat16] is BF16_HEAD_DIMS
     assert k4.N_ALIGN[F16] == k4.N_ALIGN[torch.bfloat16] == 16
     assert DTYPE_CODES[F16] == 2
-    for name in ("decode_attention", "flash_attention_fwd", "int8_matmul"):
+    for name in _build.SOURCES:
         lib = library(name, F16)
         assert _build.VARIANTS[lib] == (name, ("-DPTT_F16",))
         assert library(name, torch.bfloat16) == name
         assert _build._library(lib) != _build._library(name)
-    assert "flash_attention_bwd_f16" not in _build.LIBRARIES
+    assert "flash_attention_bwd_f16" in _build.LIBRARIES
 
 
 class _FakeCuda(torch.Tensor):
@@ -223,22 +223,35 @@ def test_float16_k4_alignment_and_route(no_card):
 
 
 def test_float16_backward_names_b2_4b(no_card):
-    """K5 / K6 refuse float16 before a launch, naming ROADMAP B2.4b; so
-    does ``flash_attention`` on float16 tensors that need a gradient,
-    before K2 launches; without a gradient K2 runs."""
+    """float16 reaches K5 / K6 (the test keeps its name from when the
+    float16 backward was refused naming ROADMAP B2.4b): both wrappers
+    launch with dtype code 2 from the float16 library, with tile ranges
+    beside packed ids; ``flash_attention`` on float16 tensors that need a
+    gradient launches K2 forward, then K5 and K6 in its backward."""
     q, k, v = _qkv()
     lse = torch.zeros(1, 8, 8)
     for fn in (k56.flash_attention_bwd_dq_cuda,
                k56.flash_attention_bwd_dkv_cuda):
-        with pytest.raises(NotImplementedError, match="ROADMAP B2.4b"):
-            fn(q, k, v, q, lse, lse, causal=True)
+        fn(q, k, v, q, lse, lse, causal=True)
+    seg = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 2]], dtype=torch.int32)
+    k56.flash_attention_bwd_dq_cuda(q, k, v, q, lse, lse, causal=True,
+                                    segment_ids=seg)
+    names = [n for n, _ in no_card.calls]
+    assert names == ["flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq"]
+    a = [args for _, args in no_card.calls]
+    # the dtype code after scale and causal: K5 at 19, K6 at 20
+    assert (a[0][19], a[1][20], a[2][19]) == (2, 2, 2)
+    assert a[0][8] is None and a[2][8] is not None and a[2][9] is not None
+    assert set(no_card.dtypes) == {F16}
+    no_card.calls.clear()
     qg, kg, vg = _qkv(grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2.4b"):
-        flash_attention(qg, kg, vg, causal=True)
-    assert no_card.calls == []
-    with torch.no_grad():
-        flash_attention(qg, kg, vg, causal=True)
-    assert [n for n, _ in no_card.calls] == ["flash_attention_fwd"]
+    flash_attention(qg, kg, vg, causal=True).float().sum().backward()
+    assert [n for n, _ in no_card.calls] == [
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"]
+    assert all(g is not None and g.dtype == F16
+               for g in (qg.grad, kg.grad, vg.grad))
 
 
 # ---- the float16 int8 converters, restated ---------------------------------------

@@ -62,13 +62,13 @@ def test_tables_take_float32_head_dim_128_only_among_new_dims():
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
         assert 128 in table[f32] and 96 not in table[f32]
     # every bf16 build takes one set of head dims (D <= 256, D % 8 == 0),
-    # and every float16 forward build the same set; the float16 backward
-    # (ROADMAP B2.4b) stays refused
+    # and every float16 build, forward and backward, the same set
     assert (k1.HEAD_DIM[torch.bfloat16] == k2.HEAD_DIM[torch.bfloat16]
             == k2.FWD_HEAD_DIMS[torch.bfloat16])
-    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
+    for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS,
+                  k56.BWD_HEAD_DIMS):
         assert table[torch.float16] == table[torch.bfloat16]
-    assert torch.float16 not in k56.BWD_HEAD_DIMS
+    assert 128 in k56.BWD_HEAD_DIMS[torch.float32]
 
 
 # ---- a model of K5 / K6's float32 head_dim-128 body ---------------------------

@@ -30,7 +30,7 @@ from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu.optimizer import ClipGradByGlobalNorm as JaxClip
 from paddle_tpu.optimizer import lr as jax_lr
 
-from paddle_tpu_torch import flags
+from paddle_tpu_torch import amp, flags
 from paddle_tpu_torch.distributed import build_eval_step, build_train_step
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      load_jax_optimizer_state,
@@ -196,22 +196,22 @@ def test_refusals_and_nan_check():
         build_train_step(m, SGD(0.1), hcg={"dp": 2, "mp": 1})
     build_train_step(m, SGD(0.1), hcg={"dp": 1, "mp": 1})   # one device
 
-    class _Scaler:
-        def is_enable(self):
-            return True
-    with pytest.raises(NotImplementedError, match="amp"):
-        build_train_step(m, SGD(0.1), scaler=_Scaler())
-
     ids = torch.zeros(2, 5, dtype=torch.long)
-    step = build_train_step(
-        m, SGD(0.1), loss_fn=lambda mod, b: mod(b["input_ids"]).sum()
-        * float("nan"))
-    flags.set_flags({"check_nan_inf": True})
-    try:
-        with pytest.raises(FloatingPointError, match="non-finite"):
-            step({"input_ids": ids})
-    finally:
-        flags.set_flags({"check_nan_inf": False})
+    # an enabled loss scaler is taken (``amp``, once refused); with it the
+    # check runs on the unscaled gradients, before the scaler's update, as
+    # the reference orders them
+    scaler = amp.GradScaler()
+    for sc in (None, scaler):
+        step = build_train_step(
+            m, SGD(0.1), loss_fn=lambda mod, b: mod(b["input_ids"]).sum()
+            * float("nan"), scaler=sc)
+        flags.set_flags({"check_nan_inf": True})
+        try:
+            with pytest.raises(FloatingPointError, match="non-finite"):
+                step({"input_ids": ids})
+        finally:
+            flags.set_flags({"check_nan_inf": False})
+    assert float(scaler.loss_scaling) == 2.0 ** 15
 
 
 def test_eval_step_restores_mode():
