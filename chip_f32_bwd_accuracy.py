@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""How far the float32 flash backward (K5 dq, K6 dk / dv) and its float32
+plain version each lie from the plain version computed in float64, at the
+training micro-batch's shapes, on one NVIDIA GPU.
+
+Run from the repository root::
+
+    python3 chip_f32_bwd_accuracy.py
+
+For each head dim (64 and 72: the one-thread-a-row kernels; 96: the quad
+split at a runtime D; 128: the quad split of constant D; 256: the octet
+split) at B 4 x 2048 causal and B 2 x 2048 packed, with TinyLlama's 32 /
+4 heads up to 128 and 8 / 1 above, it prints one JSON line: per gradient,
+the largest absolute difference of the kernel from the float32 plain
+version, of the kernel from the float64 one, and of the float32 plain
+version from the float64 one, each also as its largest ratio to the
+phase-2 bar atol 1e-5 + rtol 1e-5 |float64 value| (a ratio above 1 fails
+the bar).  dk / dv sum G x Sq terms a key (16384 at B 4 x 2048, G 8), so
+the order of float32 sums shows there.  Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+DIMS = (64, 72, 96, 128, 256)
+SEQ = 2048
+
+
+def stats(got, want):
+    """Largest |got - want| and its largest ratio to the bar."""
+    e = (got.double() - want.double()).abs()
+    bar = 1e-5 + 1e-5 * want.double().abs()
+    return {"max_abs": float(e.max()), "max_ratio_to_bar": float((e / bar)
+                                                                 .max())}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_f32_bwd_accuracy: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from chip_smoke import packed_segments
+    from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
+                                      flash_attention_bwd_dq_cuda,
+                                      flash_attention_bwd_reference,
+                                      flash_attention_fwd_cuda)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    for d in DIMS:
+        hq, hkv = (32, 4) if d <= 128 else (8, 1)
+        for b, packed in ((4, False), (2, True)):
+            q, k, v, do = (randn(b, SEQ, hq, d), randn(b, SEQ, hkv, d),
+                           randn(b, SEQ, hkv, d), randn(b, SEQ, hq, d))
+            dlse = randn(b, hq, SEQ)
+            kw = {"causal": True}
+            if packed:
+                kw["segment_ids"] = torch.from_numpy(
+                    packed_segments(b, SEQ, seed=SEQ)).to(dev)
+            out, lse = flash_attention_fwd_cuda(q, k, v, **kw)
+            delta = ((do * out).sum(-1).transpose(1, 2) - dlse).contiguous()
+            got = (flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw),
+                   *flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 **kw))
+            plain = flash_attention_bwd_reference(q, k, v, out, lse, do, dlse,
+                                                  **kw)
+            exact = flash_attention_bwd_reference(
+                *(t.double() for t in (q, k, v, out, lse, do, dlse)), **kw)
+            line = {"head_dim": d, "batch": b, "seq": SEQ, "heads": [hq, hkv],
+                    "packed": packed}
+            for name, g, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+                line[name] = {"kernel_vs_f32_plain": stats(g, p),
+                              "kernel_vs_f64": stats(g, x),
+                              "f32_plain_vs_f64": stats(p, x)}
+            print(json.dumps(line), flush=True)
+            del q, k, v, do, out, lse, delta, got, plain, exact
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,7 +15,11 @@ build is compared instruction by instruction (names taken without the
 anonymous namespace's per-build hash).  Prints one JSON object: for each
 library, how many kernels are identical, which differ, and which only one
 checkout builds; a library only one checkout builds (a float16 variant,
-``_build.VARIANTS``) is listed with its kernel count.  A change that must leave a kernel as it was shows it
+``_build.VARIANTS``) is listed with its kernel count.  Lines are
+compared with their runs of blanks made one (``cuobjdump``'s column
+padding follows the library's other kernels, so a kernel added to a
+library can move the columns of the rest); a kernel that differs names
+its first differing line.  A change that must leave a kernel as it was shows it
 here without timing noise.  Exits non-zero without a toolkit.
 """
 
@@ -56,7 +60,7 @@ def kernels(cuobjdump: str, path: str) -> dict:
             cur = ANON.sub("_", m.group(1))
             out[cur] = []
         elif cur is not None and "/*" in line:
-            out[cur].append(line.strip())
+            out[cur].append(" ".join(line.split()))
     return out
 
 
@@ -85,9 +89,12 @@ def main(argv=None) -> int:
         a, b = kernels(cuobjdump, first[name]), kernels(cuobjdump,
                                                         second[name])
         both = sorted(set(a) & set(b))
+        differ = [k for k in both if a[k] != b[k]]
         report[name] = {
-            "identical": sum(a[k] == b[k] for k in both),
-            "differ": [k for k in both if a[k] != b[k]],
+            "identical": len(both) - len(differ),
+            "differ": {k: next(([x, y] for x, y in zip(a[k], b[k])
+                                if x != y), "lengths differ")
+                       for k in differ},
             "only_in_first": sorted(set(a) - set(b)),
             "only_in_second": sorted(set(b) - set(a))}
     print(json.dumps(report, indent=1))

@@ -569,6 +569,22 @@ for _name in F16_BUILDS:
 F16_BWD = ("flash_attention_bwd_dq" + F16, "flash_attention_bwd_dkv" + F16)
 for _name in F16_BWD:
     KERNEL_INFO[_name] = dict(KERNEL_INFO[_name[:-len(F16)]])
+# every float32 build at the head dims past its first instances (16, 128;
+# K2 and K5 / K6 also 64 and 72): any D <= 256 with D % 8 == 0 -- the K1
+# family on 2 and 8 elements a lane, K2 in every layout on the runtime-D
+# kernel (and K2-paged's constant-D instances at 64 and 72), K5 / K6 on
+# the runtime-D split kernels -- has an entry of its own, the kernel of its
+# namesake at float32: phase 2's "/f32" rows, the largest error over D 64,
+# 72, 96, 136, 192, 200 and 256; the K1 family and K2-paged(-int8) timed at
+# TinyLlama's D 64 and launched by serving_f32_tinyllama's engines, K2 and
+# K5 / K6 timed at D 256 and launched by training_f32_d256
+F32 = "/f32"
+F32_SERVING_BUILDS = BF16_D64_BUILDS
+F32_BWD = ("flash_attention_bwd_dq" + F32, "flash_attention_bwd_dkv" + F32)
+for _name in BF16_D256_BUILDS:
+    KERNEL_INFO[_name + F32] = dict(KERNEL_INFO[_name])
+for _name in F32_BWD:
+    KERNEL_INFO[_name] = dict(KERNEL_INFO[_name[:-len(F32)]])
 del _name
 # the paged kernels have no one-call PyTorch counterpart: their library
 # yardstick is SDPA over a contiguous copy gathered beforehand (untimed)
@@ -988,7 +1004,9 @@ def backward_sets(torch, randn, dt, b, sq, skv, hq, hkv, d, kw):
 def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
                   main, names=TRAIN_KERNELS):
     """K5 (``names[0]``) and K6 (``names[1]``) on :func:`backward_sets`
-    against ``flash_attention_bwd_reference`` on the same out / lse, and
+    against ``flash_attention_bwd_reference`` on the same out / lse
+    (float32 rows: that plain version in float64, the float32 one's
+    distance reported beside), and
     against themselves (no atomics: a second launch gives the same bits),
     the dead-row convention on ``keep`` (zero dq for a query that sees no
     key, zero dk / dv for a key no query sees); one phase-2 row each with
@@ -1017,6 +1035,15 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
                                              **kw))))}
     rq, rk, rv = flash_attention_bwd_reference(q, k, v, out, lse, do, dlse,
                                                **kw)
+    exact = None
+    if dt == torch.float32:
+        # the float32 rows' yardstick: the plain version on the same inputs
+        # in float64.  At B 4 x 2048 the float32 plain version's dk / dv
+        # (sums of G x Sq terms) are themselves 1.0-3.0e-5 from it, up to
+        # 1.6x the bar (chip_f32_bwd_accuracy.py; NVIDIA H100 80GB HBM3,
+        # 700 W), so it is reported beside, not held to (1e-5, 1e-5)
+        exact = flash_attention_bwd_reference(
+            *(t.double() for t in (q, k, v, out, lse, do, dlse)), **kw)
     torch.cuda.synchronize()
     with reference_mode():
         plain_ms = time_ms(torch, [
@@ -1047,6 +1074,14 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
     for name, got, want, flops_per_pair, out_elems in (
             (names[0], (dq,), (rq,), 6, b * sq * hq * d),
             (names[1], (dk, dv), (rk, rv), 8, 2 * b * skv * hkv * d)):
+        vs64 = {}
+        if exact is not None:
+            truth = (exact[0],) if name == names[0] else exact[1:]
+            vs64 = {"max_err_vs_f32_plain": max(
+                         max_err(g, w) for g, w in zip(got, want)),
+                     "f32_plain_max_err_vs_f64": max(
+                         max_err(w, t) for w, t in zip(want, truth))}
+            want = truth
         err = max(max_err(g, w) for g, w in zip(got, want))
         rels = [rel_l2(g, w) for g, w in zip(got, want)]
         if dt != torch.float32:
@@ -1056,7 +1091,7 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
             ok = max(rels) <= rel_tol
         else:
             atol, rtol = tols(dt)
-            tol = f"atol {atol} + rtol {rtol}"
+            tol = f"atol {atol} + rtol {rtol} of the float64 plain version"
             ok = all(within(g, w, atol, rtol) for g, w in zip(got, want))
         ok = (ok and same[name]
               and all(bool(torch.isfinite(g).all().item()) for g in got))
@@ -1080,9 +1115,10 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
                    "; " + SEGMENTED_LIBRARY_NOTE if lib_mask is not None
                    else ""),
                extra=dict(bwd_extra, rel_l2=rels, head_dim=d,
-                          deterministic=same[name],
+                          deterministic=same[name], **vs64,
                           plain_note="flash_attention_bwd_reference: dq, "
                                      "dk and dv together"))
+    del exact
     return lib_ms
 
 
@@ -1125,6 +1161,13 @@ def phase_kernels(torch):
     check(all(r is None or r["spill_stores"] == 0
               for fns in wide_regs.values() for r in fns.values()),
           f"a bf16 build above head_dim 128 spills: {wide_regs}")
+    # and of every float32 instance past the first ones (a spill fails)
+    f32_new_regs = ptxas_of(_build.build_log, F32_FUNCTIONS)
+    emit({"phase": "f32_ptxas", "functions": f32_new_regs})
+    check(all(r is None or r["spill_stores"] == 0
+              for fns in f32_new_regs.values() for r in fns.values()),
+          f"a float32 build past its first instances spills: "
+          f"{f32_new_regs}")
     # and of every float16 instance, beside its bf16 twin's registers
     f16_regs = f16_ptxas(_build.build_log)
     emit({"phase": "f16_ptxas", "functions": f16_regs})
@@ -1156,6 +1199,8 @@ def phase_kernels(torch):
             row["ptxas"] = wide_regs[name[:-len(BF16_D256)]]
         if name.endswith(F16):
             row["ptxas"] = f16_regs[name[:-len(F16)]]
+        if name.endswith(F32):
+            row["ptxas"] = f32_new_regs[name[:-len(F32)]]
         row.update(extra or {})
         emit(row)
         check(ok, f"{name} {shape}: max error {err} beyond {tol}")
@@ -1662,6 +1707,7 @@ def phase_kernels(torch):
     phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
                              int8_scales, tols, wide=True)
     phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols)
+    phase_f32_rows(torch, record, randn, int8_payload, int8_scales, tols)
 
     # K4 weight-only int8 GEMM: a decode tick's 8 rows at every Llama-3-8B
     # projection shape (K, N), the row counts of short prefill waves at
@@ -2111,6 +2157,31 @@ def f16_ptxas(build_log):
     return out
 
 
+# the C functions of each float32 build past its first instances: the K1
+# family's decode_attention_kernel<float, KV, EPL, KPI, PAGED> at EPL 2 and
+# 8, K2's flash_attention_fwd_rt_kernel<W, PAGED, KV, SEG> (W 128, 256)
+# and K2-paged's constant-D instances at 64 and 72, K5 / K6's runtime-D
+# split kernels <T, C> (a quad and an octet a row)
+F32_FUNCTIONS = {
+    name: tuple(f"decode_attention_kernelIf{kv}Li{epl}ELi{kpi}ELb{paged}EE"
+                for epl, kpi in ((2, 8), (8, 2 if int8 else 4)))
+    for name, int8, paged in K1_MMA_BUILDS
+    for kv in ("a" if int8 else "f",)}
+F32_FUNCTIONS.update({
+    "flash_attention_fwd": tuple(
+        f"flash_attention_fwd_rt_kernelILi{w}ELb0EfLb{seg}EE"
+        for w in (128, 256) for seg in (0, 1)),
+    **{f"flash_attention_fwd_paged{i8}": tuple(
+        f"flash_attention_fwd_rt_kernelILi{w}ELb1E{kv}Lb0EE"
+        for w in (128, 256)) + tuple(
+        f"flash_attention_fwd_kernelILi{d}ELb1E{kv}Lb0EE" for d in (64, 72))
+       for i8, kv in (("", "f"), ("_int8", "a"))},
+    "flash_attention_bwd_dq": tuple(f"bwd_dq_f32_rt_kernelILi{t}ELi8EE"
+                                    for t in (4, 8)),
+    "flash_attention_bwd_dkv": tuple(f"bwd_dkv_f32_rt_kernelILi{t}ELi8EE"
+                                     for t in (4, 8))})
+
+
 def f32_d128_ptxas(build_log):
     """:func:`ptxas_of` the float32 head_dim-128 builds."""
     return ptxas_of(build_log, F32_D128_FUNCTIONS)
@@ -2393,12 +2464,17 @@ BF16_SMALL_DIMS = (16, 64, 72, 96)
 # the head dims of the /bf16_d256 rows: 136 and 200 (int8 rows of D % 16
 # == 8 bytes: K1's 8-byte copies, K2-paged-int8's CP8 staging), 192, 256
 BF16_WIDE_DIMS = (136, 192, 200, 256)
+# the head dims of the /f32 rows: TinyLlama's 64, 72 (D % 16 == 8: the
+# int8 rows of 72 bytes, the split K5 / K6's odd chunk) and 96 at
+# TinyLlama's heads, then the wide ones at a Gemma-2B-wide Llama's
+F32_SMALL_DIMS = (64, 72, 96)
+F32_WIDE_DIMS = BF16_WIDE_DIMS
 # a Llama at Gemma-2B's widths: 8 query heads over one KV head
 G2B_HEADS, G2B_KV_HEADS = 8, 1
 
 
 def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
-                             tols, wide=False, f16=False):
+                             tols, wide=False, f16=False, f32=False):
     """Phase 2's rows of every bf16 build of K1 and K2-paged below head_dim
     128, each held against its plain version at ``tols(bfloat16)`` under
     the ``/bf16_d64`` entries (``head_dim`` on each row), at D 16, 64, 72
@@ -2442,7 +2518,21 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     ``flash_attention_bwd_*/f16``) at every D: B 4 x 2048 causal (the
     main row at D 128), Sq 77 over Skv 61 (dead rows), packed documents
     at S 2048, the ring hop (Sq 256, Skv 512) and not causal at B 4 x
-    512."""
+    512.
+
+    ``f32``: the rows at float32 under the ``/f32`` entries at
+    ``tols(float32)``, at D 64, 72 and 96 (TinyLlama's heads, 32 over 4)
+    or, ``wide``, 136, 192, 200 and 256 (a Gemma-2B-wide Llama's, 8 over
+    1), the verify window s = 5 at D 64 and 256, the contract rows'
+    K2-paged over 16-token blocks (the float32 kernel takes any
+    block_len); then K2 at the serving wave (B 4 x 2048 causal GQA) and
+    dead rows (Sq 77 over Skv 61) at every D, packed documents and the
+    ring hop at D 64 and 256; the identity view at D 64 and 256; and K5 /
+    K6 at every D at Sq 77 over Skv 61 (dead rows), the ring hop and not
+    causal (B 4 x 512), and at D 96 and 256 (the runtime-D kernels) at
+    the training micro-batch's shapes, B 2 x 2048 packed and B 4 x 2048
+    causal (the main rows at D 256), held against the plain version in
+    float64.  The bound is max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s)."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2453,15 +2543,19 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     import torch.nn.functional as TF
 
     dev = torch.device("cuda")
-    bf16 = torch.float16 if f16 else torch.bfloat16   # the rows' dtype
-    tname = "float16" if f16 else "bf16"
+    # the rows' dtype, its name in the rows, its bytes and peak rate
+    bf16 = (torch.float16 if f16 else torch.float32 if f32
+            else torch.bfloat16)
+    tname = "float16" if f16 else "float32" if f32 else "bf16"
+    esz, peak = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
     atol, rtol = tols(bf16)
     if f16:
         suffix, dims, main_d = F16, F16_DIMS, 128
         hq = hkv = L27_HEADS
     else:
-        suffix = BF16_D256 if wide else BF16_D64
-        dims = BF16_WIDE_DIMS if wide else BF16_SMALL_DIMS
+        suffix = F32 if f32 else BF16_D256 if wide else BF16_D64
+        dims = ((F32_WIDE_DIMS if wide else F32_SMALL_DIMS) if f32
+                else BF16_WIDE_DIMS if wide else BF16_SMALL_DIMS)
         main_d = 256 if wide else 64
         hq, hkv = ((G2B_HEADS, G2B_KV_HEADS) if wide
                    else (TL_HEADS, TL_KV_HEADS))
@@ -2504,7 +2598,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
                            budget_ms=100.0)
         lib_ms = time_ms(torch, lib) if lib else None
-        bms, by = bound(nbytes, ops, BF16_FLOPS)   # float16's peak is bf16's
+        bms, by = bound(nbytes, ops, peak)   # float16's peak is bf16's
         record(name + suffix, shape, err, tol, ok,
                [lambda t=t: fn(t) for t in sets], plain_ms, lib_ms, bms,
                by, main, note=note, extra=extra)
@@ -2534,7 +2628,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         live = [max(0, min(p + s, L)) for p in pos_list]
         ops = sum(4 * d * hq * max(0, min(p + si + 1, L))
                   for p in pos_list for si in range(s))
-        io = 2 * b * s * hq * d * 2 + 4 * b
+        io = 2 * b * s * hq * d * esz + 4 * b
         dead = ((0, -pos_list[0]) if pos_list[0] < 0 else None)
         mask = cache_mask(pos, s, L)
         shape = (f"B={b} s={s} L={L} Hq={hq} Hkv={hkv} D={d} "
@@ -2546,7 +2640,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
             lambda t: cached_decode_attention_reference(t[0], t[1], t[2],
                                                         pos),
             sets, None if contract else [sdpa(*t, mask) for t in sets],
-            io + sum(live) * hkv * d * 2 * 2, ops, main, dead=dead,
+            io + sum(live) * hkv * d * esz * 2, ops, main, dead=dead,
             same_bits=True)
         del sets
         n_gran = L // gran
@@ -2605,7 +2699,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                                          for t in sets[:2]]
             row("decode_attention_paged" + ("_int8" if int8 else ""), d,
                 pshape + (", int8 K/V" if int8 else ""), runp, plainp, sets,
-                lib, io + live_keys * hkv * d * (1 if int8 else 2) * 2
+                lib, io + live_keys * hkv * d * (1 if int8 else esz) * 2
                 + (live_blocks * hkv * 4 * 2 if int8 else 0)
                 + 4 * b * mb, ops, main, dead=dead, same_bits=True,
                 note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
@@ -2656,25 +2750,59 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                 f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
                 f"{tname}" + (", int8 K/V" if int8 else ""), runp, plainp,
                 sets,
-                lib, 2 * b * s * hq * d * 2
-                + live_keys * hkv * d * (1 if int8 else 2) * 2
+                lib, 2 * b * s * hq * d * esz
+                + live_keys * hkv * d * (1 if int8 else esz) * 2
                 + (live_blocks * hkv * 4 * 2 if int8 else 0)
                 + 4 * b * (mb + 1), ops, main, dead=dead,
                 note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
             del sets, lib
 
+    # the forward rows' main D (the /f32 entries take theirs at D 64)
+    fwd_main = None if f32 and wide else main_d
     for d in dims:
         # the decode tick (at the main D its verify window too), then the
         # contract rows
         for s in ((1, 5) if d == main_d else (1,)):
             k1_family(d, 8, s, F32_L, [min(p, F32_L - s)
                                        for p in F32_TICK_POS], 128, 64,
-                      ((1, 4, 8), (5, 3, 2)), d == main_d and s == 1, False)
+                      ((1, 4, 8), (5, 3, 2)), d == fwd_main and s == 1,
+                      False)
         k1_family(d, 4, 5, 1024, [-3, 7, 300, 1019], 8, 16, ((1, 2, 4),),
                   False, True)
         k2_paged(d, 4, 512, 64, F32_L // 64, [0, 128, 1024, 1536],
-                 ((2, 3, 8), (0, 1, 1)), d == main_d, False)
-        k2_paged(d, 3, 130, 64, 16, [-1, 0, 700], ((1, 2, 3),), False, True)
+                 ((2, 3, 8), (0, 1, 1)), d == fwd_main, False)
+        # 130 queries (two q tiles) over a 1024-key table; float32 at an
+        # odd block_len, 16, which the 16-bit kernel refuses
+        bl = 16 if f32 else 64
+        k2_paged(d, 3, 130, bl, 1024 // bl, [-1, 0, 700], ((1, 2, 3),),
+                 False, True)
+    if f32:
+        k2 = "flash_attention_fwd" + F32
+        k2_rows(torch, record, randn, tols,
+                [(k2, bf16, 4, F32_L, F32_L, hq, hkv, d, True, None,
+                  d == 256) for d in dims]
+                + [(k2, bf16, 2, 77, 61, hq, hkv, d, True, None, False)
+                   for d in dims]
+                + [(k2, bf16, 2, F32_L, F32_L, hq, hkv, main_d, True,
+                    "packed", False),
+                   (k2, bf16, 2, 256, 512, hq, hkv, main_d, True, "ring",
+                    False)])
+        phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
+                            tols, f32=main_d)
+        # the training micro-batch's shapes on the runtime-D kernels, D 96
+        # and 256 (D 64 and 72 run the one-thread-a-row instances, whose
+        # dk / dv drift past 1e-5 of float64 there: ROADMAP C6)
+        k5_k6_rows(torch, record, randn, tols, [
+            (F32_BWD, bf16, b, sq, skv, hq, hkv, d, causal, segments,
+             d == 256 and segments is None and sq == F32_L)
+            for d in dims
+            for b, sq, skv, causal, segments in (
+                (2, 77, 61, True, None),
+                (2, 256, 512, True, "ring"),
+                (4, 512, 512, False, None))
+            + (((2, F32_L, F32_L, True, "packed"),
+                (4, F32_L, F32_L, True, None)) if d in (96, 256) else ())])
+        return
     if f16:
         k2 = "flash_attention_fwd" + F16
         k2_rows(torch, record, randn, tols,
@@ -2856,6 +2984,16 @@ def phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols):
     del q, k8, v8, kp, vp, qp
     for d in (128, 256):
         bwd_range_row(torch, randn, record, d)
+
+
+def phase_f32_rows(torch, record, randn, int8_payload, int8_scales, tols):
+    """Phase 2's float32 rows past the first float32 instances (the
+    ``/f32`` entries, :func:`phase_bf16_head_dim_rows` with ``f32``): every
+    build at D 64, 72 and 96 at TinyLlama's heads, then at D 136, 192, 200
+    and 256 at a Gemma-2B-wide Llama's."""
+    for wide in (False, True):
+        phase_bf16_head_dim_rows(torch, record, randn, int8_payload,
+                                 int8_scales, tols, wide=wide, f32=True)
 
 
 def bwd_range_row(torch, randn, record, d, b=2, s=512, h=8):
@@ -3067,7 +3205,7 @@ def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
 
 
 def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
-                        tols, wide=False, f16=False):
+                        tols, wide=False, f16=False, f32=None):
     """Phase 2's rows of the contiguous cache through its identity view
     (``ops.attention.identity_view``, the chunked engine's prompt chunk):
     K2-paged and K2-paged-int8 over an 8-row, 4096-position bf16 cache
@@ -3082,7 +3220,11 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
     every row under the ``/bf16_d256`` entries (``crossover_d256``
     line).  ``f16``: the chunk rows at float16 at Llama-2-7B's attention
     (head_dim 128, 32 over 32 heads) over a 2048-position cache, chunks at
-    pos 0 and 1024, under the ``/f16`` entries; no crossover."""
+    pos 0 and 1024, under the ``/f16`` entries; no crossover.  ``f32``
+    (a head dim): the chunk rows at float32 at that head dim (TinyLlama's
+    32 over 4 heads up to 128, a Gemma-2B-wide Llama's 8 over 1 above) over
+    a 2048-position cache, chunks at pos 0 and 1024, under the ``/f32``
+    entries; no crossover."""
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda)
@@ -3105,6 +3247,12 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
         L, hq, hkv = F32_L, L27_HEADS, L27_HEADS
         chunk_pos = (0, 1024)
         tag = F16
+    esz, peak = 2, BF16_FLOPS
+    if f32:
+        bf16, d, L, chunk_pos, tag = torch.float32, f32, F32_L, (0, 1024), F32
+        hq, hkv = ((TL_HEADS, TL_KV_HEADS) if d <= 128
+                   else (G2B_HEADS, G2B_KV_HEADS))
+        esz, peak = 4, F32_FLOPS
     atol, rtol = tols(bf16)
 
     def cache_sets(int8, n):
@@ -3141,14 +3289,14 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
 
     def traffic(int8, s, pos_list, b):
         live = sum(min(L, p + s) for p in pos_list)
-        nbytes = 2 * b * s * hq * d * 2 + live * hkv * d * (1 if int8
-                                                            else 2) * 2
+        nbytes = 2 * b * s * hq * d * esz + live * hkv * d * (
+            1 if int8 else esz) * 2
         if int8:
             nbytes += sum(-(-min(L, p + s) // gr) for p in pos_list) \
                 * hkv * 4 * 2
         ops = sum(4 * d * hq * min(p + si + 1, L)
                   for p in pos_list for si in range(s))
-        return bound(nbytes, ops, BF16_FLOPS)
+        return bound(nbytes, ops, peak)
 
     for int8 in (False, True):
         name = ("flash_attention_fwd_paged_int8" if int8
@@ -3186,11 +3334,11 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                    f"pos={p}" + (f" int8 K/V granule {gr}, {str(bf16)[6:]} q"
                                  if int8 else f" {str(bf16)[6:]}"),
                    err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms,
-                   lib_ms, bms, by, p == 1024 and not (wide or f16),
+                   lib_ms, bms, by, p == 1024 and not (wide or f16 or f32),
                    note=note,
                    extra={"head_dim": d})
             del sets, got, want
-    if f16:
+    if f16 or f32:
         return
 
     # the crossover: K1 (8-row tiles, each re-reading its row's live
@@ -4768,6 +4916,43 @@ def grad_gate(torch, model, make_f32, loss_of, phase: str, fields,
                    f"{GRAD_SCALAR_TOL}: {bad}")
 
 
+def f32_grad_gate(torch, model, loss_of, phase: str, fields):
+    """Gate (a) of a float32 training phase, qwen2_vl_f32's gate (c): the
+    step-1 loss and gradients of ``loss_of(model)``, kernel path against
+    the plain path (``reference_mode()``) on the card -- the loss within
+    rtol 1e-5 and every tensor's gradient within F32_GRAD_TOL of its largest
+    element (the float32 copy :func:`grad_gate` measures both against is
+    the model itself).  Emits a ``phase`` line (``fields`` first)."""
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+
+    def grads():
+        loss = loss_of(model)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, list(model.parameters()))
+    loss_k, g_k = grads()
+    with reference_mode():
+        loss_p, g_p = grads()
+    rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for a, b in zip(g_k, g_p)]
+    finite = all(bool(g.isfinite().all()) for g in g_k)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    names = [n for n, _ in model.named_parameters()]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    line = {"loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "max_grad_diff_over_tensor_max": rel[worst],
+            "worst_tensor": names[worst], "tol": F32_GRAD_TOL,
+            "finite": finite}
+    emit({"phase": phase, **fields, **line})
+    check(finite and line["loss_rel_diff"] <= 1e-5,
+          f"{phase}: step-1 loss {loss_k} against the plain path's "
+          f"{loss_p}")
+    check(rel[worst] <= F32_GRAD_TOL,
+          f"{phase}: gradient of {names[worst]} differs from the plain "
+          f"path's by {rel[worst]} of its largest element")
+
+
 def tiny_card_vs_cpu(torch, base, batches, dev):
     """Four steps of a float32 model's train step (:func:`_train_tiny`) on
     the card (kernels) and on the CPU (plain versions) from ``base``'s
@@ -4812,14 +4997,15 @@ def check_tiny(res, what: str) -> None:
 
 
 def train_llama(torch, kernels, cfg, phase: str, fields, entries,
-                profile: bool = False):
+                profile: bool = False, steps: int = TRAIN_STEPS):
     """Gates (a)-(c) of a Llama training phase on the card at ``cfg``
     (``recompute=True``), seeded weights, packed TRAIN_ROWS x TRAIN_SEQ
     batches in TRAIN_ACCUM micro-batches, AdamW (lr 3e-4 after a 2-step
-    warmup, beta2 0.95, eps 1e-5, weight decay 0.1, clip 1.0), TRAIN_STEPS
+    warmup, beta2 0.95, eps 1e-5, weight decay 0.1, clip 1.0), ``steps``
     steps: (a) step-1 gradients of one micro-batch, the kernel path within
     1.2x the plain path's error against a float32 copy, summed and tensor
-    by tensor (:func:`grad_gate`, the ``<phase>_grads`` line); (b) every
+    by tensor (:func:`grad_gate`, the ``<phase>_grads`` line; a float32
+    ``cfg`` is its own float32 copy: :func:`f32_grad_gate`); (b) every
     loss finite, the last below the first; (c) launches a step K2 = 2 x
     TRAIN_ACCUM x layers (recompute runs each forward twice), K5 = K6 =
     TRAIN_ACCUM x layers, every one at ``cfg.head_dim`` (by shape),
@@ -4828,8 +5014,8 @@ def train_llama(torch, kernels, cfg, phase: str, fields, entries,
     model-FLOPs share of 989 TFLOP/s (6 x every product's weight a token
     -- a tied embedding table is the head's weight, an untied one only a
     lookup -- plus the visible pairs' attention), optimizer state bytes,
-    peak memory; ``entries`` (K5's, K6's) take the launches in
-    ``kernels``; ``profile`` adds :func:`profile_step`."""
+    peak memory; ``entries`` (K5's, K6's, and K2's if a third) take the
+    launches in ``kernels``; ``profile`` adds :func:`profile_step`."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.distributed import build_train_step
     from paddle_tpu_torch.models import LlamaForCausalLM
@@ -4859,13 +5045,17 @@ def train_llama(torch, kernels, cfg, phase: str, fields, entries,
                 p32.copy_(p)
         return m32
 
-    grad_gate(torch, model, llama32, lambda m: m.compute_loss(**micro),
-              phase + "_grads",
-              dict(fields, init_s=round(init_s, 3),
-                   micro_batch=list(micro["input_ids"].shape),
-                   documents=len(torch_counts(micro["segment_ids"]))))
+    gate_fields = dict(fields, init_s=round(init_s, 3),
+                       micro_batch=list(micro["input_ids"].shape),
+                       documents=len(torch_counts(micro["segment_ids"])))
+    if cfg.dtype == "float32":
+        f32_grad_gate(torch, model, lambda m: m.compute_loss(**micro),
+                      phase + "_grads", gate_fields)
+    else:
+        grad_gate(torch, model, llama32, lambda m: m.compute_loss(**micro),
+                  phase + "_grads", gate_fields)
 
-    # (b) + (c): TRAIN_STEPS steps on the packed batch, every launch and
+    # (b) + (c): ``steps`` steps on the packed batch, every launch and
     # route counter reset just before and read just after
     opt = AdamW(lr.LinearWarmup(3e-4, 2), beta2=0.95, epsilon=1e-5,
                 weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
@@ -4874,7 +5064,7 @@ def train_llama(torch, kernels, cfg, phase: str, fields, entries,
     _dispatch.reset_kernel_paths()
     losses, step_ms = [], []
     torch.cuda.synchronize()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(step(batch)))      # float() synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -4911,6 +5101,8 @@ def train_llama(torch, kernels, cfg, phase: str, fields, entries,
           "model_flops_per_step": model_flops,
           "model_flops_share_of_989T": model_flops / (steady / 1e3)
           / BF16_FLOPS,
+          **({"model_flops_share_of_67T": model_flops / (steady / 1e3)
+              / F32_FLOPS} if cfg.dtype == "float32" else {}),
           "optimizer_state_bytes": state_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches, "launches_by_head_dim": by_dim,
@@ -4919,15 +5111,15 @@ def train_llama(torch, kernels, cfg, phase: str, fields, entries,
     check(losses[-1] < losses[0],
           f"{phase} did not lower the loss: {losses}")
     for name, n in per_step.items():
-        check(launches[name] == n * TRAIN_STEPS
-              and by_dim[name] == {str(cfg.head_dim): n * TRAIN_STEPS},
+        check(launches[name] == n * steps
+              and by_dim[name] == {str(cfg.head_dim): n * steps},
               f"{phase}: {name} launched {launches[name]} times in "
-              f"{TRAIN_STEPS} steps ({by_dim[name]} by head_dim), expected "
+              f"{steps} steps ({by_dim[name]} by head_dim), expected "
               f"{n} a step, every one at head_dim {cfg.head_dim}")
     check(launches["rms_norm"] > 0, "RMSNorm kernel not launched")
     plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
     check(not plain, f"{phase}: plain routes taken on the card: {plain}")
-    for entry, name in zip(entries, TRAIN_KERNELS):
+    for entry, name in zip(entries, TRAIN_KERNELS + ("flash_attention_fwd",)):
         kernels[entry]["launches"] = launches[name]
     if profile:
         profile_step(torch, step, opt, batch, "profile_" + phase)
@@ -6259,6 +6451,31 @@ def int8_flips(torch, a, b):
     return [int((x != y).sum()) for x, y in zip(a["kv"], b["kv"])]
 
 
+def f32_session_gate(torch, model, label):
+    """A float32 model's teacher-forced session in ``label``'s layout
+    (:func:`f32_forced_logits`), kernel path against the plain path on the
+    card: :func:`logit_gate`, and for an int8 cache :func:`int8_gate`
+    against the plain path on a float32 cache."""
+    from paddle_tpu_torch.ops._dispatch import reference_mode
+    got, got_cache = f32_forced_logits(torch, model, label)
+    with reference_mode():
+        want, want_cache = f32_forced_logits(torch, model, label)
+    gate = logit_gate(got, want)
+    if label.startswith("int8"):
+        # an int8 cache rounds each K / V element to its block's grid: the
+        # two paths' float32 sum orders (RMSNorm's from layer 0 on,
+        # attention's from layer 1) put some elements on the other side of
+        # a rounding edge, a whole quantum apart (paged: a block whose
+        # running-max scale moves is requantized whole), so the int8 paths
+        # are held, as phase 3's model_int8 holds its, to 1.2x the plain
+        # path's distance from the float32 cache
+        with reference_mode():
+            truth, _ = f32_forced_logits(torch, model, label, int8=False)
+        gate = dict(gate, int8_payload_differences_by_layer=int8_flips(
+            torch, got_cache, want_cache), **int8_gate(got, want, truth))
+    return gate
+
+
 def phase_serving_f32(torch, kernels, card, profile=False):
     """``LlamaConfig()`` as it stands (float32, hidden 4096, 32 layers of
     32 / 32 heads of 128, vocab 32000; 26.9 GB of seeded weights), served
@@ -6301,25 +6518,7 @@ def phase_serving_f32(torch, kernels, card, profile=False):
         with disable_graphs(), reference_mode():
             plain = _serve_8b(torch, model, prompts,
                               new_tokens=F32_NEW_TOKENS, **kw)
-        got, got_cache = f32_forced_logits(torch, model, label)
-        with reference_mode():
-            want, want_cache = f32_forced_logits(torch, model, label)
-        gate = logit_gate(got, want)
-        if label.startswith("int8"):
-            # an int8 cache rounds each K / V element to its block's grid:
-            # the two paths' float32 sum orders (RMSNorm's from layer 0 on,
-            # attention's from layer 1) put some elements on the other side
-            # of a rounding edge, a whole quantum apart (paged: a block whose
-            # running-max scale moves is requantized whole), so the int8
-            # paths are held, as phase 3's model_int8 holds its, to 1.2x
-            # the plain path's distance from the float32 cache
-            with reference_mode():
-                truth, _ = f32_forced_logits(torch, model, label,
-                                             int8=False)
-            gate = dict(gate, int8_payload_differences_by_layer=int8_flips(
-                torch, got_cache, want_cache), **int8_gate(got, want, truth))
-            del truth
-        del got, want, got_cache, want_cache
+        gate = f32_session_gate(torch, model, label)
         m, launches, routes = run["metrics"], run["launches"], run["routes"]
         cmp = twin_comparison(run["outs"], plain["outs"])
         emit({"phase": "serving_f32", "engine": label, "card": card,
@@ -6380,8 +6579,8 @@ TL_BLOCK_LEN = 64       # the paged engines' blocks: the shared prompt is 8
 
 def serve_llama(torch, kernels, card, phase, config, widths, head_dim, group,
                 suffix, builds, int8_weights=False):
-    """A 16-bit Llama at ``widths`` (LlamaConfig fields, their dtype
-    bfloat16 or float16; ``head_dim`` and ``group`` query heads a KV head
+    """A Llama at ``widths`` (LlamaConfig fields, their dtype bfloat16,
+    float16 or float32; ``head_dim`` and ``group`` query heads a KV head
     checked), seeded, served by serving_f32's four
     engines built and freed one after another -- contiguous, paged with
     the prefix cache (block_len TL_BLOCK_LEN), int8-KV paged and int8-KV
@@ -6395,16 +6594,18 @@ def serve_llama(torch, kernels, card, phase, config, widths, head_dim, group,
     a layer a chunk), no other attention kernel, no plain route; paged:
     prefix hits; teacher-forced logits of its layout within 1.2x the plain
     path's distance from a float32 copy of the weights on a float32 cache
-    (:func:`int8_gate`).  ``generate``: one graphed build, bit-equal to
-    its eager twin, K1 once a layer a decode step, K2 once a layer a
-    prefill.  ``int8_weights``: then one more engine on the model's
-    ``QuantizedForDecode`` (int8 weights, int8 KV, paged with the prefix
-    cache: phase 4c's configuration) with the same gates (its truth the
-    paged one) and K4 7 a layer + the LM head a tick, and greedy
-    ``generate`` on it (K4 the same a decode step).  Reported: tok/s,
-    TTFT, TPOT, decode-step p50 beside the weights' byte bound of a tick,
-    peak memory.  ``builds`` take their ``suffix`` entries' launches in
-    ``kernels``; every line is a ``phase`` line naming ``config``."""
+    (:func:`int8_gate`); a float32 model is its own float32 copy, and is
+    held as serving_f32 holds LlamaConfig() (:func:`f32_session_gate`).
+    ``generate``: one graphed build, bit-equal to its eager twin, K1 once a
+    layer a decode step, K2 once a layer a prefill. ``int8_weights``: then
+    one more engine on the model's ``QuantizedForDecode`` (int8 weights,
+    int8 KV, paged with the prefix cache: phase 4c's configuration) with the
+    same gates (its truth the paged one) and K4 7 a layer + the LM head a
+    tick, and greedy ``generate`` on it (K4 the same a decode step).
+    Reported: tok/s, TTFT, TPOT, decode-step p50 beside the weights' byte
+    bound of a tick, peak memory. ``builds`` take their ``suffix`` entries'
+    launches in ``kernels``; every line is a ``phase`` line naming
+    ``config``."""
     import numpy as np
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          quantize_for_decode)
@@ -6423,21 +6624,24 @@ def serve_llama(torch, kernels, card, phase, config, widths, head_dim, group,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    f32 = cfg.dtype == "float32"
     # a tick reads every weight once: its least time on the card
-    weight_bound_ms = 2 * n_params / HBM_BYTES_PER_S * 1e3
-    # the float32 truth of the teacher-forced sessions: a float32 copy of
-    # the weights through the plain path on a float32 cache
-    model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
-                               device=dev)
-    with torch.no_grad():
-        for p32, p in zip(model32.parameters(), model.parameters()):
-            p32.copy_(p)
-    with reference_mode():
-        truths = {lay: f32_forced_logits(torch, model32, lay, int8=False)[0]
-                  for lay in ("contiguous", "paged")}
-    del model32
-    gc.collect()
-    torch.cuda.empty_cache()
+    weight_bound_ms = (4 if f32 else 2) * n_params / HBM_BYTES_PER_S * 1e3
+    if not f32:
+        # the float32 truth of the teacher-forced sessions: a float32 copy
+        # of the weights through the plain path on a float32 cache
+        model32 = LlamaForCausalLM(dataclasses.replace(cfg, dtype="float32"),
+                                   device=dev)
+        with torch.no_grad():
+            for p32, p in zip(model32.parameters(), model.parameters()):
+                p32.copy_(p)
+        with reference_mode():
+            truths = {lay: f32_forced_logits(torch, model32, lay,
+                                             int8=False)[0]
+                      for lay in ("contiguous", "paged")}
+        del model32
+        gc.collect()
+        torch.cuda.empty_cache()
 
     prompts = f32_serving_prompts(cfg.vocab_size)
     engine_kw = dict(num_slots=8, max_length=F32_L, prefill_batch=4)
@@ -6456,12 +6660,15 @@ def serve_llama(torch, kernels, card, phase, config, widths, head_dim, group,
                         **kw)
         twin = eager_twin(torch, model, prompts, run, what,
                           new_tokens=F32_NEW_TOKENS, **kw)
-        got, _ = f32_forced_logits(torch, model, label)
-        with reference_mode():
-            want, _ = f32_forced_logits(torch, model, label)
-        gate = dict(logit_gate(got, want), **int8_gate(got, want, truths[
-            "paged" if label.endswith("paged") else "contiguous"]))
-        del got, want
+        if f32:
+            gate = f32_session_gate(torch, model, label)
+        else:
+            got, _ = f32_forced_logits(torch, model, label)
+            with reference_mode():
+                want, _ = f32_forced_logits(torch, model, label)
+            gate = dict(logit_gate(got, want), **int8_gate(got, want, truths[
+                "paged" if label.endswith("paged") else "contiguous"]))
+            del got, want
         m, launches, routes = run["metrics"], run["launches"], run["routes"]
         emit({**base, "engine": label, **serving_fields(run),
               "prefill_waves": m["prefill_waves"],
@@ -6612,6 +6819,20 @@ def phase_serving_tinyllama(torch, kernels, card):
                 TINYLLAMA, 64, 8, BF16_D64, BF16_D64_BUILDS)
 
 
+def phase_serving_f32_tinyllama(torch, kernels, card):
+    """TinyLlama-1.1B's published widths (``TINYLLAMA``, not cut) at
+    ``dtype="float32"``, the reference's default dtype (1.1 B parameters,
+    4.4 GB of seeded weights) through :func:`serve_llama`: serving_f32's
+    four engines, the chunked engine and ``generate``, the decode kernel 22
+    a tick, the wave kernel 22 a wave or chunk, all at float32 D 64;
+    teacher-forced logits within F32_LOGIT_TOL of the plain path's largest
+    (int8 caches as serving_f32 holds them); launches of the ``/f32``
+    entries of the K1 family and K2-paged(-int8)."""
+    serve_llama(torch, kernels, card, "serving_f32_tinyllama",
+                "TinyLlama-1.1B float32", dict(TINYLLAMA, dtype="float32"),
+                64, 8, F32, F32_SERVING_BUILDS)
+
+
 # serving_d256: a Llama at Gemma-2B's published widths (google/gemma-2b
 # config.json: hidden 2048, 18 layers, 8 query heads over 1 KV head of
 # 256, intermediate 16384, vocab 256000, rope_theta 10000, rms_norm_eps
@@ -6685,6 +6906,39 @@ def phase_training_d256(torch, kernels, card):
     train_llama(torch, kernels, cfg, "training_d256",
                 {"card": card, "config": "Llama at Gemma-2B's widths"},
                 BF16_D256_BWD)
+
+# training_f32_d256: the Gemma-2B-wide Llama at float32, all 18 layers.
+# Its reckoning on one 80 GB card: 2.51 B parameters x 16 bytes (weights,
+# gradients, AdamW's two moments) = 40.2 GB, the tied head's 4096 x 256000
+# float32 logits, their log-softmax and their gradient 12.6 GB, the
+# gradient accumulation and the recomputed layer's activations a few GB:
+# ~57 GB, leaving the 10 GB margin, so the depth is not cut.  Its steps run
+# float32 GEMMs without TF32 (~3 s each at ~50 TFLOP/s): 4 of them, where
+# the 16-bit phases take TRAIN_STEPS
+TRAIN_F32_STEPS = 4
+
+
+def phase_training_f32_d256(torch, kernels, card):
+    """The Llama at Gemma-2B's widths (``GEMMA2B_WIDTHS``: all 18 layers of
+    8 / 1 heads of 256, hidden 2048, vocab 256000, tied embeddings) at
+    ``dtype="float32"``, the reference's default dtype, trained as phase 5
+    trains (:func:`train_llama`) for TRAIN_F32_STEPS steps, with the
+    float32 gates (:func:`f32_grad_gate`: the step-1 loss rtol 1e-5 and
+    every gradient within F32_GRAD_TOL of its tensor's largest element,
+    against the plain path on the card); K2 = 2 x TRAIN_ACCUM x 18, K5 =
+    K6 = TRAIN_ACCUM x 18 launches a step, every one at float32 head_dim
+    256; the ``/f32`` K2, K5 and K6 entries take its launches."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(**dict(GEMMA2B_WIDTHS, dtype="float32"),
+                      recompute=True)
+    check(cfg.head_dim == 256 and cfg.dtype == "float32",
+          f"training_f32_d256 is {cfg.dtype} at head_dim {cfg.head_dim}")
+    train_llama(torch, kernels, cfg, "training_f32_d256",
+                {"card": card, "config": "Llama at Gemma-2B's widths, "
+                 "float32"}, F32_BWD + ("flash_attention_fwd" + F32,),
+                steps=TRAIN_F32_STEPS)
+
 
 # training_f16: Llama-2-7B's float16 widths (LLAMA2_7B) cut in depth only,
 # to 8 of 32 layers: 1.88 B parameters take ~26 GB as float16 weights,
@@ -7010,10 +7264,12 @@ def main(argv=None) -> int:
     for phase in (lambda: phase_serving_f32(torch, kernels, card,
                                             profile=args.profile),
                   lambda: phase_serving_tinyllama(torch, kernels, card),
+                  lambda: phase_serving_f32_tinyllama(torch, kernels, card),
                   lambda: phase_serving_d256(torch, kernels, card),
                   lambda: phase_serving_f16(torch, kernels, card),
                   lambda: phase_training_d256(torch, kernels, card),
                   lambda: phase_training_f16(torch, kernels, card),
+                  lambda: phase_training_f32_d256(torch, kernels, card),
                   lambda: phase_dit(torch, kernels, card,
                                     profile=args.profile),
                   lambda: phase_dit_train(torch, kernels, card,

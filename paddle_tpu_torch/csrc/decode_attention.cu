@@ -32,17 +32,25 @@
 //     (paddle_tpu/ops/ring_attention.py::merge_attention), in split order.
 //
 // The CUDA-core body (decode_attention_kernel: the float32 builds of every
-// entry, at head_dim 16 -- the tiny test models -- and 128 -- the
-// reference's float32 default configurations, LlamaConfig() and the
-// Qwen2-VL decoder): 4 query rows a CTA; each of its 4 warps walks its own
-// 8-key blocks (interleaved with the other warps) with its own online
-// softmax and no barrier: lane l holds head-dim elements [l*EPL, l*EPL +
-// EPL) of the queries, the accumulator and the keys' K/V rows (D 16: EPL
-// 1, lanes 16..31 idle; D 128: EPL 4, one 16-byte float4 -- or 4 int8 --
-// load a lane a key row); the 8 keys' dot products are summed across lanes
-// by a transpose-reduce; the warps merge once at the end, through 4 x 4 x
-// D floats of shared memory (8 KB at D 128); decode_attention_combine (D
-// threads) merges the splits.  Float32 math throughout: no tensor core
+// entry, at any head_dim D <= 256 with D % 8 == 0 -- the tiny test models'
+// 16, TinyLlama's 64, the reference's float32 default configurations' 128
+// (LlamaConfig() and the Qwen2-VL decoder), a Gemma-2B-wide Llama's 256):
+// 4 query rows a CTA; each of its 4 warps walks its own KPI-key blocks
+// (interleaved with the other warps) with its own online softmax and no
+// barrier: lane l holds head-dim elements [l*EPL, l*EPL + EPL) of the
+// queries, the accumulator and the keys' K/V rows, and a lane whose
+// elements lie at or past D loads nothing and holds zeros (D is a runtime
+// argument; D % 8 == 0 and EPL <= 8, so a lane's elements lie wholly
+// below D or wholly past it).  Four instances a layout, by the D they
+// cover: EPL 1 (D <= 32; D 16: lanes 16..31 idle), 2 (D <= 64), 4 (D <=
+// 128) and 8 (D <= 256, 4 keys a block: 8 would hold 2 x 8 x 8 K / V
+// floats a lane beside 4 rows of 8 accumulators; 2 over the int8 cache,
+// which spilled at 4, 168 registers), each lane's elements one
+// vector load a key row (float2 / float4 / two float4; int8 char2 / char4
+// / two char4); the KPI keys' dot products are summed across lanes by a
+// transpose-reduce; the warps merge once at the end, through 4 x 4 x 32 *
+// EPL floats of shared memory (16 KB at EPL 8); decode_attention_combine
+// (D threads) merges the splits.  Float32 math throughout: no tensor core
 // keeps float32 numerics.
 //
 // The Hopper body (decode_mma_kernel<INT8, PAGED, PAD, PD>: K1, K1-int8,
@@ -147,9 +155,11 @@ __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
 }
 
-// EPL consecutive elements of a K / V / q row as floats: one 16-byte (or,
-// int8, 4-byte) load at EPL 4 (lane offsets are multiples of 4 elements and
-// the rows 16-byte aligned), element by element otherwise
+// EPL consecutive elements of a K / V / q row as floats: one vector load at
+// EPL 2, 4 and 8 (a lane's offset is a multiple of EPL elements, D a
+// multiple of 8 and the rows 16-byte aligned, so the load is aligned to
+// its width: float2 / float4 / two float4, int8 char2 / char4 / two
+// char4), element by element at EPL 1
 template <int EPL, typename X>
 __device__ __forceinline__ void load_row(const X* __restrict__ p,
                                          float (&dst)[EPL]) {
@@ -159,6 +169,21 @@ __device__ __forceinline__ void load_row(const X* __restrict__ p,
   } else if constexpr (EPL == 4 && std::is_same<X, int8_t>::value) {
     const char4 t = *reinterpret_cast<const char4*>(p);
     dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else if constexpr (EPL == 2 && std::is_same<X, float>::value) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    dst[0] = t.x; dst[1] = t.y;
+  } else if constexpr (EPL == 2 && std::is_same<X, int8_t>::value) {
+    const char2 t = *reinterpret_cast<const char2*>(p);
+    dst[0] = t.x; dst[1] = t.y;
+  } else if constexpr (EPL == 8) {
+    float lo[4], hi[4];
+    load_row<4>(p, lo);
+    load_row<4>(p + 4, hi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dst[e] = lo[e];
+      dst[4 + e] = hi[e];
+    }
   } else {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) dst[e] = to_float(p[e]);
@@ -166,10 +191,9 @@ __device__ __forceinline__ void load_row(const X* __restrict__ p,
 }
 
 // grid (B * Hkv, ceil(S*G / kRows), nsplit), block kThreads.
-// Lane l of a warp owns head-dim elements [l*EPL, l*EPL + EPL) (D = 32*EPL,
-// or D = 16 with EPL = 1 and lanes 16..31 idle).  Built for float32 at
-// D = 16 (EPL 1) and D = 128 (EPL 4): the bf16 builds run
-// decode_mma_kernel.  Each warp walks
+// Lane l of a warp owns head-dim elements [l*EPL, l*EPL + EPL), those at or
+// past D none (D <= 32 * EPL).  Built for float32 at EPL 1, 2, 4 and 8
+// (f32_launch): the 16-bit builds run decode_mma_kernel.  Each warp walks
 // blocks of KPI keys of the split, interleaved with the other warps,
 // keeping its own online-softmax state; the warps merge once at the end.
 // PAGED selects the K/V addressing: false = contiguous (table, max_blocks
@@ -1066,8 +1090,9 @@ cudaError_t mma_ctas_per_sm(int* n) {
       Mma<INT8, PD>::kSmem);
 }
 
-// the head dims the Hopper body takes: D <= kPDWide, D % 8 == 0
-bool mma_head_dim(int D) { return D >= 8 && D <= kPDWide && D % 8 == 0; }
+// the head dims every build takes, the Hopper body's and the float32
+// CUDA-core body's: D <= kPDWide, D % 8 == 0
+bool head_dim_built(int D) { return D >= 8 && D <= kPDWide && D % 8 == 0; }
 
 // one instance of the Hopper kernel, one launch
 template <bool INT8, bool PAGED, bool PAD, int PD>
@@ -1138,16 +1163,39 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
+// the float32 CUDA-core instance of head dim D (any D <= 256 with D % 8 ==
+// 0): the least EPL with 32 * EPL >= D, 8 keys a block (at EPL 8: 4, and
+// 2 over the int8 cache, whose scales and conversions spilled at 4)
+template <bool PAGED, typename KV = float>
+cudaError_t f32_launch(const void* q, const void* k, const void* v,
+                       const int* pos, void* out, float* part_o,
+                       float* part_ml, int B, int S, int Hq, int Hkv, int D,
+                       int L, int limit, int split_len, int nsplit,
+                       float scale, cudaStream_t st,
+                       const int* table = nullptr, int max_blocks = 0,
+                       int block_len = 0, const float* k_scale = nullptr,
+                       const float* v_scale = nullptr, int n_gran = 0,
+                       int gran_len = 0) {
+  const auto fn = D <= 32    ? launch<float, 1, 8, PAGED, KV>
+                  : D <= 64  ? launch<float, 2, 8, PAGED, KV>
+                  : D <= 128 ? launch<float, 4, 8, PAGED, KV>
+                  : std::is_same<KV, int8_t>::value
+                      ? launch<float, 8, 2, PAGED, KV>
+                      : launch<float, 8, 4, PAGED, KV>;
+  return fn(q, k, v, pos, out, part_o, part_ml, B, S, Hq, Hkv, D, L, limit,
+            split_len, nsplit, scale, st, table, max_blocks, block_len,
+            k_scale, v_scale, n_gran, gran_len);
+}
+
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float32, 2 = float16.  The default library is
-// built for bfloat16 at any D <= 256 with D % 8 == 0 (the serving path:
-// decode_mma_kernel) and float32 at D = 16 (the tiny test models) and 128
-// (the reference's float32 default configurations: the CUDA-core kernel);
-// the library compiled with -DPTT_F16 for float16 alone, at the bfloat16
-// head dims (the same body over float16).  Those are the cases
-// chip_smoke.py checks on the card; any other pair returns
-// cudaErrorInvalidValue, as does a split_len that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
+// built for bfloat16 (the Hopper kernel, decode_mma_kernel) and float32
+// (the CUDA-core kernel) at any D <= 256 with D % 8 == 0 (head_dim_built);
+// the library compiled with -DPTT_F16 for float16 alone, at the same head
+// dims (the Hopper body over float16).  Those are the cases chip_smoke.py
+// checks on the card; any other pair returns cudaErrorInvalidValue, as
+// does a split_len that is not a multiple of 8.  q, k, v 16-byte aligned.  part_o /
 // part_ml are float32 scratch of (B*Hkv, nsplit, S*G, D) and (B*Hkv,
 // nsplit, S*G, 2), unused when nsplit == 1.  counters (16-bit q only; the
 // float32 build ignores it) is an int32 array of B * Hkv * ceil(S * G /
@@ -1167,18 +1215,15 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (Hkv < 1 || Hq % Hkv != 0 || L < 1 || split_len % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (dtype == kE16Code && mma_head_dim(D))
+  if (dtype == kE16Code && head_dim_built(D))
     e = launch_mma<false, false>(q, k, v, p, nullptr, out, po, pml,
                                  static_cast<int*>(counters), B, S, Hq, Hkv,
                                  D, 1, L, limit, split_len, nsplit, scale,
                                  nullptr, nullptr, st);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch<float, 1, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
-                                   D, L, limit, split_len, nsplit, scale, st);
-  else if (dtype == 1 && D == 128)
-    e = launch<float, 4, 8, false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
-                                   D, L, limit, split_len, nsplit, scale, st);
+  else if (dtype == 1 && head_dim_built(D))
+    e = f32_launch<false>(q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L,
+                          limit, split_len, nsplit, scale, st);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1211,20 +1256,16 @@ extern "C" int decode_attention_paged(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = max_blocks * block_len;
   cudaError_t e;
-  if (dtype == kE16Code && mma_head_dim(D))
+  if (dtype == kE16Code && head_dim_built(D))
     e = launch_mma<false, true>(q, k, v, p, t, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
                                 D, max_blocks, block_len, limit, split_len,
                                 nsplit, scale, nullptr, nullptr, st);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch<float, 1, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
-                                  D, L, limit, split_len, nsplit, scale, st,
-                                  t, max_blocks, block_len);
-  else if (dtype == 1 && D == 128)
-    e = launch<float, 4, 8, true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv,
-                                  D, L, limit, split_len, nsplit, scale, st,
-                                  t, max_blocks, block_len);
+  else if (dtype == 1 && head_dim_built(D))
+    e = f32_launch<true>(q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L,
+                         limit, split_len, nsplit, scale, st, t, max_blocks,
+                         block_len);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1256,20 +1297,16 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const int gran_len = L / n_gran;
   cudaError_t e;
-  if (dtype == kE16Code && mma_head_dim(D))
+  if (dtype == kE16Code && head_dim_built(D))
     e = launch_mma<true, false>(q, k, v, p, nullptr, out, po, pml,
                                 static_cast<int*>(counters), B, S, Hq, Hkv,
                                 D, n_gran, gran_len, limit, split_len, nsplit,
                                 scale, ks, vs, st);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch<float, 1, 8, false, int8_t>(
-        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
-        nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
-  else if (dtype == 1 && D == 128)
-    e = launch<float, 4, 8, false, int8_t>(
-        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
-        nsplit, scale, st, nullptr, 0, 0, ks, vs, n_gran, gran_len);
+  else if (dtype == 1 && head_dim_built(D))
+    e = f32_launch<false, int8_t>(q, k, v, p, out, po, pml, B, S, Hq, Hkv, D,
+                                  L, limit, split_len, nsplit, scale, st,
+                                  nullptr, 0, 0, ks, vs, n_gran, gran_len);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1298,20 +1335,16 @@ extern "C" int decode_attention_paged_int8(
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = max_blocks * block_len;
   cudaError_t e;
-  if (dtype == kE16Code && mma_head_dim(D))
+  if (dtype == kE16Code && head_dim_built(D))
     e = launch_mma<true, true>(q, k, v, p, t, out, po, pml,
                                static_cast<int*>(counters), B, S, Hq, Hkv,
                                D, max_blocks, block_len, limit, split_len,
                                nsplit, scale, ks, vs, st);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch<float, 1, 8, true, int8_t>(
-        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
-        nsplit, scale, st, t, max_blocks, block_len, ks, vs);
-  else if (dtype == 1 && D == 128)
-    e = launch<float, 4, 8, true, int8_t>(
-        q, k, v, p, out, po, pml, B, S, Hq, Hkv, D, L, limit, split_len,
-        nsplit, scale, st, t, max_blocks, block_len, ks, vs);
+  else if (dtype == 1 && head_dim_built(D))
+    e = f32_launch<true, int8_t>(q, k, v, p, out, po, pml, B, S, Hq, Hkv, D,
+                                 L, limit, split_len, nsplit, scale, st, t,
+                                 max_blocks, block_len, ks, vs);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1325,7 +1358,7 @@ extern "C" int decode_attention_paged_int8(
 // for a head_dim it does not take)
 template <bool INT8, bool PAGED>
 cudaError_t ctas_per_sm(int D, int* n) {
-  if (!mma_head_dim(D)) return cudaErrorInvalidValue;
+  if (!head_dim_built(D)) return cudaErrorInvalidValue;
   return D == kPD        ? mma_ctas_per_sm<INT8, PAGED, false, kPD>(n)
          : D < kPD       ? mma_ctas_per_sm<INT8, PAGED, true, kPD>(n)
          : D == kPDWide  ? mma_ctas_per_sm<INT8, PAGED, false, kPDWide>(n)

@@ -122,17 +122,24 @@
 //     the loop's back edge); K6 retires its products every tile already.
 //     K6 on 256-wide tiles keeps its dK warpgroup's units in shared
 //     memory (in registers they spilled 4 bytes with ids).
-//   * float32 at D = 16 (the tiny model), 64 and 72 (float32 DiTs): two
-//     CUDA-core kernels of one thread per query row (K5) or key row (K6);
-//     wgmma has no float32 input that keeps float32 numerics.  A thread's
-//     rows are D-float register arrays (3 D in K5, 4 D in K6), so the
-//     wider instances keep part of them in local memory.
-//   * float32 at D = 128 (the reference's float32 default configurations:
-//     LlamaConfig(), Qwen2-VL's decoder and cross layers): the same two
-//     walks with each row split over a quad of threads (D / 4 columns a
-//     thread, dot products summed by two shuffles) and the tiles in
-//     dynamic shared memory (bwd_dq_f32_split_kernel /
-//     bwd_dkv_f32_split_kernel, below), so nothing spills.
+//   * float32 at any D <= 256 with D % 8 == 0, on the CUDA cores (wgmma
+//     has no float32 input that keeps float32 numerics):
+//       - D = 16 (the tiny model), 64 and 72 (float32 DiTs): two kernels
+//         of one thread per query row (K5) or key row (K6).  A thread's
+//         rows are D-float register arrays (3 D in K5, 4 D in K6), so the
+//         wider instances keep part of them in local memory.
+//       - D = 128 (the reference's float32 default configurations:
+//         LlamaConfig(), Qwen2-VL's decoder and cross layers): the same
+//         two walks with each row split over a quad of threads (D / 4
+//         columns a thread, dot products summed by two shuffles) and the
+//         tiles in dynamic shared memory (bwd_dq_f32_split_kernel /
+//         bwd_dkv_f32_split_kernel, below), so nothing spills.
+//       - every other D (a Gemma-2B-wide Llama's 256 among them): that
+//         split body at a runtime D
+//         (bwd_dq_f32_rt_kernel / bwd_dkv_f32_rt_kernel), a quad a row up
+//         to D 128 and an octet (D / 8 columns a thread, three shuffles,
+//         32 rows a CTA) above, so that a thread holds at most 8 float4
+//         chunks of a row.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -351,6 +358,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+__device__ __forceinline__ void add4(float4 x, float4& acc) {
+  acc.x += x.x;
+  acc.y += x.y;
+  acc.z += x.z;
+  acc.w += x.w;
+}
+
 __device__ __forceinline__ void axpy4(float s, float4 x, float4& acc) {
   acc.x = fmaf(s, x.x, acc.x);
   acc.y = fmaf(s, x.y, acc.y);
@@ -558,6 +572,271 @@ bwd_dkv_f32_split_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 at every other D <= 256 with D % 8 == 0: the split body at a
+// runtime D
+// ---------------------------------------------------------------------------
+// The same two walks with D an argument and a row split over T threads (a
+// group: lanes T r..T r + T - 1 of a warp): thread g owns the float4 chunks
+// c = g + T e (e < C) with c < D / 4, every chunk of a row one owner (D is
+// a multiple of 8, so a chunk lies wholly below D); a thread's registers
+// hold C chunks, those past D zero and never read or written.  A dot
+// product is summed over the group by log2(T) xor shuffles (1, 2, 4),
+// whose sums are the same bits on every thread of the group: each step
+// adds the same two floats on both partners, in either order, and float
+// addition commutes.  T = 4 (a quad, C = 8: D <= 128, 64 rows a CTA) as
+// the D 128 instance above; T = 8 above D 128 (C = 8: D <= 256), where a
+// quad would hold 3 D / 4 (K5) or 4 D / 4 (K6) floats a thread, 192 / 256
+// at D 256: an octet holds 96 / 128, and a CTA of kSplitThreads owns 32
+// rows.  The staged tiles are 64 x D floats with rows D floats apart (2 x
+// 64 KB at D 256, opted in past 48 KB).  K6 sums each 64-query tile's
+// terms apart and adds the tile's sum to dk / dv, as the reference adds
+// each block's dot (flash_attention.py:336-341).  One register a column
+// summed over G x Sq terms in turn (16384 at B 4 x 2048, G 8), as the
+// constant-D instances above sum, lies 2.0-6.5e-5 from the float64 plain
+// version at B 4 x 2048 causal and B 2 x 2048 packed, past the 1e-5 bar;
+// the tile sums lie 3.3-8.8e-6 from it, the float32 plain version
+// 0.65-3.0e-5 (chip_f32_bwd_accuracy.py on an H100).
+template <int T>
+struct Group {
+  static_assert(T == 4 || T == 8, "a row is split over 4 or 8 threads");
+  static constexpr int kRows = kSplitThreads / T;   // rows a CTA
+  // the group's lanes in the warp's mask
+  static __device__ __forceinline__ unsigned mask(int tid) {
+    return ((1u << T) - 1) << (tid & (32 - T));
+  }
+  // the group's sum of a thread's partial: the same bits on its T threads
+  static __device__ __forceinline__ float sum(unsigned m, float x) {
+#pragma unroll
+    for (int o = 1; o < T; o <<= 1) x += __shfl_xor_sync(m, x, o);
+    return x;
+  }
+};
+
+// stage_rows at a runtime D (rows D floats apart)
+__device__ __forceinline__ void stage_rows_rt(const float* __restrict__ src,
+                                              float* dst, int b, int r0,
+                                              int n, int H, int h, int D,
+                                              int tid) {
+  const int c4 = D / 4;
+  for (int idx = tid; idx < kTile * c4; idx += kSplitThreads) {
+    const int r = idx / c4, c = idx - r * c4, gr = r0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr < n)
+      x = __ldg(reinterpret_cast<const float4*>(
+          src + (((size_t)b * n + gr) * H + h) * D) + c);
+    reinterpret_cast<float4*>(dst)[idx] = x;
+  }
+}
+
+// K5 f32 at a runtime D: group = query row; K / V tiles of 64 keys in
+// shared memory.
+template <int T, int C>
+__global__ void __launch_bounds__(kSplitThreads)
+bwd_dq_f32_rt_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_kv, float* __restrict__ dq,
+                     int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                     int causal) {
+  using Grp = Group<T>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                                     // [kTile][D]
+  float* Vs = Ks + kTile * D;                          // [kTile][D]
+  int* Ss = reinterpret_cast<int*>(Vs + kTile * D);    // [kTile]
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, g = tid & (T - 1);
+  const unsigned grp = Grp::mask(tid);
+  const int q0 = blockIdx.x * Grp::kRows, i = q0 + tid / T;
+  const int offset = Skv - Sq, nc = D / 4;
+  const bool live = i < Sq;
+  float4 qr[C], dor[C], acc[C];
+  float l = 0.f, dl = 0.f;
+  int sq = 0;
+#pragma unroll
+  for (int e = 0; e < C; ++e)
+    qr[e] = dor[e] = acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const size_t row = (((size_t)b * Sq + i) * Hq + h) * D;
+    const float4* qp = reinterpret_cast<const float4*>(q + row);
+    const float4* op = reinterpret_cast<const float4*>(dout + row);
+#pragma unroll
+    for (int e = 0; e < C; ++e) {
+      if (g + T * e < nc) {
+        qr[e] = __ldg(qp + g + T * e);
+        dor[e] = __ldg(op + g + T * e);
+      }
+    }
+    l = lse[((size_t)b * Hq + h) * Sq + i];
+    dl = delta[((size_t)b * Hq + h) * Sq + i];
+    if (seg_q != nullptr) sq = seg_q[(size_t)b * Sq + i];
+  }
+  const int q_last = min(Sq, q0 + Grp::kRows) - 1;
+  const int kv_hi = causal ? min(Skv, q_last + offset + 1) : Skv;
+  for (int kv0 = 0; kv0 < kv_hi; kv0 += kTile) {
+    __syncthreads();   // the previous tile's readers are done
+    stage_rows_rt(k, Ks, b, kv0, Skv, Hkv, hk, D, tid);
+    stage_rows_rt(v, Vs, b, kv0, Skv, Hkv, hk, D, tid);
+    if (seg_q != nullptr && tid < kTile)
+      Ss[tid] = kv0 + tid < Skv ? seg_kv[(size_t)b * Skv + kv0 + tid] : 0;
+    __syncthreads();
+    if (!live) continue;   // the group's row: uniform across the group
+    const int jn = min(kTile, kv_hi - kv0);
+    for (int j = 0; j < jn; ++j) {
+      const int kc = kv0 + j;
+      bool keep = !causal || kc <= i + offset;
+      if (seg_q != nullptr) keep = keep && Ss[j] == sq;
+      if (!keep) continue;
+      const float4* kj = reinterpret_cast<const float4*>(Ks + j * D);
+      const float4* vj = reinterpret_cast<const float4*>(Vs + j * D);
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
+        if (g + T * e < nc) {
+          s = dot4(qr[e], kj[g + T * e], s);
+          dp = dot4(dor[e], vj[g + T * e], dp);
+        }
+      }
+      s = Grp::sum(grp, s);
+      dp = Grp::sum(grp, dp);
+      const float p = expf(s * scale - l);
+      const float ds = p * (dp - dl) * scale;
+#pragma unroll
+      for (int e = 0; e < C; ++e)
+        if (g + T * e < nc) axpy4(ds, kj[g + T * e], acc[e]);
+    }
+  }
+  if (live) {
+    float4* o = reinterpret_cast<float4*>(dq + (((size_t)b * Sq + i) * Hq +
+                                                h) * D);
+#pragma unroll
+    for (int e = 0; e < C; ++e)
+      if (g + T * e < nc) o[g + T * e] = acc[e];
+  }
+}
+
+// K6 f32 at a runtime D: group = key row; it walks the G q heads of its KV
+// head and the 64-query tiles that see any of the CTA's keys, dk / dv
+// summed over the group in float32 registers.
+template <int T, int C>
+__global__ void __launch_bounds__(kSplitThreads)
+bwd_dkv_f32_rt_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_kv,
+                      float* __restrict__ dk, float* __restrict__ dv, int Sq,
+                      int Skv, int Hq, int Hkv, int D, float scale,
+                      int causal) {
+  using Grp = Group<T>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                                     // [kTile][D]
+  float* Os = Qs + kTile * D;                          // [kTile][D]
+  float* Ls = Os + kTile * D;                          // [kTile]
+  float* Ds = Ls + kTile;                              // [kTile]
+  int* Ss = reinterpret_cast<int*>(Ds + kTile);        // [kTile]
+  const int hk = blockIdx.y, b = blockIdx.z, G = Hq / Hkv;
+  const int tid = threadIdx.x, g = tid & (T - 1);
+  const unsigned grp = Grp::mask(tid);
+  const int kv0 = blockIdx.x * Grp::kRows, j = kv0 + tid / T;
+  const int offset = Skv - Sq, nc = D / 4;
+  const bool live = j < Skv;
+  float4 kr[C], vr[C], dka[C], dva[C];
+  int sk = 0;
+#pragma unroll
+  for (int e = 0; e < C; ++e)
+    kr[e] = vr[e] = dka[e] = dva[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live) {
+    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
+    const float4* kp = reinterpret_cast<const float4*>(k + row);
+    const float4* vp = reinterpret_cast<const float4*>(v + row);
+#pragma unroll
+    for (int e = 0; e < C; ++e) {
+      if (g + T * e < nc) {
+        kr[e] = __ldg(kp + g + T * e);
+        vr[e] = __ldg(vp + g + T * e);
+      }
+    }
+    if (seg_q != nullptr) sk = seg_kv[(size_t)b * Skv + j];
+  }
+  // queries i >= key - offset see the key: the first tile that can
+  int q_lo = causal ? max(0, kv0 - offset) : 0;
+  q_lo -= q_lo % kTile;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = hk * G + gi;
+    for (int q0 = q_lo; q0 < Sq; q0 += kTile) {
+      __syncthreads();   // the previous tile's readers are done
+      stage_rows_rt(q, Qs, b, q0, Sq, Hq, h, D, tid);
+      stage_rows_rt(dout, Os, b, q0, Sq, Hq, h, D, tid);
+      if (tid < kTile) {
+        const int qi = q0 + tid;
+        const size_t lr = ((size_t)b * Hq + h) * Sq + qi;
+        Ls[tid] = qi < Sq ? lse[lr] : 0.f;
+        Ds[tid] = qi < Sq ? delta[lr] : 0.f;
+        if (seg_q != nullptr)
+          Ss[tid] = qi < Sq ? seg_q[(size_t)b * Sq + qi] : 0;
+      }
+      __syncthreads();
+      if (!live) continue;   // the group's row: uniform across the group
+      // the tile's sums, added to dk / dv once the tile is walked
+      float4 tk[C], tv[C];
+#pragma unroll
+      for (int e = 0; e < C; ++e)
+        tk[e] = tv[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int in = min(kTile, Sq - q0);
+      for (int r = 0; r < in; ++r) {
+        bool keep = !causal || j <= q0 + r + offset;
+        if (seg_q != nullptr) keep = keep && Ss[r] == sk;
+        if (!keep) continue;
+        const float4* qrow = reinterpret_cast<const float4*>(Qs + r * D);
+        const float4* orow = reinterpret_cast<const float4*>(Os + r * D);
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          if (g + T * e < nc) {
+            s = dot4(qrow[g + T * e], kr[e], s);
+            dp = dot4(orow[g + T * e], vr[e], dp);
+          }
+        }
+        s = Grp::sum(grp, s);
+        dp = Grp::sum(grp, dp);
+        const float p = expf(s * scale - Ls[r]);
+        const float ds = p * (dp - Ds[r]) * scale;
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          if (g + T * e < nc) {
+            axpy4(p, orow[g + T * e], tv[e]);
+            axpy4(ds, qrow[g + T * e], tk[e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
+        add4(tk[e], dka[e]);
+        add4(tv[e], dva[e]);
+      }
+    }
+  }
+  if (live) {
+    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
+    float4* kp = reinterpret_cast<float4*>(dk + row);
+    float4* vp = reinterpret_cast<float4*>(dv + row);
+#pragma unroll
+    for (int e = 0; e < C; ++e) {
+      if (g + T * e < nc) {
+        kp[g + T * e] = dka[e];
+        vp[g + T * e] = dva[e];
+      }
+    }
+  }
+}
 // ---------------------------------------------------------------------------
 // Hopper path: bfloat16, D <= 128 on 128-wide tiles (see the note at the top;
 // 128 < D <= 256: the 256-wide kernels further down)
@@ -1979,14 +2258,63 @@ cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
   return cudaSuccess;
 }
 
+#ifndef PTT_F16
+// the runtime-D split kernels' shared memory at head dim D
+int split_rt_smem(int D) { return (2 * kTile * D + 3 * kTile) * 4; }
+
+// K5 at a float32 head dim D its constant-D instances leave out: a quad a
+// row up to D 128, an octet above
+cudaError_t launch_dq_f32_rt(const float* q, const float* k, const float* v,
+                             const float* dout, const float* lse,
+                             const float* delta, const int* seg_q,
+                             const int* seg_kv, float* dq, int B, int Sq,
+                             int Skv, int Hq, int Hkv, int D, float scale,
+                             int causal, cudaStream_t st) {
+  const bool wide = D > 128;
+  const auto kernel = wide ? bwd_dq_f32_rt_kernel<8, 8>
+                           : bwd_dq_f32_rt_kernel<4, 8>;
+  const int rows = wide ? Group<8>::kRows : Group<4>::kRows;
+  const int smem = split_rt_smem(D);
+  const cudaError_t e = split_attributes(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + rows - 1) / rows, Hq, B);
+  kernel<<<grid, kSplitThreads, smem, st>>>(q, k, v, dout, lse, delta, seg_q,
+                                            seg_kv, dq, Sq, Skv, Hq, Hkv, D,
+                                            scale, causal);
+  return cudaSuccess;
+}
+
+// K6 likewise
+cudaError_t launch_dkv_f32_rt(const float* q, const float* k, const float* v,
+                              const float* dout, const float* lse,
+                              const float* delta, const int* seg_q,
+                              const int* seg_kv, float* dk, float* dv, int B,
+                              int Sq, int Skv, int Hq, int Hkv, int D,
+                              float scale, int causal, cudaStream_t st) {
+  const bool wide = D > 128;
+  const auto kernel = wide ? bwd_dkv_f32_rt_kernel<8, 8>
+                           : bwd_dkv_f32_rt_kernel<4, 8>;
+  const int rows = wide ? Group<8>::kRows : Group<4>::kRows;
+  const int smem = split_rt_smem(D);
+  const cudaError_t e = split_attributes(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Skv + rows - 1) / rows, Hkv, B);
+  kernel<<<grid, kSplitThreads, smem, st>>>(q, k, v, dout, lse, delta, seg_q,
+                                            seg_kv, dk, dv, Sq, Skv, Hq, Hkv,
+                                            D, scale, causal);
+  return cudaSuccess;
+}
+#endif
+
 }  // namespace
 
 // K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: the library's 16-bit code
 // (kE16Code: 0 = bfloat16, or 2 = float16 in the library compiled with
 // -DPTT_F16; any D <= 256 with D % 8 == 0: the Hopper kernels, 128-wide
-// tiles up to 128, 256-wide above), 1 = float32 (D = 16, 64 or 72: one
-// thread a row; D = 128: a quad a row; CUDA cores; not in the float16
-// library): K2's head dims.  Any other pair, or only one of seg_q /
+// tiles up to 128, 256-wide above), 1 = float32 (the same head dims on
+// the CUDA cores: D = 16, 64 or 72 one thread a row, D = 128 a quad a row,
+// any other D a quad (D <= 128) or an octet a row at a runtime D; not in
+// the float16 library): K2's head dims.  Any other pair, or only one of seg_q /
 // seg_kv, returns cudaErrorInvalidValue.  Tensors contiguous and 16-byte
 // aligned (seg_q / seg_kv too).  With segment ids the 16-bit build also
 // takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B, ceil(Skv / 64), 2):
@@ -2048,6 +2376,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   else if (dtype == 1 && D == 128)
     e = launch_dq_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq,
                                  Skv, Hq, Hkv, scale, causal, st);
+  else if (dtype == 1 && (wgmma_head_dim(D) || wide_head_dim(D)))
+    e = launch_dq_f32_rt(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
+                         Hkv, D, scale, causal, st);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -2117,6 +2448,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   else if (dtype == 1 && D == 128)
     e = launch_dkv_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv,
                                   B, Sq, Skv, Hq, Hkv, scale, causal, st);
+  else if (dtype == 1 && (wgmma_head_dim(D) || wide_head_dim(D)))
+    e = launch_dkv_f32_rt(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
+                          Skv, Hq, Hkv, D, scale, causal, st);
 #endif
   else
     e = cudaErrorInvalidValue;

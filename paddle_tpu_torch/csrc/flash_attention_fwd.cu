@@ -47,17 +47,21 @@
 //     the heaviest q tiles first, and with segment ids every key tile
 //     whose id range misses the q tile's skipped (see its notes).  Paged,
 //     it takes block_len % 64 == 0;
-//   * float32 at D = 16 (the tiny test models) and 128 (the reference's
-//     float32 default configurations: LlamaConfig(), the Qwen2-VL
-//     decoder), contiguous or paged (any block_len, the table looked up
-//     per key, int8 dequantized per key), and contiguous at D = 64 and 72
-//     (float32 DiTs, the Qwen2-VL tower): products on the CUDA cores --
-//     each thread owns a 4x4 tile of scores (rows tr*4.., keys tc*4..) and
-//     4 rows x (D/16) output elements, fed by 16-byte shared-memory reads
-//     of transposed Q and K tiles; the K tile's shared memory is reused
-//     for the probabilities (26 KB at D = 16, 58 KB at 72, 100 KB at 128:
-//     two CTAs an SM still fit).  wgmma has no float32 input that keeps
-//     float32 numerics, so it stays here.
+//   * float32 at any D <= 256 with D % 8 == 0 (the tiny test models' 16,
+//     float32 DiTs' 72 and the Qwen2-VL tower's 64, the reference's
+//     float32 default configurations' 128 -- LlamaConfig(), the Qwen2-VL
+//     decoder -- TinyLlama's 64, a Gemma-2B-wide Llama's 256), contiguous
+//     or paged (any block_len, the table looked up per key, int8
+//     dequantized per key): products on the CUDA cores -- each thread owns
+//     a 4x4 tile of scores (rows tr*4.., keys tc*4..) and 4 rows x (D/16)
+//     output elements, fed by 16-byte shared-memory reads of transposed Q
+//     and K tiles; the K tile's shared memory is reused for the
+//     probabilities (26 KB at D = 16, 58 KB at 72, 100 KB at 128: two CTAs
+//     an SM still fit; 204.8 KB at 256, one).  D 16, 64, 72 and 128 have
+//     instances of constant D (flash_attention_fwd_kernel), every other D
+//     the same body at a runtime D in two width classes
+//     (flash_attention_fwd_rt_kernel: D <= 128 and D <= 256).  wgmma has no
+//     float32 input that keeps float32 numerics, so it stays here.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -299,6 +303,242 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<float*>(out), lse, Sq, Skv,
       Hq, Hkv, scale, causal, pos, table, max_blocks, block_len, k_scale,
+      v_scale, seg_q, seg_kv);
+  return cudaSuccess;
+}
+
+// float32 at a runtime head dim D (D % 8 == 0, D <= W): the body above with
+// D an argument, for every D its constant-D instances (16, 64, 72, 128)
+// leave out.  W, the output slabs a thread owns (NQ = W / 64, slabs past D
+// neither accumulated nor stored), is 128 (D <= 128; two CTAs an SM, as
+// the constant-D instances) or 256 (D <= 256: 64 accumulators a thread
+// pass the 128 registers two CTAs allow, and the shared memory, D * 68 * 2
+// + 64 * D floats, 204.8 KB at D 256, holds one CTA an SM above D 160
+// anyway).  The Q.K^T loop runs over D, the tiles are sized by D (a
+// launch's dynamic shared memory follows it), so nothing is computed or
+// stored past D.
+template <int W, bool PAGED, typename KV = float, bool SEG = false>
+__global__ void __launch_bounds__(kThreads, W > 128 ? 1 : 2)
+flash_attention_fwd_rt_kernel(const float* __restrict__ q,
+                              const KV* __restrict__ k,
+                              const KV* __restrict__ v,
+                              float* __restrict__ out,
+                              float* __restrict__ lse, int Sq, int Skv,
+                              int Hq, int Hkv, int D, float scale,
+                              int causal, const int* __restrict__ pos,
+                              const int* __restrict__ table, int max_blocks,
+                              int block_len,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ seg_q,
+                              const int* __restrict__ seg_kv) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  static_assert(!INT8 || PAGED, "the int8 cache is paged only");
+  static_assert(W == 128 || W == 256, "the float32 classes are 128 and 256");
+  constexpr int NQ = W / 64;          // 64-wide output slabs per thread
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  int offset = Skv - Sq, kv_len = Skv;
+  if constexpr (PAGED) {
+    offset = pos[b];
+    kv_len = min(offset + Sq, max_blocks * block_len);
+  }
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;                   // [D][kPQ]  scaled queries, transposed
+  float* KP = Qt + D * kPQ;           // [D][kPK] keys, then [kBK][kPQ] probs
+  float* Vs = KP + (D > kBK ? D : kBK) * kPK;   // [kBK][D]
+
+  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
+    const int r = idx / D, d = idx - r * D;
+    const int qr = q0 + r;
+    Qt[d * kPQ + r] =
+        qr < Sq ? q[(((size_t)b * Sq + qr) * Hq + h) * D + d] * scale : 0.f;
+  }
+
+  float acc[4][NQ][4];
+  float m_i[4], l_i[4];
+  int sq_i[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + tr * 4 + i;
+    sq_i[i] = (SEG && qr < Sq) ? seg_q[(size_t)b * Sq + qr] : 0;
+    m_i[i] = kNegInf;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  }
+
+  const int kv_hi = causal ? min(kv_len, q0 + kBQ + offset) : kv_len;
+  for (int kv0 = 0; kv0 < kv_hi; kv0 += kBK) {
+    __syncthreads();
+    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+      const int c = idx / D, d = idx - c * D;
+      const int kc = kv0 + c;
+      float kx = 0.f, vx = 0.f;
+      if (kc < kv_len) {
+        size_t row = (size_t)b * Skv + kc;
+        int blk = 0;
+        if constexpr (PAGED) {
+          blk = table[(size_t)b * max_blocks + kc / block_len];
+          row = (size_t)blk * block_len + kc % block_len;
+        }
+        const size_t g = (row * Hkv + hk) * D + d;
+        kx = static_cast<float>(k[g]);
+        vx = static_cast<float>(v[g]);
+        if constexpr (INT8) {
+          kx *= k_scale[(size_t)blk * Hkv + hk];
+          vx *= v_scale[(size_t)blk * Hkv + hk];
+        }
+      }
+      KP[d * kPK + c] = kx;
+      Vs[c * D + d] = vx;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += 8) {   // D % 8 == 0
+#pragma unroll
+      for (int d = d0; d < d0 + 8; ++d) {
+        const float4 qa =
+            *reinterpret_cast<const float4*>(&Qt[d * kPQ + tr * 4]);
+        const float4 ka =
+            *reinterpret_cast<const float4*>(&KP[d * kPK + tc * 4]);
+        const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+        const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = q0 + tr * 4 + i;
+      float rmax = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = kv0 + tc * 4 + j;
+        bool keep =
+            qr < Sq && kc < kv_len && (!causal || kc <= qr + offset);
+        if constexpr (SEG)
+          keep = keep && sq_i[i] == seg_kv[(size_t)b * Skv + kc];
+        s[i][j] = keep ? s[i][j] : kNegInf;
+        rmax = fmaxf(rmax, s[i][j]);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
+      const float m_new = fmaxf(m_i[i], rmax);
+      const float alpha = expf(m_i[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
+        rs += s[i][j];
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, o);
+      l_i[i] = l_i[i] * alpha + rs;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha;
+    }
+
+    __syncthreads();
+    float* Pt = KP;    // [kBK][kPQ]
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Pt[(tc * 4 + j) * kPQ + tr * 4 + i] = s[i][j];
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      const float4 pa = *reinterpret_cast<const float4*>(&Pt[c * kPQ + tr * 4]);
+      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int d0 = n * 64 + tc * 4;
+        if (d0 < D) {
+          const float4 va = *reinterpret_cast<const float4*>(&Vs[c * D + d0]);
+          const float vv[4] = {va.x, va.y, va.z, va.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][n][e] = fmaf(pv[i], vv[e], acc[i][n][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + tr * 4 + i;
+    if (qr >= Sq) continue;
+    const float l = l_i[i];
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    float* orow = out + (((size_t)b * Sq + qr) * Hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const int d0 = n * 64 + tc * 4;
+      if (d0 < D) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) orow[d0 + e] = acc[i][n][e] * inv;
+      }
+    }
+    if (!PAGED && tc == 0)
+      lse[((size_t)b * Hq + h) * Sq + qr] = l > 0.f ? m_i[i] + logf(l) : kNegInf;
+  }
+}
+
+// the float32 kernel at head dim D: its constant-D instance at 16, 64, 72
+// and 128, else the runtime-D one of the least class W >= D
+template <bool PAGED, typename KV = float, bool SEG = false>
+cudaError_t launch_f32_at(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int B, int Sq, int Skv,
+                          int Hq, int Hkv, int D, float scale, int causal,
+                          cudaStream_t st, const int* pos = nullptr,
+                          const int* table = nullptr, int max_blocks = 0,
+                          int block_len = 0, const float* k_scale = nullptr,
+                          const float* v_scale = nullptr,
+                          const int* seg_q = nullptr,
+                          const int* seg_kv = nullptr) {
+  if (D == 16 || D == 64 || D == 72 || D == 128) {
+    const auto fn = D == 16   ? launch<16, PAGED, KV, SEG>
+                    : D == 64 ? launch<64, PAGED, KV, SEG>
+                    : D == 72 ? launch<72, PAGED, KV, SEG>
+                              : launch<128, PAGED, KV, SEG>;
+    return fn(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, scale, causal, st,
+              pos, table, max_blocks, block_len, k_scale, v_scale, seg_q,
+              seg_kv);
+  }
+  const auto kernel = D <= 128
+                          ? flash_attention_fwd_rt_kernel<128, PAGED, KV, SEG>
+                          : flash_attention_fwd_rt_kernel<256, PAGED, KV, SEG>;
+  const size_t smem =
+      ((size_t)D * kPQ + (size_t)(D > kBK ? D : kBK) * kPK + (size_t)kBK * D) *
+      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<float*>(out), lse, Sq, Skv, Hq,
+      Hkv, D, scale, causal, pos, table, max_blocks, block_len, k_scale,
       v_scale, seg_q, seg_kv);
   return cudaSuccess;
 }
@@ -1203,26 +1443,31 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+#ifndef PTT_F16
 // the float32 CUDA-core kernel over contiguous K/V at head dim D, with or
 // without segment ids
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+static cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                       float scale, int causal, const int* seg_q,
+                       int D, float scale, int causal, const int* seg_q,
                        const int* seg_kv, cudaStream_t st) {
   if (seg_q != nullptr)
-    return launch<D, false, float, true>(q, k, v, out, lse, B, Sq, Skv, Hq,
-                                         Hkv, scale, causal, st, nullptr,
-                                         nullptr, 0, 0, nullptr, nullptr,
-                                         seg_q, seg_kv);
-  return launch<D, false>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, scale,
-                          causal, st);
+    return launch_f32_at<false, float, true>(
+        q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal, st, nullptr,
+        nullptr, 0, 0, nullptr, nullptr, seg_q, seg_kv);
+  return launch_f32_at<false>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
+                              scale, causal, st);
 }
+
+// the head dims the float32 builds take: D <= 256, D % 8 == 0
+static bool head_dim_built(int D) {
+  return D >= 8 && D <= 256 && D % 8 == 0;
+}
+#endif
 
 // dtype: 0 = bfloat16, 1 = float32, 2 = float16.  The library's 16-bit
 // type (bfloat16; float16 alone in the library compiled with -DPTT_F16) at
 // any D <= 256 with D % 8 == 0 runs the Hopper kernel (q, k, v, out
-// 16-byte aligned), float32 at D = 16, 64, 72 or 128 (the default library)
+// 16-byte aligned), float32 at the same head dims (the default library)
 // the CUDA-core one; any other pair returns cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
 // packed-document ids, or both null; query i sees key j only where
 // seg_q[b, i] == seg_kv[b, j] (and causally).  With ids the 16-bit build
@@ -1266,18 +1511,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     e = launch_wgmma<false, false, false>(q, k, v, out, nullptr, a, 0, scale,
                                           st, D);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch_f32<16>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
-                       sq, skv, st);
-  else if (dtype == 1 && D == 64)
-    e = launch_f32<64>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
-                       sq, skv, st);
-  else if (dtype == 1 && D == 72)
-    e = launch_f32<72>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
-                       sq, skv, st);
-  else if (dtype == 1 && D == 128)
-    e = launch_f32<128>(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, scale, causal,
-                        sq, skv, st);
+  else if (dtype == 1 && head_dim_built(D))
+    e = launch_f32(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, D, scale, causal, sq,
+                   skv, st);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1307,8 +1543,8 @@ static HopperArgs paged_args(const void* pos, const void* table, int B,
 // int32 (B, max_blocks) block table (every entry a valid block id).  Query
 // i of row b sees keys j <= pos[b] + i, j < max_blocks * block_len.
 // The library's 16-bit type at any D <= 256 with D % 8 == 0 (the Hopper
-// kernel) needs block_len % 64 == 0; float32 at D = 16 or 128 takes any block_len >= 1;
-// other cases return cudaErrorInvalidValue.
+// kernel) needs block_len % 64 == 0; float32 at the same head dims takes
+// any block_len >= 1; other cases return cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
                                          const void* v, const void* pos,
                                          const void* table, void* out, int B,
@@ -1329,12 +1565,9 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
         paged_args(pos, table, B, S, Hq, Hkv, max_blocks, block_len),
         num_blocks, scale, st, D);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch<16, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
-                         st, p, t, max_blocks, block_len);
-  else if (dtype == 1 && D == 128)
-    e = launch<128, true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, scale, 1,
-                          st, p, t, max_blocks, block_len);
+  else if (dtype == 1 && head_dim_built(D))
+    e = launch_f32_at<true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, D, scale,
+                            1, st, p, t, max_blocks, block_len);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1345,7 +1578,7 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
 // Paged int8 suffix prefill: as flash_attention_fwd_paged with k, v one
 // layer's int8 (num_blocks, block_len, Hkv, D) pool and k_scale, v_scale
 // float32 (num_blocks, Hkv).  16-bit q at any D <= 256 with D % 8 == 0
-// needs block_len % 64 == 0; float32 q at D = 16 or 128 takes any
+// needs block_len % 64 == 0; float32 q at the same head dims takes any
 // block_len >= 1.
 extern "C" int flash_attention_fwd_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
@@ -1369,14 +1602,10 @@ extern "C" int flash_attention_fwd_paged_int8(
     e = launch_wgmma<false, true, true>(q, k, v, out, nullptr, a, num_blocks,
                                         scale, st, D);
 #ifndef PTT_F16
-  } else if (dtype == 1 && D == 16) {
-    e = launch<16, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
-                                 scale, 1, st, p, t, max_blocks, block_len,
-                                 ks, vs);
-  } else if (dtype == 1 && D == 128) {
-    e = launch<128, true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
-                                  scale, 1, st, p, t, max_blocks, block_len,
-                                  ks, vs);
+  } else if (dtype == 1 && head_dim_built(D)) {
+    e = launch_f32_at<true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
+                                    D, scale, 1, st, p, t, max_blocks,
+                                    block_len, ks, vs);
 #endif
   } else {
     e = cudaErrorInvalidValue;

@@ -142,27 +142,29 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, dlse=None,
     segment ids), so a row with every key masked gets zero gradient;
     ``dS = P * (dP - delta) * scale``.  dk / dv are summed over each GQA
     group in float32 and rounded once (the reference rounds per q head,
-    then sums: equal at float32).  Returns (dq, dk, dv) in the inputs'
-    dtypes."""
+    then sums: equal at float32).  float64 inputs are computed in float64
+    throughout (an exact yardstick for the float32 kernels' long sums).
+    Returns (dq, dk, dv) in the inputs' dtypes."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     if scale is None:
         scale = d ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
     do = do.to(q.dtype)
-    qf = q.float().transpose(1, 2)                     # (B, Hq, Sq, D)
-    kf = _repeat_kv(k, g).float().transpose(1, 2)      # (B, Hq, Skv, D)
-    vf = _repeat_kv(v, g).float().transpose(1, 2)
-    dof = do.float().transpose(1, 2)
+    qf = q.to(acc).transpose(1, 2)                     # (B, Hq, Sq, D)
+    kf = _repeat_kv(k, g).to(acc).transpose(1, 2)      # (B, Hq, Skv, D)
+    vf = _repeat_kv(v, g).to(acc).transpose(1, 2)
+    dof = do.to(acc).transpose(1, 2)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    p = torch.exp(s - lse.float()[..., None])
+    p = torch.exp(s - lse.to(acc)[..., None])
     keep = _keep_mask(sq, skv, causal, segment_ids, kv_segment_ids,
                       q.device)
     if keep is not None:
         p = p.masked_fill(~keep, 0.0)
-    delta = (dof * out.float().transpose(1, 2)).sum(-1)
+    delta = (dof * out.to(acc).transpose(1, 2)).sum(-1)
     if dlse is not None:
-        delta = delta - dlse.float()
+        delta = delta - dlse.to(acc)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)

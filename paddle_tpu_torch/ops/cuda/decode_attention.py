@@ -54,14 +54,15 @@ length is ``max_blocks * block_len`` and each row reads only keys below
 null-filled dead tail is never read; ``block_len`` must be a multiple of 8
 (a slice's two 8-key groups each lie in one block).
 
-The float32 builds — head_dim 16 (the tiny models) and 128 (the
-reference's float32 default configurations, ``LlamaConfig()`` and
-``Qwen2VLConfig()``'s decoder) — keep a CUDA-core body in float32
-throughout: each warp walks its own 8-key blocks with its own online
-softmax (a lane holds D / 32 elements of a row, one 16-byte load at
-head_dim 128), and a second small kernel merges the splits.  Those builds
-— bfloat16 and float16 at every D <= 256 with D % 8 == 0, float32 at 16
-and 128 — are held against the plain version on the card
+The float32 builds — every head_dim D <= 256 with D % 8 == 0, the same
+set (the tiny models' 16, TinyLlama's 64, the reference's float32 default
+configurations' 128, ``LlamaConfig()`` and ``Qwen2VLConfig()``'s decoder, a
+Gemma-2B-wide Llama's 256) — keep a CUDA-core body in float32 throughout:
+each warp walks its own 8-key blocks (4-key above D 128) with its own
+online softmax (a lane holds 1, 2, 4 or 8 elements of a row, the least
+that covers D in 32 lanes, one vector load a key row; lanes past D load
+nothing), and a second small kernel merges the splits.  Every build at
+every dtype is held against the plain version on the card
 (``chip_smoke.py``); any other pair raises.
 
 The int8 builds (:func:`decode_attention_int8_cuda`, contiguous, and
@@ -109,13 +110,11 @@ from . import (BF16_HEAD_DIMS, _build, block_table, check_attention_args,
                check_scales, library, pos_vector, stream_ptr)
 
 NAME = "decode_attention"
-# the head dims built for each dtype: bf16 and float16 the Hopper body at
-# every D <= 256 with D % 8 == 0, float32 the CUDA-core body at 16 (the
-# tiny models) and 128 (the reference's float32 default configurations);
+# the head dims built for each dtype, one set: bf16 and float16 the Hopper
+# body, float32 the CUDA-core body, at every D <= 256 with D % 8 == 0;
 # other pairs are ROADMAP B2
-HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
-            torch.float16: BF16_HEAD_DIMS,
-            torch.float32: frozenset({16, 128})}
+HEAD_DIM = dict.fromkeys((torch.bfloat16, torch.float16, torch.float32),
+                         BF16_HEAD_DIMS)
 
 # the bf16 builds (decode_mma_kernel): query rows a CTA
 # (mma.sync's n8), keys a warp step, warps a CTA (warp w takes slices w,

@@ -13,12 +13,11 @@ not 128-aligned, which the Pallas kernel refuses at :73-88).  Head dims
 reference's kernel takes any D and narrows its blocks by D / 128
 (:56-71); the port runs 128-wide tiles up to D 128 and 256-wide ones
 above (with 64-key tiles), the columns past D zero-filled, so DiT-XL/2's
-D = 72 and a Gemma-2B-wide Llama's 256 run it — float32 16, 64, 72 and
-128.  float16 runs the bf16 body compiled over float16 (a library of its
-own, ``_build.VARIANTS``).  The backward K5 / K6 takes the same sets
-(``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``); the paged builds below
-take the same 16-bit set and float32 at 16 and 128 only (``HEAD_DIM``;
-the rest is ROADMAP B2).
+D = 72 and a Gemma-2B-wide Llama's 256 run it — and float32 the same
+set.  float16 runs the bf16 body compiled over float16 (a library of its
+own, ``_build.VARIANTS``).  The backward K5 / K6 takes the same set
+(``flash_attention_bwd.py`` ``BWD_HEAD_DIMS``), and so do the paged builds
+below (``HEAD_DIM``); the rest is ROADMAP B2.
 
 Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s); at
 the prefill shapes the operations bound it.  What the design does about
@@ -34,8 +33,11 @@ Q.K^T issued with this tile's P.V so the softmax runs under a product,
 element masks only on the tiles that need one, the heaviest q tiles
 first; below its tile width (128, or 256 above head_dim 128) the same
 kernel runs on zero-padded tiles.
-float32 — the tiny models, float32 DiTs — runs a CUDA-core kernel
-(``wgmma`` has no float32 input that keeps float32 numerics).  Those are
+float32 — the tiny models, float32 DiTs, the reference's float32 default
+configurations — runs a CUDA-core kernel (``wgmma`` has no float32 input
+that keeps float32 numerics): instances of constant D at 16, 64, 72 and
+128, and the same body at a runtime D in two width classes (D <= 128, two
+CTAs an SM; D <= 256, one) for every other D.  Those are
 the builds held against the plain version on the card (``chip_smoke.py``);
 any other dtype or head_dim raises.
 
@@ -91,22 +93,15 @@ from . import (BF16_HEAD_DIMS, HALF_DTYPES, _build, block_table,
                stream_ptr)
 
 NAME = "flash_attention_fwd"
-# the head dims the paged builds below take for each dtype: bf16 and
-# float16 the Hopper kernel's set, float32 the CUDA-core instances at 16 and 128; other
-# head dims are ROADMAP B2
-HEAD_DIM = {torch.bfloat16: BF16_HEAD_DIMS,
-            torch.float16: BF16_HEAD_DIMS,
-            torch.float32: frozenset({16, 128})}
-# the contiguous K2's head dims: bf16 and float16 any D <= 256 with D % 8
-# == 0 (the
-# Hopper kernel's 128- or 256-wide tiles, columns past D zero-filled by
-# TMA, whose row stride D x 2 bytes must be a multiple of 16), float32 the
-# CUDA-core kernel's instances (the tiny models at 16, float32 DiTs at 64
-# and 72, the reference's float32 default configurations -- LlamaConfig(),
-# Qwen2VLConfig()'s decoder -- at 128)
-FWD_HEAD_DIMS = {torch.bfloat16: BF16_HEAD_DIMS,
-                 torch.float16: BF16_HEAD_DIMS,
-                 torch.float32: frozenset({16, 64, 72, 128})}
+# the head dims every build takes for each dtype, contiguous (K2,
+# K2-segmented: ``FWD_HEAD_DIMS``) and paged (K2-paged(-int8):
+# ``HEAD_DIM``), one set: any D <= 256 with D % 8 == 0 -- bf16 and float16
+# the Hopper kernel's 128- or 256-wide tiles, columns past D zero-filled
+# by TMA (whose row stride D x 2 bytes must be a multiple of 16), float32
+# the CUDA-core kernel; other head dims are ROADMAP B2
+HEAD_DIM = dict.fromkeys((torch.bfloat16, torch.float16, torch.float32),
+                         BF16_HEAD_DIMS)
+FWD_HEAD_DIMS = dict(HEAD_DIM)
 # the bf16 build's query tile and the tokens of a segment range (csrc: kHQ,
 # kRange; its key tile is 128, or 64 above head_dim 128)
 SEG_TILE = 128

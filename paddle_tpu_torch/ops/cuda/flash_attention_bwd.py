@@ -34,12 +34,14 @@ segment ids both skip the tile pairs whose id ranges miss
 over float16 (a library of its own, ``_build.VARIANTS``), each row of dS
 rounded in a power-of-two unit of its own so that a loss-scaled dS
 cannot pass float16's 65504 (``csrc/flash_attention_bwd.cu``).  Head dims
-(``BWD_HEAD_DIMS``): K2's set — bf16 and float16 at any D <= 256 with
-D % 8 == 0, float32 at 16, 64 and 72 on
-CUDA-core kernels of one thread a row and at 128 on CUDA-core kernels that
-split each row over a quad of threads (D / 4 columns a thread, the dot
-products summed by two shuffles; nothing spills); any other pair raises
-naming ROADMAP B2, before a launch.  Each wrapper counts its launches in
+(``BWD_HEAD_DIMS``): K2's set, every dtype at any D <= 256 with D % 8 ==
+0.  float32 runs on the CUDA cores: at 16, 64 and 72 kernels of one
+thread a row, at 128 kernels that split each row over a quad of threads
+(D / 4 columns a thread, the dot products summed by two shuffles; nothing
+spills), and at every other D the split body at a runtime D, a quad a row
+up to 128 and an octet above (D / 8 columns a thread, three shuffles, the
+same bits on each thread of the group); any other pair raises naming
+ROADMAP B2, before a launch.  Each wrapper counts its launches in
 ``.launches``, and in ``.by_shape`` by (head_dim, Sq, Skv, causal).
 """
 

@@ -717,8 +717,9 @@ def test_f32_phases_order():
     """serving_f32 runs first once the bf16 models are freed (26.9 GB of
     float32 Llama weights, a 17 GB cache and an eager wave's 8.6 GB
     sub-cache leave little room), qwen2_vl_f32 after qwen2_vl_train and
-    before phase 5; the eager twin serves as many tokens as its graphed
-    run."""
+    before phase 5, serving_f32_tinyllama right after serving_tinyllama
+    and training_f32_d256 right after training_f16; the eager twin serves
+    as many tokens as its graphed run."""
     import inspect
     main_src = inspect.getsource(chip_smoke.main)
     assert main_src.index("del model, qmodel") \
@@ -727,6 +728,18 @@ def test_f32_phases_order():
         < main_src.index("phase_qwen2_vl_train(") \
         < main_src.index("phase_qwen2_vl_f32(") \
         < main_src.index("phase_training(")
+    # serving_f32_tinyllama right after serving_tinyllama, and
+    # training_f32_d256 right after training_f16, each behind the loop's
+    # memory line
+    phases = [ln.strip() for ln in main_src.splitlines()
+              if ln.strip().startswith("lambda: phase_")]
+    names = [ln.split("phase_")[1].split("(")[0] for ln in phases]
+    assert names.index("serving_f32_tinyllama") \
+        == names.index("serving_tinyllama") + 1
+    assert names.index("training_f32_d256") \
+        == names.index("training_f16") + 1
+    assert main_src.index('"phase": "memory"') \
+        > main_src.index("lambda: phase_training_f32_d256(")
     # the chunked and spec loops leave ``m`` on the int8 model: it is
     # dropped with the other names, or its 8.8 GB stay on the card
     assert "del model, qmodel, m\n" in main_src

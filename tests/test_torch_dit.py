@@ -398,8 +398,8 @@ def test_contiguous_k2_takes_the_head_dims(no_card, dtype, d):
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 76),
                                      (torch.bfloat16, 264),
                                      (torch.bfloat16, 512),
-                                     (torch.float32, 32),
-                                     (torch.float32, 96)])
+                                     (torch.float32, 100),
+                                     (torch.float32, 264)])
 def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
     with pytest.raises(NotImplementedError, match="B2"):
         k2.flash_attention_fwd_cuda(*_qkv(d, dtype))
@@ -410,10 +410,10 @@ def test_contiguous_k2_refuses_other_head_dims(no_card, dtype, d):
                                      (torch.bfloat16, 64),
                                      (torch.float32, 72)])
 def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
-    """K2-paged(-int8) and the K1 family take bf16 at every head_dim <= 128
-    with D % 8 == 0 (DiT's 72 and 64 among them: each launches with that
-    head dim) and float32 at 16 and 128 only (each refuses DiT's 72
-    naming B2).  (K5 / K6 take them: ``test_k5_k6_take_k2s_head_dims``.)"""
+    """K2-paged(-int8) and the K1 family take bf16 and float32 at every
+    head_dim <= 256 with D % 8 == 0 (DiT's 72 and 64 among them: each
+    launches with that head dim and its dtype code); none refuses DiT's
+    head dims.  (K5 / K6 take them: ``test_k5_k6_take_k2s_head_dims``.)"""
     q, k, v = _qkv(d, dtype, s=1)
     pool = torch.zeros(4, 64, 2, d, dtype=dtype)
     pool8 = torch.zeros(4, 64, 2, d, dtype=torch.int8)
@@ -433,18 +433,13 @@ def test_builds_at_one_head_dim_refuse_dit_head_dims(no_card, dtype, d):
         lambda: k1.decode_attention_paged_int8_cuda(q, pool8, pool8, 0, tbl,
                                                     k_scale=sc, v_scale=sc),
     ]
-    if dtype == torch.bfloat16:
-        # the index of D in each entry's arguments
-        for call, i_d in zip(calls, (10, 12, 12, 14, 13, 15)):
-            no_card.calls.clear()
-            assert call().shape == q.shape
-            (_, args), = no_card.calls
-            assert args[i_d] == d and args[-2] == 0   # dtype code: bfloat16
-        return
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="B2"):
-            call()
-    assert no_card.calls == []
+    code = 0 if dtype == torch.bfloat16 else 1
+    # the index of D in each entry's arguments
+    for call, i_d in zip(calls, (10, 12, 12, 14, 13, 15)):
+        no_card.calls.clear()
+        assert call().shape == q.shape
+        (_, args), = no_card.calls
+        assert args[i_d] == d and args[-2] == code   # the dtype code
 
 
 def _f32_calls(d, s=1):
@@ -489,9 +484,12 @@ def test_k1_and_paged_k2_launch_at_float32_head_dim_128(no_card, s):
 
 
 def test_k1_and_paged_k2_refuse_float32_head_dim_96(no_card):
-    for _, _, call in _f32_calls(96):
-        with pytest.raises(NotImplementedError, match="B2"):
-            call()
+    """float32 at 96 is built (every D <= 256 with D % 8 == 0); the head
+    dims past that set, 100 and 264, are refused naming B2."""
+    for d in (100, 264):
+        for _, _, call in _f32_calls(d):
+            with pytest.raises(NotImplementedError, match="B2"):
+                call()
     assert no_card.calls == []
 
 
@@ -502,7 +500,7 @@ BWD_TAKES = [(torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 64),
              (torch.bfloat16, 128), (torch.float32, 16), (torch.float32, 64),
              (torch.float32, 72), (torch.float32, 128), (torch.bfloat16, 136),
              (torch.bfloat16, 256)]
-BWD_REFUSES = {torch.bfloat16: (76, 264), torch.float32: (32, 96)}
+BWD_REFUSES = {torch.bfloat16: (76, 264), torch.float32: (100, 264)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

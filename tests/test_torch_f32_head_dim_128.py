@@ -3,9 +3,10 @@ attention (``LlamaConfig()``: hidden 4096 over 32 heads; the decoder of
 ``Qwen2VLConfig()``: hidden 1024 over 8 heads) — on the CPU.
 
   * the builds' tables: (float32, 128) is taken by K1 (every layout),
-    K2 (contiguous and paged) and K5 / K6, (float32, 96) by none (the
-    wrappers' launches at 128 and refusals at 96 are in
-    ``tests/test_torch_dit.py``, beside the other head dims');
+    K2 (contiguous and paged) and K5 / K6, as is every other float32 D
+    <= 256 with D % 8 == 0 -- the 16-bit set (the wrappers' launches at
+    128 are in ``tests/test_torch_dit.py``, beside the other head dims';
+    the other float32 head dims in ``tests/test_torch_f32_head_dims.py``);
   * a model of the float32 head_dim-128 body of K5 / K6
     (``csrc/flash_attention_bwd.cu``, ``bwd_dq_f32_split_kernel`` /
     ``bwd_dkv_f32_split_kernel``): each of the D columns owned by exactly
@@ -59,8 +60,13 @@ PARAM_TOL = dict(rtol=1e-5, atol=5e-5)
 
 def test_tables_take_float32_head_dim_128_only_among_new_dims():
     f32 = torch.float32
+    # float32 takes 128 and, since the float32 builds at every head dim,
+    # 96 and the rest of the 16-bit set; past 256 and off the multiples of
+    # 8 none
     for table in (k1.HEAD_DIM, k2.HEAD_DIM, k2.FWD_HEAD_DIMS):
-        assert 128 in table[f32] and 96 not in table[f32]
+        assert 128 in table[f32] and 96 in table[f32]
+        assert table[f32] == table[torch.bfloat16]
+        assert 264 not in table[f32] and 100 not in table[f32]
     # every bf16 build takes one set of head dims (D <= 256, D % 8 == 0),
     # and every float16 build, forward and backward, the same set
     assert (k1.HEAD_DIM[torch.bfloat16] == k2.HEAD_DIM[torch.bfloat16]
