@@ -7,16 +7,18 @@ Run from the repository root::
 
     python3 chip_f32_bwd_accuracy.py
 
-For each head dim (64 and 72: the one-thread-a-row kernels; 96: the quad
-split at a runtime D; 128: the quad split of constant D; 256: the octet
-split) at B 4 x 2048 causal and B 2 x 2048 packed, with TinyLlama's 32 /
-4 heads up to 128 and 8 / 1 above, it prints one JSON line: per gradient,
-the largest absolute difference of the kernel from the float32 plain
-version, of the kernel from the float64 one, and of the float32 plain
-version from the float64 one, each also as its largest ratio to the
-phase-2 bar atol 1e-5 + rtol 1e-5 |float64 value| (a ratio above 1 fails
-the bar).  dk / dv sum G x Sq terms a key (16384 at B 4 x 2048, G 8), so
-the order of float32 sums shows there.  Exits non-zero without a card.
+For each float32 head dim of phase 2 (64, 72, 96, 128, 136, 192, 200 and
+256; every one runs the 3xTF32 kernels of ``csrc/flash_attention_bwd.cu``)
+at B 4 x 2048 causal and B 2 x 2048 packed, with TinyLlama's 32 / 4 heads
+up to 128 and 8 / 1 above, it prints one JSON line: per gradient, the
+largest absolute difference of the kernel from the float32 plain version,
+of the kernel from the float64 one, and of the float32 plain version from
+the float64 one, each also as its largest ratio to the phase-2 bar atol
+1e-5 + rtol 1e-5 |float64 value| (a ratio above 1 fails the bar).  dk / dv
+sum G x Sq terms a key (16384 at B 4 x 2048, G 8), so the order of float32
+sums shows there; the kernels sum each 64-query tile apart (ROADMAP C6).
+The first line names the card and its power limit.  Exits non-zero
+without a card.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import json
 import sys
 from pathlib import Path
 
-DIMS = (64, 72, 96, 128, 256)
+DIMS = (64, 72, 96, 128, 136, 192, 200, 256)
 SEQ = 2048
 
 
@@ -56,7 +58,12 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    import subprocess
+    limit = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "nvidia_smi": limit.strip()}), flush=True)
     for d in DIMS:
         hq, hkv = (32, 4) if d <= 128 else (8, 1)
         for b, packed in ((4, False), (2, True)):

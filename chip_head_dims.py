@@ -40,7 +40,11 @@ error: against ``flash_attention_bwd_reference``, dk and dv together):
   D 128   Llama-3-8B's training micro-batch (Hq 32, Hkv 8), causal B 2 x
           2048;
   D 72    DiT-XL/2's train step (16 heads), not causal, B 32 x 256;
-  D 256   the Gemma-2B-wide Llama (Hq 8, Hkv 1), causal B 4 x 2048.
+  D 256   the Gemma-2B-wide Llama (Hq 8, Hkv 1), causal B 4 x 2048;
+
+and at float32 (20 calls each) D 256 as above and D 96 at TinyLlama's
+heads (Hq 32, Hkv 4), causal B 4 x 2048 (``training_f32_d256``'s and
+phase 2's ``/f32`` training rows).
 
 Tables and inputs come from fixed seeds.  The first line is the card's name
 and power limit.  Exits non-zero without a card.
@@ -68,6 +72,9 @@ SHAPES = {"D 128": ("bfloat16", 128, 32, 8, 4096, 128, 2048, 2048),
 BWD_SHAPES = {128: (2, 2048, 32, 8, True),
               72: (32, 256, 16, 16, False),
               256: (4, 2048, 8, 1, True)}
+# and of the float32 K5 / K6 rows (20 calls each)
+BWD_SHAPES_F32 = {256: (4, 2048, 8, 1, True),
+                  96: (4, 2048, 32, 4, True)}
 
 
 def measure(checkout: str) -> dict:
@@ -122,7 +129,7 @@ def measure(checkout: str) -> dict:
                     else t
         return round(total / n, 3)
 
-    def row(make, fn, plain, nbytes, view=lambda x: x):
+    def row(make, fn, plain, nbytes, view=lambda x: x, n=100):
         """``view`` turns fn's result into the tensor held against
         ``plain``'s (outside the timed calls)."""
         try:
@@ -132,7 +139,7 @@ def measure(checkout: str) -> dict:
         except (NotImplementedError, RuntimeError) as e:
             return {"refused": str(e).splitlines()[0][:160]}
         err = (got.float() - plain(sets[0]).float()).abs().max().item()
-        return {"us": device_us([lambda t=t: fn(t) for t in sets]),
+        return {"us": device_us([lambda t=t: fn(t) for t in sets], n),
                 "max_err": round(err, 6)}
 
     out = {"checkout": checkout}
@@ -236,6 +243,32 @@ def measure(checkout: str) -> dict:
             "K6": row(make, lambda t: flash_attention_bwd_dkv_cuda(
                 *t[:6], causal=causal), lambda t: plain(t, 1), nbytes,
                 view=torch.cat)}
+        torch.cuda.empty_cache()
+    for d, (b, s, hq, hkv, causal) in BWD_SHAPES_F32.items():
+
+        def make():
+            f32 = torch.float32
+            q, k, v, do = (randn(b, s, hq, d, dtype=f32),
+                           randn(b, s, hkv, d, dtype=f32),
+                           randn(b, s, hkv, d, dtype=f32),
+                           randn(b, s, hq, d, dtype=f32))
+            o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal)
+            delta = (do * o).sum(-1).transpose(1, 2)
+            return q, k, v, do, lse, delta.contiguous(), o
+
+        def plain(t, i):
+            got = flash_attention_bwd_reference(t[0], t[1], t[2], t[6], t[4],
+                                                t[3], causal=causal)
+            return got[0] if i == 0 else torch.cat(got[1:])
+
+        nbytes = 4 * b * s * (2 * hq + 2 * hkv) * d
+        out[f"D {d} float32 backward"] = {
+            "K5": row(make, lambda t: flash_attention_bwd_dq_cuda(
+                *t[:6], causal=causal), lambda t: plain(t, 0), nbytes,
+                n=20),
+            "K6": row(make, lambda t: flash_attention_bwd_dkv_cuda(
+                *t[:6], causal=causal), lambda t: plain(t, 1), nbytes,
+                view=torch.cat, n=20)}
         torch.cuda.empty_cache()
     return out
 

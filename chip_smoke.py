@@ -422,6 +422,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 (and float16) tensor cores
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the tensor cores: three TF32 passes (the
+# float32 K5 / K6, csrc/mma_tf32.cuh) at the 494.7 TFLOP/s dense TF32 rate;
+# the least time float32 products could take, so every float32 operation
+# bound is taken at it (a row also reports bound_ms_cuda_cores, at 67)
+F32_TC_FLOPS = 494.7e12 / 3
 
 KERNEL_INFO = {
     "decode_attention": {
@@ -573,7 +578,7 @@ for _name in F16_BWD:
 # K2 and K5 / K6 also 64 and 72): any D <= 256 with D % 8 == 0 -- the K1
 # family on 2 and 8 elements a lane, K2 in every layout on the runtime-D
 # kernel (and K2-paged's constant-D instances at 64 and 72), K5 / K6 on
-# the runtime-D split kernels -- has an entry of its own, the kernel of its
+# the 3xTF32 kernels -- has an entry of its own, the kernel of its
 # namesake at float32: phase 2's "/f32" rows, the largest error over D 64,
 # 72, 96, 136, 192, 200 and 256; the K1 family and K2-paged(-int8) timed at
 # TinyLlama's D 64 and launched by serving_f32_tinyllama's engines, K2 and
@@ -761,10 +766,19 @@ def copies(nbytes: int) -> int:
     return int(min(8, max(1, math.ceil(150e6 / max(nbytes, 1)))))
 
 
+class BoundMs(float):
+    """A bound in ms; float32 work's also carries its bound at the CUDA
+    cores' rate, ``cuda_cores_ms``."""
+    cuda_cores_ms = None
+
+
 def bound(nbytes: float, ops: float, peak_ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    ms = BoundMs(max(t_bytes, t_ops))
+    if peak_ops == F32_TC_FLOPS:
+        ms.cuda_cores_ms = max(t_bytes, ops / F32_FLOPS * 1e3)
+    return ms, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def max_err(a, b) -> float:
@@ -1107,7 +1121,7 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
         nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d
                   + out_elems) * esz + io
         bms, by = bound(nbytes, flops_per_pair * d * hq * pairs,
-                        F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+                        F32_TC_FLOPS if dt == torch.float32 else BF16_FLOPS)
         record(name, tag, err, tol + ", finite, dead rows (keys) 0, "
                "the same bits twice", ok,
                kfns, plain_ms, lib_ms, bms, by, main,
@@ -1191,6 +1205,9 @@ def phase_kernels(torch):
                "timed_by": timed_by, "device_ms": dms, "host_ms": hms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
                "bound_by": by}
+        cores = getattr(bms, "cuda_cores_ms", None)
+        if cores is not None:
+            row["bound_ms_cuda_cores"] = cores
         if note:
             row["library_note"] = note
         if name.endswith(F32_D128):
@@ -1210,6 +1227,8 @@ def phase_kernels(torch):
             agg.update(shape=shape, ms=ms, timed_by=timed_by,
                        plain_ms=plain_ms,
                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            if cores is not None:
+                agg["bound_ms_cuda_cores"] = cores
         return row
 
     # ---- K1 flash-decode: the decode tick's shape (bf16, head_dim 128),
@@ -1271,7 +1290,8 @@ def phase_kernels(torch):
                   + 4 * b)
         ops = sum(4 * d * hq * (p + si + 1)
                   for p in pos_list for si in range(s))
-        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        bms, by = bound(nbytes, ops,
+                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
         record("decode_attention",
                f"B={b} s={s} L={L} Hq={hq} Hkv={hkv} D={d} pos={pos_list} "
                f"{str(dt)[6:]}",
@@ -1328,7 +1348,8 @@ def phase_kernels(torch):
         nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esz \
             + 4 * b * hq * sq
         ops = 4 * d * hq * b * pairs
-        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        bms, by = bound(nbytes, ops,
+                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
         record("flash_attention_fwd",
                f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
                f"{'causal' if causal else 'causal=False'} {str(dt)[6:]}",
@@ -1423,7 +1444,7 @@ def phase_kernels(torch):
                 + 4 * b * hq * sq + 4 * b * (sq + (skv if kv_seg is not None
                                                    else 0))
             bms, by = bound(nbytes, 4 * d * hq * pairs,
-                            BF16_FLOPS if dt == bf16 else F32_FLOPS)
+                            BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
             record("flash_attention_fwd", tag, max(err, lerr),
                    f"out atol {atol} + rtol {rtol}, lse {lse_tol}, dead rows "
                    f"out 0 and lse -1e30", ok, kfns, plain_ms, lib_ms, bms,
@@ -1535,7 +1556,8 @@ def phase_kernels(torch):
                   + 4 * b * (mb + 1))
         ops = sum(4 * d * hq * min(p + si + 1, L)
                   for p in pos_list for si in range(s))
-        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        bms, by = bound(nbytes, ops,
+                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
         record(name,
                f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
                f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
@@ -1615,7 +1637,8 @@ def phase_kernels(torch):
                   + sum(-(-n // gr) for n in live) * hkv * 4 * 2 + 4 * b)
         ops = sum(4 * d * hq * (p + si + 1)
                   for p in pos_list for si in range(s))
-        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        bms, by = bound(nbytes, ops,
+                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
         record("decode_attention_int8",
                f"B={b} s={s} L={L} granule={gr} Hq={hq} Hkv={hkv} D={d} "
                f"pos={pos_list} int8 K/V, {str(dt)[6:]} q",
@@ -1685,7 +1708,8 @@ def phase_kernels(torch):
                   + live_blocks * hkv * 4 * 2 + 4 * b * (mb + 1))
         ops = sum(4 * d * hq * min(p + si + 1, L)
                   for p in pos_list for si in range(s))
-        bms, by = bound(nbytes, ops, BF16_FLOPS if dt == bf16 else F32_FLOPS)
+        bms, by = bound(nbytes, ops,
+                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
         record(name,
                f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
                f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
@@ -1760,7 +1784,7 @@ def phase_kernels(torch):
                                  for t in sets])
         nbytes = k * n + 4 * n + (rows * k + rows * n) * esz
         bms, by = bound(nbytes, 2 * rows * k * n,
-                        F32_FLOPS if dt == f32 else BF16_FLOPS)
+                        F32_TC_FLOPS if dt == f32 else BF16_FLOPS)
         record("int8_matmul" + (F16 if dt == f16 else ""),
                f"rows={rows} K={k} N={n} int8 w, "
                f"{str(dt)[6:]} x", err, f"atol {atol} + rtol {rtol}", ok,
@@ -1792,6 +1816,8 @@ def phase_kernels(torch):
             lambda t=t: TF.rms_norm(t[0], (hidden,), w, 1e-5)
             for t in sets])
         nbytes = (2 * rows * hidden + hidden) * esz
+        # RMSNorm's operations are no products: the CUDA cores' rate (the row
+        # is bound by its bytes at either)
         bms, by = bound(nbytes, 4 * rows * hidden, F32_FLOPS)
         record("rms_norm", f"rows={rows} D={hidden} {str(dt)[6:]}", err,
                f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms, lib_ms, bms,
@@ -1884,7 +1910,7 @@ def k2_rows(torch, record, randn, tols, rows):
         nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esz \
             + 4 * b * hq * sq + (0 if seg is None else 4 * b * (sq + skv))
         bms, by = bound(nbytes, 4 * d * hq * pairs,
-                        BF16_FLOPS if half else F32_FLOPS)
+                        BF16_FLOPS if half else F32_TC_FLOPS)
         tag = (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
                f"{'causal' if causal else 'causal=False'} "
                f"{'ring-hop kv_segment_ids ' if ring else ''}"
@@ -1961,7 +1987,9 @@ def phase_head_dim_rows(torch, record, randn, tols):
     rows: K2 at LlamaConfig()'s prefill wave (B 4, S 2048, 32 heads,
     causal), ragged causal GQA (dead rows), packed documents at S 300 and
     Qwen2-VL's cross shapes; K5 / K6 at Qwen2-VL's decoder and cross
-    shapes, ragged causal GQA and packed documents."""
+    shapes, ragged causal GQA, packed documents and the training
+    micro-batch's shapes (B 2 x 2048 packed, B 4 x 2048 causal, 32 / 4
+    heads)."""
     bf16, f32 = torch.bfloat16, torch.float32
     f32_k2 = "flash_attention_fwd" + F32_D128
     k2_rows(torch, record, randn, tols, (
@@ -2030,7 +2058,13 @@ def phase_head_dim_rows(torch, record, randn, tols):
             (f32_bwd, f32, QWEN_BATCH, QWEN_PROMPT, QWEN_PATCHES,
              QWEN_HEADS, QWEN_HEADS, 128, False, None, False),
             (f32_bwd, f32, 2, 77, 61, 8, 2, 128, True, None, False),
-            (f32_bwd, f32, 2, 300, 300, 8, 2, 128, True, "packed", False)))
+            (f32_bwd, f32, 2, 300, 300, 8, 2, 128, True, "packed", False),
+            # and the training micro-batch's shapes at TinyLlama's heads
+            # (ROADMAP C6: dk / dv over G x Sq terms, 1e-5 of float64)
+            (f32_bwd, f32, 2, F32_L, F32_L, TL_HEADS, TL_KV_HEADS, 128, True,
+             "packed", False),
+            (f32_bwd, f32, 4, F32_L, F32_L, TL_HEADS, TL_KV_HEADS, 128, True,
+             None, False)))
 
 
 # the reference's float32 defaults at head_dim 128: LlamaConfig() (32 / 32
@@ -2040,8 +2074,9 @@ F32_L = 2048                    # serving_f32's max_length
 F32_TICK_POS = [0, 2047, 17, 1000, 1500, 300, 511, 128]
 # the C functions of each float32 head_dim-128 build (ptxas's mangled
 # names contain these): K1 decode_attention_kernel<float, KV, 4, 8, PAGED>,
-# K2 flash_attention_fwd_kernel<128, PAGED, KV, SEG>, K5 / K6 the split
-# bodies
+# K2 flash_attention_fwd_kernel<128, PAGED, KV, SEG>, K5 / K6 the 3xTF32
+# kernels bwd_dq_tf32_kernel<128, 2, 16> and bwd_dkv_tf32_kernel<64, 3, 16>
+# (rows a CTA, stages, column tiles a warp)
 F32_D128_FUNCTIONS = {
     "decode_attention": ("decode_attention_kernelIffLi4ELi8ELb0EE",),
     "decode_attention_int8": ("decode_attention_kernelIfaLi4ELi8ELb0EE",),
@@ -2054,8 +2089,8 @@ F32_D128_FUNCTIONS = {
         "flash_attention_fwd_kernelILi128ELb1EfLb0EE",),
     "flash_attention_fwd_paged_int8": (
         "flash_attention_fwd_kernelILi128ELb1EaLb0EE",),
-    "flash_attention_bwd_dq": ("bwd_dq_f32_split_kernelILi128EE",),
-    "flash_attention_bwd_dkv": ("bwd_dkv_f32_split_kernelILi128EE",),
+    "flash_attention_bwd_dq": ("bwd_dq_tf32_kernelILi128ELi2ELi16EE",),
+    "flash_attention_bwd_dkv": ("bwd_dkv_tf32_kernelILi64ELi3ELi16EE",),
 }
 
 
@@ -2160,8 +2195,8 @@ def f16_ptxas(build_log):
 # the C functions of each float32 build past its first instances: the K1
 # family's decode_attention_kernel<float, KV, EPL, KPI, PAGED> at EPL 2 and
 # 8, K2's flash_attention_fwd_rt_kernel<W, PAGED, KV, SEG> (W 128, 256)
-# and K2-paged's constant-D instances at 64 and 72, K5 / K6's runtime-D
-# split kernels <T, C> (a quad and an octet a row)
+# and K2-paged's constant-D instances at 64 and 72, K5 / K6's other 3xTF32
+# instances <BR, ST, CS> (rows a CTA, stages, column tiles a warp)
 F32_FUNCTIONS = {
     name: tuple(f"decode_attention_kernelIf{kv}Li{epl}ELi{kpi}ELb{paged}EE"
                 for epl, kpi in ((2, 8), (8, 2 if int8 else 4)))
@@ -2176,10 +2211,14 @@ F32_FUNCTIONS.update({
         for w in (128, 256)) + tuple(
         f"flash_attention_fwd_kernelILi{d}ELb1E{kv}Lb0EE" for d in (64, 72))
        for i8, kv in (("", "f"), ("_int8", "a"))},
-    "flash_attention_bwd_dq": tuple(f"bwd_dq_f32_rt_kernelILi{t}ELi8EE"
-                                    for t in (4, 8)),
-    "flash_attention_bwd_dkv": tuple(f"bwd_dkv_f32_rt_kernelILi{t}ELi8EE"
-                                     for t in (4, 8))})
+    "flash_attention_bwd_dq": tuple(
+        f"bwd_dq_tf32_kernelILi{br}ELi{st}ELi{cs}EE"
+        for br, st, cs in ((128, 3, 8), (128, 3, 12), (32, 2, 6),
+                           (32, 2, 8))),
+    "flash_attention_bwd_dkv": tuple(
+        f"bwd_dkv_tf32_kernelILi{br}ELi{st}ELi{cs}EE"
+        for br, st, cs in ((64, 3, 8), (64, 3, 12), (32, 2, 12),
+                           (32, 2, 16)))})
 
 
 def f32_d128_ptxas(build_log):
@@ -2200,7 +2239,7 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
     at a suffix prefill and over the contiguous cache's identity view at
     pos 0 / 1024.  The library yardstick is SDPA at float32 (the row
     names the kernel it ran); the bound is max(bytes / 3.35 TB/s, FLOPs /
-    67 TFLOP/s)."""
+    165 TFLOP/s: three TF32 passes), ``bound_ms_cuda_cores`` at 67 beside."""
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       cached_decode_attention_reference,
                                       decode_attention_paged_cuda,
@@ -2237,7 +2276,7 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
         with reference_mode():
             plain_ms = time_ms(torch, pfns, budget_ms=100.0)
         lib_ms = time_ms(torch, lfns)
-        bms, by = bound(nbytes, ops, F32_FLOPS)
+        bms, by = bound(nbytes, ops, F32_TC_FLOPS)
         record(base + F32_D128, shape, err, f"atol {atol} + rtol {rtol}",
                ok, kfns, plain_ms, lib_ms, bms, by, main, note=note,
                extra=dict(extra or {}, head_dim=d,
@@ -2529,10 +2568,11 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     dead rows (Sq 77 over Skv 61) at every D, packed documents and the
     ring hop at D 64 and 256; the identity view at D 64 and 256; and K5 /
     K6 at every D at Sq 77 over Skv 61 (dead rows), the ring hop and not
-    causal (B 4 x 512), and at D 96 and 256 (the runtime-D kernels) at
-    the training micro-batch's shapes, B 2 x 2048 packed and B 4 x 2048
-    causal (the main rows at D 256), held against the plain version in
-    float64.  The bound is max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s)."""
+    causal (B 4 x 512), and the training micro-batch's shapes, B 2 x 2048
+    packed and B 4 x 2048 causal (the main rows at D 256), held against
+    the plain version in float64.  The bound is max(bytes / 3.35 TB/s,
+    FLOPs / 165 TFLOP/s: float32 products in three TF32 passes), the
+    CUDA cores' 67 TFLOP/s beside as ``bound_ms_cuda_cores``."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2547,7 +2587,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     bf16 = (torch.float16 if f16 else torch.float32 if f32
             else torch.bfloat16)
     tname = "float16" if f16 else "float32" if f32 else "bf16"
-    esz, peak = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
+    esz, peak = (4, F32_TC_FLOPS) if f32 else (2, BF16_FLOPS)
     atol, rtol = tols(bf16)
     if f16:
         suffix, dims, main_d = F16, F16_DIMS, 128
@@ -2789,9 +2829,8 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                     False)])
         phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                             tols, f32=main_d)
-        # the training micro-batch's shapes on the runtime-D kernels, D 96
-        # and 256 (D 64 and 72 run the one-thread-a-row instances, whose
-        # dk / dv drift past 1e-5 of float64 there: ROADMAP C6)
+        # and the training micro-batch's shapes at every D (ROADMAP C6:
+        # dk / dv summed over G x Sq terms, held at 1e-5 of float64)
         k5_k6_rows(torch, record, randn, tols, [
             (F32_BWD, bf16, b, sq, skv, hq, hkv, d, causal, segments,
              d == 256 and segments is None and sq == F32_L)
@@ -2799,9 +2838,9 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
             for b, sq, skv, causal, segments in (
                 (2, 77, 61, True, None),
                 (2, 256, 512, True, "ring"),
-                (4, 512, 512, False, None))
-            + (((2, F32_L, F32_L, True, "packed"),
-                (4, F32_L, F32_L, True, None)) if d in (96, 256) else ())])
+                (4, 512, 512, False, None),
+                (2, F32_L, F32_L, True, "packed"),
+                (4, F32_L, F32_L, True, None))])
         return
     if f16:
         k2 = "flash_attention_fwd" + F16
@@ -3252,7 +3291,7 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
         bf16, d, L, chunk_pos, tag = torch.float32, f32, F32_L, (0, 1024), F32
         hq, hkv = ((TL_HEADS, TL_KV_HEADS) if d <= 128
                    else (G2B_HEADS, G2B_KV_HEADS))
-        esz, peak = 4, F32_FLOPS
+        esz, peak = 4, F32_TC_FLOPS
     atol, rtol = tols(bf16)
 
     def cache_sets(int8, n):

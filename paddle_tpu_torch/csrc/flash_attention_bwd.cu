@@ -23,9 +23,9 @@
 //
 // Bound on the H100: operations, at training shapes: 14 * D FLOPs a
 // visible (query, key) pair (6 D for dq, 8 D for dk / dv) against the
-// 989 TFLOP/s bf16 tensor cores; with packed documents few pairs are
-// visible and the bytes bind.  Bodies at K2's head dims (any other pair is
-// refused):
+// 989 TFLOP/s bf16 tensor cores (float32: 165 TFLOP/s, below); with packed
+// documents few pairs are visible and the bytes bind.  Bodies at K2's
+// head dims (any other pair is refused):
 //   * bfloat16 at any D <= 128 with D % 8 == 0 (every training backward
 //     at 128, the DiT blocks at 72): Hopper kernels of 384 threads, two
 //     consumer warpgroups of 64 rows and a producer warp (setmaxnreg 240 /
@@ -122,24 +122,66 @@
 //     the loop's back edge); K6 retires its products every tile already.
 //     K6 on 256-wide tiles keeps its dK warpgroup's units in shared
 //     memory (in registers they spilled 4 bytes with ids).
-//   * float32 at any D <= 256 with D % 8 == 0, on the CUDA cores (wgmma
-//     has no float32 input that keeps float32 numerics):
-//       - D = 16 (the tiny model), 64 and 72 (float32 DiTs): two kernels
-//         of one thread per query row (K5) or key row (K6).  A thread's
-//         rows are D-float register arrays (3 D in K5, 4 D in K6), so the
-//         wider instances keep part of them in local memory.
-//       - D = 128 (the reference's float32 default configurations:
-//         LlamaConfig(), Qwen2-VL's decoder and cross layers): the same
-//         two walks with each row split over a quad of threads (D / 4
-//         columns a thread, dot products summed by two shuffles) and the
-//         tiles in dynamic shared memory (bwd_dq_f32_split_kernel /
-//         bwd_dkv_f32_split_kernel, below), so nothing spills.
-//       - every other D (a Gemma-2B-wide Llama's 256 among them): that
-//         split body at a runtime D
-//         (bwd_dq_f32_rt_kernel / bwd_dkv_f32_rt_kernel), a quad a row up
-//         to D 128 and an octet (D / 8 columns a thread, three shuffles,
-//         32 rows a CTA) above, so that a thread holds at most 8 float4
-//         chunks of a row.
+//   * float32 at any D <= 256 with D % 8 == 0 (the tiny model's 16,
+//     float32 DiTs' 64 / 72, the reference's float32 defaults at 128, a
+//     Gemma-2B-wide Llama's 256): one body for both kernels and every D,
+//     in three TF32 passes on the tensor cores (mma_tf32.cuh: each operand
+//     split into a TF32 hi and lo, lo hi + hi lo + hi hi on mma.sync
+//     m16n8k8 into float32; the dropped lo lo is ~2^-22 of a product).  It
+//     replaces CUDA-core bodies (a row's dot products over 1, 4 or 8
+//     threads and their shuffles, one FMA per shared-memory read, loads not
+//     overlapped with compute) that ran 9-12x their bound.  Bound:
+//     operations, 14 D FLOPs a visible pair at a third of the 494.7 TFLOP/s
+//     TF32 rate, 165 TFLOP/s (the CUDA cores' 67 is 2.5x slower).
+//     mma.sync, not wgmma: wgmma takes TF32 only K-major, and dq = dS K,
+//     dV = P^T dO and dK = dS^T Q read K, dO and Q MN-major (a transposed
+//     copy in shared memory each), and its B operand comes only from
+//     shared memory, where the lo half would need a copy of its own;
+//     mma.sync keeps both operands in registers, where the split is made,
+//     and a scalar fragment load reads any layout.  A CTA is 8 warps in row
+//     groups of 16 rows: K5 128 queries (8 groups of one warp) up to D 128
+//     and 32 (2 groups of 4) above, with Q and dO resident; K6 64 keys (4
+//     groups of 2) up to D 128 and 32 above, with K and V resident, walking
+//     the G q heads x the 32-query tiles at or below the diagonal.  32-row
+//     tiles of the other side (K5 K / V, K6 Q / dO) stream by 16-byte
+//     cp.async into a ring of 3 stages (2 where shared memory is short),
+//     the next tiles' copies in flight under this one's products.  Tiles
+//     sit in shared memory as float32 rows D + 4 floats apart, so the
+//     scalar fragment loads hit 32 distinct banks.
+//       - phase A: the warps of a row group split the tile's 32 columns;
+//         each forms S and dP of its 16 rows x its slice (summed over D in
+//         partials of 32 columns), then P and dS in float32 (expf; masked
+//         pairs 0, so no exp(-inf - lse)), and writes them to shared memory
+//         in C-fragment order;
+//       - phase B: each warp reads its row group's fragments back as the A
+//         operand of its product (the k order permuted within each step of
+//         8 and B's rows read in that order: no shuffle): K5 all (D <= 128)
+//         or a quarter of dq's columns, K6 dV += P^T dO or dK += dS^T Q
+//         over all (D <= 128) or half of the columns.  A warp's column
+//         count is an instance's constant (CS tiles of 8, the least that
+//         covers its share of D): the products' loop has no guard, and the
+//         columns past D it forms from whatever lies beyond D in shared
+//         memory are never stored.
+//     Each 64-row block of streamed rows is summed apart and added to the
+//     running sum (K6: a 64-query tile of one q head, as the reference's
+//     block dots, flash_attention.py:336-341; one register summed over G x
+//     Sq terms in turn lay up to 2.2x the 1e-5 bar from float64 at B 4 x
+//     2048), and with ids every tile whose id range misses the CTA's is
+//     skipped.  Budgets: K6 at D 128 (64 keys): K / V 67,584 bytes, 3
+//     stages of Q / dO 101,376, P / dS 16,384 (185,344 in all); dk and dv
+//     with their tile sums 128 float32 registers a thread (249 in all, 0
+//     spilled); at D 256 (32 keys): 66,560 + 2 x 66,560 + 8,192 (207,872),
+//     each warp a half of dK or of dV.  K5 at D 128: Q / dO 135,168, 2
+//     stages 67,584, dS 16,384 (219,136), dq and its tile sum 128
+//     registers (255).  What holds them back: mma.sync's TF32 rate on an
+//     H100 is 324 TFLOP/s (chip_mma_rate.py), so three passes could run
+//     at 108, and these kernels reach a quarter of that.  Phase A's S and
+//     dP take most of a tile's time; 8 warps an SM (registers, shared
+//     memory) hide little of the loads' and products' latency; and above
+//     D 128 shared memory admits 32 rows a CTA, so every streamed byte
+//     serves 32 rows and the 4 warps of a row group each split the same 16
+//     rows' fragments.  A wgmma body on pre-split hi / lo tiles is the
+//     next step (ROADMAP).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -147,696 +189,399 @@
 #include <string.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace ptt;
 
-constexpr int kTile = 64;   // queries or keys per tile, both kernels
-
+#ifndef PTT_F16
 // ---------------------------------------------------------------------------
-// float32 on the CUDA cores (the tiny model's D = 16, float32 DiTs' 64 / 72)
+// float32: K5 / K6 in three TF32 passes on the tensor cores (mma.sync
+// m16n8k8, mma_tf32.cuh), one body for every D <= 256 with D % 8 == 0
 // ---------------------------------------------------------------------------
-constexpr int kF32Threads = kTile;   // one thread per row of the CTA's tile
+constexpr int kTcThreads = 256;    // 8 warps
+constexpr int kTcNS = 32;          // streamed rows a tile: K5 keys, K6 queries
+constexpr int kTcNT = kTcNS / 8;   // their k steps in phase B's products
+constexpr int kTcSum = 64;         // streamed rows a tile sum
+constexpr int kTcChunk = 4;        // k steps (32 columns of D) an S / dP sum
+constexpr int kTcRange = 64;       // tokens a segment range covers (q_rng)
 
-// K5 f32: thread = query row; K / V tiles of 64 keys in shared memory.
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const int* __restrict__ seg_q,
-                  const int* __restrict__ seg_kv, float* __restrict__ dq,
-                  int Sq, int Skv, int Hq, int Hkv, float scale, int causal) {
-  __shared__ float Ks[kTile][D], Vs[kTile][D];
-  __shared__ int Ss[kTile];
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, q0 = blockIdx.x * kTile, i = q0 + tid;
-  const int offset = Skv - Sq;
-  const bool live = i < Sq;
-  float qr[D], dor[D], acc[D];
-  float l = 0.f, dl = 0.f;
-  int sq = 0;
-#pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = dor[d] = acc[d] = 0.f;
-  if (live) {
-    const size_t row = (((size_t)b * Sq + i) * Hq + h) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = q[row + d];
-      dor[d] = dout[row + d];
-    }
-    l = lse[((size_t)b * Hq + h) * Sq + i];
-    dl = delta[((size_t)b * Hq + h) * Sq + i];
-    if (seg_q != nullptr) sq = seg_q[(size_t)b * Sq + i];
-  }
-  const int q_last = min(Sq, q0 + kTile) - 1;
-  const int kv_hi = causal ? min(Skv, q_last + offset + 1) : Skv;
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kTile) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < kTile * D; idx += kF32Threads) {
-      const int c = idx / D, d = idx - c * D, kc = kv0 + c;
-      const size_t g = (((size_t)b * Skv + kc) * Hkv + hk) * D + d;
-      Ks[c][d] = kc < Skv ? k[g] : 0.f;
-      Vs[c][d] = kc < Skv ? v[g] : 0.f;
-    }
-    if (seg_q != nullptr)
-      Ss[tid] = kv0 + tid < Skv ? seg_kv[(size_t)b * Skv + kv0 + tid] : 0;
-    __syncthreads();
-    if (!live) continue;
-    const int jn = min(kTile, kv_hi - kv0);
-    for (int j = 0; j < jn; ++j) {
-      const int kc = kv0 + j;
-      bool keep = !causal || kc <= i + offset;
-      if (seg_q != nullptr) keep = keep && Ss[j] == sq;
-      if (!keep) continue;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qr[d], Ks[j][d], s);
-        dp = fmaf(dor[d], Vs[j][d], dp);
-      }
-      const float p = expf(s * scale - l);
-      const float ds = p * (dp - dl) * scale;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[j][d], acc[d]);
-    }
-  }
-  if (live) {
-    float* o = dq + (((size_t)b * Sq + i) * Hq + h) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = acc[d];
-  }
-}
-
-// K6 f32: thread = key row; it walks the G q heads of its KV head and the
-// 64-query tiles that see any of the CTA's keys.
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const int* __restrict__ seg_q,
-                   const int* __restrict__ seg_kv, float* __restrict__ dk,
-                   float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
-                   float scale, int causal) {
-  __shared__ float Qs[kTile][D], Os[kTile][D];
-  __shared__ float Ls[kTile], Ds[kTile];
-  __shared__ int Ss[kTile];
-  const int hk = blockIdx.y, b = blockIdx.z, G = Hq / Hkv;
-  const int tid = threadIdx.x, kv0 = blockIdx.x * kTile, j = kv0 + tid;
-  const int offset = Skv - Sq;
-  const bool live = j < Skv;
-  float kr[D], vr[D], dka[D], dva[D];
-  int sk = 0;
-#pragma unroll
-  for (int d = 0; d < D; ++d) kr[d] = vr[d] = dka[d] = dva[d] = 0.f;
-  if (live) {
-    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kr[d] = k[row + d];
-      vr[d] = v[row + d];
-    }
-    if (seg_q != nullptr) sk = seg_kv[(size_t)b * Skv + j];
-  }
-  // queries i >= key - offset see the key: the first tile that can
-  int q_lo = causal ? max(0, kv0 - offset) : 0;
-  q_lo -= q_lo % kTile;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    for (int q0 = q_lo; q0 < Sq; q0 += kTile) {
-      __syncthreads();   // the previous tile's readers are done
-      for (int idx = tid; idx < kTile * D; idx += kF32Threads) {
-        const int r = idx / D, d = idx - r * D, qi = q0 + r;
-        const size_t g = (((size_t)b * Sq + qi) * Hq + h) * D + d;
-        Qs[r][d] = qi < Sq ? q[g] : 0.f;
-        Os[r][d] = qi < Sq ? dout[g] : 0.f;
-      }
-      {
-        const int qi = q0 + tid;
-        const size_t lr = ((size_t)b * Hq + h) * Sq + qi;
-        Ls[tid] = qi < Sq ? lse[lr] : 0.f;
-        Ds[tid] = qi < Sq ? delta[lr] : 0.f;
-        if (seg_q != nullptr)
-          Ss[tid] = qi < Sq ? seg_q[(size_t)b * Sq + qi] : 0;
-      }
-      __syncthreads();
-      if (!live) continue;
-      const int in = min(kTile, Sq - q0);
-      for (int r = 0; r < in; ++r) {
-        bool keep = !causal || j <= q0 + r + offset;
-        if (seg_q != nullptr) keep = keep && Ss[r] == sk;
-        if (!keep) continue;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(Qs[r][d], kr[d], s);
-          dp = fmaf(Os[r][d], vr[d], dp);
-        }
-        const float p = expf(s * scale - Ls[r]);
-        const float ds = p * (dp - Ds[r]) * scale;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          dva[d] = fmaf(p, Os[r][d], dva[d]);
-          dka[d] = fmaf(ds, Qs[r][d], dka[d]);
-        }
-      }
-    }
-  }
-  if (live) {
-    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[row + d] = dka[d];
-      dv[row + d] = dva[d];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 at D = 128 (the reference's float32 default configurations): a
-// row split across a quad of threads
-// ---------------------------------------------------------------------------
-// One thread a row would hold 3 D (K5) or 4 D (K6) floats of it in
-// registers, 384 / 512 at D = 128, and stage two 64 x D tiles in static
-// shared memory, 64 KB, past the 48 KB limit.  Here the 4 threads of a
-// quad (lanes 4r..4r+3 of a warp) share row r: thread g of the quad owns
-// the float4 chunks c = g + 4 e (e < D / 16) of every D-float row it
-// touches -- columns [4c, 4c + 4) -- so each chunk has exactly one owner
-// and the quad's chunks at step e are 16 contiguous floats (one broadcast
-// 64-byte shared-memory read for the 8 quads of a warp, all on one key or
-// query row).  A thread's partial dot products over its D / 4 columns are
-// summed over the quad by two xor shuffles (1, then 2), whose sums are the
-// same bits on all four threads, so p and dS -- and the row's masks --
-// agree within the quad.  The tiles live in dynamic shared memory (2 x 64
-// x D floats, 64 KB at D = 128, opted in past 48 KB).  Registers: 3 x D /
-// 4 (K5) or 4 x D / 4 (K6) floats a thread, 96 / 128 at D = 128.
-constexpr int kQuad = 4;                        // threads a row
-constexpr int kSplitThreads = kTile * kQuad;    // 256
-
-// float4 chunks of a row a thread owns
-template <int D>
-struct SplitChunks {
-  static_assert(D % (4 * kQuad) == 0, "D / 4 chunks split over a quad");
-  static constexpr int value = D / (4 * kQuad);
+// the C entries' arguments, passed to the kernels by value
+struct TcArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;
+  const float* delta;
+  const int* seg_q;
+  const int* seg_kv;
+  const int* q_rng;
+  const int* kv_rng;
+  float* o1;   // K5: dq; K6: dk
+  float* o2;   // K6: dv
+  int Sq, Skv, Hq, Hkv, D;
+  float scale;
+  int causal;
 };
 
-// the quad's sum of a thread's partial: the same bits on its 4 threads
-__device__ __forceinline__ float quad_sum(unsigned mask, float x) {
-  x += __shfl_xor_sync(mask, x, 1);
-  return x + __shfl_xor_sync(mask, x, 2);
+// a tile's row stride in floats: D + 4, so that stride / 4 is odd (D % 8
+// == 0) and the fragment loads of 8 rows x 4 columns (phase A) and of 4
+// row pairs x 8 columns (phase B's B operand) hit 32 distinct banks
+__host__ __device__ constexpr int tc_ld(int D) { return D + 4; }
+
+// a CTA's dynamic shared memory: two resident tiles of BR rows, ST stages
+// of two streamed tiles of kTcNS rows, and the exchange of dS (K6: P too)
+__host__ __device__ constexpr int tc_smem(bool dkv, int br, int st, int D) {
+  return (2 * br * tc_ld(D) + st * 2 * kTcNS * tc_ld(D) +
+          (dkv ? 2 : 1) * br * kTcNS) * 4;
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void add4(float4 x, float4& acc) {
-  acc.x += x.x;
-  acc.y += x.y;
-  acc.z += x.z;
-  acc.w += x.w;
-}
-
-__device__ __forceinline__ void axpy4(float s, float4 x, float4& acc) {
-  acc.x = fmaf(s, x.x, acc.x);
-  acc.y = fmaf(s, x.y, acc.y);
-  acc.z = fmaf(s, x.z, acc.z);
-  acc.w = fmaf(s, x.w, acc.w);
-}
-
-// a 64-row tile of (rows, H, D) float32 rows [r0, r0 + 64) of head h into
-// shared memory [64][D], rows at or past n zero
-template <int D>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
-                                           float* dst, int b, int r0, int n,
-                                           int H, int h, int tid) {
-  for (int idx = tid; idx < kTile * D / 4; idx += kSplitThreads) {
-    const int r = idx / (D / 4), c = idx - r * (D / 4), gr = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < n)
-      x = __ldg(reinterpret_cast<const float4*>(
-          src + (((size_t)b * n + gr) * H + h) * D) + c);
-    reinterpret_cast<float4*>(dst)[idx] = x;
-  }
-}
-
-// K5 f32 split: quad = query row; K / V tiles of 64 keys in shared memory.
-template <int D>
-__global__ void __launch_bounds__(kSplitThreads)
-bwd_dq_f32_split_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ seg_q,
-                        const int* __restrict__ seg_kv,
-                        float* __restrict__ dq, int Sq, int Skv, int Hq,
-                        int Hkv, float scale, int causal) {
-  constexpr int kC = SplitChunks<D>::value;
-  extern __shared__ __align__(16) float fsm[];
-  float* Ks = fsm;                                     // [kTile][D]
-  float* Vs = Ks + kTile * D;                          // [kTile][D]
-  int* Ss = reinterpret_cast<int*>(Vs + kTile * D);    // [kTile]
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, g = tid & (kQuad - 1);
-  const unsigned quad = 0xfu << (tid & 28);
-  const int q0 = blockIdx.x * kTile, i = q0 + tid / kQuad;
-  const int offset = Skv - Sq;
-  const bool live = i < Sq;
-  float4 qr[kC], dor[kC], acc[kC];
-  float l = 0.f, dl = 0.f;
-  int sq = 0;
-#pragma unroll
-  for (int e = 0; e < kC; ++e)
-    qr[e] = dor[e] = acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (live) {
-    const size_t row = (((size_t)b * Sq + i) * Hq + h) * D;
-    const float4* qp = reinterpret_cast<const float4*>(q + row);
-    const float4* op = reinterpret_cast<const float4*>(dout + row);
-#pragma unroll
-    for (int e = 0; e < kC; ++e) {
-      qr[e] = __ldg(qp + g + kQuad * e);
-      dor[e] = __ldg(op + g + kQuad * e);
-    }
-    l = lse[((size_t)b * Hq + h) * Sq + i];
-    dl = delta[((size_t)b * Hq + h) * Sq + i];
-    if (seg_q != nullptr) sq = seg_q[(size_t)b * Sq + i];
-  }
-  const int q_last = min(Sq, q0 + kTile) - 1;
-  const int kv_hi = causal ? min(Skv, q_last + offset + 1) : Skv;
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kTile) {
-    __syncthreads();   // the previous tile's readers are done
-    stage_rows<D>(k, Ks, b, kv0, Skv, Hkv, hk, tid);
-    stage_rows<D>(v, Vs, b, kv0, Skv, Hkv, hk, tid);
-    if (seg_q != nullptr && tid < kTile)
-      Ss[tid] = kv0 + tid < Skv ? seg_kv[(size_t)b * Skv + kv0 + tid] : 0;
-    __syncthreads();
-    if (!live) continue;   // the quad's row: uniform across the quad
-    const int jn = min(kTile, kv_hi - kv0);
-    for (int j = 0; j < jn; ++j) {
-      const int kc = kv0 + j;
-      bool keep = !causal || kc <= i + offset;
-      if (seg_q != nullptr) keep = keep && Ss[j] == sq;
-      if (!keep) continue;
-      const float4* kj = reinterpret_cast<const float4*>(Ks + j * D);
-      const float4* vj = reinterpret_cast<const float4*>(Vs + j * D);
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int e = 0; e < kC; ++e) {
-        s = dot4(qr[e], kj[g + kQuad * e], s);
-        dp = dot4(dor[e], vj[g + kQuad * e], dp);
-      }
-      s = quad_sum(quad, s);
-      dp = quad_sum(quad, dp);
-      const float p = expf(s * scale - l);
-      const float ds = p * (dp - dl) * scale;
-#pragma unroll
-      for (int e = 0; e < kC; ++e) axpy4(ds, kj[g + kQuad * e], acc[e]);
-    }
-  }
-  if (live) {
-    float4* o = reinterpret_cast<float4*>(dq + (((size_t)b * Sq + i) * Hq +
-                                                h) * D);
-#pragma unroll
-    for (int e = 0; e < kC; ++e) o[g + kQuad * e] = acc[e];
-  }
-}
-
-// K6 f32 split: quad = key row; it walks the G q heads of its KV head and
-// the 64-query tiles that see any of the CTA's keys, dk / dv summed over
-// the group in float32 registers.
-template <int D>
-__global__ void __launch_bounds__(kSplitThreads)
-bwd_dkv_f32_split_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_kv,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int Sq, int Skv, int Hq, int Hkv, float scale,
-                         int causal) {
-  constexpr int kC = SplitChunks<D>::value;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                                     // [kTile][D]
-  float* Os = Qs + kTile * D;                          // [kTile][D]
-  float* Ls = Os + kTile * D;                          // [kTile]
-  float* Ds = Ls + kTile;                              // [kTile]
-  int* Ss = reinterpret_cast<int*>(Ds + kTile);        // [kTile]
-  const int hk = blockIdx.y, b = blockIdx.z, G = Hq / Hkv;
-  const int tid = threadIdx.x, g = tid & (kQuad - 1);
-  const unsigned quad = 0xfu << (tid & 28);
-  const int kv0 = blockIdx.x * kTile, j = kv0 + tid / kQuad;
-  const int offset = Skv - Sq;
-  const bool live = j < Skv;
-  float4 kr[kC], vr[kC], dka[kC], dva[kC];
-  int sk = 0;
-#pragma unroll
-  for (int e = 0; e < kC; ++e)
-    kr[e] = vr[e] = dka[e] = dva[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (live) {
-    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
-    const float4* kp = reinterpret_cast<const float4*>(k + row);
-    const float4* vp = reinterpret_cast<const float4*>(v + row);
-#pragma unroll
-    for (int e = 0; e < kC; ++e) {
-      kr[e] = __ldg(kp + g + kQuad * e);
-      vr[e] = __ldg(vp + g + kQuad * e);
-    }
-    if (seg_q != nullptr) sk = seg_kv[(size_t)b * Skv + j];
-  }
-  // queries i >= key - offset see the key: the first tile that can
-  int q_lo = causal ? max(0, kv0 - offset) : 0;
-  q_lo -= q_lo % kTile;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    for (int q0 = q_lo; q0 < Sq; q0 += kTile) {
-      __syncthreads();   // the previous tile's readers are done
-      stage_rows<D>(q, Qs, b, q0, Sq, Hq, h, tid);
-      stage_rows<D>(dout, Os, b, q0, Sq, Hq, h, tid);
-      if (tid < kTile) {
-        const int qi = q0 + tid;
-        const size_t lr = ((size_t)b * Hq + h) * Sq + qi;
-        Ls[tid] = qi < Sq ? lse[lr] : 0.f;
-        Ds[tid] = qi < Sq ? delta[lr] : 0.f;
-        if (seg_q != nullptr)
-          Ss[tid] = qi < Sq ? seg_q[(size_t)b * Sq + qi] : 0;
-      }
-      __syncthreads();
-      if (!live) continue;   // the quad's row: uniform across the quad
-      const int in = min(kTile, Sq - q0);
-      for (int r = 0; r < in; ++r) {
-        bool keep = !causal || j <= q0 + r + offset;
-        if (seg_q != nullptr) keep = keep && Ss[r] == sk;
-        if (!keep) continue;
-        const float4* qr = reinterpret_cast<const float4*>(Qs + r * D);
-        const float4* orr = reinterpret_cast<const float4*>(Os + r * D);
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int e = 0; e < kC; ++e) {
-          s = dot4(qr[g + kQuad * e], kr[e], s);
-          dp = dot4(orr[g + kQuad * e], vr[e], dp);
-        }
-        s = quad_sum(quad, s);
-        dp = quad_sum(quad, dp);
-        const float p = expf(s * scale - Ls[r]);
-        const float ds = p * (dp - Ds[r]) * scale;
-#pragma unroll
-        for (int e = 0; e < kC; ++e) {
-          axpy4(p, orr[g + kQuad * e], dva[e]);
-          axpy4(ds, qr[g + kQuad * e], dka[e]);
-        }
-      }
-    }
-  }
-  if (live) {
-    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
-    float4* kp = reinterpret_cast<float4*>(dk + row);
-    float4* vp = reinterpret_cast<float4*>(dv + row);
-#pragma unroll
-    for (int e = 0; e < kC; ++e) {
-      kp[g + kQuad * e] = dka[e];
-      vp[g + kQuad * e] = dva[e];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32 at every other D <= 256 with D % 8 == 0: the split body at a
-// runtime D
-// ---------------------------------------------------------------------------
-// The same two walks with D an argument and a row split over T threads (a
-// group: lanes T r..T r + T - 1 of a warp): thread g owns the float4 chunks
-// c = g + T e (e < C) with c < D / 4, every chunk of a row one owner (D is
-// a multiple of 8, so a chunk lies wholly below D); a thread's registers
-// hold C chunks, those past D zero and never read or written.  A dot
-// product is summed over the group by log2(T) xor shuffles (1, 2, 4),
-// whose sums are the same bits on every thread of the group: each step
-// adds the same two floats on both partners, in either order, and float
-// addition commutes.  T = 4 (a quad, C = 8: D <= 128, 64 rows a CTA) as
-// the D 128 instance above; T = 8 above D 128 (C = 8: D <= 256), where a
-// quad would hold 3 D / 4 (K5) or 4 D / 4 (K6) floats a thread, 192 / 256
-// at D 256: an octet holds 96 / 128, and a CTA of kSplitThreads owns 32
-// rows.  The staged tiles are 64 x D floats with rows D floats apart (2 x
-// 64 KB at D 256, opted in past 48 KB).  K6 sums each 64-query tile's
-// terms apart and adds the tile's sum to dk / dv, as the reference adds
-// each block's dot (flash_attention.py:336-341).  One register a column
-// summed over G x Sq terms in turn (16384 at B 4 x 2048, G 8), as the
-// constant-D instances above sum, lies 2.0-6.5e-5 from the float64 plain
-// version at B 4 x 2048 causal and B 2 x 2048 packed, past the 1e-5 bar;
-// the tile sums lie 3.3-8.8e-6 from it, the float32 plain version
-// 0.65-3.0e-5 (chip_f32_bwd_accuracy.py on an H100).
-template <int T>
-struct Group {
-  static_assert(T == 4 || T == 8, "a row is split over 4 or 8 threads");
-  static constexpr int kRows = kSplitThreads / T;   // rows a CTA
-  // the group's lanes in the warp's mask
-  static __device__ __forceinline__ unsigned mask(int tid) {
-    return ((1u << T) - 1) << (tid & (32 - T));
-  }
-  // the group's sum of a thread's partial: the same bits on its T threads
-  static __device__ __forceinline__ float sum(unsigned m, float x) {
-#pragma unroll
-    for (int o = 1; o < T; o <<= 1) x += __shfl_xor_sync(m, x, o);
-    return x;
-  }
-};
-
-// stage_rows at a runtime D (rows D floats apart)
-__device__ __forceinline__ void stage_rows_rt(const float* __restrict__ src,
-                                              float* dst, int b, int r0,
-                                              int n, int H, int h, int D,
-                                              int tid) {
-  const int c4 = D / 4;
-  for (int idx = tid; idx < kTile * c4; idx += kSplitThreads) {
+// cp.async of rows [r0, r0 + n) of head h of a (B, S, H, D) float32 tensor
+// into a tile of rows tc_ld(D) apart, rows at or past S zero
+__device__ __forceinline__ void tc_stage(const float* __restrict__ src,
+                                         float* dst, int b, int r0, int n,
+                                         int S, int H, int h, int D,
+                                         int tid) {
+  const int c4 = D / 4, ld = tc_ld(D);
+  for (int idx = tid; idx < n * c4; idx += kTcThreads) {
     const int r = idx / c4, c = idx - r * c4, gr = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < n)
-      x = __ldg(reinterpret_cast<const float4*>(
-          src + (((size_t)b * n + gr) * H + h) * D) + c);
-    reinterpret_cast<float4*>(dst)[idx] = x;
+    const bool in = gr < S;
+    cp_async16(dst + r * ld + 4 * c,
+               src + (((size_t)b * S + (in ? gr : 0)) * H + h) * D + 4 * c,
+               in ? 16 : 0);
   }
 }
 
-// K5 f32 at a runtime D: group = query row; K / V tiles of 64 keys in
-// shared memory.
-template <int T, int C>
-__global__ void __launch_bounds__(kSplitThreads)
-bwd_dq_f32_rt_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ seg_q,
-                     const int* __restrict__ seg_kv, float* __restrict__ dq,
-                     int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                     int causal) {
-  using Grp = Group<T>;
-  extern __shared__ __align__(16) float fsm[];
-  float* Ks = fsm;                                     // [kTile][D]
-  float* Vs = Ks + kTile * D;                          // [kTile][D]
-  int* Ss = reinterpret_cast<int*>(Vs + kTile * D);    // [kTile]
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, g = tid & (T - 1);
-  const unsigned grp = Grp::mask(tid);
-  const int q0 = blockIdx.x * Grp::kRows, i = q0 + tid / T;
-  const int offset = Skv - Sq, nc = D / 4;
-  const bool live = i < Sq;
-  float4 qr[C], dor[C], acc[C];
-  float l = 0.f, dl = 0.f;
-  int sq = 0;
-#pragma unroll
-  for (int e = 0; e < C; ++e)
-    qr[e] = dor[e] = acc[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (live) {
-    const size_t row = (((size_t)b * Sq + i) * Hq + h) * D;
-    const float4* qp = reinterpret_cast<const float4*>(q + row);
-    const float4* op = reinterpret_cast<const float4*>(dout + row);
-#pragma unroll
-    for (int e = 0; e < C; ++e) {
-      if (g + T * e < nc) {
-        qr[e] = __ldg(qp + g + T * e);
-        dor[e] = __ldg(op + g + T * e);
-      }
-    }
-    l = lse[((size_t)b * Hq + h) * Sq + i];
-    dl = delta[((size_t)b * Hq + h) * Sq + i];
-    if (seg_q != nullptr) sq = seg_q[(size_t)b * Sq + i];
+// the [min, max] segment id of rows [r0, r1] from their 64-token ranges
+// (rng: (B, n, 2))
+__device__ __forceinline__ int2 tc_range(const int* rng, int b, int n,
+                                         int r0, int r1) {
+  int2 out = make_int2(0x7fffffff, -0x7fffffff - 1);
+  for (int t = r0 / kTcRange; t <= r1 / kTcRange; ++t) {
+    const int* r = rng + ((size_t)b * n + t) * 2;
+    out.x = min(out.x, __ldg(r));
+    out.y = max(out.y, __ldg(r + 1));
   }
-  const int q_last = min(Sq, q0 + Grp::kRows) - 1;
-  const int kv_hi = causal ? min(Skv, q_last + offset + 1) : Skv;
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kTile) {
-    __syncthreads();   // the previous tile's readers are done
-    stage_rows_rt(k, Ks, b, kv0, Skv, Hkv, hk, D, tid);
-    stage_rows_rt(v, Vs, b, kv0, Skv, Hkv, hk, D, tid);
-    if (seg_q != nullptr && tid < kTile)
-      Ss[tid] = kv0 + tid < Skv ? seg_kv[(size_t)b * Skv + kv0 + tid] : 0;
-    __syncthreads();
-    if (!live) continue;   // the group's row: uniform across the group
-    const int jn = min(kTile, kv_hi - kv0);
-    for (int j = 0; j < jn; ++j) {
-      const int kc = kv0 + j;
-      bool keep = !causal || kc <= i + offset;
-      if (seg_q != nullptr) keep = keep && Ss[j] == sq;
-      if (!keep) continue;
-      const float4* kj = reinterpret_cast<const float4*>(Ks + j * D);
-      const float4* vj = reinterpret_cast<const float4*>(Vs + j * D);
-      float s = 0.f, dp = 0.f;
+  return out;
+}
+
+// acc[j] += X Y_j^T over one k step of 8 columns: X the warp's 16 rows, Y_j
+// the 8 streamed rows of column tile j; x and y point at the lane's (row g,
+// column t) of the step in X and in Y_0
+template <int NTA>
+__device__ __forceinline__ void tc_scores(float (&acc)[NTA][4],
+                                          const float* x, const float* y,
+                                          int ld) {
+  uint32_t ah[4], al[4];
+  split_tf32(x[0], ah[0], al[0]);
+  split_tf32(x[8 * ld], ah[1], al[1]);
+  split_tf32(x[4], ah[2], al[2]);
+  split_tf32(x[8 * ld + 4], ah[3], al[3]);
 #pragma unroll
-      for (int e = 0; e < C; ++e) {
-        if (g + T * e < nc) {
-          s = dot4(qr[e], kj[g + T * e], s);
-          dp = dot4(dor[e], vj[g + T * e], dp);
-        }
-      }
-      s = Grp::sum(grp, s);
-      dp = Grp::sum(grp, dp);
-      const float p = expf(s * scale - l);
-      const float ds = p * (dp - dl) * scale;
-#pragma unroll
-      for (int e = 0; e < C; ++e)
-        if (g + T * e < nc) axpy4(ds, kj[g + T * e], acc[e]);
-    }
-  }
-  if (live) {
-    float4* o = reinterpret_cast<float4*>(dq + (((size_t)b * Sq + i) * Hq +
-                                                h) * D);
-#pragma unroll
-    for (int e = 0; e < C; ++e)
-      if (g + T * e < nc) o[g + T * e] = acc[e];
+  for (int j = 0; j < NTA; ++j) {
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(y[j * 8 * ld], bh0, bl0);
+    split_tf32(y[j * 8 * ld + 4], bh1, bl1);
+    mma_3xtf32(acc[j], ah, al, bh0, bh1, bl0, bl1);
   }
 }
 
-// K6 f32 at a runtime D: group = key row; it walks the G q heads of its KV
-// head and the 64-query tiles that see any of the CTA's keys, dk / dv
-// summed over the group in float32 registers.
-template <int T, int C>
-__global__ void __launch_bounds__(kSplitThreads)
-bwd_dkv_f32_rt_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const int* __restrict__ seg_q,
-                      const int* __restrict__ seg_kv,
-                      float* __restrict__ dk, float* __restrict__ dv, int Sq,
-                      int Skv, int Hq, int Hkv, int D, float scale,
-                      int causal) {
-  using Grp = Group<T>;
-  extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                                     // [kTile][D]
-  float* Os = Qs + kTile * D;                          // [kTile][D]
-  float* Ls = Os + kTile * D;                          // [kTile]
-  float* Ds = Ls + kTile;                              // [kTile]
-  int* Ss = reinterpret_cast<int*>(Ds + kTile);        // [kTile]
-  const int hk = blockIdx.y, b = blockIdx.z, G = Hq / Hkv;
-  const int tid = threadIdx.x, g = tid & (T - 1);
-  const unsigned grp = Grp::mask(tid);
-  const int kv0 = blockIdx.x * Grp::kRows, j = kv0 + tid / T;
-  const int offset = Skv - Sq, nc = D / 4;
-  const bool live = j < Skv;
-  float4 kr[C], vr[C], dka[C], dva[C];
-  int sk = 0;
-#pragma unroll
-  for (int e = 0; e < C; ++e)
-    kr[e] = vr[e] = dka[e] = dva[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (live) {
-    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
-    const float4* kp = reinterpret_cast<const float4*>(k + row);
-    const float4* vp = reinterpret_cast<const float4*>(v + row);
-#pragma unroll
-    for (int e = 0; e < C; ++e) {
-      if (g + T * e < nc) {
-        kr[e] = __ldg(kp + g + T * e);
-        vr[e] = __ldg(vp + g + T * e);
-      }
-    }
-    if (seg_q != nullptr) sk = seg_kv[(size_t)b * Skv + j];
+// The body of both kernels.  K5 (DKV false): a CTA's rows are BR queries of
+// q head blockIdx.y, its streamed tiles the keys of their KV head; K6: BR
+// keys of KV head blockIdx.y, the streamed tiles the queries of the
+// group's G q heads in turn.  X1 / X2 are the resident rows (K5 Q / dO, K6
+// K / V), Y1 / Y2 the streamed ones (K5 K / V, K6 Q / dO).  Each warp owns
+// 16 rows (row group rg) and, of the WPR warps sharing them:
+//   phase A: the slice wi of the tile's 32 streamed columns: S = X1 Y1^T
+//     and dP = X2 Y2^T, each summed in partials of 4 k steps, then P and dS
+//     (K5 with lse / delta of its rows in registers, K6 of the columns),
+//     written to shared memory in C-fragment order;
+//   phase B: K5 the column chunk wi of dq += dS K; K6 dV += P^T dO (the
+//     first WPR / 2 warps) or dK += dS^T Q (the rest), in column chunks of
+//     CS tiles: the exchanged C fragments are the A operand under the
+//     permuted k order of mma_tf32.cuh.
+// Phase B sums each 64-row block of streamed rows apart and adds the
+// block's sum to the output's running sum (K6: a 64-query tile of one q
+// head, as the reference's block dots; K5: 64 keys).
+template <bool DKV, int BR, int ST, int CS>
+__device__ __forceinline__ void tc_body(const TcArgs& a) {
+  constexpr int RG = BR / 16;              // row groups, 16 rows each
+  constexpr int WPR = 8 / RG;              // warps a row group
+  constexpr int NTA = kTcNS / WPR / 8;     // phase A: column tiles a warp
+  static_assert(!DKV || WPR >= 2, "K6 splits dV and dK between warps");
+  extern __shared__ __align__(16) float tsm[];
+  const int D = a.D, ld = tc_ld(D), nk = D / 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / WPR, wi = warp % WPR;
+  const int G = a.Hq / a.Hkv, off = a.Skv - a.Sq, b = blockIdx.z;
+  const bool seg = a.seg_q != nullptr;
+  // rows: K5 queries of q head hr, K6 keys of KV head hr
+  const int hr = blockIdx.y, hk = DKV ? hr : hr / G;
+  const int Sr = DKV ? a.Skv : a.Sq, Ss = DKV ? a.Sq : a.Skv;
+  const int Hr = DKV ? a.Hkv : a.Hq, Hs = DKV ? a.Hq : a.Hkv;
+  // K5 starts the heaviest (last) query tiles, K6 the heaviest (first) keys
+  const int r0 = (DKV ? blockIdx.x : gridDim.x - 1 - blockIdx.x) * BR;
+  const int r_last = min(Sr, r0 + BR) - 1;
+  // the walk: tiles u < nT of kTcNS streamed rows.  K5: keys up to the
+  // last one a row sees; K6: u = gi nQ + (query tile - qt_lo) over the G q
+  // heads, from the first query tile that sees a key of the CTA
+  int nT, nQ = 1, qt_lo = 0;
+  if (DKV) {
+    const int s_lo = a.causal ? max(0, r0 - off) : 0;
+    qt_lo = s_lo / kTcNS;
+    nQ = max(0, (a.Sq + kTcNS - 1) / kTcNS - qt_lo);
+    nT = G * nQ;
+  } else {
+    const int hi = a.causal ? min(a.Skv, r_last + off + 1) : a.Skv;
+    nT = hi > 0 ? (hi + kTcNS - 1) / kTcNS : 0;
   }
-  // queries i >= key - offset see the key: the first tile that can
-  int q_lo = causal ? max(0, kv0 - offset) : 0;
-  q_lo -= q_lo % kTile;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    for (int q0 = q_lo; q0 < Sq; q0 += kTile) {
-      __syncthreads();   // the previous tile's readers are done
-      stage_rows_rt(q, Qs, b, q0, Sq, Hq, h, D, tid);
-      stage_rows_rt(dout, Os, b, q0, Sq, Hq, h, D, tid);
-      if (tid < kTile) {
-        const int qi = q0 + tid;
-        const size_t lr = ((size_t)b * Hq + h) * Sq + qi;
-        Ls[tid] = qi < Sq ? lse[lr] : 0.f;
-        Ds[tid] = qi < Sq ? delta[lr] : 0.f;
-        if (seg_q != nullptr)
-          Ss[tid] = qi < Sq ? seg_q[(size_t)b * Sq + qi] : 0;
-      }
-      __syncthreads();
-      if (!live) continue;   // the group's row: uniform across the group
-      // the tile's sums, added to dk / dv once the tile is walked
-      float4 tk[C], tv[C];
+  const int ns_blk = (Ss + kTcSum - 1) / kTcSum;
+  auto tile_s0 = [&](int u) {
+    return (DKV ? qt_lo + u % nQ : u) * kTcNS;
+  };
+  auto tile_head = [&](int u) { return DKV ? hk * G + u / nQ : hk; };
+  auto block_of = [&](int u) {
+    return (DKV ? u / nQ : 0) * ns_blk + tile_s0(u) / kTcSum;
+  };
+  // with ids, tiles whose id range misses the CTA's are skipped
+  int2 rr = make_int2(0, 0);
+  if (seg)
+    rr = tc_range(DKV ? a.kv_rng : a.q_rng, b,
+                  (Sr + kTcRange - 1) / kTcRange, r0, r_last);
+  auto live = [&](int u) {
+    if (!seg) return true;
+    const int s0 = tile_s0(u);
+    const int2 xr = tc_range(DKV ? a.q_rng : a.kv_rng, b,
+                             (Ss + kTcRange - 1) / kTcRange, s0,
+                             min(Ss, s0 + kTcNS) - 1);
+    return xr.y >= rr.x && xr.x <= rr.y;
+  };
+  auto next_live = [&](int u) {
+    while (u < nT && !live(u)) ++u;
+    return u;
+  };
+
+  float* X1 = tsm;                        // [BR][ld]
+  float* X2 = X1 + BR * ld;
+  float* ring = X2 + BR * ld;             // ST x {Y1, Y2} [kTcNS][ld]
+  float4* xP = reinterpret_cast<float4*>(ring + ST * 2 * kTcNS * ld);
+  float4* xS = DKV ? xP + BR * kTcNS / 4 : xP;   // [RG][kTcNT][32] float4
+  auto load_tile = [&](int u, int slot) {
+    float* y = ring + slot * 2 * kTcNS * ld;
+    const int s0 = tile_s0(u), h = tile_head(u);
+    tc_stage(DKV ? a.q : a.k, y, b, s0, kTcNS, Ss, Hs, h, D, tid);
+    tc_stage(DKV ? a.dout : a.v, y + kTcNS * ld, b, s0, kTcNS, Ss, Hs, h, D,
+             tid);
+  };
+
+  // the lane's rows rA and rA + 8: K5 their lse, delta; with ids their ids
+  const int rA = r0 + rg * 16 + g;
+  float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+  int sr[2] = {0, 0};
 #pragma unroll
-      for (int e = 0; e < C; ++e)
-        tk[e] = tv[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int in = min(kTile, Sq - q0);
-      for (int r = 0; r < in; ++r) {
-        bool keep = !causal || j <= q0 + r + offset;
-        if (seg_q != nullptr) keep = keep && Ss[r] == sk;
-        if (!keep) continue;
-        const float4* qrow = reinterpret_cast<const float4*>(Qs + r * D);
-        const float4* orow = reinterpret_cast<const float4*>(Os + r * D);
-        float s = 0.f, dp = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = rA + 8 * i;
+    if (row >= Sr) continue;
+    if (!DKV) {
+      const size_t li = ((size_t)b * a.Hq + hr) * a.Sq + row;
+      lr[i] = __ldg(a.lse + li);
+      dr[i] = __ldg(a.delta + li);
+    }
+    if (seg)
+      sr[i] = __ldg(DKV ? a.seg_kv + (size_t)b * a.Skv + row
+                        : a.seg_q + (size_t)b * a.Sq + row);
+  }
+  // phase B's product: K6 role 0 dV (A = P, B = dO), role 1 dK (dS, Q)
+  constexpr int HALF = WPR > 1 ? WPR / 2 : 1;   // K6: warps a role
+  const int role = DKV ? wi / HALF : 1;
+  const int chunk = DKV ? wi % HALF : wi;
+  // the warp's CS column tiles of its output, those past D formed from
+  // whatever lies past the streamed rows' D columns and never stored
+  const int n_lo = chunk * CS, n_cnt = max(0, min(CS, nk - n_lo));
+  const float4* xA = role == 0 ? xP : xS;
+  float acc[CS][4], tsum[CS][4];
 #pragma unroll
-        for (int e = 0; e < C; ++e) {
-          if (g + T * e < nc) {
-            s = dot4(qrow[g + T * e], kr[e], s);
-            dp = dot4(orow[g + T * e], vr[e], dp);
+  for (int j = 0; j < CS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = tsum[j][e] = 0.f;
+
+  int cur = next_live(0);
+  if (cur < nT) {
+    tc_stage(DKV ? a.k : a.q, X1, b, r0, BR, Sr, Hr, hr, D, tid);
+    tc_stage(DKV ? a.v : a.dout, X2, b, r0, BR, Sr, Hr, hr, D, tid);
+  }
+  int fetch = cur;
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (fetch < nT) {
+      load_tile(fetch, s);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+  }
+  int slot = 0;
+  while (cur < nT) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();   // tile cur is in; the last tile's readers are done
+    if (fetch < nT) {
+      load_tile(fetch, slot == 0 ? ST - 1 : slot - 1);
+      fetch = next_live(fetch + 1);
+    }
+    cp_async_commit();
+    const float* Y1 = ring + slot * 2 * kTcNS * ld;
+    const float* Y2 = Y1 + kTcNS * ld;
+    const int s0 = tile_s0(cur), hs = tile_head(cur);
+    const int c0 = wi * NTA * 8;   // the warp's slice of the tile's columns
+    // ---- phase A: S and dP of the slice, summed over D in partials of
+    // kTcChunk k steps (the last one shorter where D % 32 != 0)
+    float s[NTA][4], dp[NTA][4];
+#pragma unroll
+    for (int j = 0; j < NTA; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    {
+      const float* x1 = X1 + (rg * 16 + g) * ld + t;
+      const float* x2 = X2 + (rg * 16 + g) * ld + t;
+      const float* y1 = Y1 + (c0 + g) * ld + t;
+      const float* y2 = Y2 + (c0 + g) * ld + t;
+      for (int k0 = 0; k0 < nk; k0 += kTcChunk) {
+        float ts[NTA][4], tp[NTA][4];
+#pragma unroll
+        for (int j = 0; j < NTA; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ts[j][e] = tp[j][e] = 0.f;
+        if (k0 + kTcChunk <= nk) {
+#pragma unroll
+          for (int kk = k0; kk < k0 + kTcChunk; ++kk) {
+            tc_scores<NTA>(ts, x1 + 8 * kk, y1 + 8 * kk, ld);
+            tc_scores<NTA>(tp, x2 + 8 * kk, y2 + 8 * kk, ld);
+          }
+        } else {
+          for (int kk = k0; kk < nk; ++kk) {
+            tc_scores<NTA>(ts, x1 + 8 * kk, y1 + 8 * kk, ld);
+            tc_scores<NTA>(tp, x2 + 8 * kk, y2 + 8 * kk, ld);
           }
         }
-        s = Grp::sum(grp, s);
-        dp = Grp::sum(grp, dp);
-        const float p = expf(s * scale - Ls[r]);
-        const float ds = p * (dp - Ds[r]) * scale;
 #pragma unroll
-        for (int e = 0; e < C; ++e) {
-          if (g + T * e < nc) {
-            axpy4(p, orow[g + T * e], tv[e]);
-            axpy4(ds, qrow[g + T * e], tk[e]);
+        for (int j = 0; j < NTA; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] += ts[j][e];
+            dp[j][e] += tp[j][e];
           }
+      }
+    }
+    // then P and dS, 0 where masked (no exp(-inf - lse))
+#pragma unroll
+    for (int j = 0; j < NTA; ++j) {
+      // the lane's two columns of tile j: K6 their lse, delta and ids
+      float lc[2] = {0.f, 0.f}, dc[2] = {0.f, 0.f};
+      int sc[2] = {0, 0};
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int col = s0 + c0 + 8 * j + 2 * t + x;
+        if (col >= Ss) continue;
+        if (DKV) {
+          const size_t li = ((size_t)b * a.Hq + hs) * a.Sq + col;
+          lc[x] = __ldg(a.lse + li);
+          dc[x] = __ldg(a.delta + li);
+        }
+        if (seg)
+          sc[x] = __ldg(DKV ? a.seg_q + (size_t)b * a.Sq + col
+                            : a.seg_kv + (size_t)b * a.Skv + col);
+      }
+      float pv[4], dv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rA + 8 * (e >> 1);
+        const int col = s0 + c0 + 8 * j + 2 * t + (e & 1);
+        const int qi = DKV ? col : row, kj = DKV ? row : col;
+        bool vis = qi < a.Sq && kj < a.Skv && (!a.causal || kj <= qi + off);
+        if (seg) vis = vis && sr[e >> 1] == sc[e & 1];
+        const float l = DKV ? lc[e & 1] : lr[e >> 1];
+        const float dl = DKV ? dc[e & 1] : dr[e >> 1];
+        pv[e] = dv[e] = 0.f;
+        if (vis) {
+          pv[e] = expf(s[j][e] * a.scale - l);
+          dv[e] = pv[e] * (dp[j][e] - dl) * a.scale;
         }
       }
+      const int xi = (rg * kTcNT + wi * NTA + j) * 32 + lane;
+      if (DKV) xP[xi] = make_float4(pv[0], pv[1], pv[2], pv[3]);
+      xS[xi] = make_float4(dv[0], dv[1], dv[2], dv[3]);
+    }
+    __syncthreads();   // the row group's P / dS are in
+    // ---- phase B: the warp's columns of its output, summed over the tile
+    {
+      const float* yb = (role == 0 ? Y2 : Y1) + 2 * t * ld + n_lo * 8 + g;
 #pragma unroll
-      for (int e = 0; e < C; ++e) {
-        add4(tk[e], dka[e]);
-        add4(tv[e], dva[e]);
+      for (int kk = 0; kk < kTcNT; ++kk) {
+        const float4 c = xA[(rg * kTcNT + kk) * 32 + lane];
+        // the C fragment as the A fragment: k t <- column 2t, k t + 4 <-
+        // column 2t + 1 of the exchanged tile
+        uint32_t ah[4], al[4];
+        split_tf32(c.x, ah[0], al[0]);
+        split_tf32(c.z, ah[1], al[1]);
+        split_tf32(c.y, ah[2], al[2]);
+        split_tf32(c.w, ah[3], al[3]);
+        const float* y = yb + kk * 8 * ld;
+#pragma unroll
+        for (int j = 0; j < CS; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(y[j * 8], bh0, bl0);        // row 2t
+          split_tf32(y[j * 8 + ld], bh1, bl1);   // row 2t + 1
+          mma_3xtf32(tsum[j], ah, al, bh0, bh1, bl0, bl1);
+        }
       }
     }
+    const int nxt = next_live(cur + 1);
+    if (nxt >= nT || block_of(nxt) != block_of(cur)) {
+#pragma unroll
+      for (int j = 0; j < CS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[j][e] += tsum[j][e];
+          tsum[j][e] = 0.f;
+        }
+    }
+    cur = nxt;
+    slot = slot + 1 == ST ? 0 : slot + 1;
   }
-  if (live) {
-    const size_t row = (((size_t)b * Skv + j) * Hkv + hk) * D;
-    float4* kp = reinterpret_cast<float4*>(dk + row);
-    float4* vp = reinterpret_cast<float4*>(dv + row);
+  // the output: every row the CTA owns, zero where no pair was visible
+  float* out = DKV && role == 0 ? a.o2 : a.o1;   // K6 dv / dk, K5 dq
 #pragma unroll
-    for (int e = 0; e < C; ++e) {
-      if (g + T * e < nc) {
-        kp[g + T * e] = dka[e];
-        vp[g + T * e] = dva[e];
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = rA + 8 * i;
+    if (row >= Sr) continue;
+    float* o = out + (((size_t)b * Sr + row) * Hr + hr) * D + n_lo * 8 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < CS; ++j)
+      if (j < n_cnt)
+        *reinterpret_cast<float2*>(o + 8 * j) =
+            make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
   }
 }
+
+// K5 at float32: BR queries a CTA, ST stages of 32-key K / V tiles
+template <int BR, int ST, int CS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dq_tf32_kernel(const TcArgs a) {
+  tc_body<false, BR, ST, CS>(a);
+}
+
+// K6 at float32: BR keys a CTA, ST stages of 32-query Q / dO tiles
+template <int BR, int ST, int CS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dkv_tf32_kernel(const TcArgs a) {
+  tc_body<true, BR, ST, CS>(a);
+}
+
+#endif
+
 // ---------------------------------------------------------------------------
 // Hopper path: bfloat16, D <= 128 on 128-wide tiles (see the note at the top;
 // 128 < D <= 256: the 256-wide kernels further down)
@@ -2180,129 +1925,72 @@ cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
 bool wgmma_head_dim(int D) { return D >= 8 && D <= kBig && D % 8 == 0; }
 bool wide_head_dim(int D) { return D > kBig && D <= kWide && D % 8 == 0; }
 
-template <int D>
-cudaError_t launch_dq_f32(const float* q, const float* k, const float* v,
-                          const float* dout, const float* lse,
-                          const float* delta, const int* seg_q,
-                          const int* seg_kv, float* dq, int B, int Sq,
-                          int Skv, int Hq, int Hkv, float scale, int causal,
-                          cudaStream_t st) {
-  const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
-  bwd_dq_f32_kernel<D><<<grid, kF32Threads, 0, st>>>(
-      q, k, v, dout, lse, delta, seg_q, seg_kv, dq, Sq, Skv, Hq, Hkv, scale,
-      causal);
-  return cudaSuccess;
-}
-
-// the split kernels' dynamic shared memory: two 64 x D float tiles and
-// three 64-entry rows (K5 uses one)
-template <int D>
-constexpr int split_smem() {
-  return (2 * kTile * D + 3 * kTile) * 4;
-}
-
-template <typename Kernel>
-cudaError_t split_attributes(Kernel kernel, int smem) {
-  // above 48 KB only after opting in (per device, so on every launch)
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <int D>
-cudaError_t launch_dq_f32_split(const float* q, const float* k,
-                                const float* v, const float* dout,
-                                const float* lse, const float* delta,
-                                const int* seg_q, const int* seg_kv,
-                                float* dq, int B, int Sq, int Skv, int Hq,
-                                int Hkv, float scale, int causal,
-                                cudaStream_t st) {
-  constexpr int smem = split_smem<D>();
-  const cudaError_t e = split_attributes(bwd_dq_f32_split_kernel<D>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + kTile - 1) / kTile, Hq, B);
-  bwd_dq_f32_split_kernel<D><<<grid, kSplitThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, seg_q, seg_kv, dq, Sq, Skv, Hq, Hkv, scale,
-      causal);
-  return cudaSuccess;
-}
-
-template <int D>
-cudaError_t launch_dkv_f32_split(const float* q, const float* k,
-                                 const float* v, const float* dout,
-                                 const float* lse, const float* delta,
-                                 const int* seg_q, const int* seg_kv,
-                                 float* dk, float* dv, int B, int Sq,
-                                 int Skv, int Hq, int Hkv, float scale,
-                                 int causal, cudaStream_t st) {
-  constexpr int smem = split_smem<D>();
-  const cudaError_t e = split_attributes(bwd_dkv_f32_split_kernel<D>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
-  bwd_dkv_f32_split_kernel<D><<<grid, kSplitThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, Sq, Skv, Hq, Hkv,
-      scale, causal);
-  return cudaSuccess;
-}
-
-template <int D>
-cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
-                           const float* dout, const float* lse,
-                           const float* delta, const int* seg_q,
-                           const int* seg_kv, float* dk, float* dv, int B,
-                           int Sq, int Skv, int Hq, int Hkv, float scale,
-                           int causal, cudaStream_t st) {
-  const dim3 grid((Skv + kTile - 1) / kTile, Hkv, B);
-  bwd_dkv_f32_kernel<D><<<grid, kF32Threads, 0, st>>>(
-      q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, Sq, Skv, Hq, Hkv,
-      scale, causal);
-  return cudaSuccess;
-}
-
 #ifndef PTT_F16
-// the runtime-D split kernels' shared memory at head dim D
-int split_rt_smem(int D) { return (2 * kTile * D + 3 * kTile) * 4; }
-
-// K5 at a float32 head dim D its constant-D instances leave out: a quad a
-// row up to D 128, an octet above
-cudaError_t launch_dq_f32_rt(const float* q, const float* k, const float* v,
-                             const float* dout, const float* lse,
-                             const float* delta, const int* seg_q,
-                             const int* seg_kv, float* dq, int B, int Sq,
-                             int Skv, int Hq, int Hkv, int D, float scale,
-                             int causal, cudaStream_t st) {
-  const bool wide = D > 128;
-  const auto kernel = wide ? bwd_dq_f32_rt_kernel<8, 8>
-                           : bwd_dq_f32_rt_kernel<4, 8>;
-  const int rows = wide ? Group<8>::kRows : Group<4>::kRows;
-  const int smem = split_rt_smem(D);
-  const cudaError_t e = split_attributes(kernel, smem);
+template <typename Kernel>
+cudaError_t tc_launch(Kernel kernel, int smem, dim3 grid, const TcArgs& a,
+                      cudaStream_t st) {
+  // above 48 KB only after opting in (per device, so on every launch)
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + rows - 1) / rows, Hq, B);
-  kernel<<<grid, kSplitThreads, smem, st>>>(q, k, v, dout, lse, delta, seg_q,
-                                            seg_kv, dq, Sq, Skv, Hq, Hkv, D,
-                                            scale, causal);
+  kernel<<<grid, kTcThreads, smem, st>>>(a);
   return cudaSuccess;
 }
 
-// K6 likewise
-cudaError_t launch_dkv_f32_rt(const float* q, const float* k, const float* v,
-                              const float* dout, const float* lse,
-                              const float* delta, const int* seg_q,
-                              const int* seg_kv, float* dk, float* dv, int B,
-                              int Sq, int Skv, int Hq, int Hkv, int D,
-                              float scale, int causal, cudaStream_t st) {
-  const bool wide = D > 128;
-  const auto kernel = wide ? bwd_dkv_f32_rt_kernel<8, 8>
-                           : bwd_dkv_f32_rt_kernel<4, 8>;
-  const int rows = wide ? Group<8>::kRows : Group<4>::kRows;
-  const int smem = split_rt_smem(D);
-  const cudaError_t e = split_attributes(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Skv + rows - 1) / rows, Hkv, B);
-  kernel<<<grid, kSplitThreads, smem, st>>>(q, k, v, dout, lse, delta, seg_q,
-                                            seg_kv, dk, dv, Sq, Skv, Hq, Hkv,
-                                            D, scale, causal);
-  return cudaSuccess;
+// K5 (dkv false) or K6 at float32 (the budgets in the note at the top):
+// above D 128 32 rows a CTA and 2 stages; up to it K6 64 keys and 3
+// stages, K5 128 queries and 3 stages (2 above D 96).  A warp's output
+// chunk is CS column tiles, the least instance that covers its share of
+// D / 8 (no guard in the products' loop).
+cudaError_t launch_bwd_tf32(bool dkv, const TcArgs& a, int B,
+                            cudaStream_t st) {
+  const bool wide = a.D > kBig;
+  const int br = wide ? 32 : 64, rows = dkv ? a.Skv : a.Sq;
+  const dim3 grid((rows + br - 1) / br, dkv ? a.Hkv : a.Hq, B);
+  // column chunks an output: K5's the warps of a row group, K6's half
+  const int chunks = (wide ? 4 : 2) / (dkv ? 2 : 1);
+  const int cs = (a.D / 8 + chunks - 1) / chunks;
+  const int smem = tc_smem(dkv, br, wide ? 2 : 3, a.D);
+  if (dkv && wide)
+    return cs <= 12 ? tc_launch(bwd_dkv_tf32_kernel<32, 2, 12>, smem, grid,
+                                a, st)
+                    : tc_launch(bwd_dkv_tf32_kernel<32, 2, 16>, smem, grid,
+                                a, st);
+  if (dkv)
+    return cs <= 8    ? tc_launch(bwd_dkv_tf32_kernel<64, 3, 8>, smem, grid,
+                                  a, st)
+           : cs <= 12 ? tc_launch(bwd_dkv_tf32_kernel<64, 3, 12>, smem, grid,
+                                  a, st)
+                      : tc_launch(bwd_dkv_tf32_kernel<64, 3, 16>, smem, grid,
+                                  a, st);
+  if (wide)
+    return cs <= 6 ? tc_launch(bwd_dq_tf32_kernel<32, 2, 6>, smem, grid, a,
+                               st)
+                   : tc_launch(bwd_dq_tf32_kernel<32, 2, 8>, smem, grid, a,
+                               st);
+  // K5 up to D 128: a warp's 16 rows and every column of dq
+  const dim3 grid5((a.Sq + 127) / 128, a.Hq, B);
+  const int nt = a.D / 8;
+  return nt <= 8    ? tc_launch(bwd_dq_tf32_kernel<128, 3, 8>,
+                                tc_smem(false, 128, 3, a.D), grid5, a, st)
+         : nt <= 12 ? tc_launch(bwd_dq_tf32_kernel<128, 3, 12>,
+                                tc_smem(false, 128, 3, a.D), grid5, a, st)
+                    : tc_launch(bwd_dq_tf32_kernel<128, 2, 16>,
+                                tc_smem(false, 128, 2, a.D), grid5, a, st);
+}
+
+// the float32 kernels' arguments from the C entries'
+TcArgs f32_args(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const int* seg_q, const int* seg_kv, const int* q_rng,
+                const int* kv_rng, void* o1, void* o2, int Sq, int Skv,
+                int Hq, int Hkv, int D, float scale, int causal) {
+  return TcArgs{static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v),
+                static_cast<const float*>(dout), lse, delta, seg_q, seg_kv,
+                q_rng, kv_rng, static_cast<float*>(o1),
+                static_cast<float*>(o2), Sq, Skv, Hq, Hkv, D, scale,
+                causal};
 }
 #endif
 
@@ -2311,15 +1999,13 @@ cudaError_t launch_dkv_f32_rt(const float* q, const float* k, const float* v,
 // K5: dq (B, Sq, Hq, D) in q's dtype.  dtype: the library's 16-bit code
 // (kE16Code: 0 = bfloat16, or 2 = float16 in the library compiled with
 // -DPTT_F16; any D <= 256 with D % 8 == 0: the Hopper kernels, 128-wide
-// tiles up to 128, 256-wide above), 1 = float32 (the same head dims on
-// the CUDA cores: D = 16, 64 or 72 one thread a row, D = 128 a quad a row,
-// any other D a quad (D <= 128) or an octet a row at a runtime D; not in
-// the float16 library): K2's head dims.  Any other pair, or only one of seg_q /
-// seg_kv, returns cudaErrorInvalidValue.  Tensors contiguous and 16-byte
-// aligned (seg_q / seg_kv too).  With segment ids the 16-bit build also
-// takes q_rng (B, ceil(Sq / 64), 2) and kv_rng (B, ceil(Skv / 64), 2):
-// the int32 [min, max] id of every 64 tokens (segment_tile_ranges); the
-// float32 build ignores them.  Returns cudaGetLastError().
+// tiles up to 128, 256-wide above), 1 = float32 (the same head dims, the
+// 3xTF32 kernels; not in the float16 library): K2's head dims.  Any other
+// pair, or only one of seg_q / seg_kv, returns cudaErrorInvalidValue.
+// Tensors contiguous and 16-byte aligned (seg_q / seg_kv too).  With
+// segment ids every build also takes q_rng (B, ceil(Sq / 64), 2) and
+// kv_rng (B, ceil(Skv / 64), 2): the int32 [min, max] id of every 64
+// tokens (segment_tile_ranges).  Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -2337,11 +2023,6 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const int* skv = static_cast<const int*>(seg_kv);
   const int* qr = static_cast<const int*>(q_rng);
   const int* kr = static_cast<const int*>(kv_rng);
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fo = static_cast<const float*>(dout);
-  float* fdq = static_cast<float*>(dq);
   cudaError_t e;
   if (dtype == kE16Code && wide_head_dim(D) && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
@@ -2364,21 +2045,13 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                nullptr, nullptr, dq, B, Sq, Skv, Hq, Hkv, D,
                                scale, causal, st);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch_dq_f32<16>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
-                          Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 64)
-    e = launch_dq_f32<64>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
-                          Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 72)
-    e = launch_dq_f32<72>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
-                          Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 128)
-    e = launch_dq_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq,
-                                 Skv, Hq, Hkv, scale, causal, st);
   else if (dtype == 1 && (wgmma_head_dim(D) || wide_head_dim(D)))
-    e = launch_dq_f32_rt(fq, fk, fv, fo, l, dl, sq, skv, fdq, B, Sq, Skv, Hq,
-                         Hkv, D, scale, causal, st);
+    e = (sq != nullptr && (qr == nullptr || kr == nullptr))
+            ? cudaErrorInvalidValue
+            : launch_bwd_tf32(false, f32_args(q, k, v, dout, l, dl, sq, skv,
+                                              qr, kr, dq, nullptr, Sq, Skv,
+                                              Hq, Hkv, D, scale, causal),
+                              B, st);
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -2406,12 +2079,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   const int* skv = static_cast<const int*>(seg_kv);
   const int* qr = static_cast<const int*>(q_rng);
   const int* kr = static_cast<const int*>(kv_rng);
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fo = static_cast<const float*>(dout);
-  float* fdk = static_cast<float*>(dk);
-  float* fdv = static_cast<float*>(dv);
   cudaError_t e;
   if (dtype == kE16Code && wide_head_dim(D) && sq != nullptr)
     e = (qr == nullptr || kr == nullptr)
@@ -2436,21 +2103,13 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                 nullptr, nullptr, dk, dv, B, Sq, Skv, Hq,
                                 Hkv, D, scale, causal, st);
 #ifndef PTT_F16
-  else if (dtype == 1 && D == 16)
-    e = launch_dkv_f32<16>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
-                           Skv, Hq, Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 64)
-    e = launch_dkv_f32<64>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
-                           Skv, Hq, Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 72)
-    e = launch_dkv_f32<72>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
-                           Skv, Hq, Hkv, scale, causal, st);
-  else if (dtype == 1 && D == 128)
-    e = launch_dkv_f32_split<128>(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv,
-                                  B, Sq, Skv, Hq, Hkv, scale, causal, st);
   else if (dtype == 1 && (wgmma_head_dim(D) || wide_head_dim(D)))
-    e = launch_dkv_f32_rt(fq, fk, fv, fo, l, dl, sq, skv, fdk, fdv, B, Sq,
-                          Skv, Hq, Hkv, D, scale, causal, st);
+    e = (sq != nullptr && (qr == nullptr || kr == nullptr))
+            ? cudaErrorInvalidValue
+            : launch_bwd_tf32(true, f32_args(q, k, v, dout, l, dl, sq, skv,
+                                             qr, kr, dk, dv, Sq, Skv, Hq,
+                                             Hkv, D, scale, causal),
+                              B, st);
 #endif
   else
     e = cudaErrorInvalidValue;

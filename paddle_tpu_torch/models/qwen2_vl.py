@@ -28,8 +28,9 @@ model computes its tower in bf16 (K2 at bf16 D 64).  The reference
 multiplies float32 pixel values by its bf16 ``patch_proj`` and JAX
 promotes the product, and with it the tower, to float32; at float32 the
 two are one computation (ROADMAP §C).  On the card every attention kernel
-has a float32 build at head_dim 128 (K1, K2, K5 / K6 on CUDA-core
-bodies), so the float32 model at the default widths runs there, as do
+has a float32 build at head_dim 128 (K1, K2 on CUDA-core bodies, K5 /
+K6 in three TF32 passes on the tensor cores), so the float32 model at the
+default widths runs there, as do
 the bf16 model and the tiny float32 one (head_dim 16).
 """
 

@@ -11,7 +11,8 @@ above the diagonal skipped, and zero gradient for a row with every key
 masked.
 
 Bound on the H100: operations (14 * D FLOPs a visible query-key pair on
-the bf16 tensor cores).  What the design does about it: the bfloat16
+the bf16 tensor cores; at float32, three TF32 passes: 494.7 / 3 = 165
+TFLOP/s).  What the design does about it: the bfloat16
 builds are Hopper kernels — ``wgmma`` for all four products, TMA into
 ``mbarrier`` rings fed by a producer warp, two consumer warpgroups.  Up to
 D 128 (128-wide tiles whose columns past D TMA fills with zeros: DiT-XL/2's
@@ -29,18 +30,23 @@ past D; 1.88x the useful products at D 136): K5 keeps its 128 queries
 between its consumer warpgroups — one owns dV, the other dK, both
 computing S^T (S^T done twice: 5 products a tile pair for 4).  Two
 kernels and no atomics: every gradient is the same from run to run.  With
-segment ids both skip the tile pairs whose id ranges miss
+segment ids every build skips the tile pairs whose id ranges miss
 (:func:`backward_tile_ranges`).  float16 runs the bf16 bodies compiled
 over float16 (a library of its own, ``_build.VARIANTS``), each row of dS
 rounded in a power-of-two unit of its own so that a loss-scaled dS
 cannot pass float16's 65504 (``csrc/flash_attention_bwd.cu``).  Head dims
 (``BWD_HEAD_DIMS``): K2's set, every dtype at any D <= 256 with D % 8 ==
-0.  float32 runs on the CUDA cores: at 16, 64 and 72 kernels of one
-thread a row, at 128 kernels that split each row over a quad of threads
-(D / 4 columns a thread, the dot products summed by two shuffles; nothing
-spills), and at every other D the split body at a runtime D, a quad a row
-up to 128 and an octet above (D / 8 columns a thread, three shuffles, the
-same bits on each thread of the group); any other pair raises naming
+0.  float32 runs one body for both kernels and every D on the tensor
+cores in three TF32 passes (``csrc/mma_tf32.cuh``: each operand split
+into a TF32 hi and lo, lo hi + hi lo + hi hi on ``mma.sync`` m16n8k8 into
+float32), replacing CUDA-core bodies that ran 9-12x their bound: 8 warps
+a CTA (K5 128 queries, K6 64 keys; 32 rows above D 128, where shared
+memory admits no more), the other side's 32-row tiles streaming by
+``cp.async`` through a ring of 2-3 stages; S / dP of a row group's
+slices, P / dS exchanged through shared memory in C-fragment order and
+used as the next product's A operand under a permuted k order; each
+64-row block of streamed rows summed apart (K6: a 64-query tile of one q
+head, as the reference's block dots).  Any other pair raises naming
 ROADMAP B2, before a launch.  Each wrapper counts its launches in
 ``.launches``, and in ``.by_shape`` by (head_dim, Sq, Skv, causal).
 """
@@ -53,7 +59,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import (HALF_DTYPES, _build, check_attention_args, library,
+from . import (_build, check_attention_args, library,
                require_cuda, stream_ptr)
 from .flash_attention import (FWD_HEAD_DIMS, _ptr, segment_args,
                               segment_tile_ranges)
@@ -123,12 +129,12 @@ def backward_tile_ranges(segment_ids: torch.Tensor,
 
 def _segments(q, skv, segment_ids, kv_segment_ids):
     """(seg_q, seg_kv, q_rng, kv_rng) for the C entry: int32 ids on q's
-    device, 16-byte aligned (the 16-bit kernels load them by TMA), and for
-    the 16-bit builds their tile ranges."""
+    device, 16-byte aligned (the 16-bit kernels load them by TMA), and
+    their tile ranges."""
     b, sq = q.shape[:2]
     seg_q, seg_kv = segment_args(NAME, segment_ids, kv_segment_ids, b, sq,
                                  skv, q.device)
-    if seg_q is None or q.dtype not in HALF_DTYPES:
+    if seg_q is None:
         return seg_q, seg_kv, None, None
     seg_q, seg_kv = (t.clone() if t.data_ptr() % 16 else t
                      for t in (seg_q, seg_kv))

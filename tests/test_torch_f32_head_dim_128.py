@@ -7,12 +7,12 @@ attention (``LlamaConfig()``: hidden 4096 over 32 heads; the decoder of
     <= 256 with D % 8 == 0 -- the 16-bit set (the wrappers' launches at
     128 are in ``tests/test_torch_dit.py``, beside the other head dims';
     the other float32 head dims in ``tests/test_torch_f32_head_dims.py``);
-  * a model of the float32 head_dim-128 body of K5 / K6
-    (``csrc/flash_attention_bwd.cu``, ``bwd_dq_f32_split_kernel`` /
-    ``bwd_dkv_f32_split_kernel``): each of the D columns owned by exactly
-    one thread of a row's quad, each dot product summed over all of them
-    by the two xor shuffles (the same bits on the quad's four threads),
-    and the walk's dq / dk / dv equal to the plain backward at 1e-5;
+  * the m16n8k8 TF32 fragments of the float32 K5 / K6 at every D
+    (``csrc/mma_tf32.cuh``; ``tests/torch_tf32_model.py``): A, B and C
+    each owned once, a C fragment used as an A fragment under the permuted
+    k order (one step, and the exchange of a tile's 32 columns through
+    shared memory), bank-free fragment loads at a row stride of D + 4, and
+    the float32 wrappers handing the segment ranges to the kernel;
   * a narrow float32 Qwen2-VL whose decoder attends at head_dim 128
     (hidden 256 over 2 heads, the tower at 64) against the JAX package's:
     greedy and beam tokens identical, train-step losses rtol 1e-5 and
@@ -51,6 +51,8 @@ from paddle_tpu_torch.ops.cuda import flash_attention_bwd as k56
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
+import torch_tf32_model as tf32m
+
 D = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
 PARAM_TOL = dict(rtol=1e-5, atol=5e-5)
@@ -77,108 +79,131 @@ def test_tables_take_float32_head_dim_128_only_among_new_dims():
     assert 128 in k56.BWD_HEAD_DIMS[torch.float32]
 
 
-# ---- a model of K5 / K6's float32 head_dim-128 body ---------------------------
+# ---- the m16n8k8 TF32 fragments of the float32 K5 / K6 (every D) ----------
 
-QUAD = 4
-
-
-def owned_columns(g: int, d: int):
-    """The columns thread ``g`` of a quad owns: float4 chunks g + 4 e."""
-    return [4 * c + x for e in range(d // (4 * QUAD))
-            for c in (g + QUAD * e,) for x in range(4)]
+LANES = 32
+FRAGMENTS = {"A": (tf32m.a_map, 4, (16, 8)), "B": (tf32m.b_map, 2, (8, 8)),
+             "C": (tf32m.c_map, 4, (16, 8))}
 
 
-def quad_sum(parts):
-    """The kernel's two xor shuffles over the quad's partials (float32):
-    each thread's result, in the order the kernel adds."""
-    one = [np.float32(parts[g] + parts[g ^ 1]) for g in range(QUAD)]
-    return [np.float32(one[g] + one[g ^ 2]) for g in range(QUAD)]
+@pytest.mark.parametrize("which", sorted(FRAGMENTS))
+def test_fragment_owns_each_element_once(which):
+    fmap, regs, shape = FRAGMENTS[which]
+    owned = [fmap(lane, r) for lane in range(LANES) for r in range(regs)]
+    assert sorted(owned) == [(i, j) for i in range(shape[0])
+                             for j in range(shape[1])]
 
 
-@pytest.mark.parametrize("d", [16, 64, 128])
-def test_quad_owns_each_column_once(d):
-    owned = [owned_columns(g, d) for g in range(QUAD)]
-    flat = sorted(c for cols in owned for c in cols)
-    assert flat == list(range(d))                 # each column exactly once
-    assert all(len(cols) == d // QUAD for cols in owned)
-    # at step e the quad reads 16 contiguous floats (one broadcast read)
-    for e in range(d // 16):
-        assert sorted(owned[g][4 * e + x] for g in range(QUAD)
-                      for x in range(4)) == list(range(16 * e, 16 * e + 16))
+def _warp_product(a_regs, b_regs):
+    """The 16 x 8 product the tensor cores form from each lane's A and B
+    registers, placed by the PTX maps."""
+    a, b = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(LANES):
+        for r in range(4):
+            a[tf32m.a_map(lane, r)] = a_regs[lane][r]
+        for r in range(2):
+            b[tf32m.b_map(lane, r)] = b_regs[lane][r]
+    return a @ b
 
 
-def test_quad_sum_covers_every_column_with_one_result():
-    rng = np.random.default_rng(0)
-    a, b = rng.normal(size=(2, D)).astype(np.float32)
-    parts = [np.float32(np.dot(a[owned_columns(g, D)], b[owned_columns(g, D)]))
-             for g in range(QUAD)]
-    sums = quad_sum(parts)
-    assert len({s.tobytes() for s in sums}) == 1   # the same bits x 4
-    np.testing.assert_allclose(sums[0], np.dot(a.astype(np.float64), b),
-                               rtol=1e-5)
-    # a column left out changes the sum: every column is in it
-    for col in (0, 77, D - 1):
-        c = b.copy()
-        c[col] += 1.0
-        part2 = [np.float32(np.dot(a[owned_columns(g, D)],
-                                   c[owned_columns(g, D)]))
-                 for g in range(QUAD)]
-        assert quad_sum(part2)[0] != sums[0]
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_c_fragment_is_an_a_fragment_under_the_permuted_k(seed):
+    """A C tile (P or dS, 16 x 8) kept in its lanes' registers as A (a[0..3]
+    = c[0], c[2], c[1], c[3]) times B read at rows 2t and 2t + 1 equals the
+    unpermuted product: the sum over k only changes order."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(-9, 10, size=(16, 8)).astype(np.float64)
+    y = rng.integers(-9, 10, size=(8, 8)).astype(np.float64)
+    c_regs = [[p[tf32m.c_map(lane, r)] for r in range(4)]
+              for lane in range(LANES)]
+    a_regs = [[c_regs[lane][tf32m.C_AS_A[r]] for r in range(4)]
+              for lane in range(LANES)]
+    b_regs = [[y[2 * (lane % 4), lane // 4], y[2 * (lane % 4) + 1, lane // 4]]
+              for lane in range(LANES)]
+    np.testing.assert_array_equal(_warp_product(a_regs, b_regs), p @ y)
+    # the same as the map: B's k row t is the C tile's column perm_k(t)
+    for k in range(8):
+        assert tf32m.perm_k(k) == ([2 * t for t in range(4)]
+                                   + [2 * t + 1 for t in range(4)])[k]
 
 
-def _split_backward(q, k, v, do, lse, delta, causal, scale):
-    """K5 and K6's float32 head_dim-128 walk in numpy: per (query, key)
-    pair, each quad thread's partial over its own columns, the quad sum,
-    p and dS, then each thread's update of its own columns; K6 sums the
-    GQA group's q heads into the KV head's dk / dv."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    g_ = hq // hkv
-    off = skv - sq
-    cols = [owned_columns(g, d) for g in range(QUAD)]
-    dq = np.zeros_like(q)
-    dk, dv = np.zeros_like(k), np.zeros_like(v)
-    for bi in range(b):
-        for h in range(hq):
-            hk = h // g_
-            for i in range(sq):
-                for j in range(skv):
-                    if causal and j > i + off:
-                        continue
-                    s = quad_sum([np.dot(q[bi, i, h, c], k[bi, j, hk, c])
-                                  for c in cols])[0]
-                    dp = quad_sum([np.dot(do[bi, i, h, c], v[bi, j, hk, c])
-                                   for c in cols])[0]
-                    p = np.float32(np.exp(np.float32(s * scale
-                                                      - lse[bi, h, i])))
-                    ds = np.float32(p * (dp - delta[bi, h, i]) * scale)
-                    for c in cols:
-                        dq[bi, i, h, c] += ds * k[bi, j, hk, c]
-                        dv[bi, j, hk, c] += p * do[bi, i, h, c]
-                        dk[bi, j, hk, c] += ds * q[bi, i, h, c]
-    return dq, dk, dv
+@pytest.mark.parametrize("wpr", [2, 4])
+def test_exchange_round_trip_over_a_tile(wpr):
+    """Phase A's WPR warps of a row group write their slices' C fragments
+    at (rg * 4 + wi * NTA + j) * 32 + lane; phase B reads k step kk at (rg
+    * 4 + kk) * 32 + lane: over the tile's 32 columns the warp forms P Y."""
+    rng = np.random.default_rng(wpr)
+    rg_count, nta = 8 // wpr, 4 // wpr
+    p = rng.integers(-9, 10, size=(rg_count, 16, 32)).astype(np.float64)
+    y = rng.integers(-9, 10, size=(32, 8)).astype(np.float64)
+    buf = {}
+    for rg in range(rg_count):
+        for wi in range(wpr):
+            for j in range(nta):
+                col0 = (wi * nta + j) * 8
+                for lane in range(LANES):
+                    buf[(rg * 4 + wi * nta + j) * 32 + lane] = [
+                        p[rg][r, col0 + c] for r, c in
+                        (tf32m.c_map(lane, x) for x in range(4))]
+    assert len(buf) == rg_count * 4 * LANES
+    for rg in range(rg_count):
+        got = np.zeros((16, 8))
+        for kk in range(4):
+            regs = [buf[(rg * 4 + kk) * 32 + lane] for lane in range(LANES)]
+            a_regs = [[c[tf32m.C_AS_A[r]] for r in range(4)] for c in regs]
+            b_regs = [[y[kk * 8 + 2 * (lane % 4), lane // 4],
+                       y[kk * 8 + 2 * (lane % 4) + 1, lane // 4]]
+                      for lane in range(LANES)]
+            got += _warp_product(a_regs, b_regs)
+        np.testing.assert_array_equal(got, p[rg] @ y)
 
 
-@pytest.mark.parametrize("causal,sq,skv", [(True, 7, 5), (False, 3, 6)])
-def test_split_walk_equals_plain_backward(causal, sq, skv):
-    """Causal GQA with dead rows (Sq > Skv) and a non-causal cross shape."""
-    rng = np.random.default_rng(1)
-    b, hq, hkv = 1, 4, 2
-    q, do = (rng.normal(size=(b, sq, hq, D)).astype(np.float32)
-             for _ in range(2))
-    k, v = (rng.normal(size=(b, skv, hkv, D)).astype(np.float32)
-            for _ in range(2))
-    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
-    out, lse = flash_attention_reference(tq, tk, tv, causal=causal)
-    delta = (tdo * out).sum(-1).transpose(1, 2)
-    got = _split_backward(q, k, v, do, lse.numpy(), delta.numpy(), causal,
-                          D ** -0.5)
-    want = flash_attention_bwd_reference(tq, tk, tv, out, lse, tdo,
-                                         causal=causal)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(g, w.numpy(), **TOL, err_msg=name)
-    if causal:
-        assert not got[0][:, :sq - skv].any()      # dead rows: zero dq
+@pytest.mark.parametrize("d", [8, 64, 72, 96, 128, 136, 200, 256])
+def test_fragment_loads_hit_distinct_banks(d):
+    """Tiles sit D + 4 floats a row apart: each scalar fragment load of a
+    warp hits 32 distinct banks -- phase A's (row g, column t [+ 4]) of 8
+    rows, and phase B's B operand (rows 2t, 2t + 1, column g) of 4 row
+    pairs -- at any column offset."""
+    ld = d + 4
+    for c0 in (0, 8, d - 8):
+        for extra in (0, 4):
+            banks = {((lane // 4) * ld + lane % 4 + c0 + extra) % 32
+                     for lane in range(LANES)}
+            assert len(banks) == 32
+        for row in (0, 1):
+            banks = {((2 * (lane % 4) + row) * ld + lane // 4 + c0) % 32
+                     for lane in range(LANES)}
+            assert len(banks) == 32
+
+
+def test_float32_wrapper_hands_the_tile_ranges_to_the_kernel(monkeypatch):
+    """With segment ids the float32 K5 / K6 skip tile pairs by the 64-token
+    id ranges, as the 16-bit builds do: both wrappers pass q_rng / kv_rng."""
+    import paddle_tpu_torch.ops.cuda as pt_cuda
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(k56, "_lib", lambda dtype: Lib())
+    monkeypatch.setattr(k56, "require_cuda", lambda what, *t: None)
+    monkeypatch.setattr(k56, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(pt_cuda, "require_cuda", lambda what, *t: None)
+    monkeypatch.setattr(_dispatch, "use_kernel", lambda x: True)
+    q = torch.zeros(1, 130, 4, D)
+    k = torch.zeros(1, 130, 2, D)
+    lse = torch.zeros(1, 4, 130)
+    seg = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32), 44)[:130]
+                           [None])
+    k56.flash_attention_bwd_dq_cuda(q, k, k, q, lse, lse, causal=True,
+                                    segment_ids=seg)
+    k56.flash_attention_bwd_dkv_cuda(q, k, k, q, lse, lse, causal=True,
+                                     segment_ids=seg)
+    assert [c[0] for c in calls] == ["flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv"]
+    for _, args in calls:
+        assert all(a not in (None, 0) for a in args[6:10])   # ids, ranges
 
 
 # ---- a narrow float32 Qwen2-VL whose decoder attends at head_dim 128 ----------

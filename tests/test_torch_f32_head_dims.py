@@ -12,12 +12,16 @@ on the CPU.
     D): at EPL 1, 2, 4 and 8, the least that covers D in 32 lanes, each
     element of [0, D) is owned by one lane, no lane reads past D, and each
     lane's vector load is aligned to its width;
-  * a model of the float32 K5 / K6 split body at a runtime D
-    (``csrc/flash_attention_bwd.cu``, ``bwd_dq_f32_rt_kernel`` /
-    ``bwd_dkv_f32_rt_kernel``): at D % 16 == 8 over a quad and at 8
-    threads a row, each column owned once, the shuffle sum the same bits on
-    every thread of the group, and the walk's dq / dk / dv equal to the
-    plain backward at 1e-5;
+  * a model of the float32 K5 / K6 (``csrc/flash_attention_bwd.cu``
+    ``tc_body``, three TF32 passes on ``mma.sync``;
+    ``tests/torch_tf32_model.py``): ``cvt.rna.tf32.f32`` restated on bits
+    by the kernel's integer rounding (ties, signed zeros, subnormals, inf,
+    the largest finite value; a NaN still reaching the product) and by
+    value, the split's float32 accuracy, the tile walk of both
+    kernels at D 16-256 (64-row tile sums, the GQA group sum, causal with
+    dead rows, a non-causal cross shape, packed ids with tile-range skips)
+    within 1e-5 of the float64 plain backward, and a single TF32 pass
+    failing that bar;
   * the plain versions against the JAX package's Pallas kernels in
     interpret mode at float32 D 64, 96 and 136, 1e-5: cached decode
     attention in its four layouts at s = 1 and 5, flash attention forward
@@ -45,6 +49,8 @@ from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS
 from paddle_tpu_torch.ops.cuda import decode_attention as k1
 from paddle_tpu_torch.ops.cuda import flash_attention as k2
 from paddle_tpu_torch.ops.cuda import flash_attention_bwd as k56
+
+import torch_tf32_model as tf32m
 
 F32 = torch.float32
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -221,114 +227,177 @@ def test_k1_instances_by_head_dim(epl, ds):
     assert k1_epl(32) == 1 and k1_epl(8) == 1
 
 
-# ---- a model of K5 / K6's float32 split body at a runtime D -----------------
+# ---- the float32 K5 / K6: 3xTF32 (tests/torch_tf32_model.py) ---------------
 
-CHUNKS = 8    # float4 chunks a thread holds at most (the C template's C)
-
-
-def group_of(d: int) -> int:
-    """Threads a row: a quad up to D 128, an octet above."""
-    return 4 if d <= 128 else 8
-
-
-def owned_columns(g: int, d: int, t: int):
-    """The columns thread ``g`` of a ``t``-thread group owns: float4 chunks
-    g + t e (e < CHUNKS) below D."""
-    return [4 * c + x for e in range(CHUNKS) for c in (g + t * e,)
-            if c < d // 4 for x in range(4)]
-
-
-def group_sum(parts):
-    """The kernel's xor shuffles (1, 2, 4) over the group's partials in
-    float32: each thread's result, in the order the kernel adds."""
-    x = [np.float32(p) for p in parts]
-    o = 1
-    while o < len(x):
-        x = [np.float32(x[g] + x[g ^ o]) for g in range(len(x))]
-        o <<= 1
-    return x
+# cvt.rna.tf32.f32 on float32 bits: (input bits, output bits)
+RNA_CASES = {
+    "tie_rounds_away": (0x3F801000, 0x3F802000),
+    "negative_tie_rounds_away": (0xBF801000, 0xBF802000),
+    "below_tie": (0x3F800FFF, 0x3F800000),
+    "above_tie": (0x3F801001, 0x3F802000),
+    "carry_into_exponent": (0x3FFFF000, 0x40000000),
+    "plus_zero": (0x00000000, 0x00000000),
+    "minus_zero": (0x80000000, 0x80000000),
+    "subnormal_tie": (0x00001000, 0x00002000),
+    "smallest_subnormal": (0x00000001, 0x00000000),
+    "subnormal_to_normal": (0x007FF000, 0x00800000),
+    "largest_finite_to_inf": (0x7F7FFFFF, 0x7F800000),
+    "inf": (0x7F800000, 0x7F800000),
+    "minus_inf": (0xFF800000, 0xFF800000),
+}
 
 
-@pytest.mark.parametrize("d", [8, 24, 72, 120, 136, 200, 248, 256])
-def test_split_group_owns_each_column_once(d):
-    t = group_of(d)
-    owned = [owned_columns(g, d, t) for g in range(t)]
-    assert sorted(c for cols in owned for c in cols) == list(range(d))
-    assert max(len(cols) for cols in owned) <= 4 * CHUNKS
+def _bits(u):
+    return np.array([u], np.uint32).view(np.float32)
 
 
-@pytest.mark.parametrize("d", [72, 136, 200, 256])
-def test_group_sum_is_the_same_bits_on_every_thread(d):
-    t = group_of(d)
-    rng = np.random.default_rng(d)
-    for _ in range(20):
-        a, b = rng.normal(size=(2, d)).astype(np.float32)
-        parts = [np.float32(np.dot(a[owned_columns(g, d, t)],
-                                   b[owned_columns(g, d, t)]))
-                 for g in range(t)]
-        sums = group_sum(parts)
-        assert len({s.tobytes() for s in sums}) == 1
-        np.testing.assert_allclose(sums[0], np.dot(a.astype(np.float64), b),
-                                   rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("case", sorted(RNA_CASES))
+def test_tf32_rna_on_bits(case):
+    x, want = RNA_CASES[case]
+    got = tf32m.tf32_rna(_bits(x)).view(np.uint32)[0]
+    assert got == want, (case, hex(got), hex(want))
+    assert got & 0x1FFF == 0
 
 
-def _split_backward(q, k, v, do, lse, delta, causal, scale):
-    """K5 and K6's runtime-D walk in numpy: per (query, key) pair, each
-    group thread's partial over its own columns, the group sum, p and dS,
-    then each thread's update of its own columns; K6 sums the GQA group's
-    q heads into the KV head's dk / dv."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    t = group_of(d)
-    g_ = hq // hkv
-    off = skv - sq
-    cols = [owned_columns(g, d, t) for g in range(t)]
-    dq = np.zeros_like(q)
-    dk, dv = np.zeros_like(k), np.zeros_like(v)
-    for bi in range(b):
-        for h in range(hq):
-            hk = h // g_
-            for i in range(sq):
-                for j in range(skv):
-                    if causal and j > i + off:
-                        continue
-                    s = group_sum([np.dot(q[bi, i, h, c], k[bi, j, hk, c])
-                                   for c in cols])[0]
-                    dp = group_sum([np.dot(do[bi, i, h, c], v[bi, j, hk, c])
-                                    for c in cols])[0]
-                    p = np.float32(np.exp(np.float32(s * scale
-                                                      - lse[bi, h, i])))
-                    ds = np.float32(p * (dp - delta[bi, h, i]) * scale)
-                    for c in cols:
-                        dq[bi, i, h, c] += ds * k[bi, j, hk, c]
-                        dv[bi, j, hk, c] += p * do[bi, i, h, c]
-                        dk[bi, j, hk, c] += ds * q[bi, i, h, c]
-    return dq, dk, dv
+@pytest.mark.parametrize("nan", [0x7FC00000, 0x7F800001, 0x7FFFFFFF,
+                                 0xFFFFFFFF])
+def test_a_nan_reaches_the_product(nan):
+    """The integer rounding may turn a NaN's hi into a number; its lo is
+    NaN, so the three passes' product is NaN, as the float32 product."""
+    hi, lo = tf32m.split(_bits(nan))
+    assert np.isnan(hi[0]) or np.isnan(lo[0])
+    with np.errstate(invalid="ignore"):
+        got = tf32m.product(np.zeros((1, 1), np.float32),
+                            np.full((1, 8), _bits(nan)[0], np.float32),
+                            np.ones((8, 1), np.float32))
+    assert np.isnan(got[0, 0])
 
 
-@pytest.mark.parametrize("d", [72, 200])
-@pytest.mark.parametrize("causal,sq,skv", [(True, 7, 5), (False, 3, 6)])
-def test_split_walk_equals_plain_backward(d, causal, sq, skv):
-    """A quad at D 72 (D % 16 == 8: a thread of two holds one chunk more)
-    and an octet at 200; causal GQA with dead rows and a non-causal cross
-    shape."""
+def test_tf32_rna_is_rounding_to_ten_bits_ties_away():
+    """Against the same rounding done by value in float64 over every
+    exponent of the normal range."""
+    rng = np.random.default_rng(0)
+    x = (rng.uniform(1, 2, 4096) * 2.0 ** rng.integers(-120, 120, 4096)
+         * rng.choice([-1, 1], 4096)).astype(np.float32)
+    x[:64] = (1 + (np.arange(64) * 2 + 1) / 2.0 ** 11).astype(np.float32)
+    e = np.floor(np.log2(np.abs(x.astype(np.float64))))
+    ulp = 2.0 ** (e - 10)
+    want = np.sign(x) * np.floor(np.abs(x) / ulp + 0.5) * ulp
+    np.testing.assert_array_equal(tf32m.tf32_rna(x).astype(np.float64), want)
+
+
+def test_three_passes_keep_float32_accuracy():
+    """hi + lo is within 2^-21 of x, and lo hi + hi lo + hi hi within
+    2^-20 of a product, where one TF32 product is 2^-11 off."""
     rng = np.random.default_rng(1)
-    b, hq, hkv = 1, 4, 2
+    x, y = rng.normal(size=(2, 8192)).astype(np.float32)
+    hi, lo = tf32m.split(x)
+    assert np.all(np.abs(x - (hi.astype(np.float64) + lo))
+                  <= 2.0 ** -21 * np.abs(x))
+    yh, yl = tf32m.split(y)
+    exact = x.astype(np.float64) * y
+    three = (lo.astype(np.float64) * yh + hi.astype(np.float64) * yl
+             + hi.astype(np.float64) * yh)
+    one = hi.astype(np.float64) * yh
+    assert np.all(np.abs(three - exact) <= 2.0 ** -20 * np.abs(exact))
+    assert np.max(np.abs(one - exact) / np.abs(exact)) > 2.0 ** -12
+
+
+def _bwd_inputs(b, sq, skv, hq, hkv, d, causal, segments, seed):
+    """Seeded float32 inputs, the plain forward's out / lse, delta, and
+    (seg_q, seg_kv) ids: None, packed documents of 20-70 tokens (some
+    64-token tile pairs then share no document) or the ring-hop form."""
+    rng = np.random.default_rng(seed)
     q, do = (rng.normal(size=(b, sq, hq, d)).astype(np.float32)
              for _ in range(2))
     k, v = (rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
             for _ in range(2))
-    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
-    out, lse = flash_attention_reference(tq, tk, tv, causal=causal)
-    delta = (tdo * out).sum(-1).transpose(1, 2)
-    got = _split_backward(q, k, v, do, lse.numpy(), delta.numpy(), causal,
-                          d ** -0.5)
-    want = flash_attention_bwd_reference(tq, tk, tv, out, lse, tdo,
-                                         causal=causal)
+    dlse = rng.normal(size=(b, hq, sq)).astype(np.float32)
+    seg_q = seg_kv = None
+    if segments == "packed":
+        cuts = np.cumsum(rng.integers(20, 70, size=(b, sq)), axis=1)
+        seg_q = seg_kv = (np.arange(sq)[None, :, None]
+                          >= cuts[:, None, :]).sum(-1).astype(np.int32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    kw = {}
+    if seg_q is not None:
+        kw = dict(segment_ids=torch.from_numpy(seg_q))
+    out, lse = flash_attention_reference(tq, tk, tv, causal=causal, **kw)
+    delta = ((tdo * out).sum(-1).transpose(1, 2)
+             - torch.from_numpy(dlse)).contiguous()
+    return (q, k, v, do, dlse, out.numpy(), lse.numpy(), delta.numpy(),
+            seg_q, seg_kv, kw)
+
+
+def _exact(q, k, v, out, lse, do, dlse, causal, kw):
+    """The plain backward computed in float64 (the chip rows' yardstick)."""
+    return [t.numpy() for t in flash_attention_bwd_reference(
+        *(torch.from_numpy(np.asarray(x)).double()
+          for x in (q, k, v, out, lse, do, dlse)),
+        causal=causal, **{n: t for n, t in kw.items()})]
+
+
+TC_SHAPES = {
+    # causal GQA, Sq > Skv: queries 0..15 see no key
+    "causal_gqa_dead_rows": (1, 77, 61, 4, 2, True, None),
+    # not causal, Sq < Skv
+    "cross": (1, 40, 130, 2, 1, False, None),
+    # packed documents, tile pairs whose id ranges miss are skipped
+    "packed": (2, 130, 130, 4, 2, True, "packed"),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(TC_SHAPES))
+@pytest.mark.parametrize("d", [16, 64, 72, 96, 128, 136, 200, 256])
+def test_tf32_walk_equals_float64_backward(d, shape):
+    """K5 and K6's walk in three TF32 passes (K5 128 / K6 64 rows a CTA up
+    to D 128, 32 above; 32-row streamed tiles; S / dP in partials of 32
+    columns; 64-row tile sums; K6 over the GQA group) within (1e-5, 1e-5)
+    of the plain backward in float64, dead rows and unseen keys exactly 0;
+    packed rows skip tile pairs and still lose nothing."""
+    b, sq, skv, hq, hkv, causal, segments = TC_SHAPES[shape]
+    (q, k, v, do, dlse, out, lse, delta, seg_q, seg_kv,
+     kw) = _bwd_inputs(b, sq, skv, hq, hkv, d, causal, segments, d)
+    walks = []
+    got = tf32m.backward(q, k, v, do, lse, delta, causal=causal,
+                         seg_q=seg_q, seg_kv=seg_kv, walks=walks)
+    want = _exact(q, k, v, out, lse, do, dlse, causal, kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(g, w.numpy(), **TOL, err_msg=name)
+        np.testing.assert_allclose(g, w, **TOL, err_msg=name)
+    keep = torch.ones(sq, skv, dtype=torch.bool)
     if causal:
-        assert not got[0][:, :sq - skv].any()      # dead rows: zero dq
+        keep = torch.ones(sq, skv, dtype=torch.bool).tril(skv - sq)
+    keep = keep.numpy()[None].repeat(b, 0)
+    if seg_q is not None:
+        keep = keep & (seg_q[:, :, None] == seg_kv[:, None, :])
+    dead_q, dead_k = ~keep.any(2), ~keep.any(1)
+    assert not got[0][dead_q].any()
+    assert not got[1][dead_k].any() and not got[2][dead_k].any()
+    if shape == "causal_gqa_dead_rows":
+        assert dead_q.sum() == b * (sq - skv)
+    if segments is not None:
+        # the ids did skip tiles the causal walk alone would visit
+        full = [tf32m.walk(kind == "dkv", bi, r0,
+                           tf32m.rows_a_cta(d, kind == "dkv"), sq, skv,
+                           hq // hkv, causal)
+                for kind, bi, _, r0, _ in walks]
+        assert sum(map(len, full)) > sum(len(w[-1]) for w in walks)
+
+
+def test_one_tf32_pass_misses_the_bar():
+    """The guard on the two extra passes: a single TF32 product at a
+    mid-size shape lies far past (1e-5, 1e-5) where three passes hold it."""
+    (q, k, v, do, dlse, out, lse, delta, _, _,
+     kw) = _bwd_inputs(1, 128, 128, 4, 2, 64, True, None, 5)
+    want = _exact(q, k, v, out, lse, do, dlse, True, kw)
+    for passes, ok in ((1, False), (3, True)):
+        got = tf32m.backward(q, k, v, do, lse, delta, causal=True,
+                             passes=passes)
+        ratio = max(float(np.max(np.abs(g - w) / (1e-5 + 1e-5 * np.abs(w))))
+                    for g, w in zip(got, want))
+        assert (ratio <= 1) == ok, (passes, ratio)
+        if not ok:
+            assert ratio > 10
 
 
 # ---- the plain versions against the Pallas kernels (interpret mode) ----------

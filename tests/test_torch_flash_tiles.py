@@ -261,8 +261,9 @@ def test_backward_tile_ranges_match_numpy(s):
 
 def test_backward_segments_for_the_c_entry():
     """What K5 / K6's wrappers hand the C entry with segment ids: int32
-    ids, and for the bf16 build their 64-token ranges (the queries' serving
-    the keys of self-attention); the float32 build takes no ranges."""
+    ids and their 64-token ranges (the queries' serving the keys of
+    self-attention), for the bf16 build and, since its 3xTF32 kernels skip
+    tile pairs too, the float32 one."""
     q = torch.zeros(2, 130, 4, 128, dtype=torch.bfloat16)
     ids = torch.arange(260, dtype=torch.int64).reshape(2, 130) // 50
     kv_ids = torch.zeros(2, 70, dtype=torch.int64)
@@ -272,8 +273,9 @@ def test_backward_segments_for_the_c_entry():
     assert kv_rng.shape == (2, 2, 2) and not kv_rng.any()
     _, _, q_rng, kv_rng = _segments(q, 130, ids, None)
     assert kv_rng is q_rng
-    assert _segments(q.float()[..., :16], 70, ids, kv_ids)[2:] == (None,
-                                                                  None)
+    _, _, q_rng, kv_rng = _segments(q.float()[..., :16], 70, ids, kv_ids)
+    assert torch.equal(q_rng, backward_tile_ranges(ids)[0])
+    assert kv_rng.shape == (2, 2, 2) and not kv_rng.any()
 
 
 @pytest.mark.parametrize("kind", ["k5", "k6"])
