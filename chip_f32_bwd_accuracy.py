@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""How far the float32 flash backward (K5 dq, K6 dk / dv) and its float32
-plain version each lie from the plain version computed in float64, at the
-training micro-batch's shapes, on one NVIDIA GPU.
+"""How far the float32 flash backward (K5 dq, K6 dk / dv), the float32
+flash forward (K2 out and lse) and their float32 plain versions each lie
+from the plain versions computed in float64, at the training
+micro-batch's shapes, on one NVIDIA GPU.
 
 Run from the repository root::
 
     python3 chip_f32_bwd_accuracy.py
 
 For each float32 head dim of phase 2 (64, 72, 96, 128, 136, 192, 200 and
-256; every one runs the 3xTF32 kernels of ``csrc/flash_attention_bwd.cu``)
-at B 4 x 2048 causal and B 2 x 2048 packed, with TinyLlama's 32 / 4 heads
-up to 128 and 8 / 1 above, it prints one JSON line: per gradient, the
-largest absolute difference of the kernel from the float32 plain version,
-of the kernel from the float64 one, and of the float32 plain version from
-the float64 one, each also as its largest ratio to the phase-2 bar atol
-1e-5 + rtol 1e-5 |float64 value| (a ratio above 1 fails the bar).  dk / dv
-sum G x Sq terms a key (16384 at B 4 x 2048, G 8), so the order of float32
-sums shows there; the kernels sum each 64-query tile apart (ROADMAP C6).
+256; every one runs the 3xTF32 kernels of ``csrc/flash_attention_bwd.cu``
+and ``csrc/flash_attention_fwd.cu``) at B 4 x 2048 causal and B 2 x 2048
+packed, with TinyLlama's 32 / 4 heads up to 128 and 8 / 1 above, it prints
+one JSON line: per gradient and for K2's out and lse (the rows that see a
+key), the largest absolute difference of the kernel from the float32
+plain version, of the kernel from the float64 one, and of the float32
+plain version from the float64 one, each also as its largest ratio to the
+phase-2 bar atol 1e-5 + rtol 1e-5 |float64 value| (lse: 1e-5 absolute; a
+ratio above 1 fails the bar).  dk / dv sum G x Sq terms a key (16384 at B
+4 x 2048, G 8), so the order of float32 sums shows there; the kernels sum
+each 64-query tile apart (ROADMAP C6).
 The first line names the card and its power limit.  Exits non-zero
 without a card.
 """
@@ -31,10 +34,10 @@ DIMS = (64, 72, 96, 128, 136, 192, 200, 256)
 SEQ = 2048
 
 
-def stats(got, want):
+def stats(got, want, rtol=1e-5):
     """Largest |got - want| and its largest ratio to the bar."""
     e = (got.double() - want.double()).abs()
-    bar = 1e-5 + 1e-5 * want.double().abs()
+    bar = 1e-5 + rtol * want.double().abs()
     return {"max_abs": float(e.max()), "max_ratio_to_bar": float((e / bar)
                                                                  .max())}
 
@@ -49,7 +52,8 @@ def main() -> int:
     from paddle_tpu_torch.ops import (flash_attention_bwd_dkv_cuda,
                                       flash_attention_bwd_dq_cuda,
                                       flash_attention_bwd_reference,
-                                      flash_attention_fwd_cuda)
+                                      flash_attention_fwd_cuda,
+                                      flash_attention_reference)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -85,6 +89,18 @@ def main() -> int:
                 *(t.double() for t in (q, k, v, out, lse, do, dlse)), **kw)
             line = {"head_dim": d, "batch": b, "seq": SEQ, "heads": [hq, hkv],
                     "packed": packed}
+            # K2: out, and lse over the rows that see a key
+            fplain = flash_attention_reference(q, k, v, **kw)
+            fexact = flash_attention_reference(q.double(), k.double(),
+                                               v.double(), **kw)
+            live = fexact[1] > -1e29
+            for name, i, rtol in (("out", 0, 1e-5), ("lse", 1, 0.0)):
+                g, p, x = ((t[i][live] if i else t[i])
+                           for t in ((out, lse), fplain, fexact))
+                line[name] = {"kernel_vs_f32_plain": stats(g, p, rtol),
+                              "kernel_vs_f64": stats(g, x, rtol),
+                              "f32_plain_vs_f64": stats(p, x, rtol)}
+            del fplain, fexact
             for name, g, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
                 line[name] = {"kernel_vs_f32_plain": stats(g, p),
                               "kernel_vs_f64": stats(g, x),

@@ -32,7 +32,11 @@ error a checkout raises for a head dim it does not take.  The shapes are
   D 128 float32 / float16 / bf16 G 1   ``LlamaConfig()`` and Llama-2-7B
           (Hq = Hkv = 32): as D 64, and K2 causal B 4 x 2048 (a checkout
           without a build reports the refusal; bf16 at the same shape is
-          the float16 rows' twin).
+          the float16 rows' twin);
+  D 256 float32 / D 64 float32   the Gemma-2B-wide Llama (Hq 8, Hkv 1)
+          and TinyLlama (Hq 32, Hkv 4) at float32
+          (``training_f32_d256``, ``serving_f32_tinyllama``): as D 64, and
+          K2 causal B 4 x 2048.
 
 and K5 (dq) / K6 (dk, dv) on inputs whose out and lse come from K2 (the
 error: against ``flash_attention_bwd_reference``, dk and dv together):
@@ -67,7 +71,9 @@ SHAPES = {"D 128": ("bfloat16", 128, 32, 8, 4096, 128, 2048, 2048),
           "D 256": ("bfloat16", 256, 8, 1, 2048, 64, 512, 2048),
           "D 128 float32": ("float32", 128, 32, 32, 2048, 64, 512, 2048),
           "D 128 float16": ("float16", 128, 32, 32, 2048, 64, 512, 2048),
-          "D 128 bf16 G 1": ("bfloat16", 128, 32, 32, 2048, 64, 512, 2048)}
+          "D 128 bf16 G 1": ("bfloat16", 128, 32, 32, 2048, 64, 512, 2048),
+          "D 256 float32": ("float32", 256, 8, 1, 2048, 64, 512, 2048),
+          "D 64 float32": ("float32", 64, 32, 4, 2048, 64, 512, 2048)}
 # head_dim -> (B, S, Hq, Hkv, causal) of the K5 / K6 rows
 BWD_SHAPES = {128: (2, 2048, 32, 8, True),
               72: (32, 256, 16, 16, False),

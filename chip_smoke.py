@@ -423,10 +423,15 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 (and float16) tensor cores
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 # float32-accurate products on the tensor cores: three TF32 passes (the
-# float32 K5 / K6, csrc/mma_tf32.cuh) at the 494.7 TFLOP/s dense TF32 rate;
-# the least time float32 products could take, so every float32 operation
-# bound is taken at it (a row also reports bound_ms_cuda_cores, at 67)
+# float32 K2 family and K5 / K6, csrc/mma_tf32.cuh) at the 494.7 TFLOP/s
+# dense TF32 rate; the least time float32 products could take, so every
+# float32 operation bound is taken at it (a row also reports
+# bound_ms_cuda_cores, at 67)
 F32_TC_FLOPS = 494.7e12 / 3
+# float32 q against int8 K / V: an int8 value is exact in TF32, so the
+# products take two passes (lo hi + hi hi; the float32 K2-paged-int8 does),
+# and every float32-q int8-KV row's operation bound is taken at this rate
+F32_I8_TC_FLOPS = 494.7e12 / 2
 
 KERNEL_INFO = {
     "decode_attention": {
@@ -776,18 +781,57 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     ms = BoundMs(max(t_bytes, t_ops))
-    if peak_ops == F32_TC_FLOPS:
+    if peak_ops in (F32_TC_FLOPS, F32_I8_TC_FLOPS):
         ms.cuda_cores_ms = max(t_bytes, ops / F32_FLOPS * 1e3)
     return ms, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _common(a, b):
+    """a and b in float64 where either is (the float32 rows' truth, the
+    plain version computed in float64), else in float32."""
+    import torch
+    dt = (torch.float64 if torch.float64 in (a.dtype, b.dtype)
+          else torch.float32)
+    return a.to(dt), b.to(dt)
+
+
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max().item())
+    a, b = _common(a, b)
+    return float((a - b).abs().max().item())
 
 
 def within(a, b, atol: float, rtol: float) -> bool:
-    a, b = a.float(), b.float()
+    a, b = _common(a, b)
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all().item())
+
+
+def as_f64(ts):
+    """A tuple of tensors with its floating ones in float64 (int8 payloads
+    stay as they are): the inputs of the float32 rows' truth."""
+    return tuple(t.double() if t.is_floating_point() else t for t in ts)
+
+
+def lse_err(lse, want) -> float:
+    """Largest |lse - want| over the rows that see a key (a dead row's
+    -1e30 is held exactly by :func:`dead_rows_ok`; in float64 the float32
+    -1e30 differs from it by 1.5e22)."""
+    live = want > -1e29
+    return max_err(lse[live], want[live]) if bool(live.any().item()) else 0.0
+
+
+def vs_f64(got, want, truth, tol, lse=None):
+    """A float32 forward row's yardstick: ``truth``, the plain version in
+    float64, in place of ``want``, the float32 one.  Returns the truth,
+    ``tol`` named as taken of it, and the row's two distances: the
+    kernel's from the float32 plain version and that version's from the
+    truth.  ``lse``: (kernel, float32 plain, float64 plain) lse, whose
+    distances over the rows that see a key count too."""
+    near, far = max_err(got, want), max_err(want, truth)
+    if lse is not None:
+        near = max(near, lse_err(lse[0], lse[1]))
+        far = max(far, lse_err(lse[1], lse[2]))
+    return truth, tol + " of the float64 plain version", {
+        "max_err_vs_f32_plain": near, "f32_plain_max_err_vs_f64": far}
 
 
 # -- phase 1 ------------------------------------------------------------------------
@@ -1420,12 +1464,21 @@ def phase_kernels(torch):
 
         # K2 with segment ids (forward), against the plain path
         if seg is not None:
-            with reference_mode():
-                ref, ref_lse = flash_attention(q, k, v, return_lse=True, **kw)
-            torch.cuda.synchronize()
             atol, rtol = tols(dt)
             lse_tol = 1e-3 if dt == bf16 else 1e-5
-            err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+            tol, fwd_extra = f"out atol {atol} + rtol {rtol}, lse {lse_tol}", {}
+            with reference_mode():
+                ref, ref_lse = flash_attention(q, k, v, return_lse=True, **kw)
+                if dt == f32:   # the float32 rows' truth: float64
+                    ex, ex_lse = flash_attention(
+                        q.double(), k.double(), v.double(), return_lse=True,
+                        **kw)
+                    ref, tol, fwd_extra = vs_f64(out, ref, ex, tol,
+                                                 (lse, ref_lse, ex_lse))
+                    ref_lse = ex_lse
+                    del ex, ex_lse
+            torch.cuda.synchronize()
+            err, lerr = max_err(out, ref), lse_err(lse, ref_lse)
             ok = (within(out, ref, atol, rtol) and lerr <= lse_tol
                   and dead_rows_ok(torch, keep, b, out, lse))
             kfns = [lambda t=t: flash_attention_fwd_cuda(t[0], t[1], t[2],
@@ -1446,9 +1499,9 @@ def phase_kernels(torch):
             bms, by = bound(nbytes, 4 * d * hq * pairs,
                             BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
             record("flash_attention_fwd", tag, max(err, lerr),
-                   f"out atol {atol} + rtol {rtol}, lse {lse_tol}, dead rows "
-                   f"out 0 and lse -1e30", ok, kfns, plain_ms, lib_ms, bms,
-                   by, False, note=SEGMENTED_LIBRARY_NOTE, extra=seg_extra)
+                   tol + ", dead rows out 0 and lse -1e30", ok, kfns, plain_ms,
+                   lib_ms, bms, by, False, note=SEGMENTED_LIBRARY_NOTE,
+                   extra=dict(seg_extra, **fwd_extra))
             del ref, ref_lse
 
         lib_ms = backward_rows(torch, record, tols, sets, kw, keep, tag,
@@ -1638,7 +1691,7 @@ def phase_kernels(torch):
         ops = sum(4 * d * hq * (p + si + 1)
                   for p in pos_list for si in range(s))
         bms, by = bound(nbytes, ops,
-                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
+                        BF16_FLOPS if dt == bf16 else F32_I8_TC_FLOPS)
         record("decode_attention_int8",
                f"B={b} s={s} L={L} granule={gr} Hq={hq} Hkv={hkv} D={d} "
                f"pos={pos_list} int8 K/V, {str(dt)[6:]} q",
@@ -1709,7 +1762,7 @@ def phase_kernels(torch):
         ops = sum(4 * d * hq * min(p + si + 1, L)
                   for p in pos_list for si in range(s))
         bms, by = bound(nbytes, ops,
-                        BF16_FLOPS if dt == bf16 else F32_TC_FLOPS)
+                        BF16_FLOPS if dt == bf16 else F32_I8_TC_FLOPS)
         record(name,
                f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
                f"max_blocks={mb} pool={n_blocks} pos={pos_list} "
@@ -1784,7 +1837,7 @@ def phase_kernels(torch):
                                  for t in sets])
         nbytes = k * n + 4 * n + (rows * k + rows * n) * esz
         bms, by = bound(nbytes, 2 * rows * k * n,
-                        F32_TC_FLOPS if dt == f32 else BF16_FLOPS)
+                        F32_I8_TC_FLOPS if dt == f32 else BF16_FLOPS)
         record("int8_matmul" + (F16 if dt == f16 else ""),
                f"rows={rows} K={k} N={n} int8 w, "
                f"{str(dt)[6:]} x", err, f"atol {atol} + rtol {rtol}", ok,
@@ -1854,8 +1907,10 @@ def k2_rows(torch, record, randn, tols, rows):
     B, Sq, Skv, Hq, Hkv, D, causal, segments, main) -- segments None,
     "packed" (packed documents) or "ring" (separate kv ids, queries whose
     id matches no key): out, lse and the dead rows (no visible key: out 0,
-    lse -1e30) held against the plain version, beside SDPA (enable_gqa;
-    with a dense mask where one is needed)."""
+    lse -1e30) held against the plain version (float32 rows: that plain
+    version in float64, the float32 one's distance reported beside), the
+    same bits on a second call, beside SDPA (enable_gqa; with a dense mask
+    where one is needed)."""
     from paddle_tpu_torch.ops import (flash_attention,
                                       flash_attention_fwd_cuda)
     from paddle_tpu_torch.ops._dispatch import reference_mode
@@ -1890,10 +1945,27 @@ def k2_rows(torch, record, randn, tols, rows):
         out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         with reference_mode():
             ref, ref_lse = flash_attention(q, k, v, return_lse=True, **kw)
+        tol, vs64 = f"out atol {atol} + rtol {rtol}, lse {lse_tol}", {}
+        if dt == torch.float32:
+            # the float32 rows' yardstick: the plain version on the same
+            # inputs in float64, the float32 one's distance beside
+            with reference_mode():
+                exact, exact_lse = flash_attention(
+                    q.double(), k.double(), v.double(), return_lse=True,
+                    **kw)
+            ref, tol, vs64 = vs_f64(out, ref, exact, tol,
+                                    (lse, ref_lse, exact_lse))
+            ref_lse = exact_lse
         torch.cuda.synchronize()
-        err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+        err, lerr = max_err(out, ref), lse_err(lse, ref_lse)
+        # the same bits twice (no atomics, no split over keys)
+        again = flash_attention_fwd_cuda(q, k, v, **kw)
+        same = bool(torch.equal(out, again[0])
+                    and torch.equal(lse, again[1]))
+        del again
         ok = (within(out, ref, atol, rtol) and lerr <= lse_tol
-              and dead_rows_ok(torch, keep, b, out, lse)
+              and dead_rows_ok(torch, keep, b, out, lse) and same
+              and bool(torch.isfinite(out).all().item())
               and (n_dead > 0) == (ring or (causal and sq > skv)))
         kfns = [lambda t=t: flash_attention_fwd_cuda(*t, **kw) for t in sets]
         with reference_mode():
@@ -1916,11 +1988,11 @@ def k2_rows(torch, record, randn, tols, rows):
                f"{'ring-hop kv_segment_ids ' if ring else ''}"
                f"{'packed ' if segments == 'packed' else ''}{str(dt)[6:]}")
         record(name, tag, max(err, lerr),
-               f"out atol {atol} + rtol {rtol}, lse {lse_tol}, dead rows "
-               f"out 0 and lse -1e30", ok, kfns, plain_ms, lib_ms, bms, by,
-               main, note=SEGMENTED_LIBRARY_NOTE if mask is not None else None,
+               tol + ", dead rows out 0 and lse -1e30", ok, kfns, plain_ms,
+               lib_ms, bms, by, main,
+               note=SEGMENTED_LIBRARY_NOTE if mask is not None else None,
                extra={"head_dim": d, "visible_pairs": pairs,
-                      "dead_rows": n_dead,
+                      "dead_rows": n_dead, "deterministic": same, **vs64,
                       "library_kernel": top_kernel(torch, lfns[0])})
         del sets, q, k, v, out, lse, ref, ref_lse
 
@@ -1967,7 +2039,7 @@ def k5_k6_rows(torch, record, randn, tols, rows):
 def phase_head_dim_rows(torch, record, randn, tols):
     """Phase 2's rows of K2 at the head dims below 128 (the contiguous
     build takes any D <= 128 with D % 8 == 0 on zero-padded 128-wide
-    tiles; float32 its CUDA-core instances at 64 and 72): bf16 D 72 at
+    tiles; float32 the 3xTF32 body at 64 and 72): bf16 D 72 at
     the dit phase's shape (B 16, S 256, 16 heads, full attention; the
     ``flash_attention_fwd/d72`` entry's main row), causal GQA at a ragged
     Sq 77 over Skv 61 (queries 0..15 see no key: out 0, lse -1e30), the
@@ -2074,21 +2146,21 @@ F32_L = 2048                    # serving_f32's max_length
 F32_TICK_POS = [0, 2047, 17, 1000, 1500, 300, 511, 128]
 # the C functions of each float32 head_dim-128 build (ptxas's mangled
 # names contain these): K1 decode_attention_kernel<float, KV, 4, 8, PAGED>,
-# K2 flash_attention_fwd_kernel<128, PAGED, KV, SEG>, K5 / K6 the 3xTF32
-# kernels bwd_dq_tf32_kernel<128, 2, 16> and bwd_dkv_tf32_kernel<64, 3, 16>
-# (rows a CTA, stages, column tiles a warp)
+# K2 the 3xTF32 body flash_fwd_tf32_kernel<8, 8, 16, SEG, PAGED, INT8> (row
+# groups, n-tiles of 8 keys a key tile, column tiles a warp), K5 / K6 the
+# 3xTF32 kernels bwd_dq_tf32_kernel<128, 2, 16> and
+# bwd_dkv_tf32_kernel<64, 3, 16> (rows a CTA, stages, column tiles a warp)
+F32_K2_BUILDS = {"flash_attention_fwd": ("ELb0ELb0ELb0EE", "ELb1ELb0ELb0EE"),
+                 "flash_attention_fwd_paged": ("ELb0ELb1ELb0EE",),
+                 "flash_attention_fwd_paged_int8": ("ELb0ELb1ELb1EE",)}
 F32_D128_FUNCTIONS = {
     "decode_attention": ("decode_attention_kernelIffLi4ELi8ELb0EE",),
     "decode_attention_int8": ("decode_attention_kernelIfaLi4ELi8ELb0EE",),
     "decode_attention_paged": ("decode_attention_kernelIffLi4ELi8ELb1EE",),
     "decode_attention_paged_int8": (
         "decode_attention_kernelIfaLi4ELi8ELb1EE",),
-    "flash_attention_fwd": ("flash_attention_fwd_kernelILi128ELb0EfLb0EE",
-                            "flash_attention_fwd_kernelILi128ELb0EfLb1EE"),
-    "flash_attention_fwd_paged": (
-        "flash_attention_fwd_kernelILi128ELb1EfLb0EE",),
-    "flash_attention_fwd_paged_int8": (
-        "flash_attention_fwd_kernelILi128ELb1EaLb0EE",),
+    **{build: tuple(f"flash_fwd_tf32_kernelILi8ELi8ELi16{b}" for b in bits)
+       for build, bits in F32_K2_BUILDS.items()},
     "flash_attention_bwd_dq": ("bwd_dq_tf32_kernelILi128ELi2ELi16EE",),
     "flash_attention_bwd_dkv": ("bwd_dkv_tf32_kernelILi64ELi3ELi16EE",),
 }
@@ -2194,23 +2266,20 @@ def f16_ptxas(build_log):
 
 # the C functions of each float32 build past its first instances: the K1
 # family's decode_attention_kernel<float, KV, EPL, KPI, PAGED> at EPL 2 and
-# 8, K2's flash_attention_fwd_rt_kernel<W, PAGED, KV, SEG> (W 128, 256)
-# and K2-paged's constant-D instances at 64 and 72, K5 / K6's other 3xTF32
-# instances <BR, ST, CS> (rows a CTA, stages, column tiles a warp)
+# 8, K2's other 3xTF32 instances flash_fwd_tf32_kernel<RG, NT, CS, SEG,
+# PAGED, INT8> (D <= 16, 64, 96; above 128 64-query tiles of 32 keys, two
+# warps a row group: D <= 192, 256), K5 / K6's other 3xTF32 instances <BR,
+# ST, CS> (rows a CTA, stages, column tiles a warp)
+F32_K2_SHAPES = ((8, 8, 2), (8, 8, 8), (8, 8, 12), (4, 4, 12), (4, 4, 16))
 F32_FUNCTIONS = {
     name: tuple(f"decode_attention_kernelIf{kv}Li{epl}ELi{kpi}ELb{paged}EE"
                 for epl, kpi in ((2, 8), (8, 2 if int8 else 4)))
     for name, int8, paged in K1_MMA_BUILDS
     for kv in ("a" if int8 else "f",)}
 F32_FUNCTIONS.update({
-    "flash_attention_fwd": tuple(
-        f"flash_attention_fwd_rt_kernelILi{w}ELb0EfLb{seg}EE"
-        for w in (128, 256) for seg in (0, 1)),
-    **{f"flash_attention_fwd_paged{i8}": tuple(
-        f"flash_attention_fwd_rt_kernelILi{w}ELb1E{kv}Lb0EE"
-        for w in (128, 256)) + tuple(
-        f"flash_attention_fwd_kernelILi{d}ELb1E{kv}Lb0EE" for d in (64, 72))
-       for i8, kv in (("", "f"), ("_int8", "a"))},
+    **{build: tuple(f"flash_fwd_tf32_kernelILi{rg}ELi{nt}ELi{cs}{b}"
+                    for rg, nt, cs in F32_K2_SHAPES for b in bits)
+       for build, bits in F32_K2_BUILDS.items()},
     "flash_attention_bwd_dq": tuple(
         f"bwd_dq_tf32_kernelILi{br}ELi{st}ELi{cs}EE"
         for br, st, cs in ((128, 3, 8), (128, 3, 12), (32, 2, 6),
@@ -2237,9 +2306,12 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
     shuffled, shared, null-tailed pools at s = 1 and 5 (called directly:
     the paged route sends s > 1 to K2-paged); K2-paged and K2-paged-int8
     at a suffix prefill and over the contiguous cache's identity view at
-    pos 0 / 1024.  The library yardstick is SDPA at float32 (the row
+    pos 0 / 1024, those against the plain version in float64 (the float32
+    one's distances beside) and to the same bits twice.  The library
+    yardstick is SDPA at float32 (the row
     names the kernel it ran); the bound is max(bytes / 3.35 TB/s, FLOPs /
-    165 TFLOP/s: three TF32 passes), ``bound_ms_cuda_cores`` at 67 beside."""
+    165 TFLOP/s: three TF32 passes; over int8 K / V 247, two passes),
+    ``bound_ms_cuda_cores`` at 67 beside."""
     from paddle_tpu_torch.ops import (cached_decode_attention,
                                       cached_decode_attention_reference,
                                       decode_attention_paged_cuda,
@@ -2267,19 +2339,28 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
             return fn(*args)
 
     def row(base, shape, got, want, kfns, pfns, lfns, nbytes, ops, main,
-            note=None, extra=None):
+            note=None, extra=None, truth=None):
+        """``truth``: the plain version in float64, the row's yardstick in
+        place of ``want`` (the float32 plain version's distances from it
+        and from the kernel reported beside)."""
         torch.cuda.synchronize()
+        extra = dict(extra or {})
+        tol = f"atol {atol} + rtol {rtol}"
+        if truth is not None:
+            want, tol, vs = vs_f64(got, want, truth, tol)
+            extra.update(vs)
         err = max_err(got, want)
         ok = (within(got, want, atol, rtol)
               and bool(torch.isfinite(got).all().item())
-              and (extra or {}).get("deterministic", True))
+              and extra.get("deterministic", True))
         with reference_mode():
             plain_ms = time_ms(torch, pfns, budget_ms=100.0)
         lib_ms = time_ms(torch, lfns)
-        bms, by = bound(nbytes, ops, F32_TC_FLOPS)
-        record(base + F32_D128, shape, err, f"atol {atol} + rtol {rtol}",
-               ok, kfns, plain_ms, lib_ms, bms, by, main, note=note,
-               extra=dict(extra or {}, head_dim=d,
+        bms, by = bound(nbytes, ops, F32_I8_TC_FLOPS if base.endswith("_int8")
+                        else F32_TC_FLOPS)
+        record(base + F32_D128, shape, err, tol, ok, kfns, plain_ms, lib_ms,
+               bms, by, main, note=note,
+               extra=dict(extra, head_dim=d,
                           library_kernel=top_kernel(torch, lfns[0])))
 
     # ---- the K1 family: Llama's decode tick and a 5-token window ---------
@@ -2439,15 +2520,18 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
         fns = [lambda t=t: runp(t) for t in sets]
         esz = 1 if int8 else 4
         base = "flash_attention_fwd_paged" + ("_int8" if int8 else "")
+        got = runp(sets[0])
         row(base, f"B={b} s={s} Hq={hq} Hkv={hkv} D={d} block_len={bl} "
             f"max_blocks={mb} pool={n_blocks} pos={pos_list} shared "
-            f"float32" + (", int8 K/V" if int8 else ""), runp(sets[0]),
+            f"float32" + (", int8 K/V" if int8 else ""), got,
             plain(runp, sets[0]), fns, fns,
             [sdpa(*gathered(t), mask) for t in sets],
             2 * b * s * hq * d * 4 + live_keys * hkv * d * esz * 2
             + (live_blocks * hkv * 4 * 2 if int8 else 0) + 4 * b * (mb + 1),
-            ops, True, note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
-        del sets
+            ops, True, note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE,
+            extra={"deterministic": bool(torch.equal(got, runp(sets[0])))},
+            truth=plain(runp, as_f64(sets[0])))
+        del sets, got
 
         # the identity view: a 2-row cache, row 1's 256-query chunk
         nrow, gr, s_c = 2, 128, 256
@@ -2476,17 +2560,24 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
             else:
                 dense = [cache[0][1:2], cache[1][1:2]]
             n = p + s_c
+            c64 = as_f64(cache)
+            got = runi()
             row(base, f"identity view: cache B={nrow} L={F32_L} Hq={hq} "
                 f"Hkv={hkv} D={d} block_len={gr if int8 else 64}, row 1, "
                 f"s={s_c} pos={p} float32" + (", int8 K/V" if int8 else ""),
-                runi(), plain(runi), [runi], [runi],
+                got, plain(runi), [runi], [runi],
                 [sdpa(q, dense[0][:, :n], dense[1][:, :n],
                       cache_mask(cpos, s_c, n))],
                 2 * s_c * hq * d * 4 + n * hkv * d * esz * 2
                 + (-(-n // gr) * hkv * 8 if int8 else 0),
                 sum(4 * d * hq * (p + si + 1) for si in range(s_c)), False,
-                note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
-            del cache, dense
+                note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE,
+                extra={"deterministic": bool(torch.equal(got, runi()))},
+                truth=plain(lambda: cached_decode_attention(
+                    q.double(), c64[0], c64[1], cpos, rows=rows,
+                    **(dict(k_scale=c64[2], v_scale=c64[3]) if int8
+                       else {}))))
+            del cache, dense, c64, got
 
 
 # Llama-2-7B's attention (serving_f16): 32 query heads, 32 KV heads
@@ -2569,10 +2660,13 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
     ring hop at D 64 and 256; the identity view at D 64 and 256; and K5 /
     K6 at every D at Sq 77 over Skv 61 (dead rows), the ring hop and not
     causal (B 4 x 512), and the training micro-batch's shapes, B 2 x 2048
-    packed and B 4 x 2048 causal (the main rows at D 256), held against
-    the plain version in float64.  The bound is max(bytes / 3.35 TB/s,
-    FLOPs / 165 TFLOP/s: float32 products in three TF32 passes), the
-    CUDA cores' 67 TFLOP/s beside as ``bound_ms_cuda_cores``."""
+    packed and B 4 x 2048 causal (the main rows at D 256).  Every K2 /
+    K2-paged(-int8) and K5 / K6 row is held against the plain version in
+    float64 (``max_err_vs_f32_plain`` beside), the K2-paged rows also to
+    the same bits twice.  The bound is max(bytes / 3.35 TB/s, FLOPs / 165
+    TFLOP/s: float32 products in three TF32 passes; over int8 K / V 247,
+    two passes), the CUDA cores' 67 TFLOP/s beside as
+    ``bound_ms_cuda_cores``."""
     from paddle_tpu_torch.ops import (cached_decode_attention_reference,
                                       decode_attention_cuda,
                                       decode_attention_int8_cuda,
@@ -2620,12 +2714,17 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         no key and must be exactly 0; ``lib``: the library's calls (None:
         not timed)."""
         got, want = fn(sets[0]), plain(sets[0])
+        extra = {"head_dim": d}
+        tol = f"atol {atol} + rtol {rtol}"
+        if f32 and name.startswith("flash_attention_fwd"):
+            # the float32 K2 family's yardstick: the plain version in
+            # float64, the float32 one's distances beside
+            want, tol, vs = vs_f64(got, want, plain(as_f64(sets[0])), tol)
+            extra.update(vs)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        extra = {"head_dim": d}
         ok = within(got, want, atol, rtol) and bool(
             torch.isfinite(got).all().item())
-        tol = f"atol {atol} + rtol {rtol}"
         if dead is not None:
             extra["dead_queries_zero"] = bool(
                 (got[dead[0], :dead[1]] == 0).all().item())
@@ -2638,7 +2737,9 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
         plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
                            budget_ms=100.0)
         lib_ms = time_ms(torch, lib) if lib else None
-        bms, by = bound(nbytes, ops, peak)   # float16's peak is bf16's
+        # float16's peak is bf16's; float32 q over int8 K / V: two passes
+        bms, by = bound(nbytes, ops, F32_I8_TC_FLOPS
+                        if f32 and name.endswith("_int8") else peak)
         record(name + suffix, shape, err, tol, ok,
                [lambda t=t: fn(t) for t in sets], plain_ms, lib_ms, bms,
                by, main, note=note, extra=extra)
@@ -2793,7 +2894,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
                 lib, 2 * b * s * hq * d * esz
                 + live_keys * hkv * d * (1 if int8 else esz) * 2
                 + (live_blocks * hkv * 4 * 2 if int8 else 0)
-                + 4 * b * (mb + 1), ops, main, dead=dead,
+                + 4 * b * (mb + 1), ops, main, dead=dead, same_bits=f32,
                 note=INT8_LIBRARY_NOTE if int8 else PAGED_LIBRARY_NOTE)
             del sets, lib
 
@@ -3286,12 +3387,13 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
         L, hq, hkv = F32_L, L27_HEADS, L27_HEADS
         chunk_pos = (0, 1024)
         tag = F16
-    esz, peak = 2, BF16_FLOPS
+    # the rows' bytes an element and peak rates (over float or int8 K / V)
+    esz, peak, peak8 = 2, BF16_FLOPS, BF16_FLOPS
     if f32:
         bf16, d, L, chunk_pos, tag = torch.float32, f32, F32_L, (0, 1024), F32
         hq, hkv = ((TL_HEADS, TL_KV_HEADS) if d <= 128
                    else (G2B_HEADS, G2B_KV_HEADS))
-        esz, peak = 4, F32_TC_FLOPS
+        esz, peak, peak8 = 4, F32_TC_FLOPS, F32_I8_TC_FLOPS
     atol, rtol = tols(bf16)
 
     def cache_sets(int8, n):
@@ -3335,7 +3437,7 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                 * hkv * 4 * 2
         ops = sum(4 * d * hq * min(p + si + 1, L)
                   for p in pos_list for si in range(s))
-        return bound(nbytes, ops, peak)
+        return bound(nbytes, ops, peak8 if int8 else peak)
 
     for int8 in (False, True):
         name = ("flash_attention_fwd_paged_int8" if int8
@@ -3357,10 +3459,22 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
             got = run(sets[0])
             with reference_mode():
                 want = run(sets[0])
+            extra, tol = {"head_dim": d}, f"atol {atol} + rtol {rtol}"
+            if f32:
+                # the yardstick: the plain version in float64
+                with reference_mode():
+                    truth = cached_decode_attention(
+                        q.double(), *as_f64(sets[0])[:2], pos, rows=rows,
+                        **(dict(zip(("k_scale", "v_scale"),
+                                    as_f64(sets[0][2:]))) if int8 else {}))
+                want, tol, vs = vs_f64(got, want, truth, tol)
+                extra.update(vs, deterministic=bool(torch.equal(
+                    got, run(sets[0]))))
             torch.cuda.synchronize()
             err = max_err(got, want)
             ok = within(got, want, atol, rtol) and bool(
-                torch.isfinite(got).all().item())
+                torch.isfinite(got).all().item()) and extra.get(
+                    "deterministic", True)
             kfns = [lambda c=c: run(c) for c in sets]
             with reference_mode():
                 plain_ms = time_ms(torch, kfns, budget_ms=100.0)
@@ -3372,10 +3486,9 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                    f"D={d} block_len={gr if int8 else 64}, row 5, s={s} "
                    f"pos={p}" + (f" int8 K/V granule {gr}, {str(bf16)[6:]} q"
                                  if int8 else f" {str(bf16)[6:]}"),
-                   err, f"atol {atol} + rtol {rtol}", ok, kfns, plain_ms,
+                   err, tol, ok, kfns, plain_ms,
                    lib_ms, bms, by, p == 1024 and not (wide or f16 or f32),
-                   note=note,
-                   extra={"head_dim": d})
+                   note=note, extra=extra)
             del sets, got, want
     if f16 or f32:
         return

@@ -206,7 +206,6 @@ constexpr int kTcNS = 32;          // streamed rows a tile: K5 keys, K6 queries
 constexpr int kTcNT = kTcNS / 8;   // their k steps in phase B's products
 constexpr int kTcSum = 64;         // streamed rows a tile sum
 constexpr int kTcChunk = 4;        // k steps (32 columns of D) an S / dP sum
-constexpr int kTcRange = 64;       // tokens a segment range covers (q_rng)
 
 // the C entries' arguments, passed to the kernels by value
 struct TcArgs {
@@ -253,19 +252,6 @@ __device__ __forceinline__ void tc_stage(const float* __restrict__ src,
                src + (((size_t)b * S + (in ? gr : 0)) * H + h) * D + 4 * c,
                in ? 16 : 0);
   }
-}
-
-// the [min, max] segment id of rows [r0, r1] from their 64-token ranges
-// (rng: (B, n, 2))
-__device__ __forceinline__ int2 tc_range(const int* rng, int b, int n,
-                                         int r0, int r1) {
-  int2 out = make_int2(0x7fffffff, -0x7fffffff - 1);
-  for (int t = r0 / kTcRange; t <= r1 / kTcRange; ++t) {
-    const int* r = rng + ((size_t)b * n + t) * 2;
-    out.x = min(out.x, __ldg(r));
-    out.y = max(out.y, __ldg(r + 1));
-  }
-  return out;
 }
 
 // acc[j] += X Y_j^T over one k step of 8 columns: X the warp's 16 rows, Y_j
@@ -350,13 +336,13 @@ __device__ __forceinline__ void tc_body(const TcArgs& a) {
   // with ids, tiles whose id range misses the CTA's are skipped
   int2 rr = make_int2(0, 0);
   if (seg)
-    rr = tc_range(DKV ? a.kv_rng : a.q_rng, b,
-                  (Sr + kTcRange - 1) / kTcRange, r0, r_last);
+    rr = id_range(DKV ? a.kv_rng : a.q_rng, b,
+                  (Sr + kIdRange - 1) / kIdRange, r0, r_last);
   auto live = [&](int u) {
     if (!seg) return true;
     const int s0 = tile_s0(u);
-    const int2 xr = tc_range(DKV ? a.q_rng : a.kv_rng, b,
-                             (Ss + kTcRange - 1) / kTcRange, s0,
+    const int2 xr = id_range(DKV ? a.q_rng : a.kv_rng, b,
+                             (Ss + kIdRange - 1) / kIdRange, s0,
                              min(Ss, s0 + kTcNS) - 1);
     return xr.y >= rr.x && xr.x <= rr.y;
   };

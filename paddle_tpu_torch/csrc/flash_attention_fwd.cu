@@ -27,11 +27,11 @@
 // (equal to scaling the tile's P.V before it joins the accumulator).  No
 // lse is written on this path.
 //
-// Bound on the H100: max(causal FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s),
-// the FLOPs at prefill shapes.  Common to every kernel below: K and V
-// stream through shared memory in tiles with an online softmax, so the
-// score matrix never reaches device memory, and causal tiles wholly above
-// the diagonal are never loaded.  Two bodies (any other dtype / head dim
+// Bound on the H100: max(causal FLOPs / 989 TFLOP/s (float32: 165),
+// bytes / 3.35 TB/s), the FLOPs at prefill shapes.  Common to every
+// kernel below: K and V stream through shared memory in tiles with an
+// online softmax, so the score matrix never reaches device memory, and
+// causal tiles wholly above the diagonal are never loaded.  Two bodies (any other dtype / head dim
 // is refused):
 //   * 16-bit q (bfloat16; float16 in the library compiled with
 //     -DPTT_F16) at any D <= 256 with D % 8 == 0 -- contiguous (the
@@ -51,26 +51,26 @@
 //     float32 DiTs' 72 and the Qwen2-VL tower's 64, the reference's
 //     float32 default configurations' 128 -- LlamaConfig(), the Qwen2-VL
 //     decoder -- TinyLlama's 64, a Gemma-2B-wide Llama's 256), contiguous
-//     or paged (any block_len, the table looked up per key, int8
-//     dequantized per key): products on the CUDA cores -- each thread owns
-//     a 4x4 tile of scores (rows tr*4.., keys tc*4..) and 4 rows x (D/16)
-//     output elements, fed by 16-byte shared-memory reads of transposed Q
-//     and K tiles; the K tile's shared memory is reused for the
-//     probabilities (26 KB at D = 16, 58 KB at 72, 100 KB at 128: two CTAs
-//     an SM still fit; 204.8 KB at 256, one).  D 16, 64, 72 and 128 have
-//     instances of constant D (flash_attention_fwd_kernel), every other D
-//     the same body at a runtime D in two width classes
-//     (flash_attention_fwd_rt_kernel: D <= 128 and D <= 256).  wgmma has no
-//     float32 input that keeps float32 numerics, so it stays here.
+//     (segmented or not) or paged (any block_len, the table looked up per
+//     key row; int8 staged as bytes, each key's block scales beside): one
+//     body, flash_fwd_tf32_kernel, whose products run on the tensor cores
+//     in three TF32 passes (mma_tf32.cuh: each float32 operand split into
+//     a TF32 hi and lo, lo hi + hi lo + hi hi on mma.sync m16n8k8; an int8
+//     operand is exact in TF32 and takes two).  wgmma takes TF32 only
+//     K-major with B from shared memory, where the split's lo half would
+//     need a copy of its own; mma.sync keeps both operands in registers,
+//     where the split is made.  Bound: operations, 4 D FLOPs a visible
+//     pair at a third of the 494.7 TFLOP/s TF32 rate, 165 TFLOP/s (the
+//     CUDA cores' 67 is 2.5x slower).  See its notes below.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
-#include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -79,469 +79,562 @@ using ptt::pack16;
 using namespace ptt;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;             // queries per CTA
-constexpr int kBK = 64;             // keys per tile
-constexpr int kPad = 4;             // row padding (keeps float4 alignment)
-constexpr int kPQ = kBQ + kPad;
-constexpr int kPK = kBK + kPad;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t smem_floats() {
-  // Qt [D][kPQ] + (Kt [D][kPK] | Pt [kBK][kPQ]) + Vs [kBK][D]
-  return (size_t)D * kPQ + (size_t)(D > kBK ? D : kBK) * kPK +
-         (size_t)kBK * D;
+#ifndef PTT_F16
+// ---------------------------------------------------------------------------
+// float32: one body for K2, K2-segmented, K2-paged and K2-paged-int8 at
+// every D <= 256 with D % 8 == 0, its products in three TF32 passes on
+// mma.sync m16n8k8 (mma_tf32.cuh).
+//
+// A CTA is 8 warps over one q tile of one (batch row, q head); each warp
+// owns 16 query rows (lane 4 g + t: rows g and g + 8 of them).  Up to D
+// 128 the tile is 128 queries, one row group a warp, and key tiles are 64
+// keys; above it 64 queries and key tiles of 32 keys, two warps a row
+// group (16 x D float32 accumulators a warp would pass the registers a
+// thread has): each forms S over half of the tile's keys, the two
+// exchange their row maxima and then P (in C-fragment order) through
+// shared memory under a named barrier of the pair, and each owns half of
+// O's columns (on the H100 this ran faster at D 136 - 256 than each warp
+// forming the whole S, which takes half as many products again).
+// Q stays in shared memory for the CTA's walk; K and V tiles come by
+// cp.async into a ring of two stages (the next tile's copies in flight
+// under this tile's products); paged, each key row's address goes through
+// the block table, so any block_len works; an int8 pool is staged as its
+// bytes with each key's block scales beside.  Per tile and warp:
+//   S = Q K^T: the warp's 16 rows x the tile's keys, summed over D in
+//     partials of 32 columns (a long chain on one tensor-core accumulator
+//     loses float32 accuracy), then scaled by scale * log2(e) (int8: times
+//     each key's K scale; an int8 K is exact in TF32, so two passes, lo hi
+//     and hi hi, give its product);
+//   the online softmax on the C fragments in exp2 units: a row's max over
+//     its quad (lanes 4 g .. 4 g + 3; two warps a group: and the other
+//     warp's), O rescaled only where a row's max moved, each lane keeping
+//     its own partial row sums (added over the quad, and the pair, once at
+//     the end); element masks only on tiles that cross the diagonal or the
+//     last key or, with ids, whose ids are not one value;
+//   O += P V: the S C fragment is P's A operand under the permuted k order
+//     (mma_tf32.cuh; V's B rows are keys 2t and 2t + 1 of each step of
+//     8), so up to D 128 P never leaves registers (int8: P times each
+//     key's V scale first, after the row sums took it unscaled; V exact in
+//     TF32: two passes).  O's n-tiles 2m and 2m + 1 cover columns 16 m ..
+//     16 m + 15, lane g's column pair 2g, 2g + 1 of them, so each B
+//     fragment pair is one 8-byte load and each lane stores 4 consecutive
+//     columns.
+// A warp skips a tile in which its rows see no key.  The grid is 1-D,
+// the heaviest causal q tiles (the last) of every (row, head) first; with
+// segment ids every key tile whose id range misses the q tile's is never
+// loaded (q_rng / kv_rng: the [min, max] id of every 64 tokens).  No
+// atomics and no split over keys: the same bits on every call.
+// ---------------------------------------------------------------------------
+constexpr int kFtThreads = 256;     // 8 warps
+constexpr int kFtChunk = 4;         // k steps (32 columns of D) an S partial
+constexpr int kFtSlack = 1024;      // bytes past the ring that O's columns
+                                    // past D may read (never stored)
+
+// Q and K rows (float32: floats; int8 K and V: bytes) are ft_ld(D) = 8
+// (mod 32) apart, so each half-warp's 8-byte fragment loads (rows g, at
+// columns 2t, 2t + 1) and the int8 2-byte ones hit distinct banks; float32
+// V rows are D + 4 apart, so its loads (rows 2t and 2t + 1, columns 2g,
+// 2g + 1) do
+__host__ __device__ constexpr int ft_ld(int D) {
+  return D + ((8 - D) % 32 + 32) % 32;
+}
+__host__ __device__ constexpr int ft_vld(int D, bool int8) {
+  return int8 ? ft_ld(D) : D + 4;
 }
 
-// float32 on the CUDA cores; at least two CTAs an SM (registers <= 128 a
-// thread).  PAGED: pos/table addressing (see the top), else pos, table,
-// max_blocks and block_len are unused.  KV: float, or int8_t for the int8
-// pool (PAGED only), dequantized per key with its block's scales.
-template <int D, bool PAGED, typename KV = float, bool SEG = false>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_fwd_kernel(const float* __restrict__ q,
-                           const KV* __restrict__ k,
-                           const KV* __restrict__ v,
-                           float* __restrict__ out,
-                           float* __restrict__ lse, int Sq, int Skv, int Hq,
-                           int Hkv, float scale, int causal,
-                           const int* __restrict__ pos,
-                           const int* __restrict__ table, int max_blocks,
-                           int block_len,
-                           const float* __restrict__ k_scale,
-                           const float* __restrict__ v_scale,
-                           const int* __restrict__ seg_q,
-                           const int* __restrict__ seg_kv) {
-  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+// the bytes of one ring stage: NK key rows of K and of V, the int8 scales
+// of each key (K, V), with ids each key's id
+__host__ __device__ constexpr int ft_stage(int NK, int D, bool int8,
+                                           bool seg) {
+  return NK * ((int8 ? 1 : 4) * (ft_ld(D) + ft_vld(D, int8)) +
+               (int8 ? 8 : 0) + (seg ? 4 : 0));
+}
+
+// a CTA's dynamic shared memory: the q tile, two warps a row group the
+// exchange of P (RG x NT x 32 float4) and of the row maxima (RG x 2 x 16
+// floats), two stages, the slack
+__host__ __device__ constexpr int ft_smem(int BQ, int NK, int D, bool int8,
+                                          bool seg) {
+  return 4 * BQ * ft_ld(D) +
+         (BQ < 128 ? (BQ / 16) * ((NK / 8) * 32 * 16 + 2 * 16 * 4) : 0) +
+         2 * ft_stage(NK, D, int8, seg) + kFtSlack;
+}
+static_assert(ft_smem(128, 64, 128, false, true) <= 232448 &&
+                  ft_smem(64, 32, 256, false, true) <= 232448,
+              "every float32 build fits the 227 KB a block may take");
+
+// the bytes that O's column tiles (cols of them a row group) read past a
+// stage's last V row at head dim D: into its scales or ids, the other
+// stage and the slack; fewest at the largest D an instance serves
+__host__ __device__ constexpr int ft_overread(int cols, int D, bool int8) {
+  return (int8 ? 1 : 4) * (cols - ft_vld(D, int8));
+}
+
+// the kernel's arguments, passed by value
+struct FtArgs {
+  const float* q;           // (B, Sq, Hq, D)
+  const void* k;            // (B, Skv, Hkv, D), or the paged pool
+  const void* v;            //   (num_blocks, block_len, Hkv, D): float / int8
+  float* out;               // q's layout
+  float* lse;               // contiguous: (B, Hq, Sq)
+  const int* seg_q;         // SEG: (B, Sq)
+  const int* seg_kv;        // SEG: (B, Skv)
+  const int* q_rng;         // SEG: (B, ceil(Sq / 64), 2)
+  const int* kv_rng;        // SEG: (B, ceil(Skv / 64), 2)
+  const int* pos;           // paged: (B,)
+  const int* table;         // paged: (B, max_blocks)
+  const float* k_scale;     // int8: (num_blocks, Hkv)
+  const float* v_scale;
+  int B, Sq, Skv, Hq, Hkv, D, max_blocks, block_len, causal;
+  float scale_log2;         // scale * log2(e)
+};
+
+// two int8 values (the low bytes of w) as floats, exactly: (2^23 + (x ^
+// 0x80)) - (2^23 + 128), the byte placed in a float's mantissa
+__device__ __forceinline__ float2 ft_int8x2(uint32_t w) {
+  const uint32_t x = w ^ 0x8080u;
+  return make_float2(
+      __uint_as_float(__byte_perm(x, 0x4b000000u, 0x7540)) - 8388736.f,
+      __uint_as_float(__byte_perm(x, 0x4b000000u, 0x7541)) - 8388736.f);
+}
+
+// d += a b with b exact in TF32 (an int8 value): lo_a b, then hi_a b
+__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           float b0, float b1) {
+  mma_tf32(d, alo, __float_as_uint(b0), __float_as_uint(b1));
+  mma_tf32(d, ahi, __float_as_uint(b0), __float_as_uint(b1));
+}
+
+// RG row groups of 16 queries (BQ = 16 RG: 8 up to D 128, 4 above, where
+// the two warps of a group split S's keys and O's columns), key tiles of
+// NT x 8 keys, CS n-tiles of O's columns a warp (chosen by the launcher:
+// the products' loops carry no guard; columns past D are formed from
+// whatever lies past the V rows and never stored)
+template <int RG, int NT, int CS, bool SEG, bool PAGED, bool INT8>
+__global__ void __launch_bounds__(kFtThreads, 1)
+flash_fwd_tf32_kernel(const FtArgs a) {
+  constexpr int WPR = 8 / RG;          // warps a row group
+  constexpr int BQ = 16 * RG;          // queries a CTA
+  constexpr int NK = 8 * NT;           // keys a tile
+  constexpr int NS = NT / WPR;         // S's n-tiles a warp forms
+  static_assert(CS % 2 == 0, "O's n-tiles come in pairs");
+  static_assert(!SEG || !PAGED, "segment ids are contiguous only");
   static_assert(!INT8 || PAGED, "the int8 cache is paged only");
-  constexpr int NQ = (D + 63) / 64;   // 64-wide output slabs per thread
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  // keys j < kv_len exist; query i sees j <= i + offset when causal
-  int offset = Skv - Sq, kv_len = Skv;
-  if constexpr (PAGED) {
-    offset = pos[b];
-    kv_len = min(offset + Sq, max_blocks * block_len);
+  extern __shared__ __align__(16) unsigned char ftsm[];
+  const int D = a.D, nk = D / 8, ld = ft_ld(D), vld = ft_vld(D, INT8);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / WPR, wi = warp % WPR, j0 = wi * NS;
+  // the CTA: the heaviest (last) q tiles of every (row, head) first
+  const int hb = a.Hq * a.B;
+  const int qt = (a.Sq + BQ - 1) / BQ - 1 - (int)(blockIdx.x / hb);
+  const int h = blockIdx.x % a.Hq, b = (blockIdx.x / a.Hq) % a.B;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = qt * BQ;
+  // keys j < kv_len exist; query i sees j <= i + off when causal
+  int off = a.Skv - a.Sq, kv_len = a.Skv;
+  if (PAGED) {
+    off = __ldg(a.pos + b);
+    kv_len = min(off + a.Sq, a.max_blocks * a.block_len);
   }
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                   // [D][kPQ]  scaled queries, transposed
-  float* KP = Qt + D * kPQ;           // [D][kPK] keys, then [kBK][kPQ] probs
-  float* Vs = KP + (D > kBK ? D : kBK) * kPK;   // [kBK][D]
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qr = q0 + r;
-    Qt[d * kPQ + r] =
-        qr < Sq ? q[(((size_t)b * Sq + qr) * Hq + h) * D + d] * scale : 0.f;
+  const int q_last = min(a.Sq, q0 + BQ) - 1;
+  const int kv_hi = a.causal ? min(kv_len, q_last + off + 1) : kv_len;
+  const int n_kt = kv_hi > 0 ? (kv_hi + NK - 1) / NK : 0;
+  // the warp's rows r_lo .. r_lo + 15; the lane's rA and rA + 8
+  const int r_lo = q0 + rg * 16, rA = r_lo + g;
+  const int r_top = min(a.Sq - 1, r_lo + 15);
+  const int nqr = (a.Sq + kIdRange - 1) / kIdRange;
+  const int nkr = (a.Skv + kIdRange - 1) / kIdRange;
+  int2 cr = make_int2(0, 0), wr = make_int2(0, 0);
+  int idr[2] = {0, 0};
+  if (SEG) {
+    cr = id_range(a.q_rng, b, nqr, q0, q_last);
+    if (r_lo < a.Sq) wr = id_range(a.q_rng, b, nqr, r_lo, r_top);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rA + 8 * i < a.Sq)
+        idr[i] = __ldg(a.seg_q + (size_t)b * a.Sq + rA + 8 * i);
   }
+  auto key_range = [&](int u) {
+    return id_range(a.kv_rng, b, nkr, u * NK, min(a.Skv, u * NK + NK) - 1);
+  };
+  auto next_live = [&](int u) {
+    if (SEG)
+      while (u < n_kt) {
+        const int2 kr = key_range(u);
+        if (kr.y >= cr.x && kr.x <= cr.y) break;
+        ++u;
+      }
+    return u;
+  };
 
-  float acc[4][NQ][4];
-  float m_i[4], l_i[4];
-  int sq_i[4];   // segment id of each row (SEG)
+  float* Qs = reinterpret_cast<float*>(ftsm);            // [BQ][ld]
+  // two warps a row group: their P fragments [RG][NT][32] and row maxima
+  // (at the end, row sums) [RG][2][16]
+  float4* xp = reinterpret_cast<float4*>(ftsm + 4 * BQ * ld);
+  float* xm = reinterpret_cast<float*>(xp + (WPR == 2 ? RG * NT * 32 : 0));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      xm + (WPR == 2 ? RG * 2 * 16 : 0));
+  constexpr int ESZ = INT8 ? 1 : 4;
+  // a stage: K [NK][ld], V [NK][vld], then int8 the scales [2][NK] or,
+  // with ids, the keys' ids [NK]
+  const int kv_bytes = NK * ESZ * ld, vt_end = NK * ESZ * (ld + vld);
+  const int stage = ft_stage(NK, D, INT8, SEG);
+  auto stage_tile = [&](int u, int slot) {
+    unsigned char* st = ring + slot * stage;
+    constexpr int TPR = kFtThreads / NK;   // threads a key row
+    const int r = tid / TPR, sub = tid % TPR, kc = u * NK + r;
+    const bool in = kc < kv_len;
+    size_t row;
+    int blk = 0;
+    if (PAGED) {
+      blk = in ? __ldg(a.table + (size_t)b * a.max_blocks + kc / a.block_len)
+               : 0;
+      row = (size_t)blk * a.block_len + (in ? kc % a.block_len : 0);
+    } else {
+      row = (size_t)b * a.Skv + (in ? kc : 0);
+    }
+    const size_t base = (row * a.Hkv + hk) * D;
+    unsigned char* kd = st + r * ESZ * ld;
+    unsigned char* vd = st + kv_bytes + r * ESZ * vld;
+    if (INT8) {
+      const int8_t* k8 = static_cast<const int8_t*>(a.k) + base;
+      const int8_t* v8 = static_cast<const int8_t*>(a.v) + base;
+      for (int c = sub; c < D / 8; c += TPR) {
+        cp_async8(kd + 8 * c, k8 + 8 * c, in ? 8 : 0);
+        cp_async8(vd + 8 * c, v8 + 8 * c, in ? 8 : 0);
+      }
+      if (sub == 0) {
+        float* sc = reinterpret_cast<float*>(st + vt_end);
+        const size_t si = (size_t)blk * a.Hkv + hk;
+        cp_async4(sc + r, a.k_scale + si, in ? 4 : 0);
+        cp_async4(sc + NK + r, a.v_scale + si, in ? 4 : 0);
+      }
+    } else {
+      const float* kf = static_cast<const float*>(a.k) + base;
+      const float* vf = static_cast<const float*>(a.v) + base;
+      for (int c = sub; c < D / 4; c += TPR) {
+        cp_async16(kd + 16 * c, kf + 4 * c, in ? 16 : 0);
+        cp_async16(vd + 16 * c, vf + 4 * c, in ? 16 : 0);
+      }
+    }
+    if (SEG && sub == 0)
+      cp_async4(st + vt_end + 4 * r, a.seg_kv + row, in ? 4 : 0);
+  };
+
+  float o[CS][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + tr * 4 + i;
-    sq_i[i] = (SEG && qr < Sq) ? seg_q[(size_t)b * Sq + qr] : 0;
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
+  for (int n = 0; n < CS; ++n)
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  int cur = next_live(0);
+  if (cur < n_kt) {
+    constexpr int TPQ = kFtThreads / BQ;   // threads a q row
+    const int r = tid / TPQ, sub = tid % TPQ, qr = q0 + r;
+    const bool in = qr < a.Sq;
+    const float* src =
+        a.q + (((size_t)b * a.Sq + (in ? qr : 0)) * a.Hq + h) * D;
+    for (int c = sub; c < D / 4; c += TPQ)
+      cp_async16(Qs + r * ld + 4 * c, src + 4 * c, in ? 16 : 0);
+    stage_tile(cur, 0);
   }
+  cp_async_commit();
+  const int colbase = wi * CS * 8;   // the warp's first column of O
+  int slot = 0;
+  while (cur < n_kt) {
+    const int nxt = next_live(cur + 1);
+    cp_async_wait<0>();
+    __syncthreads();   // tile cur is in; every warp is done with the other
+    if (nxt < n_kt) stage_tile(nxt, slot ^ 1);
+    cp_async_commit();
+    const unsigned char* st = ring + slot * stage;
+    const int u = cur, k0 = u * NK;
+    cur = nxt;
+    slot ^= 1;
+    // does any row of the warp see a key of the tile, and does it need the
+    // element mask
+    bool any = r_lo < a.Sq && (!a.causal || k0 <= r_top + off);
+    bool masked =
+        k0 + NK > kv_len || (a.causal && k0 + NK - 1 > r_lo + off);
+    if (SEG) {
+      const int2 kr = key_range(u);
+      any = any && kr.y >= wr.x && kr.x <= wr.y;
+      masked = masked || !(wr.x == wr.y && kr.x == kr.y && wr.x == kr.x);
+    }
+    if (!any) continue;
 
-  const int kv_hi = causal ? min(kv_len, q0 + kBQ + offset) : kv_len;
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D;
-      const int kc = kv0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (kc < kv_len) {
-        size_t row = (size_t)b * Skv + kc;
-        int blk = 0;
-        if constexpr (PAGED) {
-          blk = table[(size_t)b * max_blocks + kc / block_len];
-          row = (size_t)blk * block_len + kc % block_len;
+    // ---- S = Q K^T over the warp's NS n-tiles of the tile (its half of
+    // the keys with two warps a row group), in partials of kFtChunk k steps
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    {
+      const float* qw = Qs + (rg * 16 + g) * ld + 2 * t;
+      const unsigned char* kw = st + ((8 * j0 + g) * ld + 2 * t) * ESZ;
+      auto step = [&](float (&ts)[NS][4], int kk) {
+        const float2 qa = *reinterpret_cast<const float2*>(qw + 8 * kk);
+        const float2 qb =
+            *reinterpret_cast<const float2*>(qw + 8 * ld + 8 * kk);
+        uint32_t ah[4], al[4];
+        split_tf32(qa.x, ah[0], al[0]);
+        split_tf32(qb.x, ah[1], al[1]);
+        split_tf32(qa.y, ah[2], al[2]);
+        split_tf32(qb.y, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const unsigned char* kp = kw + (j * 8 * ld + 8 * kk) * ESZ;
+          if (INT8) {
+            const float2 kb = ft_int8x2(
+                *reinterpret_cast<const unsigned short*>(kp));
+            mma_2xtf32(ts[j], ah, al, kb.x, kb.y);
+          } else {
+            const float2 kb = *reinterpret_cast<const float2*>(kp);
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(kb.x, bh0, bl0);
+            split_tf32(kb.y, bh1, bl1);
+            mma_3xtf32(ts[j], ah, al, bh0, bh1, bl0, bl1);
+          }
         }
-        const size_t g = (row * Hkv + hk) * D + d;
-        kx = static_cast<float>(k[g]);
-        vx = static_cast<float>(v[g]);
-        if constexpr (INT8) {
-          kx *= k_scale[(size_t)blk * Hkv + hk];
-          vx *= v_scale[(size_t)blk * Hkv + hk];
+      };
+      for (int c0 = 0; c0 < nk; c0 += kFtChunk) {
+        float ts[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ts[j][e] = 0.f;
+        if (c0 + kFtChunk <= nk) {
+#pragma unroll
+          for (int kk = c0; kk < c0 + kFtChunk; ++kk) step(ts, kk);
+        } else {
+          for (int kk = c0; kk < nk; ++kk) step(ts, kk);
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += ts[j][e];
+      }
+    }
+    // ---- scale (int8: times each key's K scale), mask; the lane's keys
+    // of local n-tile j: k0 + 8 (j0 + j) + 2t + {0, 1}
+    const float* ksc = reinterpret_cast<const float*>(st + vt_end);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float c0 = a.scale_log2, c1 = a.scale_log2;
+      if (INT8) {
+        const float2 kq =
+            *reinterpret_cast<const float2*>(ksc + 8 * (j0 + j) + 2 * t);
+        c0 *= kq.x;
+        c1 *= kq.y;
+      }
+      s[j][0] *= c0;
+      s[j][1] *= c1;
+      s[j][2] *= c0;
+      s[j][3] *= c1;
+    }
+    if (masked) {
+      const int* ids = reinterpret_cast<const int*>(st + vt_end);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        int2 idk = make_int2(0, 0);
+        if (SEG)
+          idk = *reinterpret_cast<const int2*>(ids + 8 * (j0 + j) + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = rA + 8 * (e >> 1);
+          const int key = k0 + 8 * (j0 + j) + 2 * t + (e & 1);
+          bool vis = key < kv_len && (!a.causal || key <= row + off);
+          if (SEG) vis = vis && idr[e >> 1] == ((e & 1) ? idk.y : idk.x);
+          if (!vis) s[j][e] = -INFINITY;
         }
       }
-      KP[d * kPK + c] = kx;
-      Vs[c * D + d] = vx;
     }
-    __syncthreads();
-
-    float s[4][4];
+    // ---- the online softmax in exp2 units (two warps a row group: the
+    // row maxima of both halves through shared memory)
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * kPQ + tr * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&KP[d * kPK + tc * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
-
-    // mask, then the online softmax; a row's 64 scores live in the 16
-    // threads sharing tr (lanes of one half-warp)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + tr * 4 + i;
-      float rmax = kNegInf;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    if (WPR == 2) {
+      if (t == 0) {
+        xm[(rg * 2 + wi) * 16 + g] = mx[0];
+        xm[(rg * 2 + wi) * 16 + g + 8] = mx[1];
+      }
+      named_barrier(1 + rg, 64);
+      mx[0] = fmaxf(mx[0], xm[(rg * 2 + 1 - wi) * 16 + g]);
+      mx[1] = fmaxf(mx[1], xm[(rg * 2 + 1 - wi) * 16 + g + 8]);
+    }
+    float alpha[2], mu[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = kv0 + tc * 4 + j;
-        bool keep =
-            qr < Sq && kc < kv_len && (!causal || kc <= qr + offset);
-        if constexpr (SEG)
-          keep = keep && sq_i[i] == seg_kv[(size_t)b * Skv + kc];
-        s[i][j] = keep ? s[i][j] : kNegInf;
-        rmax = fmaxf(rmax, s[i][j]);
+    for (int i = 0; i < 2; ++i) {
+      const float mn = fmaxf(m[i], mx[i]);
+      mu[i] = mn == -INFINITY ? 0.f : mn;   // a row that sees no key yet
+      alpha[i] = exp2f(m[i] - mu[i]);
+      m[i] = mn;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - mu[e >> 1]);
+        ps[e >> 1] += s[j][e];
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
-      const float m_new = fmaxf(m_i[i], rmax);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ps[i];
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
-        rs += s[i][j];
-      }
+      for (int n = 0; n < CS; ++n)
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha;
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
     }
-
-    __syncthreads();   // every thread is done reading the K tile
-    float* Pt = KP;    // [kBK][kPQ]
+    // P (int8: times each key's V scale, after the row sums took it
+    // unscaled); two warps a row group: each writes its C fragments and
+    // reads the group's
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NS; ++j) {
+      if (INT8) {
+        const float2 vq = *reinterpret_cast<const float2*>(
+            ksc + NK + 8 * (j0 + j) + 2 * t);
+        s[j][0] *= vq.x;
+        s[j][1] *= vq.y;
+        s[j][2] *= vq.x;
+        s[j][3] *= vq.y;
+      }
+      if (WPR == 2)
+        xp[(rg * NT + j0 + j) * 32 + lane] =
+            make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    }
+    if (WPR == 2) named_barrier(1 + rg, 64);
+    // ---- O += P V: P's C fragment as the A operand (k t <- key 2t, k t +
+    // 4 <- key 2t + 1 of each step of 8), V's B rows 2t and 2t + 1
+    const unsigned char* vw =
+        st + kv_bytes + (2 * t * vld + colbase + 2 * g) * ESZ;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Pt[(tc * 4 + j) * kPQ + tr * 4 + i] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Pt[c * kPQ + tr * 4]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+    for (int j = 0; j < NT; ++j) {
+      float4 c;
+      if (WPR == 2)
+        c = xp[(rg * NT + j) * 32 + lane];
+      else
+        c = make_float4(s[j % NS][0], s[j % NS][1], s[j % NS][2],
+                        s[j % NS][3]);
+      uint32_t ah[4], al[4];
+      split_tf32(c.x, ah[0], al[0]);
+      split_tf32(c.z, ah[1], al[1]);
+      split_tf32(c.y, ah[2], al[2]);
+      split_tf32(c.w, ah[3], al[3]);
+      const unsigned char* vr = vw + 8 * j * vld * ESZ;
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        const int d0 = n * 64 + tc * 4;
-        if (d0 < D) {
-          const float4 va = *reinterpret_cast<const float4*>(&Vs[c * D + d0]);
-          const float vv[4] = {va.x, va.y, va.z, va.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][n][e] = fmaf(pv[i], vv[e], acc[i][n][e]);
+      for (int mm = 0; mm < CS / 2; ++mm) {
+        if (INT8) {
+          const float2 v0 = ft_int8x2(
+              *reinterpret_cast<const unsigned short*>(vr + 16 * mm));
+          const float2 v1 = ft_int8x2(
+              *reinterpret_cast<const unsigned short*>(vr + vld + 16 * mm));
+          mma_2xtf32(o[2 * mm], ah, al, v0.x, v1.x);
+          mma_2xtf32(o[2 * mm + 1], ah, al, v0.y, v1.y);
+        } else {
+          const float2 v0 =
+              *reinterpret_cast<const float2*>(vr + 4 * 16 * mm);
+          const float2 v1 =
+              *reinterpret_cast<const float2*>(vr + 4 * (vld + 16 * mm));
+          uint32_t h0, l0, h1, l1;
+          split_tf32(v0.x, h0, l0);
+          split_tf32(v1.x, h1, l1);
+          mma_3xtf32(o[2 * mm], ah, al, h0, h1, l0, l1);
+          split_tf32(v0.y, h0, l0);
+          split_tf32(v1.y, h1, l1);
+          mma_3xtf32(o[2 * mm + 1], ah, al, h0, h1, l0, l1);
         }
       }
     }
   }
 
+  // ---- out (and lse): every row the CTA owns; a row that saw no key
+  // gives 0 and lse -1e30.  Each lane's partial row sums added over its
+  // quad (and, two warps a row group, the two warps' sums)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + tr * 4 + i;
-    if (qr >= Sq) continue;
-    const float l = l_i[i];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* orow = out + (((size_t)b * Sq + qr) * Hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-      const int d0 = n * 64 + tc * 4;
-      if (d0 < D) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) orow[d0 + e] = acc[i][n][e] * inv;
-      }
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (WPR == 2) {
+    if (t == 0) {
+      xm[(rg * 2 + wi) * 16 + g] = l[0];
+      xm[(rg * 2 + wi) * 16 + g + 8] = l[1];
     }
-    if (!PAGED && tc == 0)
-      lse[((size_t)b * Hq + h) * Sq + qr] = l > 0.f ? m_i[i] + logf(l) : kNegInf;
+    named_barrier(1 + rg, 64);
+    l[0] += xm[(rg * 2 + 1 - wi) * 16 + g];
+    l[1] += xm[(rg * 2 + 1 - wi) * 16 + g + 8];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rA + 8 * i;
+    if (row >= a.Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* orow = a.out + (((size_t)b * a.Sq + row) * a.Hq + h) * D;
+#pragma unroll
+    for (int mm = 0; mm < CS / 2; ++mm) {
+      const int col = colbase + 16 * mm + 4 * t;
+      if (col < D)
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            o[2 * mm][2 * i] * inv, o[2 * mm + 1][2 * i] * inv,
+            o[2 * mm][2 * i + 1] * inv, o[2 * mm + 1][2 * i + 1] * inv);
+    }
+    if (!PAGED && wi == 0 && t == 0)
+      a.lse[((size_t)b * a.Hq + h) * a.Sq + row] =
+          l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
   }
 }
 
-template <int D, bool PAGED, typename KV = float, bool SEG = false>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                   float scale, int causal, cudaStream_t st,
-                   const int* pos = nullptr, const int* table = nullptr,
-                   int max_blocks = 0, int block_len = 0,
-                   const float* k_scale = nullptr,
-                   const float* v_scale = nullptr,
-                   const int* seg_q = nullptr,
-                   const int* seg_kv = nullptr) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_attention_fwd_kernel<D, PAGED, KV, SEG>;
+// DMIN: the least head dim the instance serves
+template <int RG, int NT, int CS, int DMIN, bool SEG, bool PAGED, bool INT8>
+cudaError_t ft_launch(const FtArgs& a, cudaStream_t st) {
+  constexpr int BQ = 16 * RG;
+  static_assert(ft_overread(8 * CS * (8 / RG), DMIN, INT8) <= kFtSlack,
+                "O's columns past D stay inside the dynamic shared memory");
+  const int smem = ft_smem(BQ, 8 * NT, a.D, INT8, SEG);
+  const auto kernel = flash_fwd_tf32_kernel<RG, NT, CS, SEG, PAGED, INT8>;
   // above 48 KB only after opting in (per device, so on every launch)
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<float*>(out), lse, Sq, Skv,
-      Hq, Hkv, scale, causal, pos, table, max_blocks, block_len, k_scale,
-      v_scale, seg_q, seg_kv);
+  const long long ctas = (long long)((a.Sq + BQ - 1) / BQ) * a.Hq * a.B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (ctas > 0) kernel<<<(unsigned)ctas, kFtThreads, smem, st>>>(a);
   return cudaSuccess;
 }
 
-// float32 at a runtime head dim D (D % 8 == 0, D <= W): the body above with
-// D an argument, for every D its constant-D instances (16, 64, 72, 128)
-// leave out.  W, the output slabs a thread owns (NQ = W / 64, slabs past D
-// neither accumulated nor stored), is 128 (D <= 128; two CTAs an SM, as
-// the constant-D instances) or 256 (D <= 256: 64 accumulators a thread
-// pass the 128 registers two CTAs allow, and the shared memory, D * 68 * 2
-// + 64 * D floats, 204.8 KB at D 256, holds one CTA an SM above D 160
-// anyway).  The Q.K^T loop runs over D, the tiles are sized by D (a
-// launch's dynamic shared memory follows it), so nothing is computed or
-// stored past D.
-template <int W, bool PAGED, typename KV = float, bool SEG = false>
-__global__ void __launch_bounds__(kThreads, W > 128 ? 1 : 2)
-flash_attention_fwd_rt_kernel(const float* __restrict__ q,
-                              const KV* __restrict__ k,
-                              const KV* __restrict__ v,
-                              float* __restrict__ out,
-                              float* __restrict__ lse, int Sq, int Skv,
-                              int Hq, int Hkv, int D, float scale,
-                              int causal, const int* __restrict__ pos,
-                              const int* __restrict__ table, int max_blocks,
-                              int block_len,
-                              const float* __restrict__ k_scale,
-                              const float* __restrict__ v_scale,
-                              const int* __restrict__ seg_q,
-                              const int* __restrict__ seg_kv) {
-  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  static_assert(!INT8 || PAGED, "the int8 cache is paged only");
-  static_assert(W == 128 || W == 256, "the float32 classes are 128 and 256");
-  constexpr int NQ = W / 64;          // 64-wide output slabs per thread
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  int offset = Skv - Sq, kv_len = Skv;
-  if constexpr (PAGED) {
-    offset = pos[b];
-    kv_len = min(offset + Sq, max_blocks * block_len);
-  }
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                   // [D][kPQ]  scaled queries, transposed
-  float* KP = Qt + D * kPQ;           // [D][kPK] keys, then [kBK][kPQ] probs
-  float* Vs = KP + (D > kBK ? D : kBK) * kPK;   // [kBK][D]
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qr = q0 + r;
-    Qt[d * kPQ + r] =
-        qr < Sq ? q[(((size_t)b * Sq + qr) * Hq + h) * D + d] * scale : 0.f;
-  }
-
-  float acc[4][NQ][4];
-  float m_i[4], l_i[4];
-  int sq_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + tr * 4 + i;
-    sq_i[i] = (SEG && qr < Sq) ? seg_q[(size_t)b * Sq + qr] : 0;
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-  }
-
-  const int kv_hi = causal ? min(kv_len, q0 + kBQ + offset) : kv_len;
-  for (int kv0 = 0; kv0 < kv_hi; kv0 += kBK) {
-    __syncthreads();
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int c = idx / D, d = idx - c * D;
-      const int kc = kv0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (kc < kv_len) {
-        size_t row = (size_t)b * Skv + kc;
-        int blk = 0;
-        if constexpr (PAGED) {
-          blk = table[(size_t)b * max_blocks + kc / block_len];
-          row = (size_t)blk * block_len + kc % block_len;
-        }
-        const size_t g = (row * Hkv + hk) * D + d;
-        kx = static_cast<float>(k[g]);
-        vx = static_cast<float>(v[g]);
-        if constexpr (INT8) {
-          kx *= k_scale[(size_t)blk * Hkv + hk];
-          vx *= v_scale[(size_t)blk * Hkv + hk];
-        }
-      }
-      KP[d * kPK + c] = kx;
-      Vs[c * D + d] = vx;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += 8) {   // D % 8 == 0
-#pragma unroll
-      for (int d = d0; d < d0 + 8; ++d) {
-        const float4 qa =
-            *reinterpret_cast<const float4*>(&Qt[d * kPQ + tr * 4]);
-        const float4 ka =
-            *reinterpret_cast<const float4*>(&KP[d * kPK + tc * 4]);
-        const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-        const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + tr * 4 + i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = kv0 + tc * 4 + j;
-        bool keep =
-            qr < Sq && kc < kv_len && (!causal || kc <= qr + offset);
-        if constexpr (SEG)
-          keep = keep && sq_i[i] == seg_kv[(size_t)b * Skv + kc];
-        s[i][j] = keep ? s[i][j] : kNegInf;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
-      const float m_new = fmaxf(m_i[i], rmax);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] *= alpha;
-    }
-
-    __syncthreads();
-    float* Pt = KP;    // [kBK][kPQ]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Pt[(tc * 4 + j) * kPQ + tr * 4 + i] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Pt[c * kPQ + tr * 4]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        const int d0 = n * 64 + tc * 4;
-        if (d0 < D) {
-          const float4 va = *reinterpret_cast<const float4*>(&Vs[c * D + d0]);
-          const float vv[4] = {va.x, va.y, va.z, va.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][n][e] = fmaf(pv[i], vv[e], acc[i][n][e]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + tr * 4 + i;
-    if (qr >= Sq) continue;
-    const float l = l_i[i];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* orow = out + (((size_t)b * Sq + qr) * Hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-      const int d0 = n * 64 + tc * 4;
-      if (d0 < D) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) orow[d0 + e] = acc[i][n][e] * inv;
-      }
-    }
-    if (!PAGED && tc == 0)
-      lse[((size_t)b * Hq + h) * Sq + qr] = l > 0.f ? m_i[i] + logf(l) : kNegInf;
-  }
+// the float32 body at any D <= 256 with D % 8 == 0: up to D 128 128
+// queries a CTA and 64-key tiles, a warp all of O's columns (CS the least
+// instance that covers D / 8); above, 64 queries, 32-key tiles, a warp
+// half of them
+template <bool SEG, bool PAGED, bool INT8>
+cudaError_t launch_tf32(const FtArgs& a, cudaStream_t st) {
+  const int D = a.D;
+  if (D < 8 || D > 256 || D % 8 != 0) return cudaErrorInvalidValue;
+  if (D > 192) return ft_launch<4, 4, 16, 200, SEG, PAGED, INT8>(a, st);
+  if (D > 128) return ft_launch<4, 4, 12, 136, SEG, PAGED, INT8>(a, st);
+  if (D > 96) return ft_launch<8, 8, 16, 104, SEG, PAGED, INT8>(a, st);
+  if (D > 64) return ft_launch<8, 8, 12, 72, SEG, PAGED, INT8>(a, st);
+  if (D > 16) return ft_launch<8, 8, 8, 24, SEG, PAGED, INT8>(a, st);
+  return ft_launch<8, 8, 2, 8, SEG, PAGED, INT8>(a, st);
 }
-
-// the float32 kernel at head dim D: its constant-D instance at 16, 64, 72
-// and 128, else the runtime-D one of the least class W >= D
-template <bool PAGED, typename KV = float, bool SEG = false>
-cudaError_t launch_f32_at(const void* q, const void* k, const void* v,
-                          void* out, float* lse, int B, int Sq, int Skv,
-                          int Hq, int Hkv, int D, float scale, int causal,
-                          cudaStream_t st, const int* pos = nullptr,
-                          const int* table = nullptr, int max_blocks = 0,
-                          int block_len = 0, const float* k_scale = nullptr,
-                          const float* v_scale = nullptr,
-                          const int* seg_q = nullptr,
-                          const int* seg_kv = nullptr) {
-  if (D == 16 || D == 64 || D == 72 || D == 128) {
-    const auto fn = D == 16   ? launch<16, PAGED, KV, SEG>
-                    : D == 64 ? launch<64, PAGED, KV, SEG>
-                    : D == 72 ? launch<72, PAGED, KV, SEG>
-                              : launch<128, PAGED, KV, SEG>;
-    return fn(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, scale, causal, st,
-              pos, table, max_blocks, block_len, k_scale, v_scale, seg_q,
-              seg_kv);
-  }
-  const auto kernel = D <= 128
-                          ? flash_attention_fwd_rt_kernel<128, PAGED, KV, SEG>
-                          : flash_attention_fwd_rt_kernel<256, PAGED, KV, SEG>;
-  const size_t smem =
-      ((size_t)D * kPQ + (size_t)(D > kBK ? D : kBK) * kPK + (size_t)kBK * D) *
-      sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<float*>(out), lse, Sq, Skv, Hq,
-      Hkv, D, scale, causal, pos, table, max_blocks, block_len, k_scale,
-      v_scale, seg_q, seg_kv);
-  return cudaSuccess;
-}
+#endif
 
 // ---------------------------------------------------------------------------
 // Hopper path: 16-bit q (the library's e16: bfloat16, or float16 where
@@ -629,7 +722,6 @@ constexpr int kHThreads = 384;        // consumers: warpgroups 0, 1; producer 2
 constexpr int kHConsumers = 256;
 constexpr int kHBox = 64;             // key rows of a paged box
 constexpr int kRange = 128;           // tokens of a segment range (kv_rng)
-constexpr float kLn2 = 0.6931471805599453f;
 // setmaxnreg moves registers only within the CTA: launched at 168 a
 // thread, the three warpgroups share 3 x 168.  bf16: consumers 240, the
 // producer 24; int8: consumers 216, the converting warpgroup 72 (at 56
@@ -1422,7 +1514,7 @@ cudaError_t launch_wgmma_at(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
   const long long ctas = (long long)((a.Sq + kHQ - 1) / kHQ) * a.Hq * a.B;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  a.scale_log2 = scale * 1.4426950408889634f;
+  a.scale_log2 = scale * kLog2e;
   kernel<<<(unsigned)ctas, kHThreads, smem, st>>>(qm, km, vm, om, sm, a);
   return cudaSuccess;
 }
@@ -1444,23 +1536,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 #ifndef PTT_F16
-// the float32 CUDA-core kernel over contiguous K/V at head dim D, with or
-// without segment ids
-static cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                       int D, float scale, int causal, const int* seg_q,
-                       const int* seg_kv, cudaStream_t st) {
-  if (seg_q != nullptr)
-    return launch_f32_at<false, float, true>(
-        q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal, st, nullptr,
-        nullptr, 0, 0, nullptr, nullptr, seg_q, seg_kv);
-  return launch_f32_at<false>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, D,
-                              scale, causal, st);
-}
-
-// the head dims the float32 builds take: D <= 256, D % 8 == 0
-static bool head_dim_built(int D) {
-  return D >= 8 && D <= 256 && D % 8 == 0;
+// the float32 body's arguments (the rest zero)
+static FtArgs f32_args(const void* q, const void* k, const void* v,
+                       void* out, int B, int Sq, int Skv, int Hq, int Hkv,
+                       int D, float scale, int causal) {
+  FtArgs a = {};
+  a.q = static_cast<const float*>(q);
+  a.k = k;
+  a.v = v;
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.Sq = Sq;
+  a.Skv = Skv;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.causal = causal;
+  a.scale_log2 = scale * kLog2e;
+  return a;
 }
 #endif
 
@@ -1468,13 +1561,13 @@ static bool head_dim_built(int D) {
 // type (bfloat16; float16 alone in the library compiled with -DPTT_F16) at
 // any D <= 256 with D % 8 == 0 runs the Hopper kernel (q, k, v, out
 // 16-byte aligned), float32 at the same head dims (the default library)
-// the CUDA-core one; any other pair returns cudaErrorInvalidValue.  seg_q (B, Sq) and seg_kv (B, Skv): int32
-// packed-document ids, or both null; query i sees key j only where
-// seg_q[b, i] == seg_kv[b, j] (and causally).  With ids the 16-bit build
-// also takes q_rng (B, ceil(Sq / 128), 2) and kv_rng (B, ceil(Skv / 128),
-// 2): the int32 [min, max] id of each 128-token tile
-// (segment_tile_ranges); the float32 build ignores them.  Returns the
-// launch's error (cudaGetLastError()).
+// the 3xTF32 one; any other pair returns cudaErrorInvalidValue.  seg_q (B,
+// Sq) and seg_kv (B, Skv): int32 packed-document ids, or both null; query
+// i sees key j only where seg_q[b, i] == seg_kv[b, j] (and causally).
+// With ids every build also takes q_rng and kv_rng, the int32 [min, max]
+// id of each tile of tokens (segment_tile_ranges): the 16-bit build's of
+// 128 tokens, (B, ceil(Sq / 128), 2) and (B, ceil(Skv / 128), 2), the
+// float32 build's of 64.  Returns the launch's error (cudaGetLastError()).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    const void* seg_q, const void* seg_kv,
@@ -1511,9 +1604,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     e = launch_wgmma<false, false, false>(q, k, v, out, nullptr, a, 0, scale,
                                           st, D);
 #ifndef PTT_F16
-  else if (dtype == 1 && head_dim_built(D))
-    e = launch_f32(q, k, v, out, l, B, Sq, Skv, Hq, Hkv, D, scale, causal, sq,
-                   skv, st);
+  else if (dtype == 1 && sq != nullptr) {
+    FtArgs f = f32_args(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, scale, causal);
+    f.lse = l;
+    f.seg_q = sq;
+    f.seg_kv = skv;
+    f.q_rng = a.q_rng;
+    f.kv_rng = a.kv_rng;
+    e = (f.q_rng == nullptr || f.kv_rng == nullptr)
+            ? cudaErrorInvalidValue
+            : launch_tf32<true, false, false>(f, st);
+  } else if (dtype == 1) {
+    FtArgs f = f32_args(q, k, v, out, B, Sq, Skv, Hq, Hkv, D, scale, causal);
+    f.lse = l;
+    e = launch_tf32<false, false, false>(f, st);
+  }
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1553,8 +1658,6 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
                                          int block_len, float scale,
                                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  const int* t = static_cast<const int*>(table);
   if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1 ||
       num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1565,9 +1668,14 @@ extern "C" int flash_attention_fwd_paged(const void* q, const void* k,
         paged_args(pos, table, B, S, Hq, Hkv, max_blocks, block_len),
         num_blocks, scale, st, D);
 #ifndef PTT_F16
-  else if (dtype == 1 && head_dim_built(D))
-    e = launch_f32_at<true>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv, D, scale,
-                            1, st, p, t, max_blocks, block_len);
+  else if (dtype == 1) {
+    FtArgs f = f32_args(q, k, v, out, B, S, 0, Hq, Hkv, D, scale, 1);
+    f.pos = static_cast<const int*>(pos);
+    f.table = static_cast<const int*>(table);
+    f.max_blocks = max_blocks;
+    f.block_len = block_len;
+    e = launch_tf32<false, true, false>(f, st);
+  }
 #endif
   else
     e = cudaErrorInvalidValue;
@@ -1586,10 +1694,6 @@ extern "C" int flash_attention_fwd_paged_int8(
     int B, int S, int Hq, int Hkv, int D, int num_blocks, int max_blocks,
     int block_len, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  const int* t = static_cast<const int*>(table);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
   if (Hkv < 1 || Hq % Hkv != 0 || max_blocks < 1 || block_len < 1 ||
       num_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1597,15 +1701,20 @@ extern "C" int flash_attention_fwd_paged_int8(
   if (dtype == kE16Code && block_len % kHBox == 0) {
     HopperArgs a = paged_args(pos, table, B, S, Hq, Hkv, max_blocks,
                               block_len);
-    a.k_scale = ks;
-    a.v_scale = vs;
+    a.k_scale = static_cast<const float*>(k_scale);
+    a.v_scale = static_cast<const float*>(v_scale);
     e = launch_wgmma<false, true, true>(q, k, v, out, nullptr, a, num_blocks,
                                         scale, st, D);
 #ifndef PTT_F16
-  } else if (dtype == 1 && head_dim_built(D)) {
-    e = launch_f32_at<true, int8_t>(q, k, v, out, nullptr, B, S, 0, Hq, Hkv,
-                                    D, scale, 1, st, p, t, max_blocks,
-                                    block_len, ks, vs);
+  } else if (dtype == 1) {
+    FtArgs f = f32_args(q, k, v, out, B, S, 0, Hq, Hkv, D, scale, 1);
+    f.pos = static_cast<const int*>(pos);
+    f.table = static_cast<const int*>(table);
+    f.k_scale = static_cast<const float*>(k_scale);
+    f.v_scale = static_cast<const float*>(v_scale);
+    f.max_blocks = max_blocks;
+    f.block_len = block_len;
+    e = launch_tf32<false, true, true>(f, st);
 #endif
   } else {
     e = cudaErrorInvalidValue;

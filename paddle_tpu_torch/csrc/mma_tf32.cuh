@@ -1,6 +1,6 @@
 // float32-accurate products on the tensor cores from three TF32 passes
-// (the float32 K5 / K6 of flash_attention_bwd.cu; the float32 K2 forward is
-// to take the same helpers).
+// (the float32 K5 / K6 of flash_attention_bwd.cu and the float32 K2 of
+// flash_attention_fwd.cu).
 //
 // TF32 keeps float32's 8 exponent bits and 10 of its 23 mantissa bits, so
 // one TF32 product of float32 operands errs by about 2^-11 relative.  Split
@@ -65,6 +65,23 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, alo, bhi0, bhi1);
   mma_tf32(d, ahi, blo0, blo1);
   mma_tf32(d, ahi, bhi0, bhi1);
+}
+
+// Segment ids: the 3xTF32 bodies skip tile pairs whose id ranges miss each
+// other.  rng is the int32 (B, n, 2) [min, max] id of every kIdRange
+// tokens (segment_tile_ranges); id_range gives the [min, max] id of rows
+// [r0, r1].
+constexpr int kIdRange = 64;
+
+__device__ __forceinline__ int2 id_range(const int* rng, int b, int n,
+                                         int r0, int r1) {
+  int2 out = make_int2(0x7fffffff, -0x7fffffff - 1);
+  for (int u = r0 / kIdRange; u <= r1 / kIdRange; ++u) {
+    const int* r = rng + ((size_t)b * n + u) * 2;
+    out.x = min(out.x, __ldg(r));
+    out.y = max(out.y, __ldg(r + 1));
+  }
+  return out;
 }
 
 }  // namespace ptt

@@ -61,7 +61,9 @@ def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
                               scale: Optional[float] = None,
                               return_lse: bool = True, segment_ids=None,
                               kv_segment_ids=None):
-    """Stable attention in float32 — the plain version of kernel K2.
+    """Stable attention in float32 — the plain version of kernel K2
+    (float64 inputs are computed in float64 throughout: an exact yardstick
+    for the float32 kernel).
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0.
     ``attn_mask``: bool (True = keep) or additive float mask broadcastable
@@ -69,15 +71,16 @@ def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
     (query i sees keys j <= i + Skv - Sq); ``segment_ids`` /
     ``kv_segment_ids`` mask cross-document pairs (:func:`_keep_mask`).
     Fully-masked rows give out = 0 and lse = -1e30.  Returns (out, lse)
-    with lse (B, Hq, Sq) float32."""
+    with lse (B, Hq, Sq) float32 (float64 for float64 inputs)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = d ** -0.5
     k = _repeat_kv(k, hq // hkv)
     v = _repeat_kv(v, hq // hkv)
-    qt = q.transpose(1, 2).float() * scale
-    kt = k.transpose(1, 2).float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qt = q.transpose(1, 2).to(acc) * scale
+    kt = k.transpose(1, 2).to(acc)
     scores = torch.einsum("bhqd,bhkd->bhqk", qt, kt)
     keep = _keep_mask(sq, skv, causal, segment_ids, kv_segment_ids, q.device)
     if keep is not None:
@@ -86,7 +89,7 @@ def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
         if attn_mask.dtype == torch.bool:
             scores = scores.masked_fill(~attn_mask, NEG_INF)
         else:
-            scores = scores + attn_mask.float()
+            scores = scores + attn_mask.to(acc)
     m = scores.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp(scores - m)
     dead = m <= NEG_INF / 2
@@ -95,7 +98,7 @@ def flash_attention_reference(q, k, v, attn_mask=None, causal: bool = False,
     lse = torch.where(dead, torch.full_like(m, NEG_INF),
                       m + torch.log(l.clamp_min(1e-37))).squeeze(-1)
     p = p / l.clamp_min(1e-37)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.transpose(1, 2).float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.transpose(1, 2).to(acc))
     out = out.transpose(1, 2).to(q.dtype)
     return (out, lse) if return_lse else out
 
@@ -359,7 +362,8 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
     tensor) for the whole batch, or an int (B,) tensor of per-row
     positions.  ``live_len``: optional bound on max(pos)+s — only the
     first ``live_len`` slots are read.  GQA stays grouped (no K/V repeat).
-    Math in float32; returns (B, s, Hq, D) in q.dtype.  A row with every
+    Math in float32 (float64 for float64 q: an exact yardstick for the
+    float32 kernels); returns (B, s, Hq, D) in q.dtype.  A row with every
     key masked returns 0 (the kernels' convention).
 
     ``block_tables`` (int (B, max_blocks)): the PAGED layout
@@ -376,6 +380,7 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
     float32 and multiplied by its scale before the math (the reference's
     ``_dequant_decode_attention``)."""
     b, s, hq, d = q.shape
+    acc = torch.promote_types(q.dtype, torch.float32)
     if (k_scale is None) != (v_scale is None):
         raise ValueError("an int8 cache needs both k_scale and v_scale")
     if block_tables is not None:
@@ -387,21 +392,21 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
         idx = block_tables.to(k_cache.device).long().clamp(0, n_pool - 1)
         k_cache, v_cache = k_cache[idx], v_cache[idx]   # (B, mb, bl, Hkv, D)
         if k_scale is not None:
-            k_cache = k_cache.float() * k_scale.float()[idx][:, :, None, :,
-                                                             None]
-            v_cache = v_cache.float() * v_scale.float()[idx][:, :, None, :,
-                                                             None]
+            k_cache = k_cache.to(acc) * k_scale.to(acc)[idx][:, :, None, :,
+                                                              None]
+            v_cache = v_cache.to(acc) * v_scale.to(acc)[idx][:, :, None, :,
+                                                              None]
         k_cache = k_cache.reshape(b, mb * bl, hkv_p, d)
         v_cache = v_cache.reshape(b, mb * bl, hkv_p, d)
     elif k_scale is not None:
         _, L0, hkv_c, _ = k_cache.shape
         n_gran = k_scale.shape[1]
         gr = L0 // n_gran
-        k_cache = (k_cache.float().reshape(b, n_gran, gr, hkv_c, d)
-                   * k_scale.float()[:, :, None, :, None]).reshape(
+        k_cache = (k_cache.to(acc).reshape(b, n_gran, gr, hkv_c, d)
+                   * k_scale.to(acc)[:, :, None, :, None]).reshape(
                        b, L0, hkv_c, d)
-        v_cache = (v_cache.float().reshape(b, n_gran, gr, hkv_c, d)
-                   * v_scale.float()[:, :, None, :, None]).reshape(
+        v_cache = (v_cache.to(acc).reshape(b, n_gran, gr, hkv_c, d)
+                   * v_scale.to(acc)[:, :, None, :, None]).reshape(
                        b, L0, hkv_c, d)
     if live_len is not None and live_len < k_cache.shape[1]:
         k_cache = k_cache[:, :live_len]
@@ -411,8 +416,8 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
     if scale is None:
         scale = d ** -0.5
     dev = q.device
-    qg = q.float().reshape(b, s, hkv, g, d)
-    scores = torch.einsum("bskgd,blkd->bkgsl", qg, k_cache.float()) * scale
+    qg = q.to(acc).reshape(b, s, hkv, g, d)
+    scores = torch.einsum("bskgd,blkd->bkgsl", qg, k_cache.to(acc)) * scale
     kj = torch.arange(L, device=dev)
     si = torch.arange(s, device=dev)
     if _is_per_row(pos):
@@ -425,7 +430,7 @@ def cached_decode_attention_reference(q, k_cache, v_cache, pos,
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m) * keep
     w = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
-    out = torch.einsum("bkgsl,blkd->bskgd", w, v_cache.float())
+    out = torch.einsum("bkgsl,blkd->bskgd", w, v_cache.to(acc))
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 

@@ -17,8 +17,9 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # MAX_HEAD_DIM) with D % 8 == 0 (tiles or ring rows 128 wide up to D 128
 # and 256 wide above, whose columns past D hold zeros).  The float16
 # builds, forward and backward, take the same set (the same bodies over
-# float16), and so do the float32 builds (CUDA-core bodies whose lanes or
-# slabs past D hold zeros)
+# float16), and so do the float32 builds (the K1 family's CUDA-core body,
+# whose lanes past D hold zeros; K2 and K5 / K6 the 3xTF32 bodies, whose
+# column tiles past D are never stored)
 BF16_HEAD_DIMS = frozenset(range(8, 257, 8))
 # the 16-bit types, whose kernels share one body (bfloat16 and float16)
 HALF_DTYPES = (torch.bfloat16, torch.float16)

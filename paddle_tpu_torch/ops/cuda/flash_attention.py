@@ -34,11 +34,15 @@ element masks only on the tiles that need one, the heaviest q tiles
 first; below its tile width (128, or 256 above head_dim 128) the same
 kernel runs on zero-padded tiles.
 float32 — the tiny models, float32 DiTs, the reference's float32 default
-configurations — runs a CUDA-core kernel (``wgmma`` has no float32 input
-that keeps float32 numerics): instances of constant D at 16, 64, 72 and
-128, and the same body at a runtime D in two width classes (D <= 128, two
-CTAs an SM; D <= 256, one) for every other D.  Those are
-the builds held against the plain version on the card (``chip_smoke.py``);
+configurations — runs one body at every D on the tensor cores in three
+TF32 passes (``csrc/mma_tf32.cuh``: each operand split into a TF32 hi and
+lo, lo hi + hi lo + hi hi on ``mma.sync`` m16n8k8; ``wgmma`` takes float32
+only as TF32, one pass): 128 queries a CTA and 64-key tiles up to D 128,
+64 queries and 32-key tiles above, Q resident in shared memory, K / V by
+``cp.async`` in two stages, P kept in registers as the A operand of P.V,
+the heaviest q tiles first; with segment ids it skips key tiles by 64-token
+id ranges (``RANGE_TILE``).  Those are the builds held against the plain
+version (float32: computed in float64) on the card (``chip_smoke.py``);
 any other dtype or head_dim raises.
 
 Packed documents: optional int32 ``segment_ids`` (B, Sq) and
@@ -77,7 +81,10 @@ them to 16 bits (exact) in the layout the consumers read; each 64-key half
 carries its block's scales, K's folded into the scores and V's into the
 tile's probabilities (at float16 relative to the tile's larger V scale,
 the output kept in units of it, so P times a small scale never goes
-subnormal).  The float32 kernel dequantizes per key.
+subnormal).  The float32 body stages the int8 rows as bytes and
+each key's block scales beside them: an int8 value is exact in TF32, so
+Q.K^T and P.V over it take two passes, K's scale applied to the scores
+and V's to the probabilities per key.
 """
 
 from __future__ import annotations
@@ -98,13 +105,16 @@ NAME = "flash_attention_fwd"
 # ``HEAD_DIM``), one set: any D <= 256 with D % 8 == 0 -- bf16 and float16
 # the Hopper kernel's 128- or 256-wide tiles, columns past D zero-filled
 # by TMA (whose row stride D x 2 bytes must be a multiple of 16), float32
-# the CUDA-core kernel; other head dims are ROADMAP B2
+# the 3xTF32 body; other head dims are ROADMAP B2
 HEAD_DIM = dict.fromkeys((torch.bfloat16, torch.float16, torch.float32),
                          BF16_HEAD_DIMS)
 FWD_HEAD_DIMS = dict(HEAD_DIM)
 # the bf16 build's query tile and the tokens of a segment range (csrc: kHQ,
-# kRange; its key tile is 128, or 64 above head_dim 128)
+# kRange; its key tile is 128, or 64 above head_dim 128), and the tokens
+# of a segment range of the float32 forward and of every backward (csrc:
+# kIdRange, the 16-bit backward's kRT)
 SEG_TILE = 128
+RANGE_TILE = 64
 PAGED_BOX = 64          # the bf16 paged builds' key rows a box (csrc: kHBox)
 
 _P = ctypes.c_void_p
@@ -197,12 +207,14 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     q_rng = kv_rng = None
-    if seg_q is not None and q.dtype in HALF_DTYPES:
-        if seg_kv.data_ptr() % 16:   # the kernel loads key ids by TMA
+    if seg_q is not None:
+        half = q.dtype in HALF_DTYPES
+        if half and seg_kv.data_ptr() % 16:   # loaded by TMA
             seg_kv = seg_kv.clone()
-        q_rng = segment_tile_ranges(seg_q)
+        tile = SEG_TILE if half else RANGE_TILE
+        q_rng = segment_tile_ranges(seg_q, tile)
         kv_rng = (q_rng if kv_segment_ids is None
-                  else segment_tile_ranges(seg_kv))
+                  else segment_tile_ranges(seg_kv, tile))
     lib = _lib(q.dtype)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -61,13 +61,12 @@ import torch
 
 from . import (_build, check_attention_args, library,
                require_cuda, stream_ptr)
-from .flash_attention import (FWD_HEAD_DIMS, _ptr, segment_args,
-                              segment_tile_ranges)
+from .flash_attention import (FWD_HEAD_DIMS, RANGE_TILE, _ptr,
+                              segment_args, segment_tile_ranges)
 
 NAME = "flash_attention_bwd"
 # K5 / K6 take K2's head dims, every dtype
 BWD_HEAD_DIMS = FWD_HEAD_DIMS
-RANGE_TILE = 64         # tokens a segment range covers (csrc: kRT)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -158,6 +158,83 @@ def test_exchange_round_trip_over_a_tile(wpr):
         np.testing.assert_array_equal(got, p[rg] @ y)
 
 
+@pytest.mark.parametrize("wpr", [1, 2])
+def test_forward_fragments_place_every_column(wpr):
+    """The float32 K2's fragments (``flash_fwd_tf32_kernel``): S's A from
+    Q's 8-byte loads (rows g / g + 8, columns 2t, 2t + 1 as k t, k t + 4)
+    and B from K's (key row g, the same columns) form Q K^T; P's C
+    fragments -- with two warps a row group each warp's half of the tile's
+    n-tiles written at (rg NT + j) 32 + lane and the group's read back --
+    as A, V's B read as 8-byte pairs (rows 2t, 2t + 1; columns 16 m + 2g,
+    + 1 for the n-tile pair 2m, 2m + 1), and each lane's 4 stored columns
+    16 m + 4t .. + 3 place P V's every column once."""
+    rng = np.random.default_rng(wpr)
+    nt = 8 // wpr                      # n-tiles of 8 keys a tile (NT)
+    q = rng.integers(-9, 10, size=(16, 8)).astype(np.float64)
+    kk = rng.integers(-9, 10, size=(8, 8)).astype(np.float64)
+    a_regs = [[q[g, 2 * t], q[g + 8, 2 * t], q[g, 2 * t + 1],
+               q[g + 8, 2 * t + 1]] for g, t in map(_gt, range(LANES))]
+    b_regs = [[kk[g, 2 * t], kk[g, 2 * t + 1]]
+              for g, t in map(_gt, range(LANES))]
+    np.testing.assert_array_equal(_warp_product(a_regs, b_regs), q @ kk.T)
+    p = rng.integers(-9, 10, size=(16, 8 * nt)).astype(np.float64)
+    v = rng.integers(-9, 10, size=(8 * nt, 16)).astype(np.float64)
+    xp = {}
+    for wi in range(wpr):              # each warp's half of S's n-tiles
+        for j in range(wi * nt // wpr, (wi + 1) * nt // wpr):
+            for lane in range(LANES):
+                xp[j * 32 + lane] = [p[r, 8 * j + c] for r, c in
+                                     (tf32m.c_map(lane, x) for x in range(4))]
+    assert len(xp) == nt * LANES
+    o = [np.zeros((16, 8)) for _ in range(2)]
+    for j in range(nt):
+        a_regs = [[xp[j * 32 + lane][tf32m.C_AS_A[r]] for r in range(4)]
+                  for lane in range(LANES)]
+        for x in range(2):
+            b_regs = [[v[8 * j + 2 * t, 2 * g + x],
+                       v[8 * j + 2 * t + 1, 2 * g + x]]
+                      for g, t in map(_gt, range(LANES))]
+            o[x] += _warp_product(a_regs, b_regs)
+    out = np.full((16, 16), np.nan)
+    for lane in range(LANES):
+        g, t = _gt(lane)
+        for row, i in ((g, 0), (g + 8, 1)):
+            cols = slice(4 * t, 4 * t + 4)
+            assert np.isnan(out[row, cols]).all()
+            out[row, cols] = [o[0][row, 2 * t], o[1][row, 2 * t],
+                              o[0][row, 2 * t + 1], o[1][row, 2 * t + 1]]
+    np.testing.assert_array_equal(out, p @ v)
+
+
+@pytest.mark.parametrize("d", [8, 64, 72, 96, 128, 136, 200, 256])
+def test_forward_loads_hit_distinct_banks(d):
+    """The float32 K2's rows sit ft_ld(D) = 8 (mod 32) floats apart (Q, K;
+    the int8 K / V rows that many bytes) and D + 4 apart (float32 V): each
+    half-warp's 8-byte loads -- Q / K at (row g, columns 2t, 2t + 1), V at
+    (rows 2t or 2t + 1, columns 2g, 2g + 1) -- cover 32 distinct banks, and
+    the int8 2-byte loads of a warp touch distinct words on distinct
+    banks."""
+    ld, vld = d + (8 - d) % 32, d + 4
+    assert ld % 32 == 8 and ld >= d
+    for c0 in (0, 8, d - 8):
+        for half in (0, 1):
+            lanes = range(16 * half, 16 * half + 16)
+            for stride, at in ((ld, lambda g, t: g * ld + 2 * t),
+                               (vld, lambda g, t: 2 * t * vld + 2 * g)):
+                banks = [(at(g, t) + c0 + w) % 32 for g, t in map(_gt, lanes)
+                         for w in (0, 1)]
+                assert len(set(banks)) == 32, (stride, c0, half)
+        for at in (lambda g, t: g * ld + 2 * t,            # K: row g
+                   lambda g, t: 2 * t * ld + 2 * g):       # V: row 2t
+            words = {(at(g, t) + c0) // 4 for g, t in map(_gt, range(LANES))}
+            assert len({w % 32 for w in words}) == len(words)
+
+
+def _gt(lane):
+    """(g, t) of a lane: lane = 4 g + t."""
+    return divmod(lane, 4)
+
+
 @pytest.mark.parametrize("d", [8, 64, 72, 96, 128, 136, 200, 256])
 def test_fragment_loads_hit_distinct_banks(d):
     """Tiles sit D + 4 floats a row apart: each scalar fragment load of a

@@ -22,6 +22,16 @@ on the CPU.
     dead rows, a non-causal cross shape, packed ids with tile-range skips)
     within 1e-5 of the float64 plain backward, and a single TF32 pass
     failing that bar;
+  * a model of the float32 K2 family (``csrc/flash_attention_fwd.cu``
+    ``flash_fwd_tf32_kernel``, the same three passes;
+    ``tests/torch_tf32_model.py`` ``forward``): its walk at D 16-256 --
+    causal GQA with dead rows, not causal with Sq != Skv and Sq 1, packed
+    ids skipping key tiles, paged over shuffled tables at block_len 16
+    and 64, an int8 pool -- within 1e-5 of the float64 plain forward,
+    the heaviest q tiles first, a skipped row group seeing no key and an
+    unmasked one every key of its tile, a single pass failing the bar;
+    the float32 wrapper handing the kernel its 64-token id ranges; the
+    plain forward versions computing float64 inputs in float64;
   * the plain versions against the JAX package's Pallas kernels in
     interpret mode at float32 D 64, 96 and 136, 1e-5: cached decode
     attention in its four layouts at s = 1 and 5, flash attention forward
@@ -43,8 +53,9 @@ from paddle_tpu.ops.pallas.flash_attention import flash_attention_pallas
 from paddle_tpu_torch.ops import (_dispatch, cached_decode_attention,
                                   flash_attention)
 from paddle_tpu_torch.ops import cuda as pt_cuda
-from paddle_tpu_torch.ops.attention import (flash_attention_bwd_reference,
-                                            flash_attention_reference)
+from paddle_tpu_torch.ops.attention import (
+    cached_decode_attention_reference, flash_attention_bwd_reference,
+    flash_attention_reference)
 from paddle_tpu_torch.ops.cuda import BF16_HEAD_DIMS
 from paddle_tpu_torch.ops.cuda import decode_attention as k1
 from paddle_tpu_torch.ops.cuda import flash_attention as k2
@@ -398,6 +409,259 @@ def test_one_tf32_pass_misses_the_bar():
         assert (ratio <= 1) == ok, (passes, ratio)
         if not ok:
             assert ratio > 10
+
+
+# ---- the float32 K2 family: 3xTF32 (tests/torch_tf32_model.py forward) ------
+
+def _fwd_inputs(b, sq, skv, hq, hkv, d, segments, seed):
+    """Seeded float32 q (B, Sq, Hq, D), k, v (B, Skv, Hkv, D) and packed
+    ids of 20-70 tokens a document (some 64-token tiles then share none)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, hq, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    seg = None
+    if segments == "packed":
+        cuts = np.cumsum(rng.integers(20, 70, size=(b, sq)), axis=1)
+        seg = (np.arange(sq)[None, :, None]
+               >= cuts[:, None, :]).sum(-1).astype(np.int32)
+    return q, k, v, seg
+
+
+def _paged_inputs(d, bl, int8, seed, b=3, s=70, mb_keys=256, hq=4, hkv=2,
+                  pos=(-1, 3, 150)):
+    """A suffix prefill of ``s`` queries a row at offsets ``pos`` (row 0's
+    first query sees no key) over a shuffled pool of ``bl``-token blocks,
+    two spare: (q, k_pool, v_pool, k_scale, v_scale, pos, table)."""
+    rng = np.random.default_rng(seed)
+    mb = mb_keys // bl
+    n_blocks = b * mb + 2
+    table = rng.permutation(n_blocks)[:b * mb].reshape(b, mb).astype(
+        np.int32)
+    q = rng.normal(size=(b, s, hq, d)).astype(np.float32)
+    if int8:
+        kp, vp = (rng.integers(-127, 128, size=(n_blocks, bl, hkv, d))
+                  .astype(np.int8) for _ in range(2))
+        ks, vs = ((0.002 + 0.02 * rng.random((n_blocks, hkv)))
+                  .astype(np.float32) for _ in range(2))
+    else:
+        kp, vp = (rng.normal(size=(n_blocks, bl, hkv, d)).astype(np.float32)
+                  for _ in range(2))
+        ks = vs = None
+    return q, kp, vp, ks, vs, np.array(pos, np.int32), table
+
+
+FWD_SHAPES = {
+    # causal GQA, Sq > Skv: queries 0..19 see no key; two q tiles at D <= 128
+    "causal_gqa_dead_rows": (1, 150, 130, 4, 2, True, None),
+    # not causal, Sq != Skv; a one-query row
+    "cross": (1, 40, 130, 2, 1, False, None),
+    "cross_one_query": (2, 1, 70, 2, 2, False, None),
+    # packed documents: key tiles whose id ranges miss the q tile's skipped
+    "packed": (2, 200, 200, 4, 2, True, "packed"),
+    # the paged walk over shuffled tables, float32 and int8 pools
+    "paged_block_len_16": (16, False),
+    "paged_block_len_64": (64, False),
+    "paged_int8": (16, True),
+}
+
+
+def _visible_fwd(sq, skv, off, kv_len, causal, seg_q=None, seg_kv=None):
+    """(Sq, Skv) bool of the visible pairs of one batch row."""
+    keep = np.arange(skv)[None, :] < kv_len
+    keep = keep & np.ones((sq, 1), bool)
+    if causal:
+        keep &= np.arange(skv)[None, :] <= np.arange(sq)[:, None] + off
+    if seg_q is not None:
+        keep &= seg_q[:, None] == seg_kv[None, :]
+    return keep
+
+
+def _check_walks(walks, d, sq, skv, keep_of, n_qt, hq, b):
+    """The CTAs run the heaviest q tiles first; a skipped row group sees no
+    key of its tile, an unmasked one sees every key of it."""
+    bq, nk, _ = tf32m.fwd_tiles(d)
+    assert [w[2] // bq for w in walks] == [
+        qt for qt, _, _ in tf32m.fwd_cta_order(n_qt, hq, b)]
+    assert [w[2] for w in walks] == sorted((w[2] for w in walks),
+                                           reverse=True)
+    for bi, _, q0, walk in walks:
+        keep = keep_of(bi)
+        for u, flags in walk:
+            for rg, flag in enumerate(flags):
+                r0 = q0 + 16 * rg
+                blk = keep[r0:min(sq, r0 + 16), u * nk:u * nk + nk]
+                if flag is None:
+                    assert not blk.any()
+                elif not flag:
+                    assert blk.all() and blk.shape[1] == nk
+
+
+@pytest.mark.parametrize("shape", sorted(FWD_SHAPES))
+@pytest.mark.parametrize("d", [16, 64, 72, 96, 128, 136, 200, 256])
+def test_tf32_forward_walk_equals_float64_forward(d, shape):
+    """The float32 K2 body's walk in three TF32 passes (128 queries and
+    64-key tiles up to D 128, 64 and 32 above; S in partials of 32 columns;
+    the online softmax in exp2 units with each lane's partial sums; P as
+    the A operand of P V) within (1e-5, 1e-5) of the plain forward in
+    float64 (lse 1e-5), rows that see no key exactly 0 (lse -1e30); the
+    heaviest q tiles first, packed rows skipping key tiles, paged walks at
+    block_len 16 and 64 and an int8 pool (two passes over its exact
+    values) losing nothing."""
+    walks = []
+    if shape.startswith("paged"):
+        bl, int8 = FWD_SHAPES[shape]
+        q, kp, vp, ks, vs, pos, table = _paged_inputs(d, bl, int8, d + bl)
+        got, lse = tf32m.forward(q, kp, vp, causal=True, pos=pos,
+                                 table=table, k_scale=ks, v_scale=vs,
+                                 walks=walks)
+        assert lse is None
+        kw = {}
+        if int8:
+            kw = dict(k_scale=torch.from_numpy(ks).double(),
+                      v_scale=torch.from_numpy(vs).double())
+        want = cached_decode_attention_reference(
+            torch.from_numpy(q).double(), torch.from_numpy(kp),
+            torch.from_numpy(vp), torch.from_numpy(pos),
+            block_tables=torch.from_numpy(table), **kw).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+        assert not got[0, 0].any()            # pos -1: query 0 sees no key
+        b, s, hq = q.shape[:3]
+        kv_len = [min(p + s, table.shape[1] * bl) for p in pos]
+        _check_walks(walks, d, s, table.shape[1] * bl,
+                     lambda bi: _visible_fwd(s, table.shape[1] * bl,
+                                             int(pos[bi]), kv_len[bi], True),
+                     -(-s // tf32m.fwd_tiles(d)[0]), hq, b)
+        return
+    b, sq, skv, hq, hkv, causal, segments = FWD_SHAPES[shape]
+    q, k, v, seg = _fwd_inputs(b, sq, skv, hq, hkv, d, segments, d)
+    got, lse = tf32m.forward(q, k, v, causal=causal, seg_q=seg, seg_kv=seg,
+                             walks=walks)
+    kw = {} if seg is None else dict(segment_ids=torch.from_numpy(seg))
+    want, wlse = (t.numpy() for t in flash_attention_reference(
+        *(torch.from_numpy(x).double() for x in (q, k, v)), causal=causal,
+        **kw))
+    assert want.dtype == np.float64
+    np.testing.assert_allclose(got, want, **TOL)
+    live = wlse > -1e29
+    np.testing.assert_allclose(lse[live], wlse[live], rtol=0, atol=1e-5)
+    assert np.all(lse[~live] == np.float32(-1e30))
+    assert not got.transpose(0, 2, 1, 3)[~live].any()
+    if shape == "causal_gqa_dead_rows":
+        assert (~live).sum() == b * hq * (sq - skv)
+
+    def keep_of(bi):
+        return _visible_fwd(sq, skv, skv - sq, skv, causal,
+                            None if seg is None else seg[bi],
+                            None if seg is None else seg[bi])
+    n_qt = -(-sq // tf32m.fwd_tiles(d)[0])
+    _check_walks(walks, d, sq, skv, keep_of, n_qt, hq, b)
+    if segments is not None:
+        # the ids did skip key tiles the causal walk alone would visit
+        bq, nk, _ = tf32m.fwd_tiles(d)
+        full = sum(len(tf32m.fwd_walk(q0, bq, nk, sq, skv, skv - sq, skv,
+                                      causal)) for _, _, q0, _ in walks)
+        assert full > sum(len(w[-1]) for w in walks)
+
+
+def test_one_tf32_pass_misses_the_forward_bar():
+    """The guard on the two extra passes of the forward: one TF32 pass of
+    Q K^T and P V lies far past (1e-5, 1e-5) of the float64 forward where
+    three hold it."""
+    q, k, v, _ = _fwd_inputs(1, 128, 128, 4, 2, 64, None, 5)
+    want = flash_attention_reference(
+        *(torch.from_numpy(x).double() for x in (q, k, v)),
+        causal=True)[0].numpy()
+    for passes, ok in ((1, False), (3, True)):
+        got = tf32m.forward(q, k, v, causal=True, passes=passes)[0]
+        ratio = float(np.max(np.abs(got - want) / (1e-5 + 1e-5 * np.abs(want))))
+        assert (ratio <= 1) == ok, (passes, ratio)
+        if not ok:
+            assert ratio > 10
+
+
+def test_float32_forward_hands_the_tile_ranges_to_the_kernel(no_card,
+                                                              monkeypatch):
+    """With segment ids the float32 K2 skips key tiles by the 64-token id
+    ranges (``RANGE_TILE``, the body's kIdRange) where the 16-bit builds
+    take 128-token ones: the wrapper computes them and passes q_rng /
+    kv_rng."""
+    tiles = []
+    real = k2.segment_tile_ranges
+
+    def spy(ids, tile=k2.SEG_TILE):
+        tiles.append(tile)
+        return real(ids, tile)
+
+    monkeypatch.setattr(k2, "segment_tile_ranges", spy)
+    q = torch.zeros(1, 130, 4, 64)
+    k = torch.zeros(1, 130, 2, 64)
+    seg = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32), 44)[:130]
+                           [None])
+    k2.flash_attention_fwd_cuda(q, k, k, causal=True, segment_ids=seg)
+    k2.flash_attention_fwd_cuda(q, k, k, causal=True, segment_ids=seg,
+                                kv_segment_ids=seg)
+    assert tiles == [k2.RANGE_TILE] * 3 == [64] * 3
+    assert [c[0] for c in no_card.calls] == ["flash_attention_fwd"] * 2
+    for _, args in no_card.calls:
+        assert all(a not in (None, 0) for a in args[5:9])   # ids, ranges
+    # the ranges the model of the body walks with
+    np.testing.assert_array_equal(
+        real(seg, k2.RANGE_TILE).numpy(), tf32m.tile_ranges(seg.numpy()))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_computes_float64_in_float64(causal):
+    """``flash_attention_reference`` and ``cached_decode_attention_reference``
+    on float64 inputs (``chip_smoke.py`` holds the float32 K2 family
+    against them) return float64 equal to a float64 softmax attention far
+    inside float32's rounding, the int8 cache dequantized in float64."""
+    rng = np.random.default_rng(4)
+    b, sq, skv, hq, hkv, d = 2, 12, 9, 4, 2, 40
+    q = torch.from_numpy(rng.normal(size=(b, sq, hq, d)))
+    k, v = (torch.from_numpy(rng.normal(size=(b, skv, hkv, d)))
+            for _ in range(2))
+
+    def softmax_attention(q, k, v, keep):
+        qh = q.transpose(1, 2)
+        kh, vh = (t.transpose(1, 2).repeat_interleave(hq // hkv, 1)
+                  for t in (k, v))
+        s = (qh @ kh.transpose(-1, -2) * d ** -0.5).masked_fill(
+            ~keep, float("-inf"))
+        return ((torch.softmax(s, -1).nan_to_num() @ vh).transpose(1, 2),
+                torch.logsumexp(s, -1))
+
+    keep = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        keep = keep.tril(skv - sq)
+    out, lse = flash_attention_reference(q, k, v, causal=causal)
+    want, wlse = softmax_attention(q, k, v, keep)
+    live = keep.any(-1)
+    assert out.dtype == lse.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(lse[..., live].numpy(),
+                               wlse[..., live].numpy(), rtol=1e-12)
+    # the paged int8 cache at per-row offsets: K / V dequantized in float64
+    pos = torch.tensor([0, 5])
+    kp, vp = (torch.from_numpy(rng.integers(-127, 128, size=(4, 4, hkv, d))
+                               .astype(np.int8)) for _ in range(2))
+    ks, vs = (torch.from_numpy(0.002 + 0.02 * rng.random((4, hkv)))
+              for _ in range(2))
+    table = torch.tensor([[3, 1], [0, 2]], dtype=torch.int32)
+    got = cached_decode_attention_reference(q[:, :3], kp, vp, pos,
+                                            block_tables=table, k_scale=ks,
+                                            v_scale=vs)
+    assert got.dtype == torch.float64
+    kd, vd = ((p[table.long()].double() * sc[table.long()][:, :, None, :,
+                                                            None])
+              .reshape(b, 8, hkv, d) for p, sc in ((kp, ks), (vp, vs)))
+    for r in range(b):
+        kv_keep = (torch.arange(8)[None] <= pos[r] + torch.arange(3)[:, None])
+        w, _ = softmax_attention(q[r:r + 1, :3], kd[r:r + 1], vd[r:r + 1],
+                                 kv_keep)
+        np.testing.assert_allclose(got[r:r + 1].numpy(), w.numpy(),
+                                   rtol=1e-10, atol=1e-12)
 
 
 # ---- the plain versions against the Pallas kernels (interpret mode) ----------

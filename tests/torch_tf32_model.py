@@ -1,8 +1,10 @@
 """A numpy model of the float32 flash backward's kernels K5 (dq) and K6
 (dk, dv) in ``paddle_tpu_torch/csrc/flash_attention_bwd.cu``
-(``tc_body``): three TF32 passes on ``mma.sync`` m16n8k8
-(``csrc/mma_tf32.cuh``), the CTA's walk over the streamed tiles, the tile
-sums and the segment-range skip.
+(``tc_body``, :func:`backward`) and of the float32 forward K2, K2-paged
+and K2-paged-int8 in ``csrc/flash_attention_fwd.cu``
+(``flash_fwd_tf32_kernel``, :func:`forward`): three TF32 passes on
+``mma.sync`` m16n8k8 (``csrc/mma_tf32.cuh``), the CTAs' walks over the
+tiles, the tile sums, the online softmax and the segment-range skip.
 
 The model restates the kernels' arithmetic, not the card's adder: a TF32
 operand is float32 split by :func:`split`, and one ``mma`` adds its
@@ -20,7 +22,7 @@ F32, F64 = np.float32, np.float64
 NS = 32          # streamed rows a tile (csrc kTcNS): K5 keys, K6 queries
 SUM = 64         # streamed rows a tile sum (kTcSum)
 CHUNK = 4        # k steps of 8 columns an S / dP partial sum (kTcChunk)
-RANGE = 64       # tokens a segment range covers (kTcRange, RANGE_TILE)
+RANGE = 64       # tokens a segment range covers (kIdRange, RANGE_TILE)
 NARROW = 128     # up to this D a CTA owns K5 128 / K6 64 rows, above 32
 
 
@@ -275,3 +277,199 @@ def backward(q, k, v, do, lse, delta, causal=False, scale=None,
                     else:
                         dq[bi, r0:r0 + n_out, hr] = acc[0][:n_out]
     return dq, dk, dv
+
+
+# ---- the forward: K2, K2-segmented, K2-paged(-int8) (csrc/flash_attention_fwd.cu
+# flash_fwd_tf32_kernel) --------------------------------------------------------
+
+LOG2E = F32(1.4426950408889634)   # kLog2e: the scale is taken to exp2 units
+LN2 = F32(0.6931471805599453)     # kLn2: lse back to natural-log units
+
+
+def fwd_tiles(d: int):
+    """(queries a CTA, keys a tile, warps a row group) of ``launch_tf32``:
+    128 / 64 / 1 up to D 128, 64 / 32 / 2 above (the two warps of a row
+    group each form S over half of the tile's keys, exchange the row
+    maxima and P through shared memory and own half of O's columns)."""
+    return (128, 64, 1) if d <= NARROW else (64, 32, 2)
+
+
+def fwd_cta_order(n_qt: int, hq: int, b: int):
+    """(q tile, q head, batch row) of each CTA of the 1-D grid in launch
+    order: the heaviest (last) q tiles of every (row, head) first."""
+    return [(n_qt - 1 - x // (hq * b), x % hq, (x // hq) % b)
+            for x in range(n_qt * hq * b)]
+
+
+def fwd_walk(q0, bq, nk, sq, skv, off, kv_len, causal, b=0, q_rng=None,
+             kv_rng=None):
+    """The key tiles the CTA of queries [q0, q0 + bq) visits, in order, as
+    (u, flags): tile u holds keys [u nk, u nk + nk); ``flags[rg]`` is None
+    where the 16 rows of row group rg see no key of the tile (the warp skips
+    it), else whether the tile needs the element mask for them.  Keys j <
+    kv_len exist, query i sees j <= i + off when causal; with ids (their
+    64-token ranges) a tile whose range misses the CTA's is not loaded."""
+    q_last = min(sq, q0 + bq) - 1
+    kv_hi = min(kv_len, q_last + off + 1) if causal else kv_len
+    n_kt = -(-kv_hi // nk) if kv_hi > 0 else 0
+    seg = q_rng is not None
+    cr = _range(q_rng, b, q0, q_last) if seg else None
+    out = []
+    for u in range(n_kt):
+        k0 = u * nk
+        if seg:
+            kr = _range(kv_rng, b, k0, min(skv, k0 + nk) - 1)
+            if kr[1] < cr[0] or kr[0] > cr[1]:
+                continue
+        flags = []
+        for r_lo in range(q0, q0 + bq, 16):
+            r_top = min(sq - 1, r_lo + 15)
+            any_ = r_lo < sq and (not causal or k0 <= r_top + off)
+            masked = k0 + nk > kv_len or (causal and k0 + nk - 1 > r_lo + off)
+            if seg and r_lo < sq:
+                wr = _range(q_rng, b, r_lo, r_top)
+                any_ = any_ and kr[1] >= wr[0] and kr[0] <= wr[1]
+                masked = masked or not wr[0] == wr[1] == kr[0] == kr[1]
+            flags.append(masked if any_ else None)
+        out.append((u, flags))
+    return out
+
+
+def _lane_sums(p, nt, wpr):
+    """Each lane t's partial row sum of a tile's probabilities, as the
+    kernel adds them: columns 8j + 2t, 8j + 2t + 1 over the n-tiles j of
+    the lane's warp (all nt, or with two warps a row group the half each
+    forms), in float32.  p: (rows, 8 nt) -> (rows, wpr, 4)."""
+    ps = np.zeros((p.shape[0], wpr, 4), F32)
+    q4 = p.reshape(p.shape[0], nt, 4, 2)
+    ns = nt // wpr
+    for w in range(wpr):
+        for j in range(w * ns, (w + 1) * ns):
+            for x in range(2):
+                ps[:, w] = (ps[:, w] + q4[:, j, :, x]).astype(F32)
+    return ps
+
+
+def forward(q, k, v, causal=False, scale=None, seg_q=None, seg_kv=None,
+            pos=None, table=None, k_scale=None, v_scale=None, passes=3,
+            walks=None):
+    """(out, lse) as the float32 K2 body computes them.  Contiguous: q (B,
+    Sq, Hq, D), k, v (B, Skv, Hkv, D) float32 numpy arrays, ids (B, S) int
+    or None.  Paged (``table`` (B, max_blocks) given): k, v one layer's
+    (num_blocks, block_len, Hkv, D) pool -- float32, or int8 with float32
+    (num_blocks, Hkv) ``k_scale`` / ``v_scale`` -- ``pos`` (B,) offsets,
+    always causal; lse is None.  ``walks``, a list, collects each CTA's
+    (b, h, q0, walk) in launch order (:func:`fwd_walk`).
+
+    Per CTA and key tile: S = Q K^T over D in partials of CHUNK k steps,
+    times scale log2(e) (int8: and each key's K scale; the int8 values are
+    exact in TF32, so :func:`product`'s lo terms of them are 0), masked,
+    the online softmax in exp2 units with each lane's partial row sums
+    (two warps a row group: each over its half of the keys, the row maxima
+    of both halves combined, the warps' sums added at the end),
+    then O += P V one k step of 8 keys at a time (int8: P times each key's
+    V scale).  A row group the walk skips keeps its state; computing every
+    row with the exact mask is the same arithmetic (a masked tile adds
+    zero products exactly), so the model applies each tile's result to the
+    rows of the row groups that visit it."""
+    b_, sq, hq, d = q.shape
+    paged = table is not None
+    hkv = k.shape[2]
+    g = hq // hkv
+    bq, nk, wpr = fwd_tiles(d)
+    nt = nk // 8
+    sc = F32(d ** -0.5 if scale is None else scale)
+    c = F32(sc * LOG2E)
+    seg = seg_q is not None
+    q_rng = tile_ranges(seg_q) if seg else None
+    kv_rng = tile_ranges(seg_kv) if seg else None
+    skv = k.shape[1]
+    out = np.zeros_like(q)
+    lse = None if paged else np.full((b_, hq, sq), F32(-1e30), F32)
+    n_qt = -(-sq // bq)
+    for qt, h, bi in fwd_cta_order(n_qt, hq, b_):
+        hk = h // g
+        q0 = qt * bq
+        if paged:
+            bl, mb = k.shape[1], table.shape[1]
+            off = int(pos[bi])
+            kv_len = min(off + sq, mb * bl)
+            keys = np.arange(mb * bl)
+            blk = table[bi, keys // bl]
+            kd = k[blk, keys % bl, hk].astype(F32)
+            vd = v[blk, keys % bl, hk].astype(F32)
+            ksd = (k_scale[blk, hk] if k_scale is not None
+                   else np.ones(mb * bl, F32))
+            vsd = (v_scale[blk, hk] if v_scale is not None
+                   else np.ones(mb * bl, F32))
+        else:
+            off, kv_len = skv - sq, skv
+            kd, vd = k[bi, :, hk], v[bi, :, hk]
+            ksd = vsd = np.ones(skv, F32)
+        walk = fwd_walk(q0, bq, nk, sq, skv, off, kv_len, causal, bi, q_rng,
+                        kv_rng)
+        if walks is not None:
+            walks.append((bi, h, q0, walk))
+        rows = np.arange(q0, q0 + bq)
+        qrows = np.zeros((bq, d), F32)
+        qrows[:min(bq, sq - q0)] = q[bi, q0:q0 + bq, h]
+        idq = (seg_q[bi, np.minimum(rows, sq - 1)] if seg else None)
+        m = np.full(bq, -np.inf, F32)
+        lpart = np.zeros((bq, wpr, 4), F32)
+        o = np.zeros((bq, d), F32)
+        for u, flags in walk:
+            k0 = u * nk
+            cols = np.arange(k0, k0 + nk)
+            live = cols < kv_len
+            kt = np.zeros((nk, d), F32)
+            vt = np.zeros((nk, d), F32)
+            kt[live] = kd[cols[live]]
+            vt[live] = vd[cols[live]]
+            kst = np.where(live, ksd[np.minimum(cols, len(ksd) - 1)], 0)
+            vst = np.where(live, vsd[np.minimum(cols, len(vsd) - 1)], 0)
+            s = np.zeros((bq, nk), F32)
+            for k0c in range(0, d // 8, CHUNK):
+                ts = np.zeros_like(s)
+                for kk in range(k0c, min(d // 8, k0c + CHUNK)):
+                    cc = slice(8 * kk, 8 * kk + 8)
+                    ts = product(ts, qrows[:, cc], kt[:, cc].T, passes)
+                s = (s + ts).astype(F32)
+            s = (s * (c * kst.astype(F32)).astype(F32)[None]).astype(F32)
+            vis = live[None] & np.ones((bq, 1), bool)
+            if causal:
+                vis &= cols[None] <= rows[:, None] + off
+            if seg:
+                vis &= idq[:, None] == seg_kv[bi, np.minimum(cols,
+                                                             skv - 1)][None]
+            s = np.where(vis, s, F32(-np.inf))
+            m_new = np.maximum(m, s.max(1))
+            mu = np.where(m_new == -np.inf, F32(0), m_new).astype(F32)
+            with np.errstate(invalid="ignore"):
+                alpha = np.exp2(m - mu).astype(F32)
+                p = np.exp2(s - mu[:, None]).astype(F32)
+            lp = (lpart * alpha[:, None, None]
+                  + _lane_sums(p, nt, wpr)).astype(F32)
+            pv = (p * vst.astype(F32)[None]).astype(F32)
+            on = (o * alpha[:, None]).astype(F32)
+            for j in range(nt):
+                cc = slice(8 * j, 8 * j + 8)
+                on = product(on, pv[:, cc], vt[cc], passes)
+            act = np.repeat([f is not None for f in flags], 16)
+            m = np.where(act, m_new, m)
+            lpart = np.where(act[:, None, None], lp, lpart)
+            o = np.where(act[:, None], on, o)
+        # each warp's quad, then the two warps of a row group
+        quad = ((lpart[..., 0] + lpart[..., 1]).astype(F32)
+                + (lpart[..., 2] + lpart[..., 3]).astype(F32)).astype(F32)
+        lsum = quad[:, 0]
+        for w in range(1, wpr):
+            lsum = (lsum + quad[:, w]).astype(F32)
+        with np.errstate(divide="ignore"):
+            inv = np.where(lsum > 0, F32(1) / lsum, F32(0)).astype(F32)
+            lrow = np.where(lsum > 0, (m * LN2).astype(F32)
+                            + np.log(lsum).astype(F32), F32(-1e30))
+        n = min(bq, sq - q0)
+        out[bi, q0:q0 + n, h] = (o * inv[:, None]).astype(F32)[:n]
+        if lse is not None:
+            lse[bi, h, q0:q0 + n] = lrow.astype(F32)[:n]
+    return out, lse
