@@ -231,6 +231,40 @@ non-zero.  Phases:
                  scripted drafters replay 4h's own cold output (no new
                  build, a replay a tick and a wave, hits > 0), reported
                  beside phase 4's warm pass;
+  4l. serving_mixed — the mixed bf16/int8 pool: phase 4b's engine and
+                 pool with ``kv_cache_dtype="mixed"`` on phase 4b's eight
+                 requests that share the 1536-token system prompt, beside
+                 its eager twin (tokens, launches, routes equal),
+                 ``step_traces`` 1, the demote op built once,
+                 ``quantized_blocks`` >= 12 and equal to the demotions,
+                 ``bytes_by_dtype["int8"]`` = those blocks x the int8
+                 block's bytes, the first demoted block equal bit for bit
+                 to its round trip on the CPU in float32, K1-paged 32 a
+                 tick and K2-paged 32 a wave, no plain route; the count of
+                 requests whose tokens equal phase 4b's reported;
+  4m. serving_preempt — preemption over a 26-block pool (four requests
+                 of 800-1100 tokens, room for three: two priority-0 ones
+                 decode, two priority-5 ones arrive), in ``swap`` mode (a
+                 20-block pinned host tier) and ``recompute`` mode, each
+                 graphed beside its eager twin (tokens, launches, routes,
+                 decisions' signature equal), at least one preemption,
+                 K1-paged 32 a tick and K2-paged 32 a wave, no block in
+                 use after the drain; swap: tokens equal to the
+                 ``preempt="off"`` run's and every swapped block read back
+                 after its swap-in equal to its swapped-out bytes; then
+                 ``cancel`` in five states on chunked engines (the
+                 preempted request swapped out or awaiting its re-prefill,
+                 one mid chunked prefill, one queued, one decoding: no
+                 block in use, the host tier holding only trie blocks),
+                 the host tier (an evicted prefix block demoted to the
+                 host and promoted by a later hit, tokens equal to the run
+                 without a tier), a migration (``export_request`` /
+                 ``import_request`` between two engines, tokens equal to
+                 the unmigrated run's) and the float32 tiny swap,
+                 recompute (wave and chunked) and mixed engines card
+                 against CPU (``model_tiny_f32_tiers``: tokens and
+                 decisions equal); swap bytes, the host tier's pinned
+                 bytes, one block's swap-out / swap-in ms, TTFT and TPOT;
   generate.    — phase 3's Llama-3-8B model (bf16, 32 layers) through
                  ``generate``: greedy (B 4, prompt 128, 64 new tokens),
                  sampled (temperature 0.8, top_k 50, top_p 0.9), beam
@@ -4676,6 +4710,542 @@ def phase_serving_spec_chunked_model(torch, model, prompts, base):
     return run
 
 
+# -- phases 4l / 4m: the paged cache's memory tiers ------------------------------
+
+# phase 4m: four requests of these lengths, 32 new tokens each, over 128-token
+# blocks need 9, 8, 9 and 7 blocks; the pool holds 26, room for three
+PREEMPT_PROMPT_LENGTHS = (1000, 900, 1100, 800)
+PREEMPT_POOL_BLOCKS = 27
+PREEMPT_HOST_BLOCKS = 20      # two victims' private blocks
+PREEMPT_MAX_LENGTH = 2048
+PREEMPT_CHUNK = 256           # the cancel engines' prefill_chunk
+MIXED_NEW_TOKENS = 32         # phase 4l's new tokens a request
+MIXED_MAX_LENGTH = 4096       # phase 4l's slots (phase 4b's)
+MIXED_MIN_DEMOTED = 12        # phase 4l: the system prompt's full blocks
+HOST_TIER_NEW_TOKENS = 64     # the host tier's run: new tokens a request
+
+
+def demote_round_trip(torch, blk):
+    """A block (L, 2, block_len, Hkv, D) through the mixed pool's int8
+    round trip, on the CPU in float32 from the block's values: per (layer,
+    K / V, kv head) the scale absmax x float32(1 / 127), the block divided
+    by it, rounded half to even, clipped to +-127, multiplied back; in the
+    block's dtype.  The reference is ``_demote_impl``
+    (``paddle_tpu/serving/engine.py:587-598``)."""
+    x = blk.float().cpu()
+    sc = x.abs().amax(dim=(2, 4), keepdim=True) * torch.tensor(
+        1.0 / 127.0, dtype=torch.float32)
+    safe = torch.where(sc > 0, sc, torch.ones_like(sc))
+    q = torch.clamp(torch.round(x / safe), -127, 127)
+    return (q * safe).to(blk.dtype)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bitwise equality of two tensors of one dtype, on the CPU."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    it = ints[a.element_size()]
+    return bool(torch.equal(a.view(it), b.view(it)))
+
+
+@contextlib.contextmanager
+def spy_first_demotion(seen):
+    """While open, the first block any mixed engine demotes is copied
+    (to the CPU) just before and just after its rewrite, into ``seen``."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    orig = engine_mod._DemoteOp.__call__
+
+    def spy(op, bid):
+        if "after" in seen:
+            return orig(op, bid)
+        seen["bid"] = int(bid)
+        seen["before"] = op._pool[:, :, bid].to("cpu", copy=True)
+        orig(op, bid)
+        seen["after"] = op._pool[:, :, bid].to("cpu", copy=True)
+    engine_mod._DemoteOp.__call__ = spy
+    try:
+        yield seen
+    finally:
+        engine_mod._DemoteOp.__call__ = orig
+
+
+def phase_serving_mixed(torch, model, kernels, paged_run):
+    """Phase 4l: the mixed bf16/int8 pool at the Llama-3-8B width.  Phase
+    4b's engine (``block_len`` 128, ``num_blocks`` 52) with
+    ``kv_cache_dtype="mixed"`` on phase 4b's eight requests that open with
+    the shared 1536-token system prompt, graphed beside its eager twin.
+    Gates: tokens, launches and routes equal to the twin's,
+    ``step_traces`` 1 and the demote op built once (``serving.demote``);
+    ``quantized_blocks`` at least 12 (the system prompt's blocks) and equal
+    to the demotions (the pool evicts nothing here), ``bytes_by_dtype
+    ["int8"]`` = ``quantized_blocks`` x the int8 block's bytes; the first
+    demoted block, copied before and after its rewrite, equal bit for bit
+    to its round trip computed on the CPU (:func:`demote_round_trip`);
+    K1-paged 32 a decode tick, K2-paged 32 a wave, no other attention
+    kernel, no plain route.  Reported, not gated: how many requests'
+    tokens equal phase 4b's (the reference's int8 path is not
+    token-identical to its bf16 path either)."""
+    kw = dict(paged=True, block_len=128, num_blocks=PAGED_POOL_BLOCKS,
+              kv_cache_dtype="mixed")
+    prompts = paged_serving_prompts(model.config.vocab_size)[0::2]
+    new = MIXED_NEW_TOKENS
+    kw["max_length"] = MIXED_MAX_LENGTH
+    with spy_first_demotion({}) as seen:
+        run = _serve_8b(torch, model, prompts, new_tokens=new, **kw)
+    what = "phase 4l"
+    twin = eager_twin(torch, model, prompts, run, what, new_tokens=new, **kw)
+    m, launches, routes = run["metrics"], run["launches"], run["routes"]
+    kv = m["kv_cache"]
+    c = model.config
+    int8_block = (c.num_hidden_layers * 2 * c.num_key_value_heads
+                  * (128 * c.head_dim + 4))
+    want = demote_round_trip(torch, seen["before"])
+    bf16_outs = paged_run["outs"][0::2]
+    emit({"phase": "serving_mixed", "requests": len(prompts),
+          "prompt_lengths": [int(p.size) for p in prompts],
+          "block_len": 128, "num_blocks": PAGED_POOL_BLOCKS,
+          "kv_cache_dtype": "mixed", "new_tokens": new,
+          **serving_fields(run), "prefill_waves": m["prefill_waves"],
+          "decode_ticks": m["decode_ticks"], "kv_cache": kv,
+          "int8_block_bytes": int8_block,
+          "demoted_block": seen["bid"],
+          "demoted_block_bit_exact": bits_equal(torch, seen["after"], want),
+          "demoted_block_changed": not bits_equal(torch, seen["after"],
+                                                 seen["before"]),
+          "same_tokens_as_bf16_phase_4b":
+              f"{sum(a[:new] == b[:new] for a, b in zip(run['outs'], bf16_outs))}"
+              f"/{len(prompts)}",
+          "launches": launches, "routes": routes, "eager_twin": twin})
+    check_graph(run, what)
+    check_twin(twin, what)
+    check(kv["demote_traces"] == 1,
+          f"{what}: the demote op was built {kv['demote_traces']} times")
+    check(kv["quantized_blocks"] >= MIXED_MIN_DEMOTED
+          and kv["quantized_blocks"] == kv["demoted_blocks"],
+          f"{what}: quantized_blocks {kv['quantized_blocks']}, demotions "
+          f"{kv['demoted_blocks']}")
+    check(kv["bytes_by_dtype"]["int8"]
+          == kv["quantized_blocks"] * int8_block,
+          f"{what}: int8 bytes {kv['bytes_by_dtype']['int8']} for "
+          f"{kv['quantized_blocks']} blocks of {int8_block}")
+    check(bits_equal(torch, seen["after"], want),
+          f"{what}: demoted block {seen['bid']} differs from its round "
+          f"trip on the CPU")
+    check(kv["blocks_in_use"] == 0, f"{what}: blocks in use after the drain")
+    check_attention_launches(what, launches, routes, attention_launches(
+        m, {"decode_attention_paged": ("tick",),
+            "flash_attention_fwd_paged": ("wave",)}))
+    return run
+
+
+def preempt_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.RandomState(5)
+    return [rng.randint(0, vocab, n).astype(np.int32)
+            for n in PREEMPT_PROMPT_LENGTHS]
+
+
+def _preempt_engine(model, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, device="cuda", **{
+        "num_slots": 4, "max_length": PREEMPT_MAX_LENGTH,
+        "prefill_batch": 2, "paged": True, "block_len": 128,
+        "num_blocks": PREEMPT_POOL_BLOCKS, **kw})
+
+
+def saturate(eng, prompts, new_tokens=32, steps=3):
+    """``tests/test_serving_preempt.py::_saturate``: two priority-0
+    requests decode first, then two priority-5 arrivals find the pool
+    full.  Returns the outputs in submit order."""
+    rids = [eng.submit(p, max_new_tokens=new_tokens, priority=0)
+            for p in prompts[:2]]
+    for _ in range(steps):
+        eng.step()
+    rids += [eng.submit(p, max_new_tokens=new_tokens, priority=5)
+             for p in prompts[2:]]
+    out = dict(eng.drain())
+    return [out[r] for r in rids]
+
+
+def preempt_run(torch, model, prompts, graphed=True, swap_check=None, **kw):
+    """One :func:`saturate` run on a fresh engine (graphed, or built inside
+    ``disable_graphs()``), its launch and route counters reset just before
+    and read just after.  ``swap_check``: a dict the swap hooks fill,
+    every swapped-out payload held and each block read back after its
+    swap-in compared with it bit for bit."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.serving import disable_graphs
+
+    with (contextlib.nullcontext() if graphed else disable_graphs()):
+        eng = _preempt_engine(model, **kw)
+    if swap_check is not None:
+        swap_check.update(held={}, blocks=0, equal=0)
+        out_hook, in_hook = eng.kv.on_swap_out, eng.kv.on_swap_in
+
+        def on_out(pairs):
+            out_hook(pairs)
+            for _, hid in pairs:
+                swap_check["held"][hid] = tuple(
+                    t.clone() for t in eng.kv.host_tier.get(hid))
+
+        def on_in(pairs):
+            in_hook(pairs)
+            for hid, bid in pairs:
+                back = eng._read_block(bid)
+                swap_check["blocks"] += 1
+                swap_check["equal"] += all(
+                    bits_equal(torch, a, b) for a, b in
+                    zip(back, swap_check["held"].pop(hid)))
+        eng.kv.on_swap_out, eng.kv.on_swap_in = on_out, on_in
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = saturate(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"outs": outs, "wall": wall, "launches": ops.launch_counts(),
+           "routes": {f"{op}/{path}": n for (op, path), n in
+                      _dispatch.kernel_paths.items()},
+           "metrics": eng.metrics(), "graphed": eng.graphed,
+           "decisions": eng.preempt_decisions,
+           "signature": eng.preempt_signature(), "engine": eng}
+    return run
+
+
+def block_move_ms(torch, eng, bid, reps=5):
+    """Median ms of one block's swap-out (:meth:`ServingEngine._read_block`:
+    into pinned host memory, complete on return) and swap-in
+    (:meth:`ServingEngine._write_block` and a synchronisation), of block
+    ``bid`` of ``eng``'s pool (its content written back unchanged)."""
+    outs, ins = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = eng._read_block(bid)
+        outs.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        eng._write_block(bid, payload)
+        torch.cuda.synchronize()
+        ins.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(t.numel() * t.element_size() for t in payload)
+    return {"block_bytes": nbytes,
+            "swap_out_ms": round(sorted(outs)[reps // 2], 4),
+            "swap_in_ms": round(sorted(ins)[reps // 2], 4),
+            "pinned": bool(payload[0].is_pinned())}
+
+
+def preempt_fields(run):
+    m = run["metrics"]
+    ntok = sum(len(o) for o in run["outs"])
+    out = {"tokens": ntok, "wall_s": round(run["wall"], 4),
+           "tok_per_s": round(ntok / run["wall"], 2),
+           "ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
+           "decode_step_ms": m["decode_step_ms"],
+           "prefill_wave_ms": m["prefill_wave_ms"],
+           "graphed": run["graphed"], "step_traces": m["step_traces"],
+           "graph_replays": m["graph_replays"],
+           "prefill_waves": m["prefill_waves"],
+           "decode_ticks": m["decode_ticks"], "preempt": m["preempt"],
+           "decisions": run["decisions"]}
+    if "host_tier" in m["kv_cache"]:
+        out["host_tier"] = m["kv_cache"]["host_tier"]
+    return out
+
+
+def phase_serving_preempt(torch, model):
+    """Phase 4m: preemption, the host tier, cancel and migration at the
+    Llama-3-8B width (bf16, 32 layers), block_len 128.  A 26-block pool
+    holds three of four requests (``PREEMPT_PROMPT_LENGTHS``, 32 new
+    tokens): two priority-0 requests decode, then two priority-5 arrivals
+    (:func:`saturate`).  In ``swap`` (a 20-block host tier) and
+    ``recompute`` mode, each graphed and as its eager twin.  Gates: at
+    least one preemption in each mode, the decisions' signature equal in
+    the graphed and the eager run, ``step_traces`` 1, one replay a tick
+    and a wave (the twin none), K1-paged 32 a decode tick and K2-paged 32
+    a wave (a recompute resume's re-prefill is a wave), no plain route,
+    no block in use after the drain; swap: tokens equal to the
+    ``preempt="off"`` run of the same submissions and every swapped block
+    read back after its swap-in equal to its swapped-out bytes, in both
+    runs; recompute: tokens equal to the twin's (its re-prefill takes
+    K2-paged where the first pass took K1-paged, so the count equal to
+    the off-run's is reported, not gated).  Then ``cancel`` in five states
+    (:func:`cancel_states`), the host tier's demotion and promotion
+    (:func:`host_tier_run`), a migration between two engines
+    (:func:`migration_run`) and the float32 tiny engines card against CPU
+    (:func:`tiny_tiers_card_vs_cpu`).  Reported: swap bytes, the host
+    tier's pinned bytes, one block's swap-out / swap-in ms, TTFT / TPOT of
+    the preempting runs."""
+    prompts = preempt_prompts(model.config.vocab_size)
+    off = preempt_run(torch, model, prompts, preempt="off")
+    off_outs = off["outs"]
+    del off["engine"]
+    for mode, extra in (("swap", {"host_blocks": PREEMPT_HOST_BLOCKS}),
+                        ("recompute", {})):
+        what = f"phase 4m ({mode})"
+        checks = [{}, {}] if mode == "swap" else [None, None]
+        run = preempt_run(torch, model, prompts, preempt=mode,
+                          swap_check=checks[0], **extra)
+        eng = run.pop("engine")
+        twin = preempt_run(torch, model, prompts, graphed=False,
+                           preempt=mode, swap_check=checks[1], **extra)
+        del twin["engine"]
+        m, launches, routes = run["metrics"], run["launches"], run["routes"]
+        line = {"phase": "serving_preempt", "mode": mode,
+                "prompt_lengths": list(PREEMPT_PROMPT_LENGTHS),
+                "new_tokens": 32, "num_blocks": PREEMPT_POOL_BLOCKS,
+                "block_len": 128, **preempt_fields(run),
+                "same_tokens_as_off_run":
+                    f"{sum(a == b for a, b in zip(run['outs'], off_outs))}"
+                    f"/{len(prompts)}",
+                "launches": launches, "routes": routes,
+                "eager_twin": {**preempt_fields(twin), **twin_comparison(
+                    run["outs"], twin["outs"]),
+                    "launches_identical": twin["launches"] == launches,
+                    "routes_identical": twin["routes"] == routes}}
+        if mode == "swap":
+            line["swapped_blocks_checked"] = [c["blocks"] for c in checks]
+            line["block_move"] = block_move_ms(torch, eng, 1)
+            line["host_cache_bytes"] = eng.host_cache_bytes
+        del eng
+        emit(line)
+        check(sum(m["preempt"]["preemptions"].values()) >= 1,
+              f"{what}: no preemption")
+        check(run["signature"] == twin["signature"],
+              f"{what}: the decisions differ from the eager run's: "
+              f"{run['decisions']} vs {twin['decisions']}")
+        check_graph(run, what)
+        check_graph(twin, f"{what} eager twin", graphed=False)
+        check_twin(line["eager_twin"], what)
+        check(m["kv_cache"]["blocks_in_use"] == 0 and m["preempt"][
+            "awaiting_resume"] == 0, f"{what}: blocks in use after the drain")
+        check_attention_launches(what, launches, routes, attention_launches(
+            m, {"decode_attention_paged": ("tick",),
+                "flash_attention_fwd_paged": ("wave",)}))
+        if mode == "swap":
+            check(run["outs"] == off_outs,
+                  f"{what}: tokens differ from the preempt='off' run")
+            for c in checks:
+                check(c["blocks"] > 0 and c["equal"] == c["blocks"],
+                      f"{what}: {c['blocks'] - c['equal']} of "
+                      f"{c['blocks']} swapped blocks read back differ")
+    cancel_states(torch, model, prompts)
+    host_tier_run(torch, model)
+    migration_run(torch, model, prompts)
+    tiny_tiers_card_vs_cpu(torch)
+
+
+def cancel_states(torch, model, prompts):
+    """``cancel`` in the five states, on a chunked engine
+    (``PREEMPT_CHUNK``-token chunks) in each mode: the preempted request (swapped out, or awaiting
+    its recompute re-prefill), the arrival mid chunked prefill, a queued
+    request and a decoding one; then the drain.  Gates: each cancel finds
+    its request, no block in use and ``host_blocks_used()`` =
+    ``host_trie_blocks()`` after the drain, ``cancelled`` 4."""
+    for mode, extra in (("swap", {"host_blocks": PREEMPT_HOST_BLOCKS}),
+                        ("recompute", {})):
+        what = f"phase 4m cancel ({mode})"
+        eng = _preempt_engine(model, chunked=True,
+                              prefill_chunk=PREEMPT_CHUNK, preempt=mode,
+                              **extra)
+        for p in prompts[:2]:
+            eng.submit(p, max_new_tokens=32, priority=0)
+        for _ in range(10):
+            eng.step()
+        for p in prompts[2:]:
+            eng.submit(p, max_new_tokens=32, priority=5)
+        for _ in range(20):
+            if eng.preempt_decisions:
+                break
+            eng.step()
+        found = {}
+        check(eng.num_preempted == 1, f"{what}: no request awaits resume")
+        found["preempted"] = eng.cancel(eng.preempt_decisions[0][
+            "victim_rid"])
+        pf = eng._cursor
+        found["prefill"] = pf is not None and eng.cancel(pf.req.request_id)
+        found["queued"] = eng.cancel(eng.submit(prompts[3][:300],
+                                                max_new_tokens=8))
+        live = [s.rid for s in eng._slots if s is not None]
+        found["decoding"] = bool(live) and eng.cancel(live[0])
+        eng.drain()
+        m = eng.metrics()
+        line = {"phase": "serving_preempt_cancel", "mode": mode,
+                "found": found, "cancelled": m["cancelled"],
+                "blocks_in_use": eng.kv.blocks_in_use(),
+                "host_blocks_used": eng.kv.host_blocks_used(),
+                "host_trie_blocks": eng.kv.host_trie_blocks(),
+                "step_traces": m["step_traces"], "graphed": eng.graphed}
+        emit(line)
+        check(all(found.values()), f"{what}: cancels found {found}")
+        check(m["cancelled"] == 4, f"{what}: cancelled {m['cancelled']}")
+        check(line["blocks_in_use"] == 0
+              and line["host_blocks_used"] == line["host_trie_blocks"],
+              f"{what}: after the drain {line}")
+        check(m["step_traces"] == 1 and eng.graphed,
+              f"{what}: step_traces {m['step_traces']}, graphed "
+              f"{eng.graphed}")
+        del eng
+
+
+def host_tier_run(torch, model):
+    """The host tier at 128-token blocks: a one-slot engine over a 6-block
+    pool serves a request opening with a 256-token system prompt, two
+    unique requests that evict its blocks (to the host tier, 4 blocks),
+    then a second request opening with the system prompt, whose admission
+    promotes them.  Gates: ``host_demotions`` and ``host_promotions`` > 0,
+    tokens equal to the same engine's without a tier."""
+    import numpy as np
+    rng = np.random.RandomState(6)
+    vocab = model.config.vocab_size
+    system = rng.randint(0, vocab, 256).astype(np.int32)
+    prompts = [np.concatenate([system, rng.randint(0, vocab, 48).astype(
+        np.int32)]), rng.randint(0, vocab, 320).astype(np.int32),
+        rng.randint(0, vocab, 352).astype(np.int32),
+        np.concatenate([system, rng.randint(0, vocab, 80).astype(
+            np.int32)])]
+    outs = {}
+    for hb in (4, 0):
+        eng = _preempt_engine(model, num_slots=1, prefill_batch=1,
+                              num_blocks=7, host_blocks=hb)
+        rids = [eng.submit(p, max_new_tokens=HOST_TIER_NEW_TOKENS)
+                for p in prompts]
+        out = dict(eng.drain())
+        outs[hb] = [out[r] for r in rids]
+        if hb:
+            st, m = eng.kv.stats, eng.metrics()
+        del eng
+    what = "phase 4m host tier"
+    line = {"phase": "serving_host_tier",
+            "prompt_lengths": [int(p.size) for p in prompts],
+            "num_blocks": 7, "host_blocks": 4,
+            "host_tier": m["kv_cache"]["host_tier"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "evictions": st["evictions"],
+            "tokens_identical_to_no_tier": outs[4] == outs[0],
+            "step_traces": m["step_traces"]}
+    emit(line)
+    check(st["host_demotions"] > 0 and st["host_promotions"] > 0,
+          f"{what}: demotions {st['host_demotions']}, promotions "
+          f"{st['host_promotions']}")
+    check(outs[4] == outs[0], f"{what}: tokens differ from the run without "
+          f"a tier")
+
+
+def migration_run(torch, model, prompts):
+    """``export_request`` of a decoding request (the first of
+    :func:`preempt_prompts`, 32 new tokens, after 8 ticks) from one engine
+    with ``release=False`` (it keeps decoding: the unmigrated run) and
+    ``import_request`` into a second engine over the same model.  Gates:
+    the importer's tokens equal the exporter's; the record's blocks and
+    bytes."""
+    what = "phase 4m migration"
+    src = _preempt_engine(model)
+    rid = src.submit(prompts[0], max_new_tokens=32)
+    for _ in range(8):
+        src.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    record = src.export_request(rid, release=False)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    dst = _preempt_engine(model)
+    t0 = time.perf_counter()
+    rid2 = dst.import_request(record)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    check(rid2 is not None, f"{what}: the import found no room")
+    dst.drain()
+    src.drain()
+    line = {"phase": "serving_migration",
+            "prompt_length": int(prompts[0].size),
+            "exported_at_tokens": len(record["generated"]),
+            "blocks": len(record["blocks"]["entries"]),
+            "payload_bytes": record["payload_bytes"],
+            "export_ms": round(export_ms, 3),
+            "import_ms": round(import_ms, 3),
+            "tokens_identical": src.result(rid) == dst.result(rid2),
+            "dst_blocks_in_use": dst.kv.blocks_in_use()}
+    emit(line)
+    check(line["tokens_identical"] and len(dst.result(rid2)) == 32,
+          f"{what}: the imported request's tokens differ from the "
+          f"unmigrated run's")
+    check(line["dst_blocks_in_use"] == 0, f"{what}: blocks in use")
+
+
+def tiny_tiers_card_vs_cpu(torch):
+    """The float32 tiny engines with the memory tiers, card against CPU
+    (as the ``model_tiny_f32*`` lines): the swap (a 16-block host tier)
+    and recompute engines on ``tests/test_serving_preempt.py``'s
+    saturating traffic (13 blocks of 8, max_length 64), wave and chunked
+    (8-token chunks), and the mixed engine on the paged tiny prompts
+    (block_len 16, a shared 20-token prompt).  Gates: tokens and
+    preemption decisions equal card vs CPU, each card engine graphed with
+    ``step_traces`` 1, preemptions in every preempting run."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaForCausalLM, tiny_llama_config
+    from paddle_tpu_torch.serving import ServingEngine
+
+    tiny = tiny_llama_config()
+    cpu = LlamaForCausalLM(tiny, device="cpu", seed=1)
+    card = copy.deepcopy(cpu).to(torch.device("cuda"))
+
+    def prompt(n, seed):
+        return np.random.RandomState(seed).randint(0, 256, n).astype(
+            np.int32)
+
+    sat_prompts = [prompt(12, 0), prompt(10, 1), prompt(14, 2),
+                   prompt(9, 3)]
+    sys_p = prompt(20, 4)
+    mixed_prompts = [prompt(n, 10 + n) for n in (5, 9, 17, 3, 30, 11)] + [
+        np.concatenate([sys_p, prompt(n, 20 + n)]) for n in (4, 13)]
+    cases = []
+    for mode, extra in (("swap", {"host_blocks": 16}), ("recompute", {})):
+        for chunk in ({}, {"chunked": True, "prefill_chunk": 8}):
+            cases.append((f"{mode}{' chunked' if chunk else ''}",
+                          dict(num_slots=4, prefill_batch=2, block_len=8,
+                               num_blocks=13, preempt=mode, **extra,
+                               **chunk), "saturate"))
+    cases.append(("mixed", dict(num_slots=2, block_len=16,
+                                kv_cache_dtype="mixed"), "mixed"))
+    for label, kw, traffic in cases:
+        res = []
+        for m, dev in ((card, "cuda"), (cpu, "cpu")):
+            eng = ServingEngine(m, max_length=64, paged=True, device=dev,
+                                **kw)
+            if traffic == "saturate":
+                outs = saturate(eng, sat_prompts, new_tokens=12,
+                                steps=6 if "chunked" in kw else 3)
+            else:
+                rids = [eng.submit(p, max_new_tokens=8)
+                        for p in mixed_prompts]
+                out = dict(eng.drain())
+                outs = [out[r] for r in rids]
+            res.append((outs, eng.preempt_decisions, eng))
+        (c_out, c_dec, c_eng), (p_out, p_dec, p_eng) = res
+        m = c_eng.metrics()
+        line = {"phase": "model_tiny_f32_tiers", "engine": label,
+                "identical_card_vs_cpu": c_out == p_out,
+                "decisions_identical": c_dec == p_dec,
+                "decisions": len(c_dec),
+                **graph_fields(c_eng, p_eng)}
+        if label == "mixed":
+            line["quantized_blocks"] = m["kv_cache"]["quantized_blocks"]
+        emit(line)
+        what = f"tiny f32 {label} engine"
+        check(c_out == p_out,
+              f"{what} differs card vs cpu: {c_out} vs {p_out}")
+        check(c_dec == p_dec, f"{what}: preemption decisions differ card "
+              f"vs cpu: {c_dec} vs {p_dec}")
+        check(label == "mixed" or len(c_dec) > 0, f"{what}: no preemption")
+        check(label != "mixed" or line["quantized_blocks"] > 0,
+              f"{what}: nothing demoted")
+        check_graphed(c_eng, what, p_eng)
+
+
 def device_us(prof, n: int):
     """Device time per call (us) by kernel name from a profiler window of
     ``n`` calls."""
@@ -7408,6 +7978,8 @@ def main(argv=None) -> int:
                            base)
     phase_serving_spec_chunked_model(torch, model, serving_prompts(vocab),
                                      chunked[0])
+    phase_serving_mixed(torch, model, kernels, run4b)
+    phase_serving_preempt(torch, model)
     if args.profile:
         phase_profile(torch, model, qmodel)
     phase_generate(torch, model, qmodel, card)

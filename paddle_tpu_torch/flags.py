@@ -5,8 +5,7 @@ Only the serving defaults, the flash-decode chunk size, the train step's
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
-kernel.  The serving flags are the engine's defaults; the engine raises
-on a value that selects a mode not ported yet (``serving/engine.py``).
+kernel.  The serving flags are the engine's defaults.
 """
 
 from __future__ import annotations
@@ -52,6 +51,17 @@ _DEFAULTS: Dict[str, Any] = {
     "serving_spec_k": 4,
     "serving_spec_ngram": 3,
     "serving_spec_drafter": "ngram",
+    # preemption and the host KV tier (paddle_tpu/flags.py:349-368):
+    # serving_preempt is what a paged admission blocked on a full pool may
+    # do to a running request of lower priority, "off", "swap" (its private
+    # blocks to the host tier, restored bit for bit) or "recompute" (its
+    # chain freed, re-prefilled through the prefix trie);
+    # serving_host_blocks the host tier's capacity in blocks (0: none; at
+    # least 1 for "swap"); serving_preempt_after the ticks a waiter must
+    # have been blocked before it may preempt a request of its own priority
+    "serving_preempt": "off",
+    "serving_host_blocks": 0,
+    "serving_preempt_after": 2,
     # training (paddle_tpu/flags.py check_nan_inf): the train step raises
     # FloatingPointError when a gradient is not finite
     "check_nan_inf": False,

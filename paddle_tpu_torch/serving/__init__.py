@@ -2,7 +2,7 @@
 decode step is built once (``step_graph.py``: one CUDA graph per engine on
 the card; ``disable_graphs()`` is the port's ``jax.disable_jit()``).  The
 metrics registry, tracing and request log wait for a later slice (ROADMAP
-A5b); the build watchdog is ``paddle_tpu_torch.observability``."""
+A4); the build watchdog is ``paddle_tpu_torch.observability``."""
 
 from .engine import Request, SamplingParams, ServingEngine
 from .step_graph import disable_graphs

@@ -63,8 +63,43 @@ where the rejected ones do (paged: past the chain, in the null block).
 In the chunked engine the mixed step's decode half is the verify window,
 and a row whose prompt is still streaming drafts nothing.
 
-Any other configuration raises ``NotImplementedError`` naming its ROADMAP
-item.
+**The paged cache's memory tiers** (the reference's preemption, host tier
+and migration, ``paddle_tpu/serving/engine.py:405-470``), paged only:
+
+  * ``kv_cache_dtype="mixed"``: the pool stays in the model dtype and each
+    block carries a dtype tag (``serving/kv_cache.py``).  A full prompt
+    block that registers in the prefix trie is cold: it demotes to int8,
+    one in-place quantize -> dequantize rewrite of the block over every
+    layer (:class:`_DemoteOp`, the reference's ``_demote_impl``, site
+    ``serving.demote``), queued at registration and applied after the
+    dispatch that wrote the block.  The kernels see a model-dtype pool;
+  * ``preempt="swap"`` / ``"recompute"`` (``FLAGS_serving_preempt``): a
+    paged admission that finds the pool full may preempt a running
+    request of lower priority (``submit(priority=...)``; the same
+    priority only after ``FLAGS_serving_preempt_after`` blocked ticks, and
+    never twice).  ``swap`` moves the victim's private blocks to the host
+    tier and later restores them bit for bit; ``recompute`` frees the
+    chain and re-prefills the prompt plus the committed tokens through the
+    prefix trie, forcing the last committed token back;
+  * ``host_blocks`` (``FLAGS_serving_host_blocks``; needed by ``swap``): a
+    host tier of that many blocks, in pinned memory on the card.  Besides
+    swap records it holds evicted prefix blocks, promoted back by a later
+    admission's prefix hit;
+  * ``cancel(rid)`` tears a request down wherever it is (queued, awaiting
+    a recompute resume, swapped out, mid chunked prefill, decoding);
+    ``export_request`` / ``import_request`` move a decoding request,
+    its KV chain by value, to another engine.
+
+Blocks move between the pool and the host through one pair of one-block
+movers (:meth:`ServingEngine._read_block`, :meth:`ServingEngine._write_block`):
+a read into pinned host memory that is complete when it returns (before the
+manager can hand the block to a new owner), and a write in place into the
+pool's storage, on the stream the next replay runs on.  No step is built
+again and no pool tensor is replaced: the captured graphs hold the pool's
+address.  The request log's lifecycle events and the SLO buckets of these
+modes are ROADMAP A4, the cost model's ``perf_report`` A6.
+
+A mesh (``mesh=``) raises ``NotImplementedError`` naming its ROADMAP item.
 
 The decode tick is built once, as the reference jits its step once
 (``step_traces``, budget 1 under ``FLAGS_retrace_watchdog``): on the card a
@@ -94,7 +129,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import itertools
+import json
 import time
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
@@ -104,6 +141,8 @@ import torch
 from .. import default_device, flags
 from ..models.generation import (accept_draft_tokens, init_kv_cache,
                                  sample_tokens)
+from ..models.llama import _INV_127
+from ..observability import track_retraces
 from .drafter import DraftModelDrafter, NgramDrafter
 from .kv_cache import BlockManager, init_paged_kv_cache
 from .step_graph import DecodeStep, MixedStep, PrefillStep, VerifyStep
@@ -121,7 +160,8 @@ class SamplingParams:
 
 @dataclasses.dataclass(eq=False)
 class Request:
-    """A queued generation request (created by ``submit``)."""
+    """A queued generation request (created by ``submit``).  Identity
+    equality: the scheduler's queues remove entries by identity."""
 
     request_id: int
     prompt: np.ndarray                 # (plen,) int32
@@ -131,6 +171,12 @@ class Request:
     # speculative engine: the request's drafter ('ngram', 'model', a
     # Drafter, or None for the engine's default)
     drafter: Optional[object] = None
+    uid: int = -1                      # request uid (``request_uid``)
+    priority: int = 0                  # preemption class (higher wins)
+    preempt_count: int = 0             # times this request was preempted
+    blocked_ticks: int = 0             # pool-full admission refusals
+    # set only on the request a recompute preemption enqueues
+    resume: Optional["_ResumeInfo"] = None
 
 
 @dataclasses.dataclass
@@ -142,6 +188,7 @@ class _Slot:
     # corpus) and its drafter
     prompt: Optional[np.ndarray] = None
     drafter: Optional[object] = None
+    req: Optional[Request] = None      # the request (preemption reads it)
 
 
 @dataclasses.dataclass
@@ -152,6 +199,35 @@ class _Prefill:
     req: Request
     slot: int
     cursor: int                        # prompt tokens already in the cache
+
+
+@dataclasses.dataclass
+class _ResumeInfo:
+    """A recompute resume (the reference's ``_ResumeInfo``): the re-prefill
+    covers the prompt and every committed token but the last; at the
+    slot's re-creation the re-sampled token is discarded and
+    ``last_token`` forced back, so the decode continues where the victim
+    stopped."""
+
+    orig: Request                      # the preempted request
+    last_token: int                    # last committed token (forced back)
+    remaining: int                     # decode budget left at preemption
+    t_first: float                     # the original TPOT clock
+
+
+@dataclasses.dataclass
+class _SwapResume:
+    """A swapped-out request parked on the host tier (the reference's
+    ``_SwapResume``): the manager's swap record and the slot state that
+    restores the slot exactly once the pool has room."""
+
+    req: Request
+    record: Dict[str, object]          # BlockManager.swap_out's record
+    last_token: int
+    position: int
+    remaining: int
+    t_first: float
+    blocked_ticks: int = 0             # failed resume attempts
 
 
 class _SpecCounts:
@@ -193,13 +269,50 @@ class _Hist:
 # constructor arguments of the reference engine that the port does not
 # take yet: name -> (values that mean the default, ROADMAP item)
 _UNSUPPORTED = {
-    "preempt": ((None, "off"), "A6.6 (preemption + host tier)"),
-    "host_blocks": ((None, 0), "A6.6 (preemption + host tier)"),
-    "mesh": ((None,), "A9 (multi-GPU serving)"),
+    "mesh": ((None,), "A8 (multi-GPU serving)"),
 }
 # engine instances label their build counters with their own id, so their
 # budgets are independent (the reference's ``_ENGINE_IDS``)
 _ENGINE_IDS = itertools.count()
+# request uids: minted at submit unless the caller threads one through
+# (the reference's request log mints them; the log is ROADMAP A4)
+_UIDS = itertools.count()
+
+
+class _DemoteOp:
+    """The mixed pool's demotion, the reference's ``_demote_impl``
+    (``paddle_tpu/serving/engine.py:587-598``): block ``bid`` of the
+    model-dtype ``pool`` (L, 2, num_blocks, block_len, Hkv, D), over every
+    layer and K / V, rewritten in place through int8 — per (layer, K / V,
+    kv head) the scale ``absmax * (1 / 127)`` in float32 (the product XLA
+    makes of the reference's ``/ 127.0``), the block divided by it,
+    rounded half to even, clipped to +-127 and multiplied back, in the
+    pool's dtype.  Plain PyTorch on the pool's device (no TPU kernel
+    stands behind it).  ``bid`` reaches the body through a device index
+    buffer, so the op built once (site ``serving.demote``, budget 1)
+    serves every block."""
+
+    def __init__(self, pool: torch.Tensor, engine_id):
+        self._pool = pool
+        self._bid = torch.zeros(1, dtype=torch.long, device=pool.device)
+        self._inv127 = _INV_127.to(pool.device)
+        self._tracked = track_retraces(lambda: None, "serving.demote",
+                                       budget=1,
+                                       labels={"engine": engine_id})
+        self._tracked()
+
+    @property
+    def traces(self) -> int:
+        return self._tracked.traces
+
+    def __call__(self, bid: int) -> None:
+        self._bid.fill_(int(bid))
+        pool = self._pool
+        blk = pool.index_select(2, self._bid).float()  # (L, 2, 1, bl, H, D)
+        sc = blk.abs().amax(dim=(3, 5), keepdim=True) * self._inv127
+        safe = torch.where(sc > 0, sc, torch.ones_like(sc))
+        q = torch.clamp(torch.round(blk / safe), -127, 127)
+        pool.index_copy_(2, self._bid, (q * safe).to(pool.dtype))
 
 
 class ServingEngine:
@@ -232,10 +345,17 @@ class ServingEngine:
 
     ``kv_cache_dtype`` (default ``FLAGS_serving_kv_cache_dtype``):
     ``"bf16"`` keeps the cache in the model dtype, ``"int8"`` quantizes it
-    (either layout); ``"mixed"`` is ROADMAP A6.4b.  ``int8_weights``
-    (default ``FLAGS_serving_int8_weights``) wraps the model with
-    ``models.quantized.quantize_for_decode`` unless it is wrapped already
-    (has ``unwrapped``)."""
+    (either layout), ``"mixed"`` (paged only) keeps a model-dtype pool
+    whose cold full prefix blocks demote to int8 precision.
+    ``int8_weights`` (default ``FLAGS_serving_int8_weights``) wraps the
+    model with ``models.quantized.quantize_for_decode`` unless it is
+    wrapped already (has ``unwrapped``).
+
+    ``preempt`` (default ``FLAGS_serving_preempt``; paged only):
+    ``"off"``, ``"swap"`` or ``"recompute"``, what a blocked admission may
+    do to a running request of lower priority; ``host_blocks`` (default
+    ``FLAGS_serving_host_blocks``; at least 1 for ``"swap"``) the host
+    tier's capacity in blocks.  See the module docstring."""
 
     def __init__(self, model, num_slots: int = 8, max_length: int = 1024,
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
@@ -251,7 +371,9 @@ class ServingEngine:
                  chunk_policy: Optional[str] = None,
                  spec_decode: Optional[bool] = None,
                  spec_k: Optional[int] = None, drafter=None,
-                 draft_model=None, device=None, **unsupported):
+                 draft_model=None, preempt: Optional[str] = None,
+                 host_blocks: Optional[int] = None, device=None,
+                 **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
                 raise TypeError(f"ServingEngine got an unexpected keyword "
@@ -260,16 +382,38 @@ class ServingEngine:
             if value not in defaults:
                 raise NotImplementedError(
                     f"ServingEngine({name}={value!r}) is ROADMAP {item}")
+        self.paged = bool(flags.flag("serving_paged_kv")
+                          if paged is None else paged)
         self.kv_dtype = str(kv_cache_dtype
                             or flags.flag("serving_kv_cache_dtype"))
-        if self.kv_dtype == "mixed":
-            raise NotImplementedError(
-                "ServingEngine(kv_cache_dtype='mixed'), the mixed bf16/int8 "
-                "pool, is ROADMAP A6.4b")
-        if self.kv_dtype not in ("bf16", "int8"):
+        if self.kv_dtype not in ("bf16", "int8", "mixed"):
             raise ValueError(f"kv_cache_dtype must be bf16|int8|mixed, got "
                              f"{self.kv_dtype!r}")
+        if self.kv_dtype == "mixed" and not self.paged:
+            raise ValueError(
+                "kv_cache_dtype='mixed' requires the paged cache: "
+                "demotion is per-block, and contiguous rows have no "
+                "block registration point")
+        # 'int8' quantizes the pool; 'mixed' keeps it in the model dtype
         self.quantized = self.kv_dtype == "int8"
+        # preemption and the host tier (reference engine.py:448-470)
+        self.preempt = str(flags.flag("serving_preempt")
+                           if preempt is None else preempt)
+        if self.preempt not in ("off", "swap", "recompute"):
+            raise ValueError(f"preempt must be off|swap|recompute, got "
+                             f"{self.preempt!r}")
+        if self.preempt != "off" and not self.paged:
+            raise ValueError(
+                "preemption requires the paged cache: victim block free "
+                "and swap/recompute resume are BlockManager operations")
+        self._preempt_after = int(flags.flag("serving_preempt_after"))
+        hb = int(flags.flag("serving_host_blocks")
+                 if host_blocks is None else host_blocks)
+        if self.preempt == "swap" and hb < 1:
+            raise ValueError(
+                "preempt='swap' needs a host tier: pass host_blocks "
+                "(or FLAGS_serving_host_blocks) >= 1")
+        self._host_blocks = hb if self.paged else 0
         self.chunked = bool(flags.flag("serving_chunked_prefill")
                             if chunked is None else chunked)
         self.prefill_chunk = int(prefill_chunk
@@ -312,8 +456,6 @@ class ServingEngine:
         self.eos_token_id = eos_token_id
         self.pad_token_id = int(pad_token_id)
         self.prefill_batch = int(prefill_batch)
-        self.paged = bool(flags.flag("serving_paged_kv")
-                          if paged is None else paged)
         if self.paged:
             bl = int(block_len or flags.flag("kv_cache_block_len"))
             if self.max_length % bl:
@@ -328,7 +470,7 @@ class ServingEngine:
                 nb, bl, prefix_cache=bool(flags.flag("serving_prefix_cache")
                                           if prefix_cache is None
                                           else prefix_cache),
-                kv_dtype=self.kv_dtype)
+                kv_dtype=self.kv_dtype, host_blocks=self._host_blocks)
             c = self.config
             tok = c.num_hidden_layers * 2 * c.num_key_value_heads * c.head_dim
             native = torch.empty((), dtype=c.torch_dtype).element_size()
@@ -402,6 +544,12 @@ class ServingEngine:
         self._slots: List[Optional[_Slot]] = [None] * s
         self._cursor: Optional[_Prefill] = None   # chunked-mode cursor
         self._queue: Deque[Request] = collections.deque()
+        # preempted work awaiting resume, each kept in (-priority, request
+        # id) order; every preemption decision, in order
+        self._swap_resume: List[_SwapResume] = []
+        self._resume_q: Deque[Request] = collections.deque()
+        self._preempt_log: List[Dict[str, object]] = []
+        self._uids: Dict[int, int] = {}
         self._results: Dict[int, List[int]] = {}
         self._next_rid = 0
         self._ticks = 0
@@ -416,9 +564,19 @@ class ServingEngine:
             # back, and an int8 pool's padding writes then reach a live
             # block's running-max scale: give back the fresh pool's null
             # block, so a graphed engine serves as its eager twin does
-            for t in (self._cache.values() if self.quantized
-                      else (self._cache,)):
+            for t in self._leaves():
                 t[:, :, 0] = 0
+        # the mixed pool's demotions: queued by the manager at registration
+        # (on_demote is a bound extend of the list, so it is drained in
+        # place), applied after the dispatch that writes the blocks
+        self._pending_demote: List[int] = []
+        self._demote_fn: Optional[_DemoteOp] = None
+        if self.kv_dtype == "mixed":
+            self._demote_fn = _DemoteOp(self._cache, eid)
+            self.kv.on_demote = self._pending_demote.extend
+        if self._host_blocks > 0:
+            self.kv.on_swap_out = self._host_swap_out
+            self.kv.on_swap_in = self._host_swap_in
         # drafters, by kind; the default one is built now, the others on a
         # request's first use (a draft model's steps on its first tick)
         self._draft_model = draft_model
@@ -453,6 +611,12 @@ class ServingEngine:
         self._n_prefill_computed = 0
         self._n_prefill_total = 0
         self._n_blocked = 0
+        self._n_demoted = 0
+        self._swap_bytes = {"out": 0, "in": 0}
+        self._migrated = {"requests_out": 0, "requests_in": 0,
+                          "bytes_out": 0, "bytes_in": 0}
+        self._preemptions: Dict[str, int] = collections.Counter()
+        self._resumes: Dict[str, int] = collections.Counter()
         self._occupancy = 0.0
         self._retired: Dict[str, int] = collections.Counter()
         # speculative decode (the reference's serving.spec_* series):
@@ -517,9 +681,27 @@ class ServingEngine:
         if self._cursor is not None:
             n += -(-(self._cursor.req.prompt.size
                      - self._cursor.cursor) // ch)
-        for req in self._queue:
+        for req in itertools.chain(self._resume_q, self._queue):
             n += -(-req.prompt.size // ch)
         return n
+
+    @property
+    def demote_traces(self) -> int:
+        """Builds of the mixed pool's demote op (``serving.demote``, budget
+        1); 0 for other pools."""
+        return self._demote_fn.traces if self._demote_fn is not None else 0
+
+    @property
+    def host_cache_bytes(self) -> int:
+        """Host memory the KV tier may take (0 without one); not part of
+        :attr:`cache_hbm_bytes`."""
+        return int(self.kv.host_cache_bytes()) if self.paged else 0
+
+    @property
+    def num_preempted(self) -> int:
+        """Preempted requests awaiting resume (swapped-out chains plus
+        recompute re-prefills still queued)."""
+        return len(self._swap_resume) + len(self._resume_q)
 
     def metrics(self) -> Dict[str, object]:
         """The reference engine's key names for what this slice counts:
@@ -528,8 +710,15 @@ class ServingEngine:
         and mixed steps), ``decode_ticks`` (ticks that ran the decode step
         alone), ``step_traces`` and ``graph_replays`` (ticks that replayed
         a CUDA graph), ``prefill_traces`` and ``prefill_graph_replays``
-        (waves that replayed a CUDA graph); the paged engine adds the
-        pool's accounting under ``kv_cache``, the chunked engine
+        (waves that replayed a CUDA graph), ``cancelled`` and
+        ``migration`` (requests and payload bytes exported and imported);
+        the paged engine adds the pool's accounting under ``kv_cache``
+        (with a host tier its ``host_tier`` block: blocks used, demotions,
+        promotions, swapped blocks and bytes; a mixed pool's
+        ``demoted_blocks`` and ``demote_traces``), a preempting engine
+        the reference's ``preempt`` block (preemptions and resumes by
+        mode, requests awaiting resume, decisions, their signature), the
+        chunked engine
         ``mixed_ticks`` (ticks that carried a chunk), ``mixed_step_ms``,
         ``decode_step_traces`` and the reference's ``chunked`` block, the
         speculative engine the reference's ``spec`` block (an N-token
@@ -556,7 +745,9 @@ class ServingEngine:
                    st.replays for st in self._prefill_steps.values()),
                "prefill_tokens_computed": self._n_prefill_computed,
                "prefill_tokens_total": self._n_prefill_total,
-               "retired": dict(self._retired)}
+               "retired": dict(self._retired),
+               "cancelled": self._retired["cancelled"],
+               "migration": dict(self._migrated)}
         if self._m_dequant_err.values:
             out["kv_dequant_error"] = self._m_dequant_err.summary()
         if self.spec:
@@ -598,15 +789,43 @@ class ServingEngine:
                 "evictions": st["evictions"],
                 "cow_copies": st["cow_copies"],
                 "admission_blocked": self._n_blocked}
+            if self.kv_dtype == "mixed":
+                out["kv_cache"]["demoted_blocks"] = self._n_demoted
+                out["kv_cache"]["demote_traces"] = self.demote_traces
+            if self._host_blocks > 0:
+                out["kv_cache"]["host_tier"] = {
+                    "host_blocks": self._host_blocks,
+                    "host_cache_bytes": self.host_cache_bytes,
+                    "host_blocks_used": self.kv.host_blocks_used(),
+                    "host_trie_blocks": self.kv.host_trie_blocks(),
+                    **{k: st[k] for k in (
+                        "host_demotions", "host_promotions",
+                        "swapped_out_blocks", "swapped_in_blocks")},
+                    "swap_out_bytes": self._swap_bytes["out"],
+                    "swap_in_bytes": self._swap_bytes["in"]}
+            if self.preempt != "off":
+                out["preempt"] = {
+                    "mode": self.preempt,
+                    "preemptions": dict(self._preemptions),
+                    "resumes": dict(self._resumes),
+                    "awaiting_resume": self.num_preempted,
+                    "decisions": len(self._preempt_log),
+                    "signature": self.preempt_signature()}
         return out
 
     # -- public API ------------------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                sampling: Optional[SamplingParams] = None,
-               drafter=None) -> int:
+               drafter=None, priority: int = 0,
+               request_uid: Optional[int] = None) -> int:
         """Enqueue a request; returns its id.  Admission happens inside
-        ``step()`` as slots free up (FIFO).  Raises ``ValueError`` for an
+        ``step()`` as slots free up (FIFO; with ``preempt`` armed, by
+        ``priority`` class, higher first, FIFO within a class, and a
+        blocked admission may preempt a running request of lower
+        priority: :meth:`_try_preempt`).  ``request_uid`` threads an
+        existing uid through (a router minted it); None mints one
+        (:meth:`request_uid`).  Raises ``ValueError`` for an
         empty prompt (``bad_prompt``), ``max_new_tokens < 1``
         (``bad_max_new_tokens``) or a request longer than ``max_length``
         (``too_long``), and in the paged engine for a request needing more
@@ -634,19 +853,27 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         self._results[rid] = []
+        uid = next(_UIDS) if request_uid is None else int(request_uid)
+        self._uids[rid] = uid
         self._queue.append(Request(rid, prompt, int(max_new_tokens),
                                    sampling or SamplingParams(),
-                                   t_submit=self._clock(), drafter=drafter))
+                                   t_submit=self._clock(), drafter=drafter,
+                                   uid=uid, priority=int(priority)))
         self._n_submitted += 1
         return rid
+
+    def request_uid(self, rid: int) -> int:
+        """The uid behind engine request ``rid`` (kept across a migration:
+        :meth:`import_request` adopts the record's)."""
+        return self._uids[rid]
 
     def step(self) -> List[int]:
         """One scheduler tick: admit queued requests into free slots
         (batched prefill waves), then ONE decode step over the slot batch.
         Returns the request ids finished this tick.  Idle ticks return at
         once."""
-        if (not self._queue and not self._active.any()
-                and self._cursor is None):
+        if (not self._queue and not self._resume_q and not self._swap_resume
+                and not self._active.any() and self._cursor is None):
             self._occupancy = 0.0
             return []
         with torch.no_grad():
@@ -660,7 +887,8 @@ class ServingEngine:
         """Run ticks until every submitted request completes; returns
         ``[(request_id, generated_tokens)]`` in arrival order (outputs end
         at EOS inclusive)."""
-        while (self._queue or self._cursor is not None
+        while (self._queue or self._resume_q or self._swap_resume
+               or self._cursor is not None
                or any(s is not None for s in self._slots)):
             self.step()
         return [(rid, list(toks))
@@ -674,9 +902,7 @@ class ServingEngine:
     def cache_hbm_bytes(self) -> int:
         """Bytes of the KV cache (contiguous rows or paged pool, payload
         and scales) this engine keeps on its device."""
-        parts = (self._cache.values() if isinstance(self._cache, dict)
-                 else (self._cache,))
-        return int(sum(t.numel() * t.element_size() for t in parts))
+        return self._payload_bytes(self._leaves())
 
     def observe_dequant_error(self, max_abs_logit_delta: float) -> None:
         """Record one int8-KV parity observation — the max absolute logit
@@ -692,6 +918,376 @@ class ServingEngine:
     @property
     def queue_depth(self) -> int:
         return len(self._queue)
+
+    # -- the mixed pool's demotions and the block movers --------------------
+
+    def _apply_demotions(self) -> None:
+        """Run the queued demotions (the reference's ``_apply_demotions``,
+        ``paddle_tpu/serving/engine.py:1600``): only after the dispatch
+        that wrote the blocks (a wave registers before its prefill, a
+        chunk after its dispatch), on the same stream, so no prefill
+        overwrites a demotion.  The list is drained in place: the
+        manager's hook is a bound ``extend`` of it."""
+        if not self._pending_demote:
+            return
+        pending = list(self._pending_demote)
+        self._pending_demote.clear()
+        for bid in pending:
+            self._demote_fn(bid)
+        self._n_demoted += len(pending)
+
+    def _leaves(self) -> Tuple[torch.Tensor, ...]:
+        """The cache's tensors: the pool, or the int8 pool's payload and
+        scales."""
+        return (tuple(self._cache.values()) if isinstance(self._cache, dict)
+                else (self._cache,))
+
+    def _read_block(self, bid: int) -> Tuple[torch.Tensor, ...]:
+        """One block of every cache leaf (an int8 block's scale row with
+        its payload), copied into host memory (pinned on the card): the
+        reference's one-block reader (``_block_movers``, :1619).  The copy
+        is complete when this returns, so the manager may hand the block
+        to a new owner right after."""
+        pin = self.device.type == "cuda"
+        out = []
+        for t in self._leaves():
+            h = torch.empty(t.shape[:2] + t.shape[3:], dtype=t.dtype,
+                            pin_memory=pin)
+            h.copy_(t[:, :, bid])
+            out.append(h)
+        return tuple(out)
+
+    def _write_block(self, bid: int, payload) -> None:
+        """Write a payload of :meth:`_read_block` into block ``bid`` IN
+        PLACE: the pool's storage keeps its address, which the captured
+        steps read.  The copy is queued on the current stream, before the
+        next replay that reads the block."""
+        for t, h in zip(self._leaves(), payload):
+            t[:, :, bid].copy_(h, non_blocking=True)
+
+    @staticmethod
+    def _payload_bytes(payload) -> int:
+        return int(sum(h.numel() * h.element_size() for h in payload))
+
+    def _host_swap_out(self, pairs) -> None:
+        """The manager's ``on_swap_out`` (:1663): each ``(bid, hid)``
+        pair's block copied into its host payload (swap-outs and prefix
+        blocks evicted to the host)."""
+        tier = self.kv.host_tier
+        for bid, hid in pairs:
+            payload = self._read_block(bid)
+            tier.put(hid, payload)
+            self._swap_bytes["out"] += self._payload_bytes(payload)
+
+    def _host_swap_in(self, pairs) -> None:
+        """The manager's ``on_swap_in`` (:1680): each ``(hid, bid)`` pair's
+        host payload written back into its (re)allocated block."""
+        tier = self.kv.host_tier
+        for hid, bid in pairs:
+            payload = tier.get(hid)
+            self._write_block(bid, payload)
+            self._swap_bytes["in"] += self._payload_bytes(payload)
+
+    # -- preemption (reference engine.py:1699-1911) --------------------------
+
+    def _try_preempt(self, *, priority: int, rid: int,
+                     blocked_ticks: int) -> bool:
+        """Pick and preempt ONE victim so the blocked waiter's admission
+        can retry (:1699).  Victims rank by (priority ascending, shortest
+        progress, youngest request, slot); the reference ranks the loosest
+        TTFT deadline second, and with no deadlines (ROADMAP A4) every
+        victim ties there.  A strictly lower-priority victim is preempted
+        at once; one of the same priority only after the waiter has been
+        blocked ``FLAGS_serving_preempt_after`` ticks, and never one that
+        was preempted before.  Returns True when a victim was preempted
+        (the caller retries admission)."""
+        if self.preempt == "off":
+            return False
+        cands = []
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.req is None:
+                continue
+            vr = slot.req
+            if vr.priority < priority:
+                pass                       # strictly lower: at once
+            elif (vr.priority == priority
+                  and blocked_ticks >= self._preempt_after
+                  and vr.preempt_count == 0):
+                pass                       # the fairness gate passed
+            else:
+                continue
+            prog = len(self._results[vr.request_id])
+            cands.append(((vr.priority, prog, -vr.request_id, i), i))
+        if not cands:
+            return False
+        _, victim = min(cands)
+        self._do_preempt(victim, waiter_rid=rid)
+        return True
+
+    def _do_preempt(self, i: int, waiter_rid: int) -> None:
+        """Evict slot ``i``'s request (:1744): swap its private blocks to
+        the host tier (recompute when the tier cannot take them) or free
+        its chain for a recompute, then park it on its resume queue."""
+        slot = self._slots[i]
+        req = slot.req
+        mode = self.preempt
+        record = None
+        if mode == "swap":
+            record = self.kv.swap_out(i)
+            if record is None:
+                mode = "recompute"         # the host tier is full
+        if mode == "recompute":
+            self.kv.preempt_free(i)
+        req.preempt_count += 1
+        gen = self._results[req.request_id]
+        self._preempt_log.append({
+            "tick": self._ticks, "victim_rid": req.request_id,
+            "waiter_rid": waiter_rid, "mode": mode, "slot": i,
+            "progress": len(gen)})
+        self._preemptions[mode] += 1
+        if mode == "swap":
+            self._push_swap_resume(_SwapResume(
+                req=req, record=record, last_token=int(self._tokens[i]),
+                position=int(self._positions[i]), remaining=slot.remaining,
+                t_first=slot.t_first))
+        else:
+            # the re-prefill covers the prompt and every committed token
+            # but the last: exactly the positions the cache held, and the
+            # same blocks_needed as the first admission
+            prompt2 = (np.concatenate(
+                [req.prompt, np.asarray(gen[:-1], np.int32)])
+                if len(gen) > 1 else req.prompt)
+            self._push_resume_q(dataclasses.replace(
+                req, prompt=prompt2, max_new_tokens=slot.remaining + 1,
+                blocked_ticks=0,
+                resume=_ResumeInfo(orig=req, last_token=int(gen[-1]),
+                                   remaining=slot.remaining,
+                                   t_first=slot.t_first)))
+        self._clear_slot(i)
+
+    def _push_swap_resume(self, entry: _SwapResume) -> None:
+        self._swap_resume.append(entry)
+        self._swap_resume.sort(
+            key=lambda e: (-e.req.priority, e.req.request_id))
+
+    def _push_resume_q(self, req: Request) -> None:
+        # re-ordered IN PLACE: admission may hold this deque across a
+        # preemption that pushes here
+        self._resume_q.append(req)
+        if len(self._resume_q) > 1:
+            items = sorted(self._resume_q,
+                           key=lambda r: (-r.priority, r.request_id))
+            self._resume_q.clear()
+            self._resume_q.extend(items)
+
+    def _next_admit(self) -> Tuple[Deque, Request]:
+        """The next request to admit and the queue it lives in (:1815):
+        with preemption off, recompute resumes (none unless preemption
+        ran) then FIFO; with it armed, across both queues by (-priority,
+        request id).  (The reference's predictive admission gate, which
+        also picks this way, is ROADMAP A6.)"""
+        if self.preempt == "off":
+            src = self._resume_q if self._resume_q else self._queue
+            return src, src[0]
+        best = None
+        for q in (self._resume_q, self._queue):
+            for r in q:
+                key = (-r.priority, r.request_id)
+                if best is None or key < best[0]:
+                    best = (key, q, r)
+        return best[1], best[2]
+
+    def _free_slots(self) -> List[int]:
+        """Slots a request may take: no ``_Slot`` and not the chunked
+        cursor's (it owns a chain but no ``_Slot`` yet)."""
+        busy = self._cursor.slot if self._cursor is not None else None
+        return [i for i, s in enumerate(self._slots)
+                if s is None and i != busy]
+
+    def _seat(self, si: int, slot: _Slot, req: Request, token: int,
+              position: int) -> None:
+        """Put ``slot`` into row ``si``: its host mirrors and, paged, its
+        table row."""
+        self._slots[si] = slot
+        self._drafter_reset(si)
+        self._active[si] = True
+        self._tokens[si] = token
+        self._positions[si] = position
+        self._temps[si] = req.sampling.temperature
+        self._topk[si] = req.sampling.top_k
+        self._topp[si] = req.sampling.top_p
+        if self.paged:
+            self._tables[si] = self.kv.table_row(si, self.max_blocks)
+
+    def _service_swap_resumes(self) -> None:
+        """Admission's preamble (:1845): restore swapped-out requests
+        (highest priority, then oldest, first) into free slots whenever the
+        pool can hold their chains again; a blocked resume may itself
+        preempt a running lower-priority request.  The slot state is the
+        one at preemption, and the prompt registers again (the dtype tags
+        came back with the blocks, so a mixed pool demotes nothing
+        twice)."""
+        while self._swap_resume:
+            entry = self._swap_resume[0]
+            free = self._free_slots()
+            if not free:
+                return
+            si = free[0]
+            got = self.kv.resume_swapped(si, entry.record)
+            if got is None:
+                entry.blocked_ticks += 1
+                if not self._try_preempt(priority=entry.req.priority,
+                                         rid=entry.req.request_id,
+                                         blocked_ticks=entry.blocked_ticks):
+                    return
+                continue                   # a victim freed room: retry
+            self._swap_resume.pop(0)
+            req = entry.req
+            self._seat(si, _Slot(req.request_id, entry.remaining,
+                                 t_first=entry.t_first, prompt=req.prompt,
+                                 drafter=req.drafter, req=req),
+                       req, entry.last_token, entry.position)
+            self.kv.register_prompt_upto(si, req.prompt,
+                                         int(req.prompt.size))
+            self._resumes["swap"] += 1
+
+    def preempt_signature(self) -> str:
+        """SHA-256 over the ordered preemption decisions (victim, waiter,
+        tick, mode, slot, progress): the same traffic must give the same
+        victims."""
+        blob = json.dumps(self._preempt_log, sort_keys=True,
+                          separators=(",", ":"))
+        return hashlib.sha256(blob.encode()).hexdigest()
+
+    @property
+    def preempt_decisions(self) -> List[Dict[str, object]]:
+        return list(self._preempt_log)
+
+    # -- migration and cancellation (reference engine.py:1912-2105) ---------
+
+    def export_request(self, rid: int, release: bool = True
+                       ) -> Optional[Dict[str, object]]:
+        """Serialise a DECODING request for another engine (:1912): the
+        slot state a swap resume restores (position, last token, decode
+        budget, sampling, priority, uid) and its KV chain by value
+        (``BlockManager.export_blocks`` through :meth:`_read_block`: an
+        int8 block's scales travel with it).  None when ``rid`` is not in
+        a decode slot.  ``release`` frees the slot and its blocks after
+        the copy; the partial output stays readable (``result``)."""
+        if not self.paged:
+            raise RuntimeError(
+                "export_request requires the paged cache "
+                "(ServingEngine(..., paged=True))")
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.rid != rid:
+                continue
+            req = slot.req
+            blocks = self.kv.export_blocks(i, self._read_block)
+            nbytes = sum(self._payload_bytes(e["payload"])
+                         for e in blocks["entries"])
+            record = {
+                "uid": int(req.uid),
+                "prompt": [int(t) for t in req.prompt],
+                "generated": list(self._results.get(rid, [])),
+                "max_new_tokens": int(req.max_new_tokens),
+                "remaining": int(slot.remaining),
+                "position": int(self._positions[i]),
+                "last_token": int(self._tokens[i]),
+                "had_first": bool(slot.t_first > 0.0),
+                "sampling": {"temperature": float(req.sampling.temperature),
+                             "top_k": int(req.sampling.top_k),
+                             "top_p": float(req.sampling.top_p)},
+                "priority": int(req.priority),
+                "blocks": blocks,
+                "payload_bytes": int(nbytes)}
+            self._migrated["requests_out"] += 1
+            self._migrated["bytes_out"] += int(nbytes)
+            if release:
+                self._release(i)
+            return record
+        return None
+
+    def import_request(self, record: Dict[str, object]) -> Optional[int]:
+        """Materialise an exported request into a free slot of THIS engine
+        and continue its decode where the exporter stopped (:1979): the
+        blocks through ``BlockManager.import_blocks`` and
+        :meth:`_write_block`, the slot state as a swap resume restores it,
+        the prompt registered again (dtype tags kept: a mixed pool does not
+        demote it again).  Returns the local request id (the record's uid
+        is adopted), or None when no slot or pool room is free now (the
+        record is not consumed)."""
+        if not self.paged:
+            raise RuntimeError(
+                "import_request requires the paged cache "
+                "(ServingEngine(..., paged=True))")
+        free = self._free_slots()
+        if not free:
+            return None
+        si = free[0]
+        got = self.kv.import_blocks(si, record["blocks"], self._write_block)
+        if got is None:
+            return None
+        uid = int(record["uid"])
+        prompt = np.asarray(record["prompt"], np.int32)
+        sp = record["sampling"]
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, prompt, int(record["max_new_tokens"]),
+                      SamplingParams(temperature=float(sp["temperature"]),
+                                     top_k=int(sp["top_k"]),
+                                     top_p=float(sp["top_p"])),
+                      t_submit=self._clock(), uid=uid,
+                      priority=int(record["priority"]))
+        self._results[rid] = list(record["generated"])
+        self._uids[rid] = uid
+        # the TPOT clock restarts on this engine's clock
+        self._seat(si, _Slot(rid, int(record["remaining"]),
+                             t_first=(self._clock() if record["had_first"]
+                                      else 0.0), prompt=prompt, req=req),
+                   req, int(record["last_token"]), int(record["position"]))
+        self.kv.register_prompt_upto(si, prompt, int(prompt.size))
+        self._migrated["requests_in"] += 1
+        self._migrated["bytes_in"] += int(record.get("payload_bytes", 0))
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Tear request ``rid`` down wherever it is (:2056) — queued,
+        awaiting a recompute resume, swapped out, mid chunked prefill or
+        decoding — freeing its blocks as a release does.  Returns True if
+        it was found, False if unknown or finished.  Partial output stays
+        readable (``result``).  (The reference also logs a ``retired``
+        event and an SLO violation ``cancelled``: ROADMAP A4.)"""
+        for q in (self._queue, self._resume_q):
+            for req in q:
+                if req.request_id == rid:
+                    q.remove(req)
+                    self._finish_cancel()
+                    return True
+        for k, entry in enumerate(self._swap_resume):
+            if entry.req.request_id == rid:
+                self._swap_resume.pop(k)
+                self.kv.drop_swap_record(entry.record)
+                self._finish_cancel()
+                return True
+        pf = self._cursor
+        if pf is not None and pf.req.request_id == rid:
+            # mid chunked prefill: the slot owns a chain but no _Slot yet
+            self._cursor = None
+            if self.paged:
+                self.kv.release(pf.slot)
+                self._tables[pf.slot] = 0
+            self._finish_cancel()
+            return True
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.rid == rid:
+                self._release(i)
+                self._finish_cancel()
+                return True
+        return False
+
+    def _finish_cancel(self) -> None:
+        self._n_finished += 1
+        self._retired["cancelled"] += 1
 
     # -- device work -------------------------------------------------------------
 
@@ -818,8 +1414,7 @@ class ServingEngine:
             if cow is not None:
                 # the int8 pool copies the block's scale row with it
                 src, dst = cow
-                for t in (self._cache.values() if self.quantized
-                          else (self._cache,)):
+                for t in self._leaves():
                     t[:, :, dst] = t[:, :, src]
                 changed = True
         if changed:
@@ -1172,6 +1767,7 @@ class ServingEngine:
             finished.extend(self._advance_decode(host, now))
         if do_chunk:
             finished.extend(self._advance_chunk(pf, clen, ctok, now))
+        self._apply_demotions()
         return finished
 
     def _admit_chunked(self) -> List[int]:
@@ -1179,29 +1775,38 @@ class ServingEngine:
         request — a cursor, not a prefill dispatch (the reference's
         ``_admit_chunked``, :2484).  One prompt streams at a time, in FIFO
         order.  Queue-wait is observed once, here."""
-        if self._cursor is not None or not self._queue:
+        if self.paged:
+            self._service_swap_resumes()
+        if self._cursor is not None or not (self._resume_q or self._queue):
             return []
-        free = [i for i, s in enumerate(self._slots) if s is None]
+        free = self._free_slots()
         if not free:
             return []
-        req = self._queue[0]
+        src, req = self._next_admit()
         si = free[0]
         m = 0
         if self.paged:
             got = self.kv.admit(si, req.prompt, req.prompt.size,
                                 req.max_new_tokens, chunked=True)
+            while got is None and self._try_preempt(
+                    priority=req.priority, rid=req.request_id,
+                    blocked_ticks=req.blocked_ticks):
+                got = self.kv.admit(si, req.prompt, req.prompt.size,
+                                    req.max_new_tokens, chunked=True)
             if got is None:            # pool full: wait for retirements
                 self._n_blocked += 1
+                req.blocked_ticks += 1
                 return []
             m = got                    # adopted prefix tokens skip compute
-        self._queue.popleft()
+        src.remove(req)
         if self.quantized and not self.paged:
             # the prompt streams into a reused row: drop the previous
             # tenant's granule scales first (in place, outside the graph)
             self._cache["scale"][:, :, si] = 0.0
         now = self._clock()
         self._n_prefill_total += int(req.prompt.size)
-        self._m_queue_wait.observe((now - req.t_submit) * 1e3)
+        if req.resume is None:
+            self._m_queue_wait.observe((now - req.t_submit) * 1e3)
         self._cursor = _Prefill(req, si, int(m))
         return []
 
@@ -1222,18 +1827,18 @@ class ServingEngine:
             return []
         si, req = pf.slot, pf.req
         self._cursor = None
+        ri = req.resume
+        if ri is not None:
+            # a recompute resume: as in _start_wave
+            self._seat(si, _Slot(req.request_id, ri.remaining,
+                                 t_first=ri.t_first, prompt=ri.orig.prompt,
+                                 drafter=ri.orig.drafter, req=ri.orig),
+                       req, ri.last_token, plen)
+            self._resumes["recompute"] += 1
+            return []
         slot = _Slot(req.request_id, req.max_new_tokens - 1, t_first=now,
-                     prompt=req.prompt, drafter=req.drafter)
-        self._slots[si] = slot
-        self._drafter_reset(si)
-        self._active[si] = True
-        self._tokens[si] = ctok
-        self._positions[si] = plen
-        self._temps[si] = req.sampling.temperature
-        self._topk[si] = req.sampling.top_k
-        self._topp[si] = req.sampling.top_p
-        if self.paged:
-            self._tables[si] = self.kv.table_row(si, self.max_blocks)
+                     prompt=req.prompt, drafter=req.drafter, req=req)
+        self._seat(si, slot, req, ctok, plen)
         self._results[req.request_id].append(ctok)
         self._n_tokens += 1
         self._m_ttft.observe((now - req.t_submit) * 1e3)
@@ -1276,27 +1881,40 @@ class ServingEngine:
         return finished
 
     def _admit_paged(self) -> List[int]:
-        """Paged admission: FIFO requests enter free slots once the block
-        pool covers their worst case (kv_cache.py reservations), adopting
-        any cached prompt prefix on the way in.  A wave shares one padded
-        SUFFIX bucket.  The FIFO head blocking on pool space blocks the
-        queue (``admission_blocked`` counts each refusal)."""
+        """Paged admission (the reference's ``_admit_paged``, :3271):
+        requests enter free slots once the block pool covers their worst
+        case (kv_cache.py reservations), adopting any cached prompt prefix
+        on the way in.  A wave shares one padded SUFFIX bucket.  The head
+        blocking on pool space blocks the queue (``admission_blocked``
+        counts each refusal).  With preemption armed, swapped chains are
+        restored first, the head is picked across the recompute-resume
+        and submit queues by priority (:meth:`_next_admit`), and a blocked
+        head may preempt a victim (:meth:`_try_preempt`) and retry."""
+        self._service_swap_resumes()
         finished: List[int] = []
-        while self._queue:
-            free = [i for i, s in enumerate(self._slots) if s is None]
+        while self._resume_q or self._queue:
+            free = self._free_slots()
             if not free:
                 break
             wave: List[Tuple[Request, int, int]] = []
-            while self._queue and len(wave) < min(self.prefill_batch,
-                                                  len(free)):
-                req = self._queue[0]
+            while ((self._resume_q or self._queue)
+                   and len(wave) < min(self.prefill_batch, len(free))):
+                src, req = self._next_admit()
                 si = free[len(wave)]
                 m = self.kv.admit(si, req.prompt, req.prompt.size,
                                   req.max_new_tokens)
+                while m is None and self._try_preempt(
+                        priority=req.priority, rid=req.request_id,
+                        blocked_ticks=req.blocked_ticks):
+                    m = self.kv.admit(si, req.prompt, req.prompt.size,
+                                      req.max_new_tokens)
                 if m is None:          # pool full: wait for retirements
                     self._n_blocked += 1
+                    req.blocked_ticks += 1
                     break
-                self._queue.popleft()
+                # by identity: a preemption in the retry loop may have
+                # re-ordered the resume queue
+                src.remove(req)
                 self._tables[si] = self.kv.table_row(si, self.max_blocks)
                 wave.append((req, si, m))
             if not wave:
@@ -1328,9 +1946,10 @@ class ServingEngine:
         temps, topk, topp = self._wave_sampling(reqs, t_adm)
         tok = self._prefill_paged(ids, prefix, slens, tables, temps, topk,
                                   topp)
+        self._apply_demotions()
         return self._start_wave(reqs, [si for _, si, _ in wave],
                                 [req.prompt.size for req in reqs], tok,
-                                temps, topk, topp, t_adm)
+                                t_adm)
 
     def _wave_sampling(self, wave: List[Request], t_adm: float):
         """Per-row sampling knobs of a wave; observes queue waits and
@@ -1343,7 +1962,8 @@ class ServingEngine:
             temps[r] = req.sampling.temperature
             topk[r] = req.sampling.top_k
             topp[r] = req.sampling.top_p
-            self._m_queue_wait.observe((t_adm - req.t_submit) * 1e3)
+            if req.resume is None:     # a recompute resume waited before
+                self._m_queue_wait.observe((t_adm - req.t_submit) * 1e3)
         self._n_waves += 1
         self._ticks += 1
         return temps, topk, topp
@@ -1361,29 +1981,33 @@ class ServingEngine:
             self._n_prefill_total += int(req.prompt.size)
         temps, topk, topp = self._wave_sampling(wave, t_adm)
         tok = self._prefill(ids, plens, slots, temps, topk, topp)
-        return self._start_wave(wave, slots, list(plens), tok, temps, topk,
-                                topp, t_adm)
+        return self._start_wave(wave, slots, list(plens), tok, t_adm)
 
     def _start_wave(self, wave: List[Request], slots: List[int],
-                    plens: List[int], tok: np.ndarray, temps, topk, topp,
+                    plens: List[int], tok: np.ndarray,
                     t_adm: float) -> List[int]:
         """Seat a prefilled wave in its slots with its first tokens;
-        returns ids that finished at admission."""
+        returns ids that finished at admission.  A recompute resume
+        (``req.resume``) discards its re-sampled token and takes back the
+        last committed one, its decode budget and its TPOT clock: the
+        decode replays no token and drops none."""
         t_tok = self._clock()
         self._m_prefill_ms.observe((t_tok - t_adm) * 1e3)
         finished: List[int] = []
         for r, (req, si) in enumerate(zip(wave, slots)):
+            ri = req.resume
+            if ri is not None:
+                self._seat(si, _Slot(req.request_id, ri.remaining,
+                                     t_first=ri.t_first,
+                                     prompt=ri.orig.prompt,
+                                     drafter=ri.orig.drafter, req=ri.orig),
+                           req, ri.last_token, plens[r])
+                self._resumes["recompute"] += 1
+                continue
             slot = _Slot(req.request_id, req.max_new_tokens - 1,
                          t_first=t_tok, prompt=req.prompt,
-                         drafter=req.drafter)
-            self._slots[si] = slot
-            self._drafter_reset(si)
-            self._active[si] = True
-            self._tokens[si] = tok[r]
-            self._positions[si] = plens[r]
-            self._temps[si] = temps[r]
-            self._topk[si] = topk[r]
-            self._topp[si] = topp[r]
+                         drafter=req.drafter, req=req)
+            self._seat(si, slot, req, int(tok[r]), plens[r])
             self._results[req.request_id].append(int(tok[r]))
             self._n_tokens += 1
             self._m_ttft.observe((t_tok - req.t_submit) * 1e3)

@@ -53,15 +53,44 @@ chunk (``ensure_capacity``) and registers the prompt's full blocks with
 them is dispatched, so an unwritten block never satisfies a lookup.
 
 Speculative rollback (:meth:`BlockManager.truncate_to`) returns the blocks
-a rejected draft suffix was written into.  Not ported here, each raising
-``NotImplementedError`` naming its ROADMAP item: the host tier,
-swap-out/resume, block export/import and ``preempt_free`` (A6.6); the
-``mixed`` pool (A6.4b).  ``stats`` is a plain dict (the metrics registry
-is A5b).
+a rejected draft suffix was written into.
+
+Mixed pool (``kv_dtype="mixed"``): the device pool stays in the model
+dtype; every block carries a dtype tag (:meth:`BlockManager.block_dtype`).
+A block is born hot (bf16) and demotes to int8 when it registers as a
+cold full prefix block: ``on_demote`` fires with its id and the engine
+rewrites the block in place through a quantize -> dequantize round trip.
+A freed, evicted, copied-on-write or truncated block resets to the pool's
+default.
+
+Host tier (``host_blocks > 0``, the reference's tiering): a
+:class:`HostTier` of ``host_blocks`` block-sized payloads in host memory
+(pinned when the pool lives on the card).  Two flows feed it, each one
+device copy the engine performs through the ``on_swap_out`` /
+``on_swap_in`` hooks:
+
+  * demote-on-evict: when pool pressure would drop the LRU head's
+    content, the block moves to the host instead, keyed by its full token
+    path from the prompt root in a host trie; a later admission whose
+    prompt walk runs off the device trie continues into the host trie and
+    promotes each hit into a fresh device block from its own reservation;
+  * swap-out (preemption): :meth:`BlockManager.swap_out` moves a victim's
+    private blocks (refcount 1) to pinned host payloads recorded in a
+    resume record (shared blocks keep the victim's reference), and
+    :meth:`BlockManager.resume_swapped` rebuilds the chain.  Record entries
+    are never trie keys.  Swap records are never evicted; demoted trie
+    entries are (oldest first), so swap capacity wins over cached-prefix
+    capacity.
+
+Migration: :meth:`BlockManager.export_blocks` serialises a chain by value
+(dtype tags with the payloads) and :meth:`BlockManager.import_blocks`
+materialises it into another pool.  ``stats`` is a plain dict (the
+metrics registry is ROADMAP A4).
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -70,13 +99,15 @@ import torch
 
 from .. import default_device
 
-__all__ = ["BlockManager", "NULL_BLOCK", "init_paged_kv_cache"]
+__all__ = ["BlockManager", "HostTier", "NULL_BLOCK", "init_paged_kv_cache"]
 
 NULL_BLOCK = 0          # physical block 0: pad/dummy scratch, never allocated
 _ROOT = -1              # trie parent id of a prompt's first block
 
 _STATS_KEYS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens",
-               "evictions", "cow_copies", "peak_blocks_in_use")
+               "evictions", "cow_copies", "peak_blocks_in_use",
+               "host_demotions", "host_promotions", "swapped_out_blocks",
+               "swapped_in_blocks", "exported_blocks", "imported_blocks")
 
 
 def init_paged_kv_cache(config, num_blocks: int, block_len: int, dtype=None,
@@ -110,20 +141,82 @@ class _SlotAlloc:
         self.reserved_left = reserved_left
 
 
+# a block's full token path from the prompt root: one tuple of tokens a
+# block, root first -- the identity of its contents in either tier
+_Path = Tuple[Tuple[int, ...], ...]
+
+
+class HostTier:
+    """The host-memory block pool, the device pool's second tier (the
+    reference's ``HostTier``, ``paddle_tpu/serving/kv_cache.py:207``).
+
+    Capacity is counted in blocks of the device pool's geometry; each live
+    host id owns one block's payload, which the engine reads off and
+    writes back through the manager's ``on_swap_out`` / ``on_swap_in``
+    hooks: a tuple of CPU tensors, one a cache leaf, in pinned memory when
+    the pool lives on the card (bf16 has no numpy dtype).  The tier is an
+    id allocator and a payload store; which ids are evictable (demoted
+    trie blocks) and which are pinned (swap records) is the
+    :class:`BlockManager`'s call, so ``alloc()`` on a full tier is a
+    caller bug."""
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self._ids = itertools.count()
+        self._live: Set[int] = set()
+        self._payload: Dict[int, object] = {}
+
+    @property
+    def used(self) -> int:
+        return len(self._live)
+
+    def free_slots(self) -> int:
+        return self.capacity - len(self._live)
+
+    def alloc(self) -> int:
+        if len(self._live) >= self.capacity:
+            raise RuntimeError(
+                "host tier full (BlockManager must make room before "
+                "allocating)")
+        hid = next(self._ids)
+        self._live.add(hid)
+        return hid
+
+    def put(self, hid: int, payload) -> None:
+        if hid not in self._live:
+            raise KeyError(f"host id {hid} is not allocated")
+        self._payload[hid] = payload
+
+    def get(self, hid: int):
+        return self._payload[hid]
+
+    def free(self, hid: int) -> None:
+        self._live.remove(hid)
+        self._payload.pop(hid, None)
+
+
 class BlockManager:
     """Host-side allocator for a pool of ``num_blocks`` KV blocks of
     ``block_len`` tokens (block 0 reserved as the null block).
 
-    ``kv_dtype``: ``"bf16"`` (the model dtype) or ``"int8"``; ``"mixed"``
-    is ROADMAP A6.4b.
+    ``kv_dtype``: ``"bf16"`` (the model dtype), ``"int8"`` or ``"mixed"``
+    (a model-dtype pool whose cold full prefix blocks demote to int8;
+    ``on_demote``).  ``host_blocks``: the host tier's capacity in blocks
+    (0: none).
 
     ``stats``: ``prefix_lookups`` (admissions that consulted the trie),
-    ``prefix_hit_blocks`` / ``prefix_hit_tokens`` (adopted instead of
-    recomputed), ``evictions`` (cached blocks reclaimed under pressure),
-    ``cow_copies`` (``ensure_writable`` copies), ``peak_blocks_in_use``
-    (high-water mark of referenced blocks), ``quantized_blocks``,
-    ``bytes_by_dtype`` and ``kv_dtype`` (see :meth:`quantized_blocks`,
-    :meth:`set_block_nbytes`)."""
+    ``prefix_hit_blocks`` / ``prefix_hit_tokens`` (adopted or promoted
+    instead of recomputed), ``evictions`` (cached blocks reclaimed under
+    pressure), ``cow_copies`` (``ensure_writable`` copies),
+    ``peak_blocks_in_use`` (high-water mark of referenced blocks),
+    ``host_demotions`` / ``host_promotions`` (evicted prefix blocks moved
+    to the host tier / brought back by an admission),
+    ``swapped_out_blocks`` / ``swapped_in_blocks`` (preemption),
+    ``exported_blocks`` / ``imported_blocks`` (migration),
+    ``quantized_blocks``, ``bytes_by_dtype`` and ``kv_dtype`` (see
+    :meth:`quantized_blocks`, :meth:`set_block_nbytes`)."""
 
     def __init__(self, num_blocks: int, block_len: int,
                  prefix_cache: bool = True, kv_dtype: str = "bf16",
@@ -134,21 +227,37 @@ class BlockManager:
                 f"got {num_blocks}")
         if block_len < 1:
             raise ValueError(f"block_len must be >= 1, got {block_len}")
-        if kv_dtype == "mixed":
-            raise NotImplementedError(
-                "BlockManager(kv_dtype='mixed'), the mixed bf16/int8 pool, "
-                "is ROADMAP A6.4b")
-        if kv_dtype not in ("bf16", "int8"):
+        if kv_dtype not in ("bf16", "int8", "mixed"):
             raise ValueError(
                 f"kv_dtype must be bf16|int8|mixed, got {kv_dtype!r}")
-        if host_blocks:
-            raise NotImplementedError(
-                "BlockManager(host_blocks > 0), the host tier, is ROADMAP "
-                "A6.6")
         self.num_blocks = int(num_blocks)
         self.block_len = int(block_len)
         self.prefix_cache = bool(prefix_cache)
         self.kv_dtype = kv_dtype
+        # each block's element dtype: 0 the pool's model dtype, 1 int8.  An
+        # int8 pool is born all 1; a mixed pool's blocks are born 0 and
+        # demote to 1 when they register as cold full prefix blocks; a
+        # freed block resets to the pool's default
+        self._default_dtype = 1 if kv_dtype == "int8" else 0
+        self._dtype = np.full(num_blocks, self._default_dtype, np.int8)
+        # engine hooks.  on_demote(list of block ids): the mixed pool's
+        # newly demoted blocks, for the device rewrite.  on_swap_out([(block
+        # id, host id)]) / on_swap_in([(host id, block id)]): copy blocks
+        # to / from host payloads, always before the device block can go
+        # to a new owner
+        self.on_demote = None
+        self.on_swap_out = None
+        self.on_swap_in = None
+        self._host: Optional[HostTier] = (
+            HostTier(host_blocks) if host_blocks > 0 else None)
+        # host trie: full token path -> (host id, element dtype); insertion
+        # order is the host LRU (the oldest demotion goes first when a swap
+        # record needs the room)
+        self._host_trie: "OrderedDict[_Path, Tuple[int, str]]" = (
+            OrderedDict())
+        # registered device block -> its full token path (the host-trie key
+        # it keeps through a demotion)
+        self._block_path: Dict[int, _Path] = {}
         # bytes per block by element dtype, set by the engine (the manager
         # has no model dimensions); feeds stats["bytes_by_dtype"]
         self._block_nbytes: Dict[str, int] = {}
@@ -198,11 +307,13 @@ class BlockManager:
             live[list(self._lru)] = True
         return live
 
+    def block_dtype(self, bid: int) -> str:
+        """Element dtype of physical block ``bid``'s contents."""
+        return "int8" if self._dtype[bid] else "bf16"
+
     def quantized_blocks(self) -> int:
-        """Live (referenced or LRU-cached) blocks holding int8 content: all
-        live blocks of an int8 pool, none of a bf16 one (the mixed pool,
-        A6.4b, is where blocks of one pool would differ)."""
-        return int(self._live_mask().sum()) if self.kv_dtype == "int8" else 0
+        """Live (referenced or LRU-cached) blocks holding int8 content."""
+        return int((self._live_mask() & (self._dtype == 1)).sum())
 
     def set_block_nbytes(self, by_dtype: Dict[str, int]) -> None:
         """Engine-supplied bytes of one block (payload + scale share) by
@@ -212,9 +323,11 @@ class BlockManager:
     def bytes_by_dtype(self) -> Dict[str, int]:
         """Live pool bytes by element dtype (zeros until
         :meth:`set_block_nbytes`)."""
-        live = int(self._live_mask().sum())
-        return {dt: (live if dt == self.kv_dtype else 0)
-                * self._block_nbytes.get(dt, 0) for dt in ("bf16", "int8")}
+        live = self._live_mask()
+        n_int8 = int((live & (self._dtype == 1)).sum())
+        return {"bf16": (int(live.sum()) - n_int8)
+                * self._block_nbytes.get("bf16", 0),
+                "int8": n_int8 * self._block_nbytes.get("int8", 0)}
 
     def blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
         """Worst-case blocks a request needs over its whole lifetime
@@ -229,15 +342,19 @@ class BlockManager:
     def admit(self, slot: int, prompt: Sequence[int], prompt_len: int,
               max_new_tokens: int, chunked: bool = False) -> Optional[int]:
         """Admit a request into ``slot``: match the prompt against the
-        prefix trie, reserve every block the request could need, allocate
-        the blocks covering positions ``[0, prompt_len]`` now, and
-        register the prompt's full blocks for future sharing (the wave
-        writes them in the same scheduler call).
+        prefix trie (and past it, the host trie), reserve every block the
+        request could need, allocate the blocks covering positions ``[0,
+        prompt_len]`` now, and register the prompt's full blocks for
+        future sharing (the wave writes them in the same scheduler call).
 
-        Returns the number of prefix TOKENS adopted from the cache, or
-        ``None`` when the pool cannot cover the request yet (the caller
-        keeps it queued).  The match is capped at
-        ``(prompt_len - 1) // block_len`` blocks.
+        Returns the number of prefix TOKENS adopted from the cache or
+        promoted from the host tier, or ``None`` when the pool cannot
+        cover the request yet (the caller keeps it queued).  The match is
+        capped at ``(prompt_len - 1) // block_len`` blocks.  Host hits
+        are promoted into fresh device blocks of this request's
+        reservation (so they count as unmatched for the admission check),
+        copied back through ``on_swap_in`` and registered under their
+        original keys.
 
         ``chunked``: the chunked-prefill contract — the prompt is written
         chunk by chunk over several ticks, so no block past the adopted
@@ -249,16 +366,29 @@ class BlockManager:
         bl = self.block_len
         prompt = [int(t) for t in prompt[:prompt_len]]
         matched: List[int] = []
+        path: _Path = ()
+        promo: List[Tuple[_Path, Tuple[int, ...], Tuple[int, str]]] = []
         if self.prefix_cache:
             self._counts["prefix_lookups"] += 1
             parent = _ROOT
-            for b in range((prompt_len - 1) // bl):
-                bid = self._trie.get((parent, tuple(prompt[b * bl:
-                                                           (b + 1) * bl])))
+            cap = (prompt_len - 1) // bl
+            for b in range(cap):
+                toks = tuple(prompt[b * bl:(b + 1) * bl])
+                bid = self._trie.get((parent, toks))
                 if bid is None:
                     break
+                path = path + (toks,)
                 matched.append(bid)
                 parent = bid
+            if self._host is not None:
+                for b in range(len(matched), cap):
+                    toks = tuple(prompt[b * bl:(b + 1) * bl])
+                    p = path + (toks,)
+                    ent = self._host_trie.get(p)
+                    if ent is None:
+                        break
+                    promo.append((p, toks, ent))
+                    path = p
         m = len(matched)
         need = self.blocks_needed(prompt_len, max_new_tokens) - m
         # a revived LRU block stops being evictable, so count the match
@@ -273,18 +403,47 @@ class BlockManager:
         st = _SlotAlloc(list(matched), need)
         self._slots[slot] = st
         self._reserved += need
+        if promo:
+            # claim the host entries first: the allocations below may
+            # evict, and an eviction's demotion may make room in the host
+            # tier by dropping a still-listed promotion (freeing the very
+            # payload about to be copied back).  Claimed entries keep their
+            # host ids until on_swap_in has read them.  Promoted blocks are
+            # not fresh: the copy restores an int8 block's scale row
+            for p, _, _ in promo:
+                del self._host_trie[p]
+            pairs: List[Tuple[int, int]] = []
+            parent = matched[-1] if matched else _ROOT
+            for p, toks, (hid, dt) in promo:
+                bid = self._append_block(st)
+                self._fresh.discard(bid)
+                self._dtype[bid] = 1 if dt == "int8" else 0
+                key = (parent, toks)
+                self._trie[key] = bid
+                self._block_key[bid] = key
+                self._block_path[bid] = p
+                if parent != _ROOT:
+                    self._children.setdefault(parent, set()).add(bid)
+                pairs.append((hid, bid))
+                parent = bid
+            if self.on_swap_in is not None:
+                self.on_swap_in(list(pairs))
+            for hid, _ in pairs:
+                self._host.free(hid)
+            self._counts["host_promotions"] += len(pairs)
+        m_blocks = m + len(promo)
         if not chunked:
             # blocks covering positions [0, prompt_len]: the prefill
             # writes the suffix and the first decode step writes position
             # prompt_len
-            for _ in range(prompt_len // bl + 1 - m):
+            for _ in range(prompt_len // bl + 1 - m_blocks):
                 self._append_block(st)
             if self.prefix_cache:
                 self._register_prompt(st.chain, prompt, prompt_len)
-        self._counts["prefix_hit_blocks"] += m
-        self._counts["prefix_hit_tokens"] += m * bl
+        self._counts["prefix_hit_blocks"] += m_blocks
+        self._counts["prefix_hit_tokens"] += m_blocks * bl
         self._note_peak()
-        return m * bl
+        return m_blocks * bl
 
     def register_prompt_upto(self, slot: int, prompt: Sequence[int],
                              upto: int):
@@ -303,18 +462,35 @@ class BlockManager:
                          prompt_len: int):
         """Insert the prompt's FULL blocks into the trie.  The block
         holding position ``prompt_len`` onward is still being written by
-        decode and stays private."""
+        decode and stays private.  A newly registered path's host-trie
+        copy is dropped (a path lives in one tier at a time); a mixed
+        pool demotes each newly registered block (``on_demote``: cold by
+        definition, no writer touches a registered full block again)."""
         bl = self.block_len
         parent = _ROOT
+        path: _Path = ()
+        demoted: List[int] = []
         for b in range(prompt_len // bl):
             bid = chain[b]
-            key = (parent, tuple(prompt[b * bl:(b + 1) * bl]))
+            toks = tuple(prompt[b * bl:(b + 1) * bl])
+            key = (parent, toks)
+            path = path + (toks,)
             if key not in self._trie and bid not in self._block_key:
                 self._trie[key] = bid
                 self._block_key[bid] = key
+                self._block_path[bid] = path
                 if parent != _ROOT:
                     self._children.setdefault(parent, set()).add(bid)
+                if self._host is not None:
+                    ent = self._host_trie.pop(path, None)
+                    if ent is not None:
+                        self._host.free(ent[0])
+                if self.kv_dtype == "mixed" and not self._dtype[bid]:
+                    self._dtype[bid] = 1
+                    demoted.append(bid)
             parent = self._trie.get(key, bid)
+        if demoted and self.on_demote is not None:
+            self.on_demote(list(demoted))
 
     # -- growth / writes ---------------------------------------------------
 
@@ -362,7 +538,8 @@ class BlockManager:
         Returns ``(src, dst)`` physical ids when a copy is needed (the
         caller copies the device block src -> dst), else None.  The fresh
         block is not covered by the admission reservation (COW cannot
-        occur in the append-only engine flow)."""
+        occur in the append-only engine flow); it comes at the pool's
+        default dtype (a mixed pool's private copy is hot)."""
         st = self._slots[slot]
         src = st.chain[logical_block]
         if self._ref[src] <= 1:
@@ -377,48 +554,73 @@ class BlockManager:
 
     # -- retirement / eviction --------------------------------------------
 
+    def _deref(self, bid: int):
+        """Drop one reference to ``bid``: at zero, a registered block parks
+        on the eviction LRU (its content and dtype persist for future
+        hits), an anonymous one returns to the free list at the pool's
+        default dtype."""
+        self._ref[bid] -= 1
+        if self._ref[bid] == 0:
+            if bid in self._block_key:
+                self._lru[bid] = None
+                self._lru.move_to_end(bid)
+            else:
+                self._free.append(bid)
+                self._dtype[bid] = self._default_dtype
+
     def release(self, slot: int):
-        """Retire a slot: drop its references and its unused reservation.
-        Trie-registered blocks that reach refcount 0 park on the eviction
-        LRU; anonymous blocks return to the free list."""
+        """Retire a slot: drop its references and its unused reservation
+        (:meth:`_deref` each block)."""
         st = self._slots.pop(slot)
         self._reserved -= st.reserved_left
         for bid in st.chain:
-            self._ref[bid] -= 1
-            if self._ref[bid] == 0:
-                if bid in self._block_key:
-                    self._lru[bid] = None
-                    self._lru.move_to_end(bid)
-                else:
-                    self._free.append(bid)
+            self._deref(bid)
 
     def _evict_one(self) -> int:
         """Reclaim the LRU cached block, cascading the unregistration
-        through its trie descendants."""
+        through its trie descendants.  With a host tier, the block's
+        content moves to the host first (``on_swap_out``, before the id
+        can go to a new owner), keyed by its token path, unless the tier
+        is full of swap records."""
         if not self._lru:
             raise RuntimeError(
                 "KV block pool exhausted: no free or evictable blocks "
                 "(reservation accounting should have prevented this)")
         bid, _ = self._lru.popitem(last=False)
         self._counts["evictions"] += 1
+        bpath = self._block_path.get(bid)
+        if (self._host is not None and bpath is not None
+                and self._host_make_room(1)):
+            hid = self._host.alloc()
+            if self.on_swap_out is not None:
+                self.on_swap_out([(int(bid), hid)])
+            self._host_trie[bpath] = (hid, self.block_dtype(bid))
+            self._counts["host_demotions"] += 1
         self._unregister_cascade(bid)
+        self._dtype[bid] = self._default_dtype   # the new owner rewrites it
         return bid
 
     def _unregister_cascade(self, bid: int):
         """Drop ``bid``'s trie registration and every descendant's (their
         chain keys dangle once the parent id is reused).  Cached
         descendants move to the free list; live ones just lose their trie
-        entry."""
+        entry.  Host-trie entries strictly below a dropped path can never
+        be reached again and are freed too (the copy AT ``bid``'s own path,
+        just demoted by an eviction, stays)."""
         stack = [bid]
         while stack:
             b = stack.pop()
             key = self._block_key.pop(b, None)
             if key is not None:
                 self._trie.pop(key, None)
+            bpath = self._block_path.pop(b, None)
+            if bpath is not None and self._host is not None:
+                self._host_drop_cascade(bpath)
             stack.extend(self._children.pop(b, ()))
             if b != bid and b in self._lru:
                 del self._lru[b]
                 self._free.append(b)
+                self._dtype[b] = self._default_dtype
 
     def truncate_to(self, slot: int, pos: int):
         """Roll ``slot``'s chain back to cover exactly positions ``[0,
@@ -435,7 +637,7 @@ class BlockManager:
             back, so the prompt's registered blocks lie below the cut);
           * removed blocks are deref'd, not freed outright: a block shared
             with another chain (copy-on-write, an adopted prefix) stays for
-            its other owners;
+            its other owners; a freed one resets to the pool's dtype;
           * each removed block is re-credited to the slot's reservation,
             so later growth over the same positions cannot fail."""
         st = self._slots[slot]
@@ -451,34 +653,214 @@ class BlockManager:
             return
         del st.chain[keep:]
         for bid in removed:
-            self._ref[bid] -= 1
-            if self._ref[bid] == 0:
-                # unregistered above, so never parked on the LRU
-                self._free.append(bid)
+            # unregistered above, so never parked on the LRU
+            self._deref(bid)
         st.reserved_left += len(removed)
         self._reserved += len(removed)
 
-    # -- modes of later slices ---------------------------------------------
+    # -- preemption / host tier (reference kv_cache.py:768-1000) -----------
 
-    def _a66(self, what: str):
-        raise NotImplementedError(
-            f"BlockManager.{what} (preemption / host tier / migration) is "
-            f"ROADMAP A6.6")
+    @property
+    def host_tier(self) -> Optional[HostTier]:
+        """The host tier (None when ``host_blocks == 0``): the engine's
+        swap hooks read and write payloads through it."""
+        return self._host
 
-    def swap_out(self, slot: int):
-        self._a66("swap_out")
+    def host_blocks_used(self) -> int:
+        return self._host.used if self._host is not None else 0
 
-    def resume_swapped(self, slot: int, record):
-        self._a66("resume_swapped")
+    def host_trie_blocks(self) -> int:
+        """Host-tier blocks holding demoted (promotable) trie content; the
+        rest of ``host_blocks_used`` is pinned swap records."""
+        return len(self._host_trie)
 
-    def export_blocks(self, slot: int, read_payload):
-        self._a66("export_blocks")
+    def host_cache_bytes(self) -> int:
+        """Host memory the tier may take: capacity x the model-dtype block
+        bytes (the worst case; payloads keep their own dtype).  Not part
+        of the engine's ``cache_hbm_bytes``."""
+        if self._host is None or not self._block_nbytes:
+            return 0
+        return self._host.capacity * self._block_nbytes.get("bf16", 0)
 
-    def import_blocks(self, slot: int, record, write_payload):
-        self._a66("import_blocks")
+    def private_swap_blocks(self, slot: int) -> int:
+        """How many of ``slot``'s blocks a swap-out would move to the host
+        tier (refcount-1 blocks; shared blocks stay put)."""
+        st = self._slots[slot]
+        return sum(1 for bid in st.chain if self._ref[bid] == 1)
+
+    def host_can_accept(self, n: int) -> bool:
+        """Could the host tier take ``n`` more pinned blocks now, evicting
+        demoted trie entries if it must (swap records are never evicted
+        for other swap records)?"""
+        if self._host is None:
+            return False
+        return self._host.free_slots() + len(self._host_trie) >= n
+
+    def _host_make_room(self, n: int) -> bool:
+        """Ensure ``n`` free host slots by evicting the oldest demoted trie
+        entries (never swap records).  False, evicting nothing, when the
+        tier cannot cover ``n``."""
+        if not self.host_can_accept(n):
+            return False
+        while self._host.free_slots() < n:
+            p, (hid, _) = self._host_trie.popitem(last=False)
+            self._host.free(hid)
+            self._host_drop_cascade(p)
+        return True
+
+    def _host_drop_cascade(self, path: _Path):
+        """Free the host-trie entries strictly below ``path``: with their
+        ancestor gone from both tiers no admission walk reaches them."""
+        if self._host is None or not self._host_trie:
+            return
+        k = len(path)
+        for p in [p for p in self._host_trie
+                  if len(p) > k and p[:k] == path]:
+            hid, _ = self._host_trie.pop(p)
+            self._host.free(hid)
+
+    def swap_out(self, slot: int) -> Optional[Dict[str, object]]:
+        """Preempt ``slot``: tear down its allocation, moving every PRIVATE
+        block (refcount 1) to a pinned host payload and keeping this slot's
+        reference on every SHARED block, so the chain survives its other
+        owners' releases.  Returns the resume record for
+        :meth:`resume_swapped` — ``entries``, the chain in order, each
+        ``("hbm", bid)`` (reference kept) or ``("host", hid, dtype)`` —
+        or None when the host tier cannot take the private blocks even
+        after evicting every demoted trie entry (the caller recomputes or
+        skips the victim).  A swapped chain serves no prefix hit until it
+        is resumed."""
+        st = self._slots[slot]
+        n_priv = sum(1 for bid in st.chain if self._ref[bid] == 1)
+        if not self._host_make_room(n_priv):
+            return None
+        st = self._slots.pop(slot)
+        reserved_left = st.reserved_left
+        self._reserved -= reserved_left
+        entries: List[Tuple] = []
+        pairs: List[Tuple[int, int]] = []
+        for bid in st.chain:
+            if self._ref[bid] > 1:
+                entries.append(("hbm", int(bid)))
+                continue
+            if bid in self._block_key:
+                # the id is about to be freed: its trie entry (and its
+                # descendants') would dangle
+                self._unregister_cascade(bid)
+            hid = self._host.alloc()
+            entries.append(("host", hid, self.block_dtype(bid)))
+            pairs.append((int(bid), hid))
+            self._ref[bid] = 0
+            self._free.append(bid)
+            self._dtype[bid] = self._default_dtype
+        if pairs:
+            if self.on_swap_out is not None:
+                self.on_swap_out(list(pairs))
+            self._counts["swapped_out_blocks"] += len(pairs)
+        self._fresh.difference_update(b for b, _ in pairs)
+        return {"entries": entries, "reserved_left": int(reserved_left)}
+
+    def resume_swapped(self, slot: int, record: Dict[str, object]
+                       ) -> Optional[int]:
+        """Rebuild a swapped-out chain into (free) ``slot``: a fresh device
+        block for each ``host`` entry (payload copied back through
+        ``on_swap_in``, host payload freed), each ``hbm`` entry re-adopted
+        (its reference was never dropped), the remaining reservation
+        re-armed.  Returns the chain length, or None when the pool cannot
+        cover the host blocks and the reservation yet (the caller keeps the
+        record)."""
+        if slot in self._slots:
+            raise ValueError(f"slot {slot} already has an allocation")
+        entries = record["entries"]
+        reserved = int(record["reserved_left"])
+        n_host = sum(1 for e in entries if e[0] == "host")
+        if self._available() < n_host + reserved:
+            return None
+        chain: List[int] = []
+        pairs: List[Tuple[int, int]] = []
+        for e in entries:
+            if e[0] == "hbm":
+                chain.append(int(e[1]))
+                continue
+            _, hid, dt = e
+            bid = self._pop_block()
+            self._ref[bid] = 1
+            self._dtype[bid] = 1 if dt == "int8" else 0
+            chain.append(bid)
+            pairs.append((hid, int(bid)))
+        self._slots[slot] = _SlotAlloc(chain, reserved)
+        self._reserved += reserved
+        if pairs:
+            if self.on_swap_in is not None:
+                self.on_swap_in(list(pairs))
+            for hid, _ in pairs:
+                self._host.free(hid)
+            self._counts["swapped_in_blocks"] += len(pairs)
+        self._note_peak()
+        return len(chain)
+
+    def drop_swap_record(self, record: Dict[str, object]):
+        """Cancel a swapped-out request: free the record's host payloads
+        and drop the references it kept on shared blocks (:meth:`_deref`,
+        as a release does)."""
+        for e in record["entries"]:
+            if e[0] == "hbm":
+                self._deref(int(e[1]))
+            else:
+                self._host.free(e[1])
+
+    def export_blocks(self, slot: int, read_payload) -> Dict[str, object]:
+        """Serialise ``slot``'s chain for migration into ANOTHER pool: one
+        entry a block, in chain order, with its dtype tag and the payload
+        ``read_payload(bid)`` returns (the engine reads every cache leaf's
+        block, an int8 block's scale row included).  By value and
+        read-only: the source chain stays live until the caller releases
+        it."""
+        st = self._slots[slot]
+        entries: List[Dict[str, object]] = [
+            {"dtype": self.block_dtype(bid),
+             "payload": read_payload(int(bid))} for bid in st.chain]
+        self._counts["exported_blocks"] += len(entries)
+        return {"entries": entries,
+                "reserved_left": int(st.reserved_left),
+                "block_len": int(self.block_len)}
+
+    def import_blocks(self, slot: int, record: Dict[str, object],
+                      write_payload) -> Optional[int]:
+        """Materialise an exported chain into (free) ``slot`` of THIS pool:
+        a device block an entry with its dtype tag, its payload handed to
+        ``write_payload(bid, payload)``, the remaining reservation
+        re-armed.  Returns the chain length, or None when the pool cannot
+        cover the blocks and the reservation now.  Imported blocks are not
+        fresh: their scale rows arrive in the payload."""
+        if slot in self._slots:
+            raise ValueError(f"slot {slot} already has an allocation")
+        if int(record.get("block_len", self.block_len)) != self.block_len:
+            raise ValueError(
+                f"block_len mismatch: record has "
+                f"{record.get('block_len')}, pool has {self.block_len}")
+        entries = record["entries"]
+        reserved = int(record["reserved_left"])
+        if self._available() < len(entries) + reserved:
+            return None
+        chain: List[int] = []
+        for e in entries:
+            bid = self._pop_block()
+            self._ref[bid] = 1
+            self._dtype[bid] = 1 if e["dtype"] == "int8" else 0
+            write_payload(int(bid), e["payload"])
+            chain.append(bid)
+        self._slots[slot] = _SlotAlloc(chain, reserved)
+        self._reserved += reserved
+        self._counts["imported_blocks"] += len(chain)
+        self._note_peak()
+        return len(chain)
 
     def preempt_free(self, slot: int):
-        self._a66("preempt_free")
+        """Recompute-mode preemption: :meth:`release` — registered prompt
+        blocks park on the LRU, so the victim's re-prefill adopts whatever
+        survives the pressure through the trie (or the host tier)."""
+        self.release(slot)
 
     # -- table export ------------------------------------------------------
 

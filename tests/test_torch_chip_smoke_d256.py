@@ -3,12 +3,12 @@ narrow width, in a file of its own so that a parallel run puts it on a
 worker of its own (``--dist loadfile`` keeps a file on one worker)."""
 
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, load_chip_smoke,
-                                  recorder)
+                                  one_thread, recorder)
 
 chip_smoke = load_chip_smoke()
 
 
-def test_training_d256_rehearsed_on_the_cpu(monkeypatch):
+def test_training_d256_rehearsed_on_the_cpu(monkeypatch, one_thread):
     """training_d256 end to end on the CPU at a narrow width (2 layers, 8
     heads of 256 over one KV head, vocab 512, 4 x 64 tokens): the gradient
     gate and the 8 steps run, the losses fall, and only the checks that

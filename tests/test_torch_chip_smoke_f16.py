@@ -3,7 +3,8 @@ width, in a file of its own so that a parallel run puts it on a worker of
 its own (``--dist loadfile`` keeps a file on one worker)."""
 
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, cpu_engine,
-                                  load_chip_smoke, recorder, short_prompts)
+                                  load_chip_smoke, one_thread, recorder,
+                                  short_prompts)
 
 chip_smoke = load_chip_smoke()
 
@@ -14,7 +15,7 @@ NARROW = dict(vocab_size=512, hidden_size=512, intermediate_size=256,
               num_key_value_heads=4)
 
 
-def test_serving_f16_rehearsed_on_the_cpu(monkeypatch):
+def test_serving_f16_rehearsed_on_the_cpu(monkeypatch, one_thread):
     """serving_f16 end to end on the CPU at a narrow float16 width (head_dim
     128, G 1) on serving_f32's traffic cut short: the four engines, the
     chunked engine, ``generate``, the int8-weight engine and its

@@ -3,7 +3,7 @@ width, in a file of its own so that a parallel run puts it on a worker of
 its own (``--dist loadfile`` keeps a file on one worker)."""
 
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, load_chip_smoke,
-                                  recorder)
+                                  one_thread, recorder)
 
 chip_smoke = load_chip_smoke()
 
@@ -12,7 +12,7 @@ NARROW = dict(vocab_size=512, hidden_size=256, intermediate_size=256,
               num_attention_heads=2, num_key_value_heads=2)
 
 
-def test_training_f16_rehearsed_on_the_cpu(monkeypatch):
+def test_training_f16_rehearsed_on_the_cpu(monkeypatch, one_thread):
     """training_f16 end to end on the CPU at a narrow width (2 layers, 2
     heads of 128, vocab 512, 4 x 64 tokens): O2 float16 through
     ``amp.decorate`` and a GradScaler at 2^15, the gradient gate, the 8

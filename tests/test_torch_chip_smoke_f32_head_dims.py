@@ -4,12 +4,13 @@ parallel run puts them on a worker of their own (``--dist loadfile`` keeps
 a file on one worker)."""
 
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, cpu_engine,
-                                  load_chip_smoke, recorder, short_prompts)
+                                  load_chip_smoke, one_thread, recorder,
+                                  short_prompts)
 
 chip_smoke = load_chip_smoke()
 
 
-def test_serving_f32_tinyllama_rehearsed_on_the_cpu(monkeypatch):
+def test_serving_f32_tinyllama_rehearsed_on_the_cpu(monkeypatch, one_thread):
     """serving_f32_tinyllama end to end on the CPU at a narrow float32
     width (2 layers, 8 heads of 64 over one KV head, vocab 512) on
     serving_f32's traffic cut short (8 requests of 5..188 tokens, 4 sharing
@@ -53,7 +54,7 @@ def test_serving_f32_tinyllama_rehearsed_on_the_cpu(monkeypatch):
     assert all("launches" in r for r in kernels.values())
 
 
-def test_training_f32_d256_rehearsed_on_the_cpu(monkeypatch):
+def test_training_f32_d256_rehearsed_on_the_cpu(monkeypatch, one_thread):
     """training_f32_d256 end to end on the CPU at a narrow float32 width (2
     layers, 8 heads of 256 over one KV head, vocab 512, 4 x 64 tokens): the
     float32 gradient gate and TRAIN_F32_STEPS steps run, the losses fall,

@@ -3,12 +3,13 @@ narrow width, in a file of its own so that a parallel run puts it on a
 worker of its own (``--dist loadfile`` keeps a file on one worker)."""
 
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, cpu_engine,
-                                  load_chip_smoke, recorder, short_prompts)
+                                  load_chip_smoke, one_thread, recorder,
+                                  short_prompts)
 
 chip_smoke = load_chip_smoke()
 
 
-def test_serving_tinyllama_rehearsed_on_the_cpu(monkeypatch):
+def test_serving_tinyllama_rehearsed_on_the_cpu(monkeypatch, one_thread):
     """serving_tinyllama end to end on the CPU at a narrow width (2 layers,
     8 heads of 64 over one KV head, vocab 512) on serving_f32's traffic
     cut short (8 requests of 5..188 tokens, 4 sharing a 128-token prompt,

@@ -12,17 +12,24 @@ against the JAX package's, on the CPU.
    alphabet to depth 6) on a 4-block pool against an
    independent reference model of the documented semantics, with the
    allocator's invariants asserted at every state (chunked admission is
-   replayed in section 1, rollback in section 4; the demotion and tiering
-   ops of the reference's alphabet belong to later slices and are left
-   out).
+   replayed in section 1, rollback in section 4, the demotion and tiering
+   ops of the reference's alphabet against the JAX manager in section
+   5).
 3. The directed scenarios of that checker (eviction cascade, COW
-   overdraw, null-block table guard) and the unported items' errors.
+   overdraw, null-block table guard) and the former stubs of the tiers,
+   each a working call against the JAX manager's.
 4. ``truncate_to``, the speculative rollback: section 1's replay with
    rollbacks at random positions mixed in, the chains, refcounts, free
    list, LRU, trie and reservations equal to the JAX manager's after every
    op (exact), and a directed case (shared blocks past the cut survive for
    their other owner, the cut's block leaves the trie, the reservation is
    re-credited).
+
+5. The memory tiers: section 1's replay with swap-out, resume, dropped
+   swap records, recompute preemption and export / import mixed in, on a
+   bf16, mixed or int8 pool with a host tier of a few blocks; the dtype
+   tags, the host trie, the host ids and the hooks' calls equal the JAX
+   manager's after every op.
 
 Chunked admission (``admit(chunked=True)`` and ``register_prompt_upto``)
 is replayed against the JAX manager in section 1, with the pool's
@@ -38,6 +45,10 @@ from paddle_tpu_torch.serving.kv_cache import NULL_BLOCK, BlockManager
 
 STATS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens",
          "evictions", "cow_copies", "peak_blocks_in_use")
+TIER_STATS = STATS + ("quantized_blocks", "host_demotions",
+                      "host_promotions", "swapped_out_blocks",
+                      "swapped_in_blocks", "exported_blocks",
+                      "imported_blocks")
 
 
 # ---- 1. replay against the JAX BlockManager ------------------------------------
@@ -146,7 +157,7 @@ def test_int8_replay_matches_jax_block_manager(seed):
     assert port.stats["cow_copies"] > 0 and port.stats["evictions"] > 0
 
 
-def _pool_invariants(mgr, cursors, ctx):
+def _pool_invariants(mgr, cursors, ctx, held=()):
     """The allocator's invariants, the chunked contract's among them:
     the usable pool is partitioned into free, referenced and LRU blocks;
     refcounts are the live chains'; the trie is a bijection whose blocks
@@ -162,6 +173,8 @@ def _pool_invariants(mgr, cursors, ctx):
     for st in mgr._slots.values():
         for bid in st.chain:
             counts[bid] += 1
+    for bid in held:                  # references swap records keep
+        counts[bid] += 1
     assert (counts == mgr._ref).all(), ctx
     assert mgr._trie == {k: b for b, k in mgr._block_key.items()}, ctx
     assert not (set(mgr._block_key) & free), ctx
@@ -608,19 +621,37 @@ def test_table_row_rejects_null_block_in_live_chain():
 
 
 def test_unported_items_raise():
-    with pytest.raises(NotImplementedError, match="A6.6"):
-        BlockManager(5, 2, host_blocks=3)
-    with pytest.raises(NotImplementedError, match="A6.4b"):
-        BlockManager(5, 2, kv_dtype="mixed")
-    mgr = BlockManager(5, 2)
-    assert mgr.admit(0, [1, 2, 3], 3, 1) == 0
-    for call, item in ((lambda: mgr.swap_out(0), "A6.6"),
-                       (lambda: mgr.resume_swapped(0, {}), "A6.6"),
-                       (lambda: mgr.export_blocks(0, None), "A6.6"),
-                       (lambda: mgr.import_blocks(0, {}, None), "A6.6"),
-                       (lambda: mgr.preempt_free(0), "A6.6")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    """The host tier (ROADMAP A3) and the mixed pool (A2) are ported: both
+    managers build, and each former stub is a working call — swap_out,
+    resume_swapped, export_blocks, import_blocks, preempt_free — with the
+    same results, hook calls and dtype tags as the JAX manager's."""
+    seen = []
+    for cls in (BlockManager, JaxBlockManager):
+        mgr = cls(5, 2, host_blocks=3, kv_dtype="mixed")
+        calls = []
+        mgr.on_demote = lambda b, c=calls: c.append(("demote", list(b)))
+        mgr.on_swap_out = lambda p, c=calls: c.append(("out", list(p)))
+        mgr.on_swap_in = lambda p, c=calls: c.append(("in", list(p)))
+        out = [mgr.admit(0, [1, 2, 3], 3, 1)]
+        rec = mgr.swap_out(0)
+        out += [rec, mgr.host_blocks_used(), mgr.blocks_in_use()]
+        out += [mgr.resume_swapped(0, rec), mgr.chain(0),
+                [mgr.block_dtype(b) for b in mgr.chain(0)]]
+        exp = mgr.export_blocks(0, lambda bid: ("payload", bid))
+        out += [exp]
+        mgr.preempt_free(0)
+        out += [mgr.blocks_in_use(), mgr.cached_blocks()]
+        written = []
+        out += [mgr.import_blocks(1, exp,
+                                  lambda bid, p: written.append((bid, p))),
+                written, mgr.chain(1),
+                [mgr.block_dtype(b) for b in mgr.chain(1)]]
+        out += [{k: mgr.stats[k] for k in TIER_STATS}]
+        seen.append((out, calls))
+    assert seen[0] == seen[1]
+    out, calls = seen[0]
+    assert out[0] == 0 and out[2] == 2 and out[3] == 0
+    assert ("demote", [1]) in calls and out[6] == ["int8", "bf16"]
 
 
 # ---- 4. truncate_to (speculative rollback) against the JAX BlockManager ----
@@ -706,3 +737,149 @@ def test_truncate_unregisters_from_the_cut_and_spares_shared_blocks():
         mgr.release(0)
         mgr.release(1)
         assert mgr.blocks_in_use() == 0
+
+
+# ---- 5. the memory tiers against the JAX BlockManager --------------------------
+
+def _tier_state(mgr, n_slots, max_blocks):
+    """Everything the tiers touch, beside section 4's state: the dtype tags,
+    the host trie (path -> host id, dtype), the live host ids, the device
+    blocks' token paths and every counter."""
+    host = mgr.host_tier
+    return {**_state(mgr, n_slots, max_blocks),
+            "dtype": mgr._dtype.tolist(),
+            "host_trie": list(mgr._host_trie.items()),
+            "host_live": sorted(host._live) if host is not None else None,
+            "block_path": dict(mgr._block_path),
+            "stats": {k: mgr.stats[k] for k in TIER_STATS}}
+
+
+def _tier_ops(seed, n_ops, n_slots, bl):
+    """Section 1's ops plus the tiers' alphabet: swap-out of a live slot,
+    resume of a parked record into a free slot, drop of a parked record,
+    recompute preemption, and export of a live slot with its import into
+    a free one."""
+    rng = np.random.default_rng(seed)
+    base = _random_ops(seed, n_ops, n_slots, bl)
+    ops = []
+    for op in base:
+        r = rng.random()
+        slot = int(rng.integers(0, n_slots))
+        if r < 0.12:
+            ops.append(("swap", slot))
+        elif r < 0.24:
+            ops.append(("resume", slot, int(rng.integers(0, 4))))
+        elif r < 0.28:
+            ops.append(("drop", int(rng.integers(0, 4))))
+        elif r < 0.34:
+            ops.append(("preempt", slot))
+        elif r < 0.40:
+            ops.append(("export", slot, int(rng.integers(0, n_slots))))
+        else:
+            ops.append(op)
+    return ops
+
+
+def _apply_tier(mgr, op, live, parked):
+    """One op where it is legal (``live``: slot -> last writable position;
+    ``parked``: swap records awaiting resume, with that position)."""
+    kind = op[0]
+    if kind == "swap":
+        if op[1] not in live:
+            return "skip"
+        rec = mgr.swap_out(op[1])
+        if rec is not None:
+            parked.append((rec, live.pop(op[1])))
+        return rec
+    if kind == "resume":
+        if op[1] in live or not parked:
+            return "skip"
+        rec, last = parked[op[2] % len(parked)]
+        got = mgr.resume_swapped(op[1], rec)
+        if got is not None:
+            parked.remove((rec, last))
+            live[op[1]] = last
+        return got
+    if kind == "drop":
+        if not parked:
+            return "skip"
+        rec, last = parked.pop(op[1] % len(parked))
+        mgr.drop_swap_record(rec)
+        return None
+    if kind == "preempt":
+        if op[1] not in live:
+            return "skip"
+        mgr.preempt_free(op[1])
+        del live[op[1]]
+        return None
+    if kind == "export":
+        src, dst = op[1], op[2]
+        if src not in live or dst in live:
+            return "skip"
+        rec = mgr.export_blocks(src, lambda bid: bid)
+        written = []
+        got = mgr.import_blocks(dst, rec,
+                                lambda bid, p: written.append((bid, p)))
+        if got is not None:
+            live[dst] = live[src]
+        return rec, got, written
+    return _apply(mgr, op, live)
+
+
+@pytest.mark.parametrize("kv_dtype,host_blocks", [
+    ("bf16", 3), ("mixed", 3), ("mixed", 0), ("int8", 4)])
+@pytest.mark.parametrize("seed", [0, 2])
+def test_tier_replay_matches_jax_block_manager(seed, kv_dtype, host_blocks):
+    """Section 1's replay with the tiers' ops mixed in, on a mixed, bf16
+    or int8 pool with a host tier of a few blocks (so swap records and
+    demoted prefix blocks compete for it): after every op the results, the
+    hooks' calls (demotions, swap-outs, swap-ins, in order), the chains,
+    refcounts, free list, LRU, trie, reservations, dtype tags, host trie
+    and host ids equal the JAX manager's, and the pool's invariants
+    hold."""
+    bl, nb, n_slots, max_blocks = 4, 14, 4, 16
+    mgrs = [cls(nb, bl, kv_dtype=kv_dtype, host_blocks=host_blocks)
+            for cls in (BlockManager, JaxBlockManager)]
+    calls = [[], []]
+    for mgr, c in zip(mgrs, calls):
+        mgr.set_block_nbytes({"bf16": 8, "int8": 5})
+        mgr.on_demote = lambda b, c=c: c.append(("demote", list(b)))
+        mgr.on_swap_out = lambda p, c=c: c.append(("out", list(p)))
+        mgr.on_swap_in = lambda p, c=c: c.append(("in", list(p)))
+    live = [{}, {}]
+    parked = [[], []]
+    kinds = set()
+    for i, op in enumerate(_tier_ops(seed, 400, n_slots, bl)):
+        got = _apply_tier(mgrs[0], op, live[0], parked[0])
+        want = _apply_tier(mgrs[1], op, live[1], parked[1])
+        assert got == want, (i, op, got, want)
+        if got != "skip":
+            kinds.add(op[0])
+        if op[0] == "admit" and got not in ("skip", None):
+            for lv in live:
+                lv[op[1]] = len(op[2]) + op[3]
+        elif op[0] == "release" and got != "skip":
+            for lv in live:
+                del lv[op[1]]
+        assert calls[0] == calls[1], i
+        assert _tier_state(mgrs[0], n_slots, max_blocks) == _tier_state(
+            mgrs[1], n_slots, max_blocks), i
+        assert mgrs[0].stats["bytes_by_dtype"] == {
+            "bf16": 8 * (mgrs[0]._live_mask().sum()
+                         - mgrs[0].quantized_blocks()),
+            "int8": 5 * mgrs[0].quantized_blocks()}, i
+        assert (mgrs[0].host_blocks_used(), mgrs[0].host_trie_blocks(),
+                mgrs[0].host_cache_bytes()) == (
+            mgrs[1].host_blocks_used(), mgrs[1].host_trie_blocks(),
+            mgrs[1].host_cache_bytes()), i
+        _pool_invariants(mgrs[0], {}, i, held=[
+            e[1] for rec, _ in parked[0] for e in rec["entries"]
+            if e[0] == "hbm"])
+    port = mgrs[0]
+    assert {"swap", "export", "preempt"} <= kinds, kinds
+    if kv_dtype == "mixed":
+        assert any(c[0] == "demote" for c in calls[0])
+    if host_blocks:
+        assert "resume" in kinds and port.stats["swapped_out_blocks"] > 0
+        assert port.stats["host_demotions"] > 0
+        assert port.stats["host_promotions"] > 0

@@ -104,37 +104,61 @@ def test_rejections(pair):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"paged": True, "preempt": "swap", "host_blocks": 4}, "A6.6"),
+    ({"paged": True, "block_len": 8, "preempt": "swap", "host_blocks": 4},
+     "A3"),
     ({"chunked": True, "spec_decode": True}, "A6.3"),
     ({"spec_decode": True}, "A6.3"),
-    ({"paged": True, "kv_cache_dtype": "mixed"}, "A6.4"),
-    ({"chunked": True, "kv_cache_dtype": "mixed", "paged": True}, "A6.4"),
-    ({"preempt": "swap"}, "A6.6"),
-    ({"mesh": "mp2dp2"}, "A9")])
+    ({"paged": True, "block_len": 8, "kv_cache_dtype": "mixed"}, "A2"),
+    ({"chunked": True, "kv_cache_dtype": "mixed", "paged": True,
+      "block_len": 8}, "A2"),
+    ({"preempt": "swap"}, "paged"),
+    ({"mesh": "mp2dp2"}, "A8")])
 def test_unported_modes_raise(pair, kw, item):
-    """Each configuration of a later ROADMAP item raises, naming it.  A6.3
-    (speculative decode) is ported since: its configurations, wave and
-    chunked, build the speculative engine instead."""
+    """Only a mesh (ROADMAP A8) still raises, naming its item.  Speculative
+    decode (A6.3), the mixed pool (A2) and preemption with the host tier
+    (A3) are ported since: their configurations build their engines, with
+    the step built once; preemption without the paged cache raises the
+    reference's ``ValueError``."""
     _, tm = pair
-    if item == "A6.3":
-        eng = ServingEngine(tm, num_slots=2, max_length=MAXLEN,
-                            device="cpu", **kw)
-        assert eng.spec and eng.step_traces == 1
+    if item == "paged":
+        with pytest.raises(ValueError, match="paged"):
+            ServingEngine(tm, num_slots=2, max_length=MAXLEN, device="cpu",
+                          **kw)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(tm, num_slots=2, max_length=MAXLEN, device="cpu", **kw)
+    if item == "A8":
+        with pytest.raises(NotImplementedError, match=item):
+            ServingEngine(tm, num_slots=2, max_length=MAXLEN, device="cpu",
+                          **kw)
+        return
+    eng = ServingEngine(tm, num_slots=2, max_length=MAXLEN, device="cpu",
+                        **kw)
+    assert eng.step_traces == 1
+    if item == "A6.3":
+        assert eng.spec
+    elif item == "A2":
+        assert eng.kv.kv_dtype == "mixed" and eng.demote_traces == 1
+    else:
+        assert eng.preempt == "swap" and eng.kv.host_tier.capacity == 4
 
 
 def test_unported_flag_raises(pair):
-    """A serving flag whose value selects an unported mode raises, naming
-    its ROADMAP item (the mixed bf16/int8 pool, A6.4b)."""
+    """The mixed bf16/int8 pool (ROADMAP A2) is ported: the flag
+    ``serving_kv_cache_dtype="mixed"`` builds a paged mixed engine, and
+    the flags ``serving_preempt`` / ``serving_host_blocks`` a preempting
+    one."""
     _, tm = pair
-    flags.set_flags({"serving_kv_cache_dtype": "mixed"})
+    flags.set_flags({"serving_kv_cache_dtype": "mixed",
+                     "serving_preempt": "swap", "serving_host_blocks": 3})
     try:
-        with pytest.raises(NotImplementedError, match="A6.4b"):
-            ServingEngine(tm, max_length=MAXLEN, device="cpu", paged=True)
+        eng = ServingEngine(tm, max_length=MAXLEN, device="cpu", paged=True,
+                            block_len=8)
     finally:
-        flags.set_flags({"serving_kv_cache_dtype": "bf16"})
+        flags.set_flags({"serving_kv_cache_dtype": "bf16",
+                         "serving_preempt": "off",
+                         "serving_host_blocks": 0})
+    assert eng.kv.kv_dtype == "mixed" and not eng.quantized
+    assert eng.preempt == "swap" and eng.kv.host_tier.capacity == 3
+    assert eng._cache.dtype == tm.config.torch_dtype
 
 
 def test_chunked_flag_selects_the_chunked_engine(pair, jax_outputs):

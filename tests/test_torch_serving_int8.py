@@ -190,10 +190,17 @@ def test_int8_flags_select_the_int8_engine(pair):
 
 
 def test_mixed_and_unknown_dtypes_raise(pair):
+    """The mixed pool builds on the paged cache (a model-dtype pool, the
+    demote op built once); contiguous it raises the reference's
+    ``ValueError``, as an unknown dtype does."""
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="A6.4b"):
-        ServingEngine(tm, num_slots=2, max_length=MAXLEN, paged=True,
-                      block_len=BL, kv_cache_dtype="mixed", device="cpu")
+    eng = ServingEngine(tm, num_slots=2, max_length=MAXLEN, paged=True,
+                        block_len=BL, kv_cache_dtype="mixed", device="cpu")
+    assert eng.kv.kv_dtype == "mixed" and eng.demote_traces == 1
+    assert eng._cache.dtype == tm.config.torch_dtype
+    with pytest.raises(ValueError, match="paged"):
+        ServingEngine(tm, num_slots=2, max_length=MAXLEN,
+                      kv_cache_dtype="mixed", device="cpu")
     with pytest.raises(ValueError):
         ServingEngine(tm, num_slots=2, max_length=MAXLEN,
                       kv_cache_dtype="fp8", device="cpu")

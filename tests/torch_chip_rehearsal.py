@@ -7,6 +7,7 @@ takes the plain versions, eagerly)."""
 import importlib.util
 from pathlib import Path
 
+import pytest
 import torch
 
 
@@ -50,6 +51,18 @@ class TorchOnCpu:
 # checks (the CPU runs the plain versions, eagerly)
 CARD_ONLY = ("graph", "launch", "replays", "plain route", "RMSNorm kernel",
              "attention kernels off")
+
+
+@pytest.fixture
+def one_thread():
+    """The rehearsal on one intra-op thread: its tensors are small, and in
+    a parallel run (six workers on the host's cores) workers that each
+    take every core oversubscribe them, a rehearsal then running several
+    times longer than alone.  The thread count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def recorder():
