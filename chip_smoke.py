@@ -202,7 +202,11 @@ non-zero.  Phases:
                  contiguous chunk through the identity view), the decode
                  kernel 32 a tick, no other attention kernel, no plain
                  route (K4 as in 4c with int8 weights); reported: tok/s,
-                 TTFT, TPOT, ``mixed_step_ms`` and ``decode_step_ms``,
+                 TTFT, TPOT, ``mixed_step_ms``, ``decode_step_ms`` and
+                 ``decode_tick_ms`` (every serving line: the host time of
+                 each ``step()`` that ran one decode tick, exact; the
+                 engine's ``*_ms`` are its registry histograms' bucket
+                 readouts),
                  and how many requests' tokens equal the wave phase's;
   4h-4k. speculative decode (``spec_decode=True, spec_k=4``), each with
                  its eager twin: 4h ``serving_spec`` (phase 4's engine
@@ -265,6 +269,24 @@ non-zero.  Phases:
                  against CPU (``model_tiny_f32_tiers``: tokens and
                  decisions equal); swap bytes, the host tier's pinned
                  bytes, one block's swap-out / swap-in ms, TTFT and TPOT;
+  4n. observability — builds nothing: reads what the observability layer
+                 recorded of 4b, 4c and 4m's swap run (each serving run
+                 resets the registry, tracer and request log first, so
+                 no metric family nears its label cap).  Gates: the
+                 registry's ``ops.kernel_path`` holds the kernel routes of
+                 K1-paged, K2-paged, RMSNorm (4c: int8, and K4) and no
+                 plain route; every 4b request's events in the order
+                 admitted < prefill < first_token < retired, its
+                 timelines equal to the eager twin's; every swap victim's
+                 preempted < swapped_out < swapped_in < resumed <
+                 retired, ``kv_cache.swapped_out_blocks`` equal to the
+                 engine's count and to the blocks swapped in;
+                 ``metrics()`` equal to the registry's series; the cost
+                 model on the ``h100`` profile, its bounds partitioning
+                 the decode ticks, a swap term > 0 in the swap run; the
+                 4b Chrome trace parsed back with one ``serving.decode``
+                 span a decode tick.  Reported: measured / predicted tick
+                 ratio p50 / p90, drift findings, the phase's seconds;
   generate.    — phase 3's Llama-3-8B model (bf16, 32 layers) through
                  ``generate``: greedy (B 4, prompt 128, 64 new tokens),
                  sampled (temperature 0.8, top_k 50, top_p 0.9), beam
@@ -697,9 +719,18 @@ T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line.  A phase line closes a unit of work: the
+    observability layer is reset after it, so the next unit starts from
+    an empty registry, tracer and request log and no metric family nears
+    its label cap (FLAGS_metrics_max_children), however many engines the
+    script builds; what a later phase reads of a run was captured when the
+    run drained (:func:`obs_capture`)."""
     if "phase" in obj:
         obj = dict(obj, t_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        from paddle_tpu_torch import observability
+        observability.reset()
 
 
 class CheckFailed(RuntimeError):
@@ -713,7 +744,18 @@ def check(cond: bool, what: str) -> None:
 
 # -- timing ---------------------------------------------------------------------
 
-def time_ms(torch, fns, budget_ms: float = 300.0) -> float:
+# phase 2's timing loops, sized so the whole script ends within 900 s on a
+# slow host (identical trees ran 849.5 and 983.4 s on two hosts with 300 /
+# 100 / 100 ms, 5 calls and 40-call windows): a timed run spends about its
+# budget in calls, at least MIN_TIMED_CALLS and at most 200 of them
+TIME_BUDGET_MS = 60.0           # a kernel or a library call
+PLAIN_BUDGET_MS = 40.0          # a plain version (slow: often the minimum)
+HOST_BUDGET_MS = 40.0           # the host's enqueue time
+MIN_TIMED_CALLS = 3
+DEVICE_CALLS = 20               # calls in a profiler window
+
+
+def time_ms(torch, fns, budget_ms: float = TIME_BUDGET_MS) -> float:
     """Mean time of one call, by CUDA events around a run of calls: the
     device time, or the host's enqueue time where the host is slower.
     ``fns`` is a list of closures over different input copies, cycled so a
@@ -724,7 +766,7 @@ def time_ms(torch, fns, budget_ms: float = 300.0) -> float:
 
 def host_ms(torch, fns) -> float:
     """Mean host time to enqueue one call (Python + launch), same loop."""
-    return _time(torch, fns, 100.0)[1]
+    return _time(torch, fns, HOST_BUDGET_MS)[1]
 
 
 def _time(torch, fns, budget_ms):
@@ -734,7 +776,7 @@ def _time(torch, fns, budget_ms):
     fns[0]()
     torch.cuda.synchronize()
     est = max((time.perf_counter() - t0) * 1e3, 1e-3)
-    iters = int(min(200, max(5, budget_ms / est)))
+    iters = int(min(200, max(MIN_TIMED_CALLS, budget_ms / est)))
     for f in fns:
         f()
     start = torch.cuda.Event(enable_timing=True)
@@ -768,7 +810,7 @@ def kernel_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def device_ms(torch, fns, n: int = 40) -> float:
+def device_ms(torch, fns, n: int = DEVICE_CALLS) -> float:
     """Device time of one call by the profiler (CUPTI): the sum of the
     kernels' device times over ``n`` calls, over ``n``; 0.0 if three
     profiler windows in a row recorded no kernel."""
@@ -1141,7 +1183,7 @@ def backward_rows(torch, record, tols, sets, kw, keep, tag, extra, lib_mask,
         plain_ms = time_ms(torch, [
             lambda t=t: flash_attention_bwd_reference(
                 t[0], t[1], t[2], t[5], t[6], t[3], t[4], **kw)
-            for t in sets], budget_ms=100.0)
+            for t in sets], budget_ms=PLAIN_BUDGET_MS)
     # SDPA's backward alone: one untimed forward a set, then the backward
     # is timed on the retained graph
     graphs = []
@@ -1414,7 +1456,7 @@ def phase_kernels(torch):
         with reference_mode():
             plain_ms = time_ms(torch, [
                 lambda t=t: flash_attention(*t, causal=causal) for t in sets],
-                budget_ms=100.0)
+                budget_ms=PLAIN_BUDGET_MS)
         mask = None if (sq == skv or not causal) else keep[:, None]
         lib_ms = time_ms(torch, [
             lambda t=t: TF.scaled_dot_product_attention(
@@ -1520,7 +1562,7 @@ def phase_kernels(torch):
             with reference_mode():
                 plain_ms = time_ms(torch, [
                     lambda t=t: flash_attention(t[0], t[1], t[2], **kw)
-                    for t in sets], budget_ms=100.0)
+                    for t in sets], budget_ms=PLAIN_BUDGET_MS)
             lfns = [lambda t=t: TF.scaled_dot_product_attention(
                 t[0].transpose(1, 2), t[1].transpose(1, 2),
                 t[2].transpose(1, 2), attn_mask=lib_mask, enable_gqa=True)
@@ -1625,7 +1667,7 @@ def phase_kernels(torch):
             plain_ms = time_ms(torch, [
                 lambda t=t: cached_decode_attention(*t, pos,
                                                     block_tables=tables)
-                for t in sets], budget_ms=100.0)
+                for t in sets], budget_ms=PLAIN_BUDGET_MS)
         L = mb * bl
         idx = tables.long()
         gathered = [(t[0], t[1][idx].reshape(b, L, hkv, d),
@@ -1704,7 +1746,7 @@ def phase_kernels(torch):
                                                          True)
         kfns = [lambda t=t: run(t) for t in sets]
         with reference_mode():
-            plain_ms = time_ms(torch, kfns, budget_ms=100.0)
+            plain_ms = time_ms(torch, kfns, budget_ms=PLAIN_BUDGET_MS)
         deq = [(t[0], (t[1].float().view(b, n_gran, gr, hkv, d)
                        * t[3][:, :, None, :, None]).view(b, L, hkv, d).to(dt),
                 (t[2].float().view(b, n_gran, gr, hkv, d)
@@ -1774,7 +1816,7 @@ def phase_kernels(torch):
                 "deterministic", True)
         kfns = [lambda t=t: run(t) for t in sets]
         with reference_mode():
-            plain_ms = time_ms(torch, kfns, budget_ms=100.0)
+            plain_ms = time_ms(torch, kfns, budget_ms=PLAIN_BUDGET_MS)
         L = mb * bl
         idx = tables.long()
         deq = [(t[0],
@@ -1866,7 +1908,7 @@ def phase_kernels(torch):
         kfns = [lambda t=t: int8_matmul_cuda(t[0], t[1], t[2]) for t in sets]
         plain_ms = time_ms(torch, [
             lambda t=t: int8_matmul_reference(t[0], t[1], t[2])
-            for t in sets], budget_ms=100.0)
+            for t in sets], budget_ms=PLAIN_BUDGET_MS)
         lib_ms = time_ms(torch, [lambda t=t: torch.matmul(t[0], t[3])
                                  for t in sets])
         nbytes = k * n + 4 * n + (rows * k + rows * n) * esz
@@ -2005,7 +2047,7 @@ def k2_rows(torch, record, randn, tols, rows):
         with reference_mode():
             plain_ms = time_ms(torch, [
                 lambda t=t: flash_attention(*t, **kw) for t in sets],
-                budget_ms=100.0)
+                budget_ms=PLAIN_BUDGET_MS)
         mask = (None if seg is None and (sq == skv or not causal)
                 else keep[:, None])
         lfns = [lambda t=t: TF.scaled_dot_product_attention(
@@ -2388,7 +2430,7 @@ def phase_f32_d128_rows(torch, record, randn, int8_payload, int8_scales,
               and bool(torch.isfinite(got).all().item())
               and extra.get("deterministic", True))
         with reference_mode():
-            plain_ms = time_ms(torch, pfns, budget_ms=100.0)
+            plain_ms = time_ms(torch, pfns, budget_ms=PLAIN_BUDGET_MS)
         lib_ms = time_ms(torch, lfns)
         bms, by = bound(nbytes, ops, F32_I8_TC_FLOPS if base.endswith("_int8")
                         else F32_TC_FLOPS)
@@ -2769,7 +2811,7 @@ def phase_bf16_head_dim_rows(torch, record, randn, int8_payload, int8_scales,
             ok = ok and extra["deterministic"]
             tol += ", the same bits twice"
         plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
-                           budget_ms=100.0)
+                           budget_ms=PLAIN_BUDGET_MS)
         lib_ms = time_ms(torch, lib) if lib else None
         # float16's peak is bf16's; float32 q over int8 K / V: two passes
         bms, by = bound(nbytes, ops, F32_I8_TC_FLOPS
@@ -3093,8 +3135,8 @@ def phase_f16_rows(torch, record, randn, int8_payload, int8_scales, tols):
         bms, by = bound(nbytes, ops, BF16_FLOPS)
         record(name + F16, "range: " + shape, err,
                f"2e-3 of the largest output ({top})", ok, [fn],
-               time_ms(torch, [plain], budget_ms=50.0), None, bms, by,
-               False, extra={"head_dim": 128, "max_abs_out": top})
+               time_ms(torch, [plain], budget_ms=PLAIN_BUDGET_MS), None,
+               bms, by, False, extra={"head_dim": 128, "max_abs_out": top})
 
     d, h, b, L = 128, 8, 4, 2048
     pos = torch.tensor([2047, 1000, 17, 1536], dtype=torch.int32, device=dev)
@@ -3204,7 +3246,7 @@ def bwd_range_row(torch, randn, record, d, b=2, s=512, h=8):
     del qf, kf, vf, dof, p, ds
     with reference_mode():
         plain_ms = time_ms(torch, [lambda: flash_attention_bwd_reference(
-            q, k, v, out, lse, do, causal=True)], budget_ms=50.0)
+            q, k, v, out, lse, do, causal=True)], budget_ms=PLAIN_BUDGET_MS)
     pairs = b * s * (s + 1) // 2
     shape = (f"range: B={b} S={s} Hq=Hkv={h} D={d} causal float16, dO of "
              f"std 3e2, V of std 1e3, Q and K of std 1e-2")
@@ -3329,7 +3371,7 @@ def phase_verify_window_rows(torch, record, randn, int8_payload, int8_scales,
             torch.isfinite(got).all().item())
         kfns = [lambda t=t: call(t) for t in sets]
         plain_ms = time_ms(torch, [lambda t=t: plain(t) for t in sets],
-                           budget_ms=100.0)
+                           budget_ms=PLAIN_BUDGET_MS)
         dense = []
         for t in sets[:2]:
             if int8:
@@ -3511,7 +3553,7 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                     "deterministic", True)
             kfns = [lambda c=c: run(c) for c in sets]
             with reference_mode():
-                plain_ms = time_ms(torch, kfns, budget_ms=100.0)
+                plain_ms = time_ms(torch, kfns, budget_ms=PLAIN_BUDGET_MS)
             lib_ms = time_ms(torch, [library(q, c, [5], [p], s)
                                      for c in sets[:2]])
             bms, by = traffic(int8, s, [p], 1)
@@ -3555,7 +3597,7 @@ def phase_identity_rows(torch, record, randn, int8_payload, int8_scales,
                 plain_ms = time_ms(torch, [
                     lambda c=c: cached_decode_attention(q, c[0], c[1], pos,
                                                         **kw(c))
-                    for c in sets[:2]], budget_ms=100.0)
+                    for c in sets[:2]], budget_ms=PLAIN_BUDGET_MS)
             shape = (f"B={nrow} s={s} L={L} Hq={hq} Hkv={hkv} D={d} "
                      f"pos={pos_list}" + (f" int8 K/V granule {gr}"
                                           if int8 else " bfloat16"))
@@ -4053,6 +4095,7 @@ def phase_serving_paged(torch, model, kernels):
           "eager_twin": twin})
     check_graph(run, "phase 4b")
     check_twin(twin, "phase 4b")
+    run["eager_twin"] = twin
     check(kv["prefix_hit_tokens"] > 0, "no prefix hit on the shared prompt")
     check(m["prefill_tokens_computed"] < m["prefill_tokens_total"],
           "the prefix cache saved no prefill token")
@@ -4078,8 +4121,8 @@ def phase_serving_paged(torch, model, kernels):
     return run
 
 
-# the engine's latency series (metrics() key -> its _Hist) and counters
-# that a pass of a reused engine reads as its own share
+# the engine's latency series (metrics() key -> its registry histogram)
+# and counters that a pass of a reused engine reads as its own share
 PASS_HISTS = {"ttft_ms": "_m_ttft", "tpot_ms": "_m_tpot",
               "queue_wait_ms": "_m_queue_wait",
               "decode_step_ms": "_m_step_ms",
@@ -4094,10 +4137,13 @@ PASS_COUNTS = ("requests_finished", "tokens_generated", "prefill_waves",
 def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
               submit_kw=None, warm_kw=None, **kw):
     """One 8B-width serving run (8 slots, max_length 4096, prefill_batch 4
-    unless ``kw`` says otherwise): the engine is built (its decode step's
-    warm-up and graph capture included, unless ``disable_graphs()`` is
-    open), then every launch and route counter is reset just before the
-    requests are submitted and read just after the drain.  Returns the run
+    unless ``kw`` says otherwise): the observability layer is reset (the
+    registry, span tracer and request log hold this engine's run alone:
+    no family nears FLAGS_metrics_max_children), the engine is built (its
+    decode step's warm-up and graph capture included, unless
+    ``disable_graphs()`` is open), then every launch and route counter is
+    reset just before the requests are submitted and read just after the
+    drain.  Returns the run
     as a dict: outputs in submit order, wall seconds, launches, routes,
     the engine's metrics, whether it replayed a graph, the (bucket, rows)
     key of every wave (``wave_keys``) and the peak of allocated device
@@ -4108,8 +4154,10 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
     request's extra ``submit`` arguments (a speculative phase's
     drafters); ``warm_kw(cold run)``: the warm pass's, when they differ.
     The engine is freed."""
+    from paddle_tpu_torch import observability
     from paddle_tpu_torch.serving import ServingEngine
 
+    observability.reset()
     eng = ServingEngine(model, device="cuda", **{
         "num_slots": 8, "max_length": 4096, "prefill_batch": 4, **kw})
     keys = []
@@ -4131,14 +4179,16 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
 def _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw=None):
     """One pass of ``prompts`` through ``eng`` (see :func:`_serve_8b`):
     counters, latency series and wave keys of this pass alone; a draft
-    model's builds and step runs under ``draft``."""
-    from paddle_tpu_torch import ops
+    model's builds and step runs under ``draft``; the observability
+    layer's record of the engine so far under ``obs``
+    (:func:`obs_capture`)."""
+    from paddle_tpu_torch import observability, ops
     from paddle_tpu_torch.ops import _dispatch
-    from paddle_tpu_torch.serving.engine import _Hist
 
     before = eng.metrics()
-    marks = {k: len(getattr(eng, h).values) for k, h in PASS_HISTS.items()}
+    marks = {k: hist_mark(getattr(eng, h)) for k, h in PASS_HISTS.items()}
     spec_marks = spec_hist_marks(eng)
+    uid0 = observability.get_request_log().mark()
     k0 = len(keys)
     ops.reset_launch_counts()
     _dispatch.reset_kernel_paths()
@@ -4148,18 +4198,17 @@ def _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw=None):
     submit_kw = submit_kw or [{}] * len(prompts)
     rids = [eng.submit(p, max_new_tokens=new_tokens, **skw)
             for p, skw in zip(prompts, submit_kw)]
-    out = dict(eng.drain())
+    out, tick_ms = drain_timed(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m = eng.metrics()
+    m["decode_tick_ms"] = exact_summary(tick_ms)
     for k in PASS_COUNTS:
         if k in m:
             m[k] -= before[k]
     for k, h in PASS_HISTS.items():
         if k in m:
-            part = _Hist()
-            part.values = getattr(eng, h).values[marks[k]:]
-            m[k] = part.summary()
+            m[k] = hist_pass(getattr(eng, h), marks[k])
     if "spec" in m:
         m["spec"] = spec_pass(m["spec"], before["spec"], eng, spec_marks)
     run = {"outs": [out[r] for r in rids], "wall": wall,
@@ -4170,7 +4219,8 @@ def _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw=None):
            "wave_keys": keys[k0:],
            "peak_memory_gb": round(torch.cuda.max_memory_allocated() / 2**30,
                                    3),
-           "cache_bytes": eng.cache_hbm_bytes}
+           "cache_bytes": eng.cache_hbm_bytes,
+           "obs": obs_capture(eng, uid0)}
     dm = getattr(eng, "_drafters", {}).get("model")
     if dm is not None:
         run["draft"] = {"draft_traces": dm.draft_traces,
@@ -4189,14 +4239,65 @@ SPEC_COUNTS = ("drafted_tokens", "draft_hit_tokens", "draft_miss_tokens",
                "rollbacks")
 
 
+def drain_timed(eng):
+    """``eng.drain()``, timing by the host clock each ``step()`` that ran
+    one decode tick and no wave (a tick ends in its one host fetch, so its
+    device work is inside).  Returns (request id -> tokens, those ms)."""
+    ticks = []
+    while (eng._queue or eng._resume_q or eng._swap_resume
+           or eng._cursor is not None
+           or any(s is not None for s in eng._slots)):
+        t, d = eng._ticks, eng._n_decode_ticks
+        t0 = time.perf_counter()
+        eng.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        if eng._ticks == t + 1 and eng._n_decode_ticks == d + 1:
+            ticks.append(ms)
+    return dict(eng.drain()), ticks
+
+
+def exact_summary(values):
+    """count, mean, p50 / p90 / p99 of ``values`` (ms), exactly: the
+    registry's histograms interpolate inside buckets (5-10 ms for an 8B
+    tick), too coarse to compare two runs by a few percent."""
+    import numpy as np
+    d = {"count": len(values)}
+    if values:
+        a = np.asarray(values)
+        d["mean"] = round(float(a.mean()), 3)
+        for q in (50, 90, 99):
+            d[f"p{q}"] = round(float(np.percentile(a, q)), 3)
+    return d
+
+
+def hist_mark(h):
+    """Where registry histogram child ``h`` stands: (its bucket counts,
+    sum, count), so a pass reads its own share (:func:`hist_pass`)."""
+    with h._lock:
+        return list(h._counts), h._sum, h._count
+
+
+def hist_pass(h, mark):
+    """The engine's ``metrics()`` readout (count, p50 / p90 / p99 from the
+    buckets) of what ``h`` observed since ``mark``."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving.engine import hist_summary
+    part = MetricsRegistry().histogram(
+        "pass", buckets=h._family.buckets).labels()
+    counts, total, n = hist_mark(h)
+    part._counts = [a - b for a, b in zip(counts, mark[0])]
+    part._sum, part._count = total - mark[1], n - mark[2]
+    return hist_summary(part)
+
+
 def spec_hist_marks(eng):
     """Where each accepted-per-step series of a speculative engine stands
     (engine total and by drafter kind), so a pass reads its own share."""
     if not getattr(eng, "spec", False):
         return {}
-    marks = {None: len(eng._spec_total.accept.values)}
-    marks.update({k: len(c.accept.values)
-                  for k, c in eng._spec_kinds.items()})
+    marks = {None: hist_mark(eng._m_spec_accept)}
+    marks.update({k: hist_mark(c[4])
+                  for k, c in eng._spec_children.items()})
     return marks
 
 
@@ -4204,24 +4305,24 @@ def spec_pass(now, before, eng, marks):
     """A pass's share of the engine's ``metrics()["spec"]`` block: the
     counts less ``before``'s, the accepted-per-step series from
     ``marks`` on (:func:`spec_hist_marks`)."""
-    from paddle_tpu_torch.serving.engine import _Hist
-
-    def share(cur, old, values, mark):
+    def share(cur, old, h, mark):
         out = dict(cur)
         for k in SPEC_COUNTS:
             out[k] = cur[k] - (old or {}).get(k, 0)
         out["draft_hit_rate"] = (round(out["draft_hit_tokens"]
                                        / out["drafted_tokens"], 3)
                                  if out["drafted_tokens"] else 0.0)
-        h = _Hist()
-        h.values = values[mark:]
-        out["accepted_per_step"] = h.summary()
+        acc = hist_pass(h, mark)
+        if acc["count"]:
+            acc["mean"] = round((h.sum - mark[1]) / acc["count"], 3)
+        out["accepted_per_step"] = acc
         return out
-    out = share(now, before, eng._spec_total.accept.values, marks[None])
+    zero = ([0] * (len(eng._m_spec_accept._counts)), 0.0, 0)
+    out = share(now, before, eng._m_spec_accept, marks[None])
     if "by_drafter" in now:
         out["by_drafter"] = {
             k: share(v, before.get("by_drafter", {}).get(k),
-                     eng._spec_kinds[k].accept.values, marks.get(k, 0))
+                     eng._spec_children[k][4], marks.get(k, zero))
             for k, v in now["by_drafter"].items()}
     return out
 
@@ -4232,7 +4333,8 @@ def serving_fields(run):
     ntok = sum(len(o) for o in run["outs"])
     out = {"tokens": ntok, "wall_s": round(run["wall"], 4),
            "tok_per_s": round(ntok / run["wall"], 2),
-           "decode_step_ms": m["decode_step_ms"], "ttft_ms": m["ttft_ms"],
+           "decode_step_ms": m["decode_step_ms"],
+           "decode_tick_ms": m["decode_tick_ms"], "ttft_ms": m["ttft_ms"],
            "tpot_ms": m["tpot_ms"], "prefill_wave_ms": m["prefill_wave_ms"],
            "peak_memory_gb": run["peak_memory_gb"],
            "graphed": run["graphed"], "step_traces": m["step_traces"],
@@ -4297,7 +4399,9 @@ def eager_twin(torch, model, prompts, run, what, submit_kw=None,
     out = {**serving_fields(twin),
            **twin_comparison(run["outs"], twin["outs"]),
            "launches_identical": twin["launches"] == run["launches"],
-           "routes_identical": twin["routes"] == run["routes"]}
+           "routes_identical": twin["routes"] == run["routes"],
+           "timelines_identical": (twin["obs"]["signature"]
+                                   == run["obs"]["signature"])}
     if "draft" in twin:
         out["draft"] = twin["draft"]
     if "spec" in twin["metrics"]:
@@ -4524,6 +4628,7 @@ def spec_fields(run, base):
         return {"tok_per_s": round(ntok / r["wall"], 2),
                 "tpot_ms_p50": m["tpot_ms"].get("p50"),
                 "step_ms_p50": m["decode_step_ms"].get("p50"),
+                "tick_ms_p50": m.get("decode_tick_ms", {}).get("p50"),
                 "mixed_step_ms_p50": m.get("mixed_step_ms", {}).get("p50"),
                 "peak_memory_gb": r["peak_memory_gb"]}
     same = sum(a == b for a, b in zip(run["outs"], base["outs"]))
@@ -4856,17 +4961,20 @@ def _preempt_engine(model, **kw):
         "num_blocks": PREEMPT_POOL_BLOCKS, **kw})
 
 
-def saturate(eng, prompts, new_tokens=32, steps=3):
+def saturate(eng, prompts, new_tokens=32, steps=3, ticks=None):
     """``tests/test_serving_preempt.py::_saturate``: two priority-0
     requests decode first, then two priority-5 arrivals find the pool
-    full.  Returns the outputs in submit order."""
+    full.  Returns the outputs in submit order; ``ticks``, a list, gets
+    the drain's decode tick ms (:func:`drain_timed`)."""
     rids = [eng.submit(p, max_new_tokens=new_tokens, priority=0)
             for p in prompts[:2]]
     for _ in range(steps):
         eng.step()
     rids += [eng.submit(p, max_new_tokens=new_tokens, priority=5)
              for p in prompts[2:]]
-    out = dict(eng.drain())
+    out, tick_ms = drain_timed(eng)
+    if ticks is not None:
+        ticks.extend(tick_ms)
     return [out[r] for r in rids]
 
 
@@ -4876,10 +4984,11 @@ def preempt_run(torch, model, prompts, graphed=True, swap_check=None, **kw):
     and read just after.  ``swap_check``: a dict the swap hooks fill,
     every swapped-out payload held and each block read back after its
     swap-in compared with it bit for bit."""
-    from paddle_tpu_torch import ops
+    from paddle_tpu_torch import observability, ops
     from paddle_tpu_torch.ops import _dispatch
     from paddle_tpu_torch.serving import disable_graphs
 
+    observability.reset()
     with (contextlib.nullcontext() if graphed else disable_graphs()):
         eng = _preempt_engine(model, **kw)
     if swap_check is not None:
@@ -4904,16 +5013,21 @@ def preempt_run(torch, model, prompts, graphed=True, swap_check=None, **kw):
     ops.reset_launch_counts()
     _dispatch.reset_kernel_paths()
     torch.cuda.synchronize()
+    uid0 = observability.get_request_log().mark()
     t0 = time.perf_counter()
-    outs = saturate(eng, prompts)
+    ticks = []
+    outs = saturate(eng, prompts, ticks=ticks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run = {"outs": outs, "wall": wall, "launches": ops.launch_counts(),
            "routes": {f"{op}/{path}": n for (op, path), n in
                       _dispatch.kernel_paths.items()},
-           "metrics": eng.metrics(), "graphed": eng.graphed,
+           "metrics": dict(eng.metrics(),
+                           decode_tick_ms=exact_summary(ticks)),
+           "graphed": eng.graphed,
            "decisions": eng.preempt_decisions,
-           "signature": eng.preempt_signature(), "engine": eng}
+           "signature": eng.preempt_signature(), "engine": eng,
+           "obs": obs_capture(eng, uid0)}
     return run
 
 
@@ -4946,6 +5060,7 @@ def preempt_fields(run):
            "tok_per_s": round(ntok / run["wall"], 2),
            "ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
            "decode_step_ms": m["decode_step_ms"],
+           "decode_tick_ms": m["decode_tick_ms"],
            "prefill_wave_ms": m["prefill_wave_ms"],
            "graphed": run["graphed"], "step_traces": m["step_traces"],
            "graph_replays": m["graph_replays"],
@@ -5033,10 +5148,242 @@ def phase_serving_preempt(torch, model):
                 check(c["blocks"] > 0 and c["equal"] == c["blocks"],
                       f"{what}: {c['blocks'] - c['equal']} of "
                       f"{c['blocks']} swapped blocks read back differ")
+            swap = run
     cancel_states(torch, model, prompts)
     host_tier_run(torch, model)
     migration_run(torch, model, prompts)
     tiny_tiers_card_vs_cpu(torch)
+    return swap
+
+
+# -- phase 4n: the observability layer of phases 4b, 4c and 4m ------------------
+
+# metrics() key -> the registry family behind it (the engine=<id> series)
+METRICS_COUNTERS = {
+    "requests_submitted": "serving.requests_submitted",
+    "requests_finished": "serving.requests_finished",
+    "tokens_generated": "serving.tokens_generated",
+    "prefill_waves": "serving.prefill_waves",
+    "prefill_tokens_computed": "serving.prefill_tokens_computed",
+    "prefill_tokens_total": "serving.prefill_tokens_total",
+    "cancelled": "serving.cancelled"}
+METRICS_HISTS = {"ttft_ms": "serving.ttft_ms", "tpot_ms": "serving.tpot_ms",
+                 "queue_wait_ms": "serving.queue_wait_ms",
+                 "decode_step_ms": "serving.decode_step_ms",
+                 "prefill_wave_ms": "serving.prefill_wave_ms"}
+METRICS_BY_LABEL = {"slo_violations": ("serving.slo_violations", "kind"),
+                    "retired": ("serving.retired", "reason")}
+# metrics()["kv_cache"] keys read from kv_cache.<key>{pool=<id>}
+KV_SERIES = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens",
+             "evictions", "cow_copies", "peak_blocks_in_use",
+             "blocks_in_use")
+# the lifecycle a request of phase 4b walks, and a swapped-out victim of
+# phase 4m's swap run (first occurrences, in this order)
+LIFECYCLE_4B = ("admitted", "prefill", "first_token", "retired")
+LIFECYCLE_SWAP = ("preempted", "swapped_out", "swapped_in", "resumed",
+                  "retired")
+# the kernel routes phases 4b and 4c must show in the registry
+OBS_ROUTES = {"4b": ("decode_attention_paged", "paged_prefill", "rms_norm"),
+              "4c": ("decode_attention_paged_int8", "paged_prefill_int8",
+                     "rms_norm", "int8_matmul")}
+
+
+def obs_capture(eng, uid0):
+    """The observability layer's record of ``eng`` once a pass drained,
+    kept for phase 4n (the engine is freed): the request log's timelines
+    of the requests submitted since ``uid0`` (event names by uid, and
+    their ``timeline_signature``), ``observability.snapshot()``, the
+    engine's whole ``metrics()`` (as the registry holds it) and
+    ``perf_report()``, its id, pool id, device and rid -> uid map, and the
+    span tracer's Chrome trace parsed back from its JSON text (complete
+    spans counted by name)."""
+    from paddle_tpu_torch import observability
+    log = observability.get_request_log()
+    uid1 = log.mark()
+    trace = json.loads(json.dumps(observability.export_chrome_trace()))
+    spans = collections.Counter(e["name"] for e in trace["traceEvents"]
+                                if e.get("ph") == "X")
+    return {"engine": eng._eid,
+            "pool": eng.kv._pid if eng.paged else None,
+            "device": eng.device.type,
+            "uids": dict(eng._uids),
+            "events": {uid: [ev["name"] for ev in rec]
+                       for uid, rec in log.records(uid0, uid1).items()},
+            "signature": log.timeline_signature(uid0, uid1),
+            "snapshot": observability.snapshot(),
+            "metrics": eng.metrics(),
+            "perf": eng.perf_report(),
+            "spans": dict(spans),
+            "trace_dropped": trace["otherData"]["dropped_events"]}
+
+
+def registry_rows(snap, family, **labels):
+    """The rows of ``family`` in snapshot ``snap`` whose labels include
+    ``labels``."""
+    return [r for r in snap.get(family, {}).get("series", [])
+            if all(r["labels"].get(k) == v for k, v in labels.items())]
+
+
+def metrics_vs_registry(m, snap, eid, pool=None):
+    """The keys of engine metrics ``m`` that differ from the registry's
+    series in ``snap`` for ``engine=eid`` (and ``pool=pool``): counters
+    exactly, histograms' counts exactly and percentiles within the
+    readouts' rounding, the labelled families as dicts."""
+    bad = []
+
+    def one(family, **labels):
+        rows = [r for r in registry_rows(snap, family, **labels)
+                if set(r["labels"]) == set(labels)]
+        return rows[0] if len(rows) == 1 else None
+
+    for k, fam in METRICS_COUNTERS.items():
+        r = one(fam, engine=eid)
+        if r is None or int(r["value"]) != m[k]:
+            bad.append(k)
+    for k, fam in METRICS_HISTS.items():
+        r = one(fam, engine=eid)
+        if r is None or r["count"] != m[k]["count"] or any(
+                abs(r[q] - m[k][q]) > 1.001e-3
+                for q in ("p50", "p90", "p99") if q in m[k]):
+            bad.append(k)
+    for k, (fam, lab) in METRICS_BY_LABEL.items():
+        got = {r["labels"][lab]: int(r["value"])
+               for r in registry_rows(snap, fam, engine=eid)}
+        if got != m[k]:
+            bad.append(k)
+    if pool is not None:
+        kv = m["kv_cache"]
+        for k in KV_SERIES:
+            r = one(f"kv_cache.{k}", pool=pool)
+            if r is None or int(r["value"]) != kv[k]:
+                bad.append(f"kv_cache.{k}")
+        r = one("serving.admission_blocked", engine=eid)
+        if r is None or int(r["value"]) != kv["admission_blocked"]:
+            bad.append("kv_cache.admission_blocked")
+    return bad
+
+
+def in_order(names, order) -> bool:
+    """Every event of ``order`` occurs in ``names``, first occurrences in
+    that order."""
+    idx = [names.index(n) if n in names else -1 for n in order]
+    return min(idx) >= 0 and idx == sorted(idx)
+
+
+def perf_fields(obs, ticks, what):
+    """The cost model's line for one run, and its gates: enabled, on the
+    ``h100`` profile on the card (``cpu_smoke`` on the CPU), the bounds'
+    ticks and shares partitioning the ``ticks`` modelled (every decode
+    tick)."""
+    rep = obs["perf"]
+    want = "h100" if obs["device"] == "cuda" else "cpu_smoke"
+    check(rep.get("enabled") and rep["profile"]["name"] == want,
+          f"{what}: perf_report() not enabled on the {want} profile: "
+          f"{rep.get('profile')}")
+    bounds = rep.get("bounds", {})
+    check(rep.get("ticks_modeled") == ticks
+          and sum(b["ticks"] for b in bounds.values()) == ticks
+          and abs(sum(b["share"] for b in bounds.values()) - 1.0) < 1e-5,
+          f"{what}: the bounds {bounds} do not partition the "
+          f"{ticks} ticks ({rep.get('ticks_modeled')} modelled)")
+    return {"profile": rep["profile"]["name"],
+            "ticks_modeled": rep.get("ticks_modeled"), "bounds": bounds,
+            "predicted_ms": rep.get("predicted_ms"),
+            "measured_ms_sum": rep.get("measured_ms_sum"),
+            "measured_over_predicted": rep.get("ratio"),
+            "model_inputs": rep.get("model_inputs"),
+            "drift": rep.get("drift"), "anomalies": rep.get("anomalies")}
+
+
+def phase_observability(paged, int8, swap):
+    """Phase 4n: what the observability layer recorded of phases 4b (bf16
+    paged), 4c (int8) and 4m's swap run (:func:`obs_capture`); builds no
+    engine.  Gates: the registry's ``ops.kernel_path`` shows the kernel
+    route of K1-paged, K2-paged and RMSNorm (4c: their int8 builds and
+    K4) and no plain route; each 4b request's events in the order
+    ``admitted`` < ``prefill`` < ``first_token`` < ``retired``, and the
+    graphed engine's ``timeline_signature`` equal to its eager twin's;
+    each swap victim's ``preempted`` < ``swapped_out`` < ``swapped_in`` <
+    ``resumed`` < ``retired``, and the registry's
+    ``kv_cache.swapped_out_blocks`` equal to the engine's count and to
+    the blocks swapped back in; ``metrics()`` equal to the registry's
+    series of its engine (and pool); ``perf_report()`` enabled on the
+    ``h100`` profile with the bounds partitioning the decode ticks, and a
+    swap term > 0 in the swap run; the 4b Chrome trace parses back from
+    JSON with one ``serving.decode`` span a decode tick and nothing
+    dropped.  Reported, not gated: the measured / predicted tick ratio
+    (p50 / p90) and any drift finding."""
+    t0 = time.perf_counter()
+    line = {"phase": "observability"}
+    for what, run in (("4b", paged), ("4c", int8)):
+        snap = run["obs"]["snapshot"]
+        routes = {f"{r['labels']['op']}/{r['labels']['path']}":
+                  int(r["value"])
+                  for r in registry_rows(snap, "ops.kernel_path")}
+        line[f"routes_{what}"] = routes
+        for op in OBS_ROUTES[what]:
+            check(routes.get(f"{op}/kernel", 0) > 0,
+                  f"phase 4n ({what}): no kernel route for {op} in the "
+                  f"registry (a plain route ran)")
+        plain = {k: n for k, n in routes.items() if k.endswith("/plain")}
+        check(not plain, f"phase 4n ({what}): plain routes in the "
+                         f"registry: {plain}")
+    obs = paged["obs"]
+    bad = [uid for uid, names in obs["events"].items()
+           if not in_order(names, LIFECYCLE_4B)]
+    line["lifecycle_4b"] = {"requests": len(obs["events"]),
+                            "out_of_order": bad,
+                            "twin_identical":
+                                paged["eager_twin"]["timelines_identical"]}
+    check(len(obs["events"]) == len(paged["outs"]) and not bad,
+          f"phase 4n (4b): requests {bad} out of the order {LIFECYCLE_4B}")
+    check(paged["eager_twin"]["timelines_identical"],
+          "phase 4n (4b): the graphed engine's timelines differ from its "
+          "eager twin's")
+    sobs = swap["obs"]
+    victims = sorted({d["victim_rid"] for d in swap["decisions"]
+                      if d["mode"] == "swap"})
+    vbad = [rid for rid in victims
+            if not in_order(sobs["events"][sobs["uids"][rid]],
+                            LIFECYCLE_SWAP)]
+    ht = sobs["metrics"]["kv_cache"]["host_tier"]
+    out_rows = registry_rows(sobs["snapshot"], "kv_cache.swapped_out_blocks",
+                             pool=sobs["pool"])
+    in_rows = registry_rows(sobs["snapshot"], "kv_cache.swapped_in_blocks",
+                            pool=sobs["pool"])
+    swapped = [int(r["value"]) for r in out_rows + in_rows]
+    line["lifecycle_swap"] = {"victims": victims, "out_of_order": vbad,
+                              "swapped_out_in_blocks": swapped}
+    check(victims and not vbad,
+          f"phase 4n (4m swap): victims {vbad} of {victims} out of the "
+          f"order {LIFECYCLE_SWAP}")
+    check(len(swapped) == 2 and swapped[0] == swapped[1]
+          == ht["swapped_out_blocks"] > 0,
+          f"phase 4n (4m swap): kv_cache.swapped_out / swapped_in "
+          f"{swapped} vs the engine's {ht['swapped_out_blocks']}")
+    series = {}
+    for what, o in (("4b", obs), ("4c", int8["obs"]), ("4m_swap", sobs)):
+        series[what] = metrics_vs_registry(o["metrics"], o["snapshot"],
+                                           o["engine"], o["pool"])
+    line["metrics_vs_registry"] = series
+    check(not any(series.values()),
+          f"phase 4n: metrics() differs from the registry: {series}")
+    perf = {}
+    for what, o in (("4b", obs), ("4c", int8["obs"]), ("4m_swap", sobs)):
+        perf[what] = perf_fields(o, o["metrics"]["decode_ticks"],
+                                 f"phase 4n ({what})")
+    line["perf"] = perf
+    check(perf["4m_swap"]["predicted_ms"]["swap_ms"] > 0,
+          "phase 4n (4m swap): the cost model priced no swap traffic")
+    line["chrome_trace"] = {"spans": obs["spans"],
+                            "dropped": obs["trace_dropped"]}
+    check(obs["spans"].get("serving.decode") == obs["metrics"]["decode_ticks"]
+          and obs["trace_dropped"] == 0,
+          f"phase 4n (4b): {obs['spans'].get('serving.decode')} "
+          f"serving.decode spans for {obs['metrics']['decode_ticks']} "
+          f"decode ticks ({obs['trace_dropped']} events dropped)")
+    line["seconds"] = round(time.perf_counter() - t0, 4)
+    emit(line)
 
 
 def cancel_states(torch, model, prompts):
@@ -7979,7 +8326,8 @@ def main(argv=None) -> int:
     phase_serving_spec_chunked_model(torch, model, serving_prompts(vocab),
                                      chunked[0])
     phase_serving_mixed(torch, model, kernels, run4b)
-    phase_serving_preempt(torch, model)
+    swap4m = phase_serving_preempt(torch, model)
+    phase_observability(run4b, run4c, swap4m)
     if args.profile:
         phase_profile(torch, model, qmodel)
     phase_generate(torch, model, qmodel, card)

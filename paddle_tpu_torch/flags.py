@@ -1,7 +1,10 @@
 """The flags this slice of the port reads (mirrors ``paddle_tpu/flags.py``).
 
 Only the serving defaults, the flash-decode chunk size, the train step's
-``check_nan_inf`` and the build watchdog's action are kept.  The
+``check_nan_inf``, the build watchdog's action and the observability
+layer's flags (the metrics registry's label cap, the span tracer, the
+request log, the SLO deadlines, the cost model and predictive admission)
+are kept.  The
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
@@ -69,6 +72,37 @@ _DEFAULTS: Dict[str, Any] = {
     # budget (paddle_tpu/flags.py:315; observability/watchdog.py):
     # "raise", "warn" or "off"
     "retrace_watchdog": "warn",
+    # observability (paddle_tpu/flags.py:314-441): observability_spans
+    # records host spans into the default SpanTracer (off: span() is a
+    # no-op); trace_buffer_events is its ring's capacity;
+    # request_log_max_requests the RequestLog's capacity in whole
+    # requests; metrics_max_children the label sets a metric family takes
+    # before it coalesces new ones into {overflow="true"}
+    "observability_spans": True,
+    "trace_buffer_events": 100000,
+    "request_log_max_requests": 4096,
+    "metrics_max_children": 64,
+    # per-request deadlines recorded at submit() (0: that deadline off):
+    # TTFT from submit, TPOT the mean decode time a token after the first
+    "serving_slo_ttft_ms": 0.0,
+    "serving_slo_tpot_ms": 0.0,
+    # the engine's per-tick roofline cost model (observability/
+    # costmodel.py): "on" or "off"; the hardware profile ("auto": "h100"
+    # on a CUDA device, "cpu_smoke" elsewhere); the drift band's
+    # half-width around the calibrated measured / predicted ratio
+    "perf_model": "on",
+    "perf_model_profile": "auto",
+    "perf_model_tol": 3.0,
+    # admission policy: "queue_depth" (admit whenever a slot and blocks
+    # are free) or "predictive" (hold a request back while the cost
+    # model prices the post-admission tick over the pooled TPOT deadline
+    # times serving_admission_slack; predictions times
+    # serving_admission_calib are wall ms; a request held
+    # serving_admission_max_defer_ticks ticks is admitted anyway, 0 never)
+    "serving_admission": "queue_depth",
+    "serving_admission_slack": 1.25,
+    "serving_admission_calib": 1.0,
+    "serving_admission_max_defer_ticks": 64,
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)

@@ -14,9 +14,13 @@ build runs, ``warn`` → :class:`RetraceWarning`, then the build, ``off`` →
 count only.  Over one sequence of builds the counts, warnings and errors
 are the reference's over the same sequence of traces.
 
-The counters are a plain dict (the reference's metrics registry is ROADMAP
-A5b); the engine labels its site with ``engine=<id>`` so engines budget
-independently.
+Every build is reported into the metrics registry as the reference's
+trace is, ``jit.traces{site=<name>, <labels>}``, and the engine labels its
+site with ``engine=<id>`` so engines budget independently.  The budget
+itself reads the site's own count, kept beside the registry's: a family
+past ``FLAGS_metrics_max_children`` label sets coalesces new children into
+``{overflow="true"}``, and a site whose registry child is that shared one
+must still be budgeted alone.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from .. import flags
+from . import metrics as _metrics
 
 __all__ = ["RetraceError", "RetraceWarning", "TrackedFunction",
            "track_retraces"]
@@ -61,12 +66,15 @@ def _describe_args(args, kwargs) -> str:
 
 class TrackedFunction:
     """Callable wrapper returned by :func:`track_retraces`: ``fn(...)`` is
-    one counted build; ``.traces`` reads the site's count."""
+    one counted build; ``.traces`` reads the site's count; ``.counter`` is
+    its registry child."""
 
-    def __init__(self, fn: Callable, name: str, key: Tuple[str, tuple]):
+    def __init__(self, fn: Callable, name: str, key: Tuple[str, tuple],
+                 counter=None):
         self._fn = fn
         self.name = name
         self.key = key
+        self.counter = counter
         functools.update_wrapper(self, fn, updated=())
 
     def __call__(self, *args, **kwargs):
@@ -78,7 +86,8 @@ class TrackedFunction:
 
 
 def track_retraces(fn: Callable, name: str, budget: Optional[int] = None,
-                   labels: Optional[Dict[str, Any]] = None
+                   labels: Optional[Dict[str, Any]] = None,
+                   registry: Optional[_metrics.MetricsRegistry] = None
                    ) -> TrackedFunction:
     """Wrap the build function ``fn`` so every call is counted as one build
     of site ``name`` (and budgeted).
@@ -87,12 +96,20 @@ def track_retraces(fn: Callable, name: str, budget: Optional[int] = None,
     rebuilt").  Exceeding it consults ``FLAGS_retrace_watchdog`` at the
     offending build: ``raise`` → :class:`RetraceError` (the build does not
     run), ``warn`` → :class:`RetraceWarning`, ``off`` → count only.
-    ``labels`` extend the counter's key (``engine=<id>``)."""
+    ``labels`` extend the counter's key (``engine=<id>``); ``registry``
+    (default: the process-wide one) receives ``jit.traces``."""
     key = _key(name, labels)
+    reg = registry if registry is not None else _metrics.default_registry()
+    counter = reg.counter(
+        "jit.traces",
+        "jit compilations per tracked call-site (trace-time side effect; "
+        "value N means N compiled programs, not N calls)",
+    ).labels(site=name, **(labels or {}))
 
     @functools.wraps(fn)
     def counted(*args, **kwargs):
         _counts[key] += 1
+        counter.inc()
         n = _counts[key]
         if budget is not None and n > budget:
             action = str(flags.flag("retrace_watchdog"))
@@ -107,4 +124,4 @@ def track_retraces(fn: Callable, name: str, budget: Optional[int] = None,
                 warnings.warn(msg, RetraceWarning, stacklevel=2)
         return fn(*args, **kwargs)
 
-    return TrackedFunction(counted, name, key)
+    return TrackedFunction(counted, name, key, counter)

@@ -88,9 +88,11 @@ class ReplayCounts:
                          if hasattr(fn, "by_shape")}
         paths_before = collections.Counter(_dispatch.kernel_paths)
         rc = cls({}, {}, {})
+        _dispatch._recording += 1
         try:
             yield rc
         finally:
+            _dispatch._recording -= 1
             for name, fn in KERNELS.items():
                 if fn.launches != before[name]:
                     rc.launches[name] = fn.launches - before[name]
@@ -112,8 +114,8 @@ class ReplayCounts:
         for name, by_shape in self.shapes.items():
             for key, k in by_shape.items():
                 KERNELS[name].by_shape[key] += n * k
-        for key, k in self.paths.items():
-            _dispatch.kernel_paths[key] += n * k
+        for (op, path), k in self.paths.items():
+            _dispatch.credit_kernel_path(op, path, n * k)
 
 
 __all__ = ["FlashAttention", "KERNELS", "ReplayCounts", "apply_rope",

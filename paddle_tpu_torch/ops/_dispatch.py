@@ -14,6 +14,16 @@ kernel against its plain version on the card.  Nothing enters it on its
 own.  The mode is process-wide, not per thread: autograd runs the backward
 of CUDA tensors (and with it the recomputation of checkpointed blocks) on
 its own device threads, which must route as the caller does.
+
+Every routing decision is counted twice: in :data:`kernel_paths`, a local
+tally that a caller resets to read one window (``chip_smoke.py`` reads a
+pass), and in the metrics registry as ``ops.kernel_path{op, path}``, as
+the reference counts it.  The port counts per call, and ``path`` is
+``kernel`` or ``plain``; the reference counts once per trace, and its
+``path`` names its own routes.  A captured region counts once per replay:
+while :class:`~paddle_tpu_torch.ops.ReplayCounts` records a capture,
+decisions go to the tally only (it takes them back out), and each credited
+replay adds them to both.
 """
 
 from __future__ import annotations
@@ -24,11 +34,15 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import observability
+
 _reference = False
 
-# (op, path) -> dispatch decisions; the JAX package counts the same into
-# its metrics registry as ``ops.kernel_path{op=..., path=...}``
+# (op, path) -> dispatch decisions since the last reset_kernel_paths()
 kernel_paths: Dict[Tuple[str, str], int] = collections.Counter()
+# open ReplayCounts.record() windows: decisions there reach the registry
+# only through the replays that credit them
+_recording = 0
 
 
 @contextlib.contextmanager
@@ -61,9 +75,25 @@ def use_kernel(x: torch.Tensor) -> bool:
         f"paddle_tpu_torch kernels run on cuda or cpu tensors, not {dev}")
 
 
+def _registry_path(op: str, path: str):
+    return observability.default_registry().counter(
+        "ops.kernel_path",
+        "kernel-path selections per op, counted at dispatch time (the "
+        "port: once per call, a captured graph once per replay)",
+    ).labels(op=op, path=path)
+
+
 def count_kernel_path(op: str, path: str) -> None:
     """Count one routing decision (``kernel`` or ``plain``) for ``op``."""
     kernel_paths[(op, path)] += 1
+    if not _recording:
+        _registry_path(op, path).inc()
+
+
+def credit_kernel_path(op: str, path: str, n: int) -> None:
+    """Count ``n`` decisions of one replayed capture (ReplayCounts.add)."""
+    kernel_paths[(op, path)] += n
+    _registry_path(op, path).inc(n)
 
 
 def reset_kernel_paths() -> None:

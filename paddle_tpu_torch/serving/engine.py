@@ -96,8 +96,25 @@ a read into pinned host memory that is complete when it returns (before the
 manager can hand the block to a new owner), and a write in place into the
 pool's storage, on the stream the next replay runs on.  No step is built
 again and no pool tensor is replaced: the captured graphs hold the pool's
-address.  The request log's lifecycle events and the SLO buckets of these
-modes are ROADMAP A4, the cost model's ``perf_report`` A6.
+address.
+
+**Observability** (the reference's, ``paddle_tpu/serving/engine.py:1000-
+1100``, ``:3052-3220``): every series lives in the metrics registry under
+``engine=<id>`` (``observability.snapshot()``), and :meth:`metrics` reads
+them back.  Each request carries a uid minted by the request log at
+``submit`` (``observability.get_request_log()``), with the reference's
+lifecycle events at the reference's points (``submitted``, ``admitted``,
+``prefill`` / ``prefill_chunk``, ``first_token``, ``spec_accept``,
+``retired``, the preemption, migration and admission events) and its SLO
+accounting (``submit(ttft_slo_ms=, tpot_slo_ms=)``,
+``serving.slo_violations`` by cause).  Ticks, waves and draft phases are
+host spans (``serving.step``, ``serving.decode``, ``serving.prefill``,
+...).  With ``FLAGS_perf_model`` on (the default) a roofline cost model
+prices every tick (``perf_report()``; the ``h100`` profile on the card)
+and ``FLAGS_serving_admission="predictive"`` arms its admission gate.
+Every timestamp is taken after the tick's one host fetch, and no
+observability code reads a CUDA tensor: the layer adds no device
+synchronisation, and none of it runs inside a captured graph.
 
 A mesh (``mesh=``) raises ``NotImplementedError`` naming its ROADMAP item.
 
@@ -130,6 +147,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import contextlib
 import itertools
 import json
 import time
@@ -139,6 +157,7 @@ import numpy as np
 import torch
 
 from .. import default_device, flags
+from .. import observability as _obs
 from ..models.generation import (accept_draft_tokens, init_kv_cache,
                                  sample_tokens)
 from ..models.llama import _INV_127
@@ -167,14 +186,18 @@ class Request:
     prompt: np.ndarray                 # (plen,) int32
     max_new_tokens: int
     sampling: SamplingParams
-    t_submit: float = 0.0              # perf_counter at submit
+    t_submit: float = 0.0              # perf_counter at submit (SLO clock)
     # speculative engine: the request's drafter ('ngram', 'model', a
     # Drafter, or None for the engine's default)
     drafter: Optional[object] = None
-    uid: int = -1                      # request uid (``request_uid``)
+    uid: int = -1                      # RequestLog correlation uid
+    t_admit: float = 0.0               # perf_counter at admission
+    ttft_slo_ms: float = 0.0           # deadlines recorded at submit;
+    tpot_slo_ms: float = 0.0           # 0 = that deadline disabled
     priority: int = 0                  # preemption class (higher wins)
     preempt_count: int = 0             # times this request was preempted
     blocked_ticks: int = 0             # pool-full admission refusals
+    defer_ticks: int = 0               # predictive-admission deferrals
     # set only on the request a recompute preemption enqueues
     resume: Optional["_ResumeInfo"] = None
 
@@ -230,40 +253,26 @@ class _SwapResume:
     blocked_ticks: int = 0             # failed resume attempts
 
 
-class _SpecCounts:
-    """One drafter kind's share of the speculative counters."""
+class _Rejected(Exception):
+    """Admission refused at submit: the user-facing message with a stable
+    reason for the request log (``rejected`` event,
+    ``slo_violations{kind="rejected"}``)."""
 
-    def __init__(self):
-        self.drafted = self.hits = self.miss = self.rollbacks = 0
-        self.accept = _Hist()
-
-    def summary(self) -> Dict[str, object]:
-        return {"drafted_tokens": self.drafted,
-                "draft_hit_tokens": self.hits,
-                "draft_miss_tokens": self.miss,
-                "draft_hit_rate": (round(self.hits / self.drafted, 3)
-                                   if self.drafted else 0.0),
-                "rollbacks": self.rollbacks,
-                "accepted_per_step": self.accept.summary()}
+    def __init__(self, reason: str, msg: str):
+        super().__init__(msg)
+        self.reason = reason
 
 
-class _Hist:
-    """A latency series: observations kept, percentiles exact."""
-
-    def __init__(self):
-        self.values: List[float] = []
-
-    def observe(self, v: float) -> None:
-        self.values.append(float(v))
-
-    def summary(self) -> Dict[str, float]:
-        d = {"count": len(self.values)}
-        if self.values:
-            a = np.asarray(self.values)
-            d["mean"] = round(float(a.mean()), 3)
-            for q, k in ((50, "p50"), (90, "p90"), (99, "p99")):
-                d[k] = round(float(np.percentile(a, q)), 3)
-        return d
+def hist_summary(h) -> Dict[str, float]:
+    """A registry histogram's readout in :meth:`ServingEngine.metrics`:
+    count and the p50 / p90 / p99 the buckets interpolate (the
+    reference's)."""
+    d = {"count": h.count}
+    for q, k in ((0.5, "p50"), (0.9, "p90"), (0.99, "p99")):
+        p = h.percentile(q)
+        if p is not None:
+            d[k] = round(p, 3)
+    return d
 
 
 # constructor arguments of the reference engine that the port does not
@@ -271,12 +280,9 @@ class _Hist:
 _UNSUPPORTED = {
     "mesh": ((None,), "A8 (multi-GPU serving)"),
 }
-# engine instances label their build counters with their own id, so their
-# budgets are independent (the reference's ``_ENGINE_IDS``)
+# engine instances label their series and build counters with their own
+# id, so their budgets are independent (the reference's ``_ENGINE_IDS``)
 _ENGINE_IDS = itertools.count()
-# request uids: minted at submit unless the caller threads one through
-# (the reference's request log mints them; the log is ROADMAP A4)
-_UIDS = itertools.count()
 
 
 class _DemoteOp:
@@ -497,7 +503,7 @@ class ServingEngine:
         # chunked engine's mixed step is its serving.step site; its
         # decode step (chunk-free ticks) is labelled graph="decode"
         s = self.num_slots
-        eid = self._eid = next(_ENGINE_IDS)
+        eid = self._eid = str(next(_ENGINE_IDS))
         mb = self.max_blocks if self.paged else None
         label = "decode" if self.chunked else None
         if self.spec:
@@ -549,7 +555,6 @@ class ServingEngine:
         self._swap_resume: List[_SwapResume] = []
         self._resume_q: Deque[Request] = collections.deque()
         self._preempt_log: List[Dict[str, object]] = []
-        self._uids: Dict[int, int] = {}
         self._results: Dict[int, List[int]] = {}
         self._next_rid = 0
         self._ticks = 0
@@ -588,52 +593,365 @@ class ServingEngine:
                 else str(flags.flag("serving_spec_drafter")))
             self._drafters[getattr(self._drafter, "kind", "custom")] = \
                 self._drafter
+        # the per-tick roofline (reference :713-716): predictions are
+        # memoized host math, so a steady tick pays a dict lookup;
+        # FLAGS_perf_model "off" skips the layer
+        self._perf = (self._build_perf_model()
+                      if flags.flag("perf_model") == "on" else None)
 
     # -- metrics -------------------------------------------------------------
 
     def _init_metrics(self):
-        self._m_queue_wait = _Hist()
-        self._m_ttft = _Hist()
-        self._m_tpot = _Hist()
-        self._m_step_ms = _Hist()
-        self._m_mixed_ms = _Hist()
-        self._m_chunk_queue = _Hist()
-        self._m_prefill_ms = _Hist()
-        self._m_dequant_err = _Hist()
-        self._n_submitted = 0
-        self._n_finished = 0
-        self._n_tokens = 0
-        self._n_waves = 0
+        """Declare this engine's series in the registry (the reference's
+        ``_init_metrics``, ``paddle_tpu/serving/engine.py:1000``): names,
+        help texts and the ``engine=<id>`` label are the reference's, so
+        the two engines' snapshots compare series by series.  The port
+        adds ``serving.mixed_step_ms`` and ``serving.prefill_wave_ms``
+        (and keeps its tick counts as attributes).  Every update on the
+        tick's path is O(1) host work."""
+        reg = _obs.default_registry()
+        self._tracer = _obs.get_tracer()
+        self._rlog = _obs.get_request_log()
+        self._uids: Dict[int, int] = {}    # engine rid -> lifecycle uid
+        lbl = self._lbl = {"engine": self._eid}
+        hist, ctr, gauge = reg.histogram, reg.counter, reg.gauge
+        self._m_queue_wait = hist(
+            "serving.queue_wait_ms",
+            "submit → admission wait per request").labels(**lbl)
+        self._m_ttft = hist(
+            "serving.ttft_ms",
+            "time to first token: submit → first sampled token "
+            "fetched").labels(**lbl)
+        self._m_tpot = hist(
+            "serving.tpot_ms",
+            "per-token decode latency per finished request: "
+            "(t_last - t_first) / (tokens - 1)").labels(**lbl)
+        self._m_step_ms = hist(
+            "serving.decode_step_ms",
+            "wall time of one jitted decode step incl. the (num_slots,) "
+            "token fetch").labels(**lbl)
+        self._m_mixed_ms = hist(
+            "serving.mixed_step_ms",
+            "wall time of the chunked engine's ticks that carried a "
+            "prompt chunk (a subset of serving.decode_step_ms)").labels(
+                **lbl)
+        self._m_prefill_ms = hist(
+            "serving.prefill_wave_ms",
+            "wall time of one admission wave: prefill through its "
+            "first tokens' fetch").labels(**lbl)
+        self._m_active = gauge(
+            "serving.active_slots",
+            "busy slots at the last scheduler tick").labels(**lbl)
+        self._m_occ = gauge(
+            "serving.slot_occupancy",
+            "active_slots / num_slots at the last tick").labels(**lbl)
+        self._m_submitted = ctr(
+            "serving.requests_submitted", "submit() calls").labels(**lbl)
+        self._m_finished = ctr(
+            "serving.requests_finished",
+            "requests retired (all reasons)").labels(**lbl)
+        self._f_retired = ctr(
+            "serving.retired",
+            "retirements by reason: eos | max_new_tokens | max_length")
+        self._f_slo_viol = ctr(
+            "serving.slo_violations",
+            "requests that missed their recorded TTFT/TPOT deadline, by "
+            "attributed cause: rejected (admission refused) | queue_wait "
+            "| prefill (missed TTFT, split by larger segment) | decode "
+            "(missed TPOT); BASELINE.md 'SLO accounting conventions'")
+        self._m_tokens = ctr(
+            "serving.tokens_generated",
+            "sampled tokens returned to requests (prefill first tokens "
+            "included)").labels(**lbl)
+        self._f_bucket = ctr(
+            "serving.prefill_bucket",
+            "admission waves per padded prefill bucket length (paged: "
+            "suffix bucket)")
+        self._m_waves = ctr(
+            "serving.prefill_waves", "batched prefill waves").labels(**lbl)
+        self._m_blocked = ctr(
+            "serving.admission_blocked",
+            "admission attempts deferred because the paged pool could "
+            "not cover the request yet").labels(**lbl)
+        self._m_deferred = ctr(
+            "serving.admission_deferred",
+            "admission attempts held back by the predictive SLO gate "
+            "(serving_admission='predictive'): the cost model priced "
+            "the post-admission tick over the pooled TPOT deadline")\
+            .labels(**lbl)
+        self._m_prefill_computed = ctr(
+            "serving.prefill_tokens_computed",
+            "prompt tokens actually prefilled (pads excluded; prefix "
+            "hits skip these)").labels(**lbl)
+        self._m_prefill_total = ctr(
+            "serving.prefill_tokens_total",
+            "prompt tokens submitted across admitted requests").labels(
+                **lbl)
+        self._m_chunks = ctr(
+            "serving.prefill_chunks",
+            "prompt chunks folded into mixed steps (chunked "
+            "admission)").labels(**lbl)
+        self._m_chunk_tokens = ctr(
+            "serving.prefill_chunk_tokens",
+            "real prompt tokens carried by mixed-step chunks (chunk "
+            "padding excluded)").labels(**lbl)
+        self._m_chunk_queue = hist(
+            "serving.chunk_queue_depth",
+            "pending prefill chunks at each scheduler tick: the active "
+            "prompt's remaining chunks plus every queued prompt's",
+            buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512)).labels(
+                **lbl)
+        # speculative decode: accounting in COMMITTED tokens; every spec
+        # series has an engine-total child and a child a drafter kind
+        # (``drafter=`` label, built on first use by _spec_m)
+        self._f_drafted = ctr(
+            "serving.spec_drafted_tokens",
+            "draft tokens the drafter proposed (sent to verification)")
+        self._f_draft_hits = ctr(
+            "serving.spec_draft_hit_tokens",
+            "proposed draft tokens verified AND committed")
+        self._f_draft_miss = ctr(
+            "serving.spec_draft_miss_tokens",
+            "proposed draft tokens rejected by verification (rolled "
+            "back)")
+        self._f_rollbacks = ctr(
+            "serving.spec_rollbacks",
+            "row-steps whose rejected draft suffix was rolled back "
+            "(position pinned at the accept point; paged: draft-only "
+            "blocks returned via truncate_to)")
+        self._f_spec_accept = hist(
+            "serving.spec_accepted_per_step",
+            "tokens committed per active slot per verify step (1 = no "
+            "speculative win that step; k+1 = whole window accepted)",
+            buckets=(1, 2, 3, 4, 5, 6, 7, 8, 16))
+        self._m_drafted = self._f_drafted.labels(**lbl)
+        self._m_draft_hits = self._f_draft_hits.labels(**lbl)
+        self._m_draft_miss = self._f_draft_miss.labels(**lbl)
+        self._m_rollbacks = self._f_rollbacks.labels(**lbl)
+        self._m_spec_accept = self._f_spec_accept.labels(**lbl)
+        self._spec_children: Dict[str, tuple] = {}
+        self._m_demoted = ctr(
+            "serving.kv_demoted_blocks",
+            "mixed-mode blocks rewritten to simulated int8 at trie "
+            "registration").labels(**lbl)
+        self._m_dequant_err = hist(
+            "serving.kv_dequant_error",
+            "max |logit(bf16) - logit(int8-KV)| observed by a parity "
+            "oracle (tests / bench feed this; the engine never computes "
+            "it on the hot path)",
+            buckets=(1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1,
+                     1.0)).labels(**lbl)
+        # preemption and the host tier: swap bytes are pool traffic,
+        # never streamed-KV bytes
+        self._f_preempt = ctr(
+            "serving.preemptions",
+            "running slots evicted at blocked admission, by resume "
+            "mode: swap (chain parked on the host tier) | recompute "
+            "(chain freed, re-prefilled through the prefix trie)")
+        self._f_resumed = ctr(
+            "serving.resumes",
+            "preempted requests restored to a slot, by mode")
+        self._m_swap_out_bytes = ctr(
+            "serving.swap_out_bytes",
+            "HBM→host bytes moved by swap-outs and trie demotions "
+            "(pool traffic, not streamed KV bytes)").labels(**lbl)
+        self._m_swap_in_bytes = ctr(
+            "serving.swap_in_bytes",
+            "host→HBM bytes moved by swap-ins and trie "
+            "promotions").labels(**lbl)
+        self._m_cancelled = ctr(
+            "serving.cancelled",
+            "cancel() calls that found and tore down a live "
+            "request").labels(**lbl)
+        # migration bytes are pool traffic over the transport, never
+        # streamed-KV or swap bytes
+        self._m_mig_out = ctr(
+            "migration.requests_out",
+            "requests exported for cross-worker migration").labels(**lbl)
+        self._m_mig_in = ctr(
+            "migration.requests_in",
+            "migration records imported into this engine").labels(**lbl)
+        self._m_mig_bytes_out = ctr(
+            "migration.bytes_out",
+            "KV payload bytes serialized out by export_request "
+            "(block payloads + scale rows)").labels(**lbl)
+        self._m_mig_bytes_in = ctr(
+            "migration.bytes_in",
+            "KV payload bytes written into the pool by "
+            "import_request").labels(**lbl)
+        # the port's tick counts (no reference series)
         self._n_decode_ticks = 0
         self._n_mixed_ticks = 0
-        self._n_chunks = 0
-        self._n_chunk_tokens = 0
-        self._n_prefill_computed = 0
-        self._n_prefill_total = 0
-        self._n_blocked = 0
-        self._n_demoted = 0
-        self._swap_bytes = {"out": 0, "in": 0}
-        self._migrated = {"requests_out": 0, "requests_in": 0,
-                          "bytes_out": 0, "bytes_in": 0}
-        self._preemptions: Dict[str, int] = collections.Counter()
-        self._resumes: Dict[str, int] = collections.Counter()
-        self._occupancy = 0.0
-        self._retired: Dict[str, int] = collections.Counter()
-        # speculative decode (the reference's serving.spec_* series):
-        # engine totals, and the same by drafter kind
-        self._spec_total = _SpecCounts()
-        self._spec_kinds: Dict[str, _SpecCounts] = collections.defaultdict(
-            _SpecCounts)
+        self._tick_swap_bytes = 0      # host <-> device bytes this tick
+
+    def _spec_m(self, kind: str):
+        """The drafter-labelled spec children for one drafter kind:
+        (drafted, hits, miss, rollbacks, accept_hist), built on first
+        use (reference :1182)."""
+        m = self._spec_children.get(kind)
+        if m is None:
+            lbl = dict(self._lbl, drafter=kind)
+            m = self._spec_children[kind] = (
+                self._f_drafted.labels(**lbl),
+                self._f_draft_hits.labels(**lbl),
+                self._f_draft_miss.labels(**lbl),
+                self._f_rollbacks.labels(**lbl),
+                self._f_spec_accept.labels(**lbl))
+        return m
+
+    def _set_occupancy(self, n: int) -> None:
+        self._m_active.set(n)
+        self._m_occ.set(n / self.num_slots if self.num_slots else 0.0)
+
+    # -- cost model / perf attribution (reference :719-800) ------------------
+
+    def _model_bytes(self) -> Tuple[int, int]:
+        """(weight bytes, parameter count) the tick streams: every
+        parameter and buffer of the served model (an int8-weight wrapper's
+        int8 payloads and scales; the RoPE tables), each counted once.
+        The reference counts its params tree, which holds the same
+        tensors (see ROADMAP §C on where the two differ)."""
+        seen = set()
+        nbytes = n = 0
+        for t in itertools.chain(self.model.parameters(),
+                                 self.model.buffers()):
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            nbytes += t.numel() * t.element_size()
+            n += t.numel()
+        return int(nbytes), int(n)
+
+    def _build_perf_model(self):
+        """The tick roofline (reference ``_build_perf_model``, :719): the
+        model's bytes (int8 weights shrink the weight-stream term), the
+        pool's dtype-aware per-token KV cost, no collective term (no
+        mesh), priced on ``resolve_profile()`` for this engine's device
+        (``h100`` on the card)."""
+        from ..observability import costmodel as _cm
+        weight_bytes, n_params = self._model_bytes()
+        # int8 scale granule: a block in the paged pool, 128 positions in
+        # the contiguous one (models/generation.init_kv_cache)
+        kv_tok = _cm.kv_bytes_per_token(
+            self.config, self.kv_dtype,
+            block_len=self.block_len if self.paged else 128)
+        model = _cm.CostModel(
+            _cm.resolve_profile(device=self.device),
+            weight_bytes=weight_bytes, n_params=n_params,
+            kv_token_bytes=kv_tok, num_slots=self.num_slots)
+        return _cm.TickAttribution(model, engine_id=self._eid)
+
+    def _perf_tick(self, measured_ms: float, occ: int,
+                   chunk_tokens: int = 0) -> None:
+        """Stamp one measured tick with the model's prediction at the
+        tick's occupancy, live depths (the host mirrors, still
+        pre-advance: the depths the step just read) and chunk; host <->
+        device bytes moved since the last dispatch ride along as the swap
+        term (reference :747)."""
+        swap_bytes, self._tick_swap_bytes = self._tick_swap_bytes, 0
+        if self._perf is None:
+            return
+        live = int(self._positions[self._active].sum()) if occ else 0
+        self._perf.on_tick(
+            measured_ms, occ=occ, live_tokens=live,
+            chunk_tokens=chunk_tokens,
+            window=self.spec_k + 1 if self.spec else 1,
+            swap_bytes=swap_bytes)
+
+    def perf_report(self) -> Dict[str, object]:
+        """Predicted-vs-measured attribution for this engine: per-bound
+        tick shares, per-term predicted totals, measured / predicted ratio
+        percentiles, drift findings and anomaly counts (reference :765).
+        The predicted side is a pure function of the schedule
+        (``observability.perf_signature``)."""
+        if self._perf is None:
+            return {"enabled": False}
+        return dict(self._perf.report(), enabled=True)
+
+    # -- predictive SLO admission (reference :779-860) ----------------------
+
+    def admission_armed(self) -> bool:
+        """True when the predictive gate prices admissions:
+        FLAGS_serving_admission is "predictive", the cost model is built
+        and it carries no drift finding."""
+        return (self._perf is not None
+                and str(flags.flag("serving_admission")) == "predictive"
+                and not self._perf.has_drift())
+
+    def admission_probe(self, prompt_len: int) -> Optional[Dict[str, float]]:
+        """Price admitting one more request now: the predicted
+        post-admission tick (the per-slot TPOT) and a coarse TTFT (ticks
+        to drain the backlog ahead, a wave a tick, times the tick); None
+        when FLAGS_perf_model is off."""
+        if self._perf is None:
+            return None
+        occ_now = self.num_active
+        backlog = self.queue_depth + self.num_pending + self.num_preempted
+        occ_after = min(self.num_slots, occ_now + backlog + 1)
+        live = int(self._positions[self._active].sum()) if occ_now else 0
+        chunk = (self.prefill_chunk
+                 if self.chunked and (backlog or self._cursor is not None)
+                 else 0)
+        pred = self._perf.model.predicted_tick_ms(
+            occ_after, live + int(prompt_len), chunk_tokens=chunk,
+            window=self.spec_k + 1 if self.spec else 1)
+        waves = 1 + backlog // max(1, self.prefill_batch)
+        return {"predicted_tick_ms": pred,
+                "predicted_tpot_ms": pred,
+                "predicted_ttft_ms": pred * waves,
+                "occupancy_after": float(occ_after),
+                "backlog": float(backlog)}
+
+    def _admission_defer(self, req: Request, occ_after: int,
+                         live_after: int, chunk_tokens: int = 0) -> bool:
+        """The gate: True holds ``req`` in the submit queue this tick.  A
+        pure function of scheduler state (no wall clock); never defers
+        into an empty engine, never a recompute resume, and ages out after
+        FLAGS_serving_admission_max_defer_ticks."""
+        if req.resume is not None or not self.admission_armed():
+            return False
+        if occ_after <= 1:
+            return False
+        maxd = int(flags.flag("serving_admission_max_defer_ticks"))
+        if maxd > 0 and req.defer_ticks >= maxd:
+            return False
+        # the pooled guard: the tightest TPOT deadline among running
+        # slots and the candidate itself
+        guards = [s.req.tpot_slo_ms for s in self._slots
+                  if s is not None and s.req is not None
+                  and s.req.tpot_slo_ms > 0]
+        if req.tpot_slo_ms > 0:
+            guards.append(req.tpot_slo_ms)
+        if not guards:
+            return False
+        pred = self._perf.model.predicted_tick_ms(
+            occ_after, live_after, chunk_tokens=chunk_tokens,
+            window=self.spec_k + 1 if self.spec else 1)
+        calib = float(flags.flag("serving_admission_calib"))
+        slack = float(flags.flag("serving_admission_slack"))
+        return pred * calib > min(guards) * slack
+
+    def _defer(self, req: Request) -> None:
+        """Account one predictive deferral (the request stays at its
+        place in the submit queue)."""
+        req.defer_ticks += 1
+        self._m_deferred.inc()
+        self._tracer.instant("serving.admission_deferred",
+                             rid=req.request_id)
+        if req.defer_ticks == 1:
+            self._rlog.event(req.uid, "admission_deferred",
+                             engine=self._eid, reason="predicted_slo")
 
     @property
     def prefill_tokens_computed(self) -> int:
         """Prompt tokens actually prefilled (pads excluded; paged prefix
         hits skip these — computed < total proves the cache worked)."""
-        return self._n_prefill_computed
+        return int(self._m_prefill_computed.value())
 
     @property
     def prefill_tokens_total(self) -> int:
-        return self._n_prefill_total
+        return int(self._m_prefill_total.value())
+
 
     @property
     def step_traces(self) -> int:
@@ -704,37 +1022,43 @@ class ServingEngine:
         return len(self._swap_resume) + len(self._resume_q)
 
     def metrics(self) -> Dict[str, object]:
-        """The reference engine's key names for what this slice counts:
-        latency percentiles (ms), occupancy, request/token/wave counters,
-        plus ``ticks`` (scheduler ticks that dispatched work: waves, decode
-        and mixed steps), ``decode_ticks`` (ticks that ran the decode step
-        alone), ``step_traces`` and ``graph_replays`` (ticks that replayed
-        a CUDA graph), ``prefill_traces`` and ``prefill_graph_replays``
-        (waves that replayed a CUDA graph), ``cancelled`` and
-        ``migration`` (requests and payload bytes exported and imported);
-        the paged engine adds the pool's accounting under ``kv_cache``
-        (with a host tier its ``host_tier`` block: blocks used, demotions,
-        promotions, swapped blocks and bytes; a mixed pool's
-        ``demoted_blocks`` and ``demote_traces``), a preempting engine
-        the reference's ``preempt`` block (preemptions and resumes by
-        mode, requests awaiting resume, decisions, their signature), the
-        chunked engine
-        ``mixed_ticks`` (ticks that carried a chunk), ``mixed_step_ms``,
-        ``decode_step_traces`` and the reference's ``chunked`` block, the
-        speculative engine the reference's ``spec`` block (an N-token
-        accept is one step, one ``accepted_per_step`` observation and N
-        tokens) and ``draft_traces`` (builds of the draft model's draft
-        step; 0 without one)."""
-        out = {"ttft_ms": self._m_ttft.summary(),
-               "tpot_ms": self._m_tpot.summary(),
-               "queue_wait_ms": self._m_queue_wait.summary(),
-               "decode_step_ms": self._m_step_ms.summary(),
-               "prefill_wave_ms": self._m_prefill_ms.summary(),
-               "slot_occupancy": round(self._occupancy, 3),
-               "requests_submitted": self._n_submitted,
-               "requests_finished": self._n_finished,
-               "tokens_generated": self._n_tokens,
-               "prefill_waves": self._n_waves,
+        """This engine's series read back from the registry, under the
+        reference engine's key names: latency readouts (ms: count, p50,
+        p90, p99 from the buckets), occupancy, request / token / wave
+        counters, ``slo_violations`` by cause, ``retired`` by reason,
+        plus ``ticks`` (scheduler ticks that dispatched work: waves,
+        decode and mixed steps), ``decode_ticks`` (ticks that ran the
+        decode step alone), ``step_traces`` and ``graph_replays`` (ticks
+        that replayed a CUDA graph), ``prefill_wave_ms``,
+        ``prefill_traces`` and ``prefill_graph_replays`` (waves that
+        replayed a CUDA graph), ``cancelled`` and ``migration`` (requests
+        and payload bytes exported and imported).  ``decode_step_ms``
+        times every tick that ran a step (the chunked engine's mixed ticks
+        too, as the reference's does).  The paged engine adds the pool's
+        accounting under ``kv_cache`` (with a host tier its ``host_tier``
+        block; a mixed pool's ``demoted_blocks`` and ``demote_traces``),
+        a preempting engine the reference's ``preempt`` block, the chunked
+        engine ``mixed_ticks`` (ticks that carried a chunk),
+        ``mixed_step_ms``, ``decode_step_traces`` and the reference's
+        ``chunked`` block, the speculative engine the reference's ``spec``
+        block (an N-token accept is one step, one ``accepted_per_step``
+        observation and N tokens) and ``draft_traces``.
+        ``observability.snapshot()`` is the process-wide superset."""
+        def by_label(fam, key):
+            return {str(c.labels[key]): int(c.value())
+                    for c in fam.children()
+                    if c.labels.get("engine") == self._eid}
+
+        out = {"ttft_ms": hist_summary(self._m_ttft),
+               "tpot_ms": hist_summary(self._m_tpot),
+               "queue_wait_ms": hist_summary(self._m_queue_wait),
+               "decode_step_ms": hist_summary(self._m_step_ms),
+               "prefill_wave_ms": hist_summary(self._m_prefill_ms),
+               "slot_occupancy": round(self._m_occ.value(), 3),
+               "requests_submitted": int(self._m_submitted.value()),
+               "requests_finished": int(self._m_finished.value()),
+               "tokens_generated": int(self._m_tokens.value()),
+               "prefill_waves": int(self._m_waves.value()),
                "ticks": self._ticks,
                "decode_ticks": self._n_decode_ticks,
                "step_traces": self.step_traces,
@@ -743,36 +1067,44 @@ class ServingEngine:
                "prefill_traces": self.prefill_traces,
                "prefill_graph_replays": sum(
                    st.replays for st in self._prefill_steps.values()),
-               "prefill_tokens_computed": self._n_prefill_computed,
-               "prefill_tokens_total": self._n_prefill_total,
-               "retired": dict(self._retired),
-               "cancelled": self._retired["cancelled"],
-               "migration": dict(self._migrated)}
-        if self._m_dequant_err.values:
-            out["kv_dequant_error"] = self._m_dequant_err.summary()
+               "prefill_tokens_computed": self.prefill_tokens_computed,
+               "prefill_tokens_total": self.prefill_tokens_total,
+               "slo_violations": by_label(self._f_slo_viol, "kind"),
+               "retired": by_label(self._f_retired, "reason"),
+               "cancelled": int(self._m_cancelled.value()),
+               "migration": {
+                   "requests_out": int(self._m_mig_out.value()),
+                   "requests_in": int(self._m_mig_in.value()),
+                   "bytes_out": int(self._m_mig_bytes_out.value()),
+                   "bytes_in": int(self._m_mig_bytes_in.value())}}
+        if self._m_dequant_err.count:
+            out["kv_dequant_error"] = hist_summary(self._m_dequant_err)
         if self.spec:
             out["spec"] = {"spec_k": self.spec_k,
                            "default_drafter": getattr(self._drafter, "kind",
                                                       "custom"),
-                           **self._spec_total.summary()}
-            if self._spec_kinds:
+                           **self._spec_summary(
+                               self._m_drafted, self._m_draft_hits,
+                               self._m_draft_miss, self._m_rollbacks,
+                               self._m_spec_accept)}
+            if self._spec_children:
                 out["spec"]["by_drafter"] = {
-                    k: c.summary() for k, c in sorted(
-                        self._spec_kinds.items())}
+                    k: self._spec_summary(*m) for k, m in sorted(
+                        self._spec_children.items())}
             out["draft_traces"] = self.draft_traces
         if self.chunked:
             out["mixed_ticks"] = self._n_mixed_ticks
-            out["mixed_step_ms"] = self._m_mixed_ms.summary()
+            out["mixed_step_ms"] = hist_summary(self._m_mixed_ms)
             out["decode_step_traces"] = self.decode_step_traces
             out["chunked"] = {
                 "prefill_chunk": self.prefill_chunk,
                 "chunk_policy": self._chunk_policy,
-                "prefill_chunks": self._n_chunks,
-                "prefill_chunk_tokens": self._n_chunk_tokens,
-                "chunk_queue_depth": self._m_chunk_queue.summary()}
+                "prefill_chunks": int(self._m_chunks.value()),
+                "prefill_chunk_tokens": int(self._m_chunk_tokens.value()),
+                "chunk_queue_depth": hist_summary(self._m_chunk_queue)}
         if self.paged:
             st = self.kv.stats
-            total = self._n_prefill_total
+            total = self.prefill_tokens_total
             out["kv_cache"] = {
                 "kv_dtype": self.kv.kv_dtype,
                 "quantized_blocks": st["quantized_blocks"],
@@ -788,9 +1120,10 @@ class ServingEngine:
                                          3) if total else 0.0,
                 "evictions": st["evictions"],
                 "cow_copies": st["cow_copies"],
-                "admission_blocked": self._n_blocked}
+                "admission_blocked": int(self._m_blocked.value())}
             if self.kv_dtype == "mixed":
-                out["kv_cache"]["demoted_blocks"] = self._n_demoted
+                out["kv_cache"]["demoted_blocks"] = int(
+                    self._m_demoted.value())
                 out["kv_cache"]["demote_traces"] = self.demote_traces
             if self._host_blocks > 0:
                 out["kv_cache"]["host_tier"] = {
@@ -801,31 +1134,56 @@ class ServingEngine:
                     **{k: st[k] for k in (
                         "host_demotions", "host_promotions",
                         "swapped_out_blocks", "swapped_in_blocks")},
-                    "swap_out_bytes": self._swap_bytes["out"],
-                    "swap_in_bytes": self._swap_bytes["in"]}
+                    "swap_out_bytes": int(self._m_swap_out_bytes.value()),
+                    "swap_in_bytes": int(self._m_swap_in_bytes.value())}
             if self.preempt != "off":
                 out["preempt"] = {
                     "mode": self.preempt,
-                    "preemptions": dict(self._preemptions),
-                    "resumes": dict(self._resumes),
+                    "preemptions": by_label(self._f_preempt, "mode"),
+                    "resumes": by_label(self._f_resumed, "mode"),
                     "awaiting_resume": self.num_preempted,
                     "decisions": len(self._preempt_log),
                     "signature": self.preempt_signature()}
         return out
+
+    @staticmethod
+    def _spec_summary(drafted, hits, miss, rollbacks, accept
+                      ) -> Dict[str, object]:
+        """One spec block (engine total or a drafter kind's) read from
+        its children; the hit rate's denominator is that block's own
+        proposals."""
+        d, h = int(drafted.value()), int(hits.value())
+        acc = hist_summary(accept)
+        if acc["count"]:
+            acc["mean"] = round(accept.sum / acc["count"], 3)
+        return {"drafted_tokens": d,
+                "draft_hit_tokens": h,
+                "draft_miss_tokens": int(miss.value()),
+                "draft_hit_rate": round(h / d, 3) if d else 0.0,
+                "rollbacks": int(rollbacks.value()),
+                "accepted_per_step": acc}
 
     # -- public API ------------------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                sampling: Optional[SamplingParams] = None,
                drafter=None, priority: int = 0,
-               request_uid: Optional[int] = None) -> int:
+               request_uid: Optional[int] = None,
+               ttft_slo_ms: Optional[float] = None,
+               tpot_slo_ms: Optional[float] = None) -> int:
         """Enqueue a request; returns its id.  Admission happens inside
         ``step()`` as slots free up (FIFO; with ``preempt`` armed, by
         ``priority`` class, higher first, FIFO within a class, and a
         blocked admission may preempt a running request of lower
         priority: :meth:`_try_preempt`).  ``request_uid`` threads an
-        existing uid through (a router minted it); None mints one
-        (:meth:`request_uid`).  Raises ``ValueError`` for an
+        existing uid through (a router minted it and logged
+        ``submitted``); None mints one from the request log and logs
+        ``submitted`` (:meth:`request_uid`).  ``ttft_slo_ms`` /
+        ``tpot_slo_ms``: the request's deadlines (None reads
+        ``FLAGS_serving_slo_ttft_ms`` / ``FLAGS_serving_slo_tpot_ms``; 0
+        disables one), recorded for the SLO accounting at retirement.
+        A refused request logs ``rejected`` and counts in
+        ``slo_violations["rejected"]``.  Raises ``ValueError`` for an
         empty prompt (``bad_prompt``), ``max_new_tokens < 1``
         (``bad_max_new_tokens``) or a request longer than ``max_length``
         (``too_long``), and in the paged engine for a request needing more
@@ -834,36 +1192,62 @@ class ServingEngine:
         ``"ngram"``, ``"model"`` or a ``Drafter`` (string kinds are built
         once an engine); None takes the engine's."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        if prompt.size < 1:
-            raise ValueError("prompt must contain at least one token")
-        if max_new_tokens < 1:
-            raise ValueError(
-                f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        if prompt.size + max_new_tokens > self.max_length:
-            raise ValueError(
-                f"prompt ({prompt.size}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds the engine's max_length "
-                f"({self.max_length})")
-        if self.paged:
-            need = self.kv.blocks_needed(prompt.size, max_new_tokens)
-            if need > self.kv.usable_blocks:
-                raise ValueError(
-                    f"request needs {need} KV blocks but the pool only has "
-                    f"{self.kv.usable_blocks} usable blocks")
+        if ttft_slo_ms is None:
+            ttft_slo_ms = float(flags.flag("serving_slo_ttft_ms"))
+        if tpot_slo_ms is None:
+            tpot_slo_ms = float(flags.flag("serving_slo_tpot_ms"))
+        if request_uid is None:
+            uid = self._rlog.new_uid()
+            self._rlog.event(
+                uid, "submitted", engine=self._eid,
+                prompt_len=int(prompt.size),
+                max_new_tokens=int(max_new_tokens),
+                ttft_slo_ms=float(ttft_slo_ms),
+                tpot_slo_ms=float(tpot_slo_ms))
+        else:
+            uid = int(request_uid)
+        try:
+            if prompt.size < 1:
+                raise _Rejected("bad_prompt",
+                                "prompt must contain at least one token")
+            if max_new_tokens < 1:
+                raise _Rejected(
+                    "bad_max_new_tokens",
+                    f"max_new_tokens must be >= 1, got {max_new_tokens}")
+            if prompt.size + max_new_tokens > self.max_length:
+                raise _Rejected(
+                    "too_long",
+                    f"prompt ({prompt.size}) + max_new_tokens "
+                    f"({max_new_tokens}) exceeds the engine's max_length "
+                    f"({self.max_length})")
+            if self.paged:
+                need = self.kv.blocks_needed(prompt.size, max_new_tokens)
+                if need > self.kv.usable_blocks:
+                    raise _Rejected(
+                        "pool_too_small",
+                        f"request needs {need} KV blocks but the pool "
+                        f"only has {self.kv.usable_blocks} usable blocks")
+        except _Rejected as e:
+            self._rlog.event(uid, "rejected", engine=self._eid,
+                             reason=e.reason)
+            self._f_slo_viol.labels(engine=self._eid,
+                                    kind="rejected").inc()
+            raise ValueError(str(e)) from None
         rid = self._next_rid
         self._next_rid += 1
         self._results[rid] = []
-        uid = next(_UIDS) if request_uid is None else int(request_uid)
         self._uids[rid] = uid
-        self._queue.append(Request(rid, prompt, int(max_new_tokens),
-                                   sampling or SamplingParams(),
-                                   t_submit=self._clock(), drafter=drafter,
-                                   uid=uid, priority=int(priority)))
-        self._n_submitted += 1
+        self._queue.append(Request(
+            rid, prompt, int(max_new_tokens), sampling or SamplingParams(),
+            t_submit=self._clock(), drafter=drafter, uid=uid,
+            ttft_slo_ms=float(ttft_slo_ms), tpot_slo_ms=float(tpot_slo_ms),
+            priority=int(priority)))
+        self._m_submitted.inc()
         return rid
 
     def request_uid(self, rid: int) -> int:
-        """The uid behind engine request ``rid`` (kept across a migration:
+        """The lifecycle uid behind engine request ``rid``: the key into
+        ``observability.get_request_log()`` (kept across a migration:
         :meth:`import_request` adopts the record's)."""
         return self._uids[rid]
 
@@ -874,9 +1258,10 @@ class ServingEngine:
         once."""
         if (not self._queue and not self._resume_q and not self._swap_resume
                 and not self._active.any() and self._cursor is None):
-            self._occupancy = 0.0
+            self._set_occupancy(0)
             return []
-        with torch.no_grad():
+        with torch.no_grad(), self._tracer.span("serving.step",
+                                                tick=self._ticks):
             if self.chunked:
                 return self._step_inner_chunked()
             if self.spec:
@@ -909,7 +1294,7 @@ class ServingEngine:
         delta against a full-precision run of the same trace — in
         ``metrics()["kv_dequant_error"]``.  For oracle runs; the serving
         path never computes logits twice."""
-        self._m_dequant_err.observe(max_abs_logit_delta)
+        self._m_dequant_err.observe(float(max_abs_logit_delta))
 
     @property
     def num_active(self) -> int:
@@ -918,6 +1303,12 @@ class ServingEngine:
     @property
     def queue_depth(self) -> int:
         return len(self._queue)
+
+    @property
+    def num_pending(self) -> int:
+        """Requests admitted but still prefilling (the chunked engine's
+        cursor; 0 in wave mode, where admission prefills in its tick)."""
+        return int(self._cursor is not None)
 
     # -- the mixed pool's demotions and the block movers --------------------
 
@@ -934,7 +1325,7 @@ class ServingEngine:
         self._pending_demote.clear()
         for bid in pending:
             self._demote_fn(bid)
-        self._n_demoted += len(pending)
+        self._m_demoted.inc(len(pending))
 
     def _leaves(self) -> Tuple[torch.Tensor, ...]:
         """The cache's tensors: the pool, or the int8 pool's payload and
@@ -977,7 +1368,9 @@ class ServingEngine:
         for bid, hid in pairs:
             payload = self._read_block(bid)
             tier.put(hid, payload)
-            self._swap_bytes["out"] += self._payload_bytes(payload)
+            nbytes = self._payload_bytes(payload)
+            self._tick_swap_bytes += nbytes
+            self._m_swap_out_bytes.inc(nbytes)
 
     def _host_swap_in(self, pairs) -> None:
         """The manager's ``on_swap_in`` (:1680): each ``(hid, bid)`` pair's
@@ -986,17 +1379,19 @@ class ServingEngine:
         for hid, bid in pairs:
             payload = tier.get(hid)
             self._write_block(bid, payload)
-            self._swap_bytes["in"] += self._payload_bytes(payload)
+            nbytes = self._payload_bytes(payload)
+            self._tick_swap_bytes += nbytes
+            self._m_swap_in_bytes.inc(nbytes)
 
     # -- preemption (reference engine.py:1699-1911) --------------------------
 
     def _try_preempt(self, *, priority: int, rid: int,
                      blocked_ticks: int) -> bool:
         """Pick and preempt ONE victim so the blocked waiter's admission
-        can retry (:1699).  Victims rank by (priority ascending, shortest
-        progress, youngest request, slot); the reference ranks the loosest
-        TTFT deadline second, and with no deadlines (ROADMAP A4) every
-        victim ties there.  A strictly lower-priority victim is preempted
+        can retry (:1699).  Victims rank by (priority ascending, loosest
+        TTFT deadline first (the relative budget; none ranks loosest),
+        shortest progress, youngest request, slot).  A strictly
+        lower-priority victim is preempted
         at once; one of the same priority only after the waiter has been
         blocked ``FLAGS_serving_preempt_after`` ticks, and never one that
         was preempted before.  Returns True when a victim was preempted
@@ -1016,8 +1411,9 @@ class ServingEngine:
                 pass                       # the fairness gate passed
             else:
                 continue
+            dl = vr.ttft_slo_ms if vr.ttft_slo_ms > 0 else float("inf")
             prog = len(self._results[vr.request_id])
-            cands.append(((vr.priority, prog, -vr.request_id, i), i))
+            cands.append(((vr.priority, -dl, prog, -vr.request_id, i), i))
         if not cands:
             return False
         _, victim = min(cands)
@@ -1044,8 +1440,17 @@ class ServingEngine:
             "tick": self._ticks, "victim_rid": req.request_id,
             "waiter_rid": waiter_rid, "mode": mode, "slot": i,
             "progress": len(gen)})
-        self._preemptions[mode] += 1
+        self._f_preempt.labels(engine=self._eid, mode=mode).inc()
+        self._tracer.instant("serving.preempted", rid=req.request_id,
+                             mode=mode, slot=i)
+        self._rlog.event(req.uid, "preempted", engine=self._eid,
+                         mode=mode, slot=int(i), tokens=len(gen),
+                         waiter=int(waiter_rid))
         if mode == "swap":
+            n_host = sum(1 for e in record["entries"] if e[0] == "host")
+            self._rlog.event(req.uid, "swapped_out", engine=self._eid,
+                             blocks=len(record["entries"]),
+                             host_blocks=int(n_host))
             self._push_swap_resume(_SwapResume(
                 req=req, record=record, last_token=int(self._tokens[i]),
                 position=int(self._positions[i]), remaining=slot.remaining,
@@ -1084,9 +1489,10 @@ class ServingEngine:
         """The next request to admit and the queue it lives in (:1815):
         with preemption off, recompute resumes (none unless preemption
         ran) then FIFO; with it armed, across both queues by (-priority,
-        request id).  (The reference's predictive admission gate, which
-        also picks this way, is ROADMAP A6.)"""
-        if self.preempt == "off":
+        request id), as with the predictive admission gate armed (a
+        deferred batch head must not block the interactive class its
+        deferral protects)."""
+        if self.preempt == "off" and not self.admission_armed():
             src = self._resume_q if self._resume_q else self._queue
             return src, src[0]
         best = None
@@ -1149,7 +1555,13 @@ class ServingEngine:
                        req, entry.last_token, entry.position)
             self.kv.register_prompt_upto(si, req.prompt,
                                          int(req.prompt.size))
-            self._resumes["swap"] += 1
+            self._rlog.event(req.uid, "swapped_in", engine=self._eid,
+                             slot=int(si), blocks=int(got))
+            self._rlog.event(req.uid, "resumed", engine=self._eid,
+                             mode="swap", slot=int(si))
+            self._f_resumed.labels(engine=self._eid, mode="swap").inc()
+            self._tracer.instant("serving.resumed", rid=req.request_id,
+                                 mode="swap", slot=int(si))
 
     def preempt_signature(self) -> str:
         """SHA-256 over the ordered preemption decisions (victim, waiter,
@@ -1169,7 +1581,8 @@ class ServingEngine:
                        ) -> Optional[Dict[str, object]]:
         """Serialise a DECODING request for another engine (:1912): the
         slot state a swap resume restores (position, last token, decode
-        budget, sampling, priority, uid) and its KV chain by value
+        budget, sampling, priority, SLO deadlines, uid) and its KV chain
+        by value
         (``BlockManager.export_blocks`` through :meth:`_read_block`: an
         int8 block's scales travel with it).  None when ``rid`` is not in
         a decode slot.  ``release`` frees the slot and its blocks after
@@ -1198,10 +1611,18 @@ class ServingEngine:
                              "top_k": int(req.sampling.top_k),
                              "top_p": float(req.sampling.top_p)},
                 "priority": int(req.priority),
+                "ttft_slo_ms": float(req.ttft_slo_ms),
+                "tpot_slo_ms": float(req.tpot_slo_ms),
                 "blocks": blocks,
                 "payload_bytes": int(nbytes)}
-            self._migrated["requests_out"] += 1
-            self._migrated["bytes_out"] += int(nbytes)
+            self._m_mig_out.inc()
+            self._m_mig_bytes_out.inc(nbytes)
+            self._rlog.event(req.uid, "exported", engine=self._eid,
+                             slot=int(i), blocks=len(blocks["entries"]),
+                             bytes=int(nbytes))
+            self._tracer.instant("migration.export", rid=rid,
+                                 blocks=len(blocks["entries"]),
+                                 bytes=int(nbytes))
             if release:
                 self._release(i)
             return record
@@ -1237,6 +1658,8 @@ class ServingEngine:
                                      top_k=int(sp["top_k"]),
                                      top_p=float(sp["top_p"])),
                       t_submit=self._clock(), uid=uid,
+                      ttft_slo_ms=float(record.get("ttft_slo_ms", 0.0)),
+                      tpot_slo_ms=float(record.get("tpot_slo_ms", 0.0)),
                       priority=int(record["priority"]))
         self._results[rid] = list(record["generated"])
         self._uids[rid] = uid
@@ -1246,28 +1669,34 @@ class ServingEngine:
                                       else 0.0), prompt=prompt, req=req),
                    req, int(record["last_token"]), int(record["position"]))
         self.kv.register_prompt_upto(si, prompt, int(prompt.size))
-        self._migrated["requests_in"] += 1
-        self._migrated["bytes_in"] += int(record.get("payload_bytes", 0))
+        nbytes = int(record.get("payload_bytes", 0))
+        self._m_mig_in.inc()
+        self._m_mig_bytes_in.inc(nbytes)
+        self._rlog.event(uid, "imported", engine=self._eid, slot=int(si),
+                         blocks=int(got), bytes=nbytes)
+        self._tracer.instant("migration.import", rid=rid, blocks=int(got),
+                             bytes=nbytes)
         return rid
 
     def cancel(self, rid: int) -> bool:
         """Tear request ``rid`` down wherever it is (:2056) — queued,
         awaiting a recompute resume, swapped out, mid chunked prefill or
-        decoding — freeing its blocks as a release does.  Returns True if
-        it was found, False if unknown or finished.  Partial output stays
-        readable (``result``).  (The reference also logs a ``retired``
-        event and an SLO violation ``cancelled``: ROADMAP A4.)"""
+        decoding — freeing its blocks as a release does, with a
+        ``retired(reason="cancelled")`` event and the ``cancelled`` SLO
+        bucket.  Returns True if it was found, False if unknown or
+        finished.  Partial output stays readable (``result``)."""
         for q in (self._queue, self._resume_q):
             for req in q:
                 if req.request_id == rid:
                     q.remove(req)
-                    self._finish_cancel()
+                    self._finish_cancel(
+                        req if req.resume is None else req.resume.orig)
                     return True
         for k, entry in enumerate(self._swap_resume):
             if entry.req.request_id == rid:
                 self._swap_resume.pop(k)
                 self.kv.drop_swap_record(entry.record)
-                self._finish_cancel()
+                self._finish_cancel(entry.req)
                 return True
         pf = self._cursor
         if pf is not None and pf.req.request_id == rid:
@@ -1276,18 +1705,27 @@ class ServingEngine:
             if self.paged:
                 self.kv.release(pf.slot)
                 self._tables[pf.slot] = 0
-            self._finish_cancel()
+            self._finish_cancel(
+                pf.req if pf.req.resume is None else pf.req.resume.orig)
             return True
         for i, slot in enumerate(self._slots):
             if slot is not None and slot.rid == rid:
+                req = slot.req
                 self._release(i)
-                self._finish_cancel()
+                self._finish_cancel(req)
                 return True
         return False
 
-    def _finish_cancel(self) -> None:
-        self._n_finished += 1
-        self._retired["cancelled"] += 1
+    def _finish_cancel(self, req: Request) -> None:
+        tokens = len(self._results.get(req.request_id, []))
+        self._m_finished.inc()
+        self._m_cancelled.inc()
+        self._f_retired.labels(engine=self._eid, reason="cancelled").inc()
+        self._f_slo_viol.labels(engine=self._eid, kind="cancelled").inc()
+        self._rlog.event(req.uid, "retired", engine=self._eid,
+                         reason="cancelled", tokens=int(tokens),
+                         violation="cancelled")
+        self._tracer.instant("serving.cancelled", rid=req.request_id)
 
     # -- device work -------------------------------------------------------------
 
@@ -1438,15 +1876,17 @@ class ServingEngine:
     def _step_inner(self) -> List[int]:
         finished = self._admit()
         occ = int(self._active.sum())
-        self._occupancy = occ / self.num_slots if self.num_slots else 0.0
+        self._set_occupancy(occ)
         if not occ:
             return finished
         self._ticks += 1
         self._n_decode_ticks += 1
         t0 = self._clock()
-        nxt = self._decode()
+        with self._tracer.span("serving.decode", slots=occ):
+            nxt = self._decode()
         now = self._clock()
         self._m_step_ms.observe((now - t0) * 1e3)
+        self._perf_tick((now - t0) * 1e3, occ)
         finished.extend(self._advance_decode(nxt, now))
         return finished
 
@@ -1461,7 +1901,7 @@ class ServingEngine:
             self._tokens[i] = tok
             self._results[slot.rid].append(tok)
             slot.remaining -= 1
-            self._n_tokens += 1
+            self._m_tokens.inc()
             reason = self._finish_reason(tok, slot, i)
             if reason is not None:
                 finished.append(slot.rid)
@@ -1569,8 +2009,8 @@ class ServingEngine:
         return ok, device_q
 
     def _count_drafted(self, kind: str, m: int) -> None:
-        self._spec_total.drafted += m
-        self._spec_kinds[kind].drafted += m
+        self._m_drafted.inc(m)
+        self._spec_m(kind)[0].inc(m)
 
     def _decode_part(self, logits: torch.Tensor, greedy: torch.Tensor,
                      device_q) -> torch.Tensor:
@@ -1621,20 +2061,25 @@ class ServingEngine:
         staging needs them)."""
         finished = self._admit()
         occ = int(self._active.sum())
-        self._occupancy = occ / self.num_slots if self.num_slots else 0.0
+        self._set_occupancy(occ)
         if not occ:
             return finished
-        ok, device_q = self._propose_drafts()
+        with self._tracer.span("serving.draft"):
+            ok, device_q = self._propose_drafts()
         self._ticks += 1
         self._n_decode_ticks += 1
         t0 = self._clock()
-        if self.paged:
-            self._grow_decode_rows(ok)
-            self._flush_fresh_scales()
-        logits, greedy = self._step.run()
-        host = self._decode_part(logits, greedy, device_q).cpu().numpy()
+        with self._tracer.span("serving.verify", slots=occ,
+                               drafted=int(ok.sum())):
+            if self.paged:
+                self._grow_decode_rows(ok)
+                self._flush_fresh_scales()
+            logits, greedy = self._step.run()
+            host = self._decode_part(logits, greedy,
+                                     device_q).cpu().numpy()
         now = self._clock()
         self._m_step_ms.observe((now - t0) * 1e3)
+        self._perf_tick((now - t0) * 1e3, occ)
         finished.extend(self._advance_decode_spec(host, ok, now))
         return finished
 
@@ -1652,14 +2097,13 @@ class ServingEngine:
         out = host[:b * w].reshape(b, w)
         n_acc = host[b * w:b * w + b]
         finished: List[int] = []
-        tot = self._spec_total
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
             n = int(n_acc[i])
             drafted = int(draft_ok[i].sum())
             kind = self._tick_kinds[i]
-            km = self._spec_kinds[kind] if (drafted and kind) else None
+            km = self._spec_m(kind) if (drafted and kind) else None
             take, reason = n, None
             if self.eos_token_id is not None:
                 hits = np.flatnonzero(out[i, :n] == self.eos_token_id)
@@ -1670,17 +2114,28 @@ class ServingEngine:
             self._positions[i] += take
             self._tokens[i] = toks[-1]
             slot.remaining -= take
-            self._n_tokens += take
-            for c in (tot, km) if km is not None else (tot,):
-                c.accept.observe(take)
-                if drafted:
-                    # hits: committed drafts (the last token is free);
-                    # misses: drafts the verification rejected (an EOS
-                    # cut counts its verified drafts on neither side)
-                    c.hits += take - 1
-                    c.miss += drafted - (n - 1)
-                if take <= drafted:
-                    c.rollbacks += 1
+            self._m_tokens.inc(take)
+            self._m_spec_accept.observe(take)
+            if km is not None:
+                km[4].observe(take)
+            if drafted and slot.req is not None:
+                self._rlog.event(slot.req.uid, "spec_accept",
+                                 engine=self._eid, tokens=int(take),
+                                 drafted=int(drafted),
+                                 drafter_kind=kind or "custom")
+            if drafted:
+                # hits: committed drafts (the last token is free);
+                # misses: drafts the verification rejected (an EOS cut
+                # counts its verified drafts on neither side)
+                self._m_draft_hits.inc(take - 1)
+                self._m_draft_miss.inc(drafted - (n - 1))
+                if km is not None:
+                    km[1].inc(take - 1)
+                    km[2].inc(drafted - (n - 1))
+            if take <= drafted:
+                self._m_rollbacks.inc()
+                if km is not None:
+                    km[3].inc()
             if take <= drafted and self.paged:
                 self.kv.truncate_to(i, int(self._positions[i]))
                 self._tables[i] = self.kv.table_row(i, self.max_blocks)
@@ -1701,7 +2156,7 @@ class ServingEngine:
         prompt — or, on a tick without a chunk, the decode step."""
         finished = self._admit_chunked()
         occ = int(self._active.sum())
-        self._occupancy = occ / self.num_slots if self.num_slots else 0.0
+        self._set_occupancy(occ)
         pf = self._cursor
         self._m_chunk_queue.observe(self.pending_chunks)
         # decode-priority policy: while decodes are active, pending chunks
@@ -1716,13 +2171,47 @@ class ServingEngine:
         if self.spec:
             # the decode half is the verify window; a row whose prompt is
             # still streaming is not in a slot yet, so it drafts nothing
-            ok, device_q = self._propose_drafts()
+            with self._tracer.span("serving.draft"):
+                ok, device_q = self._propose_drafts()
+        clen = (min(self.prefill_chunk, pf.req.prompt.size - pf.cursor)
+                if do_chunk else 0)
         t0 = self._clock()
+        with self._tracer.span(
+                "serving.verify" if self.spec else "serving.decode",
+                slots=occ), (
+                self._tracer.span("serving.chunk", slot=pf.slot,
+                                  start=pf.cursor, tokens=clen)
+                if do_chunk else contextlib.nullcontext()):
+            host, ctok = self._run_tick_chunked(pf, clen, do_chunk, ok,
+                                                device_q)
+        now = self._clock()
+        self._m_step_ms.observe((now - t0) * 1e3)
+        self._perf_tick((now - t0) * 1e3, occ, chunk_tokens=clen)
+        if do_chunk:
+            self._n_mixed_ticks += 1
+            self._m_mixed_ms.observe((now - t0) * 1e3)
+        else:
+            self._n_decode_ticks += 1
+        if self.spec:
+            finished.extend(self._advance_decode_spec(host, ok, now))
+        else:
+            host[~self._active] = self.pad_token_id
+            finished.extend(self._advance_decode(host, now))
+        if do_chunk:
+            finished.extend(self._advance_chunk(pf, clen, ctok, now))
+        self._apply_demotions()
+        return finished
+
+    def _run_tick_chunked(self, pf: Optional[_Prefill], clen: int,
+                          do_chunk: bool, ok, device_q):
+        """The chunked tick's device work through its one host fetch: the
+        mixed step with ``clen`` tokens of ``pf``'s prompt, or the decode
+        step alone.  Returns (the decode rows' fetched result, the prompt's
+        first token when this chunk completed it, else None)."""
         if self.paged:
             self._grow_decode_rows(ok)
         if do_chunk:
             mx = self._mixed
-            clen = min(self.prefill_chunk, pf.req.prompt.size - pf.cursor)
             mx.ids_host[:] = self.pad_token_id
             mx.ids_host[:clen] = pf.req.prompt[pf.cursor:pf.cursor + clen]
             mx.pos_host[0] = pf.cursor
@@ -1749,26 +2238,11 @@ class ServingEngine:
             ctok = int(host[-1]) if done else None
             if done:
                 host = host[:-1]
-        else:
-            self._flush_fresh_scales()
-            logits, greedy = self._step.run()
-            host = self._decode_part(logits, greedy, device_q).cpu().numpy()
-        now = self._clock()
-        if do_chunk:
-            self._n_mixed_ticks += 1
-            self._m_mixed_ms.observe((now - t0) * 1e3)
-        else:
-            self._n_decode_ticks += 1
-            self._m_step_ms.observe((now - t0) * 1e3)
-        if self.spec:
-            finished.extend(self._advance_decode_spec(host, ok, now))
-        else:
-            host[~self._active] = self.pad_token_id
-            finished.extend(self._advance_decode(host, now))
-        if do_chunk:
-            finished.extend(self._advance_chunk(pf, clen, ctok, now))
-        self._apply_demotions()
-        return finished
+            return host, ctok
+        self._flush_fresh_scales()
+        logits, greedy = self._step.run()
+        return self._decode_part(logits, greedy,
+                                 device_q).cpu().numpy(), None
 
     def _admit_chunked(self) -> List[int]:
         """Move the FIFO head into a free slot as a partially-prefilled
@@ -1783,6 +2257,12 @@ class ServingEngine:
         if not free:
             return []
         src, req = self._next_admit()
+        occ = self.num_slots - len(free)
+        live = int(self._positions[self._active].sum()) if occ else 0
+        if self._admission_defer(req, occ + 1, live + int(req.prompt.size),
+                                 chunk_tokens=self.prefill_chunk):
+            self._defer(req)
+            return []
         si = free[0]
         m = 0
         if self.paged:
@@ -1794,8 +2274,7 @@ class ServingEngine:
                 got = self.kv.admit(si, req.prompt, req.prompt.size,
                                     req.max_new_tokens, chunked=True)
             if got is None:            # pool full: wait for retirements
-                self._n_blocked += 1
-                req.blocked_ticks += 1
+                self._blocked(req)
                 return []
             m = got                    # adopted prefix tokens skip compute
         src.remove(req)
@@ -1804,11 +2283,35 @@ class ServingEngine:
             # tenant's granule scales first (in place, outside the graph)
             self._cache["scale"][:, :, si] = 0.0
         now = self._clock()
-        self._n_prefill_total += int(req.prompt.size)
+        self._m_prefill_total.inc(int(req.prompt.size))
         if req.resume is None:
-            self._m_queue_wait.observe((now - req.t_submit) * 1e3)
+            self._admitted(req, si, now, int(m))
         self._cursor = _Prefill(req, si, int(m))
         return []
+
+    def _blocked(self, req: Request) -> None:
+        """A paged admission the pool refused (reference :2517-2526): the
+        count, an instant, and the request's ``admission_wait`` event once
+        a wait."""
+        self._m_blocked.inc()
+        self._tracer.instant("serving.admission_blocked",
+                             rid=req.request_id)
+        req.blocked_ticks += 1
+        if req.blocked_ticks == 1:
+            self._rlog.event(req.uid, "admission_wait", engine=self._eid,
+                             reason="pool_full")
+
+    def _admitted(self, req: Request, si: int, t_adm: float,
+                  prefix: int) -> None:
+        """A request (not a recompute resume) entered slot ``si``: its
+        queue wait and ``admitted`` event."""
+        req.t_admit = t_adm
+        wait = (t_adm - req.t_submit) * 1e3
+        self._m_queue_wait.observe(wait)
+        self._rlog.event(req.uid, "admitted", engine=self._eid,
+                         slot=int(si), queue_wait_ms=wait,
+                         blocked_ticks=int(req.blocked_ticks),
+                         prefix_hit_tokens=int(prefix))
 
     def _advance_chunk(self, pf: _Prefill, clen: int, ctok: Optional[int],
                        now: float) -> List[int]:
@@ -1816,9 +2319,11 @@ class ServingEngine:
         :2548); when it completes the prompt, ``ctok`` is the request's
         first token and the slot turns from prefilling to decoding."""
         pf.cursor += clen
-        self._n_chunks += 1
-        self._n_chunk_tokens += clen
-        self._n_prefill_computed += clen
+        self._m_chunks.inc()
+        self._m_chunk_tokens.inc(clen)
+        self._m_prefill_computed.inc(clen)
+        self._rlog.event(pf.req.uid, "prefill_chunk", engine=self._eid,
+                         tokens=int(clen), cursor=int(pf.cursor))
         if self.paged:
             # the now-written full blocks become shareable — never earlier
             self.kv.register_prompt_upto(pf.slot, pf.req.prompt, pf.cursor)
@@ -1834,14 +2339,13 @@ class ServingEngine:
                                  t_first=ri.t_first, prompt=ri.orig.prompt,
                                  drafter=ri.orig.drafter, req=ri.orig),
                        req, ri.last_token, plen)
-            self._resumes["recompute"] += 1
+            self._resumed_recompute(req, si)
             return []
         slot = _Slot(req.request_id, req.max_new_tokens - 1, t_first=now,
                      prompt=req.prompt, drafter=req.drafter, req=req)
         self._seat(si, slot, req, ctok, plen)
         self._results[req.request_id].append(ctok)
-        self._n_tokens += 1
-        self._m_ttft.observe((now - req.t_submit) * 1e3)
+        self._first_token(req, now)
         reason = self._finish_reason(ctok, slot, si)
         if reason is not None:
             self._retire(slot, si, reason, now)
@@ -1859,23 +2363,39 @@ class ServingEngine:
 
     def _admit(self) -> List[int]:
         """Move queued requests into free slots, one batched-prefill wave
-        per contiguous FIFO run sharing a bucket.  Returns ids that
-        finished AT admission (first token was EOS / max_new_tokens=1)."""
+        per contiguous FIFO run sharing a bucket (the predictive gate,
+        when armed, may hold the head back: :meth:`_admission_defer`).
+        Returns ids that finished AT admission (first token was EOS /
+        max_new_tokens=1)."""
         if self.paged:
             return self._admit_paged()
         finished: List[int] = []
-        while self._queue:
+        deferred = False
+        while self._queue and not deferred:
             free = [i for i, s in enumerate(self._slots) if s is None]
             if not free:
                 break
+            occ = self.num_slots - len(free)
+            live = int(self._positions[self._active].sum()) if occ else 0
             bucket = min(self._bucket(len(self._queue[0].prompt)),
                          self.max_length)
             wave: List[Request] = []
+            wave_tokens = 0
             while (self._queue
                    and len(wave) < min(self.prefill_batch, len(free))
                    and min(self._bucket(len(self._queue[0].prompt)),
                            self.max_length) == bucket):
+                head = self._queue[0]
+                if self._admission_defer(
+                        head, occ + len(wave) + 1,
+                        live + wave_tokens + int(head.prompt.size)):
+                    self._defer(head)
+                    deferred = True
+                    break
                 wave.append(self._queue.popleft())
+                wave_tokens += int(head.prompt.size)
+            if not wave:
+                break
             finished.extend(self._prefill_wave(wave, free[:len(wave)],
                                                bucket))
         return finished
@@ -1892,14 +2412,24 @@ class ServingEngine:
         head may preempt a victim (:meth:`_try_preempt`) and retry."""
         self._service_swap_resumes()
         finished: List[int] = []
-        while self._resume_q or self._queue:
+        deferred = False
+        while (self._resume_q or self._queue) and not deferred:
             free = self._free_slots()
             if not free:
                 break
+            occ = self.num_slots - len(free)
+            live = int(self._positions[self._active].sum()) if occ else 0
             wave: List[Tuple[Request, int, int]] = []
+            wave_tokens = 0
             while ((self._resume_q or self._queue)
                    and len(wave) < min(self.prefill_batch, len(free))):
                 src, req = self._next_admit()
+                if self._admission_defer(
+                        req, occ + len(wave) + 1,
+                        live + wave_tokens + int(req.prompt.size)):
+                    self._defer(req)
+                    deferred = True
+                    break
                 si = free[len(wave)]
                 m = self.kv.admit(si, req.prompt, req.prompt.size,
                                   req.max_new_tokens)
@@ -1909,14 +2439,14 @@ class ServingEngine:
                     m = self.kv.admit(si, req.prompt, req.prompt.size,
                                       req.max_new_tokens)
                 if m is None:          # pool full: wait for retirements
-                    self._n_blocked += 1
-                    req.blocked_ticks += 1
+                    self._blocked(req)
                     break
                 # by identity: a preemption in the retry loop may have
                 # re-ordered the resume queue
                 src.remove(req)
                 self._tables[si] = self.kv.table_row(si, self.max_blocks)
                 wave.append((req, si, m))
+                wave_tokens += int(req.prompt.size)
             if not wave:
                 break
             finished.extend(self._prefill_wave_paged(wave))
@@ -1940,20 +2470,26 @@ class ServingEngine:
             prefix[r] = m
             slens[r] = suffix.size
             tables[r] = self._tables[si]
-            self._n_prefill_computed += int(suffix.size)
-            self._n_prefill_total += int(req.prompt.size)
         reqs = [req for req, _, _ in wave]
-        temps, topk, topp = self._wave_sampling(reqs, t_adm)
-        tok = self._prefill_paged(ids, prefix, slens, tables, temps, topk,
-                                  topp)
+        temps, topk, topp = self._wave_sampling(
+            reqs, [si for _, si, _ in wave], [m for _, _, m in wave],
+            [int(v) for v in slens], bucket, t_adm)
+        with self._tracer.span("serving.prefill", bucket=bucket, rows=n):
+            tok = self._prefill_paged(ids, prefix, slens, tables, temps,
+                                      topk, topp)
         self._apply_demotions()
         return self._start_wave(reqs, [si for _, si, _ in wave],
                                 [req.prompt.size for req in reqs], tok,
                                 t_adm)
 
-    def _wave_sampling(self, wave: List[Request], t_adm: float):
-        """Per-row sampling knobs of a wave; observes queue waits and
-        counts the wave."""
+    def _wave_sampling(self, wave: List[Request], slots: List[int],
+                       prefix: List[int], computed: List[int], bucket: int,
+                       t_adm: float):
+        """A wave's per-row sampling knobs; accounts the wave (reference
+        :3348-3375): each row's prompt tokens computed (``computed``) and
+        submitted, its queue wait and ``admitted`` event (not for a
+        recompute resume, which waited before) and its ``prefill`` event,
+        then the wave's counters and tick."""
         n = len(wave)
         temps = np.zeros((n,), np.float32)
         topk = np.zeros((n,), np.int32)
@@ -1962,9 +2498,14 @@ class ServingEngine:
             temps[r] = req.sampling.temperature
             topk[r] = req.sampling.top_k
             topp[r] = req.sampling.top_p
-            if req.resume is None:     # a recompute resume waited before
-                self._m_queue_wait.observe((t_adm - req.t_submit) * 1e3)
-        self._n_waves += 1
+            self._m_prefill_computed.inc(int(computed[r]))
+            self._m_prefill_total.inc(int(req.prompt.size))
+            if req.resume is None:
+                self._admitted(req, slots[r], t_adm, prefix[r])
+            self._rlog.event(req.uid, "prefill", engine=self._eid,
+                             bucket=int(bucket), tokens=int(computed[r]))
+        self._m_waves.inc()
+        self._f_bucket.labels(engine=self._eid, bucket=str(bucket)).inc()
         self._ticks += 1
         return temps, topk, topp
 
@@ -1977,10 +2518,10 @@ class ServingEngine:
         for r, req in enumerate(wave):
             ids[r, :req.prompt.size] = req.prompt
             plens[r] = req.prompt.size
-            self._n_prefill_computed += int(req.prompt.size)
-            self._n_prefill_total += int(req.prompt.size)
-        temps, topk, topp = self._wave_sampling(wave, t_adm)
-        tok = self._prefill(ids, plens, slots, temps, topk, topp)
+        temps, topk, topp = self._wave_sampling(
+            wave, slots, [0] * n, [int(v) for v in plens], bucket, t_adm)
+        with self._tracer.span("serving.prefill", bucket=bucket, rows=n):
+            tok = self._prefill(ids, plens, slots, temps, topk, topp)
         return self._start_wave(wave, slots, list(plens), tok, t_adm)
 
     def _start_wave(self, wave: List[Request], slots: List[int],
@@ -2002,20 +2543,37 @@ class ServingEngine:
                                      prompt=ri.orig.prompt,
                                      drafter=ri.orig.drafter, req=ri.orig),
                            req, ri.last_token, plens[r])
-                self._resumes["recompute"] += 1
+                self._resumed_recompute(req, si)
                 continue
             slot = _Slot(req.request_id, req.max_new_tokens - 1,
                          t_first=t_tok, prompt=req.prompt,
                          drafter=req.drafter, req=req)
             self._seat(si, slot, req, int(tok[r]), plens[r])
             self._results[req.request_id].append(int(tok[r]))
-            self._n_tokens += 1
-            self._m_ttft.observe((t_tok - req.t_submit) * 1e3)
+            self._first_token(req, t_tok)
             reason = self._finish_reason(int(tok[r]), slot, si)
             if reason is not None:
                 finished.append(req.request_id)
                 self._retire(slot, si, reason, t_tok)
         return finished
+
+    def _first_token(self, req: Request, now: float) -> None:
+        """A request's first token is fetched: its count, TTFT and
+        ``first_token`` event."""
+        ttft = (now - req.t_submit) * 1e3
+        self._m_tokens.inc()
+        self._m_ttft.observe(ttft)
+        if self._perf is not None:
+            self._perf.on_ttft(ttft)
+        self._rlog.event(req.uid, "first_token", engine=self._eid,
+                         ttft_ms=ttft)
+
+    def _resumed_recompute(self, req: Request, si: int) -> None:
+        self._rlog.event(req.uid, "resumed", engine=self._eid,
+                         mode="recompute", slot=int(si))
+        self._f_resumed.labels(engine=self._eid, mode="recompute").inc()
+        self._tracer.instant("serving.resumed", rid=req.request_id,
+                             mode="recompute", slot=int(si))
 
     def _finish_reason(self, tok: int, slot: _Slot,
                        i: int) -> Optional[str]:
@@ -2029,14 +2587,49 @@ class ServingEngine:
         return None
 
     def _retire(self, slot: _Slot, i: int, reason: str, now: float):
-        """TPOT readout at retirement (decode time per token after the
-        first), then release the slot."""
+        """Per-request SLO readout at retirement (reference :3176), then
+        release the slot.  TPOT = decode time a token after the first."""
         n = len(self._results[slot.rid])
+        tpot = None
         if n > 1 and slot.t_first > 0.0:
-            self._m_tpot.observe((now - slot.t_first) * 1e3 / (n - 1))
-        self._n_finished += 1
-        self._retired[reason] += 1
+            tpot = (now - slot.t_first) * 1e3 / (n - 1)
+            self._m_tpot.observe(tpot)
+            if self._perf is not None:
+                self._perf.on_tpot(tpot)
+        self._m_finished.inc()
+        self._f_retired.labels(engine=self._eid, reason=reason).inc()
+        req = slot.req
+        if req is not None:
+            ttft = ((slot.t_first - req.t_submit) * 1e3
+                    if slot.t_first > 0.0 else None)
+            kind = self._slo_violation(req, ttft, tpot)
+            if kind is not None:
+                self._f_slo_viol.labels(engine=self._eid, kind=kind).inc()
+            self._rlog.event(
+                req.uid, "retired", engine=self._eid, reason=reason,
+                tokens=int(n),
+                ttft_ms=(round(ttft, 6) if ttft is not None else None),
+                tpot_ms=(round(tpot, 6) if tpot is not None else None),
+                violation=kind or "none")
         self._release(i)
+
+    @staticmethod
+    def _slo_violation(req: Request, ttft: Optional[float],
+                       tpot: Optional[float]) -> Optional[str]:
+        """Attribute a retired request's SLO miss to ONE cause
+        (reference :3205): a missed TTFT (measured from submit) splits by
+        the larger segment, ``queue_wait`` (submit -> admission) or
+        ``prefill`` (admission -> first token); else a missed TPOT is
+        ``decode``.  A deadline of 0 never misses."""
+        if req.ttft_slo_ms > 0 and ttft is not None \
+                and ttft > req.ttft_slo_ms:
+            qw = ((req.t_admit - req.t_submit) * 1e3
+                  if req.t_admit > 0.0 else 0.0)
+            return "queue_wait" if qw >= ttft - qw else "prefill"
+        if req.tpot_slo_ms > 0 and tpot is not None \
+                and tpot > req.tpot_slo_ms:
+            return "decode"
+        return None
 
     def _release(self, i: int):
         if self.paged:

@@ -84,8 +84,11 @@ device copy the engine performs through the ``on_swap_out`` /
 
 Migration: :meth:`BlockManager.export_blocks` serialises a chain by value
 (dtype tags with the payloads) and :meth:`BlockManager.import_blocks`
-materialises it into another pool.  ``stats`` is a plain dict (the
-metrics registry is ROADMAP A4).
+materialises it into another pool.
+
+Telemetry: the counters and pool gauges live in the metrics registry
+(``kv_cache.*``, labelled ``pool=<id>``), as the reference's do; ``stats``
+stays the public readout, a dict read from them now.
 """
 
 from __future__ import annotations
@@ -98,16 +101,38 @@ import numpy as np
 import torch
 
 from .. import default_device
+from .. import observability as _obs
 
 __all__ = ["BlockManager", "HostTier", "NULL_BLOCK", "init_paged_kv_cache"]
 
 NULL_BLOCK = 0          # physical block 0: pad/dummy scratch, never allocated
 _ROOT = -1              # trie parent id of a prompt's first block
 
-_STATS_KEYS = ("prefix_lookups", "prefix_hit_blocks", "prefix_hit_tokens",
-               "evictions", "cow_copies", "peak_blocks_in_use",
-               "host_demotions", "host_promotions", "swapped_out_blocks",
-               "swapped_in_blocks", "exported_blocks", "imported_blocks")
+# pool instances share the default registry; the ``pool`` label keeps
+# their series apart
+_POOL_IDS = itertools.count()
+
+# the registry counters behind ``stats``: key -> help text
+_COUNTERS = {
+    "prefix_lookups": "admissions that consulted the prefix trie",
+    "prefix_hit_blocks": "blocks adopted from the prefix cache instead of "
+                         "recomputed",
+    "prefix_hit_tokens": "tokens adopted from the prefix cache",
+    "evictions": "cached blocks reclaimed under pool pressure",
+    "cow_copies": "ensure_writable copy-on-write copies",
+    "host_demotions": "cold prefix blocks demoted HBM -> host instead of "
+                      "dropped under pool pressure",
+    "host_promotions": "host-tier prefix blocks promoted back to HBM on an "
+                       "admission hit",
+    "swapped_out_blocks": "private blocks moved to pinned host buffers by "
+                          "preemption swap-out",
+    "swapped_in_blocks": "pinned host blocks restored to HBM by "
+                         "preemption resume",
+    "exported_blocks": "blocks serialized out of this pool for "
+                       "cross-worker migration (export_blocks)",
+    "imported_blocks": "blocks materialized into this pool from a "
+                       "migration record (import_blocks)",
+}
 
 
 def init_paged_kv_cache(config, num_blocks: int, block_len: int, dtype=None,
@@ -272,7 +297,48 @@ class BlockManager:
         self._block_key: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
         self._children: Dict[int, Set[int]] = {}
         self._lru: "OrderedDict[int, None]" = OrderedDict()  # ref==0 cached
-        self._counts: Dict[str, int] = dict.fromkeys(_STATS_KEYS, 0)
+        # telemetry: counters and pool gauges in the registry, labelled
+        # pool=<id> (the reference's series, help texts and update points)
+        reg = _obs.default_registry()
+        self._pid = str(next(_POOL_IDS))
+        lbl = {"pool": self._pid}
+        self._counters = {k: reg.counter(f"kv_cache.{k}", h).labels(**lbl)
+                          for k, h in _COUNTERS.items()}
+        self._peak = 0
+        self._g_peak = reg.gauge(
+            "kv_cache.peak_blocks_in_use",
+            "high-water mark of referenced blocks").labels(**lbl)
+        self._g_in_use = reg.gauge(
+            "kv_cache.blocks_in_use",
+            "blocks referenced by at least one live chain").labels(**lbl)
+        self._g_occ = reg.gauge(
+            "kv_cache.pool_occupancy",
+            "blocks_in_use / usable_blocks").labels(**lbl)
+        self._g_free = reg.gauge(
+            "kv_cache.free_blocks", "free-list length").labels(**lbl)
+        self._g_cached = reg.gauge(
+            "kv_cache.cached_blocks",
+            "retired prefix blocks parked for future hits "
+            "(evictable)").labels(**lbl)
+        self._g_quant = reg.gauge(
+            "kv_cache.quantized_blocks",
+            "live (referenced or LRU-cached) blocks holding int8 "
+            "content").labels(**lbl)
+        self._g_host_used = reg.gauge(
+            "kv_cache.host_blocks_used",
+            "host-tier blocks live (demoted trie blocks + pinned swap "
+            "records)").labels(**lbl)
+        self._g_host_trie = reg.gauge(
+            "kv_cache.host_trie_blocks",
+            "host-tier blocks holding demoted (promotable, evictable) "
+            "prefix-trie content").labels(**lbl)
+        f_bytes = reg.gauge(
+            "kv_cache.bytes_by_dtype",
+            "live pool bytes per element dtype (payload + scale share; "
+            "set once the engine provides per-block byte costs)")
+        self._g_bytes = {d: f_bytes.labels(dtype=d, **lbl)
+                         for d in ("bf16", "int8")}
+        self._refresh_gauges()
 
     # -- accounting --------------------------------------------------------
 
@@ -295,11 +361,16 @@ class BlockManager:
 
     @property
     def stats(self) -> Dict[str, object]:
-        """The counters (``_STATS_KEYS``) plus ``quantized_blocks``,
+        """The registry counters (``_COUNTERS``) and
+        ``peak_blocks_in_use``, plus ``quantized_blocks``,
         ``bytes_by_dtype`` and ``kv_dtype``, read now."""
-        return dict(self._counts, quantized_blocks=self.quantized_blocks(),
-                    bytes_by_dtype=self.bytes_by_dtype(),
-                    kv_dtype=self.kv_dtype)
+        out: Dict[str, object] = {k: int(c.value())
+                                  for k, c in self._counters.items()}
+        out["peak_blocks_in_use"] = self._peak
+        out.update(quantized_blocks=self.quantized_blocks(),
+                   bytes_by_dtype=self.bytes_by_dtype(),
+                   kv_dtype=self.kv_dtype)
+        return out
 
     def _live_mask(self) -> np.ndarray:
         live = self._ref > 0
@@ -319,6 +390,7 @@ class BlockManager:
         """Engine-supplied bytes of one block (payload + scale share) by
         element dtype; arms ``stats["bytes_by_dtype"]``."""
         self._block_nbytes = {k: int(v) for k, v in by_dtype.items()}
+        self._refresh_gauges()
 
     def bytes_by_dtype(self) -> Dict[str, int]:
         """Live pool bytes by element dtype (zeros until
@@ -369,7 +441,7 @@ class BlockManager:
         path: _Path = ()
         promo: List[Tuple[_Path, Tuple[int, ...], Tuple[int, str]]] = []
         if self.prefix_cache:
-            self._counts["prefix_lookups"] += 1
+            self._counters["prefix_lookups"].inc(1)
             parent = _ROOT
             cap = (prompt_len - 1) // bl
             for b in range(cap):
@@ -430,7 +502,7 @@ class BlockManager:
                 self.on_swap_in(list(pairs))
             for hid, _ in pairs:
                 self._host.free(hid)
-            self._counts["host_promotions"] += len(pairs)
+            self._counters["host_promotions"].inc(len(pairs))
         m_blocks = m + len(promo)
         if not chunked:
             # blocks covering positions [0, prompt_len]: the prefill
@@ -440,8 +512,8 @@ class BlockManager:
                 self._append_block(st)
             if self.prefix_cache:
                 self._register_prompt(st.chain, prompt, prompt_len)
-        self._counts["prefix_hit_blocks"] += m_blocks
-        self._counts["prefix_hit_tokens"] += m_blocks * bl
+        self._counters["prefix_hit_blocks"].inc(m_blocks)
+        self._counters["prefix_hit_tokens"].inc(m_blocks * bl)
         self._note_peak()
         return m_blocks * bl
 
@@ -489,8 +561,10 @@ class BlockManager:
                     self._dtype[bid] = 1
                     demoted.append(bid)
             parent = self._trie.get(key, bid)
-        if demoted and self.on_demote is not None:
-            self.on_demote(list(demoted))
+        if demoted:
+            if self.on_demote is not None:
+                self.on_demote(list(demoted))
+            self._refresh_gauges()
 
     # -- growth / writes ---------------------------------------------------
 
@@ -548,7 +622,7 @@ class BlockManager:
         self._ref[src] -= 1
         self._ref[dst] = 1
         st.chain[logical_block] = dst
-        self._counts["cow_copies"] += 1
+        self._counters["cow_copies"].inc(1)
         self._note_peak()
         return src, dst
 
@@ -575,6 +649,7 @@ class BlockManager:
         self._reserved -= st.reserved_left
         for bid in st.chain:
             self._deref(bid)
+        self._refresh_gauges()
 
     def _evict_one(self) -> int:
         """Reclaim the LRU cached block, cascading the unregistration
@@ -587,7 +662,7 @@ class BlockManager:
                 "KV block pool exhausted: no free or evictable blocks "
                 "(reservation accounting should have prevented this)")
         bid, _ = self._lru.popitem(last=False)
-        self._counts["evictions"] += 1
+        self._counters["evictions"].inc(1)
         bpath = self._block_path.get(bid)
         if (self._host is not None and bpath is not None
                 and self._host_make_room(1)):
@@ -595,7 +670,7 @@ class BlockManager:
             if self.on_swap_out is not None:
                 self.on_swap_out([(int(bid), hid)])
             self._host_trie[bpath] = (hid, self.block_dtype(bid))
-            self._counts["host_demotions"] += 1
+            self._counters["host_demotions"].inc(1)
         self._unregister_cascade(bid)
         self._dtype[bid] = self._default_dtype   # the new owner rewrites it
         return bid
@@ -650,6 +725,7 @@ class BlockManager:
                 self._unregister_cascade(bid)
         removed = st.chain[keep:]
         if not removed:
+            self._refresh_gauges()
             return
         del st.chain[keep:]
         for bid in removed:
@@ -657,6 +733,7 @@ class BlockManager:
             self._deref(bid)
         st.reserved_left += len(removed)
         self._reserved += len(removed)
+        self._refresh_gauges()
 
     # -- preemption / host tier (reference kv_cache.py:768-1000) -----------
 
@@ -756,8 +833,9 @@ class BlockManager:
         if pairs:
             if self.on_swap_out is not None:
                 self.on_swap_out(list(pairs))
-            self._counts["swapped_out_blocks"] += len(pairs)
+            self._counters["swapped_out_blocks"].inc(len(pairs))
         self._fresh.difference_update(b for b, _ in pairs)
+        self._refresh_gauges()
         return {"entries": entries, "reserved_left": int(reserved_left)}
 
     def resume_swapped(self, slot: int, record: Dict[str, object]
@@ -795,7 +873,7 @@ class BlockManager:
                 self.on_swap_in(list(pairs))
             for hid, _ in pairs:
                 self._host.free(hid)
-            self._counts["swapped_in_blocks"] += len(pairs)
+            self._counters["swapped_in_blocks"].inc(len(pairs))
         self._note_peak()
         return len(chain)
 
@@ -808,6 +886,7 @@ class BlockManager:
                 self._deref(int(e[1]))
             else:
                 self._host.free(e[1])
+        self._refresh_gauges()
 
     def export_blocks(self, slot: int, read_payload) -> Dict[str, object]:
         """Serialise ``slot``'s chain for migration into ANOTHER pool: one
@@ -820,7 +899,7 @@ class BlockManager:
         entries: List[Dict[str, object]] = [
             {"dtype": self.block_dtype(bid),
              "payload": read_payload(int(bid))} for bid in st.chain]
-        self._counts["exported_blocks"] += len(entries)
+        self._counters["exported_blocks"].inc(len(entries))
         return {"entries": entries,
                 "reserved_left": int(st.reserved_left),
                 "block_len": int(self.block_len)}
@@ -852,8 +931,9 @@ class BlockManager:
             chain.append(bid)
         self._slots[slot] = _SlotAlloc(chain, reserved)
         self._reserved += reserved
-        self._counts["imported_blocks"] += len(chain)
+        self._counters["imported_blocks"].inc(len(chain))
         self._note_peak()
+        self._refresh_gauges()
         return len(chain)
 
     def preempt_free(self, slot: int):
@@ -885,5 +965,28 @@ class BlockManager:
         return list(self._slots[slot].chain)
 
     def _note_peak(self):
-        self._counts["peak_blocks_in_use"] = max(
-            self._counts["peak_blocks_in_use"], self.blocks_in_use())
+        used = self._refresh_gauges()
+        if used > self._peak:
+            self._peak = used
+            self._g_peak.set(used)
+
+    def _refresh_gauges(self) -> int:
+        """Push the pool gauges; returns blocks_in_use."""
+        used = self.blocks_in_use()
+        self._g_in_use.set(used)
+        self._g_occ.set(used / self.usable_blocks)
+        self._g_free.set(len(self._free))
+        self._g_cached.set(len(self._lru))
+        live = self._live_mask()
+        n_int8 = int((live & (self._dtype == 1)).sum())
+        self._g_quant.set(n_int8)
+        if self._host is not None:
+            self._g_host_used.set(self._host.used)
+            self._g_host_trie.set(len(self._host_trie))
+        if self._block_nbytes:
+            self._g_bytes["int8"].set(
+                n_int8 * self._block_nbytes.get("int8", 0))
+            self._g_bytes["bf16"].set(
+                (int(live.sum()) - n_int8)
+                * self._block_nbytes.get("bf16", 0))
+        return used

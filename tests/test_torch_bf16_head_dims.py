@@ -33,6 +33,7 @@ from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.models.generation import init_kv_cache as jax_init_cache
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      init_kv_cache, load_jax_state_dict)
 from paddle_tpu_torch.ops import _dispatch

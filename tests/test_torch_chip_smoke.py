@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.ops.attention import _keep_mask
 from torch_chip_rehearsal import CARD_ONLY as _CARD_ONLY
 from torch_chip_rehearsal import TorchOnCpu as _TorchOnCpu
@@ -1176,3 +1177,23 @@ def test_scaler_replay_is_the_update_rule(seen):
             want.append((float(st["scale"]), int(st["good_steps"]),
                          int(st["bad_steps"])))
         assert chip_smoke.scaler_replay(seen, s) == want
+
+
+def test_emit_resets_the_observability_layer(capsys):
+    """A phase line closes a unit of work: the registry, tracer and
+    request log are empty after it (no family nears its label cap over
+    the script's hundreds of engines), and a line that is not a phase's
+    leaves them as they are."""
+    from paddle_tpu_torch import observability as obs
+
+    obs.default_registry().counter("t.emit").inc()
+    obs.get_request_log().event(obs.get_request_log().new_uid(), "x")
+    chip_smoke.emit({"kernels": []})
+    assert "t.emit" in obs.snapshot()
+    chip_smoke.emit({"phase": "x"})
+    assert "t.emit" not in obs.snapshot()
+    assert not obs.get_request_log().records()
+    assert not [e for e in obs.get_tracer().events()
+                if e["name"] == "request.x"]
+    out = capsys.readouterr().out.splitlines()
+    assert json.loads(out[-1])["phase"] == "x"

@@ -3,6 +3,7 @@ rehearsed on the CPU at narrow widths, in a file of their own so that a
 parallel run puts them on a worker of their own (``--dist loadfile`` keeps
 a file on one worker)."""
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, cpu_engine,
                                   load_chip_smoke, one_thread, recorder,
                                   short_prompts)

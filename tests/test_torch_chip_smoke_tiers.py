@@ -3,6 +3,7 @@
 its own so that a parallel run puts it on a worker of its own
 (``--dist loadfile`` keeps a file on one worker)."""
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, cpu_engine,
                                   load_chip_smoke, one_thread, recorder)
 
@@ -97,3 +98,55 @@ def test_serving_mixed_and_preempt_rehearsed_on_the_cpu(monkeypatch,
     bad = [w for w in failed if not any(k in w for k in CARD_ONLY)]
     assert not bad, bad
     assert failed, "the card-only checks cannot pass on the CPU"
+
+
+def test_observability_rehearsed_on_the_cpu(monkeypatch, one_thread):
+    """Phase 4n on the records of phase 4b's, 4c's and 4m's swap runs cut
+    short (4b / 4c: four of 4b's short requests, 4 new tokens, slots of
+    1024; 4m: its saturating traffic cut to a quarter, as above): the
+    line is emitted, the timelines, the registry and the cost model hold,
+    and only the route checks fail (the CPU takes the plain versions)."""
+    from paddle_tpu_torch.models import quantize_for_decode
+
+    failed, record = recorder()
+    monkeypatch.setattr(chip_smoke, "check", record)
+    cpu_engine(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "PREEMPT_PROMPT_LENGTHS",
+                        (250, 225, 275, 200))
+    monkeypatch.setattr(chip_smoke, "PREEMPT_POOL_BLOCKS", 10)
+    monkeypatch.setattr(chip_smoke, "PREEMPT_MAX_LENGTH", 512)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    torch = TorchOnCpu()
+    model = _narrow_model()
+    vocab = model.config.vocab_size
+    prompts = _short_paged_prompts(vocab)[:4]
+    kw = dict(paged=True, block_len=128,
+              num_blocks=chip_smoke.PAGED_POOL_BLOCKS, max_length=1024,
+              new_tokens=4)
+    paged = chip_smoke._serve_8b(torch, model, prompts, **kw)
+    paged["eager_twin"] = chip_smoke.eager_twin(torch, model, prompts,
+                                                paged, "phase 4b", **kw)
+    int8 = chip_smoke._serve_8b(torch, quantize_for_decode(model), prompts,
+                                kv_cache_dtype="int8", **kw)
+    swap = chip_smoke.preempt_run(
+        torch, model, chip_smoke.preempt_prompts(vocab), preempt="swap",
+        host_blocks=chip_smoke.PREEMPT_HOST_BLOCKS)
+    del swap["engine"]
+    chip_smoke.phase_observability(paged, int8, swap)
+    (line,) = [ln for ln in lines if ln["phase"] == "observability"]
+    assert line["lifecycle_4b"]["requests"] == 4
+    assert not line["lifecycle_4b"]["out_of_order"]
+    assert line["lifecycle_4b"]["twin_identical"]
+    assert line["lifecycle_swap"]["victims"]
+    assert not line["lifecycle_swap"]["out_of_order"]
+    assert not any(line["metrics_vs_registry"].values())
+    assert line["perf"]["4m_swap"]["predicted_ms"]["swap_ms"] > 0
+    assert line["perf"]["4b"]["profile"] == "cpu_smoke"
+    assert line["chrome_trace"]["spans"]["serving.decode"] \
+        == paged["metrics"]["decode_ticks"]
+    assert "rms_norm/plain" in line["routes_4b"]
+    bad = [w for w in failed if not any(k in w for k in CARD_ONLY)]
+    assert not bad, bad
+    assert any("phase 4n" in w for w in failed), \
+        "the route checks cannot pass on the CPU"

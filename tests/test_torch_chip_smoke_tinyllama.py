@@ -2,6 +2,7 @@
 narrow width, in a file of its own so that a parallel run puts it on a
 worker of its own (``--dist loadfile`` keeps a file on one worker)."""
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from torch_chip_rehearsal import (CARD_ONLY, TorchOnCpu, cpu_engine,
                                   load_chip_smoke, one_thread, recorder,
                                   short_prompts)

@@ -27,6 +27,7 @@ from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.serving.drafter import DraftModelDrafter as JaxDMD
 from paddle_tpu.serving.drafter import NgramDrafter as JaxNgram
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      draft_model_from, load_jax_state_dict)
 from paddle_tpu_torch.serving.drafter import DraftModelDrafter, NgramDrafter

@@ -48,6 +48,7 @@ from paddle_tpu.ops.pallas.flash_attention import flash_attention_pallas
 from paddle_tpu.ops.pallas.int8_matmul import int8_matmul_pallas
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      init_kv_cache, load_jax_state_dict)
 from paddle_tpu_torch.nn import quant

@@ -38,6 +38,7 @@ from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.distributed import build_train_step
 from paddle_tpu_torch.models import (LlamaForCausalLM, Qwen2VLConfig,
                                      Qwen2VLForConditionalGeneration,

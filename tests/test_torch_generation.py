@@ -27,6 +27,7 @@ from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.models.quantized import \
     quantize_for_decode as jax_quantize_for_decode
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.models import (GreedyProgram, LlamaForCausalLM,
                                      config_from, greedy_generate,
                                      load_jax_state_dict,

@@ -48,6 +48,7 @@ from paddle_tpu.optimizer import ClipGradByGlobalNorm as JaxClip
 from paddle_tpu.optimizer import lr as jax_lr
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.distributed import build_train_step
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      init_kv_cache, load_jax_state_dict)

@@ -51,6 +51,18 @@ TIER_STATS = STATS + ("quantized_blocks", "host_demotions",
                       "imported_blocks")
 
 
+@pytest.fixture(autouse=True)
+def _throwaway_registries(monkeypatch):
+    """Each pool reports into a registry of its own: the model checker
+    builds thousands of short-lived pools, and one shared registry would
+    coalesce their ``pool=<id>`` series past FLAGS_metrics_max_children
+    into one ``{overflow="true"}`` child (the reference's model checker
+    does the same, ``tests/test_kv_cache_model.py``)."""
+    from paddle_tpu_torch.observability import metrics as _metrics
+    monkeypatch.setattr(_metrics, "default_registry",
+                        lambda: _metrics.MetricsRegistry())
+
+
 # ---- 1. replay against the JAX BlockManager ------------------------------------
 
 def _random_ops(seed, n_ops, n_slots, bl):

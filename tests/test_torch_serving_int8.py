@@ -26,6 +26,7 @@ from paddle_tpu.models.quantized import (
     quantize_for_decode as jax_quantize_for_decode)
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      load_jax_state_dict, quantize_for_decode)

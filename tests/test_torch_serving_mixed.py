@@ -28,6 +28,7 @@ from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.serving import ServingEngine as JaxEngine
 from paddle_tpu.serving.kv_cache import BlockManager as JaxBlockManager
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      load_jax_state_dict)
 from paddle_tpu_torch.serving import ServingEngine

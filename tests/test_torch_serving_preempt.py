@@ -9,12 +9,12 @@ priority-0 requests decode, then two priority-5 arrivals find nothing
 free.  Tolerance: tokens identical, ``preempt_decisions`` (victim, waiter,
 tick, mode, slot, progress, in order) and counters equal.
 
-Two tests of the reference's file wait for later items: the router's
-``cancel`` (``test_router_cancel_and_priority``, ROADMAP A7) and the
-request log's lifecycle events (``test_preempted_lifecycle_events``,
-ROADMAP A4); so does the reference's ``slo_violations["cancelled"]``
-bucket (A4), which the cancel tests here replace by ``metrics()
-["cancelled"]``.
+One test of the reference's file waits for a later item: the router's
+``cancel`` (``test_router_cancel_and_priority``, ROADMAP A7).  The
+request log's lifecycle events of preemption
+(``test_preempted_lifecycle_events``) and the cost model's swap term are
+held here against the JAX engine's, and so is the
+``slo_violations["cancelled"]`` bucket.
 """
 
 import numpy as np
@@ -25,6 +25,7 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      load_jax_state_dict)
 from paddle_tpu_torch.serving import ServingEngine
@@ -129,6 +130,9 @@ def test_wave_preempt_token_identical(pair, fifo_outputs, jax_saturated,
         assert ht["host_blocks_used"] == 0     # everything swapped back
         assert {k: v for k, v in ht.items() if k != "host_cache_bytes"} \
             == jm["kv_cache"]["host_tier"]
+        # swap bytes reach the cost model's swap term
+        rep = eng.perf_report()
+        assert rep["enabled"] and rep["predicted_ms"]["swap_ms"] > 0
 
 
 @pytest.mark.parametrize("mode,extra", MODES)
@@ -218,10 +222,38 @@ def test_ctor_validation(pair):
 
 # -------------------------------------------------------- cancellation --
 
+def test_preempted_lifecycle_events(pair):
+    """A swap victim's request log: preempted < swapped_out < swapped_in
+    < resumed < retired, and every request's timeline (names and
+    deterministic attrs) equal to the JAX engine's over the same
+    submissions."""
+    from paddle_tpu import observability as jobs
+    from paddle_tpu_torch import observability as obs
+
+    sigs = []
+    for model, log in zip(pair, (jobs.get_request_log(),
+                                 obs.get_request_log())):
+        mark = log.mark()
+        eng = _engine(model, preempt="swap", host_blocks=16)
+        _saturate(eng)
+        sigs.append(log.timeline_signature(since_uid=mark))
+    victims = {d["victim_rid"] for d in eng.preempt_decisions}
+    assert victims
+    rid = sorted(victims)[0]
+    names = log.event_names(eng.request_uid(rid))
+    for ev in ("preempted", "swapped_out", "swapped_in", "resumed"):
+        assert ev in names, names
+    assert (names.index("preempted") < names.index("swapped_out")
+            < names.index("swapped_in") < names.index("resumed")
+            < names.index("retired"))
+    assert sigs[0] == sigs[1]
+
+
 def _cancel_accounting_ok(eng, n_cancelled):
     m = eng.metrics()
     assert m["cancelled"] == n_cancelled
     assert m["retired"].get("cancelled", 0) == n_cancelled
+    assert m["slo_violations"].get("cancelled", 0) == n_cancelled
 
 
 def test_cancel_queued_running_finished(pair):

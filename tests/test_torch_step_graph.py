@@ -30,6 +30,7 @@ from paddle_tpu.models import tiny_llama_config as jax_tiny
 from paddle_tpu.observability import watchdog as jax_watchdog
 from paddle_tpu.serving import ServingEngine as JaxEngine
 
+from torch_obs_guard import fresh_observability  # noqa: F401
 from paddle_tpu_torch import flags, ops
 from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
                                      load_jax_state_dict, quantize_for_decode)
