@@ -287,6 +287,28 @@ non-zero.  Phases:
                  4b Chrome trace parsed back with one ``serving.decode``
                  span a decode tick.  Reported: measured / predicted tick
                  ratio p50 / p90, drift findings, the phase's seconds;
+  4o. serving_router — the control plane: phase 3's model behind
+                 ``ReplicaRouter(model, num_replicas=2, policy="prefix")``
+                 (paged replicas sharing its weights: 128-token blocks,
+                 96 a replica, 8 slots x 4096) replaying
+                 ``generate_load``'s seeded trace (16 requests, two
+                 tenants with 512-token system prompts, 8-24 new tokens)
+                 through ``loadgen.replay``, then an eager twin router.
+                 Gates: outputs, placements, the replay's signature,
+                 ticks, rejections, launches and routes equal to the
+                 twin's; each replica's decode step built once, a graph
+                 replay a decode tick and a wave, one prefill build a
+                 distinct key; K1-paged 32 a replica's decode tick and
+                 K2-paged 32 a wave, no other attention kernel, kernel
+                 routes only (in the registry too); prefix-routed tokens
+                 and ``route="prefix"`` placements > 0, each on a replica
+                 that served the tenant before, pooled prefix hits > 0;
+                 the model's tensors not moved; ``/metrics`` of a
+                 loopback exposition server equal to the registry's
+                 text with ``router.requests``, ``/healthz`` JSON.
+                 Reported: goodput, TTFT / TPOT p50 / p90, summed tok/s
+                 (graphed and eager), ticks, requests and
+                 ``decode_tick_ms`` a replica;
   generate.    — phase 3's Llama-3-8B model (bf16, 32 layers) through
                  ``generate``: greedy (B 4, prompt 128, 64 new tokens),
                  sampled (temperature 0.8, top_k 50, top_p 0.9), beam
@@ -471,6 +493,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -746,11 +769,14 @@ def check(cond: bool, what: str) -> None:
 
 # phase 2's timing loops, sized so the whole script ends within 900 s on a
 # slow host (identical trees ran 849.5 and 983.4 s on two hosts with 300 /
-# 100 / 100 ms, 5 calls and 40-call windows): a timed run spends about its
-# budget in calls, at least MIN_TIMED_CALLS and at most 200 of them
-TIME_BUDGET_MS = 60.0           # a kernel or a library call
-PLAIN_BUDGET_MS = 40.0          # a plain version (slow: often the minimum)
-HOST_BUDGET_MS = 40.0           # the host's enqueue time
+# 100 / 100 ms, 5 calls and 40-call windows; with 60 / 40 / 40 ms, 3 calls
+# and 20-call windows 735.2 and 962.4 s; with 40 / 25 ms 725.65 s on a
+# fast host; with 20 / 12 ms 875.1 s on a host as slow as the 962.4 s
+# one): a timed run spends about its budget in calls, at least
+# MIN_TIMED_CALLS and at most 200 of them, and gives the device time and
+# the host's enqueue time of the same calls
+TIME_BUDGET_MS = 20.0           # a kernel or a library call
+PLAIN_BUDGET_MS = 12.0          # a plain version (slow: often the minimum)
 MIN_TIMED_CALLS = 3
 DEVICE_CALLS = 20               # calls in a profiler window
 
@@ -762,11 +788,6 @@ def time_ms(torch, fns, budget_ms: float = TIME_BUDGET_MS) -> float:
     call finds its inputs outside the 50 MB L2 cache, as the serving path
     does."""
     return _time(torch, fns, budget_ms)[0]
-
-
-def host_ms(torch, fns) -> float:
-    """Mean host time to enqueue one call (Python + launch), same loop."""
-    return _time(torch, fns, HOST_BUDGET_MS)[1]
 
 
 def _time(torch, fns, budget_ms):
@@ -1312,7 +1333,9 @@ def phase_kernels(torch):
 
     def record(name, shape, err, tol, ok, kfns, plain_ms, lib_ms, bms, by,
                main, note=None, extra=None):
-        ms, hms = time_ms(torch, kfns), host_ms(torch, kfns)
+        # the device time and the host's enqueue time (Python + launch)
+        # of one loop of calls
+        ms, hms = _time(torch, kfns, TIME_BUDGET_MS)
         dms = device_ms(torch, kfns)
         timed_by = "events"
         if dms > 0 and ms > 1.1 * dms:
@@ -4160,12 +4183,7 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
     observability.reset()
     eng = ServingEngine(model, device="cuda", **{
         "num_slots": 8, "max_length": 4096, "prefill_batch": 4, **kw})
-    keys = []
-    for name in ("_prefill", "_prefill_paged"):
-        def record(ids, *args, _fn=getattr(eng, name), **kwargs):
-            keys.append((int(ids.shape[1]), int(ids.shape[0])))
-            return _fn(ids, *args, **kwargs)
-        setattr(eng, name, record)
+    keys = record_wave_keys(eng)
     run = _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw)
     if warm:
         run["warm"] = _serve_pass(torch, eng, prompts, new_tokens, keys,
@@ -4174,6 +4192,40 @@ def _serve_8b(torch, model, prompts, new_tokens=32, warm=False,
     gc.collect()
     torch.cuda.empty_cache()
     return run
+
+
+def record_wave_keys(eng):
+    """A list that each wave ``eng`` runs from now on appends its (bucket,
+    rows) key to."""
+    keys = []
+    for name in ("_prefill", "_prefill_paged"):
+        def record(ids, *args, _fn=getattr(eng, name), **kwargs):
+            keys.append((int(ids.shape[1]), int(ids.shape[0])))
+            return _fn(ids, *args, **kwargs)
+        setattr(eng, name, record)
+    return keys
+
+
+def timed_step(eng, step, ticks):
+    """``step()``, appending its host-clock milliseconds to ``ticks`` when
+    it ran one decode tick of ``eng`` and no wave (a tick ends in its one
+    host fetch, so its device work is inside)."""
+    t, d = eng._ticks, eng._n_decode_ticks
+    t0 = time.perf_counter()
+    out = step()
+    ms = (time.perf_counter() - t0) * 1e3
+    if eng._ticks == t + 1 and eng._n_decode_ticks == d + 1:
+        ticks.append(ms)
+    return out
+
+
+def record_tick_ms(eng):
+    """A list that each ``eng.step()`` from now on that runs one decode
+    tick and no wave appends its milliseconds to (:func:`timed_step`)."""
+    ticks = []
+    step = eng.step
+    eng.step = lambda: timed_step(eng, step, ticks)
+    return ticks
 
 
 def _serve_pass(torch, eng, prompts, new_tokens, keys, submit_kw=None):
@@ -4240,19 +4292,14 @@ SPEC_COUNTS = ("drafted_tokens", "draft_hit_tokens", "draft_miss_tokens",
 
 
 def drain_timed(eng):
-    """``eng.drain()``, timing by the host clock each ``step()`` that ran
-    one decode tick and no wave (a tick ends in its one host fetch, so its
-    device work is inside).  Returns (request id -> tokens, those ms)."""
+    """``eng.drain()``, timing each ``step()`` that ran one decode tick and
+    no wave (:func:`timed_step`).  Returns (request id -> tokens, those
+    ms)."""
     ticks = []
     while (eng._queue or eng._resume_q or eng._swap_resume
            or eng._cursor is not None
            or any(s is not None for s in eng._slots)):
-        t, d = eng._ticks, eng._n_decode_ticks
-        t0 = time.perf_counter()
-        eng.step()
-        ms = (time.perf_counter() - t0) * 1e3
-        if eng._ticks == t + 1 and eng._n_decode_ticks == d + 1:
-            ticks.append(ms)
+        timed_step(eng, eng.step, ticks)
     return dict(eng.drain()), ticks
 
 
@@ -5382,6 +5429,255 @@ def phase_observability(paged, int8, swap):
           f"phase 4n (4b): {obs['spans'].get('serving.decode')} "
           f"serving.decode spans for {obs['metrics']['decode_ticks']} "
           f"decode ticks ({obs['trace_dropped']} events dropped)")
+    line["seconds"] = round(time.perf_counter() - t0, 4)
+    emit(line)
+
+
+# -- phase 4o ------------------------------------------------------------------------
+
+# phase 4o's traffic: ``loadgen.LoadSpec`` fields (the vocabulary is the
+# model's), its seed, and the router's replicas
+ROUTER_SPEC = dict(n_requests=16, arrival="poisson", mean_gap=2.0,
+                   prompt_dist="zipf", prompt_buckets=(64, 128, 256, 512),
+                   prompt_zipf_a=1.1, prompt_min=16, prompt_max=512,
+                   output_dist="lognormal", output_median=16,
+                   output_sigma=0.4, output_min=8, output_max=24,
+                   tenants=2, shared_prefix_len=512)
+ROUTER_SEED = 11
+ROUTER_REPLICAS = 2
+# a replica's pool: 8 slots x 9 blocks (a 1048-token worst case) fit with
+# the tenants' prefix blocks beside them, so no admission waits
+ROUTER_POOL_BLOCKS = 96
+ROUTER_MAX_LENGTH = 4096
+
+
+def router_load(vocab: int):
+    from paddle_tpu_torch.serving import LoadSpec, generate_load
+    return generate_load(LoadSpec(vocab=vocab, **ROUTER_SPEC),
+                         seed=ROUTER_SEED)
+
+
+def router_run(torch, model, load):
+    """One replay of ``load`` through ``ReplicaRouter(model,
+    num_replicas=2, policy="prefix")`` over paged replicas of 8 slots:
+    the observability layer reset, the router built (each replica's
+    decode step built and captured), every launch and route counter reset
+    just before the replay and read just after.  Returns the run: the
+    replay's report, placements (``replica_of`` of every router rid),
+    launches, routes, each replica's ``metrics()`` and wave keys, the
+    router's aggregates, the registry's snapshot and Prometheus text, the
+    placement events and each request's tenant (submission order), the
+    HTTP bodies of ``/metrics`` and ``/healthz`` on a loopback exposition
+    server, and whether the model's tensors stayed where they were."""
+    from paddle_tpu_torch import observability, ops
+    from paddle_tpu_torch.observability.http_exposition import (
+        ExpositionServer)
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.serving import ReplicaRouter, replay
+
+    observability.reset()
+    ptrs = [(p.data_ptr(), p.dtype) for p in model.parameters()]
+    router = ReplicaRouter(
+        model, num_replicas=ROUTER_REPLICAS, policy="prefix",
+        device="cuda", paged=True, block_len=128,
+        num_blocks=ROUTER_POOL_BLOCKS, num_slots=8,
+        max_length=ROUTER_MAX_LENGTH, prefill_batch=4)
+    keys = [record_wave_keys(eng) for eng in router.engines]
+    ticks = [record_tick_ms(eng) for eng in router.engines]
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = replay(router, load)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    log = observability.get_request_log()
+    order = sorted(load, key=lambda r: (r.arrival, r.index))
+    placed = []
+    for (uid, rec), r in zip(
+            log.records(rep["mark"], rep["end_mark"]).items(), order):
+        ev = next((e["attrs"] for e in rec if e["name"] == "placed"), {})
+        placed.append({"tenant": r.tenant, "replica": ev.get("replica"),
+                       "route": ev.get("route"),
+                       "warm_tokens": ev.get("warm_tokens")})
+    retired = [e["attrs"] for rec in
+               log.records(rep["mark"], rep["end_mark"]).values()
+               for e in rec if e["name"] == "retired"]
+    text = observability.default_registry().prometheus_text()
+    with ExpositionServer(port=-1, engines=router.engines) as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        http_metrics = urllib.request.urlopen(
+            base + "/metrics", timeout=10).read().decode()
+        http_healthz = urllib.request.urlopen(
+            base + "/healthz", timeout=10).read().decode()
+    run = {"report": rep, "wall": wall, "launches": launches,
+           "routes": routes,
+           "placements": [router.replica_of(r)
+                          for r in sorted(router._placed)],
+           "metrics": [eng.metrics() for eng in router.engines],
+           "graphed": [eng.graphed for eng in router.engines],
+           "wave_keys": keys, "tick_ms": ticks,
+           "aggregate": router.metrics()["aggregate"],
+           "snapshot": observability.snapshot(), "prometheus": text,
+           "placed": placed, "retired": retired,
+           "http_metrics": http_metrics, "http_healthz": http_healthz,
+           "model_in_place": ptrs == [(p.data_ptr(), p.dtype)
+                                      for p in model.parameters()]}
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_serving_router(torch, model):
+    """Phase 4o: the single-host control plane at the Llama-3-8B width.
+    Phase 3's model (bf16, 32 layers) behind ``ReplicaRouter(model,
+    num_replicas=2, policy="prefix")`` of paged replicas (``block_len``
+    128, 96 blocks, 8 slots, ``max_length`` 4096, ``prefill_batch`` 4),
+    replaying ``generate_load`` 's seeded trace (16 requests, Poisson
+    arrivals 2 ticks apart, two tenants each opening with a 512-token
+    system prompt, Zipf prompts of 64-512 tokens after it, 8-24 new
+    tokens), graphed, then on an eager twin router (``disable_graphs()``).
+    Gates: outputs, placements, the replay's signature, ticks and
+    rejections, launches and routes equal to the twin's; each replica
+    built its decode step once, replayed a graph a decode tick and a
+    prefill graph a wave, and built one prefill step a distinct wave key;
+    K1-paged 32 a replica's decode tick, K2-paged 32 a wave, no other
+    attention kernel, RMSNorm launched, no plain route, and the registry's
+    ``ops.kernel_path`` holding the kernel routes of K1-paged, K2-paged
+    and RMSNorm; ``router.prefix_routed_tokens`` > 0, a ``route="prefix"``
+    placement, each prefix-routed request on a replica that served its
+    tenant before, pooled prefix hits > 0; the model's tensors in place;
+    ``/metrics`` of a loopback exposition server equal to the registry's
+    ``prometheus_text()`` with the ``router.requests`` series, and
+    ``/healthz`` parsing as JSON.  Reported: the replay's SLO report,
+    TTFT / TPOT p50 / p90 (exact, from the request log), summed tok/s,
+    ticks, wall seconds, requests a replica, each replica's
+    ``decode_tick_ms`` (exact, :func:`record_tick_ms`) beside its
+    registry's ``decode_step_ms`` (bucket readouts), the phase's
+    seconds."""
+    from paddle_tpu_torch.serving import disable_graphs
+
+    t0 = time.perf_counter()
+    what = "phase 4o"
+    load = router_load(model.config.vocab_size)
+    run = router_run(torch, model, load)
+    with disable_graphs():
+        twin = router_run(torch, model, load)
+    rep, trep = run["report"], twin["report"]
+    ms = run["metrics"]
+    total = {"decode_ticks": sum(m["decode_ticks"] for m in ms),
+             "prefill_waves": sum(m["prefill_waves"] for m in ms),
+             "ticks": sum(m["ticks"] for m in ms)}
+    routes_reg = {f"{r['labels']['op']}/{r['labels']['path']}":
+                  int(r["value"]) for r in
+                  registry_rows(run["snapshot"], "ops.kernel_path")}
+    by_route = {}
+    for r in registry_rows(run["snapshot"], "router.requests"):
+        route = r["labels"]["route"]
+        by_route[route] = by_route.get(route, 0) + int(r["value"])
+    seen, stray = {}, []
+    for i, p in enumerate(run["placed"]):
+        if p["route"] == "prefix" and p["replica"] not in seen.get(
+                p["tenant"], set()):
+            stray.append(i)
+        seen.setdefault(p["tenant"], set()).add(p["replica"])
+    agg = run["aggregate"]
+    hits = sum(m["kv_cache"]["prefix_hit_tokens"] for m in ms)
+    healthz = json.loads(run["http_healthz"])
+    twin_same = {
+        "outputs": rep["outputs"] == trep["outputs"],
+        "placements": run["placements"] == twin["placements"],
+        "signature": rep["signature"] == trep["signature"],
+        "ticks": rep["ticks"] == trep["ticks"],
+        "rejected": rep["rejected"] == trep["rejected"],
+        "launches": run["launches"] == twin["launches"],
+        "routes": run["routes"] == twin["routes"]}
+    gen = rep["generated_tokens"]
+    line = {
+        "phase": "serving_router", "replicas": ROUTER_REPLICAS,
+        "policy": "prefix", "requests": len(load),
+        "prompt_lengths": [int(r.prompt.size) for r in load],
+        "new_tokens": [r.max_new_tokens for r in load],
+        "block_len": 128, "num_blocks": ROUTER_POOL_BLOCKS,
+        "ticks": rep["ticks"], "rejected": rep["rejected"],
+        "generated_tokens": gen, "wall_s": round(run["wall"], 4),
+        "tok_per_s": round(gen / run["wall"], 2),
+        "eager_wall_s": round(twin["wall"], 4),
+        "eager_tok_per_s": round(gen / twin["wall"], 2),
+        "slo": rep["slo"],
+        "ttft_ms": exact_summary([a["ttft_ms"] for a in run["retired"]
+                                  if a.get("ttft_ms") is not None]),
+        "tpot_ms": exact_summary([a["tpot_ms"] for a in run["retired"]
+                                  if a.get("tpot_ms") is not None]),
+        "per_replica": [
+            {"requests": m["requests_submitted"],
+             "tokens": m["tokens_generated"], "ticks": m["ticks"],
+             "decode_ticks": m["decode_ticks"],
+             "prefill_waves": m["prefill_waves"],
+             "step_traces": m["step_traces"],
+             "graph_replays": m["graph_replays"],
+             "prefill_traces": m["prefill_traces"],
+             "prefill_graph_replays": m["prefill_graph_replays"],
+             "wave_keys": sorted(set(k)),
+             "prefix_hit_tokens": m["kv_cache"]["prefix_hit_tokens"],
+             "decode_tick_ms": exact_summary(t),
+             "decode_step_ms": m["decode_step_ms"]}
+            for m, k, t in zip(ms, run["wave_keys"], run["tick_ms"])],
+        "prefix_routed_tokens": agg["prefix_routed_tokens"],
+        "prefix_hit_rate_pooled": agg.get("prefix_hit_rate_pooled"),
+        "requests_by_route": by_route, "launches": run["launches"],
+        "routes": run["routes"], "registry_routes": routes_reg,
+        "eager_twin_identical": twin_same,
+        "http": {"metrics_equal_registry":
+                 run["http_metrics"] == run["prometheus"],
+                 "metrics_bytes": len(run["http_metrics"]),
+                 "healthz": healthz}}
+    for k, same in twin_same.items():
+        check(same, f"{what}: the eager twin's {k} differ from the "
+                    f"graphed router's")
+    for i, (m, k) in enumerate(zip(ms, run["wave_keys"])):
+        check_graph({"graphed": run["graphed"][i], "metrics": m,
+                     "wave_keys": k}, f"{what} replica {i}")
+    for i, (m, k) in enumerate(zip(twin["metrics"], twin["wave_keys"])):
+        check_graph({"graphed": twin["graphed"][i], "metrics": m,
+                     "wave_keys": k}, f"{what} eager replica {i}",
+                    graphed=False)
+    check(rep["rejected"] == 0 and all(rep["outputs"]),
+          f"{what}: {rep['rejected']} requests rejected")
+    check(all(len(o) == r.max_new_tokens
+              and all(0 <= t < model.config.vocab_size for t in o)
+              for o, r in zip(rep["outputs"], load)),
+          f"{what}: a request returned the wrong count of tokens or a "
+          f"token outside the vocabulary")
+    check_attention_launches(what, run["launches"], run["routes"],
+                             attention_launches(total, {
+                                 "decode_attention_paged": ("tick",),
+                                 "flash_attention_fwd_paged": ("wave",)}))
+    for op in OBS_ROUTES["4b"]:
+        check(routes_reg.get(f"{op}/kernel", 0) > 0,
+              f"{what}: no kernel route for {op} in the registry (a plain "
+              f"route ran)")
+    plain = {k: n for k, n in routes_reg.items() if k.endswith("/plain")}
+    check(not plain, f"{what}: plain routes in the registry: {plain}")
+    check(agg["prefix_routed_tokens"] > 0 and by_route.get("prefix", 0) > 0,
+          f"{what}: no request was routed by its prefix "
+          f"(prefix_routed_tokens {agg['prefix_routed_tokens']}, routes "
+          f"{by_route})")
+    check(not stray, f"{what}: prefix-routed requests {stray} landed on a "
+                     f"replica that never served their tenant")
+    check(hits > 0, f"{what}: no pooled prefix hit")
+    check(run["model_in_place"] and twin["model_in_place"],
+          f"{what}: building the replicas moved or cast the model")
+    check(run["http_metrics"] == run["prometheus"]
+          and "router_requests" in run["http_metrics"],
+          f"{what}: /metrics differs from the registry's text or lacks "
+          f"the router.requests series")
+    check(isinstance(healthz, dict) and "ok" in healthz,
+          f"{what}: /healthz is not the liveness JSON: {healthz}")
     line["seconds"] = round(time.perf_counter() - t0, 4)
     emit(line)
 
@@ -8328,6 +8624,7 @@ def main(argv=None) -> int:
     phase_serving_mixed(torch, model, kernels, run4b)
     swap4m = phase_serving_preempt(torch, model)
     phase_observability(run4b, run4c, swap4m)
+    phase_serving_router(torch, model)
     if args.profile:
         phase_profile(torch, model, qmodel)
     phase_generate(torch, model, qmodel, card)

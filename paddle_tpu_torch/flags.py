@@ -4,7 +4,8 @@ Only the serving defaults, the flash-decode chunk size, the train step's
 ``check_nan_inf``, the build watchdog's action and the observability
 layer's flags (the metrics registry's label cap, the span tracer, the
 request log, the SLO deadlines, the cost model and predictive admission)
-are kept.  The
+and the control plane's (the replica router, the autoscaler, the HTTP
+exposition's port) are kept.  The
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
@@ -103,6 +104,19 @@ _DEFAULTS: Dict[str, Any] = {
     "serving_admission_slack": 1.25,
     "serving_admission_calib": 1.0,
     "serving_admission_max_defer_ticks": 64,
+    # the single-host control plane (paddle_tpu/flags.py:249-258,
+    # :427-440): serving_dp_replicas the ReplicaRouter's default replica
+    # count, serving_router_policy its placement policy ("prefix",
+    # "least_loaded" or "round_robin"); the ReplicaAutoscaler acts once
+    # pressure or slack persisted serving_autoscale_min_ticks observe()
+    # ticks, at least serving_autoscale_cooldown ticks after its last
+    # action; metrics_port the HTTP exposition's port (0 off, -1 an
+    # ephemeral one)
+    "serving_dp_replicas": 1,
+    "serving_router_policy": "prefix",
+    "serving_autoscale_min_ticks": 8,
+    "serving_autoscale_cooldown": 16,
+    "metrics_port": 0,
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)

@@ -22,9 +22,11 @@ serving engine's telemetry as a layer, not as per-module counters.
 
 Conventions: metric names are dotted lowercase (``serving.ttft_ms``);
 millisecond histograms carry the ``_ms`` suffix; per-instance series are
-told apart by labels (``engine="0"``, ``pool="1"``), never by name.  The
-reference's ``federation`` and ``http_exposition`` modules and its
-``check_history`` gate are ROADMAP A7; ``profiler.RecordEvent`` is A10.
+told apart by labels (``engine="0"``, ``pool="1"``), never by name.
+:mod:`.http_exposition` serves the registry, the engines' liveness and the
+request log over HTTP (``FLAGS_metrics_port``).  The reference's
+``federation`` module and its ``check_history`` gate are ROADMAP A7b;
+``profiler.RecordEvent`` is A10.
 """
 
 from .costmodel import (CostModel, Finding, HardwareProfile, PROFILES,

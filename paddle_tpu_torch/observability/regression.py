@@ -13,7 +13,7 @@ drift detectors watch both.  Detections feed the
 :class:`.costmodel.TickAttribution`.
 
 The reference module's other half, ``check_history`` (the offline gate
-over committed ``BENCH_*.json`` files), is ROADMAP A7.
+over committed ``BENCH_*.json`` files), is ROADMAP A7b.
 """
 
 from __future__ import annotations

@@ -388,6 +388,147 @@ class ServingEngine:
             if value not in defaults:
                 raise NotImplementedError(
                     f"ServingEngine({name}={value!r}) is ROADMAP {item}")
+        self.int8_weights = bool(flags.flag("serving_int8_weights")
+                                 if int8_weights is None else int8_weights)
+        if self.int8_weights and not hasattr(model, "unwrapped"):
+            from ..models.quantized import quantize_for_decode
+            model = quantize_for_decode(model)
+        self.device = default_device(device)
+        mdev = next(model.parameters()).device
+        if mdev.type != self.device.type or (
+                mdev.index is not None and self.device.index is not None
+                and mdev.index != self.device.index):
+            raise ValueError(f"the model lives on {mdev}, the engine runs "
+                             f"on {self.device}")
+        limit = getattr(model.config, "max_position_embeddings", None)
+        if limit is not None and max_length > limit:
+            raise ValueError(
+                f"max_length {max_length} exceeds the model's "
+                f"max_position_embeddings ({limit})")
+        self.model = model
+        self.config = model.config
+        self._init_host_state(
+            num_slots, max_length, eos_token_id, pad_token_id,
+            prefill_batch, paged=paged, block_len=block_len,
+            num_blocks=num_blocks, prefix_cache=prefix_cache,
+            kv_cache_dtype=kv_cache_dtype, preempt=preempt,
+            host_blocks=host_blocks, chunked=chunked,
+            prefill_chunk=prefill_chunk, chunk_policy=chunk_policy,
+            spec_decode=spec_decode, spec_k=spec_k)
+        if self.paged:
+            c = self.config
+            tok = c.num_hidden_layers * 2 * c.num_key_value_heads * c.head_dim
+            native = torch.empty((), dtype=c.torch_dtype).element_size()
+            bl = self.block_len
+            # a block's bytes: payload (+ the int8 block's scale row)
+            self.kv.set_block_nbytes({
+                "bf16": tok * bl * native,
+                "int8": tok * bl
+                + c.num_hidden_layers * 2 * c.num_key_value_heads * 4})
+            with torch.no_grad():
+                self._cache = init_paged_kv_cache(
+                    self.config, self.kv.num_blocks, bl,
+                    quantized=self.quantized, device=self.device)
+        else:
+            with torch.no_grad():
+                self._cache = init_kv_cache(self.config, self.num_slots,
+                                            self.max_length,
+                                            quantized=self.quantized,
+                                            device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+
+        # the steps, built once; the host mirrors of their inputs are
+        # views of their staging buffers (uploaded per tick).  The
+        # chunked engine's mixed step is its serving.step site; its
+        # decode step (chunk-free ticks) is labelled graph="decode"
+        s = self.num_slots
+        eid = self._eid
+        mb = self.max_blocks if self.paged else None
+        label = "decode" if self.chunked else None
+        if self.spec:
+            # the verify step takes the decode step's place: its window's
+            # column 0 is the rows' current token, columns 1.. the drafts
+            self._step = VerifyStep(self.model, self._cache, s,
+                                    self.spec_k + 1, mb, self.device, eid,
+                                    graph=label)
+            self._window = self._step.tokens_host
+            self._ok = self._step.ok_host
+            self._tokens = self._window[:, 0]
+        else:
+            self._step = DecodeStep(self.model, self._cache, s, mb,
+                                    self.device, eid, graph=label)
+            self._tokens = self._step.tokens_host
+        self._positions = self._step.positions_host
+        if self.paged:
+            self._tables = self._step.tables_host
+        # the position of a row that is not decoding: the contiguous
+        # chunked engine drops its writes there (a chunk may be filling
+        # the row); elsewhere position 0 (paged: of the null block)
+        self._idle_pos = (self.max_length if self.chunked and not self.paged
+                          else 0)
+        self._positions[:] = self._idle_pos
+        if self.chunked:
+            # a chunk never holds more than max_length tokens (a prompt is
+            # shorter), so the buffer is capped there
+            self._mixed = MixedStep(self._step,
+                                    min(self.prefill_chunk, self.max_length),
+                                    mb, eid)
+            # the build's dummy chunk: every write drops (contiguous:
+            # at max_length; paged: the all-null table row)
+            self._mixed.pos_host[0] = self._idle_pos
+            self._mixed.len_host[0] = 1
+        self._step.build()
+        if self._mixed is not None:
+            self._mixed.build()
+        if self.paged:
+            # the builds' warm-up ran the steps on idle rows, whose writes
+            # land in the null block; a padded wave's rows read that block
+            # back, and an int8 pool's padding writes then reach a live
+            # block's running-max scale: give back the fresh pool's null
+            # block, so a graphed engine serves as its eager twin does
+            for t in self._leaves():
+                t[:, :, 0] = 0
+        if self.kv_dtype == "mixed":
+            self._demote_fn = _DemoteOp(self._cache, eid)
+            self.kv.on_demote = self._pending_demote.extend
+        # drafters, by kind; the default one is built now, the others on a
+        # request's first use (a draft model's steps on its first tick)
+        self._draft_model = draft_model
+        if self.spec:
+            self._drafter = self._make_drafter(
+                drafter if drafter is not None
+                else str(flags.flag("serving_spec_drafter")))
+            self._drafters[getattr(self._drafter, "kind", "custom")] = \
+                self._drafter
+        # the per-tick roofline (reference :713-716): predictions are
+        # memoized host math, so a steady tick pays a dict lookup;
+        # FLAGS_perf_model "off" skips the layer
+        self._perf = (self._build_perf_model()
+                      if flags.flag("perf_model") == "on" else None)
+
+    def _init_host_state(self, num_slots: int, max_length: int,
+                         eos_token_id: Optional[int], pad_token_id: int,
+                         prefill_batch: int, *, paged: Optional[bool],
+                         block_len: Optional[int],
+                         num_blocks: Optional[int],
+                         prefix_cache: Optional[bool],
+                         kv_cache_dtype: Optional[str],
+                         preempt: Optional[str],
+                         host_blocks: Optional[int],
+                         chunked: Optional[bool],
+                         prefill_chunk: Optional[int],
+                         chunk_policy: Optional[str],
+                         spec_decode: Optional[bool],
+                         spec_k: Optional[int]) -> None:
+        """The engine's host-side state, with no model and no device: the
+        options (each ``None`` read from its flag), the paged pool's
+        :class:`BlockManager`, the engine id, the scheduler's queues,
+        slots and per-slot numpy state, the clock and the registry
+        series.  The constructor adds the cache, the steps and their
+        staging mirrors; ``fleet_sim.SimEngine`` calls this alone and
+        adds its cost-model clock, so every scheduler attribute has one
+        home."""
         self.paged = bool(flags.flag("serving_paged_kv")
                           if paged is None else paged)
         self.kv_dtype = str(kv_cache_dtype
@@ -438,25 +579,6 @@ class ServingEngine:
         self.spec_k = int(spec_k or flags.flag("serving_spec_k"))
         if self.spec and self.spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
-        self.int8_weights = bool(flags.flag("serving_int8_weights")
-                                 if int8_weights is None else int8_weights)
-        if self.int8_weights and not hasattr(model, "unwrapped"):
-            from ..models.quantized import quantize_for_decode
-            model = quantize_for_decode(model)
-        self.device = default_device(device)
-        mdev = next(model.parameters()).device
-        if mdev.type != self.device.type or (
-                mdev.index is not None and self.device.index is not None
-                and mdev.index != self.device.index):
-            raise ValueError(f"the model lives on {mdev}, the engine runs "
-                             f"on {self.device}")
-        limit = getattr(model.config, "max_position_embeddings", None)
-        if limit is not None and max_length > limit:
-            raise ValueError(
-                f"max_length {max_length} exceeds the model's "
-                f"max_position_embeddings ({limit})")
-        self.model = model
-        self.config = model.config
         self.num_slots = int(num_slots)
         self.max_length = int(max_length)
         self.eos_token_id = eos_token_id
@@ -477,68 +599,9 @@ class ServingEngine:
                                           if prefix_cache is None
                                           else prefix_cache),
                 kv_dtype=self.kv_dtype, host_blocks=self._host_blocks)
-            c = self.config
-            tok = c.num_hidden_layers * 2 * c.num_key_value_heads * c.head_dim
-            native = torch.empty((), dtype=c.torch_dtype).element_size()
-            # a block's bytes: payload (+ the int8 block's scale row)
-            self.kv.set_block_nbytes({
-                "bf16": tok * bl * native,
-                "int8": tok * bl
-                + c.num_hidden_layers * 2 * c.num_key_value_heads * 4})
-            with torch.no_grad():
-                self._cache = init_paged_kv_cache(self.config, nb, bl,
-                                                  quantized=self.quantized,
-                                                  device=self.device)
-        else:
-            with torch.no_grad():
-                self._cache = init_kv_cache(self.config, self.num_slots,
-                                            self.max_length,
-                                            quantized=self.quantized,
-                                            device=self.device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
-
-        # the steps, built once; the host mirrors of their inputs are
-        # views of their staging buffers (uploaded per tick).  The
-        # chunked engine's mixed step is its serving.step site; its
-        # decode step (chunk-free ticks) is labelled graph="decode"
+        self._eid = str(next(_ENGINE_IDS))
         s = self.num_slots
-        eid = self._eid = str(next(_ENGINE_IDS))
-        mb = self.max_blocks if self.paged else None
-        label = "decode" if self.chunked else None
-        if self.spec:
-            # the verify step takes the decode step's place: its window's
-            # column 0 is the rows' current token, columns 1.. the drafts
-            self._step = VerifyStep(self.model, self._cache, s,
-                                    self.spec_k + 1, mb, self.device, eid,
-                                    graph=label)
-            self._window = self._step.tokens_host
-            self._ok = self._step.ok_host
-            self._tokens = self._window[:, 0]
-        else:
-            self._step = DecodeStep(self.model, self._cache, s, mb,
-                                    self.device, eid, graph=label)
-            self._tokens = self._step.tokens_host
-        self._positions = self._step.positions_host
-        if self.paged:
-            self._tables = self._step.tables_host
-        # the position of a row that is not decoding: the contiguous
-        # chunked engine drops its writes there (a chunk may be filling
-        # the row); elsewhere position 0 (paged: of the null block)
-        self._idle_pos = (self.max_length if self.chunked and not self.paged
-                          else 0)
-        self._positions[:] = self._idle_pos
         self._mixed: Optional[MixedStep] = None
-        if self.chunked:
-            # a chunk never holds more than max_length tokens (a prompt is
-            # shorter), so the buffer is capped there
-            self._mixed = MixedStep(self._step,
-                                    min(self.prefill_chunk, self.max_length),
-                                    mb, eid)
-            # the build's dummy chunk: every write drops (contiguous:
-            # at max_length; paged: the all-null table row)
-            self._mixed.pos_host[0] = self._idle_pos
-            self._mixed.len_host[0] = 1
         # the wave steps, one a (bucket, rows) key, built on first use
         self._prefill_steps: Dict[Tuple[int, int], PrefillStep] = {}
         self._prefill_pool = None
@@ -560,44 +623,17 @@ class ServingEngine:
         self._ticks = 0
         self._clock = time.perf_counter
         self._init_metrics()
-        self._step.build()
-        if self._mixed is not None:
-            self._mixed.build()
-        if self.paged:
-            # the builds' warm-up ran the steps on idle rows, whose writes
-            # land in the null block; a padded wave's rows read that block
-            # back, and an int8 pool's padding writes then reach a live
-            # block's running-max scale: give back the fresh pool's null
-            # block, so a graphed engine serves as its eager twin does
-            for t in self._leaves():
-                t[:, :, 0] = 0
         # the mixed pool's demotions: queued by the manager at registration
         # (on_demote is a bound extend of the list, so it is drained in
         # place), applied after the dispatch that writes the blocks
         self._pending_demote: List[int] = []
         self._demote_fn: Optional[_DemoteOp] = None
-        if self.kv_dtype == "mixed":
-            self._demote_fn = _DemoteOp(self._cache, eid)
-            self.kv.on_demote = self._pending_demote.extend
         if self._host_blocks > 0:
             self.kv.on_swap_out = self._host_swap_out
             self.kv.on_swap_in = self._host_swap_in
-        # drafters, by kind; the default one is built now, the others on a
-        # request's first use (a draft model's steps on its first tick)
-        self._draft_model = draft_model
+        self._draft_model = None
         self._drafters: Dict[str, object] = {}
         self._drafter = None
-        if self.spec:
-            self._drafter = self._make_drafter(
-                drafter if drafter is not None
-                else str(flags.flag("serving_spec_drafter")))
-            self._drafters[getattr(self._drafter, "kind", "custom")] = \
-                self._drafter
-        # the per-tick roofline (reference :713-716): predictions are
-        # memoized host math, so a steady tick pays a dict lookup;
-        # FLAGS_perf_model "off" skips the layer
-        self._perf = (self._build_perf_model()
-                      if flags.flag("perf_model") == "on" else None)
 
     # -- metrics -------------------------------------------------------------
 

@@ -517,6 +517,30 @@ class BlockManager:
         self._note_peak()
         return m_blocks * bl
 
+    def prefix_probe(self, prompt: Sequence[int],
+                     prompt_len: Optional[int] = None) -> int:
+        """READ-ONLY longest trie match for ``prompt``, in tokens: the
+        replica router's placement probe (``serving/router.py``).  No
+        refcount change, no LRU touch, no counter increment (:meth:`admit`
+        stays the trie's only consumer with side effects), and capped as
+        admission caps (one token must remain to produce the first
+        logits), so the probe never promises more than ``admit`` would
+        adopt.  The host trie is not probed, as in the reference."""
+        if not self.prefix_cache:
+            return 0
+        n = int(prompt_len if prompt_len is not None else len(prompt))
+        bl = self.block_len
+        toks = [int(t) for t in prompt[:n]]
+        parent = _ROOT
+        m = 0
+        for b in range((n - 1) // bl):
+            bid = self._trie.get((parent, tuple(toks[b * bl:(b + 1) * bl])))
+            if bid is None:
+                break
+            m += 1
+            parent = bid
+        return m * bl
+
     def register_prompt_upto(self, slot: int, prompt: Sequence[int],
                              upto: int):
         """Chunked-prefill registration: insert the prompt's full blocks

@@ -1,0 +1,302 @@
+"""The port's load harness (``paddle_tpu_torch/serving/loadgen.py``)
+against the JAX package's, on the CPU.
+
+* ``generate_load`` equals the reference's field by field over a grid of
+  arrival processes, length mixes, tenant counts and seeds: arrivals
+  exactly, prompts byte-equal (both draw numpy's ``RandomState`` in one
+  order).
+* The ten cases of ``tests/test_loadgen.py``, on the port: the trace's
+  shapes (pure numpy) and ``replay`` on port engines, each replay held
+  against the same replay on JAX engines.
+* ``replay`` on port engines against ``replay`` on JAX engines for one
+  trace in the smoke's four modes (wave, chunked, paged int8-KV, a
+  saturated pool preempting through the host tier): outputs, rejections,
+  ticks, step builds, the timeline signature and the SLO report's counts
+  equal.  Wall-time fields are left out.
+* ``python -m paddle_tpu_torch.serving.loadgen --smoke --device cpu``
+  runs in-process and returns 0; without ``--device`` the smoke asks for
+  the card.
+
+One JAX ``tiny_llama_config`` model (float32) is bridged into the port
+(``models/convert.py``).  Tolerance: exact (tokens, counts, signatures).
+"""
+
+import numpy as np
+import pytest
+
+import paddle_tpu as pt
+from paddle_tpu import observability as jobs
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models import tiny_llama_config as jax_tiny
+from paddle_tpu.serving import ServingEngine as JaxEngine
+from paddle_tpu.serving import loadgen as jlg
+
+from torch_obs_guard import fresh_observability  # noqa: F401
+from torch_chip_rehearsal import one_thread  # noqa: F401
+from paddle_tpu_torch import observability as tobs
+from paddle_tpu_torch.models import (LlamaForCausalLM, config_from,
+                                     load_jax_state_dict)
+from paddle_tpu_torch.serving import (LoadSpec, ServingEngine,
+                                      generate_load, replay)
+from paddle_tpu_torch.serving import loadgen as tlg
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(one_thread):
+    """Each test on one intra-op thread (``torch_chip_rehearsal``): its
+    tensors are tiny, and six parallel workers that each take every core
+    make such tests many times slower than alone."""
+    yield
+
+
+def _same_trace(a, b):
+    return (len(a) == len(b) and all(
+        x.index == y.index and x.arrival == y.arrival
+        and x.tenant == y.tenant and x.max_new_tokens == y.max_new_tokens
+        and x.prompt.dtype == y.prompt.dtype
+        and x.prompt.tobytes() == y.prompt.tobytes()
+        for x, y in zip(a, b)))
+
+
+# -- the trace: byte-equal to the reference's ------------------------------
+
+@pytest.mark.parametrize("seed", [0, 5, 11])
+@pytest.mark.parametrize("tenants", [1, 3])
+@pytest.mark.parametrize("dist", ["lognormal", "zipf"])
+@pytest.mark.parametrize("arrival", ["poisson", "bursty"])
+def test_generate_load_byte_equal_to_reference(arrival, dist, tenants,
+                                               seed):
+    kw = dict(n_requests=48, vocab=1000, arrival=arrival, mean_gap=1.7,
+              prompt_dist=dist, output_dist=dist, tenants=tenants,
+              shared_prefix_len=6 if tenants > 1 else 0)
+    got = generate_load(LoadSpec(**kw), seed=seed)
+    want = jlg.generate_load(jlg.LoadSpec(**kw), seed=seed)
+    assert _same_trace(got, want)
+    assert dataclass_fields(LoadSpec) == dataclass_fields(jlg.LoadSpec)
+
+
+def dataclass_fields(cls):
+    import dataclasses
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+# -- the reference's pure cases --------------------------------------------
+
+def test_generate_load_seeded_determinism():
+    spec = LoadSpec(n_requests=32, tenants=3, shared_prefix_len=4)
+    assert _same_trace(generate_load(spec, seed=5),
+                       generate_load(spec, seed=5))
+    assert not _same_trace(generate_load(spec, seed=5),
+                           generate_load(spec, seed=6))
+
+
+def test_poisson_arrivals_sorted_with_mean_gap():
+    spec = LoadSpec(n_requests=400, arrival="poisson", mean_gap=2.0)
+    arr = np.array([r.arrival for r in generate_load(spec, seed=0)])
+    assert np.all(np.diff(arr) >= 0.0)
+    gaps = np.diff(np.concatenate([[0.0], arr]))
+    assert 1.5 < gaps.mean() < 2.5        # exponential(2.0), n=400
+
+
+def test_bursty_arrivals_have_onoff_gap_structure():
+    spec = LoadSpec(n_requests=200, arrival="bursty", burst_on=4.0,
+                    burst_off=16.0, burst_gap=0.25)
+    arr = np.array([r.arrival for r in generate_load(spec, seed=1)])
+    gaps = np.diff(arr)
+    assert np.all(gaps >= 0.0)
+    assert gaps.max() > 16.0
+    assert np.median(gaps) < 1.0
+    # nothing lands inside an off gap: every big gap jumps past burst_off
+    assert not np.any((gaps > 8.0) & (gaps < 16.0))
+
+
+def test_zipf_bucketed_lengths_land_on_buckets_rank_ordered():
+    buckets = (8, 16, 192)
+    spec = LoadSpec(n_requests=300, prompt_dist="zipf",
+                    prompt_buckets=buckets, prompt_zipf_a=1.0,
+                    prompt_min=1, prompt_max=256, shared_prefix_len=0)
+    plens = [len(r.prompt) for r in generate_load(spec, seed=2)]
+    assert set(plens) <= set(buckets)
+    counts = [plens.count(b) for b in buckets]
+    assert counts[0] > counts[1] > counts[2] > 0   # rank power law
+
+
+def test_lognormal_lengths_clamped_and_heavy_tailed():
+    spec = LoadSpec(n_requests=500, output_dist="lognormal",
+                    output_median=16.0, output_sigma=0.6,
+                    output_min=4, output_max=64)
+    olens = np.array([r.max_new_tokens
+                      for r in generate_load(spec, seed=3)])
+    assert olens.min() >= 4 and olens.max() <= 64
+    med = float(np.median(olens))
+    assert 12.0 <= med <= 20.0
+    assert float(np.mean(olens)) > med     # right-skewed
+
+
+def test_tenants_share_prefix_and_follow_zipf():
+    spec = LoadSpec(n_requests=200, tenants=3, tenant_zipf_a=1.2,
+                    shared_prefix_len=6)
+    load = generate_load(spec, seed=4)
+    by_tenant = {}
+    for r in load:
+        by_tenant.setdefault(r.tenant, []).append(r.prompt[:6])
+    assert set(by_tenant) == {0, 1, 2}
+    prefixes = {}
+    for t, heads in by_tenant.items():
+        for h in heads:
+            assert np.array_equal(h, heads[0])
+        prefixes[t] = tuple(heads[0].tolist())
+    assert len(set(prefixes.values())) == 3
+    pops = sorted((len(v) for v in by_tenant.values()), reverse=True)
+    assert pops == [len(by_tenant[0]), len(by_tenant[1]),
+                    len(by_tenant[2])]
+
+
+def test_bad_dist_and_arrival_raise():
+    with pytest.raises(ValueError, match="length distribution"):
+        generate_load(LoadSpec(n_requests=4, prompt_dist="uniform"), 0)
+    with pytest.raises(ValueError, match="arrival process"):
+        generate_load(LoadSpec(n_requests=4, arrival="steady"), 0)
+
+
+# -- replay, against the JAX engines ---------------------------------------
+
+@pytest.fixture(scope="module")
+def pair():
+    pt.seed(7)
+    jm = JaxLlama(jax_tiny(context_parallel="gspmd"))
+    jm.eval()
+    tm = LlamaForCausalLM(config_from(jm.config), device="cpu")
+    load_jax_state_dict(tm, {k: np.asarray(v) for k, v in
+                             jm.state_dict(include_buffers=True).items()})
+    return jm, tm
+
+
+def _engine(model, **kw):
+    if isinstance(model, LlamaForCausalLM):
+        return ServingEngine(model, device="cpu", **kw)
+    return JaxEngine(model, **kw)
+
+
+def _spec():
+    return LoadSpec(n_requests=6, arrival="poisson", mean_gap=1.0,
+                    prompt_dist="zipf", prompt_buckets=(8, 16, 32),
+                    prompt_zipf_a=1.1, prompt_max=32,
+                    output_dist="lognormal", output_median=5.0,
+                    output_sigma=0.3, output_min=3, output_max=8,
+                    tenants=2, shared_prefix_len=4)
+
+
+SLO_COUNTS = ("requests", "attained", "goodput", "attained_tokens",
+              "targets_ms", "violations")
+
+
+def _slo_counts(rep):
+    slo = rep["slo"]
+    return ({k: slo[k] for k in SLO_COUNTS},
+            slo["ttft_ms"]["count"], slo["tpot_ms"]["count"])
+
+
+def _same_replay(got, want):
+    for k in ("requests", "rejected", "ticks", "outputs",
+              "generated_tokens", "step_traces", "signature"):
+        assert got[k] == want[k], k
+    assert _slo_counts(got) == _slo_counts(want)
+
+
+def test_replay_report_and_identical_seed_signature(pair):
+    jm, tm = pair
+    load = generate_load(_spec(), seed=11)
+    reps = [replay(_engine(tm, num_slots=3, max_length=64,
+                           prefill_batch=2), load) for _ in range(2)]
+    a, b = reps
+    assert a["requests"] == 6 and a["rejected"] == 0
+    assert all(o is not None for o in a["outputs"])
+    assert a["generated_tokens"] == sum(len(o) for o in a["outputs"])
+    assert a["slo"]["requests"] == 6
+    assert a["slo"]["goodput"] == 1.0      # deadlines off: attained
+    assert a["mark"] < a["end_mark"]
+    assert a["signature"] == b["signature"]
+    assert a["outputs"] == b["outputs"]
+    assert b["mark"] >= a["end_mark"]
+    want = jlg.replay(_engine(jm, num_slots=3, max_length=64,
+                              prefill_batch=2),
+                      jlg.generate_load(jlg.LoadSpec(
+                          **_spec().__dict__), seed=11))
+    _same_replay(a, want)
+
+
+def test_replay_rejections_feed_goodput_denominator(pair):
+    jm, tm = pair
+    load = generate_load(_spec(), seed=11)
+    # max_length 16 rejects every prompt longer than ~12 tokens
+    rep = replay(_engine(tm, num_slots=3, max_length=16), load)
+    assert rep["rejected"] > 0
+    assert rep["outputs"].count(None) == rep["rejected"]
+    assert rep["slo"]["requests"] == 6      # rejected stay counted
+    assert rep["slo"]["violations"]["rejected"] == rep["rejected"]
+    assert rep["slo"]["goodput"] < 1.0
+    want = jlg.replay(_engine(jm, num_slots=3, max_length=16), load)
+    _same_replay(rep, want)
+
+
+def test_post_hoc_explicit_targets_rejudge_replay_segment(pair):
+    jm, tm = pair
+    load = generate_load(_spec(), seed=11)
+    rep = replay(_engine(tm, num_slots=3, max_length=64,
+                         prefill_batch=2), load)
+    strict = tobs.get_request_log().slo_report(
+        since_uid=rep["mark"], until_uid=rep["end_mark"],
+        ttft_ms=1e-6, tpot_ms=1e-6, wall_s=rep["wall_s"])
+    assert strict["requests"] == 6
+    assert strict["attained"] == 0 and strict["goodput"] == 0.0
+    assert sum(strict["violations"].values()) == 6
+    jrep = jlg.replay(_engine(jm, num_slots=3, max_length=64,
+                              prefill_batch=2), load)
+    jstrict = jobs.get_request_log().slo_report(
+        since_uid=jrep["mark"], until_uid=jrep["end_mark"],
+        ttft_ms=1e-6, tpot_ms=1e-6, wall_s=jrep["wall_s"])
+    # which segment (queue wait or prefill) a missed TTFT is charged to
+    # compares wall times: equal are the counts and the total
+    keep = ("requests", "attained", "goodput", "attained_tokens",
+            "targets_ms")
+    assert ({k: strict[k] for k in keep} == {k: jstrict[k] for k in keep})
+    assert (sum(strict["violations"].values())
+            == sum(jstrict["violations"].values()) == 6)
+
+
+# -- the smoke's four modes, port against JAX ------------------------------
+
+@pytest.mark.parametrize("mode", list(tlg.SMOKE_MODES))
+def test_replay_modes_equal_to_jax(pair, mode):
+    """The smoke's trace through one port engine and one JAX engine of
+    the mode: the whole replay equal (saturated: the preemption decisions
+    too)."""
+    jm, tm = pair
+    kw = dict(num_slots=4, max_length=128, prefill_batch=2,
+              **tlg.SMOKE_MODES[mode])
+    load = generate_load(tlg.smoke_spec(), seed=11)
+    teng, jeng = _engine(tm, **kw), _engine(jm, **kw)
+    got = replay(teng, load)
+    want = jlg.replay(jeng, load)
+    _same_replay(got, want)
+    assert got["generated_tokens"] > 0
+    if mode == "saturated":
+        assert teng.preempt_decisions == jeng.preempt_decisions
+        assert sum(teng.metrics()["preempt"]["preemptions"].values()) > 0
+
+
+def test_smoke_in_process_returns_zero(capsys):
+    assert tlg.main(["--smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert '"failures": []' in out and "A11" in out
+    assert '"device": "cpu"' in out
+
+
+def test_smoke_runs_on_the_card_unless_asked(monkeypatch):
+    """No ``--device``: the smoke asks for the card, and a box without
+    one refuses it rather than falling back to the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlg.main(["--smoke"])

@@ -12,8 +12,8 @@ request's timeline (``timeline_signature``), the registry's series
 (``tests/torch_obs_compare.py``) and the cost model's ``perf_signature``
 on the ``cpu_smoke`` profile must be equal.
 
-Left out: ``test_router_failover_carries_one_uid_across_replicas``, which
-waits for the router (ROADMAP A7).
+The router's case, ``test_router_failover_carries_one_uid_across_replicas``,
+is in ``tests/test_torch_serving_router.py``.
 """
 
 import json

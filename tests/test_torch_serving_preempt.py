@@ -9,8 +9,8 @@ priority-0 requests decode, then two priority-5 arrivals find nothing
 free.  Tolerance: tokens identical, ``preempt_decisions`` (victim, waiter,
 tick, mode, slot, progress, in order) and counters equal.
 
-One test of the reference's file waits for a later item: the router's
-``cancel`` (``test_router_cancel_and_priority``, ROADMAP A7).  The
+The router's ``cancel`` (``test_router_cancel_and_priority``) is in
+``tests/test_torch_serving_router.py``.  The
 request log's lifecycle events of preemption
 (``test_preempted_lifecycle_events``) and the cost model's swap term are
 held here against the JAX engine's, and so is the
