@@ -309,6 +309,37 @@ non-zero.  Phases:
                  Reported: goodput, TTFT / TPOT p50 / p90, summed tok/s
                  (graphed and eager), ticks, requests and
                  ``decode_tick_ms`` a replica;
+  4p. serving_multihost — the multihost plane: phase 3's model behind
+                 three ``EngineWorker`` s (``p0``, ``d0``, ``d1``; paged,
+                 128-token blocks, 8 slots x 2048) on loopback transports,
+                 replaying ``generate_load``'s seeded trace (8 requests,
+                 two tenants with 128-token system prompts, prompts of
+                 192-384 tokens, 8-24 new tokens) through
+                 ``MultiHostRouter(policy="disagg", prefill=["p0"])``,
+                 then an eager twin plane.  Gates: outputs, placements,
+                 the timeline signature, ticks and rejections equal to the
+                 twin's; every request placed on p0 and finished on d0 or
+                 d1; 8 migrations, their bytes the exported blocks' (from
+                 the pool's leaf shapes); p0 K2-paged 32 a wave, d0 / d1
+                 K1-paged 32 a tick and no wave; each decode step built
+                 once, a replay a tick (and a wave), no prefill build on a
+                 decode worker; kernel routes only (in the registry too);
+                 the model not moved.  A failover leg (eager, policy
+                 prefix over d0 and d1) kills d1 while it holds requests:
+                 every request finishes with its budget, each victim's
+                 timeline ``worker_lost -> failover -> placed`` under its
+                 one uid.  Federation: counters equal the workers' own
+                 series, a merged Perfetto trace with every worker's track
+                 and stitched request tracks, ``/fleet`` and ``/metrics``
+                 (``worker=`` labels) over a loopback server, and one
+                 streamed ``POST /v1/generate`` whose first chunk comes
+                 before its request retires.  Then ``python -m
+                 paddle_tpu_torch.serving.multihost --selfcheck`` (two
+                 worker processes on the card, one killed) exits 0.
+                 Reported: migration seconds (the codec's included),
+                 ticks, tok/s, TTFT / TPOT p50 / p90, token agreement of
+                 the failover leg, the self-check's and the phase's
+                 seconds, the card;
   generate.    — phase 3's Llama-3-8B model (bf16, 32 layers) through
                  ``generate``: greedy (B 4, prompt 128, 64 new tokens),
                  sampled (temperature 0.8, top_k 50, top_p 0.9), beam
@@ -5682,6 +5713,556 @@ def phase_serving_router(torch, model):
     emit(line)
 
 
+# -- phase 4p ------------------------------------------------------------------------
+
+# phase 4p's traffic (``loadgen.LoadSpec`` fields; the vocabulary is the
+# model's) and seed: requests of at most 384 prompt tokens, so a
+# migration moves at most 3 blocks (48 MiB at the 8B width)
+MULTIHOST_SPEC = dict(n_requests=8, arrival="poisson", mean_gap=2.0,
+                      prompt_dist="zipf", prompt_buckets=(64, 128, 256),
+                      prompt_zipf_a=1.1, prompt_min=16, prompt_max=256,
+                      output_dist="lognormal", output_median=16,
+                      output_sigma=0.4, output_min=8, output_max=24,
+                      tenants=2, shared_prefix_len=128)
+MULTIHOST_SEED = 13
+MULTIHOST_WORKERS = ("p0", "d0", "d1")
+# a worker's pool: 8 slots x 4 blocks (a 408-token worst case) beside the
+# tenants' prefix blocks
+MULTIHOST_POOL_BLOCKS = 40
+MULTIHOST_MAX_LENGTH = 2048
+# the failover leg kills d1 at the first tick from this one at which it
+# holds a request
+MULTIHOST_KILL_TICK = 6
+# the real-process self-check: extra arguments (none: the card) and its
+# time limit in seconds
+MULTIHOST_SELFCHECK_ARGS = ()
+MULTIHOST_SELFCHECK_TIMEOUT = 300
+
+
+def multihost_load(vocab: int):
+    from paddle_tpu_torch.serving import LoadSpec, generate_load
+    return generate_load(LoadSpec(vocab=vocab, **MULTIHOST_SPEC),
+                         seed=MULTIHOST_SEED)
+
+
+def metered_workers(model, names, engines=None):
+    """A loopback transport a worker over ``engines`` (name -> engine;
+    fresh paged engines of phase 4p's shape by default).  Each worker's
+    handler credits the kernel launches made inside its calls to that
+    worker (``launches``: name -> Counter) and sums its seconds by method
+    (``handler_s``); each transport sums the seconds of its calls by
+    method, the codec's both ways included (``call_s``).  Returns
+    (transports, engines, launches, call_s, handler_s)."""
+    from collections import OrderedDict
+
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.multihost import (EngineWorker,
+                                                    LoopbackTransport)
+
+    if engines is None:
+        engines = {n: ServingEngine(
+            model, device="cuda", paged=True, block_len=128,
+            num_blocks=MULTIHOST_POOL_BLOCKS, num_slots=8,
+            max_length=MULTIHOST_MAX_LENGTH, prefill_batch=4)
+            for n in names}
+    launches = {n: collections.Counter() for n in names}
+    call_s, handler_s = collections.Counter(), collections.Counter()
+    transports = OrderedDict()
+    for n in names:
+        def handle(method, payload, _h=EngineWorker(engines[n], name=n)
+                   .handle, _n=n):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            try:
+                return _h(method, payload)
+            finally:
+                handler_s[method] += time.perf_counter() - t0
+                after = ops.launch_counts()
+                launches[_n].update({k: after[k] - before[k]
+                                     for k in after if after[k] > before[k]})
+        t = LoopbackTransport(handle, name=n)
+
+        def call(method, payload=None, timeout=None, _call=t.call):
+            t0 = time.perf_counter()
+            try:
+                return _call(method, payload, timeout)
+            finally:
+                call_s[method] += time.perf_counter() - t0
+        t.call = call
+        transports[n] = t
+    return transports, engines, launches, call_s, handler_s
+
+
+def stream_generate(plane, prompt, new_tokens):
+    """One ``POST /v1/generate`` through a ``ServingFrontend`` over
+    ``plane`` on a loopback server: the streamed lines, whether the
+    request had retired when its first token chunk was read, and the
+    plane's ``result`` of it."""
+    import http.client
+
+    from paddle_tpu_torch.serving.multihost import ServingFrontend
+
+    fe = ServingFrontend(plane)
+    srv = fe.serve(port=-1)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                          timeout=300)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [int(t) for t in prompt],
+             "max_new_tokens": int(new_tokens)}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        lines, buf, retired_at_first = [], b"", None
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                if line.strip():
+                    lines.append(json.loads(line))
+                    if "tokens" in lines[-1] and retired_at_first is None:
+                        retired_at_first = plane._reqs[
+                            lines[0]["rid"]].done
+        conn.close()
+    finally:
+        srv.stop()
+        fe.stop()
+    result = plane.result(lines[0]["rid"]) if lines and "rid" in lines[0] \
+        else None
+    return {"status": resp.status, "lines": lines,
+            "retired_at_first_chunk": retired_at_first, "result": result}
+
+
+def multihost_run(torch, model, load, http_leg=True):
+    """One replay of ``load`` through ``MultiHostRouter(policy="disagg",
+    prefill=["p0"])`` over :func:`metered_workers`: the observability
+    layer reset, every launch and route counter reset just before the
+    replay and read just after.  Returns the run: the replay's report,
+    placements, launches (all, and each worker's), routes, each engine's
+    ``metrics()`` and wave keys, the plane's aggregates, the request log's
+    records of the run, the exported blocks' bytes, the seconds of the
+    migration calls, the federation (counters against the registry, the
+    merged trace's tracks), and with ``http_leg`` the ``/fleet`` and
+    ``/metrics`` bodies and one streamed generation; the engines stay in
+    the run (the failover leg reuses the twin's)."""
+    from paddle_tpu_torch import observability, ops
+    from paddle_tpu_torch.observability.http_exposition import (
+        ExpositionServer)
+    from paddle_tpu_torch.ops import _dispatch
+    from paddle_tpu_torch.serving import replay
+    from paddle_tpu_torch.serving.multihost import MultiHostRouter
+
+    observability.reset()
+    ptrs = [(p.data_ptr(), p.dtype) for p in model.parameters()]
+    transports, engines, per_worker, call_s, handler_s = metered_workers(
+        model, MULTIHOST_WORKERS)
+    keys = {n: record_wave_keys(e) for n, e in engines.items()}
+    plane = MultiHostRouter(transports, policy="disagg", prefill=["p0"])
+    ops.reset_launch_counts()
+    _dispatch.reset_kernel_paths()
+    for c in per_worker.values():
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = replay(plane, load)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = {f"{op}/{path}": n for (op, path), n in
+              _dispatch.kernel_paths.items()}
+    log = observability.get_request_log()
+    records = log.records(rep["mark"], rep["end_mark"])
+    rids = sorted(plane._reqs)
+    block_bytes = sum(t[:, :, 0].numel() * t.element_size()
+                      for t in engines["d0"]._leaves())
+    run = {"report": rep, "wall": wall, "launches": launches,
+           "per_worker": {n: dict(c) for n, c in per_worker.items()},
+           "routes": routes,
+           "worker_of": [plane.worker_of(r) for r in rids],
+           "metrics": {n: e.metrics() for n, e in engines.items()},
+           "graphed": {n: e.graphed for n, e in engines.items()},
+           # copies: the failover leg's waves on the twin's engines
+           # append to the recorders after this run
+           "wave_keys": {n: list(k) for n, k in keys.items()},
+           "aggregate": plane.metrics()["aggregate"],
+           "records": records, "block_bytes": block_bytes,
+           "migration_s": call_s["export_request"]
+           + call_s["import_request"],
+           "migration_handler_s": handler_s["export_request"]
+           + handler_s["import_request"],
+           "snapshot": observability.snapshot(), "engines": engines}
+    # federation: the plane's pooled counters against the workers' own
+    # series in this process's registry
+    merged = plane.federation().merged()
+    eids = {str(e._eid) for e in engines.values()}
+    bad, n_counters = [], 0
+    for name, fam in merged.items():
+        if name in ("schema_version", "workers") or fam["type"] != "counter":
+            continue
+        n_counters += 1
+        want = sum(float(r["value"]) for r in
+                   run["snapshot"].get(name, {}).get("series", [])
+                   if str(r["labels"].get("engine", "")) in eids)
+        if float(fam["pooled"]["value"]) != want:
+            bad.append(f"{name}: {fam['pooled']['value']} != {want}")
+    trace = plane.export_merged_perfetto(since_uid=rep["mark"],
+                                         until_uid=rep["end_mark"])
+    evs = trace["traceEvents"]
+    run["federation"] = {
+        "counter_families": n_counters, "counters_differing": bad,
+        "process_tracks": sorted(e["args"]["name"] for e in evs
+                                 if e.get("name") == "process_name"),
+        "stitched_request_slices": sum(
+            1 for e in evs if e.get("ph") == "X"
+            and str(e.get("name", "")).startswith("on ")),
+        "trace_bytes": len(json.dumps(trace))}
+    if http_leg:
+        with ExpositionServer(port=-1, engines=[plane]) as srv:
+            base = f"http://127.0.0.1:{srv.port}"
+            run["http_fleet"] = urllib.request.urlopen(
+                base + "/fleet", timeout=30).read().decode()
+            run["http_metrics"] = urllib.request.urlopen(
+                base + "/metrics", timeout=30).read().decode()
+        first = min(load, key=lambda r: (r.arrival, r.index))
+        run["stream"] = stream_generate(plane, first.prompt, 8)
+    run["model_in_place"] = ptrs == [(p.data_ptr(), p.dtype)
+                                     for p in model.parameters()]
+    return run
+
+
+def failover_run(torch, engines, load):
+    """The failover leg on ``engines``' d0 and d1 (drained): the trace
+    through ``MultiHostRouter(policy="prefix")`` over fresh workers,
+    ``d1`` killed at the first tick from ``MULTIHOST_KILL_TICK`` at which
+    it holds a request.  Returns the outputs (trace order), the tick of
+    the kill and each request's event names."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.serving.multihost import MultiHostRouter
+
+    observability.reset()
+    transports = metered_workers(None, ("d0", "d1"), engines)[0]
+    plane = MultiHostRouter(transports, policy="prefix")
+    order = sorted(load, key=lambda r: (r.arrival, r.index))
+    rids, tick, nxt, killed = {}, 0, 0, None
+    t0 = time.perf_counter()
+    while nxt < len(order) or any(not r.done
+                                  for r in plane._reqs.values()):
+        while nxt < len(order) and order[nxt].arrival <= tick:
+            r = order[nxt]
+            rids[r.index] = plane.submit(r.prompt,
+                                         max_new_tokens=r.max_new_tokens)
+            nxt += 1
+        plane.step()
+        tick += 1
+        if killed is None and tick >= MULTIHOST_KILL_TICK and any(
+                q.worker == "d1" and not q.done
+                for q in plane._reqs.values()):
+            plane._workers["d1"].kill()
+            killed = tick
+    torch.cuda.synchronize()
+    log = observability.get_request_log()
+    return {"outputs": [plane.result(rids[r.index]) for r in load],
+            "killed_at_tick": killed, "ticks": tick,
+            "wall": time.perf_counter() - t0,
+            "lost": plane.lost_workers,
+            "failovers": plane.metrics()["aggregate"]["failovers"],
+            "events": [log.event_names(plane.request_uid(rids[r.index]))
+                       for r in load]}
+
+
+def run_selfcheck():
+    """``python -m paddle_tpu_torch.serving.multihost --selfcheck`` (with
+    ``MULTIHOST_SELFCHECK_ARGS``) in a process group of its own: its exit
+    code, its output's tail and its seconds; on the time limit the whole
+    group (the self-check and its worker processes) is killed."""
+    import os
+    import signal
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                       else []))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.multihost",
+         "--selfcheck", *MULTIHOST_SELFCHECK_ARGS], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=MULTIHOST_SELFCHECK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    return {"rc": proc.returncode, "seconds": round(
+        time.perf_counter() - t0, 3), "passed": "[selfcheck] PASS" in out,
+        "tail": out[-3000:]}
+
+
+def phase_serving_multihost(torch, model, card):
+    """Phase 4p: the multihost plane at the Llama-3-8B width.  Phase 3's
+    model (bf16, 32 layers) behind three ``EngineWorker`` s over loopback
+    transports, each a paged engine (``block_len`` 128,
+    ``MULTIHOST_POOL_BLOCKS`` blocks, 8 slots, ``max_length`` 2048,
+    ``prefill_batch`` 4), replaying ``generate_load`` 's seeded trace (8
+    requests, Poisson arrivals 2 ticks apart, two tenants each opening
+    with a 128-token system prompt, then 64-256 tokens, 8-24 new tokens)
+    through ``MultiHostRouter(policy="disagg", prefill=["p0"])``, graphed,
+    then on an eager twin plane (``disable_graphs()``).  Gates: outputs,
+    placements, the timeline signature, ticks and rejections equal to the
+    twin's; every request placed on p0 and finished on d0 or d1;
+    ``multihost.migrations`` 8 and ``multihost.migration_bytes`` the
+    migrated blocks times a block's bytes from the pool's leaf shapes,
+    each migration the blocks its exporter logged, at least its prompt's
+    and at most its whole request's; p0 K2-paged 32 a wave,
+    d0 and d1 K1-paged 32 a tick and no wave (launches credited to the
+    worker whose call made them); each engine's decode step built once
+    and replayed a tick, a prefill replay a wave and one build a wave key,
+    no prefill build on d0 / d1; no plain route and the registry's kernel
+    routes of K1-paged, K2-paged and RMSNorm; the model's tensors in
+    place.  The failover leg (eager: the twin's d0 and d1 behind
+    ``policy="prefix"``, d1 killed at a fixed tick while it holds
+    requests): every request finishes with its whole budget, each
+    victim's timeline one ``submitted``, then ``worker_lost``,
+    ``failover``, ``placed``, and a ``retired`` last; its tokens'
+    agreement with the disagg leg reported (bf16: a recompute runs
+    K2-paged where the victim ran K1-paged, so a near-tie may flip).
+    Federation: pooled counters equal the workers' series, the merged
+    Perfetto trace a process track a worker and stitched request
+    slices, ``/fleet`` JSON with three live workers and ``/metrics`` with
+    ``worker=`` labels over a loopback server, one ``POST /v1/generate``
+    streaming its first token chunk before the request retires, the
+    streamed tokens ``plane.result``'s.  The real-process self-check
+    (:func:`run_selfcheck`) exits 0 and prints PASS.  Reported: the
+    seconds of the migration calls (codec included) and of their
+    handlers, ticks, tok/s (graphed, eager), TTFT (p0's ``first_token``
+    events) and TPOT (the decode workers' retirements, timed from the
+    import) p50 / p90, exact, from the request log, the self-check's and
+    the phase's seconds, beside the card's name and power limit."""
+    from paddle_tpu_torch.serving import disable_graphs
+
+    t0 = time.perf_counter()
+    what = "phase 4p"
+    load = multihost_load(model.config.vocab_size)
+    run = multihost_run(torch, model, load)
+    with disable_graphs():
+        twin = multihost_run(torch, model, load, http_leg=False)
+        fo = failover_run(torch, {n: twin["engines"][n]
+                                  for n in ("d0", "d1")}, load)
+    for r in (run, twin):
+        r.pop("engines")
+    gc.collect()
+    torch.cuda.empty_cache()
+    selfcheck = run_selfcheck()
+    rep, trep = run["report"], twin["report"]
+    ms = run["metrics"]
+    twin_same = {
+        "outputs": rep["outputs"] == trep["outputs"],
+        "worker_of": run["worker_of"] == twin["worker_of"],
+        "signature": rep["signature"] == trep["signature"],
+        "ticks": rep["ticks"] == trep["ticks"],
+        "rejected": rep["rejected"] == trep["rejected"],
+        "launches": run["launches"] == twin["launches"],
+        "per_worker_launches": run["per_worker"] == twin["per_worker"],
+        "routes": run["routes"] == twin["routes"]}
+    for k, same in twin_same.items():
+        check(same, f"{what}: the eager twin's {k} differ from the "
+                    f"graphed plane's")
+    check(rep["rejected"] == 0 and all(rep["outputs"]),
+          f"{what}: {rep['rejected']} requests rejected")
+    check(all(len(o) == r.max_new_tokens
+              and all(0 <= t < model.config.vocab_size for t in o)
+              for o, r in zip(rep["outputs"], load)),
+          f"{what}: a request returned the wrong count of tokens or a "
+          f"token outside the vocabulary")
+    # placements and migrations, from the request log
+    placed_first, migrated_blocks, exported_blocks = [], [], []
+    for rec in run["records"].values():
+        ev = [e for e in rec if e["name"] == "placed"]
+        placed_first.append(ev[0]["attrs"].get("worker") if ev else None)
+        migrated_blocks += [e["attrs"]["blocks"] for e in rec
+                            if e["name"] == "migrated"]
+        exported_blocks += [e["attrs"]["blocks"] for e in rec
+                            if e["name"] == "exported"]
+    check(placed_first == ["p0"] * len(load),
+          f"{what}: requests placed on {placed_first}, want all on p0")
+    check(all(w in ("d0", "d1") for w in run["worker_of"]),
+          f"{what}: requests finished on {run['worker_of']}")
+    agg = run["aggregate"]
+    # a migration carries the exporter's whole chain: the prompt's blocks
+    # and, where the next token's position opens a block, that one too
+    order = sorted(load, key=lambda r: (r.arrival, r.index))
+    spans = [(-(-int(r.prompt.size) // 128),
+              -(-(int(r.prompt.size) + r.max_new_tokens) // 128))
+             for r in order]
+    check(agg["migrations"] == len(load)
+          and migrated_blocks == exported_blocks
+          and len(migrated_blocks) == len(spans)
+          and all(lo <= b <= hi for b, (lo, hi) in
+                  zip(migrated_blocks, spans)),
+          f"{what}: {agg['migrations']} migrations of {migrated_blocks} "
+          f"blocks (exported {exported_blocks}), want {len(load)} within "
+          f"{spans} (the prompt's blocks up to the whole request's)")
+    want_bytes = sum(migrated_blocks) * run["block_bytes"]
+    check(agg["migration_bytes"] == want_bytes,
+          f"{what}: multihost.migration_bytes {agg['migration_bytes']}, "
+          f"want {want_bytes} ({sum(migrated_blocks)} blocks of "
+          f"{run['block_bytes']} bytes)")
+    # launches, each worker's own, and the steps' builds and replays
+    for n in MULTIHOST_WORKERS:
+        m, got = ms[n], run["per_worker"][n]
+        want = {"decode_attention_paged": LAYERS_8B * m["decode_ticks"],
+                "flash_attention_fwd_paged": LAYERS_8B * m["prefill_waves"]}
+        for k, v in want.items():
+            check(got.get(k, 0) == v,
+                  f"{what}: {n} launched {k} {got.get(k, 0)} times, want "
+                  f"{v} (32 a {'tick' if 'decode' in k else 'wave'})")
+        others = [k for k in ATTENTION_KERNELS
+                  if k not in want and got.get(k)]
+        check(not others, f"{what}: {n} ran attention kernels off its "
+                          f"path: {others}")
+        check_graph({"graphed": run["graphed"][n], "metrics": m,
+                     "wave_keys": run["wave_keys"][n]}, f"{what} {n}")
+        check_graph({"graphed": twin["graphed"][n],
+                     "metrics": twin["metrics"][n],
+                     "wave_keys": twin["wave_keys"][n]},
+                    f"{what} eager {n}", graphed=False)
+    check(ms["p0"]["prefill_waves"] > 0,
+          f"{what}: p0 ran no prefill wave")
+    for n in ("d0", "d1"):
+        check(ms[n]["prefill_waves"] == 0 and ms[n]["prefill_traces"] == 0
+              and ms[n]["decode_ticks"] > 0,
+              f"{what}: decode worker {n} ran {ms[n]['prefill_waves']} "
+              f"waves ({ms[n]['prefill_traces']} prefill builds) and "
+              f"{ms[n]['decode_ticks']} decode ticks")
+    check(run["launches"]["rms_norm"] > 0,
+          f"{what}: RMSNorm kernel not launched")
+    routes_reg = {f"{r['labels']['op']}/{r['labels']['path']}":
+                  int(r["value"]) for r in
+                  registry_rows(run["snapshot"], "ops.kernel_path")}
+    for op in OBS_ROUTES["4b"]:
+        check(routes_reg.get(f"{op}/kernel", 0) > 0,
+              f"{what}: no kernel route for {op} in the registry (a plain "
+              f"route ran)")
+    plain = {k: n for k, n in list(routes_reg.items())
+             + list(run["routes"].items()) if k.endswith("/plain")}
+    check(not plain, f"{what}: plain routes taken on the card: {plain}")
+    check(run["model_in_place"] and twin["model_in_place"],
+          f"{what}: building the workers moved or cast the model")
+    # the failover leg
+    victims = [i for i, names in enumerate(fo["events"])
+               if "worker_lost" in names]
+    check(fo["killed_at_tick"] is not None and list(fo["lost"]) == ["d1"]
+          and victims,
+          f"{what}: the failover leg killed at {fo['killed_at_tick']}, lost "
+          f"{fo['lost']}, victims {victims}")
+    check(all(len(o) == r.max_new_tokens
+              for o, r in zip(fo["outputs"], load)),
+          f"{what}: a request of the failover leg did not finish its "
+          f"budget: {[len(o) for o in fo['outputs']]}")
+    for i in victims:
+        names = fo["events"][i]
+        ok = (names.count("submitted") == 1 and names[0] == "submitted"
+              and names[-1] == "retired"
+              and in_order(names, ("worker_lost", "failover"))
+              and max(j for j, x in enumerate(names) if x == "placed")
+              > names.index("failover"))
+        check(ok, f"{what}: victim {i}'s timeline {names}")
+    agree = twin_comparison(rep["outputs"], fo["outputs"])
+    # federation and HTTP
+    fed = run["federation"]
+    check(fed["counter_families"] > 0 and not fed["counters_differing"],
+          f"{what}: federated counters differ from the workers' series: "
+          f"{fed['counters_differing'][:5]}")
+    check({f"paddle_tpu worker {n}" for n in MULTIHOST_WORKERS}
+          <= set(fed["process_tracks"])
+          and fed["stitched_request_slices"] > 0,
+          f"{what}: merged trace tracks {fed['process_tracks']}, "
+          f"{fed['stitched_request_slices']} stitched request slices")
+    fleet = json.loads(run["http_fleet"])
+    check(all(fleet["workers"].get(n, {}).get("alive")
+              for n in MULTIHOST_WORKERS),
+          f"{what}: /fleet does not report three live workers: {fleet}")
+    check(all(f'worker="{n}"' in run["http_metrics"]
+              for n in MULTIHOST_WORKERS)
+          and "paddle_tpu_fleet_" in run["http_metrics"],
+          f"{what}: /metrics lacks the federated worker series")
+    st = run["stream"]
+    streamed = [t for ln in st["lines"] for t in ln.get("tokens", [])]
+    check(st["status"] == 200 and st["retired_at_first_chunk"] is False
+          and streamed == st["result"] and len(streamed) == 8
+          and st["lines"][-1].get("done") is True,
+          f"{what}: the streamed generation: status {st['status']}, "
+          f"retired at its first chunk {st['retired_at_first_chunk']}, "
+          f"{len(streamed)} tokens streamed, equal to the result "
+          f"{streamed == st['result']}")
+    check(selfcheck["rc"] == 0 and selfcheck["passed"],
+          f"{what}: the multihost self-check exited {selfcheck['rc']}: "
+          f"{selfcheck['tail'][-1500:]}")
+    # TTFT from the prefill worker's first_token events (a decode
+    # worker's clock restarts at the import); TPOT from the decode
+    # workers' retirements, from the import on
+    first = [e["attrs"] for rec in run["records"].values() for e in rec
+             if e["name"] == "first_token"]
+    retired = [e["attrs"] for rec in run["records"].values() for e in rec
+               if e["name"] == "retired"]
+    gen = rep["generated_tokens"]
+    line = {
+        "phase": "serving_multihost", "card": card,
+        "workers": list(MULTIHOST_WORKERS), "policy": "disagg",
+        "requests": len(load),
+        "prompt_lengths": [int(r.prompt.size) for r in load],
+        "new_tokens": [r.max_new_tokens for r in load],
+        "block_len": 128, "num_blocks": MULTIHOST_POOL_BLOCKS,
+        "ticks": rep["ticks"], "rejected": rep["rejected"],
+        "generated_tokens": gen, "wall_s": round(run["wall"], 4),
+        "tok_per_s": round(gen / run["wall"], 2),
+        "eager_wall_s": round(twin["wall"], 4),
+        "eager_tok_per_s": round(gen / twin["wall"], 2),
+        "ttft_ms": exact_summary([a["ttft_ms"] for a in first
+                                  if a.get("ttft_ms") is not None]),
+        "tpot_ms": exact_summary([a["tpot_ms"] for a in retired
+                                  if a.get("tpot_ms") is not None]),
+        "migrations": agg["migrations"],
+        "migration_bytes": agg["migration_bytes"],
+        "migrated_blocks": migrated_blocks,
+        "prompt_blocks": [lo for lo, _ in spans],
+        "block_bytes": run["block_bytes"],
+        "migration_s": round(run["migration_s"], 4),
+        "migration_handler_s": round(run["migration_handler_s"], 4),
+        "eager_migration_s": round(twin["migration_s"], 4),
+        "per_worker": {
+            n: {"launches": run["per_worker"][n],
+                "requests": m["requests_submitted"],
+                "tokens": m["tokens_generated"], "ticks": m["ticks"],
+                "decode_ticks": m["decode_ticks"],
+                "prefill_waves": m["prefill_waves"],
+                "step_traces": m["step_traces"],
+                "graph_replays": m["graph_replays"],
+                "prefill_traces": m["prefill_traces"],
+                "prefill_graph_replays": m["prefill_graph_replays"],
+                "decode_step_ms": m["decode_step_ms"]}
+            for n, m in ms.items()},
+        "launches": run["launches"], "routes": run["routes"],
+        "registry_routes": routes_reg,
+        "eager_twin_identical": twin_same,
+        "failover": {"killed_at_tick": fo["killed_at_tick"],
+                     "ticks": fo["ticks"], "victims": victims,
+                     "failovers": fo["failovers"],
+                     "wall_s": round(fo["wall"], 4),
+                     "agreement_with_disagg": agree},
+        "federation": fed,
+        "http": {"fleet_workers": sorted(fleet["workers"]),
+                 "metrics_bytes": len(run["http_metrics"]),
+                 "stream_lines": len(st["lines"]),
+                 "stream_tokens": len(streamed)},
+        "selfcheck": {k: selfcheck[k] for k in ("rc", "seconds",
+                                                "passed")}}
+    line["seconds"] = round(time.perf_counter() - t0, 4)
+    emit(line)
+
+
 def cancel_states(torch, model, prompts):
     """``cancel`` in the five states, on a chunked engine
     (``PREEMPT_CHUNK``-token chunks) in each mode: the preempted request (swapped out, or awaiting
@@ -8625,6 +9206,7 @@ def main(argv=None) -> int:
     swap4m = phase_serving_preempt(torch, model)
     phase_observability(run4b, run4c, swap4m)
     phase_serving_router(torch, model)
+    phase_serving_multihost(torch, model, card)
     if args.profile:
         phase_profile(torch, model, qmodel)
     phase_generate(torch, model, qmodel, card)

@@ -3,9 +3,10 @@
 Only the serving defaults, the flash-decode chunk size, the train step's
 ``check_nan_inf``, the build watchdog's action and the observability
 layer's flags (the metrics registry's label cap, the span tracer, the
-request log, the SLO deadlines, the cost model and predictive admission)
-and the control plane's (the replica router, the autoscaler, the HTTP
-exposition's port) are kept.  The
+request log, the SLO deadlines, the cost model and predictive admission),
+the control plane's (the replica router, the autoscaler, the HTTP
+exposition's port) and the multihost plane's (its socket calls,
+heartbeats and streaming poll) are kept.  The
 JAX package's routing thresholds (``decode_attention_min_len``,
 ``rms_norm_pallas_min_dim``, the flash block sizes) were measured on a TPU
 and do not carry over: the port routes every eligible CUDA tensor to its
@@ -117,6 +118,17 @@ _DEFAULTS: Dict[str, Any] = {
     "serving_autoscale_min_ticks": 8,
     "serving_autoscale_cooldown": 16,
     "metrics_port": 0,
+    # the multihost serving plane (paddle_tpu/flags.py:447-466): a socket
+    # call's timeout, its reconnect attempts and their exponential
+    # backoff's base (base * 2**attempt seconds; only idempotent methods
+    # are replayed after a broken connection), the plane ticks between
+    # heartbeat pings (ticks, not wall time, so loopback replays stay
+    # deterministic) and the streaming front end's idle sleep
+    "multihost_call_timeout_s": 5.0,
+    "multihost_call_retries": 2,
+    "multihost_retry_backoff_s": 0.05,
+    "multihost_heartbeat_every": 4,
+    "multihost_stream_poll_s": 0.002,
 }
 
 _values: Dict[str, Any] = dict(_DEFAULTS)

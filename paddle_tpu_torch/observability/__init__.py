@@ -23,9 +23,12 @@ serving engine's telemetry as a layer, not as per-module counters.
 Conventions: metric names are dotted lowercase (``serving.ttft_ms``);
 millisecond histograms carry the ``_ms`` suffix; per-instance series are
 told apart by labels (``engine="0"``, ``pool="1"``), never by name.
-:mod:`.http_exposition` serves the registry, the engines' liveness and the
-request log over HTTP (``FLAGS_metrics_port``).  The reference's
-``federation`` module and its ``check_history`` gate are ROADMAP A7b;
+:mod:`.http_exposition` serves the registry, the engines' liveness, the
+request log and a multihost plane's fleet over HTTP
+(``FLAGS_metrics_port``); :mod:`.federation` merges the plane's worker
+registries and clocks into one fleet view.  The reference's
+``check_history`` gate waits for the port's first benchmark (its
+committed ``BENCH_*.json`` files hold the JAX package's TPU numbers);
 ``profiler.RecordEvent`` is A10.
 """
 

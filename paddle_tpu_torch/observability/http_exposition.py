@@ -4,18 +4,24 @@
 Serves the observability layer to a scraping or poking operator with
 nothing beyond ``http.server``:
 
-  * ``/metrics``: the registry's Prometheus text exposition;
+  * ``/metrics``: the registry's Prometheus text exposition; when an
+    attached engine is a multihost plane, its federated per-worker
+    series ride along under the ``paddle_tpu_fleet_`` prefix;
+  * ``/fleet``: the attached plane's live fleet health (each worker's
+    heartbeat age in ticks, slots in flight, utilization, last tick's
+    cost-model ratio, transport errors; 404 when no attached engine
+    has ``fleet_report()``);
   * ``/healthz``: JSON liveness: the attached engines' step builds,
     drift findings and the registry's perf anomaly total (a load
     balancer's readiness answer in one GET);
   * ``/requests``: the request log's most recent timelines as JSON
     (``?n=`` / ``?limit=`` caps the tail, default 32, at most 1024;
     ``?uid=`` returns ONE request's whole timeline, across routers and
-    failovers, since its uid is minted once).
-
-The reference's ``/fleet`` and ``POST /v1/generate``, and the federated
-series its ``/metrics`` appends, serve its multihost plane and wait for
-it (ROADMAP A7b).
+    failovers, since its uid is minted once);
+  * ``POST /v1/generate``: present when the server was built with a
+    ``generator`` (the multihost front end).  It streams JSON lines over
+    a chunked response: tokens go on the wire the tick they surface, not
+    at retirement.
 
 Off by default: ``FLAGS_metrics_port`` 0 disables it, a positive port
 binds it and ``-1`` binds an ephemeral port (tests read ``server.port``).
@@ -56,8 +62,16 @@ class _Handler(BaseHTTPRequestHandler):
         owner: "ExpositionServer" = self.server.owner  # type: ignore
         url = urlparse(self.path)
         if url.path == "/metrics":
-            text = owner.registry.prometheus_text()
+            text = owner.metrics_text()
             self._send(200, text.encode(), "text/plain; version=0.0.4")
+        elif url.path == "/fleet":
+            payload = owner.fleet()
+            if payload is None:
+                self._send(404, b'{"error": "no fleet source"}\n',
+                           "application/json")
+                return
+            body = json.dumps(payload, sort_keys=True, default=str)
+            self._send(200, body.encode(), "application/json")
         elif url.path == "/healthz":
             body = json.dumps(owner.healthz(), sort_keys=True)
             self._send(200, body.encode(), "application/json")
@@ -77,24 +91,57 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(404, b'{"error": "not found"}\n',
                        "application/json")
 
+    def do_POST(self) -> None:                  # noqa: N802 (stdlib API)
+        owner: "ExpositionServer" = self.server.owner  # type: ignore
+        url = urlparse(self.path)
+        if url.path != "/v1/generate" or owner.generator is None:
+            self._send(404, b'{"error": "not found"}\n',
+                       "application/json")
+            return
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(n) or b"{}")
+        except (ValueError, json.JSONDecodeError):
+            self._send(400, b'{"error": "bad json"}\n',
+                       "application/json")
+            return
+        # chunked transfer: one JSON line a flush, flushed a tick
+        self.send_response(200)
+        self.send_header("Content-Type", "application/jsonl")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        try:
+            for chunk in owner.generator.stream(payload):
+                data = (json.dumps(chunk, sort_keys=True) + "\n").encode()
+                self.wfile.write(b"%x\r\n" % len(data))
+                self.wfile.write(data + b"\r\n")
+                self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            return                              # the client went away
+        self.wfile.write(b"0\r\n\r\n")
+
 
 class ExpositionServer:
     """Threaded HTTP exposition over the default (or given) registry.
 
     ``engines``: live ServingEngines (or anything with their
     ``perf_report()`` / ``step_traces``) whose liveness ``/healthz`` folds
-    in; the server only reads them."""
+    in; the server only reads them.  ``generator``: anything with
+    ``stream(payload) -> Iterator[dict]`` (the multihost front end)
+    enables ``POST /v1/generate``."""
 
     def __init__(self, port: Optional[int] = None,
                  registry: Optional[_metrics.MetricsRegistry] = None,
                  engines: Optional[List[Any]] = None,
-                 host: str = "127.0.0.1") -> None:
+                 host: str = "127.0.0.1",
+                 generator: Optional[Any] = None) -> None:
         if port is None:
             port = int(_flags.flag("metrics_port"))
         self._requested_port = int(port)
         self.registry = registry or _metrics.default_registry()
         self.engines = list(engines or [])
         self.host = host
+        self.generator = generator
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -110,6 +157,30 @@ class ExpositionServer:
         return max(0, self._requested_port)
 
     # -- payloads --------------------------------------------------------------
+
+    def metrics_text(self) -> str:
+        """The ``/metrics`` page: the registry's exposition and, for each
+        attached engine that is a fleet plane (it has
+        ``federated_metrics_text``), the federated worker series under
+        the ``paddle_tpu_fleet_`` prefix."""
+        text = self.registry.prometheus_text()
+        for e in self.engines:
+            fed = getattr(e, "federated_metrics_text", None)
+            if callable(fed):
+                try:
+                    text += fed()
+                except Exception:
+                    pass            # a half-lost fleet still scrapes
+        return text
+
+    def fleet(self) -> Optional[Dict[str, Any]]:
+        """The ``/fleet`` payload of the first attached engine with
+        ``fleet_report()`` (the multihost plane); None gives a 404."""
+        for e in self.engines:
+            fr = getattr(e, "fleet_report", None)
+            if callable(fr):
+                return fr()
+        return None
 
     def healthz(self) -> Dict[str, Any]:
         """The ``/healthz`` payload: ok unless an engine carries a drift

@@ -13,7 +13,9 @@ drift detectors watch both.  Detections feed the
 :class:`.costmodel.TickAttribution`.
 
 The reference module's other half, ``check_history`` (the offline gate
-over committed ``BENCH_*.json`` files), is ROADMAP A7b.
+over committed ``BENCH_*.json`` files), waits for the port's first
+accepted benchmark: the committed files hold the JAX package's numbers
+on a TPU, which no run of the port can be held to.
 """
 
 from __future__ import annotations

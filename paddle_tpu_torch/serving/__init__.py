@@ -7,7 +7,10 @@ watchdog).  The single-host control plane sits above the engine: the
 replica router (``router.py``), the predictive admission primitives
 (``admission.py``), the autoscaler (``autoscaler.py``), the seeded load
 generator and replay (``loadgen.py``) and the device-free fleet simulator
-(``fleet_sim.py``).  The reference's multihost plane is ROADMAP A7b."""
+(``fleet_sim.py``).  The multihost plane (``multihost/``) puts engines
+behind RPC workers, in this process or in processes of their own: the
+plane places, migrates (disaggregated prefill and decode) and fails
+requests over, and a front end streams them over HTTP."""
 
 from .admission import HoldQueue, Verdict, place_verdict
 from .autoscaler import ReplicaAutoscaler

@@ -5,7 +5,11 @@ Real GETs over an ephemeral loopback port: the four cases of
 ``tests/test_http_exposition.py`` on the port's server; ``/metrics``
 byte-equal to the JAX server's body over the same series; ``/healthz``
 equal to the JAX server's for engines in the same state (served the same
-requests).  Then the control plane's new modules import no JAX: the
+requests); with a multihost plane attached, ``/fleet`` equal to the JAX
+server's for planes in the same state, ``/metrics`` carrying the
+federated ``paddle_tpu_fleet_`` series a worker, and ``POST
+/v1/generate`` streaming the reference's chunks.  Then the control
+plane's new modules import no JAX: the
 router, admission, autoscaler, load generator, fleet simulator and the
 exposition, imported in a subprocess, leave ``jax`` and ``paddle_tpu``
 out of ``sys.modules``.  Tolerance: exact.
@@ -199,6 +203,106 @@ def test_healthz_equal_to_jax_for_engines_in_the_same_state(pair):
     assert got == want
     assert got["ok"] is True and got["engines"][0]["step_traces"] == 1
     assert jflags.flag("metrics_port") == flags.flag("metrics_port") == 0
+
+
+# -- the multihost plane's routes, against the JAX server's ----------------
+
+def _planes(pair, prompts):
+    """The port's and the JAX package's two-worker loopback plane, each
+    having served ``prompts`` (6 new tokens) to the end."""
+    from collections import OrderedDict
+
+    from paddle_tpu.serving import multihost as jmh
+    from paddle_tpu_torch.serving import multihost as tmh
+
+    planes = []
+    for m, mh in zip(pair, (jmh, tmh)):
+        workers = OrderedDict()
+        for i in range(2):
+            kw = dict(num_slots=2, max_length=64, paged=True, block_len=8)
+            eng = (ServingEngine(m, device="cpu", **kw)
+                   if mh is tmh else JaxEngine(m, **kw))
+            w = mh.EngineWorker(eng, name=f"w{i}")
+            workers[f"w{i}"] = mh.LoopbackTransport(w.handle, name=f"w{i}")
+        plane = mh.MultiHostRouter(workers, policy="prefix")
+        for p in prompts:
+            plane.submit(p, max_new_tokens=6)
+        plane.drain()
+        planes.append(plane)
+    return planes
+
+
+def test_fleet_and_federated_metrics_equal_to_jax_for_planes(pair):
+    """``/fleet`` of a server attached to a plane equals the JAX server's
+    for planes that served the same requests (the last tick's measured /
+    predicted ratio, a wall-clock reading, aside); ``/metrics`` appends
+    the federated worker series; without a plane ``/fleet`` is 404."""
+    prompts = [np.arange(3 + i, 13 + 2 * i, dtype=np.int32)
+               for i in range(3)]
+    jplane, tplane = _planes(pair, prompts)
+    with jhttp.ExpositionServer(port=-1, engines=[jplane]) as j, \
+            ExpositionServer(port=-1, engines=[tplane]) as t:
+        want = json.loads(_get(j.port, "/fleet")[2])
+        got = json.loads(_get(t.port, "/fleet")[2])
+        status, ctype, text = _get(t.port, "/metrics")
+    for fleet in (got, want):
+        for w in fleet["workers"].values():
+            w.pop("last_step_ratio")
+    assert got == want
+    assert got["plane"]["ticks"] > 0 and all(
+        w["alive"] for w in got["workers"].values())
+    assert status == 200 and ctype.startswith("text/plain")
+    assert b"paddle_tpu_fleet_" in text
+    assert b'worker="w0"' in text and b'worker="w1"' in text
+    with ExpositionServer(port=-1, registry=MetricsRegistry()) as t:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(t.port, "/fleet")
+    assert e.value.code == 404
+
+
+def _post(port, path, body):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request("POST", path, body=body,
+              headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    out = (r.status, r.read())
+    c.close()
+    return out
+
+
+def test_generate_stream_equal_to_jax(pair):
+    """``POST /v1/generate`` through each package's front end: the
+    streamed JSON lines equal (the uid and rid aside: each package's log
+    mints its own), tokens arriving over more than one chunk; a server
+    without a generator answers 404, bad JSON 400."""
+    from paddle_tpu.serving import multihost as jmh
+    from paddle_tpu_torch.serving import multihost as tmh
+
+    jplane, tplane = _planes(pair, [])
+    body = json.dumps({"prompt": list(range(3, 14)),
+                       "max_new_tokens": 6})
+    lines = []
+    for plane, mh in ((jplane, jmh), (tplane, tmh)):
+        fe = mh.ServingFrontend(plane)
+        srv = fe.serve(port=-1)
+        try:
+            status, raw = _post(srv.port, "/v1/generate", body)
+            assert status == 200
+            bad = _post(srv.port, "/v1/generate", b"{not json")
+        finally:
+            srv.stop()
+            fe.stop()
+        assert bad[0] == 400
+        lines.append([dict(ln, **{k: "#" for k in ("uid", "rid")
+                                  if k in ln})
+                      for ln in map(json.loads, raw.splitlines())])
+    want, got = lines
+    assert got == want
+    assert len([ln for ln in got if "tokens" in ln]) > 1
+    assert got[-1]["done"] is True and got[-1]["tokens_total"] == 6
+    with ExpositionServer(port=-1, registry=MetricsRegistry()) as t:
+        assert _post(t.port, "/v1/generate", body)[0] == 404
 
 
 # -- the new modules import no JAX -----------------------------------------

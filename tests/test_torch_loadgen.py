@@ -13,9 +13,23 @@ against the JAX package's, on the CPU.
   saturated pool preempting through the host tier): outputs, rejections,
   ticks, step builds, the timeline signature and the SLO report's counts
   equal.  Wall-time fields are left out.
-* ``python -m paddle_tpu_torch.serving.loadgen --smoke --device cpu``
-  runs in-process and returns 0; without ``--device`` the smoke asks for
-  the card.
+* The smoke's three multihost legs (a plane over loopback workers with a
+  worker killed mid-trace, federated metrics and clocks, draft-model
+  speculation) on port engines against the reference's legs on JAX
+  engines: every field of their summaries equal but the reference's lint
+  findings (ROADMAP A11) and the federated leg's signature, whose
+  metrics part counts builds where the reference counts traces
+  (``tests/torch_obs_compare.py``; ``test_torch_federation.py`` holds it
+  with those families left out).
+* The smoke runs in-process on the CPU and returns 0 with every
+  deterministic gate held (signatures, outputs, builds, preemptions, the
+  fleet signature, the cost model's predicted side).  Its drift and
+  anomaly gates read measured tick times, which other work on the host's
+  cores moves, so in-process they are reported, not gated; they are held
+  here by feeding recorded tick series through the port's and the
+  reference's ``TickAttribution``: equal findings, and findings where
+  the load on the host changed mid-run.  Without ``--device`` the smoke
+  asks for the card.
 
 One JAX ``tiny_llama_config`` model (float32) is bridged into the port
 (``models/convert.py``).  Tolerance: exact (tokens, counts, signatures).
@@ -287,10 +301,143 @@ def test_replay_modes_equal_to_jax(pair, mode):
 
 
 def test_smoke_in_process_returns_zero(capsys):
-    assert tlg.main(["--smoke", "--device", "cpu"]) == 0
+    """The smoke in this process, every gate but the wall clock's held
+    (a parallel run shares the host's cores, so tick times are not the
+    engine's own): the four modes' builds, signatures, outputs and perf
+    signatures without their drift count, the saturated pool's
+    preemptions, the fleet simulator's agreement and signature, and the
+    multihost, federated and draft-model legs."""
+    import json
+    assert tlg._smoke("cpu", clock_gates=False) == 0
     out = capsys.readouterr().out
     assert '"failures": []' in out and "A11" in out
-    assert '"device": "cpu"' in out
+    summary = json.loads(out)
+    assert summary["device"] == "cpu"
+    assert summary["clock_gates"] == "reported, not gated"
+    for mode in tlg.SMOKE_MODES:
+        m = summary[mode]
+        assert m["step_traces"] == 1 and m["deterministic"], mode
+        assert m["perf_deterministic"], mode
+    assert all(summary["saturated"]["preemptions"])
+    assert summary["saturated"]["preempt_signature_stable"]
+    assert summary["fleet_sim"]["fleet_signature_stable"]
+    assert summary["multihost"]["deterministic"]
+    assert all(summary["multihost"]["kill"].values())
+    assert summary["federated"]["signature_stable"]
+    assert summary["spec_model"]["drafted_tokens_by_kind"]["model"] > 0
+
+
+# -- the wall-clock gates, on recorded tick series -------------------------
+
+# tick times (ms) of the smoke's chunked engine, measured on the CPU with
+# each tick's occupancy, live tokens and chunk length: QUIET alone on the
+# host, LOADED beside five other test processes that ended mid-run (from
+# tick 26 on the ticks run at QUIET's pace again; the ratio EWMA reached
+# 3.85x of its calibrated baseline, the band being 4x)
+TICK_SHAPES = (
+    (0, 0, 8), (0, 0, 8), (0, 0, 8), (0, 0, 8), (0, 0, 8), (0, 0, 8),
+    (0, 0, 4), (1, 52, 8), (1, 53, 8), (1, 54, 8), (0, 0, 8), (0, 0, 4),
+    (1, 36, 8), (1, 37, 8), (1, 38, 4), (2, 59, 8), (1, 21, 4), (2, 34, 8),
+    (2, 36, 8), (2, 38, 8), (2, 40, 8), (2, 42, 8), (1, 17, 8), (1, 18, 4),
+    (1, 52, 8), (1, 53, 8), (1, 54, 8), (0, 0, 8), (0, 0, 4), (1, 36, 8),
+    (1, 37, 4), (2, 50, 8), (1, 13, 8), (1, 14, 4), (2, 35, 0), (2, 37, 0),
+    (2, 39, 0), (2, 41, 0), (1, 24, 0), (1, 25, 0), (1, 26, 0), (1, 27, 0),
+    (1, 28, 0))
+QUIET = (4.375, 4.321, 4.606, 6.08, 4.786, 4.526, 4.228, 5.684, 5.375,
+         6.548, 6.365, 6.364, 6.486, 6.316, 6.104, 6.401, 6.532, 7.164,
+         6.775, 6.326, 6.444, 6.376, 6.757, 6.276, 5.984, 6.195, 6.521,
+         6.283, 6.356, 6.493, 6.308, 6.605, 6.179, 6.554, 3.405, 3.003,
+         2.964, 3.169, 3.174, 3.186, 3.021, 2.599, 2.719)
+LOADED = (41.533, 40.994, 57.716, 40.76, 40.722, 43.488, 44.747, 41.178,
+          57.114, 41.149, 41.023, 58.318, 41.533, 41.551, 41.107, 57.403,
+          41.759, 57.971, 41.543, 57.987, 49.569, 61.966, 40.722, 57.089,
+          37.818, 16.701, 8.234, 8.042, 7.221, 9.293, 7.767, 6.302, 7.005,
+          7.172, 3.46, 3.296, 3.089, 4.108, 3.665, 4.084, 17.539, 3.493,
+          3.611)
+# the series: as measured, and the two spliced at tick 12, where the
+# load ends (drift below the band) or begins (drift above it, and tick
+# time anomalies)
+SERIES = {"quiet": QUIET, "loaded": LOADED,
+          "load_ends": LOADED[:12] + QUIET[12:],
+          "load_begins": QUIET[:12] + LOADED[12:]}
+# the chunked engine's cost-model inputs (perf_report()["model_inputs"])
+MODEL_INPUTS = dict(weight_bytes=435456, n_params=108864,
+                    kv_token_bytes=512.0, num_slots=4)
+
+
+def _attribution(costmodel, metrics, eid):
+    model = costmodel.CostModel(costmodel.PROFILES["cpu_smoke"],
+                                **MODEL_INPUTS)
+    return costmodel.TickAttribution(model, engine_id=eid,
+                                     registry=metrics.MetricsRegistry())
+
+
+@pytest.mark.parametrize("name", list(SERIES))
+def test_drift_and_anomaly_gates_on_recorded_ticks_equal_to_jax(name):
+    """The smoke's drift and anomaly gates held deterministically: one
+    recorded series of tick times through the port's and the reference's
+    ``TickAttribution``: the same drift findings (bound, tick, band), the
+    same anomaly counts and the same perf signature; a steady host gives
+    none, a load that ends or begins mid-run gives drift."""
+    from paddle_tpu.observability import costmodel as jcm
+    from paddle_tpu.observability import metrics as jmetrics
+    from paddle_tpu_torch.observability import costmodel as tcm
+    from paddle_tpu_torch.observability import metrics as tmetrics
+
+    reps = []
+    for cm, metrics in ((tcm, tmetrics), (jcm, jmetrics)):
+        att = _attribution(cm, metrics, "0")
+        for ms, (occ, live, chunk) in zip(SERIES[name], TICK_SHAPES):
+            att.on_tick(ms, occ=occ, live_tokens=live, chunk_tokens=chunk)
+        reps.append(att.report())
+    got, want = reps
+    assert got["drift"] == want["drift"]
+    assert got["anomalies"] == want["anomalies"]
+    assert tlg._obs.perf_signature(got) == jcm.perf_signature(want)
+    if name in ("quiet", "loaded"):
+        assert not got["drift"] and not sum(got["anomalies"].values())
+    else:
+        assert len(got["drift"]) == 1
+    if name == "load_begins":
+        assert got["anomalies"]["tick_ms"] > 0
+
+
+# -- the multihost legs, against the reference's ---------------------------
+
+@pytest.fixture(scope="module")
+def smoke_pair():
+    """The smoke's model: the JAX package's (seed 7) and the port's
+    bridged from it."""
+    pt.seed(7)
+    jm = JaxLlama(jax_tiny())
+    jm.eval()
+    tm = LlamaForCausalLM(config_from(jm.config), device="cpu")
+    load_jax_state_dict(tm, {k: np.asarray(v) for k, v in
+                             jm.state_dict(include_buffers=True).items()})
+    tm.eval()
+    return jm, tm
+
+
+# the reference's fields the port's legs leave out: the lint and kernel
+# pre-flight findings (ROADMAP A11), and the federated signature, whose
+# metrics part counts jit traces where the port counts builds
+LEG_SKIP = {"multihost": ("lint_findings",),
+            "federated": ("signature",),
+            "spec_model": ("lint_findings", "kernel_findings")}
+
+
+@pytest.mark.parametrize("leg", list(LEG_SKIP))
+def test_smoke_leg_equal_to_reference(smoke_pair, leg):
+    jm, tm = smoke_pair
+    load = generate_load(tlg.smoke_spec(), seed=11)
+    jfail, tfail = [], []
+    want = getattr(jlg, f"_smoke_{leg}")(jm, load, jfail)
+    got = getattr(tlg, f"_smoke_{leg}")(tm, load, tfail, "cpu")
+    assert tfail == jfail == []
+    for k in LEG_SKIP[leg]:
+        want.pop(k)
+        got.pop(k, None)
+    assert got == want
 
 
 def test_smoke_runs_on_the_card_unless_asked(monkeypatch):
